@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of dnn_page_vectors_tpu for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference; every module here mirrors
+its counterpart's path and names (``models/transformer.py``,
+``infer/bulk_embed.py``, ...) so a reader finds each pair. This package
+imports torch and numpy only: never jax, flax, or anything of the JAX
+package.
+
+Ported so far: the BERT-mini serving path (WordPiece tokenize -> page tower
+bulk embed into the fp16 vector store -> store staged whole on the card ->
+query tower + exact top-k behind ``SearchService.search_many``), with the
+flash-attention forward as a hand-written CUDA kernel
+(``csrc/flash_fwd.cu``). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; with no GPU present they raise.
+"""

@@ -1,0 +1,129 @@
+"""Config dataclasses for the port: the fields the BERT-mini serving slice
+reads, with the JAX package's names and defaults (its config.py), the
+``bert_mini_v5p16`` preset, and ``get_config`` with dotted overrides.
+
+Sections and fields of later slices (training, mesh, index, fleet,
+maintenance, ...) join as those slices land; an override naming a field
+that is not here yet raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Host-side data pipeline settings."""
+    tokenizer: str = "trigram"       # trigram | word | wordpiece | sentencepiece
+    corpus: str = "toy"              # toy (jsonl:<path> is a later slice)
+    num_pages: int = 10_000          # corpus size (toy generator)
+    query_len: int = 16              # max tokens per query
+    page_len: int = 64               # max tokens per page
+    vocab_size: int = 30_000         # word / subword vocab size
+    languages: int = 1               # >1: cross-lingual toy corpus
+    num_topics: int = 64             # toy-corpus topics
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Encoder settings. This slice builds the `bert` encoder only."""
+    encoder: str = "cdssm"           # cdssm | kim_cnn | lstm | bert | t5
+    out_dim: int = 128               # final vector dimension (both towers)
+    num_layers: int = 4
+    num_heads: int = 4
+    mlp_dim: int = 1024
+    model_dim: int = 256
+    attention: str = "dense"         # dense | flash (CUDA kernel K1)
+    shared_towers: bool = False      # share params between the towers
+    dtype: str = "bfloat16"          # compute dtype; params stay float32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Only what the model factory reads; the trainer is a later slice."""
+    temperature_init: float = 20.0   # learnable inverse-temperature init
+    seed: int = 0                    # seeds the torch.Generator for init
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    recall_k: int = 10               # Recall@10 query->page
+    embed_batch_size: int = 512
+    store_shard_size: int = 65_536   # vector-store shard rows (fp16 store)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Serving knobs the lean SearchService reads."""
+    # "exact" = brute-force top-k over the whole store staged on the card;
+    # the IVF index is a later slice.
+    index: str = "exact"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    name: str = "custom"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+
+
+def _nested_replace(cfg: Config, overrides: Dict[str, Any]) -> Config:
+    """Apply dotted-path overrides, e.g. {"model.attention": "flash"}."""
+    for path, value in overrides.items():
+        parts = path.split(".")
+        if len(parts) == 1:
+            cfg = dataclasses.replace(cfg, **{parts[0]: value})
+            continue
+        section = getattr(cfg, parts[0])
+        if not hasattr(section, parts[1]):
+            raise KeyError(f"unknown config field {path!r} (not ported yet, "
+                           "or misspelled)")
+        # coerce CLI strings to the dataclass field's current type
+        current = getattr(section, parts[1])
+        if isinstance(current, bool):
+            if value in (True, "true", "True", "1", 1):
+                value = True
+            elif value in (False, "false", "False", "0", 0):
+                value = False
+            else:
+                raise ValueError(
+                    f"bad boolean for {path}: {value!r} (use true/false)")
+        elif isinstance(current, int):
+            value = int(value)
+        elif isinstance(current, float):
+            value = float(value)
+        section = dataclasses.replace(section, **{parts[1]: value})
+        cfg = dataclasses.replace(cfg, **{parts[0]: section})
+    return cfg
+
+
+def bert_mini_v5p16() -> Config:
+    """Config 3: two-tower BERT-mini (query + page) with in-batch negatives.
+    BERT-mini: L=4, d=256, A=4 (Dh=64), mlp 1024, out 256, WordPiece vocab
+    30,522, page_len 64, query_len 16."""
+    return Config(
+        name="bert_mini_v5p16",
+        data=DataConfig(tokenizer="wordpiece", corpus="toy",
+                        num_pages=10_000_000, vocab_size=30_522),
+        model=ModelConfig(encoder="bert", num_layers=4, num_heads=4,
+                          model_dim=256, mlp_dim=1024, out_dim=256),
+    )
+
+
+CONFIGS = {
+    "bert_mini_v5p16": bert_mini_v5p16,
+}
+
+
+def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
+    cfg = CONFIGS[name]()
+    if overrides:
+        cfg = _nested_replace(cfg, overrides)
+    return cfg

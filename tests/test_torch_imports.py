@@ -1,0 +1,104 @@
+"""The port stands alone: importing every module of dnn_page_vectors_tpu_torch
+(and chip_smoke.py) pulls in neither jax nor anything of the JAX package,
+and no import statement anywhere in them, lazy ones inside functions
+included, names one. Note the name prefix: the port's package starts with
+"dnn_page_vectors_tpu", so the check matches that module exactly or with a
+dot after it. Entry points resolve device=None to cuda and raise where no
+GPU is present; only an explicit "cpu" runs on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from dnn_page_vectors_tpu_torch.config import get_config
+from dnn_page_vectors_tpu_torch.utils.device import resolve_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "dnn_page_vectors_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dnn_page_vectors_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_prefix_match_is_exact():
+    assert _forbidden("dnn_page_vectors_tpu")
+    assert _forbidden("dnn_page_vectors_tpu.config")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("dnn_page_vectors_tpu_torch")
+    assert not _forbidden("dnn_page_vectors_tpu_torch.config")
+    assert not _forbidden("jaxtyping_like")
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, runpy, sys\n"
+        "import dnn_page_vectors_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        f"bad = [n for n in sys.modules if any(n == f or n.startswith(f + '.')"
+        f" for f in {FORBIDDEN!r})]\n"
+        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_import_statement_names_jax_or_the_jax_package():
+    seen = 0
+    for path in _sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            seen += 1
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{path}:{node.lineno} imports {bad}"
+    assert seen > 20
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_default_to_cuda():
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    cfg = get_config("bert_mini_v5p16", {"model.num_layers": 1,
+                                         "model.model_dim": 32,
+                                         "model.mlp_dim": 64,
+                                         "model.out_dim": 16})
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_two_tower(cfg, vocab_size=64)
+    model = build_two_tower(cfg, vocab_size=64, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
