@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (dnn_page_vectors_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--pages N] [--queries N] [--report PATH]
+    python3 chip_smoke.py [--report PATH]
 
 Phases, each printing one JSON line:
   1. device: the card, its power limit (nvidia-smi), torch and CUDA versions;
@@ -15,7 +15,7 @@ Phases, each printing one JSON line:
      weights from a seeded torch.Generator, flash attention) trains the
      30,522-piece WordPiece vocab over a 100,000-page toy corpus, bulk
      embeds every page into the fp16 store, stages the store on the card
-     and answers queries through SearchService. Every kernel launch counter
+     and answers 32 queries through SearchService. Every kernel launch counter
      is set to 0 just before and read just after; the results are checked
      against a plain full q @ store^T top-k and against dense attention.
 Then the `kernels` line, the card's name and power limit as nvidia-smi
@@ -48,6 +48,9 @@ K1_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_fwd.cu"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # single-query latency samples: enough that p95 has ten samples beyond it
 LATENCY_SAMPLES = 200
+# the slice's size: pages embedded into the store, queries in search_many
+N_PAGES = 100_000
+N_QUERIES = 32
 
 
 def emit(obj) -> None:
@@ -332,12 +335,17 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str) -> dict:
     dense_emb = BulkEmbedder(cfg, dense, p_tok, device=device)
     ids = to_device(p_tok.encode_batch(
         [corpus.page_text(i) for i in range(bs)]), device)
+    fa.launches = 0                 # K1 launches of one 512-page encode
     v_flash = emb.encode_pages(ids).float()
+    launches_per_batch = fa.launches
+    if launches_per_batch != m.num_layers:
+        raise AssertionError(f"one encode launched K1 {launches_per_batch} "
+                             f"times, want {m.num_layers} (one per layer)")
     v_dense = dense_emb.encode_pages(ids).float()
     flash_dense_err = (v_flash - v_dense).abs().max().item()
-    if not flash_dense_err <= 2e-2:
+    if not flash_dense_err <= 5e-3:
         raise AssertionError(f"flash vs dense page vectors differ by "
-                             f"{flash_dense_err} (bf16 tolerance 2e-2)")
+                             f"{flash_dense_err} (tolerance 5e-3)")
     stored_err = (pages[:bs] - v_flash).abs().max().item()
     if not stored_err <= 1e-3:
         raise AssertionError(f"store rows differ from a fresh encode of the "
@@ -366,16 +374,17 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str) -> dict:
                               if k.endswith("_s")},
         "encode_pages_per_s_device": bs / (dev_ms / 1e3),
         "encode_ms_per_512_batch": dev_ms,
-        # device busy share of the from-text sweep, from the measured
-        # per-batch device time (the sweep itself is not traced)
-        "embed_device_busy_share": n_batches * dev_ms / 1e3 / embed_s,
+        # an estimate, not traced: batches x the separately measured
+        # per-batch device time, over the sweep's wall time
+        "embed_device_busy_share_estimate": n_batches * dev_ms / 1e3 / embed_s,
         "encode_profile": encode_profile,
         "query_device_profile": query_profile,
         "queries": n_queries, "search_many_ms": batch_ms,
         "query_latency_samples": len(lat),
         "query_p50_ms": float(np.percentile(lat, 50)),
         "query_p95_ms": float(np.percentile(lat, 95)),
-        "k1_launches": launches, "k1_launches_per_encode": m.num_layers,
+        "k1_launches": launches,
+        "k1_launches_per_embed_batch": launches_per_batch,
         "topk_score_err": score_err, "topk_tie_swaps": mism,
         "flash_vs_dense_max_err": flash_dense_err,
         "store_vs_fresh_encode_err": stored_err,
@@ -388,8 +397,6 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--pages", type=int, default=100_000)
-    ap.add_argument("--queries", type=int, default=32)
     ap.add_argument("--report", default=None,
                     help="also write every phase's record to this JSON file")
     args = ap.parse_args()
@@ -425,12 +432,13 @@ def main() -> int:
     report["k1"] = k1
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
-        report["slice"] = run_slice(device, args.pages, args.queries, tmp)
+        report["slice"] = run_slice(device, N_PAGES, N_QUERIES, tmp)
 
     kernels = [{
         "name": "flash_fwd (K1)", "route": "cuda", "source": K1_SOURCE,
         "replaces": TPU_K1, "launches": report["slice"]["k1_launches"],
-        "launches_per_embed_batch": report["slice"]["k1_launches_per_encode"],
+        "launches_per_embed_batch":
+            report["slice"]["k1_launches_per_embed_batch"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"],
         "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -100,16 +100,14 @@ class BulkEmbedder:
         return host, ev
 
     def embed_corpus(self, corpus, store: VectorStore,
-                     batch_size: Optional[int] = None, resume: bool = True,
-                     start: int = 0, stop: Optional[int] = None
+                     batch_size: Optional[int] = None, resume: bool = True
                      ) -> VectorStore:
         """Sweep the corpus into the store, one store shard at a time.
 
         Resume: completed shards are recorded in the store manifest (after
         their files are durably written) and skipped on restart; a shard
         whose bytes no longer match its record is quarantined first and
-        re-embedded. `start`/`stop` restrict the sweep to a shard-aligned
-        page range. Sets ``self.stats``: pages, seconds, pages_per_sec and
+        re-embedded. Sets ``self.stats``: pages, seconds, pages_per_sec and
         the seconds spent producing batches on the host (read + tokenize),
         waiting on the device's results, and writing shards."""
         bs = batch_size or self.cfg.eval.embed_batch_size
@@ -117,14 +115,6 @@ class BulkEmbedder:
         if shard_size % bs and shard_size < corpus.num_pages:
             raise ValueError(f"store shard_size {shard_size} must be a "
                              f"multiple of the batch size {bs}")
-        stop = corpus.num_pages if stop is None else min(stop, corpus.num_pages)
-        if start % shard_size:
-            raise ValueError(f"start={start} must be a multiple of the store "
-                             f"shard_size {shard_size}")
-        if stop % shard_size and stop != corpus.num_pages:
-            raise ValueError(f"stop={stop} must be shard-aligned (multiple of "
-                             f"{shard_size}) or the corpus end "
-                             f"{corpus.num_pages}")
         if resume:
             store.verify()
         done = store.completed_shards() if resume else set()
@@ -133,7 +123,7 @@ class BulkEmbedder:
         t = {"produce": 0.0, "device_wait": 0.0, "write": 0.0}
         t0 = time.perf_counter()
         pages = 0
-        for si in range(start // shard_size, -(-stop // shard_size)):
+        for si in range(-(-corpus.num_pages // shard_size)):
             if si in done:
                 continue
             lo = si * shard_size
