@@ -5,19 +5,28 @@
 
 Phases, each printing one JSON line:
   1. device: the card, its power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every CUDA kernel of the serving path is compiled with nvcc for
-     sm_90a from the sources in the checkout (build/torch_kernels/);
+  2. build: every CUDA source of the two paths (K1 in flash_fwd.cu, K2 and
+     K3 in flash_bwd.cu) is compiled with nvcc for sm_90a from the checkout
+     (build/torch_kernels/), one nvcc per source, all started together;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the serving path's shapes and the contract's edge cases, with
-     the tolerance stated; plus its time, the plain version's, one PyTorch
+     card, at the paths' shapes and the contract's edge cases, with the
+     tolerance stated; plus its time, the plain version's, one PyTorch
      library call's (a yardstick the port never calls) and its bound;
-  4. the slice: BERT-mini (config bert_mini_v5p16, full width, random
+  4. serving: BERT-mini (config bert_mini_v5p16, full width, random
      weights from a seeded torch.Generator, flash attention) trains the
      30,522-piece WordPiece vocab over a 100,000-page toy corpus, bulk
      embeds every page into the fp16 store, stages the store on the card
-     and answers 32 queries through SearchService. Every kernel launch counter
-     is set to 0 just before and read just after; the results are checked
-     against a plain full q @ store^T top-k and against dense attention.
+     and answers 32 queries through SearchService. Every kernel launch
+     counter is set to 0 just before and read just after; the results are
+     checked against a plain full q @ store^T top-k and against dense
+     attention;
+  5. training: a flash-attention Trainer at full width takes 6 steps of
+     8,192 pages from the same corpus through Trainer.train (counted:
+     K1, K2 and K3 launch 8 times a step), then 6 steps on pre-made
+     batches are timed (the first 2 warm up) and one is profiled by kernel
+     class; flash gradients are held against dense ones, two runs of one
+     step must give bitwise equal gradients, and 3 steps + save + restore
+     into a fresh Trainer + 3 steps must give the losses of 6 straight.
 Then the `kernels` line, the card's name and power limit as nvidia-smi
 prints them, and last {"ok": true, "device": {...}}.
 
@@ -34,6 +43,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,13 +55,34 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TPU_K1 = "dnn_page_vectors_tpu/ops/flash_attention.py:98"
+TPU_K2 = "dnn_page_vectors_tpu/ops/flash_attention.py:172"
+TPU_K3 = "dnn_page_vectors_tpu/ops/flash_attention.py:212"
 K1_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_fwd.cu"
+K23_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_bwd.cu"
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# gradients: 1e-4 relative + 1e-5 absolute in f32 (the JAX flash tests'),
+# 2e-2 in bf16
+GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 # single-query latency samples: enough that p95 has ten samples beyond it
 LATENCY_SAMPLES = 200
 # the slice's size: pages embedded into the store, queries in search_many
 N_PAGES = 100_000
 N_QUERIES = 32
+# the training phase: pages per step (the config's batch), steps of which
+# the first TRAIN_WARMUP are not timed; flash vs dense gradient bounds
+# (relative error of each gradient tensor): bf16 rounds at other places
+# in the two paths (dense rounds the probabilities and its output to
+# bf16, flash keeps both in f32), which f32 towers do not; and the resume
+# loss bound
+TRAIN_BATCH = 8_192
+TRAIN_STEPS = 6
+TRAIN_WARMUP = 2
+FLASH_DENSE_GRAD_TOL = 2.5e-2
+FLASH_DENSE_GRAD_TOL_F32 = 1e-4
+F32_ROWS = 1_024                 # the f32 comparison's share of the batch
+KEY_BIAS_GRAD_TOL = 1e-2
+RESUME_LOSS_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -83,10 +115,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # -- phase 3: K1 against its plain version ----------------------------------
 
 def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
-              seg=False):
+              seg=False, strided=False):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn(B, H, n, Dh, generator=g).to(device, dtype)
-               for n in (L, S, S))
+    if strided:      # [B, len, H, Dh] viewed as [B, H, len, Dh], as the
+        q, k, v = (torch.randn(B, n, H, Dh, generator=g)   # towers pass it
+                   .to(device, dtype).transpose(1, 2) for n in (L, S, S))
+    else:
+        q, k, v = (torch.randn(B, H, n, Dh, generator=g).to(device, dtype)
+                   for n in (L, S, S))
     lens = torch.randint(1, S + 1, (B,), generator=g)
     if pad == "none":
         lens[:] = S
@@ -191,10 +227,142 @@ def check_k1(device, timed_case: str) -> dict:
     return {"max_abs_err": max(worst.values()), "worst": worst, **t, **b}
 
 
+# -- phase 3: K2 and K3 against the plain backward ---------------------------
+
+def k23_inputs(device, seed, **case):
+    """K1's inputs plus an upstream gradient g (f32, laid out like the
+    towers hand it over when q is strided) and K1's out and lse."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    x = k1_inputs(device=device, seed=seed, **case)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1000)
+    B, H, L, Dh = x["q"].shape
+    if case.get("strided"):
+        g = torch.randn(B, L, H, Dh, generator=gen).to(device).transpose(1, 2)
+    else:
+        g = torch.randn(B, H, L, Dh, generator=gen).to(device)
+    with torch.no_grad():
+        out, lse = fa.flash_forward(x["q"], x["k"], x["v"], x["kv_mask"])
+    return {"q": x["q"], "k": x["k"], "v": x["v"], "kv_mask": x["kv_mask"],
+            "g": g, "out": out, "lse": lse}
+
+
+def k23_bound(x) -> dict:
+    """Least time of K2 and of K3 for these inputs: each input read once,
+    each output written once, against the operations each does (2 flops
+    per multiply-add) at the peak rate of q's type."""
+    q, k = x["q"], x["k"]
+    B, H, L, Dh = q.shape
+    S = k.shape[2]
+    nb = lambda t: t.numel() * t.element_size()
+    row = B * H * L * 4                                  # lse or delta, f32
+    mask = nb(x["kv_mask"])
+    k2_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + nb(x["out"]) + row
+                + mask + nb(q) + row)                    # + dq, delta
+    k3_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + 2 * row + mask
+                + nb(k) + nb(x["v"]))                    # + dk, dv
+    mac = 2.0 * B * H * L * S * Dh                       # one [L,S,Dh] product
+    out = {}
+    for name, nbytes, flops in (("k2", k2_bytes, 3 * mac),     # s, dp, dq
+                                ("k3", k3_bytes, 4 * mac)):    # s, dp, dk, dv
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+        out[name] = {"bytes": nbytes, "flops": flops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
+
+
+def check_k23(device, timed_case: str) -> dict:
+    """K2 + K3 (through flash_backward) vs reference_backward on every
+    case; each kernel timed alone at the page tower's training shape."""
+    import torch.nn.functional as F
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    cases = {
+        "page_train_bf16": dict(B=TRAIN_BATCH, H=4, L=64, S=64, Dh=64,
+                                dtype=torch.bfloat16, strided=True),
+        "query_train_bf16": dict(B=TRAIN_BATCH, H=4, L=16, S=16, Dh=64,
+                                 dtype=torch.bfloat16, strided=True),
+        "ragged_L37_S53": dict(B=8, H=4, L=37, S=53, Dh=64,
+                               dtype=torch.bfloat16),
+        "fully_masked_rows": dict(B=16, H=4, L=64, S=64, Dh=64,
+                                  dtype=torch.bfloat16, pad="masked_rows"),
+        "train_f32": dict(B=512, H=4, L=64, S=64, Dh=64,
+                          dtype=torch.float32, strided=True),
+        "long_S300_Dh128_f32": dict(B=2, H=2, L=300, S=300, Dh=128,
+                                    dtype=torch.float32),
+    }
+    worst = {}
+    for i, (name, c) in enumerate(cases.items()):
+        x = k23_inputs(device, seed=200 + i, **c)
+        args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"],
+                x["lse"])
+        got = fa.flash_backward(*args)
+        torch.cuda.synchronize()
+        want = fa.reference_backward(*args)
+        rtol, atol = GRAD_TOL[c["dtype"]]
+        errs, ok = {}, True
+        for gname, a, b, t in zip(("dq", "dk", "dv"), got, want,
+                                  (x["q"], x["k"], x["v"])):
+            a, b = a.float(), b.float()
+            errs[gname] = (a - b).abs().max().item()
+            excess = ((a - b).abs() - (atol + rtol * b.abs())).max().item()
+            ok = (ok and excess <= 0 and bool(torch.isfinite(a).all())
+                  and a.shape == t.shape)
+        if c.get("pad") == "masked_rows":     # rows 0, 2, ... see no key
+            S = x["k"].shape[2]
+            dv_want = (x["g"][0::2].sum(dim=2, keepdim=True) / S
+                       ).expand_as(got[2][0::2])
+            errs["masked_dv"] = (got[2][0::2].float() - dv_want
+                                 ).abs().max().item()
+            ok = (ok and errs["masked_dv"] <= atol + rtol
+                  * dv_want.abs().max().item()
+                  and not got[0][0::2].any() and not got[1][0::2].any())
+        rec = {"phase": "k23_check", "case": name,
+               "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
+               "dtype": str(c["dtype"]).replace("torch.", ""),
+               "max_abs_err": errs, "rtol": rtol, "atol": atol, "ok": ok}
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"K2/K3 disagree with reference_backward: "
+                                 f"{rec}")
+        worst[name] = {"k2": errs["dq"], "k3": max(errs["dk"], errs["dv"])}
+        del x, got, want
+    c = cases[timed_case]
+    x = k23_inputs(device, seed=300, **c)
+    q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
+    _, delta = fa.launch_dq(q, k, v, mask, g, x["out"], x["lse"])
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask[:, None, None, :])
+    g_lib = g.to(sdpa_out.dtype)
+    t = {
+        "k2_ms": cuda_ms(lambda: fa.launch_dq(q, k, v, mask, g, x["out"],
+                                              x["lse"])),
+        "k3_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, x["lse"],
+                                               delta)),
+        "k2_k3_ms": cuda_ms(lambda: fa.flash_backward(
+            q, k, v, mask, g, x["out"], x["lse"])),
+        "plain_ms": cuda_ms(lambda: fa.reference_backward(
+            q, k, v, mask, g, x["out"], x["lse"]), iters=5),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), g_lib, retain_graph=True)),
+    }
+    b = k23_bound(x)
+    rec = {"phase": "k23_timing", "case": timed_case,
+           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
+           "bound": b,
+           "plain_call": "reference_backward (K2 and K3 together)",
+           "library_call": "autograd backward of torch.nn.functional."
+                           "scaled_dot_product_attention (bool mask), "
+                           "against K2 + K3 together"}
+    emit(rec)
+    return {"worst": worst, "bound": b, **t}
+
+
 def device_breakdown(fn, iters: int = 5) -> dict:
     """Device time of fn() by kernel class, from torch.profiler (CUPTI):
-    per-call milliseconds of K1, of matrix products, and of the rest, plus
-    the six largest kernels by name."""
+    per-call milliseconds of K1, K2, K3, of matrix products, and of the
+    rest, plus the six largest kernels by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -209,11 +377,16 @@ def device_breakdown(fn, iters: int = 5) -> dict:
                and e.self_device_time_total > 0]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
-    classes = {"k1_flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"k1_flash_fwd": 0.0, "k2_flash_bwd_dq": 0.0,
+               "k3_flash_bwd_dkv": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in kernels:
         low = name.lower()
         if "flash_fwd" in low:
             classes["k1_flash_fwd"] += ms
+        elif "flash_bwd_dq" in low:
+            classes["k2_flash_bwd_dq"] += ms
+        elif "flash_bwd_dkv" in low:
+            classes["k3_flash_bwd_dkv"] += ms
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
             classes["matmul"] += ms
         else:
@@ -226,10 +399,29 @@ def device_breakdown(fn, iters: int = 5) -> dict:
 
 # -- phase 4: the serving slice ---------------------------------------------
 
-def run_slice(device, n_pages: int, n_queries: int, workdir: str) -> dict:
+def build_data(n_pages: int):
+    """The toy corpus and the WordPiece tokenizers trained on it (the
+    serving and training phases share them)."""
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.loader import (
-        build_corpus, build_tokenizer, to_device)
+        build_corpus, build_tokenizer)
+    cfg = get_config("bert_mini_v5p16", {"data.num_pages": n_pages})
+    t0 = time.perf_counter()
+    corpus = build_corpus(cfg)
+    q_tok, p_tok = build_tokenizer(cfg, corpus)
+    tok_s = time.perf_counter() - t0
+    if p_tok.vocab_size != cfg.data.vocab_size:
+        raise AssertionError(f"vocab {p_tok.vocab_size} != "
+                             f"{cfg.data.vocab_size}")
+    emit({"phase": "tokenizer", "vocab_size": p_tok.vocab_size,
+          "train_s": tok_s, "corpus_pages": n_pages})
+    return corpus, q_tok, p_tok
+
+
+def run_slice(device, n_pages: int, n_queries: int, workdir: str,
+              data) -> dict:
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import to_device
     from dnn_page_vectors_tpu_torch.evals.recall import recall_at_k
     from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
     from dnn_page_vectors_tpu_torch.infer.serve import SearchService
@@ -243,15 +435,7 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str) -> dict:
                  "eval.embed_batch_size": 512}
     cfg = get_config("bert_mini_v5p16", overrides)
     m = cfg.model
-    t0 = time.perf_counter()
-    corpus = build_corpus(cfg)
-    q_tok, p_tok = build_tokenizer(cfg, corpus)
-    tok_s = time.perf_counter() - t0
-    if p_tok.vocab_size != cfg.data.vocab_size:
-        raise AssertionError(f"vocab {p_tok.vocab_size} != "
-                             f"{cfg.data.vocab_size}")
-    emit({"phase": "tokenizer", "vocab_size": p_tok.vocab_size,
-          "train_s": tok_s, "corpus_pages": n_pages})
+    corpus, q_tok, p_tok = data
 
     model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
     emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
@@ -395,6 +579,240 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str) -> dict:
     return rec
 
 
+# -- phase 5: the training slice --------------------------------------------
+
+def _grads(model, batch, generator=None) -> dict:
+    """Parameter gradients of the contrastive loss on one batch."""
+    from dnn_page_vectors_tpu_torch.models.losses import (
+        cosine_contrastive_loss)
+    model.zero_grad(set_to_none=True)
+    q, p, neg, scale = model(batch["query"], batch["page"], None,
+                             generator=generator)
+    loss, _ = cosine_contrastive_loss(q, p, scale, neg)
+    loss.backward()
+    return {n: t.grad.detach().clone() for n, t in model.named_parameters()}
+
+
+def flash_vs_dense(overrides, vocab, batch, device, dtype) -> dict:
+    """Parameter gradients of flash and dense towers with the same seeded
+    weights, dropout off, at model.dtype `dtype`: the largest relative
+    error ||flash - dense|| / ||dense|| over the gradient tensors.
+
+    A key bias shifts every score of a query row by the same q.b, which
+    the softmax ignores: its exact gradient is 0 and both versions hold
+    rounding noise there, so it is held to a bound relative to its layer's
+    wk.weight gradient instead of to itself."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    grads, state = {}, None
+    for att in ("flash", "dense"):
+        c = get_config("bert_mini_v5p16", {
+            **overrides, "model.attention": att, "model.dropout": 0.0,
+            "model.dtype": dtype})
+        tower = build_two_tower(c, vocab_size=vocab, device=device).train()
+        if state is None:
+            state = tower.state_dict()
+        tower.load_state_dict(state)
+        grads[att] = _grads(tower, batch)
+        del tower
+    rel, key_bias = {}, {}
+    for n, g in grads["dense"].items():
+        f = grads["flash"][n]
+        if n.endswith(".attn.wk.bias"):
+            ref = grads["dense"][n[:-len("bias")] + "weight"].norm().item()
+            key_bias[n] = max(f.norm().item(), g.norm().item()) / ref
+        else:
+            rel[n] = ((f - g).norm() / g.norm().clamp_min(1e-30)).item()
+    for n in ("wq", "wk", "wv"):
+        name = f"page_tower.block0.attn.{n}.weight"
+        if not grads["flash"][name].abs().max().item() > 0:
+            raise AssertionError(f"{name} got no gradient through flash")
+    worst = max(rel, key=rel.get)
+    return {"max_rel_err": rel[worst], "worst_tensor": worst,
+            "key_bias_over_wk": max(key_bias.values())}
+
+
+def run_training(device, data, workdir: str) -> dict:
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import TrainBatcher, to_device
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    from dnn_page_vectors_tpu_torch.train.checkpoint import CheckpointManager
+    from dnn_page_vectors_tpu_torch.train.loop import (
+        Trainer, dropout_generator)
+
+    corpus, q_tok, p_tok = data
+    overrides = {"model.attention": "flash",
+                 "data.num_pages": corpus.num_pages, "train.log_every": 1}
+    cfg = get_config("bert_mini_v5p16", overrides)
+    m, t = cfg.model, cfg.train
+    if t.batch_size != TRAIN_BATCH:
+        raise AssertionError(f"config batch {t.batch_size} != {TRAIN_BATCH}")
+    per_step = 2 * m.num_layers          # one launch per layer per tower
+
+    def new_trainer():
+        return Trainer(cfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                       device=device)
+
+    def counts():
+        return [fa.launches, fa.dq_launches, fa.dkv_launches]
+
+    # ---- the main path, counted: Trainer.train from text ---------------
+    trainer = new_trainer()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    t0 = time.perf_counter()
+    trainer.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts()
+    # ------------------------------------------------------------------
+    if launches != [TRAIN_STEPS * per_step] * 3:
+        raise AssertionError(f"K1/K2/K3 launched {launches} times in "
+                             f"{TRAIN_STEPS} steps, want "
+                             f"{TRAIN_STEPS * per_step} each")
+    hist = trainer.history
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite([h["loss"], h["grad_norm"]]).all() and h["loss"] > 0
+            for h in hist):
+        raise AssertionError(f"training metrics are not finite: {hist}")
+
+    # ---- device timing on pre-made batches ---------------------------------
+    t0 = time.perf_counter()
+    host = [b for _, b in zip(range(TRAIN_STEPS), TrainBatcher(
+        corpus, q_tok, p_tok, batch_size=t.batch_size, seed=t.seed))]
+    produce_s = time.perf_counter() - t0
+    batches = [{k: to_device(v, device) for k, v in b.items()} for b in host]
+    straight = new_trainer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, enqueue_ms, wall_ms = [], [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        start.record()
+        metrics = straight.train_step(b)
+        enqueue_ms.append((time.perf_counter() - w0) * 1e3)
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - w0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    main_diff = float(np.abs(np.array(losses)
+                             - np.array([h["loss"] for h in hist])).max())
+    if not main_diff <= RESUME_LOSS_TOL:
+        raise AssertionError(f"the timed run's losses {losses} differ from "
+                             f"Trainer.train's {[h['loss'] for h in hist]}")
+    med = float(np.median(step_ms[TRAIN_WARMUP:]))
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    straight.train_step(batches[0])
+    torch.cuda.synchronize()
+    one_step = counts()
+    if one_step != [per_step] * 3:
+        raise AssertionError(f"one step launched K1/K2/K3 {one_step} times, "
+                             f"want {per_step} each")
+    profile = device_breakdown(lambda: straight.train_step(batches[1]),
+                               iters=1)
+    # where the host waits for the device inside a step: PyTorch warns at
+    # each synchronizing call while the sync debug mode is on
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            straight.train_step(batches[2])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    torch.cuda.synchronize()
+
+    # ---- resume: 3 steps, save, restore into a fresh Trainer, 3 steps ------
+    first = new_trainer()
+    for b in batches[:3]:
+        first.train_step(b)
+    ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=1)
+    first.save(ckpt)
+    resumed = new_trainer()
+    if resumed.restore(ckpt) != 3:
+        raise AssertionError("restored the wrong step")
+    resumed_losses = [float(resumed.train_step(b)["loss"])
+                      for b in batches[3:]]
+    resume_diff = float(np.abs(np.array(resumed_losses)
+                               - np.array(losses[3:])).max())
+    if not resume_diff <= RESUME_LOSS_TOL:
+        raise AssertionError(f"resumed losses {resumed_losses} differ from "
+                             f"straight {losses[3:]} by {resume_diff}")
+    del first, resumed, trainer
+
+    # ---- bitwise: one step's gradients twice, dropout on ---------------------
+    g1 = _grads(straight.model, batches[2],
+                dropout_generator(t.seed, 0, device))
+    g2 = _grads(straight.model, batches[2],
+                dropout_generator(t.seed, 0, device))
+    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    if differ:
+        raise AssertionError(f"two runs of one step gave different "
+                             f"gradients for {differ}")
+    del g1, g2
+
+    # ---- flash vs dense gradients, dropout off, the seeded weights ----------
+    bf16 = flash_vs_dense(overrides, p_tok.vocab_size, batches[2], device,
+                          "bfloat16")
+    f32_batch = {k: v[:F32_ROWS] for k, v in batches[2].items()}
+    f32 = flash_vs_dense(overrides, p_tok.vocab_size, f32_batch, device,
+                         "float32")
+    for rec, tol in ((bf16, FLASH_DENSE_GRAD_TOL),
+                     (f32, FLASH_DENSE_GRAD_TOL_F32)):
+        if not rec["max_rel_err"] <= tol:
+            raise AssertionError(f"flash vs dense gradients differ: {rec} "
+                                 f"(bound {tol})")
+        if not rec["key_bias_over_wk"] <= KEY_BIAS_GRAD_TOL:
+            raise AssertionError(f"a key-bias gradient (exactly 0 in exact "
+                                 f"arithmetic) is not small: {rec}")
+
+    rec = {
+        "phase": "train", "config": cfg.name, "attention": m.attention,
+        "layers": m.num_layers, "model_dim": m.model_dim, "heads": m.num_heads,
+        "mlp_dim": m.mlp_dim, "out_dim": m.out_dim,
+        "vocab": p_tok.vocab_size, "batch_pages": t.batch_size,
+        "steps": TRAIN_STEPS,
+        "train_pages_per_s_from_text": TRAIN_STEPS * t.batch_size / train_s,
+        "train_s": train_s,
+        "host_batch_produce_s": produce_s / TRAIN_STEPS,
+        "median_step_ms": med,
+        "step_ms_cuda_events": step_ms,
+        "train_pages_per_s_device": t.batch_size / (med / 1e3),
+        # the host's time to issue a step includes any wait for the device:
+        # at a synchronizing call (host_syncs_in_one_step lists those the
+        # sync debug mode sees) or at a full launch queue
+        "host_enqueue_ms": enqueue_ms, "step_wall_ms": wall_ms,
+        "host_syncs_in_one_step": syncs,
+        # share of the step in which the device runs no kernel, i.e. waits
+        # for the host: 1 - profiled kernel time / CUDA-event step time
+        "host_share": 1.0 - profile["device_ms_per_call"] / med,
+        "device_busy_share": profile["device_ms_per_call"] / med,
+        "peak_memory_gb": peak_gb,
+        "step_profile": profile,
+        "launches_main_path": {"k1": launches[0], "k2": launches[1],
+                               "k3": launches[2]},
+        "launches_one_step": {"k1": one_step[0], "k2": one_step[1],
+                              "k3": one_step[2]},
+        "losses": losses, "history": hist,
+        "timed_vs_main_path_loss_max_diff": main_diff,
+        "resume_loss_max_diff": resume_diff,
+        "resume_loss_tol": RESUME_LOSS_TOL,
+        "bitwise_equal_grads": True,
+        "flash_vs_dense_grads_bf16": {**bf16, "tol": FLASH_DENSE_GRAD_TOL},
+        "flash_vs_dense_grads_f32": {**f32, "tol": FLASH_DENSE_GRAD_TOL_F32,
+                                     "rows": F32_ROWS},
+        "key_bias_grad_tol": KEY_BIAS_GRAD_TOL,
+        "device": torch.cuda.get_device_name(0),
+    }
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
@@ -420,30 +838,65 @@ def main() -> int:
                          "cuda": torch.version.cuda}}
     emit({"phase": "device", **report["device"]})
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.load_library("flash_fwd.cu")
-    secs, log = build.BUILD_INFO.get("flash_fwd.cu", (0.0, "cached"))
-    report["build"] = {"flash_fwd.cu": {"s": time.perf_counter() - t0,
-                                        "nvcc_s": secs}}
-    emit({"phase": "build", "source": K1_SOURCE, "arch": "sm_90a",
-          "seconds": time.perf_counter() - t0, "ptxas": log[-1500:]})
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for f in [pool.submit(build.compile_source, src) for src in SOURCES]:
+            f.result()
+    report["build"] = {}
+    for src in SOURCES:
+        build.load_library(src)
+        secs, log = build.BUILD_INFO.get(src, (0.0, "cached"))
+        report["build"][src] = {"nvcc_s": secs}
+        emit({"phase": "build", "source": src, "arch": "sm_90a",
+              "nvcc_seconds": secs, "ptxas": log[-1500:]})
+    emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
 
     k1 = check_k1(device, "embed_bf16")
     report["k1"] = k1
+    k23 = check_k23(device, "page_train_bf16")
+    report["k23"] = k23
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
-        report["slice"] = run_slice(device, N_PAGES, N_QUERIES, tmp)
+        data = build_data(N_PAGES)
+        report["slice"] = run_slice(device, N_PAGES, N_QUERIES, tmp, data)
+        report["train"] = run_training(device, data, tmp)
 
+    serve, train = report["slice"], report["train"]
+    train_launches = train["launches_main_path"]
+    pair = {"k2_k3_ms": k23["k2_k3_ms"]}
+    shape = f"B={TRAIN_BATCH} H=4 L=S=64 Dh=64 bf16 q/k/v, f32 g"
     kernels = [{
         "name": "flash_fwd (K1)", "route": "cuda", "source": K1_SOURCE,
-        "replaces": TPU_K1, "launches": report["slice"]["k1_launches"],
-        "launches_per_embed_batch":
-            report["slice"]["k1_launches_per_embed_batch"],
+        "replaces": TPU_K1,
+        "launches": serve["k1_launches"] + train_launches["k1"],
+        "launches_by_path": {"serving": serve["k1_launches"],
+                             "training": train_launches["k1"]},
+        "launches_per_embed_batch": serve["k1_launches_per_embed_batch"],
+        "launches_per_train_step": train["launches_one_step"]["k1"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"],
         "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
-        "shape": "B=512 H=4 L=S=64 Dh=64 bf16"}]
+        "shape": "B=512 H=4 L=S=64 Dh=64 bf16"}, {
+        "name": "flash_bwd_dq (K2)", "route": "cuda", "source": K23_SOURCE,
+        "replaces": TPU_K2, "launches": train_launches["k2"],
+        "launches_per_train_step": train["launches_one_step"]["k2"],
+        "max_abs_err": max(w["k2"] for w in k23["worst"].values()),
+        "ms": k23["k2_ms"], "plain_ms": k23["plain_ms"],
+        "bound_ms": k23["bound"]["k2"]["bound_ms"],
+        "bound_by": k23["bound"]["k2"]["bound_by"],
+        "library_ms": k23["library_ms"], **pair, "shape": shape,
+        "plain_and_library_cover": "K2 and K3 together"}, {
+        "name": "flash_bwd_dkv (K3)", "route": "cuda", "source": K23_SOURCE,
+        "replaces": TPU_K3, "launches": train_launches["k3"],
+        "launches_per_train_step": train["launches_one_step"]["k3"],
+        "max_abs_err": max(w["k3"] for w in k23["worst"].values()),
+        "ms": k23["k3_ms"], "plain_ms": k23["plain_ms"],
+        "bound_ms": k23["bound"]["k3"]["bound_ms"],
+        "bound_by": k23["bound"]["k3"]["bound_by"],
+        "library_ms": k23["library_ms"], **pair, "shape": shape,
+        "plain_and_library_cover": "K2 and K3 together"}]
     report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -8,8 +8,10 @@ package.
 
 Ported so far: the BERT-mini serving path (WordPiece tokenize -> page tower
 bulk embed into the fp16 vector store -> store staged whole on the card ->
-query tower + exact top-k behind ``SearchService.search_many``), with the
-flash-attention forward as a hand-written CUDA kernel
-(``csrc/flash_fwd.cu``). Entry points run on ``cuda`` unless the caller
+query tower + exact top-k behind ``SearchService.search_many``) and its
+training path (``train/loop.py:Trainer``: TrainBatcher -> both towers ->
+cosine-contrastive loss -> backward -> clip + AdamW -> checkpoints), with
+the flash-attention forward and backward as hand-written CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU present they raise.
 """

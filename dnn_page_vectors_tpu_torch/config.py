@@ -1,10 +1,11 @@
-"""Config dataclasses for the port: the fields the BERT-mini serving slice
-reads, with the JAX package's names and defaults (its config.py), the
-``bert_mini_v5p16`` preset, and ``get_config`` with dotted overrides.
+"""Config dataclasses for the port: the fields the BERT-mini serving and
+training slices read, with the JAX package's names and defaults (its
+config.py), the ``bert_mini_v5p16`` preset, and ``get_config`` with dotted
+overrides.
 
-Sections and fields of later slices (training, mesh, index, fleet,
-maintenance, ...) join as those slices land; an override naming a field
-that is not here yet raises.
+Sections and fields of later slices (mesh, scan_steps, packing, index,
+fleet, maintenance, ...) join as those slices land; an override naming a
+field that is not here yet raises.
 """
 from __future__ import annotations
 
@@ -35,16 +36,32 @@ class ModelConfig:
     num_heads: int = 4
     mlp_dim: int = 1024
     model_dim: int = 256
-    attention: str = "dense"         # dense | flash (CUDA kernel K1)
+    dropout: float = 0.1             # embedding, attention and MLP outputs
+    attention: str = "dense"         # dense | flash (CUDA kernels K1-K3)
     shared_towers: bool = False      # share params between the towers
     dtype: str = "bfloat16"          # compute dtype; params stay float32
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Only what the model factory reads; the trainer is a later slice."""
+    """Trainer settings (train/loop.py). One process on one card: the
+    batch is the whole global batch."""
+    batch_size: int = 256            # pages (and queries) per step
+    steps: int = 1_000
+    optimizer: str = "adamw"         # adamw | sgd
+    learning_rate: float = 1e-3      # peak of the warmup-cosine schedule
+    warmup_steps: int = 100
+    weight_decay: float = 0.01
     temperature_init: float = 20.0   # learnable inverse-temperature init
-    seed: int = 0                    # seeds the torch.Generator for init
+    hard_negatives: int = 0          # mined negatives per positive (mining
+                                     # is a later slice; the loss takes them)
+    checkpoint_every: int = 500
+    log_every: int = 50
+    # >0: the chunked contrastive loss (models/losses.py) scores this many
+    # query rows at a time, so the [B, B] logits never exist at once. Must
+    # divide batch_size. 0 = the dense loss.
+    loss_chunk: int = 0
+    seed: int = 0                    # weights, data order and dropout masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +129,8 @@ def bert_mini_v5p16() -> Config:
                         num_pages=10_000_000, vocab_size=30_522),
         model=ModelConfig(encoder="bert", num_layers=4, num_heads=4,
                           model_dim=256, mlp_dim=1024, out_dim=256),
+        train=TrainConfig(batch_size=8_192, steps=100_000,
+                          learning_rate=5e-4),
     )
 
 

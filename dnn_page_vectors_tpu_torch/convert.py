@@ -12,6 +12,11 @@ state dict for the port's module of the same structure:
 Module paths are joined with dots (``query_tower/block0/attn/wq`` ->
 ``query_tower.block0.attn.wq``), which is how the port names its modules.
 ``flax_from_state_dict`` is the inverse.
+
+``adamw_state_from_optax`` carries training state across: the optax state
+of ``chain(clip_by_global_norm, adamw)`` (numpy leaves) becomes the state
+of the port's optimizer (train/optimizer.py), so a run trained in JAX can
+continue in the port.
 """
 from __future__ import annotations
 
@@ -68,3 +73,33 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.array(arr, order="C")
     return {"params": params}
+
+
+def _find_adam_state(state: Any):
+    """The ScaleByAdamState inside an optax chain state: the one node with
+    ``count``, ``mu`` and ``nu`` (found by its fields, so optax itself is
+    not imported)."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_optax(opt_state: Any) -> Dict[str, Any]:
+    """optax ``chain(clip_by_global_norm(1.0), adamw(...))`` state, with
+    numpy leaves, -> ``ClippedOptimizer.state_dict()`` form: {"count": int,
+    "mu": {name: tensor}, "nu": {name: tensor}}. The moments' trees are
+    flax parameter trees and map like the parameters (Dense kernels
+    transposed). The adam count is the number of updates made, which is
+    also the schedule's position."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in the optax state: "
+                         "want the state of chain(clip_by_global_norm, adamw)")
+    return {"count": int(np.asarray(adam.count)),
+            "mu": params_from_flax(adam.mu),
+            "nu": params_from_flax(adam.nu)}

@@ -1,15 +1,18 @@
 """Host half of the data pipeline: corpus and tokenizer construction, the
-fixed-order bulk-embed sweep, and the host->device copy.
+shuffled train batches, the fixed-order bulk-embed sweep, and the
+host->device copy.
 
 Counterpart of the JAX package's data/loader.py. The host->device copy goes
 through pinned memory with ``non_blocking=True``, so a copy overlaps the
 host work that follows it; the JAX package's ``prefetch_to_device`` has no
-counterpart here. The train batcher and sequence packing are later slices.
+counterpart here. The train batcher is single-process with a serial
+producer: the tokenizer worker pool, multi-host slices and sequence
+packing are later slices.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -75,6 +78,70 @@ def build_tokenizer(cfg: Config, corpus, cache_dir: Optional[str] = None):
             tok.save(cache)
     q = SubwordTokenizer(tok.vocab, style=tok.style, max_tokens=d.query_len)
     return q, tok
+
+
+class TrainBatcher:
+    """Deterministic shuffled (query, page) training batches: numpy dicts
+    {"query": [B, query_len], "page": [B, page_len], "page_id": [B]}, plus
+    "neg_page" [B, H, page_len] when a hard-negative lookup is given.
+
+    The id schedule is the JAX package's: epoch e visits the pages in the
+    order ``np.random.default_rng(seed + e).permutation(num_pages)``, in
+    ``num_pages // batch_size`` full batches (the tail is dropped).
+    ``start_step`` maps a global step to (epoch, offset), so a resumed run
+    continues the exact batch order of an uninterrupted one."""
+
+    def __init__(self, corpus: ToyCorpus, query_tok, page_tok,
+                 batch_size: int, seed: int = 0, start_step: int = 0,
+                 hard_negative_lookup: Optional[
+                     Callable[[np.ndarray], np.ndarray]] = None):
+        if batch_size > corpus.num_pages:
+            raise ValueError(
+                f"batch_size {batch_size} > corpus size {corpus.num_pages}: "
+                "no full batch can ever be formed")
+        self.corpus = corpus
+        self.query_tok = query_tok
+        self.page_tok = page_tok
+        self.batch_size = batch_size
+        self.seed = seed
+        self.start_step = start_step
+        # maps [B] gold page ids -> [B, H] hard-negative page ids
+        self.hard_negative_lookup = hard_negative_lookup
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.corpus.num_pages // self.batch_size
+
+    def _id_stream(self) -> Iterator[np.ndarray]:
+        n = self.corpus.num_pages
+        epoch = self.start_step // self.steps_per_epoch
+        skip = self.start_step % self.steps_per_epoch
+        while True:
+            order = np.random.default_rng(self.seed + epoch).permutation(n)
+            for b in range(skip, self.steps_per_epoch):
+                yield order[b * self.batch_size:(b + 1) * self.batch_size]
+            skip = 0
+            epoch += 1
+
+    def __iter__(self) -> Iterator[Batch]:
+        for ids in self._id_stream():
+            yield self._materialize(ids)
+
+    def _materialize(self, ids: np.ndarray) -> Batch:
+        c = self.corpus
+        batch: Batch = {
+            "query": self.query_tok.encode_batch(
+                [c.query_text(int(i)) for i in ids]),
+            "page": self.page_tok.encode_batch(
+                [c.page_text(int(i)) for i in ids]),
+            "page_id": ids.astype(np.int32),
+        }
+        if self.hard_negative_lookup is not None:
+            neg_ids = self.hard_negative_lookup(ids)              # [B, H]
+            enc = self.page_tok.encode_batch(
+                [c.page_text(int(i)) for i in neg_ids.reshape(-1)])
+            batch["neg_page"] = enc.reshape(neg_ids.shape + enc.shape[1:])
+        return batch
 
 
 def iter_corpus_batches(corpus: ToyCorpus, page_tok, batch_size: int,

@@ -53,7 +53,8 @@ def _build_encoder(cfg: Config, vocab_size: int) -> nn.Module:
         vocab_size=vocab_size, num_layers=m.num_layers,
         num_heads=m.num_heads, model_dim=m.model_dim, mlp_dim=m.mlp_dim,
         out_dim=m.out_dim, max_len=max(cfg.data.query_len, cfg.data.page_len),
-        dtype=DTYPES[m.dtype], attention_kind=m.attention)
+        dtype=DTYPES[m.dtype], attention_kind=m.attention,
+        dropout=m.dropout)
 
 
 @torch.no_grad()

@@ -13,19 +13,25 @@ from flax, exactly:
   default is 1e-5), and returns ``dtype``;
 * GELU is the tanh approximation (flax's ``nn.gelu`` default);
 * dense attention masks with -1e9 and softmaxes in float32; flash attention
-  (kernel K1, ops/flash_attention.py) masks with -1e30 and returns float32,
-  which is cast to ``dtype``;
+  (kernels K1-K3, ops/flash_attention.py) masks with -1e30 and returns
+  float32, which is cast to ``dtype``;
 * ``pos_embed`` is [max(query_len, page_len), d] float32, cast to
   ``dtype`` before the add;
-* pooling and ``proj`` run in float32.
+* pooling and ``proj`` run in float32;
+* dropout (flax ``nn.Dropout``: kept values divided by the keep rate) sits
+  after the embedding, after attention and after the MLP. In training mode
+  its masks are drawn from the ``torch.Generator`` the caller passes, never
+  from the global RNG; the trainer seeds it from (train.seed, step), so a
+  resumed run draws the same masks. Eval mode draws none. The masks'
+  numbers differ from JAX's, whose generator is another.
 
 The t5 variant, ring attention and the packed-page ``seg`` path are later
-slices of the port. Towers here are inference-only: dropout joins with the
-training slice.
+slices of the port.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +40,22 @@ from torch import nn
 from dnn_page_vectors_tpu_torch.ops.flash_attention import flash_attention
 
 _DENSE_MASK = -1e9
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element is kept with probability
+    1 - rate and divided by it, else zeroed. The mask comes from
+    `generator` (on x's device), which training mode requires."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator "
+                         "(masks are never drawn from the global RNG)")
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    mask.bernoulli_(keep, generator=generator)
+    return x * mask / keep
 
 
 class Dense(nn.Linear):
@@ -114,22 +136,26 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x))."""
+    """Pre-norm block: x + drop(attn(ln(x))); x + drop(mlp(ln(x)))."""
 
     def __init__(self, num_heads: int, model_dim: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_kind: str = "dense"):
+                 attention_kind: str = "dense", dropout: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout
         self.ln_attn = LayerNorm(model_dim, dtype)
         self.attn = Attention(num_heads, model_dim, dtype, attention_kind)
         self.ln_mlp = LayerNorm(model_dim, dtype)
         self.wi = Dense(model_dim, mlp_dim, compute_dtype=dtype)
         self.wo_mlp = Dense(mlp_dim, model_dim, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_attn(x), pad_mask)
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout_rate if self.training else 0.0
+        x = x + dropout(self.attn(self.ln_attn(x), pad_mask), rate,
+                        generator)
         h = F.gelu(self.wi(self.ln_mlp(x)), approximate="tanh")
-        return x + self.wo_mlp(h)
+        return x + dropout(self.wo_mlp(h), rate, generator)
 
 
 class TransformerEncoder(nn.Module):
@@ -139,28 +165,33 @@ class TransformerEncoder(nn.Module):
                  num_heads: int = 4, model_dim: int = 256, mlp_dim: int = 1024,
                  out_dim: int = 256, max_len: int = 128,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_kind: str = "dense"):
+                 attention_kind: str = "dense", dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout
         self.num_layers = num_layers
         self.tok_embed = nn.Embedding(vocab_size, model_dim)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, model_dim))
         for i in range(num_layers):
             setattr(self, f"block{i}", Block(num_heads, model_dim, mlp_dim,
-                                             dtype, attention_kind))
+                                             dtype, attention_kind, dropout))
         self.ln_final = LayerNorm(model_dim, dtype)
         self.proj = Dense(model_dim, out_dim, compute_dtype=torch.float32)
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.num_layers)]
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the dropout masks in training mode."""
         L = ids.shape[1]
         pad_mask = ids > 0
         x = self.tok_embed(ids).to(self.dtype)
         x = x + self.pos_embed[:L].to(self.dtype)[None]
+        x = dropout(x, self.dropout_rate if self.training else 0.0,
+                    generator)
         for blk in self.blocks():
-            x = blk(x, pad_mask)
+            x = blk(x, pad_mask, generator)
         x = self.ln_final(x)
         # masked mean pool, in float32
         m = pad_mask[..., None].float()

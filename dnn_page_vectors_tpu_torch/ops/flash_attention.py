@@ -1,5 +1,7 @@
-"""Flash-attention forward for the transformer towers: the wrapper of kernel
-K1 (``csrc/flash_fwd.cu``) and its plain PyTorch version.
+"""Flash attention for the transformer towers: the wrappers of kernel K1
+(forward, ``csrc/flash_fwd.cu``) and kernels K2 and K3 (backward,
+``csrc/flash_bwd.cu``), the ``torch.autograd.Function`` that joins them,
+and their plain PyTorch versions.
 
 K1 replaces the JAX package's Pallas TPU kernel ``_flash_kernel``
 (dnn_page_vectors_tpu/ops/flash_attention.py, ``_flash_forward``):
@@ -8,12 +10,19 @@ bidirectional, padding-masked attention with an optional additive bias
 out [B,H,L,Dh] f32 and the row log-sum-exp [B,H,L] f32. A fully masked
 row returns mean(V) (scores are masked with the finite -1e30).
 
+K2 (dq, replacing ``_flash_dq_kernel``) and K3 (dk and dv, replacing
+``_flash_dkv_kernel``) are its backward: they rebuild the probabilities
+from the saved lse, so no [B,H,L,S] array exists in the backward either.
+At a fully masked row they give the gradient of the forward above (dv
+gets g/S for every key, and the row adds nothing to dq or dk), not the
+TPU kernels' p = 1. The backward of the bias path (K4, dbias) is slice 3
+of the port and that of the segment path slice 4: the forward takes both,
+and a backward through either raises NotImplementedError.
+
 Routing is by the tensors' device and nothing else: a CUDA tensor goes to
 the kernel (or the wrapper raises), a CPU tensor goes to the plain version
-``reference_forward``. Nothing catches a kernel failure and carries on.
-
-The backward kernels (dq, dk/dv, dq+dbias) belong to training and are
-later slices of the port.
+``reference_forward`` / ``reference_backward``. Nothing catches a kernel
+failure and carries on.
 """
 from __future__ import annotations
 
@@ -24,13 +33,18 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+# lse of a fully masked row is -1e30 + log(S), which rounds to -1e30 in f32
+MASKED_ROW_LSE = -1e29
 MAX_HEAD_DIM = 128
 _SOURCE = "flash_fwd.cu"
+_BWD_SOURCE = "flash_bwd.cu"
 
-# Launches of K1 since the last reset: the wrapper adds one where it
-# launches the kernel and nowhere else. chip_smoke.py sets it to 0 before
-# driving the serving path and reads it after.
+# Launches of K1, K2 and K3 since the last reset: each wrapper adds one
+# where it launches its kernel and nowhere else. chip_smoke.py sets them to
+# 0 before driving a path and reads them after.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 
 def reference_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,6 +78,40 @@ def reference_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def reference_attention(q, k, v, kv_mask, bias=None, seg=None) -> torch.Tensor:
     """Plain attention output [B,H,L,Dh] f32 (see reference_forward)."""
     return reference_forward(q, k, v, kv_mask, bias, seg)[0]
+
+
+def reference_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_mask: torch.Tensor, g: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward of ``reference_forward`` without bias or seg, the
+    oracle of K2 and K3: (dq, dk, dv) in the dtypes of q, k and v.
+
+    It computes what the kernels compute: p is rebuilt from the saved
+    ``lse`` as exp(scale * q.k - lse), zero at a masked key;
+    delta = sum(g * out) per row; ds = p * (g.v - delta); dq = scale *
+    ds.k, dk = scale * ds^T.q, dv = p^T.g, all in float32. A fully masked
+    row (lse <= -1e29: every score was -1e30, so the forward's softmax was
+    uniform) gets p = 1/S for every key and ds = 0, which is the gradient
+    of the forward (``jax.grad`` of the reference attention agrees), not
+    the TPU kernels' p = 1."""
+    S = k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    delta = (gf * out.float()).sum(-1)                        # [B,H,L]
+    s = torch.einsum("bhld,bhsd->bhls", qf, kf) * scale
+    allowed = kv_mask.bool()[:, None, None, :]
+    masked_row = (lse <= MASKED_ROW_LSE)[..., None]           # [B,H,L,1]
+    p = torch.where(allowed, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    p = torch.where(masked_row, torch.full_like(p, 1.0 / S), p)
+    dp = torch.einsum("bhld,bhsd->bhls", gf, vf)
+    ds = torch.where(allowed & ~masked_row, p * (dp - delta[..., None]),
+                     torch.zeros_like(p))
+    dq = torch.einsum("bhls,bhsd->bhld", ds, kf) * scale
+    dk = torch.einsum("bhls,bhld->bhsd", ds, qf) * scale
+    dv = torch.einsum("bhls,bhld->bhsd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, kv_mask, bias, seg):
@@ -144,14 +192,79 @@ def _library():
     return lib
 
 
-def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kv_mask: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                  seg: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B,H,L,Dh] f32, lse [B,H,L] f32). CUDA tensors launch K1 on the
-    current stream; CPU tensors take the plain version. q/k/v may be
-    strided (the towers pass ``x.transpose(1, 2)``) as long as Dh has unit
-    stride."""
+def _bwd_library():
+    from dnn_page_vectors_tpu_torch.ops.build import load_library
+    lib = load_library(_BWD_SOURCE)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):   # 9 tensor pointers
+        if fn.argtypes is None:
+            fn.argtypes = [P] * 9 + [I, I, I, I, I, ctypes.c_float, I,
+                                     ctypes.POINTER(ctypes.c_longlong), P]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_common(q, k):
+    B, H, L, Dh = q.shape
+    return (B, H, L, k.shape[2], Dh, 1.0 / math.sqrt(Dh),
+            int(q.dtype == torch.bfloat16))
+
+
+def _bwd_strides(*tensors):
+    return (ctypes.c_longlong * 21)(
+        *(st for t in tensors for st in t.stride()[:3]))
+
+
+def launch_dq(q, k, v, kv_mask, g, out, lse
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on the current stream (CUDA tensors only, as ``flash_backward``
+    passes them): (dq in q's dtype, laid out like q; delta [B,H,L] f32 for
+    K3)."""
+    global dq_launches
+    lib = _bwd_library()
+    B, H, L = q.shape[:3]
+    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    out, lse = out.contiguous(), lse.contiguous()
+    # like q: the towers' transposed views get gradients laid out as they
+    # are, so autograd needs no copy on the way back
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    strides = _bwd_strides(q, k, v, g, dq, k, v)
+    err = lib.flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), *_bwd_common(q, k), strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error "
+                           f"{err}")
+    dq_launches += 1
+    return dq, delta
+
+
+def launch_dkv(q, k, v, kv_mask, g, lse, delta
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the current stream, after K2 wrote `delta`: (dk, dv) in the
+    dtypes of k and v, laid out like them."""
+    global dkv_launches
+    lib = _bwd_library()
+    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    lse = lse.contiguous()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    strides = _bwd_strides(q, k, v, g, q, dk, dv)
+    err = lib.flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *_bwd_common(q, k), strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "
+                           f"{err}")
+    dkv_launches += 1
+    return dk, dv
+
+
+def _forward(q, k, v, kv_mask, bias, seg):
     _check(q, k, v, kv_mask, bias, seg)
     if q.device.type == "cpu":
         return reference_forward(q, k, v, kv_mask, bias, seg)
@@ -160,8 +273,76 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, kv_mask, bias, seg)
 
 
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_mask: torch.Tensor, g: torch.Tensor, out: torch.Tensor,
+                   lse: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the dtypes of q, k, v for the upstream gradient g
+    [B,H,L,Dh] of ``out``, given the forward's out and lse (no bias, no
+    seg). CUDA tensors launch K2 then K3 on the current stream; CPU tensors
+    take the plain version ``reference_backward``."""
+    _check(q, k, v, kv_mask, None, None)
+    want = (q.shape[0], q.shape[1], q.shape[2])
+    if g.shape != q.shape or out.shape != q.shape or lse.shape != want:
+        raise ValueError(f"flash_backward: g {tuple(g.shape)}, out "
+                         f"{tuple(out.shape)} and lse {tuple(lse.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    g = g.float()
+    if g.stride(-1) != 1:         # e.g. an expanded gradient: stride 0
+        g = g.contiguous()
+    if q.device.type == "cpu":
+        return reference_backward(q, k, v, kv_mask, g, out, lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    dq, delta = launch_dq(q, k, v, kv_mask, g, out.float(), lse.float())
+    dk, dv = launch_dkv(q, k, v, kv_mask, g, lse.float(), delta)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward (plain versions on CPU tensors).
+    Returns (out, lse); lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, bias, seg):
+        out, lse = _forward(q, k, v, kv_mask, bias, seg)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.has_bias = bias is not None
+        ctx.has_seg = seg is not None
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        if ctx.has_bias:
+            raise NotImplementedError(
+                "flash_attention backward with a bias (T5 relative "
+                "positions) needs kernel K4 (dq + dbias), which comes with "
+                "slice 3 (mT5) of the port")
+        if ctx.has_seg:
+            raise NotImplementedError(
+                "flash_attention backward with segment ids (sequence "
+                "packing) comes with slice 4 of the port (the seg variants "
+                "of K2 and K3)")
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, kv_mask, g_out, out, lse)
+        return dq, dk, dv, None, None, None
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_mask: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  seg: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B,H,L,Dh] f32, lse [B,H,L] f32), differentiable in q, k, v
+    through ``FlashAttention``. CUDA tensors launch K1 on the current
+    stream (and K2, K3 in the backward); CPU tensors take the plain
+    versions. q/k/v may be strided (the towers pass ``x.transpose(1, 2)``)
+    as long as Dh has unit stride."""
+    return FlashAttention.apply(q, k, v, kv_mask, bias, seg)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: torch.Tensor, bias: Optional[torch.Tensor] = None,
                     seg: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention output [B,H,L,Dh] f32 through K1 (see flash_forward)."""
+    """Attention output [B,H,L,Dh] f32 (see flash_forward)."""
     return flash_forward(q, k, v, kv_mask, bias, seg)[0]

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a CUDA device and skips without one (the
+"""The port's CUDA kernels (K1 forward, K2 dq and K3 dk/dv backward)
+against their plain PyTorch versions, on the card. Every test here needs a CUDA device and skips without one (the
 kernels have no CPU mode). This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
 
@@ -7,7 +7,8 @@ package, so it also runs where only the port is installed:
 
 Tolerances are the JAX flash tests': 2e-5 for float32, 2e-2 for bfloat16
 (the plain version rounds probabilities to bf16 before the product with V,
-the kernel does not)."""
+the kernel does not); on gradients 1e-4 relative / 1e-5 absolute in
+float32 (tests/test_flash_attention.py:72) and 2e-2 in bfloat16."""
 import pytest
 import torch
 
@@ -88,3 +89,106 @@ def test_flash_fwd_kernel_raises_on_bad_input(cuda_device):
     x["q"] = x["q"][..., :12]
     with pytest.raises(ValueError):
         fa.flash_forward(**x)
+
+
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _backward_inputs(device, seed=0, **case):
+    x = _inputs(device, seed=seed, **case)
+    out, lse = fa.reference_forward(**x)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed + 1))
+    if case.get("strided"):       # the towers' upstream gradient is a view
+        g = g.transpose(1, 2).contiguous().transpose(1, 2)
+    return x, g.to(device), out, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=64, H=4, L=64, S=64, dtype=torch.bfloat16, strided=True),
+    dict(B=64, H=4, L=16, S=16, dtype=torch.bfloat16, strided=True),
+    dict(),
+    dict(L=37, S=53, pad_tail=7),
+    dict(L=37, S=53, pad_tail=7, dtype=torch.bfloat16),
+    dict(L=130, S=200, Dh=128),
+    dict(strided=True),
+], ids=["page_train_bf16", "query_train_bf16", "padding_f32", "ragged_f32",
+        "ragged_bf16", "multi_tile_dh128_f32", "strided_f32"])
+def test_flash_bwd_kernels_match_plain_version(cuda_device, case):
+    x, g, out, lse = _backward_inputs(cuda_device, **case)
+    q, k, v, mask = x["q"], x["k"], x["v"], x["kv_mask"]
+    before = (fa.dq_launches, fa.dkv_launches)
+    got = fa.flash_backward(q, k, v, mask, g, out, lse)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = fa.reference_backward(q, k, v, mask, g, out, lse)
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), msg=name,
+                                   **GRAD_TOL[q.dtype])
+    # the last batch row sees no key: dv = sum_l g / S, and no dq, dk
+    S = k.shape[2]
+    want_dv = (g[-1].float().sum(dim=1, keepdim=True) / S).expand_as(v[-1])
+    torch.testing.assert_close(got[2][-1].float(), want_dv,
+                               **GRAD_TOL[q.dtype])
+    assert not got[0][-1].any() and not got[1][-1].any()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_are_bitwise_deterministic(cuda_device):
+    x, g, out, lse = _backward_inputs(cuda_device, B=64, H=4, L=64, S=64,
+                                      dtype=torch.bfloat16, strided=True)
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], g, out, lse)
+    first = fa.flash_backward(*args)
+    for _ in range(3):
+        again = fa.flash_backward(*args)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", ["bias", "seg"])
+def test_flash_backward_with_bias_or_seg_is_not_ported(cuda_device, extra):
+    x = _inputs(cuda_device, L=40, S=40, pad_tail=6, bias=extra == "bias",
+                seg=extra == "seg")
+    for n in ("q", "k", "v"):
+        x[n].requires_grad_(True)
+    out = fa.flash_attention(**x)          # the forward takes both
+    with pytest.raises(NotImplementedError,
+                       match="slice 3" if extra == "bias" else "slice 4"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tower_gets_attention_gradients(cuda_device):
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    ov = {"model.num_layers": 2, "model.model_dim": 64, "model.num_heads": 4,
+          "model.mlp_dim": 128, "model.out_dim": 32, "model.dropout": 0.0}
+    towers = {}
+    for att in ("flash", "dense"):
+        cfg = get_config("bert_mini_v5p16", {**ov, "model.attention": att})
+        towers[att] = build_two_tower(cfg, vocab_size=256,
+                                      device=cuda_device).train()
+    towers["dense"].load_state_dict(towers["flash"].state_dict())
+    ids = torch.randint(1, 256, (16, 64),
+                        generator=torch.Generator().manual_seed(0))
+    ids[:, 50:] = 0
+    ids = ids.to(cuda_device)
+    grads = {}
+    for att, model in towers.items():
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        model.encode_page(ids).square().sum().backward()
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        if att == "flash":
+            assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+        grads[att] = {n: p.grad for n, p in model.named_parameters()
+                      if p.grad is not None}
+    for n in ("wq", "wk", "wv"):
+        name = f"page_tower.block0.attn.{n}.weight"
+        gf, gd = grads["flash"][name], grads["dense"][name]
+        assert gf.abs().max() > 0, name
+        rel = ((gf - gd).norm() / gd.norm()).item()
+        assert rel < 2e-2, (name, rel)
