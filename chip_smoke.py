@@ -160,7 +160,8 @@ def k1_bound(x) -> dict:
 
 
 def check_k1(device, timed_case: str) -> dict:
-    """Kernel vs plain version on every case; times at the embed shape."""
+    """Kernel vs plain version on every case (the serving and training
+    paths' shapes and the edge cases); times at the embed shape."""
     import torch.nn.functional as F
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     cases = {
@@ -168,6 +169,11 @@ def check_k1(device, timed_case: str) -> dict:
                            dtype=torch.bfloat16),
         "query_bucket_bf16": dict(B=8, H=4, L=16, S=16, Dh=64,
                                   dtype=torch.bfloat16),
+        # the training path's shapes, on the towers' transposed views
+        "page_train_bf16": dict(B=TRAIN_BATCH, H=4, L=64, S=64, Dh=64,
+                                dtype=torch.bfloat16, strided=True),
+        "query_train_bf16": dict(B=TRAIN_BATCH, H=4, L=16, S=16, Dh=64,
+                                 dtype=torch.bfloat16, strided=True),
         "ragged_L37_S53": dict(B=8, H=4, L=37, S=53, Dh=64,
                                dtype=torch.bfloat16),
         "fully_masked_rows": dict(B=16, H=4, L=64, S=64, Dh=64,
@@ -698,7 +704,7 @@ def run_training(device, data, workdir: str) -> dict:
         wall_ms.append((time.perf_counter() - w0) * 1e3)
         step_ms.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     main_diff = float(np.abs(np.array(losses)
                              - np.array([h["loss"] for h in hist])).max())
     if not main_diff <= RESUME_LOSS_TOL:

@@ -54,7 +54,8 @@ class TrainConfig:
     weight_decay: float = 0.01
     temperature_init: float = 20.0   # learnable inverse-temperature init
     hard_negatives: int = 0          # mined negatives per positive (mining
-                                     # is a later slice; the loss takes them)
+                                     # is a later slice: Trainer raises
+                                     # above 0; the loss takes negatives)
     checkpoint_every: int = 500
     log_every: int = 50
     # >0: the chunked contrastive loss (models/losses.py) scores this many

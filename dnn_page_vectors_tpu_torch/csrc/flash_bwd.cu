@@ -45,8 +45,9 @@
 // L=S=64, Dh=64, bf16 q/k/v, f32 g): K2 must move q, k, v (805 MB bf16),
 // g and out (1.07 GB f32) and write dq (268 MB) and delta: about 2.15 GB,
 // 0.64 ms at 3.35 TB/s, against 52 GFLOP (s, dp, dq), 0.05 ms at 989
-// TFLOP/s. K3 moves q, k, v, g, lse, delta and writes dk, dv: about 1.6 GB,
-// 0.48 ms, against 69 GFLOP (s, dp, dk, dv). Both are memory-bound. This
+// TFLOP/s. K3 must move q, k, v (805 MB bf16), g (537 MB f32), lse and
+// delta, and write dk, dv (537 MB bf16): about 1.90 GB, 0.57 ms, against
+// 69 GFLOP (s, dp, dk, dv). Both are memory-bound. This
 // first version multiplies on the f32 CUDA cores, not the tensor cores;
 // mma/wgmma, TMA and keeping g in bf16 are later work.
 

@@ -337,8 +337,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through ``FlashAttention``. CUDA tensors launch K1 on the current
     stream (and K2, K3 in the backward); CPU tensors take the plain
     versions. q/k/v may be strided (the towers pass ``x.transpose(1, 2)``)
-    as long as Dh has unit stride."""
-    return FlashAttention.apply(q, k, v, kv_mask, bias, seg)
+    as long as Dh has unit stride. With no gradient to record (inference
+    mode, ``no_grad``, or inputs that need none) the forward is called
+    directly, without the Function's bookkeeping."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kv_mask, bias, seg)
+    return _forward(q, k, v, kv_mask, bias, seg)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

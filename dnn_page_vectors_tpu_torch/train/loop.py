@@ -62,6 +62,11 @@ class Trainer:
                  workdir: Optional[str] = None,
                  tokenizers: Optional[Tuple[Any, Any]] = None,
                  device: DeviceLike = None):
+        if cfg.train.hard_negatives > 0:
+            raise NotImplementedError(
+                f"train.hard_negatives={cfg.train.hard_negatives}: "
+                "hard-negative mining is a later slice of the port (the "
+                "loss takes negatives, but nothing mines them yet)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.workdir = workdir
@@ -101,13 +106,12 @@ class Trainer:
         return self.step
 
     # -- data ---------------------------------------------------------------
-    def batches(self, start_step: Optional[int] = None
-                ) -> Iterator[Dict[str, torch.Tensor]]:
-        """Device batches from `start_step` (default: the current step)."""
+    def batches(self) -> Iterator[Dict[str, torch.Tensor]]:
+        """Device batches from the current step on."""
         batcher = TrainBatcher(
             self.corpus, self.query_tok, self.page_tok,
             batch_size=self.cfg.train.batch_size, seed=self.cfg.train.seed,
-            start_step=self.step if start_step is None else start_step)
+            start_step=self.step)
         for batch in batcher:
             yield {k: to_device(v, self.device) for k, v in batch.items()}
 

@@ -180,3 +180,26 @@ def test_cpu_flash_tower_gets_gradients_through_the_function():
     assert grads["flash"].keys() == grads["dense"].keys()
     for name, gf in grads["flash"].items():
         torch.testing.assert_close(gf, grads["dense"][name], msg=name, **F32)
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_input_grad"])
+def test_forward_without_gradients_skips_the_function(mode):
+    """Serving calls the forward with nothing to record: it goes straight
+    to the kernel's wrapper (no grad_fn), with the Function's values."""
+    arrs = _mk(L=40, S=40, pad_tail=6)
+    q, k, v = (torch.from_numpy(arrs[n]) for n in ("q", "k", "v"))
+    mask = torch.from_numpy(arrs["kv_mask"])
+    want_out, want_lse = fa.FlashAttention.apply(q, k, v, mask, None, None)
+    if mode == "no_grad":
+        with torch.no_grad():
+            out, lse = fa.flash_forward(q, k, v, mask)
+    elif mode == "inference_mode":
+        with torch.inference_mode():
+            out, lse = fa.flash_forward(q, k, v, mask)
+    else:
+        out, lse = fa.flash_forward(q, k, v, mask)
+    assert out.grad_fn is None and lse.grad_fn is None
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    # and with an input that needs a gradient, the Function records it
+    out = fa.flash_attention(q.requires_grad_(True), k, v, mask)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"

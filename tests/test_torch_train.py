@@ -335,3 +335,9 @@ def test_trainer_defaults_to_cuda():
     cfg = get_config("bert_mini_v5p16", SMALL)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, corpus=ToyCorpus(**CORPUS))
+
+
+def test_trainer_refuses_hard_negatives_until_mining_lands():
+    cfg = get_config("bert_mini_v5p16", {**SMALL, "train.hard_negatives": 4})
+    with pytest.raises(NotImplementedError, match="mining"):
+        Trainer(cfg, corpus=ToyCorpus(**CORPUS), device="cpu")
