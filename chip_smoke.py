@@ -5,28 +5,41 @@
 
 Phases, each printing one JSON line:
   1. device: the card, its power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every CUDA source of the two paths (K1 in flash_fwd.cu, K2 and
-     K3 in flash_bwd.cu) is compiled with nvcc for sm_90a from the checkout
-     (build/torch_kernels/), one nvcc per source, all started together;
+  2. build: every CUDA source of the paths (K1 in flash_fwd.cu; K2, K3 and
+     K4 in flash_bwd.cu) is compiled with nvcc for sm_90a from the
+     checkout (build/torch_kernels/), one nvcc per source, all started
+     together. The mT5 SentencePiece vocab is trained meanwhile in a
+     second process (host work only; it is joined before the mT5 phases);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at the paths' shapes and the contract's edge cases, with the
      tolerance stated; plus its time, the plain version's, one PyTorch
      library call's (a yardstick the port never calls) and its bound;
-  4. serving: BERT-mini (config bert_mini_v5p16, full width, random
+  4. BERT-mini serving: config bert_mini_v5p16 at full width (random
      weights from a seeded torch.Generator, flash attention) trains the
      30,522-piece WordPiece vocab over a 100,000-page toy corpus, bulk
      embeds every page into the fp16 store, stages the store on the card
-     and answers 32 queries through SearchService. Every kernel launch
-     counter is set to 0 just before and read just after; the results are
-     checked against a plain full q @ store^T top-k and against dense
-     attention;
-  5. training: a flash-attention Trainer at full width takes 6 steps of
-     8,192 pages from the same corpus through Trainer.train (counted:
-     K1, K2 and K3 launch 8 times a step), then 6 steps on pre-made
-     batches are timed (the first 2 warm up) and one is profiled by kernel
-     class; flash gradients are held against dense ones, two runs of one
-     step must give bitwise equal gradients, and 3 steps + save + restore
-     into a fresh Trainer + 3 steps must give the losses of 6 straight.
+     and answers 32 queries through SearchService, then 200 single ones.
+     Every kernel launch counter is set to 0 just before and read just
+     after; the results are checked against a plain full q @ store^T
+     top-k and against dense attention;
+  5. BERT-mini training: a flash-attention Trainer at full width takes 6
+     steps of 8,192 pages from the same corpus through Trainer.train
+     (counted: K1, K2 and K3 launch 8 times a step), then 6 steps on
+     pre-made batches are timed (the first 2 warm up) and one is profiled
+     by kernel class; flash gradients are held against dense ones, two
+     runs of one step must give bitwise equal gradients, and 3 steps +
+     save + restore into a fresh Trainer + 3 steps must give the losses of
+     6 straight;
+  6. mT5 serving: config mt5_multilingual at full width (12 layers, d=768,
+     12 heads, ff 2048, vocab 250,112, page_len 128, flash attention with
+     the T5 relative-position bias) over the 250,112-piece vocab trained
+     on a 300,000-page 4-language corpus; the first 20,000 pages are bulk
+     embedded (dim 768), then the serving checks of phase 4 (12 K1
+     launches per encode);
+  7. mT5 training: phase 5 at the config's width with the batch cut from
+     4,096 (the JAX config's global batch over 8 chips) to 512 pages: K1,
+     K4 and K3 launch 24 times a step, K2 never; the rel_bias table is
+     among the gradients held flash against dense and bitwise run to run.
 Then the `kernels` line, the card's name and power limit as nvidia-smi
 prints them, and last {"ok": true, "device": {...}}.
 
@@ -38,7 +51,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,6 +72,7 @@ PEAK_BYTES_PER_S = 3.35e12
 TPU_K1 = "dnn_page_vectors_tpu/ops/flash_attention.py:98"
 TPU_K2 = "dnn_page_vectors_tpu/ops/flash_attention.py:172"
 TPU_K3 = "dnn_page_vectors_tpu/ops/flash_attention.py:212"
+TPU_K4 = "dnn_page_vectors_tpu/ops/flash_attention.py:184"
 K1_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_fwd.cu"
 K23_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_bwd.cu"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
@@ -83,6 +99,20 @@ FLASH_DENSE_GRAD_TOL_F32 = 1e-4
 F32_ROWS = 1_024                 # the f32 comparison's share of the batch
 KEY_BIAS_GRAD_TOL = 1e-2
 RESUME_LOSS_TOL = 1e-5
+# mT5: the vocab's corpus (tests/test_vocab_honesty.py's), the pages
+# embedded, and the training batch (the config's 4,096 is the global batch
+# of an 8-chip mesh; 512 pages fit one card); its flash vs dense gradients
+# at 256 rows in bf16 (the dense [B, 12, 128, 128] scores of 12 layers fit
+# beside the flash tower) and 64 in f32. The bf16 bound is wider than
+# BERT-mini's: 12 layers against 4, and a CPU rehearsal of the plain
+# versions at d=768 gave 4.9e-2 (the query tower's top wq/wk).
+MT5 = "mt5_multilingual"
+MT5_VOCAB_PAGES = 300_000
+MT5_PAGES = 20_000
+MT5_TRAIN_BATCH = 512
+MT5_BF16_ROWS = 256
+MT5_F32_ROWS = 64
+MT5_FLASH_DENSE_GRAD_TOL = 1e-1
 
 
 def emit(obj) -> None:
@@ -159,9 +189,9 @@ def k1_bound(x) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_k1(device, timed_case: str) -> dict:
+def check_k1(device, timed_cases) -> dict:
     """Kernel vs plain version on every case (the serving and training
-    paths' shapes and the edge cases); times at the embed shape."""
+    paths' shapes and the edge cases); times at `timed_cases`."""
     import torch.nn.functional as F
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     cases = {
@@ -186,6 +216,14 @@ def check_k1(device, timed_case: str) -> dict:
                           dtype=torch.float32),
         "long_S300_Dh128_f32": dict(B=2, H=2, L=300, S=300, Dh=128,
                                     dtype=torch.float32, bias=True),
+        # mT5: the bulk embed's and the training path's page shape, and
+        # the query tower's, with the relative-position bias
+        "mt5_page_bias_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=128, S=128,
+                                   Dh=64, dtype=torch.bfloat16, bias=True,
+                                   strided=True),
+        "mt5_query_bias_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=16, S=16,
+                                    Dh=64, dtype=torch.bfloat16, bias=True,
+                                    strided=True),
     }
     worst = {}
     for i, (name, c) in enumerate(cases.items()):
@@ -212,28 +250,39 @@ def check_k1(device, timed_case: str) -> dict:
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version: {rec}")
         worst[name] = err
-    # times at the bulk-embed shape, the path's hot call
-    c = cases[timed_case]
-    x = k1_inputs(device=device, seed=100, **c)
-    mask4 = x["kv_mask"][:, None, None, :]
-    t = {
-        "kernel_ms": cuda_ms(lambda: fa.flash_forward(**x)),
-        "plain_ms": cuda_ms(lambda: fa.reference_forward(**x)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            x["q"], x["k"], x["v"], attn_mask=mask4)),
-    }
-    b = k1_bound(x)
-    rec = {"phase": "k1_timing", "case": timed_case,
-           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
-           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-           "bytes": b["bytes"], "flops": b["flops"],
-           "library_call": "torch.nn.functional.scaled_dot_product_attention"
-                           " (bool mask)"}
-    emit(rec)
-    return {"max_abs_err": max(worst.values()), "worst": worst, **t, **b}
+    # times at the bulk-embed shapes, the paths' hot calls
+    timed = {}
+    for case in timed_cases:
+        c = cases[case]
+        x = k1_inputs(device=device, seed=100, **c)
+        if x["bias"] is None:
+            mask4, kind = x["kv_mask"][:, None, None, :], "bool mask"
+        else:       # the bias and the padding as one float mask [B,H,L,S]
+            neg = torch.zeros(x["kv_mask"].shape, device=device).masked_fill(
+                ~x["kv_mask"], float("-inf"))
+            mask4 = (x["bias"][None] + neg[:, None, None, :]).to(c["dtype"])
+            kind = "float mask: bias + padding"
+        t = {
+            "kernel_ms": cuda_ms(lambda: fa.flash_forward(**x)),
+            "plain_ms": cuda_ms(lambda: fa.reference_forward(**x)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                x["q"], x["k"], x["v"], attn_mask=mask4)),
+        }
+        b = k1_bound(x)
+        rec = {"phase": "k1_timing", "case": case,
+               "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
+               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+               "bytes": b["bytes"], "flops": b["flops"],
+               "library_call": "torch.nn.functional."
+                               f"scaled_dot_product_attention ({kind})"}
+        emit(rec)
+        timed[case] = {**t, **b}
+        del x, mask4
+    return {"max_abs_err": max(worst.values()), "worst": worst,
+            "timed": timed}
 
 
-# -- phase 3: K2 and K3 against the plain backward ---------------------------
+# -- phase 3: K2, K3 and K4 against the plain backward ----------------------
 
 def k23_inputs(device, seed, **case):
     """K1's inputs plus an upstream gradient g (f32, laid out like the
@@ -247,35 +296,78 @@ def k23_inputs(device, seed, **case):
     else:
         g = torch.randn(B, H, L, Dh, generator=gen).to(device)
     with torch.no_grad():
-        out, lse = fa.flash_forward(x["q"], x["k"], x["v"], x["kv_mask"])
+        out, lse = fa.flash_forward(x["q"], x["k"], x["v"], x["kv_mask"],
+                                    x["bias"])
     return {"q": x["q"], "k": x["k"], "v": x["v"], "kv_mask": x["kv_mask"],
-            "g": g, "out": out, "lse": lse}
+            "bias": x["bias"], "g": g, "out": out, "lse": lse}
 
 
-def k23_bound(x) -> dict:
-    """Least time of K2 and of K3 for these inputs: each input read once,
-    each output written once, against the operations each does (2 flops
-    per multiply-add) at the peak rate of q's type."""
+def bwd_bound(x) -> dict:
+    """Least time of the dq kernel (K2, or K4 with a bias) and of K3 for
+    these inputs: each input read once, each output written once, against
+    the operations each does (2 flops per multiply-add) at the peak rate
+    of q's type. With a bias K4 also reads it and writes dbias, and K3
+    reads it."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
     S = k.shape[2]
-    nb = lambda t: t.numel() * t.element_size()
+    nb = lambda t: 0 if t is None else t.numel() * t.element_size()
     row = B * H * L * 4                                  # lse or delta, f32
-    mask = nb(x["kv_mask"])
-    k2_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + nb(x["out"]) + row
-                + mask + nb(q) + row)                    # + dq, delta
-    k3_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + 2 * row + mask
-                + nb(k) + nb(x["v"]))                    # + dk, dv
+    mask, bias = nb(x["kv_mask"]), nb(x["bias"])
+    dq_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + nb(x["out"]) + row
+                + mask + 2 * bias + nb(q) + row)         # + dq, delta, dbias
+    dkv_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + 2 * row + mask
+                 + bias + nb(k) + nb(x["v"]))            # + dk, dv
     mac = 2.0 * B * H * L * S * Dh                       # one [L,S,Dh] product
     out = {}
-    for name, nbytes, flops in (("k2", k2_bytes, 3 * mac),     # s, dp, dq
-                                ("k3", k3_bytes, 4 * mac)):    # s, dp, dk, dv
+    for name, nbytes, flops in (("dq", dq_bytes, 3 * mac),     # s, dp, dq
+                                ("dkv", dkv_bytes, 4 * mac)):  # s, dp, dk, dv
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
         out[name] = {"bytes": nbytes, "flops": flops,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     return out
+
+
+def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
+    """flash_backward (K2 + K3, or K4 + K3 with a bias) against
+    reference_backward on one case; raises on a disagreement. Returns the
+    largest absolute error of each gradient."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"],
+            x["bias"])
+    got = fa.flash_backward(*args)
+    torch.cuda.synchronize()
+    want = fa.reference_backward(*args)
+    rtol, atol = GRAD_TOL[c["dtype"]]
+    names = ("dq", "dk", "dv", "dbias")[:3 if x["bias"] is None else 4]
+    errs, ok = {}, True
+    for gname, a, b, t in zip(names, got, want,
+                              (x["q"], x["k"], x["v"], x["bias"])):
+        a, b = a.float(), b.float()
+        errs[gname] = (a - b).abs().max().item()
+        excess = ((a - b).abs() - (atol + rtol * b.abs())).max().item()
+        ok = (ok and excess <= 0 and bool(torch.isfinite(a).all())
+              and a.shape == t.shape)
+    if c.get("pad") == "masked_rows":     # rows 0, 2, ... see no key
+        S = x["k"].shape[2]
+        dv_want = (x["g"][0::2].sum(dim=2, keepdim=True) / S
+                   ).expand_as(got[2][0::2])
+        errs["masked_dv"] = (got[2][0::2].float() - dv_want
+                             ).abs().max().item()
+        ok = (ok and errs["masked_dv"] <= atol + rtol
+              * dv_want.abs().max().item()
+              and not got[0][0::2].any() and not got[1][0::2].any())
+    rec = {"phase": phase, "case": name,
+           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
+           "dtype": str(c["dtype"]).replace("torch.", ""),
+           "max_abs_err": errs, "rtol": rtol, "atol": atol, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"the backward kernels disagree with "
+                             f"reference_backward: {rec}")
+    return errs
 
 
 def check_k23(device, timed_case: str) -> dict:
@@ -300,39 +392,9 @@ def check_k23(device, timed_case: str) -> dict:
     worst = {}
     for i, (name, c) in enumerate(cases.items()):
         x = k23_inputs(device, seed=200 + i, **c)
-        args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"],
-                x["lse"])
-        got = fa.flash_backward(*args)
-        torch.cuda.synchronize()
-        want = fa.reference_backward(*args)
-        rtol, atol = GRAD_TOL[c["dtype"]]
-        errs, ok = {}, True
-        for gname, a, b, t in zip(("dq", "dk", "dv"), got, want,
-                                  (x["q"], x["k"], x["v"])):
-            a, b = a.float(), b.float()
-            errs[gname] = (a - b).abs().max().item()
-            excess = ((a - b).abs() - (atol + rtol * b.abs())).max().item()
-            ok = (ok and excess <= 0 and bool(torch.isfinite(a).all())
-                  and a.shape == t.shape)
-        if c.get("pad") == "masked_rows":     # rows 0, 2, ... see no key
-            S = x["k"].shape[2]
-            dv_want = (x["g"][0::2].sum(dim=2, keepdim=True) / S
-                       ).expand_as(got[2][0::2])
-            errs["masked_dv"] = (got[2][0::2].float() - dv_want
-                                 ).abs().max().item()
-            ok = (ok and errs["masked_dv"] <= atol + rtol
-                  * dv_want.abs().max().item()
-                  and not got[0][0::2].any() and not got[1][0::2].any())
-        rec = {"phase": "k23_check", "case": name,
-               "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
-               "dtype": str(c["dtype"]).replace("torch.", ""),
-               "max_abs_err": errs, "rtol": rtol, "atol": atol, "ok": ok}
-        emit(rec)
-        if not ok:
-            raise AssertionError(f"K2/K3 disagree with reference_backward: "
-                                 f"{rec}")
+        errs = check_bwd_case("k23_check", name, c, x)
         worst[name] = {"k2": errs["dq"], "k3": max(errs["dk"], errs["dv"])}
-        del x, got, want
+        del x
     c = cases[timed_case]
     x = k23_inputs(device, seed=300, **c)
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
@@ -353,7 +415,7 @@ def check_k23(device, timed_case: str) -> dict:
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
             sdpa_out, (qs, ks, vs), g_lib, retain_graph=True)),
     }
-    b = k23_bound(x)
+    b = bwd_bound(x)
     rec = {"phase": "k23_timing", "case": timed_case,
            "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
            "bound": b,
@@ -365,10 +427,86 @@ def check_k23(device, timed_case: str) -> dict:
     return {"worst": worst, "bound": b, **t}
 
 
+def check_k4(device, timed_case: str) -> dict:
+    """K4 + the biased K3 (through flash_backward) vs the biased
+    reference_backward on every case; two runs of K4 bitwise equal; each
+    kernel timed alone at the mT5 page tower's training shape."""
+    import torch.nn.functional as F
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    cases = {
+        "mt5_page_train_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=128, S=128,
+                                    Dh=64, dtype=torch.bfloat16, bias=True,
+                                    strided=True),
+        "mt5_query_train_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=16, S=16,
+                                     Dh=64, dtype=torch.bfloat16, bias=True,
+                                     strided=True),
+        "ragged_L37_S53_bias": dict(B=8, H=4, L=37, S=53, Dh=64,
+                                    dtype=torch.bfloat16, bias=True),
+        "fully_masked_rows_bias": dict(B=16, H=4, L=64, S=64, Dh=64,
+                                       dtype=torch.bfloat16, bias=True,
+                                       pad="masked_rows"),
+        "train_f32_bias": dict(B=64, H=12, L=128, S=128, Dh=64,
+                               dtype=torch.float32, bias=True, strided=True),
+        # not a multiple of K4's batch group of 8
+        "odd_batch_f32_bias": dict(B=11, H=2, L=48, S=48, Dh=64,
+                                   dtype=torch.float32, bias=True),
+    }
+    worst = {}
+    for i, (name, c) in enumerate(cases.items()):
+        x = k23_inputs(device, seed=400 + i, **c)
+        errs = check_bwd_case("k4_check", name, c, x)
+        worst[name] = {"k4": max(errs["dq"], errs["dbias"]),
+                       "k3": max(errs["dk"], errs["dv"])}
+        del x
+    c = cases[timed_case]
+    x = k23_inputs(device, seed=500, **c)
+    q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
+    bias, out, lse = x["bias"], x["out"], x["lse"]
+    first = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
+    again = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+    emit({"phase": "k4_bitwise", "case": timed_case,
+          "dq_delta_dbias_equal": bitwise})
+    if not bitwise:
+        raise AssertionError("two runs of K4 gave different dq or dbias")
+    delta = first[1]
+    del again
+    qs, ks, vs, bs = (t.detach().requires_grad_(True) for t in (q, k, v, bias))
+    neg = torch.zeros(mask.shape, device=device).masked_fill(
+        ~mask, float("-inf"))
+    fmask = (bs[None] + neg[:, None, None, :]).to(q.dtype)
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
+    g_lib = g.to(sdpa_out.dtype)
+    t = {
+        "k4_ms": cuda_ms(lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g,
+                                                    out, lse)),
+        "k3_bias_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
+                                                    delta, bias)),
+        "k4_k3_ms": cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
+                                                      lse, bias)),
+        "plain_ms": cuda_ms(lambda: fa.reference_backward(
+            q, k, v, mask, g, out, lse, bias), iters=5),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs, bs), g_lib, retain_graph=True)),
+    }
+    b = bwd_bound(x)
+    rec = {"phase": "k4_timing", "case": timed_case,
+           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
+           "bound": b,
+           "plain_call": "reference_backward with the bias (K4 and K3 "
+                         "together)",
+           "library_call": "autograd backward of torch.nn.functional."
+                           "scaled_dot_product_attention (float mask: bias "
+                           "+ padding; the gradients of q, k, v and the "
+                           "bias), against K4 + K3 together"}
+    emit(rec)
+    return {"worst": worst, "bound": b, "bitwise": bitwise, **t}
+
+
 def device_breakdown(fn, iters: int = 5) -> dict:
     """Device time of fn() by kernel class, from torch.profiler (CUPTI):
-    per-call milliseconds of K1, K2, K3, of matrix products, and of the
-    rest, plus the six largest kernels by name."""
+    per-call milliseconds of K1, K2, K3, K4, of matrix products, and of
+    the rest, plus the six largest kernels by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -384,11 +522,14 @@ def device_breakdown(fn, iters: int = 5) -> dict:
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
     classes = {"k1_flash_fwd": 0.0, "k2_flash_bwd_dq": 0.0,
-               "k3_flash_bwd_dkv": 0.0, "matmul": 0.0, "other": 0.0}
+               "k3_flash_bwd_dkv": 0.0, "k4_flash_bwd_dq_dbias": 0.0,
+               "matmul": 0.0, "other": 0.0}
     for name, ms in kernels:
         low = name.lower()
         if "flash_fwd" in low:
             classes["k1_flash_fwd"] += ms
+        elif "dbias" in low:             # K4's two launches
+            classes["k4_flash_bwd_dq_dbias"] += ms
         elif "flash_bwd_dq" in low:
             classes["k2_flash_bwd_dq"] += ms
         elif "flash_bwd_dkv" in low:
@@ -403,32 +544,49 @@ def device_breakdown(fn, iters: int = 5) -> dict:
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
-# -- phase 4: the serving slice ---------------------------------------------
+# -- phases 4 and 6: serving ---------------------------------------------------
 
-def build_data(n_pages: int):
-    """The toy corpus and the WordPiece tokenizers trained on it (the
-    serving and training phases share them)."""
+def data_config(config: str, n_pages: int):
     from dnn_page_vectors_tpu_torch.config import get_config
+    return get_config(config, {"data.num_pages": n_pages})
+
+
+def train_tokenizers(cfg):
+    """The subword tokenizers of Config `cfg` trained over its toy corpus,
+    and the seconds that took (host work only: for mT5 this runs in a
+    second process while the card works on the BERT-mini phases)."""
     from dnn_page_vectors_tpu_torch.data.loader import (
         build_corpus, build_tokenizer)
-    cfg = get_config("bert_mini_v5p16", {"data.num_pages": n_pages})
     t0 = time.perf_counter()
+    q_tok, p_tok = build_tokenizer(cfg, build_corpus(cfg))
+    return q_tok, p_tok, time.perf_counter() - t0
+
+
+def build_data(config: str, n_pages: int, tokenizers=None):
+    """The toy corpus of n_pages pages and the subword tokenizers trained
+    on it (the serving and training phases share them); `tokenizers` is
+    the result of train_tokenizers when it ran elsewhere."""
+    from dnn_page_vectors_tpu_torch.data.loader import build_corpus
+    cfg = data_config(config, n_pages)
     corpus = build_corpus(cfg)
-    q_tok, p_tok = build_tokenizer(cfg, corpus)
-    tok_s = time.perf_counter() - t0
+    q_tok, p_tok, tok_s = tokenizers or train_tokenizers(cfg)
     if p_tok.vocab_size != cfg.data.vocab_size:
         raise AssertionError(f"vocab {p_tok.vocab_size} != "
                              f"{cfg.data.vocab_size}")
-    emit({"phase": "tokenizer", "vocab_size": p_tok.vocab_size,
-          "train_s": tok_s, "corpus_pages": n_pages})
+    emit({"phase": "tokenizer", "config": config,
+          "style": cfg.data.tokenizer, "vocab_size": p_tok.vocab_size,
+          "train_s": tok_s, "corpus_pages": n_pages,
+          "languages": cfg.data.languages})
     return corpus, q_tok, p_tok
 
 
-def run_slice(device, n_pages: int, n_queries: int, workdir: str,
-              data) -> dict:
+def run_slice(device, config: str, n_pages: int, n_queries: int,
+              workdir: str, data) -> dict:
+    """Bulk embeds the first n_pages pages of the data's corpus into a
+    store, serves queries from it, and checks the results."""
     from dnn_page_vectors_tpu_torch.config import get_config
-    from dnn_page_vectors_tpu_torch.data.loader import to_device
-    from dnn_page_vectors_tpu_torch.evals.recall import recall_at_k
+    from dnn_page_vectors_tpu_torch.data.loader import build_corpus, to_device
+    from dnn_page_vectors_tpu_torch.evals.recall import evaluate_recall
     from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
     from dnn_page_vectors_tpu_torch.infer.serve import SearchService
     from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
@@ -439,9 +597,10 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str,
     overrides = {"model.attention": "flash", "data.num_pages": n_pages,
                  "eval.store_shard_size": 65_536,
                  "eval.embed_batch_size": 512}
-    cfg = get_config("bert_mini_v5p16", overrides)
+    cfg = get_config(config, overrides)
     m = cfg.model
-    corpus, q_tok, p_tok = data
+    _, q_tok, p_tok = data
+    corpus = build_corpus(cfg)   # page i is the same text at every size
 
     model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
     emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
@@ -450,8 +609,8 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str,
     emb.embed_queries(np.zeros((8, cfg.data.query_len), np.int32))
     torch.cuda.synchronize()
 
-    store = VectorStore(os.path.join(workdir, "store"), dim=m.out_dim,
-                        shard_size=cfg.eval.store_shard_size)
+    store = VectorStore(os.path.join(workdir, f"store_{config}"),
+                        dim=m.out_dim, shard_size=cfg.eval.store_shard_size)
     qids = np.linspace(0, n_pages - 1, n_queries).astype(np.int64)
     queries = [corpus.query_text(int(i)) for i in qids]
 
@@ -518,8 +677,7 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str,
     # flash towers vs dense towers on the same weights and pages, and the
     # stored rows vs a fresh encode of the same first batch
     dense = build_two_tower(
-        get_config("bert_mini_v5p16", {**overrides,
-                                       "model.attention": "dense"}),
+        get_config(config, {**overrides, "model.attention": "dense"}),
         vocab_size=p_tok.vocab_size, device=device)
     dense.load_state_dict(model.state_dict())
     dense_emb = BulkEmbedder(cfg, dense, p_tok, device=device)
@@ -548,11 +706,9 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str,
     query_profile = device_breakdown(
         lambda: chunked_topk(emb.encode_queries(one_q)[:1], svc.pages, k=10))
 
-    eval_q = np.arange(0, n_pages, max(1, n_pages // 1000))[:1000]
-    qvec = emb.embed_texts([corpus.query_text(int(i)) for i in eval_q],
-                           tower="query", batch_size=bs)
-    recall = recall_at_k(qvec, svc.page_ids, svc.pages, eval_q, k=10,
-                         device=device)
+    del dense, dense_emb
+    recall, n_eval = evaluate_recall(emb, corpus, store, num_queries=1000,
+                                     k=10)
     rec = {
         "phase": "slice", "config": cfg.name, "attention": m.attention,
         "layers": m.num_layers, "model_dim": m.model_dim,
@@ -578,14 +734,14 @@ def run_slice(device, n_pages: int, n_queries: int, workdir: str,
         "topk_score_err": score_err, "topk_tie_swaps": mism,
         "flash_vs_dense_max_err": flash_dense_err,
         "store_vs_fresh_encode_err": stored_err,
-        "recall_at_10_random_weights": recall,
+        "recall_at_10_random_weights": recall, "recall_queries": n_eval,
         "device": torch.cuda.get_device_name(0),
     }
     emit(rec)
     return rec
 
 
-# -- phase 5: the training slice --------------------------------------------
+# -- phases 5 and 7: training --------------------------------------------
 
 def _grads(model, batch, generator=None) -> dict:
     """Parameter gradients of the contrastive loss on one batch."""
@@ -599,20 +755,21 @@ def _grads(model, batch, generator=None) -> dict:
     return {n: t.grad.detach().clone() for n, t in model.named_parameters()}
 
 
-def flash_vs_dense(overrides, vocab, batch, device, dtype) -> dict:
+def flash_vs_dense(config, overrides, vocab, batch, device, dtype) -> dict:
     """Parameter gradients of flash and dense towers with the same seeded
     weights, dropout off, at model.dtype `dtype`: the largest relative
-    error ||flash - dense|| / ||dense|| over the gradient tensors.
+    error ||flash - dense|| / ||dense|| over the gradient tensors (the t5
+    rel_bias table among them).
 
-    A key bias shifts every score of a query row by the same q.b, which
-    the softmax ignores: its exact gradient is 0 and both versions hold
-    rounding noise there, so it is held to a bound relative to its layer's
-    wk.weight gradient instead of to itself."""
+    A key bias (bert) shifts every score of a query row by the same q.b,
+    which the softmax ignores: its exact gradient is 0 and both versions
+    hold rounding noise there, so it is held to a bound relative to its
+    layer's wk.weight gradient instead of to itself."""
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
     grads, state = {}, None
     for att in ("flash", "dense"):
-        c = get_config("bert_mini_v5p16", {
+        c = get_config(config, {
             **overrides, "model.attention": att, "model.dropout": 0.0,
             "model.dtype": dtype})
         tower = build_two_tower(c, vocab_size=vocab, device=device).train()
@@ -629,16 +786,29 @@ def flash_vs_dense(overrides, vocab, batch, device, dtype) -> dict:
             key_bias[n] = max(f.norm().item(), g.norm().item()) / ref
         else:
             rel[n] = ((f - g).norm() / g.norm().clamp_min(1e-30)).item()
-    for n in ("wq", "wk", "wv"):
-        name = f"page_tower.block0.attn.{n}.weight"
+    names = [f"page_tower.block0.attn.{n}.weight" for n in ("wq", "wk", "wv")]
+    names += [n for n in grads["flash"] if n.endswith("rel_bias")]
+    for name in names:
         if not grads["flash"][name].abs().max().item() > 0:
             raise AssertionError(f"{name} got no gradient through flash")
     worst = max(rel, key=rel.get)
     return {"max_rel_err": rel[worst], "worst_tensor": worst,
-            "key_bias_over_wk": max(key_bias.values())}
+            "rel_bias_rel_err": {n: e for n, e in rel.items()
+                                 if n.endswith("rel_bias")},
+            "key_bias_over_wk": max(key_bias.values(), default=0.0)}
 
 
-def run_training(device, data, workdir: str) -> dict:
+# the two training cells: the config, its batch (pages a step), and the
+# rows and bounds of the flash vs dense gradient comparison
+TRAIN_CELLS = {
+    "bert_mini_v5p16": dict(batch=TRAIN_BATCH, bf16_rows=TRAIN_BATCH,
+                            f32_rows=F32_ROWS, bf16_tol=FLASH_DENSE_GRAD_TOL),
+    MT5: dict(batch=MT5_TRAIN_BATCH, bf16_rows=MT5_BF16_ROWS,
+              f32_rows=MT5_F32_ROWS, bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
+}
+
+
+def run_training(device, config: str, data, workdir: str) -> dict:
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.loader import TrainBatcher, to_device
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
@@ -646,40 +816,49 @@ def run_training(device, data, workdir: str) -> dict:
     from dnn_page_vectors_tpu_torch.train.loop import (
         Trainer, dropout_generator)
 
+    cell = TRAIN_CELLS[config]
     corpus, q_tok, p_tok = data
     overrides = {"model.attention": "flash",
-                 "data.num_pages": corpus.num_pages, "train.log_every": 1}
-    cfg = get_config("bert_mini_v5p16", overrides)
+                 "data.num_pages": corpus.num_pages, "train.log_every": 1,
+                 "train.batch_size": cell["batch"]}
+    cfg = get_config(config, overrides)
     m, t = cfg.model, cfg.train
-    if t.batch_size != TRAIN_BATCH:
-        raise AssertionError(f"config batch {t.batch_size} != {TRAIN_BATCH}")
-    per_step = 2 * m.num_layers          # one launch per layer per tower
+    per_layer = 2 * m.num_layers         # one launch per layer per tower
+    biased = m.encoder == "t5"           # K4 replaces K2 on the bias path
+    per_step = [per_layer, 0 if biased else per_layer, per_layer,
+                per_layer if biased else 0]
 
     def new_trainer():
         return Trainer(cfg, corpus=corpus, tokenizers=(q_tok, p_tok),
                        device=device)
 
     def counts():
-        return [fa.launches, fa.dq_launches, fa.dkv_launches]
+        return [fa.launches, fa.dq_launches, fa.dkv_launches,
+                fa.dq_dbias_launches]
+
+    def reset():
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        fa.dq_dbias_launches = 0
 
     # ---- the main path, counted: Trainer.train from text ---------------
     trainer = new_trainer()
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    reset()
     t0 = time.perf_counter()
     trainer.train(TRAIN_STEPS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counts()
     # ------------------------------------------------------------------
-    if launches != [TRAIN_STEPS * per_step] * 3:
-        raise AssertionError(f"K1/K2/K3 launched {launches} times in "
+    if launches != [TRAIN_STEPS * n for n in per_step]:
+        raise AssertionError(f"K1/K2/K3/K4 launched {launches} times in "
                              f"{TRAIN_STEPS} steps, want "
-                             f"{TRAIN_STEPS * per_step} each")
+                             f"{[TRAIN_STEPS * n for n in per_step]}")
     hist = trainer.history
     if len(hist) != TRAIN_STEPS or not all(
             np.isfinite([h["loss"], h["grad_norm"]]).all() and h["loss"] > 0
             for h in hist):
         raise AssertionError(f"training metrics are not finite: {hist}")
+    del trainer                          # one trainer on the card at a time
 
     # ---- device timing on pre-made batches ---------------------------------
     t0 = time.perf_counter()
@@ -711,13 +890,13 @@ def run_training(device, data, workdir: str) -> dict:
         raise AssertionError(f"the timed run's losses {losses} differ from "
                              f"Trainer.train's {[h['loss'] for h in hist]}")
     med = float(np.median(step_ms[TRAIN_WARMUP:]))
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    reset()
     straight.train_step(batches[0])
     torch.cuda.synchronize()
     one_step = counts()
-    if one_step != [per_step] * 3:
-        raise AssertionError(f"one step launched K1/K2/K3 {one_step} times, "
-                             f"want {per_step} each")
+    if one_step != per_step:
+        raise AssertionError(f"one step launched K1/K2/K3/K4 {one_step} "
+                             f"times, want {per_step}")
     profile = device_breakdown(lambda: straight.train_step(batches[1]),
                                iters=1)
     # where the host waits for the device inside a step: PyTorch warns at
@@ -733,12 +912,25 @@ def run_training(device, data, workdir: str) -> dict:
              if "called a synchronizing" in str(w.message)]
     torch.cuda.synchronize()
 
+    # ---- bitwise: one step's gradients twice, dropout on ---------------------
+    g1 = _grads(straight.model, batches[2],
+                dropout_generator(t.seed, 0, device))
+    g2 = _grads(straight.model, batches[2],
+                dropout_generator(t.seed, 0, device))
+    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    if differ:
+        raise AssertionError(f"two runs of one step gave different "
+                             f"gradients for {differ}")
+    del g1, g2, straight
+
     # ---- resume: 3 steps, save, restore into a fresh Trainer, 3 steps ------
     first = new_trainer()
     for b in batches[:3]:
         first.train_step(b)
-    ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=1)
+    ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{config}"),
+                             max_to_keep=1)
     first.save(ckpt)
+    del first
     resumed = new_trainer()
     if resumed.restore(ckpt) != 3:
         raise AssertionError("restored the wrong step")
@@ -749,26 +941,16 @@ def run_training(device, data, workdir: str) -> dict:
     if not resume_diff <= RESUME_LOSS_TOL:
         raise AssertionError(f"resumed losses {resumed_losses} differ from "
                              f"straight {losses[3:]} by {resume_diff}")
-    del first, resumed, trainer
-
-    # ---- bitwise: one step's gradients twice, dropout on ---------------------
-    g1 = _grads(straight.model, batches[2],
-                dropout_generator(t.seed, 0, device))
-    g2 = _grads(straight.model, batches[2],
-                dropout_generator(t.seed, 0, device))
-    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
-    if differ:
-        raise AssertionError(f"two runs of one step gave different "
-                             f"gradients for {differ}")
-    del g1, g2
+    del resumed
 
     # ---- flash vs dense gradients, dropout off, the seeded weights ----------
-    bf16 = flash_vs_dense(overrides, p_tok.vocab_size, batches[2], device,
+    rows = {k: v[:cell["bf16_rows"]] for k, v in batches[2].items()}
+    bf16 = flash_vs_dense(config, overrides, p_tok.vocab_size, rows, device,
                           "bfloat16")
-    f32_batch = {k: v[:F32_ROWS] for k, v in batches[2].items()}
-    f32 = flash_vs_dense(overrides, p_tok.vocab_size, f32_batch, device,
+    rows = {k: v[:cell["f32_rows"]] for k, v in batches[2].items()}
+    f32 = flash_vs_dense(config, overrides, p_tok.vocab_size, rows, device,
                          "float32")
-    for rec, tol in ((bf16, FLASH_DENSE_GRAD_TOL),
+    for rec, tol in ((bf16, cell["bf16_tol"]),
                      (f32, FLASH_DENSE_GRAD_TOL_F32)):
         if not rec["max_rel_err"] <= tol:
             raise AssertionError(f"flash vs dense gradients differ: {rec} "
@@ -777,11 +959,13 @@ def run_training(device, data, workdir: str) -> dict:
             raise AssertionError(f"a key-bias gradient (exactly 0 in exact "
                                  f"arithmetic) is not small: {rec}")
 
+    names = ("k1", "k2", "k3", "k4")
     rec = {
         "phase": "train", "config": cfg.name, "attention": m.attention,
         "layers": m.num_layers, "model_dim": m.model_dim, "heads": m.num_heads,
         "mlp_dim": m.mlp_dim, "out_dim": m.out_dim,
         "vocab": p_tok.vocab_size, "batch_pages": t.batch_size,
+        "config_batch_pages": get_config(config).train.batch_size,
         "steps": TRAIN_STEPS,
         "train_pages_per_s_from_text": TRAIN_STEPS * t.batch_size / train_s,
         "train_s": train_s,
@@ -800,23 +984,165 @@ def run_training(device, data, workdir: str) -> dict:
         "device_busy_share": profile["device_ms_per_call"] / med,
         "peak_memory_gb": peak_gb,
         "step_profile": profile,
-        "launches_main_path": {"k1": launches[0], "k2": launches[1],
-                               "k3": launches[2]},
-        "launches_one_step": {"k1": one_step[0], "k2": one_step[1],
-                              "k3": one_step[2]},
+        "launches_main_path": dict(zip(names, launches)),
+        "launches_one_step": dict(zip(names, one_step)),
         "losses": losses, "history": hist,
         "timed_vs_main_path_loss_max_diff": main_diff,
         "resume_loss_max_diff": resume_diff,
         "resume_loss_tol": RESUME_LOSS_TOL,
         "bitwise_equal_grads": True,
-        "flash_vs_dense_grads_bf16": {**bf16, "tol": FLASH_DENSE_GRAD_TOL},
+        "flash_vs_dense_grads_bf16": {**bf16, "tol": cell["bf16_tol"],
+                                      "rows": cell["bf16_rows"]},
         "flash_vs_dense_grads_f32": {**f32, "tol": FLASH_DENSE_GRAD_TOL_F32,
-                                     "rows": F32_ROWS},
+                                     "rows": cell["f32_rows"]},
         "key_bias_grad_tol": KEY_BIAS_GRAD_TOL,
         "device": torch.cuda.get_device_name(0),
     }
     emit(rec)
     return rec
+
+
+def ptxas_summary(log: str) -> list:
+    """[kernel, registers, spill store bytes, spill load bytes] for each
+    kernel in nvcc's -Xptxas -v output ("cached" when nothing was built)."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"flash_[a-z_]+?_kernel", mangled)
+            name = base.group(0) if base else mangled
+            if "kernelI" in mangled:                  # a template
+                name += (("<bf16" if "nv_bfloat16" in mangled else "<f32")
+                         + (",bias>" if "Lb1E" in mangled else ">"))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append([name, int(m.group(1)), *spill])
+            name, spill = None, (0, 0)
+    return out or [log[-200:]]
+
+
+def run_phases(device, report: dict, mt5_tok) -> list:
+    """Phases 2-7; fills `report` and returns the `kernels` line's
+    entries. `mt5_tok` is the future of the mT5 tokenizers."""
+    from dnn_page_vectors_tpu_torch.ops import build
+    # one nvcc per source, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for f in [pool.submit(build.compile_source, src) for src in SOURCES]:
+            f.result()
+    report["build"] = {}
+    for src in SOURCES:
+        build.load_library(src)
+        secs, log = build.BUILD_INFO.get(src, (0.0, "cached"))
+        report["build"][src] = {"nvcc_s": secs}
+        emit({"phase": "build", "source": src, "arch": "sm_90a",
+              "nvcc_seconds": secs, "ptxas": ptxas_summary(log)})
+    emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
+
+    k1 = report["k1"] = check_k1(device, ("embed_bf16",
+                                          "mt5_page_bias_bf16"))
+    k23 = report["k23"] = check_k23(device, "page_train_bf16")
+    k4 = report["k4"] = check_k4(device, "mt5_page_train_bf16")
+    with tempfile.TemporaryDirectory(dir=os.getcwd(),
+                                     prefix=".chip_smoke_") as tmp:
+        data = build_data("bert_mini_v5p16", N_PAGES)
+        report["slice"] = run_slice(device, "bert_mini_v5p16", N_PAGES,
+                                    N_QUERIES, tmp, data)
+        report["train"] = run_training(device, "bert_mini_v5p16", data, tmp)
+        t0 = time.perf_counter()
+        tokenizers = mt5_tok.get()
+        emit({"phase": "mt5_tokenizer_wait", "seconds":
+              time.perf_counter() - t0})
+        data = build_data(MT5, MT5_VOCAB_PAGES, tokenizers)
+        report["mt5_slice"] = run_slice(device, MT5, MT5_PAGES, N_QUERIES,
+                                        tmp, data)
+        report["mt5_train"] = run_training(device, MT5, data, tmp)
+    return kernel_entries(report)
+
+
+def kernel_entries(report: dict) -> list:
+    """The `kernels` line: one entry per kernel, launches summed over the
+    main paths (each path's count read around its own run)."""
+    k1, k23, k4 = report["k1"], report["k23"], report["k4"]
+    paths = {"bert_serving": report["slice"]["k1_launches"],
+             "mt5_serving": report["mt5_slice"]["k1_launches"]}
+    by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
+    for path, rec in (("bert_training", report["train"]),
+                      ("mt5_training", report["mt5_train"])):
+        for n, count in rec["launches_main_path"].items():
+            by_path[n][path] = count
+    by_path["k1"].update(paths)
+    bert_pair = {"k2_k3_ms": k23["k2_k3_ms"]}
+    mt5_pair = {"k4_k3_ms": k4["k4_k3_ms"]}
+    bert_shape = f"B={TRAIN_BATCH} H=4 L=S=64 Dh=64 bf16 q/k/v, f32 g"
+    mt5_shape = (f"B={MT5_TRAIN_BATCH} H=12 L=S=128 Dh=64 bf16 q/k/v, f32 g, "
+                 "f32 bias")
+    k1_bert = k1["timed"]["embed_bf16"]
+    k1_mt5 = k1["timed"]["mt5_page_bias_bf16"]
+    per_step = lambda n: {"bert": report["train"]["launches_one_step"][n],
+                          "mt5": report["mt5_train"]["launches_one_step"][n]}
+    return [{
+        "name": "flash_fwd (K1)", "route": "cuda", "source": K1_SOURCE,
+        "replaces": TPU_K1, "launches": sum(by_path["k1"].values()),
+        "launches_by_path": by_path["k1"],
+        "launches_per_embed_batch": {
+            "bert": report["slice"]["k1_launches_per_embed_batch"],
+            "mt5": report["mt5_slice"]["k1_launches_per_embed_batch"]},
+        "launches_per_train_step": per_step("k1"),
+        "max_abs_err": k1["max_abs_err"], "ms": k1_bert["kernel_ms"],
+        "plain_ms": k1_bert["plain_ms"], "bound_ms": k1_bert["bound_ms"],
+        "bound_by": k1_bert["bound_by"], "library_ms": k1_bert["library_ms"],
+        "shape": "B=512 H=4 L=S=64 Dh=64 bf16",
+        "mt5": {"shape": "B=512 H=12 L=S=128 Dh=64 bf16, f32 bias",
+                "ms": k1_mt5["kernel_ms"], "plain_ms": k1_mt5["plain_ms"],
+                "bound_ms": k1_mt5["bound_ms"],
+                "bound_by": k1_mt5["bound_by"],
+                "library_ms": k1_mt5["library_ms"]}}, {
+        "name": "flash_bwd_dq (K2)", "route": "cuda", "source": K23_SOURCE,
+        "replaces": TPU_K2, "launches": sum(by_path["k2"].values()),
+        "launches_by_path": by_path["k2"],
+        "launches_per_train_step": per_step("k2"),
+        "max_abs_err": max(w["k2"] for w in k23["worst"].values()),
+        "ms": k23["k2_ms"], "plain_ms": k23["plain_ms"],
+        "bound_ms": k23["bound"]["dq"]["bound_ms"],
+        "bound_by": k23["bound"]["dq"]["bound_by"],
+        "library_ms": k23["library_ms"], **bert_pair, "shape": bert_shape,
+        "plain_and_library_cover": "K2 and K3 together"}, {
+        "name": "flash_bwd_dkv (K3)", "route": "cuda", "source": K23_SOURCE,
+        "replaces": TPU_K3, "launches": sum(by_path["k3"].values()),
+        "launches_by_path": by_path["k3"],
+        "launches_per_train_step": per_step("k3"),
+        "max_abs_err": max([w["k3"] for w in k23["worst"].values()]
+                           + [w["k3"] for w in k4["worst"].values()]),
+        "ms": k23["k3_ms"], "plain_ms": k23["plain_ms"],
+        "bound_ms": k23["bound"]["dkv"]["bound_ms"],
+        "bound_by": k23["bound"]["dkv"]["bound_by"],
+        "library_ms": k23["library_ms"], **bert_pair, "shape": bert_shape,
+        "plain_and_library_cover": "K2 and K3 together",
+        "biased": {"shape": mt5_shape, "ms": k4["k3_bias_ms"],
+                   "plain_ms": k4["plain_ms"],
+                   "bound_ms": k4["bound"]["dkv"]["bound_ms"],
+                   "bound_by": k4["bound"]["dkv"]["bound_by"],
+                   "library_ms": k4["library_ms"], **mt5_pair,
+                   "plain_and_library_cover": "K4 and K3 together"}}, {
+        "name": "flash_bwd_dq_dbias (K4)", "route": "cuda",
+        "source": K23_SOURCE, "replaces": TPU_K4,
+        "launches": sum(by_path["k4"].values()),
+        "launches_by_path": by_path["k4"],
+        "launches_per_train_step": per_step("k4"),
+        "max_abs_err": max(w["k4"] for w in k4["worst"].values()),
+        "ms": k4["k4_ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound"]["dq"]["bound_ms"],
+        "bound_by": k4["bound"]["dq"]["bound_by"],
+        "library_ms": k4["library_ms"], **mt5_pair, "shape": mt5_shape,
+        "bitwise_equal_runs": k4["bitwise"],
+        "plain_and_library_cover": "K4 and K3 together"}]
 
 
 def main() -> int:
@@ -828,8 +1154,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        from dnn_page_vectors_tpu_torch.ops import build
-        from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
         from dnn_page_vectors_tpu_torch.utils.device import resolve_device
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
@@ -844,65 +1168,17 @@ def main() -> int:
                          "cuda": torch.version.cuda}}
     emit({"phase": "device", **report["device"]})
 
-    # one nvcc per source, all started together
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        for f in [pool.submit(build.compile_source, src) for src in SOURCES]:
-            f.result()
-    report["build"] = {}
-    for src in SOURCES:
-        build.load_library(src)
-        secs, log = build.BUILD_INFO.get(src, (0.0, "cached"))
-        report["build"][src] = {"nvcc_s": secs}
-        emit({"phase": "build", "source": src, "arch": "sm_90a",
-              "nvcc_seconds": secs, "ptxas": log[-1500:]})
-    emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
-
-    k1 = check_k1(device, "embed_bf16")
-    report["k1"] = k1
-    k23 = check_k23(device, "page_train_bf16")
-    report["k23"] = k23
-    with tempfile.TemporaryDirectory(dir=os.getcwd(),
-                                     prefix=".chip_smoke_") as tmp:
-        data = build_data(N_PAGES)
-        report["slice"] = run_slice(device, N_PAGES, N_QUERIES, tmp, data)
-        report["train"] = run_training(device, data, tmp)
-
-    serve, train = report["slice"], report["train"]
-    train_launches = train["launches_main_path"]
-    pair = {"k2_k3_ms": k23["k2_k3_ms"]}
-    shape = f"B={TRAIN_BATCH} H=4 L=S=64 Dh=64 bf16 q/k/v, f32 g"
-    kernels = [{
-        "name": "flash_fwd (K1)", "route": "cuda", "source": K1_SOURCE,
-        "replaces": TPU_K1,
-        "launches": serve["k1_launches"] + train_launches["k1"],
-        "launches_by_path": {"serving": serve["k1_launches"],
-                             "training": train_launches["k1"]},
-        "launches_per_embed_batch": serve["k1_launches_per_embed_batch"],
-        "launches_per_train_step": train["launches_one_step"]["k1"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"],
-        "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        "shape": "B=512 H=4 L=S=64 Dh=64 bf16"}, {
-        "name": "flash_bwd_dq (K2)", "route": "cuda", "source": K23_SOURCE,
-        "replaces": TPU_K2, "launches": train_launches["k2"],
-        "launches_per_train_step": train["launches_one_step"]["k2"],
-        "max_abs_err": max(w["k2"] for w in k23["worst"].values()),
-        "ms": k23["k2_ms"], "plain_ms": k23["plain_ms"],
-        "bound_ms": k23["bound"]["k2"]["bound_ms"],
-        "bound_by": k23["bound"]["k2"]["bound_by"],
-        "library_ms": k23["library_ms"], **pair, "shape": shape,
-        "plain_and_library_cover": "K2 and K3 together"}, {
-        "name": "flash_bwd_dkv (K3)", "route": "cuda", "source": K23_SOURCE,
-        "replaces": TPU_K3, "launches": train_launches["k3"],
-        "launches_per_train_step": train["launches_one_step"]["k3"],
-        "max_abs_err": max(w["k3"] for w in k23["worst"].values()),
-        "ms": k23["k3_ms"], "plain_ms": k23["plain_ms"],
-        "bound_ms": k23["bound"]["k3"]["bound_ms"],
-        "bound_by": k23["bound"]["k3"]["bound_by"],
-        "library_ms": k23["library_ms"], **pair, "shape": shape,
-        "plain_and_library_cover": "K2 and K3 together"}]
+    # the mT5 vocab is host work of minutes: train it in a second process
+    # while the card works on the builds, the checks and BERT-mini; the
+    # process is ended with the run, whether it succeeded or not
+    tok_pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        mt5_tok = tok_pool.apply_async(
+            train_tokenizers, (data_config(MT5, MT5_VOCAB_PAGES),))
+        kernels = run_phases(device, report, mt5_tok)
+    finally:
+        tok_pool.terminate()
+        tok_pool.join()
     report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

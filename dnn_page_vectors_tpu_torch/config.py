@@ -1,7 +1,7 @@
-"""Config dataclasses for the port: the fields the BERT-mini serving and
-training slices read, with the JAX package's names and defaults (its
-config.py), the ``bert_mini_v5p16`` preset, and ``get_config`` with dotted
-overrides.
+"""Config dataclasses for the port: the fields the BERT-mini and mT5
+serving and training slices read, with the JAX package's names and
+defaults (its config.py), the ``bert_mini_v5p16`` and ``mt5_multilingual``
+presets, and ``get_config`` with dotted overrides.
 
 Sections and fields of later slices (mesh, scan_steps, packing, index,
 fleet, maintenance, ...) join as those slices land; an override naming a
@@ -29,7 +29,7 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Encoder settings. This slice builds the `bert` encoder only."""
+    """Encoder settings. The port builds the `bert` and `t5` encoders."""
     encoder: str = "cdssm"           # cdssm | kim_cnn | lstm | bert | t5
     out_dim: int = 128               # final vector dimension (both towers)
     num_layers: int = 4
@@ -37,7 +37,7 @@ class ModelConfig:
     mlp_dim: int = 1024
     model_dim: int = 256
     dropout: float = 0.1             # embedding, attention and MLP outputs
-    attention: str = "dense"         # dense | flash (CUDA kernels K1-K3)
+    attention: str = "dense"         # dense | flash (CUDA kernels K1-K4)
     shared_towers: bool = False      # share params between the towers
     dtype: str = "bfloat16"          # compute dtype; params stay float32
 
@@ -68,6 +68,7 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
     recall_k: int = 10               # Recall@10 query->page
+    eval_queries: int = 1_000        # queries evaluate_recall embeds
     embed_batch_size: int = 512
     store_shard_size: int = 65_536   # vector-store shard rows (fp16 store)
 
@@ -135,8 +136,28 @@ def bert_mini_v5p16() -> Config:
     )
 
 
+def mt5_multilingual() -> Config:
+    """Config 5: multilingual mT5-base page encoder with cross-lingual
+    retrieval. mT5-base encoder: L=12, d=768, A=12 (Dh=64), ff 2048 (gated
+    GELU), out 768, SentencePiece vocab 250,112, page_len 128, query_len
+    16, a 4-language corpus. The batch of 4,096 is the global batch of the
+    JAX config's data=4 x model=2 mesh; one card does not hold it, so a
+    single-card run cuts it with the ``train.batch_size`` override."""
+    return Config(
+        name="mt5_multilingual",
+        data=DataConfig(tokenizer="sentencepiece", corpus="toy",
+                        num_pages=10_000_000, vocab_size=250_112,
+                        page_len=128, languages=4),
+        model=ModelConfig(encoder="t5", num_layers=12, num_heads=12,
+                          model_dim=768, mlp_dim=2048, out_dim=768),
+        train=TrainConfig(batch_size=4_096, steps=100_000,
+                          learning_rate=1e-4),
+    )
+
+
 CONFIGS = {
     "bert_mini_v5p16": bert_mini_v5p16,
+    "mt5_multilingual": mt5_multilingual,
 }
 
 

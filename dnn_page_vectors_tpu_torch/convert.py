@@ -4,10 +4,13 @@
 arrays (``{"params": {...}}`` or the inner dict) and returns a torch
 state dict for the port's module of the same structure:
 
-* Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed);
+* Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed), with
+  or without a ``bias`` (the t5 blocks' Dense layers, ``wi_0`` and
+  ``wi_1`` among them, have none);
 * Embed ``embedding`` -> ``weight``;
 * everything else keeps its name and layout: Dense and LayerNorm
-  ``bias``, LayerNorm ``scale``, ``pos_embed``, ``log_scale``.
+  ``bias``, LayerNorm and RmsNorm ``scale``, ``pos_embed``, the t5
+  ``rel_bias`` table [32, H], ``log_scale``.
 
 Module paths are joined with dots (``query_tower/block0/attn/wq`` ->
 ``query_tower.block0.attn.wq``), which is how the port names its modules.

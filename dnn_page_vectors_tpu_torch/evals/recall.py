@@ -1,9 +1,12 @@
-"""Retrieval eval: Recall@k query->page for in-memory vectors on one device.
+"""Retrieval eval: Recall@k query->page on one device.
 
-Counterpart of the JAX package's evals/recall.py ``recall_at_k``; the
-store-streaming eval is a later slice.
+Counterpart of the JAX package's evals/recall.py: ``recall_at_k`` for
+in-memory vectors and ``evaluate_recall`` for a store. The ANN
+(IVF/PQ) recall and the store-streaming eval are later slices.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,3 +39,21 @@ def recall_at_k(query_vecs: np.ndarray, page_ids: np.ndarray,
         gold = gold_ids[s: s + query_batch, None]
         hits += int((retrieved == gold).any(axis=1).sum())
     return hits / max(nq, 1)
+
+
+def evaluate_recall(embedder, corpus, store, num_queries: Optional[int] = None,
+                    k: int = 10) -> Tuple[float, int]:
+    """Embeds the query texts of pages 0..n-1 with the query tower,
+    searches the whole store staged on the embedder's device and returns
+    (recall@k, n), the gold page of query i being page i (the toy
+    corpus's invariant). n is ``num_queries`` (default
+    ``eval.eval_queries``), at most the corpus size. One process: the
+    JAX package's multi-host split of the query range is not ported."""
+    nq = min(num_queries or embedder.cfg.eval.eval_queries, corpus.num_pages)
+    query_vecs = embedder.embed_texts(
+        [corpus.query_text(i) for i in range(nq)], tower="query")
+    page_ids, page_vecs = store.load_all()
+    pages = torch.from_numpy(page_vecs).to(embedder.device)
+    return recall_at_k(query_vecs, page_ids, pages,
+                       np.arange(nq, dtype=np.int64), k=k,
+                       device=embedder.device), nq

@@ -1,14 +1,15 @@
 """Encoder factory: Config -> TwoTower module with seeded random weights.
 
-Counterpart of the JAX package's models/factory.py. This slice builds the
-``bert`` encoder; the other encoders raise NotImplementedError naming the
-slice of the port that brings them.
+Counterpart of the JAX package's models/factory.py. The port builds the
+``bert`` and ``t5`` encoders; the other encoders raise NotImplementedError
+naming the slice of the port that brings them.
 
 Initialization draws from one ``torch.Generator`` seeded by
 ``cfg.train.seed`` on the CPU, then moves the module to ``device``, so the
 weights do not depend on the device. The distributions follow flax's
 defaults (Dense: lecun normal, bias 0; Embed: normal, std 1/sqrt(d);
-pos_embed: normal, std 0.02; LayerNorm: scale 1, bias 0); the numbers
+pos_embed and rel_bias: normal, std 0.02; LayerNorm: scale 1, bias 0;
+RmsNorm: scale 1); the numbers
 differ from JAX's, whose generator is another. Weights trained in JAX carry
 over through convert.py.
 """
@@ -21,14 +22,13 @@ from torch import nn
 
 from dnn_page_vectors_tpu_torch.config import Config
 from dnn_page_vectors_tpu_torch.models.transformer import (
-    Dense, LayerNorm, TransformerEncoder)
+    VARIANTS, Dense, LayerNorm, RmsNorm, TransformerEncoder)
 from dnn_page_vectors_tpu_torch.models.two_tower import TwoTower
 from dnn_page_vectors_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 _LATER = {
-    "t5": "slice 3 (mT5 with kernel K4)",
     "cdssm": "slice 5 (CDSSM, Kim-CNN and LSTM)",
     "kim_cnn": "slice 5 (CDSSM, Kim-CNN and LSTM)",
     "lstm": "slice 5 (CDSSM, Kim-CNN and LSTM)",
@@ -41,7 +41,7 @@ def _build_encoder(cfg: Config, vocab_size: int) -> nn.Module:
         raise NotImplementedError(
             f"encoder {m.encoder!r} is not ported yet: it comes with "
             f"{_LATER[m.encoder]} of the port")
-    if m.encoder != "bert":
+    if m.encoder not in VARIANTS:
         raise ValueError(f"unknown encoder {m.encoder!r}")
     if m.attention not in ("dense", "flash"):
         raise ValueError(f"unknown attention kind {m.attention!r} (want "
@@ -54,7 +54,7 @@ def _build_encoder(cfg: Config, vocab_size: int) -> nn.Module:
         num_heads=m.num_heads, model_dim=m.model_dim, mlp_dim=m.mlp_dim,
         out_dim=m.out_dim, max_len=max(cfg.data.query_len, cfg.data.page_len),
         dtype=DTYPES[m.dtype], attention_kind=m.attention,
-        dropout=m.dropout)
+        dropout=m.dropout, variant=m.encoder)
 
 
 @torch.no_grad()
@@ -72,8 +72,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, LayerNorm):
             mod.scale.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, RmsNorm):
+            mod.scale.fill_(1.0)
         elif isinstance(mod, TransformerEncoder):
-            mod.pos_embed.normal_(0.0, 0.02, generator=generator)
+            table = mod.rel_bias if mod.variant == "t5" else mod.pos_embed
+            table.normal_(0.0, 0.02, generator=generator)
 
 
 def build_two_tower(cfg: Config, vocab_size: int,

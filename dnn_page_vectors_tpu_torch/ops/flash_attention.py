@@ -1,5 +1,5 @@
 """Flash attention for the transformer towers: the wrappers of kernel K1
-(forward, ``csrc/flash_fwd.cu``) and kernels K2 and K3 (backward,
+(forward, ``csrc/flash_fwd.cu``) and kernels K2, K3 and K4 (backward,
 ``csrc/flash_bwd.cu``), the ``torch.autograd.Function`` that joins them,
 and their plain PyTorch versions.
 
@@ -10,14 +10,16 @@ bidirectional, padding-masked attention with an optional additive bias
 out [B,H,L,Dh] f32 and the row log-sum-exp [B,H,L] f32. A fully masked
 row returns mean(V) (scores are masked with the finite -1e30).
 
-K2 (dq, replacing ``_flash_dq_kernel``) and K3 (dk and dv, replacing
-``_flash_dkv_kernel``) are its backward: they rebuild the probabilities
-from the saved lse, so no [B,H,L,S] array exists in the backward either.
-At a fully masked row they give the gradient of the forward above (dv
-gets g/S for every key, and the row adds nothing to dq or dk), not the
-TPU kernels' p = 1. The backward of the bias path (K4, dbias) is slice 3
-of the port and that of the segment path slice 4: the forward takes both,
-and a backward through either raises NotImplementedError.
+The backward rebuilds the probabilities from the saved lse, so no
+[B,H,L,S] array exists in it either. Without a bias it is K2 (dq,
+replacing ``_flash_dq_kernel``) then K3 (dk and dv, replacing
+``_flash_dkv_kernel``); with a bias it is K4 (dq and dbias[h,l,s] =
+sum_b ds[b,h,l,s], replacing ``_flash_dq_dbias_kernel``) then K3 with the
+bias, as the JAX package does. At a fully masked row they give the
+gradient of the forward above (dv gets g/S for every key, and the row
+adds nothing to dq, dk or dbias), not the TPU kernels' p = 1. The
+backward of the segment path is slice 4 of the port: the forward takes
+``seg``, and a backward through it raises NotImplementedError.
 
 Routing is by the tensors' device and nothing else: a CUDA tensor goes to
 the kernel (or the wrapper raises), a CPU tensor goes to the plain version
@@ -39,12 +41,17 @@ MAX_HEAD_DIM = 128
 _SOURCE = "flash_fwd.cu"
 _BWD_SOURCE = "flash_bwd.cu"
 
-# Launches of K1, K2 and K3 since the last reset: each wrapper adds one
+# batch rows whose ds one K4 block sums into its partial dbias (K4's
+# second launch sums the partials in order)
+DBIAS_GROUP = 8
+
+# Launches of K1, K2, K3 and K4 since the last reset: each wrapper adds one
 # where it launches its kernel and nowhere else. chip_smoke.py sets them to
 # 0 before driving a path and reads them after.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+dq_dbias_launches = 0
 
 
 def reference_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,24 +89,29 @@ def reference_attention(q, k, v, kv_mask, bias=None, seg=None) -> torch.Tensor:
 
 def reference_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_mask: torch.Tensor, g: torch.Tensor,
-                       out: torch.Tensor, lse: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain backward of ``reference_forward`` without bias or seg, the
-    oracle of K2 and K3: (dq, dk, dv) in the dtypes of q, k and v.
+                       out: torch.Tensor, lse: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """Plain backward of ``reference_forward`` with an optional bias and
+    no seg, the oracle of K2, K3 and K4: (dq, dk, dv, dbias) in the dtypes
+    of q, k, v and the bias (dbias is None without a bias).
 
     It computes what the kernels compute: p is rebuilt from the saved
-    ``lse`` as exp(scale * q.k - lse), zero at a masked key;
+    ``lse`` as exp(scale * q.k + bias - lse), zero at a masked key;
     delta = sum(g * out) per row; ds = p * (g.v - delta); dq = scale *
-    ds.k, dk = scale * ds^T.q, dv = p^T.g, all in float32. A fully masked
-    row (lse <= -1e29: every score was -1e30, so the forward's softmax was
-    uniform) gets p = 1/S for every key and ds = 0, which is the gradient
-    of the forward (``jax.grad`` of the reference attention agrees), not
-    the TPU kernels' p = 1."""
+    ds.k, dk = scale * ds^T.q, dv = p^T.g, dbias = sum over the batch of
+    ds, all in float32. A fully masked row (lse <= -1e29: every score was
+    -1e30, so the forward's softmax was uniform) gets p = 1/S for every key
+    and ds = 0, which is the gradient of the forward (``jax.grad`` of the
+    reference attention agrees), not the TPU kernels' p = 1."""
     S = k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
     delta = (gf * out.float()).sum(-1)                        # [B,H,L]
     s = torch.einsum("bhld,bhsd->bhls", qf, kf) * scale
+    if bias is not None:
+        s = s + bias[None].float()
     allowed = kv_mask.bool()[:, None, None, :]
     masked_row = (lse <= MASKED_ROW_LSE)[..., None]           # [B,H,L,1]
     p = torch.where(allowed, torch.exp(s - lse[..., None]),
@@ -111,7 +123,8 @@ def reference_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhls,bhsd->bhld", ds, kf) * scale
     dk = torch.einsum("bhls,bhld->bhsd", ds, qf) * scale
     dv = torch.einsum("bhls,bhld->bhsd", p, gf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dbias = None if bias is None else ds.sum(0).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def _check(q, k, v, kv_mask, bias, seg):
@@ -196,10 +209,13 @@ def _bwd_library():
     from dnn_page_vectors_tpu_torch.ops.build import load_library
     lib = load_library(_BWD_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):   # 9 tensor pointers
+    tail = [I, I, I, I, I, ctypes.c_float, I]
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    for fn, nptr, extra in ((lib.flash_bwd_dq, 9, []),
+                            (lib.flash_bwd_dkv, 10, []),
+                            (lib.flash_bwd_dq_dbias, 12, [I])):
         if fn.argtypes is None:
-            fn.argtypes = [P] * 9 + [I, I, I, I, I, ctypes.c_float, I,
-                                     ctypes.POINTER(ctypes.c_longlong), P]
+            fn.argtypes = [P] * nptr + tail + extra + [strides, P]
             fn.restype = ctypes.c_int
     return lib
 
@@ -242,18 +258,55 @@ def launch_dq(q, k, v, kv_mask, g, out, lse
     return dq, delta
 
 
-def launch_dkv(q, k, v, kv_mask, g, lse, delta
+def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 on the current stream (CUDA tensors only): (dq in q's dtype,
+    laid out like q; delta [B,H,L] f32 for K3; dbias [H,L,S] f32). Its
+    first launch writes one partial dbias per group of DBIAS_GROUP batch
+    rows, its second sums the partials in order: no atomics, so dbias is
+    bitwise equal from run to run."""
+    global dq_dbias_launches
+    lib = _bwd_library()
+    B, H, L = q.shape[:3]
+    S = k.shape[2]
+    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    out, lse = out.contiguous(), lse.contiguous()
+    bias_f = bias.float().contiguous()
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    groups = -(-B // DBIAS_GROUP)
+    part = torch.empty((groups, H, L, S), dtype=torch.float32,
+                       device=q.device)
+    dbias = torch.empty((H, L, S), dtype=torch.float32, device=q.device)
+    strides = _bwd_strides(q, k, v, g, dq, k, v)
+    err = lib.flash_bwd_dq_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        bias_f.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), part.data_ptr(), dbias.data_ptr(),
+        *_bwd_common(q, k), DBIAS_GROUP, strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq_dbias kernel launch failed: CUDA "
+                           f"error {err}")
+    dq_dbias_launches += 1
+    return dq, delta, dbias
+
+
+def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on the current stream, after K2 wrote `delta`: (dk, dv) in the
-    dtypes of k and v, laid out like them."""
+    """K3 on the current stream, after K2 or K4 wrote `delta`: (dk, dv) in
+    the dtypes of k and v, laid out like them. With `bias` [H,L,S] the
+    scores are rebuilt with it, as K1 built them."""
     global dkv_launches
     lib = _bwd_library()
     mask_u8 = kv_mask.to(torch.uint8).contiguous()
     lse = lse.contiguous()
+    bias_f = None if bias is None else bias.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     strides = _bwd_strides(q, k, v, g, q, dk, dv)
     err = lib.flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        None if bias_f is None else bias_f.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), *_bwd_common(q, k), strides,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -275,13 +328,15 @@ def _forward(q, k, v, kv_mask, bias, seg):
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: torch.Tensor, g: torch.Tensor, out: torch.Tensor,
-                   lse: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in the dtypes of q, k, v for the upstream gradient g
-    [B,H,L,Dh] of ``out``, given the forward's out and lse (no bias, no
-    seg). CUDA tensors launch K2 then K3 on the current stream; CPU tensors
-    take the plain version ``reference_backward``."""
-    _check(q, k, v, kv_mask, None, None)
+                   lse: torch.Tensor, bias: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """(dq, dk, dv, dbias) in the dtypes of q, k, v and the bias (dbias is
+    None without a bias) for the upstream gradient g [B,H,L,Dh] of
+    ``out``, given the forward's out and lse (no seg). CUDA tensors launch
+    K2 then K3, or with a bias K4 then K3, on the current stream; CPU
+    tensors take the plain version ``reference_backward``."""
+    _check(q, k, v, kv_mask, bias, None)
     want = (q.shape[0], q.shape[1], q.shape[2])
     if g.shape != q.shape or out.shape != q.shape or lse.shape != want:
         raise ValueError(f"flash_backward: g {tuple(g.shape)}, out "
@@ -291,42 +346,47 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if g.stride(-1) != 1:         # e.g. an expanded gradient: stride 0
         g = g.contiguous()
     if q.device.type == "cpu":
-        return reference_backward(q, k, v, kv_mask, g, out, lse)
+        return reference_backward(q, k, v, kv_mask, g, out, lse, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    dq, delta = launch_dq(q, k, v, kv_mask, g, out.float(), lse.float())
-    dk, dv = launch_dkv(q, k, v, kv_mask, g, lse.float(), delta)
-    return dq, dk, dv
+    out, lse = out.float(), lse.float()
+    if bias is None:
+        dq, delta = launch_dq(q, k, v, kv_mask, g, out, lse)
+        dbias = None
+    else:
+        dq, delta, dbias = launch_dq_dbias(q, k, v, kv_mask, bias, g, out,
+                                           lse)
+        dbias = dbias.to(bias.dtype)
+    dk, dv = launch_dkv(q, k, v, kv_mask, g, lse, delta, bias)
+    return dq, dk, dv, dbias
 
 
 class FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 + K3 backward (plain versions on CPU tensors).
-    Returns (out, lse); lse is not differentiable."""
+    """K1 forward; K2 + K3 backward, or K4 + K3 with a bias (plain
+    versions on CPU tensors). Returns (out, lse); lse is not
+    differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, bias, seg):
         out, lse = _forward(q, k, v, kv_mask, bias, seg)
-        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
-        ctx.has_bias = bias is not None
+        ctx.save_for_backward(q, k, v, kv_mask, bias, out, lse)
         ctx.has_seg = seg is not None
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        if ctx.has_bias:
-            raise NotImplementedError(
-                "flash_attention backward with a bias (T5 relative "
-                "positions) needs kernel K4 (dq + dbias), which comes with "
-                "slice 3 (mT5) of the port")
         if ctx.has_seg:
             raise NotImplementedError(
                 "flash_attention backward with segment ids (sequence "
                 "packing) comes with slice 4 of the port (the seg variants "
-                "of K2 and K3)")
-        q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, kv_mask, g_out, out, lse)
-        return dq, dk, dv, None, None, None
+                "of K2, K3 and K4)")
+        q, k, v, kv_mask, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_backward(q, k, v, kv_mask, g_out, out, lse,
+                                           bias)
+        if not ctx.needs_input_grad[4]:
+            dbias = None
+        return dq, dk, dv, None, dbias, None
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -334,14 +394,16 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seg: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B,H,L,Dh] f32, lse [B,H,L] f32), differentiable in q, k, v
-    through ``FlashAttention``. CUDA tensors launch K1 on the current
-    stream (and K2, K3 in the backward); CPU tensors take the plain
-    versions. q/k/v may be strided (the towers pass ``x.transpose(1, 2)``)
-    as long as Dh has unit stride. With no gradient to record (inference
-    mode, ``no_grad``, or inputs that need none) the forward is called
-    directly, without the Function's bookkeeping."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    and the bias through ``FlashAttention``. CUDA tensors launch K1 on the
+    current stream (and K2 + K3, or K4 + K3 with a bias, in the backward);
+    CPU tensors take the plain versions. q/k/v may be strided (the towers
+    pass ``x.transpose(1, 2)``) as long as Dh has unit stride. With no
+    gradient to record (inference mode, ``no_grad``, or inputs that need
+    none) the forward is called directly, without the Function's
+    bookkeeping."""
+    wants_grad = (q.requires_grad or k.requires_grad or v.requires_grad
+                  or (bias is not None and bias.requires_grad))
+    if torch.is_grad_enabled() and wants_grad:
         return FlashAttention.apply(q, k, v, kv_mask, bias, seg)
     return _forward(q, k, v, kv_mask, bias, seg)
 

@@ -1,8 +1,9 @@
 """The port's flash-attention backward (ops/flash_attention.py:
-``reference_backward``, the plain version of kernels K2 and K3, and the
-``FlashAttention`` autograd Function) against the JAX package: its Pallas
-backward ``_flash_backward`` run in interpret mode with blocks of 16, and
-``jax.grad`` of its ``reference_attention``. On CPU tensors the port's
+``reference_backward``, the plain version of kernels K2, K3 and K4, and
+the ``FlashAttention`` autograd Function) against the JAX package: its
+Pallas backward ``_flash_backward`` run in interpret mode with blocks of
+16, and ``jax.grad`` of its ``reference_attention``, without and with a
+T5 bias (then dbias too). On CPU tensors the port's
 Function takes the plain versions, so this holds the plain backward to
 the TPU kernels' contract; tests/test_torch_kernels_cuda.py holds the CUDA
 kernels to the plain backward on the card.
@@ -13,8 +14,9 @@ gradients.
 
 At a fully masked query row the port gives the gradient of its forward
 (which is what ``jax.grad`` of the reference gives), not the JAX kernel's:
-the kernel rebuilds p = exp(s - lse) = 1 there instead of 1/S. That
-difference is pinned here."""
+the kernel rebuilds p = exp(s - lse) = 1 there instead of 1/S, and with a
+bias its unmasked ds there also reaches dbias. Both differences are
+pinned here."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,28 +48,38 @@ def _mk(B=2, H=2, L=48, S=48, Dh=16, seed=0, pad_tail=5):
 
 def _jax_kernel_grads(arrs, dtype):
     """The Pallas backward (interpret mode, blocks 16) on the Pallas
-    forward's out and lse."""
+    forward's out and lse: [dq, dk, dv], and dbias when `arrs` has a
+    bias."""
     q, k, v = (jnp.asarray(arrs[n], dtype) for n in ("q", "k", "v"))
     mask = jnp.asarray(arrs["kv_mask"])
-    out, lse = _flash_forward(q, k, v, mask, None, None, 16, 16, True)
-    dq, dk, dv, _ = _flash_backward(q, k, v, mask, None, None,
-                                    jnp.asarray(arrs["g"]), out, lse, 16, 16,
-                                    True)
-    return [np.asarray(x.astype(jnp.float32)) for x in (dq, dk, dv)]
+    bias = arrs.get("bias")
+    bias = None if bias is None else jnp.asarray(bias)
+    out, lse = _flash_forward(q, k, v, mask, bias, None, 16, 16, True)
+    dq, dk, dv, db = _flash_backward(q, k, v, mask, bias, None,
+                                     jnp.asarray(arrs["g"]), out, lse, 16,
+                                     16, True)
+    grads = (dq, dk, dv) if bias is None else (dq, dk, dv, db)
+    return [np.asarray(x.astype(jnp.float32)) for x in grads]
 
 
 def _jax_autodiff_grads(arrs, dtype):
     q, k, v = (jnp.asarray(arrs[n], dtype) for n in ("q", "k", "v"))
     mask = jnp.asarray(arrs["kv_mask"])
     g = jnp.asarray(arrs["g"])
-    _, vjp = jax.vjp(lambda q, k, v: jax_reference(q, k, v, mask), q, k, v)
+    if arrs.get("bias") is None:
+        _, vjp = jax.vjp(lambda q, k, v: jax_reference(q, k, v, mask),
+                         q, k, v)
+    else:
+        _, vjp = jax.vjp(lambda q, k, v, b: jax_reference(q, k, v, mask, b),
+                         q, k, v, jnp.asarray(arrs["bias"]))
     return [np.asarray(x.astype(jnp.float32)) for x in vjp(g)]
 
 
 def _port_grads(arrs, dtype, strided=False):
-    """reference_backward on the port's own forward; with `strided`, q, k,
-    v and g are [B, L, H, Dh] tensors viewed as [B, H, L, Dh], as the
-    towers hand them over."""
+    """reference_backward on the port's own forward: [dq, dk, dv], and
+    dbias when `arrs` has a bias; with `strided`, q, k, v and g are [B, L,
+    H, Dh] tensors viewed as [B, H, L, Dh], as the towers hand them
+    over."""
     t = {n: torch.from_numpy(arrs[n]) for n in ("q", "k", "v", "g")}
     if strided:
         t = {n: x.transpose(1, 2).contiguous().transpose(1, 2)
@@ -75,16 +87,25 @@ def _port_grads(arrs, dtype, strided=False):
         assert not t["q"].is_contiguous()
     q, k, v = (t[n].to(dtype) for n in ("q", "k", "v"))
     mask = torch.from_numpy(arrs["kv_mask"])
-    out, lse = fa.reference_forward(q, k, v, mask)
-    grads = fa.reference_backward(q, k, v, mask, t["g"], out, lse)
+    bias = arrs.get("bias")
+    bias = None if bias is None else torch.from_numpy(bias)
+    out, lse = fa.reference_forward(q, k, v, mask, bias)
+    *grads, dbias = fa.reference_backward(q, k, v, mask, t["g"], out, lse,
+                                          bias)
     for x, want in zip(grads, (q, k, v)):
         assert x.dtype == want.dtype and x.shape == want.shape
     # the Function routes a CPU tensor to the same plain backward
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-    o = fa.flash_attention(qg, kg, vg, mask)
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    if bias is None:
+        assert dbias is None
+    else:
+        assert dbias.dtype == bias.dtype and dbias.shape == bias.shape
+        grads.append(dbias)
+        inputs.append(bias.detach().requires_grad_(True))
+    o = fa.flash_attention(*inputs[:3], mask, *inputs[3:])
     assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
-    via_fn = torch.autograd.grad(o, (qg, kg, vg), t["g"])
-    for a, b in zip(grads, via_fn):
+    via_fn = torch.autograd.grad(o, inputs, t["g"])
+    for a, b in zip(grads, via_fn, strict=True):
         assert torch.equal(a, b)
     return [x.float().numpy() for x in grads]
 
@@ -134,20 +155,93 @@ def test_fully_masked_row_follows_the_gradient_not_the_jax_kernel():
         np.testing.assert_allclose(a[0], b[0], **F32)
 
 
-@pytest.mark.parametrize("extra", ["bias", "seg"])
+# the shapes of tests/test_flash_attention.py's biased gradient tests
+BIAS_CASES = {
+    "B3_L32": dict(B=3, H=2, L=32, S=32, pad_tail=4, bias_seed=2),
+    "ragged_L37_S53": dict(B=2, H=2, L=37, S=53, pad_tail=6, bias_seed=5),
+}
+
+
+def _mk_bias(bias_seed, **shape):
+    arrs = _mk(**shape)
+    H, L, S = shape["H"], shape["L"], shape["S"]
+    arrs["bias"] = np.random.default_rng(bias_seed).normal(
+        size=(H, L, S)).astype(np.float32)
+    return arrs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(BIAS_CASES))
+def test_biased_reference_backward_matches_jax(case, dtype):
+    """dq, dk, dv and dbias of the plain backward (K4 + K3's oracle), and
+    of the Function through it, against the Pallas biased backward (K4's
+    batch-innermost dbias) and jax.grad of the reference with the bias."""
+    arrs = _mk_bias(**BIAS_CASES[case])
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    tol = F32 if dtype == "float32" else BF16
+    got = _port_grads(arrs, td)
+    assert len(got) == 4
+    for want in (_jax_kernel_grads(arrs, jd), _jax_autodiff_grads(arrs, jd)):
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want,
+                              strict=True):
+            np.testing.assert_allclose(a, b, err_msg=f"{case} {name}", **tol)
+
+
+def test_fully_masked_row_adds_nothing_to_dbias_unlike_the_jax_kernel():
+    # B=2, H=2, L=S=16, Dh=8; batch row 1 sees no key. Its ds is 0 (the
+    # masked scores do not depend on the bias), so dbias is batch row 0's
+    # ds alone, as jax.grad of the reference gives.
+    arrs = _mk_bias(B=2, H=2, L=16, S=16, Dh=8, pad_tail=0, seed=3,
+                    bias_seed=4)
+    arrs["kv_mask"][1] = False
+    got = _port_grads(arrs, torch.float32)
+    want = _jax_autodiff_grads(arrs, jnp.float32)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want,
+                          strict=True):
+        np.testing.assert_allclose(a, b, err_msg=name, **F32)
+    alone = dict(arrs, **{n: arrs[n][:1] for n in ("q", "k", "v", "g",
+                                                   "kv_mask")})
+    np.testing.assert_allclose(got[3], _port_grads(alone, torch.float32)[3],
+                               **F32)
+    # the Pallas kernels rebuild p = 1 at that row and keep its ds: their
+    # dbias takes in row 1's sum_l g.v - delta terms, off by more than 1
+    kern = _jax_kernel_grads(arrs, jnp.float32)
+    assert np.abs(kern[3] - want[3]).max() > 1.0
+    np.testing.assert_allclose(kern[2][1], 16 * want[2][1], **F32)
+    for a, b in zip(kern[:3], want[:3]):
+        np.testing.assert_allclose(a[0], b[0], **F32)
+
+
+def test_bias_needing_a_gradient_takes_the_function():
+    """A learned bias gets its gradient even when q, k and v need none
+    (flash_forward's shortcut around the Function looks at the bias
+    too)."""
+    arrs = _mk_bias(B=2, H=2, L=24, S=24, pad_tail=3, bias_seed=1)
+    q, k, v, g = (torch.from_numpy(arrs[n]) for n in ("q", "k", "v", "g"))
+    mask = torch.from_numpy(arrs["kv_mask"])
+    bias = torch.from_numpy(arrs["bias"]).requires_grad_(True)
+    out, lse = fa.flash_forward(q, k, v, mask, bias)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    (dbias,) = torch.autograd.grad(out, bias, g)
+    want = fa.reference_backward(q, k, v, mask, g, out.detach(), lse, bias)
+    assert torch.equal(dbias, want[3])
+    assert dbias.abs().max() > 0
+    # and with nothing needing a gradient, the Function is skipped
+    out, _ = fa.flash_forward(q, k, v, mask, bias.detach())
+    assert out.grad_fn is None
+
+
+@pytest.mark.parametrize("extra", ["seg"])
 def test_backward_with_bias_or_seg_names_its_slice(extra):
     arrs = _mk(L=40, S=40, pad_tail=6)
     q, k, v = (torch.from_numpy(arrs[n]).requires_grad_(True)
                for n in ("q", "k", "v"))
-    bias = torch.zeros(2, 40, 40) if extra == "bias" else None
-    seg = None
-    if extra == "seg":
-        seg = torch.zeros(2, 40, dtype=torch.int32)
-        seg[:, :20], seg[:, 20:34] = 1, 2
+    seg = torch.zeros(2, 40, dtype=torch.int32)
+    seg[:, :20], seg[:, 20:34] = 1, 2
     out = fa.flash_attention(q, k, v, torch.from_numpy(arrs["kv_mask"]),
-                             bias, seg)              # the forward takes both
-    with pytest.raises(NotImplementedError,
-                       match="slice 3" if extra == "bias" else "slice 4"):
+                             None, seg)              # the forward takes seg
+    with pytest.raises(NotImplementedError, match="slice 4"):
         out.sum().backward()
 
 

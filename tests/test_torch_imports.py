@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of dnn_page_vectors_tpu_torch
 (and chip_smoke.py) pulls in neither jax nor anything of the JAX package,
-and no import statement anywhere in them (or in scripts/serve_ab.py), lazy
-ones inside functions included, names one. Note the name prefix: the port's package starts with
+and no import statement anywhere in them (or in scripts/serve_ab.py and
+scripts/bwd_ab.py), lazy ones inside functions included, names one. Note
+the name prefix: the port's package starts with
 "dnn_page_vectors_tpu", so the check matches that module exactly or with a
 dot after it. Entry points resolve device=None to cuda and raise where no
 GPU is present; only an explicit "cpu" runs on the CPU."""
@@ -57,6 +58,7 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "serve_ab.py")
+    yield os.path.join(ROOT, "scripts", "bwd_ab.py")
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():

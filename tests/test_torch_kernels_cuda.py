@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 forward, K2 dq and K3 dk/dv backward)
-against their plain PyTorch versions, on the card. Every test here needs a CUDA device and skips without one (the
+"""The port's CUDA kernels (K1 forward; K2 dq, K3 dk/dv and K4 dq + dbias
+backward) against their plain PyTorch versions, on the card. Every test here needs a CUDA device and skips without one (the
 kernels have no CPU mode). This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
 
@@ -142,22 +142,69 @@ def test_flash_bwd_kernels_are_bitwise_deterministic(cuda_device):
                                       dtype=torch.bfloat16, strided=True)
     args = (x["q"], x["k"], x["v"], x["kv_mask"], g, out, lse)
     first = fa.flash_backward(*args)
+    assert first[3] is None
     for _ in range(3):
         again = fa.flash_backward(*args)
+        for a, b in zip(first[:3], again[:3]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=64, H=12, L=128, S=128, dtype=torch.bfloat16, strided=True),
+    dict(B=64, H=12, L=16, S=16, dtype=torch.bfloat16, strided=True),
+    dict(B=11, L=37, S=53, pad_tail=7),
+    dict(B=11, L=37, S=53, pad_tail=7, dtype=torch.bfloat16),
+    dict(L=130, S=200, Dh=128),
+    dict(B=3, strided=True),
+], ids=["mt5_page_train_bf16", "mt5_query_train_bf16", "ragged_f32",
+        "ragged_bf16", "multi_tile_dh128_f32", "strided_f32"])
+def test_biased_bwd_kernels_match_plain_version(cuda_device, case):
+    """K4 (dq, dbias) and the biased K3 (dk, dv) against the biased plain
+    backward; B=11 is not a multiple of K4's batch group."""
+    x, g, out, lse = _backward_inputs(cuda_device, bias=True, **case)
+    q, k, v, mask, bias = x["q"], x["k"], x["v"], x["kv_mask"], x["bias"]
+    before = (fa.dq_launches, fa.dkv_launches, fa.dq_dbias_launches)
+    got = fa.flash_backward(q, k, v, mask, g, out, lse, bias)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches, fa.dq_dbias_launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias)
+    for name, a, b, t in zip(("dq", "dk", "dv", "dbias"), got, want,
+                             (q, k, v, bias)):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), msg=name,
+                                   **GRAD_TOL[q.dtype])
+    # the last batch row sees no key: no dq, dk, and nothing in dbias
+    assert not got[0][-1].any() and not got[1][-1].any()
+    if q.shape[0] > 1:
+        rest = fa.reference_backward(q[:-1], k[:-1], v[:-1], mask[:-1],
+                                     g[:-1], out[:-1], lse[:-1], bias)[3]
+        torch.testing.assert_close(got[3], rest, **GRAD_TOL[q.dtype])
+
+
+@pytest.mark.cuda
+def test_dq_dbias_kernel_is_bitwise_deterministic(cuda_device):
+    x, g, out, lse = _backward_inputs(cuda_device, B=64, H=12, L=128, S=128,
+                                      dtype=torch.bfloat16, strided=True,
+                                      bias=True)
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], g, out, lse)
+    first = fa.launch_dq_dbias(*args)
+    for _ in range(3):
+        again = fa.launch_dq_dbias(*args)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("extra", ["bias", "seg"])
+@pytest.mark.parametrize("extra", ["seg"])
 def test_flash_backward_with_bias_or_seg_is_not_ported(cuda_device, extra):
-    x = _inputs(cuda_device, L=40, S=40, pad_tail=6, bias=extra == "bias",
-                seg=extra == "seg")
+    x = _inputs(cuda_device, L=40, S=40, pad_tail=6, seg=True)
     for n in ("q", "k", "v"):
         x[n].requires_grad_(True)
-    out = fa.flash_attention(**x)          # the forward takes both
-    with pytest.raises(NotImplementedError,
-                       match="slice 3" if extra == "bias" else "slice 4"):
+    out = fa.flash_attention(**x)          # the forward takes seg
+    with pytest.raises(NotImplementedError, match="slice 4"):
         out.sum().backward()
 
 
@@ -192,3 +239,48 @@ def test_cuda_flash_tower_gets_attention_gradients(cuda_device):
         assert gf.abs().max() > 0, name
         rel = ((gf - gd).norm() / gd.norm()).item()
         assert rel < 2e-2, (name, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_t5_tower_gets_bias_gradients_through_k4(cuda_device):
+    """A t5 flash tower on the card: K1, K4 and K3 once per layer, no K2,
+    and its gradients (the rel_bias table included) agree with the dense
+    tower's at float32 and are bitwise equal from run to run."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    ov = {"model.num_layers": 2, "model.model_dim": 64, "model.num_heads": 4,
+          "model.mlp_dim": 128, "model.out_dim": 32, "model.dropout": 0.0,
+          "model.dtype": "float32", "data.page_len": 48}
+    towers = {}
+    for att in ("flash", "dense"):
+        cfg = get_config("mt5_multilingual", {**ov, "model.attention": att})
+        towers[att] = build_two_tower(cfg, vocab_size=256,
+                                      device=cuda_device).train()
+    towers["dense"].load_state_dict(towers["flash"].state_dict())
+    ids = torch.randint(1, 256, (16, 48),
+                        generator=torch.Generator().manual_seed(0))
+    ids[:, 40:] = 0
+    ids[-1] = 0                          # a fully masked row
+    ids = ids.to(cuda_device)
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        model.encode_page(ids).square().sum().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches,
+              fa.dq_dbias_launches)
+    flash = grads(towers["flash"])
+    after = (fa.launches, fa.dq_launches, fa.dkv_launches,
+             fa.dq_dbias_launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 0, 2, 2]
+    dense = grads(towers["dense"])
+    assert flash.keys() == dense.keys()
+    assert flash["page_tower.rel_bias"].abs().max() > 0
+    for name, gf in flash.items():
+        torch.testing.assert_close(gf, dense[name], msg=name, rtol=1e-4,
+                                   atol=1e-5)
+    again = grads(towers["flash"])
+    for name, gf in flash.items():
+        assert torch.equal(gf, again[name]), name

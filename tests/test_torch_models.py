@@ -88,6 +88,6 @@ def test_l2_normalize_matches_jax():
 
 
 def test_factory_refuses_unported_encoders():
-    cfg = get_config("bert_mini_v5p16", {"model.encoder": "t5"})
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    cfg = get_config("bert_mini_v5p16", {"model.encoder": "cdssm"})
+    with pytest.raises(NotImplementedError, match="slice 5"):
         build_two_tower(cfg, vocab_size=VOCAB, device="cpu")
