@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (dnn_page_vectors_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--parent TREE]
 
 Phases, each printing one JSON line:
   1. device: the card, its power limit (nvidia-smi), torch and CUDA versions;
   2. build: every CUDA source of the paths (K1 in flash_fwd.cu; K2, K3 and
      K4 in flash_bwd.cu) is compiled with nvcc for sm_90a from the
      checkout (build/torch_kernels/), one nvcc per source, all started
-     together. The mT5 SentencePiece vocab is trained meanwhile in a
-     second process (host work only; it is joined before the mT5 phases);
+     together; each kernel's registers and spills (ptxas), and a failure
+     if a tensor-core kernel spills. The mT5 SentencePiece vocab is
+     trained meanwhile in a second process (host work only; it is joined
+     before the mT5 phases);
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the paths' shapes and the contract's edge cases, with the
-     tolerance stated; plus its time, the plain version's, one PyTorch
-     library call's (a yardstick the port never calls) and its bound;
+     card, at the paths' shapes and the contract's edge cases (the
+     tensor-core kernels' too: head dims 8, 24, 40, 128, one query row,
+     one key, an unaligned view), with the tolerance stated, and which of
+     K1's and K3's two kernels launched (bf16: tensor cores, f32: CUDA
+     cores); two runs of K3 and of K4 bitwise equal; plus each kernel's
+     time, the plain version's, one PyTorch library call's (a yardstick
+     the port never calls) and its bound. With --parent TREE (a checkout
+     of the parent commit), scripts/bwd_ab.py then times the kernels of
+     TREE and of this checkout in turns (TREE, this, this, TREE);
   4. BERT-mini serving: config bert_mini_v5p16 at full width (random
      weights from a seeded torch.Generator, flash attention) trains the
      30,522-piece WordPiece vocab over a 100,000-page toy corpus, bulk
      embeds every page into the fp16 store, stages the store on the card
      and answers 32 queries through SearchService, then 200 single ones.
      Every kernel launch counter is set to 0 just before and read just
-     after; the results are checked against a plain full q @ store^T
-     top-k and against dense attention;
+     after (every K1 launch must take the tensor-core kernel); the results
+     are checked against a plain full q @ store^T top-k and against dense
+     attention;
   5. BERT-mini training: a flash-attention Trainer at full width takes 6
      steps of 8,192 pages from the same corpus through Trainer.train
-     (counted: K1, K2 and K3 launch 8 times a step), then 6 steps on
+     (counted: K1, K2 and K3 launch 8 times a step, K1 and K3 on the
+     tensor cores), then 6 steps on
      pre-made batches are timed (the first 2 warm up) and one is profiled
      by kernel class; flash gradients are held against dense ones, two
      runs of one step must give bitwise equal gradients, and 3 steps +
@@ -127,8 +137,40 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def reset_counts() -> None:
+    """Every kernel launch counter of the port to 0."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    for name in ("launches", "launches_tc", "launches_f32", "dq_launches",
+                 "dkv_launches", "dkv_launches_tc", "dkv_launches_f32",
+                 "dq_dbias_launches"):
+        setattr(fa, name, 0)
+
+
+def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one fn() call: the kernel time torch.profiler (CUPTI)
+    records over `iters` calls, summed over every kernel the call
+    launches, per call. Unlike CUDA events around the calls, it does not
+    count the gaps in which the card waits for the host to issue the next
+    call (K1 at BERT-mini's embed shape runs about as long on the card as
+    its wrapper takes on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls."""
+    """Mean wall time on the card of fn() over `iters` back-to-back calls
+    (CUDA events: the kernels and the gaps between them)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -145,11 +187,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # -- phase 3: K1 against its plain version ----------------------------------
 
 def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
-              seg=False, strided=False):
+              seg=False, strided=False, unaligned=False):
     g = torch.Generator(device="cpu").manual_seed(seed)
     if strided:      # [B, len, H, Dh] viewed as [B, H, len, Dh], as the
         q, k, v = (torch.randn(B, n, H, Dh, generator=g)   # towers pass it
                    .to(device, dtype).transpose(1, 2) for n in (L, S, S))
+    elif unaligned:  # base and row stride (Dh + 1) off 16 bytes
+        q, k, v = (torch.randn(B, H, n, Dh + 1, generator=g)
+                   .to(device, dtype)[..., 1:] for n in (L, S, S))
     else:
         q, k, v = (torch.randn(B, H, n, Dh, generator=g).to(device, dtype)
                    for n in (L, S, S))
@@ -171,6 +216,26 @@ def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
         ids[:, cuts[1]:L - 3] = 3
         out["seg"] = ids.to(device)
     return out
+
+
+# The edges of the tensor-core kernels' tiling (bf16): head dims that are
+# not multiples of 16 or above 64, one query row, one key, and a view that
+# is not 16-byte aligned (the wrapper copies it). Checked for K1 as they
+# stand and for K3 both with and without the bias.
+TC_EDGE_CASES = {
+    "dh8_bf16": dict(B=8, H=4, L=48, S=48, Dh=8, dtype=torch.bfloat16,
+                     pad="masked_rows"),
+    "dh24_bf16": dict(B=8, H=4, L=37, S=53, Dh=24, dtype=torch.bfloat16,
+                      bias=True),
+    "dh40_bf16": dict(B=8, H=4, L=64, S=64, Dh=40, dtype=torch.bfloat16),
+    "dh128_bf16": dict(B=2, H=2, L=130, S=200, Dh=128, dtype=torch.bfloat16,
+                       bias=True),
+    "L1_bf16": dict(B=16, H=4, L=1, S=64, Dh=64, dtype=torch.bfloat16),
+    "S1_bf16": dict(B=16, H=4, L=64, S=1, Dh=64, dtype=torch.bfloat16,
+                    pad="masked_rows"),
+    "unaligned_bf16": dict(B=8, H=4, L=37, S=53, Dh=64, dtype=torch.bfloat16,
+                           unaligned=True),
+}
 
 
 def k1_bound(x) -> dict:
@@ -224,12 +289,18 @@ def check_k1(device, timed_cases) -> dict:
         "mt5_query_bias_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=16, S=16,
                                     Dh=64, dtype=torch.bfloat16, bias=True,
                                     strided=True),
+        **TC_EDGE_CASES,
     }
     worst = {}
     for i, (name, c) in enumerate(cases.items()):
         x = k1_inputs(device=device, seed=i, **c)
+        before = (fa.launches_tc, fa.launches_f32)
         out, lse = fa.flash_forward(**x)
         torch.cuda.synchronize()
+        took_tc = (fa.launches_tc - before[0], fa.launches_f32 - before[1])
+        if took_tc != ((1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)):
+            raise AssertionError(f"K1 case {name} ({c['dtype']}) launched "
+                                 f"(tensor-core, CUDA-core) {took_tc}")
         want_out, want_lse = fa.reference_forward(**x)
         tol = TOL[c["dtype"]]
         err = (out - want_out).abs().max().item()
@@ -263,9 +334,11 @@ def check_k1(device, timed_cases) -> dict:
             mask4 = (x["bias"][None] + neg[:, None, None, :]).to(c["dtype"])
             kind = "float mask: bias + padding"
         t = {
-            "kernel_ms": cuda_ms(lambda: fa.flash_forward(**x)),
-            "plain_ms": cuda_ms(lambda: fa.reference_forward(**x)),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            "kernel_ms": kernel_ms(lambda: fa.flash_forward(**x)),
+            # back-to-back calls with CUDA events: the host's issue time too
+            "kernel_call_ms": cuda_ms(lambda: fa.flash_forward(**x)),
+            "plain_ms": kernel_ms(lambda: fa.reference_forward(**x)),
+            "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
                 x["q"], x["k"], x["v"], attn_mask=mask4)),
         }
         b = k1_bound(x)
@@ -337,8 +410,13 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"],
             x["bias"])
+    before = (fa.dkv_launches_tc, fa.dkv_launches_f32)
     got = fa.flash_backward(*args)
     torch.cuda.synchronize()
+    took = (fa.dkv_launches_tc - before[0], fa.dkv_launches_f32 - before[1])
+    if took != ((1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)):
+        raise AssertionError(f"K3 case {name} ({c['dtype']}) launched "
+                             f"(tensor-core, CUDA-core) {took}")
     want = fa.reference_backward(*args)
     rtol, atol = GRAD_TOL[c["dtype"]]
     names = ("dq", "dk", "dv", "dbias")[:3 if x["bias"] is None else 4]
@@ -388,6 +466,7 @@ def check_k23(device, timed_case: str) -> dict:
                           dtype=torch.float32, strided=True),
         "long_S300_Dh128_f32": dict(B=2, H=2, L=300, S=300, Dh=128,
                                     dtype=torch.float32),
+        **{n: {**c, "bias": False} for n, c in TC_EDGE_CASES.items()},
     }
     worst = {}
     for i, (name, c) in enumerate(cases.items()):
@@ -399,20 +478,21 @@ def check_k23(device, timed_case: str) -> dict:
     x = k23_inputs(device, seed=300, **c)
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
     _, delta = fa.launch_dq(q, k, v, mask, g, x["out"], x["lse"])
+    bitwise = k3_bitwise(x, delta, timed_case)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask[:, None, None, :])
     g_lib = g.to(sdpa_out.dtype)
     t = {
-        "k2_ms": cuda_ms(lambda: fa.launch_dq(q, k, v, mask, g, x["out"],
+        "k2_ms": kernel_ms(lambda: fa.launch_dq(q, k, v, mask, g, x["out"],
                                               x["lse"])),
-        "k3_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, x["lse"],
+        "k3_ms": kernel_ms(lambda: fa.launch_dkv(q, k, v, mask, g, x["lse"],
                                                delta)),
-        "k2_k3_ms": cuda_ms(lambda: fa.flash_backward(
+        "k2_k3_ms": kernel_ms(lambda: fa.flash_backward(
             q, k, v, mask, g, x["out"], x["lse"])),
-        "plain_ms": cuda_ms(lambda: fa.reference_backward(
+        "plain_ms": kernel_ms(lambda: fa.reference_backward(
             q, k, v, mask, g, x["out"], x["lse"]), iters=5),
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+        "library_ms": kernel_ms(lambda: torch.autograd.grad(
             sdpa_out, (qs, ks, vs), g_lib, retain_graph=True)),
     }
     b = bwd_bound(x)
@@ -424,7 +504,24 @@ def check_k23(device, timed_case: str) -> dict:
                            "scaled_dot_product_attention (bool mask), "
                            "against K2 + K3 together"}
     emit(rec)
-    return {"worst": worst, "bound": b, **t}
+    return {"worst": worst, "bound": b, "k3_bitwise": bitwise, **t}
+
+
+def k3_bitwise(x: dict, delta, case: str) -> bool:
+    """Two runs of K3 on the same inputs give bitwise equal dk and dv (one
+    writer per element, a fixed order over the Q tiles); raises if not."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["lse"], delta,
+            x["bias"])
+    first = fa.launch_dkv(*args)
+    again = fa.launch_dkv(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    emit({"phase": "k3_bitwise", "case": case,
+          "bias": x["bias"] is not None, "dk_dv_equal": equal})
+    if not equal:
+        raise AssertionError(f"two runs of K3 gave different dk or dv "
+                             f"({case})")
+    return equal
 
 
 def check_k4(device, timed_case: str) -> dict:
@@ -450,6 +547,8 @@ def check_k4(device, timed_case: str) -> dict:
         # not a multiple of K4's batch group of 8
         "odd_batch_f32_bias": dict(B=11, H=2, L=48, S=48, Dh=64,
                                    dtype=torch.float32, bias=True),
+        **{n + "_bias": {**c, "bias": True}
+           for n, c in TC_EDGE_CASES.items()},
     }
     worst = {}
     for i, (name, c) in enumerate(cases.items()):
@@ -471,6 +570,7 @@ def check_k4(device, timed_case: str) -> dict:
         raise AssertionError("two runs of K4 gave different dq or dbias")
     delta = first[1]
     del again
+    k3_bits = k3_bitwise(x, delta, timed_case)
     qs, ks, vs, bs = (t.detach().requires_grad_(True) for t in (q, k, v, bias))
     neg = torch.zeros(mask.shape, device=device).masked_fill(
         ~mask, float("-inf"))
@@ -478,15 +578,15 @@ def check_k4(device, timed_case: str) -> dict:
     sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
     g_lib = g.to(sdpa_out.dtype)
     t = {
-        "k4_ms": cuda_ms(lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g,
+        "k4_ms": kernel_ms(lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g,
                                                     out, lse)),
-        "k3_bias_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
+        "k3_bias_ms": kernel_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
                                                     delta, bias)),
-        "k4_k3_ms": cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
+        "k4_k3_ms": kernel_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
                                                       lse, bias)),
-        "plain_ms": cuda_ms(lambda: fa.reference_backward(
+        "plain_ms": kernel_ms(lambda: fa.reference_backward(
             q, k, v, mask, g, out, lse, bias), iters=5),
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+        "library_ms": kernel_ms(lambda: torch.autograd.grad(
             sdpa_out, (qs, ks, vs, bs), g_lib, retain_graph=True)),
     }
     b = bwd_bound(x)
@@ -500,7 +600,8 @@ def check_k4(device, timed_case: str) -> dict:
                            "+ padding; the gradients of q, k, v and the "
                            "bias), against K4 + K3 together"}
     emit(rec)
-    return {"worst": worst, "bound": b, "bitwise": bitwise, **t}
+    return {"worst": worst, "bound": b, "bitwise": bitwise,
+            "k3_bitwise": k3_bits, **t}
 
 
 def device_breakdown(fn, iters: int = 5) -> dict:
@@ -615,7 +716,7 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     queries = [corpus.query_text(int(i)) for i in qids]
 
     # ---- the main path, counted --------------------------------------
-    fa.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     emb.embed_corpus(corpus, store)
     torch.cuda.synchronize()
@@ -632,8 +733,11 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
         lat.append((time.perf_counter() - t0) * 1e3)
         if not one:
             raise AssertionError("a query returned no results")
-    launches = fa.launches
+    launches, launches_tc = fa.launches, fa.launches_tc
     # ------------------------------------------------------------------
+    if launches_tc != launches:
+        raise AssertionError(f"{launches - launches_tc} of {launches} bf16 "
+                             "K1 launches missed the tensor-core kernel")
     bs = cfg.eval.embed_batch_size
     ss = cfg.eval.store_shard_size
     n_batches = sum(-(-min(ss, n_pages - lo) // bs)
@@ -730,6 +834,7 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
         "query_p50_ms": float(np.percentile(lat, 50)),
         "query_p95_ms": float(np.percentile(lat, 95)),
         "k1_launches": launches,
+        "k1_launches_tensor_core": launches_tc,
         "k1_launches_per_embed_batch": launches_per_batch,
         "topk_score_err": score_err, "topk_tie_swaps": mism,
         "flash_vs_dense_max_err": flash_dense_err,
@@ -836,23 +941,24 @@ def run_training(device, config: str, data, workdir: str) -> dict:
         return [fa.launches, fa.dq_launches, fa.dkv_launches,
                 fa.dq_dbias_launches]
 
-    def reset():
-        fa.launches = fa.dq_launches = fa.dkv_launches = 0
-        fa.dq_dbias_launches = 0
-
     # ---- the main path, counted: Trainer.train from text ---------------
     trainer = new_trainer()
-    reset()
+    reset_counts()
     t0 = time.perf_counter()
     trainer.train(TRAIN_STEPS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counts()
+    tensor_core = {"k1": fa.launches_tc, "k3": fa.dkv_launches_tc}
     # ------------------------------------------------------------------
     if launches != [TRAIN_STEPS * n for n in per_step]:
         raise AssertionError(f"K1/K2/K3/K4 launched {launches} times in "
                              f"{TRAIN_STEPS} steps, want "
                              f"{[TRAIN_STEPS * n for n in per_step]}")
+    if tensor_core != {"k1": launches[0], "k3": launches[2]}:
+        raise AssertionError(f"of {launches[0]} K1 and {launches[2]} K3 "
+                             f"launches (all bf16) only {tensor_core} took "
+                             "the tensor-core kernels")
     hist = trainer.history
     if len(hist) != TRAIN_STEPS or not all(
             np.isfinite([h["loss"], h["grad_norm"]]).all() and h["loss"] > 0
@@ -890,7 +996,7 @@ def run_training(device, config: str, data, workdir: str) -> dict:
         raise AssertionError(f"the timed run's losses {losses} differ from "
                              f"Trainer.train's {[h['loss'] for h in hist]}")
     med = float(np.median(step_ms[TRAIN_WARMUP:]))
-    reset()
+    reset_counts()
     straight.train_step(batches[0])
     torch.cuda.synchronize()
     one_step = counts()
@@ -985,6 +1091,7 @@ def run_training(device, config: str, data, workdir: str) -> dict:
         "peak_memory_gb": peak_gb,
         "step_profile": profile,
         "launches_main_path": dict(zip(names, launches)),
+        "launches_tensor_core_main_path": tensor_core,
         "launches_one_step": dict(zip(names, one_step)),
         "losses": losses, "history": hist,
         "timed_vs_main_path_loss_max_diff": main_diff,
@@ -1004,7 +1111,8 @@ def run_training(device, config: str, data, workdir: str) -> dict:
 
 def ptxas_summary(log: str) -> list:
     """[kernel, registers, spill store bytes, spill load bytes] for each
-    kernel in nvcc's -Xptxas -v output ("cached" when nothing was built)."""
+    kernel in nvcc's -Xptxas -v output (kept beside a cached library; "no
+    log" when there is none)."""
     out, name, spill = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1012,9 +1120,18 @@ def ptxas_summary(log: str) -> list:
             mangled = m.group(1)
             base = re.search(r"flash_[a-z_]+?_kernel", mangled)
             name = base.group(0) if base else mangled
-            if "kernelI" in mangled:                  # a template
-                name += (("<bf16" if "nv_bfloat16" in mangled else "<f32")
-                         + (",bias>" if "Lb1E" in mangled else ">"))
+            if base and "dbias_sum" not in name:
+                # the tensor-core kernels take bf16 only, the rest f32
+                # unless instantiated for bf16; DP is the tensor-core
+                # kernels' head-dim width, Lb1E a bias template flag
+                args = ["bf16" if "_tc_" in name or "nv_bfloat16" in mangled
+                        else "f32"]
+                width = re.search(r"kernelILi(\d+)E", mangled)
+                if width:
+                    args.append(f"Dh<={width.group(1)}")
+                if "Lb1E" in mangled:
+                    args.append("bias")
+                name += "<" + ",".join(args) + ">"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1027,9 +1144,31 @@ def ptxas_summary(log: str) -> list:
     return out or [log[-200:]]
 
 
-def run_phases(device, report: dict, mt5_tok) -> list:
+def run_ab(parent: str) -> dict:
+    """scripts/bwd_ab.py over the tree `parent` and this checkout in turns
+    (parent, this, this, parent), one process per tree on this card: each
+    kernel's device time in each run at the shapes the script names."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts", "bwd_ab.py"), parent,
+         here, here, parent], capture_output=True, text=True, timeout=900,
+        check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"scripts/bwd_ab.py failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])["summary"]
+    rec = {"phase": "ab", "script": "scripts/bwd_ab.py", "parent": parent,
+           "order": "parent, this, this, parent",
+           "parent_ms": summary[parent], "this_ms": summary[here]}
+    emit(rec)
+    return rec
+
+
+def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
     """Phases 2-7; fills `report` and returns the `kernels` line's
-    entries. `mt5_tok` is the future of the mT5 tokenizers."""
+    entries. `mt5_tok` is the future of the mT5 tokenizers; with `parent`
+    (another tree of the port) the kernels are also timed against it."""
     from dnn_page_vectors_tpu_torch.ops import build
     # one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -1039,16 +1178,23 @@ def run_phases(device, report: dict, mt5_tok) -> list:
     report["build"] = {}
     for src in SOURCES:
         build.load_library(src)
-        secs, log = build.BUILD_INFO.get(src, (0.0, "cached"))
-        report["build"][src] = {"nvcc_s": secs}
+        secs, log = build.BUILD_INFO.get(src, (0.0, "no log"))
+        rows = ptxas_summary(log)
+        report["build"][src] = {"nvcc_s": secs, "ptxas": rows}
         emit({"phase": "build", "source": src, "arch": "sm_90a",
-              "nvcc_seconds": secs, "ptxas": ptxas_summary(log)})
+              "nvcc_seconds": secs, "ptxas": rows})
+        spills = [r for r in rows if isinstance(r, list)
+                  and "_tc_" in r[0] and (r[2] or r[3])]
+        if spills:
+            raise AssertionError(f"a tensor-core kernel spills: {spills}")
     emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
 
     k1 = report["k1"] = check_k1(device, ("embed_bf16",
                                           "mt5_page_bias_bf16"))
     k23 = report["k23"] = check_k23(device, "page_train_bf16")
     k4 = report["k4"] = check_k4(device, "mt5_page_train_bf16")
+    if parent is not None:
+        report["ab"] = run_ab(parent)
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
         data = build_data("bert_mini_v5p16", N_PAGES)
@@ -1068,8 +1214,28 @@ def run_phases(device, report: dict, mt5_tok) -> list:
 
 def kernel_entries(report: dict) -> list:
     """The `kernels` line: one entry per kernel, launches summed over the
-    main paths (each path's count read around its own run)."""
+    main paths (each path's count read around its own run); with the A/B
+    run, the --parent tree's kernel time and this tree's beside it (means
+    of the two runs of each tree); the registers and spills of each
+    instantiation."""
     k1, k23, k4 = report["k1"], report["k23"], report["k4"]
+    ab = report.get("ab")
+
+    def parent(key):
+        if ab is None:
+            return {"parent_ms": None, "parent_note": "not measured: run "
+                    "with --parent TREE (the parent commit's checkout)"}
+        mean = lambda xs: sum(xs) / len(xs)
+        return {"parent_ms": mean(ab["parent_ms"][key]),
+                "ab_ms": mean(ab["this_ms"][key]),
+                "ab_runs_ms": {"parent": ab["parent_ms"][key],
+                               "this": ab["this_ms"][key]}}
+
+    rows = [r for src in SOURCES for r in report["build"][src]["ptxas"]
+            if isinstance(r, list)]
+
+    def ptxas(*prefixes):
+        return [r for r in rows if r[0].startswith(prefixes)]
     paths = {"bert_serving": report["slice"]["k1_launches"],
              "mt5_serving": report["mt5_slice"]["k1_launches"]}
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
@@ -1078,6 +1244,14 @@ def kernel_entries(report: dict) -> list:
         for n, count in rec["launches_main_path"].items():
             by_path[n][path] = count
     by_path["k1"].update(paths)
+    tc_by_path = {
+        "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
+               "mt5_serving": report["mt5_slice"]["k1_launches_tensor_core"]},
+        "k3": {}}
+    for path, rec in (("bert_training", report["train"]),
+                      ("mt5_training", report["mt5_train"])):
+        for n, count in rec["launches_tensor_core_main_path"].items():
+            tc_by_path[n][path] = count
     bert_pair = {"k2_k3_ms": k23["k2_k3_ms"]}
     mt5_pair = {"k4_k3_ms": k4["k4_k3_ms"]}
     bert_shape = f"B={TRAIN_BATCH} H=4 L=S=64 Dh=64 bf16 q/k/v, f32 g"
@@ -1098,12 +1272,16 @@ def kernel_entries(report: dict) -> list:
         "max_abs_err": k1["max_abs_err"], "ms": k1_bert["kernel_ms"],
         "plain_ms": k1_bert["plain_ms"], "bound_ms": k1_bert["bound_ms"],
         "bound_by": k1_bert["bound_by"], "library_ms": k1_bert["library_ms"],
-        "shape": "B=512 H=4 L=S=64 Dh=64 bf16",
+        "shape": "B=512 H=4 L=S=64 Dh=64 bf16", **parent("k1_bert_ms"),
+        "kernel": "flash_fwd_tc_kernel (tensor cores, bf16); f32 inputs "
+                  "take flash_fwd_kernel (CUDA cores)",
+        "launches_tensor_core": sum(tc_by_path["k1"].values()),
+        "ptxas": ptxas("flash_fwd"),
         "mt5": {"shape": "B=512 H=12 L=S=128 Dh=64 bf16, f32 bias",
                 "ms": k1_mt5["kernel_ms"], "plain_ms": k1_mt5["plain_ms"],
                 "bound_ms": k1_mt5["bound_ms"],
                 "bound_by": k1_mt5["bound_by"],
-                "library_ms": k1_mt5["library_ms"]}}, {
+                "library_ms": k1_mt5["library_ms"], **parent("k1_mt5_ms")}}, {
         "name": "flash_bwd_dq (K2)", "route": "cuda", "source": K23_SOURCE,
         "replaces": TPU_K2, "launches": sum(by_path["k2"].values()),
         "launches_by_path": by_path["k2"],
@@ -1113,7 +1291,8 @@ def kernel_entries(report: dict) -> list:
         "bound_ms": k23["bound"]["dq"]["bound_ms"],
         "bound_by": k23["bound"]["dq"]["bound_by"],
         "library_ms": k23["library_ms"], **bert_pair, "shape": bert_shape,
-        "plain_and_library_cover": "K2 and K3 together"}, {
+        "plain_and_library_cover": "K2 and K3 together", **parent("k2_ms"),
+        "ptxas": ptxas("flash_bwd_dq_kernel")}, {
         "name": "flash_bwd_dkv (K3)", "route": "cuda", "source": K23_SOURCE,
         "replaces": TPU_K3, "launches": sum(by_path["k3"].values()),
         "launches_by_path": by_path["k3"],
@@ -1124,13 +1303,19 @@ def kernel_entries(report: dict) -> list:
         "bound_ms": k23["bound"]["dkv"]["bound_ms"],
         "bound_by": k23["bound"]["dkv"]["bound_by"],
         "library_ms": k23["library_ms"], **bert_pair, "shape": bert_shape,
-        "plain_and_library_cover": "K2 and K3 together",
+        "plain_and_library_cover": "K2 and K3 together", **parent("k3_ms"),
+        "kernel": "flash_bwd_dkv_tc_kernel (tensor cores, bf16); f32 "
+                  "inputs take flash_bwd_dkv_kernel (CUDA cores)",
+        "launches_tensor_core": sum(tc_by_path["k3"].values()),
+        "bitwise_equal_runs": k23["k3_bitwise"] and k4["k3_bitwise"],
+        "ptxas": ptxas("flash_bwd_dkv"),
         "biased": {"shape": mt5_shape, "ms": k4["k3_bias_ms"],
                    "plain_ms": k4["plain_ms"],
                    "bound_ms": k4["bound"]["dkv"]["bound_ms"],
                    "bound_by": k4["bound"]["dkv"]["bound_by"],
                    "library_ms": k4["library_ms"], **mt5_pair,
-                   "plain_and_library_cover": "K4 and K3 together"}}, {
+                   "plain_and_library_cover": "K4 and K3 together",
+                   **parent("k3_bias_ms")}}, {
         "name": "flash_bwd_dq_dbias (K4)", "route": "cuda",
         "source": K23_SOURCE, "replaces": TPU_K4,
         "launches": sum(by_path["k4"].values()),
@@ -1142,13 +1327,18 @@ def kernel_entries(report: dict) -> list:
         "bound_by": k4["bound"]["dq"]["bound_by"],
         "library_ms": k4["library_ms"], **mt5_pair, "shape": mt5_shape,
         "bitwise_equal_runs": k4["bitwise"],
-        "plain_and_library_cover": "K4 and K3 together"}]
+        "plain_and_library_cover": "K4 and K3 together", **parent("k4_ms"),
+        "ptxas": ptxas("flash_bwd_dq_dbias", "flash_bwd_dbias_sum")}]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
                     help="also write every phase's record to this JSON file")
+    ap.add_argument("--parent", default=None, metavar="TREE",
+                    help="another tree of the port (e.g. the parent commit "
+                         "unpacked with git archive): time its kernels and "
+                         "this checkout's in turns with scripts/bwd_ab.py")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1175,7 +1365,7 @@ def main() -> int:
     try:
         mt5_tok = tok_pool.apply_async(
             train_tokenizers, (data_config(MT5, MT5_VOCAB_PAGES),))
-        kernels = run_phases(device, report, mt5_tok)
+        kernels = run_phases(device, report, mt5_tok, args.parent)
     finally:
         tok_pool.terminate()
         tok_pool.join()

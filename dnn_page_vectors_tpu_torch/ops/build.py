@@ -3,9 +3,10 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 for ``sm_90a``. The library lands in ``build/torch_kernels/`` at the root
-of the checkout (listed in ``.gitignore``), named by a hash of its source,
-so an edited source rebuilds and an unchanged one is reused. A failed build
-raises; nothing falls back to another implementation.
+of the checkout (listed in ``.gitignore``), named by a hash of its source
+and of every header under ``csrc/``, so an edited source or header
+rebuilds and an unchanged one is reused. A failed build raises; nothing
+falls back to another implementation.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -26,7 +27,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per source: (seconds the build took, what nvcc printed: registers, spills)
+# per source: (seconds the build took, 0 when it was cached; what nvcc
+# printed: registers, spills), the output kept beside the library
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
 
 
@@ -41,14 +43,30 @@ def find_nvcc() -> str:
         "first use")
 
 
+def source_digest(source: str, csrc: Optional[Path] = None) -> str:
+    """The cache key of `csrc/<source>`'s library (`csrc` defaults to
+    CSRC): a hash of the source and of every header under `csrc` (names
+    and contents, in name order), so that an edit to a header the source
+    includes rebuilds it."""
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha1((csrc / source).read_bytes())
+    for header in sorted(p for p in csrc.rglob("*")
+                         if p.suffix in (".cuh", ".h", ".hpp")):
+        h.update(header.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def compile_source(source: str) -> Path:
-    """nvcc `csrc/<source>` into BUILD_DIR (once per source content);
-    returns the library's path. Raises RuntimeError with nvcc's output
-    when the build fails."""
+    """nvcc `csrc/<source>` into BUILD_DIR (once per content of the source
+    and the headers); returns the library's path. Raises RuntimeError with
+    nvcc's output when the build fails."""
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+    lib = BUILD_DIR / f"{src.stem}-{source_digest(source)}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
+        if source not in BUILD_INFO and log.exists():
+            BUILD_INFO[source] = (0.0, log.read_text())
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
@@ -60,9 +78,10 @@ def compile_source(source: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{src}:\n{proc.stdout}\n{proc.stderr}")
+    output = (proc.stdout + proc.stderr).strip()
+    log.write_text(output)     # registers and spills, for a cached build
     os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
-    BUILD_INFO[source] = (time.perf_counter() - t0,
-                          (proc.stdout + proc.stderr).strip())
+    BUILD_INFO[source] = (time.perf_counter() - t0, output)
     return lib
 
 

@@ -21,9 +21,13 @@ adds nothing to dq, dk or dbias), not the TPU kernels' p = 1. The
 backward of the segment path is slice 4 of the port: the forward takes
 ``seg``, and a backward through it raises NotImplementedError.
 
-Routing is by the tensors' device and nothing else: a CUDA tensor goes to
-the kernel (or the wrapper raises), a CPU tensor goes to the plain version
-``reference_forward`` / ``reference_backward``. Nothing catches a kernel
+Routing is by the tensors' device: a CUDA tensor goes to a kernel (or
+the wrapper raises), a CPU tensor goes to the plain version
+``reference_forward`` / ``reference_backward``. On the card K1 and K3 have
+two kernels each, chosen by the dtype of q, k and v: bf16 (every launch
+of the serving and training paths) takes the tensor-core kernel
+(``mma.sync``, bf16 tiles filled by ``cp.async``), f32 the CUDA-core one,
+whose f32 arithmetic the f32 tolerances need. Nothing catches a kernel
 failure and carries on.
 """
 from __future__ import annotations
@@ -47,10 +51,15 @@ DBIAS_GROUP = 8
 
 # Launches of K1, K2, K3 and K4 since the last reset: each wrapper adds one
 # where it launches its kernel and nowhere else. chip_smoke.py sets them to
-# 0 before driving a path and reads them after.
+# 0 before driving a path and reads them after. K1 and K3 also count by
+# kernel: `_tc` the bf16 tensor-core kernel, `_f32` the CUDA-core one.
 launches = 0
+launches_tc = 0
+launches_f32 = 0
 dq_launches = 0
 dkv_launches = 0
+dkv_launches_tc = 0
+dkv_launches_f32 = 0
 dq_dbias_launches = 0
 
 
@@ -166,9 +175,24 @@ def _check(q, k, v, kv_mask, bias, seg):
                              "the head dim")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a contiguous copy of it when its base or one of its (batch,
+    head, row) strides is not a multiple of 16 bytes: the tensor-core
+    kernels copy rows in 16-byte pieces."""
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st % per16 == 0
+                                      for st in t.stride()[:-1]):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format
+                            ).copy_(t)
+
+
 def _launch(q, k, v, kv_mask, bias, seg):
-    global launches
+    global launches, launches_tc, launches_f32
     lib = _library()
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     B, H, L, Dh = q.shape
     S = k.shape[2]
     mask_u8 = kv_mask.to(torch.uint8).contiguous()
@@ -179,29 +203,31 @@ def _launch(q, k, v, kv_mask, bias, seg):
     strides = (ctypes.c_longlong * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-        None if bias_f is None else bias_f.data_ptr(),
-        None if seg_i is None else seg_i.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, H, L, S, Dh,
-        1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16), strides, stream)
+    fn = lib.flash_fwd_bf16 if tensor_cores else lib.flash_fwd_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+             None if bias_f is None else bias_f.data_ptr(),
+             None if seg_i is None else seg_i.data_ptr(),
+             out.data_ptr(), lse.data_ptr(), B, H, L, S, Dh,
+             1.0 / math.sqrt(Dh), strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     launches += 1
+    if tensor_cores:
+        launches_tc += 1
+    else:
+        launches_f32 += 1
     return out, lse
 
 
 def _library():
     from dnn_page_vectors_tpu_torch.ops.build import load_library
     lib = load_library(_SOURCE)
-    fn = lib.flash_fwd
-    if fn.argtypes is None:
-        P = ctypes.c_void_p
-        fn.argtypes = [P, P, P, P, P, P, P, P,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), P]
-        fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.flash_fwd_bf16, lib.flash_fwd_f32):
+        if fn.argtypes is None:
+            fn.argtypes = [P] * 8 + [I] * 5 + [
+                ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), P]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -211,16 +237,19 @@ def _bwd_library():
     P, I = ctypes.c_void_p, ctypes.c_int
     tail = [I, I, I, I, I, ctypes.c_float, I]
     strides = ctypes.POINTER(ctypes.c_longlong)
-    for fn, nptr, extra in ((lib.flash_bwd_dq, 9, []),
-                            (lib.flash_bwd_dkv, 10, []),
-                            (lib.flash_bwd_dq_dbias, 12, [I])):
+    for fn, nptr, tail_ in ((lib.flash_bwd_dq, 9, tail),
+                            (lib.flash_bwd_dkv_bf16, 10, tail[:-1]),
+                            (lib.flash_bwd_dkv_f32, 10, tail[:-1]),
+                            (lib.flash_bwd_dq_dbias, 12, tail + [I])):
         if fn.argtypes is None:
-            fn.argtypes = [P] * nptr + tail + extra + [strides, P]
+            fn.argtypes = [P] * nptr + tail_ + [strides, P]
             fn.restype = ctypes.c_int
     return lib
 
 
 def _bwd_common(q, k):
+    """(B, H, L, S, Dh, scale, is_bf16) as K2 and K4 take them; K3 takes
+    all but the last."""
     B, H, L, Dh = q.shape
     return (B, H, L, k.shape[2], Dh, 1.0 / math.sqrt(Dh),
             int(q.dtype == torch.bfloat16))
@@ -296,24 +325,33 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on the current stream, after K2 or K4 wrote `delta`: (dk, dv) in
     the dtypes of k and v, laid out like them. With `bias` [H,L,S] the
-    scores are rebuilt with it, as K1 built them."""
-    global dkv_launches
+    scores are rebuilt with it, as K1 built them. bf16 q/k/v take the
+    tensor-core kernel (g is split into bf16 hi and lo halves as it is
+    staged), f32 the CUDA-core one."""
+    global dkv_launches, dkv_launches_tc, dkv_launches_f32
     lib = _bwd_library()
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        q, k, v, g = (_aligned16(t) for t in (q, k, v, g))
     mask_u8 = kv_mask.to(torch.uint8).contiguous()
     lse = lse.contiguous()
     bias_f = None if bias is None else bias.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     strides = _bwd_strides(q, k, v, g, q, dk, dv)
-    err = lib.flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-        None if bias_f is None else bias_f.data_ptr(),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *_bwd_common(q, k), strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    fn = lib.flash_bwd_dkv_bf16 if tensor_cores else lib.flash_bwd_dkv_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+             None if bias_f is None else bias_f.data_ptr(),
+             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), *_bwd_common(q, k)[:-1], strides,
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "
                            f"{err}")
     dkv_launches += 1
+    if tensor_cores:
+        dkv_launches_tc += 1
+    else:
+        dkv_launches_f32 += 1
     return dk, dv
 
 

@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
-"""Device time of the port's unbiased backward kernels (K2 dq, K3 dk/dv),
-compared across source trees on one GPU.
+"""Device time of the port's flash-attention kernels, compared across
+source trees on one GPU.
 
     python3 scripts/bwd_ab.py TREE [TREE ...] [--out PATH]
 
 For each TREE, in the order given (for two versions A and B: A B B A), one
 process imports ``dnn_page_vectors_tpu_torch`` from TREE (its kernels build
-into TREE/build/) and times ``launch_dq`` (K2) and ``launch_dkv`` (K3)
-with CUDA events over 50 back-to-back launches, at BERT-mini's page-tower
-training shape: B=8192, H=4, L=S=64, Dh=64, bf16 q/k/v viewed from
-[B, L, H, Dh] as the towers pass them, an f32 upstream gradient laid out
-the same way, ragged padding. Prints one JSON line per tree, the card's
-name and power limit (nvidia-smi), and a summary line; ``--out`` also
-writes all of it as JSON.
+into TREE/build/) and times each kernel call on the card: the device
+time torch.profiler (CUPTI) records over 50 calls, summed over the
+kernels a call launches, per call (CUDA events around back-to-back calls
+would also count the gaps in which the card waits for the host, which at
+K1's embed shape is about as long as the kernel). bf16 q/k/v with ragged
+padding:
+
+* ``k2_ms``, ``k3_ms``: ``launch_dq`` (K2) and ``launch_dkv`` (K3) at
+  BERT-mini's page-tower training shape, B=8192, H=4, L=S=64, Dh=64, q/k/v
+  viewed from [B, L, H, Dh] as the towers pass them and an f32 upstream
+  gradient laid out the same way;
+* ``k1_bert_ms``: K1 (``flash_forward`` without gradients, as serving
+  calls it) at BERT-mini's bulk-embed shape, B=512, H=4, L=S=64;
+* ``k1_mt5_ms``, ``k4_ms``, ``k3_bias_ms``: K1, ``launch_dq_dbias`` (K4)
+  and the biased ``launch_dkv`` at mT5's page shape, B=512, H=12,
+  L=S=128, Dh=64, with the f32 relative-position bias [H, L, S] and
+  strided views.
+
+Prints one JSON line per tree, the card's name and power limit
+(nvidia-smi), and a summary line; ``--out`` also writes all of it as JSON.
 """
 from __future__ import annotations
 
@@ -22,22 +35,40 @@ import os
 import subprocess
 import sys
 
-SHAPE = dict(B=8192, H=4, L=64, Dh=64)
+BERT = dict(B=8192, H=4, L=64, Dh=64)
+BERT_EMBED = dict(B=512, H=4, L=64, Dh=64)
+MT5 = dict(B=512, H=12, L=128, Dh=64)
+KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms")
 
 
-def _event_ms(fn, iters: int = 50) -> float:
+def _device_ms(fn, iters: int = 50) -> float:
     import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def _inputs(B, H, L, Dh, gen, device, bias=False):
+    """bf16 q, k, v viewed from [B, L, H, Dh], an f32 g laid out the same
+    way, a ragged kv mask, and with `bias` an f32 [H, L, L] bias."""
+    import torch
+    q, k, v = (torch.randn(B, L, H, Dh, generator=gen)
+               .to(device, torch.bfloat16).transpose(1, 2) for _ in range(3))
+    g = torch.randn(B, L, H, Dh, generator=gen).to(device).transpose(1, 2)
+    lens = torch.randint(1, L + 1, (B,), generator=gen)
+    mask = (torch.arange(L)[None, :] < lens[:, None]).to(device)
+    b = torch.randn(H, L, L, generator=gen).to(device) if bias else None
+    return q, k, v, g, mask, b
 
 
 def worker(tree: str) -> dict:
@@ -48,23 +79,35 @@ def worker(tree: str) -> dict:
     if not pkg.__file__.startswith(os.path.abspath(tree)):
         raise AssertionError(f"imported {pkg.__file__}, not from {tree}")
     device = torch.device("cuda")
-    B, H, L, Dh = (SHAPE[n] for n in ("B", "H", "L", "Dh"))
     gen = torch.Generator(device="cpu").manual_seed(0)
-    q, k, v = (torch.randn(B, L, H, Dh, generator=gen)
-               .to(device, torch.bfloat16).transpose(1, 2) for _ in range(3))
-    g = torch.randn(B, L, H, Dh, generator=gen).to(device).transpose(1, 2)
-    lens = torch.randint(1, L + 1, (B,), generator=gen)
-    mask = (torch.arange(L)[None, :] < lens[:, None]).to(device)
+    rec = {"tree": tree}
     with torch.no_grad():
+        q, k, v, g, mask, _ = _inputs(**BERT, gen=gen, device=device)
         out, lse = fa.flash_forward(q, k, v, mask)
-    out = out.contiguous()
-    _, delta = fa.launch_dq(q, k, v, mask, g, out, lse)
-    return {"tree": tree, "shape": [B, H, L, L, Dh],
-            "k2_ms": _event_ms(lambda: fa.launch_dq(q, k, v, mask, g, out,
-                                                    lse)),
-            "k3_ms": _event_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
-                                                     delta)),
-            "device": torch.cuda.get_device_name(0)}
+        out = out.contiguous()
+        _, delta = fa.launch_dq(q, k, v, mask, g, out, lse)
+        rec["k2_ms"] = _device_ms(
+            lambda: fa.launch_dq(q, k, v, mask, g, out, lse))
+        rec["k3_ms"] = _device_ms(
+            lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta))
+        del q, k, v, g, out, lse, delta
+        q, k, v, _, mask, _ = _inputs(**BERT_EMBED, gen=gen, device=device)
+        rec["k1_bert_ms"] = _device_ms(
+            lambda: fa.flash_forward(q, k, v, mask))
+        q, k, v, g, mask, bias = _inputs(**MT5, gen=gen, device=device,
+                                         bias=True)
+        rec["k1_mt5_ms"] = _device_ms(
+            lambda: fa.flash_forward(q, k, v, mask, bias))
+        out, lse = fa.flash_forward(q, k, v, mask, bias)
+        _, delta, _ = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
+        rec["k4_ms"] = _device_ms(
+            lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
+        rec["k3_bias_ms"] = _device_ms(
+            lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta, bias))
+    rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
+                     "mt5_page": MT5}
+    rec["device"] = torch.cuda.get_device_name(0)
+    return rec
 
 
 def main() -> int:
@@ -91,7 +134,7 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     summary = {tree: {key: [r[key] for r in runs if r["tree"] == tree]
-                      for key in ("k2_ms", "k3_ms")}
+                      for key in KEYS}
                for tree in dict.fromkeys(args.trees)}
     print(json.dumps({"summary": summary, "nvidia_smi": smi}), flush=True)
     if args.out:

@@ -1,14 +1,18 @@
 """The port's CUDA kernels (K1 forward; K2 dq, K3 dk/dv and K4 dq + dbias
-backward) against their plain PyTorch versions, on the card. Every test here needs a CUDA device and skips without one (the
-kernels have no CPU mode). This file imports neither jax nor the JAX
-package, so it also runs where only the port is installed:
+backward) against their plain PyTorch versions, on the card. Every test
+here needs a CUDA device and skips without one (the kernels have no CPU
+mode). This file imports neither jax nor the JAX package, so it also runs
+where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are the JAX flash tests': 2e-5 for float32, 2e-2 for bfloat16
-(the plain version rounds probabilities to bf16 before the product with V,
-the kernel does not); on gradients 1e-4 relative / 1e-5 absolute in
-float32 (tests/test_flash_attention.py:72) and 2e-2 in bfloat16."""
+K1 and K3 have two kernels each, chosen by dtype: bf16 takes the
+tensor-core kernel, f32 the CUDA-core one; the tests count which one
+launched. Tolerances are the JAX flash tests': 2e-5 for float32, 2e-2 for
+bfloat16 (bf16 operands, and the rounding of p to bf16 in K1, which the
+plain version does after normalising and the kernel before); on gradients
+1e-4 relative / 1e-5 absolute in float32 (tests/test_flash_attention.py:72)
+and 2e-2 in bfloat16."""
 import pytest
 import torch
 
@@ -25,7 +29,8 @@ def cuda_device():
 
 
 def _inputs(device, B=2, H=2, L=48, S=48, Dh=64, dtype=torch.float32,
-            pad_tail=5, bias=False, seg=False, strided=False, seed=0):
+            pad_tail=5, bias=False, seg=False, strided=False, unaligned=False,
+            seed=0):
     g = torch.Generator().manual_seed(seed)
     if strided:      # [B, L, H, Dh] viewed as [B, H, L, Dh], as the towers do
         q, k, v = (torch.randn(B, n, H, Dh, generator=g).transpose(1, 2)
@@ -33,7 +38,7 @@ def _inputs(device, B=2, H=2, L=48, S=48, Dh=64, dtype=torch.float32,
     else:
         q, k, v = (torch.randn(B, H, n, Dh, generator=g) for n in (L, S, S))
     mask = torch.ones(B, S, dtype=torch.bool)
-    if pad_tail:
+    if pad_tail and pad_tail < S:
         mask[:, -pad_tail:] = False
     mask[-1] = False                     # one batch row sees no key at all
     x = {"q": q, "k": k, "v": v, "kv_mask": mask, "bias": None, "seg": None}
@@ -50,6 +55,11 @@ def _inputs(device, B=2, H=2, L=48, S=48, Dh=64, dtype=torch.float32,
             out[n] = None
         elif n in ("q", "k", "v"):
             out[n] = t.to(device=device, dtype=dtype)
+            if unaligned:    # base 2 bytes and row stride Dh + 1 off 16 B
+                wide = torch.zeros(*t.shape[:-1], Dh + 1, device=device,
+                                   dtype=dtype)
+                wide[..., 1:] = out[n]
+                out[n] = wide[..., 1:]
         else:
             out[n] = t.to(device)
     return out
@@ -284,3 +294,125 @@ def test_cuda_t5_tower_gets_bias_gradients_through_k4(cuda_device):
     again = grads(towers["flash"])
     for name, gf in flash.items():
         assert torch.equal(gf, again[name]), name
+
+
+# The bf16 tensor-core kernels (K1 and K3) at the edges of their tiling:
+# head dims below 64 and not multiples of 16, 128; the query tile of L=16;
+# one query row, one key; ragged L and S (S = 53 is not a multiple of 4, so
+# the bias is staged in 4-byte pieces); the towers' strided views; a view
+# that is not 16-byte aligned (the wrapper copies it). Every case has a
+# batch row that sees no key.
+TC_CASES = {
+    "dh8": dict(Dh=8),
+    "dh24": dict(Dh=24, bias=True),
+    "dh40": dict(Dh=40),
+    "dh128": dict(L=130, S=200, Dh=128, bias=True),
+    "query_tile_L16": dict(B=8, H=4, L=16, S=16, pad_tail=3),
+    "query_tile_L16_bias": dict(B=8, H=4, L=16, S=16, pad_tail=3, bias=True),
+    "L1": dict(L=1, S=64),
+    "S1": dict(L=64, S=1, pad_tail=0),
+    "ragged_L37_S53": dict(L=37, S=53, pad_tail=7),
+    "ragged_L37_S53_bias": dict(L=37, S=53, pad_tail=7, bias=True),
+    "strided_L64": dict(B=8, H=4, L=64, S=64, strided=True),
+    "strided_L128_bias": dict(B=4, H=12, L=128, S=128, strided=True,
+                              bias=True),
+    "unaligned": dict(L=37, S=53, pad_tail=7, unaligned=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_flash_fwd_matches_plain_version(cuda_device, case):
+    x = _inputs(cuda_device, dtype=torch.bfloat16, **TC_CASES[case])
+    before = (fa.launches_tc, fa.launches_f32)
+    out, lse = fa.flash_forward(**x)
+    torch.cuda.synchronize()
+    assert (fa.launches_tc, fa.launches_f32) == (before[0] + 1, before[1])
+    want_out, want_lse = fa.reference_forward(**x)
+    tol = TOL[torch.bfloat16]
+    assert out.shape == want_out.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, want_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    mean_v = x["v"][-1].float().mean(dim=1, keepdim=True)
+    torch.testing.assert_close(out[-1], mean_v.expand_as(out[-1]),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_tensor_core_flash_fwd_with_seg(cuda_device):
+    x = _inputs(cuda_device, L=40, S=40, pad_tail=6, seg=True,
+                dtype=torch.bfloat16)
+    before = fa.launches_tc
+    out, lse = fa.flash_forward(**x)
+    torch.cuda.synchronize()
+    assert fa.launches_tc == before + 1
+    want_out, want_lse = fa.reference_forward(**x)
+    torch.testing.assert_close(out, want_out, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_dkv_kernel_matches_plain_version(cuda_device, case):
+    """The backward (K2 + K3, or K4 + K3 with a bias) in bf16: dk and dv
+    come from the tensor-core K3."""
+    c = TC_CASES[case]
+    x, g, out, lse = _backward_inputs(cuda_device, dtype=torch.bfloat16, **c)
+    q, k, v, mask, bias = x["q"], x["k"], x["v"], x["kv_mask"], x["bias"]
+    before = (fa.dkv_launches_tc, fa.dkv_launches_f32)
+    got = fa.flash_backward(q, k, v, mask, g, out, lse, bias)
+    torch.cuda.synchronize()
+    assert (fa.dkv_launches_tc, fa.dkv_launches_f32) == (before[0] + 1,
+                                                         before[1])
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias)
+    names = ("dq", "dk", "dv", "dbias")[:3 if bias is None else 4]
+    for name, a, b, t in zip(names, got, want, (q, k, v, bias)):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), msg=name,
+                                   **GRAD_TOL[torch.bfloat16])
+    # the last batch row sees no key: dv = sum_l g / S, and no dk
+    S = k.shape[2]
+    want_dv = (g[-1].float().sum(dim=1, keepdim=True) / S).expand_as(v[-1])
+    torch.testing.assert_close(got[2][-1].float(), want_dv,
+                               **GRAD_TOL[torch.bfloat16])
+    assert not got[1][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_tensor_core_dkv_kernel_is_bitwise_deterministic(cuda_device, bias):
+    x, g, out, lse = _backward_inputs(cuda_device, B=16, H=12, L=128, S=128,
+                                      dtype=torch.bfloat16, strided=True,
+                                      bias=bias)
+    q, k, v, mask = x["q"], x["k"], x["v"], x["kv_mask"]
+    if bias:
+        _, delta, _ = fa.launch_dq_dbias(q, k, v, mask, x["bias"], g, out,
+                                         lse)
+    else:
+        _, delta = fa.launch_dq(q, k, v, mask, g, out, lse)
+    first = fa.launch_dkv(q, k, v, mask, g, lse, delta, x["bias"])
+    for _ in range(3):
+        again = fa.launch_dkv(q, k, v, mask, g, lse, delta, x["bias"])
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k1_and_k3_dispatch_by_dtype(cuda_device, dtype):
+    """bf16 q/k/v launch the tensor-core K1 and K3, f32 the CUDA-core
+    ones; K2 serves both."""
+    x = _inputs(cuda_device, dtype=dtype)
+    for n in ("q", "k", "v"):
+        x[n].requires_grad_(True)
+    counts = lambda: (fa.launches_tc, fa.launches_f32, fa.dkv_launches_tc,
+                      fa.dkv_launches_f32, fa.dq_launches)
+    before = counts()
+    out = fa.flash_attention(**x)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(counts(), before)]
+    want = [1, 0, 1, 0, 1] if dtype == torch.bfloat16 else [0, 1, 0, 1, 1]
+    assert delta == want
