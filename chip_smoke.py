@@ -21,7 +21,9 @@ Phases, each printing one JSON line:
      time, the plain version's, one PyTorch library call's (a yardstick
      the port never calls) and its bound. With --parent TREE (a checkout
      of the parent commit), scripts/bwd_ab.py then times the kernels of
-     TREE and of this checkout in turns (TREE, this, this, TREE);
+     TREE and of this checkout in turns (TREE, this, this, TREE), with
+     CUDA events around back-to-back calls (the kernels' `ms` here too)
+     and as the profiler's device time;
   4. BERT-mini serving: config bert_mini_v5p16 at full width (random
      weights from a seeded torch.Generator, flash attention) trains the
      30,522-piece WordPiece vocab over a 100,000-page toy corpus, bulk
@@ -86,6 +88,9 @@ TPU_K4 = "dnn_page_vectors_tpu/ops/flash_attention.py:184"
 K1_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_fwd.cu"
 K23_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_bwd.cu"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+# each source's tensor-core kernel, whose ptxas summary must be in the log
+TC_KERNELS = {"flash_fwd.cu": "flash_fwd_tc_kernel",
+              "flash_bwd.cu": "flash_bwd_dkv_tc_kernel"}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # gradients: 1e-4 relative + 1e-5 absolute in f32 (the JAX flash tests'),
 # 2e-2 in bf16
@@ -144,28 +149,6 @@ def reset_counts() -> None:
                  "dkv_launches", "dkv_launches_tc", "dkv_launches_f32",
                  "dq_dbias_launches"):
         setattr(fa, name, 0)
-
-
-def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one fn() call: the kernel time torch.profiler (CUPTI)
-    records over `iters` calls, summed over every kernel the call
-    launches, per call. Unlike CUDA events around the calls, it does not
-    count the gaps in which the card waits for the host to issue the next
-    call (K1 at BERT-mini's embed shape runs about as long on the card as
-    its wrapper takes on the host)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -334,11 +317,9 @@ def check_k1(device, timed_cases) -> dict:
             mask4 = (x["bias"][None] + neg[:, None, None, :]).to(c["dtype"])
             kind = "float mask: bias + padding"
         t = {
-            "kernel_ms": kernel_ms(lambda: fa.flash_forward(**x)),
-            # back-to-back calls with CUDA events: the host's issue time too
-            "kernel_call_ms": cuda_ms(lambda: fa.flash_forward(**x)),
-            "plain_ms": kernel_ms(lambda: fa.reference_forward(**x)),
-            "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
+            "kernel_ms": cuda_ms(lambda: fa.flash_forward(**x)),
+            "plain_ms": cuda_ms(lambda: fa.reference_forward(**x)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 x["q"], x["k"], x["v"], attn_mask=mask4)),
         }
         b = k1_bound(x)
@@ -484,15 +465,15 @@ def check_k23(device, timed_case: str) -> dict:
         qs, ks, vs, attn_mask=mask[:, None, None, :])
     g_lib = g.to(sdpa_out.dtype)
     t = {
-        "k2_ms": kernel_ms(lambda: fa.launch_dq(q, k, v, mask, g, x["out"],
-                                              x["lse"])),
-        "k3_ms": kernel_ms(lambda: fa.launch_dkv(q, k, v, mask, g, x["lse"],
-                                               delta)),
-        "k2_k3_ms": kernel_ms(lambda: fa.flash_backward(
+        "k2_ms": cuda_ms(lambda: fa.launch_dq(q, k, v, mask, g, x["out"],
+                                            x["lse"])),
+        "k3_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, x["lse"],
+                                             delta)),
+        "k2_k3_ms": cuda_ms(lambda: fa.flash_backward(
             q, k, v, mask, g, x["out"], x["lse"])),
-        "plain_ms": kernel_ms(lambda: fa.reference_backward(
+        "plain_ms": cuda_ms(lambda: fa.reference_backward(
             q, k, v, mask, g, x["out"], x["lse"]), iters=5),
-        "library_ms": kernel_ms(lambda: torch.autograd.grad(
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
             sdpa_out, (qs, ks, vs), g_lib, retain_graph=True)),
     }
     b = bwd_bound(x)
@@ -578,15 +559,15 @@ def check_k4(device, timed_case: str) -> dict:
     sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
     g_lib = g.to(sdpa_out.dtype)
     t = {
-        "k4_ms": kernel_ms(lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g,
-                                                    out, lse)),
-        "k3_bias_ms": kernel_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
-                                                    delta, bias)),
-        "k4_k3_ms": kernel_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
-                                                      lse, bias)),
-        "plain_ms": kernel_ms(lambda: fa.reference_backward(
+        "k4_ms": cuda_ms(lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g,
+                                                  out, lse)),
+        "k3_bias_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
+                                                  delta, bias)),
+        "k4_k3_ms": cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
+                                                    lse, bias)),
+        "plain_ms": cuda_ms(lambda: fa.reference_backward(
             q, k, v, mask, g, out, lse, bias), iters=5),
-        "library_ms": kernel_ms(lambda: torch.autograd.grad(
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
             sdpa_out, (qs, ks, vs, bs), g_lib, retain_graph=True)),
     }
     b = bwd_bound(x)
@@ -1147,7 +1128,8 @@ def ptxas_summary(log: str) -> list:
 def run_ab(parent: str) -> dict:
     """scripts/bwd_ab.py over the tree `parent` and this checkout in turns
     (parent, this, this, parent), one process per tree on this card: each
-    kernel's device time in each run at the shapes the script names."""
+    kernel's time in each run at the shapes the script names, with CUDA
+    events around back-to-back calls and as the profiler's device time."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     proc = subprocess.run(
@@ -1183,8 +1165,11 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
         report["build"][src] = {"nvcc_s": secs, "ptxas": rows}
         emit({"phase": "build", "source": src, "arch": "sm_90a",
               "nvcc_seconds": secs, "ptxas": rows})
-        spills = [r for r in rows if isinstance(r, list)
-                  and "_tc_" in r[0] and (r[2] or r[3])]
+        tc_rows = [r for r in rows if isinstance(r, list) and "_tc_" in r[0]]
+        if not any(r[0].startswith(TC_KERNELS[src]) for r in tc_rows):
+            raise AssertionError(f"no ptxas summary of {TC_KERNELS[src]} in "
+                                 f"the build log of {src}: {rows}")
+        spills = [r for r in tc_rows if r[2] or r[3]]
         if spills:
             raise AssertionError(f"a tensor-core kernel spills: {spills}")
     emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
@@ -1216,7 +1201,8 @@ def kernel_entries(report: dict) -> list:
     """The `kernels` line: one entry per kernel, launches summed over the
     main paths (each path's count read around its own run); with the A/B
     run, the --parent tree's kernel time and this tree's beside it (means
-    of the two runs of each tree); the registers and spills of each
+    of the two runs of each tree; CUDA events around back-to-back calls,
+    and the profiler's device time); the registers and spills of each
     instantiation."""
     k1, k23, k4 = report["k1"], report["k23"], report["k4"]
     ab = report.get("ab")
@@ -1226,10 +1212,11 @@ def kernel_entries(report: dict) -> list:
             return {"parent_ms": None, "parent_note": "not measured: run "
                     "with --parent TREE (the parent commit's checkout)"}
         mean = lambda xs: sum(xs) / len(xs)
-        return {"parent_ms": mean(ab["parent_ms"][key]),
-                "ab_ms": mean(ab["this_ms"][key]),
-                "ab_runs_ms": {"parent": ab["parent_ms"][key],
-                               "this": ab["this_ms"][key]}}
+        par, this = ab["parent_ms"], ab["this_ms"]
+        return {"parent_ms": mean(par[key]), "ab_ms": mean(this[key]),
+                "ab_runs_ms": {"parent": par[key], "this": this[key]},
+                "parent_device_ms": mean(par["device_ms"][key]),
+                "ab_device_ms": mean(this["device_ms"][key])}
 
     rows = [r for src in SOURCES for r in report["build"][src]["ptxas"]
             if isinstance(r, list)]

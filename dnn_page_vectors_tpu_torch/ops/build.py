@@ -3,9 +3,10 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 for ``sm_90a``. The library lands in ``build/torch_kernels/`` at the root
-of the checkout (listed in ``.gitignore``), named by a hash of its source
-and of every header under ``csrc/``, so an edited source or header
-rebuilds and an unchanged one is reused. A failed build raises; nothing
+of the checkout (listed in ``.gitignore``), named by a hash of its source,
+of every header under ``csrc/``, of nvcc's flags and of what ``nvcc
+--version`` prints, so an edited source or header, another flag or
+another nvcc rebuilds and an unchanged one is reused. A failed build raises; nothing
 falls back to another implementation.
 """
 from __future__ import annotations
@@ -17,13 +18,17 @@ import shutil
 import subprocess
 import threading
 import time
+from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -Xptxas -v prints each kernel's registers and spills into the build log
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -43,26 +48,37 @@ def find_nvcc() -> str:
         "first use")
 
 
-def source_digest(source: str, csrc: Optional[Path] = None) -> str:
-    """The cache key of `csrc/<source>`'s library (`csrc` defaults to
-    CSRC): a hash of the source and of every header under `csrc` (names
-    and contents, in name order), so that an edit to a header the source
-    includes rebuilds it."""
-    csrc = CSRC if csrc is None else csrc
-    h = hashlib.sha1((csrc / source).read_bytes())
-    for header in sorted(p for p in csrc.rglob("*")
+@lru_cache(maxsize=None)
+def nvcc_version(nvcc: str) -> str:
+    """What `nvcc --version` prints (part of the cache key)."""
+    return subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def source_digest(source: str, toolchain: str) -> str:
+    """The cache key of `CSRC/<source>`'s library: a hash of the source,
+    of every header under CSRC (names and contents, in name order), of
+    NVCC_FLAGS and of `toolchain` (nvcc's --version output), so that an
+    edit to a header the source includes, a changed flag or another nvcc
+    rebuilds it."""
+    h = hashlib.sha1((CSRC / source).read_bytes())
+    for header in sorted(p for p in CSRC.rglob("*")
                          if p.suffix in (".cuh", ".h", ".hpp")):
-        h.update(header.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(header.relative_to(CSRC).as_posix().encode() + b"\0")
         h.update(header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode() + b"\0")
+    h.update(toolchain.encode())
     return h.hexdigest()[:12]
 
 
 def compile_source(source: str) -> Path:
-    """nvcc `csrc/<source>` into BUILD_DIR (once per content of the source
-    and the headers); returns the library's path. Raises RuntimeError with
+    """nvcc `csrc/<source>` into BUILD_DIR (once per cache key, see
+    source_digest); returns the library's path. Raises RuntimeError with
     nvcc's output when the build fails."""
     src = CSRC / source
-    lib = BUILD_DIR / f"{src.stem}-{source_digest(source)}.so"
+    nvcc = find_nvcc()
+    key = source_digest(source, nvcc_version(nvcc))
+    lib = BUILD_DIR / f"{src.stem}-{key}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         if source not in BUILD_INFO and log.exists():
@@ -70,8 +86,7 @@ def compile_source(source: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:

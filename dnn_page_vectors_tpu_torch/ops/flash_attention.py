@@ -175,6 +175,16 @@ def _check(q, k, v, kv_mask, bias, seg):
                              "the head dim")
 
 
+def _mask_bytes(kv_mask: torch.Tensor) -> torch.Tensor:
+    """The kv mask as one byte per key, nonzero = a real key, as the
+    kernels read it: a contiguous bool or uint8 mask as it is (a bool is
+    stored as the byte 0 or 1), any other one converted. Serving and
+    training pass a bool mask, so no call converts it on the card."""
+    if kv_mask.dtype in (torch.bool, torch.uint8) and kv_mask.is_contiguous():
+        return kv_mask
+    return kv_mask.to(torch.uint8).contiguous()
+
+
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """`t`, or a contiguous copy of it when its base or one of its (batch,
     head, row) strides is not a multiple of 16 bytes: the tensor-core
@@ -195,7 +205,7 @@ def _launch(q, k, v, kv_mask, bias, seg):
         q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     B, H, L, Dh = q.shape
     S = k.shape[2]
-    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    mask_u8 = _mask_bytes(kv_mask)
     bias_f = None if bias is None else bias.float().contiguous()
     seg_i = None if seg is None else seg.to(torch.int32).contiguous()
     out = torch.empty((B, H, L, Dh), dtype=torch.float32, device=q.device)
@@ -268,7 +278,7 @@ def launch_dq(q, k, v, kv_mask, g, out, lse
     global dq_launches
     lib = _bwd_library()
     B, H, L = q.shape[:3]
-    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    mask_u8 = _mask_bytes(kv_mask)
     out, lse = out.contiguous(), lse.contiguous()
     # like q: the towers' transposed views get gradients laid out as they
     # are, so autograd needs no copy on the way back
@@ -298,7 +308,7 @@ def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse
     lib = _bwd_library()
     B, H, L = q.shape[:3]
     S = k.shape[2]
-    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    mask_u8 = _mask_bytes(kv_mask)
     out, lse = out.contiguous(), lse.contiguous()
     bias_f = bias.float().contiguous()
     dq = torch.empty_like(q)
@@ -333,7 +343,7 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
         q, k, v, g = (_aligned16(t) for t in (q, k, v, g))
-    mask_u8 = kv_mask.to(torch.uint8).contiguous()
+    mask_u8 = _mask_bytes(kv_mask)
     lse = lse.contiguous()
     bias_f = None if bias is None else bias.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Device time of the port's flash-attention kernels, compared across
-source trees on one GPU.
+"""Time of the port's flash-attention kernels, compared across source
+trees on one GPU.
 
     python3 scripts/bwd_ab.py TREE [TREE ...] [--out PATH]
 
 For each TREE, in the order given (for two versions A and B: A B B A), one
 process imports ``dnn_page_vectors_tpu_torch`` from TREE (its kernels build
-into TREE/build/) and times each kernel call on the card: the device
-time torch.profiler (CUPTI) records over 50 calls, summed over the
-kernels a call launches, per call (CUDA events around back-to-back calls
-would also count the gaps in which the card waits for the host, which at
-K1's embed shape is about as long as the kernel). bf16 q/k/v with ragged
-padding:
+into TREE/build/) and times each kernel call on the card two ways, one
+after the other on the same inputs:
+
+* ``KEY`` (e.g. ``k1_bert_ms``): CUDA events around 50 back-to-back calls,
+  per call, the measure of earlier trees' records. It counts the kernels
+  and the gaps in which the card waits for the host to issue the next
+  call, so a wrapper that the host issues slower than the card runs it
+  reads its host time here;
+* ``device_ms[KEY]``: the kernel time torch.profiler (CUPTI) records over
+  50 calls, summed over the kernels a call launches, per call: the card's
+  time alone.
+
+bf16 q/k/v with ragged padding:
 
 * ``k2_ms``, ``k3_ms``: ``launch_dq`` (K2) and ``launch_dkv`` (K3) at
   BERT-mini's page-tower training shape, B=8192, H=4, L=S=64, Dh=64, q/k/v
@@ -39,6 +46,21 @@ BERT = dict(B=8192, H=4, L=64, Dh=64)
 BERT_EMBED = dict(B=512, H=4, L=64, Dh=64)
 MT5 = dict(B=512, H=12, L=128, Dh=64)
 KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms")
+
+
+def _event_ms(fn, iters: int = 50) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _device_ms(fn, iters: int = 50) -> float:
@@ -80,30 +102,30 @@ def worker(tree: str) -> dict:
         raise AssertionError(f"imported {pkg.__file__}, not from {tree}")
     device = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
-    rec = {"tree": tree}
+    rec = {"tree": tree, "device_ms": {}}
+
+    def timed(key, fn):
+        rec[key] = _event_ms(fn)
+        rec["device_ms"][key] = _device_ms(fn)
     with torch.no_grad():
         q, k, v, g, mask, _ = _inputs(**BERT, gen=gen, device=device)
         out, lse = fa.flash_forward(q, k, v, mask)
         out = out.contiguous()
         _, delta = fa.launch_dq(q, k, v, mask, g, out, lse)
-        rec["k2_ms"] = _device_ms(
-            lambda: fa.launch_dq(q, k, v, mask, g, out, lse))
-        rec["k3_ms"] = _device_ms(
-            lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta))
+        timed("k2_ms", lambda: fa.launch_dq(q, k, v, mask, g, out, lse))
+        timed("k3_ms", lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta))
         del q, k, v, g, out, lse, delta
         q, k, v, _, mask, _ = _inputs(**BERT_EMBED, gen=gen, device=device)
-        rec["k1_bert_ms"] = _device_ms(
-            lambda: fa.flash_forward(q, k, v, mask))
+        timed("k1_bert_ms", lambda: fa.flash_forward(q, k, v, mask))
         q, k, v, g, mask, bias = _inputs(**MT5, gen=gen, device=device,
                                          bias=True)
-        rec["k1_mt5_ms"] = _device_ms(
-            lambda: fa.flash_forward(q, k, v, mask, bias))
+        timed("k1_mt5_ms", lambda: fa.flash_forward(q, k, v, mask, bias))
         out, lse = fa.flash_forward(q, k, v, mask, bias)
         _, delta, _ = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
-        rec["k4_ms"] = _device_ms(
-            lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
-        rec["k3_bias_ms"] = _device_ms(
-            lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta, bias))
+        timed("k4_ms",
+             lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
+        timed("k3_bias_ms",
+             lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta, bias))
     rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
                      "mt5_page": MT5}
     rec["device"] = torch.cuda.get_device_name(0)
@@ -136,6 +158,9 @@ def main() -> int:
     summary = {tree: {key: [r[key] for r in runs if r["tree"] == tree]
                       for key in KEYS}
                for tree in dict.fromkeys(args.trees)}
+    for tree, row in summary.items():
+        row["device_ms"] = {key: [r["device_ms"][key] for r in runs
+                                  if r["tree"] == tree] for key in KEYS}
     print(json.dumps({"summary": summary, "nvidia_smi": smi}), flush=True)
     if args.out:
         with open(args.out, "w") as f:

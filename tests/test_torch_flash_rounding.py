@@ -7,8 +7,10 @@ rounding exactly where they round and accumulating in float32 where they
 do (``mma.sync`` takes bf16 operands and sums in f32):
 
 * K1: scores q.k^T in f32 from the bf16 q and k, scaled, plus the f32
-  bias, masked with -1e30; an online softmax over key tiles of 64 in f32
-  (running max, running sum); the tile's unnormalised probabilities
+  bias, masked with -1e30; an online softmax in f32 (running max,
+  running sum) over the kernel's key tiles (32 keys with the bias when
+  S > 32, else 64, or S rounded up to 16 when that is less); the tile's
+  unnormalised probabilities
   rounded to bf16 before the product with the bf16 v; out divided by the
   row sum at the end; lse = max + log(sum).
 * K3: p rebuilt in f32 from the saved lse; g, p and ds each as a pair of
@@ -44,6 +46,7 @@ from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
 FWD_TOL = dict(rtol=2e-2, atol=2e-2)
 GRAD_TOL = dict(rtol=2e-2, atol=2e-2)
 KEY_TILE = 64
+BIAS_KEY_TILE = 32
 BF16 = torch.bfloat16
 
 
@@ -63,22 +66,30 @@ def _scores(q, k, kv_mask, bias):
     return torch.where(allowed, s, torch.full_like(s, fa.NEG_INF)), allowed
 
 
+def k1_key_tile(S: int, bias) -> int:
+    """The bf16 K1's key tile, chosen as ``flash_fwd_bf16`` chooses it."""
+    if bias is not None and S > BIAS_KEY_TILE:
+        return BIAS_KEY_TILE
+    return min(KEY_TILE, -(-S // 16) * 16)
+
+
 def emulate_k1(q, k, v, kv_mask, bias=None):
     """(out, lse) as the bf16 K1 computes them (see the module
     docstring)."""
     s, _ = _scores(q, k, kv_mask, bias)
     B, H, L, S = s.shape
+    tile = k1_key_tile(S, bias)
     m = torch.full((B, H, L), -math.inf)
     l = torch.zeros(B, H, L)
     acc = torch.zeros(B, H, L, q.shape[-1])
-    for c0 in range(0, S, KEY_TILE):
-        st = s[..., c0:c0 + KEY_TILE]
+    for c0 in range(0, S, tile):
+        st = s[..., c0:c0 + tile]
         m_new = torch.maximum(m, st.amax(-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(st - m_new[..., None])
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bhls,bhsd->bhld", _bf16(p), v[:, :, c0:c0 + KEY_TILE].float())
+            "bhls,bhsd->bhld", _bf16(p), v[:, :, c0:c0 + tile].float())
         m = m_new
     return acc / l[..., None], m + torch.log(l)
 

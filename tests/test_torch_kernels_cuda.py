@@ -416,3 +416,38 @@ def test_k1_and_k3_dispatch_by_dtype(cuda_device, dtype):
     delta = [a - b for a, b in zip(counts(), before)]
     want = [1, 0, 1, 0, 1] if dtype == torch.bfloat16 else [0, 1, 0, 1, 1]
     assert delta == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["uint8", "float", "strided_bool"])
+def test_k1_and_k3_take_any_mask_form(cuda_device, form):
+    """The wrappers pass a contiguous bool mask to the kernels as its bytes
+    and convert any other one: a uint8, a float or a strided bool mask
+    gives K1's and K3's results for the bool mask, bit for bit."""
+    x = _inputs(cuda_device, B=4, L=37, S=53, pad_tail=7,
+                dtype=torch.bfloat16, bias=True)
+    mask = x["kv_mask"]
+    if form == "uint8":
+        other = mask.to(torch.uint8)
+    elif form == "float":
+        other = mask.float()
+    else:        # every other column of a [B, 2S] bool tensor
+        other = torch.zeros(mask.shape[0], 2 * mask.shape[1],
+                            dtype=torch.bool, device=cuda_device)
+        other[:, ::2] = mask
+        other = other[:, ::2]
+        assert not other.is_contiguous()
+    with torch.no_grad():
+        want = fa.flash_forward(**x)
+        got = fa.flash_forward(**{**x, "kv_mask": other})
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    out, lse = want
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+    _, delta, _ = fa.launch_dq_dbias(x["q"], x["k"], x["v"], mask, x["bias"],
+                                     g, out, lse)
+    dkv = [fa.launch_dkv(x["q"], x["k"], x["v"], m, g, lse, delta, x["bias"])
+           for m in (mask, other)]
+    for a, b in zip(*dkv):
+        assert torch.equal(a, b)
