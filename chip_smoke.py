@@ -15,11 +15,13 @@ Phases, each printing one JSON line:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at the paths' shapes and the contract's edge cases (the
      tensor-core kernels' too: head dims 8, 24, 40, 128, one query row,
-     one key, an unaligned view), with the tolerance stated, and which of
-     K1's and K3's two kernels launched (bf16: tensor cores, f32: CUDA
-     cores); two runs of K3 and of K4 bitwise equal; plus each kernel's
-     time, the plain version's, one PyTorch library call's (a yardstick
-     the port never calls) and its bound. With --parent TREE (a checkout
+     one key, an unaligned view, a batch that is not a multiple of K4's
+     group), with the tolerance stated, and which of each kernel's two
+     versions launched (bf16: tensor cores, f32: CUDA cores); two runs of
+     K2, of K3 and of K4 bitwise equal; plus each kernel's time, the plain
+     version's, one PyTorch library call's (a yardstick the port never
+     calls) and its bound, the backward kernels at the page and the query
+     towers' training shapes. With --parent TREE (a checkout
      of the parent commit), scripts/bwd_ab.py then times the kernels of
      TREE and of this checkout in turns (TREE, this, this, TREE), with
      CUDA events around back-to-back calls (the kernels' `ms` here too)
@@ -35,8 +37,8 @@ Phases, each printing one JSON line:
      attention;
   5. BERT-mini training: a flash-attention Trainer at full width takes 6
      steps of 8,192 pages from the same corpus through Trainer.train
-     (counted: K1, K2 and K3 launch 8 times a step, K1 and K3 on the
-     tensor cores), then 6 steps on
+     (counted: K1, K2 and K3 launch 8 times a step, all on the tensor
+     cores), then 6 steps on
      pre-made batches are timed (the first 2 warm up) and one is profiled
      by kernel class; flash gradients are held against dense ones, two
      runs of one step must give bitwise equal gradients, and 3 steps +
@@ -50,7 +52,8 @@ Phases, each printing one JSON line:
      launches per encode);
   7. mT5 training: phase 5 at the config's width with the batch cut from
      4,096 (the JAX config's global batch over 8 chips) to 512 pages: K1,
-     K4 and K3 launch 24 times a step, K2 never; the rel_bias table is
+     K4 and K3 launch 24 times a step (all on the tensor cores), K2
+     never; the rel_bias table is
      among the gradients held flash against dense and bitwise run to run.
 Then the `kernels` line, the card's name and power limit as nvidia-smi
 prints them, and last {"ok": true, "device": {...}}.
@@ -88,9 +91,12 @@ TPU_K4 = "dnn_page_vectors_tpu/ops/flash_attention.py:184"
 K1_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_fwd.cu"
 K23_SOURCE = "dnn_page_vectors_tpu_torch/csrc/flash_bwd.cu"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
-# each source's tensor-core kernel, whose ptxas summary must be in the log
-TC_KERNELS = {"flash_fwd.cu": "flash_fwd_tc_kernel",
-              "flash_bwd.cu": "flash_bwd_dkv_tc_kernel"}
+# each source's tensor-core kernels, whose ptxas summaries must be in the
+# log
+TC_KERNELS = {"flash_fwd.cu": ("flash_fwd_tc_kernel",),
+              "flash_bwd.cu": ("flash_bwd_dq_tc_kernel",
+                               "flash_bwd_dkv_tc_kernel",
+                               "flash_bwd_dq_dbias_tc_kernel")}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # gradients: 1e-4 relative + 1e-5 absolute in f32 (the JAX flash tests'),
 # 2e-2 in bf16
@@ -146,8 +152,9 @@ def reset_counts() -> None:
     """Every kernel launch counter of the port to 0."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     for name in ("launches", "launches_tc", "launches_f32", "dq_launches",
-                 "dkv_launches", "dkv_launches_tc", "dkv_launches_f32",
-                 "dq_dbias_launches"):
+                 "dq_launches_tc", "dq_launches_f32", "dkv_launches",
+                 "dkv_launches_tc", "dkv_launches_f32", "dq_dbias_launches",
+                 "dq_dbias_launches_tc", "dq_dbias_launches_f32"):
         setattr(fa, name, 0)
 
 
@@ -391,13 +398,18 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"],
             x["bias"])
-    before = (fa.dkv_launches_tc, fa.dkv_launches_f32)
+    def split():     # (K2 or K4, K3) launches: (tensor-core, CUDA-core)
+        return ((fa.dq_launches_tc + fa.dq_dbias_launches_tc,
+                 fa.dq_launches_f32 + fa.dq_dbias_launches_f32),
+                (fa.dkv_launches_tc, fa.dkv_launches_f32))
+    before = split()
     got = fa.flash_backward(*args)
     torch.cuda.synchronize()
-    took = (fa.dkv_launches_tc - before[0], fa.dkv_launches_f32 - before[1])
-    if took != ((1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)):
-        raise AssertionError(f"K3 case {name} ({c['dtype']}) launched "
-                             f"(tensor-core, CUDA-core) {took}")
+    took = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(split(), before)]
+    want = (1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)
+    if took != [want, want]:
+        raise AssertionError(f"case {name} ({c['dtype']}) launched (K2 or K4, "
+                             f"K3) as (tensor-core, CUDA-core) {took}")
     want = fa.reference_backward(*args)
     rtol, atol = GRAD_TOL[c["dtype"]]
     names = ("dq", "dk", "dv", "dbias")[:3 if x["bias"] is None else 4]
@@ -429,10 +441,84 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
     return errs
 
 
-def check_k23(device, timed_case: str) -> dict:
-    """K2 + K3 (through flash_backward) vs reference_backward on every
-    case; each kernel timed alone at the page tower's training shape."""
+def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
+    """The dq kernel (K2, or K4 with a bias) and K3 each timed alone, the
+    pair through flash_backward, the plain backward, and one library call
+    (the autograd backward of scaled_dot_product_attention, the pair's
+    yardstick) on inputs `x`, with the bound of each kernel; emits the
+    record and returns it."""
     import torch.nn.functional as F
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
+    bias, out, lse = x["bias"], x["out"], x["lse"]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if bias is None:
+        names = ("k2_ms", "k3_ms", "k2_k3_ms")
+        dq_fn = lambda: fa.launch_dq(q, k, v, mask, g, out, lse)
+        attn_mask, kind = mask[:, None, None, :], "bool mask"
+        pair = "K2 + K3"
+    else:
+        names = ("k4_ms", "k3_bias_ms", "k4_k3_ms")
+        dq_fn = lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
+        leaves.append(bias.detach().requires_grad_(True))
+        neg = torch.zeros(mask.shape, device=q.device).masked_fill(
+            ~mask, float("-inf"))
+        attn_mask = (leaves[3][None] + neg[:, None, None, :]).to(q.dtype)
+        kind = ("float mask: bias + padding; the gradients of q, k, v and "
+                "the bias")
+        pair = "K4 + K3"
+    delta = dq_fn()[1]
+    sdpa_out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=attn_mask)
+    g_lib = g.to(sdpa_out.dtype)
+    t = {
+        names[0]: cuda_ms(dq_fn),
+        names[1]: cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta,
+                                                bias)),
+        names[2]: cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
+                                                    lse, bias)),
+        "plain_ms": cuda_ms(lambda: fa.reference_backward(
+            q, k, v, mask, g, out, lse, bias), iters=5),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, g_lib, retain_graph=True)),
+    }
+    b = bwd_bound(x)
+    B, H, L, Dh = q.shape
+    # blocks of the dq kernel an SM holds at this shape (the tensor-core
+    # kernels' occupancy query)
+    t["dq_blocks_per_sm"] = (fa._bwd_library().flash_bwd_dq_tc_blocks_per_sm(
+        int(bias is not None), L, k.shape[2], Dh)
+        if q.dtype == torch.bfloat16 else None)
+    rec = {"phase": phase, "case": case,
+           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
+           "bound": b,
+           "plain_call": f"reference_backward ({pair} together)",
+           "library_call": "autograd backward of torch.nn.functional."
+                           f"scaled_dot_product_attention ({kind}), against "
+                           f"{pair} together"}
+    emit(rec)
+    return {**t, "bound": b}
+
+
+def k2_bitwise(x: dict, case: str) -> bool:
+    """Two runs of K2 on the same inputs give bitwise equal dq and delta
+    (one writer per element, a fixed order over the KV tiles); raises if
+    not."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"])
+    first = fa.launch_dq(*args)
+    again = fa.launch_dq(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    emit({"phase": "k2_bitwise", "case": case, "dq_delta_equal": equal})
+    if not equal:
+        raise AssertionError(f"two runs of K2 gave different dq or delta "
+                             f"({case})")
+    return equal
+
+
+def check_k23(device, timed_case: str, query_case: str) -> dict:
+    """K2 + K3 (through flash_backward) vs reference_backward on every
+    case; two runs of K2 and of K3 bitwise equal; each kernel timed alone
+    at the page and query towers' training shapes."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     cases = {
         "page_train_bf16": dict(B=TRAIN_BATCH, H=4, L=64, S=64, Dh=64,
@@ -457,35 +543,17 @@ def check_k23(device, timed_case: str) -> dict:
         del x
     c = cases[timed_case]
     x = k23_inputs(device, seed=300, **c)
-    q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
-    _, delta = fa.launch_dq(q, k, v, mask, g, x["out"], x["lse"])
-    bitwise = k3_bitwise(x, delta, timed_case)
-    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask[:, None, None, :])
-    g_lib = g.to(sdpa_out.dtype)
-    t = {
-        "k2_ms": cuda_ms(lambda: fa.launch_dq(q, k, v, mask, g, x["out"],
-                                            x["lse"])),
-        "k3_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, x["lse"],
-                                             delta)),
-        "k2_k3_ms": cuda_ms(lambda: fa.flash_backward(
-            q, k, v, mask, g, x["out"], x["lse"])),
-        "plain_ms": cuda_ms(lambda: fa.reference_backward(
-            q, k, v, mask, g, x["out"], x["lse"]), iters=5),
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(
-            sdpa_out, (qs, ks, vs), g_lib, retain_graph=True)),
-    }
-    b = bwd_bound(x)
-    rec = {"phase": "k23_timing", "case": timed_case,
-           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
-           "bound": b,
-           "plain_call": "reference_backward (K2 and K3 together)",
-           "library_call": "autograd backward of torch.nn.functional."
-                           "scaled_dot_product_attention (bool mask), "
-                           "against K2 + K3 together"}
-    emit(rec)
-    return {"worst": worst, "bound": b, "k3_bitwise": bitwise, **t}
+    bitwise = k2_bitwise(x, timed_case)
+    _, delta = fa.launch_dq(x["q"], x["k"], x["v"], x["kv_mask"], x["g"],
+                            x["out"], x["lse"])
+    k3_bits = k3_bitwise(x, delta, timed_case)
+    t = time_bwd("k23_timing", timed_case, c, x)
+    del x, delta
+    c = cases[query_case]
+    query = time_bwd("k23_timing", query_case, c,
+                     k23_inputs(device, seed=301, **c))
+    return {"worst": worst, "k2_bitwise": bitwise, "k3_bitwise": k3_bits,
+            **t, "query": query}
 
 
 def k3_bitwise(x: dict, delta, case: str) -> bool:
@@ -505,11 +573,11 @@ def k3_bitwise(x: dict, delta, case: str) -> bool:
     return equal
 
 
-def check_k4(device, timed_case: str) -> dict:
+def check_k4(device, timed_case: str, query_case: str) -> dict:
     """K4 + the biased K3 (through flash_backward) vs the biased
     reference_backward on every case; two runs of K4 bitwise equal; each
-    kernel timed alone at the mT5 page tower's training shape."""
-    import torch.nn.functional as F
+    kernel timed alone at the mT5 page and query towers' training
+    shapes."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     cases = {
         "mt5_page_train_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=128, S=128,
@@ -528,6 +596,9 @@ def check_k4(device, timed_case: str) -> dict:
         # not a multiple of K4's batch group of 8
         "odd_batch_f32_bias": dict(B=11, H=2, L=48, S=48, Dh=64,
                                    dtype=torch.float32, bias=True),
+        "odd_batch_bf16_bias": dict(B=11, H=2, L=48, S=48, Dh=64,
+                                    dtype=torch.bfloat16, bias=True,
+                                    pad="masked_rows"),
         **{n + "_bias": {**c, "bias": True}
            for n, c in TC_EDGE_CASES.items()},
     }
@@ -552,37 +623,13 @@ def check_k4(device, timed_case: str) -> dict:
     delta = first[1]
     del again
     k3_bits = k3_bitwise(x, delta, timed_case)
-    qs, ks, vs, bs = (t.detach().requires_grad_(True) for t in (q, k, v, bias))
-    neg = torch.zeros(mask.shape, device=device).masked_fill(
-        ~mask, float("-inf"))
-    fmask = (bs[None] + neg[:, None, None, :]).to(q.dtype)
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
-    g_lib = g.to(sdpa_out.dtype)
-    t = {
-        "k4_ms": cuda_ms(lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g,
-                                                  out, lse)),
-        "k3_bias_ms": cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse,
-                                                  delta, bias)),
-        "k4_k3_ms": cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
-                                                    lse, bias)),
-        "plain_ms": cuda_ms(lambda: fa.reference_backward(
-            q, k, v, mask, g, out, lse, bias), iters=5),
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(
-            sdpa_out, (qs, ks, vs, bs), g_lib, retain_graph=True)),
-    }
-    b = bwd_bound(x)
-    rec = {"phase": "k4_timing", "case": timed_case,
-           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
-           "bound": b,
-           "plain_call": "reference_backward with the bias (K4 and K3 "
-                         "together)",
-           "library_call": "autograd backward of torch.nn.functional."
-                           "scaled_dot_product_attention (float mask: bias "
-                           "+ padding; the gradients of q, k, v and the "
-                           "bias), against K4 + K3 together"}
-    emit(rec)
-    return {"worst": worst, "bound": b, "bitwise": bitwise,
-            "k3_bitwise": k3_bits, **t}
+    t = time_bwd("k4_timing", timed_case, c, x)
+    del x, first, delta
+    c = cases[query_case]
+    query = time_bwd("k4_timing", query_case, c,
+                     k23_inputs(device, seed=501, **c))
+    return {"worst": worst, "bitwise": bitwise, "k3_bitwise": k3_bits, **t,
+            "query": query}
 
 
 def device_breakdown(fn, iters: int = 5) -> dict:
@@ -930,16 +977,17 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counts()
-    tensor_core = {"k1": fa.launches_tc, "k3": fa.dkv_launches_tc}
+    tensor_core = {"k1": fa.launches_tc, "k2": fa.dq_launches_tc,
+                   "k3": fa.dkv_launches_tc, "k4": fa.dq_dbias_launches_tc}
     # ------------------------------------------------------------------
     if launches != [TRAIN_STEPS * n for n in per_step]:
         raise AssertionError(f"K1/K2/K3/K4 launched {launches} times in "
                              f"{TRAIN_STEPS} steps, want "
                              f"{[TRAIN_STEPS * n for n in per_step]}")
-    if tensor_core != {"k1": launches[0], "k3": launches[2]}:
-        raise AssertionError(f"of {launches[0]} K1 and {launches[2]} K3 "
-                             f"launches (all bf16) only {tensor_core} took "
-                             "the tensor-core kernels")
+    if list(tensor_core.values()) != launches:
+        raise AssertionError(f"of {launches} K1/K2/K3/K4 launches (all bf16) "
+                             f"only {tensor_core} took the tensor-core "
+                             "kernels")
     hist = trainer.history
     if len(hist) != TRAIN_STEPS or not all(
             np.isfinite([h["loss"], h["grad_norm"]]).all() and h["loss"] > 0
@@ -1166,9 +1214,10 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
         emit({"phase": "build", "source": src, "arch": "sm_90a",
               "nvcc_seconds": secs, "ptxas": rows})
         tc_rows = [r for r in rows if isinstance(r, list) and "_tc_" in r[0]]
-        if not any(r[0].startswith(TC_KERNELS[src]) for r in tc_rows):
-            raise AssertionError(f"no ptxas summary of {TC_KERNELS[src]} in "
-                                 f"the build log of {src}: {rows}")
+        for kernel in TC_KERNELS[src]:
+            if not any(r[0].startswith(kernel + "<") for r in tc_rows):
+                raise AssertionError(f"no ptxas summary of {kernel} in the "
+                                     f"build log of {src}: {rows}")
         spills = [r for r in tc_rows if r[2] or r[3]]
         if spills:
             raise AssertionError(f"a tensor-core kernel spills: {spills}")
@@ -1176,8 +1225,10 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
 
     k1 = report["k1"] = check_k1(device, ("embed_bf16",
                                           "mt5_page_bias_bf16"))
-    k23 = report["k23"] = check_k23(device, "page_train_bf16")
-    k4 = report["k4"] = check_k4(device, "mt5_page_train_bf16")
+    k23 = report["k23"] = check_k23(device, "page_train_bf16",
+                                    "query_train_bf16")
+    k4 = report["k4"] = check_k4(device, "mt5_page_train_bf16",
+                                 "mt5_query_train_bf16")
     if parent is not None:
         report["ab"] = run_ab(parent)
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
@@ -1234,7 +1285,7 @@ def kernel_entries(report: dict) -> list:
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
                "mt5_serving": report["mt5_slice"]["k1_launches_tensor_core"]},
-        "k3": {}}
+        "k2": {}, "k3": {}, "k4": {}}
     for path, rec in (("bert_training", report["train"]),
                       ("mt5_training", report["mt5_train"])):
         for n, count in rec["launches_tensor_core_main_path"].items():
@@ -1248,6 +1299,18 @@ def kernel_entries(report: dict) -> list:
     k1_mt5 = k1["timed"]["mt5_page_bias_bf16"]
     per_step = lambda n: {"bert": report["train"]["launches_one_step"][n],
                           "mt5": report["mt5_train"]["launches_one_step"][n]}
+
+    def query(rec, names, shape, key):
+        """A backward kernel's numbers at the query tower's shape."""
+        q = rec["query"]
+        return {"shape": shape, "ms": q[names[0]], "plain_ms": q["plain_ms"],
+                "bound_ms": q["bound"]["dq"]["bound_ms"],
+                "bound_by": q["bound"]["dq"]["bound_by"],
+                "library_ms": q["library_ms"], names[2]: q[names[2]],
+                "k3_ms": q[names[1]],
+                "k3_bound_ms": q["bound"]["dkv"]["bound_ms"],
+                "blocks_per_sm": q["dq_blocks_per_sm"],
+                "plain_and_library_cover": "the pair", **parent(key)}
     return [{
         "name": "flash_fwd (K1)", "route": "cuda", "source": K1_SOURCE,
         "replaces": TPU_K1, "launches": sum(by_path["k1"].values()),
@@ -1279,7 +1342,15 @@ def kernel_entries(report: dict) -> list:
         "bound_by": k23["bound"]["dq"]["bound_by"],
         "library_ms": k23["library_ms"], **bert_pair, "shape": bert_shape,
         "plain_and_library_cover": "K2 and K3 together", **parent("k2_ms"),
-        "ptxas": ptxas("flash_bwd_dq_kernel")}, {
+        "kernel": "flash_bwd_dq_tc_kernel (tensor cores, bf16); f32 inputs "
+                  "take flash_bwd_dq_kernel (CUDA cores)",
+        "launches_tensor_core": sum(tc_by_path["k2"].values()),
+        "bitwise_equal_runs": k23["k2_bitwise"],
+        "blocks_per_sm": k23["dq_blocks_per_sm"],
+        "ptxas": ptxas("flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel"),
+        "query": query(k23, ("k2_ms", "k3_ms", "k2_k3_ms"),
+                       f"B={TRAIN_BATCH} H=4 L=S=16 Dh=64 bf16 q/k/v, f32 g",
+                       "k2_query_ms")}, {
         "name": "flash_bwd_dkv (K3)", "route": "cuda", "source": K23_SOURCE,
         "replaces": TPU_K3, "launches": sum(by_path["k3"].values()),
         "launches_by_path": by_path["k3"],
@@ -1315,7 +1386,15 @@ def kernel_entries(report: dict) -> list:
         "library_ms": k4["library_ms"], **mt5_pair, "shape": mt5_shape,
         "bitwise_equal_runs": k4["bitwise"],
         "plain_and_library_cover": "K4 and K3 together", **parent("k4_ms"),
-        "ptxas": ptxas("flash_bwd_dq_dbias", "flash_bwd_dbias_sum")}]
+        "kernel": "flash_bwd_dq_dbias_tc_kernel (tensor cores, bf16); f32 "
+                  "inputs take flash_bwd_dq_dbias_kernel (CUDA cores); both "
+                  "then flash_bwd_dbias_sum_kernel",
+        "launches_tensor_core": sum(tc_by_path["k4"].values()),
+        "blocks_per_sm": k4["dq_blocks_per_sm"],
+        "ptxas": ptxas("flash_bwd_dq_dbias", "flash_bwd_dbias_sum"),
+        "query": query(k4, ("k4_ms", "k3_bias_ms", "k4_k3_ms"),
+                       f"B={MT5_TRAIN_BATCH} H=12 L=S=16 Dh=64 bf16 q/k/v, "
+                       "f32 g, f32 bias", "k4_query_ms")}]
 
 
 def main() -> int:

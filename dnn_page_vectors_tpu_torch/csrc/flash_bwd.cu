@@ -34,9 +34,9 @@
 // unmasked, which also reaches dbias.)
 //
 // Design. None of the kernels carries the TPU blocking over (a Q block
-// against the whole KV slice in VMEM). K2 is gridded over (Q tile of 64
-// rows, head, batch row) with a loop over KV tiles of 64 keys; K3 over (KV
-// tile, head, batch row) with a loop over Q tiles, in order.
+// against the whole KV slice in VMEM). K2 is gridded over (Q tile, head,
+// batch row) with a loop over KV tiles; K3 over (KV tile, head, batch row)
+// with a loop over Q tiles, in order.
 // The TPU's K4 sums dbias over the batch by running the batch innermost in
 // a grid that executes in order; GPU blocks have no order. K4 is gridded
 // over (Q tile, head, group of G batch rows): each block runs K2's work
@@ -49,6 +49,11 @@
 // row) and write it out for K3, which runs after them on the same stream:
 // there is no separate preprocess kernel.
 //
+// Each kernel has two versions, chosen by the dtype of q, k and v: bf16
+// (every launch of the training paths) on the tensor cores, f32 (whose
+// 1e-4 / 1e-5 gradient tolerances bf16 operands cannot meet) on the CUDA
+// cores.
+//
 // K2, K4, and K3 for f32 inputs, stage their tiles in shared memory
 // widened to f32 and multiply on the CUDA cores. As in K1's f32 kernel,
 // four threads share one row (a query row in K2/K4, a key in K3): each
@@ -57,6 +62,41 @@
 // shuffle. The bias and the partial dbias are read and written in global
 // memory (L2-resident: [H,L,S] f32 is 0.8 MB at mT5's training shape, a
 // block's partial 32 KB).
+//
+// K2 and K4 for bf16 inputs (flash_bwd_dq_tc_kernel and
+// flash_bwd_dq_dbias_tc_kernel, one body) run on the tensor cores
+// (mma.sync m16n8k16, f32 sums), a FlashAttention-2 dq loop:
+// - each warp owns 16 query rows; a K2 block has 1, 2 or 4 warps, chosen
+//   from L so that the query tower's L=16 runs one warp per block. The Q
+//   tile (q in bf16; g, out in f32; lse) comes in by 16-byte cp.async;
+//   then, once per element, g becomes a hi + lo pair of bf16 A fragments
+//   held in registers and delta = g.out is summed in f32 from the same
+//   elements (written for K3); q is read by ldmatrix at each use;
+// - k, v (bf16) and the kv mask bytes come through a two-stage cp.async
+//   ring of 16- or 32-key tiles, each tile fetched while the previous one
+//   is computed; per 16
+//   keys: s = q.k^T and dp = (g_hi + g_lo).v^T from ldmatrix fragments,
+//   p = exp(scale s + bias - lse) and ds = p (dp - delta) in registers (the
+//   mask, keys past S and rows past L tested in one place), then dq +=
+//   ds.k with ds as a hi + lo pair (ldmatrix.trans of the k tile); with g
+//   or ds rounded once, dq leaves the 2e-2 tolerance where attention is
+//   peaked (tests/test_torch_flash_rounding.py);
+// - scale * dq goes out in bf16 through shared memory as 16-byte stores;
+// - K2 holds 54 KB of shared memory a block at a head dim of 64 (the ring's
+//   second slot lies over the f32 g and out, free once the fragments are
+//   built) and at most 128 registers a thread: 4 blocks of 4 warps an SM;
+// - K4 keeps its block's bias tile [Q tile, S] f32 in shared memory, loaded
+//   once for every batch row of the group, and its partial dbias there too:
+//   each thread adds its own ds elements (f32), the same elements in batch-
+//   row order, and the partial goes out once, when the group is done. The
+//   bias and the partial take Q tiles of at most 32 rows; two warps share
+//   each 16 rows, each taking half of every 32-key tile, and the second's
+//   dq is added to the first's (in that order) at the row's end: 3 blocks
+//   of 4 warps an SM at mT5's shape (74 KB, at most 168 registers). While
+//   one batch row is computed, the next row's g, out, lse and first KV
+//   tiles are fetched (its q once the row is done). S is at most 512 (the
+//   wrapper sends a longer S to the f32 K4). K4 is bound by latency more
+//   than by bytes: it sums its batch rows one after another.
 //
 // K3 for bf16 inputs (flash_bwd_dkv_tc_kernel: every K3 launch of the
 // training paths) runs on the tensor cores (mma.sync m16n8k16, f32 sums):
@@ -96,7 +136,9 @@
 //   v (302 MB), g and out (403 MB), dq (101 MB), lse, delta, the bias and
 //   dbias: about 0.81 GB, 0.24 ms, against 39 GFLOP, 0.04 ms. The biased K3
 //   moves about 0.71 GB, 0.21 ms.
-// All are memory-bound. K2 and K4 still multiply on the f32 CUDA cores.
+// All are memory-bound. The query tower's launches (L=S=16) move about a
+// quarter of the page tower's bytes: K2 about 0.54 GB (0.16 ms), K4 about
+// 0.09 GB (0.03 ms).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -116,29 +158,19 @@ constexpr int kDhMax = 128;
 constexpr int kChunks = kDhMax / 4 / kTPR;  // float4 output chunks per thread
 constexpr float kMaskedRowLse = -1e29f;  // lse of a fully masked row
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // Row pitch of a staged tile: 16-byte aligned rows.
 __host__ __device__ __forceinline__ int pitch(int Dh) { return Dh + 4; }
 
-// Stages rows [r0, r0 + 64) of a strided [rows, Dh] matrix (row stride
-// `sl`) into `dst`, widened to f32 and multiplied by `mul`; rows past
-// `n` are zero.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long sl,
-                                      int r0, int n, int Dh, float mul) {
+// Stages rows [r0, r0 + 64) of a strided [rows, Dh] f32 matrix (row
+// stride `sl`) into `dst`, multiplied by `mul`; rows past `n` are zero.
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long sl, int r0, int n, int Dh,
+                                      float mul) {
   const int ld = pitch(Dh);
   for (int i = threadIdx.x; i < 64 * Dh; i += kThreads) {
     const int rr = i / Dh, d = i % Dh;
     const int gr = r0 + rr;
-    dst[rr * ld + d] = gr < n ? to_f32(src[gr * sl + d]) * mul : 0.f;
+    dst[rr * ld + d] = gr < n ? src[gr * sl + d] * mul : 0.f;
   }
 }
 
@@ -202,19 +234,20 @@ struct Strides {
   long long q[3], k[3], v[3], g[3], dq[3], dk[3], dv[3];  // (b, h, row)
 };
 
-// K2's work for rows [q0, q0 + 64) of batch row b, head h: dq, and delta
-// for K3. K2 runs it once per block, K4 once per batch row of its group.
+// The f32 K2's work for rows [q0, q0 + 64) of batch row b, head h: dq,
+// and delta for K3. K2 runs it once per block, K4 once per batch row of its
+// group.
 // With `bias` the scores are rebuilt with it; with `part` (K4) the tile's
 // ds is added into this group's partial dbias [L,S] of head h (stored,
 // not added, when `first`). Each (row, key) of `part` belongs to one
 // thread, the same one in every call.
-template <typename T>
 __device__ __forceinline__ void dq_tile(
-    float* smem, const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+    float* smem, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
     const float* __restrict__ bias, const float* __restrict__ g,
     const float* __restrict__ out, const float* __restrict__ lse,
-    float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ part,
+    float* __restrict__ delta, float* __restrict__ dq,
+    float* __restrict__ part,
     bool first, int b, int h, int q0, int H, int L, int S, int Dh,
     float scale, const Strides& st) {
   const int ld = pitch(Dh);
@@ -260,8 +293,8 @@ __device__ __forceinline__ void dq_tile(
 #pragma unroll
   for (int i = 0; i < kChunks * 4; ++i) acc[i] = 0.f;
 
-  const T* kb = k + b * st.k[0] + h * st.k[1];
-  const T* vb = v + b * st.v[0] + h * st.v[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
   const float* bias_row =
       (bias != nullptr && row_ok) ? bias + ((long long)h * L + row) * S
                                   : nullptr;
@@ -298,47 +331,46 @@ __device__ __forceinline__ void dq_tile(
   }
 
   if (row_ok) {
-    T* drow = dq + b * st.dq[0] + h * st.dq[1] + row * st.dq[2];
+    float* drow = dq + b * st.dq[0] + h * st.dq[1] + row * st.dq[2];
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int ch = sub + kTPR * i;
       if (ch < nchunk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) store(drow + 4 * ch + e, acc[4 * i + e] * scale);
+        for (int e = 0; e < 4; ++e) drow[4 * ch + e] = acc[4 * i + e] * scale;
       }
     }
   }
 }
 
-// K2: one block per (Q tile, head, batch row).
-template <typename T>
+// K2 for f32 inputs: one block per (Q tile, head, batch row).
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
                     const uint8_t* __restrict__ kv_mask,
                     const float* __restrict__ g, const float* __restrict__ out,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    T* __restrict__ dq, int H, int L, int S, int Dh,
+                    float* __restrict__ dq, int H, int L, int S, int Dh,
                     float scale, Strides st) {
   extern __shared__ float4 smem4[];
-  dq_tile<T>(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, nullptr, g,
+  dq_tile(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, nullptr, g,
              out, lse, delta, dq, nullptr, false, blockIdx.z, blockIdx.y,
              blockIdx.x * kBQ, H, L, S, Dh, scale, st);
 }
 
-// K4, first launch: one block per (Q tile, head, group of `group` batch
-// rows), K2's work for each row of the group in order, its ds summed into
-// part[group index, h] ([groups, H, L, S] f32).
-template <typename T>
+// K4 for f32 inputs, first launch: one block per (Q tile, head, group of
+// `group` batch rows), K2's work for each row of the group in order, its ds
+// summed into part[group index, h] ([groups, H, L, S] f32).
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
+flash_bwd_dq_dbias_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
                           const uint8_t* __restrict__ kv_mask,
                           const float* __restrict__ bias,
                           const float* __restrict__ g,
                           const float* __restrict__ out,
                           const float* __restrict__ lse,
-                          float* __restrict__ delta, T* __restrict__ dq,
+                          float* __restrict__ delta, float* __restrict__ dq,
                           float* __restrict__ part, int B, int H, int L,
                           int S, int Dh, float scale, int group,
                           Strides st) {
@@ -348,7 +380,7 @@ flash_bwd_dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b1 = min(B, b0 + group);
   float* my_part = part + ((long long)blockIdx.z * H + h) * L * S;
   for (int b = b0; b < b1; ++b)
-    dq_tile<T>(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, bias, g,
+    dq_tile(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, bias, g,
                out, lse, delta, dq, my_part, b == b0, b, h, blockIdx.x * kBQ,
                H, L, S, Dh, scale, st);
 }
@@ -463,8 +495,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (ch < nchunk) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          store(krow + 4 * ch + e, acc_k[4 * i + e] * scale);
-          store(vrow + 4 * ch + e, acc_v[4 * i + e]);
+          krow[4 * ch + e] = acc_k[4 * i + e] * scale;
+          vrow[4 * ch + e] = acc_v[4 * i + e];
         }
       }
     }
@@ -490,51 +522,37 @@ int check_shape(int B, int H, int L, int S, int Dh) {
   return 0;
 }
 
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* kv_mask, const void* g, const void* out,
-                      const void* lse, void* delta, void* dq, int B, int H,
-                      int L, int S, int Dh, float scale, const Strides& st,
-                      cudaStream_t stream) {
-  const size_t smem = smem_bytes(Dh, kBK);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+// The f32 kernels' dynamic shared memory is granted once per kernel, at
+// the largest head dim (this process's device); a launch asks for what its
+// head dim needs.
+template <typename Kernel>
+cudaError_t allow_f32_smem(Kernel kernel, int extra_floats) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(kDhMax, extra_floats));
+}
+
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* kv_mask, const void* g, const void* out,
+                          const void* lse, void* delta, void* dq, int B,
+                          int H, int L, int S, int Dh, float scale,
+                          const Strides& st, cudaStream_t stream) {
+  static const cudaError_t allowed = allow_f32_smem(flash_bwd_dq_kernel, kBK);
+  if (allowed != cudaSuccess) return allowed;
   const dim3 grid((L + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
+  flash_bwd_dq_kernel<<<grid, kThreads, smem_bytes(Dh, kBK), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const float*>(g), static_cast<const float*>(out),
       static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<T*>(dq), H, L, S, Dh, scale, st);
+      static_cast<float*>(dq), H, L, S, Dh, scale, st);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dq_dbias(const void* q, const void* k, const void* v,
-                            const void* kv_mask, const void* bias,
-                            const void* g, const void* out, const void* lse,
-                            void* delta, void* dq, void* part, void* dbias,
-                            int B, int H, int L, int S, int Dh, float scale,
-                            int group, const Strides& st,
-                            cudaStream_t stream) {
-  const size_t smem = smem_bytes(Dh, kBK);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_dbias_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int groups = (B + group - 1) / group;
-  const dim3 grid((L + kBQ - 1) / kBQ, H, groups);
-  flash_bwd_dq_dbias_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const float*>(bias), static_cast<const float*>(g),
-      static_cast<const float*>(out), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq),
-      static_cast<float*>(part), B, H, L, S, Dh, scale, group, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// K4's second launch, after either first launch: dbias from the groups'
+// partials, summed in order.
+cudaError_t sum_partials(const void* part, void* dbias, int groups, int H,
+                         int L, int S, cudaStream_t stream) {
   const long long n = (long long)H * L * S;
   flash_bwd_dbias_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                                stream>>>(static_cast<const float*>(part),
@@ -543,20 +561,45 @@ cudaError_t launch_dq_dbias(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_dq_dbias_f32(const void* q, const void* k, const void* v,
+                                const void* kv_mask, const void* bias,
+                                const void* g, const void* out,
+                                const void* lse, void* delta, void* dq,
+                                void* part, void* dbias, int B, int H, int L,
+                                int S, int Dh, float scale, int group,
+                                const Strides& st, cudaStream_t stream) {
+  static const cudaError_t allowed =
+      allow_f32_smem(flash_bwd_dq_dbias_kernel, kBK);
+  if (allowed != cudaSuccess) return allowed;
+  const int groups = (B + group - 1) / group;
+  const dim3 grid((L + kBQ - 1) / kBQ, H, groups);
+  flash_bwd_dq_dbias_kernel<<<grid, kThreads, smem_bytes(Dh, kBK), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
+      static_cast<const float*>(bias), static_cast<const float*>(g),
+      static_cast<const float*>(out), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(dq),
+      static_cast<float*>(part), B, H, L, S, Dh, scale, group, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(part, dbias, groups, H, L, S, stream);
+}
+
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* kv_mask, const void* bias,
                            const void* g, const void* lse, const void* delta,
                            void* dk, void* dv, int B, int H, int L, int S,
                            int Dh, float scale, const Strides& st,
                            cudaStream_t stream) {
-  const size_t smem = smem_bytes(Dh, 3 * kBQ);
-  auto kernel = bias != nullptr ? flash_bwd_dkv_kernel<true>
-                                : flash_bwd_dkv_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t allowed[2] = {
+      allow_f32_smem(flash_bwd_dkv_kernel<false>, 3 * kBQ),
+      allow_f32_smem(flash_bwd_dkv_kernel<true>, 3 * kBQ)};
+  const bool biased = bias != nullptr;
+  if (allowed[biased] != cudaSuccess) return allowed[biased];
+  auto kernel = biased ? flash_bwd_dkv_kernel<true>
+                       : flash_bwd_dkv_kernel<false>;
   const dim3 grid((S + kBK - 1) / kBK, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem_bytes(Dh, 3 * kBQ), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const float*>(bias), static_cast<const float*>(g),
@@ -884,54 +927,627 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---- K2 and K4 on the tensor cores (bf16 q/k/v) ----------------------------
+
+namespace tcq {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxRows = 64;             // query rows per block: K2, 4 warps
+constexpr int kBiasRows = 32;            // K4 (its bias tile and partial)
+constexpr int kMaxKeys = 32;             // keys per KV tile
+constexpr int kMaxBiasKeys = 512;        // K4's S: bias tile + partial fit
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Byte offsets of the shared-memory buffers (all 16-byte aligned).
+struct Layout {
+  int q, g32, o32, kv0, kv1, bias, part, lse, mask, total;
+};
+
+// Row pitch (floats) of K4's bias tile and partial: every key of the
+// tiles that cover S, plus 16 bytes.
+__host__ __device__ __forceinline__ int bias_pitch(int S, int bn) {
+  return (S + bn - 1) / bn * bn + 4;
+}
+
+__host__ __device__ __forceinline__ Layout layout(int dp, int rows, int bn,
+                                                  int S, bool dbias) {
+  const int row_bytes = (dp + 8) * 2;    // bf16 row padded by 16 bytes
+  const int f32_row = (dp + 4) * 4;      // f32 row padded by 16 bytes
+  const int kv_bytes = 2 * bn * row_bytes;  // a ring slot: K rows, V rows
+  const int bias_bytes = dbias ? rows * bias_pitch(S, bn) * 4 : 0;
+  Layout s;
+  s.q = 0;                                         // [rows][dp + 8] bf16
+  s.g32 = s.q + rows * row_bytes;                  // [rows][dp + 4] f32
+  s.o32 = s.g32 + rows * f32_row;                  // [rows][dp + 4] f32
+  s.kv0 = s.o32 + rows * f32_row;                  // ring slot 0
+  int next = s.kv0 + kv_bytes;
+  // K2 has one batch row a block: slot 1 lies over g32 and o32, which are
+  // free once the row's g fragments and delta are built. K4 fetches the
+  // next batch row's g and out into them, so its slot 1 is its own.
+  if (!dbias && kv_bytes <= 2 * rows * f32_row) {
+    s.kv1 = s.g32;
+  } else {
+    s.kv1 = next;
+    next += kv_bytes;
+  }
+  s.bias = next;                                   // [rows][bias_pitch] f32
+  s.part = s.bias + bias_bytes;                    // [rows][bias_pitch] f32
+  s.lse = s.part + bias_bytes;                     // [rows] f32
+  s.mask = s.lse + rows * 4;                       // [2][bn] kv mask bytes
+  s.total = s.mask + 2 * bn;
+  return s;
+}
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const uint8_t* kv_mask;
+  const float* bias;                     // K4 only
+  const float* g;
+  const float* out;
+  const float* lse;
+  float* delta;
+  bf16* dq;
+  float* part;                           // K4 only: [groups, H, L, S]
+  int B, H, L, S, Dh;
+  int rows;                              // query rows per block: 16, 32, 64
+  int bn;                                // keys per KV tile: 16 or 32
+  int group;                             // K4: batch rows per block
+  int split;                             // warps sharing 16 query rows
+  Layout lay;                            // shared memory, set by launch()
+  float scale;
+  Strides st;
+};
+
+// One block per (`rows` query rows, head, batch row) for K2, or per
+// (`rows` query rows, head, group of `group` batch rows) for K4, which
+// runs the rows of its group in order and sums their ds into its partial
+// dbias. Each warp owns 16 query rows. DP is the head dim the fragments
+// cover (64 or 128), Dh <= DP the real one.
+template <int DP, bool kDbias>
+__device__ __forceinline__ void dq_body(const Args& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int P = DP + 8;              // bf16 shared row pitch
+  constexpr int GP = DP + 4;             // f32 shared row pitch
+  constexpr int KC = DP / 16;            // k-steps of q.k^T and g.v^T
+  constexpr int DT = DP / 8;             // 8-column tiles of dq
+  // q is read from shared memory at each use (as fragments it would take
+  // 16 more registers: K4 spilled at 3 blocks an SM), so K4 fetches the
+  // next batch row's q once this row is done
+  const Layout& lay = a.lay;             // read from the parameters
+  bf16* qs = reinterpret_cast<bf16*>(smem + lay.q);
+  float* g32 = reinterpret_cast<float*>(smem + lay.g32);
+  float* o32 = reinterpret_cast<float*>(smem + lay.o32);
+  // ring slot 0 or 1 (a select, not an array in local memory)
+  auto ring = [&](int sl) {
+    return reinterpret_cast<bf16*>(smem + (sl ? lay.kv1 : lay.kv0));
+  };
+  float* bs = reinterpret_cast<float*>(smem + lay.bias);
+  float* ps = reinterpret_cast<float*>(smem + lay.part);
+  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
+  uint8_t* mask_s = smem + lay.mask;
+
+  const int h = blockIdx.y, q0 = blockIdx.x * a.rows;
+  const int b0 = kDbias ? blockIdx.z * a.group : blockIdx.z;
+  const int b1 = kDbias ? min(a.B, b0 + a.group) : b0 + 1;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int L = a.L, S = a.S, bn = a.bn, rows = a.rows;
+  const int BP = bias_pitch(S, bn);
+  const int dch = a.Dh / 8;              // real 16-byte chunks of a row
+  const Strides& st = a.st;
+  const int ntiles = (S + bn - 1) / bn;
+  // K4 over more than 16 keys splits each KV tile's keys between two warps
+  // of the same query rows (warp = rw + nrw * kh: rows rw, key half kh),
+  // which doubles its warps without growing the bias tile or the partial
+  const int split = blockDim.x / (rows * 2), nrw = rows / 16;
+  const int rw = warp % nrw, kh = warp / nrw;
+  const int lrow = rw * 16 + grp;        // this lane's rows: lrow, lrow + 8
+  // the kv mask comes in 4-byte pieces when its rows allow
+  const bool mask4 =
+      (reinterpret_cast<uintptr_t>(a.kv_mask) & 3) == 0 && (S & 3) == 0;
+
+  auto issue_q = [&](int b) {            // q rows past L, cols past Dh: 0
+    mma::stage_rows(qs, P, a.q + b * st.q[0] + h * st.q[1], st.q[2], q0,
+                    rows, L, a.Dh, DP);
+  };
+  auto issue_rows = [&](int b) {         // g, out and lse of the Q tile
+    const long long bh = (long long)b * a.H + h;
+    mma::stage_tile(g32, GP, a.g + b * st.g[0] + h * st.g[1], st.g[2], q0,
+                    rows, L, 0, DP, a.Dh, true);
+    mma::stage_tile(o32, GP, a.out + bh * L * a.Dh, a.Dh, q0, rows, L, 0, DP,
+                    a.Dh, true);
+    for (int i = tid; i < rows; i += nthr) {
+      const bool ok = q0 + i < L;
+      mma::cp_async4(lse_s + i, ok ? a.lse + bh * L + q0 + i : a.lse, ok);
+    }
+  };
+  auto issue_kv = [&](int b, int t, int sl) {  // KV tile t into slot sl
+    const int kv0 = t * bn;
+    bf16* ks = ring(sl);
+    mma::stage_rows(ks, P, a.k + b * st.k[0] + h * st.k[1], st.k[2], kv0, bn,
+                    S, a.Dh, DP);
+    mma::stage_rows(ks + bn * P, P, a.v + b * st.v[0] + h * st.v[1],
+                    st.v[2], kv0, bn, S, a.Dh, DP);
+    // the tile's kv mask bytes (0 past S): nonzero = a real key
+    uint8_t* ms = mask_s + sl * bn;
+    const uint8_t* mrow = a.kv_mask + (long long)b * S;
+    if (mask4) {
+      for (int i = 4 * tid; i < bn; i += 4 * nthr) {
+        const bool ok = kv0 + i < S;
+        mma::cp_async4(ms + i, ok ? mrow + kv0 + i : a.kv_mask, ok);
+      }
+    } else {
+      for (int i = tid; i < bn; i += nthr)
+        ms[i] = kv0 + i < S ? mrow[kv0 + i] : 0;
+    }
+  };
+
+  issue_q(b0);
+  issue_rows(b0);
+  issue_kv(b0, 0, 0);
+  if constexpr (kDbias) {
+    // the block's bias tile, once for every batch row of the group (16-byte
+    // pieces when rows allow); the partial starts at 0
+    mma::stage_tile(bs, BP, a.bias + (long long)h * L * S, S, q0, rows, L, 0,
+                    BP - 4, S, (S & 3) == 0);
+    for (int i = tid; i < rows * BP; i += nthr) ps[i] = 0.f;
+  }
+  mma::cp_async_commit();
+
+  uint32_t gh[KC][4], gl[KC][4];         // g as hi + lo A fragments
+  int it = 0;                            // KV tiles consumed: slot it & 1
+  for (int b = b0; b < b1; ++b) {
+    const long long bh = (long long)b * a.H + h;
+    float dq[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+    float row_lse[2], row_delta[2];
+    bool live[2];
+
+    for (int t = 0; t < ntiles; ++t, ++it) {
+      const int sl = it & 1;
+      mma::cp_async_wait_all();
+      __syncthreads();                   // tile landed; the last consumed
+      // the next KV tile (this row's, or the next row's first) overlaps
+      // this tile's compute; K4 issues it at once, K2 (whose second slot
+      // lies over g32 and o32) once the row's fragments are built
+      auto issue_next = [&] {
+        if (t + 1 < ntiles)
+          issue_kv(b, t + 1, sl ^ 1);
+        else if (kDbias && b + 1 < b1)
+          issue_kv(b + 1, 0, sl ^ 1);
+      };
+      if constexpr (kDbias) issue_next();
+      if (t == 0) {
+        // g to a hi + lo pair of bf16 fragments, once per element, and
+        // delta = g.out in f32 from the same elements: the four lanes of a
+        // quad hold rows lrow and lrow + 8 whole
+        float dsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // a_j: row + 8 (j & 1), col + 8 (j >> 1)
+            const int r = lrow + 8 * (j & 1);
+            const int c = kc * 16 + 2 * tq + 8 * (j >> 1);
+            const float2 x = *reinterpret_cast<const float2*>(g32 + r * GP + c);
+            const float2 y = *reinterpret_cast<const float2*>(o32 + r * GP + c);
+            dsum[j & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, dsum[j & 1]));
+            mma::split_bf16(x.x, x.y, gh[kc][j], gl[kc][j]);
+          }
+        }
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          dsum[hi] += __shfl_xor_sync(0xffffffffu, dsum[hi], 1);
+          dsum[hi] += __shfl_xor_sync(0xffffffffu, dsum[hi], 2);
+          const int row = q0 + lrow + 8 * hi;
+          row_delta[hi] = dsum[hi];
+          row_lse[hi] = lse_s[lrow + 8 * hi];
+          // a row past L or a fully masked row adds nothing to dq or dbias
+          live[hi] = row < L && row_lse[hi] > kMaskedRowLse;
+          if (kh == 0 && tq == 0 && row < L)
+            a.delta[bh * L + row] = dsum[hi];
+        }
+        __syncthreads();                 // every warp's g, out, lse read
+        if constexpr (kDbias) {          // the next batch row's, but q
+          if (b + 1 < b1) issue_rows(b + 1);
+        }
+      }
+      if constexpr (!kDbias) issue_next();
+      mma::cp_async_commit();
+
+      const bf16* kt = ring(sl);
+      const bf16* vt = kt + bn * P;
+      const int kv0 = t * bn;
+      // 16 keys at a time: s = q.k^T and dp = g.v^T (16 rows x 16 keys),
+      // then p and ds, then dq += ds.k
+#pragma unroll
+      for (int c = 0; c < kMaxKeys / 16; ++c) {
+        if (c * 16 >= bn) break;
+        if (split == 2 && c != kh) continue;  // the other warp's keys
+        // this lane's mask bytes: keys 2 tq, 2 tq + 1 of 8-key tile n
+        const uint8_t* mc = mask_s + sl * bn + c * 16 + 2 * tq;
+        const uchar2 mk[2] = {*reinterpret_cast<const uchar2*>(mc),
+                              *reinterpret_cast<const uchar2*>(mc + 8)};
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+
+        const int koff = (c * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                         ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t qa[4], kb[4], vb[4];
+          mma::ldmatrix_x4(qa, qs + (rw * 16 + (lane & 15)) * P + kc * 16 +
+                                   (lane >> 4) * 8);
+          mma::ldmatrix_x4(kb, kt + koff + kc * 16);
+          mma::mma_bf16(s[0], qa, kb[0], kb[1]);
+          mma::mma_bf16(s[1], qa, kb[2], kb[3]);
+          mma::ldmatrix_x4(vb, vt + koff + kc * 16);
+          mma::mma_bf16(dp[0], gh[kc], vb[0], vb[1]);
+          mma::mma_bf16(dp[1], gh[kc], vb[2], vb[3]);
+          mma::mma_bf16(dp[0], gl[kc], vb[0], vb[1]);
+          mma::mma_bf16(dp[1], gl[kc], vb[2], vb[3]);
+        }
+        // element (n, e): tile row lrow + 8 * (e >> 1), key
+        // kv0 + c * 16 + n * 8 + 2 * tq + (e & 1). The mask test lives
+        // here, once per tile element (keys past S read 0).
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            // K4: this lane's bias pair (row lrow + 8 hi, keys 2 tq,
+            // 2 tq + 1 of 8-key tile n)
+            float2 bias2 = make_float2(0.f, 0.f);
+            if constexpr (kDbias)
+              bias2 = *reinterpret_cast<const float2*>(
+                  bs + (lrow + 8 * hi) * BP + kv0 + c * 16 + n * 8 + 2 * tq);
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int e = 2 * hi + e1;
+              const bool ok = live[hi] && (e1 ? mk[n].y : mk[n].x) != 0;
+              const float x = s[n][e] * a.scale + (e1 ? bias2.y : bias2.x);
+              const float p = exp2f((x - row_lse[hi]) * kLog2e);
+              s[n][e] = ok ? p * (dp[n][e] - row_delta[hi]) : 0.f;
+            }
+          }
+        }
+        // dbias from ds in f32; each (row, key) of the partial has this one
+        // thread as its writer, in batch-row order
+        if constexpr (kDbias) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+              float2* pp = reinterpret_cast<float2*>(
+                  ps + (lrow + 8 * hi) * BP + kv0 + c * 16 + n * 8 + 2 * tq);
+              const float2 old = *pp;
+              *pp = make_float2(old.x + s[n][2 * hi], old.y + s[n][2 * hi + 1]);
+            }
+        }
+        // ds as A fragments, a hi + lo pair of bf16 (rounded once, dq left
+        // the tolerance where attention is peaked:
+        // tests/test_torch_flash_rounding.py)
+        uint32_t da[4], dl[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = j >> 1, e = (j & 1) * 2;
+          mma::split_bf16(s[n][e], s[n][e + 1], da[j], dl[j]);
+        }
+        const int toff = (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                         (lane >> 4) * 8;
+#pragma unroll
+        for (int d2 = 0; d2 < DT / 2; ++d2) {
+          uint32_t kb[4];
+          mma::ldmatrix_x4_trans(kb, kt + toff + d2 * 16);
+          mma::mma_bf16(dq[2 * d2], da, kb[0], kb[1]);
+          mma::mma_bf16(dq[2 * d2 + 1], da, kb[2], kb[3]);
+          mma::mma_bf16(dq[2 * d2], dl, kb[0], kb[1]);
+          mma::mma_bf16(dq[2 * d2 + 1], dl, kb[2], kb[3]);
+        }
+      }
+    }
+
+    // scale * dq through shared memory, then 16-byte stores into q's
+    // strides: K2 through this warp's own q rows (no other warp reads
+    // them), K4 through the last KV tile's slot once every warp is done
+    // with it (the q buffer may hold the next row's q). With the keys
+    // split, the second warp's dq goes through the slot in f32 first and
+    // is added to the first's, in that order.
+    bf16* stage;
+    if constexpr (kDbias) {
+      bf16* last = ring((it - 1) & 1);
+      __syncthreads();
+      if (split == 2) {
+        float* comb = reinterpret_cast<float*>(last) + rw * DT * 4 * 32;
+        if (kh == 1) {
+#pragma unroll
+          for (int d = 0; d < DT; ++d)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) comb[(d * 4 + e) * 32 + lane] = dq[d][e];
+        }
+        __syncthreads();
+        if (kh == 0) {
+#pragma unroll
+          for (int d = 0; d < DT; ++d)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dq[d][e] += comb[(d * 4 + e) * 32 + lane];
+        }
+        __syncthreads();                 // comb read before it is staged over
+      }
+      stage = last + rw * 16 * P;
+    } else {
+      __syncwarp();
+      stage = qs + rw * 16 * P;
+    }
+    if (kh == 0) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int c = d * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(stage + grp * P + c) =
+            mma::pack_bf16(dq[d][0] * a.scale, dq[d][1] * a.scale);
+        *reinterpret_cast<uint32_t*>(stage + (grp + 8) * P + c) =
+            mma::pack_bf16(dq[d][2] * a.scale, dq[d][3] * a.scale);
+      }
+      __syncwarp();
+      bf16* dqb = a.dq + b * st.dq[0] + h * st.dq[1];
+      for (int i = lane; i < 16 * dch; i += 32) {
+        const int r = i / dch, c = i % dch;
+        const int row = q0 + rw * 16 + r;
+        if (row < L)
+          *reinterpret_cast<uint4*>(dqb + row * st.dq[2] + c * 8) =
+              *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
+      }
+    }
+    if constexpr (kDbias) {              // q was read to the row's end
+      if (b + 1 < b1) {
+        issue_q(b + 1);
+        mma::cp_async_commit();
+      }
+    }
+  }
+
+  if constexpr (kDbias) {                // the partial, once per block
+    __syncthreads();
+    float* pg = a.part + ((long long)blockIdx.z * a.H + h) * L * S;
+    const int nr = min(rows, L - q0);
+    if ((S & 3) == 0) {
+      const int per_row = S / 4;
+      for (int i = tid; i < nr * per_row; i += nthr) {
+        const int r = i / per_row, c = i % per_row * 4;
+        *reinterpret_cast<float4*>(pg + (long long)(q0 + r) * S + c) =
+            *reinterpret_cast<const float4*>(ps + r * BP + c);
+      }
+    } else {
+      for (int i = tid; i < nr * S; i += nthr) {
+        const int r = i / S, c = i % S;
+        pg[(long long)(q0 + r) * S + c] = ps[r * BP + c];
+      }
+    }
+  }
+}
+
+// K2 for bf16 q/k/v. 4 blocks of 4 warps fit an SM at a head dim of 64
+// (54 KB of shared memory, at most 128 registers a thread).
+template <int DP>
+__global__ void __launch_bounds__(kMaxRows * 2, DP <= 64 ? 4 : 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ Args a) {
+  dq_body<DP, false>(a);
+}
+
+// K4 for bf16 q/k/v, first launch (the second is flash_bwd_dbias_sum_kernel).
+// 3 blocks of 4 warps fit an SM at mT5's shape (74 KB of shared memory, at
+// most 168 registers a thread).
+template <int DP>
+__global__ void __launch_bounds__(kBiasRows * 4, DP <= 64 ? 3 : 1)
+flash_bwd_dq_dbias_tc_kernel(const __grid_constant__ Args a) {
+  dq_body<DP, true>(a);
+}
+
+// The largest shared memory a launch of the instantiation can ask for,
+// granted once per instantiation (this process's device).
+template <int DP, bool kDbias>
+cudaError_t allow_smem() {
+  static const cudaError_t err = [] {
+    int most = 0;
+    for (int rows = 16; rows <= (kDbias ? kBiasRows : kMaxRows); rows *= 2)
+      for (int bn = 16; bn <= kMaxKeys; bn *= 2)
+      {
+        const int bytes = layout(DP, rows, bn, kMaxBiasKeys, kDbias).total;
+        most = bytes > most ? bytes : most;
+      }
+    auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP>
+                         : flash_bwd_dq_tc_kernel<DP>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    // all of the SM's unified memory that blocks can use as shared memory
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) cudaGetLastError();  // not left for a launch
+    return e;
+  }();
+  return err;
+}
+
+// Blocks of the instantiation resident on one SM at its launch for `a`
+// (0 when the query fails).
+template <int DP, bool kDbias>
+int blocks_per_sm(const Args& a) {
+  if (allow_smem<DP, kDbias>() != cudaSuccess) return 0;
+  int n = 0;
+  auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP>
+                       : flash_bwd_dq_tc_kernel<DP>;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, a.rows * 2 * a.split,
+          layout(DP, a.rows, a.bn, a.S, kDbias).total) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int DP, bool kDbias>
+cudaError_t launch(Args a, int blocks_z, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<DP, kDbias>();
+  if (err != cudaSuccess) return err;
+  a.lay = layout(DP, a.rows, a.bn, a.S, kDbias);
+  const int smem = a.lay.total;
+  const dim3 grid((a.L + a.rows - 1) / a.rows, a.H, blocks_z);
+  auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP>
+                       : flash_bwd_dq_tc_kernel<DP>;
+  kernel<<<grid, a.rows * 2 * a.split, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The arguments K2 and K4 share; the Q tile from L (16, 32 or 64 rows; 32
+// at most with the bias, whose tile and partial would otherwise halve the
+// blocks an SM holds), the KV tile from S (one 16-key step at the query
+// tower's S=16), and K4's two warps a 16 rows over 32-key tiles.
+Args make_args(const void* q, const void* k, const void* v,
+               const void* kv_mask, const void* bias, const void* g,
+               const void* out, const void* lse, void* delta, void* dq,
+               void* part, int B, int H, int L, int S, int Dh, float scale,
+               int group, const long long* strides) {
+  Args a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  a.bias = static_cast<const float*>(bias);
+  a.g = static_cast<const float*>(g);
+  a.out = static_cast<const float*>(out);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<bf16*>(dq);
+  a.part = static_cast<float*>(part);
+  a.B = B;
+  a.H = H;
+  a.L = L;
+  a.S = S;
+  a.Dh = Dh;
+  const int most = bias != nullptr ? kBiasRows : kMaxRows;
+  a.rows = L <= 16 ? 16 : (L <= 32 || most == 32 ? 32 : kMaxRows);
+  a.bn = S <= 16 ? 16 : kMaxKeys;
+  a.split = bias != nullptr && a.bn > 16 ? 2 : 1;
+  a.group = group;
+  a.scale = scale;
+  a.st = unpack(strides);
+  return a;
+}
+
+}  // namespace tcq
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each returns the CUDA error
 // code of its launch (0 = launched). `strides` holds 21 element strides:
 // (batch, head, row) of q, k, v, g, dq, dk, dv in that order.
 
-// K2: dq, and delta [B,H,L] f32 for K3.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* kv_mask, const void* g,
-                            const void* out, const void* lse, void* delta,
-                            void* dq, int B, int H, int L, int S, int Dh,
-                            float scale, int is_bf16,
-                            const long long* strides, void* stream) {
+// K2 for bf16 q/k/v, on the tensor cores: dq (bf16), and delta [B,H,L]
+// f32 for K3. q, k, v, g and dq must be 16-byte aligned, and so must each
+// of their strides (the wrapper makes a view that is not contiguous first).
+extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                 const void* kv_mask, const void* g,
+                                 const void* out, const void* lse,
+                                 void* delta, void* dq, int B, int H, int L,
+                                 int S, int Dh, float scale,
+                                 const long long* strides, void* stream) {
   const int bad = check_shape(B, H, L, S, Dh);
   if (bad) return bad;
-  const Strides st = unpack(strides);
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, nullptr, g, out, lse,
+                                     delta, dq, nullptr, B, H, L, S, Dh,
+                                     scale, 1, strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? launch_dq<__nv_bfloat16>(q, k, v, kv_mask, g, out, lse, delta, dq, B,
-                                 H, L, S, Dh, scale, st, s)
-      : launch_dq<float>(q, k, v, kv_mask, g, out, lse, delta, dq, B, H, L,
-                         S, Dh, scale, st, s));
+  return (int)(Dh <= 64 ? tcq::launch<64, false>(a, B, s)
+                        : tcq::launch<128, false>(a, B, s));
 }
 
-// K4: dq, delta [B,H,L] f32 for K3, and dbias [H,L,S] f32, through the
-// scratch `part` [ceil(B / group), H, L, S] f32.
-extern "C" int flash_bwd_dq_dbias(const void* q, const void* k,
-                                  const void* v, const void* kv_mask,
-                                  const void* bias, const void* g,
-                                  const void* out, const void* lse,
-                                  void* delta, void* dq, void* part,
-                                  void* dbias, int B, int H, int L, int S,
-                                  int Dh, float scale, int is_bf16,
-                                  int group, const long long* strides,
-                                  void* stream) {
+// K2 for f32 q/k/v, on the CUDA cores: dq (f32) and delta.
+extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                const void* kv_mask, const void* g,
+                                const void* out, const void* lse, void* delta,
+                                void* dq, int B, int H, int L, int S, int Dh,
+                                float scale, const long long* strides,
+                                void* stream) {
+  const int bad = check_shape(B, H, L, S, Dh);
+  if (bad) return bad;
+  return (int)launch_dq_f32(q, k, v, kv_mask, g, out, lse, delta, dq, B, H,
+                            L, S, Dh, scale, unpack(strides),
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K4 for bf16 q/k/v, on the tensor cores: dq (bf16), delta [B,H,L] f32 for
+// K3, and dbias [H,L,S] f32, through the scratch `part` [ceil(B / group),
+// H, L, S] f32. Alignment as K2's; S at most tcq::kMaxBiasKeys (the
+// wrapper sends a longer S to the f32 kernel).
+extern "C" int flash_bwd_dq_dbias_bf16(const void* q, const void* k,
+                                       const void* v, const void* kv_mask,
+                                       const void* bias, const void* g,
+                                       const void* out, const void* lse,
+                                       void* delta, void* dq, void* part,
+                                       void* dbias, int B, int H, int L,
+                                       int S, int Dh, float scale, int group,
+                                       const long long* strides,
+                                       void* stream) {
+  const int bad = check_shape(B, H, L, S, Dh);
+  if (bad) return bad;
+  if (S > tcq::kMaxBiasKeys) return (int)cudaErrorInvalidValue;
+  if (group <= 0 || (B + group - 1) / group > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, g, out, lse,
+                                     delta, dq, part, B, H, L, S, Dh, scale,
+                                     group, strides);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int groups = (B + group - 1) / group;
+  const cudaError_t err = Dh <= 64 ? tcq::launch<64, true>(a, groups, s)
+                                   : tcq::launch<128, true>(a, groups, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_partials(part, dbias, groups, H, L, S, s);
+}
+
+// K4 for f32 q/k/v, on the CUDA cores: dq (f32), delta and dbias, through
+// `part` as above.
+extern "C" int flash_bwd_dq_dbias_f32(const void* q, const void* k,
+                                      const void* v, const void* kv_mask,
+                                      const void* bias, const void* g,
+                                      const void* out, const void* lse,
+                                      void* delta, void* dq, void* part,
+                                      void* dbias, int B, int H, int L, int S,
+                                      int Dh, float scale, int group,
+                                      const long long* strides,
+                                      void* stream) {
   const int bad = check_shape(B, H, L, S, Dh);
   if (bad) return bad;
   if (group <= 0 || (B + group - 1) / group > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const Strides st = unpack(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? launch_dq_dbias<__nv_bfloat16>(q, k, v, kv_mask, bias, g, out, lse,
-                                       delta, dq, part, dbias, B, H, L, S,
-                                       Dh, scale, group, st, s)
-      : launch_dq_dbias<float>(q, k, v, kv_mask, bias, g, out, lse, delta,
-                               dq, part, dbias, B, H, L, S, Dh, scale, group,
-                               st, s));
+  return (int)launch_dq_dbias_f32(q, k, v, kv_mask, bias, g, out, lse, delta,
+                                  dq, part, dbias, B, H, L, S, Dh, scale,
+                                  group, unpack(strides),
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Blocks an SM holds of the bf16 K2 (`dbias` 0) or K4 (1) at this shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 when the query fails).
+extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int L, int S,
+                                             int Dh) {
+  if (check_shape(1, 1, L, S, Dh) || (dbias && S > tcq::kMaxBiasKeys))
+    return 0;
+  const long long strides[21] = {};
+  const tcq::Args a = tcq::make_args(nullptr, nullptr, nullptr, nullptr,
+                                     dbias ? strides : nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, 1, 1, L, S, Dh, 1.f, 1,
+                                     strides);
+  if (dbias)
+    return Dh <= 64 ? tcq::blocks_per_sm<64, true>(a)
+                    : tcq::blocks_per_sm<128, true>(a);
+  return Dh <= 64 ? tcq::blocks_per_sm<64, false>(a)
+                  : tcq::blocks_per_sm<128, false>(a);
 }
 
 // K3 for bf16 q/k/v, on the tensor cores: dk and dv (bf16), reading the

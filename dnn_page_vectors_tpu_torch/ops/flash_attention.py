@@ -23,12 +23,15 @@ backward of the segment path is slice 4 of the port: the forward takes
 
 Routing is by the tensors' device: a CUDA tensor goes to a kernel (or
 the wrapper raises), a CPU tensor goes to the plain version
-``reference_forward`` / ``reference_backward``. On the card K1 and K3 have
-two kernels each, chosen by the dtype of q, k and v: bf16 (every launch
-of the serving and training paths) takes the tensor-core kernel
-(``mma.sync``, bf16 tiles filled by ``cp.async``), f32 the CUDA-core one,
-whose f32 arithmetic the f32 tolerances need. Nothing catches a kernel
-failure and carries on.
+``reference_forward`` / ``reference_backward``. On the card each of K1,
+K2, K3 and K4 has two kernels, chosen by the dtype of q, k and v: bf16
+(every launch of the serving and training paths) takes the tensor-core
+kernel (``mma.sync``, bf16 tiles filled by ``cp.async``), f32 the
+CUDA-core one, whose f32 arithmetic the f32 tolerances need. (One shape
+rule: the bf16 K4 holds a [Q tile, S] bias tile and partial dbias in
+shared memory, so a bf16 backward with a bias over more than
+``MAX_TC_DBIAS_KEYS`` keys runs the f32 K4 on f32 copies of q, k and v.)
+Nothing catches a kernel failure and carries on.
 """
 from __future__ import annotations
 
@@ -48,19 +51,25 @@ _BWD_SOURCE = "flash_bwd.cu"
 # batch rows whose ds one K4 block sums into its partial dbias (K4's
 # second launch sums the partials in order)
 DBIAS_GROUP = 8
+# the longest S the bf16 K4 takes (csrc/flash_bwd.cu, tcq::kMaxBiasKeys)
+MAX_TC_DBIAS_KEYS = 512
 
 # Launches of K1, K2, K3 and K4 since the last reset: each wrapper adds one
 # where it launches its kernel and nowhere else. chip_smoke.py sets them to
-# 0 before driving a path and reads them after. K1 and K3 also count by
-# kernel: `_tc` the bf16 tensor-core kernel, `_f32` the CUDA-core one.
+# 0 before driving a path and reads them after. Each also counts by kernel:
+# `_tc` the bf16 tensor-core kernel, `_f32` the CUDA-core one.
 launches = 0
 launches_tc = 0
 launches_f32 = 0
 dq_launches = 0
+dq_launches_tc = 0
+dq_launches_f32 = 0
 dkv_launches = 0
 dkv_launches_tc = 0
 dkv_launches_f32 = 0
 dq_dbias_launches = 0
+dq_dbias_launches_tc = 0
+dq_dbias_launches_f32 = 0
 
 
 def reference_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,12 +254,15 @@ def _bwd_library():
     from dnn_page_vectors_tpu_torch.ops.build import load_library
     lib = load_library(_BWD_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    tail = [I, I, I, I, I, ctypes.c_float, I]
+    # (B, H, L, S, Dh, scale), then K4's group
+    tail = [I, I, I, I, I, ctypes.c_float]
     strides = ctypes.POINTER(ctypes.c_longlong)
-    for fn, nptr, tail_ in ((lib.flash_bwd_dq, 9, tail),
-                            (lib.flash_bwd_dkv_bf16, 10, tail[:-1]),
-                            (lib.flash_bwd_dkv_f32, 10, tail[:-1]),
-                            (lib.flash_bwd_dq_dbias, 12, tail + [I])):
+    for fn, nptr, tail_ in ((lib.flash_bwd_dq_bf16, 9, tail),
+                            (lib.flash_bwd_dq_f32, 9, tail),
+                            (lib.flash_bwd_dkv_bf16, 10, tail),
+                            (lib.flash_bwd_dkv_f32, 10, tail),
+                            (lib.flash_bwd_dq_dbias_bf16, 12, tail + [I]),
+                            (lib.flash_bwd_dq_dbias_f32, 12, tail + [I])):
         if fn.argtypes is None:
             fn.argtypes = [P] * nptr + tail_ + [strides, P]
             fn.restype = ctypes.c_int
@@ -258,11 +270,9 @@ def _bwd_library():
 
 
 def _bwd_common(q, k):
-    """(B, H, L, S, Dh, scale, is_bf16) as K2 and K4 take them; K3 takes
-    all but the last."""
+    """(B, H, L, S, Dh, scale) as K2, K3 and K4 take them."""
     B, H, L, Dh = q.shape
-    return (B, H, L, k.shape[2], Dh, 1.0 / math.sqrt(Dh),
-            int(q.dtype == torch.bfloat16))
+    return B, H, L, k.shape[2], Dh, 1.0 / math.sqrt(Dh)
 
 
 def _bwd_strides(*tensors):
@@ -274,9 +284,13 @@ def launch_dq(q, k, v, kv_mask, g, out, lse
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on the current stream (CUDA tensors only, as ``flash_backward``
     passes them): (dq in q's dtype, laid out like q; delta [B,H,L] f32 for
-    K3)."""
-    global dq_launches
+    K3). bf16 q/k/v take the tensor-core kernel (g is split into bf16 hi
+    and lo halves as it is staged), f32 the CUDA-core one."""
+    global dq_launches, dq_launches_tc, dq_launches_f32
     lib = _bwd_library()
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        q, k, v, g = (_aligned16(t) for t in (q, k, v, g))
     B, H, L = q.shape[:3]
     mask_u8 = _mask_bytes(kv_mask)
     out, lse = out.contiguous(), lse.contiguous()
@@ -285,15 +299,19 @@ def launch_dq(q, k, v, kv_mask, g, out, lse
     dq = torch.empty_like(q)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     strides = _bwd_strides(q, k, v, g, dq, k, v)
-    err = lib.flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-        g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), *_bwd_common(q, k), strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    fn = lib.flash_bwd_dq_bf16 if tensor_cores else lib.flash_bwd_dq_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+             g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), *_bwd_common(q, k), strides,
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error "
                            f"{err}")
     dq_launches += 1
+    if tensor_cores:
+        dq_launches_tc += 1
+    else:
+        dq_launches_f32 += 1
     return dq, delta
 
 
@@ -303,32 +321,46 @@ def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse
     laid out like q; delta [B,H,L] f32 for K3; dbias [H,L,S] f32). Its
     first launch writes one partial dbias per group of DBIAS_GROUP batch
     rows, its second sums the partials in order: no atomics, so dbias is
-    bitwise equal from run to run."""
-    global dq_dbias_launches
+    bitwise equal from run to run. bf16 q/k/v with S up to
+    MAX_TC_DBIAS_KEYS take the tensor-core kernel; f32 q/k/v, and bf16
+    ones over more keys (as f32 copies, dq rounded back to bf16), the
+    CUDA-core one."""
+    global dq_dbias_launches, dq_dbias_launches_tc, dq_dbias_launches_f32
     lib = _bwd_library()
     B, H, L = q.shape[:3]
     S = k.shape[2]
+    dtype = q.dtype
+    tensor_cores = dtype == torch.bfloat16 and S <= MAX_TC_DBIAS_KEYS
+    if tensor_cores:
+        q, k, v, g = (_aligned16(t) for t in (q, k, v, g))
+    elif dtype == torch.bfloat16:
+        q, k, v = q.float(), k.float(), v.float()
+    dq = torch.empty_like(q)
     mask_u8 = _mask_bytes(kv_mask)
     out, lse = out.contiguous(), lse.contiguous()
     bias_f = bias.float().contiguous()
-    dq = torch.empty_like(q)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     groups = -(-B // DBIAS_GROUP)
     part = torch.empty((groups, H, L, S), dtype=torch.float32,
                        device=q.device)
     dbias = torch.empty((H, L, S), dtype=torch.float32, device=q.device)
     strides = _bwd_strides(q, k, v, g, dq, k, v)
-    err = lib.flash_bwd_dq_dbias(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-        bias_f.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-        *_bwd_common(q, k), DBIAS_GROUP, strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    fn = (lib.flash_bwd_dq_dbias_bf16 if tensor_cores
+          else lib.flash_bwd_dq_dbias_f32)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+             bias_f.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dq.data_ptr(), part.data_ptr(),
+             dbias.data_ptr(), *_bwd_common(q, k), DBIAS_GROUP, strides,
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_dbias kernel launch failed: CUDA "
                            f"error {err}")
     dq_dbias_launches += 1
-    return dq, delta, dbias
+    if tensor_cores:
+        dq_dbias_launches_tc += 1
+    else:
+        dq_dbias_launches_f32 += 1
+    return dq.to(dtype), delta, dbias
 
 
 def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None
@@ -352,7 +384,7 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
              None if bias_f is None else bias_f.data_ptr(),
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), *_bwd_common(q, k)[:-1], strides,
+             dv.data_ptr(), *_bwd_common(q, k), strides,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "

@@ -29,7 +29,11 @@ bf16 q/k/v with ragged padding:
 * ``k1_mt5_ms``, ``k4_ms``, ``k3_bias_ms``: K1, ``launch_dq_dbias`` (K4)
   and the biased ``launch_dkv`` at mT5's page shape, B=512, H=12,
   L=S=128, Dh=64, with the f32 relative-position bias [H, L, S] and
-  strided views.
+  strided views;
+* ``k2_query_ms``: K2 where BERT-mini's query tower runs it in training,
+  B=8192, H=4, L=S=16, Dh=64;
+* ``k4_query_ms``: K4 where mT5's query tower runs it, B=512, H=12,
+  L=S=16, Dh=64, with the bias.
 
 Prints one JSON line per tree, the card's name and power limit
 (nvidia-smi), and a summary line; ``--out`` also writes all of it as JSON.
@@ -45,7 +49,10 @@ import sys
 BERT = dict(B=8192, H=4, L=64, Dh=64)
 BERT_EMBED = dict(B=512, H=4, L=64, Dh=64)
 MT5 = dict(B=512, H=12, L=128, Dh=64)
-KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms")
+BERT_QUERY = dict(B=8192, H=4, L=16, Dh=64)
+MT5_QUERY = dict(B=512, H=12, L=16, Dh=64)
+KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms",
+        "k2_query_ms", "k4_query_ms")
 
 
 def _event_ms(fn, iters: int = 50) -> float:
@@ -126,8 +133,19 @@ def worker(tree: str) -> dict:
              lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
         timed("k3_bias_ms",
              lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta, bias))
+        del q, k, v, g, out, lse, delta
+        q, k, v, g, mask, _ = _inputs(**BERT_QUERY, gen=gen, device=device)
+        out, lse = fa.flash_forward(q, k, v, mask)
+        out = out.contiguous()
+        timed("k2_query_ms", lambda: fa.launch_dq(q, k, v, mask, g, out, lse))
+        q, k, v, g, mask, bias = _inputs(**MT5_QUERY, gen=gen, device=device,
+                                         bias=True)
+        out, lse = fa.flash_forward(q, k, v, mask, bias)
+        timed("k4_query_ms",
+              lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
     rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
-                     "mt5_page": MT5}
+                     "mt5_page": MT5, "bert_query": BERT_QUERY,
+                     "mt5_query": MT5_QUERY}
     rec["device"] = torch.cuda.get_device_name(0)
     return rec
 

@@ -1,6 +1,6 @@
 """A CPU rehearsal of the numerics of the port's tensor-core flash kernels
-(``csrc/flash_fwd.cu``'s bf16 K1 and ``csrc/flash_bwd.cu``'s bf16 K3),
-held against the JAX package.
+(``csrc/flash_fwd.cu``'s bf16 K1 and ``csrc/flash_bwd.cu``'s bf16 K2, K3
+and K4), held against the JAX package.
 
 The kernels cannot run here, so this file emulates them in plain PyTorch,
 rounding exactly where they round and accumulating in float32 where they
@@ -24,6 +24,13 @@ do (``mma.sync`` takes bf16 operands and sums in f32):
   test_k3_needs_hi_lo_pairs), and the rounding of p adds up over the
   query rows in dv (at BERT-mini's training shape on the card, four dv
   elements of 134 M fell outside the tolerance).
+* K2 (K4 with a bias): p rebuilt in f32 from the saved lse; delta =
+  sum(g * out) in f32 from the f32 g; g as a hi + lo pair in dp =
+  (g_hi + g_lo).v^T; ds = p (dp - delta) in f32; dq = scale * (ds_hi +
+  ds_lo).k, summed over 16-key steps in order; K4's dbias from the f32 ds,
+  summed in batch-row order inside each group of DBIAS_GROUP rows and then
+  over the groups in order. With g or ds rounded once, dq leaves the
+  tolerance where attention is peaked (test_k2_needs_hi_lo_pairs).
 
 The emulations are held against ``reference_attention`` and ``jax.grad``
 of it, and against the Pallas kernels in interpret mode (as
@@ -128,10 +135,49 @@ def emulate_k3(q, k, v, kv_mask, g, lse, delta, bias=None, split=True):
     return dk, dv
 
 
-def _mk(B, H, L, S, Dh=64, pad_tail=5, bias=False, seed=0):
+def emulate_k2(q, k, v, kv_mask, g, out, lse, bias=None, split_g=True,
+               split_ds=True):
+    """(dq, delta, dbias) in f32 as the bf16 K2 computes them, or K4 with a
+    bias (dbias is None without one; see the module docstring); a fully
+    masked row (lse <= -1e29) adds nothing to dq or dbias. `split_g=False`
+    rounds g once instead of pairing it, `split_ds=False` ds."""
+    B, S = k.shape[0], k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s, allowed = _scores(q, k, kv_mask, bias)
+    live = allowed & (lse > fa.MASKED_ROW_LSE)[..., None]
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    delta = (g.float() * out).sum(-1)
+    g_hi, g_lo = _split(g.float())
+    if not split_g:
+        g_lo = torch.zeros_like(g_lo)
+    dp = torch.einsum("bhld,bhsd->bhls", g_hi + g_lo, v.float())
+    ds = torch.where(live, p * (dp - delta[..., None]), torch.zeros_like(p))
+    ds_hi, ds_lo = _split(ds)
+    if not split_ds:
+        ds_lo = torch.zeros_like(ds_lo)
+    dq = torch.zeros(q.shape)
+    for c0 in range(0, S, 16):               # the kernels' 16-key steps
+        dq += torch.einsum("bhls,bhsd->bhld", (ds_hi + ds_lo)[..., c0:c0 + 16],
+                           k[:, :, c0:c0 + 16].float())
+    dbias = None
+    if bias is not None:
+        dbias = torch.zeros(ds.shape[1:])
+        for b0 in range(0, B, fa.DBIAS_GROUP):
+            part = torch.zeros(ds.shape[1:])
+            for b in range(b0, min(B, b0 + fa.DBIAS_GROUP)):
+                part = part + ds[b]
+            dbias = dbias + part
+    return dq * scale, delta, dbias
+
+
+def _mk(B, H, L, S, Dh=64, pad_tail=5, bias=False, seed=0, peak=1.0):
+    """numpy inputs; `peak` scales q and k (a larger one peaks the softmax,
+    as trained attention is)."""
     rng = np.random.default_rng(seed)
     arrs = {n: rng.normal(size=(B, H, ln, Dh)).astype(np.float32)
             for n, ln in (("q", L), ("k", S), ("v", S), ("g", L))}
+    arrs["q"] *= peak
+    arrs["k"] *= peak
     mask = np.ones((B, S), bool)
     mask[:, S - pad_tail:] = False
     mask[0, S // 2:] = False          # a second, shorter page
@@ -143,6 +189,7 @@ def _mk(B, H, L, S, Dh=64, pad_tail=5, bias=False, seed=0):
 
 CASES = {
     "bert_mini_L64": dict(B=2, H=4, L=64, S=64),
+    "bert_query_L16": dict(B=2, H=4, L=16, S=16, pad_tail=3),
     "mt5_L128_bias": dict(B=2, H=2, L=128, S=128, bias=True),
     "mt5_query_L16_bias": dict(B=2, H=2, L=16, S=16, pad_tail=3, bias=True),
     "ragged_L37_S53_bias": dict(B=2, H=2, L=37, S=53, pad_tail=7, bias=True),
@@ -250,3 +297,87 @@ def test_k3_needs_hi_lo_pairs():
     dk, dv = emulate_k3(q, k, v, mask, g, lse, delta, bias)
     torch.testing.assert_close(dk, want[1].float(), **GRAD_TOL)
     torch.testing.assert_close(dv, want[2].float(), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_k2_k4_rounding_matches_jax(case):
+    """The emulated K2 (K4 with a bias): dq, and dbias, against jax.grad of
+    the reference attention, the Pallas backward in interpret mode, and the
+    port's plain backward; delta as the JAX backward computes it."""
+    c = CASES[case]
+    arrs = _mk(**{**c, "B": max(c["B"], 3)})     # K4's group order over 3 rows
+    q, k, v, mask, bias, g = _torch_inputs(arrs)
+    out, lse = emulate_k1(q, k, v, mask, bias)
+    dq, delta, dbias = emulate_k2(q, k, v, mask, g, out, lse, bias)
+    assert (dbias is None) == (bias is None)
+    jq, jk, jv, jmask, jbias, jg = _jax_inputs(arrs)
+    if jbias is None:
+        _, vjp = jax.vjp(lambda q: jax_reference(q, jk, jv, jmask), jq)
+        (want_dq,) = vjp(jg)
+    else:
+        _, vjp = jax.vjp(lambda q, b: jax_reference(q, jk, jv, jmask, b),
+                         jq, jbias)
+        want_dq, want_db = vjp(jg)
+        np.testing.assert_allclose(dbias.numpy(), np.asarray(want_db),
+                                   err_msg="dbias", **GRAD_TOL)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(
+        want_dq.astype(jnp.float32)), err_msg="dq", **GRAD_TOL)
+    # the Pallas backward in interpret mode, blocks of 16, on its forward
+    k_out, k_lse = _flash_forward(jq, jk, jv, jmask, jbias, None, 16, 16,
+                                  True)
+    kern = _flash_backward(jq, jk, jv, jmask, jbias, None, jg, k_out, k_lse,
+                           16, 16, True)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(
+        kern[0].astype(jnp.float32)), err_msg="dq", **GRAD_TOL)
+    if bias is not None:
+        np.testing.assert_allclose(dbias.numpy(), np.asarray(kern[3]),
+                                   err_msg="dbias", **GRAD_TOL)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(jnp.einsum(
+        "bhld,bhld->bhl", jg, k_out)), **FWD_TOL)
+    # and the port's plain backward (K2's and K4's oracle on the card)
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias)
+    torch.testing.assert_close(dq, want[0].float(), msg="dq", **GRAD_TOL)
+    if bias is not None:
+        torch.testing.assert_close(dbias, want[3], msg="dbias", **GRAD_TOL)
+
+
+def test_k2_k4_rounding_at_a_fully_masked_row():
+    """A batch row with no allowed key adds nothing to dq or dbias in the
+    emulated K2 and K4, as jax.grad of the reference agrees."""
+    arrs = _mk(B=3, H=2, L=16, S=16, pad_tail=0, bias=True, seed=4)
+    arrs["kv_mask"][1] = False
+    q, k, v, mask, bias, g = _torch_inputs(arrs)
+    out, lse = emulate_k1(q, k, v, mask, bias)
+    jq, jk, jv, jmask, jbias, jg = _jax_inputs(arrs)
+    _, vjp = jax.vjp(lambda q, b: jax_reference(q, jk, jv, jmask, b),
+                     jq, jbias)
+    want_dq, want_db = (np.asarray(x.astype(jnp.float32)) for x in vjp(jg))
+    for b in (None, bias):
+        dq, _, dbias = emulate_k2(q, k, v, mask, g, out, lse, b)
+        assert not dq[1].any()
+        if b is not None:
+            np.testing.assert_allclose(dbias.numpy(), want_db, **GRAD_TOL)
+            np.testing.assert_allclose(dq.numpy(), want_dq, **GRAD_TOL)
+    rest = emulate_k2(q[::2], k[::2], v[::2], mask[::2], g[::2], out[::2],
+                      lse[::2], bias)[2]
+    torch.testing.assert_close(dbias, rest, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("operand", ["g", "ds"])
+def test_k2_needs_hi_lo_pairs(operand):
+    """Where attention is peaked (q and k scaled by 4, BERT-mini's head
+    shape), dp - delta cancels and ds holds large terms that nearly cancel
+    in dq: with g or ds rounded once to bf16, dq leaves the tolerance
+    against the plain backward (by 3.1x and 2.7x here); with both as hi +
+    lo pairs it stays at a fifth of it. This is why K2 and K4 keep both as
+    pairs."""
+    arrs = _mk(B=8, H=4, L=64, S=64, peak=4.0, seed=0)
+    q, k, v, mask, bias, g = _torch_inputs(arrs)
+    out, lse = emulate_k1(q, k, v, mask, bias)
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias)[0].float()
+    once = emulate_k2(q, k, v, mask, g, out, lse, bias,
+                      split_g=operand != "g", split_ds=operand != "ds")[0]
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(once.to(BF16).float(), want, **GRAD_TOL)
+    dq = emulate_k2(q, k, v, mask, g, out, lse, bias)[0]
+    torch.testing.assert_close(dq.to(BF16).float(), want, **GRAD_TOL)

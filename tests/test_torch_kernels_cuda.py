@@ -6,7 +6,7 @@ where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-K1 and K3 have two kernels each, chosen by dtype: bf16 takes the
+K1, K2, K3 and K4 have two kernels each, chosen by dtype: bf16 takes the
 tensor-core kernel, f32 the CUDA-core one; the tests count which one
 launched. Tolerances are the JAX flash tests': 2e-5 for float32, 2e-2 for
 bfloat16 (bf16 operands, and the rounding of p to bf16 in K1, which the
@@ -451,3 +451,108 @@ def test_k1_and_k3_take_any_mask_form(cuda_device, form):
            for m in (mask, other)]
     for a, b in zip(*dkv):
         assert torch.equal(a, b)
+
+
+# K2 and K4 on the tensor cores: the cases above, plus a batch that is not a
+# multiple of K4's group of 8
+TC_DQ_CASES = {**TC_CASES,
+               "odd_batch_bias": dict(B=11, L=37, S=53, pad_tail=7,
+                                      bias=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TC_DQ_CASES))
+def test_tensor_core_dq_kernels_match_plain_version(cuda_device, case):
+    """The bf16 K2 (dq, delta), or K4 (dq, delta, dbias) with a bias,
+    alone against the plain backward; the batch row that sees no key adds
+    nothing to dq or dbias."""
+    c = TC_DQ_CASES[case]
+    x, g, out, lse = _backward_inputs(cuda_device, dtype=torch.bfloat16, **c)
+    q, k, v, mask, bias = x["q"], x["k"], x["v"], x["kv_mask"], x["bias"]
+    counts = lambda: (fa.dq_launches_tc, fa.dq_launches_f32,
+                      fa.dq_dbias_launches_tc, fa.dq_dbias_launches_f32)
+    before = counts()
+    if bias is None:
+        dq, delta = fa.launch_dq(q, k, v, mask, g, out, lse)
+        want_counts = [1, 0, 0, 0]
+    else:
+        dq, delta, dbias = fa.launch_dq_dbias(q, k, v, mask, bias, g, out,
+                                              lse)
+        want_counts = [0, 0, 1, 0]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == want_counts
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias)
+    assert dq.dtype == q.dtype and dq.shape == q.shape
+    assert torch.isfinite(dq).all()
+    torch.testing.assert_close(dq.float(), want[0].float(),
+                               **GRAD_TOL[torch.bfloat16])
+    torch.testing.assert_close(delta, (g.float() * out).sum(-1), rtol=1e-5,
+                               atol=1e-5)
+    assert not dq[-1].any()
+    if bias is not None:
+        torch.testing.assert_close(dbias, want[3], **GRAD_TOL[torch.bfloat16])
+        rest = fa.reference_backward(q[:-1], k[:-1], v[:-1], mask[:-1],
+                                     g[:-1], out[:-1], lse[:-1], bias)[3]
+        torch.testing.assert_close(dbias, rest, **GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["k2", "k4"])
+def test_tensor_core_dq_kernels_are_bitwise_deterministic(cuda_device, bias):
+    x, g, out, lse = _backward_inputs(cuda_device, B=19, H=12, L=128, S=128,
+                                      dtype=torch.bfloat16, strided=True,
+                                      bias=bias)
+    q, k, v, mask = x["q"], x["k"], x["v"], x["kv_mask"]
+    if bias:
+        run = lambda: fa.launch_dq_dbias(q, k, v, mask, x["bias"], g, out,
+                                         lse)
+    else:
+        run = lambda: fa.launch_dq(q, k, v, mask, g, out, lse)
+    first = run()
+    for _ in range(3):
+        for a, b in zip(first, run()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k2_and_k4_dispatch_by_dtype(cuda_device, dtype):
+    """bf16 q/k/v launch the tensor-core K2 (no bias) and K4 (bias), f32
+    the CUDA-core ones; the totals count both."""
+    counts = lambda: (fa.dq_launches_tc, fa.dq_launches_f32,
+                      fa.dq_dbias_launches_tc, fa.dq_dbias_launches_f32,
+                      fa.dq_launches, fa.dq_dbias_launches)
+    before = counts()
+    for bias in (False, True):
+        x = _inputs(cuda_device, dtype=dtype, bias=bias)
+        for n in ("q", "k", "v"):
+            x[n].requires_grad_(True)
+        fa.flash_attention(**x).sum().backward()
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(counts(), before)]
+    want = ([1, 0, 1, 0, 1, 1] if dtype == torch.bfloat16
+            else [0, 1, 0, 1, 1, 1])
+    assert delta == want
+
+
+@pytest.mark.cuda
+def test_k4_over_max_keys_runs_the_f32_kernel(cuda_device):
+    """A bf16 K4 over more keys than its bias tile and partial hold in
+    shared memory runs the f32 K4 on f32 copies; dq comes back in bf16,
+    laid out like q."""
+    S = fa.MAX_TC_DBIAS_KEYS + 8
+    x, g, out, lse = _backward_inputs(cuda_device, B=3, H=2, L=24, S=S,
+                                      dtype=torch.bfloat16, strided=True,
+                                      bias=True)
+    q, k, v, mask, bias = x["q"], x["k"], x["v"], x["kv_mask"], x["bias"]
+    before = (fa.dq_dbias_launches_tc, fa.dq_dbias_launches_f32)
+    dq, _, dbias = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
+    torch.cuda.synchronize()
+    assert (fa.dq_dbias_launches_tc, fa.dq_dbias_launches_f32) == (
+        before[0], before[1] + 1)
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias)
+    assert dq.dtype == torch.bfloat16 and dq.stride() == q.stride()
+    torch.testing.assert_close(dq.float(), want[0].float(),
+                               **GRAD_TOL[torch.bfloat16])
+    torch.testing.assert_close(dbias, want[3], **GRAD_TOL[torch.bfloat16])
