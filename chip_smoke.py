@@ -54,9 +54,26 @@ Phases, each printing one JSON line:
      4,096 (the JAX config's global batch over 8 chips) to 512 pages: K1,
      K4 and K3 launch 24 times a step (all on the tensor cores), K2
      never; the rel_bias table is
-     among the gradients held flash against dense and bitwise run to run.
-Then the `kernels` line, the card's name and power limit as nvidia-smi
-prints them, and last {"ok": true, "device": {...}}.
+     among the gradients held flash against dense and bitwise run to run;
+  8. packed bert_long_sp training (sequence packing, train.pack_pages=4):
+     config bert_long_sp at full width (4 layers, d=512, 8 heads, mlp
+     2048, page_len 1024, query_len 32) with flash attention, 1,024 toy
+     pages of 215 words a step packed 4 to a 1,024-token row (256 rows),
+     over phase 4's WordPiece vocab; the checks of phase 5, with K1, K2
+     and K3 launching 8 times a step, the page tower's 4 of each with
+     segment ids, all on the tensor cores, and the share of page tokens
+     that waterfilling clipped;
+  9. packed mT5 training: phase 7's config with train.pack_pages=4, 2,048
+     toy pages of 20 words a step (512 rows of 128 tokens) over phase 6's
+     vocab; K1, K4 and K3 launch 24 times a step, 12 of each with segment
+     ids and the bias.
+The kernel checks of phase 3 also hold the segment (seg) variants of K2,
+K3 and K4, bf16 and f32, against the plain backward with seg at both
+packed paths' shapes and at the edge cases (a row that is all pad, a
+segment of one token, segments across tile edges), with K1 at L=S=1,024
+with seg, and time them. Then the `kernels` line, the card's name and
+power limit as nvidia-smi prints them, and last {"ok": true, "device":
+{...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the port is not importable (run from the root of a checkout), or when any
@@ -134,6 +151,26 @@ MT5_TRAIN_BATCH = 512
 MT5_BF16_ROWS = 256
 MT5_F32_ROWS = 64
 MT5_FLASH_DENSE_GRAD_TOL = 1e-1
+# The packed cells (sequence packing, train.pack_pages=4). bert_long_sp:
+# 1,024 pages a step (256 rows of 1,024 tokens), cut from the config's
+# 2,048, which would need about twice the 41 GB the cut takes; toy pages
+# of 215 words (bench.py's long-pack phase makes them so), about 222
+# WordPiece tokens with this vocab, so 4 fill a row; flash vs dense
+# gradients on 32 rows in bf16 and 8 in f32 (the dense [rows, 8, 1024,
+# 1024] scores of 4 layers), the bf16 bound twice BERT-mini's: a CPU
+# rehearsal of the plain versions at this width on 8 packed rows gave
+# 2.63e-2 (the query tower's top wq.bias), over BERT-mini's 2.5e-2.
+# mT5: 2,048 pages a step (512 rows of 128 tokens), cut from 4,096, over
+# pages of 20 words; flash vs dense on 64 rows (256 pages) and 16 in f32.
+LONG = "bert_long_sp"
+PACK = 4
+LONG_TRAIN_BATCH = 1_024
+LONG_PAGE_WORDS = 215
+LONG_PAGES = 8_192
+LONG_FLASH_DENSE_GRAD_TOL = 5e-2
+MT5_PACK_TRAIN_BATCH = 2_048
+MT5_PACK_PAGE_WORDS = 20
+MT5_PACK_PAGES = 16_384
 
 
 def emit(obj) -> None:
@@ -151,10 +188,7 @@ def nvidia_smi() -> str:
 def reset_counts() -> None:
     """Every kernel launch counter of the port to 0."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
-    for name in ("launches", "launches_tc", "launches_f32", "dq_launches",
-                 "dq_launches_tc", "dq_launches_f32", "dkv_launches",
-                 "dkv_launches_tc", "dkv_launches_f32", "dq_dbias_launches",
-                 "dq_dbias_launches_tc", "dq_dbias_launches_f32"):
+    for name in fa.COUNTERS:
         setattr(fa, name, 0)
 
 
@@ -176,8 +210,61 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # -- phase 3: K1 against its plain version ----------------------------------
 
+def packed_seg(B, L, gen, pack=PACK):
+    """[B, L] int32 segment ids of rows packed as pack_segments packs them:
+    `pack` pages of random lengths (so segments cross tile edges), the
+    first page of every other row a single token, a pad tail, and the last
+    row all pad (seg 0)."""
+    lens = torch.randint(1, max(2, L // pack + 1), (B, pack), generator=gen)
+    lens[::2, 0] = 1
+    ends = lens.cumsum(1)                                   # [B, pack]
+    seg = (torch.arange(L)[None, :, None] >= ends[:, None, :]).sum(-1) + 1
+    seg[seg > pack] = 0
+    seg[-1] = 0
+    return seg.to(torch.int32)
+
+
+def plain_forward(x) -> tuple:
+    """reference_forward over batch chunks of at most 2**28 score elements
+    (its [B,H,L,S] f32 temporaries stay near 1 GB each, which the
+    1,024-token packed shape needs); one chunk at the other paths'
+    shapes."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    B, H, L = x["q"].shape[:3]
+    step = max(1, (1 << 28) // (H * L * x["k"].shape[2]))
+    rows = lambda t, i: None if t is None else t[i:i + step]
+    parts = [fa.reference_forward(
+        *(rows(x[n], i) for n in ("q", "k", "v", "kv_mask")), x["bias"],
+        rows(x["seg"], i)) for i in range(0, B, step)]
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(2))
+
+
+def plain_backward(q, k, v, kv_mask, g, out, lse, bias=None, seg=None
+                   ) -> tuple:
+    """reference_backward over batch chunks, as plain_forward; dbias is
+    the sum of the chunks' (one chunk at the unpacked paths' shapes)."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    B, H, L = q.shape[:3]
+    step = max(1, (1 << 28) // (H * L * k.shape[2]))
+    rows = lambda t, i: None if t is None else t[i:i + step]
+    parts = [fa.reference_backward(
+        *(rows(t, i) for t in (q, k, v, kv_mask, g, out, lse)), bias,
+        rows(seg, i)) for i in range(0, B, step)]
+    if len(parts) == 1:
+        return parts[0]
+    dq, dk, dv = (torch.cat([p[j] for p in parts]) for j in range(3))
+    dbias = None
+    if bias is not None:
+        dbias = sum(p[3].float() for p in parts).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
 def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
-              seg=False, strided=False, unaligned=False):
+              seg=False, strided=False, unaligned=False, packed=False):
+    """q, k, v, kv_mask and optionally the bias and segment ids: `seg`
+    three pages per row beside a padding mask, `packed` rows as
+    packed_seg makes them with kv_mask = seg > 0, as the towers pass
+    it."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     if strided:      # [B, len, H, Dh] viewed as [B, H, len, Dh], as the
         q, k, v = (torch.randn(B, n, H, Dh, generator=g)   # towers pass it
@@ -205,6 +292,9 @@ def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
         ids[:, cuts[0]:cuts[1]] = 2
         ids[:, cuts[1]:L - 3] = 3
         out["seg"] = ids.to(device)
+    if packed:
+        out["seg"] = packed_seg(B, L, g).to(device)
+        out["kv_mask"] = out["seg"] > 0
     return out
 
 
@@ -267,6 +357,18 @@ def check_k1(device, timed_cases) -> dict:
                             dtype=torch.bfloat16, bias=True),
         "seg": dict(B=16, H=4, L=64, S=64, Dh=64, dtype=torch.bfloat16,
                     seg=True),
+        # the packed paths' shapes: bert_long_sp's 256 rows of 1,024
+        # tokens, mT5's 512 rows of 128 with the bias
+        "bert_long_packed_bf16": dict(B=LONG_TRAIN_BATCH // PACK, H=8,
+                                      L=1024, S=1024, Dh=64,
+                                      dtype=torch.bfloat16, strided=True,
+                                      packed=True),
+        "bert_long_packed_f32": dict(B=8, H=8, L=1024, S=1024, Dh=64,
+                                     dtype=torch.float32, packed=True),
+        "mt5_packed_bias_bf16": dict(B=MT5_PACK_TRAIN_BATCH // PACK, H=12,
+                                     L=128, S=128, Dh=64,
+                                     dtype=torch.bfloat16, bias=True,
+                                     strided=True, packed=True),
         "embed_f32": dict(B=512, H=4, L=64, S=64, Dh=64,
                           dtype=torch.float32),
         "long_S300_Dh128_f32": dict(B=2, H=2, L=300, S=300, Dh=128,
@@ -284,14 +386,16 @@ def check_k1(device, timed_cases) -> dict:
     worst = {}
     for i, (name, c) in enumerate(cases.items()):
         x = k1_inputs(device=device, seed=i, **c)
-        before = (fa.launches_tc, fa.launches_f32)
+        before = (fa.launches_tc, fa.launches_f32, fa.launches_seg)
         out, lse = fa.flash_forward(**x)
         torch.cuda.synchronize()
         took_tc = (fa.launches_tc - before[0], fa.launches_f32 - before[1])
         if took_tc != ((1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)):
             raise AssertionError(f"K1 case {name} ({c['dtype']}) launched "
                                  f"(tensor-core, CUDA-core) {took_tc}")
-        want_out, want_lse = fa.reference_forward(**x)
+        if fa.launches_seg - before[2] != int(x["seg"] is not None):
+            raise AssertionError(f"K1 case {name} miscounted its seg launch")
+        want_out, want_lse = plain_forward(x)
         tol = TOL[c["dtype"]]
         err = (out - want_out).abs().max().item()
         lse_err = ((lse - want_lse).abs()
@@ -316,16 +420,12 @@ def check_k1(device, timed_cases) -> dict:
     for case in timed_cases:
         c = cases[case]
         x = k1_inputs(device=device, seed=100, **c)
-        if x["bias"] is None:
-            mask4, kind = x["kv_mask"][:, None, None, :], "bool mask"
-        else:       # the bias and the padding as one float mask [B,H,L,S]
-            neg = torch.zeros(x["kv_mask"].shape, device=device).masked_fill(
-                ~x["kv_mask"], float("-inf"))
-            mask4 = (x["bias"][None] + neg[:, None, None, :]).to(c["dtype"])
-            kind = "float mask: bias + padding"
+        mask4, kind = library_mask(x["kv_mask"], x["bias"], x["seg"],
+                                   c["dtype"])
         t = {
             "kernel_ms": cuda_ms(lambda: fa.flash_forward(**x)),
-            "plain_ms": cuda_ms(lambda: fa.reference_forward(**x)),
+            "plain_ms": cuda_ms(lambda: plain_forward(x),
+                                iters=20 if x["seg"] is None else 3),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 x["q"], x["k"], x["v"], attn_mask=mask4)),
         }
@@ -343,11 +443,27 @@ def check_k1(device, timed_cases) -> dict:
             "timed": timed}
 
 
+def library_mask(kv_mask, bias, seg, dtype):
+    """The attention mask of the library yardstick (scaled_dot_product_
+    attention) for these inputs, and its description: a bool mask [B, 1,
+    1 or L, S] of the allowed pairs, or with a bias one float mask [B, H,
+    L, S] of the bias plus -inf where a pair is not allowed."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    allowed = fa.allowed_pairs(kv_mask, seg)
+    what = "padding" if seg is None else "padding and segments"
+    if bias is None:
+        return allowed, f"bool mask: {what}"
+    neg = torch.zeros(allowed.shape, device=kv_mask.device).masked_fill(
+        ~allowed, float("-inf"))
+    return (bias[None] + neg).to(dtype), f"float mask: bias + {what}"
+
+
 # -- phase 3: K2, K3 and K4 against the plain backward ----------------------
 
 def k23_inputs(device, seed, **case):
     """K1's inputs plus an upstream gradient g (f32, laid out like the
-    towers hand it over when q is strided) and K1's out and lse."""
+    towers hand it over when q is strided) and K1's out and lse (with the
+    segment ids of a packed case)."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     x = k1_inputs(device=device, seed=seed, **case)
     gen = torch.Generator(device="cpu").manual_seed(seed + 1000)
@@ -358,9 +474,10 @@ def k23_inputs(device, seed, **case):
         g = torch.randn(B, H, L, Dh, generator=gen).to(device)
     with torch.no_grad():
         out, lse = fa.flash_forward(x["q"], x["k"], x["v"], x["kv_mask"],
-                                    x["bias"])
+                                    x["bias"], x["seg"])
     return {"q": x["q"], "k": x["k"], "v": x["v"], "kv_mask": x["kv_mask"],
-            "bias": x["bias"], "g": g, "out": out, "lse": lse}
+            "bias": x["bias"], "seg": x["seg"], "g": g, "out": out,
+            "lse": lse}
 
 
 def bwd_bound(x) -> dict:
@@ -368,13 +485,16 @@ def bwd_bound(x) -> dict:
     these inputs: each input read once, each output written once, against
     the operations each does (2 flops per multiply-add) at the peak rate
     of q's type. With a bias K4 also reads it and writes dbias, and K3
-    reads it."""
+    reads it; segment ids are read by both. The operations count the
+    whole L x S work (the kernels visit every tile, as the Pallas kernels
+    do, whatever the segments allow)."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
     S = k.shape[2]
     nb = lambda t: 0 if t is None else t.numel() * t.element_size()
     row = B * H * L * 4                                  # lse or delta, f32
-    mask, bias = nb(x["kv_mask"]), nb(x["bias"])
+    mask = nb(x["kv_mask"]) + nb(x.get("seg"))
+    bias = nb(x["bias"])
     dq_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + nb(x["out"]) + row
                 + mask + 2 * bias + nb(q) + row)         # + dq, delta, dbias
     dkv_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + 2 * row + mask
@@ -396,21 +516,26 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
     reference_backward on one case; raises on a disagreement. Returns the
     largest absolute error of each gradient."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    seg = x.get("seg")
     args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"],
-            x["bias"])
-    def split():     # (K2 or K4, K3) launches: (tensor-core, CUDA-core)
-        return ((fa.dq_launches_tc + fa.dq_dbias_launches_tc,
-                 fa.dq_launches_f32 + fa.dq_dbias_launches_f32),
-                (fa.dkv_launches_tc, fa.dkv_launches_f32))
+            x["bias"], seg)
+    def split():     # (K2 or K4, K3) launches: (tensor-core, CUDA-core,
+        return ((fa.dq_launches_tc + fa.dq_dbias_launches_tc,     # seg)
+                 fa.dq_launches_f32 + fa.dq_dbias_launches_f32,
+                 fa.dq_launches_seg + fa.dq_dbias_launches_seg),
+                (fa.dkv_launches_tc, fa.dkv_launches_f32,
+                 fa.dkv_launches_seg))
     before = split()
     got = fa.flash_backward(*args)
     torch.cuda.synchronize()
-    took = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(split(), before)]
-    want = (1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)
+    took = [tuple(a_ - b_ for a_, b_ in zip(a, b))
+            for a, b in zip(split(), before)]
+    want = ((1, 0) if c["dtype"] == torch.bfloat16 else (0, 1)) + (
+        int(seg is not None),)
     if took != [want, want]:
         raise AssertionError(f"case {name} ({c['dtype']}) launched (K2 or K4, "
-                             f"K3) as (tensor-core, CUDA-core) {took}")
-    want = fa.reference_backward(*args)
+                             f"K3) as (tensor-core, CUDA-core, seg) {took}")
+    want = plain_backward(*args)
     rtol, atol = GRAD_TOL[c["dtype"]]
     names = ("dq", "dk", "dv", "dbias")[:3 if x["bias"] is None else 4]
     errs, ok = {}, True
@@ -430,9 +555,21 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
         ok = (ok and errs["masked_dv"] <= atol + rtol
               * dv_want.abs().max().item()
               and not got[0][0::2].any() and not got[1][0::2].any())
+    if seg is not None:
+        # the last batch row is all pad: dv = sum_l g / S at every key, no
+        # dq or dk; no pad row adds to dq
+        S = x["k"].shape[2]
+        dv_want = (x["g"][-1].sum(dim=1, keepdim=True) / S
+                   ).expand_as(got[2][-1])
+        errs["pad_row_dv"] = (got[2][-1].float() - dv_want).abs().max().item()
+        pad = (seg == 0)[:, None, :, None].expand_as(got[0])
+        ok = (ok and errs["pad_row_dv"] <= atol + rtol
+              * dv_want.abs().max().item()
+              and not got[1][-1].any() and not got[0][pad].any())
     rec = {"phase": phase, "case": name,
            "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
            "dtype": str(c["dtype"]).replace("torch.", ""),
+           "bias": x["bias"] is not None, "seg": seg is not None,
            "max_abs_err": errs, "rtol": rtol, "atol": atol, "ok": ok}
     emit(rec)
     if not ok:
@@ -450,34 +587,34 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     import torch.nn.functional as F
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
-    bias, out, lse = x["bias"], x["out"], x["lse"]
+    bias, out, lse, seg = x["bias"], x["out"], x["lse"], x.get("seg")
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     if bias is None:
         names = ("k2_ms", "k3_ms", "k2_k3_ms")
-        dq_fn = lambda: fa.launch_dq(q, k, v, mask, g, out, lse)
-        attn_mask, kind = mask[:, None, None, :], "bool mask"
+        dq_fn = lambda: fa.launch_dq(q, k, v, mask, g, out, lse, seg)
         pair = "K2 + K3"
     else:
         names = ("k4_ms", "k3_bias_ms", "k4_k3_ms")
-        dq_fn = lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
+        dq_fn = lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse,
+                                           seg)
         leaves.append(bias.detach().requires_grad_(True))
-        neg = torch.zeros(mask.shape, device=q.device).masked_fill(
-            ~mask, float("-inf"))
-        attn_mask = (leaves[3][None] + neg[:, None, None, :]).to(q.dtype)
-        kind = ("float mask: bias + padding; the gradients of q, k, v and "
-                "the bias")
         pair = "K4 + K3"
+    attn_mask, kind = library_mask(mask, None if bias is None else leaves[3],
+                                   seg, q.dtype)
+    if bias is not None:
+        kind += "; the gradients of q, k, v and the bias"
     delta = dq_fn()[1]
     sdpa_out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=attn_mask)
     g_lib = g.to(sdpa_out.dtype)
     t = {
         names[0]: cuda_ms(dq_fn),
         names[1]: cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta,
-                                                bias)),
+                                                bias, seg)),
         names[2]: cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
-                                                    lse, bias)),
-        "plain_ms": cuda_ms(lambda: fa.reference_backward(
-            q, k, v, mask, g, out, lse, bias), iters=5),
+                                                    lse, bias, seg)),
+        "plain_ms": cuda_ms(lambda: plain_backward(
+            q, k, v, mask, g, out, lse, bias, seg),
+            iters=5 if seg is None else 2, warmup=3 if seg is None else 1),
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, g_lib, retain_graph=True)),
     }
@@ -485,13 +622,15 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     B, H, L, Dh = q.shape
     # blocks of the dq kernel an SM holds at this shape (the tensor-core
     # kernels' occupancy query)
-    t["dq_blocks_per_sm"] = (fa._bwd_library().flash_bwd_dq_tc_blocks_per_sm(
-        int(bias is not None), L, k.shape[2], Dh)
+    t["dq_blocks_per_sm"] = (fa.dq_blocks_per_sm(
+        bias is not None, seg is not None, L, k.shape[2], Dh, q.device)
         if q.dtype == torch.bfloat16 else None)
     rec = {"phase": phase, "case": case,
-           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
-           "bound": b,
-           "plain_call": f"reference_backward ({pair} together)",
+           "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
+           "seg": seg is not None, **t, "bound": b,
+           "plain_call": f"reference_backward ({pair} together"
+                         + (", over batch chunks)" if seg is not None
+                            else ")"),
            "library_call": "autograd backward of torch.nn.functional."
                            f"scaled_dot_product_attention ({kind}), against "
                            f"{pair} together"}
@@ -504,11 +643,13 @@ def k2_bitwise(x: dict, case: str) -> bool:
     (one writer per element, a fixed order over the KV tiles); raises if
     not."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
-    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"])
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"],
+            x.get("seg"))
     first = fa.launch_dq(*args)
     again = fa.launch_dq(*args)
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
-    emit({"phase": "k2_bitwise", "case": case, "dq_delta_equal": equal})
+    emit({"phase": "k2_bitwise", "case": case, "seg": args[-1] is not None,
+          "dq_delta_equal": equal})
     if not equal:
         raise AssertionError(f"two runs of K2 gave different dq or delta "
                              f"({case})")
@@ -561,12 +702,13 @@ def k3_bitwise(x: dict, delta, case: str) -> bool:
     writer per element, a fixed order over the Q tiles); raises if not."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["lse"], delta,
-            x["bias"])
+            x["bias"], x.get("seg"))
     first = fa.launch_dkv(*args)
     again = fa.launch_dkv(*args)
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
     emit({"phase": "k3_bitwise", "case": case,
-          "bias": x["bias"] is not None, "dk_dv_equal": equal})
+          "bias": x["bias"] is not None, "seg": args[-1] is not None,
+          "dk_dv_equal": equal})
     if not equal:
         raise AssertionError(f"two runs of K3 gave different dk or dv "
                              f"({case})")
@@ -632,10 +774,90 @@ def check_k4(device, timed_case: str, query_case: str) -> dict:
             "query": query}
 
 
+# The edges of the seg variants' tiling, each run without and with the bias
+# (bf16 on the tensor cores, f32 on the CUDA cores): head dims 8, 24, 40
+# and 128, the query tile of L=16, an unaligned view, a batch that is not
+# a multiple of K4's group. Every case is packed (packed_seg): segments of
+# one token and across tile edges, and a row that is all pad.
+SEG_EDGE_CASES = {
+    "dh8_bf16": dict(B=8, H=4, L=48, S=48, Dh=8, dtype=torch.bfloat16),
+    "dh24_bf16": dict(B=8, H=4, L=53, S=53, Dh=24, dtype=torch.bfloat16),
+    "dh40_bf16": dict(B=8, H=4, L=64, S=64, Dh=40, dtype=torch.bfloat16),
+    "dh128_bf16": dict(B=2, H=2, L=200, S=200, Dh=128,
+                       dtype=torch.bfloat16),
+    "L16_bf16": dict(B=16, H=4, L=16, S=16, Dh=64, dtype=torch.bfloat16),
+    "unaligned_bf16": dict(B=8, H=4, L=37, S=37, Dh=64, dtype=torch.bfloat16,
+                           unaligned=True),
+    "odd_batch_bf16": dict(B=11, H=2, L=48, S=48, Dh=64,
+                           dtype=torch.bfloat16),
+    "odd_batch_f32": dict(B=11, H=2, L=48, S=48, Dh=64, dtype=torch.float32),
+    "dh128_f32": dict(B=2, H=2, L=130, S=130, Dh=128, dtype=torch.float32),
+}
+
+
+def check_seg(device) -> dict:
+    """The seg variants of K2, K3 and K4 (through flash_backward with
+    segment ids) against reference_backward with them, at both packed
+    paths' shapes (bf16 at the full batch, f32 at a cut one) and the edge
+    cases; two runs of each bitwise equal; each timed at the packed
+    shapes."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    rows_long, rows_mt5 = LONG_TRAIN_BATCH // PACK, MT5_PACK_TRAIN_BATCH // PACK
+    long_c = dict(B=rows_long, H=8, L=1024, S=1024, Dh=64,
+                  dtype=torch.bfloat16, strided=True, packed=True)
+    mt5_c = dict(B=rows_mt5, H=12, L=128, S=128, Dh=64, dtype=torch.bfloat16,
+                 bias=True, strided=True, packed=True)
+    cases = {
+        "bert_long_packed_bf16": long_c,
+        "mt5_packed_bias_bf16": mt5_c,
+        "bert_long_packed_f32": {**long_c, "B": 8, "dtype": torch.float32},
+        "mt5_packed_bias_f32": {**mt5_c, "B": 64, "dtype": torch.float32},
+        **{f"{n}{'_bias' if b else ''}": {**c, "bias": b, "packed": True}
+           for n, c in SEG_EDGE_CASES.items() for b in (False, True)},
+    }
+    worst = {}
+    for i, (name, c) in enumerate(cases.items()):
+        x = k23_inputs(device, seed=600 + i, **c)
+        errs = check_bwd_case("seg_check", name, c, x)
+        worst[name] = {"dq": errs["dq"], "k3": max(errs["dk"], errs["dv"]),
+                       "dbias": errs.get("dbias", 0.0),
+                       "dtype": str(c["dtype"]).replace("torch.", "")}
+        del x
+    out = {"worst": worst}
+    for key, case, c, seed in (("long", "bert_long_packed_bf16", long_c, 700),
+                               ("mt5", "mt5_packed_bias_bf16", mt5_c, 701)):
+        x = k23_inputs(device, seed=seed, **c)
+        if x["bias"] is None:
+            bitwise = k2_bitwise(x, case)
+            delta = fa.launch_dq(x["q"], x["k"], x["v"], x["kv_mask"], x["g"],
+                                 x["out"], x["lse"], x["seg"])[1]
+        else:
+            args = (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["g"],
+                    x["out"], x["lse"], x["seg"])
+            first = fa.launch_dq_dbias(*args)
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip(first, fa.launch_dq_dbias(*args)))
+            emit({"phase": "k4_bitwise", "case": case, "seg": True,
+                  "dq_delta_dbias_equal": bitwise})
+            if not bitwise:
+                raise AssertionError("two runs of K4 with seg gave different "
+                                     "dq or dbias")
+            delta = first[1]
+            del first
+        k3_bits = k3_bitwise(x, delta, case)
+        del delta
+        out[key] = {**time_bwd("seg_timing", case, c, x), "bitwise": bitwise,
+                    "k3_bitwise": k3_bits}
+        del x
+    return out
+
+
 def device_breakdown(fn, iters: int = 5) -> dict:
     """Device time of fn() by kernel class, from torch.profiler (CUPTI):
     per-call milliseconds of K1, K2, K3, K4, of matrix products, and of
-    the rest, plus the six largest kernels by name."""
+    the rest; of those of K2, K3 and K4, the seg variants' share (their
+    last template flag; K1 tests seg at run time, so its kernel names do
+    not tell); plus the six largest kernels by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -653,8 +875,16 @@ def device_breakdown(fn, iters: int = 5) -> dict:
     classes = {"k1_flash_fwd": 0.0, "k2_flash_bwd_dq": 0.0,
                "k3_flash_bwd_dkv": 0.0, "k4_flash_bwd_dq_dbias": 0.0,
                "matmul": 0.0, "other": 0.0}
+    seg = {"k2_seg": 0.0, "k3_seg": 0.0, "k4_seg": 0.0}
     for name, ms in kernels:
         low = name.lower()
+        # the template arguments, demangled (<64, true>) or not (ILi64ELb1EE)
+        flags = re.search(r"_tc_kernel(?:<([^<>]*)>|I(\w*?)EE)", name)
+        if flags and ((flags.group(1) or "").strip().endswith("true")
+                      or (flags.group(2) or "").endswith("Lb1")):
+            kind = ("k4_seg" if "dbias" in low else
+                    "k2_seg" if "flash_bwd_dq" in low else "k3_seg")
+            seg[kind] += ms
         if "flash_fwd" in low:
             classes["k1_flash_fwd"] += ms
         elif "dbias" in low:             # K4's two launches
@@ -669,7 +899,7 @@ def device_breakdown(fn, iters: int = 5) -> dict:
             classes["other"] += ms
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
     return {"device_ms_per_call": sum(ms for _, ms in kernels),
-            "by_class_ms": classes,
+            "by_class_ms": classes, "seg_variants_ms": seg,
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
@@ -874,15 +1104,18 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     return rec
 
 
-# -- phases 5 and 7: training --------------------------------------------
+# -- phases 5, 7, 8 and 9: training ------------------------------------------
 
 def _grads(model, batch, generator=None) -> dict:
-    """Parameter gradients of the contrastive loss on one batch."""
+    """Parameter gradients of the contrastive loss on one batch (packed
+    rows when it has "page_seg")."""
     from dnn_page_vectors_tpu_torch.models.losses import (
         cosine_contrastive_loss)
     model.zero_grad(set_to_none=True)
     q, p, neg, scale = model(batch["query"], batch["page"], None,
-                             generator=generator)
+                             generator=generator,
+                             page_seg=batch.get("page_seg"),
+                             page_pos=batch.get("page_pos"))
     loss, _ = cosine_contrastive_loss(q, p, scale, neg)
     loss.backward()
     return {n: t.grad.detach().clone() for n, t in model.named_parameters()}
@@ -931,35 +1164,91 @@ def flash_vs_dense(config, overrides, vocab, batch, device, dtype) -> dict:
             "key_bias_over_wk": max(key_bias.values(), default=0.0)}
 
 
-# the two training cells: the config, its batch (pages a step), and the
-# rows and bounds of the flash vs dense gradient comparison
+# the training cells: the config, its batch (pages a step), pages packed a
+# row, and the batch share (pages) and bounds of the flash vs dense
+# gradient comparison
 TRAIN_CELLS = {
-    "bert_mini_v5p16": dict(batch=TRAIN_BATCH, bf16_rows=TRAIN_BATCH,
-                            f32_rows=F32_ROWS, bf16_tol=FLASH_DENSE_GRAD_TOL),
-    MT5: dict(batch=MT5_TRAIN_BATCH, bf16_rows=MT5_BF16_ROWS,
-              f32_rows=MT5_F32_ROWS, bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
+    "bert_mini": dict(config="bert_mini_v5p16", batch=TRAIN_BATCH, pack=1,
+                      bf16_pages=TRAIN_BATCH, f32_pages=F32_ROWS,
+                      bf16_tol=FLASH_DENSE_GRAD_TOL),
+    "mt5": dict(config=MT5, batch=MT5_TRAIN_BATCH, pack=1,
+                bf16_pages=MT5_BF16_ROWS, f32_pages=MT5_F32_ROWS,
+                bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
+    "bert_long_packed": dict(config=LONG, batch=LONG_TRAIN_BATCH, pack=PACK,
+                             bf16_pages=32 * PACK, f32_pages=8 * PACK,
+                             bf16_tol=LONG_FLASH_DENSE_GRAD_TOL),
+    "mt5_packed": dict(config=MT5, batch=MT5_PACK_TRAIN_BATCH, pack=PACK,
+                       bf16_pages=MT5_BF16_ROWS, f32_pages=MT5_F32_ROWS,
+                       bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
 }
 
 
-def run_training(device, config: str, data, workdir: str) -> dict:
+def packed_data(config: str, words: int, n_pages: int, data):
+    """A packed cell's corpus, toy pages of `words` words (the config's
+    other corpus settings), and tokenizers at the config's token lengths
+    over the vocab of `data` (an earlier phase's): the toy corpus draws its
+    words from the seed alone, whatever the page length, which this
+    checks."""
+    from dnn_page_vectors_tpu_torch.data.subword import SubwordTokenizer
+    from dnn_page_vectors_tpu_torch.data.toy import ToyCorpus
     from dnn_page_vectors_tpu_torch.config import get_config
-    from dnn_page_vectors_tpu_torch.data.loader import TrainBatcher, to_device
+    d = get_config(config).data
+    base, _, p_tok = data
+    corpus = ToyCorpus(num_pages=n_pages, seed=d.seed, page_len=words,
+                       query_len=d.query_len, languages=d.languages,
+                       num_topics=d.num_topics)
+    same = (corpus.common_words == base.common_words
+            and corpus.topic_words == base.topic_words
+            and all(np.array_equal(a, b) for a, b in
+                    zip(corpus._lang_perm, base._lang_perm))
+            and len(corpus._lang_perm) == len(base._lang_perm))
+    if not same:
+        raise AssertionError(f"the toy corpus of {words}-word pages draws "
+                             "other words than the vocab's corpus")
+    emit({"phase": "packed_data", "config": config, "page_words": words,
+          "corpus_pages": n_pages, "vocab_size": p_tok.vocab_size,
+          "vocab_from": f"{base.num_pages}-page corpus of "
+                        f"{base.page_len}-word pages"})
+    q = SubwordTokenizer(p_tok.vocab, style=p_tok.style,
+                         max_tokens=d.query_len)
+    p = SubwordTokenizer(p_tok.vocab, style=p_tok.style,
+                         max_tokens=d.page_len)
+    return corpus, q, p
+
+
+def _take(batch: dict, pages: int, pack: int) -> dict:
+    """The first `pages` pages of a batch: its first pages / pack rows of
+    packed pages (and the queries of those pages)."""
+    rows = pages // pack
+    return {k: v[:rows] if k in ("page", "page_seg", "page_pos")
+            else v[:pages] for k, v in batch.items()}
+
+
+def run_training(device, cell_name: str, data, workdir: str) -> dict:
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import (
+        TrainBatcher, pack_segments, to_device)
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     from dnn_page_vectors_tpu_torch.train.checkpoint import CheckpointManager
     from dnn_page_vectors_tpu_torch.train.loop import (
         Trainer, dropout_generator)
 
-    cell = TRAIN_CELLS[config]
+    cell = TRAIN_CELLS[cell_name]
+    config, pack = cell["config"], cell["pack"]
     corpus, q_tok, p_tok = data
     overrides = {"model.attention": "flash",
                  "data.num_pages": corpus.num_pages, "train.log_every": 1,
-                 "train.batch_size": cell["batch"]}
+                 "train.batch_size": cell["batch"],
+                 "train.pack_pages": pack}
     cfg = get_config(config, overrides)
     m, t = cfg.model, cfg.train
     per_layer = 2 * m.num_layers         # one launch per layer per tower
     biased = m.encoder == "t5"           # K4 replaces K2 on the bias path
     per_step = [per_layer, 0 if biased else per_layer, per_layer,
                 per_layer if biased else 0]
+    # with packing, the page tower's launches (one per layer) take seg
+    seg_step = [n // 2 if pack > 1 else 0 for n in per_step]
+    names = ("k1", "k2", "k3", "k4")
 
     def new_trainer():
         return Trainer(cfg, corpus=corpus, tokenizers=(q_tok, p_tok),
@@ -968,6 +1257,10 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     def counts():
         return [fa.launches, fa.dq_launches, fa.dkv_launches,
                 fa.dq_dbias_launches]
+
+    def seg_counts():
+        return [fa.launches_seg, fa.dq_launches_seg, fa.dkv_launches_seg,
+                fa.dq_dbias_launches_seg]
 
     # ---- the main path, counted: Trainer.train from text ---------------
     trainer = new_trainer()
@@ -979,6 +1272,7 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     launches = counts()
     tensor_core = {"k1": fa.launches_tc, "k2": fa.dq_launches_tc,
                    "k3": fa.dkv_launches_tc, "k4": fa.dq_dbias_launches_tc}
+    with_seg = dict(zip(names, seg_counts()))
     # ------------------------------------------------------------------
     if launches != [TRAIN_STEPS * n for n in per_step]:
         raise AssertionError(f"K1/K2/K3/K4 launched {launches} times in "
@@ -988,6 +1282,10 @@ def run_training(device, config: str, data, workdir: str) -> dict:
         raise AssertionError(f"of {launches} K1/K2/K3/K4 launches (all bf16) "
                              f"only {tensor_core} took the tensor-core "
                              "kernels")
+    if list(with_seg.values()) != [TRAIN_STEPS * n for n in seg_step]:
+        raise AssertionError(f"K1/K2/K3/K4 launched {with_seg} times with "
+                             f"segment ids, want "
+                             f"{[TRAIN_STEPS * n for n in seg_step]}")
     hist = trainer.history
     if len(hist) != TRAIN_STEPS or not all(
             np.isfinite([h["loss"], h["grad_norm"]]).all() and h["loss"] > 0
@@ -1000,6 +1298,30 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     host = [b for _, b in zip(range(TRAIN_STEPS), TrainBatcher(
         corpus, q_tok, p_tok, batch_size=t.batch_size, seed=t.seed))]
     produce_s = time.perf_counter() - t0
+    packing = {}
+    if pack > 1:
+        # packed as TrainBatcher(pack=...) packs them (the first batch is
+        # checked against it), with the share of page tokens waterfilling
+        # clipped to fit the rows
+        tokens = sum(int((b["page"] != 0).sum()) for b in host)
+        host = [dict(b, **dict(zip(("page", "page_seg", "page_pos"),
+                                   pack_segments(b["page"], pack))))
+                for b in host]
+        kept = sum(int((b["page_seg"] > 0).sum()) for b in host)
+        first = next(iter(TrainBatcher(corpus, q_tok, p_tok,
+                                       batch_size=t.batch_size, seed=t.seed,
+                                       pack=pack)))
+        if list(first) != list(host[0]) or not all(
+                np.array_equal(first[k], host[0][k]) for k in first):
+            raise AssertionError("the packed batches differ from "
+                                 "TrainBatcher's")
+        packing = {"pack_pages": pack,
+                   "rows_per_step": t.batch_size // pack,
+                   "page_tokens_per_step": tokens / TRAIN_STEPS,
+                   "mean_page_tokens": tokens / TRAIN_STEPS / t.batch_size,
+                   "row_fill": kept / (len(host) * host[0]["page"].size),
+                   "page_tokens_clipped_share": 1.0 - kept / tokens}
+        emit({"phase": "packing", "cell": cell_name, **packing})
     batches = [{k: to_device(v, device) for k, v in b.items()} for b in host]
     straight = new_trainer()
     torch.cuda.synchronize()
@@ -1029,9 +1351,10 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     straight.train_step(batches[0])
     torch.cuda.synchronize()
     one_step = counts()
-    if one_step != per_step:
+    if one_step != per_step or seg_counts() != seg_step:
         raise AssertionError(f"one step launched K1/K2/K3/K4 {one_step} "
-                             f"times, want {per_step}")
+                             f"times ({seg_counts()} with seg), want "
+                             f"{per_step} ({seg_step})")
     profile = device_breakdown(lambda: straight.train_step(batches[1]),
                                iters=1)
     # where the host waits for the device inside a step: PyTorch warns at
@@ -1062,7 +1385,7 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     first = new_trainer()
     for b in batches[:3]:
         first.train_step(b)
-    ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{config}"),
+    ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{cell_name}"),
                              max_to_keep=1)
     first.save(ckpt)
     del first
@@ -1079,11 +1402,11 @@ def run_training(device, config: str, data, workdir: str) -> dict:
     del resumed
 
     # ---- flash vs dense gradients, dropout off, the seeded weights ----------
-    rows = {k: v[:cell["bf16_rows"]] for k, v in batches[2].items()}
-    bf16 = flash_vs_dense(config, overrides, p_tok.vocab_size, rows, device,
-                          "bfloat16")
-    rows = {k: v[:cell["f32_rows"]] for k, v in batches[2].items()}
-    f32 = flash_vs_dense(config, overrides, p_tok.vocab_size, rows, device,
+    bf16 = flash_vs_dense(config, overrides, p_tok.vocab_size,
+                          _take(batches[2], cell["bf16_pages"], pack),
+                          device, "bfloat16")
+    f32 = flash_vs_dense(config, overrides, p_tok.vocab_size,
+                         _take(batches[2], cell["f32_pages"], pack), device,
                          "float32")
     for rec, tol in ((bf16, cell["bf16_tol"]),
                      (f32, FLASH_DENSE_GRAD_TOL_F32)):
@@ -1094,13 +1417,15 @@ def run_training(device, config: str, data, workdir: str) -> dict:
             raise AssertionError(f"a key-bias gradient (exactly 0 in exact "
                                  f"arithmetic) is not small: {rec}")
 
-    names = ("k1", "k2", "k3", "k4")
     rec = {
-        "phase": "train", "config": cfg.name, "attention": m.attention,
+        "phase": "train", "cell": cell_name, "config": cfg.name,
+        "attention": m.attention,
         "layers": m.num_layers, "model_dim": m.model_dim, "heads": m.num_heads,
         "mlp_dim": m.mlp_dim, "out_dim": m.out_dim,
+        "page_len": cfg.data.page_len, "query_len": cfg.data.query_len,
         "vocab": p_tok.vocab_size, "batch_pages": t.batch_size,
         "config_batch_pages": get_config(config).train.batch_size,
+        **packing,
         "steps": TRAIN_STEPS,
         "train_pages_per_s_from_text": TRAIN_STEPS * t.batch_size / train_s,
         "train_s": train_s,
@@ -1121,6 +1446,7 @@ def run_training(device, config: str, data, workdir: str) -> dict:
         "step_profile": profile,
         "launches_main_path": dict(zip(names, launches)),
         "launches_tensor_core_main_path": tensor_core,
+        "launches_seg_main_path": with_seg,
         "launches_one_step": dict(zip(names, one_step)),
         "losses": losses, "history": hist,
         "timed_vs_main_path_loss_max_diff": main_diff,
@@ -1128,14 +1454,21 @@ def run_training(device, config: str, data, workdir: str) -> dict:
         "resume_loss_tol": RESUME_LOSS_TOL,
         "bitwise_equal_grads": True,
         "flash_vs_dense_grads_bf16": {**bf16, "tol": cell["bf16_tol"],
-                                      "rows": cell["bf16_rows"]},
+                                      "pages": cell["bf16_pages"]},
         "flash_vs_dense_grads_f32": {**f32, "tol": FLASH_DENSE_GRAD_TOL_F32,
-                                     "rows": cell["f32_rows"]},
+                                     "pages": cell["f32_pages"]},
         "key_bias_grad_tol": KEY_BIAS_GRAD_TOL,
         "device": torch.cuda.get_device_name(0),
     }
     emit(rec)
     return rec
+
+
+# the bool template flags of each templated kernel, in order
+KERNEL_FLAGS = {"flash_bwd_dkv_tc_kernel": ("bias", "seg"),
+                "flash_bwd_dq_tc_kernel": ("seg",),
+                "flash_bwd_dq_dbias_tc_kernel": ("seg",),
+                "flash_bwd_dkv_kernel": ("bias",)}
 
 
 def ptxas_summary(log: str) -> list:
@@ -1150,16 +1483,18 @@ def ptxas_summary(log: str) -> list:
             base = re.search(r"flash_[a-z_]+?_kernel", mangled)
             name = base.group(0) if base else mangled
             if base and "dbias_sum" not in name:
-                # the tensor-core kernels take bf16 only, the rest f32
-                # unless instantiated for bf16; DP is the tensor-core
-                # kernels' head-dim width, Lb1E a bias template flag
-                args = ["bf16" if "_tc_" in name or "nv_bfloat16" in mangled
-                        else "f32"]
-                width = re.search(r"kernelILi(\d+)E", mangled)
+                # the tensor-core kernels take bf16 only, the rest f32;
+                # the template arguments follow the name: Li64E the head-
+                # dim width DP, Lb1E / Lb0E a bool flag set / unset
+                args = ["bf16" if "_tc_" in name else "f32"]
+                tmpl = mangled[base.end():]
+                tmpl = tmpl[1:tmpl.find("EE") + 1] if tmpl[:1] == "I" else ""
+                width = re.match(r"Li(\d+)E", tmpl)
                 if width:
                     args.append(f"Dh<={width.group(1)}")
-                if "Lb1E" in mangled:
-                    args.append("bias")
+                flags = re.findall(r"Lb([01])E", tmpl)
+                args += [f for f, on in zip(KERNEL_FLAGS.get(name, ()), flags)
+                         if on == "1"]
                 name += "<" + ",".join(args) + ">"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1196,7 +1531,7 @@ def run_ab(parent: str) -> dict:
 
 
 def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
-    """Phases 2-7; fills `report` and returns the `kernels` line's
+    """Phases 2-9; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` is the future of the mT5 tokenizers; with `parent`
     (another tree of the port) the kernels are also timed against it."""
     from dnn_page_vectors_tpu_torch.ops import build
@@ -1223,28 +1558,35 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
             raise AssertionError(f"a tensor-core kernel spills: {spills}")
     emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
 
-    k1 = report["k1"] = check_k1(device, ("embed_bf16",
-                                          "mt5_page_bias_bf16"))
-    k23 = report["k23"] = check_k23(device, "page_train_bf16",
-                                    "query_train_bf16")
-    k4 = report["k4"] = check_k4(device, "mt5_page_train_bf16",
-                                 "mt5_query_train_bf16")
+    report["k1"] = check_k1(device, ("embed_bf16", "mt5_page_bias_bf16",
+                                     "bert_long_packed_bf16"))
+    report["k23"] = check_k23(device, "page_train_bf16", "query_train_bf16")
+    report["k4"] = check_k4(device, "mt5_page_train_bf16",
+                            "mt5_query_train_bf16")
+    report["seg"] = check_seg(device)
     if parent is not None:
         report["ab"] = run_ab(parent)
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
-        data = build_data("bert_mini_v5p16", N_PAGES)
+        bert = build_data("bert_mini_v5p16", N_PAGES)
         report["slice"] = run_slice(device, "bert_mini_v5p16", N_PAGES,
-                                    N_QUERIES, tmp, data)
-        report["train"] = run_training(device, "bert_mini_v5p16", data, tmp)
+                                    N_QUERIES, tmp, bert)
+        report["train"] = run_training(device, "bert_mini", bert, tmp)
         t0 = time.perf_counter()
         tokenizers = mt5_tok.get()
         emit({"phase": "mt5_tokenizer_wait", "seconds":
               time.perf_counter() - t0})
-        data = build_data(MT5, MT5_VOCAB_PAGES, tokenizers)
+        mt5 = build_data(MT5, MT5_VOCAB_PAGES, tokenizers)
         report["mt5_slice"] = run_slice(device, MT5, MT5_PAGES, N_QUERIES,
-                                        tmp, data)
-        report["mt5_train"] = run_training(device, MT5, data, tmp)
+                                        tmp, mt5)
+        report["mt5_train"] = run_training(device, "mt5", mt5, tmp)
+        # phases 8 and 9: packed training over the vocabs of phases 4, 6
+        report["long_train"] = run_training(
+            device, "bert_long_packed",
+            packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert), tmp)
+        report["mt5_pack_train"] = run_training(
+            device, "mt5_packed",
+            packed_data(MT5, MT5_PACK_PAGE_WORDS, MT5_PACK_PAGES, mt5), tmp)
     return kernel_entries(report)
 
 
@@ -1255,14 +1597,15 @@ def kernel_entries(report: dict) -> list:
     of the two runs of each tree; CUDA events around back-to-back calls,
     and the profiler's device time); the registers and spills of each
     instantiation."""
-    k1, k23, k4 = report["k1"], report["k23"], report["k4"]
+    k1, k23, k4, seg = report["k1"], report["k23"], report["k4"], report["seg"]
     ab = report.get("ab")
 
     def parent(key):
         if ab is None:
             return {"parent_ms": None, "parent_note": "not measured: run "
                     "with --parent TREE (the parent commit's checkout)"}
-        mean = lambda xs: sum(xs) / len(xs)
+        # None where a tree has no such call (the parent's seg variants)
+        mean = lambda xs: None if None in xs else sum(xs) / len(xs)
         par, this = ab["parent_ms"], ab["this_ms"]
         return {"parent_ms": mean(par[key]), "ab_ms": mean(this[key]),
                 "ab_runs_ms": {"parent": par[key], "this": this[key]},
@@ -1276,20 +1619,25 @@ def kernel_entries(report: dict) -> list:
         return [r for r in rows if r[0].startswith(prefixes)]
     paths = {"bert_serving": report["slice"]["k1_launches"],
              "mt5_serving": report["mt5_slice"]["k1_launches"]}
+    training = (("bert_training", report["train"]),
+                ("mt5_training", report["mt5_train"]),
+                ("bert_long_packed_training", report["long_train"]),
+                ("mt5_packed_training", report["mt5_pack_train"]))
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
-    for path, rec in (("bert_training", report["train"]),
-                      ("mt5_training", report["mt5_train"])):
-        for n, count in rec["launches_main_path"].items():
-            by_path[n][path] = count
-    by_path["k1"].update(paths)
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
                "mt5_serving": report["mt5_slice"]["k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
-    for path, rec in (("bert_training", report["train"]),
-                      ("mt5_training", report["mt5_train"])):
+    seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
+    for path, rec in training:
+        for n, count in rec["launches_main_path"].items():
+            by_path[n][path] = count
         for n, count in rec["launches_tensor_core_main_path"].items():
             tc_by_path[n][path] = count
+        for n, count in rec["launches_seg_main_path"].items():
+            if count:
+                seg_by_path[n][path] = count
+    by_path["k1"].update(paths)
     bert_pair = {"k2_k3_ms": k23["k2_k3_ms"]}
     mt5_pair = {"k4_k3_ms": k4["k4_k3_ms"]}
     bert_shape = f"B={TRAIN_BATCH} H=4 L=S=64 Dh=64 bf16 q/k/v, f32 g"
@@ -1297,8 +1645,13 @@ def kernel_entries(report: dict) -> list:
                  "f32 bias")
     k1_bert = k1["timed"]["embed_bf16"]
     k1_mt5 = k1["timed"]["mt5_page_bias_bf16"]
-    per_step = lambda n: {"bert": report["train"]["launches_one_step"][n],
-                          "mt5": report["mt5_train"]["launches_one_step"][n]}
+    k1_long = k1["timed"]["bert_long_packed_bf16"]
+    long_shape = (f"B={LONG_TRAIN_BATCH // PACK} H=8 L=S=1024 Dh=64 bf16 "
+                  f"q/k/v, f32 g, {PACK} pages a row (segment ids)")
+    mt5p_shape = (f"B={MT5_PACK_TRAIN_BATCH // PACK} H=12 L=S=128 Dh=64 bf16 "
+                  f"q/k/v, f32 g, f32 bias, {PACK} pages a row (segment ids)")
+    per_step = lambda n: {path: rec["launches_one_step"][n]
+                          for path, rec in training}
 
     def query(rec, names, shape, key):
         """A backward kernel's numbers at the query tower's shape."""
@@ -1331,7 +1684,15 @@ def kernel_entries(report: dict) -> list:
                 "ms": k1_mt5["kernel_ms"], "plain_ms": k1_mt5["plain_ms"],
                 "bound_ms": k1_mt5["bound_ms"],
                 "bound_by": k1_mt5["bound_by"],
-                "library_ms": k1_mt5["library_ms"], **parent("k1_mt5_ms")}}, {
+                "library_ms": k1_mt5["library_ms"], **parent("k1_mt5_ms")},
+        "launches_seg": sum(seg_by_path["k1"].values()),
+        "launches_seg_by_path": seg_by_path["k1"],
+        "long_seg": {"shape": long_shape, "ms": k1_long["kernel_ms"],
+                     "plain_ms": k1_long["plain_ms"],
+                     "bound_ms": k1_long["bound_ms"],
+                     "bound_by": k1_long["bound_by"],
+                     "library_ms": k1_long["library_ms"],
+                     **parent("k1_seg_ms")}}, {
         "name": "flash_bwd_dq (K2)", "route": "cuda", "source": K23_SOURCE,
         "replaces": TPU_K2, "launches": sum(by_path["k2"].values()),
         "launches_by_path": by_path["k2"],
@@ -1394,7 +1755,72 @@ def kernel_entries(report: dict) -> list:
         "ptxas": ptxas("flash_bwd_dq_dbias", "flash_bwd_dbias_sum"),
         "query": query(k4, ("k4_ms", "k3_bias_ms", "k4_k3_ms"),
                        f"B={MT5_TRAIN_BATCH} H=12 L=S=16 Dh=64 bf16 q/k/v, "
-                       "f32 g, f32 bias", "k4_query_ms")}]
+                       "f32 g, f32 bias", "k4_query_ms")},
+        *seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
+                     mt5p_shape)]
+
+
+def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
+                mt5p_shape) -> list:
+    """The `kernels` line's entries of the seg variants of K2, K3 and K4:
+    times, bounds, plain and library (scaled_dot_product_attention with the
+    segments' mask) at the packed paths' shapes, launches with segment ids
+    on the main paths (run_training fails unless every launch of a packed
+    path took the tensor cores)."""
+    long, mt5 = seg["long"], seg["mt5"]
+    worst = seg["worst"].values()
+    biased = [w for n, w in seg["worst"].items() if "bias" in n]
+    plain = [w for n, w in seg["worst"].items() if "bias" not in n]
+    seg_rows = lambda *names: [r for r in ptxas(*names)
+                               if "seg" in r[0] or "_tc_" not in r[0]]
+
+    def timing(rec, key, bound, pair, pair_key):
+        return {"ms": rec[key], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound"][bound]["bound_ms"],
+                "bound_by": rec["bound"][bound]["bound_by"],
+                "library_ms": rec["library_ms"], pair: rec[pair],
+                "plain_and_library_cover": pair_key}
+    return [{
+        "name": "flash_bwd_dq with seg (K2, packed rows)", "route": "cuda",
+        "source": K23_SOURCE, "replaces": TPU_K2,
+        "launches": sum(seg_by_path["k2"].values()),
+        "launches_by_path": seg_by_path["k2"],
+        "max_abs_err": max(w["dq"] for w in plain),
+        **timing(long, "k2_ms", "dq", "k2_k3_ms", "K2 and K3 together"),
+        "shape": long_shape, **parent("k2_seg_ms"),
+        "kernel": "flash_bwd_dq_tc_kernel<DP, seg> (tensor cores, bf16); "
+                  "f32 inputs take flash_bwd_dq_kernel with seg",
+        "bitwise_equal_runs": long["bitwise"],
+        "blocks_per_sm": long["dq_blocks_per_sm"],
+        "ptxas": seg_rows("flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel")}, {
+        "name": "flash_bwd_dkv with seg (K3, packed rows)", "route": "cuda",
+        "source": K23_SOURCE, "replaces": TPU_K3,
+        "launches": sum(seg_by_path["k3"].values()),
+        "launches_by_path": seg_by_path["k3"],
+        "max_abs_err": max(w["k3"] for w in worst),
+        **timing(long, "k3_ms", "dkv", "k2_k3_ms", "K2 and K3 together"),
+        "shape": long_shape, **parent("k3_seg_ms"),
+        "kernel": "flash_bwd_dkv_tc_kernel<DP, bias, seg> (tensor cores, "
+                  "bf16); f32 inputs take flash_bwd_dkv_kernel with seg",
+        "bitwise_equal_runs": long["k3_bitwise"] and mt5["k3_bitwise"],
+        "ptxas": seg_rows("flash_bwd_dkv"),
+        "biased": {"shape": mt5p_shape,
+                   **timing(mt5, "k3_bias_ms", "dkv", "k4_k3_ms",
+                            "K4 and K3 together"),
+                   **parent("k3_bias_seg_ms")}}, {
+        "name": "flash_bwd_dq_dbias with seg (K4, packed rows)",
+        "route": "cuda", "source": K23_SOURCE, "replaces": TPU_K4,
+        "launches": sum(seg_by_path["k4"].values()),
+        "launches_by_path": seg_by_path["k4"],
+        "max_abs_err": max(max(w["dq"], w["dbias"]) for w in biased),
+        **timing(mt5, "k4_ms", "dq", "k4_k3_ms", "K4 and K3 together"),
+        "shape": mt5p_shape, **parent("k4_seg_ms"),
+        "kernel": "flash_bwd_dq_dbias_tc_kernel<DP, seg> (tensor cores, "
+                  "bf16), then flash_bwd_dbias_sum_kernel; f32 inputs take "
+                  "flash_bwd_dq_dbias_kernel with seg",
+        "bitwise_equal_runs": mt5["bitwise"],
+        "blocks_per_sm": mt5["dq_blocks_per_sm"],
+        "ptxas": seg_rows("flash_bwd_dq_dbias", "flash_bwd_dbias_sum")}]
 
 
 def main() -> int:

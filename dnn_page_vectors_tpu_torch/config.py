@@ -1,11 +1,12 @@
 """Config dataclasses for the port: the fields the BERT-mini and mT5
-serving and training slices read, with the JAX package's names and
-defaults (its config.py), the ``bert_mini_v5p16`` and ``mt5_multilingual``
-presets, and ``get_config`` with dotted overrides.
+serving and training slices and sequence packing read, with the JAX
+package's names and defaults (its config.py), the ``bert_mini_v5p16``,
+``mt5_multilingual`` and ``bert_long_sp`` presets, and ``get_config`` with
+dotted overrides.
 
-Sections and fields of later slices (mesh, scan_steps, packing, index,
-fleet, maintenance, ...) join as those slices land; an override naming a
-field that is not here yet raises.
+Sections and fields of later slices (mesh, scan_steps, index, fleet,
+maintenance, ...) join as those slices land; an override naming a field
+that is not here yet raises.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ class ModelConfig:
     mlp_dim: int = 1024
     model_dim: int = 256
     dropout: float = 0.1             # embedding, attention and MLP outputs
-    attention: str = "dense"         # dense | flash (CUDA kernels K1-K4)
+    attention: str = "dense"         # dense | flash (CUDA kernels K1-K4);
+                                     # ring is a later slice
     shared_towers: bool = False      # share params between the towers
     dtype: str = "bfloat16"          # compute dtype; params stay float32
 
@@ -62,6 +64,13 @@ class TrainConfig:
     # query rows at a time, so the [B, B] logits never exist at once. Must
     # divide batch_size. 0 = the dense loss.
     loss_chunk: int = 0
+    # Sequence packing (data/loader.py pack_segments): >1 packs this many
+    # consecutive short pages into ONE [data.page_len] row with segment ids
+    # (attention and pooling never cross pages; BERT positions restart per
+    # page), so a corpus of short pages stops paying for full-row padding.
+    # batch_size still counts PAGES; the row batch is batch_size /
+    # pack_pages. Needs a bert or t5 tower. 1 = unpacked.
+    pack_pages: int = 1
     seed: int = 0                    # weights, data order and dropout masks
 
 
@@ -155,9 +164,31 @@ def mt5_multilingual() -> Config:
     )
 
 
+def bert_long_sp() -> Config:
+    """The long-page variant: BERT geometry at twice BERT-mini's width over
+    1,024-token pages. L=4, d=512, A=8 (Dh=64), mlp 2048, out 256,
+    WordPiece vocab 30,522, page_len 1024, query_len 32, batch 2,048 pages,
+    lr 5e-4. Its attention is ring attention over a mesh's sequence axis,
+    which the port does not have yet (the factory raises and names it); on
+    one card it runs with ``model.attention=flash``, as the JAX package
+    runs it there, packed with ``train.pack_pages`` for short pages."""
+    return Config(
+        name="bert_long_sp",
+        data=DataConfig(tokenizer="wordpiece", corpus="toy",
+                        num_pages=1_000_000, vocab_size=30_522,
+                        page_len=1024, query_len=32),
+        model=ModelConfig(encoder="bert", num_layers=4, num_heads=8,
+                          model_dim=512, mlp_dim=2048, out_dim=256,
+                          attention="ring"),
+        train=TrainConfig(batch_size=2_048, steps=100_000,
+                          learning_rate=5e-4),
+    )
+
+
 CONFIGS = {
     "bert_mini_v5p16": bert_mini_v5p16,
     "mt5_multilingual": mt5_multilingual,
+    "bert_long_sp": bert_long_sp,
 }
 
 

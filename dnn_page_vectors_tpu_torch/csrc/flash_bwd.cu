@@ -6,8 +6,9 @@
 // dnn_page_vectors_tpu/ops/flash_attention.py (launched by
 // `_flash_backward`). With the row terms
 //   p[l,s]  = exp(scale * q[l].k[s] + bias[h,l,s] - lse[l])
-//                                    (0 for a masked key or a key past S;
-//                                     no bias term without a bias)
+//                                    (0 for a masked key, a key past S or,
+//                                     with segment ids, a key of another
+//                                     segment; no bias term without a bias)
 //   dp[l,s] = g[l] . v[s]
 //   delta[l] = sum_d g[l,d] * out[l,d]
 //   ds[l,s] = p[l,s] * (dp[l,s] - delta[l])
@@ -19,7 +20,10 @@
 // q [B,H,L,Dh], k/v [B,H,S,Dh] in bf16 or f32, g [B,H,L,Dh] f32, all with
 // any strides over (batch, head, row) and unit stride on Dh; out [B,H,L,Dh]
 // f32 and lse [B,H,L] f32 from K1 (contiguous); kv_mask [B,S] uint8;
-// bias [H,L,S] f32 (contiguous), as K1 adds it (flash_fwd.cu).
+// bias [H,L,S] f32 (contiguous), as K1 adds it (flash_fwd.cu); segment ids
+// seg [B,L] int32 (contiguous, L == S; 0 = pad), as K1 takes them: a pair
+// (l, s) counts only when kv_mask[s] holds and seg[l] == seg[s] > 0 (the
+// Pallas kernels' `_tile_mask`), tested per tile, so no [B,L,S] mask exists.
 // dq, dk, dv are written in the inputs' dtype with their own strides (the
 // wrapper allocates them like q, k, v, so the towers' transposed views
 // need no copy on the way back); dbias [H,L,S] f32.
@@ -53,6 +57,18 @@
 // (every launch of the training paths) on the tensor cores, f32 (whose
 // 1e-4 / 1e-5 gradient tolerances bf16 operands cannot meet) on the CUDA
 // cores.
+//
+// Segment ids (sequence packing, train.pack_pages). The tensor-core kernels
+// take them as a template flag, so the unsegmented instantiations keep
+// their code and registers: K2 and K4 stage each KV tile's key segments by
+// cp.async beside its mask bytes and read each query row's segment once;
+// K3 stages each Q tile's row segments beside its lse and delta and reads
+// each key's segment once. Each folds the segment into the value it already
+// tested (a dead row's segment, or a masked key's, is -1), so the test stays
+// one compare. The f32 kernels test the segments at run time. A pad row of a
+// packed row (seg 0) sees no key: it is a fully masked row (below). Every
+// kernel still visits every tile: skipping KV tiles that share no segment
+// with the Q tile is later work.
 //
 // K2, K4, and K3 for f32 inputs, stage their tiles in shared memory
 // widened to f32 and multiply on the CUDA cores. As in K1's f32 kernel,
@@ -146,6 +162,7 @@
 #include <stdint.h>
 
 #include "mma_sm80.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -237,17 +254,18 @@ struct Strides {
 // The f32 K2's work for rows [q0, q0 + 64) of batch row b, head h: dq,
 // and delta for K3. K2 runs it once per block, K4 once per batch row of its
 // group.
-// With `bias` the scores are rebuilt with it; with `part` (K4) the tile's
+// With `bias` the scores are rebuilt with it; with `seg` a pair counts only
+// within one segment, as in K1; with `part` (K4) the tile's
 // ds is added into this group's partial dbias [L,S] of head h (stored,
 // not added, when `first`). Each (row, key) of `part` belongs to one
 // thread, the same one in every call.
 __device__ __forceinline__ void dq_tile(
     float* smem, const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-    const float* __restrict__ bias, const float* __restrict__ g,
-    const float* __restrict__ out, const float* __restrict__ lse,
-    float* __restrict__ delta, float* __restrict__ dq,
-    float* __restrict__ part,
+    const int* __restrict__ seg, const float* __restrict__ bias,
+    const float* __restrict__ g, const float* __restrict__ out,
+    const float* __restrict__ lse, float* __restrict__ delta,
+    float* __restrict__ dq, float* __restrict__ part,
     bool first, int b, int h, int q0, int H, int L, int S, int Dh,
     float scale, const Strides& st) {
   const int ld = pitch(Dh);
@@ -256,12 +274,18 @@ __device__ __forceinline__ void dq_tile(
   float* ks = gs + kBQ * ld;             // [kBK][ld] k (out, first)
   float* vs = ks + kBK * ld;             // [kBK][ld] v
   int* key_ok = reinterpret_cast<int*>(vs + kBK * ld);  // [kBK]
+  int* key_seg = key_ok + kBK;                          // [kBK]
 
   const int tid = threadIdx.x;
   const int r = tid / kTPR, sub = tid % kTPR;
   const int row_lane0 = (tid & 31) & ~(kTPR - 1);
   const int row = q0 + r;
   const bool row_ok = row < L;
+  // this row's segment; without seg every row and key is in segment 1. A
+  // live row's segment is > 0 (a pad row, seg 0, has no allowed key, so its
+  // lse marks it fully masked), so the equality below also drops pad keys
+  const int row_seg =
+      seg == nullptr ? 1 : (row_ok ? seg[(long long)b * L + row] : 0);
   const int nchunk = Dh / 4;
   const long long bh = (long long)b * H + h;
 
@@ -307,6 +331,8 @@ __device__ __forceinline__ void dq_tile(
     for (int i = tid; i < kBK; i += kThreads) {
       const int gs_ = kv0 + i;
       key_ok[i] = gs_ < S && kv_mask[(long long)b * S + gs_] ? 1 : 0;
+      key_seg[i] =
+          seg == nullptr ? 1 : (gs_ < S ? seg[(long long)b * S + gs_] : 0);
     }
     __syncthreads();
 
@@ -315,7 +341,8 @@ __device__ __forceinline__ void dq_tile(
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = kv0 + sub + kTPR * j;
-      const bool ok = live && key_ok[sub + kTPR * j];
+      const bool ok = live && key_ok[sub + kTPR * j] &&
+                      key_seg[sub + kTPR * j] == row_seg;
       const float x = (bias_row != nullptr && ok) ? s[j] + bias_row[c] : s[j];
       const float p = ok ? expf(x - row_lse) : 0.f;
       ds[j] = ok ? p * (ds[j] - row_delta) : 0.f;
@@ -348,12 +375,13 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const uint8_t* __restrict__ kv_mask,
+                    const int* __restrict__ seg,
                     const float* __restrict__ g, const float* __restrict__ out,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     float* __restrict__ dq, int H, int L, int S, int Dh,
                     float scale, Strides st) {
   extern __shared__ float4 smem4[];
-  dq_tile(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, nullptr, g,
+  dq_tile(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, seg, nullptr, g,
              out, lse, delta, dq, nullptr, false, blockIdx.z, blockIdx.y,
              blockIdx.x * kBQ, H, L, S, Dh, scale, st);
 }
@@ -366,6 +394,7 @@ flash_bwd_dq_dbias_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
                           const uint8_t* __restrict__ kv_mask,
+                          const int* __restrict__ seg,
                           const float* __restrict__ bias,
                           const float* __restrict__ g,
                           const float* __restrict__ out,
@@ -380,7 +409,7 @@ flash_bwd_dq_dbias_kernel(const float* __restrict__ q,
   const int b1 = min(B, b0 + group);
   float* my_part = part + ((long long)blockIdx.z * H + h) * L * S;
   for (int b = b0; b < b1; ++b)
-    dq_tile(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, bias, g,
+    dq_tile(reinterpret_cast<float*>(smem4), q, k, v, kv_mask, seg, bias, g,
                out, lse, delta, dq, my_part, b == b0, b, h, blockIdx.x * kBQ,
                H, L, S, Dh, scale, st);
 }
@@ -401,12 +430,14 @@ flash_bwd_dbias_sum_kernel(const float* __restrict__ part,
 // K3 for f32 inputs: one block per (KV tile, head, batch row). kBias is a
 // template parameter, not a run-time test: this K3 holds two accumulators
 // at the edge of the register file, and the unbiased path keeps its code
-// without the bias.
+// without the bias. `seg` (null without it) is a run-time test on one
+// register and a shared row of the Q tile's segments.
 template <bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const uint8_t* __restrict__ kv_mask,
+                     const int* __restrict__ seg,
                      const float* __restrict__ bias,
                      const float* __restrict__ g,
                      const float* __restrict__ lse,
@@ -424,6 +455,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* row_delta = row_lse + kBQ;      // [kBQ]
   // [kBQ]: -1 past L, 0 fully masked (p = 1/S, ds = 0), 1 a live row
   int* row_state = reinterpret_cast<int*>(row_delta + kBQ);
+  int* row_seg = row_state + kBQ;        // [kBQ]; 1 for every row without seg
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int c0 = blockIdx.x * kBK;
@@ -433,6 +465,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int key = c0 + r;
   const bool key_in = key < S;
   const bool key_ok = key_in && kv_mask[(long long)b * S + key] != 0;
+  // a live row's segment is > 0, so a pad key (seg 0) matches none
+  const int key_seg =
+      seg == nullptr ? 1 : (key_in ? seg[(long long)b * S + key] : 0);
   const int nchunk = Dh / 4;
   const long long bh = (long long)b * H + h;
   const float inv_s = 1.f / (float)S;
@@ -457,9 +492,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         row_lse[i] = x;
         row_delta[i] = delta[bh * L + gr];
         row_state[i] = x > kMaskedRowLse ? 1 : 0;
+        row_seg[i] = seg == nullptr ? 1 : seg[(long long)b * L + gr];
       } else {
         row_lse[i] = row_delta[i] = 0.f;
         row_state[i] = -1;
+        row_seg[i] = 0;
       }
     }
     __syncthreads();
@@ -471,7 +508,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = sub + kTPR * j;
       const int state = key_in ? row_state[i] : -1;
       float pj = 0.f, dsj = 0.f;
-      if (state > 0 && key_ok) {
+      if (state > 0 && key_ok && row_seg[i] == key_seg) {
         float x = p[j];
         if (kBias) x += bias[((long long)h * L + q0 + i) * S + key];
         pj = expf(x - row_lse[i]);
@@ -515,34 +552,51 @@ Strides unpack(const long long* s) {
   return st;
 }
 
-int check_shape(int B, int H, int L, int S, int Dh) {
+// 0, or the error of a shape the kernels do not take; segment ids need
+// L == S.
+int check_shape(int B, int H, int L, int S, int Dh,
+                const void* seg = nullptr) {
   if (Dh <= 0 || Dh > kDhMax || Dh % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || L <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (seg != nullptr && L != S) return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   return 0;
 }
 
-// The f32 kernels' dynamic shared memory is granted once per kernel, at
-// the largest head dim (this process's device); a launch asks for what its
-// head dim needs.
+// Extra shared floats of the f32 kernels beside their four tiles: K2 and
+// K4 hold the KV tile's key states and segments, K3 the Q tile's lse,
+// delta, row states and segments.
+constexpr int kDqExtra = 2 * kBK;
+constexpr int kDkvExtra = 4 * kBQ;
+
+// The f32 kernels' dynamic shared memory is granted once per kernel and
+// device, at the largest head dim; a launch asks for what its head dim
+// needs.
 template <typename Kernel>
-cudaError_t allow_f32_smem(Kernel kernel, int extra_floats) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(kDhMax, extra_floats));
+cudaError_t allow_f32_smem(per_device::PerDevice& grants, Kernel kernel,
+                           int extra_floats) {
+  return grants.get([&] {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem_bytes(kDhMax, extra_floats));
+  });
 }
 
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
-                          const void* kv_mask, const void* g, const void* out,
-                          const void* lse, void* delta, void* dq, int B,
-                          int H, int L, int S, int Dh, float scale,
-                          const Strides& st, cudaStream_t stream) {
-  static const cudaError_t allowed = allow_f32_smem(flash_bwd_dq_kernel, kBK);
+                          const void* kv_mask, const void* seg, const void* g,
+                          const void* out, const void* lse, void* delta,
+                          void* dq, int B, int H, int L, int S, int Dh,
+                          float scale, const Strides& st,
+                          cudaStream_t stream) {
+  static per_device::PerDevice grants;
+  const cudaError_t allowed =
+      allow_f32_smem(grants, flash_bwd_dq_kernel, kDqExtra);
   if (allowed != cudaSuccess) return allowed;
   const dim3 grid((L + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<<<grid, kThreads, smem_bytes(Dh, kBK), stream>>>(
+  flash_bwd_dq_kernel<<<grid, kThreads, smem_bytes(Dh, kDqExtra), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
+      static_cast<const int*>(seg),
       static_cast<const float*>(g), static_cast<const float*>(out),
       static_cast<const float*>(lse), static_cast<float*>(delta),
       static_cast<float*>(dq), H, L, S, Dh, scale, st);
@@ -563,19 +617,23 @@ cudaError_t sum_partials(const void* part, void* dbias, int groups, int H,
 
 cudaError_t launch_dq_dbias_f32(const void* q, const void* k, const void* v,
                                 const void* kv_mask, const void* bias,
-                                const void* g, const void* out,
-                                const void* lse, void* delta, void* dq,
-                                void* part, void* dbias, int B, int H, int L,
-                                int S, int Dh, float scale, int group,
-                                const Strides& st, cudaStream_t stream) {
-  static const cudaError_t allowed =
-      allow_f32_smem(flash_bwd_dq_dbias_kernel, kBK);
+                                const void* seg, const void* g,
+                                const void* out, const void* lse, void* delta,
+                                void* dq, void* part, void* dbias, int B,
+                                int H, int L, int S, int Dh, float scale,
+                                int group, const Strides& st,
+                                cudaStream_t stream) {
+  static per_device::PerDevice grants;
+  const cudaError_t allowed =
+      allow_f32_smem(grants, flash_bwd_dq_dbias_kernel, kDqExtra);
   if (allowed != cudaSuccess) return allowed;
   const int groups = (B + group - 1) / group;
   const dim3 grid((L + kBQ - 1) / kBQ, H, groups);
-  flash_bwd_dq_dbias_kernel<<<grid, kThreads, smem_bytes(Dh, kBK), stream>>>(
+  flash_bwd_dq_dbias_kernel<<<grid, kThreads, smem_bytes(Dh, kDqExtra),
+                              stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
+      static_cast<const int*>(seg),
       static_cast<const float*>(bias), static_cast<const float*>(g),
       static_cast<const float*>(out), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<float*>(dq),
@@ -587,21 +645,22 @@ cudaError_t launch_dq_dbias_f32(const void* q, const void* k, const void* v,
 
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* kv_mask, const void* bias,
-                           const void* g, const void* lse, const void* delta,
-                           void* dk, void* dv, int B, int H, int L, int S,
-                           int Dh, float scale, const Strides& st,
-                           cudaStream_t stream) {
-  static const cudaError_t allowed[2] = {
-      allow_f32_smem(flash_bwd_dkv_kernel<false>, 3 * kBQ),
-      allow_f32_smem(flash_bwd_dkv_kernel<true>, 3 * kBQ)};
+                           const void* seg, const void* g, const void* lse,
+                           const void* delta, void* dk, void* dv, int B,
+                           int H, int L, int S, int Dh, float scale,
+                           const Strides& st, cudaStream_t stream) {
+  static per_device::PerDevice grants[2];
   const bool biased = bias != nullptr;
-  if (allowed[biased] != cudaSuccess) return allowed[biased];
   auto kernel = biased ? flash_bwd_dkv_kernel<true>
                        : flash_bwd_dkv_kernel<false>;
+  const cudaError_t allowed =
+      allow_f32_smem(grants[biased], kernel, kDkvExtra);
+  if (allowed != cudaSuccess) return allowed;
   const dim3 grid((S + kBK - 1) / kBK, H, B);
-  kernel<<<grid, kThreads, smem_bytes(Dh, 3 * kBQ), stream>>>(
+  kernel<<<grid, kThreads, smem_bytes(Dh, kDkvExtra), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
+      static_cast<const int*>(seg),
       static_cast<const float*>(bias), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), H, L, S, Dh, scale,
@@ -625,6 +684,7 @@ struct Args {
   const bf16* v;
   const uint8_t* kv_mask;
   const float* bias;
+  const int* seg;                        // [B, L] segment ids, or null
   const float* g;
   const float* lse;
   const float* delta;
@@ -640,11 +700,12 @@ struct Args {
 
 // Byte offsets of the shared-memory buffers (all 16-byte aligned).
 struct Layout {
-  int k, v, q, g32, g, g_lo, bias, lse, delta, total;
+  int k, v, q, g32, g, g_lo, bias, lse, delta, seg, total;
 };
 
 __host__ __device__ __forceinline__ Layout layout(int dp, int keys, int bm,
-                                                  int stages, bool bias) {
+                                                  int stages, bool bias,
+                                                  bool seg) {
   const int row_bytes = (dp + 8) * 2;    // bf16 row padded by 16 bytes
   Layout s;
   s.k = 0;                                         // [keys][dp + 8]
@@ -656,14 +717,17 @@ __host__ __device__ __forceinline__ Layout layout(int dp, int keys, int bm,
   s.bias = s.g_lo + bm * row_bytes;                // [stages][bm][keys + 4]
   s.lse = s.bias + (bias ? stages * bm * (keys + 4) * 4 : 0);
   s.delta = s.lse + stages * kMaxRows * 4;         // [stages][64] f32
-  s.total = s.delta + stages * kMaxRows * 4;
+  s.seg = s.delta + stages * kMaxRows * 4;         // [stages][64] int
+  s.total = s.seg + (seg ? stages * kMaxRows * 4 : 0);
   return s;
 }
 
 // One block per (`keys` keys, head, batch row); each warp owns 16 keys and
 // accumulates their dk and dv over every Q tile, in order. DP is the head
-// dim the fragments cover (64 or 128), Dh <= DP the real one.
-template <int DP, bool kBias>
+// dim the fragments cover (64 or 128), Dh <= DP the real one. kSeg: segment
+// ids restrict the pairs (a compile-time flag, so the other instantiations
+// keep their code and registers).
+template <int DP, bool kBias, bool kSeg>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -675,7 +739,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
   // k and v fragments live in registers at DP = 64; at 128 they are read
   // from shared memory at each use, to stay clear of the 255 registers
   constexpr bool kKeep = DP <= 64;
-  const Layout lay = layout(DP, a.keys, a.bm, a.stages, kBias);
+  const Layout lay = layout(DP, a.keys, a.bm, a.stages, kBias, kSeg);
   bf16* ks = reinterpret_cast<bf16*>(smem + lay.k);
   bf16* vs = reinterpret_cast<bf16*>(smem + lay.v);
   bf16* qs = reinterpret_cast<bf16*>(smem + lay.q);
@@ -685,6 +749,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
   float* bs = reinterpret_cast<float*>(smem + lay.bias);
   float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
   float* delta_s = reinterpret_cast<float*>(smem + lay.delta);
+  int* seg_s = reinterpret_cast<int*>(smem + lay.seg);
 
   const int b = blockIdx.z, h = blockIdx.y, c0 = blockIdx.x * a.keys;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -704,8 +769,9 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
   // this block's keys; rows past S and columns past Dh are zero
   mma::stage_rows(ks, P, kb, st.k[2], c0, a.keys, S, a.Dh, DP);
   mma::stage_rows(vs, P, vb, st.v[2], c0, a.keys, S, a.Dh, DP);
-  // Q tile `t` (q, g in f32, lse, delta and the bias) into ring slot `sl`
-  // (g32 has one slot: it is converted before the next tile is issued)
+  // Q tile `t` (q, g in f32, lse, delta, the bias and the rows' segments)
+  // into ring slot `sl` (g32 has one slot: it is converted before the next
+  // tile is issued)
   auto issue = [&](int t, int sl) {
     const int r0 = t * bm;
     mma::stage_rows(qs + sl * bm * P, P, qb, st.q[2], r0, bm, L, a.Dh, DP);
@@ -716,6 +782,9 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
                      ok ? a.lse + bh * L + r0 + i : a.lse, ok);
       mma::cp_async4(delta_s + sl * kMaxRows + i,
                      ok ? a.delta + bh * L + r0 + i : a.delta, ok);
+      if (kSeg)
+        mma::cp_async4(seg_s + sl * kMaxRows + i,
+                       ok ? a.seg + (long long)b * L + r0 + i : a.seg, ok);
     }
     if (kBias)                           // 16-byte pieces when rows allow
       mma::stage_tile(bs + sl * bm * BP, BP, bias_h, S, r0, bm, L, c0,
@@ -727,11 +796,18 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
   // this lane's keys: rows grp and grp + 8 of the warp's 16
   const int lkey = warp * 16 + grp;
   bool key_in[2], key_ok[2];
+  // kSeg: the key's segment where the key is real (mask and seg > 0), else
+  // -1, which no row's segment equals: one compare tests all three
+  int key_seg[2];
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int key = c0 + lkey + 8 * hi;
     key_in[hi] = key < S;
     key_ok[hi] = key_in[hi] && a.kv_mask[(long long)b * S + key] != 0;
+    if (kSeg) {
+      const int sg = key_in[hi] ? a.seg[(long long)b * S + key] : 0;
+      key_seg[hi] = key_ok[hi] && sg > 0 ? sg : -1;
+    }
   }
   const float inv_s = 1.f / (float)S;
   const bf16* kw = ks + warp * 16 * P;   // this warp's k and v rows
@@ -778,6 +854,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
     const float* bt = bs + sl * bm * BP;
     const float* lt = lse_s + sl * kMaxRows;
     const float* dt = delta_s + sl * kMaxRows;
+    const int* sgt = seg_s + sl * kMaxRows;
     const int r0 = t * bm;
 
     // 16 query rows at a time: s^T = k.q^T and dp^T = v.g^T (16 keys x 16
@@ -829,7 +906,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
           if (r0 + lq < L && key_in[hi]) {
             if (ls <= kMaskedRowLse) {
               p = inv_s;                 // uniform softmax, no score grad
-            } else if (key_ok[hi]) {
+            } else if (kSeg ? sgt[lq] == key_seg[hi] : key_ok[hi]) {
               float x = sT[n][e] * a.scale;
               if (kBias) x += bt[lq * BP + lkey + 8 * hi];
               p = exp2f((x - ls) * kLog2e);
@@ -905,24 +982,37 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
 }
 
 // The largest shared memory a launch of the instantiation can ask for,
-// granted once per instantiation (this process's device).
-template <int DP, bool kBias>
+// granted once per instantiation and device.
+template <int DP, bool kBias, bool kSeg>
 cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel<DP, kBias>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      layout(DP, kMaxKeys, kMaxRows, 2, kBias).total);
-  return err;
+  static per_device::PerDevice grants;
+  return grants.get([] {
+    return cudaFuncSetAttribute(
+        flash_bwd_dkv_tc_kernel<DP, kBias, kSeg>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        layout(DP, kMaxKeys, kMaxRows, 2, kBias, kSeg).total);
+  });
 }
 
-template <int DP, bool kBias>
+template <int DP, bool kBias, bool kSeg>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<DP, kBias>();
+  const cudaError_t err = allow_smem<DP, kBias, kSeg>();
   if (err != cudaSuccess) return err;
-  const int smem = layout(DP, a.keys, a.bm, a.stages, kBias).total;
+  const int smem = layout(DP, a.keys, a.bm, a.stages, kBias, kSeg).total;
   const dim3 grid((a.S + a.keys - 1) / a.keys, a.H, B);
-  flash_bwd_dkv_tc_kernel<DP, kBias><<<grid, a.keys * 2, smem, stream>>>(a);
+  flash_bwd_dkv_tc_kernel<DP, kBias, kSeg>
+      <<<grid, a.keys * 2, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The instantiation for `a`'s bias and seg.
+template <int DP>
+cudaError_t launch_dp(const Args& a, int B, cudaStream_t stream) {
+  if (a.bias != nullptr)
+    return a.seg != nullptr ? launch<DP, true, true>(a, B, stream)
+                            : launch<DP, true, false>(a, B, stream);
+  return a.seg != nullptr ? launch<DP, false, true>(a, B, stream)
+                          : launch<DP, false, false>(a, B, stream);
 }
 
 }  // namespace tc
@@ -941,7 +1031,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offsets of the shared-memory buffers (all 16-byte aligned).
 struct Layout {
-  int q, g32, o32, kv0, kv1, bias, part, lse, mask, total;
+  int q, g32, o32, kv0, kv1, bias, part, lse, mask, seg, total;
 };
 
 // Row pitch (floats) of K4's bias tile and partial: every key of the
@@ -951,7 +1041,8 @@ __host__ __device__ __forceinline__ int bias_pitch(int S, int bn) {
 }
 
 __host__ __device__ __forceinline__ Layout layout(int dp, int rows, int bn,
-                                                  int S, bool dbias) {
+                                                  int S, bool dbias,
+                                                  bool seg) {
   const int row_bytes = (dp + 8) * 2;    // bf16 row padded by 16 bytes
   const int f32_row = (dp + 4) * 4;      // f32 row padded by 16 bytes
   const int kv_bytes = 2 * bn * row_bytes;  // a ring slot: K rows, V rows
@@ -975,7 +1066,8 @@ __host__ __device__ __forceinline__ Layout layout(int dp, int rows, int bn,
   s.part = s.bias + bias_bytes;                    // [rows][bias_pitch] f32
   s.lse = s.part + bias_bytes;                     // [rows] f32
   s.mask = s.lse + rows * 4;                       // [2][bn] kv mask bytes
-  s.total = s.mask + 2 * bn;
+  s.seg = s.mask + 2 * bn;                         // [2][bn] key segments
+  s.total = s.seg + (seg ? 2 * bn * 4 : 0);
   return s;
 }
 
@@ -985,6 +1077,7 @@ struct Args {
   const bf16* v;
   const uint8_t* kv_mask;
   const float* bias;                     // K4 only
+  const int* seg;                        // [B, L] segment ids, or null
   const float* g;
   const float* out;
   const float* lse;
@@ -1005,8 +1098,10 @@ struct Args {
 // (`rows` query rows, head, group of `group` batch rows) for K4, which
 // runs the rows of its group in order and sums their ds into its partial
 // dbias. Each warp owns 16 query rows. DP is the head dim the fragments
-// cover (64 or 128), Dh <= DP the real one.
-template <int DP, bool kDbias>
+// cover (64 or 128), Dh <= DP the real one. kSeg: segment ids restrict the
+// pairs (a compile-time flag, so the other instantiations keep their code
+// and registers).
+template <int DP, bool kDbias, bool kSeg>
 __device__ __forceinline__ void dq_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int P = DP + 8;              // bf16 shared row pitch
@@ -1028,6 +1123,7 @@ __device__ __forceinline__ void dq_body(const Args& a) {
   float* ps = reinterpret_cast<float*>(smem + lay.part);
   float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
   uint8_t* mask_s = smem + lay.mask;
+  int* seg_s = reinterpret_cast<int*>(smem + lay.seg);
 
   const int h = blockIdx.y, q0 = blockIdx.x * a.rows;
   const int b0 = kDbias ? blockIdx.z * a.group : blockIdx.z;
@@ -1084,6 +1180,13 @@ __device__ __forceinline__ void dq_body(const Args& a) {
       for (int i = tid; i < bn; i += nthr)
         ms[i] = kv0 + i < S ? mrow[kv0 + i] : 0;
     }
+    if constexpr (kSeg) {                // the tile's key segments (0 past S)
+      const int* srow = a.seg + (long long)b * S;
+      for (int i = tid; i < bn; i += nthr) {
+        const bool ok = kv0 + i < S;
+        mma::cp_async4(seg_s + sl * bn + i, ok ? srow + kv0 + i : a.seg, ok);
+      }
+    }
   };
 
   issue_q(b0);
@@ -1107,6 +1210,11 @@ __device__ __forceinline__ void dq_body(const Args& a) {
     for (int d = 0; d < DT; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
     float row_lse[2], row_delta[2];
     bool live[2];
+    // kSeg: a live row's segment, -1 for a dead row (no key's segment
+    // equals it). A live row's segment is > 0 (a pad row, seg 0, has no
+    // allowed key, so its lse marks it fully masked), so the one compare
+    // also drops pad keys and keys past S (segment 0)
+    int qseg[2];
 
     for (int t = 0; t < ntiles; ++t, ++it) {
       const int sl = it & 1;
@@ -1148,6 +1256,8 @@ __device__ __forceinline__ void dq_body(const Args& a) {
           row_lse[hi] = lse_s[lrow + 8 * hi];
           // a row past L or a fully masked row adds nothing to dq or dbias
           live[hi] = row < L && row_lse[hi] > kMaskedRowLse;
+          if constexpr (kSeg)
+            qseg[hi] = live[hi] ? a.seg[(long long)b * L + row] : -1;
           if (kh == 0 && tq == 0 && row < L)
             a.delta[bh * L + row] = dsum[hi];
         }
@@ -1172,6 +1282,13 @@ __device__ __forceinline__ void dq_body(const Args& a) {
         const uint8_t* mc = mask_s + sl * bn + c * 16 + 2 * tq;
         const uchar2 mk[2] = {*reinterpret_cast<const uchar2*>(mc),
                               *reinterpret_cast<const uchar2*>(mc + 8)};
+        // and their segments
+        int2 sk[2];
+        if constexpr (kSeg) {
+          const int* sc = seg_s + sl * bn + c * 16 + 2 * tq;
+          sk[0] = *reinterpret_cast<const int2*>(sc);
+          sk[1] = *reinterpret_cast<const int2*>(sc + 8);
+        }
         float s[2][4], dp[2][4];
 #pragma unroll
         for (int n = 0; n < 2; ++n)
@@ -1210,7 +1327,10 @@ __device__ __forceinline__ void dq_body(const Args& a) {
 #pragma unroll
             for (int e1 = 0; e1 < 2; ++e1) {
               const int e = 2 * hi + e1;
-              const bool ok = live[hi] && (e1 ? mk[n].y : mk[n].x) != 0;
+              const bool real = (e1 ? mk[n].y : mk[n].x) != 0;
+              const bool ok =
+                  kSeg ? real && (e1 ? sk[n].y : sk[n].x) == qseg[hi]
+                       : live[hi] && real;
               const float x = s[n][e] * a.scale + (e1 ? bias2.y : bias2.x);
               const float p = exp2f((x - row_lse[hi]) * kLog2e);
               s[n][e] = ok ? p * (dp[n][e] - row_delta[hi]) : 0.f;
@@ -1334,35 +1454,37 @@ __device__ __forceinline__ void dq_body(const Args& a) {
 
 // K2 for bf16 q/k/v. 4 blocks of 4 warps fit an SM at a head dim of 64
 // (54 KB of shared memory, at most 128 registers a thread).
-template <int DP>
+template <int DP, bool kSeg>
 __global__ void __launch_bounds__(kMaxRows * 2, DP <= 64 ? 4 : 1)
 flash_bwd_dq_tc_kernel(const __grid_constant__ Args a) {
-  dq_body<DP, false>(a);
+  dq_body<DP, false, kSeg>(a);
 }
 
 // K4 for bf16 q/k/v, first launch (the second is flash_bwd_dbias_sum_kernel).
 // 3 blocks of 4 warps fit an SM at mT5's shape (74 KB of shared memory, at
 // most 168 registers a thread).
-template <int DP>
+template <int DP, bool kSeg>
 __global__ void __launch_bounds__(kBiasRows * 4, DP <= 64 ? 3 : 1)
 flash_bwd_dq_dbias_tc_kernel(const __grid_constant__ Args a) {
-  dq_body<DP, true>(a);
+  dq_body<DP, true, kSeg>(a);
 }
 
 // The largest shared memory a launch of the instantiation can ask for,
-// granted once per instantiation (this process's device).
-template <int DP, bool kDbias>
+// granted once per instantiation and device.
+template <int DP, bool kDbias, bool kSeg>
 cudaError_t allow_smem() {
-  static const cudaError_t err = [] {
+  static per_device::PerDevice grants;
+  return grants.get([] {
     int most = 0;
     for (int rows = 16; rows <= (kDbias ? kBiasRows : kMaxRows); rows *= 2)
       for (int bn = 16; bn <= kMaxKeys; bn *= 2)
       {
-        const int bytes = layout(DP, rows, bn, kMaxBiasKeys, kDbias).total;
+        const int bytes =
+            layout(DP, rows, bn, kMaxBiasKeys, kDbias, kSeg).total;
         most = bytes > most ? bytes : most;
       }
-    auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP>
-                         : flash_bwd_dq_tc_kernel<DP>;
+    auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP, kSeg>
+                         : flash_bwd_dq_tc_kernel<DP, kSeg>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     // all of the SM's unified memory that blocks can use as shared memory
@@ -1372,36 +1494,57 @@ cudaError_t allow_smem() {
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) cudaGetLastError();  // not left for a launch
     return e;
-  }();
-  return err;
+  });
 }
 
 // Blocks of the instantiation resident on one SM at its launch for `a`
 // (0 when the query fails).
-template <int DP, bool kDbias>
+template <int DP, bool kDbias, bool kSeg>
 int blocks_per_sm(const Args& a) {
-  if (allow_smem<DP, kDbias>() != cudaSuccess) return 0;
+  if (allow_smem<DP, kDbias, kSeg>() != cudaSuccess) return 0;
   int n = 0;
-  auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP>
-                       : flash_bwd_dq_tc_kernel<DP>;
+  auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP, kSeg>
+                       : flash_bwd_dq_tc_kernel<DP, kSeg>;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, kernel, a.rows * 2 * a.split,
-          layout(DP, a.rows, a.bn, a.S, kDbias).total) != cudaSuccess)
+          layout(DP, a.rows, a.bn, a.S, kDbias, kSeg).total) != cudaSuccess)
     return 0;
   return n;
 }
 
-template <int DP, bool kDbias>
+template <int DP, bool kDbias, bool kSeg>
 cudaError_t launch(Args a, int blocks_z, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<DP, kDbias>();
+  const cudaError_t err = allow_smem<DP, kDbias, kSeg>();
   if (err != cudaSuccess) return err;
-  a.lay = layout(DP, a.rows, a.bn, a.S, kDbias);
+  a.lay = layout(DP, a.rows, a.bn, a.S, kDbias, kSeg);
   const int smem = a.lay.total;
   const dim3 grid((a.L + a.rows - 1) / a.rows, a.H, blocks_z);
-  auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP>
-                       : flash_bwd_dq_tc_kernel<DP>;
+  auto kernel = kDbias ? flash_bwd_dq_dbias_tc_kernel<DP, kSeg>
+                       : flash_bwd_dq_tc_kernel<DP, kSeg>;
   kernel<<<grid, a.rows * 2 * a.split, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The instantiation for the head dim, `kDbias` and `a`'s seg, launched on
+// `blocks_z` batch rows or groups; with `blocks`, the occupancy query
+// instead of a launch (its result in *blocks).
+template <bool kDbias>
+cudaError_t dispatch(const Args& a, int blocks_z, cudaStream_t stream,
+                     int* blocks = nullptr) {
+  const bool seg = a.seg != nullptr;
+  if (blocks != nullptr) {
+    *blocks = a.Dh <= 64
+                  ? (seg ? blocks_per_sm<64, kDbias, true>(a)
+                         : blocks_per_sm<64, kDbias, false>(a))
+                  : (seg ? blocks_per_sm<128, kDbias, true>(a)
+                         : blocks_per_sm<128, kDbias, false>(a));
+    return cudaSuccess;
+  }
+  if (a.Dh <= 64)
+    return seg ? launch<64, kDbias, true>(a, blocks_z, stream)
+               : launch<64, kDbias, false>(a, blocks_z, stream);
+  return seg ? launch<128, kDbias, true>(a, blocks_z, stream)
+             : launch<128, kDbias, false>(a, blocks_z, stream);
 }
 
 // The arguments K2 and K4 share; the Q tile from L (16, 32 or 64 rows; 32
@@ -1409,16 +1552,17 @@ cudaError_t launch(Args a, int blocks_z, cudaStream_t stream) {
 // blocks an SM holds), the KV tile from S (one 16-key step at the query
 // tower's S=16), and K4's two warps a 16 rows over 32-key tiles.
 Args make_args(const void* q, const void* k, const void* v,
-               const void* kv_mask, const void* bias, const void* g,
-               const void* out, const void* lse, void* delta, void* dq,
-               void* part, int B, int H, int L, int S, int Dh, float scale,
-               int group, const long long* strides) {
+               const void* kv_mask, const void* bias, const void* seg,
+               const void* g, const void* out, const void* lse, void* delta,
+               void* dq, void* part, int B, int H, int L, int S, int Dh,
+               float scale, int group, const long long* strides) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
   a.kv_mask = static_cast<const uint8_t*>(kv_mask);
   a.bias = static_cast<const float*>(bias);
+  a.seg = static_cast<const int*>(seg);
   a.g = static_cast<const float*>(g);
   a.out = static_cast<const float*>(out);
   a.lse = static_cast<const float*>(lse);
@@ -1446,38 +1590,39 @@ Args make_args(const void* q, const void* k, const void* v,
 
 // Plain C entry points, loaded with ctypes. Each returns the CUDA error
 // code of its launch (0 = launched). `strides` holds 21 element strides:
-// (batch, head, row) of q, k, v, g, dq, dk, dv in that order.
+// (batch, head, row) of q, k, v, g, dq, dk, dv in that order. `seg` may be
+// null; otherwise [B, L] int32 segment ids (0 = pad), contiguous, with
+// L == S, as K1 takes them.
 
 // K2 for bf16 q/k/v, on the tensor cores: dq (bf16), and delta [B,H,L]
 // f32 for K3. q, k, v, g and dq must be 16-byte aligned, and so must each
 // of their strides (the wrapper makes a view that is not contiguous first).
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                 const void* kv_mask, const void* g,
-                                 const void* out, const void* lse,
-                                 void* delta, void* dq, int B, int H, int L,
-                                 int S, int Dh, float scale,
-                                 const long long* strides, void* stream) {
-  const int bad = check_shape(B, H, L, S, Dh);
+                                 const void* kv_mask, const void* seg,
+                                 const void* g, const void* out,
+                                 const void* lse, void* delta, void* dq,
+                                 int B, int H, int L, int S, int Dh,
+                                 float scale, const long long* strides,
+                                 void* stream) {
+  const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
-  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, nullptr, g, out, lse,
-                                     delta, dq, nullptr, B, H, L, S, Dh,
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, nullptr, seg, g, out,
+                                     lse, delta, dq, nullptr, B, H, L, S, Dh,
                                      scale, 1, strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(Dh <= 64 ? tcq::launch<64, false>(a, B, s)
-                        : tcq::launch<128, false>(a, B, s));
+  return (int)tcq::dispatch<false>(a, B, static_cast<cudaStream_t>(stream));
 }
 
 // K2 for f32 q/k/v, on the CUDA cores: dq (f32) and delta.
 extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                const void* kv_mask, const void* g,
-                                const void* out, const void* lse, void* delta,
-                                void* dq, int B, int H, int L, int S, int Dh,
-                                float scale, const long long* strides,
-                                void* stream) {
-  const int bad = check_shape(B, H, L, S, Dh);
+                                const void* kv_mask, const void* seg,
+                                const void* g, const void* out,
+                                const void* lse, void* delta, void* dq, int B,
+                                int H, int L, int S, int Dh, float scale,
+                                const long long* strides, void* stream) {
+  const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
-  return (int)launch_dq_f32(q, k, v, kv_mask, g, out, lse, delta, dq, B, H,
-                            L, S, Dh, scale, unpack(strides),
+  return (int)launch_dq_f32(q, k, v, kv_mask, seg, g, out, lse, delta, dq, B,
+                            H, L, S, Dh, scale, unpack(strides),
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -1487,25 +1632,24 @@ extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
 // wrapper sends a longer S to the f32 kernel).
 extern "C" int flash_bwd_dq_dbias_bf16(const void* q, const void* k,
                                        const void* v, const void* kv_mask,
-                                       const void* bias, const void* g,
-                                       const void* out, const void* lse,
-                                       void* delta, void* dq, void* part,
-                                       void* dbias, int B, int H, int L,
-                                       int S, int Dh, float scale, int group,
-                                       const long long* strides,
+                                       const void* bias, const void* seg,
+                                       const void* g, const void* out,
+                                       const void* lse, void* delta, void* dq,
+                                       void* part, void* dbias, int B, int H,
+                                       int L, int S, int Dh, float scale,
+                                       int group, const long long* strides,
                                        void* stream) {
-  const int bad = check_shape(B, H, L, S, Dh);
+  const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
   if (S > tcq::kMaxBiasKeys) return (int)cudaErrorInvalidValue;
   if (group <= 0 || (B + group - 1) / group > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, g, out, lse,
-                                     delta, dq, part, B, H, L, S, Dh, scale,
-                                     group, strides);
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, seg, g, out,
+                                     lse, delta, dq, part, B, H, L, S, Dh,
+                                     scale, group, strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int groups = (B + group - 1) / group;
-  const cudaError_t err = Dh <= 64 ? tcq::launch<64, true>(a, groups, s)
-                                   : tcq::launch<128, true>(a, groups, s);
+  const cudaError_t err = tcq::dispatch<true>(a, groups, s);
   if (err != cudaSuccess) return (int)err;
   return (int)sum_partials(part, dbias, groups, H, L, S, s);
 }
@@ -1514,40 +1658,45 @@ extern "C" int flash_bwd_dq_dbias_bf16(const void* q, const void* k,
 // `part` as above.
 extern "C" int flash_bwd_dq_dbias_f32(const void* q, const void* k,
                                       const void* v, const void* kv_mask,
-                                      const void* bias, const void* g,
-                                      const void* out, const void* lse,
-                                      void* delta, void* dq, void* part,
-                                      void* dbias, int B, int H, int L, int S,
-                                      int Dh, float scale, int group,
-                                      const long long* strides,
+                                      const void* bias, const void* seg,
+                                      const void* g, const void* out,
+                                      const void* lse, void* delta, void* dq,
+                                      void* part, void* dbias, int B, int H,
+                                      int L, int S, int Dh, float scale,
+                                      int group, const long long* strides,
                                       void* stream) {
-  const int bad = check_shape(B, H, L, S, Dh);
+  const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
   if (group <= 0 || (B + group - 1) / group > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  return (int)launch_dq_dbias_f32(q, k, v, kv_mask, bias, g, out, lse, delta,
-                                  dq, part, dbias, B, H, L, S, Dh, scale,
-                                  group, unpack(strides),
+  return (int)launch_dq_dbias_f32(q, k, v, kv_mask, bias, seg, g, out, lse,
+                                  delta, dq, part, dbias, B, H, L, S, Dh,
+                                  scale, group, unpack(strides),
                                   static_cast<cudaStream_t>(stream));
 }
 
-// Blocks an SM holds of the bf16 K2 (`dbias` 0) or K4 (1) at this shape
+// Blocks an SM holds of the bf16 K2 (`dbias` 0) or K4 (1), with segment ids
+// when `seg` is 1, at this shape on the current device
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 when the query fails).
-extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int L, int S,
-                                             int Dh) {
-  if (check_shape(1, 1, L, S, Dh) || (dbias && S > tcq::kMaxBiasKeys))
+extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int seg, int L,
+                                             int S, int Dh) {
+  if (check_shape(1, 1, L, S, Dh, seg ? &seg : nullptr) ||
+      (dbias && S > tcq::kMaxBiasKeys))
     return 0;
   const long long strides[21] = {};
+  // only the pointers' presence counts here
   const tcq::Args a = tcq::make_args(nullptr, nullptr, nullptr, nullptr,
-                                     dbias ? strides : nullptr, nullptr,
+                                     dbias ? strides : nullptr,
+                                     seg ? strides : nullptr, nullptr,
                                      nullptr, nullptr, nullptr, nullptr,
                                      nullptr, 1, 1, L, S, Dh, 1.f, 1,
                                      strides);
+  int blocks = 0;
   if (dbias)
-    return Dh <= 64 ? tcq::blocks_per_sm<64, true>(a)
-                    : tcq::blocks_per_sm<128, true>(a);
-  return Dh <= 64 ? tcq::blocks_per_sm<64, false>(a)
-                  : tcq::blocks_per_sm<128, false>(a);
+    tcq::dispatch<true>(a, 0, nullptr, &blocks);
+  else
+    tcq::dispatch<false>(a, 0, nullptr, &blocks);
+  return blocks;
 }
 
 // K3 for bf16 q/k/v, on the tensor cores: dk and dv (bf16), reading the
@@ -1556,12 +1705,13 @@ extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int L, int S,
 // view that is not contiguous first).
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
                                   const void* v, const void* kv_mask,
-                                  const void* bias, const void* g,
-                                  const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int H, int L,
-                                  int S, int Dh, float scale,
-                                  const long long* strides, void* stream) {
-  const int bad = check_shape(B, H, L, S, Dh);
+                                  const void* bias, const void* seg,
+                                  const void* g, const void* lse,
+                                  const void* delta, void* dk, void* dv,
+                                  int B, int H, int L, int S, int Dh,
+                                  float scale, const long long* strides,
+                                  void* stream) {
+  const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
   tc::Args a;
   a.q = static_cast<const tc::bf16*>(q);
@@ -1569,6 +1719,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   a.v = static_cast<const tc::bf16*>(v);
   a.kv_mask = static_cast<const uint8_t*>(kv_mask);
   a.bias = static_cast<const float*>(bias);
+  a.seg = static_cast<const int*>(seg);
   a.g = static_cast<const float*>(g);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -1590,24 +1741,21 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   a.scale = scale;
   a.st = unpack(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool biased = bias != nullptr;
-  if (Dh <= 64)
-    return (int)(biased ? tc::launch<64, true>(a, B, s)
-                        : tc::launch<64, false>(a, B, s));
-  return (int)(biased ? tc::launch<128, true>(a, B, s)
-                      : tc::launch<128, false>(a, B, s));
+  return (int)(Dh <= 64 ? tc::launch_dp<64>(a, B, s)
+                        : tc::launch_dp<128>(a, B, s));
 }
 
 // K3 for f32 q/k/v, on the CUDA cores: dk and dv (f32).
 extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                  const void* kv_mask, const void* bias,
-                                 const void* g, const void* lse,
-                                 const void* delta, void* dk, void* dv, int B,
-                                 int H, int L, int S, int Dh, float scale,
-                                 const long long* strides, void* stream) {
-  const int bad = check_shape(B, H, L, S, Dh);
+                                 const void* seg, const void* g,
+                                 const void* lse, const void* delta, void* dk,
+                                 void* dv, int B, int H, int L, int S, int Dh,
+                                 float scale, const long long* strides,
+                                 void* stream) {
+  const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
-  return (int)launch_dkv_f32(q, k, v, kv_mask, bias, g, lse, delta, dk, dv,
-                             B, H, L, S, Dh, scale, unpack(strides),
+  return (int)launch_dkv_f32(q, k, v, kv_mask, bias, seg, g, lse, delta, dk,
+                             dv, B, H, L, S, Dh, scale, unpack(strides),
                              static_cast<cudaStream_t>(stream));
 }

@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "mma_sm80.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -506,13 +507,15 @@ flash_fwd_tc_kernel(const __grid_constant__ Args a) {
 }
 
 // The largest shared memory a launch of flash_fwd_tc_kernel<DP> can ask
-// for, granted once per instantiation (this process's device).
+// for, granted once per instantiation and device.
 template <int DP>
 cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      layout(DP, kMaxRows, kMaxKeys, 2, true, true).total);
-  return err;
+  static per_device::PerDevice grants;
+  return grants.get([] {
+    return cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        layout(DP, kMaxRows, kMaxKeys, 2, true, true).total);
+  });
 }
 
 template <int DP>
@@ -591,10 +594,14 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   if (bad) return bad;
   const size_t smem = sizeof(float) * (size_t)(kBQ + 2 * kBK) * (Dh + 4) +
                       sizeof(int) * 2 * kBK;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * (size_t)(kBQ + 2 * kBK) * (kDhMax + 4) +
-            sizeof(int) * 2 * kBK));
+  // granted once per device, at the largest head dim
+  static per_device::PerDevice grants;
+  const cudaError_t attr = grants.get([] {
+    return cudaFuncSetAttribute(
+        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(float) * (size_t)(kBQ + 2 * kBK) * (kDhMax + 4) +
+              sizeof(int) * 2 * kBK));
+  });
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((L + kBQ - 1) / kBQ, H, B);
   const long long* st = strides;

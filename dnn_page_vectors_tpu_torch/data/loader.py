@@ -6,8 +6,10 @@ Counterpart of the JAX package's data/loader.py. The host->device copy goes
 through pinned memory with ``non_blocking=True``, so a copy overlaps the
 host work that follows it; the JAX package's ``prefetch_to_device`` has no
 counterpart here. The train batcher is single-process with a serial
-producer: the tokenizer worker pool, multi-host slices and sequence
-packing are later slices.
+producer (the tokenizer worker pool and multi-host slices are later
+slices); with ``pack`` > 1 it packs its pages into rows with segment ids
+(``pack_segments``, sequence packing), byte for byte as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -22,6 +24,76 @@ from dnn_page_vectors_tpu_torch.data.subword import SubwordTokenizer
 from dnn_page_vectors_tpu_torch.data.toy import ToyCorpus
 
 Batch = Dict[str, np.ndarray]
+
+
+def _waterfill(lens: np.ndarray, cap: int) -> np.ndarray:
+    """Clip a row's page token-lengths to fit `cap` total: the classic
+    waterfilling threshold — largest pages lose tokens first, small pages
+    keep everything. Deterministic: threshold by binary search, leftover
+    slack dealt one token at a time to the longest pages (stable order)."""
+    lens = np.asarray(lens, np.int64)
+    total = int(lens.sum())
+    if total <= cap or lens.max(initial=0) == 0:
+        return lens.copy()
+    lo, hi = 0, int(lens.max())
+    while lo < hi:                      # largest T with sum(min(len,T))<=cap
+        mid = (lo + hi + 1) // 2
+        if int(np.minimum(lens, mid).sum()) <= cap:
+            lo = mid
+        else:
+            hi = mid - 1
+    out = np.minimum(lens, lo)
+    slack = cap - int(out.sum())
+    for i in np.argsort(-lens, kind="stable"):
+        if slack <= 0:
+            break
+        if lens[i] > out[i]:
+            out[i] += 1
+            slack -= 1
+    return out
+
+
+def pack_segments(enc: np.ndarray, pack: int
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sequence packing (train.pack_pages): place `pack` consecutive
+    tokenized pages into ONE row of the same length.
+
+    enc: [B, L] int32 token ids, 0 = pad, tokens left-aligned (every
+    tokenizer pads only at the tail). B must divide by `pack`.
+    Returns (rows [B/pack, L], seg [B/pack, L], pos [B/pack, L]):
+      rows  the packed token ids — page s of row r is the byte-identical
+            token run of input page r*pack+s (clipped only when the row's
+            combined length overflows L, largest pages first — waterfill);
+      seg   segment ids, 0 = pad, s+1 on page s's tokens — the attention /
+            pooling mask consumed by the transformer towers;
+      pos   per-page LOCAL positions (0..len-1), so BERT's absolute
+            position embedding restarts for every packed page.
+
+    Everything is a pure function of the token lengths — deterministic,
+    and byte-identical to the unpacked tokens whenever the row fits."""
+    B, L = enc.shape[:2]
+    if enc.ndim != 2:
+        raise ValueError("pack_segments wants [B, L] subword/word ids; "
+                         "trigram [B, L, K] batches cannot pack")
+    if B % pack:
+        raise ValueError(f"batch of {B} pages must divide pack={pack}")
+    R = B // pack
+    rows = np.zeros((R, L), enc.dtype)
+    seg = np.zeros((R, L), np.int32)
+    pos = np.zeros((R, L), np.int32)
+    lens = (enc != 0).sum(axis=1)
+    for r in range(R):
+        budget = _waterfill(lens[r * pack:(r + 1) * pack], L)
+        c = 0
+        for s in range(pack):
+            n = int(budget[s])
+            if n == 0:
+                continue
+            rows[r, c:c + n] = enc[r * pack + s, :n]
+            seg[r, c:c + n] = s + 1
+            pos[r, c:c + n] = np.arange(n)
+            c += n
+    return rows, seg, pos
 
 
 def build_corpus(cfg: Config) -> ToyCorpus:
@@ -83,7 +155,10 @@ def build_tokenizer(cfg: Config, corpus, cache_dir: Optional[str] = None):
 class TrainBatcher:
     """Deterministic shuffled (query, page) training batches: numpy dicts
     {"query": [B, query_len], "page": [B, page_len], "page_id": [B]}, plus
-    "neg_page" [B, H, page_len] when a hard-negative lookup is given.
+    "neg_page" [B, H, page_len] when a hard-negative lookup is given. With
+    ``pack`` > 1 (train.pack_pages) the B pages ride in B / pack packed rows:
+    "page" is [B / pack, page_len], with "page_seg" and "page_pos" beside
+    it (``pack_segments``); B must divide by ``pack``.
 
     The id schedule is the JAX package's: epoch e visits the pages in the
     order ``np.random.default_rng(seed + e).permutation(num_pages)``, in
@@ -94,7 +169,8 @@ class TrainBatcher:
     def __init__(self, corpus: ToyCorpus, query_tok, page_tok,
                  batch_size: int, seed: int = 0, start_step: int = 0,
                  hard_negative_lookup: Optional[
-                     Callable[[np.ndarray], np.ndarray]] = None):
+                     Callable[[np.ndarray], np.ndarray]] = None,
+                 pack: int = 1):
         if batch_size > corpus.num_pages:
             raise ValueError(
                 f"batch_size {batch_size} > corpus size {corpus.num_pages}: "
@@ -107,6 +183,10 @@ class TrainBatcher:
         self.start_step = start_step
         # maps [B] gold page ids -> [B, H] hard-negative page ids
         self.hard_negative_lookup = hard_negative_lookup
+        self.pack = max(1, pack)
+        if self.pack > 1 and batch_size % self.pack:
+            raise ValueError(f"batch_size {batch_size} must divide "
+                             f"train.pack_pages={self.pack}")
 
     @property
     def steps_per_epoch(self) -> int:
@@ -136,6 +216,11 @@ class TrainBatcher:
                 [c.page_text(int(i)) for i in ids]),
             "page_id": ids.astype(np.int32),
         }
+        if self.pack > 1:
+            rows, seg, pos = pack_segments(batch["page"], self.pack)
+            batch["page"] = rows
+            batch["page_seg"] = seg
+            batch["page_pos"] = pos
         if self.hard_negative_lookup is not None:
             neg_ids = self.hard_negative_lookup(ids)              # [B, H]
             enc = self.page_tok.encode_batch(

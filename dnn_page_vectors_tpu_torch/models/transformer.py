@@ -39,8 +39,18 @@ from flax, exactly:
   resumed run draws the same masks. Eval mode draws none. The masks'
   numbers differ from JAX's, whose generator is another.
 
-Ring attention and the packed-page ``seg`` path are later slices of the
-port.
+Sequence packing (train.pack_pages, data/loader.py ``pack_segments``):
+``seg`` [B, L] marks which packed page each token belongs to (0 = pad,
+1..nseg = page slot). Attention is restricted to within-segment pairs
+(dense builds the [B, 1, L, L] block mask, flash passes ``seg`` to the
+kernels), bert adds ``pos_embed[pos]`` at each page's LOCAL positions
+(an embedding lookup, whose backward on the card sums in a fixed order as
+``tok_embed``'s does), t5 keeps the global [H, L, L] bias (segments are
+contiguous, so within a segment relative distance is global distance, and
+cross-segment pairs are masked), and pooling runs per segment in float32,
+returning [B, nseg, D].
+
+Ring attention is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -202,8 +212,11 @@ class Attention(nn.Module):
                                       compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
-                rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`rel_bias`: optional float32 [H, L, L], added to the scores."""
+                rel_bias: Optional[torch.Tensor] = None,
+                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`rel_bias`: optional float32 [H, L, L], added to the scores;
+        `seg`: optional [B, L] segment ids (0 = pad), which restrict the
+        scores to pairs within one segment."""
         B, L, _ = x.shape
         head_dim = self.model_dim // self.num_heads
         shape = (B, L, self.num_heads, head_dim)
@@ -214,15 +227,22 @@ class Attention(nn.Module):
             # [B, L, H, Dh] -> [B, H, L, Dh] as strided views: the kernel
             # takes the strides, so no copy is made here
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), pad_mask, rel_bias)
+                                  v.transpose(1, 2), pad_mask, rel_bias, seg)
             out = out.to(self.dtype).transpose(1, 2)       # [B, L, H, Dh]
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(head_dim)
             scores = scores.float()
             if rel_bias is not None:
                 scores = scores + rel_bias[None]
-            scores = scores.masked_fill(~pad_mask[:, None, None, :],
-                                        _DENSE_MASK)
+            if seg is None:
+                allowed = pad_mask[:, None, None, :]
+            else:
+                # block-diagonal segment mask: a token attends only inside
+                # its own packed page, never to pad (seg 0)
+                allowed = ((seg[:, None, :] == seg[:, :, None])
+                           & (seg > 0)[:, None, :]
+                           & pad_mask[:, None, :])[:, None]   # [B,1,L,L]
+            scores = scores.masked_fill(~allowed, _DENSE_MASK)
             probs = torch.softmax(scores, dim=-1).to(self.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.wo(out.reshape(B, L, self.model_dim))
@@ -260,10 +280,11 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rel_bias: Optional[torch.Tensor] = None,
+                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
         rate = self.dropout_rate if self.training else 0.0
-        x = x + dropout(self.attn(self.ln_attn(x), pad_mask, rel_bias), rate,
-                        generator)
+        x = x + dropout(self.attn(self.ln_attn(x), pad_mask, rel_bias, seg),
+                        rate, generator)
         h = self.ln_mlp(x)
         if self.variant == "t5":
             h = F.gelu(self.wi_0(h), approximate="tanh") * self.wi_1(h)
@@ -273,7 +294,8 @@ class Block(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """ids [B, L] (0 = pad) -> [B, out_dim] float32."""
+    """ids [B, L] (0 = pad) -> [B, out_dim] float32; packed rows with
+    ``seg`` -> [B, nseg, out_dim] float32."""
 
     def __init__(self, vocab_size: int, num_layers: int = 4,
                  num_heads: int = 4, model_dim: int = 256, mlp_dim: int = 1024,
@@ -310,8 +332,14 @@ class TransformerEncoder(nn.Module):
         return [getattr(self, f"block{i}") for i in range(self.num_layers)]
 
     def forward(self, ids: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """`generator` draws the dropout masks in training mode."""
+                generator: Optional[torch.Generator] = None,
+                seg: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None,
+                nseg: int = 0) -> torch.Tensor:
+        """`generator` draws the dropout masks in training mode. Packed
+        rows (see the module docstring): `seg` [B, L] segment ids, `pos`
+        [B, L] each token's position in its page (bert), `nseg` segments a
+        row; returns one vector per segment, [B, nseg, out_dim]."""
         L = ids.shape[1]
         pad_mask = ids > 0
         x = self.tok_embed(ids).to(self.dtype)
@@ -319,13 +347,25 @@ class TransformerEncoder(nn.Module):
         if self.variant == "t5":
             rel_bias = _GatherBias.apply(self.rel_bias,
                                          self.buckets[:L, :L])  # [H, L, L]
-        else:
+        elif pos is None:
             x = x + self.pos_embed[:L].to(self.dtype)[None]
+        else:
+            x = x + F.embedding(pos, self.pos_embed).to(self.dtype)
         x = dropout(x, self.dropout_rate if self.training else 0.0,
                     generator)
         for blk in self.blocks():
-            x = blk(x, pad_mask, generator, rel_bias)
+            x = blk(x, pad_mask, generator, rel_bias, seg)
         x = self.ln_final(x)
+        if seg is not None:
+            # per-segment masked mean pool, in float32: one vector per page
+            if nseg <= 0:
+                raise ValueError("packed rows (seg) need nseg, the "
+                                 "segments a row holds")
+            slots = torch.arange(1, nseg + 1, device=seg.device)
+            onehot = (seg[:, :, None] == slots).float()       # [B, L, nseg]
+            tot = torch.einsum("bld,bls->bsd", x.float(), onehot)
+            cnt = onehot.sum(1).clamp_min(1.0)                 # [B, nseg]
+            return self.proj(tot / cnt[..., None])             # [B, nseg, D]
         # masked mean pool, in float32
         m = pad_mask[..., None].float()
         pooled = (x.float() * m).sum(1) / m.sum(1).clamp_min(1.0)

@@ -4,8 +4,8 @@ Counterpart of the JAX package's models/two_tower.py. With ``shared`` the
 page side reuses the query tower; otherwise the towers are independent
 (the default, ``model.shared_towers=False``). The logit scale is a
 learnable log inverse temperature, clamped at exp <= 100 when read.
-``forward`` is the training call (the JAX ``__call__``, unpacked pages
-only: the packed ``page_seg`` path is slice 4 of the port).
+``forward`` is the training call (the JAX ``__call__``), with packed
+page rows when ``page_seg`` is given (sequence packing, train.pack_pages).
 """
 from __future__ import annotations
 
@@ -40,23 +40,44 @@ class TwoTower(nn.Module):
         return self.query_tower(ids, generator)
 
     def encode_page(self, ids: torch.Tensor,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-        """[B, page_len] ids -> [B, D] float32 (not normalized)."""
-        return self._page_enc()(ids, generator)
+                    generator: Optional[torch.Generator] = None,
+                    seg: Optional[torch.Tensor] = None,
+                    pos: Optional[torch.Tensor] = None,
+                    nseg: int = 0) -> torch.Tensor:
+        """[B, page_len] ids -> [B, D] float32 (not normalized); packed rows
+        [R, page_len] with their segment ids `seg` and local positions
+        `pos` (data/loader.py pack_segments) -> [R, nseg, D], one vector per
+        packed page, attention and pooling never crossing pages."""
+        return self._page_enc()(ids, generator, seg=seg, pos=pos, nseg=nseg)
 
     def scale(self) -> torch.Tensor:
         return torch.clamp(torch.exp(self.log_scale), max=100.0)
 
     def forward(self, query_ids: torch.Tensor, page_ids: torch.Tensor,
                 neg_page_ids: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                page_seg: Optional[torch.Tensor] = None,
+                page_pos: Optional[torch.Tensor] = None):
         """(q [B,D], p [B,D], neg [B,H,D] or None, scale), all float32.
         `neg_page_ids` [B, H, page_len] are mined hard negatives, encoded
         by the page tower. The towers draw their dropout masks from
-        `generator` in this order: queries, pages, negatives."""
+        `generator` in this order: queries, pages, negatives.
+
+        With `page_seg` (sequence packing): `page_ids` is [R, L] packed
+        rows carrying the B = query_ids.shape[0] pages (pack = B / R
+        consecutive pages a row); the page tower's [R, pack, D] vectors are
+        flattened to [B, D] in the unpacked batch's page order."""
         q = self.encode_query(query_ids, generator)
-        p = self.encode_page(page_ids, generator)
+        if page_seg is not None:
+            B, R = query_ids.shape[0], page_ids.shape[0]
+            if B % R:
+                raise ValueError(f"{B} pages do not fill {R} packed rows "
+                                 "evenly")
+            p = self.encode_page(page_ids, generator, seg=page_seg,
+                                 pos=page_pos, nseg=B // R)
+            p = p.reshape(B, p.shape[-1])
+        else:
+            p = self.encode_page(page_ids, generator)
         neg = None
         if neg_page_ids is not None:
             B, H = neg_page_ids.shape[:2]

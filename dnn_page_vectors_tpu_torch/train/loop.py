@@ -3,8 +3,11 @@ train/loop.py, on one card.
 
 One step: encode queries and pages with both towers (dropout masks from a
 generator seeded by (train.seed, step)), the cosine-contrastive loss,
-the backward (through kernels K2 and K3 when ``model.attention="flash"``),
-then the global-norm clip and the AdamW update (train/optimizer.py).
+the backward (through kernels K2 and K3, or K4 and K3 on the t5 path, when
+``model.attention="flash"``), then the global-norm clip and the AdamW
+update (train/optimizer.py). With ``train.pack_pages`` > 1 the pages ride
+packed into rows with segment ids (sequence packing), and the kernels take
+the segments.
 PyTorch runs eagerly: there is no compiled step and no donated state.
 
 The loop reads metrics off the device only at the log cadence (every
@@ -67,6 +70,12 @@ class Trainer:
                 f"train.hard_negatives={cfg.train.hard_negatives}: "
                 "hard-negative mining is a later slice of the port (the "
                 "loss takes negatives, but nothing mines them yet)")
+        if cfg.train.pack_pages > 1 and cfg.model.encoder not in ("bert",
+                                                                   "t5"):
+            raise ValueError(
+                "train.pack_pages needs a transformer page tower "
+                f"(bert/t5), not {cfg.model.encoder!r}: segment masks only "
+                "exist for attention encoders")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.workdir = workdir
@@ -107,11 +116,12 @@ class Trainer:
 
     # -- data ---------------------------------------------------------------
     def batches(self) -> Iterator[Dict[str, torch.Tensor]]:
-        """Device batches from the current step on."""
+        """Device batches from the current step on (packed rows with
+        "page_seg" and "page_pos" when train.pack_pages > 1)."""
         batcher = TrainBatcher(
             self.corpus, self.query_tok, self.page_tok,
             batch_size=self.cfg.train.batch_size, seed=self.cfg.train.seed,
-            start_step=self.step)
+            start_step=self.step, pack=self.cfg.train.pack_pages)
         for batch in batcher:
             yield {k: to_device(v, self.device) for k, v in batch.items()}
 
@@ -119,10 +129,13 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         """One update on a device batch (with "neg_page" when it carries
-        mined negatives); returns the step's metrics as device scalars."""
+        mined negatives, "page_seg" and "page_pos" when its pages are
+        packed); returns the step's metrics as device scalars."""
         gen = dropout_generator(self.cfg.train.seed, self.step, self.device)
-        q, p, neg, scale = self.model(batch["query"], batch["page"],
-                                      batch.get("neg_page"), generator=gen)
+        q, p, neg, scale = self.model(
+            batch["query"], batch["page"], batch.get("neg_page"),
+            generator=gen, page_seg=batch.get("page_seg"),
+            page_pos=batch.get("page_pos"))
         loss, metrics = cosine_contrastive_loss(
             q, p, scale, neg, chunk=self.cfg.train.loss_chunk)
         self.optimizer.zero_grad()

@@ -33,7 +33,13 @@ bf16 q/k/v with ragged padding:
 * ``k2_query_ms``: K2 where BERT-mini's query tower runs it in training,
   B=8192, H=4, L=S=16, Dh=64;
 * ``k4_query_ms``: K4 where mT5's query tower runs it, B=512, H=12,
-  L=S=16, Dh=64, with the bias.
+  L=S=16, Dh=64, with the bias;
+* ``k1_seg_ms``, ``k2_seg_ms``, ``k3_seg_ms``: K1, K2 and K3 with segment
+  ids at bert_long_sp's packed shape, B=256 rows, H=8, L=S=1024, Dh=64,
+  4 pages a row (kv_mask = seg > 0, as the towers pass it);
+* ``k4_seg_ms``, ``k3_bias_seg_ms``: K4 and the biased K3 with segment ids
+  at mT5's packed shape, B=512 rows, H=12, L=S=128, Dh=64, 4 pages a row.
+  A tree whose wrappers take no segment ids records None for these.
 
 Prints one JSON line per tree, the card's name and power limit
 (nvidia-smi), and a summary line; ``--out`` also writes all of it as JSON.
@@ -41,6 +47,7 @@ Prints one JSON line per tree, the card's name and power limit
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -51,8 +58,13 @@ BERT_EMBED = dict(B=512, H=4, L=64, Dh=64)
 MT5 = dict(B=512, H=12, L=128, Dh=64)
 BERT_QUERY = dict(B=8192, H=4, L=16, Dh=64)
 MT5_QUERY = dict(B=512, H=12, L=16, Dh=64)
+LONG_PACKED = dict(B=256, H=8, L=1024, Dh=64)
+MT5_PACKED = dict(B=512, H=12, L=128, Dh=64)
+PACK = 4
+SEG_KEYS = ("k1_seg_ms", "k2_seg_ms", "k3_seg_ms", "k4_seg_ms",
+            "k3_bias_seg_ms")
 KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms",
-        "k2_query_ms", "k4_query_ms")
+        "k2_query_ms", "k4_query_ms") + SEG_KEYS
 
 
 def _event_ms(fn, iters: int = 50) -> float:
@@ -100,6 +112,18 @@ def _inputs(B, H, L, Dh, gen, device, bias=False):
     return q, k, v, g, mask, b
 
 
+def _packed(B, L, gen, device):
+    """Segment ids of B rows of PACK pages of random lengths, a pad tail,
+    and kv_mask = seg > 0."""
+    import torch
+    lens = torch.randint(1, L // PACK + 1, (B, PACK), generator=gen)
+    ends = lens.cumsum(1)
+    seg = (torch.arange(L)[None, :, None] >= ends[:, None, :]).sum(-1) + 1
+    seg[seg > PACK] = 0
+    seg = seg.to(device, torch.int32)
+    return seg, seg > 0
+
+
 def worker(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -143,9 +167,37 @@ def worker(tree: str) -> dict:
         out, lse = fa.flash_forward(q, k, v, mask, bias)
         timed("k4_query_ms",
               lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
+        del q, k, v, g, out, lse
+        if "seg" not in inspect.signature(fa.launch_dq).parameters:
+            for key in SEG_KEYS:
+                rec[key] = rec["device_ms"][key] = None
+        else:
+            q, k, v, g, _, _ = _inputs(**LONG_PACKED, gen=gen, device=device)
+            seg, mask = _packed(LONG_PACKED["B"], LONG_PACKED["L"], gen,
+                                device)
+            timed("k1_seg_ms",
+                  lambda: fa.flash_forward(q, k, v, mask, None, seg))
+            out, lse = fa.flash_forward(q, k, v, mask, None, seg)
+            _, delta = fa.launch_dq(q, k, v, mask, g, out, lse, seg)
+            timed("k2_seg_ms",
+                  lambda: fa.launch_dq(q, k, v, mask, g, out, lse, seg))
+            timed("k3_seg_ms", lambda: fa.launch_dkv(q, k, v, mask, g, lse,
+                                                     delta, None, seg))
+            del q, k, v, g, out, lse, delta
+            q, k, v, g, _, bias = _inputs(**MT5_PACKED, gen=gen,
+                                          device=device, bias=True)
+            seg, mask = _packed(MT5_PACKED["B"], MT5_PACKED["L"], gen, device)
+            out, lse = fa.flash_forward(q, k, v, mask, bias, seg)
+            _, delta, _ = fa.launch_dq_dbias(q, k, v, mask, bias, g, out,
+                                             lse, seg)
+            timed("k4_seg_ms", lambda: fa.launch_dq_dbias(
+                q, k, v, mask, bias, g, out, lse, seg))
+            timed("k3_bias_seg_ms", lambda: fa.launch_dkv(
+                q, k, v, mask, g, lse, delta, bias, seg))
     rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
                      "mt5_page": MT5, "bert_query": BERT_QUERY,
-                     "mt5_query": MT5_QUERY}
+                     "mt5_query": MT5_QUERY, "bert_long_packed": LONG_PACKED,
+                     "mt5_packed": MT5_PACKED, "pages_a_row": PACK}
     rec["device"] = torch.cuda.get_device_name(0)
     return rec
 

@@ -16,7 +16,15 @@ At a fully masked query row the port gives the gradient of its forward
 (which is what ``jax.grad`` of the reference gives), not the JAX kernel's:
 the kernel rebuilds p = exp(s - lse) = 1 there instead of 1/S, and with a
 bias its unmasked ds there also reaches dbias. Both differences are
-pinned here."""
+pinned here.
+
+With segment ids (sequence packing) every pad row of a packed row (seg 0)
+is such a fully masked row. The seg tests hold the port against
+``jax.grad`` with the upstream gradient as drawn, and against the Pallas
+backward with the upstream gradient zeroed at the pad rows, as a packed
+model's is (nothing reads a pad row's output: pooling skips it and no
+other row attends to it), so that the Pallas kernels' p = 1 there does not
+enter."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,13 +57,15 @@ def _mk(B=2, H=2, L=48, S=48, Dh=16, seed=0, pad_tail=5):
 def _jax_kernel_grads(arrs, dtype):
     """The Pallas backward (interpret mode, blocks 16) on the Pallas
     forward's out and lse: [dq, dk, dv], and dbias when `arrs` has a
-    bias."""
+    bias (with segment ids when it has "seg")."""
     q, k, v = (jnp.asarray(arrs[n], dtype) for n in ("q", "k", "v"))
     mask = jnp.asarray(arrs["kv_mask"])
     bias = arrs.get("bias")
     bias = None if bias is None else jnp.asarray(bias)
-    out, lse = _flash_forward(q, k, v, mask, bias, None, 16, 16, True)
-    dq, dk, dv, db = _flash_backward(q, k, v, mask, bias, None,
+    seg = arrs.get("seg")
+    seg = None if seg is None else jnp.asarray(seg)
+    out, lse = _flash_forward(q, k, v, mask, bias, seg, 16, 16, True)
+    dq, dk, dv, db = _flash_backward(q, k, v, mask, bias, seg,
                                      jnp.asarray(arrs["g"]), out, lse, 16,
                                      16, True)
     grads = (dq, dk, dv) if bias is None else (dq, dk, dv, db)
@@ -66,12 +76,15 @@ def _jax_autodiff_grads(arrs, dtype):
     q, k, v = (jnp.asarray(arrs[n], dtype) for n in ("q", "k", "v"))
     mask = jnp.asarray(arrs["kv_mask"])
     g = jnp.asarray(arrs["g"])
+    seg = arrs.get("seg")
+    seg = None if seg is None else jnp.asarray(seg)
     if arrs.get("bias") is None:
-        _, vjp = jax.vjp(lambda q, k, v: jax_reference(q, k, v, mask),
-                         q, k, v)
+        _, vjp = jax.vjp(lambda q, k, v: jax_reference(q, k, v, mask,
+                                                       seg=seg), q, k, v)
     else:
-        _, vjp = jax.vjp(lambda q, k, v, b: jax_reference(q, k, v, mask, b),
-                         q, k, v, jnp.asarray(arrs["bias"]))
+        _, vjp = jax.vjp(lambda q, k, v, b: jax_reference(q, k, v, mask, b,
+                                                          seg), q, k, v,
+                         jnp.asarray(arrs["bias"]))
     return [np.asarray(x.astype(jnp.float32)) for x in vjp(g)]
 
 
@@ -89,9 +102,11 @@ def _port_grads(arrs, dtype, strided=False):
     mask = torch.from_numpy(arrs["kv_mask"])
     bias = arrs.get("bias")
     bias = None if bias is None else torch.from_numpy(bias)
-    out, lse = fa.reference_forward(q, k, v, mask, bias)
+    seg = arrs.get("seg")
+    seg = None if seg is None else torch.from_numpy(seg)
+    out, lse = fa.reference_forward(q, k, v, mask, bias, seg)
     *grads, dbias = fa.reference_backward(q, k, v, mask, t["g"], out, lse,
-                                          bias)
+                                          bias, seg)
     for x, want in zip(grads, (q, k, v)):
         assert x.dtype == want.dtype and x.shape == want.shape
     # the Function routes a CPU tensor to the same plain backward
@@ -102,7 +117,7 @@ def _port_grads(arrs, dtype, strided=False):
         assert dbias.dtype == bias.dtype and dbias.shape == bias.shape
         grads.append(dbias)
         inputs.append(bias.detach().requires_grad_(True))
-    o = fa.flash_attention(*inputs[:3], mask, *inputs[3:])
+    o = fa.flash_attention(*inputs[:3], mask, *inputs[3:], seg=seg)
     assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
     via_fn = torch.autograd.grad(o, inputs, t["g"])
     for a, b in zip(grads, via_fn, strict=True):
@@ -232,17 +247,98 @@ def test_bias_needing_a_gradient_takes_the_function():
     assert out.grad_fn is None
 
 
-@pytest.mark.parametrize("extra", ["seg"])
-def test_backward_with_bias_or_seg_names_its_slice(extra):
-    arrs = _mk(L=40, S=40, pad_tail=6)
-    q, k, v = (torch.from_numpy(arrs[n]).requires_grad_(True)
-               for n in ("q", "k", "v"))
-    seg = torch.zeros(2, 40, dtype=torch.int32)
-    seg[:, :20], seg[:, 20:34] = 1, 2
-    out = fa.flash_attention(q, k, v, torch.from_numpy(arrs["kv_mask"]),
-                             None, seg)              # the forward takes seg
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        out.sum().backward()
+def _packed_seg(B, L):
+    """[B, L] int32 segment ids of packed rows: segments of one token, of
+    16 tokens straddling the tiles of 16, several pages a row, a pad tail,
+    and the last batch row all pad (seg 0 everywhere)."""
+    seg = np.zeros((B, L), np.int32)
+    cuts = [(0, 13), (13, 14), (14, 34), (34, L - 6)]     # batch row 0
+    for s, (a, b) in enumerate(cuts):
+        seg[0, a:b] = s + 1
+    if B > 2:
+        seg[1, :7], seg[1, 7:L - 2] = 1, 2
+    return seg
+
+
+def _mk_seg(B=3, H=2, L=48, Dh=16, seed=0, bias=False, mask="packed"):
+    """Inputs of a packed batch: kv_mask = seg > 0, as the towers pass
+    it, or with `mask` "holes" also three real keys masked inside a
+    segment."""
+    arrs = (_mk_bias(bias_seed=seed + 7, B=B, H=H, L=L, S=L, Dh=Dh,
+                     seed=seed, pad_tail=0)
+            if bias else _mk(B=B, H=H, L=L, S=L, Dh=Dh, seed=seed,
+                             pad_tail=0))
+    arrs["seg"] = _packed_seg(B, L)
+    arrs["kv_mask"] = arrs["seg"] > 0
+    if mask == "holes":
+        arrs["kv_mask"][:, 20:23] = False
+    return arrs
+
+
+def _zero_pad_rows(arrs):
+    """The inputs with g zeroed at every pad row (seg 0), as a packed
+    model's upstream gradient is there."""
+    g = arrs["g"] * (arrs["seg"] > 0)[:, None, :, None]
+    return dict(arrs, g=g.astype(np.float32))
+
+
+SEG_CASES = {
+    "packed": dict(),
+    "packed_holes": dict(mask="holes"),
+    "packed_bias": dict(bias=True),
+    "packed_holes_bias": dict(bias=True, mask="holes"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_reference_backward_matches_jax(case, dtype):
+    """reference_backward with segment ids (the oracle of the seg variants
+    of K2, K3 and K4), and the Function through it, against jax.grad of the
+    JAX reference with seg, and against the Pallas backward with seg in
+    interpret mode on a packed model's upstream gradient (zero at the pad
+    rows)."""
+    arrs = _mk_seg(**SEG_CASES[case])
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    tol = F32 if dtype == "float32" else BF16
+    got = _port_grads(arrs, td)
+    names = ("dq", "dk", "dv", "dbias")[:len(got)]
+    for name, a, b in zip(names, got, _jax_autodiff_grads(arrs, jd),
+                          strict=True):
+        np.testing.assert_allclose(a, b, err_msg=f"{case} {name} jax.grad",
+                                   **tol)
+    packed = _zero_pad_rows(arrs)
+    got = _port_grads(packed, td)
+    for name, a, b in zip(names, got, _jax_kernel_grads(packed, jd),
+                          strict=True):
+        np.testing.assert_allclose(a, b, err_msg=f"{case} {name} Pallas",
+                                   **tol)
+
+
+def test_seg_pad_rows_and_pages_are_independent():
+    """At the pad rows (seg 0) the plain backward gives the fully masked
+    row's gradient (dv gets g/S at every key, no dq); where the Pallas
+    kernels rebuild p = 1 instead, their dv there is S times too large.
+    And a page's gradients do not depend on another page of its row."""
+    arrs = _mk_seg(mask="packed", seed=5)
+    got = _port_grads(arrs, torch.float32)
+    pad = arrs["seg"] == 0                                  # [B, L]
+    assert not got[0].transpose(0, 2, 1, 3)[pad].any()      # dq at pad rows
+    kern = _jax_kernel_grads(arrs, jnp.float32)
+    want = _jax_autodiff_grads(arrs, jnp.float32)
+    # the all-pad batch row: true dv = sum_l g / S at every key
+    last = arrs["g"][-1].sum(axis=1, keepdims=True) / arrs["seg"].shape[1]
+    np.testing.assert_allclose(got[2][-1], np.broadcast_to(
+        last, got[2][-1].shape), **F32)
+    np.testing.assert_allclose(kern[2][-1], 48 * want[2][-1], **F32)
+    # moving page 3 of batch row 0 leaves page 1's dq, dk and dv alone
+    other = {n: a.copy() for n, a in arrs.items() if a is not None}
+    for n in ("q", "k", "v"):
+        other[n][0, :, 14:34] += 1.0
+    again = _port_grads(other, torch.float32)
+    for a, b in zip(got, again):
+        np.testing.assert_allclose(a[0, :, :13], b[0, :, :13], **F32)
 
 
 def test_cpu_flash_tower_gets_gradients_through_the_function():

@@ -32,12 +32,19 @@ do (``mma.sync`` takes bf16 operands and sums in f32):
   over the groups in order. With g or ds rounded once, dq leaves the
   tolerance where attention is peaked (test_k2_needs_hi_lo_pairs).
 
+With segment ids (sequence packing) every kernel rounds as above; only the
+set of allowed pairs changes (a real key of the row's own segment > 0).
+
 The emulations are held against ``reference_attention`` and ``jax.grad``
 of it, and against the Pallas kernels in interpret mode (as
 tests/test_flash_attention.py runs them), at mT5's and BERT-mini's head
-shapes (Dh=64; L=S=128 with the T5 bias, L=S=64 without; a ragged case),
-with the tolerances of the JAX flash tests for bf16: 2e-2 on the output
-and the lse, 2e-2 relative + 2e-2 absolute on gradients."""
+shapes (Dh=64; L=S=128 with the T5 bias, L=S=64 without; a ragged case;
+packed rows with segment ids, with and without the bias), with the
+tolerances of the JAX flash tests for bf16: 2e-2 on the output and the
+lse, 2e-2 relative + 2e-2 absolute on gradients. Against the Pallas
+backward the packed cases zero the upstream gradient at the pad rows, as a
+packed model's is: the Pallas kernels rebuild p = 1 at a fully masked
+row (tests/test_torch_flash_backward.py)."""
 import math
 
 import jax
@@ -62,14 +69,15 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(BF16).float()
 
 
-def _scores(q, k, kv_mask, bias):
+def _scores(q, k, kv_mask, bias, seg=None):
     """[B,H,L,S] f32 scores as the kernels build them: allowed (a real
-    key), and masked with -1e30 where not."""
+    key, of the row's own segment with `seg`), and masked with -1e30 where
+    not."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhld,bhsd->bhls", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias[None].float()
-    allowed = kv_mask.bool()[:, None, None, :].expand_as(s)
+    allowed = fa.allowed_pairs(kv_mask, seg).expand_as(s)
     return torch.where(allowed, s, torch.full_like(s, fa.NEG_INF)), allowed
 
 
@@ -80,10 +88,10 @@ def k1_key_tile(S: int, bias) -> int:
     return min(KEY_TILE, -(-S // 16) * 16)
 
 
-def emulate_k1(q, k, v, kv_mask, bias=None):
+def emulate_k1(q, k, v, kv_mask, bias=None, seg=None):
     """(out, lse) as the bf16 K1 computes them (see the module
     docstring)."""
-    s, _ = _scores(q, k, kv_mask, bias)
+    s, _ = _scores(q, k, kv_mask, bias, seg)
     B, H, L, S = s.shape
     tile = k1_key_tile(S, bias)
     m = torch.full((B, H, L), -math.inf)
@@ -107,13 +115,14 @@ def _split(x):
     return hi, _bf16(x - hi)
 
 
-def emulate_k3(q, k, v, kv_mask, g, lse, delta, bias=None, split=True):
+def emulate_k3(q, k, v, kv_mask, g, lse, delta, bias=None, split=True,
+               seg=None):
     """(dk, dv) in f32 as the bf16 K3 computes them (see the module
     docstring); a fully masked row (lse <= -1e29) gets p = 1/S, ds = 0.
     `split=False` rounds g, p and ds once instead."""
     S = k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s, allowed = _scores(q, k, kv_mask, bias)
+    s, allowed = _scores(q, k, kv_mask, bias, seg)
     masked_row = (lse <= fa.MASKED_ROW_LSE)[..., None]
     p = torch.where(allowed, torch.exp(s - lse[..., None]),
                     torch.zeros_like(s))
@@ -136,14 +145,14 @@ def emulate_k3(q, k, v, kv_mask, g, lse, delta, bias=None, split=True):
 
 
 def emulate_k2(q, k, v, kv_mask, g, out, lse, bias=None, split_g=True,
-               split_ds=True):
+               split_ds=True, seg=None):
     """(dq, delta, dbias) in f32 as the bf16 K2 computes them, or K4 with a
     bias (dbias is None without one; see the module docstring); a fully
     masked row (lse <= -1e29) adds nothing to dq or dbias. `split_g=False`
     rounds g once instead of pairing it, `split_ds=False` ds."""
     B, S = k.shape[0], k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s, allowed = _scores(q, k, kv_mask, bias)
+    s, allowed = _scores(q, k, kv_mask, bias, seg)
     live = allowed & (lse > fa.MASKED_ROW_LSE)[..., None]
     p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
     delta = (g.float() * out).sum(-1)
@@ -381,3 +390,77 @@ def test_k2_needs_hi_lo_pairs(operand):
         torch.testing.assert_close(once.to(BF16).float(), want, **GRAD_TOL)
     dq = emulate_k2(q, k, v, mask, g, out, lse, bias)[0]
     torch.testing.assert_close(dq.to(BF16).float(), want, **GRAD_TOL)
+
+
+def _mk_packed(B, H, L, bias=False, seed=0, pack=4):
+    """numpy inputs of packed rows: `pack` pages a row of random lengths
+    (one of them a single token), a pad tail, kv_mask = seg > 0 as the
+    towers pass it, and the last batch row all pad."""
+    arrs = _mk(B, H, L, L, pad_tail=0, bias=bias, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    seg = np.zeros((B, L), np.int32)
+    for b in range(B - 1):
+        lens = rng.integers(1, L // pack, size=pack)
+        lens[b % pack] = 1
+        c = 0
+        for s, n in enumerate(lens):
+            seg[b, c:c + n] = s + 1
+            c += n
+    arrs["seg"] = seg
+    arrs["kv_mask"] = seg > 0
+    return arrs
+
+
+SEG_CASES = {
+    "packed_L64": dict(B=3, H=4, L=64),
+    "packed_L128_bias": dict(B=3, H=2, L=128, bias=True),
+    "packed_L96_bias": dict(B=4, H=2, L=96, bias=True, pack=2),
+}
+
+
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_rounding_matches_jax(case):
+    """The emulated bf16 K1, K2 (K4 with the bias) and K3 with segment ids:
+    out and lse against the JAX reference and the Pallas forward with seg;
+    dq, dk, dv (and dbias) against jax.grad of the reference with seg, the
+    Pallas backward with seg (g zeroed at the pad rows, as a packed model's
+    is) and the port's plain backward with seg."""
+    arrs = _mk_packed(**SEG_CASES[case])
+    q, k, v, mask, bias, g = _torch_inputs(arrs)
+    seg = torch.from_numpy(arrs["seg"])
+    out, lse = emulate_k1(q, k, v, mask, bias, seg)
+    jq, jk, jv, jmask, jbias, jg = _jax_inputs(arrs)
+    jseg = jnp.asarray(arrs["seg"])
+    want = np.asarray(jax_reference(jq, jk, jv, jmask, jbias, jseg))
+    np.testing.assert_allclose(out.numpy(), want, **FWD_TOL)
+    k_out, k_lse = _flash_forward(jq, jk, jv, jmask, jbias, jseg, 16, 16,
+                                  True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(k_out), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(k_lse), **FWD_TOL)
+
+    def grads(g):
+        dq, delta, dbias = emulate_k2(q, k, v, mask, g, out, lse, bias,
+                                      seg=seg)
+        dk, dv = emulate_k3(q, k, v, mask, g, lse, delta, bias, seg=seg)
+        got = [dq, dk, dv] + ([] if bias is None else [dbias])
+        return [x.numpy() for x in got]
+
+    names = ("dq", "dk", "dv", "dbias")
+    leaves = (jq, jk, jv) + (() if jbias is None else (jbias,))
+    _, vjp = jax.vjp(lambda *t: jax_reference(
+        *t[:3], jmask, t[3] if len(t) > 3 else None, jseg), *leaves)
+    for name, a, b in zip(names, grads(g), vjp(jg)):
+        np.testing.assert_allclose(a, np.asarray(b.astype(jnp.float32)),
+                                   err_msg=f"{name} jax.grad", **GRAD_TOL)
+    live = torch.from_numpy(arrs["seg"] > 0)[:, None, :, None]
+    g0 = g * live
+    kern = _flash_backward(jq, jk, jv, jmask, jbias, jseg, jnp.asarray(
+        g0.numpy()), k_out, k_lse, 16, 16, True)
+    got = grads(g0)
+    for name, a, b in zip(names, got, kern):
+        np.testing.assert_allclose(a, np.asarray(b.astype(jnp.float32)),
+                                   err_msg=f"{name} Pallas", **GRAD_TOL)
+    plain = fa.reference_backward(q, k, v, mask, g0, out, lse, bias, seg)
+    for name, a, b in zip(names, got, plain):
+        np.testing.assert_allclose(a, b.float().numpy(),
+                                   err_msg=f"{name} plain", **GRAD_TOL)

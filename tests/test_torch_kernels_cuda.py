@@ -12,7 +12,9 @@ launched. Tolerances are the JAX flash tests': 2e-5 for float32, 2e-2 for
 bfloat16 (bf16 operands, and the rounding of p to bf16 in K1, which the
 plain version does after normalising and the kernel before); on gradients
 1e-4 relative / 1e-5 absolute in float32 (tests/test_flash_attention.py:72)
-and 2e-2 in bfloat16."""
+and 2e-2 in bfloat16. The seg variants (sequence packing) are held to the
+same tolerances against the plain versions with seg. The two-card test
+skips with fewer than two cards."""
 import pytest
 import torch
 
@@ -207,15 +209,209 @@ def test_dq_dbias_kernel_is_bitwise_deterministic(cuda_device):
             assert torch.equal(a, b)
 
 
+def _packed_seg(B, L, pack=4, seed=0):
+    """[B, L] int32 segment ids of packed rows: `pack` pages a row, one of
+    them a single token, one straddling the 16- and 32-key tile edges, a
+    pad tail, and the last batch row all pad."""
+    g = torch.Generator().manual_seed(seed)
+    seg = torch.zeros(B, L, dtype=torch.int32)
+    for b in range(B - 1):
+        cuts = sorted(torch.randint(1, L - 2, (pack - 1,),
+                                    generator=g).tolist())
+        lens = [cuts[0]] + [c1 - c0 for c0, c1 in zip(cuts, cuts[1:])]
+        lens[b % len(lens)] = 1
+        c = 0
+        for s, n in enumerate(lens):
+            seg[b, c:c + n] = s + 1
+            c += n
+        seg[b, c:min(L - 2, c + 20)] = pack     # the last page, then pad
+    return seg
+
+
+def _seg_backward_inputs(device, B=6, H=2, L=48, Dh=64, dtype=torch.float32,
+                         bias=False, strided=False, unaligned=False, seed=0,
+                         pack=4):
+    """Packed inputs (kv_mask = seg > 0, as the towers pass it) with an
+    upstream gradient and the plain forward's out and lse."""
+    x = _inputs(device, B=B, H=H, L=L, S=L, Dh=Dh, dtype=dtype, pad_tail=0,
+                bias=bias, strided=strided, unaligned=unaligned, seed=seed)
+    x["seg"] = _packed_seg(B, L, pack, seed).to(device)
+    x["kv_mask"] = x["seg"] > 0
+    out, lse = fa.reference_forward(**x)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        seed + 1)).to(device)
+    return x, g, out, lse
+
+
+# The seg variants of K2, K3 and K4: the packed paths' head shape, head dims
+# 8, 24, 40 and 128, the query tile of L=16, an unaligned view, segments
+# of one token and across tile edges, a batch that is not a multiple of
+# K4's group, both dtypes, with and without the bias.
+SEG_CASES = {
+    "bert_long_bf16": dict(B=4, H=8, L=256, dtype=torch.bfloat16,
+                           strided=True),
+    "mt5_bias_bf16": dict(B=6, H=12, L=128, dtype=torch.bfloat16, bias=True,
+                          strided=True),
+    "dh8_bf16": dict(Dh=8, dtype=torch.bfloat16),
+    "dh24_bias_bf16": dict(Dh=24, dtype=torch.bfloat16, bias=True),
+    "dh40_bf16": dict(Dh=40, dtype=torch.bfloat16, L=37),
+    "dh128_bias_bf16": dict(Dh=128, L=130, dtype=torch.bfloat16, bias=True),
+    "dh128_bf16": dict(Dh=128, L=130, dtype=torch.bfloat16),
+    "L16_bf16": dict(B=8, L=16, dtype=torch.bfloat16, pack=2),
+    "unaligned_bias_bf16": dict(L=53, dtype=torch.bfloat16, bias=True,
+                                unaligned=True),
+    "odd_batch_bias_bf16": dict(B=11, dtype=torch.bfloat16, bias=True),
+    "packed_f32": dict(L=130, strided=True),
+    "packed_bias_f32": dict(B=11, L=53, bias=True),
+    "dh128_f32": dict(Dh=128, L=70),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("extra", ["seg"])
-def test_flash_backward_with_bias_or_seg_is_not_ported(cuda_device, extra):
-    x = _inputs(cuda_device, L=40, S=40, pad_tail=6, seg=True)
-    for n in ("q", "k", "v"):
-        x[n].requires_grad_(True)
-    out = fa.flash_attention(**x)          # the forward takes seg
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        out.sum().backward()
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
+    """K2 + K3, or K4 + K3 with the bias, with segment ids against the
+    plain backward with them; the all-pad batch row gets dv = sum_l g / S
+    and no dq or dk, and every pad row adds nothing to dq."""
+    x, g, out, lse = _seg_backward_inputs(cuda_device, **SEG_CASES[case])
+    q, k, v, mask, bias, seg = (x[n] for n in ("q", "k", "v", "kv_mask",
+                                               "bias", "seg"))
+    tc = q.dtype == torch.bfloat16
+    counts = lambda: [getattr(fa, n) for n in fa.COUNTERS]
+    before = counts()
+    got = fa.flash_backward(q, k, v, mask, g, out, lse, bias, seg)
+    torch.cuda.synchronize()
+    delta = dict(zip(fa.COUNTERS, (a - b for a, b in zip(counts(),
+                                                          before))))
+    dq_name = "dq_launches" if bias is None else "dq_dbias_launches"
+    assert delta[dq_name + "_seg"] == delta["dkv_launches_seg"] == 1
+    assert delta[dq_name + ("_tc" if tc else "_f32")] == 1
+    assert delta["dkv_launches" + ("_tc" if tc else "_f32")] == 1
+    want = fa.reference_backward(q, k, v, mask, g, out, lse, bias, seg)
+    names = ("dq", "dk", "dv", "dbias")[:3 if bias is None else 4]
+    for name, a, b, t in zip(names, got, want, (q, k, v, bias)):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), msg=name,
+                                   **GRAD_TOL[q.dtype])
+    S = k.shape[2]
+    want_dv = (g[-1].float().sum(dim=1, keepdim=True) / S).expand_as(v[-1])
+    torch.testing.assert_close(got[2][-1].float(), want_dv,
+                               **GRAD_TOL[q.dtype])
+    assert not got[0][-1].any() and not got[1][-1].any()
+    pad = (seg == 0)[:, None, :, None].expand_as(got[0])
+    assert not got[0][pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["k2_k3", "k4_k3"])
+def test_seg_bwd_kernels_are_bitwise_deterministic(cuda_device, bias):
+    x, g, out, lse = _seg_backward_inputs(cuda_device, B=19, H=8, L=128,
+                                          dtype=torch.bfloat16, bias=bias,
+                                          strided=True)
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], g, out, lse, x["bias"],
+            x["seg"])
+    first = fa.flash_backward(*args)
+    for _ in range(3):
+        for a, b in zip(first, fa.flash_backward(*args)):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_forward_seg_counts_and_matches(cuda_device):
+    """K1 with seg counts as a seg launch, at L=S=1024 (bert_long_sp's
+    packed row) too."""
+    for L, dtype in ((40, torch.float32), (1024, torch.bfloat16)):
+        x, _, want_out, want_lse = _seg_backward_inputs(
+            cuda_device, B=3, H=2, L=L, dtype=dtype)
+        before = fa.launches_seg
+        out, lse = fa.flash_forward(**x)
+        torch.cuda.synchronize()
+        assert fa.launches_seg == before + 1
+        tol = TOL[dtype]
+        torch.testing.assert_close(out, want_out, rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_card_that_is_not_current(cuda_device):
+    """K1, K2, K3 and K4 (bf16 and f32) on cuda:1 while cuda:0 is the
+    current device: each wrapper launches on the tensors' card, whose
+    shared-memory grants are its own, and gives the plain version's
+    result."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for bias in (False, True):
+            x, g, out, lse = _seg_backward_inputs(other, B=4, H=2, L=96,
+                                                  dtype=dtype, bias=bias)
+            args = (x["q"], x["k"], x["v"], x["kv_mask"])
+            got_out, got_lse = fa.flash_forward(*args, x["bias"], x["seg"])
+            got = fa.flash_backward(*args, g, out, lse, x["bias"], x["seg"])
+            torch.cuda.synchronize(other)
+            assert torch.cuda.current_device() == 0
+            tol = TOL[dtype]
+            torch.testing.assert_close(got_out, out, rtol=tol, atol=tol)
+            want = fa.reference_backward(*args, g, out, lse, x["bias"],
+                                         x["seg"])
+            for a, b in zip(got, want):
+                if b is not None:
+                    assert a.device == other
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               **GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bert", "t5"])
+def test_cuda_packed_tower_takes_the_seg_kernels(cuda_device, variant):
+    """A packed flash tower on the card (bf16): K1, K2 or K4, and K3 once
+    a layer, each with seg and on the tensor cores; its gradients agree
+    with the packed dense tower's and are bitwise equal run to run."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import pack_segments
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    name = "bert_mini_v5p16" if variant == "bert" else "mt5_multilingual"
+    ov = {"model.num_layers": 2, "model.model_dim": 64, "model.num_heads": 4,
+          "model.mlp_dim": 128, "model.out_dim": 32, "model.dropout": 0.0,
+          "data.page_len": 128}
+    towers = {}
+    for att in ("flash", "dense"):
+        cfg = get_config(name, {**ov, "model.attention": att})
+        towers[att] = build_two_tower(cfg, vocab_size=256,
+                                      device=cuda_device).train()
+    towers["dense"].load_state_dict(towers["flash"].state_dict())
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(1, 33, (32,), generator=gen)
+    enc = torch.randint(1, 256, (32, 128), generator=gen)
+    enc[torch.arange(128)[None, :] >= lens[:, None]] = 0
+    rows, seg, pos = (torch.from_numpy(t).to(cuda_device)
+                      for t in pack_segments(enc.int().numpy(), 4))
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        model.encode_page(rows, seg=seg, pos=pos, nseg=4).square().sum(
+        ).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    counts = lambda: [getattr(fa, n) for n in fa.COUNTERS]
+    before = counts()
+    flash = grads(towers["flash"])
+    delta = dict(zip(fa.COUNTERS, (a - b for a, b in zip(counts(),
+                                                          before))))
+    dq = "dq_launches" if variant == "bert" else "dq_dbias_launches"
+    for n in ("launches", dq, "dkv_launches"):
+        assert delta[n] == delta[n + "_seg"] == delta[n + "_tc"] == 2, delta
+    dense = grads(towers["dense"])
+    for n in ("wq", "wk", "wv"):
+        key = f"page_tower.block0.attn.{n}.weight"
+        rel = ((flash[key] - dense[key]).norm() / dense[key].norm()).item()
+        assert flash[key].abs().max() > 0 and rel < 2e-2, (key, rel)
+    again = grads(towers["flash"])
+    for key, gf in flash.items():
+        assert torch.equal(gf, again[key]), key
 
 
 @pytest.mark.cuda
