@@ -67,13 +67,19 @@ Phases, each printing one JSON line:
      toy pages of 20 words a step (512 rows of 128 tokens) over phase 6's
      vocab; K1, K4 and K3 launch 24 times a step, 12 of each with segment
      ids and the bias.
-The kernel checks of phase 3 also hold the segment (seg) variants of K2,
-K3 and K4, bf16 and f32, against the plain backward with seg at both
-packed paths' shapes and at the edge cases (a row that is all pad, a
-segment of one token, segments across tile edges), with K1 at L=S=1,024
-with seg, and time them. Then the `kernels` line, the card's name and
-power limit as nvidia-smi prints them, and last {"ok": true, "device":
-{...}}.
+The kernel checks also hold the segment (seg) variants of K2, K3 and K4,
+bf16 and f32, against the plain backward with seg at both packed paths'
+shapes, at the segment ids of phase 8's first batch (phase 4's corpus and
+vocab are built before these checks for it) and at the edge cases (a row
+that is all pad, a segment of one token, segments across tile edges, ids
+that are not contiguous, a segment whose keys are all masked, one
+segment over the row, a ragged length), with K1 at L=S=1,024 with seg;
+the segment summary kernel (run before the bf16 K2 and K3 with seg,
+whose tile skip it serves) against its plain versions; and time them,
+each bf16 seg time beside the share of tiles and 16 x 16 chunks the
+kernels visit. Bounds count the pairs the segments allow. Then the
+`kernels` line, the card's name and power limit as nvidia-smi prints
+them, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the port is not importable (run from the root of a checkout), or when any
@@ -259,12 +265,38 @@ def plain_backward(q, k, v, kv_mask, g, out, lse, bias=None, seg=None
     return dq, dk, dv, dbias
 
 
+def seg_layout(layout: str, B: int, L: int, gen) -> tuple:
+    """([B, L] int32 segment ids, [B, L] kv mask) of an edge case of the
+    skipping K2 and K3, the last batch row all pad in each: "interleaved"
+    (runs of 5 positions with ids from 0 to PACK: ids reused along the row
+    and not in order, pads between them), "masked_segment" (packed_seg with
+    every key of segment 2 masked: its rows see no key), "all_pad"
+    (packed_seg with every other row all pad), "one_segment" (one segment
+    over the whole row: every tile visited)."""
+    if layout == "interleaved":
+        runs = torch.randint(0, PACK + 1, (B, -(-L // 5)), generator=gen)
+        seg = runs.repeat_interleave(5, dim=1)[:, :L].to(torch.int32)
+    elif layout == "one_segment":
+        seg = torch.ones(B, L, dtype=torch.int32)
+    else:
+        seg = packed_seg(B, L, gen)
+        if layout == "all_pad":
+            seg[::2] = 0
+    seg[-1] = 0
+    mask = seg > 0
+    if layout == "masked_segment":
+        mask &= seg != 2
+    return seg, mask
+
+
 def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
-              seg=False, strided=False, unaligned=False, packed=False):
+              seg=False, strided=False, unaligned=False, packed=False,
+              layout=None, seg_ids=None):
     """q, k, v, kv_mask and optionally the bias and segment ids: `seg`
     three pages per row beside a padding mask, `packed` rows as
     packed_seg makes them with kv_mask = seg > 0, as the towers pass
-    it."""
+    it; `layout` one of seg_layout's; `seg_ids` [B, L] given ids (kv_mask
+    = seg_ids > 0)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     if strided:      # [B, len, H, Dh] viewed as [B, H, len, Dh], as the
         q, k, v = (torch.randn(B, n, H, Dh, generator=g)   # towers pass it
@@ -295,6 +327,12 @@ def k1_inputs(B, H, L, S, Dh, dtype, device, seed, pad="tail", bias=False,
     if packed:
         out["seg"] = packed_seg(B, L, g).to(device)
         out["kv_mask"] = out["seg"] > 0
+    if layout is not None:
+        ids, mask = seg_layout(layout, B, L, g)
+        out["seg"], out["kv_mask"] = ids.to(device), mask.to(device)
+    if seg_ids is not None:
+        out["seg"] = seg_ids.to(device, torch.int32)
+        out["kv_mask"] = out["seg"] > 0
     return out
 
 
@@ -318,15 +356,37 @@ TC_EDGE_CASES = {
 }
 
 
+def pair_count(x) -> int:
+    """The (row, key) pairs the scores of one head count at: B * L * S, or
+    with segment ids the sum over batch rows and segments of the segment's
+    rows times its real keys (the pairs allowed_pairs allows), without a
+    [B, L, S] array."""
+    B, L = x["q"].shape[0], x["q"].shape[2]
+    S = x["k"].shape[2]
+    seg = x.get("seg")
+    if seg is None:
+        return B * L * S
+    ids = seg.long()
+    live = ids > 0
+    batch = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
+    _, which = torch.unique(torch.stack([batch[live], ids[live]], 1), dim=0,
+                            return_inverse=True)
+    rows = torch.bincount(which).double()
+    keys = torch.bincount(which, weights=x["kv_mask"][live].double())
+    return int((rows * keys).sum().item())
+
+
 def k1_bound(x) -> dict:
+    """Least time of K1 for these inputs: each input read once, out and
+    lse written once, against the operations over the pairs that
+    pair_count counts (the work these inputs need)."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
-    S = k.shape[2]
     nbytes = sum(t.numel() * t.element_size() for t in
                  (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["seg"])
                  if t is not None)
     nbytes += B * H * L * Dh * 4 + B * H * L * 4       # out, lse (f32)
-    flops = 4.0 * B * H * L * S * Dh                     # q.k^T and p.v
+    flops = 4.0 * H * pair_count(x) * Dh                 # q.k^T and p.v
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return {"bytes": nbytes, "flops": flops,
@@ -483,14 +543,13 @@ def k23_inputs(device, seed, **case):
 def bwd_bound(x) -> dict:
     """Least time of the dq kernel (K2, or K4 with a bias) and of K3 for
     these inputs: each input read once, each output written once, against
-    the operations each does (2 flops per multiply-add) at the peak rate
+    the operations each needs (2 flops per multiply-add) at the peak rate
     of q's type. With a bias K4 also reads it and writes dbias, and K3
-    reads it; segment ids are read by both. The operations count the
-    whole L x S work (the kernels visit every tile, as the Pallas kernels
-    do, whatever the segments allow)."""
+    reads it; segment ids are read by both. The operations count the pairs
+    these inputs allow (pair_count: with segment ids, each segment's rows
+    times its real keys), not the whole L x S."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
-    S = k.shape[2]
     nb = lambda t: 0 if t is None else t.numel() * t.element_size()
     row = B * H * L * 4                                  # lse or delta, f32
     mask = nb(x["kv_mask"]) + nb(x.get("seg"))
@@ -499,7 +558,7 @@ def bwd_bound(x) -> dict:
                 + mask + 2 * bias + nb(q) + row)         # + dq, delta, dbias
     dkv_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + 2 * row + mask
                  + bias + nb(k) + nb(x["v"]))            # + dk, dv
-    mac = 2.0 * B * H * L * S * Dh                       # one [L,S,Dh] product
+    mac = 2.0 * H * pair_count(x) * Dh                   # one [L,S,Dh] product
     out = {}
     for name, nbytes, flops in (("dq", dq_bytes, 3 * mac),     # s, dp, dq
                                 ("dkv", dkv_bytes, 4 * mac)):  # s, dp, dk, dv
@@ -509,6 +568,64 @@ def bwd_bound(x) -> dict:
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     return out
+
+
+def visit_shares(x) -> dict:
+    """With segment ids: the share of the bf16 K2's and K3's tiles (K2 is
+    absent with a bias) and of the 16 x 16 chunks that the skipping kernels
+    visit, by their rule, from the plain summary; and the share of pairs
+    the segments allow."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    B, _, L, _ = x["q"].shape
+    S = x["k"].shape[2]
+    summary = fa.seg_summary(x["seg"])
+    share = lambda rows, keys: fa.visited_tiles(summary, rows, keys
+                                                ).float().mean().item()
+    out = {f"{n}_tiles": share(*tiles) for n, tiles in
+           fa.tile_shapes(L, S, x["bias"] is not None).items()}
+    out["chunks_16x16"] = share(16, 16)
+    out["allowed_pairs"] = pair_count(x) / (B * L * S)
+    return out
+
+
+def check_summary(case: str, x: dict) -> dict:
+    """The segment summary kernel against its plain versions (seg_summary
+    exactly; dead_rows_sum exactly: both sum in f32 in row order) at a
+    case's inputs, and its time, the plain versions' and its bound (it
+    reads seg, lse and g at the dead rows, writes the summary and gdead);
+    raises on a disagreement."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    seg, lse, g = x["seg"], x["lse"], x["g"]
+    before = fa.seg_summary_launches
+    summary, gdead = fa.launch_seg_summary(seg, lse, g)
+    torch.cuda.synchronize()
+    want_sum, want_dead = fa.seg_summary(seg), fa.dead_rows_sum(g, lse)
+    err = (gdead - want_dead).abs().max().item()
+    ok = (fa.seg_summary_launches == before + 1
+          and torch.equal(summary, want_sum) and torch.equal(gdead, want_dead))
+    B, H, L, Dh = g.shape
+    dead = int((lse <= fa.MASKED_ROW_LSE).sum().item())
+    nbytes = (seg.numel() * 4 + lse.numel() * 4 + dead * Dh * 4
+              + summary.numel() * 4 + gdead.numel() * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = dead * Dh / PEAK_FLOPS[torch.float32] * 1e3
+    rec = {"phase": "seg_summary_check", "case": case, "shape": [B, H, L, Dh],
+           "summary_equal": torch.equal(summary, want_sum),
+           "gdead_equal": torch.equal(gdead, want_dead),
+           "max_abs_err": err, "dead_rows": dead,
+           "ms": cuda_ms(lambda: fa.launch_seg_summary(seg, lse, g)),
+           "plain_ms": cuda_ms(lambda: (fa.seg_summary(seg),
+                                        fa.dead_rows_sum(g, lse)),
+                               iters=3, warmup=1),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "ok": ok,
+           "plain_call": "seg_summary and dead_rows_sum"}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"the segment summary kernel disagrees with its "
+                             f"plain versions: {rec}")
+    return rec
 
 
 def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
@@ -525,7 +642,7 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
                  fa.dq_launches_seg + fa.dq_dbias_launches_seg),
                 (fa.dkv_launches_tc, fa.dkv_launches_f32,
                  fa.dkv_launches_seg))
-    before = split()
+    before, summaries = split(), fa.seg_summary_launches
     got = fa.flash_backward(*args)
     torch.cuda.synchronize()
     took = [tuple(a_ - b_ for a_, b_ in zip(a, b))
@@ -535,6 +652,11 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
     if took != [want, want]:
         raise AssertionError(f"case {name} ({c['dtype']}) launched (K2 or K4, "
                              f"K3) as (tensor-core, CUDA-core, seg) {took}")
+    # the bf16 K2 and K3 with seg share one summary launch
+    summaries = fa.seg_summary_launches - summaries
+    if summaries != int(seg is not None and c["dtype"] == torch.bfloat16):
+        raise AssertionError(f"case {name} launched the segment summary "
+                             f"kernel {summaries} times")
     want = plain_backward(*args)
     rtol, atol = GRAD_TOL[c["dtype"]]
     names = ("dq", "dk", "dv", "dbias")[:3 if x["bias"] is None else 4]
@@ -556,16 +678,20 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
               * dv_want.abs().max().item()
               and not got[0][0::2].any() and not got[1][0::2].any())
     if seg is not None:
-        # the last batch row is all pad: dv = sum_l g / S at every key, no
-        # dq or dk; no pad row adds to dq
-        S = x["k"].shape[2]
-        dv_want = (x["g"][-1].sum(dim=1, keepdim=True) / S
-                   ).expand_as(got[2][-1])
-        errs["pad_row_dv"] = (got[2][-1].float() - dv_want).abs().max().item()
-        pad = (seg == 0)[:, None, :, None].expand_as(got[0])
-        ok = (ok and errs["pad_row_dv"] <= atol + rtol
-              * dv_want.abs().max().item()
-              and not got[1][-1].any() and not got[0][pad].any())
+        # no row that sees no key (a pad row, or one of a segment whose keys
+        # are all masked) adds to dq; where the last batch row is all pad
+        # (every case but a training batch's layout): dv = sum_l g / S at
+        # every key there, and no dk
+        dead = (x["lse"] <= fa.MASKED_ROW_LSE)[..., None].expand_as(got[0])
+        ok = ok and not got[0][dead].any()
+        if not seg[-1].any():
+            S = x["k"].shape[2]
+            dv_want = (x["g"][-1].sum(dim=1, keepdim=True) / S
+                       ).expand_as(got[2][-1])
+            errs["pad_row_dv"] = (got[2][-1].float() - dv_want
+                                  ).abs().max().item()
+            ok = (ok and errs["pad_row_dv"] <= atol + rtol
+                  * dv_want.abs().max().item() and not got[1][-1].any())
     rec = {"phase": phase, "case": name,
            "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
            "dtype": str(c["dtype"]).replace("torch.", ""),
@@ -589,9 +715,15 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
     bias, out, lse, seg = x["bias"], x["out"], x["lse"], x.get("seg")
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    # the bf16 K2 and K3 with seg take the segment summary, launched once
+    # per backward (inside the pair's time, timed alone below)
+    summary = gdead = None
+    if seg is not None and q.dtype == torch.bfloat16:
+        summary, gdead = fa.launch_seg_summary(seg, lse, g)
     if bias is None:
         names = ("k2_ms", "k3_ms", "k2_k3_ms")
-        dq_fn = lambda: fa.launch_dq(q, k, v, mask, g, out, lse, seg)
+        dq_fn = lambda: fa.launch_dq(q, k, v, mask, g, out, lse, seg,
+                                     summary)
         pair = "K2 + K3"
     else:
         names = ("k4_ms", "k3_bias_ms", "k4_k3_ms")
@@ -609,7 +741,7 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     t = {
         names[0]: cuda_ms(dq_fn),
         names[1]: cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta,
-                                                bias, seg)),
+                                                bias, seg, summary, gdead)),
         names[2]: cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
                                                     lse, bias, seg)),
         "plain_ms": cuda_ms(lambda: plain_backward(
@@ -618,6 +750,10 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, g_lib, retain_graph=True)),
     }
+    if summary is not None:
+        t["seg_summary_ms"] = cuda_ms(
+            lambda: fa.launch_seg_summary(seg, lse, g))
+        t["visited"] = visit_shares(x)
     b = bwd_bound(x)
     B, H, L, Dh = q.shape
     # blocks of the dq kernel an SM holds at this shape (the tensor-core
@@ -792,27 +928,61 @@ SEG_EDGE_CASES = {
                            dtype=torch.bfloat16),
     "odd_batch_f32": dict(B=11, H=2, L=48, S=48, Dh=64, dtype=torch.float32),
     "dh128_f32": dict(B=2, H=2, L=130, S=130, Dh=128, dtype=torch.float32),
+    # the layouts of seg_layout, which the skipping K2 and K3 must not trip
+    # on, over many tiles (S at most 512: the bf16 K4 of the bias
+    # variants); and a ragged L = S, not a multiple of 64
+    "interleaved_bf16": dict(B=8, H=8, L=512, S=512, Dh=64,
+                             dtype=torch.bfloat16, layout="interleaved"),
+    "masked_segment_bf16": dict(B=8, H=8, L=512, S=512, Dh=64,
+                                dtype=torch.bfloat16, strided=True,
+                                layout="masked_segment"),
+    "all_pad_bf16": dict(B=8, H=4, L=512, S=512, Dh=64, dtype=torch.bfloat16,
+                         layout="all_pad"),
+    "one_segment_bf16": dict(B=4, H=4, L=512, S=512, Dh=64,
+                             dtype=torch.bfloat16, layout="one_segment"),
+    "ragged_L451_bf16": dict(B=6, H=8, L=451, S=451, Dh=64,
+                             dtype=torch.bfloat16),
+    "masked_segment_f32": dict(B=5, H=2, L=200, S=200, Dh=64,
+                               dtype=torch.float32, layout="masked_segment"),
 }
 
 
-def check_seg(device) -> dict:
+def train_layout_seg(data) -> torch.Tensor:
+    """[256, 1024] int32 segment ids of the packed bert_long_sp cell's
+    first batch (TrainBatcher(pack=4) over its 215-word pages, as phase 8
+    trains on them): the layout the step runs. `data` is packed_data's."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import TrainBatcher
+    corpus, q_tok, p_tok = data
+    batch = next(iter(TrainBatcher(corpus, q_tok, p_tok, LONG_TRAIN_BATCH,
+                                   seed=get_config(LONG).train.seed,
+                                   pack=PACK)))
+    return torch.from_numpy(batch["page_seg"])
+
+
+def check_seg(device, train_seg) -> dict:
     """The seg variants of K2, K3 and K4 (through flash_backward with
     segment ids) against reference_backward with them, at both packed
-    paths' shapes (bf16 at the full batch, f32 at a cut one) and the edge
-    cases; two runs of each bitwise equal; each timed at the packed
-    shapes."""
+    paths' shapes (bf16 at the full batch, f32 at a cut one), at the
+    training layout `train_seg` (train_layout_seg's) and the edge cases;
+    the segment summary kernel against its plain versions; two runs of
+    each bitwise equal; each timed at the packed shapes, bert_long_sp's
+    at both layouts (packed_seg's and the training batch's)."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     rows_long, rows_mt5 = LONG_TRAIN_BATCH // PACK, MT5_PACK_TRAIN_BATCH // PACK
     long_c = dict(B=rows_long, H=8, L=1024, S=1024, Dh=64,
                   dtype=torch.bfloat16, strided=True, packed=True)
+    train_c = {**long_c, "packed": False, "seg_ids": train_seg}
     mt5_c = dict(B=rows_mt5, H=12, L=128, S=128, Dh=64, dtype=torch.bfloat16,
                  bias=True, strided=True, packed=True)
     cases = {
         "bert_long_packed_bf16": long_c,
+        "bert_long_train_layout_bf16": train_c,
         "mt5_packed_bias_bf16": mt5_c,
         "bert_long_packed_f32": {**long_c, "B": 8, "dtype": torch.float32},
         "mt5_packed_bias_f32": {**mt5_c, "B": 64, "dtype": torch.float32},
-        **{f"{n}{'_bias' if b else ''}": {**c, "bias": b, "packed": True}
+        **{f"{n}{'_bias' if b else ''}": {
+            **c, "bias": b, "packed": "layout" not in c}
            for n, c in SEG_EDGE_CASES.items() for b in (False, True)},
     }
     worst = {}
@@ -823,10 +993,13 @@ def check_seg(device) -> dict:
                        "dbias": errs.get("dbias", 0.0),
                        "dtype": str(c["dtype"]).replace("torch.", "")}
         del x
-    out = {"worst": worst}
-    for key, case, c, seed in (("long", "bert_long_packed_bf16", long_c, 700),
-                               ("mt5", "mt5_packed_bias_bf16", mt5_c, 701)):
+    out = {"worst": worst, "summary": {}}
+    for key, case, c, seed in (
+            ("long", "bert_long_packed_bf16", long_c, 700),
+            ("long_train", "bert_long_train_layout_bf16", train_c, 702),
+            ("mt5", "mt5_packed_bias_bf16", mt5_c, 701)):
         x = k23_inputs(device, seed=seed, **c)
+        out["summary"][key] = check_summary(case, x)
         if x["bias"] is None:
             bitwise = k2_bitwise(x, case)
             delta = fa.launch_dq(x["q"], x["k"], x["v"], x["kv_mask"], x["g"],
@@ -854,8 +1027,8 @@ def check_seg(device) -> dict:
 
 def device_breakdown(fn, iters: int = 5) -> dict:
     """Device time of fn() by kernel class, from torch.profiler (CUPTI):
-    per-call milliseconds of K1, K2, K3, K4, of matrix products, and of
-    the rest; of those of K2, K3 and K4, the seg variants' share (their
+    per-call milliseconds of K1, K2, K3, K4, the segment summary kernel,
+    of matrix products, and of the rest; of those of K2, K3 and K4, the seg variants' share (their
     last template flag; K1 tests seg at run time, so its kernel names do
     not tell); plus the six largest kernels by name."""
     from torch.profiler import ProfilerActivity, profile
@@ -874,7 +1047,7 @@ def device_breakdown(fn, iters: int = 5) -> dict:
         raise AssertionError("torch.profiler recorded no device time")
     classes = {"k1_flash_fwd": 0.0, "k2_flash_bwd_dq": 0.0,
                "k3_flash_bwd_dkv": 0.0, "k4_flash_bwd_dq_dbias": 0.0,
-               "matmul": 0.0, "other": 0.0}
+               "seg_summary": 0.0, "matmul": 0.0, "other": 0.0}
     seg = {"k2_seg": 0.0, "k3_seg": 0.0, "k4_seg": 0.0}
     for name, ms in kernels:
         low = name.lower()
@@ -887,6 +1060,8 @@ def device_breakdown(fn, iters: int = 5) -> dict:
             seg[kind] += ms
         if "flash_fwd" in low:
             classes["k1_flash_fwd"] += ms
+        elif "seg_summary" in low:       # before K2 and K3 with seg
+            classes["seg_summary"] += ms
         elif "dbias" in low:             # K4's two launches
             classes["k4_flash_bwd_dq_dbias"] += ms
         elif "flash_bwd_dq" in low:
@@ -1246,8 +1421,10 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     biased = m.encoder == "t5"           # K4 replaces K2 on the bias path
     per_step = [per_layer, 0 if biased else per_layer, per_layer,
                 per_layer if biased else 0]
-    # with packing, the page tower's launches (one per layer) take seg
+    # with packing, the page tower's launches (one per layer) take seg, and
+    # each of its backward calls launches the segment summary kernel once
     seg_step = [n // 2 if pack > 1 else 0 for n in per_step]
+    summary_step = seg_step[2]
     names = ("k1", "k2", "k3", "k4")
 
     def new_trainer():
@@ -1273,7 +1450,12 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     tensor_core = {"k1": fa.launches_tc, "k2": fa.dq_launches_tc,
                    "k3": fa.dkv_launches_tc, "k4": fa.dq_dbias_launches_tc}
     with_seg = dict(zip(names, seg_counts()))
+    summaries = fa.seg_summary_launches
     # ------------------------------------------------------------------
+    if summaries != TRAIN_STEPS * summary_step:
+        raise AssertionError(f"the segment summary kernel launched "
+                             f"{summaries} times in {TRAIN_STEPS} steps, "
+                             f"want {TRAIN_STEPS * summary_step}")
     if launches != [TRAIN_STEPS * n for n in per_step]:
         raise AssertionError(f"K1/K2/K3/K4 launched {launches} times in "
                              f"{TRAIN_STEPS} steps, want "
@@ -1351,10 +1533,13 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     straight.train_step(batches[0])
     torch.cuda.synchronize()
     one_step = counts()
-    if one_step != per_step or seg_counts() != seg_step:
+    summaries_one_step = fa.seg_summary_launches
+    if (one_step != per_step or seg_counts() != seg_step
+            or summaries_one_step != summary_step):
         raise AssertionError(f"one step launched K1/K2/K3/K4 {one_step} "
-                             f"times ({seg_counts()} with seg), want "
-                             f"{per_step} ({seg_step})")
+                             f"times ({seg_counts()} with seg, the summary "
+                             f"{summaries_one_step}), want {per_step} "
+                             f"({seg_step}, {summary_step})")
     profile = device_breakdown(lambda: straight.train_step(batches[1]),
                                iters=1)
     # where the host waits for the device inside a step: PyTorch warns at
@@ -1448,6 +1633,8 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
         "launches_tensor_core_main_path": tensor_core,
         "launches_seg_main_path": with_seg,
         "launches_one_step": dict(zip(names, one_step)),
+        "seg_summary_launches_main_path": summaries,
+        "seg_summary_launches_one_step": summaries_one_step,
         "losses": losses, "history": hist,
         "timed_vs_main_path_loss_max_diff": main_diff,
         "resume_loss_max_diff": resume_diff,
@@ -1482,7 +1669,7 @@ def ptxas_summary(log: str) -> list:
             mangled = m.group(1)
             base = re.search(r"flash_[a-z_]+?_kernel", mangled)
             name = base.group(0) if base else mangled
-            if base and "dbias_sum" not in name:
+            if base and "dbias_sum" not in name and "summary" not in name:
                 # the tensor-core kernels take bf16 only, the rest f32;
                 # the template arguments follow the name: Li64E the head-
                 # dim width DP, Lb1E / Lb0E a bool flag set / unset
@@ -1508,25 +1695,33 @@ def ptxas_summary(log: str) -> list:
     return out or [log[-200:]]
 
 
-def run_ab(parent: str) -> dict:
+def run_ab(parent: str, seg_file: str) -> dict:
     """scripts/bwd_ab.py over the tree `parent` and this checkout in turns
     (parent, this, this, parent), one process per tree on this card: each
-    kernel's time in each run at the shapes the script names, with CUDA
-    events around back-to-back calls and as the profiler's device time."""
+    kernel's time in each run at the shapes the script names (the seg
+    kernels also at the training layout saved in `seg_file`), with CUDA
+    events around back-to-back calls and as the profiler's device time;
+    and whether every run's K2 with seg gave the same dq up to the sign of
+    a zero."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     proc = subprocess.run(
         [sys.executable, os.path.join(here, "scripts", "bwd_ab.py"), parent,
-         here, here, parent], capture_output=True, text=True, timeout=900,
-        check=False)
+         here, here, parent, "--train-seg", seg_file], capture_output=True,
+        text=True, timeout=900, check=False)
     if proc.returncode != 0:
         raise AssertionError(f"scripts/bwd_ab.py failed:\n"
                              f"{proc.stderr[-3000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])["summary"]
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = last["summary"]
     rec = {"phase": "ab", "script": "scripts/bwd_ab.py", "parent": parent,
            "order": "parent, this, this, parent",
-           "parent_ms": summary[parent], "this_ms": summary[here]}
+           "parent_ms": summary[parent], "this_ms": summary[here],
+           "k2_seg_dq_equal": last["k2_seg_dq_equal"]}
     emit(rec)
+    if not all(last["k2_seg_dq_equal"].values()):
+        raise AssertionError(f"K2 with seg gave another dq than the parent "
+                             f"tree's: {last['k2_seg_dq_equal']}")
     return rec
 
 
@@ -1563,12 +1758,18 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
     report["k23"] = check_k23(device, "page_train_bf16", "query_train_bf16")
     report["k4"] = check_k4(device, "mt5_page_train_bf16",
                             "mt5_query_train_bf16")
-    report["seg"] = check_seg(device)
-    if parent is not None:
-        report["ab"] = run_ab(parent)
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
+        # phase 4's corpus and vocab first: the seg kernels are also timed
+        # at the segment ids of phase 8's first batch
         bert = build_data("bert_mini_v5p16", N_PAGES)
+        long_data = packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert)
+        train_seg = train_layout_seg(long_data)
+        report["seg"] = check_seg(device, train_seg)
+        if parent is not None:
+            seg_file = os.path.join(tmp, "train_seg.pt")
+            torch.save(train_seg, seg_file)
+            report["ab"] = run_ab(parent, seg_file)
         report["slice"] = run_slice(device, "bert_mini_v5p16", N_PAGES,
                                     N_QUERIES, tmp, bert)
         report["train"] = run_training(device, "bert_mini", bert, tmp)
@@ -1581,9 +1782,8 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
                                         tmp, mt5)
         report["mt5_train"] = run_training(device, "mt5", mt5, tmp)
         # phases 8 and 9: packed training over the vocabs of phases 4, 6
-        report["long_train"] = run_training(
-            device, "bert_long_packed",
-            packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert), tmp)
+        report["long_train"] = run_training(device, "bert_long_packed",
+                                            long_data, tmp)
         report["mt5_pack_train"] = run_training(
             device, "mt5_packed",
             packed_data(MT5, MT5_PACK_PAGE_WORDS, MT5_PACK_PAGES, mt5), tmp)
@@ -1757,7 +1957,8 @@ def kernel_entries(report: dict) -> list:
                        f"B={MT5_TRAIN_BATCH} H=12 L=S=16 Dh=64 bf16 q/k/v, "
                        "f32 g, f32 bias", "k4_query_ms")},
         *seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
-                     mt5p_shape)]
+                     mt5p_shape),
+        summary_entry(seg, training, ptxas, parent, long_shape)]
 
 
 def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
@@ -1767,7 +1968,7 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
     segments' mask) at the packed paths' shapes, launches with segment ids
     on the main paths (run_training fails unless every launch of a packed
     path took the tensor cores)."""
-    long, mt5 = seg["long"], seg["mt5"]
+    long, train, mt5 = seg["long"], seg["long_train"], seg["mt5"]
     worst = seg["worst"].values()
     biased = [w for n, w in seg["worst"].items() if "bias" in n]
     plain = [w for n, w in seg["worst"].items() if "bias" not in n]
@@ -1779,7 +1980,10 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
                 "bound_ms": rec["bound"][bound]["bound_ms"],
                 "bound_by": rec["bound"][bound]["bound_by"],
                 "library_ms": rec["library_ms"], pair: rec[pair],
-                "plain_and_library_cover": pair_key}
+                "plain_and_library_cover": pair_key,
+                "visited": rec.get("visited")}
+    train_shape = long_shape + (", the training batch's segment ids "
+                                "(phase 8's first batch)")
     return [{
         "name": "flash_bwd_dq with seg (K2, packed rows)", "route": "cuda",
         "source": K23_SOURCE, "replaces": TPU_K2,
@@ -1788,9 +1992,13 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
         "max_abs_err": max(w["dq"] for w in plain),
         **timing(long, "k2_ms", "dq", "k2_k3_ms", "K2 and K3 together"),
         "shape": long_shape, **parent("k2_seg_ms"),
+        "train_layout": {"shape": train_shape,
+                         **timing(train, "k2_ms", "dq", "k2_k3_ms",
+                                  "K2 and K3 together"),
+                         **parent("k2_seg_train_ms")},
         "kernel": "flash_bwd_dq_tc_kernel<DP, seg> (tensor cores, bf16); "
                   "f32 inputs take flash_bwd_dq_kernel with seg",
-        "bitwise_equal_runs": long["bitwise"],
+        "bitwise_equal_runs": long["bitwise"] and train["bitwise"],
         "blocks_per_sm": long["dq_blocks_per_sm"],
         "ptxas": seg_rows("flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel")}, {
         "name": "flash_bwd_dkv with seg (K3, packed rows)", "route": "cuda",
@@ -1800,9 +2008,14 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
         "max_abs_err": max(w["k3"] for w in worst),
         **timing(long, "k3_ms", "dkv", "k2_k3_ms", "K2 and K3 together"),
         "shape": long_shape, **parent("k3_seg_ms"),
+        "train_layout": {"shape": train_shape,
+                         **timing(train, "k3_ms", "dkv", "k2_k3_ms",
+                                  "K2 and K3 together"),
+                         **parent("k3_seg_train_ms")},
         "kernel": "flash_bwd_dkv_tc_kernel<DP, bias, seg> (tensor cores, "
                   "bf16); f32 inputs take flash_bwd_dkv_kernel with seg",
-        "bitwise_equal_runs": long["k3_bitwise"] and mt5["k3_bitwise"],
+        "bitwise_equal_runs": (long["k3_bitwise"] and train["k3_bitwise"]
+                               and mt5["k3_bitwise"]),
         "ptxas": seg_rows("flash_bwd_dkv"),
         "biased": {"shape": mt5p_shape,
                    **timing(mt5, "k3_bias_ms", "dkv", "k4_k3_ms",
@@ -1821,6 +2034,35 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
         "bitwise_equal_runs": mt5["bitwise"],
         "blocks_per_sm": mt5["dq_blocks_per_sm"],
         "ptxas": seg_rows("flash_bwd_dq_dbias", "flash_bwd_dbias_sum")}]
+
+
+def summary_entry(seg, training, ptxas, parent, long_shape) -> dict:
+    """The `kernels` line's entry of the segment summary kernel (before the
+    bf16 K2 and K3 with segment ids: their tile skip and the dead rows'
+    dv, a part of the TPU K3's work): checked and timed at both packed
+    paths' shapes and the training layout; launches on the main paths."""
+    checks = seg["summary"]
+    long = checks["long"]
+    by_path = {path: rec["seg_summary_launches_main_path"]
+               for path, rec in training
+               if rec["seg_summary_launches_main_path"]}
+    return {
+        "name": "flash_bwd_seg_summary (segment summary and the dead rows' "
+                "g sum, for K2 and K3 with seg)", "route": "cuda",
+        "source": K23_SOURCE, "replaces": TPU_K3,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "ms": long["ms"], "plain_ms": long["plain_ms"],
+        "bound_ms": long["bound_ms"], "bound_by": long["bound_by"],
+        "library_ms": None, "shape": long_shape,
+        "plain_call": long["plain_call"],
+        "train_layout": {k: checks["long_train"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "mt5_packed": {k: checks["mt5"][k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **parent("seg_summary_ms"),
+        "kernel": "flash_bwd_seg_summary_kernel",
+        "ptxas": ptxas("flash_bwd_seg_summary")}
 
 
 def main() -> int:

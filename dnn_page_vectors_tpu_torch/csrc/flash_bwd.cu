@@ -66,9 +66,31 @@
 // each key's segment once. Each folds the segment into the value it already
 // tested (a dead row's segment, or a masked key's, is -1), so the test stays
 // one compare. The f32 kernels test the segments at run time. A pad row of a
-// packed row (seg 0) sees no key: it is a fully masked row (below). Every
-// kernel still visits every tile: skipping KV tiles that share no segment
-// with the Q tile is later work.
+// packed row (seg 0) sees no key: it is a fully masked row (below).
+//
+// A packed row of 1,024 tokens holding 4 pages allows about a fifth of its
+// pairs, so the bf16 K2 and K3 with segment ids visit only the tiles that
+// share a segment. Before them, once per backward, a small kernel
+// (flash_bwd_seg_summary_kernel) writes for every 16 positions ("granule")
+// of every batch row the smallest and largest segment id > 0 there (a
+// granule without one gets a range that overlaps nothing). Two ranges that do not overlap hold no
+// equal id, so a pair of tiles whose ranges miss each other holds no
+// allowed pair, whatever the ids' order (nothing assumes that pages are
+// contiguous or ids ascending). K2 (a Q tile of up to 64 rows) walks only
+// the KV tiles whose range overlaps its rows' range, and K3 (a block of 64
+// keys) only the Q tiles that overlap its keys' range; the two-stage ring
+// fetches the next tile visited, found by one warp-wide ballot over the
+// summary, so a skipped tile costs no load. Inside a visited tile each warp
+// skips the 16 x 16 chunks whose two granules miss each other (a branch
+// that is uniform over the warp). Skipped pairs had p = ds = 0: K2's dq is
+// what visiting every tile gave, up to the sign of a zero. A dead row (no
+// allowed key) gives dv its g / S at every key, which would send K3 to every
+// Q tile that holds a pad row; the same launch therefore sums g over the
+// dead rows of each (batch row, head), gdead [B, H, Dh] f32 (one block per
+// pair, in row order, no atomics), and K3 takes p = 0 at dead rows in its
+// tiles and adds gdead / S to the f32 dv of each of its keys below S before
+// the bf16 store. K4 with segment ids (mT5's 128-token rows, 2-4 tiles)
+// and the f32 kernels still visit every tile.
 //
 // K2, K4, and K3 for f32 inputs, stage their tiles in shared memory
 // widened to f32 and multiply on the CUDA cores. As in K1's f32 kernel,
@@ -668,6 +690,108 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- Segment summary and the dead rows' sum (bf16 K2 and K3 with seg) -----
+
+constexpr int kGranule = 16;             // positions of one summary entry
+constexpr int kSumThreads = 128;
+
+// A segment range (smallest, largest id > 0); none_range() holds no id and
+// overlaps no range, itself included (ids are > 0).
+__device__ __forceinline__ int2 none_range() {
+  return make_int2(0x7fffffff, 0);
+}
+
+__device__ __forceinline__ bool overlap(int2 a, int2 b) {
+  return a.x <= b.y && b.x <= a.y;
+}
+
+// The range of positions [p0, p0 + n) of a batch row (p0 and n multiples of
+// 16) from its summary `sum` of `ng` granules.
+__device__ __forceinline__ int2 span(const int2* __restrict__ sum, int ng,
+                                     int p0, int n) {
+  int2 r = none_range();
+  const int g1 = min(ng, (p0 + n) / kGranule);
+  for (int i = p0 / kGranule; i < g1; ++i) {
+    const int2 x = __ldg(sum + i);
+    r.x = min(r.x, x.x);
+    r.y = max(r.y, x.y);
+  }
+  return r;
+}
+
+// The first of `ntiles` tiles of n positions after tile t whose range
+// overlaps `range`, or ntiles: each lane tests one tile, 32 at a time. The
+// whole warp calls it; every warp of a block gets the same answer.
+__device__ __forceinline__ int next_tile(const int2* __restrict__ sum, int ng,
+                                         int t, int ntiles, int n,
+                                         int2 range) {
+  const int lane = threadIdx.x & 31;
+  for (int base = t + 1; base < ntiles; base += 32) {
+    const int c = base + lane;
+    const bool hit = c < ntiles && overlap(span(sum, ng, c * n, n), range);
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (m != 0u) return base + __ffs(m) - 1;
+  }
+  return ntiles;
+}
+
+// One block per (head, batch row): gdead[b, h] = the sum over the dead rows
+// (lse <= kMaskedRowLse) of g[b, h, row], in f32 and in row order (thread d
+// owns column d); the blocks of head 0 also write the summary of their
+// batch row, sum[b, i] = the range of positions [16 i, 16 i + 16).
+__global__ void __launch_bounds__(kSumThreads)
+flash_bwd_seg_summary_kernel(const int* __restrict__ seg,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ g,
+                             int2* __restrict__ sum,
+                             float* __restrict__ gdead, int H, int L, int Dh,
+                             long long gs_b, long long gs_h, long long gs_l) {
+  __shared__ int dead[kSumThreads];      // a chunk's dead rows, in order
+  __shared__ int warp_dead[kSumThreads / 32];
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (h == 0) {
+    const int ng = (L + kGranule - 1) / kGranule;
+    const int* srow = seg + (long long)b * L;
+    for (int i = tid; i < ng; i += kSumThreads) {
+      int2 r = none_range();
+      const int end = min(L, (i + 1) * kGranule);
+      for (int l = i * kGranule; l < end; ++l) {
+        const int s = srow[l];
+        if (s > 0) {
+          r.x = min(r.x, s);
+          r.y = max(r.y, s);
+        }
+      }
+      sum[(long long)b * ng + i] = r;
+    }
+  }
+  const long long bh = (long long)b * H + h;
+  const float* gb = g + b * gs_b + h * gs_h;
+  float acc = 0.f;
+  for (int r0 = 0; r0 < L; r0 += kSumThreads) {
+    const int l = r0 + tid;
+    const bool is_dead = l < L && lse[bh * L + l] <= kMaskedRowLse;
+    const unsigned m = __ballot_sync(0xffffffffu, is_dead);
+    if (lane == 0) warp_dead[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, n = 0;
+#pragma unroll
+    for (int w = 0; w < kSumThreads / 32; ++w) {
+      before += w < warp ? warp_dead[w] : 0;
+      n += warp_dead[w];
+    }
+    if (is_dead) dead[before + __popc(m & ((1u << lane) - 1u))] = l;
+    __syncthreads();
+    if (tid < Dh) {
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) acc += gb[dead[j] * gs_l + tid];
+    }
+    __syncthreads();                     // dead and warp_dead read
+  }
+  if (tid < Dh) gdead[bh * Dh + tid] = acc;
+}
+
 // ---- K3 on the tensor cores (bf16 q/k/v) -----------------------------------
 
 namespace tc {
@@ -696,6 +820,10 @@ struct Args {
   int stages;                            // Q tiles in the ring: 1 or 2
   float scale;
   Strides st;
+  // with seg (last, so the other instantiations' parameters keep their
+  // places): the segment summary and the dead rows' g sum
+  const int2* sum;
+  const float* gdead;
 };
 
 // Byte offsets of the shared-memory buffers (all 16-byte aligned).
@@ -726,7 +854,9 @@ __host__ __device__ __forceinline__ Layout layout(int dp, int keys, int bm,
 // accumulates their dk and dv over every Q tile, in order. DP is the head
 // dim the fragments cover (64 or 128), Dh <= DP the real one. kSeg: segment
 // ids restrict the pairs (a compile-time flag, so the other instantiations
-// keep their code and registers).
+// keep their code and registers); the block then walks only the Q tiles
+// that share a segment with its keys, and the dead rows' dv comes from
+// gdead (see the head of this file).
 template <int DP, bool kBias, bool kSeg>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
@@ -765,6 +895,17 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
   const long long bh = (long long)b * a.H + h;
   const float* bias_h = kBias ? a.bias + (long long)h * L * S : nullptr;
   const int ntiles = (L + bm - 1) / bm;
+  // kSeg: the batch row's summary (L == S), the ranges of this block's keys
+  // and of this warp's 16, and the first Q tile that overlaps the block's
+  const int ng = (L + kGranule - 1) / kGranule;
+  const int2* sum = kSeg ? a.sum + (long long)b * ng : nullptr;
+  int2 keys_range = none_range(), warp_range = none_range();
+  int first = 0;
+  if constexpr (kSeg) {
+    keys_range = span(sum, ng, c0, a.keys);
+    warp_range = span(sum, ng, c0 + warp * 16, 16);
+    first = next_tile(sum, ng, -1, ntiles, bm, keys_range);
+  }
 
   // this block's keys; rows past S and columns past Dh are zero
   mma::stage_rows(ks, P, kb, st.k[2], c0, a.keys, S, a.Dh, DP);
@@ -790,7 +931,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
       mma::stage_tile(bs + sl * bm * BP, BP, bias_h, S, r0, bm, L, c0,
                       a.keys, S, (S & 3) == 0);
   };
-  issue(0, 0);
+  if (!kSeg || first < ntiles) issue(first, 0);
   mma::cp_async_commit();
 
   // this lane's keys: rows grp and grp + 8 of the warp's 16
@@ -819,11 +960,14 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int sl = t & 1;                // stages == 2 whenever t > 0
+  // kSeg: tn the next Q tile visited, n the tiles done
+  int tn = 0;
+  for (int t = first, n = 0; t < ntiles; t = kSeg ? tn : t + 1, ++n) {
+    if constexpr (kSeg) tn = next_tile(sum, ng, t, ntiles, bm, keys_range);
+    const int sl = (kSeg ? n : t) & 1;   // stages == 2 after the first tile
     mma::cp_async_wait_all();
-    __syncthreads();                     // tile t landed; tile t-1 consumed
-    if (kKeep && t == 0) {
+    __syncthreads();                     // tile t landed; the last consumed
+    if (kKeep && (kSeg ? n : t) == 0) {
 #pragma unroll
       for (int kc = 0; kc < (kKeep ? KC : 1); ++kc) {
         const int off = (lane & 15) * P + kc * 16 + (lane >> 4) * 8;
@@ -846,8 +990,8 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
       *reinterpret_cast<uint4*>(gl + r * P + c * 8) = lo;
     }
     __syncthreads();                     // gs, gl written; g32 free
-    if (t + 1 < ntiles) {                // overlaps this tile's compute
-      issue(t + 1, sl ^ 1);
+    if ((kSeg ? tn : t + 1) < ntiles) {  // overlaps this tile's compute
+      issue(kSeg ? tn : t + 1, sl ^ 1);
       mma::cp_async_commit();
     }
     const bf16* qt = qs + sl * bm * P;
@@ -862,6 +1006,10 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
 #pragma unroll
     for (int qc = 0; qc < kMaxRows / 16; ++qc) {
       if (qc * 16 >= bm) break;
+      if constexpr (kSeg) {              // 16 rows sharing no segment with
+        const int gi = r0 / kGranule + qc;  // this warp's keys add nothing
+        if (gi >= ng || !overlap(warp_range, __ldg(sum + gi))) continue;
+      }
       float sT[2][4], dpT[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n)
@@ -903,10 +1051,12 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
           const int lq = qc * 16 + n * 8 + 2 * tq + (e & 1);
           const float ls = lt[lq];
           float p = 0.f, ds = 0.f;
+          // kSeg: a dead row takes p = 0 here (its g / S comes from gdead)
           if (r0 + lq < L && key_in[hi]) {
-            if (ls <= kMaskedRowLse) {
+            if (!kSeg && ls <= kMaskedRowLse) {
               p = inv_s;                 // uniform softmax, no score grad
-            } else if (kSeg ? sgt[lq] == key_seg[hi] : key_ok[hi]) {
+            } else if (kSeg ? ls > kMaskedRowLse && sgt[lq] == key_seg[hi]
+                            : key_ok[hi]) {
               float x = sT[n][e] * a.scale;
               if (kBias) x += bt[lq * BP + lkey + 8 * hi];
               p = exp2f((x - ls) * kLog2e);
@@ -947,6 +1097,21 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ Args a) {
         mma::mma_bf16(dk[2 * dp + 1], dl, bq[2], bq[3]);
       }
     }
+  }
+
+  if constexpr (kSeg) {
+    // the K and V rows landed (no tile may have waited for them), and the
+    // dead rows' p = 1/S at every key: dv += gdead / S, in f32
+    mma::cp_async_wait_all();
+    __syncthreads();
+    const float* gd = a.gdead + bh * a.Dh;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = d * 8 + 2 * tq + (e & 1);
+        if (col < a.Dh) dv[d][e] += __ldg(gd + col) * inv_s;
+      }
   }
 
   // dk and dv through this warp's own k and v rows (no other warp reads
@@ -1031,7 +1196,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offsets of the shared-memory buffers (all 16-byte aligned).
 struct Layout {
-  int q, g32, o32, kv0, kv1, bias, part, lse, mask, seg, total;
+  int q, g32, o32, kv0, kv1, bias, part, lse, mask, seg, ranges, chunks,
+      next, total;
 };
 
 // Row pitch (floats) of K4's bias tile and partial: every key of the
@@ -1067,7 +1233,16 @@ __host__ __device__ __forceinline__ Layout layout(int dp, int rows, int bn,
   s.lse = s.part + bias_bytes;                     // [rows] f32
   s.mask = s.lse + rows * 4;                       // [2][bn] kv mask bytes
   s.seg = s.mask + 2 * bn;                         // [2][bn] key segments
-  s.total = s.seg + (seg ? 2 * bn * 4 : 0);
+  // K2 with seg, in shared memory (K2 is at its 128-register cap: held in
+  // registers across the tile loop, these spilled): the segment ranges
+  // (int2) of the block's rows and of each warp's 16, of the 16-key chunks
+  // of each ring slot's tile, the next tile visited after each slot's, and
+  // the batch row's summary pointer
+  const bool skip = seg && !dbias;
+  s.ranges = s.seg + (seg ? 2 * bn * 4 : 0);       // [1 + 4] int2
+  s.chunks = s.ranges + (skip ? 48 : 0);           // [2][2] int2
+  s.next = s.chunks + (skip ? 32 : 0);             // [2] int, a pointer
+  s.total = s.next + (skip ? 16 : 0);
   return s;
 }
 
@@ -1078,6 +1253,7 @@ struct Args {
   const uint8_t* kv_mask;
   const float* bias;                     // K4 only
   const int* seg;                        // [B, L] segment ids, or null
+  const int2* sum;                       // K2 with seg: the segment summary
   const float* g;
   const float* out;
   const float* lse;
@@ -1100,9 +1276,11 @@ struct Args {
 // dbias. Each warp owns 16 query rows. DP is the head dim the fragments
 // cover (64 or 128), Dh <= DP the real one. kSeg: segment ids restrict the
 // pairs (a compile-time flag, so the other instantiations keep their code
-// and registers).
+// and registers); K2 then walks only the KV tiles that share a segment
+// with its Q tile (kSkip; see the head of this file), K4 every tile.
 template <int DP, bool kDbias, bool kSeg>
 __device__ __forceinline__ void dq_body(const Args& a) {
+  constexpr bool kSkip = kSeg && !kDbias;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int P = DP + 8;              // bf16 shared row pitch
   constexpr int GP = DP + 4;             // f32 shared row pitch
@@ -1145,6 +1323,29 @@ __device__ __forceinline__ void dq_body(const Args& a) {
   // the kv mask comes in 4-byte pieces when its rows allow
   const bool mask4 =
       (reinterpret_cast<uintptr_t>(a.kv_mask) & 3) == 0 && (S & 3) == 0;
+  // kSkip: summary() the batch row's summary of ng granules (L == S);
+  // ranges[0] the range of this block's rows, ranges[1 + w] warp w's 16;
+  // chunk_ranges[2 sl + c] 16-key chunk c of slot sl's tile; next[sl] the
+  // next tile visited after slot sl's; the first KV tile that overlaps the
+  // block's rows
+  const int ng = (L + kGranule - 1) / kGranule;
+  auto summary = [&] {
+    return *reinterpret_cast<const int2* const*>(smem + lay.next + 8);
+  };
+  int2* ranges = reinterpret_cast<int2*>(smem + lay.ranges);
+  const int2* chunk_ranges = reinterpret_cast<const int2*>(smem + lay.chunks);
+  int* next = reinterpret_cast<int*>(smem + lay.next);
+  int first = 0;
+  if constexpr (kSkip) {
+    const int2* sum0 = a.sum + (long long)b0 * ng;
+    if (tid <= nrw)
+      ranges[tid] = tid == 0 ? span(sum0, ng, q0, rows)
+                             : span(sum0, ng, q0 + (tid - 1) * 16, 16);
+    if (tid == 0)
+      *reinterpret_cast<const int2**>(smem + lay.next + 8) = sum0;
+    __syncthreads();
+    first = next_tile(sum0, ng, -1, ntiles, bn, ranges[0]);
+  }
 
   auto issue_q = [&](int b) {            // q rows past L, cols past Dh: 0
     mma::stage_rows(qs, P, a.q + b * st.q[0] + h * st.q[1], st.q[2], q0,
@@ -1187,11 +1388,20 @@ __device__ __forceinline__ void dq_body(const Args& a) {
         mma::cp_async4(seg_s + sl * bn + i, ok ? srow + kv0 + i : a.seg, ok);
       }
     }
+    if constexpr (kSkip) {               // its chunks' ranges; past the row
+      const int* src =                   // (0, 0), which overlaps no range
+          reinterpret_cast<const int*>(summary() + kv0 / kGranule);
+      int* dst = reinterpret_cast<int*>(smem + lay.chunks) + 4 * sl;
+      for (int i = tid; i < 2 * bn / kGranule; i += nthr) {
+        const bool ok = kv0 / kGranule + i / 2 < ng;
+        mma::cp_async4(dst + i, ok ? src + i : src - kv0 / 8, ok);
+      }
+    }
   };
 
   issue_q(b0);
   issue_rows(b0);
-  issue_kv(b0, 0, 0);
+  if (!kSkip || first < ntiles) issue_kv(b0, first, 0);
   if constexpr (kDbias) {
     // the block's bias tile, once for every batch row of the group (16-byte
     // pieces when rows allow); the partial starts at 0
@@ -1216,7 +1426,18 @@ __device__ __forceinline__ void dq_body(const Args& a) {
     // also drops pad keys and keys past S (segment 0)
     int qseg[2];
 
-    for (int t = 0; t < ntiles; ++t, ++it) {
+    // With kSkip, t walks the KV tiles visited: the next one is kept in
+    // next[] (in shared memory: no register holds it across the tile).
+    // K2 has one batch row, so `it` counts the tiles done, and its first
+    // pass always runs: it builds the row's fragments and writes delta, for
+    // a Q tile that visits no KV tile too
+    for (int t = first; kSkip ? it == 0 || t < ntiles : t < ntiles;
+         t = kSkip ? next[it & 1] : t + 1, ++it) {
+      int tn = t + 1;                    // kSkip: the next tile visited
+      if constexpr (kSkip) {
+        tn = next_tile(summary(), ng, t, ntiles, bn, ranges[0]);
+        next[it & 1] = tn;             // every thread writes the same tile
+      }
       const int sl = it & 1;
       mma::cp_async_wait_all();
       __syncthreads();                   // tile landed; the last consumed
@@ -1224,13 +1445,13 @@ __device__ __forceinline__ void dq_body(const Args& a) {
       // this tile's compute; K4 issues it at once, K2 (whose second slot
       // lies over g32 and o32) once the row's fragments are built
       auto issue_next = [&] {
-        if (t + 1 < ntiles)
-          issue_kv(b, t + 1, sl ^ 1);
+        if ((kSkip ? tn : t + 1) < ntiles)
+          issue_kv(b, kSkip ? tn : t + 1, sl ^ 1);
         else if (kDbias && b + 1 < b1)
           issue_kv(b + 1, 0, sl ^ 1);
       };
       if constexpr (kDbias) issue_next();
-      if (t == 0) {
+      if (kSkip ? it == 0 : t == 0) {
         // g to a hi + lo pair of bf16 fragments, once per element, and
         // delta = g.out in f32 from the same elements: the four lanes of a
         // quad hold rows lrow and lrow + 8 whole
@@ -1268,6 +1489,7 @@ __device__ __forceinline__ void dq_body(const Args& a) {
       }
       if constexpr (!kDbias) issue_next();
       mma::cp_async_commit();
+      if (kSkip && t >= ntiles) break;   // no KV tile shares a segment
 
       const bf16* kt = ring(sl);
       const bf16* vt = kt + bn * P;
@@ -1278,6 +1500,10 @@ __device__ __forceinline__ void dq_body(const Args& a) {
       for (int c = 0; c < kMaxKeys / 16; ++c) {
         if (c * 16 >= bn) break;
         if (split == 2 && c != kh) continue;  // the other warp's keys
+        if constexpr (kSkip) {           // 16 keys sharing no segment with
+          if (!overlap(ranges[1 + rw], chunk_ranges[2 * sl + c]))
+            continue;                    // this warp's rows add nothing
+        }
         // this lane's mask bytes: keys 2 tq, 2 tq + 1 of 8-key tile n
         const uint8_t* mc = mask_s + sl * bn + c * 16 + 2 * tq;
         const uchar2 mk[2] = {*reinterpret_cast<const uchar2*>(mc),
@@ -1553,9 +1779,10 @@ cudaError_t dispatch(const Args& a, int blocks_z, cudaStream_t stream,
 // tower's S=16), and K4's two warps a 16 rows over 32-key tiles.
 Args make_args(const void* q, const void* k, const void* v,
                const void* kv_mask, const void* bias, const void* seg,
-               const void* g, const void* out, const void* lse, void* delta,
-               void* dq, void* part, int B, int H, int L, int S, int Dh,
-               float scale, int group, const long long* strides) {
+               const void* sum, const void* g, const void* out,
+               const void* lse, void* delta, void* dq, void* part, int B,
+               int H, int L, int S, int Dh, float scale, int group,
+               const long long* strides) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -1563,6 +1790,7 @@ Args make_args(const void* q, const void* k, const void* v,
   a.kv_mask = static_cast<const uint8_t*>(kv_mask);
   a.bias = static_cast<const float*>(bias);
   a.seg = static_cast<const int*>(seg);
+  a.sum = static_cast<const int2*>(sum);
   a.g = static_cast<const float*>(g);
   a.out = static_cast<const float*>(out);
   a.lse = static_cast<const float*>(lse);
@@ -1594,21 +1822,47 @@ Args make_args(const void* q, const void* k, const void* v,
 // null; otherwise [B, L] int32 segment ids (0 = pad), contiguous, with
 // L == S, as K1 takes them.
 
+// The segment summary and the dead rows' sum that the bf16 K2 and K3 take
+// with segment ids, once per backward: summary [B, ceil(L/16)] int2 (the
+// smallest and largest segment id > 0 of each 16 positions of each batch
+// row; (INT_MAX, 0) where there is none) and gdead [B, H, Dh] f32 (the sum
+// of g over the rows with lse <= -1e29, in row order). seg [B, L] int32 and
+// lse [B, H, L] f32 contiguous; g [B, H, L, Dh] f32 with the (batch, head,
+// row) element strides `g_strides` and unit stride on Dh.
+extern "C" int flash_bwd_seg_summary(const void* seg, const void* lse,
+                                     const void* g, void* summary,
+                                     void* gdead, int B, int H, int L,
+                                     int Dh, const long long* g_strides,
+                                     void* stream) {
+  if (seg == nullptr) return (int)cudaErrorInvalidValue;
+  const int bad = check_shape(B, H, L, L, Dh, seg);
+  if (bad) return bad;
+  flash_bwd_seg_summary_kernel<<<dim3(H, B), kSumThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(seg), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<int2*>(summary),
+      static_cast<float*>(gdead), H, L, Dh, g_strides[0], g_strides[1],
+      g_strides[2]);
+  return (int)cudaGetLastError();
+}
+
 // K2 for bf16 q/k/v, on the tensor cores: dq (bf16), and delta [B,H,L]
 // f32 for K3. q, k, v, g and dq must be 16-byte aligned, and so must each
 // of their strides (the wrapper makes a view that is not contiguous first).
+// With `seg`, `summary` is flash_bwd_seg_summary's, for the same seg.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* kv_mask, const void* seg,
-                                 const void* g, const void* out,
-                                 const void* lse, void* delta, void* dq,
-                                 int B, int H, int L, int S, int Dh,
-                                 float scale, const long long* strides,
-                                 void* stream) {
+                                 const void* summary, const void* g,
+                                 const void* out, const void* lse,
+                                 void* delta, void* dq, int B, int H, int L,
+                                 int S, int Dh, float scale,
+                                 const long long* strides, void* stream) {
   const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
-  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, nullptr, seg, g, out,
-                                     lse, delta, dq, nullptr, B, H, L, S, Dh,
-                                     scale, 1, strides);
+  if (seg != nullptr && summary == nullptr) return (int)cudaErrorInvalidValue;
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, nullptr, seg, summary,
+                                     g, out, lse, delta, dq, nullptr, B, H, L,
+                                     S, Dh, scale, 1, strides);
   return (int)tcq::dispatch<false>(a, B, static_cast<cudaStream_t>(stream));
 }
 
@@ -1644,9 +1898,9 @@ extern "C" int flash_bwd_dq_dbias_bf16(const void* q, const void* k,
   if (S > tcq::kMaxBiasKeys) return (int)cudaErrorInvalidValue;
   if (group <= 0 || (B + group - 1) / group > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, seg, g, out,
-                                     lse, delta, dq, part, B, H, L, S, Dh,
-                                     scale, group, strides);
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, seg, nullptr, g,
+                                     out, lse, delta, dq, part, B, H, L, S,
+                                     Dh, scale, group, strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int groups = (B + group - 1) / group;
   const cudaError_t err = tcq::dispatch<true>(a, groups, s);
@@ -1689,8 +1943,8 @@ extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int seg, int L,
                                      dbias ? strides : nullptr,
                                      seg ? strides : nullptr, nullptr,
                                      nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, 1, 1, L, S, Dh, 1.f, 1,
-                                     strides);
+                                     nullptr, nullptr, 1, 1, L, S, Dh, 1.f,
+                                     1, strides);
   int blocks = 0;
   if (dbias)
     tcq::dispatch<true>(a, 0, nullptr, &blocks);
@@ -1702,10 +1956,12 @@ extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int seg, int L,
 // K3 for bf16 q/k/v, on the tensor cores: dk and dv (bf16), reading the
 // delta K2 or K4 wrote; `bias` may be null. q, k, v, g, dk and dv must be
 // 16-byte aligned, and so must each of their strides (the wrapper makes a
-// view that is not contiguous first).
+// view that is not contiguous first). With `seg`, `summary` and `gdead` are
+// flash_bwd_seg_summary's, for the same seg, lse and g.
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
                                   const void* v, const void* kv_mask,
                                   const void* bias, const void* seg,
+                                  const void* summary, const void* gdead,
                                   const void* g, const void* lse,
                                   const void* delta, void* dk, void* dv,
                                   int B, int H, int L, int S, int Dh,
@@ -1713,6 +1969,8 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
                                   void* stream) {
   const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
+  if (seg != nullptr && (summary == nullptr || gdead == nullptr))
+    return (int)cudaErrorInvalidValue;
   tc::Args a;
   a.q = static_cast<const tc::bf16*>(q);
   a.k = static_cast<const tc::bf16*>(k);
@@ -1720,6 +1978,8 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   a.kv_mask = static_cast<const uint8_t*>(kv_mask);
   a.bias = static_cast<const float*>(bias);
   a.seg = static_cast<const int*>(seg);
+  a.sum = static_cast<const int2*>(summary);
+  a.gdead = static_cast<const float*>(gdead);
   a.g = static_cast<const float*>(g);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

@@ -20,6 +20,11 @@ gradient of the forward above (dv gets g/S for every key, and the row
 adds nothing to dq, dk or dbias), not the TPU kernels' p = 1. All four
 take the packed pages' segment ids ``seg`` (sequence packing); a pad row
 of a packed row (seg 0) sees no key, so it is such a fully masked row.
+With segment ids the bf16 K2 and K3 visit only the tiles that share a
+segment: a small kernel first writes each batch row's segment summary
+(``seg_summary``: the range of segment ids > 0 in every 16 positions)
+and the sum of g over the fully masked rows (``dead_rows_sum``), whose
+dv term K3 adds once instead of visiting every Q tile for it.
 
 Routing is by the tensors' device: a CUDA tensor goes to a kernel (or
 the wrapper raises), a CPU tensor goes to the plain version
@@ -53,6 +58,10 @@ _BWD_SOURCE = "flash_bwd.cu"
 # batch rows whose ds one K4 block sums into its partial dbias (K4's
 # second launch sums the partials in order)
 DBIAS_GROUP = 8
+# positions of one entry of the segment summary, and the range of an entry
+# that holds no segment id > 0 (it overlaps no range)
+SEG_GRANULE = 16
+NO_SEG = (2 ** 31 - 1, 0)
 # the longest S the bf16 K4 takes (csrc/flash_bwd.cu, tcq::kMaxBiasKeys)
 MAX_TC_DBIAS_KEYS = 512
 
@@ -77,12 +86,14 @@ dq_dbias_launches = 0
 dq_dbias_launches_tc = 0
 dq_dbias_launches_f32 = 0
 dq_dbias_launches_seg = 0
+# launches of the segment summary kernel (once per bf16 backward with seg)
+seg_summary_launches = 0
 COUNTERS = ("launches", "launches_tc", "launches_f32", "launches_seg",
             "dq_launches", "dq_launches_tc", "dq_launches_f32",
             "dq_launches_seg", "dkv_launches", "dkv_launches_tc",
             "dkv_launches_f32", "dkv_launches_seg", "dq_dbias_launches",
             "dq_dbias_launches_tc", "dq_dbias_launches_f32",
-            "dq_dbias_launches_seg")
+            "dq_dbias_launches_seg", "seg_summary_launches")
 
 
 def _count(name: str, tensor_cores: bool, seg) -> None:
@@ -105,6 +116,72 @@ def allowed_pairs(kv_mask: torch.Tensor, seg: Optional[torch.Tensor]
         allowed = allowed & ((seg[:, :, None] == seg[:, None, :])
                              & (seg > 0)[:, None, :])[:, None]
     return allowed
+
+
+def seg_summary(seg: torch.Tensor) -> torch.Tensor:
+    """Plain version of the segment summary: [B, ceil(L / 16), 2] int32,
+    for every 16 positions of every batch row the smallest and largest
+    segment id > 0 there, or NO_SEG where there is none. Two ranges that
+    do not overlap hold no equal id, whatever order the ids come in."""
+    B, L = seg.shape
+    n = -(-L // SEG_GRANULE)
+    ids = torch.nn.functional.pad(seg.long(), (0, n * SEG_GRANULE - L))
+    ids = ids.view(B, n, SEG_GRANULE)
+    live = ids > 0
+    lo = torch.where(live, ids, torch.full_like(ids, NO_SEG[0])).amin(-1)
+    hi = torch.where(live, ids, torch.full_like(ids, NO_SEG[1])).amax(-1)
+    return torch.stack([lo, hi], -1).to(torch.int32)
+
+
+def dead_rows_sum(g: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Plain version of gdead [B, H, Dh] f32: the sum of g [B, H, L, Dh]
+    over the fully masked rows (lse <= MASKED_ROW_LSE), whose p = 1/S at
+    every key gives each key's dv gdead / S. Summed in f32 in row order,
+    as the kernel sums it, so the two agree exactly (up to the sign of a
+    zero)."""
+    dead = (lse <= MASKED_ROW_LSE)[..., None]
+    zero = torch.zeros((), device=g.device)
+    acc = torch.zeros(g.shape[:2] + g.shape[3:], device=g.device)
+    for row in range(g.shape[2]):
+        acc = acc + torch.where(dead[:, :, row], g[:, :, row].float(), zero)
+    return acc
+
+
+def tile_shapes(L: int, S: int, bias: bool) -> dict:
+    """The tiles the bf16 backward kernels take at this shape (as
+    csrc/flash_bwd.cu chooses them): {"k2": (query rows, keys) of K2's Q
+    tile and KV tile, "k3": (query rows, keys) of K3's Q tile and key
+    block}; K2 is absent with a bias (K4 replaces it)."""
+    k3_rows = 32 if bias and L > 32 else (64 if L >= 64 else -(-L // 16) * 16)
+    shapes = {"k3": (k3_rows, 16 if S <= 16 else (32 if S <= 32 else 64))}
+    if not bias:
+        shapes["k2"] = (16 if L <= 16 else (32 if L <= 32 else 64),
+                        16 if S <= 16 else 32)
+    return shapes
+
+
+def _spans(summary: torch.Tensor, n: int) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(lo, hi) [B, tiles] of the tiles of n positions (a multiple of
+    16): the union of their granules' ranges."""
+    B, g = summary.shape[:2]
+    per = n // SEG_GRANULE
+    pad = -g % per
+    lo = torch.nn.functional.pad(summary[..., 0], (0, pad), value=NO_SEG[0])
+    hi = torch.nn.functional.pad(summary[..., 1], (0, pad), value=NO_SEG[1])
+    return lo.view(B, -1, per).amin(-1), hi.view(B, -1, per).amax(-1)
+
+
+def visited_tiles(summary: torch.Tensor, rows: int, keys: int
+                  ) -> torch.Tensor:
+    """[B, query tiles, key tiles] bool: the tiles of `rows` query rows by
+    `keys` keys that the skipping kernels visit, by their rule: the two
+    tiles' ranges overlap. At rows = keys = 16 these are the 16 x 16
+    chunks that the warps compute inside a visited tile."""
+    rlo, rhi = _spans(summary, rows)
+    klo, khi = _spans(summary, keys)
+    return ((rlo[:, :, None] <= khi[:, None, :])
+            & (klo[:, None, :] <= rhi[:, :, None]))
 
 
 def reference_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -296,9 +373,9 @@ def _bwd_library():
     # (B, H, L, S, Dh, scale), then K4's group
     tail = [I, I, I, I, I, ctypes.c_float]
     strides = ctypes.POINTER(ctypes.c_longlong)
-    for fn, nptr, tail_ in ((lib.flash_bwd_dq_bf16, 10, tail),
+    for fn, nptr, tail_ in ((lib.flash_bwd_dq_bf16, 11, tail),
                             (lib.flash_bwd_dq_f32, 10, tail),
-                            (lib.flash_bwd_dkv_bf16, 11, tail),
+                            (lib.flash_bwd_dkv_bf16, 13, tail),
                             (lib.flash_bwd_dkv_f32, 11, tail),
                             (lib.flash_bwd_dq_dbias_bf16, 13, tail + [I]),
                             (lib.flash_bwd_dq_dbias_f32, 13, tail + [I])):
@@ -308,6 +385,10 @@ def _bwd_library():
     fn = lib.flash_bwd_dq_tc_blocks_per_sm
     if fn.argtypes is None:
         fn.argtypes = [I] * 5
+        fn.restype = I
+    fn = lib.flash_bwd_seg_summary
+    if fn.argtypes is None:      # seg, lse, g, summary, gdead, B, H, L, Dh
+        fn.argtypes = [P] * 5 + [I] * 4 + [strides, P]
         fn.restype = I
     return lib
 
@@ -333,13 +414,43 @@ def _bwd_strides(*tensors):
         *(st for t in tensors for st in t.stride()[:3]))
 
 
-def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None
+def launch_seg_summary(seg, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The segment summary kernel on the current stream (CUDA tensors
+    only): (summary [B, ceil(L/16), 2] int32, as ``seg_summary``; gdead
+    [B, H, Dh] f32, as ``dead_rows_sum``, summed in row order), which the
+    bf16 K2 and K3 take with segment ids `seg` [B, L], for K1's lse [B, H,
+    L] and the upstream gradient g [B, H, L, Dh]."""
+    lib = _bwd_library()
+    seg_i = _seg_ids(seg)
+    lse = lse.float().contiguous()
+    g = g.float()
+    B, H, L, Dh = g.shape
+    summary = torch.empty((B, -(-L // SEG_GRANULE), 2), dtype=torch.int32,
+                          device=g.device)
+    gdead = torch.empty((B, H, Dh), dtype=torch.float32, device=g.device)
+    strides = (ctypes.c_longlong * 3)(*g.stride()[:3])
+    with torch.cuda.device(g.device):
+        err = lib.flash_bwd_seg_summary(
+            seg_i.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            summary.data_ptr(), gdead.data_ptr(), B, H, L, Dh, strides,
+            torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_seg_summary kernel launch failed: "
+                           f"CUDA error {err}")
+    global seg_summary_launches
+    seg_summary_launches += 1
+    return summary, gdead
+
+
+def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None, summary=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on the current stream (CUDA tensors only, as ``flash_backward``
     passes them): (dq in q's dtype, laid out like q; delta [B,H,L] f32 for
     K3). bf16 q/k/v take the tensor-core kernel (g is split into bf16 hi
     and lo halves as it is staged), f32 the CUDA-core one; `seg` [B, L]
-    restricts the pairs to segments, as in K1."""
+    restricts the pairs to segments, as in K1. With `seg` the bf16 kernel
+    visits only the KV tiles that share a segment with its Q tile, by
+    `summary` (``launch_seg_summary``'s, launched here when not given)."""
     lib = _bwd_library()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
@@ -347,17 +458,22 @@ def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None
     B, H, L = q.shape[:3]
     mask_u8 = _mask_bytes(kv_mask)
     seg_i = _seg_ids(seg)
+    if tensor_cores and seg is not None and summary is None:
+        summary = launch_seg_summary(seg_i, lse, g)[0]
     out, lse = out.contiguous(), lse.contiguous()
     # like q: the towers' transposed views get gradients laid out as they
     # are, so autograd needs no copy on the way back
     dq = torch.empty_like(q)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     strides = _bwd_strides(q, k, v, g, dq, k, v)
+    # the bf16 kernel also takes the summary
+    extra = (_ptr(summary),) if tensor_cores else ()
     fn = lib.flash_bwd_dq_bf16 if tensor_cores else lib.flash_bwd_dq_f32
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-                 _ptr(seg_i), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), *_bwd_common(q, k), strides,
+                 _ptr(seg_i), *extra, g.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 *_bwd_common(q, k), strides,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error "
@@ -412,29 +528,38 @@ def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse, seg=None
     return dq.to(dtype), delta, dbias
 
 
-def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None,
+               summary=None, gdead=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on the current stream, after K2 or K4 wrote `delta`: (dk, dv) in
     the dtypes of k and v, laid out like them. With `bias` [H,L,S] the
     scores are rebuilt with it, as K1 built them; `seg` as in
     ``launch_dq``. bf16 q/k/v take the tensor-core kernel (g is split into
-    bf16 hi and lo halves as it is staged), f32 the CUDA-core one."""
+    bf16 hi and lo halves as it is staged), f32 the CUDA-core one. With
+    `seg` the bf16 kernel visits only the Q tiles that share a segment
+    with its keys and adds the fully masked rows' dv from `gdead`, by
+    (`summary`, `gdead`), ``launch_seg_summary``'s (launched here when not
+    given)."""
     lib = _bwd_library()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
         q, k, v, g = (_aligned16(t) for t in (q, k, v, g))
     mask_u8 = _mask_bytes(kv_mask)
     seg_i = _seg_ids(seg)
+    if tensor_cores and seg is not None and (summary is None
+                                             or gdead is None):
+        summary, gdead = launch_seg_summary(seg_i, lse, g)
     lse = lse.contiguous()
     bias_f = None if bias is None else bias.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     strides = _bwd_strides(q, k, v, g, q, dk, dv)
+    # the bf16 kernel also takes the summary and gdead
+    extra = (_ptr(summary), _ptr(gdead)) if tensor_cores else ()
     fn = lib.flash_bwd_dkv_bf16 if tensor_cores else lib.flash_bwd_dkv_f32
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-                 _ptr(bias_f), _ptr(seg_i), g.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 *_bwd_common(q, k), strides,
+                 _ptr(bias_f), _ptr(seg_i), *extra, g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), *_bwd_common(q, k), strides,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "
@@ -462,8 +587,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     None without a bias) for the upstream gradient g [B,H,L,Dh] of
     ``out``, given the forward's out and lse (and its segment ids, if it
     had them). CUDA tensors launch K2 then K3, or with a bias K4 then K3,
-    on the current stream; CPU tensors take the plain version
-    ``reference_backward``."""
+    on the current stream (with segment ids and bf16 q/k/v, the segment
+    summary kernel first, whose summary and gdead K2 and K3 share); CPU
+    tensors take the plain version ``reference_backward``."""
     _check(q, k, v, kv_mask, bias, seg)
     want = (q.shape[0], q.shape[1], q.shape[2])
     if g.shape != q.shape or out.shape != q.shape or lse.shape != want:
@@ -478,14 +604,18 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     out, lse = out.float(), lse.float()
+    summary = gdead = None
+    if seg is not None and q.dtype == torch.bfloat16:
+        summary, gdead = launch_seg_summary(seg, lse, g)
     if bias is None:
-        dq, delta = launch_dq(q, k, v, kv_mask, g, out, lse, seg)
+        dq, delta = launch_dq(q, k, v, kv_mask, g, out, lse, seg, summary)
         dbias = None
     else:
         dq, delta, dbias = launch_dq_dbias(q, k, v, kv_mask, bias, g, out,
                                            lse, seg)
         dbias = dbias.to(bias.dtype)
-    dk, dv = launch_dkv(q, k, v, kv_mask, g, lse, delta, bias, seg)
+    dk, dv = launch_dkv(q, k, v, kv_mask, g, lse, delta, bias, seg, summary,
+                        gdead)
     return dq, dk, dv, dbias
 
 

@@ -2,7 +2,7 @@
 """Time of the port's flash-attention kernels, compared across source
 trees on one GPU.
 
-    python3 scripts/bwd_ab.py TREE [TREE ...] [--out PATH]
+    python3 scripts/bwd_ab.py TREE [TREE ...] [--train-seg PATH] [--out PATH]
 
 For each TREE, in the order given (for two versions A and B: A B B A), one
 process imports ``dnn_page_vectors_tpu_torch`` from TREE (its kernels build
@@ -39,7 +39,21 @@ bf16 q/k/v with ragged padding:
   4 pages a row (kv_mask = seg > 0, as the towers pass it);
 * ``k4_seg_ms``, ``k3_bias_seg_ms``: K4 and the biased K3 with segment ids
   at mT5's packed shape, B=512 rows, H=12, L=S=128, Dh=64, 4 pages a row.
-  A tree whose wrappers take no segment ids records None for these.
+  A tree whose wrappers take no segment ids records None for these;
+* ``k2_seg_train_ms``, ``k3_seg_train_ms``: K2 and K3 at bert_long_sp's
+  packed shape with the segment ids of ``--train-seg`` (a [256, 1024]
+  int32 tensor saved with torch.save; chip_smoke.py saves the packed
+  bert_long_sp cell's first batch), the layout the training step runs
+  (None without the option);
+* ``k23_seg_ms``, ``k23_seg_train_ms``: the backward at both layouts
+  through ``flash_backward`` (K2 + K3, and in a tree that has it the
+  segment summary kernel), and ``seg_summary_ms`` that kernel alone at the
+  first layout (None in a tree without it). A tree with the summary
+  kernel times K2 and K3 alone on a summary made beforehand.
+
+Each run also hashes K2's dq with segment ids at both layouts, -0 taken
+as +0, and the summary line says whether every run gave the same dq
+(``k2_seg_dq_equal``).
 
 Prints one JSON line per tree, the card's name and power limit
 (nvidia-smi), and a summary line; ``--out`` also writes all of it as JSON.
@@ -47,6 +61,7 @@ Prints one JSON line per tree, the card's name and power limit
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -62,7 +77,9 @@ LONG_PACKED = dict(B=256, H=8, L=1024, Dh=64)
 MT5_PACKED = dict(B=512, H=12, L=128, Dh=64)
 PACK = 4
 SEG_KEYS = ("k1_seg_ms", "k2_seg_ms", "k3_seg_ms", "k4_seg_ms",
-            "k3_bias_seg_ms")
+            "k3_bias_seg_ms", "k2_seg_train_ms", "k3_seg_train_ms",
+            "k23_seg_ms", "k23_seg_train_ms", "seg_summary_ms")
+DQ_DIGESTS = ("k2_seg_dq", "k2_seg_train_dq")
 KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms",
         "k2_query_ms", "k4_query_ms") + SEG_KEYS
 
@@ -124,7 +141,50 @@ def _packed(B, L, gen, device):
     return seg, seg > 0
 
 
-def worker(tree: str) -> dict:
+def _dq_digest(dq) -> str:
+    """sha1 of a bf16 dq's bytes with every -0 taken as +0."""
+    import torch
+    dq = torch.where(dq == 0, torch.zeros_like(dq), dq).contiguous()
+    return hashlib.sha1(dq.view(torch.int16).cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _seg_cases(fa, timed, rec, gen, device, train_seg) -> None:
+    """The seg kernels at bert_long_sp's packed shape, at packed_seg's
+    layout and (with `train_seg`) at the training batch's; in a tree with
+    the segment summary kernel, K2 and K3 alone take a summary made
+    beforehand."""
+    import torch
+    has_summary = hasattr(fa, "launch_seg_summary")
+    q, k, v, g, _, _ = _inputs(**LONG_PACKED, gen=gen, device=device)
+    seg, mask = _packed(LONG_PACKED["B"], LONG_PACKED["L"], gen, device)
+    timed("k1_seg_ms", lambda: fa.flash_forward(q, k, v, mask, None, seg))
+    layouts = [("", seg, mask)]
+    if train_seg is not None:
+        tseg = train_seg.to(device, torch.int32)
+        layouts.append(("_train", tseg, tseg > 0))
+    for suffix, seg, mask in layouts:
+        out, lse = fa.flash_forward(q, k, v, mask, None, seg)
+        extra_dq, extra_dkv = (), ()
+        if has_summary:
+            summary, gdead = fa.launch_seg_summary(seg, lse, g)
+            extra_dq, extra_dkv = (summary,), (summary, gdead)
+            if not suffix:
+                timed("seg_summary_ms",
+                      lambda: fa.launch_seg_summary(seg, lse, g))
+        dq, delta = fa.launch_dq(q, k, v, mask, g, out, lse, seg, *extra_dq)
+        rec["dq_digest"][f"k2_seg{suffix}_dq"] = _dq_digest(dq)
+        del dq
+        timed(f"k2_seg{suffix}_ms", lambda: fa.launch_dq(
+            q, k, v, mask, g, out, lse, seg, *extra_dq))
+        timed(f"k3_seg{suffix}_ms", lambda: fa.launch_dkv(
+            q, k, v, mask, g, lse, delta, None, seg, *extra_dkv))
+        timed(f"k23_seg{suffix}_ms", lambda: fa.flash_backward(
+            q, k, v, mask, g, out, lse, None, seg))
+        del out, lse, delta
+
+
+def worker(tree: str, train_seg_path=None) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import dnn_page_vectors_tpu_torch as pkg
@@ -133,7 +193,7 @@ def worker(tree: str) -> dict:
         raise AssertionError(f"imported {pkg.__file__}, not from {tree}")
     device = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
-    rec = {"tree": tree, "device_ms": {}}
+    rec = {"tree": tree, "device_ms": {}, "dq_digest": {}}
 
     def timed(key, fn):
         rec[key] = _event_ms(fn)
@@ -168,22 +228,15 @@ def worker(tree: str) -> dict:
         timed("k4_query_ms",
               lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse))
         del q, k, v, g, out, lse
-        if "seg" not in inspect.signature(fa.launch_dq).parameters:
-            for key in SEG_KEYS:
-                rec[key] = rec["device_ms"][key] = None
-        else:
-            q, k, v, g, _, _ = _inputs(**LONG_PACKED, gen=gen, device=device)
-            seg, mask = _packed(LONG_PACKED["B"], LONG_PACKED["L"], gen,
-                                device)
-            timed("k1_seg_ms",
-                  lambda: fa.flash_forward(q, k, v, mask, None, seg))
-            out, lse = fa.flash_forward(q, k, v, mask, None, seg)
-            _, delta = fa.launch_dq(q, k, v, mask, g, out, lse, seg)
-            timed("k2_seg_ms",
-                  lambda: fa.launch_dq(q, k, v, mask, g, out, lse, seg))
-            timed("k3_seg_ms", lambda: fa.launch_dkv(q, k, v, mask, g, lse,
-                                                     delta, None, seg))
-            del q, k, v, g, out, lse, delta
+        for key in SEG_KEYS:             # where a tree has no such call
+            rec[key] = rec["device_ms"][key] = None
+        for key in DQ_DIGESTS:
+            rec["dq_digest"][key] = None
+        if "seg" in inspect.signature(fa.launch_dq).parameters:
+            train_seg = (None if train_seg_path is None
+                         else torch.load(train_seg_path))
+            _seg_cases(fa, timed, rec, gen, device, train_seg)
+            torch.cuda.empty_cache()
             q, k, v, g, _, bias = _inputs(**MT5_PACKED, gen=gen,
                                           device=device, bias=True)
             seg, mask = _packed(MT5_PACKED["B"], MT5_PACKED["L"], gen, device)
@@ -192,8 +245,10 @@ def worker(tree: str) -> dict:
                                              lse, seg)
             timed("k4_seg_ms", lambda: fa.launch_dq_dbias(
                 q, k, v, mask, bias, g, out, lse, seg))
+            extra = (fa.launch_seg_summary(seg, lse, g)
+                     if hasattr(fa, "launch_seg_summary") else ())
             timed("k3_bias_seg_ms", lambda: fa.launch_dkv(
-                q, k, v, mask, g, lse, delta, bias, seg))
+                q, k, v, mask, g, lse, delta, bias, seg, *extra))
     rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
                      "mt5_page": MT5, "bert_query": BERT_QUERY,
                      "mt5_query": MT5_QUERY, "bert_long_packed": LONG_PACKED,
@@ -207,15 +262,20 @@ def main() -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--train-seg", default=None, metavar="PATH",
+                    help="[256, 1024] int32 segment ids (torch.save) of the "
+                         "training layout")
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.trees[0])), flush=True)
+        print(json.dumps(worker(args.trees[0], args.train_seg)), flush=True)
         return 0
     runs = []
+    extra = [] if args.train_seg is None else ["--train-seg", args.train_seg]
     for tree in args.trees:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", tree],
-            capture_output=True, text=True, timeout=600, check=False)
+            [sys.executable, os.path.abspath(__file__), "--worker", tree,
+             *extra], capture_output=True, text=True, timeout=600,
+            check=False)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"bwd_ab: the run on {tree} failed")
@@ -231,10 +291,16 @@ def main() -> int:
     for tree, row in summary.items():
         row["device_ms"] = {key: [r["device_ms"][key] for r in runs
                                   if r["tree"] == tree] for key in KEYS}
-    print(json.dumps({"summary": summary, "nvidia_smi": smi}), flush=True)
+    # every run that has K2 with seg at a layout gave the same dq there
+    equal = {key: len({r["dq_digest"][key] for r in runs
+                       if r["dq_digest"][key] is not None}) <= 1
+             for key in DQ_DIGESTS}
+    print(json.dumps({"summary": summary, "k2_seg_dq_equal": equal,
+                      "nvidia_smi": smi}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"runs": runs, "summary": summary, "nvidia_smi": smi},
+            json.dump({"runs": runs, "summary": summary,
+                       "k2_seg_dq_equal": equal, "nvidia_smi": smi},
                       f, indent=1)
     return 0
 

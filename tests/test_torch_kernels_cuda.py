@@ -228,15 +228,50 @@ def _packed_seg(B, L, pack=4, seed=0):
     return seg
 
 
+def _layout_seg(layout, B, L, pack=4, seed=0):
+    """([B, L] int32 segment ids, [B, L] kv mask) of a layout the skipping
+    kernels must not trip on, the last batch row all pad in each:
+    "packed" (_packed_seg), "interleaved" (ids that are not contiguous:
+    runs of random ids from 1 to `pack`, reused along the row, and pads
+    between them), "masked_segment" (packed, with every key of segment 2
+    masked: its rows see no key), "all_pad" (every other batch row all
+    pad), "one_segment" (one segment over the whole row: every tile
+    visited), "tail_segment" (pad, then one segment over the last 300
+    positions: a Q tile's first KV tile, and a key block's first Q tile,
+    lie more than 32 tiles on, past one warp's search)."""
+    if layout == "tail_segment":
+        seg = torch.zeros(B, L, dtype=torch.int32)
+        seg[:-1, L - 300:] = 3
+        return seg, seg > 0
+    if layout == "interleaved":
+        g = torch.Generator().manual_seed(seed)
+        runs = torch.randint(0, pack + 1, (B, -(-L // 3)), generator=g)
+        seg = runs.repeat_interleave(3, dim=1)[:, :L].to(torch.int32)
+        seg[-1] = 0
+        return seg, seg > 0
+    if layout == "one_segment":
+        seg = torch.ones(B, L, dtype=torch.int32)
+        seg[-1] = 0
+        return seg, seg > 0
+    seg = _packed_seg(B, L, pack, seed)
+    if layout == "all_pad":
+        seg[::2] = 0
+    mask = seg > 0
+    if layout == "masked_segment":
+        mask &= seg != 2
+    return seg, mask
+
+
 def _seg_backward_inputs(device, B=6, H=2, L=48, Dh=64, dtype=torch.float32,
                          bias=False, strided=False, unaligned=False, seed=0,
-                         pack=4):
-    """Packed inputs (kv_mask = seg > 0, as the towers pass it) with an
-    upstream gradient and the plain forward's out and lse."""
+                         pack=4, layout="packed"):
+    """Packed inputs (kv_mask = seg > 0, as the towers pass it, or the
+    mask of `layout`, see _layout_seg) with an upstream gradient and the
+    plain forward's out and lse."""
     x = _inputs(device, B=B, H=H, L=L, S=L, Dh=Dh, dtype=dtype, pad_tail=0,
                 bias=bias, strided=strided, unaligned=unaligned, seed=seed)
-    x["seg"] = _packed_seg(B, L, pack, seed).to(device)
-    x["kv_mask"] = x["seg"] > 0
+    seg, mask = _layout_seg(layout, B, L, pack, seed)
+    x["seg"], x["kv_mask"] = seg.to(device), mask.to(device)
     out, lse = fa.reference_forward(**x)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
         seed + 1)).to(device)
@@ -264,6 +299,27 @@ SEG_CASES = {
     "packed_f32": dict(L=130, strided=True),
     "packed_bias_f32": dict(B=11, L=53, bias=True),
     "dh128_f32": dict(Dh=128, L=70),
+    # the layouts of _layout_seg, over several tiles of K2 and K3 (ragged:
+    # L = S not a multiple of 64)
+    "interleaved_bf16": dict(B=4, H=4, L=320, dtype=torch.bfloat16,
+                             layout="interleaved"),
+    "interleaved_bias_bf16": dict(B=4, H=4, L=160, dtype=torch.bfloat16,
+                                  bias=True, layout="interleaved"),
+    "masked_segment_bf16": dict(B=5, H=4, L=256, dtype=torch.bfloat16,
+                                layout="masked_segment"),
+    "masked_segment_bias_bf16": dict(B=5, H=4, L=128, dtype=torch.bfloat16,
+                                     bias=True, layout="masked_segment"),
+    "all_pad_bf16": dict(B=6, H=4, L=192, dtype=torch.bfloat16,
+                         layout="all_pad"),
+    "one_segment_bf16": dict(B=3, H=4, L=256, dtype=torch.bfloat16,
+                             layout="one_segment"),
+    "ragged_L203_bf16": dict(B=5, H=4, L=203, dtype=torch.bfloat16),
+    "ragged_L203_bias_bf16": dict(B=5, H=4, L=203, dtype=torch.bfloat16,
+                                  bias=True),
+    "masked_segment_f32": dict(B=5, H=2, L=96, layout="masked_segment"),
+    "tail_segment_bf16": dict(B=3, H=2, L=2400, dtype=torch.bfloat16,
+                              layout="tail_segment"),
+    "long_L2100_bf16": dict(B=3, H=2, L=2100, dtype=torch.bfloat16),
 }
 
 
@@ -272,7 +328,9 @@ SEG_CASES = {
 def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
     """K2 + K3, or K4 + K3 with the bias, with segment ids against the
     plain backward with them; the all-pad batch row gets dv = sum_l g / S
-    and no dq or dk, and every pad row adds nothing to dq."""
+    and no dq or dk, and every row that sees no key (pad rows, and the
+    rows of a segment whose keys are all masked) adds nothing to dq. A
+    bf16 call launches the segment summary kernel once."""
     x, g, out, lse = _seg_backward_inputs(cuda_device, **SEG_CASES[case])
     q, k, v, mask, bias, seg = (x[n] for n in ("q", "k", "v", "kv_mask",
                                                "bias", "seg"))
@@ -287,6 +345,7 @@ def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
     assert delta[dq_name + "_seg"] == delta["dkv_launches_seg"] == 1
     assert delta[dq_name + ("_tc" if tc else "_f32")] == 1
     assert delta["dkv_launches" + ("_tc" if tc else "_f32")] == 1
+    assert delta["seg_summary_launches"] == int(tc)
     want = fa.reference_backward(q, k, v, mask, g, out, lse, bias, seg)
     names = ("dq", "dk", "dv", "dbias")[:3 if bias is None else 4]
     for name, a, b, t in zip(names, got, want, (q, k, v, bias)):
@@ -299,16 +358,42 @@ def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
     torch.testing.assert_close(got[2][-1].float(), want_dv,
                                **GRAD_TOL[q.dtype])
     assert not got[0][-1].any() and not got[1][-1].any()
-    pad = (seg == 0)[:, None, :, None].expand_as(got[0])
-    assert not got[0][pad].any()
+    dead = (lse <= fa.MASKED_ROW_LSE)[..., None].expand_as(got[0])
+    assert not got[0][dead].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bias", [False, True], ids=["k2_k3", "k4_k3"])
-def test_seg_bwd_kernels_are_bitwise_deterministic(cuda_device, bias):
-    x, g, out, lse = _seg_backward_inputs(cuda_device, B=19, H=8, L=128,
-                                          dtype=torch.bfloat16, bias=bias,
-                                          strided=True)
+@pytest.mark.parametrize("layout", ["packed", "interleaved", "masked_segment",
+                                    "all_pad", "one_segment"])
+@pytest.mark.parametrize("L", [64, 203, 1024])
+def test_seg_summary_kernel_matches_plain_version(cuda_device, layout, L):
+    """The segment summary kernel: the summary equals seg_summary exactly
+    (L = 203 ends in a part granule), and gdead equals dead_rows_sum
+    exactly (both sum in f32 in row order), for g viewed from [B, L, H,
+    Dh] as the towers pass it."""
+    x, g, out, lse = _seg_backward_inputs(cuda_device, B=5, H=3, L=L,
+                                          dtype=torch.bfloat16, strided=True,
+                                          layout=layout)
+    before = fa.seg_summary_launches
+    summary, gdead = fa.launch_seg_summary(x["seg"], lse, g)
+    torch.cuda.synchronize()
+    assert fa.seg_summary_launches == before + 1
+    assert torch.equal(summary, fa.seg_summary(x["seg"]))
+    assert torch.equal(gdead, fa.dead_rows_sum(g, lse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(), dict(bias=True), dict(layout="interleaved"),
+    dict(layout="masked_segment", bias=True), dict(layout="all_pad"),
+    dict(layout="one_segment"), dict(L=203), dict(L=203, bias=True),
+], ids=["k2_k3", "k4_k3", "k2_k3_interleaved", "k4_k3_masked_segment",
+        "k2_k3_all_pad", "k2_k3_one_segment", "k2_k3_ragged_L203",
+        "k4_k3_ragged_L203"])
+def test_seg_bwd_kernels_are_bitwise_deterministic(cuda_device, case):
+    x, g, out, lse = _seg_backward_inputs(
+        cuda_device, **{**dict(B=19, H=8, L=128, dtype=torch.bfloat16,
+                               strided=True), **case})
     args = (x["q"], x["k"], x["v"], x["kv_mask"], g, out, lse, x["bias"],
             x["seg"])
     first = fa.flash_backward(*args)
