@@ -356,35 +356,61 @@ TC_EDGE_CASES = {
 }
 
 
-def pair_count(x) -> int:
-    """The (row, key) pairs the scores of one head count at: B * L * S, or
-    with segment ids the sum over batch rows and segments of the segment's
-    rows times its real keys (the pairs allowed_pairs allows), without a
-    [B, L, S] array."""
+def segment_groups(x) -> tuple:
+    """(rows, keys) [groups] f64: for each batch row and segment id > 0
+    (each batch row, without segment ids) its query rows and its real
+    keys, without a [B, L, S] array; a group's rows see exactly its
+    keys (the pairs allowed_pairs allows)."""
     B, L = x["q"].shape[0], x["q"].shape[2]
-    S = x["k"].shape[2]
+    mask = x["kv_mask"].double()
     seg = x.get("seg")
     if seg is None:
-        return B * L * S
+        return (torch.full((B,), float(L), dtype=torch.float64,
+                           device=mask.device), mask.sum(-1))
     ids = seg.long()
     live = ids > 0
     batch = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
     _, which = torch.unique(torch.stack([batch[live], ids[live]], 1), dim=0,
                             return_inverse=True)
-    rows = torch.bincount(which).double()
-    keys = torch.bincount(which, weights=x["kv_mask"][live].double())
+    return torch.bincount(which).double(), torch.bincount(
+        which, weights=mask[live])
+
+
+def pair_count(x) -> int:
+    """The (row, key) pairs these inputs allow, in one head: the sum over
+    segment_groups of rows times keys."""
+    rows, keys = segment_groups(x)
     return int((rows * keys).sum().item())
 
 
+def live_counts(x) -> tuple:
+    """(live rows, live keys) over the batch: the query rows that see a
+    key (the others, fully masked, need no q: their output is the mean of
+    V, their dv term g / S) and the keys a row sees (the others need no k
+    or v). The bounds read q (and K3's g) at live rows only, k and v at
+    live keys only."""
+    rows, keys = segment_groups(x)
+    return int(rows[keys > 0].sum().item()), int(keys.sum().item())
+
+
+def per_position(t) -> int:
+    """Bytes of [B, H, L, Dh] tensor `t` at one (batch row, position),
+    over its heads."""
+    return t.numel() * t.element_size() // (t.shape[0] * t.shape[2])
+
+
 def k1_bound(x) -> dict:
-    """Least time of K1 for these inputs: each input read once, out and
-    lse written once, against the operations over the pairs that
-    pair_count counts (the work these inputs need)."""
+    """Least time of K1 for these inputs: q at the live rows and k and v
+    at the live keys (live_counts) read once, the mask, bias and segment
+    ids read once, out and lse written once, against the operations over
+    the pairs that pair_count counts (the work these inputs need)."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
+    rows, keys = live_counts(x)
     nbytes = sum(t.numel() * t.element_size() for t in
-                 (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["seg"])
-                 if t is not None)
+                 (x["kv_mask"], x["bias"], x["seg"]) if t is not None)
+    nbytes += (rows * per_position(q)
+               + keys * (per_position(k) + per_position(x["v"])))
     nbytes += B * H * L * Dh * 4 + B * H * L * 4       # out, lse (f32)
     flops = 4.0 * H * pair_count(x) * Dh                 # q.k^T and p.v
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -542,22 +568,32 @@ def k23_inputs(device, seed, **case):
 
 def bwd_bound(x) -> dict:
     """Least time of the dq kernel (K2, or K4 with a bias) and of K3 for
-    these inputs: each input read once, each output written once, against
-    the operations each needs (2 flops per multiply-add) at the peak rate
-    of q's type. With a bias K4 also reads it and writes dbias, and K3
-    reads it; segment ids are read by both. The operations count the pairs
-    these inputs allow (pair_count: with segment ids, each segment's rows
-    times its real keys), not the whole L x S."""
+    these inputs, against the operations each needs (2 flops per
+    multiply-add) at the peak rate of q's type. Bytes: q at the live rows
+    and k and v at the live keys (live_counts) read once; the dq kernel
+    reads g and out at every row (delta is written at every row); K3
+    reads g at the live rows and, with segment ids, the dead rows' sum
+    gdead (the summary kernel reads g at the dead rows, and its own bound
+    counts that); lse, delta, the mask and segment ids read once, every
+    output written once. With a bias K4 also reads it and writes dbias,
+    and K3 reads it. The operations count the pairs these inputs allow
+    (pair_count), not the whole L x S."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
     nb = lambda t: 0 if t is None else t.numel() * t.element_size()
+    rows, keys = live_counts(x)
     row = B * H * L * 4                                  # lse or delta, f32
     mask = nb(x["kv_mask"]) + nb(x.get("seg"))
     bias = nb(x["bias"])
-    dq_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + nb(x["out"]) + row
-                + mask + 2 * bias + nb(q) + row)         # + dq, delta, dbias
-    dkv_bytes = (nb(q) + nb(k) + nb(x["v"]) + nb(x["g"]) + 2 * row + mask
-                 + bias + nb(k) + nb(x["v"]))            # + dk, dv
+    qkv = rows * per_position(q) + keys * (per_position(k)
+                                           + per_position(x["v"]))
+    # without segment ids K3 takes the dead rows' term from g itself
+    g_dkv = (rows * per_position(x["g"]) + B * H * Dh * 4
+             if x.get("seg") is not None else nb(x["g"]))
+    dq_bytes = (qkv + nb(x["g"]) + nb(x["out"]) + row + mask + 2 * bias
+                + nb(q) + row)                           # + dq, delta, dbias
+    dkv_bytes = (qkv + g_dkv + 2 * row + mask + bias
+                 + nb(k) + nb(x["v"]))                   # + dk, dv
     mac = 2.0 * H * pair_count(x) * Dh                   # one [L,S,Dh] product
     out = {}
     for name, nbytes, flops in (("dq", dq_bytes, 3 * mac),     # s, dp, dq
@@ -572,7 +608,8 @@ def bwd_bound(x) -> dict:
 
 def visit_shares(x) -> dict:
     """With segment ids: the share of the bf16 K2's and K3's tiles (K2 is
-    absent with a bias) and of the 16 x 16 chunks that the skipping kernels
+    absent with a bias; the tiles as the library chooses them, which must
+    be tile_shapes') and of the 16 x 16 chunks that the skipping kernels
     visit, by their rule, from the plain summary; and the share of pairs
     the segments allow."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
@@ -581,8 +618,12 @@ def visit_shares(x) -> dict:
     summary = fa.seg_summary(x["seg"])
     share = lambda rows, keys: fa.visited_tiles(summary, rows, keys
                                                 ).float().mean().item()
-    out = {f"{n}_tiles": share(*tiles) for n, tiles in
-           fa.tile_shapes(L, S, x["bias"] is not None).items()}
+    bias = x["bias"] is not None
+    tiles = fa.kernel_tile_shapes(L, S, bias)
+    if tiles != fa.tile_shapes(L, S, bias):
+        raise AssertionError(f"tile_shapes {fa.tile_shapes(L, S, bias)} is "
+                             f"not the library's choice {tiles}")
+    out = {f"{n}_tiles": share(*t) for n, t in tiles.items()}
     out["chunks_16x16"] = share(16, 16)
     out["allowed_pairs"] = pair_count(x) / (B * L * S)
     return out
@@ -774,17 +815,26 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     return {**t, "bound": b}
 
 
+def summary_args(x: dict) -> tuple:
+    """(summary, gdead) from the segment summary kernel, which the bf16 K2
+    and K3 take with segment ids; (None, None) without them or in f32."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    if x.get("seg") is None or x["q"].dtype != torch.bfloat16:
+        return None, None
+    return fa.launch_seg_summary(x["seg"], x["lse"], x["g"])
+
+
 def k2_bitwise(x: dict, case: str) -> bool:
     """Two runs of K2 on the same inputs give bitwise equal dq and delta
     (one writer per element, a fixed order over the KV tiles); raises if
     not."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["out"], x["lse"],
-            x.get("seg"))
+            x.get("seg"), summary_args(x)[0])
     first = fa.launch_dq(*args)
     again = fa.launch_dq(*args)
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
-    emit({"phase": "k2_bitwise", "case": case, "seg": args[-1] is not None,
+    emit({"phase": "k2_bitwise", "case": case, "seg": args[7] is not None,
           "dq_delta_equal": equal})
     if not equal:
         raise AssertionError(f"two runs of K2 gave different dq or delta "
@@ -838,12 +888,12 @@ def k3_bitwise(x: dict, delta, case: str) -> bool:
     writer per element, a fixed order over the Q tiles); raises if not."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     args = (x["q"], x["k"], x["v"], x["kv_mask"], x["g"], x["lse"], delta,
-            x["bias"], x.get("seg"))
+            x["bias"], x.get("seg"), *summary_args(x))
     first = fa.launch_dkv(*args)
     again = fa.launch_dkv(*args)
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
     emit({"phase": "k3_bitwise", "case": case,
-          "bias": x["bias"] is not None, "seg": args[-1] is not None,
+          "bias": x["bias"] is not None, "seg": args[8] is not None,
           "dk_dv_equal": equal})
     if not equal:
         raise AssertionError(f"two runs of K3 gave different dk or dv "
@@ -1003,7 +1053,8 @@ def check_seg(device, train_seg) -> dict:
         if x["bias"] is None:
             bitwise = k2_bitwise(x, case)
             delta = fa.launch_dq(x["q"], x["k"], x["v"], x["kv_mask"], x["g"],
-                                 x["out"], x["lse"], x["seg"])[1]
+                                 x["out"], x["lse"], x["seg"],
+                                 summary_args(x)[0])[1]
         else:
             args = (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["g"],
                     x["out"], x["lse"], x["seg"])

@@ -1953,6 +1953,34 @@ extern "C" int flash_bwd_dq_tc_blocks_per_sm(int dbias, int seg, int L,
   return blocks;
 }
 
+// K3's tiles at this shape: `bm` query rows by `keys` keys. The key tile
+// from S: one warp (16 keys) at the query tower's S=16. The Q tile from L;
+// with the bias, 32 rows: a block's buffers then take 63 KB of shared
+// memory instead of 106 at a head dim of 64, so 3 blocks fit an SM
+// instead of 2.
+static void dkv_tiles(int L, int S, bool bias, int* bm, int* keys) {
+  *keys = S <= 16 ? 16 : (S <= 32 ? 32 : tc::kMaxKeys);
+  *bm = bias && L > 32
+            ? 32
+            : (L >= tc::kMaxRows ? tc::kMaxRows : (L + 15) / 16 * 16);
+}
+
+// The tiles the bf16 K3 (with the bias when `bias` is 1) and K2 take at
+// this shape, as (query rows, keys): tiles[0], tiles[1] K3's Q tile and
+// key block; tiles[2], tiles[3] K2's Q tile and KV tile. The seg
+// kernels' visit shares are counted on the host at these tiles.
+extern "C" void flash_bwd_tc_tiles(int L, int S, int bias, int* tiles) {
+  dkv_tiles(L, S, bias != 0, &tiles[0], &tiles[1]);
+  const long long strides[21] = {};
+  const tcq::Args a = tcq::make_args(nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, 1, 1, L, S, 64, 1.f, 1,
+                                     strides);
+  tiles[2] = a.rows;
+  tiles[3] = a.bn;
+}
+
 // K3 for bf16 q/k/v, on the tensor cores: dk and dv (bf16), reading the
 // delta K2 or K4 wrote; `bias` may be null. q, k, v, g, dk and dv must be
 // 16-byte aligned, and so must each of their strides (the wrapper makes a
@@ -1989,14 +2017,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   a.L = L;
   a.S = S;
   a.Dh = Dh;
-  // the key tile from S: one warp (16 keys) at the query tower's S=16
-  a.keys = S <= 16 ? 16 : (S <= 32 ? 32 : tc::kMaxKeys);
-  // the Q tile from L; with the bias, 32 rows: a block's buffers then take
-  // 63 KB of shared memory instead of 106 at a head dim of 64, so 3 blocks
-  // fit an SM instead of 2
-  a.bm = bias != nullptr && L > 32
-             ? 32
-             : (L >= tc::kMaxRows ? tc::kMaxRows : (L + 15) / 16 * 16);
+  dkv_tiles(L, S, bias != nullptr, &a.bm, &a.keys);
   a.stages = L > a.bm ? 2 : 1;
   a.scale = scale;
   a.st = unpack(strides);

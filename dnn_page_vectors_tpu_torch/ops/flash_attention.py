@@ -148,10 +148,12 @@ def dead_rows_sum(g: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
 
 
 def tile_shapes(L: int, S: int, bias: bool) -> dict:
-    """The tiles the bf16 backward kernels take at this shape (as
-    csrc/flash_bwd.cu chooses them): {"k2": (query rows, keys) of K2's Q
-    tile and KV tile, "k3": (query rows, keys) of K3's Q tile and key
-    block}; K2 is absent with a bias (K4 replaces it)."""
+    """The tiles the bf16 backward kernels take at this shape, as
+    csrc/flash_bwd.cu chooses them (``kernel_tile_shapes`` reads the
+    library's choice; the two are held equal on the card): {"k2": (query
+    rows, keys) of K2's Q tile and KV tile, "k3": (query rows, keys) of
+    K3's Q tile and key block}; K2 is absent with a bias (K4 replaces
+    it)."""
     k3_rows = 32 if bias and L > 32 else (64 if L >= 64 else -(-L // 16) * 16)
     shapes = {"k3": (k3_rows, 16 if S <= 16 else (32 if S <= 32 else 64))}
     if not bias:
@@ -390,7 +392,22 @@ def _bwd_library():
     if fn.argtypes is None:      # seg, lse, g, summary, gdead, B, H, L, Dh
         fn.argtypes = [P] * 5 + [I] * 4 + [strides, P]
         fn.restype = I
+    fn = lib.flash_bwd_tc_tiles
+    if fn.argtypes is None:      # L, S, bias, tiles[4]
+        fn.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+        fn.restype = None
     return lib
+
+
+def kernel_tile_shapes(L: int, S: int, bias: bool) -> dict:
+    """``tile_shapes`` as the compiled library chooses the tiles (it needs
+    the CUDA build)."""
+    tiles = (ctypes.c_int * 4)()
+    _bwd_library().flash_bwd_tc_tiles(L, S, int(bias), tiles)
+    shapes = {"k3": (tiles[0], tiles[1])}
+    if not bias:
+        shapes["k2"] = (tiles[2], tiles[3])
+    return shapes
 
 
 def dq_blocks_per_sm(dbias: bool, seg: bool, L: int, S: int, Dh: int,
@@ -450,7 +467,7 @@ def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None, summary=None
     and lo halves as it is staged), f32 the CUDA-core one; `seg` [B, L]
     restricts the pairs to segments, as in K1. With `seg` the bf16 kernel
     visits only the KV tiles that share a segment with its Q tile, by
-    `summary` (``launch_seg_summary``'s, launched here when not given)."""
+    `summary` (``launch_seg_summary``'s, which it requires)."""
     lib = _bwd_library()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
@@ -459,7 +476,8 @@ def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None, summary=None
     mask_u8 = _mask_bytes(kv_mask)
     seg_i = _seg_ids(seg)
     if tensor_cores and seg is not None and summary is None:
-        summary = launch_seg_summary(seg_i, lse, g)[0]
+        raise ValueError("launch_dq: bf16 q/k/v with seg need the segment "
+                         "summary (launch_seg_summary)")
     out, lse = out.contiguous(), lse.contiguous()
     # like q: the towers' transposed views get gradients laid out as they
     # are, so autograd needs no copy on the way back
@@ -537,8 +555,7 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None,
     bf16 hi and lo halves as it is staged), f32 the CUDA-core one. With
     `seg` the bf16 kernel visits only the Q tiles that share a segment
     with its keys and adds the fully masked rows' dv from `gdead`, by
-    (`summary`, `gdead`), ``launch_seg_summary``'s (launched here when not
-    given)."""
+    (`summary`, `gdead`), ``launch_seg_summary``'s, which it requires."""
     lib = _bwd_library()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
@@ -547,7 +564,8 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None,
     seg_i = _seg_ids(seg)
     if tensor_cores and seg is not None and (summary is None
                                              or gdead is None):
-        summary, gdead = launch_seg_summary(seg_i, lse, g)
+        raise ValueError("launch_dkv: bf16 q/k/v with seg need the segment "
+                         "summary and gdead (launch_seg_summary)")
     lse = lse.contiguous()
     bias_f = None if bias is None else bias.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)

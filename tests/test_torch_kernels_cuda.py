@@ -363,6 +363,35 @@ def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["k2_k3", "k3_bias"])
+@pytest.mark.parametrize("L,S", [(16, 16), (20, 20), (32, 32), (37, 53),
+                                 (64, 64), (128, 128), (203, 203),
+                                 (1024, 1024)])
+def test_tile_shapes_are_the_librarys(cuda_device, L, S, bias):
+    """tile_shapes, which the CPU tests of the visit rule take, is the
+    tiles the compiled K2 and K3 choose."""
+    assert fa.tile_shapes(L, S, bias) == fa.kernel_tile_shapes(L, S, bias)
+
+
+@pytest.mark.cuda
+def test_seg_launchers_require_the_summary(cuda_device):
+    """The bf16 K2 and K3 with seg raise without launch_seg_summary's
+    summary (and gdead): they never launch it themselves."""
+    x, g, out, lse = _seg_backward_inputs(cuda_device, B=3, H=2, L=64,
+                                          dtype=torch.bfloat16)
+    q, k, v, mask, seg = x["q"], x["k"], x["v"], x["kv_mask"], x["seg"]
+    before = fa.seg_summary_launches
+    with pytest.raises(ValueError, match="summary"):
+        fa.launch_dq(q, k, v, mask, g, out, lse, seg)
+    summary, gdead = fa.launch_seg_summary(seg, lse, g)
+    delta = fa.launch_dq(q, k, v, mask, g, out, lse, seg, summary)[1]
+    for extra in ((), (summary,)):
+        with pytest.raises(ValueError, match="summary"):
+            fa.launch_dkv(q, k, v, mask, g, lse, delta, None, seg, *extra)
+    assert fa.seg_summary_launches == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["packed", "interleaved", "masked_segment",
                                     "all_pad", "one_segment"])
 @pytest.mark.parametrize("L", [64, 203, 1024])

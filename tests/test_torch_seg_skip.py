@@ -17,10 +17,15 @@ every key, out of its tile loop as gdead / S. Here, on numpy-seeded inputs:
 (c) dead rows at p = 0 plus gdead / S give the dv of ``jax.grad`` of the
     JAX package's ``reference_attention`` with segment ids, in f32 at
     1e-4 relative + 1e-5 absolute (the JAX flash tests' tolerance), with
-    pad rows and a segment whose keys are all masked.
+    pad rows and a segment whose keys are all masked;
+(d) chip_smoke.py's bounds count the allowed pairs, the rows that see a
+    key and the keys a row sees as a brute force counts them.
 
 tests/test_torch_kernels_cuda.py holds the kernels themselves to the
 plain versions on the card."""
+import os
+import runpy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,6 +111,40 @@ def test_visit_rule_covers_every_allowed_pair(name, L, tiles):
     assert not visited[-1].any()
     if name == "packed" and L == 1024:
         assert visited.mean() < 0.5
+
+
+def _chip_smoke() -> dict:
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                          run_name="chip_smoke")
+
+
+@pytest.mark.parametrize("name,L", LAYOUTS + [("no_seg", 40)],
+                         ids=[f"{n}_L{L}" for n, L in LAYOUTS + [("no_seg",
+                                                                  40)]])
+def test_bound_counts_match_brute_force(name, L):
+    """chip_smoke.py's bounds count the work these inputs need: the
+    allowed pairs, the rows that see a key and the keys a row sees, as a
+    brute force over the [B, L, S] pairs counts them (masked keys inside
+    live segments, and a batch row with no real key, included)."""
+    smoke = _chip_smoke()
+    B, H, Dh = 6, 2, 8
+    if name == "no_seg":
+        seg = None
+        mask = np.random.default_rng(L).random((B, L)) > 0.3
+        mask[-1] = False
+        allowed = np.broadcast_to(mask[:, None, :], (B, L, L))
+    else:
+        seg = _layout(name, B, L, seed=L)
+        mask = seg > 0
+        mask[0, ::3] = False
+        allowed = _allowed(seg, mask)
+    x = {"q": torch.zeros(B, H, L, Dh), "k": torch.zeros(B, H, L, Dh),
+         "kv_mask": torch.from_numpy(mask),
+         "seg": None if seg is None else torch.from_numpy(seg)}
+    assert smoke["pair_count"](x) == allowed.sum()
+    assert smoke["live_counts"](x) == (allowed.any(2).sum(),
+                                       allowed.any(1).sum())
 
 
 def _dv_with_dead_rows_out_of_the_loop(q, k, v, mask, g, seg, bias=None):
