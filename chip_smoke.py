@@ -67,17 +67,20 @@ Phases, each printing one JSON line:
      toy pages of 20 words a step (512 rows of 128 tokens) over phase 6's
      vocab; K1, K4 and K3 launch 24 times a step, 12 of each with segment
      ids and the bias.
-The kernel checks also hold the segment (seg) variants of K2, K3 and K4,
-bf16 and f32, against the plain backward with seg at both packed paths'
-shapes, at the segment ids of phase 8's first batch (phase 4's corpus and
-vocab are built before these checks for it) and at the edge cases (a row
-that is all pad, a segment of one token, segments across tile edges, ids
-that are not contiguous, a segment whose keys are all masked, one
-segment over the row, a ragged length), with K1 at L=S=1,024 with seg;
-the segment summary kernel (run before the bf16 K2 and K3 with seg,
-whose tile skip it serves) against its plain versions; and time them,
-each bf16 seg time beside the share of tiles and 16 x 16 chunks the
-kernels visit. Bounds count the pairs the segments allow. Then the
+The kernel checks also hold the segment (seg) variants of K1 (against
+the plain forward, and mean(V) at every row that sees no key) and of K2,
+K3 and K4 (against the plain backward), bf16 and f32, with seg at both
+packed paths' shapes, at the segment ids of phase 8's first batch (phase
+4's corpus and vocab are built before the kernel checks for it) and at
+the edge cases (a row that is all pad, a segment of one token, segments
+across tile edges, ids that are not contiguous, a segment whose keys are
+all masked, one segment over the row, a ragged length), each with and
+without the bias; the segment summary kernel (run before the bf16 K1
+with seg, whose tile skip it serves, as the backward's K2 and K3 skips)
+and the dead rows' g sum (before K3 with seg) against their plain
+versions; and time them, each bf16 seg time beside the share of tiles
+and 16 x 16 chunks the kernels visit. Bounds count the pairs the
+segments allow. Then the
 `kernels` line, the card's name and power limit as nvidia-smi prints
 them, and last {"ok": true, "device": {...}}.
 
@@ -357,29 +360,30 @@ TC_EDGE_CASES = {
 
 
 def segment_groups(x) -> tuple:
-    """(rows, keys) [groups] f64: for each batch row and segment id > 0
+    """(rows, keys, batch) [groups]: for each batch row and segment id > 0
     (each batch row, without segment ids) its query rows and its real
-    keys, without a [B, L, S] array; a group's rows see exactly its
-    keys (the pairs allowed_pairs allows)."""
+    keys (f64) and its batch row, without a [B, L, S] array; a group's
+    rows see exactly its keys (the pairs allowed_pairs allows)."""
     B, L = x["q"].shape[0], x["q"].shape[2]
     mask = x["kv_mask"].double()
     seg = x.get("seg")
     if seg is None:
         return (torch.full((B,), float(L), dtype=torch.float64,
-                           device=mask.device), mask.sum(-1))
+                           device=mask.device), mask.sum(-1),
+                torch.arange(B, device=mask.device))
     ids = seg.long()
     live = ids > 0
     batch = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
-    _, which = torch.unique(torch.stack([batch[live], ids[live]], 1), dim=0,
-                            return_inverse=True)
-    return torch.bincount(which).double(), torch.bincount(
-        which, weights=mask[live])
+    groups, which = torch.unique(torch.stack([batch[live], ids[live]], 1),
+                                 dim=0, return_inverse=True)
+    return (torch.bincount(which).double(),
+            torch.bincount(which, weights=mask[live]), groups[:, 0])
 
 
 def pair_count(x) -> int:
     """The (row, key) pairs these inputs allow, in one head: the sum over
     segment_groups of rows times keys."""
-    rows, keys = segment_groups(x)
+    rows, keys, _ = segment_groups(x)
     return int((rows * keys).sum().item())
 
 
@@ -389,8 +393,23 @@ def live_counts(x) -> tuple:
     V, their dv term g / S) and the keys a row sees (the others need no k
     or v). The bounds read q (and K3's g) at live rows only, k and v at
     live keys only."""
-    rows, keys = segment_groups(x)
+    rows, keys, _ = segment_groups(x)
     return int(rows[keys > 0].sum().item()), int(keys.sum().item())
+
+
+def v_key_count(x) -> int:
+    """The keys whose v K1 must read, over the batch: in a batch row that
+    holds a row that sees no key (its output is the mean of V over every
+    key below S) every key, elsewhere the keys a row sees."""
+    rows, keys, batch = segment_groups(x)
+    B, L = x["q"].shape[0], x["q"].shape[2]
+    S = x["k"].shape[2]
+    live_rows = torch.zeros(B, dtype=torch.float64, device=rows.device)
+    live_rows.index_add_(0, batch, torch.where(keys > 0, rows,
+                                               torch.zeros_like(rows)))
+    seen = torch.zeros(B, dtype=torch.float64, device=rows.device)
+    seen.index_add_(0, batch, keys)
+    return int(torch.where(live_rows < L, float(S), seen).sum().item())
 
 
 def per_position(t) -> int:
@@ -400,17 +419,19 @@ def per_position(t) -> int:
 
 
 def k1_bound(x) -> dict:
-    """Least time of K1 for these inputs: q at the live rows and k and v
-    at the live keys (live_counts) read once, the mask, bias and segment
-    ids read once, out and lse written once, against the operations over
-    the pairs that pair_count counts (the work these inputs need)."""
+    """Least time of K1 for these inputs: q at the live rows and k at the
+    live keys (live_counts) read once, v at the keys v_key_count counts
+    (a dead row's mean(V) reads every key of its batch row) once, the
+    mask, bias and segment ids read once, out and lse written once,
+    against the operations over the pairs that pair_count counts (the
+    work these inputs need)."""
     q, k = x["q"], x["k"]
     B, H, L, Dh = q.shape
     rows, keys = live_counts(x)
     nbytes = sum(t.numel() * t.element_size() for t in
                  (x["kv_mask"], x["bias"], x["seg"]) if t is not None)
-    nbytes += (rows * per_position(q)
-               + keys * (per_position(k) + per_position(x["v"])))
+    nbytes += (rows * per_position(q) + keys * per_position(k)
+               + v_key_count(x) * per_position(x["v"]))
     nbytes += B * H * L * Dh * 4 + B * H * L * 4       # out, lse (f32)
     flops = 4.0 * H * pair_count(x) * Dh                 # q.k^T and p.v
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -420,11 +441,17 @@ def k1_bound(x) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_k1(device, timed_cases) -> dict:
+def check_k1(device, timed_cases, train_seg) -> dict:
     """Kernel vs plain version on every case (the serving and training
-    paths' shapes and the edge cases); times at `timed_cases`."""
+    paths' shapes, the edge cases, and with segment ids every case of
+    SEG_EDGE_CASES and the training layout `train_seg`, each without and
+    with the bias, where every row that sees no key must return mean(V)
+    and an lse <= -1e29); times at `timed_cases`, the seg ones with the
+    segment summary kernel alone and the share of tiles K1 visits."""
     import torch.nn.functional as F
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    long_c = dict(B=LONG_TRAIN_BATCH // PACK, H=8, L=1024, S=1024, Dh=64,
+                  dtype=torch.bfloat16, strided=True, packed=True)
     cases = {
         "embed_bf16": dict(B=512, H=4, L=64, S=64, Dh=64,
                            dtype=torch.bfloat16),
@@ -445,10 +472,11 @@ def check_k1(device, timed_cases) -> dict:
                     seg=True),
         # the packed paths' shapes: bert_long_sp's 256 rows of 1,024
         # tokens, mT5's 512 rows of 128 with the bias
-        "bert_long_packed_bf16": dict(B=LONG_TRAIN_BATCH // PACK, H=8,
-                                      L=1024, S=1024, Dh=64,
-                                      dtype=torch.bfloat16, strided=True,
-                                      packed=True),
+        "bert_long_packed_bf16": long_c,
+        # the packed bert_long_sp cell's first batch: the layout its step
+        # runs
+        "bert_long_train_layout_bf16": {**long_c, "packed": False,
+                                        "seg_ids": train_seg},
         "bert_long_packed_f32": dict(B=8, H=8, L=1024, S=1024, Dh=64,
                                      dtype=torch.float32, packed=True),
         "mt5_packed_bias_bf16": dict(B=MT5_PACK_TRAIN_BATCH // PACK, H=12,
@@ -468,8 +496,14 @@ def check_k1(device, timed_cases) -> dict:
                                     Dh=64, dtype=torch.bfloat16, bias=True,
                                     strided=True),
         **TC_EDGE_CASES,
+        **{f"seg_{n}{'_bias' if b else ''}": {
+            **c, "bias": b, "packed": "layout" not in c}
+           for n, c in SEG_EDGE_CASES.items() for b in (False, True)},
+        "bert_long_train_layout_bias_bf16": {**long_c, "packed": False,
+                                             "seg_ids": train_seg,
+                                             "bias": True},
     }
-    worst = {}
+    worst, worst_seg = {}, {}
     for i, (name, c) in enumerate(cases.items()):
         x = k1_inputs(device=device, seed=i, **c)
         before = (fa.launches_tc, fa.launches_f32, fa.launches_seg)
@@ -492,15 +526,31 @@ def check_k1(device, timed_cases) -> dict:
             mean_v = x["v"][0::2].float().mean(dim=2, keepdim=True)
             mv_err = (out[0::2] - mean_v).abs().max().item()
             ok = ok and mv_err <= tol
+        dead_rec = {}
+        if x["seg"] is not None:
+            # every row that sees no key (the plain lse says which): the
+            # mean of V over its batch row's keys, and an lse <= -1e29
+            dead = want_lse <= fa.MASKED_ROW_LSE
+            mean_v = x["v"].float().mean(dim=2, keepdim=True).expand_as(out)
+            dead_rec = {"dead_rows": int(dead.sum().item()),
+                        "dead_mean_v_err": (out[dead] - mean_v[dead]).abs()
+                        .max().item() if dead.any() else 0.0,
+                        "dead_lse_ok": bool((lse[dead]
+                                             <= fa.MASKED_ROW_LSE).all())}
+            ok = (ok and dead_rec["dead_mean_v_err"] <= tol
+                  and dead_rec["dead_lse_ok"])
         rec = {"phase": "k1_check", "case": name,
                "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]],
                "dtype": str(c["dtype"]).replace("torch.", ""),
+               "bias": x["bias"] is not None, "seg": x["seg"] is not None,
                "max_abs_err": err, "lse_rel_err": lse_err, "tol": tol,
-               "ok": ok}
+               **dead_rec, "ok": ok}
         emit(rec)
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version: {rec}")
         worst[name] = err
+        if x["seg"] is not None:
+            worst_seg[name] = err
     # times at the bulk-embed shapes, the paths' hot calls
     timed = {}
     for case in timed_cases:
@@ -515,6 +565,18 @@ def check_k1(device, timed_cases) -> dict:
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 x["q"], x["k"], x["v"], attn_mask=mask4)),
         }
+        if x["seg"] is not None and c["dtype"] == torch.bfloat16:
+            # kernel_ms is the call's (the summary kernel, then K1); K1
+            # alone on a summary made beforehand, and the summary kernel
+            summary, vmean = fa.launch_seg_summary(x["seg"], x["kv_mask"],
+                                                   x["v"])
+            t["k1_alone_ms"] = cuda_ms(lambda: fa.launch_forward(
+                x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["seg"],
+                summary, vmean))
+            t["seg_summary_ms"] = cuda_ms(lambda: fa.launch_seg_summary(
+                x["seg"], x["kv_mask"], x["v"]))
+            t["visited"] = visit_shares(x)
+            del summary, vmean
         b = k1_bound(x)
         rec = {"phase": "k1_timing", "case": case,
                "shape": [c["B"], c["H"], c["L"], c["S"], c["Dh"]], **t,
@@ -526,7 +588,7 @@ def check_k1(device, timed_cases) -> dict:
         timed[case] = {**t, **b}
         del x, mask4
     return {"max_abs_err": max(worst.values()), "worst": worst,
-            "timed": timed}
+            "max_abs_err_seg": max(worst_seg.values()), "timed": timed}
 
 
 def library_mask(kv_mask, bias, seg, dtype):
@@ -630,42 +692,79 @@ def visit_shares(x) -> dict:
 
 
 def check_summary(case: str, x: dict) -> dict:
-    """The segment summary kernel against its plain versions (seg_summary
-    exactly; dead_rows_sum exactly: both sum in f32 in row order) at a
-    case's inputs, and its time, the plain versions' and its bound (it
-    reads seg, lse and g at the dead rows, writes the summary and gdead);
-    raises on a disagreement."""
+    """The segment summary kernel (before the bf16 K1 with segment ids)
+    against its plain versions at a case's inputs: the summary equal to
+    seg_summary and vmean to value_mean, exactly (both sum in f32 in one
+    order); its time, the plain versions' and its bound (it reads seg and
+    the kv mask, and v at every key of each batch row that can hold a row
+    that sees no key; writes the summary and vmean); raises on a
+    disagreement."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
-    seg, lse, g = x["seg"], x["lse"], x["g"]
+    seg, mask, v = x["seg"], x["kv_mask"], x["v"]
     before = fa.seg_summary_launches
-    summary, gdead = fa.launch_seg_summary(seg, lse, g)
+    summary, vmean = fa.launch_seg_summary(seg, mask, v)
     torch.cuda.synchronize()
-    want_sum, want_dead = fa.seg_summary(seg), fa.dead_rows_sum(g, lse)
-    err = (gdead - want_dead).abs().max().item()
+    want_sum, want_mean = fa.seg_summary(seg), fa.value_mean(v, mask, seg)
     ok = (fa.seg_summary_launches == before + 1
-          and torch.equal(summary, want_sum) and torch.equal(gdead, want_dead))
-    B, H, L, Dh = g.shape
-    dead = int((lse <= fa.MASKED_ROW_LSE).sum().item())
-    nbytes = (seg.numel() * 4 + lse.numel() * 4 + dead * Dh * 4
-              + summary.numel() * 4 + gdead.numel() * 4)
+          and torch.equal(summary, want_sum) and torch.equal(vmean, want_mean))
+    B, H, L, Dh = v.shape
+    can_die = int(((seg <= 0) | ~mask.bool()).any(-1).sum().item())
+    nbytes = (seg.numel() * 4 + mask.numel() * mask.element_size()
+              + can_die * L * per_position(v) + summary.numel() * 4
+              + vmean.numel() * 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = dead * Dh / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = can_die * H * L * Dh / PEAK_FLOPS[torch.float32] * 1e3
     rec = {"phase": "seg_summary_check", "case": case, "shape": [B, H, L, Dh],
            "summary_equal": torch.equal(summary, want_sum),
-           "gdead_equal": torch.equal(gdead, want_dead),
-           "max_abs_err": err, "dead_rows": dead,
-           "ms": cuda_ms(lambda: fa.launch_seg_summary(seg, lse, g)),
+           "vmean_equal": torch.equal(vmean, want_mean),
+           "max_abs_err": (vmean - want_mean).abs().max().item(),
+           "batch_rows_that_can_hold_a_dead_row": can_die,
+           "ms": cuda_ms(lambda: fa.launch_seg_summary(seg, mask, v)),
            "plain_ms": cuda_ms(lambda: (fa.seg_summary(seg),
-                                        fa.dead_rows_sum(g, lse)),
+                                        fa.value_mean(v, mask, seg)),
                                iters=3, warmup=1),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ok": ok,
-           "plain_call": "seg_summary and dead_rows_sum"}
+           "plain_call": "seg_summary and value_mean"}
     emit(rec)
     if not ok:
         raise AssertionError(f"the segment summary kernel disagrees with its "
                              f"plain versions: {rec}")
+    return rec
+
+
+def check_gdead(case: str, x: dict) -> dict:
+    """The dead rows' g sum (before the bf16 K3 with segment ids) against
+    dead_rows_sum, exactly (both sum in f32 in row order), at a case's
+    inputs; its time, the plain version's and its bound (it reads lse and
+    g at the dead rows, writes gdead); raises on a disagreement."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    lse, g = x["lse"], x["g"]
+    before = fa.gdead_launches
+    gdead = fa.launch_dead_rows_sum(lse, g)
+    torch.cuda.synchronize()
+    want = fa.dead_rows_sum(g, lse)
+    ok = fa.gdead_launches == before + 1 and torch.equal(gdead, want)
+    B, H, L, Dh = g.shape
+    dead = int((lse <= fa.MASKED_ROW_LSE).sum().item())
+    nbytes = lse.numel() * 4 + dead * Dh * 4 + gdead.numel() * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = dead * Dh / PEAK_FLOPS[torch.float32] * 1e3
+    rec = {"phase": "gdead_check", "case": case, "shape": [B, H, L, Dh],
+           "gdead_equal": torch.equal(gdead, want),
+           "max_abs_err": (gdead - want).abs().max().item(),
+           "dead_rows": dead,
+           "ms": cuda_ms(lambda: fa.launch_dead_rows_sum(lse, g)),
+           "plain_ms": cuda_ms(lambda: fa.dead_rows_sum(g, lse), iters=3,
+                               warmup=1),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "ok": ok, "plain_call": "dead_rows_sum"}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"the dead rows' g sum disagrees with "
+                             f"dead_rows_sum: {rec}")
     return rec
 
 
@@ -683,7 +782,8 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
                  fa.dq_launches_seg + fa.dq_dbias_launches_seg),
                 (fa.dkv_launches_tc, fa.dkv_launches_f32,
                  fa.dkv_launches_seg))
-    before, summaries = split(), fa.seg_summary_launches
+    before = split()
+    summaries = (fa.seg_summary_launches, fa.gdead_launches)
     got = fa.flash_backward(*args)
     torch.cuda.synchronize()
     took = [tuple(a_ - b_ for a_, b_ in zip(a, b))
@@ -693,11 +793,15 @@ def check_bwd_case(phase: str, name: str, c: dict, x: dict) -> dict:
     if took != [want, want]:
         raise AssertionError(f"case {name} ({c['dtype']}) launched (K2 or K4, "
                              f"K3) as (tensor-core, CUDA-core, seg) {took}")
-    # the bf16 K2 and K3 with seg share one summary launch
-    summaries = fa.seg_summary_launches - summaries
-    if summaries != int(seg is not None and c["dtype"] == torch.bfloat16):
+    # given no summary, a bf16 backward with seg launches the summary
+    # kernel once (K2 and K3 share it) and the dead rows' g sum once
+    summaries = (fa.seg_summary_launches - summaries[0],
+                 fa.gdead_launches - summaries[1])
+    want_n = int(seg is not None and c["dtype"] == torch.bfloat16)
+    if summaries != (want_n, want_n):
         raise AssertionError(f"case {name} launched the segment summary "
-                             f"kernel {summaries} times")
+                             f"kernel and the dead rows' sum {summaries} "
+                             "times")
     want = plain_backward(*args)
     rtol, atol = GRAD_TOL[c["dtype"]]
     names = ("dq", "dk", "dv", "dbias")[:3 if x["bias"] is None else 4]
@@ -756,11 +860,12 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
     bias, out, lse, seg = x["bias"], x["out"], x["lse"], x.get("seg")
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    # the bf16 K2 and K3 with seg take the segment summary, launched once
-    # per backward (inside the pair's time, timed alone below)
+    # the bf16 K2 and K3 with seg take the forward's segment summary, and
+    # K3 the dead rows' g sum, launched once per backward (inside the
+    # pair's time, timed alone below)
     summary = gdead = None
     if seg is not None and q.dtype == torch.bfloat16:
-        summary, gdead = fa.launch_seg_summary(seg, lse, g)
+        summary, gdead = summary_args(x)
     if bias is None:
         names = ("k2_ms", "k3_ms", "k2_k3_ms")
         dq_fn = lambda: fa.launch_dq(q, k, v, mask, g, out, lse, seg,
@@ -784,7 +889,7 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
         names[1]: cuda_ms(lambda: fa.launch_dkv(q, k, v, mask, g, lse, delta,
                                                 bias, seg, summary, gdead)),
         names[2]: cuda_ms(lambda: fa.flash_backward(q, k, v, mask, g, out,
-                                                    lse, bias, seg)),
+                                                    lse, bias, seg, summary)),
         "plain_ms": cuda_ms(lambda: plain_backward(
             q, k, v, mask, g, out, lse, bias, seg),
             iters=5 if seg is None else 2, warmup=3 if seg is None else 1),
@@ -792,8 +897,7 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
             sdpa_out, leaves, g_lib, retain_graph=True)),
     }
     if summary is not None:
-        t["seg_summary_ms"] = cuda_ms(
-            lambda: fa.launch_seg_summary(seg, lse, g))
+        t["gdead_ms"] = cuda_ms(lambda: fa.launch_dead_rows_sum(lse, g))
         t["visited"] = visit_shares(x)
     b = bwd_bound(x)
     B, H, L, Dh = q.shape
@@ -816,12 +920,14 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
 
 
 def summary_args(x: dict) -> tuple:
-    """(summary, gdead) from the segment summary kernel, which the bf16 K2
-    and K3 take with segment ids; (None, None) without them or in f32."""
+    """(summary, gdead) from the segment summary kernel and the dead rows'
+    g sum, which the bf16 K2 and K3 take with segment ids; (None, None)
+    without them or in f32."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     if x.get("seg") is None or x["q"].dtype != torch.bfloat16:
         return None, None
-    return fa.launch_seg_summary(x["seg"], x["lse"], x["g"])
+    return (fa.launch_seg_summary(x["seg"], x["kv_mask"], x["v"])[0],
+            fa.launch_dead_rows_sum(x["lse"], x["g"]))
 
 
 def k2_bitwise(x: dict, case: str) -> bool:
@@ -1015,9 +1121,10 @@ def check_seg(device, train_seg) -> dict:
     segment ids) against reference_backward with them, at both packed
     paths' shapes (bf16 at the full batch, f32 at a cut one), at the
     training layout `train_seg` (train_layout_seg's) and the edge cases;
-    the segment summary kernel against its plain versions; two runs of
-    each bitwise equal; each timed at the packed shapes, bert_long_sp's
-    at both layouts (packed_seg's and the training batch's)."""
+    the segment summary kernel and the dead rows' g sum against their
+    plain versions; two runs of each bitwise equal; each timed at the
+    packed shapes, bert_long_sp's at both layouts (packed_seg's and the
+    training batch's)."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     rows_long, rows_mt5 = LONG_TRAIN_BATCH // PACK, MT5_PACK_TRAIN_BATCH // PACK
     long_c = dict(B=rows_long, H=8, L=1024, S=1024, Dh=64,
@@ -1043,13 +1150,14 @@ def check_seg(device, train_seg) -> dict:
                        "dbias": errs.get("dbias", 0.0),
                        "dtype": str(c["dtype"]).replace("torch.", "")}
         del x
-    out = {"worst": worst, "summary": {}}
+    out = {"worst": worst, "summary": {}, "gdead": {}}
     for key, case, c, seed in (
             ("long", "bert_long_packed_bf16", long_c, 700),
             ("long_train", "bert_long_train_layout_bf16", train_c, 702),
             ("mt5", "mt5_packed_bias_bf16", mt5_c, 701)):
         x = k23_inputs(device, seed=seed, **c)
         out["summary"][key] = check_summary(case, x)
+        out["gdead"][key] = check_gdead(case, x)
         if x["bias"] is None:
             bitwise = k2_bitwise(x, case)
             delta = fa.launch_dq(x["q"], x["k"], x["v"], x["kv_mask"], x["g"],
@@ -1079,9 +1187,9 @@ def check_seg(device, train_seg) -> dict:
 def device_breakdown(fn, iters: int = 5) -> dict:
     """Device time of fn() by kernel class, from torch.profiler (CUPTI):
     per-call milliseconds of K1, K2, K3, K4, the segment summary kernel,
-    of matrix products, and of the rest; of those of K2, K3 and K4, the seg variants' share (their
-    last template flag; K1 tests seg at run time, so its kernel names do
-    not tell); plus the six largest kernels by name."""
+    the dead rows' g sum, of matrix products, and of the rest; of those of
+    K1, K2, K3 and K4, the seg variants' share (their last template flag);
+    plus the six largest kernels by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1098,21 +1206,25 @@ def device_breakdown(fn, iters: int = 5) -> dict:
         raise AssertionError("torch.profiler recorded no device time")
     classes = {"k1_flash_fwd": 0.0, "k2_flash_bwd_dq": 0.0,
                "k3_flash_bwd_dkv": 0.0, "k4_flash_bwd_dq_dbias": 0.0,
-               "seg_summary": 0.0, "matmul": 0.0, "other": 0.0}
-    seg = {"k2_seg": 0.0, "k3_seg": 0.0, "k4_seg": 0.0}
+               "seg_summary": 0.0, "gdead": 0.0, "matmul": 0.0,
+               "other": 0.0}
+    seg = {"k1_seg": 0.0, "k2_seg": 0.0, "k3_seg": 0.0, "k4_seg": 0.0}
     for name, ms in kernels:
         low = name.lower()
         # the template arguments, demangled (<64, true>) or not (ILi64ELb1EE)
         flags = re.search(r"_tc_kernel(?:<([^<>]*)>|I(\w*?)EE)", name)
         if flags and ((flags.group(1) or "").strip().endswith("true")
                       or (flags.group(2) or "").endswith("Lb1")):
-            kind = ("k4_seg" if "dbias" in low else
+            kind = ("k1_seg" if "flash_fwd" in low else
+                    "k4_seg" if "dbias" in low else
                     "k2_seg" if "flash_bwd_dq" in low else "k3_seg")
             seg[kind] += ms
-        if "flash_fwd" in low:
-            classes["k1_flash_fwd"] += ms
-        elif "seg_summary" in low:       # before K2 and K3 with seg
+        if "seg_summary" in low:         # before K1 with seg
             classes["seg_summary"] += ms
+        elif "gdead" in low:             # before K3 with seg
+            classes["gdead"] += ms
+        elif "flash_fwd" in low:
+            classes["k1_flash_fwd"] += ms
         elif "dbias" in low:             # K4's two launches
             classes["k4_flash_bwd_dq_dbias"] += ms
         elif "flash_bwd_dq" in low:
@@ -1472,10 +1584,13 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     biased = m.encoder == "t5"           # K4 replaces K2 on the bias path
     per_step = [per_layer, 0 if biased else per_layer, per_layer,
                 per_layer if biased else 0]
-    # with packing, the page tower's launches (one per layer) take seg, and
-    # each of its backward calls launches the segment summary kernel once
+    # with packing, the page tower's launches (one per layer) take seg:
+    # each of its forward calls launches the segment summary kernel once
+    # (its backward takes that summary), each backward call the dead rows'
+    # g sum once
     seg_step = [n // 2 if pack > 1 else 0 for n in per_step]
-    summary_step = seg_step[2]
+    summary_step = seg_step[0]
+    gdead_step = seg_step[2]
     names = ("k1", "k2", "k3", "k4")
 
     def new_trainer():
@@ -1502,11 +1617,15 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
                    "k3": fa.dkv_launches_tc, "k4": fa.dq_dbias_launches_tc}
     with_seg = dict(zip(names, seg_counts()))
     summaries = fa.seg_summary_launches
+    gdeads = fa.gdead_launches
     # ------------------------------------------------------------------
-    if summaries != TRAIN_STEPS * summary_step:
-        raise AssertionError(f"the segment summary kernel launched "
-                             f"{summaries} times in {TRAIN_STEPS} steps, "
-                             f"want {TRAIN_STEPS * summary_step}")
+    if (summaries, gdeads) != (TRAIN_STEPS * summary_step,
+                               TRAIN_STEPS * gdead_step):
+        raise AssertionError(f"the segment summary kernel and the dead "
+                             f"rows' g sum launched {summaries}, {gdeads} "
+                             f"times in {TRAIN_STEPS} steps, want "
+                             f"{TRAIN_STEPS * summary_step}, "
+                             f"{TRAIN_STEPS * gdead_step}")
     if launches != [TRAIN_STEPS * n for n in per_step]:
         raise AssertionError(f"K1/K2/K3/K4 launched {launches} times in "
                              f"{TRAIN_STEPS} steps, want "
@@ -1585,12 +1704,15 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     torch.cuda.synchronize()
     one_step = counts()
     summaries_one_step = fa.seg_summary_launches
+    gdeads_one_step = fa.gdead_launches
     if (one_step != per_step or seg_counts() != seg_step
-            or summaries_one_step != summary_step):
+            or (summaries_one_step, gdeads_one_step)
+            != (summary_step, gdead_step)):
         raise AssertionError(f"one step launched K1/K2/K3/K4 {one_step} "
                              f"times ({seg_counts()} with seg, the summary "
-                             f"{summaries_one_step}), want {per_step} "
-                             f"({seg_step}, {summary_step})")
+                             f"{summaries_one_step}, the dead rows' sum "
+                             f"{gdeads_one_step}), want {per_step} "
+                             f"({seg_step}, {summary_step}, {gdead_step})")
     profile = device_breakdown(lambda: straight.train_step(batches[1]),
                                iters=1)
     # where the host waits for the device inside a step: PyTorch warns at
@@ -1686,6 +1808,8 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
         "launches_one_step": dict(zip(names, one_step)),
         "seg_summary_launches_main_path": summaries,
         "seg_summary_launches_one_step": summaries_one_step,
+        "gdead_launches_main_path": gdeads,
+        "gdead_launches_one_step": gdeads_one_step,
         "losses": losses, "history": hist,
         "timed_vs_main_path_loss_max_diff": main_diff,
         "resume_loss_max_diff": resume_diff,
@@ -1703,7 +1827,8 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
 
 
 # the bool template flags of each templated kernel, in order
-KERNEL_FLAGS = {"flash_bwd_dkv_tc_kernel": ("bias", "seg"),
+KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
+                "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
                 "flash_bwd_dq_tc_kernel": ("seg",),
                 "flash_bwd_dq_dbias_tc_kernel": ("seg",),
                 "flash_bwd_dkv_kernel": ("bias",)}
@@ -1720,7 +1845,8 @@ def ptxas_summary(log: str) -> list:
             mangled = m.group(1)
             base = re.search(r"flash_[a-z_]+?_kernel", mangled)
             name = base.group(0) if base else mangled
-            if base and "dbias_sum" not in name and "summary" not in name:
+            if base and not any(n in name for n in ("dbias_sum", "summary",
+                                                    "gdead")):
                 # the tensor-core kernels take bf16 only, the rest f32;
                 # the template arguments follow the name: Li64E the head-
                 # dim width DP, Lb1E / Lb0E a bool flag set / unset
@@ -1752,8 +1878,9 @@ def run_ab(parent: str, seg_file: str) -> dict:
     kernel's time in each run at the shapes the script names (the seg
     kernels also at the training layout saved in `seg_file`), with CUDA
     events around back-to-back calls and as the profiler's device time;
-    and whether every run's K2 with seg gave the same dq up to the sign of
-    a zero."""
+    whether every run's K2 with seg gave the same dq up to the sign of a
+    zero, and every run's K1 with seg the same out and lse at the rows
+    that see a key."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     proc = subprocess.run(
@@ -1768,11 +1895,16 @@ def run_ab(parent: str, seg_file: str) -> dict:
     rec = {"phase": "ab", "script": "scripts/bwd_ab.py", "parent": parent,
            "order": "parent, this, this, parent",
            "parent_ms": summary[parent], "this_ms": summary[here],
-           "k2_seg_dq_equal": last["k2_seg_dq_equal"]}
+           "k2_seg_dq_equal": last["k2_seg_dq_equal"],
+           "k1_seg_out_equal": last["k1_seg_out_equal"]}
     emit(rec)
     if not all(last["k2_seg_dq_equal"].values()):
         raise AssertionError(f"K2 with seg gave another dq than the parent "
                              f"tree's: {last['k2_seg_dq_equal']}")
+    if not all(last["k1_seg_out_equal"].values()):
+        raise AssertionError(f"K1 with seg gave another out or lse than the "
+                             f"parent tree's at the rows that see a key: "
+                             f"{last['k1_seg_out_equal']}")
     return rec
 
 
@@ -1804,18 +1936,20 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
             raise AssertionError(f"a tensor-core kernel spills: {spills}")
     emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
 
+    # phase 4's corpus and vocab first: the seg kernels are also checked
+    # and timed at the segment ids of phase 8's first batch
+    bert = build_data("bert_mini_v5p16", N_PAGES)
+    long_data = packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert)
+    train_seg = train_layout_seg(long_data)
     report["k1"] = check_k1(device, ("embed_bf16", "mt5_page_bias_bf16",
-                                     "bert_long_packed_bf16"))
+                                     "bert_long_packed_bf16",
+                                     "bert_long_train_layout_bf16",
+                                     "mt5_packed_bias_bf16"), train_seg)
     report["k23"] = check_k23(device, "page_train_bf16", "query_train_bf16")
     report["k4"] = check_k4(device, "mt5_page_train_bf16",
                             "mt5_query_train_bf16")
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
-        # phase 4's corpus and vocab first: the seg kernels are also timed
-        # at the segment ids of phase 8's first batch
-        bert = build_data("bert_mini_v5p16", N_PAGES)
-        long_data = packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert)
-        train_seg = train_layout_seg(long_data)
         report["seg"] = check_seg(device, train_seg)
         if parent is not None:
             seg_file = os.path.join(tmp, "train_seg.pt")
@@ -1896,7 +2030,6 @@ def kernel_entries(report: dict) -> list:
                  "f32 bias")
     k1_bert = k1["timed"]["embed_bf16"]
     k1_mt5 = k1["timed"]["mt5_page_bias_bf16"]
-    k1_long = k1["timed"]["bert_long_packed_bf16"]
     long_shape = (f"B={LONG_TRAIN_BATCH // PACK} H=8 L=S=1024 Dh=64 bf16 "
                   f"q/k/v, f32 g, {PACK} pages a row (segment ids)")
     mt5p_shape = (f"B={MT5_PACK_TRAIN_BATCH // PACK} H=12 L=S=128 Dh=64 bf16 "
@@ -1937,13 +2070,9 @@ def kernel_entries(report: dict) -> list:
                 "bound_by": k1_mt5["bound_by"],
                 "library_ms": k1_mt5["library_ms"], **parent("k1_mt5_ms")},
         "launches_seg": sum(seg_by_path["k1"].values()),
-        "launches_seg_by_path": seg_by_path["k1"],
-        "long_seg": {"shape": long_shape, "ms": k1_long["kernel_ms"],
-                     "plain_ms": k1_long["plain_ms"],
-                     "bound_ms": k1_long["bound_ms"],
-                     "bound_by": k1_long["bound_by"],
-                     "library_ms": k1_long["library_ms"],
-                     **parent("k1_seg_ms")}}, {
+        "launches_seg_by_path": seg_by_path["k1"]},
+        k1_seg_entry(k1, seg_by_path, ptxas, parent, long_shape,
+                     mt5p_shape), {
         "name": "flash_bwd_dq (K2)", "route": "cuda", "source": K23_SOURCE,
         "replaces": TPU_K2, "launches": sum(by_path["k2"].values()),
         "launches_by_path": by_path["k2"],
@@ -2009,7 +2138,49 @@ def kernel_entries(report: dict) -> list:
                        "f32 g, f32 bias", "k4_query_ms")},
         *seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
                      mt5p_shape),
-        summary_entry(seg, training, ptxas, parent, long_shape)]
+        summary_entry(seg, training, ptxas, parent, long_shape),
+        gdead_entry(seg, training, ptxas, parent, long_shape)]
+
+
+def k1_seg_entry(k1, seg_by_path, ptxas, parent, long_shape,
+                 mt5p_shape) -> dict:
+    """The `kernels` line's entry of K1 with segment ids (the bf16 kernel
+    visits only the KV tiles that share a segment): K1 alone (`ms`, on a
+    summary made beforehand) and the call (`with_summary_ms`: the summary
+    kernel, then K1) at bert_long_sp's packed shape at both layouts and at
+    mT5's, with the share of K1's tiles visited, the bound, the plain
+    version and the library call (scaled_dot_product_attention with the
+    segments' mask); launches with segment ids on the main paths."""
+    timed = k1["timed"]
+
+    def timing(rec):
+        return {"ms": rec["k1_alone_ms"], "with_summary_ms": rec["kernel_ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "visited": rec["visited"]}
+    train_shape = long_shape + (", the training batch's segment ids "
+                                "(phase 8's first batch)")
+    return {
+        "name": "flash_fwd with seg (K1, packed rows)", "route": "cuda",
+        "source": K1_SOURCE, "replaces": TPU_K1,
+        "launches": sum(seg_by_path["k1"].values()),
+        "launches_by_path": seg_by_path["k1"],
+        "max_abs_err": k1["max_abs_err_seg"],
+        **timing(timed["bert_long_packed_bf16"]), "shape": long_shape,
+        **parent("k1_seg_ms"),
+        "train_layout": {"shape": train_shape,
+                         **timing(timed["bert_long_train_layout_bf16"]),
+                         **parent("k1_seg_train_ms")},
+        "mt5_packed": {"shape": mt5p_shape,
+                       **timing(timed["mt5_packed_bias_bf16"]),
+                       **parent("k1_seg_mt5_ms")},
+        "parent_covers": "the call (flash_forward: the summary kernel, "
+                         "then K1; the parent tree has no summary there)",
+        "kernel": "flash_fwd_tc_kernel<DP, seg> (tensor cores, bf16), after "
+                  "flash_fwd_seg_summary_kernel; f32 inputs take "
+                  "flash_fwd_kernel with seg",
+        "ptxas": [r for r in ptxas("flash_fwd_tc_kernel", "flash_fwd_kernel")
+                  if "seg" in r[0] or "_tc_" not in r[0]]}
 
 
 def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
@@ -2088,19 +2259,20 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
 
 
 def summary_entry(seg, training, ptxas, parent, long_shape) -> dict:
-    """The `kernels` line's entry of the segment summary kernel (before the
-    bf16 K2 and K3 with segment ids: their tile skip and the dead rows'
-    dv, a part of the TPU K3's work): checked and timed at both packed
-    paths' shapes and the training layout; launches on the main paths."""
+    """The `kernels` line's entry of the segment summary kernel (before
+    the bf16 K1 with segment ids, once per forward: the ranges by which
+    K1, K2 and K3 skip tiles, and the dead rows' mean(V), a part of the
+    TPU K1's work): checked and timed at both packed paths' shapes and the
+    training layout; launches on the main paths."""
     checks = seg["summary"]
     long = checks["long"]
     by_path = {path: rec["seg_summary_launches_main_path"]
                for path, rec in training
                if rec["seg_summary_launches_main_path"]}
     return {
-        "name": "flash_bwd_seg_summary (segment summary and the dead rows' "
-                "g sum, for K2 and K3 with seg)", "route": "cuda",
-        "source": K23_SOURCE, "replaces": TPU_K3,
+        "name": "flash_fwd_seg_summary (segment summary and the dead rows' "
+                "mean(V), for K1, K2 and K3 with seg)", "route": "cuda",
+        "source": K1_SOURCE, "replaces": TPU_K1,
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         "ms": long["ms"], "plain_ms": long["plain_ms"],
@@ -2112,8 +2284,37 @@ def summary_entry(seg, training, ptxas, parent, long_shape) -> dict:
         "mt5_packed": {k: checks["mt5"][k] for k in
                        ("ms", "plain_ms", "bound_ms", "bound_by")},
         **parent("seg_summary_ms"),
-        "kernel": "flash_bwd_seg_summary_kernel",
-        "ptxas": ptxas("flash_bwd_seg_summary")}
+        "parent_covers": "the parent tree's summary kernel, in its "
+                         "backward (the summary and the dead rows' g sum)",
+        "kernel": "flash_fwd_seg_summary_kernel",
+        "ptxas": ptxas("flash_fwd_seg_summary")}
+
+
+def gdead_entry(seg, training, ptxas, parent, long_shape) -> dict:
+    """The `kernels` line's entry of the dead rows' g sum (before the bf16
+    K3 with segment ids, once per backward: their dv term, a part of the
+    TPU K3's work): checked and timed at both packed paths' shapes and
+    the training layout; launches on the main paths."""
+    checks = seg["gdead"]
+    long = checks["long"]
+    by_path = {path: rec["gdead_launches_main_path"]
+               for path, rec in training if rec["gdead_launches_main_path"]}
+    return {
+        "name": "flash_bwd_gdead (the dead rows' g sum, for K3 with seg)",
+        "route": "cuda", "source": K23_SOURCE, "replaces": TPU_K3,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "ms": long["ms"], "plain_ms": long["plain_ms"],
+        "bound_ms": long["bound_ms"], "bound_by": long["bound_by"],
+        "library_ms": None, "shape": long_shape,
+        "plain_call": long["plain_call"],
+        "train_layout": {k: checks["long_train"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "mt5_packed": {k: checks["mt5"][k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **parent("gdead_ms"),
+        "kernel": "flash_bwd_gdead_kernel",
+        "ptxas": ptxas("flash_bwd_gdead")}
 
 
 def main() -> int:

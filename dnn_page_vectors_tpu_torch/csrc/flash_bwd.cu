@@ -70,27 +70,25 @@
 //
 // A packed row of 1,024 tokens holding 4 pages allows about a fifth of its
 // pairs, so the bf16 K2 and K3 with segment ids visit only the tiles that
-// share a segment. Before them, once per backward, a small kernel
-// (flash_bwd_seg_summary_kernel) writes for every 16 positions ("granule")
-// of every batch row the smallest and largest segment id > 0 there (a
-// granule without one gets a range that overlaps nothing). Two ranges that do not overlap hold no
-// equal id, so a pair of tiles whose ranges miss each other holds no
-// allowed pair, whatever the ids' order (nothing assumes that pages are
-// contiguous or ids ascending). K2 (a Q tile of up to 64 rows) walks only
-// the KV tiles whose range overlaps its rows' range, and K3 (a block of 64
-// keys) only the Q tiles that overlap its keys' range; the two-stage ring
+// share a segment, by the segment summary (seg_skip.cuh: for every 16
+// positions of every batch row the range of segment ids > 0 there), which
+// the forward's summary kernel (flash_fwd.cu) wrote once for K1 and the
+// backward takes over. K2 (a Q tile of up to 64 rows) walks only the KV
+// tiles whose range overlaps its rows' range, and K3 (a block of 64 keys)
+// only the Q tiles that overlap its keys' range; the two-stage ring
 // fetches the next tile visited, found by one warp-wide ballot over the
 // summary, so a skipped tile costs no load. Inside a visited tile each warp
 // skips the 16 x 16 chunks whose two granules miss each other (a branch
 // that is uniform over the warp). Skipped pairs had p = ds = 0: K2's dq is
 // what visiting every tile gave, up to the sign of a zero. A dead row (no
 // allowed key) gives dv its g / S at every key, which would send K3 to every
-// Q tile that holds a pad row; the same launch therefore sums g over the
-// dead rows of each (batch row, head), gdead [B, H, Dh] f32 (one block per
-// pair, in row order, no atomics), and K3 takes p = 0 at dead rows in its
-// tiles and adds gdead / S to the f32 dv of each of its keys below S before
-// the bf16 store. K4 with segment ids (mT5's 128-token rows, 2-4 tiles)
-// and the f32 kernels still visit every tile.
+// Q tile that holds a pad row; a small kernel (flash_bwd_gdead_kernel)
+// therefore sums g over the dead rows of each (batch row, head) first,
+// gdead [B, H, Dh] f32 (one block per pair, in row order, no atomics), and
+// K3 takes p = 0 at dead rows in its tiles and adds gdead / S to the f32 dv
+// of each of its keys below S before the bf16 store. K4 with segment ids
+// (mT5's 128-token rows, 2-4 tiles) and the f32 kernels still visit every
+// tile.
 //
 // K2, K4, and K3 for f32 inputs, stage their tiles in shared memory
 // widened to f32 and multiply on the CUDA cores. As in K1's f32 kernel,
@@ -185,8 +183,11 @@
 
 #include "mma_sm80.cuh"
 #include "per_device.cuh"
+#include "seg_skip.cuh"
 
 namespace {
+
+using namespace segskip;
 
 constexpr int kBQ = 64;                  // query rows per tile
 constexpr int kBK = 64;                  // keys per tile
@@ -690,82 +691,22 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- Segment summary and the dead rows' sum (bf16 K2 and K3 with seg) -----
+// ---- The dead rows' sum (bf16 K3 with seg) --------------------------------
 
-constexpr int kGranule = 16;             // positions of one summary entry
 constexpr int kSumThreads = 128;
-
-// A segment range (smallest, largest id > 0); none_range() holds no id and
-// overlaps no range, itself included (ids are > 0).
-__device__ __forceinline__ int2 none_range() {
-  return make_int2(0x7fffffff, 0);
-}
-
-__device__ __forceinline__ bool overlap(int2 a, int2 b) {
-  return a.x <= b.y && b.x <= a.y;
-}
-
-// The range of positions [p0, p0 + n) of a batch row (p0 and n multiples of
-// 16) from its summary `sum` of `ng` granules.
-__device__ __forceinline__ int2 span(const int2* __restrict__ sum, int ng,
-                                     int p0, int n) {
-  int2 r = none_range();
-  const int g1 = min(ng, (p0 + n) / kGranule);
-  for (int i = p0 / kGranule; i < g1; ++i) {
-    const int2 x = __ldg(sum + i);
-    r.x = min(r.x, x.x);
-    r.y = max(r.y, x.y);
-  }
-  return r;
-}
-
-// The first of `ntiles` tiles of n positions after tile t whose range
-// overlaps `range`, or ntiles: each lane tests one tile, 32 at a time. The
-// whole warp calls it; every warp of a block gets the same answer.
-__device__ __forceinline__ int next_tile(const int2* __restrict__ sum, int ng,
-                                         int t, int ntiles, int n,
-                                         int2 range) {
-  const int lane = threadIdx.x & 31;
-  for (int base = t + 1; base < ntiles; base += 32) {
-    const int c = base + lane;
-    const bool hit = c < ntiles && overlap(span(sum, ng, c * n, n), range);
-    const unsigned m = __ballot_sync(0xffffffffu, hit);
-    if (m != 0u) return base + __ffs(m) - 1;
-  }
-  return ntiles;
-}
 
 // One block per (head, batch row): gdead[b, h] = the sum over the dead rows
 // (lse <= kMaskedRowLse) of g[b, h, row], in f32 and in row order (thread d
-// owns column d); the blocks of head 0 also write the summary of their
-// batch row, sum[b, i] = the range of positions [16 i, 16 i + 16).
+// owns column d).
 __global__ void __launch_bounds__(kSumThreads)
-flash_bwd_seg_summary_kernel(const int* __restrict__ seg,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ g,
-                             int2* __restrict__ sum,
-                             float* __restrict__ gdead, int H, int L, int Dh,
-                             long long gs_b, long long gs_h, long long gs_l) {
+flash_bwd_gdead_kernel(const float* __restrict__ lse,
+                       const float* __restrict__ g,
+                       float* __restrict__ gdead, int H, int L, int Dh,
+                       long long gs_b, long long gs_h, long long gs_l) {
   __shared__ int dead[kSumThreads];      // a chunk's dead rows, in order
   __shared__ int warp_dead[kSumThreads / 32];
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  if (h == 0) {
-    const int ng = (L + kGranule - 1) / kGranule;
-    const int* srow = seg + (long long)b * L;
-    for (int i = tid; i < ng; i += kSumThreads) {
-      int2 r = none_range();
-      const int end = min(L, (i + 1) * kGranule);
-      for (int l = i * kGranule; l < end; ++l) {
-        const int s = srow[l];
-        if (s > 0) {
-          r.x = min(r.x, s);
-          r.y = max(r.y, s);
-        }
-      }
-      sum[(long long)b * ng + i] = r;
-    }
-  }
   const long long bh = (long long)b * H + h;
   const float* gb = g + b * gs_b + h * gs_h;
   float acc = 0.f;
@@ -1822,25 +1763,19 @@ Args make_args(const void* q, const void* k, const void* v,
 // null; otherwise [B, L] int32 segment ids (0 = pad), contiguous, with
 // L == S, as K1 takes them.
 
-// The segment summary and the dead rows' sum that the bf16 K2 and K3 take
-// with segment ids, once per backward: summary [B, ceil(L/16)] int2 (the
-// smallest and largest segment id > 0 of each 16 positions of each batch
-// row; (INT_MAX, 0) where there is none) and gdead [B, H, Dh] f32 (the sum
-// of g over the rows with lse <= -1e29, in row order). seg [B, L] int32 and
-// lse [B, H, L] f32 contiguous; g [B, H, L, Dh] f32 with the (batch, head,
-// row) element strides `g_strides` and unit stride on Dh.
-extern "C" int flash_bwd_seg_summary(const void* seg, const void* lse,
-                                     const void* g, void* summary,
-                                     void* gdead, int B, int H, int L,
-                                     int Dh, const long long* g_strides,
-                                     void* stream) {
-  if (seg == nullptr) return (int)cudaErrorInvalidValue;
-  const int bad = check_shape(B, H, L, L, Dh, seg);
+// The dead rows' sum that the bf16 K3 takes with segment ids, once per
+// backward: gdead [B, H, Dh] f32, the sum of g over the rows with lse <=
+// -1e29, in row order. lse [B, H, L] f32 contiguous; g [B, H, L, Dh] f32
+// with the (batch, head, row) element strides `g_strides` and unit stride
+// on Dh.
+extern "C" int flash_bwd_gdead(const void* lse, const void* g, void* gdead,
+                               int B, int H, int L, int Dh,
+                               const long long* g_strides, void* stream) {
+  const int bad = check_shape(B, H, L, L, Dh);
   if (bad) return bad;
-  flash_bwd_seg_summary_kernel<<<dim3(H, B), kSumThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(seg), static_cast<const float*>(lse),
-      static_cast<const float*>(g), static_cast<int2*>(summary),
+  flash_bwd_gdead_kernel<<<dim3(H, B), kSumThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lse), static_cast<const float*>(g),
       static_cast<float*>(gdead), H, L, Dh, g_strides[0], g_strides[1],
       g_strides[2]);
   return (int)cudaGetLastError();
@@ -1849,7 +1784,8 @@ extern "C" int flash_bwd_seg_summary(const void* seg, const void* lse,
 // K2 for bf16 q/k/v, on the tensor cores: dq (bf16), and delta [B,H,L]
 // f32 for K3. q, k, v, g and dq must be 16-byte aligned, and so must each
 // of their strides (the wrapper makes a view that is not contiguous first).
-// With `seg`, `summary` is flash_bwd_seg_summary's, for the same seg.
+// With `seg`, `summary` is the segment summary of the same seg
+// (flash_fwd.cu's flash_fwd_seg_summary).
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* kv_mask, const void* seg,
                                  const void* summary, const void* g,
@@ -1984,8 +1920,9 @@ extern "C" void flash_bwd_tc_tiles(int L, int S, int bias, int* tiles) {
 // K3 for bf16 q/k/v, on the tensor cores: dk and dv (bf16), reading the
 // delta K2 or K4 wrote; `bias` may be null. q, k, v, g, dk and dv must be
 // 16-byte aligned, and so must each of their strides (the wrapper makes a
-// view that is not contiguous first). With `seg`, `summary` and `gdead` are
-// flash_bwd_seg_summary's, for the same seg, lse and g.
+// view that is not contiguous first). With `seg`, `summary` is the segment
+// summary of the same seg (flash_fwd.cu's flash_fwd_seg_summary) and
+// `gdead` flash_bwd_gdead's, for the same lse and g.
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
                                   const void* v, const void* kv_mask,
                                   const void* bias, const void* seg,

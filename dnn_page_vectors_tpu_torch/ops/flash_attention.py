@@ -20,10 +20,13 @@ gradient of the forward above (dv gets g/S for every key, and the row
 adds nothing to dq, dk or dbias), not the TPU kernels' p = 1. All four
 take the packed pages' segment ids ``seg`` (sequence packing); a pad row
 of a packed row (seg 0) sees no key, so it is such a fully masked row.
-With segment ids the bf16 K2 and K3 visit only the tiles that share a
-segment: a small kernel first writes each batch row's segment summary
-(``seg_summary``: the range of segment ids > 0 in every 16 positions)
-and the sum of g over the fully masked rows (``dead_rows_sum``), whose
+With segment ids the bf16 K1, K2 and K3 visit only the tiles that share a
+segment: in the forward a small kernel first writes each batch row's
+segment summary (``seg_summary``: the range of segment ids > 0 in every
+16 positions), which the backward takes over, and the mean of V over
+every key (``value_mean``), which K1 writes at its fully masked rows
+instead of visiting every KV tile for them; in the backward another
+writes the sum of g over the fully masked rows (``dead_rows_sum``), whose
 dv term K3 adds once instead of visiting every Q tile for it.
 
 Routing is by the tensors' device: a CUDA tensor goes to a kernel (or
@@ -62,6 +65,9 @@ DBIAS_GROUP = 8
 # that holds no segment id > 0 (it overlaps no range)
 SEG_GRANULE = 16
 NO_SEG = (2 ** 31 - 1, 0)
+# the warps of the summary kernel, each summing every 4th key of V for the
+# dead rows' mean (csrc/flash_fwd.cu, tc::kSumWarps)
+VMEAN_WARPS = 4
 # the longest S the bf16 K4 takes (csrc/flash_bwd.cu, tcq::kMaxBiasKeys)
 MAX_TC_DBIAS_KEYS = 512
 
@@ -86,14 +92,18 @@ dq_dbias_launches = 0
 dq_dbias_launches_tc = 0
 dq_dbias_launches_f32 = 0
 dq_dbias_launches_seg = 0
-# launches of the segment summary kernel (once per bf16 backward with seg)
+# launches of the segment summary kernel (once per bf16 K1 with seg, whose
+# summary the backward takes over) and of the dead rows' g sum (once per
+# bf16 backward with seg)
 seg_summary_launches = 0
+gdead_launches = 0
 COUNTERS = ("launches", "launches_tc", "launches_f32", "launches_seg",
             "dq_launches", "dq_launches_tc", "dq_launches_f32",
             "dq_launches_seg", "dkv_launches", "dkv_launches_tc",
             "dkv_launches_f32", "dkv_launches_seg", "dq_dbias_launches",
             "dq_dbias_launches_tc", "dq_dbias_launches_f32",
-            "dq_dbias_launches_seg", "seg_summary_launches")
+            "dq_dbias_launches_seg", "seg_summary_launches",
+            "gdead_launches")
 
 
 def _count(name: str, tensor_cores: bool, seg) -> None:
@@ -133,6 +143,33 @@ def seg_summary(seg: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], -1).to(torch.int32)
 
 
+def value_mean(v: torch.Tensor, kv_mask: torch.Tensor, seg: torch.Tensor
+               ) -> torch.Tensor:
+    """Plain version of vmean [B, H, Dh] f32, what K1 with segment ids
+    writes at a fully masked row (whose scores are all -1e30, so its
+    softmax is uniform over the S keys): the mean of v [B, H, S, Dh] over
+    every key, where the batch row can hold such a row (seg [B, S] holds a
+    0 there, or kv_mask a masked key: a segment whose keys are all masked
+    sees no key), else 0. Summed as the summary kernel sums it, in f32:
+    VMEAN_WARPS partial sums, the i-th over keys i, i + VMEAN_WARPS, ...
+    in order, added in that order and divided by S, so the two agree
+    exactly (up to the sign of a zero)."""
+    S = v.shape[2]
+    parts = []
+    for w in range(VMEAN_WARPS):
+        acc = torch.zeros(v.shape[:2] + v.shape[3:], device=v.device)
+        for key in range(w, S, VMEAN_WARPS):
+            acc = acc + v[:, :, key].float()
+        parts.append(acc)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    # a tensor divisor: CUDA takes a CPU scalar divisor as a reciprocal
+    mean = total / torch.tensor(float(S), device=v.device)
+    can_die = ((seg <= 0) | ~kv_mask.bool()).any(-1)[:, None, None]
+    return torch.where(can_die, mean, torch.zeros((), device=v.device))
+
+
 def dead_rows_sum(g: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     """Plain version of gdead [B, H, Dh] f32: the sum of g [B, H, L, Dh]
     over the fully masked rows (lse <= MASKED_ROW_LSE), whose p = 1/S at
@@ -148,14 +185,16 @@ def dead_rows_sum(g: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
 
 
 def tile_shapes(L: int, S: int, bias: bool) -> dict:
-    """The tiles the bf16 backward kernels take at this shape, as
-    csrc/flash_bwd.cu chooses them (``kernel_tile_shapes`` reads the
-    library's choice; the two are held equal on the card): {"k2": (query
-    rows, keys) of K2's Q tile and KV tile, "k3": (query rows, keys) of
-    K3's Q tile and key block}; K2 is absent with a bias (K4 replaces
-    it)."""
+    """The tiles the bf16 kernels take at this shape, as csrc/flash_fwd.cu
+    and csrc/flash_bwd.cu choose them (``kernel_tile_shapes`` reads the
+    libraries' choice; the two are held equal on the card): {"k1": (query
+    rows, keys) of K1's Q tile and KV tile, "k2": the same of K2's, "k3":
+    (query rows, keys) of K3's Q tile and key block}; K2 is absent with a
+    bias (K4 replaces it)."""
     k3_rows = 32 if bias and L > 32 else (64 if L >= 64 else -(-L // 16) * 16)
-    shapes = {"k3": (k3_rows, 16 if S <= 16 else (32 if S <= 32 else 64))}
+    k1_keys = 32 if bias and S > 32 else (64 if S >= 64 else -(-S // 16) * 16)
+    shapes = {"k1": (16 if L <= 16 else (32 if L <= 32 else 64), k1_keys),
+              "k3": (k3_rows, 16 if S <= 16 else (32 if S <= 32 else 64))}
     if not bias:
         shapes["k2"] = (16 if L <= 16 else (32 if L <= 32 else 64),
                         16 if S <= 16 else 32)
@@ -330,11 +369,21 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(q, k, v, kv_mask, bias, seg):
+def launch_forward(q, k, v, kv_mask, bias=None, seg=None, summary=None,
+                   vmean=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on the current stream (CUDA tensors only): (out [B,H,L,Dh] f32,
+    lse [B,H,L] f32). bf16 q/k/v take the tensor-core kernel, f32 the
+    CUDA-core one. With `seg` the bf16 kernel visits only the KV tiles
+    that share a segment with its Q tile, by `summary`, and its fully
+    masked rows take `vmean` (``launch_seg_summary``'s, for the same seg,
+    kv_mask and v, which it requires)."""
     lib = _library()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
         q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
+        if seg is not None and (summary is None or vmean is None):
+            raise ValueError("launch_forward: bf16 q/k/v with seg need the "
+                             "segment summary and vmean (launch_seg_summary)")
     B, H, L, Dh = q.shape
     S = k.shape[2]
     mask_u8 = _mask_bytes(kv_mask)
@@ -344,11 +393,13 @@ def _launch(q, k, v, kv_mask, bias, seg):
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    # the bf16 kernel also takes the summary and vmean
+    extra = (_ptr(summary), _ptr(vmean)) if tensor_cores else ()
     fn = lib.flash_fwd_bf16 if tensor_cores else lib.flash_fwd_f32
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-                 _ptr(bias_f), _ptr(seg_i), out.data_ptr(), lse.data_ptr(),
-                 B, H, L, S, Dh, 1.0 / math.sqrt(Dh), strides,
+                 _ptr(bias_f), _ptr(seg_i), *extra, out.data_ptr(),
+                 lse.data_ptr(), B, H, L, S, Dh, 1.0 / math.sqrt(Dh), strides,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
@@ -356,15 +407,61 @@ def _launch(q, k, v, kv_mask, bias, seg):
     return out, lse
 
 
+def launch_seg_summary(seg, kv_mask, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The segment summary kernel on the current stream (CUDA tensors
+    only): (summary [B, ceil(L/16), 2] int32, as ``seg_summary``, which
+    the bf16 K1, K2 and K3 take with segment ids `seg` [B, L]; vmean [B,
+    H, Dh] f32, as ``value_mean`` of bf16 `v` [B, H, L, Dh] and `kv_mask`
+    [B, L], which K1 writes at its fully masked rows)."""
+    lib = _library()
+    seg_i = _seg_ids(seg)
+    v, mask_u8 = _aligned16(v), _mask_bytes(kv_mask)
+    B, H, L, Dh = v.shape
+    summary = torch.empty((B, -(-L // SEG_GRANULE), 2), dtype=torch.int32,
+                          device=v.device)
+    vmean = torch.empty((B, H, Dh), dtype=torch.float32, device=v.device)
+    strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
+    with torch.cuda.device(v.device):
+        err = lib.flash_fwd_seg_summary(
+            seg_i.data_ptr(), mask_u8.data_ptr(), v.data_ptr(),
+            summary.data_ptr(), vmean.data_ptr(), B, H, L, Dh, strides,
+            torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_seg_summary kernel launch failed: "
+                           f"CUDA error {err}")
+    global seg_summary_launches
+    seg_summary_launches += 1
+    return summary, vmean
+
+
+def _launch(q, k, v, kv_mask, bias, seg):
+    """K1 (after the segment summary kernel for bf16 q/k/v with seg):
+    (out, lse, the summary or None)."""
+    summary = vmean = None
+    if seg is not None and q.dtype == torch.bfloat16:
+        summary, vmean = launch_seg_summary(seg, kv_mask, v)
+    out, lse = launch_forward(q, k, v, kv_mask, bias, seg, summary, vmean)
+    return out, lse, summary
+
+
 def _library():
     from dnn_page_vectors_tpu_torch.ops.build import load_library
     lib = load_library(_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.flash_fwd_bf16, lib.flash_fwd_f32):
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    tail = [I] * 5 + [ctypes.c_float, strides, P]
+    for fn, nptr in ((lib.flash_fwd_bf16, 10), (lib.flash_fwd_f32, 8)):
         if fn.argtypes is None:
-            fn.argtypes = [P] * 8 + [I] * 5 + [
-                ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), P]
+            fn.argtypes = [P] * nptr + tail
             fn.restype = ctypes.c_int
+    fn = lib.flash_fwd_seg_summary
+    if fn.argtypes is None:      # seg, kv_mask, v, summary, vmean, B, H, L, Dh
+        fn.argtypes = [P] * 5 + [I] * 4 + [strides, P]
+        fn.restype = I
+    fn = lib.flash_fwd_tc_tiles
+    if fn.argtypes is None:      # L, S, bias, tiles[2]
+        fn.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+        fn.restype = None
     return lib
 
 
@@ -388,9 +485,9 @@ def _bwd_library():
     if fn.argtypes is None:
         fn.argtypes = [I] * 5
         fn.restype = I
-    fn = lib.flash_bwd_seg_summary
-    if fn.argtypes is None:      # seg, lse, g, summary, gdead, B, H, L, Dh
-        fn.argtypes = [P] * 5 + [I] * 4 + [strides, P]
+    fn = lib.flash_bwd_gdead
+    if fn.argtypes is None:      # lse, g, gdead, B, H, L, Dh
+        fn.argtypes = [P] * 3 + [I] * 4 + [strides, P]
         fn.restype = I
     fn = lib.flash_bwd_tc_tiles
     if fn.argtypes is None:      # L, S, bias, tiles[4]
@@ -400,11 +497,13 @@ def _bwd_library():
 
 
 def kernel_tile_shapes(L: int, S: int, bias: bool) -> dict:
-    """``tile_shapes`` as the compiled library chooses the tiles (it needs
+    """``tile_shapes`` as the compiled libraries choose the tiles (it needs
     the CUDA build)."""
     tiles = (ctypes.c_int * 4)()
+    _library().flash_fwd_tc_tiles(L, S, int(bias), tiles)
+    shapes = {"k1": (tiles[0], tiles[1])}
     _bwd_library().flash_bwd_tc_tiles(L, S, int(bias), tiles)
-    shapes = {"k3": (tiles[0], tiles[1])}
+    shapes["k3"] = (tiles[0], tiles[1])
     if not bias:
         shapes["k2"] = (tiles[2], tiles[3])
     return shapes
@@ -431,32 +530,27 @@ def _bwd_strides(*tensors):
         *(st for t in tensors for st in t.stride()[:3]))
 
 
-def launch_seg_summary(seg, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The segment summary kernel on the current stream (CUDA tensors
-    only): (summary [B, ceil(L/16), 2] int32, as ``seg_summary``; gdead
-    [B, H, Dh] f32, as ``dead_rows_sum``, summed in row order), which the
-    bf16 K2 and K3 take with segment ids `seg` [B, L], for K1's lse [B, H,
-    L] and the upstream gradient g [B, H, L, Dh]."""
+def launch_dead_rows_sum(lse, g) -> torch.Tensor:
+    """The dead rows' g sum on the current stream (CUDA tensors only):
+    gdead [B, H, Dh] f32, as ``dead_rows_sum`` (summed in row order), which
+    the bf16 K3 takes with segment ids, for K1's lse [B, H, L] and the
+    upstream gradient g [B, H, L, Dh]."""
     lib = _bwd_library()
-    seg_i = _seg_ids(seg)
     lse = lse.float().contiguous()
     g = g.float()
     B, H, L, Dh = g.shape
-    summary = torch.empty((B, -(-L // SEG_GRANULE), 2), dtype=torch.int32,
-                          device=g.device)
     gdead = torch.empty((B, H, Dh), dtype=torch.float32, device=g.device)
     strides = (ctypes.c_longlong * 3)(*g.stride()[:3])
     with torch.cuda.device(g.device):
-        err = lib.flash_bwd_seg_summary(
-            seg_i.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            summary.data_ptr(), gdead.data_ptr(), B, H, L, Dh, strides,
-            torch.cuda.current_stream(g.device).cuda_stream)
+        err = lib.flash_bwd_gdead(
+            lse.data_ptr(), g.data_ptr(), gdead.data_ptr(), B, H, L, Dh,
+            strides, torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_seg_summary kernel launch failed: "
-                           f"CUDA error {err}")
-    global seg_summary_launches
-    seg_summary_launches += 1
-    return summary, gdead
+        raise RuntimeError(f"flash_bwd_gdead kernel launch failed: CUDA "
+                           f"error {err}")
+    global gdead_launches
+    gdead_launches += 1
+    return gdead
 
 
 def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None, summary=None
@@ -554,8 +648,9 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None,
     ``launch_dq``. bf16 q/k/v take the tensor-core kernel (g is split into
     bf16 hi and lo halves as it is staged), f32 the CUDA-core one. With
     `seg` the bf16 kernel visits only the Q tiles that share a segment
-    with its keys and adds the fully masked rows' dv from `gdead`, by
-    (`summary`, `gdead`), ``launch_seg_summary``'s, which it requires."""
+    with its keys, by `summary` (``launch_seg_summary``'s), and adds the
+    fully masked rows' dv from `gdead` (``launch_dead_rows_sum``'s); it
+    requires both."""
     lib = _bwd_library()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
@@ -565,7 +660,8 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None,
     if tensor_cores and seg is not None and (summary is None
                                              or gdead is None):
         raise ValueError("launch_dkv: bf16 q/k/v with seg need the segment "
-                         "summary and gdead (launch_seg_summary)")
+                         "summary and gdead (launch_seg_summary, "
+                         "launch_dead_rows_sum)")
     lse = lse.contiguous()
     bias_f = None if bias is None else bias.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -587,9 +683,10 @@ def launch_dkv(q, k, v, kv_mask, g, lse, delta, bias=None, seg=None,
 
 
 def _forward(q, k, v, kv_mask, bias, seg):
+    """(out, lse, the segment summary of a bf16 K1 with seg or None)."""
     _check(q, k, v, kv_mask, bias, seg)
     if q.device.type == "cpu":
-        return reference_forward(q, k, v, kv_mask, bias, seg)
+        return (*reference_forward(q, k, v, kv_mask, bias, seg), None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q, k, v, kv_mask, bias, seg)
@@ -598,16 +695,18 @@ def _forward(q, k, v, kv_mask, bias, seg):
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: torch.Tensor, g: torch.Tensor, out: torch.Tensor,
                    lse: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                   seg: Optional[torch.Tensor] = None
+                   seg: Optional[torch.Tensor] = None,
+                   summary: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor]]:
     """(dq, dk, dv, dbias) in the dtypes of q, k, v and the bias (dbias is
     None without a bias) for the upstream gradient g [B,H,L,Dh] of
-    ``out``, given the forward's out and lse (and its segment ids, if it
-    had them). CUDA tensors launch K2 then K3, or with a bias K4 then K3,
-    on the current stream (with segment ids and bf16 q/k/v, the segment
-    summary kernel first, whose summary and gdead K2 and K3 share); CPU
-    tensors take the plain version ``reference_backward``."""
+    ``out``, given the forward's out and lse (and its segment ids and
+    segment summary, if it had them). CUDA tensors launch K2 then K3, or
+    with a bias K4 then K3, on the current stream; with segment ids and
+    bf16 q/k/v, the dead rows' g sum first, which K3 takes, and K2 and K3
+    take `summary` (the segment summary kernel runs first when it is not
+    given). CPU tensors take the plain version ``reference_backward``."""
     _check(q, k, v, kv_mask, bias, seg)
     want = (q.shape[0], q.shape[1], q.shape[2])
     if g.shape != q.shape or out.shape != q.shape or lse.shape != want:
@@ -622,9 +721,11 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     out, lse = out.float(), lse.float()
-    summary = gdead = None
+    gdead = None
     if seg is not None and q.dtype == torch.bfloat16:
-        summary, gdead = launch_seg_summary(seg, lse, g)
+        if summary is None:
+            summary = launch_seg_summary(seg, kv_mask, v)[0]
+        gdead = launch_dead_rows_sum(lse, g)
     if bias is None:
         dq, delta = launch_dq(q, k, v, kv_mask, g, out, lse, seg, summary)
         dbias = None
@@ -639,21 +740,22 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """K1 forward; K2 + K3 backward, or K4 + K3 with a bias, with the
-    forward's segment ids if it had them (plain versions on CPU tensors).
-    Returns (out, lse); lse is not differentiable."""
+    forward's segment ids and segment summary if it had them (plain
+    versions on CPU tensors). Returns (out, lse); lse is not
+    differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, bias, seg):
-        out, lse = _forward(q, k, v, kv_mask, bias, seg)
-        ctx.save_for_backward(q, k, v, kv_mask, bias, seg, out, lse)
+        out, lse, summary = _forward(q, k, v, kv_mask, bias, seg)
+        ctx.save_for_backward(q, k, v, kv_mask, bias, seg, out, lse, summary)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, kv_mask, bias, seg, out, lse = ctx.saved_tensors
+        q, k, v, kv_mask, bias, seg, out, lse, summary = ctx.saved_tensors
         dq, dk, dv, dbias = flash_backward(q, k, v, kv_mask, g_out, out, lse,
-                                           bias, seg)
+                                           bias, seg, summary)
         if not ctx.needs_input_grad[4]:
             dbias = None
         return dq, dk, dv, None, dbias, None
@@ -666,8 +768,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(out [B,H,L,Dh] f32, lse [B,H,L] f32), differentiable in q, k, v
     and the bias through ``FlashAttention``. CUDA tensors launch K1 on the
     current stream (and K2 + K3, or K4 + K3 with a bias, in the backward);
-    CPU tensors take the plain versions. q/k/v may be strided (the towers
-    pass ``x.transpose(1, 2)``) as long as Dh has unit stride. With no
+    CPU tensors take the plain versions. With segment ids and bf16 q/k/v
+    the segment summary kernel runs first (its summary also serves the
+    backward). q/k/v may be strided (the towers pass ``x.transpose(1, 2)``)
+    as long as Dh has unit stride. With no
     gradient to record (inference mode, ``no_grad``, or inputs that need
     none) the forward is called directly, without the Function's
     bookkeeping."""
@@ -675,7 +779,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   or (bias is not None and bias.requires_grad))
     if torch.is_grad_enabled() and wants_grad:
         return FlashAttention.apply(q, k, v, kv_mask, bias, seg)
-    return _forward(q, k, v, kv_mask, bias, seg)
+    return _forward(q, k, v, kv_mask, bias, seg)[:2]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

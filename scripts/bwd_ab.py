@@ -40,20 +40,31 @@ bf16 q/k/v with ragged padding:
 * ``k4_seg_ms``, ``k3_bias_seg_ms``: K4 and the biased K3 with segment ids
   at mT5's packed shape, B=512 rows, H=12, L=S=128, Dh=64, 4 pages a row.
   A tree whose wrappers take no segment ids records None for these;
-* ``k2_seg_train_ms``, ``k3_seg_train_ms``: K2 and K3 at bert_long_sp's
-  packed shape with the segment ids of ``--train-seg`` (a [256, 1024]
-  int32 tensor saved with torch.save; chip_smoke.py saves the packed
-  bert_long_sp cell's first batch), the layout the training step runs
-  (None without the option);
+* ``k1_seg_train_ms``, ``k2_seg_train_ms``, ``k3_seg_train_ms``: K1, K2
+  and K3 at bert_long_sp's packed shape with the segment ids of
+  ``--train-seg`` (a [256, 1024] int32 tensor saved with torch.save;
+  chip_smoke.py saves the packed bert_long_sp cell's first batch), the
+  layout the training step runs (None without the option);
+* ``k1_seg_mt5_ms``: K1 with segment ids and the bias at mT5's packed
+  shape;
+* K1 is timed through ``flash_forward``: in a tree whose forward writes
+  the segment summary (its K1 skips tiles by it), that kernel and K1;
 * ``k23_seg_ms``, ``k23_seg_train_ms``: the backward at both layouts
-  through ``flash_backward`` (K2 + K3, and in a tree that has it the
-  segment summary kernel), and ``seg_summary_ms`` that kernel alone at the
-  first layout (None in a tree without it). A tree with the summary
-  kernel times K2 and K3 alone on a summary made beforehand.
+  through ``flash_backward`` (K2 + K3, and in a tree that has them the
+  segment summary kernel and the dead rows' g sum; a tree whose forward
+  writes the summary gets it, as the training step does), and
+  ``seg_summary_ms`` the segment summary kernel alone at the first layout
+  (a tree whose forward writes it: with the dead rows' mean(V); a tree
+  whose backward writes it: with the dead rows' g sum; None in a tree
+  without it), ``gdead_ms`` the dead rows' g sum alone where it is a
+  kernel of its own. A tree with the summary kernel times K2 and K3 alone
+  on a summary made beforehand.
 
 Each run also hashes K2's dq with segment ids at both layouts, -0 taken
 as +0, and the summary line says whether every run gave the same dq
-(``k2_seg_dq_equal``).
+(``k2_seg_dq_equal``); and K1's out and lse with segment ids at the rows
+that see a key (lse > -1e29), at both layouts and at mT5's packed shape,
+-0 taken as +0 (``k1_seg_out_equal``).
 
 Prints one JSON line per tree, the card's name and power limit
 (nvidia-smi), and a summary line; ``--out`` also writes all of it as JSON.
@@ -77,9 +88,11 @@ LONG_PACKED = dict(B=256, H=8, L=1024, Dh=64)
 MT5_PACKED = dict(B=512, H=12, L=128, Dh=64)
 PACK = 4
 SEG_KEYS = ("k1_seg_ms", "k2_seg_ms", "k3_seg_ms", "k4_seg_ms",
-            "k3_bias_seg_ms", "k2_seg_train_ms", "k3_seg_train_ms",
-            "k23_seg_ms", "k23_seg_train_ms", "seg_summary_ms")
+            "k3_bias_seg_ms", "k1_seg_train_ms", "k2_seg_train_ms",
+            "k3_seg_train_ms", "k1_seg_mt5_ms", "k23_seg_ms",
+            "k23_seg_train_ms", "seg_summary_ms", "gdead_ms")
 DQ_DIGESTS = ("k2_seg_dq", "k2_seg_train_dq")
+OUT_DIGESTS = ("k1_seg_out", "k1_seg_train_out", "k1_seg_mt5_out")
 KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms",
         "k2_query_ms", "k4_query_ms") + SEG_KEYS
 
@@ -141,12 +154,36 @@ def _packed(B, L, gen, device):
     return seg, seg > 0
 
 
-def _dq_digest(dq) -> str:
-    """sha1 of a bf16 dq's bytes with every -0 taken as +0."""
+def _digest(*tensors) -> str:
+    """sha1 of the tensors' bytes with every -0 taken as +0."""
     import torch
-    dq = torch.where(dq == 0, torch.zeros_like(dq), dq).contiguous()
-    return hashlib.sha1(dq.view(torch.int16).cpu().numpy().tobytes()
-                        ).hexdigest()
+    h = hashlib.sha1()
+    for t in tensors:
+        t = torch.where(t == 0, torch.zeros_like(t), t).contiguous()
+        h.update(t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _out_digest(out, lse) -> str:
+    """_digest of K1's out and lse at the rows that see a key."""
+    live = lse > -1e29
+    return _digest(out[live], lse[live])
+
+
+def _summaries(fa, seg, mask, v, lse, g):
+    """(K2's extra arguments, K3's extra arguments, the backward's extra
+    arguments) as the tree takes them: a tree whose forward writes the
+    segment summary (and a separate dead rows' g sum), one whose backward
+    writes both, or one without a summary kernel."""
+    if hasattr(fa, "launch_dead_rows_sum"):
+        summary = fa.launch_seg_summary(seg, mask, v)[0]
+        gdead = fa.launch_dead_rows_sum(lse, g)
+        return (summary,), (summary, gdead), (summary,)
+    if hasattr(fa, "launch_seg_summary"):
+        summary, gdead = fa.launch_seg_summary(seg, lse, g)
+        return (summary,), (summary, gdead), ()
+    return (), (), ()
 
 
 def _seg_cases(fa, timed, rec, gen, device, train_seg) -> None:
@@ -155,32 +192,36 @@ def _seg_cases(fa, timed, rec, gen, device, train_seg) -> None:
     the segment summary kernel, K2 and K3 alone take a summary made
     beforehand."""
     import torch
-    has_summary = hasattr(fa, "launch_seg_summary")
+    new_api = hasattr(fa, "launch_dead_rows_sum")
     q, k, v, g, _, _ = _inputs(**LONG_PACKED, gen=gen, device=device)
     seg, mask = _packed(LONG_PACKED["B"], LONG_PACKED["L"], gen, device)
-    timed("k1_seg_ms", lambda: fa.flash_forward(q, k, v, mask, None, seg))
     layouts = [("", seg, mask)]
     if train_seg is not None:
         tseg = train_seg.to(device, torch.int32)
         layouts.append(("_train", tseg, tseg > 0))
     for suffix, seg, mask in layouts:
+        timed(f"k1_seg{suffix}_ms",
+              lambda: fa.flash_forward(q, k, v, mask, None, seg))
         out, lse = fa.flash_forward(q, k, v, mask, None, seg)
-        extra_dq, extra_dkv = (), ()
-        if has_summary:
-            summary, gdead = fa.launch_seg_summary(seg, lse, g)
-            extra_dq, extra_dkv = (summary,), (summary, gdead)
-            if not suffix:
+        rec["out_digest"][f"k1_seg{suffix}_out"] = _out_digest(out, lse)
+        extra_dq, extra_dkv, extra_bwd = _summaries(fa, seg, mask, v, lse, g)
+        if not suffix and extra_dq:
+            if new_api:
+                timed("seg_summary_ms",
+                      lambda: fa.launch_seg_summary(seg, mask, v))
+                timed("gdead_ms", lambda: fa.launch_dead_rows_sum(lse, g))
+            else:
                 timed("seg_summary_ms",
                       lambda: fa.launch_seg_summary(seg, lse, g))
         dq, delta = fa.launch_dq(q, k, v, mask, g, out, lse, seg, *extra_dq)
-        rec["dq_digest"][f"k2_seg{suffix}_dq"] = _dq_digest(dq)
+        rec["dq_digest"][f"k2_seg{suffix}_dq"] = _digest(dq)
         del dq
         timed(f"k2_seg{suffix}_ms", lambda: fa.launch_dq(
             q, k, v, mask, g, out, lse, seg, *extra_dq))
         timed(f"k3_seg{suffix}_ms", lambda: fa.launch_dkv(
             q, k, v, mask, g, lse, delta, None, seg, *extra_dkv))
         timed(f"k23_seg{suffix}_ms", lambda: fa.flash_backward(
-            q, k, v, mask, g, out, lse, None, seg))
+            q, k, v, mask, g, out, lse, None, seg, *extra_bwd))
         del out, lse, delta
 
 
@@ -193,7 +234,7 @@ def worker(tree: str, train_seg_path=None) -> dict:
         raise AssertionError(f"imported {pkg.__file__}, not from {tree}")
     device = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
-    rec = {"tree": tree, "device_ms": {}, "dq_digest": {}}
+    rec = {"tree": tree, "device_ms": {}, "dq_digest": {}, "out_digest": {}}
 
     def timed(key, fn):
         rec[key] = _event_ms(fn)
@@ -232,6 +273,8 @@ def worker(tree: str, train_seg_path=None) -> dict:
             rec[key] = rec["device_ms"][key] = None
         for key in DQ_DIGESTS:
             rec["dq_digest"][key] = None
+        for key in OUT_DIGESTS:
+            rec["out_digest"][key] = None
         if "seg" in inspect.signature(fa.launch_dq).parameters:
             train_seg = (None if train_seg_path is None
                          else torch.load(train_seg_path))
@@ -240,13 +283,15 @@ def worker(tree: str, train_seg_path=None) -> dict:
             q, k, v, g, _, bias = _inputs(**MT5_PACKED, gen=gen,
                                           device=device, bias=True)
             seg, mask = _packed(MT5_PACKED["B"], MT5_PACKED["L"], gen, device)
+            timed("k1_seg_mt5_ms",
+                  lambda: fa.flash_forward(q, k, v, mask, bias, seg))
             out, lse = fa.flash_forward(q, k, v, mask, bias, seg)
+            rec["out_digest"]["k1_seg_mt5_out"] = _out_digest(out, lse)
             _, delta, _ = fa.launch_dq_dbias(q, k, v, mask, bias, g, out,
                                              lse, seg)
             timed("k4_seg_ms", lambda: fa.launch_dq_dbias(
                 q, k, v, mask, bias, g, out, lse, seg))
-            extra = (fa.launch_seg_summary(seg, lse, g)
-                     if hasattr(fa, "launch_seg_summary") else ())
+            extra = _summaries(fa, seg, mask, v, lse, g)[1]
             timed("k3_bias_seg_ms", lambda: fa.launch_dkv(
                 q, k, v, mask, g, lse, delta, bias, seg, *extra))
     rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
@@ -291,17 +336,18 @@ def main() -> int:
     for tree, row in summary.items():
         row["device_ms"] = {key: [r["device_ms"][key] for r in runs
                                   if r["tree"] == tree] for key in KEYS}
-    # every run that has K2 with seg at a layout gave the same dq there
-    equal = {key: len({r["dq_digest"][key] for r in runs
-                       if r["dq_digest"][key] is not None}) <= 1
-             for key in DQ_DIGESTS}
-    print(json.dumps({"summary": summary, "k2_seg_dq_equal": equal,
-                      "nvidia_smi": smi}), flush=True)
+    # every run that has K2 (K1) with seg at a layout gave the same dq (out
+    # and lse at the rows that see a key) there
+    same = lambda field, key: len({r[field][key] for r in runs
+                                   if r[field][key] is not None}) <= 1
+    equal = {key: same("dq_digest", key) for key in DQ_DIGESTS}
+    out_equal = {key: same("out_digest", key) for key in OUT_DIGESTS}
+    last = {"summary": summary, "k2_seg_dq_equal": equal,
+            "k1_seg_out_equal": out_equal, "nvidia_smi": smi}
+    print(json.dumps(last), flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"runs": runs, "summary": summary,
-                       "k2_seg_dq_equal": equal, "nvidia_smi": smi},
-                      f, indent=1)
+            json.dump({"runs": runs, **last}, f, indent=1)
     return 0
 
 

@@ -330,7 +330,8 @@ def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
     plain backward with them; the all-pad batch row gets dv = sum_l g / S
     and no dq or dk, and every row that sees no key (pad rows, and the
     rows of a segment whose keys are all masked) adds nothing to dq. A
-    bf16 call launches the segment summary kernel once."""
+    bf16 call given no summary launches the segment summary kernel once,
+    and the dead rows' g sum once."""
     x, g, out, lse = _seg_backward_inputs(cuda_device, **SEG_CASES[case])
     q, k, v, mask, bias, seg = (x[n] for n in ("q", "k", "v", "kv_mask",
                                                "bias", "seg"))
@@ -345,7 +346,7 @@ def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
     assert delta[dq_name + "_seg"] == delta["dkv_launches_seg"] == 1
     assert delta[dq_name + ("_tc" if tc else "_f32")] == 1
     assert delta["dkv_launches" + ("_tc" if tc else "_f32")] == 1
-    assert delta["seg_summary_launches"] == int(tc)
+    assert delta["seg_summary_launches"] == delta["gdead_launches"] == int(tc)
     want = fa.reference_backward(q, k, v, mask, g, out, lse, bias, seg)
     names = ("dq", "dk", "dv", "dbias")[:3 if bias is None else 4]
     for name, a, b, t in zip(names, got, want, (q, k, v, bias)):
@@ -375,20 +376,28 @@ def test_tile_shapes_are_the_librarys(cuda_device, L, S, bias):
 
 @pytest.mark.cuda
 def test_seg_launchers_require_the_summary(cuda_device):
-    """The bf16 K2 and K3 with seg raise without launch_seg_summary's
-    summary (and gdead): they never launch it themselves."""
+    """The bf16 K1, K2 and K3 with seg raise without launch_seg_summary's
+    summary (and K1 without its vmean, K3 without launch_dead_rows_sum's
+    gdead): they never launch those kernels themselves."""
     x, g, out, lse = _seg_backward_inputs(cuda_device, B=3, H=2, L=64,
                                           dtype=torch.bfloat16)
     q, k, v, mask, seg = x["q"], x["k"], x["v"], x["kv_mask"], x["seg"]
-    before = fa.seg_summary_launches
+    before = (fa.seg_summary_launches, fa.gdead_launches)
+    summary, vmean = fa.launch_seg_summary(seg, mask, v)
+    for extra in ((), (summary,)):
+        with pytest.raises(ValueError, match="summary"):
+            fa.launch_forward(q, k, v, mask, None, seg, *extra)
+    fa.launch_forward(q, k, v, mask, None, seg, summary, vmean)
     with pytest.raises(ValueError, match="summary"):
         fa.launch_dq(q, k, v, mask, g, out, lse, seg)
-    summary, gdead = fa.launch_seg_summary(seg, lse, g)
+    gdead = fa.launch_dead_rows_sum(lse, g)
     delta = fa.launch_dq(q, k, v, mask, g, out, lse, seg, summary)[1]
     for extra in ((), (summary,)):
         with pytest.raises(ValueError, match="summary"):
             fa.launch_dkv(q, k, v, mask, g, lse, delta, None, seg, *extra)
-    assert fa.seg_summary_launches == before + 1
+    fa.launch_dkv(q, k, v, mask, g, lse, delta, None, seg, summary, gdead)
+    assert (fa.seg_summary_launches, fa.gdead_launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -397,17 +406,22 @@ def test_seg_launchers_require_the_summary(cuda_device):
 @pytest.mark.parametrize("L", [64, 203, 1024])
 def test_seg_summary_kernel_matches_plain_version(cuda_device, layout, L):
     """The segment summary kernel: the summary equals seg_summary exactly
-    (L = 203 ends in a part granule), and gdead equals dead_rows_sum
-    exactly (both sum in f32 in row order), for g viewed from [B, L, H,
-    Dh] as the towers pass it."""
+    (L = 203 ends in a part granule), and vmean equals value_mean exactly
+    (both sum in f32 in the same order; 0 where the batch row can hold no
+    row that sees no key), for v viewed from [B, L, H, Dh] as the towers
+    pass it; the dead rows' g sum equals dead_rows_sum exactly (both sum
+    in f32 in row order)."""
     x, g, out, lse = _seg_backward_inputs(cuda_device, B=5, H=3, L=L,
                                           dtype=torch.bfloat16, strided=True,
                                           layout=layout)
-    before = fa.seg_summary_launches
-    summary, gdead = fa.launch_seg_summary(x["seg"], lse, g)
+    before = (fa.seg_summary_launches, fa.gdead_launches)
+    summary, vmean = fa.launch_seg_summary(x["seg"], x["kv_mask"], x["v"])
+    gdead = fa.launch_dead_rows_sum(lse, g)
     torch.cuda.synchronize()
-    assert fa.seg_summary_launches == before + 1
+    assert (fa.seg_summary_launches, fa.gdead_launches) == (
+        before[0] + 1, before[1] + 1)
     assert torch.equal(summary, fa.seg_summary(x["seg"]))
+    assert torch.equal(vmean, fa.value_mean(x["v"], x["kv_mask"], x["seg"]))
     assert torch.equal(gdead, fa.dead_rows_sum(g, lse))
 
 
@@ -429,6 +443,113 @@ def test_seg_bwd_kernels_are_bitwise_deterministic(cuda_device, case):
     for _ in range(3):
         for a, b in zip(first, fa.flash_backward(*args)):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+# K1 with seg (the skipping bf16 kernel): the layouts of _layout_seg, a
+# ragged L, with and without the bias
+K1_SEG_CASES = {
+    **{f"{lay}{'_bias' if b else ''}": dict(B=5, H=4, L=256, layout=lay,
+                                            bias=b)
+       for lay in ("packed", "interleaved", "masked_segment", "all_pad",
+                   "one_segment") for b in (False, True)},
+    "ragged_L451": dict(B=5, H=4, L=451),
+    "ragged_L451_bias": dict(B=5, H=4, L=451, bias=True),
+    "tail_segment": dict(B=3, H=2, L=2400, layout="tail_segment"),
+    "dh128_bias": dict(B=3, H=2, L=130, Dh=128, bias=True),
+    "L16": dict(B=8, H=2, L=16, pack=2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K1_SEG_CASES))
+def test_seg_fwd_kernel_matches_plain_version(cuda_device, case):
+    """K1 with segment ids (bf16) against reference_forward with them: out
+    and lse within 2e-2; at every row that sees no key (pad rows, the
+    rows of a segment whose keys are all masked, whole Q tiles that share
+    no segment) out is value_mean's mean(V) exactly and lse <= -1e29. One
+    call launches the summary kernel once and K1 once, with seg."""
+    x, _, want_out, want_lse = _seg_backward_inputs(
+        cuda_device, dtype=torch.bfloat16, **K1_SEG_CASES[case])
+    counts = lambda: [getattr(fa, n) for n in fa.COUNTERS]
+    before = counts()
+    out, lse = fa.flash_forward(**x)
+    torch.cuda.synchronize()
+    delta = dict(zip(fa.COUNTERS, (a - b for a, b in zip(counts(),
+                                                          before))))
+    assert delta["launches_seg"] == delta["launches_tc"] == 1
+    assert delta["seg_summary_launches"] == 1
+    tol = TOL[torch.bfloat16]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out, want_out, rtol=tol, atol=tol)
+    dead = want_lse <= fa.MASKED_ROW_LSE
+    assert torch.equal(dead, lse <= fa.MASKED_ROW_LSE)
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], rtol=tol,
+                               atol=tol)
+    vmean = fa.value_mean(x["v"], x["kv_mask"], x["seg"])
+    want_dead = vmean[:, :, None, :].expand_as(out)[dead]
+    assert torch.equal(out[dead], want_dead)
+    torch.testing.assert_close(want_out[dead], want_dead, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_seg_fwd_kernel_q_tile_with_no_segment(cuda_device):
+    """Q tiles whose rows share no segment with any key (the first 192
+    positions pad, then one page) visit no KV tile and still write every
+    row: mean(V) and the lse of a row that sees no key."""
+    x, _, want_out, want_lse = _seg_backward_inputs(
+        cuda_device, B=2, H=2, L=512, dtype=torch.bfloat16)
+    seg = torch.zeros(2, 512, dtype=torch.int32, device=cuda_device)
+    seg[:, 192:400] = 1
+    x["seg"], x["kv_mask"] = seg, seg > 0
+    out, lse = fa.flash_forward(**x)
+    want_out, want_lse = fa.reference_forward(**x)
+    torch.cuda.synchronize()
+    vmean = fa.value_mean(x["v"], x["kv_mask"], seg)
+    assert torch.equal(out[:, :, :192],
+                       vmean[:, :, None, :].expand(-1, -1, 192, -1))
+    assert (lse[:, :, :192] <= fa.MASKED_ROW_LSE).all()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out, want_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse[:, :, 192:400], want_lse[:, :, 192:400],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["packed", "masked_segment_bias",
+                                  "all_pad", "ragged_L451"])
+def test_seg_fwd_kernel_is_bitwise_deterministic(cuda_device, case):
+    x = _seg_backward_inputs(cuda_device, dtype=torch.bfloat16,
+                             strided=True, **K1_SEG_CASES[case])[0]
+    first = fa.flash_forward(**x)
+    for _ in range(3):
+        for a, b in zip(first, fa.flash_forward(**x)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["k2_k3", "k4_k3"])
+def test_seg_backward_takes_the_forwards_summary(cuda_device, bias):
+    """Through autograd, a bf16 call with seg launches the segment summary
+    kernel once (in the forward) and the dead rows' g sum once (in the
+    backward), whose K2 and K3 take the forward's summary; the gradients
+    are flash_backward's given no summary."""
+    x, g, _, _ = _seg_backward_inputs(cuda_device, B=4, H=2, L=256,
+                                      dtype=torch.bfloat16, bias=bias,
+                                      layout="masked_segment")
+    leaves = [x[n].detach().requires_grad_(True) for n in ("q", "k", "v")]
+    counts = lambda: [getattr(fa, n) for n in fa.COUNTERS]
+    before = counts()
+    out, lse = fa.flash_forward(*leaves, x["kv_mask"], x["bias"], x["seg"])
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    delta = dict(zip(fa.COUNTERS, (a - b for a, b in zip(counts(),
+                                                          before))))
+    assert delta["seg_summary_launches"] == delta["gdead_launches"] == 1
+    assert delta["launches_seg"] == delta["dkv_launches_seg"] == 1
+    want = fa.flash_backward(x["q"], x["k"], x["v"], x["kv_mask"], g,
+                             out.detach(), lse, x["bias"], x["seg"])
+    for a, b in zip(got, want[:3]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -518,6 +639,8 @@ def test_cuda_packed_tower_takes_the_seg_kernels(cuda_device, variant):
     dq = "dq_launches" if variant == "bert" else "dq_dbias_launches"
     for n in ("launches", dq, "dkv_launches"):
         assert delta[n] == delta[n + "_seg"] == delta[n + "_tc"] == 2, delta
+    # one segment summary a layer, in the forward; the backward takes it
+    assert delta["seg_summary_launches"] == delta["gdead_launches"] == 2
     dense = grads(towers["dense"])
     for n in ("wq", "wk", "wv"):
         key = f"page_tower.block0.attn.{n}.weight"
