@@ -22,10 +22,11 @@ Phases, each printing one JSON line:
      version's, one PyTorch library call's (a yardstick the port never
      calls) and its bound, the backward kernels at the page and the query
      towers' training shapes. With --parent TREE (a checkout
-     of the parent commit), scripts/bwd_ab.py then times the kernels of
+     of the parent commit), scripts/bwd_ab.py times the kernels of
      TREE and of this checkout in turns (TREE, this, this, TREE), with
      CUDA events around back-to-back calls (the kernels' `ms` here too)
-     and as the profiler's device time;
+     and as the profiler's device time, once phase 9's data is built
+     (before phase 6);
   4. BERT-mini serving: config bert_mini_v5p16 at full width (random
      weights from a seeded torch.Generator, flash attention) trains the
      30,522-piece WordPiece vocab over a 100,000-page toy corpus, bulk
@@ -71,18 +72,20 @@ The kernel checks also hold the segment (seg) variants of K1 (against
 the plain forward, and mean(V) at every row that sees no key) and of K2,
 K3 and K4 (against the plain backward), bf16 and f32, with seg at both
 packed paths' shapes, at the segment ids of phase 8's first batch (phase
-4's corpus and vocab are built before the kernel checks for it) and at
-the edge cases (a row that is all pad, a segment of one token, segments
-across tile edges, ids that are not contiguous, a segment whose keys are
-all masked, one segment over the row, a ragged length), each with and
-without the bias; the segment summary kernel (run before the bf16 K1
-with seg, whose tile skip it serves, as the backward's K2 and K3 skips)
-and the dead rows' g sum (before K3 with seg) against their plain
-versions; and time them, each bf16 seg time beside the share of tiles
-and 16 x 16 chunks the kernels visit. Bounds count the pairs the
-segments allow. Then the
-`kernels` line, the card's name and power limit as nvidia-smi prints
-them, and last {"ok": true, "device": {...}}.
+4's corpus and vocab are built before the kernel checks for it), K4 and
+the biased K3 also at phase 9's first batch's (once the mT5 vocab is
+ready, before phase 6), and at the edge cases (a row that is all pad, a
+segment of one token, segments across tile edges, ids that are not
+contiguous, a segment whose keys are all masked, one segment over the
+row, a ragged length), each with and without the bias; the segment
+summary kernel (run before the bf16 K1 with seg, whose tile skip it
+serves, as the backward's K2, K4 and K3 skips) and the dead rows' g sum
+(before K3 with seg) against their plain versions; and time them, each
+bf16 seg time beside the share of tiles (K1's, K3's, and K2's or with
+the bias K4's) and 16 x 16 chunks the kernels visit. Bounds count the
+pairs the segments allow. Then the `kernels` line, the card's name and
+power limit as nvidia-smi prints them, and last {"ok": true, "device":
+{...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the port is not importable (run from the root of a checkout), or when any
@@ -669,11 +672,11 @@ def bwd_bound(x) -> dict:
 
 
 def visit_shares(x) -> dict:
-    """With segment ids: the share of the bf16 K2's and K3's tiles (K2 is
-    absent with a bias; the tiles as the library chooses them, which must
-    be tile_shapes') and of the 16 x 16 chunks that the skipping kernels
-    visit, by their rule, from the plain summary; and the share of pairs
-    the segments allow."""
+    """With segment ids: the share of the bf16 K1's, K3's and K2's tiles
+    (with a bias K4's instead of K2's; the tiles as the library chooses
+    them, which must be tile_shapes') and of the 16 x 16 chunks that the
+    skipping kernels visit, by their rule, from the plain summary; and
+    the share of pairs the segments allow."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     B, _, L, _ = x["q"].shape
     S = x["k"].shape[2]
@@ -860,9 +863,9 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
     bias, out, lse, seg = x["bias"], x["out"], x["lse"], x.get("seg")
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    # the bf16 K2 and K3 with seg take the forward's segment summary, and
-    # K3 the dead rows' g sum, launched once per backward (inside the
-    # pair's time, timed alone below)
+    # the bf16 K2 (or K4) and K3 with seg take the forward's segment
+    # summary, and K3 the dead rows' g sum, launched once per backward
+    # (inside the pair's time, timed alone below)
     summary = gdead = None
     if seg is not None and q.dtype == torch.bfloat16:
         summary, gdead = summary_args(x)
@@ -874,7 +877,7 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
     else:
         names = ("k4_ms", "k3_bias_ms", "k4_k3_ms")
         dq_fn = lambda: fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse,
-                                           seg)
+                                           seg, summary)
         leaves.append(bias.detach().requires_grad_(True))
         pair = "K4 + K3"
     attn_mask, kind = library_mask(mask, None if bias is None else leaves[3],
@@ -921,8 +924,8 @@ def time_bwd(phase: str, case: str, c: dict, x: dict) -> dict:
 
 def summary_args(x: dict) -> tuple:
     """(summary, gdead) from the segment summary kernel and the dead rows'
-    g sum, which the bf16 K2 and K3 take with segment ids; (None, None)
-    without them or in f32."""
+    g sum, which the bf16 K2, K4 and K3 take with segment ids; (None,
+    None) without them or in f32."""
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     if x.get("seg") is None or x["q"].dtype != torch.bfloat16:
         return None, None
@@ -1007,12 +1010,30 @@ def k3_bitwise(x: dict, delta, case: str) -> bool:
     return equal
 
 
+def k4_bitwise(x: dict, case: str) -> tuple:
+    """Two runs of K4 on the same inputs (with segment ids, on the segment
+    summary) give bitwise equal dq, delta and dbias (one writer per
+    element, fixed orders over the KV tiles and the batch rows); raises if
+    not. Returns (True, delta)."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    args = (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["g"],
+            x["out"], x["lse"], x.get("seg"), summary_args(x)[0])
+    first = fa.launch_dq_dbias(*args)
+    equal = all(torch.equal(a, b) for a, b in
+                zip(first, fa.launch_dq_dbias(*args)))
+    emit({"phase": "k4_bitwise", "case": case, "seg": args[8] is not None,
+          "dq_delta_dbias_equal": equal})
+    if not equal:
+        raise AssertionError(f"two runs of K4 gave different dq, delta or "
+                             f"dbias ({case})")
+    return equal, first[1]
+
+
 def check_k4(device, timed_case: str, query_case: str) -> dict:
     """K4 + the biased K3 (through flash_backward) vs the biased
     reference_backward on every case; two runs of K4 bitwise equal; each
     kernel timed alone at the mT5 page and query towers' training
     shapes."""
-    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     cases = {
         "mt5_page_train_bf16": dict(B=MT5_TRAIN_BATCH, H=12, L=128, S=128,
                                     Dh=64, dtype=torch.bfloat16, bias=True,
@@ -1045,20 +1066,10 @@ def check_k4(device, timed_case: str, query_case: str) -> dict:
         del x
     c = cases[timed_case]
     x = k23_inputs(device, seed=500, **c)
-    q, k, v, mask, g = x["q"], x["k"], x["v"], x["kv_mask"], x["g"]
-    bias, out, lse = x["bias"], x["out"], x["lse"]
-    first = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
-    again = fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse)
-    bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
-    emit({"phase": "k4_bitwise", "case": timed_case,
-          "dq_delta_dbias_equal": bitwise})
-    if not bitwise:
-        raise AssertionError("two runs of K4 gave different dq or dbias")
-    delta = first[1]
-    del again
+    bitwise, delta = k4_bitwise(x, timed_case)
     k3_bits = k3_bitwise(x, delta, timed_case)
     t = time_bwd("k4_timing", timed_case, c, x)
-    del x, first, delta
+    del x, delta
     c = cases[query_case]
     query = time_bwd("k4_timing", query_case, c,
                      k23_inputs(device, seed=501, **c))
@@ -1103,17 +1114,20 @@ SEG_EDGE_CASES = {
 }
 
 
-def train_layout_seg(data) -> torch.Tensor:
-    """[256, 1024] int32 segment ids of the packed bert_long_sp cell's
-    first batch (TrainBatcher(pack=4) over its 215-word pages, as phase 8
-    trains on them): the layout the step runs. `data` is packed_data's."""
+def train_layout_seg(data, config: str = LONG,
+                     batch: int = LONG_TRAIN_BATCH) -> torch.Tensor:
+    """[batch / PACK, page_len] int32 segment ids of a packed cell's first
+    batch (TrainBatcher(pack=4) over `data`, packed_data's, as phases 8
+    and 9 train on it): the layout the step runs. [256, 1024] for the
+    packed bert_long_sp cell's 215-word pages, [512, 128] for the packed
+    mT5 cell's 20-word ones."""
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.loader import TrainBatcher
     corpus, q_tok, p_tok = data
-    batch = next(iter(TrainBatcher(corpus, q_tok, p_tok, LONG_TRAIN_BATCH,
-                                   seed=get_config(LONG).train.seed,
+    first = next(iter(TrainBatcher(corpus, q_tok, p_tok, batch,
+                                   seed=get_config(config).train.seed,
                                    pack=PACK)))
-    return torch.from_numpy(batch["page_seg"])
+    return torch.from_numpy(first["page_seg"])
 
 
 def check_seg(device, train_seg) -> dict:
@@ -1164,24 +1178,35 @@ def check_seg(device, train_seg) -> dict:
                                  x["out"], x["lse"], x["seg"],
                                  summary_args(x)[0])[1]
         else:
-            args = (x["q"], x["k"], x["v"], x["kv_mask"], x["bias"], x["g"],
-                    x["out"], x["lse"], x["seg"])
-            first = fa.launch_dq_dbias(*args)
-            bitwise = all(torch.equal(a, b) for a, b in
-                          zip(first, fa.launch_dq_dbias(*args)))
-            emit({"phase": "k4_bitwise", "case": case, "seg": True,
-                  "dq_delta_dbias_equal": bitwise})
-            if not bitwise:
-                raise AssertionError("two runs of K4 with seg gave different "
-                                     "dq or dbias")
-            delta = first[1]
-            del first
+            bitwise, delta = k4_bitwise(x, case)
         k3_bits = k3_bitwise(x, delta, case)
         del delta
         out[key] = {**time_bwd("seg_timing", case, c, x), "bitwise": bitwise,
                     "k3_bitwise": k3_bits}
         del x
     return out
+
+
+def check_seg_mt5_train(device, train_seg) -> dict:
+    """K4 and the biased K3 with segment ids at the packed mT5 cell's own
+    first batch (`train_seg`, train_layout_seg's of phase 9's data), as
+    check_seg holds and times them at `packed_seg`'s layout: against
+    reference_backward, two runs of each bitwise equal, and each timed
+    beside the share of tiles visited, the bound, the plain version and
+    the library call."""
+    name = "mt5_train_layout_bias_bf16"
+    c = dict(B=MT5_PACK_TRAIN_BATCH // PACK, H=12, L=128, S=128, Dh=64,
+             dtype=torch.bfloat16, bias=True, strided=True,
+             seg_ids=train_seg)
+    x = k23_inputs(device, seed=703, **c)
+    errs = check_bwd_case("seg_check", name, c, x)
+    bitwise, delta = k4_bitwise(x, name)
+    k3_bits = k3_bitwise(x, delta, name)
+    del delta
+    t = time_bwd("seg_timing", name, c, x)
+    return {**t, "bitwise": bitwise, "k3_bitwise": k3_bits,
+            "worst": {"dq": errs["dq"], "k3": max(errs["dk"], errs["dv"]),
+                      "dbias": errs["dbias"], "dtype": "bfloat16"}}
 
 
 def device_breakdown(fn, iters: int = 5) -> dict:
@@ -1872,21 +1897,23 @@ def ptxas_summary(log: str) -> list:
     return out or [log[-200:]]
 
 
-def run_ab(parent: str, seg_file: str) -> dict:
+def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
     """scripts/bwd_ab.py over the tree `parent` and this checkout in turns
     (parent, this, this, parent), one process per tree on this card: each
     kernel's time in each run at the shapes the script names (the seg
-    kernels also at the training layout saved in `seg_file`), with CUDA
-    events around back-to-back calls and as the profiler's device time;
-    whether every run's K2 with seg gave the same dq up to the sign of a
-    zero, and every run's K1 with seg the same out and lse at the rows
-    that see a key."""
+    kernels also at the training layouts saved in `seg_file`, bert_long_sp's,
+    and `mt5_seg_file`, mT5's), with CUDA events around back-to-back calls
+    and as the profiler's device time; whether every run's K2 with seg gave
+    the same dq up to the sign of a zero, every run's K1 with seg the same
+    out and lse at the rows that see a key, and every run's K4 with seg
+    the same dq up to the sign of a zero and bitwise the same dbias."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     proc = subprocess.run(
         [sys.executable, os.path.join(here, "scripts", "bwd_ab.py"), parent,
-         here, here, parent, "--train-seg", seg_file], capture_output=True,
-        text=True, timeout=900, check=False)
+         here, here, parent, "--train-seg", seg_file, "--train-seg-mt5",
+         mt5_seg_file], capture_output=True, text=True, timeout=900,
+        check=False)
     if proc.returncode != 0:
         raise AssertionError(f"scripts/bwd_ab.py failed:\n"
                              f"{proc.stderr[-3000:]}")
@@ -1896,7 +1923,8 @@ def run_ab(parent: str, seg_file: str) -> dict:
            "order": "parent, this, this, parent",
            "parent_ms": summary[parent], "this_ms": summary[here],
            "k2_seg_dq_equal": last["k2_seg_dq_equal"],
-           "k1_seg_out_equal": last["k1_seg_out_equal"]}
+           "k1_seg_out_equal": last["k1_seg_out_equal"],
+           "k4_seg_equal": last["k4_seg_equal"]}
     emit(rec)
     if not all(last["k2_seg_dq_equal"].values()):
         raise AssertionError(f"K2 with seg gave another dq than the parent "
@@ -1905,6 +1933,9 @@ def run_ab(parent: str, seg_file: str) -> dict:
         raise AssertionError(f"K1 with seg gave another out or lse than the "
                              f"parent tree's at the rows that see a key: "
                              f"{last['k1_seg_out_equal']}")
+    if not all(last["k4_seg_equal"].values()):
+        raise AssertionError(f"K4 with seg gave another dq or dbias than the "
+                             f"parent tree's: {last['k4_seg_equal']}")
     return rec
 
 
@@ -1951,10 +1982,6 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
         report["seg"] = check_seg(device, train_seg)
-        if parent is not None:
-            seg_file = os.path.join(tmp, "train_seg.pt")
-            torch.save(train_seg, seg_file)
-            report["ab"] = run_ab(parent, seg_file)
         report["slice"] = run_slice(device, "bert_mini_v5p16", N_PAGES,
                                     N_QUERIES, tmp, bert)
         report["train"] = run_training(device, "bert_mini", bert, tmp)
@@ -1963,15 +1990,29 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
         emit({"phase": "mt5_tokenizer_wait", "seconds":
               time.perf_counter() - t0})
         mt5 = build_data(MT5, MT5_VOCAB_PAGES, tokenizers)
+        # phase 9's data now: K4 and K3 with seg are also checked and timed
+        # at its first batch's segment ids
+        mt5_pack_data = packed_data(MT5, MT5_PACK_PAGE_WORDS, MT5_PACK_PAGES,
+                                    mt5)
+        mt5_seg = train_layout_seg(mt5_pack_data, MT5, MT5_PACK_TRAIN_BATCH)
+        report["seg"]["mt5_train"] = check_seg_mt5_train(device, mt5_seg)
+        report["seg"]["worst"]["mt5_train_layout_bias_bf16"] = (
+            report["seg"]["mt5_train"]["worst"])
+        if parent is not None:
+            seg_files = [os.path.join(tmp, f"{n}_seg.pt")
+                         for n in ("train", "mt5_train")]
+            torch.save(train_seg, seg_files[0])
+            torch.save(mt5_seg, seg_files[1])
+            torch.cuda.empty_cache()     # the A/B runs in processes of its own
+            report["ab"] = run_ab(parent, *seg_files)
         report["mt5_slice"] = run_slice(device, MT5, MT5_PAGES, N_QUERIES,
                                         tmp, mt5)
         report["mt5_train"] = run_training(device, "mt5", mt5, tmp)
         # phases 8 and 9: packed training over the vocabs of phases 4, 6
         report["long_train"] = run_training(device, "bert_long_packed",
                                             long_data, tmp)
-        report["mt5_pack_train"] = run_training(
-            device, "mt5_packed",
-            packed_data(MT5, MT5_PACK_PAGE_WORDS, MT5_PACK_PAGES, mt5), tmp)
+        report["mt5_pack_train"] = run_training(device, "mt5_packed",
+                                                mt5_pack_data, tmp)
     return kernel_entries(report)
 
 
@@ -2191,6 +2232,7 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
     on the main paths (run_training fails unless every launch of a packed
     path took the tensor cores)."""
     long, train, mt5 = seg["long"], seg["long_train"], seg["mt5"]
+    mt5_train = seg["mt5_train"]
     worst = seg["worst"].values()
     biased = [w for n, w in seg["worst"].items() if "bias" in n]
     plain = [w for n, w in seg["worst"].items() if "bias" not in n]
@@ -2206,6 +2248,8 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
                 "visited": rec.get("visited")}
     train_shape = long_shape + (", the training batch's segment ids "
                                 "(phase 8's first batch)")
+    mt5_train_shape = mt5p_shape + (", the training batch's segment ids "
+                                    "(phase 9's first batch)")
     return [{
         "name": "flash_bwd_dq with seg (K2, packed rows)", "route": "cuda",
         "source": K23_SOURCE, "replaces": TPU_K2,
@@ -2237,12 +2281,18 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
         "kernel": "flash_bwd_dkv_tc_kernel<DP, bias, seg> (tensor cores, "
                   "bf16); f32 inputs take flash_bwd_dkv_kernel with seg",
         "bitwise_equal_runs": (long["k3_bitwise"] and train["k3_bitwise"]
-                               and mt5["k3_bitwise"]),
+                               and mt5["k3_bitwise"]
+                               and mt5_train["k3_bitwise"]),
         "ptxas": seg_rows("flash_bwd_dkv"),
         "biased": {"shape": mt5p_shape,
                    **timing(mt5, "k3_bias_ms", "dkv", "k4_k3_ms",
                             "K4 and K3 together"),
-                   **parent("k3_bias_seg_ms")}}, {
+                   **parent("k3_bias_seg_ms"),
+                   "train_layout": {
+                       "shape": mt5_train_shape,
+                       **timing(mt5_train, "k3_bias_ms", "dkv", "k4_k3_ms",
+                                "K4 and K3 together"),
+                       **parent("k3_bias_seg_train_ms")}}}, {
         "name": "flash_bwd_dq_dbias with seg (K4, packed rows)",
         "route": "cuda", "source": K23_SOURCE, "replaces": TPU_K4,
         "launches": sum(seg_by_path["k4"].values()),
@@ -2250,10 +2300,14 @@ def seg_entries(seg, seg_by_path, ptxas, parent, long_shape,
         "max_abs_err": max(max(w["dq"], w["dbias"]) for w in biased),
         **timing(mt5, "k4_ms", "dq", "k4_k3_ms", "K4 and K3 together"),
         "shape": mt5p_shape, **parent("k4_seg_ms"),
+        "train_layout": {"shape": mt5_train_shape,
+                         **timing(mt5_train, "k4_ms", "dq", "k4_k3_ms",
+                                  "K4 and K3 together"),
+                         **parent("k4_seg_train_ms")},
         "kernel": "flash_bwd_dq_dbias_tc_kernel<DP, seg> (tensor cores, "
                   "bf16), then flash_bwd_dbias_sum_kernel; f32 inputs take "
                   "flash_bwd_dq_dbias_kernel with seg",
-        "bitwise_equal_runs": mt5["bitwise"],
+        "bitwise_equal_runs": mt5["bitwise"] and mt5_train["bitwise"],
         "blocks_per_sm": mt5["dq_blocks_per_sm"],
         "ptxas": seg_rows("flash_bwd_dq_dbias", "flash_bwd_dbias_sum")}]
 

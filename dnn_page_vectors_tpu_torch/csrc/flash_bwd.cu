@@ -69,26 +69,30 @@
 // packed row (seg 0) sees no key: it is a fully masked row (below).
 //
 // A packed row of 1,024 tokens holding 4 pages allows about a fifth of its
-// pairs, so the bf16 K2 and K3 with segment ids visit only the tiles that
-// share a segment, by the segment summary (seg_skip.cuh: for every 16
+// pairs, so the bf16 K2, K3 and K4 with segment ids visit only the tiles
+// that share a segment, by the segment summary (seg_skip.cuh: for every 16
 // positions of every batch row the range of segment ids > 0 there), which
 // the forward's summary kernel (flash_fwd.cu) wrote once for K1 and the
-// backward takes over. K2 (a Q tile of up to 64 rows) walks only the KV
-// tiles whose range overlaps its rows' range, and K3 (a block of 64 keys)
-// only the Q tiles that overlap its keys' range; the two-stage ring
-// fetches the next tile visited, found by one warp-wide ballot over the
-// summary, so a skipped tile costs no load. Inside a visited tile each warp
-// skips the 16 x 16 chunks whose two granules miss each other (a branch
-// that is uniform over the warp). Skipped pairs had p = ds = 0: K2's dq is
-// what visiting every tile gave, up to the sign of a zero. A dead row (no
-// allowed key) gives dv its g / S at every key, which would send K3 to every
-// Q tile that holds a pad row; a small kernel (flash_bwd_gdead_kernel)
-// therefore sums g over the dead rows of each (batch row, head) first,
-// gdead [B, H, Dh] f32 (one block per pair, in row order, no atomics), and
-// K3 takes p = 0 at dead rows in its tiles and adds gdead / S to the f32 dv
-// of each of its keys below S before the bf16 store. K4 with segment ids
-// (mT5's 128-token rows, 2-4 tiles) and the f32 kernels still visit every
-// tile.
+// backward takes over. K2 (a Q tile of up to 64 rows) and K4 (32 rows, for
+// each batch row of its group) walk only the KV tiles whose range overlaps
+// the rows' range, and K3 (a block of 64 keys) only the Q tiles that
+// overlap its keys' range; the two-stage ring fetches the next tile
+// visited, found by one warp-wide ballot over the summary, so a skipped
+// tile costs no load (K4's ring runs on across its batch rows: the last
+// tile of a row fetches the next row's first visited one). Inside a
+// visited tile each warp skips the 16 x 16 chunks whose two granules miss
+// each other (a branch that is uniform over the warp). Skipped pairs had
+// p = ds = 0: dq is what visiting every tile gave, up to the sign of a
+// zero, and K4's partial dbias, which starts at +0 and never becomes -0,
+// is bitwise what it was. A dead row (no allowed key) gives dv its g / S
+// at every key, which would send K3 to every Q tile that holds a pad row;
+// a small kernel (flash_bwd_gdead_kernel) therefore sums g over the dead
+// rows of each (batch row, head) first, gdead [B, H, Dh] f32 (one block
+// per pair, in row order, no atomics), and K3 takes p = 0 at dead rows in
+// its tiles and adds gdead / S to the f32 dv of each of its keys below S
+// before the bf16 store. (A dead row adds nothing to dq or dbias.) The
+// f32 kernels, and a bf16 K4 over more than 512 keys (on f32 copies),
+// still visit every tile.
 //
 // K2, K4, and K3 for f32 inputs, stage their tiles in shared memory
 // widened to f32 and multiply on the CUDA cores. As in K1's f32 kernel,
@@ -132,7 +136,13 @@
 //   one batch row is computed, the next row's g, out, lse and first KV
 //   tiles are fetched (its q once the row is done). S is at most 512 (the
 //   wrapper sends a longer S to the f32 K4). K4 is bound by latency more
-//   than by bytes: it sums its batch rows one after another.
+//   than by bytes: it sums its batch rows one after another. With segment
+//   ids the tiles a row visits follow from that row's summary: the last
+//   pass of a row finds the next row's first tile (so that the ring
+//   fetches it), and the row's end writes the next row's ranges over its
+//   own once every warp is done with them, all in shared memory. A row
+//   whose Q tile visits nothing (a pad tail) still takes one pass: delta,
+//   dq = 0, and the next row's fetches.
 //
 // K3 for bf16 inputs (flash_bwd_dkv_tc_kernel: every K3 launch of the
 // training paths) runs on the tensor cores (mma.sync m16n8k16, f32 sums):
@@ -1174,16 +1184,16 @@ __host__ __device__ __forceinline__ Layout layout(int dp, int rows, int bn,
   s.lse = s.part + bias_bytes;                     // [rows] f32
   s.mask = s.lse + rows * 4;                       // [2][bn] kv mask bytes
   s.seg = s.mask + 2 * bn;                         // [2][bn] key segments
-  // K2 with seg, in shared memory (K2 is at its 128-register cap: held in
-  // registers across the tile loop, these spilled): the segment ranges
-  // (int2) of the block's rows and of each warp's 16, of the 16-key chunks
-  // of each ring slot's tile, the next tile visited after each slot's, and
-  // the batch row's summary pointer
-  const bool skip = seg && !dbias;
-  s.ranges = s.seg + (seg ? 2 * bn * 4 : 0);       // [1 + 4] int2
-  s.chunks = s.ranges + (skip ? 48 : 0);           // [2][2] int2
-  s.next = s.chunks + (skip ? 32 : 0);             // [2] int, a pointer
-  s.total = s.next + (skip ? 16 : 0);
+  // With seg, in shared memory (K2 is at its 128-register cap, K4 at 168:
+  // held in registers across the tile loop, these spilled): the segment
+  // ranges (int2) of the block's rows and of each warp's 16 ([1 + 4]), of
+  // the 16-key chunks of each ring slot's tile, the next tile visited after
+  // each slot's, and K2's batch row's summary pointer or K4's first tile
+  // visited and first tile count of a batch row
+  s.ranges = s.seg + (seg ? 2 * bn * 4 : 0);       // 48 bytes
+  s.chunks = s.ranges + (seg ? 48 : 0);            // [2][2] int2
+  s.next = s.chunks + (seg ? 32 : 0);              // [2] int, then 8 bytes
+  s.total = s.next + (seg ? 16 : 0);
   return s;
 }
 
@@ -1194,7 +1204,7 @@ struct Args {
   const uint8_t* kv_mask;
   const float* bias;                     // K4 only
   const int* seg;                        // [B, L] segment ids, or null
-  const int2* sum;                       // K2 with seg: the segment summary
+  const int2* sum;                       // with seg: the segment summary
   const float* g;
   const float* out;
   const float* lse;
@@ -1217,11 +1227,11 @@ struct Args {
 // dbias. Each warp owns 16 query rows. DP is the head dim the fragments
 // cover (64 or 128), Dh <= DP the real one. kSeg: segment ids restrict the
 // pairs (a compile-time flag, so the other instantiations keep their code
-// and registers); K2 then walks only the KV tiles that share a segment
-// with its Q tile (kSkip; see the head of this file), K4 every tile.
+// and registers); each batch row then walks only the KV tiles that share a
+// segment with its Q tile (kSkip; see the head of this file).
 template <int DP, bool kDbias, bool kSeg>
 __device__ __forceinline__ void dq_body(const Args& a) {
-  constexpr bool kSkip = kSeg && !kDbias;
+  constexpr bool kSkip = kSeg;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int P = DP + 8;              // bf16 shared row pitch
   constexpr int GP = DP + 4;             // f32 shared row pitch
@@ -1264,28 +1274,41 @@ __device__ __forceinline__ void dq_body(const Args& a) {
   // the kv mask comes in 4-byte pieces when its rows allow
   const bool mask4 =
       (reinterpret_cast<uintptr_t>(a.kv_mask) & 3) == 0 && (S & 3) == 0;
-  // kSkip: summary() the batch row's summary of ng granules (L == S);
-  // ranges[0] the range of this block's rows, ranges[1 + w] warp w's 16;
-  // chunk_ranges[2 sl + c] 16-key chunk c of slot sl's tile; next[sl] the
-  // next tile visited after slot sl's; the first KV tile that overlaps the
-  // block's rows
+  // kSkip: summary(b) batch row b's summary of ng granules (L == S);
+  // ranges[0] the range of this block's rows, ranges[1 + w] warp w's 16
+  // (K4: of the batch row being computed); chunk_ranges[2 sl + c] 16-key
+  // chunk c of slot sl's tile; next[sl] the next tile visited after slot
+  // sl's; K2's `first` the first KV tile that overlaps the block's rows
+  // (ntiles if none), K4's first_s the same of the row computed or, from
+  // that row's last pass on, the next row, and it0_s the row's first `it`
+  // (in shared memory: K4 is at its 168-register cap, where these spilled)
   const int ng = (L + kGranule - 1) / kGranule;
-  auto summary = [&] {
+  auto summary = [&](int b) {
+    if constexpr (kDbias) return a.sum + (long long)b * ng;
     return *reinterpret_cast<const int2* const*>(smem + lay.next + 8);
   };
   int2* ranges = reinterpret_cast<int2*>(smem + lay.ranges);
   const int2* chunk_ranges = reinterpret_cast<const int2*>(smem + lay.chunks);
   int* next = reinterpret_cast<int*>(smem + lay.next);
+  int* first_s = next + 2;
+  int* it0_s = next + 3;
+  // the ranges of a batch row's rows from its summary `sb`, by warp 0
+  auto row_ranges = [&](const int2* sb) {
+    if (tid <= nrw)
+      ranges[tid] = tid == 0 ? span(sb, ng, q0, rows)
+                             : span(sb, ng, q0 + (tid - 1) * 16, 16);
+  };
   int first = 0;
   if constexpr (kSkip) {
     const int2* sum0 = a.sum + (long long)b0 * ng;
-    if (tid <= nrw)
-      ranges[tid] = tid == 0 ? span(sum0, ng, q0, rows)
-                             : span(sum0, ng, q0 + (tid - 1) * 16, 16);
-    if (tid == 0)
-      *reinterpret_cast<const int2**>(smem + lay.next + 8) = sum0;
+    row_ranges(sum0);
+    if constexpr (!kDbias) {
+      if (tid == 0)
+        *reinterpret_cast<const int2**>(smem + lay.next + 8) = sum0;
+    }
     __syncthreads();
     first = next_tile(sum0, ng, -1, ntiles, bn, ranges[0]);
+    if constexpr (kDbias) *first_s = first;  // every thread the same
   }
 
   auto issue_q = [&](int b) {            // q rows past L, cols past Dh: 0
@@ -1331,7 +1354,7 @@ __device__ __forceinline__ void dq_body(const Args& a) {
     }
     if constexpr (kSkip) {               // its chunks' ranges; past the row
       const int* src =                   // (0, 0), which overlaps no range
-          reinterpret_cast<const int*>(summary() + kv0 / kGranule);
+          reinterpret_cast<const int*>(summary(b) + kv0 / kGranule);
       int* dst = reinterpret_cast<int*>(smem + lay.chunks) + 4 * sl;
       for (int i = tid; i < 2 * bn / kGranule; i += nthr) {
         const bool ok = kv0 / kGranule + i / 2 < ng;
@@ -1369,30 +1392,49 @@ __device__ __forceinline__ void dq_body(const Args& a) {
 
     // With kSkip, t walks the KV tiles visited: the next one is kept in
     // next[] (in shared memory: no register holds it across the tile).
-    // K2 has one batch row, so `it` counts the tiles done, and its first
-    // pass always runs: it builds the row's fragments and writes delta, for
-    // a Q tile that visits no KV tile too
-    for (int t = first; kSkip ? it == 0 || t < ntiles : t < ntiles;
+    // `it` counts the tiles done over the group's rows; a row's first
+    // pass (`it` at the row's start) always runs: it builds the row's
+    // fragments and writes delta, and K4's issues the next row's g, out
+    // and lse, for a Q tile that visits no KV tile too. Such a pass
+    // consumes no ring slot (it ends before ++it), so the next row's
+    // first tile, which it issues, goes into its own slot, and the dq
+    // epilogue stages through the other, the last tile's of the row
+    // before
+    if constexpr (kSkip && kDbias) {
+      first = *first_s;                // every thread the same
+      *it0_s = it;
+    }
+    auto row_it0 = [&] { return kDbias ? *it0_s : 0; };
+    for (int t = first; kSkip ? it == row_it0() || t < ntiles : t < ntiles;
          t = kSkip ? next[it & 1] : t + 1, ++it) {
       int tn = t + 1;                    // kSkip: the next tile visited
       if constexpr (kSkip) {
-        tn = next_tile(summary(), ng, t, ntiles, bn, ranges[0]);
+        tn = next_tile(summary(b), ng, t, ntiles, bn, ranges[0]);
         next[it & 1] = tn;             // every thread writes the same tile
       }
       const int sl = it & 1;
       mma::cp_async_wait_all();
       __syncthreads();                   // tile landed; the last consumed
-      // the next KV tile (this row's, or the next row's first) overlaps
-      // this tile's compute; K4 issues it at once, K2 (whose second slot
-      // lies over g32 and o32) once the row's fragments are built
+      // the next KV tile (this row's, or the next row's first visited)
+      // overlaps this tile's compute; K4 issues it at once, K2 (whose
+      // second slot lies over g32 and o32) once the row's fragments are
+      // built
       auto issue_next = [&] {
-        if ((kSkip ? tn : t + 1) < ntiles)
+        if ((kSkip ? tn : t + 1) < ntiles) {
           issue_kv(b, kSkip ? tn : t + 1, sl ^ 1);
-        else if (kDbias && b + 1 < b1)
-          issue_kv(b + 1, 0, sl ^ 1);
+        } else if (kDbias && b + 1 < b1) {
+          int f = 0;
+          if constexpr (kSkip) {         // every warp finds the same tile
+            f = next_tile(summary(b + 1), ng, -1, ntiles, bn,
+                          span(summary(b + 1), ng, q0, rows));
+            *first_s = f;
+          }
+          if (!kSkip || f < ntiles)
+            issue_kv(b + 1, f, !kSkip || t < ntiles ? sl ^ 1 : sl);
+        }
       };
       if constexpr (kDbias) issue_next();
-      if (kSkip ? it == 0 : t == 0) {
+      if (kSkip ? it == row_it0() : t == 0) {
         // g to a hi + lo pair of bf16 fragments, once per element, and
         // delta = g.out in f32 from the same elements: the four lanes of a
         // quad hold rows lrow and lrow + 8 whole
@@ -1543,13 +1585,27 @@ __device__ __forceinline__ void dq_body(const Args& a) {
     // scale * dq through shared memory, then 16-byte stores into q's
     // strides: K2 through this warp's own q rows (no other warp reads
     // them), K4 through the last KV tile's slot once every warp is done
-    // with it (the q buffer may hold the next row's q). With the keys
-    // split, the second warp's dq goes through the slot in f32 first and
-    // is added to the first's, in that order.
+    // with it (the q buffer may hold the next row's q; with kSkip, the slot
+    // before `it`, which no fetch for the next row lies under). With the
+    // keys split, the second warp's dq goes through the slot in f32 first
+    // and is added to the first's, in that order.
     bf16* stage;
     if constexpr (kDbias) {
       bf16* last = ring((it - 1) & 1);
       __syncthreads();
+      // every warp is done with this row's q and ranges. With kSkip the
+      // next row's q is fetched now, not after the dq stores (a row that
+      // visits one tile or none waits for it), and its ranges go over this
+      // row's, published by the barriers below (split == 1 only with L <=
+      // 16, where the block is one warp: the one barrier here)
+      if constexpr (kSkip) {
+        if (b + 1 < b1) {
+          issue_q(b + 1);
+          mma::cp_async_commit();
+          row_ranges(summary(b + 1));
+        }
+        if (split == 1) __syncthreads();
+      }
       if (split == 2) {
         float* comb = reinterpret_cast<float*>(last) + rw * DT * 4 * 32;
         if (kh == 1) {
@@ -1591,7 +1647,7 @@ __device__ __forceinline__ void dq_body(const Args& a) {
               *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
       }
     }
-    if constexpr (kDbias) {              // q was read to the row's end
+    if constexpr (kDbias && !kSkip) {    // q was read to the row's end
       if (b + 1 < b1) {
         issue_q(b + 1);
         mma::cp_async_commit();
@@ -1819,22 +1875,25 @@ extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
 // K4 for bf16 q/k/v, on the tensor cores: dq (bf16), delta [B,H,L] f32 for
 // K3, and dbias [H,L,S] f32, through the scratch `part` [ceil(B / group),
 // H, L, S] f32. Alignment as K2's; S at most tcq::kMaxBiasKeys (the
-// wrapper sends a longer S to the f32 kernel).
+// wrapper sends a longer S to the f32 kernel). With `seg`, `summary` as
+// K2's.
 extern "C" int flash_bwd_dq_dbias_bf16(const void* q, const void* k,
                                        const void* v, const void* kv_mask,
                                        const void* bias, const void* seg,
-                                       const void* g, const void* out,
-                                       const void* lse, void* delta, void* dq,
-                                       void* part, void* dbias, int B, int H,
-                                       int L, int S, int Dh, float scale,
-                                       int group, const long long* strides,
+                                       const void* summary, const void* g,
+                                       const void* out, const void* lse,
+                                       void* delta, void* dq, void* part,
+                                       void* dbias, int B, int H, int L,
+                                       int S, int Dh, float scale, int group,
+                                       const long long* strides,
                                        void* stream) {
   const int bad = check_shape(B, H, L, S, Dh, seg);
   if (bad) return bad;
   if (S > tcq::kMaxBiasKeys) return (int)cudaErrorInvalidValue;
+  if (seg != nullptr && summary == nullptr) return (int)cudaErrorInvalidValue;
   if (group <= 0 || (B + group - 1) / group > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, seg, nullptr, g,
+  const tcq::Args a = tcq::make_args(q, k, v, kv_mask, bias, seg, summary, g,
                                      out, lse, delta, dq, part, B, H, L, S,
                                      Dh, scale, group, strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1901,20 +1960,24 @@ static void dkv_tiles(int L, int S, bool bias, int* bm, int* keys) {
             : (L >= tc::kMaxRows ? tc::kMaxRows : (L + 15) / 16 * 16);
 }
 
-// The tiles the bf16 K3 (with the bias when `bias` is 1) and K2 take at
-// this shape, as (query rows, keys): tiles[0], tiles[1] K3's Q tile and
-// key block; tiles[2], tiles[3] K2's Q tile and KV tile. The seg
-// kernels' visit shares are counted on the host at these tiles.
+// The tiles the bf16 K3 (with the bias when `bias` is 1), K2 and K4 take
+// at this shape, as (query rows, keys): tiles[0], tiles[1] K3's Q tile and
+// key block; tiles[2], tiles[3] K2's Q tile and KV tile; tiles[4],
+// tiles[5] K4's. The seg kernels' visit shares are counted on the host at
+// these tiles.
 extern "C" void flash_bwd_tc_tiles(int L, int S, int bias, int* tiles) {
   dkv_tiles(L, S, bias != 0, &tiles[0], &tiles[1]);
   const long long strides[21] = {};
-  const tcq::Args a = tcq::make_args(nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, 1, 1, L, S, 64, 1.f, 1,
-                                     strides);
-  tiles[2] = a.rows;
-  tiles[3] = a.bn;
+  for (int k4 = 0; k4 < 2; ++k4) {
+    // only the bias pointer's presence counts here
+    const tcq::Args a = tcq::make_args(nullptr, nullptr, nullptr, nullptr,
+                                       k4 ? strides : nullptr, nullptr,
+                                       nullptr, nullptr, nullptr, nullptr,
+                                       nullptr, nullptr, nullptr, 1, 1, L, S,
+                                       64, 1.f, 1, strides);
+    tiles[2 + 2 * k4] = a.rows;
+    tiles[3 + 2 * k4] = a.bn;
+  }
 }
 
 // K3 for bf16 q/k/v, on the tensor cores: dk and dv (bf16), reading the

@@ -20,14 +20,14 @@ gradient of the forward above (dv gets g/S for every key, and the row
 adds nothing to dq, dk or dbias), not the TPU kernels' p = 1. All four
 take the packed pages' segment ids ``seg`` (sequence packing); a pad row
 of a packed row (seg 0) sees no key, so it is such a fully masked row.
-With segment ids the bf16 K1, K2 and K3 visit only the tiles that share a
-segment: in the forward a small kernel first writes each batch row's
-segment summary (``seg_summary``: the range of segment ids > 0 in every
-16 positions), which the backward takes over, and the mean of V over
-every key (``value_mean``), which K1 writes at its fully masked rows
-instead of visiting every KV tile for them; in the backward another
-writes the sum of g over the fully masked rows (``dead_rows_sum``), whose
-dv term K3 adds once instead of visiting every Q tile for it.
+With segment ids the bf16 K1, K2, K3 and K4 visit only the tiles that
+share a segment: in the forward a small kernel first writes each batch
+row's segment summary (``seg_summary``: the range of segment ids > 0 in
+every 16 positions), which the backward takes over, and the mean of V
+over every key (``value_mean``), which K1 writes at its fully masked
+rows instead of visiting every KV tile for them; in the backward another
+writes the sum of g over the fully masked rows (``dead_rows_sum``),
+whose dv term K3 adds once instead of visiting every Q tile for it.
 
 Routing is by the tensors' device: a CUDA tensor goes to a kernel (or
 the wrapper raises), a CPU tensor goes to the plain version
@@ -188,16 +188,18 @@ def tile_shapes(L: int, S: int, bias: bool) -> dict:
     """The tiles the bf16 kernels take at this shape, as csrc/flash_fwd.cu
     and csrc/flash_bwd.cu choose them (``kernel_tile_shapes`` reads the
     libraries' choice; the two are held equal on the card): {"k1": (query
-    rows, keys) of K1's Q tile and KV tile, "k2": the same of K2's, "k3":
-    (query rows, keys) of K3's Q tile and key block}; K2 is absent with a
-    bias (K4 replaces it)."""
+    rows, keys) of K1's Q tile and KV tile, "k2": the same of K2's (absent
+    with a bias), "k4": of K4's (with a bias only: K4 replaces K2), "k3":
+    (query rows, keys) of K3's Q tile and key block}."""
     k3_rows = 32 if bias and L > 32 else (64 if L >= 64 else -(-L // 16) * 16)
     k1_keys = 32 if bias and S > 32 else (64 if S >= 64 else -(-S // 16) * 16)
     shapes = {"k1": (16 if L <= 16 else (32 if L <= 32 else 64), k1_keys),
               "k3": (k3_rows, 16 if S <= 16 else (32 if S <= 32 else 64))}
-    if not bias:
-        shapes["k2"] = (16 if L <= 16 else (32 if L <= 32 else 64),
-                        16 if S <= 16 else 32)
+    dq_keys = 16 if S <= 16 else 32
+    if bias:
+        shapes["k4"] = (16 if L <= 16 else 32, dq_keys)
+    else:
+        shapes["k2"] = (16 if L <= 16 else (32 if L <= 32 else 64), dq_keys)
     return shapes
 
 
@@ -476,7 +478,7 @@ def _bwd_library():
                             (lib.flash_bwd_dq_f32, 10, tail),
                             (lib.flash_bwd_dkv_bf16, 13, tail),
                             (lib.flash_bwd_dkv_f32, 11, tail),
-                            (lib.flash_bwd_dq_dbias_bf16, 13, tail + [I]),
+                            (lib.flash_bwd_dq_dbias_bf16, 14, tail + [I]),
                             (lib.flash_bwd_dq_dbias_f32, 13, tail + [I])):
         if fn.argtypes is None:
             fn.argtypes = [P] * nptr + tail_ + [strides, P]
@@ -490,7 +492,7 @@ def _bwd_library():
         fn.argtypes = [P] * 3 + [I] * 4 + [strides, P]
         fn.restype = I
     fn = lib.flash_bwd_tc_tiles
-    if fn.argtypes is None:      # L, S, bias, tiles[4]
+    if fn.argtypes is None:      # L, S, bias, tiles[6]
         fn.argtypes = [I] * 3 + [ctypes.POINTER(I)]
         fn.restype = None
     return lib
@@ -499,12 +501,14 @@ def _bwd_library():
 def kernel_tile_shapes(L: int, S: int, bias: bool) -> dict:
     """``tile_shapes`` as the compiled libraries choose the tiles (it needs
     the CUDA build)."""
-    tiles = (ctypes.c_int * 4)()
+    tiles = (ctypes.c_int * 6)()
     _library().flash_fwd_tc_tiles(L, S, int(bias), tiles)
     shapes = {"k1": (tiles[0], tiles[1])}
     _bwd_library().flash_bwd_tc_tiles(L, S, int(bias), tiles)
     shapes["k3"] = (tiles[0], tiles[1])
-    if not bias:
+    if bias:
+        shapes["k4"] = (tiles[4], tiles[5])
+    else:
         shapes["k2"] = (tiles[2], tiles[3])
     return shapes
 
@@ -594,7 +598,8 @@ def launch_dq(q, k, v, kv_mask, g, out, lse, seg=None, summary=None
     return dq, delta
 
 
-def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse, seg=None
+def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse, seg=None,
+                    summary=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 on the current stream (CUDA tensors only): (dq in q's dtype,
     laid out like q; delta [B,H,L] f32 for K3; dbias [H,L,S] f32). Its
@@ -603,7 +608,9 @@ def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse, seg=None
     bitwise equal from run to run. bf16 q/k/v with S up to
     MAX_TC_DBIAS_KEYS take the tensor-core kernel; f32 q/k/v, and bf16
     ones over more keys (as f32 copies, dq rounded back to bf16), the
-    CUDA-core one. `seg` as in ``launch_dq``."""
+    CUDA-core one. `seg` and `summary` as in ``launch_dq``: with `seg` the
+    tensor-core kernel visits, for each batch row, only the KV tiles that
+    share a segment with its Q tile, and requires the summary."""
     lib = _bwd_library()
     B, H, L = q.shape[:3]
     S = k.shape[2]
@@ -611,6 +618,9 @@ def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse, seg=None
     tensor_cores = dtype == torch.bfloat16 and S <= MAX_TC_DBIAS_KEYS
     if tensor_cores:
         q, k, v, g = (_aligned16(t) for t in (q, k, v, g))
+        if seg is not None and summary is None:
+            raise ValueError("launch_dq_dbias: bf16 q/k/v with seg need the "
+                             "segment summary (launch_seg_summary)")
     elif dtype == torch.bfloat16:
         q, k, v = q.float(), k.float(), v.float()
     dq = torch.empty_like(q)
@@ -624,13 +634,16 @@ def launch_dq_dbias(q, k, v, kv_mask, bias, g, out, lse, seg=None
                        device=q.device)
     dbias = torch.empty((H, L, S), dtype=torch.float32, device=q.device)
     strides = _bwd_strides(q, k, v, g, dq, k, v)
+    # the bf16 kernel also takes the summary
+    extra = (_ptr(summary),) if tensor_cores else ()
     fn = (lib.flash_bwd_dq_dbias_bf16 if tensor_cores
           else lib.flash_bwd_dq_dbias_f32)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-                 bias_f.data_ptr(), _ptr(seg_i), g.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 part.data_ptr(), dbias.data_ptr(), *_bwd_common(q, k),
+                 bias_f.data_ptr(), _ptr(seg_i), *extra, g.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), part.data_ptr(), dbias.data_ptr(),
+                 *_bwd_common(q, k),
                  DBIAS_GROUP, strides,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -704,9 +717,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out``, given the forward's out and lse (and its segment ids and
     segment summary, if it had them). CUDA tensors launch K2 then K3, or
     with a bias K4 then K3, on the current stream; with segment ids and
-    bf16 q/k/v, the dead rows' g sum first, which K3 takes, and K2 and K3
-    take `summary` (the segment summary kernel runs first when it is not
-    given). CPU tensors take the plain version ``reference_backward``."""
+    bf16 q/k/v, the dead rows' g sum first, which K3 takes, and K2 (or
+    K4) and K3 take `summary` (the segment summary kernel runs first when
+    it is not given). CPU tensors take the plain version
+    ``reference_backward``."""
     _check(q, k, v, kv_mask, bias, seg)
     want = (q.shape[0], q.shape[1], q.shape[2])
     if g.shape != q.shape or out.shape != q.shape or lse.shape != want:
@@ -731,7 +745,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dbias = None
     else:
         dq, delta, dbias = launch_dq_dbias(q, k, v, kv_mask, bias, g, out,
-                                           lse, seg)
+                                           lse, seg, summary)
         dbias = dbias.to(bias.dtype)
     dk, dv = launch_dkv(q, k, v, kv_mask, g, lse, delta, bias, seg, summary,
                         gdead)

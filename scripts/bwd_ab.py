@@ -2,7 +2,8 @@
 """Time of the port's flash-attention kernels, compared across source
 trees on one GPU.
 
-    python3 scripts/bwd_ab.py TREE [TREE ...] [--train-seg PATH] [--out PATH]
+    python3 scripts/bwd_ab.py TREE [TREE ...] [--train-seg PATH]
+        [--train-seg-mt5 PATH] [--out PATH]
 
 For each TREE, in the order given (for two versions A and B: A B B A), one
 process imports ``dnn_page_vectors_tpu_torch`` from TREE (its kernels build
@@ -38,8 +39,13 @@ bf16 q/k/v with ragged padding:
   ids at bert_long_sp's packed shape, B=256 rows, H=8, L=S=1024, Dh=64,
   4 pages a row (kv_mask = seg > 0, as the towers pass it);
 * ``k4_seg_ms``, ``k3_bias_seg_ms``: K4 and the biased K3 with segment ids
-  at mT5's packed shape, B=512 rows, H=12, L=S=128, Dh=64, 4 pages a row.
-  A tree whose wrappers take no segment ids records None for these;
+  at mT5's packed shape, B=512 rows, H=12, L=S=128, Dh=64, 4 pages a row;
+  K4 takes the segment summary in a tree whose K4 takes one (its skipping
+  kernel), none in an older tree. A tree whose wrappers take no segment
+  ids records None for these;
+* ``k4_seg_train_ms``, ``k3_bias_seg_train_ms``: the same at the segment
+  ids of ``--train-seg-mt5`` (a [512, 128] int32 tensor; chip_smoke.py
+  saves the packed mT5 cell's first batch), None without the option;
 * ``k1_seg_train_ms``, ``k2_seg_train_ms``, ``k3_seg_train_ms``: K1, K2
   and K3 at bert_long_sp's packed shape with the segment ids of
   ``--train-seg`` (a [256, 1024] int32 tensor saved with torch.save;
@@ -62,9 +68,11 @@ bf16 q/k/v with ragged padding:
 
 Each run also hashes K2's dq with segment ids at both layouts, -0 taken
 as +0, and the summary line says whether every run gave the same dq
-(``k2_seg_dq_equal``); and K1's out and lse with segment ids at the rows
+(``k2_seg_dq_equal``); K1's out and lse with segment ids at the rows
 that see a key (lse > -1e29), at both layouts and at mT5's packed shape,
--0 taken as +0 (``k1_seg_out_equal``).
+-0 taken as +0 (``k1_seg_out_equal``); and K4's dq with segment ids, -0
+taken as +0, and its dbias bit for bit, at both of mT5's layouts
+(``k4_seg_equal``).
 
 Prints one JSON line per tree, the card's name and power limit
 (nvidia-smi), and a summary line; ``--out`` also writes all of it as JSON.
@@ -90,9 +98,12 @@ PACK = 4
 SEG_KEYS = ("k1_seg_ms", "k2_seg_ms", "k3_seg_ms", "k4_seg_ms",
             "k3_bias_seg_ms", "k1_seg_train_ms", "k2_seg_train_ms",
             "k3_seg_train_ms", "k1_seg_mt5_ms", "k23_seg_ms",
-            "k23_seg_train_ms", "seg_summary_ms", "gdead_ms")
+            "k23_seg_train_ms", "seg_summary_ms", "gdead_ms",
+            "k4_seg_train_ms", "k3_bias_seg_train_ms")
 DQ_DIGESTS = ("k2_seg_dq", "k2_seg_train_dq")
 OUT_DIGESTS = ("k1_seg_out", "k1_seg_train_out", "k1_seg_mt5_out")
+K4_DIGESTS = ("k4_seg_dq", "k4_seg_dbias", "k4_seg_train_dq",
+              "k4_seg_train_dbias")
 KEYS = ("k2_ms", "k3_ms", "k1_bert_ms", "k1_mt5_ms", "k4_ms", "k3_bias_ms",
         "k2_query_ms", "k4_query_ms") + SEG_KEYS
 
@@ -154,12 +165,15 @@ def _packed(B, L, gen, device):
     return seg, seg > 0
 
 
-def _digest(*tensors) -> str:
-    """sha1 of the tensors' bytes with every -0 taken as +0."""
+def _digest(*tensors, signed_zeros: bool = False) -> str:
+    """sha1 of the tensors' bytes with every -0 taken as +0 (kept apart
+    with `signed_zeros`: bit for bit)."""
     import torch
     h = hashlib.sha1()
     for t in tensors:
-        t = torch.where(t == 0, torch.zeros_like(t), t).contiguous()
+        if not signed_zeros:
+            t = torch.where(t == 0, torch.zeros_like(t), t)
+        t = t.contiguous()
         h.update(t.view(torch.int16 if t.element_size() == 2 else torch.int32)
                  .cpu().numpy().tobytes())
     return h.hexdigest()
@@ -225,7 +239,43 @@ def _seg_cases(fa, timed, rec, gen, device, train_seg) -> None:
         del out, lse, delta
 
 
-def worker(tree: str, train_seg_path=None) -> dict:
+def _mt5_seg_cases(fa, timed, rec, gen, device, train_seg) -> None:
+    """K1, K4 and the biased K3 with segment ids at mT5's packed shape, at
+    _packed's layout and (with `train_seg`) at the training batch's; K4
+    takes the segment summary in a tree whose K4 takes one."""
+    import torch
+    q, k, v, g, _, bias = _inputs(**MT5_PACKED, gen=gen, device=device,
+                                  bias=True)
+    seg, mask = _packed(MT5_PACKED["B"], MT5_PACKED["L"], gen, device)
+    layouts = [("", seg, mask)]
+    if train_seg is not None:
+        tseg = train_seg.to(device, torch.int32)
+        layouts.append(("_train", tseg, tseg > 0))
+    k4_summary = "summary" in inspect.signature(fa.launch_dq_dbias).parameters
+    for suffix, seg, mask in layouts:
+        if not suffix:
+            timed("k1_seg_mt5_ms",
+                  lambda: fa.flash_forward(q, k, v, mask, bias, seg))
+        out, lse = fa.flash_forward(q, k, v, mask, bias, seg)
+        if not suffix:
+            rec["out_digest"]["k1_seg_mt5_out"] = _out_digest(out, lse)
+        extra_dq, extra_dkv, _ = _summaries(fa, seg, mask, v, lse, g)
+        extra_k4 = extra_dq if k4_summary else ()
+        dq, delta, dbias = fa.launch_dq_dbias(q, k, v, mask, bias, g, out,
+                                              lse, seg, *extra_k4)
+        rec["k4_digest"][f"k4_seg{suffix}_dq"] = _digest(dq)
+        rec["k4_digest"][f"k4_seg{suffix}_dbias"] = _digest(
+            dbias, signed_zeros=True)
+        del dq, dbias
+        timed(f"k4_seg{suffix}_ms", lambda: fa.launch_dq_dbias(
+            q, k, v, mask, bias, g, out, lse, seg, *extra_k4))
+        timed(f"k3_bias_seg{suffix}_ms", lambda: fa.launch_dkv(
+            q, k, v, mask, g, lse, delta, bias, seg, *extra_dkv))
+        del out, lse, delta
+
+
+def worker(tree: str, train_seg_path=None, train_seg_mt5_path=None
+           ) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import dnn_page_vectors_tpu_torch as pkg
@@ -234,7 +284,8 @@ def worker(tree: str, train_seg_path=None) -> dict:
         raise AssertionError(f"imported {pkg.__file__}, not from {tree}")
     device = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
-    rec = {"tree": tree, "device_ms": {}, "dq_digest": {}, "out_digest": {}}
+    rec = {"tree": tree, "device_ms": {}, "dq_digest": {}, "out_digest": {},
+           "k4_digest": {}}
 
     def timed(key, fn):
         rec[key] = _event_ms(fn)
@@ -275,25 +326,14 @@ def worker(tree: str, train_seg_path=None) -> dict:
             rec["dq_digest"][key] = None
         for key in OUT_DIGESTS:
             rec["out_digest"][key] = None
+        for key in K4_DIGESTS:
+            rec["k4_digest"][key] = None
         if "seg" in inspect.signature(fa.launch_dq).parameters:
-            train_seg = (None if train_seg_path is None
-                         else torch.load(train_seg_path))
-            _seg_cases(fa, timed, rec, gen, device, train_seg)
+            load = lambda path: None if path is None else torch.load(path)
+            _seg_cases(fa, timed, rec, gen, device, load(train_seg_path))
             torch.cuda.empty_cache()
-            q, k, v, g, _, bias = _inputs(**MT5_PACKED, gen=gen,
-                                          device=device, bias=True)
-            seg, mask = _packed(MT5_PACKED["B"], MT5_PACKED["L"], gen, device)
-            timed("k1_seg_mt5_ms",
-                  lambda: fa.flash_forward(q, k, v, mask, bias, seg))
-            out, lse = fa.flash_forward(q, k, v, mask, bias, seg)
-            rec["out_digest"]["k1_seg_mt5_out"] = _out_digest(out, lse)
-            _, delta, _ = fa.launch_dq_dbias(q, k, v, mask, bias, g, out,
-                                             lse, seg)
-            timed("k4_seg_ms", lambda: fa.launch_dq_dbias(
-                q, k, v, mask, bias, g, out, lse, seg))
-            extra = _summaries(fa, seg, mask, v, lse, g)[1]
-            timed("k3_bias_seg_ms", lambda: fa.launch_dkv(
-                q, k, v, mask, g, lse, delta, bias, seg, *extra))
+            _mt5_seg_cases(fa, timed, rec, gen, device,
+                           load(train_seg_mt5_path))
     rec["shapes"] = {"bert_train": BERT, "bert_embed": BERT_EMBED,
                      "mt5_page": MT5, "bert_query": BERT_QUERY,
                      "mt5_query": MT5_QUERY, "bert_long_packed": LONG_PACKED,
@@ -310,12 +350,18 @@ def main() -> int:
     ap.add_argument("--train-seg", default=None, metavar="PATH",
                     help="[256, 1024] int32 segment ids (torch.save) of the "
                          "training layout")
+    ap.add_argument("--train-seg-mt5", default=None, metavar="PATH",
+                    help="[512, 128] int32 segment ids (torch.save) of the "
+                         "packed mT5 training layout")
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.trees[0], args.train_seg)), flush=True)
+        print(json.dumps(worker(args.trees[0], args.train_seg,
+                                args.train_seg_mt5)), flush=True)
         return 0
     runs = []
     extra = [] if args.train_seg is None else ["--train-seg", args.train_seg]
+    if args.train_seg_mt5 is not None:
+        extra += ["--train-seg-mt5", args.train_seg_mt5]
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
@@ -336,14 +382,16 @@ def main() -> int:
     for tree, row in summary.items():
         row["device_ms"] = {key: [r["device_ms"][key] for r in runs
                                   if r["tree"] == tree] for key in KEYS}
-    # every run that has K2 (K1) with seg at a layout gave the same dq (out
-    # and lse at the rows that see a key) there
+    # every run that has K2 (K1, K4) with seg at a layout gave the same dq
+    # (out and lse at the rows that see a key; dq and dbias) there
     same = lambda field, key: len({r[field][key] for r in runs
                                    if r[field][key] is not None}) <= 1
     equal = {key: same("dq_digest", key) for key in DQ_DIGESTS}
     out_equal = {key: same("out_digest", key) for key in OUT_DIGESTS}
+    k4_equal = {key: same("k4_digest", key) for key in K4_DIGESTS}
     last = {"summary": summary, "k2_seg_dq_equal": equal,
-            "k1_seg_out_equal": out_equal, "nvidia_smi": smi}
+            "k1_seg_out_equal": out_equal, "k4_seg_equal": k4_equal,
+            "nvidia_smi": smi}
     print(json.dumps(last), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -238,7 +238,19 @@ def _layout_seg(layout, B, L, pack=4, seed=0):
     pad), "one_segment" (one segment over the whole row: every tile
     visited), "tail_segment" (pad, then one segment over the last 300
     positions: a Q tile's first KV tile, and a key block's first Q tile,
-    lie more than 32 tiles on, past one warp's search)."""
+    lie more than 32 tiles on, past one warp's search), "short_pages"
+    (`pack` pages of 1 to 24 tokens, as the packed mT5 cell's 20-word
+    pages: at L = 128 the last 32-row Q tile of every row is pad, so K4
+    visits no KV tile for it)."""
+    if layout == "short_pages":
+        g = torch.Generator().manual_seed(seed)
+        lens = torch.randint(1, 25, (B, pack), generator=g)
+        ends = lens.cumsum(1)
+        seg = (torch.arange(L)[None, :, None] >= ends[:, None, :]).sum(-1) + 1
+        seg[seg > pack] = 0
+        seg[-1] = 0
+        seg = seg.to(torch.int32)
+        return seg, seg > 0
     if layout == "tail_segment":
         seg = torch.zeros(B, L, dtype=torch.int32)
         seg[:-1, L - 300:] = 3
@@ -296,6 +308,8 @@ SEG_CASES = {
     "unaligned_bias_bf16": dict(L=53, dtype=torch.bfloat16, bias=True,
                                 unaligned=True),
     "odd_batch_bias_bf16": dict(B=11, dtype=torch.bfloat16, bias=True),
+    "L16_bias_bf16": dict(B=8, L=16, dtype=torch.bfloat16, bias=True,
+                          pack=2),
     "packed_f32": dict(L=130, strided=True),
     "packed_bias_f32": dict(B=11, L=53, bias=True),
     "dh128_f32": dict(Dh=128, L=70),
@@ -311,10 +325,21 @@ SEG_CASES = {
                                      bias=True, layout="masked_segment"),
     "all_pad_bf16": dict(B=6, H=4, L=192, dtype=torch.bfloat16,
                          layout="all_pad"),
+    "all_pad_bias_bf16": dict(B=6, H=4, L=192, dtype=torch.bfloat16,
+                              bias=True, layout="all_pad"),
     "one_segment_bf16": dict(B=3, H=4, L=256, dtype=torch.bfloat16,
                              layout="one_segment"),
+    "one_segment_bias_bf16": dict(B=3, H=4, L=256, dtype=torch.bfloat16,
+                                  bias=True, layout="one_segment"),
+    # K4's pad tails: whole Q tiles that visit nothing, in a batch of 19
+    # rows (groups of 8, 8 and 3)
+    "short_pages_bias_bf16": dict(B=19, H=12, L=128, dtype=torch.bfloat16,
+                                  bias=True, strided=True,
+                                  layout="short_pages"),
     "ragged_L203_bf16": dict(B=5, H=4, L=203, dtype=torch.bfloat16),
     "ragged_L203_bias_bf16": dict(B=5, H=4, L=203, dtype=torch.bfloat16,
+                                  bias=True),
+    "ragged_L451_bias_bf16": dict(B=5, H=4, L=451, dtype=torch.bfloat16,
                                   bias=True),
     "masked_segment_f32": dict(B=5, H=2, L=96, layout="masked_segment"),
     "tail_segment_bf16": dict(B=3, H=2, L=2400, dtype=torch.bfloat16,
@@ -370,15 +395,16 @@ def test_seg_bwd_kernels_match_plain_version(cuda_device, case):
                                  (1024, 1024)])
 def test_tile_shapes_are_the_librarys(cuda_device, L, S, bias):
     """tile_shapes, which the CPU tests of the visit rule take, is the
-    tiles the compiled K2 and K3 choose."""
+    tiles the compiled K1, K2, K3 and (with the bias) K4 choose."""
     assert fa.tile_shapes(L, S, bias) == fa.kernel_tile_shapes(L, S, bias)
 
 
 @pytest.mark.cuda
 def test_seg_launchers_require_the_summary(cuda_device):
-    """The bf16 K1, K2 and K3 with seg raise without launch_seg_summary's
-    summary (and K1 without its vmean, K3 without launch_dead_rows_sum's
-    gdead): they never launch those kernels themselves."""
+    """The bf16 K1, K2, K4 and K3 with seg raise without
+    launch_seg_summary's summary (and K1 without its vmean, K3 without
+    launch_dead_rows_sum's gdead): they never launch those kernels
+    themselves."""
     x, g, out, lse = _seg_backward_inputs(cuda_device, B=3, H=2, L=64,
                                           dtype=torch.bfloat16)
     q, k, v, mask, seg = x["q"], x["k"], x["v"], x["kv_mask"], x["seg"]
@@ -396,8 +422,21 @@ def test_seg_launchers_require_the_summary(cuda_device):
         with pytest.raises(ValueError, match="summary"):
             fa.launch_dkv(q, k, v, mask, g, lse, delta, None, seg, *extra)
     fa.launch_dkv(q, k, v, mask, g, lse, delta, None, seg, summary, gdead)
+    bias = torch.randn(q.shape[1], q.shape[2], k.shape[2], device=q.device)
+    with pytest.raises(ValueError, match="summary"):
+        fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse, seg)
+    fa.launch_dq_dbias(q, k, v, mask, bias, g, out, lse, seg, summary)
     assert (fa.seg_summary_launches, fa.gdead_launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [False, True], ids=["k4", "k4_seg"])
+def test_k4_holds_3_blocks_an_sm_at_mt5s_shape(cuda_device, seg):
+    """K4 (and with segment ids, its skip state in shared memory) fits 3
+    blocks of 4 warps on an SM at mT5's page shape, L = S = 128, Dh = 64:
+    at most 168 registers a thread and 74 KB of shared memory a block."""
+    assert fa.dq_blocks_per_sm(True, seg, 128, 128, 64, cuda_device) == 3
 
 
 @pytest.mark.cuda
@@ -430,9 +469,10 @@ def test_seg_summary_kernel_matches_plain_version(cuda_device, layout, L):
     dict(), dict(bias=True), dict(layout="interleaved"),
     dict(layout="masked_segment", bias=True), dict(layout="all_pad"),
     dict(layout="one_segment"), dict(L=203), dict(L=203, bias=True),
+    dict(layout="short_pages", bias=True), dict(L=16, bias=True, pack=2),
 ], ids=["k2_k3", "k4_k3", "k2_k3_interleaved", "k4_k3_masked_segment",
         "k2_k3_all_pad", "k2_k3_one_segment", "k2_k3_ragged_L203",
-        "k4_k3_ragged_L203"])
+        "k4_k3_ragged_L203", "k4_k3_short_pages", "k4_k3_L16"])
 def test_seg_bwd_kernels_are_bitwise_deterministic(cuda_device, case):
     x, g, out, lse = _seg_backward_inputs(
         cuda_device, **{**dict(B=19, H=8, L=128, dtype=torch.bfloat16,

@@ -1,4 +1,4 @@
-"""The tile skip of the bf16 K1, K2 and K3 with segment ids
+"""The tile skip of the bf16 K1, K2, K3 and K4 with segment ids
 (ops/flash_attention.py: ``seg_summary``, ``visited_tiles``,
 ``tile_shapes``, ``value_mean``, ``dead_rows_sum``), on the CPU.
 
@@ -12,9 +12,10 @@ gdead / S. Here, on numpy-seeded inputs:
     ids, interleaved and reused ids, an all-pad row and L not a multiple
     of 16;
 (b) under the kernels' visit rule, at K1's (with and without the bias),
-    K2's and K3's tiles and at 16 x 16, every allowed pair (l, s) -- a
-    real key of the row's own segment > 0, the mask of the JAX package's
-    ``reference_attention`` -- lies in a visited tile and chunk;
+    K2's, K4's and K3's tiles and at 16 x 16, every allowed pair (l, s) --
+    a real key of the row's own segment > 0, the mask of the JAX
+    package's ``reference_attention`` -- lies in a visited tile and
+    chunk;
 (c) attention over the keys of K1's visited tiles only, with the dead
     rows' out taken from value_mean and their lse set to -1e30 + log(S),
     gives the JAX package's ``reference_attention`` with segment ids (out)
@@ -27,7 +28,17 @@ gdead / S. Here, on numpy-seeded inputs:
     pad rows and a segment whose keys are all masked;
 (e) chip_smoke.py's bounds count the allowed pairs, the rows that see a
     key, the keys a row sees and the keys whose v K1 reads as a brute
-    force counts them.
+    force counts them;
+(f) K4 with segment ids, emulated in f32 as the kernel walks its work --
+    each group of DBIAS_GROUP batch rows in order, each row over the KV
+    tiles its Q tile visits only, each warp over its 16 rows and its
+    16-key half of a tile, skipping chunks that miss its rows -- gives
+    the dq and dbias of ``jax.grad`` of the JAX package's
+    ``reference_attention`` with the bias and segment ids, in f32 at 1e-4
+    relative + 1e-5 absolute, with pad tails whose Q tile visits no KV
+    tile, an all-pad batch row and 11 batch rows (a group of 8 and one of
+    3). dbias is held to ``jax.grad``, not to the Pallas backward, which
+    is wrong at fully masked rows (every pad row of a packed row is one).
 
 tests/test_torch_kernels_cuda.py holds the kernels themselves to the
 plain versions on the card."""
@@ -107,8 +118,8 @@ def _allowed(seg: np.ndarray, mask: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("name,L", LAYOUTS,
                          ids=[f"{n}_L{L}" for n, L in LAYOUTS])
-@pytest.mark.parametrize("tiles", ["k1", "k1_bias", "k2", "k3", "k3_bias",
-                                   "chunks"])
+@pytest.mark.parametrize("tiles", ["k1", "k1_bias", "k2", "k4_bias", "k3",
+                                   "k3_bias", "chunks"])
 def test_visit_rule_covers_every_allowed_pair(name, L, tiles):
     seg = _layout(name, 6, L, seed=L)
     mask = seg > 0
@@ -281,3 +292,93 @@ def test_dead_rows_out_of_the_loop_give_jax_grad_dv(bias):
     dead = (lse <= fa.MASKED_ROW_LSE).numpy()
     assert dead[0, :, -6:].all() and dead[1][:, seg[1] == 2].all()
     np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+def _k4_with_the_skip(q, k, v, mask, g, out, lse, bias, seg):
+    """(dq, dbias) in f32 as K4 with segment ids forms them: the blocks of
+    a Q tile (``tile_shapes``' K4 tile) run the batch rows of each group
+    of DBIAS_GROUP in order, each row over the KV tiles its Q tile visits
+    (``visited_tiles``) only; in each, the warps of 16 rows take a 16-key
+    half of the tile each and skip it when the 16 x 16 chunk is not
+    visited; ds = p (dp - delta) at the allowed pairs of the rows that see
+    a key, dq += ds k, and ds goes into the group's partial dbias, the
+    partials summed in group order. Returns also the tiles visited."""
+    B, H, L, Dh = q.shape
+    rows, keys = fa.tile_shapes(L, L, True)["k4"]
+    summary = fa.seg_summary(seg)
+    visited = fa.visited_tiles(summary, rows, keys)
+    chunks = fa.visited_tiles(summary, 16, 16)
+    allowed = fa.allowed_pairs(mask, seg)[:, 0]               # [B, L, S]
+    live = lse > fa.MASKED_ROW_LSE                            # [B, H, L]
+    delta = (g * out).sum(-1)
+    scale = 1.0 / Dh ** 0.5
+    dq = torch.zeros(B, H, L, Dh)
+    dbias = torch.zeros(H, L, L)
+    for b0 in range(0, B, fa.DBIAS_GROUP):
+        part = torch.zeros(H, L, L)
+        for b in range(b0, min(B, b0 + fa.DBIAS_GROUP)):
+            for qt, kt in visited[b].nonzero().tolist():
+                for r0 in range(qt * rows, min(L, qt * rows + rows), 16):
+                    for c0 in range(kt * keys, min(L, kt * keys + keys), 16):
+                        if not chunks[b, r0 // 16, c0 // 16]:
+                            continue     # the warp skips its half
+                        r, c = slice(r0, r0 + 16), slice(c0, c0 + 16)
+                        s = (torch.einsum("hld,hsd->hls", q[b, :, r],
+                                          k[b, :, c]) * scale + bias[:, r, c])
+                        p = torch.exp(s - lse[b, :, r, None])
+                        dp = torch.einsum("hld,hsd->hls", g[b, :, r],
+                                          v[b, :, c])
+                        ok = allowed[b, r, c][None] & live[b, :, r, None]
+                        ds = torch.where(ok, p * (dp - delta[b, :, r, None]),
+                                         torch.zeros_like(p))
+                        part[:, r, c] += ds
+                        dq[b, :, r] += torch.einsum("hls,hsd->hld", ds,
+                                                    k[b, :, c])
+        dbias += part
+    return dq * scale, dbias, visited
+
+
+# (layout, L, B): mT5's packed page (K4's 32 x 32 tiles; pad tails that a
+# whole Q tile lies in), the query tower's 16 x 16, a ragged L, and
+# interleaved ids; 11 batch rows, a group of 8 and one of 3, the last all
+# pad
+K4_LAYOUTS = [("packed", 128, 11), ("packed", 16, 11), ("packed", 53, 11),
+              ("interleaved", 96, 11)]
+
+
+@pytest.mark.parametrize("name,L,B", K4_LAYOUTS,
+                         ids=[f"{n}_L{L}" for n, L, _ in K4_LAYOUTS])
+def test_k4_over_visited_tiles_gives_jax_grad(name, L, B):
+    H, Dh = 2, 16
+    rng = np.random.default_rng(L + 9)
+    q, k, v, g = (rng.normal(size=(B, H, L, Dh)).astype(np.float32)
+                  for _ in range(4))
+    b_arr = rng.normal(size=(H, L, L)).astype(np.float32)
+    seg = _layout(name, B, L, seed=L)
+    mask = seg > 0
+    mask[0, ::5] = False          # masked keys inside live segments
+    t = torch.from_numpy
+    out, lse = fa.reference_forward(t(q), t(k), t(v), t(mask), t(b_arr),
+                                    t(seg))
+    dq, dbias, visited = _k4_with_the_skip(t(q), t(k), t(v), t(mask), t(g),
+                                           out, lse, t(b_arr), t(seg))
+    rows, keys = fa.tile_shapes(L, L, True)["k4"]
+    assert (rows, keys) == ((16, 16) if L <= 16 else (32, 32))
+
+    def loss(q_, b_):
+        o = jax_reference(q_, jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(mask), b_, jnp.asarray(seg))
+        return jnp.sum(o * jnp.asarray(g))
+    want_dq, want_db = jax.grad(loss, argnums=(0, 1))(jnp.asarray(q),
+                                                      jnp.asarray(b_arr))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq),
+                               err_msg="dq", **F32)
+    np.testing.assert_allclose(dbias.numpy(), np.asarray(want_db),
+                               err_msg="dbias", **F32)
+    # the all-pad row visits nothing; packed rows skip tiles, and at L=128
+    # some row's last Q tile (a pad tail) visits no KV tile at all
+    assert not visited[-1].any()
+    if name == "packed" and L >= 53:
+        assert visited.float().mean() < 0.75
+    if L == 128:
+        assert (~visited[:-1].any(-1)).any()
