@@ -67,7 +67,25 @@ Phases, each printing one JSON line:
   9. packed mT5 training: phase 7's config with train.pack_pages=4, 2,048
      toy pages of 20 words a step (512 rows of 128 tokens) over phase 6's
      vocab; K1, K4 and K3 launch 24 times a step, 12 of each with segment
-     ids and the bias.
+     ids and the bias;
+ 10. cdssm_toy (float32; trigram ids hashed by the Python tokenizer): its
+     whole 10,000-page corpus bulk embedded in batches of 512, then the
+     serving checks of phase 4; 6 steps of 256 pairs and the training
+     checks of phase 5; the same weights encode 512 pages on the card and
+     on the CPU (unit rows within 1e-5); a CDSSM trained on the card at
+     tests/test_e2e_cdssm_toy.py's overrides must reach Recall@10 > 0.5;
+ 11. kim_cnn_v5e8 (bf16): the 100,000-word vocab over the config's 1M-page
+     corpus (trained in the second process after the mT5 vocab), the
+     first 50,000 pages embedded, 6 steps of 4,096 pairs (the config's
+     batch, dropout 0.1); the checks of phase 10 (card vs CPU within
+     2e-2), and step times with and without cuDNN's deterministic
+     algorithms;
+ 12. lstm_words (bf16, one layer, H = 256): phase 11's corpus, vocab,
+     sizes and checks, and the recurrence's launches, device time and
+     host time per encode and per step (models/lstm.py lstm_pass alone,
+     by torch.profiler).
+No attention kernel runs in phases 10-12: every launch counter is read
+after each of their main paths and must be 0.
 The kernel checks also hold the segment (seg) variants of K1 (against
 the plain forward, and mean(V) at every row that sees no key) and of K2,
 K3 and K4 (against the plain backward), bf16 and f32, with seg at both
@@ -183,6 +201,33 @@ LONG_FLASH_DENSE_GRAD_TOL = 5e-2
 MT5_PACK_TRAIN_BATCH = 2_048
 MT5_PACK_PAGE_WORDS = 20
 MT5_PACK_PAGES = 16_384
+# Phases 10-12, the CDSSM, Kim-CNN and BiLSTM towers (no attention: every
+# flash kernel counter must read 0 there). cdssm_toy embeds its whole
+# corpus; the word configs train their 100,000-word vocab over their 1M-page
+# corpus (the scan stops early) and embed its first WORD_PAGES pages, cut
+# from 1M, and from 100,000 for the time limit (at 100,000 the three
+# phases took 194 s: the host makes only 3,000-5,000 toy pages a second);
+# each trains at its config's batch.
+# Their encodes on the card are held against the port on the CPU (unit
+# rows, ZOO_CPU_PAGES pages; TF32 is off, so f32 agrees to rounding), and
+# a CDSSM trained at tests/test_e2e_cdssm_toy.py's overrides must reach
+# its Recall@10 bar on the card.
+CDSSM = "cdssm_toy"
+KIM = "kim_cnn_v5e8"
+LSTM = "lstm_words"
+CDSSM_PAGES = 10_000
+WORD_VOCAB_PAGES = 1_000_000
+WORD_PAGES = 50_000
+ZOO_CPU_PAGES = 512
+ZOO_CPU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+E2E_CDSSM = {"data.num_pages": 600, "data.trigram_buckets": 4096,
+             "model.embed_dim": 64, "model.conv_channels": 128,
+             "model.out_dim": 64, "train.batch_size": 64, "train.steps": 80,
+             "train.warmup_steps": 10, "train.learning_rate": 2e-3,
+             "train.log_every": 40, "eval.eval_queries": 200,
+             "eval.embed_batch_size": 128}
+E2E_RECALL_BAR = 0.5
+TRANSFORMERS = ("bert", "t5")
 
 
 def emit(obj) -> None:
@@ -202,6 +247,32 @@ def reset_counts() -> None:
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     for name in fa.COUNTERS:
         setattr(fa, name, 0)
+
+
+def require_no_attention(phase: str) -> dict:
+    """Every kernel launch counter of the port, which must all read 0 after
+    a path without attention (the CDSSM, Kim-CNN and BiLSTM towers)."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    counts = {name: getattr(fa, name) for name in fa.COUNTERS}
+    if any(counts.values()):
+        raise AssertionError(f"{phase} launched attention kernels: "
+                             f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def widths(cfg) -> dict:
+    """The widths of Config `cfg`'s towers, by family."""
+    m = cfg.model
+    if m.encoder in TRANSFORMERS:
+        return {"attention": m.attention, "layers": m.num_layers,
+                "model_dim": m.model_dim, "heads": m.num_heads,
+                "mlp_dim": m.mlp_dim, "out_dim": m.out_dim}
+    out = {"encoder": m.encoder, "dtype": m.dtype, "embed_dim": m.embed_dim,
+           "out_dim": m.out_dim}
+    if m.encoder == "lstm":
+        return {**out, "layers": m.num_layers, "hidden_dim": m.model_dim}
+    return {**out, "conv_widths": list(m.conv_widths),
+            "conv_channels": m.conv_channels}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1209,12 +1280,25 @@ def check_seg_mt5_train(device, train_seg) -> dict:
                       "dbias": errs["dbias"], "dtype": "bfloat16"}}
 
 
+# kernel names (lower case) of cuDNN's convolutions and their layout
+# transposes, and of the embedding lookup (a gather) and its backward
+# (sort, segment sums)
+CONV_KERNELS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                "convolve", "nchwtonhwc", "nhwctonchw")
+EMBEDDING_KERNELS = ("embedding", "indexselect", "vectorized_gather",
+                     "radixsort", "grad_weight",
+                     "sum_and_scatter", "partial_segment",
+                     "partials_per_segment", "segment_offsets")
+
+
 def device_breakdown(fn, iters: int = 5) -> dict:
     """Device time of fn() by kernel class, from torch.profiler (CUPTI):
     per-call milliseconds of K1, K2, K3, K4, the segment summary kernel,
-    the dead rows' g sum, of matrix products, and of the rest; of those of
-    K1, K2, K3 and K4, the seg variants' share (their last template flag);
-    plus the six largest kernels by name."""
+    the dead rows' g sum, of convolutions (cuDNN), embedding lookups and
+    their backward, matrix products, and of the rest (elementwise); of
+    those of K1, K2, K3 and K4, the seg variants' share (their last
+    template flag); the kernels launched per call; plus the six largest
+    kernels by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1223,16 +1307,17 @@ def device_breakdown(fn, iters: int = 5) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
     kernels = [(e.key, e.self_device_time_total / 1e3 / iters)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               for e in events]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
     classes = {"k1_flash_fwd": 0.0, "k2_flash_bwd_dq": 0.0,
                "k3_flash_bwd_dkv": 0.0, "k4_flash_bwd_dq_dbias": 0.0,
-               "seg_summary": 0.0, "gdead": 0.0, "matmul": 0.0,
-               "other": 0.0}
+               "seg_summary": 0.0, "gdead": 0.0, "conv": 0.0,
+               "embedding": 0.0, "matmul": 0.0, "other": 0.0}
     seg = {"k1_seg": 0.0, "k2_seg": 0.0, "k3_seg": 0.0, "k4_seg": 0.0}
     for name, ms in kernels:
         low = name.lower()
@@ -1256,12 +1341,17 @@ def device_breakdown(fn, iters: int = 5) -> dict:
             classes["k2_flash_bwd_dq"] += ms
         elif "flash_bwd_dkv" in low:
             classes["k3_flash_bwd_dkv"] += ms
+        elif any(t in low for t in CONV_KERNELS):
+            classes["conv"] += ms
+        elif any(t in low for t in EMBEDDING_KERNELS):
+            classes["embedding"] += ms
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
             classes["matmul"] += ms
         else:
             classes["other"] += ms
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
     return {"device_ms_per_call": sum(ms for _, ms in kernels),
+            "launches_per_call": sum(e.count for e in events) / iters,
             "by_class_ms": classes, "seg_variants_ms": seg,
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
@@ -1285,16 +1375,18 @@ def train_tokenizers(cfg):
 
 
 def build_data(config: str, n_pages: int, tokenizers=None):
-    """The toy corpus of n_pages pages and the subword tokenizers trained
-    on it (the serving and training phases share them); `tokenizers` is
-    the result of train_tokenizers when it ran elsewhere."""
+    """The toy corpus of n_pages pages and the tokenizers of the config
+    (a trained vocab is trained on that corpus; the serving and training
+    phases share them); `tokenizers` is the result of train_tokenizers
+    when it ran elsewhere."""
     from dnn_page_vectors_tpu_torch.data.loader import build_corpus
     cfg = data_config(config, n_pages)
     corpus = build_corpus(cfg)
     q_tok, p_tok, tok_s = tokenizers or train_tokenizers(cfg)
-    if p_tok.vocab_size != cfg.data.vocab_size:
-        raise AssertionError(f"vocab {p_tok.vocab_size} != "
-                             f"{cfg.data.vocab_size}")
+    want = (cfg.data.trigram_buckets + 1 if cfg.data.tokenizer == "trigram"
+            else cfg.data.vocab_size)
+    if p_tok.vocab_size != want:
+        raise AssertionError(f"vocab {p_tok.vocab_size} != {want}")
     emit({"phase": "tokenizer", "config": config,
           "style": cfg.data.tokenizer, "vocab_size": p_tok.vocab_size,
           "train_s": tok_s, "corpus_pages": n_pages,
@@ -1302,10 +1394,77 @@ def build_data(config: str, n_pages: int, tokenizers=None):
     return corpus, q_tok, p_tok
 
 
+def card_vs_cpu(cfg, model, vocab: int, ids: torch.Tensor) -> dict:
+    """The same weights encode the same pages on the card and through the
+    port on the CPU: the largest difference of the unit page rows (float32
+    before the store's float16), within ZOO_CPU_TOL of the model dtype."""
+    from dnn_page_vectors_tpu_torch.models.factory import (
+        DTYPES, build_two_tower)
+    from dnn_page_vectors_tpu_torch.models.losses import l2_normalize
+    cpu = build_two_tower(cfg, vocab_size=vocab, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        card = l2_normalize(model.encode_page(ids)).cpu()
+        host = l2_normalize(cpu.encode_page(ids.cpu()))
+    err = (card - host).abs().max().item()
+    tol = ZOO_CPU_TOL[DTYPES[cfg.model.dtype]]
+    if not err <= tol:
+        raise AssertionError(f"{cfg.name}: page vectors on the card and on "
+                             f"the CPU differ by {err} (tolerance {tol})")
+    return {"pages": int(ids.shape[0]), "max_abs_err": err, "tol": tol}
+
+
+def lstm_loop(tower, ids: torch.Tensor, backward: bool = False) -> dict:
+    """The BiLSTM recurrence alone (models/lstm.py ``lstm_pass``, every
+    layer and direction of `tower` on its own input projections of `ids`),
+    forward, or forward and backward: the host's time to issue it, the
+    device time and the kernels it launches, by torch.profiler. Inside an
+    encode or a step it runs as here, between the input projections and
+    the pooling."""
+    from dnn_page_vectors_tpu_torch.models.lstm import lstm_pass
+    mask = ids > 0
+    passes = []
+    with torch.no_grad():
+        x = tower.word_embed(ids).to(tower.dtype)
+        for layer in range(tower.num_layers):
+            states = []
+            for tag, rev in (("fwd", False), ("bwd", True)):
+                xp = getattr(tower, f"in_proj{layer}_{tag}")(x).float()
+                u = getattr(tower, f"rec{layer}_{tag}").detach()
+                passes.append((xp.requires_grad_(backward),
+                               u.clone().requires_grad_(backward), rev))
+                states.append(torch.stack(lstm_pass(xp, mask, u, rev)[1], 1))
+            x = torch.cat(states, -1).to(tower.dtype)
+
+    def run():
+        with torch.set_grad_enabled(backward):
+            for xp, u, rev in passes:
+                h, hs = lstm_pass(xp, mask, u, rev)
+                if backward:
+                    torch.autograd.grad(h.sum() + torch.stack(hs).sum(),
+                                        (xp, u))
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    prof = device_breakdown(run, iters=2)
+    return {"shape": list(ids.shape), "backward": backward,
+            "steps": len(passes) * ids.shape[1],
+            "host_issue_ms": host_ms,
+            "device_ms": prof["device_ms_per_call"],
+            "launches": prof["launches_per_call"],
+            "by_class_ms": prof["by_class_ms"]}
+
+
 def run_slice(device, config: str, n_pages: int, n_queries: int,
               workdir: str, data) -> dict:
     """Bulk embeds the first n_pages pages of the data's corpus into a
-    store, serves queries from it, and checks the results."""
+    store, serves queries from it, and checks the results: transformer
+    towers with flash attention (K1 once per layer per encode, held against
+    dense attention), the other towers with no attention kernel at all
+    (held against the same weights on the CPU)."""
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.loader import build_corpus, to_device
     from dnn_page_vectors_tpu_torch.evals.recall import evaluate_recall
@@ -1316,9 +1475,10 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
     from dnn_page_vectors_tpu_torch.ops.topk import chunked_topk
 
-    overrides = {"model.attention": "flash", "data.num_pages": n_pages,
-                 "eval.store_shard_size": 65_536,
-                 "eval.embed_batch_size": 512}
+    transformer = get_config(config).model.encoder in TRANSFORMERS
+    overrides = {"data.num_pages": n_pages, "eval.store_shard_size": 65_536,
+                 "eval.embed_batch_size": 512,
+                 **({"model.attention": "flash"} if transformer else {})}
     cfg = get_config(config, overrides)
     m = cfg.model
     _, q_tok, p_tok = data
@@ -1327,8 +1487,8 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
     emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
     # warm the card (cuBLAS handles, the kernel library) outside the run
-    emb.embed_pages(np.zeros((8, cfg.data.page_len), np.int32))
-    emb.embed_queries(np.zeros((8, cfg.data.query_len), np.int32))
+    emb.embed_pages(np.zeros((8,) + p_tok.encode("").shape, np.int32))
+    emb.embed_queries(np.zeros((8,) + q_tok.encode("").shape, np.int32))
     torch.cuda.synchronize()
 
     store = VectorStore(os.path.join(workdir, f"store_{config}"),
@@ -1355,6 +1515,8 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
         if not one:
             raise AssertionError("a query returned no results")
     launches, launches_tc = fa.launches, fa.launches_tc
+    if not transformer:
+        require_no_attention(f"{config} serving")
     # ------------------------------------------------------------------
     if launches_tc != launches:
         raise AssertionError(f"{launches - launches_tc} of {launches} bf16 "
@@ -1364,7 +1526,8 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     n_batches = sum(-(-min(ss, n_pages - lo) // bs)
                     for lo in range(0, n_pages, ss))
     encode_calls = n_batches + 1 + LATENCY_SAMPLES  # embed, batch, singles
-    expected = encode_calls * m.num_layers
+    per_encode = m.num_layers if transformer else 0
+    expected = encode_calls * per_encode
     if launches != expected:
         raise AssertionError(f"K1 launched {launches} times in the main "
                              f"path, expected {expected} (one per layer "
@@ -1399,26 +1562,34 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     if score_err > 1e-4:            # _format rounds scores to 4 decimals
         raise AssertionError(f"scores differ by {score_err}")
 
-    # flash towers vs dense towers on the same weights and pages, and the
-    # stored rows vs a fresh encode of the same first batch
-    dense = build_two_tower(
-        get_config(config, {**overrides, "model.attention": "dense"}),
-        vocab_size=p_tok.vocab_size, device=device)
-    dense.load_state_dict(model.state_dict())
-    dense_emb = BulkEmbedder(cfg, dense, p_tok, device=device)
+    # flash towers vs dense towers on the same weights and pages (the
+    # other towers: the card vs the CPU), and the stored rows vs a fresh
+    # encode of the same first batch
     ids = to_device(p_tok.encode_batch(
         [corpus.page_text(i) for i in range(bs)]), device)
     fa.launches = 0                 # K1 launches of one 512-page encode
     v_flash = emb.encode_pages(ids).float()
     launches_per_batch = fa.launches
-    if launches_per_batch != m.num_layers:
+    if launches_per_batch != per_encode:
         raise AssertionError(f"one encode launched K1 {launches_per_batch} "
-                             f"times, want {m.num_layers} (one per layer)")
-    v_dense = dense_emb.encode_pages(ids).float()
-    flash_dense_err = (v_flash - v_dense).abs().max().item()
-    if not flash_dense_err <= 5e-3:
-        raise AssertionError(f"flash vs dense page vectors differ by "
-                             f"{flash_dense_err} (tolerance 5e-3)")
+                             f"times, want {per_encode} (one per layer)")
+    checks = {}
+    if transformer:
+        dense = build_two_tower(
+            get_config(config, {**overrides, "model.attention": "dense"}),
+            vocab_size=p_tok.vocab_size, device=device)
+        dense.load_state_dict(model.state_dict())
+        v_dense = BulkEmbedder(cfg, dense, p_tok,
+                               device=device).encode_pages(ids).float()
+        del dense
+        flash_dense_err = (v_flash - v_dense).abs().max().item()
+        if not flash_dense_err <= 5e-3:
+            raise AssertionError(f"flash vs dense page vectors differ by "
+                                 f"{flash_dense_err} (tolerance 5e-3)")
+        checks["flash_vs_dense_max_err"] = flash_dense_err
+    else:
+        checks["card_vs_cpu"] = card_vs_cpu(cfg, model, p_tok.vocab_size,
+                                            ids[:ZOO_CPU_PAGES])
     stored_err = (pages[:bs] - v_flash).abs().max().item()
     if not stored_err <= 1e-3:
         raise AssertionError(f"store rows differ from a fresh encode of the "
@@ -1431,13 +1602,12 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     query_profile = device_breakdown(
         lambda: chunked_topk(emb.encode_queries(one_q)[:1], svc.pages, k=10))
 
-    del dense, dense_emb
+    if m.encoder == "lstm":
+        checks["lstm_loop_encode"] = lstm_loop(model.page_tower, ids)
     recall, n_eval = evaluate_recall(emb, corpus, store, num_queries=1000,
                                      k=10)
     rec = {
-        "phase": "slice", "config": cfg.name, "attention": m.attention,
-        "layers": m.num_layers, "model_dim": m.model_dim,
-        "heads": m.num_heads, "mlp_dim": m.mlp_dim, "out_dim": m.out_dim,
+        "phase": "slice", "config": cfg.name, **widths(cfg),
         "vocab": p_tok.vocab_size, "pages": n_pages,
         "embed_pages_per_s_from_text": n_pages / embed_s,
         "embed_s": embed_s,
@@ -1457,8 +1627,7 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
         "k1_launches": launches,
         "k1_launches_tensor_core": launches_tc,
         "k1_launches_per_embed_batch": launches_per_batch,
-        "topk_score_err": score_err, "topk_tie_swaps": mism,
-        "flash_vs_dense_max_err": flash_dense_err,
+        "topk_score_err": score_err, "topk_tie_swaps": mism, **checks,
         "store_vs_fresh_encode_err": stored_err,
         "recall_at_10_random_weights": recall, "recall_queries": n_eval,
         "device": torch.cuda.get_device_name(0),
@@ -1528,8 +1697,8 @@ def flash_vs_dense(config, overrides, vocab, batch, device, dtype) -> dict:
 
 
 # the training cells: the config, its batch (pages a step), pages packed a
-# row, and the batch share (pages) and bounds of the flash vs dense
-# gradient comparison
+# row, and (transformer cells) the batch share (pages) and bounds of the
+# flash vs dense gradient comparison
 TRAIN_CELLS = {
     "bert_mini": dict(config="bert_mini_v5p16", batch=TRAIN_BATCH, pack=1,
                       bf16_pages=TRAIN_BATCH, f32_pages=F32_ROWS,
@@ -1543,6 +1712,10 @@ TRAIN_CELLS = {
     "mt5_packed": dict(config=MT5, batch=MT5_PACK_TRAIN_BATCH, pack=PACK,
                        bf16_pages=MT5_BF16_ROWS, f32_pages=MT5_F32_ROWS,
                        bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
+    # the towers without attention, at their configs' batches
+    "cdssm": dict(config=CDSSM, batch=256, pack=1),
+    "kim_cnn": dict(config=KIM, batch=4_096, pack=1),
+    "lstm": dict(config=LSTM, batch=4_096, pack=1),
 }
 
 
@@ -1587,6 +1760,34 @@ def _take(batch: dict, pages: int, pack: int) -> dict:
             else v[:pages] for k, v in batch.items()}
 
 
+def determinism_cost(trainer, batches) -> dict:
+    """Step times (CUDA events) with cuDNN's deterministic algorithms, as
+    the port runs, and without them (``cudnn.deterministic`` False, the
+    algorithms cuDNN picks by its heuristics), in turns on the same
+    batches: what bitwise equal gradients cost the conv towers (the
+    float32 CDSSM conv's deterministic backward is an FFT one)."""
+    def step_ms(b) -> float:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(b)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    times = {True: [], False: []}
+    try:
+        for det in (True, False, False, True):
+            torch.backends.cudnn.deterministic = det
+            times[det] += [step_ms(b) for b in batches]
+    finally:
+        torch.backends.cudnn.deterministic = True
+    return {"deterministic_ms": times[True],
+            "nondeterministic_ms": times[False],
+            "deterministic_median_ms": float(np.median(times[True])),
+            "nondeterministic_median_ms": float(np.median(times[False]))}
+
+
 def run_training(device, cell_name: str, data, workdir: str) -> dict:
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.loader import (
@@ -1599,13 +1800,15 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     cell = TRAIN_CELLS[cell_name]
     config, pack = cell["config"], cell["pack"]
     corpus, q_tok, p_tok = data
-    overrides = {"model.attention": "flash",
-                 "data.num_pages": corpus.num_pages, "train.log_every": 1,
+    transformer = get_config(config).model.encoder in TRANSFORMERS
+    overrides = {"data.num_pages": corpus.num_pages, "train.log_every": 1,
                  "train.batch_size": cell["batch"],
-                 "train.pack_pages": pack}
+                 "train.pack_pages": pack,
+                 **({"model.attention": "flash"} if transformer else {})}
     cfg = get_config(config, overrides)
     m, t = cfg.model, cfg.train
-    per_layer = 2 * m.num_layers         # one launch per layer per tower
+    # one launch per layer per tower; none without attention
+    per_layer = 2 * m.num_layers if transformer else 0
     biased = m.encoder == "t5"           # K4 replaces K2 on the bias path
     per_step = [per_layer, 0 if biased else per_layer, per_layer,
                 per_layer if biased else 0]
@@ -1753,6 +1956,14 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
              if "called a synchronizing" in str(w.message)]
     torch.cuda.synchronize()
 
+    extra = {}
+    if m.encoder == "lstm":
+        extra["lstm_loop_step"] = [
+            lstm_loop(straight.model.query_tower, batches[1]["query"], True),
+            lstm_loop(straight.model.page_tower, batches[1]["page"], True)]
+    if m.encoder in ("cdssm", "kim_cnn"):
+        extra["determinism_cost"] = determinism_cost(straight, batches[1:4])
+
     # ---- bitwise: one step's gradients twice, dropout on ---------------------
     g1 = _grads(straight.model, batches[2],
                 dropout_generator(t.seed, 0, device))
@@ -1785,27 +1996,32 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     del resumed
 
     # ---- flash vs dense gradients, dropout off, the seeded weights ----------
-    bf16 = flash_vs_dense(config, overrides, p_tok.vocab_size,
-                          _take(batches[2], cell["bf16_pages"], pack),
-                          device, "bfloat16")
-    f32 = flash_vs_dense(config, overrides, p_tok.vocab_size,
-                         _take(batches[2], cell["f32_pages"], pack), device,
-                         "float32")
-    for rec, tol in ((bf16, cell["bf16_tol"]),
-                     (f32, FLASH_DENSE_GRAD_TOL_F32)):
-        if not rec["max_rel_err"] <= tol:
-            raise AssertionError(f"flash vs dense gradients differ: {rec} "
-                                 f"(bound {tol})")
-        if not rec["key_bias_over_wk"] <= KEY_BIAS_GRAD_TOL:
-            raise AssertionError(f"a key-bias gradient (exactly 0 in exact "
-                                 f"arithmetic) is not small: {rec}")
+    if transformer:
+        bf16 = flash_vs_dense(config, overrides, p_tok.vocab_size,
+                              _take(batches[2], cell["bf16_pages"], pack),
+                              device, "bfloat16")
+        f32 = flash_vs_dense(config, overrides, p_tok.vocab_size,
+                             _take(batches[2], cell["f32_pages"], pack),
+                             device, "float32")
+        for rec, tol in ((bf16, cell["bf16_tol"]),
+                         (f32, FLASH_DENSE_GRAD_TOL_F32)):
+            if not rec["max_rel_err"] <= tol:
+                raise AssertionError(f"flash vs dense gradients differ: "
+                                     f"{rec} (bound {tol})")
+            if not rec["key_bias_over_wk"] <= KEY_BIAS_GRAD_TOL:
+                raise AssertionError(f"a key-bias gradient (exactly 0 in "
+                                     f"exact arithmetic) is not small: {rec}")
+        extra["flash_vs_dense_grads_bf16"] = {
+            **bf16, "tol": cell["bf16_tol"], "pages": cell["bf16_pages"]}
+        extra["flash_vs_dense_grads_f32"] = {
+            **f32, "tol": FLASH_DENSE_GRAD_TOL_F32,
+            "pages": cell["f32_pages"]}
+        extra["key_bias_grad_tol"] = KEY_BIAS_GRAD_TOL
 
     rec = {
         "phase": "train", "cell": cell_name, "config": cfg.name,
-        "attention": m.attention,
-        "layers": m.num_layers, "model_dim": m.model_dim, "heads": m.num_heads,
-        "mlp_dim": m.mlp_dim, "out_dim": m.out_dim,
-        "page_len": cfg.data.page_len, "query_len": cfg.data.query_len,
+        **widths(cfg), "page_len": cfg.data.page_len,
+        "query_len": cfg.data.query_len,
         "vocab": p_tok.vocab_size, "batch_pages": t.batch_size,
         "config_batch_pages": get_config(config).train.batch_size,
         **packing,
@@ -1839,15 +2055,47 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
         "timed_vs_main_path_loss_max_diff": main_diff,
         "resume_loss_max_diff": resume_diff,
         "resume_loss_tol": RESUME_LOSS_TOL,
-        "bitwise_equal_grads": True,
-        "flash_vs_dense_grads_bf16": {**bf16, "tol": cell["bf16_tol"],
-                                      "pages": cell["bf16_pages"]},
-        "flash_vs_dense_grads_f32": {**f32, "tol": FLASH_DENSE_GRAD_TOL_F32,
-                                     "pages": cell["f32_pages"]},
-        "key_bias_grad_tol": KEY_BIAS_GRAD_TOL,
+        "bitwise_equal_grads": True, **extra,
         "device": torch.cuda.get_device_name(0),
     }
     emit(rec)
+    return rec
+
+
+def cdssm_quality(device, workdir: str) -> dict:
+    """tests/test_e2e_cdssm_toy.py on the card: cdssm_toy at the test's
+    overrides (600 pages, 80 steps) trained through Trainer.train, bulk
+    embedded, and evaluated with evaluate_recall over 200 queries, which
+    must give Recall@10 > 0.5 (random: about 0.017)."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.evals.recall import evaluate_recall
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.train.loop import Trainer
+    cfg = get_config(CDSSM, E2E_CDSSM)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    metrics = trainer.train()
+    train_s = time.perf_counter() - t0
+    store = VectorStore(os.path.join(workdir, "store_cdssm_quality"),
+                        dim=cfg.model.out_dim, shard_size=256)
+    emb = BulkEmbedder(cfg, trainer.model, trainer.page_tok,
+                       query_tok=trainer.query_tok, device=device)
+    emb.embed_corpus(trainer.corpus, store, batch_size=128)
+    recall, n = evaluate_recall(emb, trainer.corpus, store,
+                                num_queries=200, k=10)
+    require_no_attention("the CDSSM quality run")
+    rec = {"phase": "quality", "config": CDSSM, "overrides": E2E_CDSSM,
+           "train_s": train_s, "loss": metrics["loss"],
+           "in_batch_acc": metrics["in_batch_acc"],
+           "recall_at_10": recall, "recall_queries": n,
+           "recall_bar": E2E_RECALL_BAR, "pages": store.num_vectors,
+           "device": torch.cuda.get_device_name(0)}
+    emit(rec)
+    if not (np.isfinite(metrics["loss"]) and recall > E2E_RECALL_BAR):
+        raise AssertionError(f"the trained CDSSM reached Recall@10 "
+                             f"{recall} (bar {E2E_RECALL_BAR}): {rec}")
     return rec
 
 
@@ -1939,10 +2187,12 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
     return rec
 
 
-def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
-    """Phases 2-9; fills `report` and returns the `kernels` line's
-    entries. `mt5_tok` is the future of the mT5 tokenizers; with `parent`
-    (another tree of the port) the kernels are also timed against it."""
+def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
+               ) -> list:
+    """Phases 2-12; fills `report` and returns the `kernels` line's
+    entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
+    word tokenizers; with `parent` (another tree of the port) the kernels
+    are also timed against it."""
     from dnn_page_vectors_tpu_torch.ops import build
     # one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -2013,6 +2263,29 @@ def run_phases(device, report: dict, mt5_tok, parent=None) -> list:
                                             long_data, tmp)
         report["mt5_pack_train"] = run_training(device, "mt5_packed",
                                                 mt5_pack_data, tmp)
+        # phases 10-12: the towers without attention
+        t_zoo = time.perf_counter()
+        cdssm = build_data(CDSSM, CDSSM_PAGES)
+        report["cdssm_slice"] = run_slice(device, CDSSM, CDSSM_PAGES,
+                                          N_QUERIES, tmp, cdssm)
+        report["cdssm_train"] = run_training(device, "cdssm", cdssm, tmp)
+        report["cdssm_quality"] = cdssm_quality(device, tmp)
+        del cdssm
+        t0 = time.perf_counter()
+        tokenizers = word_tok.get()
+        emit({"phase": "word_tokenizer_wait", "seconds":
+              time.perf_counter() - t0})
+        if data_config(KIM, WORD_VOCAB_PAGES).data != \
+                data_config(LSTM, WORD_VOCAB_PAGES).data:
+            raise AssertionError(f"{KIM} and {LSTM} no longer share their "
+                                 "corpus and vocab")
+        words = build_data(KIM, WORD_VOCAB_PAGES, tokenizers)
+        for config, cell in ((KIM, "kim_cnn"), (LSTM, "lstm")):
+            report[f"{cell}_slice"] = run_slice(device, config, WORD_PAGES,
+                                                N_QUERIES, tmp, words)
+            report[f"{cell}_train"] = run_training(device, cell, words, tmp)
+        emit({"phase": "phases_10_to_12", "seconds":
+              time.perf_counter() - t_zoo})
     return kernel_entries(report)
 
 
@@ -2043,16 +2316,22 @@ def kernel_entries(report: dict) -> list:
 
     def ptxas(*prefixes):
         return [r for r in rows if r[0].startswith(prefixes)]
+    zoo = ("cdssm", "kim_cnn", "lstm")   # no attention: 0 launches each
     paths = {"bert_serving": report["slice"]["k1_launches"],
-             "mt5_serving": report["mt5_slice"]["k1_launches"]}
+             "mt5_serving": report["mt5_slice"]["k1_launches"],
+             **{f"{z}_serving": report[f"{z}_slice"]["k1_launches"]
+                for z in zoo}}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
-                ("mt5_packed_training", report["mt5_pack_train"]))
+                ("mt5_packed_training", report["mt5_pack_train"]),
+                *((f"{z}_training", report[f"{z}_train"]) for z in zoo))
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
-               "mt5_serving": report["mt5_slice"]["k1_launches_tensor_core"]},
+               "mt5_serving": report["mt5_slice"]["k1_launches_tensor_core"],
+               **{f"{z}_serving": report[f"{z}_slice"][
+                   "k1_launches_tensor_core"] for z in zoo}},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     for path, rec in training:
@@ -2398,14 +2677,17 @@ def main() -> int:
                          "cuda": torch.version.cuda}}
     emit({"phase": "device", **report["device"]})
 
-    # the mT5 vocab is host work of minutes: train it in a second process
-    # while the card works on the builds, the checks and BERT-mini; the
-    # process is ended with the run, whether it succeeded or not
+    # the mT5 vocab is host work of minutes, the word vocab of phases 11
+    # and 12 of seconds: train them in a second process, one after the
+    # other, while the card works on the builds, the checks and BERT-mini;
+    # the process is ended with the run, whether it succeeded or not
     tok_pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         mt5_tok = tok_pool.apply_async(
             train_tokenizers, (data_config(MT5, MT5_VOCAB_PAGES),))
-        kernels = run_phases(device, report, mt5_tok, args.parent)
+        word_tok = tok_pool.apply_async(
+            train_tokenizers, (data_config(KIM, WORD_VOCAB_PAGES),))
+        kernels = run_phases(device, report, mt5_tok, word_tok, args.parent)
     finally:
         tok_pool.terminate()
         tok_pool.join()

@@ -12,6 +12,8 @@ query tower + exact top-k behind ``SearchService.search_many``) and its
 training path (``train/loop.py:Trainer``: TrainBatcher -> both towers ->
 cosine-contrastive loss -> backward -> clip + AdamW -> checkpoints), with
 the flash-attention forward and backward as hand-written CUDA kernels
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Entry points run on ``cuda`` unless the caller
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), sequence packing for the
+transformer towers, and the CDSSM (trigram), Kim-CNN and BiLSTM (word)
+towers on torch ops. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU present they raise.
 """

@@ -1,8 +1,9 @@
-"""Config dataclasses for the port: the fields the BERT-mini and mT5
-serving and training slices and sequence packing read, with the JAX
-package's names and defaults (its config.py), the ``bert_mini_v5p16``,
-``mt5_multilingual`` and ``bert_long_sp`` presets, and ``get_config`` with
-dotted overrides.
+"""Config dataclasses for the port: the fields the serving and training
+slices (BERT-mini, mT5, sequence packing, and the CDSSM, Kim-CNN and
+BiLSTM towers) read, with the JAX package's names and defaults (its
+config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``, ``lstm_words``,
+``bert_mini_v5p16``, ``mt5_multilingual`` and ``bert_long_sp`` presets,
+and ``get_config`` with dotted overrides.
 
 Sections and fields of later slices (mesh, scan_steps, index, fleet,
 maintenance, ...) join as those slices land; an override naming a field
@@ -11,7 +12,7 @@ that is not here yet raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +23,8 @@ class DataConfig:
     num_pages: int = 10_000          # corpus size (toy generator)
     query_len: int = 16              # max tokens per query
     page_len: int = 64               # max tokens per page
+    trigrams_per_word: int = 8       # K trigram ids kept per word (CDSSM)
+    trigram_buckets: int = 16_384    # hash-bucket vocab for char trigrams
     vocab_size: int = 30_000         # word / subword vocab size
     languages: int = 1               # >1: cross-lingual toy corpus
     num_topics: int = 64             # toy-corpus topics
@@ -30,9 +33,15 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Encoder settings. The port builds the `bert` and `t5` encoders."""
+    """Encoder settings. `encoder` selects the family."""
     encoder: str = "cdssm"           # cdssm | kim_cnn | lstm | bert | t5
+    embed_dim: int = 128             # token/word embedding width
     out_dim: int = 128               # final vector dimension (both towers)
+    # conv families
+    conv_widths: Tuple[int, ...] = (3,)  # cdssm: (3,); kim_cnn: (3, 4, 5)
+    conv_channels: int = 256
+    # transformer families (model_dim is also the LSTM's hidden size and
+    # num_layers its depth)
     num_layers: int = 4
     num_heads: int = 4
     mlp_dim: int = 1024
@@ -111,23 +120,73 @@ def _nested_replace(cfg: Config, overrides: Dict[str, Any]) -> Config:
         if not hasattr(section, parts[1]):
             raise KeyError(f"unknown config field {path!r} (not ported yet, "
                            "or misspelled)")
-        # coerce CLI strings to the dataclass field's current type
-        current = getattr(section, parts[1])
-        if isinstance(current, bool):
-            if value in (True, "true", "True", "1", 1):
-                value = True
-            elif value in (False, "false", "False", "0", 0):
-                value = False
-            else:
-                raise ValueError(
-                    f"bad boolean for {path}: {value!r} (use true/false)")
-        elif isinstance(current, int):
-            value = int(value)
-        elif isinstance(current, float):
-            value = float(value)
+        if isinstance(value, list):
+            value = tuple(value)
+        elif not isinstance(value, tuple):
+            # coerce CLI strings to the dataclass field's current type
+            current = getattr(section, parts[1])
+            if isinstance(current, bool):
+                if value in (True, "true", "True", "1", 1):
+                    value = True
+                elif value in (False, "false", "False", "0", 0):
+                    value = False
+                else:
+                    raise ValueError(
+                        f"bad boolean for {path}: {value!r} (use true/false)")
+            elif isinstance(current, int):
+                value = int(value)
+            elif isinstance(current, float):
+                value = float(value)
+            elif isinstance(current, tuple):      # "3,4,5" -> (3, 4, 5)
+                value = tuple(int(x) for x in str(value).split(","))
         section = dataclasses.replace(section, **{parts[1]: value})
         cfg = dataclasses.replace(cfg, **{parts[0]: section})
     return cfg
+
+
+def cdssm_toy() -> Config:
+    """Config 1: CDSSM char-trigram CNN over the 10,000-page toy corpus,
+    one process: trigram ids [L, K=8] hashed into 16,384 buckets, embed
+    128, one conv of width 3 with 256 channels, out 128, float32."""
+    return Config(
+        name="cdssm_toy",
+        data=DataConfig(tokenizer="trigram", corpus="toy", num_pages=10_000),
+        model=ModelConfig(encoder="cdssm", conv_widths=(3,), conv_channels=256,
+                          embed_dim=128, out_dim=128, dtype="float32"),
+        train=TrainConfig(batch_size=256, steps=1_000),
+    )
+
+
+def kim_cnn_v5e8() -> Config:
+    """Config 2: word-level Kim-CNN page encoder over a 1M-page toy corpus:
+    a 100,000-word vocab, embed 256, convs of widths 3, 4 and 5 with 256
+    channels each, out 256. The batch of 4,096 is the global batch of the
+    JAX config's data=8 mesh, which has no counterpart here yet; one card
+    holds it whole."""
+    return Config(
+        name="kim_cnn_v5e8",
+        data=DataConfig(tokenizer="word", corpus="toy", num_pages=1_000_000,
+                        vocab_size=100_000),
+        model=ModelConfig(encoder="kim_cnn", conv_widths=(3, 4, 5),
+                          conv_channels=256, embed_dim=256, out_dim=256),
+        train=TrainConfig(batch_size=4_096, steps=50_000),
+    )
+
+
+def lstm_words() -> Config:
+    """The BiLSTM word-level page encoder, sized like kim_cnn_v5e8 on the
+    same corpus and vocab: embed 256, one layer, hidden 256 a direction,
+    out 256. The batch of 4,096 is the global batch of the JAX config's
+    data=8 mesh, which has no counterpart here yet; one card holds it
+    whole."""
+    return Config(
+        name="lstm_words",
+        data=DataConfig(tokenizer="word", corpus="toy", num_pages=1_000_000,
+                        vocab_size=100_000),
+        model=ModelConfig(encoder="lstm", embed_dim=256, model_dim=256,
+                          num_layers=1, out_dim=256),
+        train=TrainConfig(batch_size=4_096, steps=50_000),
+    )
 
 
 def bert_mini_v5p16() -> Config:
@@ -186,6 +245,9 @@ def bert_long_sp() -> Config:
 
 
 CONFIGS = {
+    "cdssm_toy": cdssm_toy,
+    "kim_cnn_v5e8": kim_cnn_v5e8,
+    "lstm_words": lstm_words,
     "bert_mini_v5p16": bert_mini_v5p16,
     "mt5_multilingual": mt5_multilingual,
     "bert_long_sp": bert_long_sp,

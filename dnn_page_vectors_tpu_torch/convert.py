@@ -7,10 +7,13 @@ state dict for the port's module of the same structure:
 * Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed), with
   or without a ``bias`` (the t5 blocks' Dense layers, ``wi_0`` and
   ``wi_1`` among them, have none);
+* Conv ``kernel [width, in, out]`` -> ``Conv1d`` ``weight [out, in,
+  width]``;
 * Embed ``embedding`` -> ``weight``;
-* everything else keeps its name and layout: Dense and LayerNorm
+* everything else keeps its name and layout: Dense, Conv and LayerNorm
   ``bias``, LayerNorm and RmsNorm ``scale``, ``pos_embed``, the t5
-  ``rel_bias`` table [32, H], ``log_scale``.
+  ``rel_bias`` table [32, H], the LSTM's ``rec{l}_{dir}`` [H, 4H],
+  ``log_scale``.
 
 Module paths are joined with dots (``query_tower/block0/attn/wq`` ->
 ``query_tower.block0.attn.wq``), which is how the port names its modules.
@@ -27,6 +30,10 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+# the modules whose ``weight`` is an Embed table (every other ``weight``
+# is a Dense or Conv kernel)
+EMBED_TABLES = ("tok_embed", "trigram_embed", "word_embed")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -47,9 +54,11 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         arr = np.asarray(leaf, np.float32)
         head, _, name = path.rpartition(".")
         if name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{path}: only Dense kernels are ported "
-                                 f"(got shape {arr.shape})")
+            if arr.ndim not in (2, 3):
+                raise ValueError(f"{path}: only Dense and 1-D Conv kernels "
+                                 f"are ported (got shape {arr.shape})")
+            # Dense: [in, out] -> [out, in]; Conv: [w, in, out] -> [out,
+            # in, w] (.T reverses every axis)
             name, arr = "weight", arr.T
         elif name == "embedding":
             name = "weight"
@@ -60,14 +69,15 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """torch state dict -> {"params": nested dict of numpy arrays}. A
-    ``weight`` under a module named ``tok_embed`` is an Embed table; every
-    other ``weight`` is a Dense kernel (transposed back)."""
+    ``weight`` under a module named in ``EMBED_TABLES`` is an Embed table;
+    every other ``weight`` is a Dense or Conv kernel (its axes reversed
+    back)."""
     params: Dict[str, Any] = {}
     for key, val in state.items():
         arr = val.detach().cpu().float().numpy()
         parts = key.split(".")
         if parts[-1] == "weight":
-            if len(parts) > 1 and parts[-2] == "tok_embed":
+            if len(parts) > 1 and parts[-2] in EMBED_TABLES:
                 parts[-1] = "embedding"
             else:
                 parts[-1], arr = "kernel", arr.T

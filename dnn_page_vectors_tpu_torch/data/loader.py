@@ -22,6 +22,8 @@ import torch
 from dnn_page_vectors_tpu_torch.config import Config
 from dnn_page_vectors_tpu_torch.data.subword import SubwordTokenizer
 from dnn_page_vectors_tpu_torch.data.toy import ToyCorpus
+from dnn_page_vectors_tpu_torch.data.trigram import TrigramTokenizer
+from dnn_page_vectors_tpu_torch.data.words import WordTokenizer
 
 Batch = Dict[str, np.ndarray]
 
@@ -114,9 +116,11 @@ def _corpus_fingerprint(corpus) -> str:
 
 
 def build_tokenizer(cfg: Config, corpus, cache_dir: Optional[str] = None):
-    """Builds (query_tok, page_tok). A trained vocab is cached under
-    cache_dir so later runs reuse the EXACT vocab the model was trained
-    with: page vectors are comparable across runs only if token ids are.
+    """Builds (query_tok, page_tok). Trigram hashing is stateless: nothing
+    is cached. A trained vocab (word, wordpiece, sentencepiece) is cached
+    under cache_dir so later runs reuse the EXACT vocab the model was
+    trained with: page vectors are comparable across runs only if token
+    ids are.
 
     Honesty contract: the built tokenizer's vocab_size must EQUAL
     config.data.vocab_size. Training raises rather than silently training
@@ -124,14 +128,33 @@ def build_tokenizer(cfg: Config, corpus, cache_dir: Optional[str] = None):
     (vocab_size, corpus fingerprint) provenance matches the current config.
     """
     d = cfg.data
-    if d.tokenizer not in ("wordpiece", "sentencepiece"):
-        raise NotImplementedError(
-            f"tokenizer {d.tokenizer!r} is not ported yet: the trigram and "
-            "word tokenizers come with the CDSSM/Kim-CNN/LSTM slice (5)")
+    if d.tokenizer == "trigram":
+        q = TrigramTokenizer(d.trigram_buckets, max_words=d.query_len,
+                             k=d.trigrams_per_word)
+        p = TrigramTokenizer(d.trigram_buckets, max_words=d.page_len,
+                             k=d.trigrams_per_word)
+        return q, p
+    if d.tokenizer not in ("word", "wordpiece", "sentencepiece"):
+        raise ValueError(f"unknown tokenizer {d.tokenizer!r} (want trigram "
+                         "| word | wordpiece | sentencepiece)")
     cache = (os.path.join(cache_dir, f"tokenizer_{d.tokenizer}.json")
              if cache_dir else None)
     meta = {"vocab_size": d.vocab_size,
             "corpus": _corpus_fingerprint(corpus)}
+    if d.tokenizer == "word":
+        tok = None
+        if cache and os.path.exists(cache):
+            tok = WordTokenizer.load(cache)
+            if tok.meta != meta:   # stale: config/corpus changed since save
+                tok = None
+        if tok is None:
+            tok = WordTokenizer.train(
+                corpus.all_texts(), vocab_size=d.vocab_size,
+                max_words=d.page_len, strict_vocab=True)
+            tok.meta = meta
+            if cache:
+                tok.save(cache)
+        return WordTokenizer(tok.vocab, max_words=d.query_len), tok
     tok = None
     if cache and os.path.exists(cache):
         tok = SubwordTokenizer.load(cache)
@@ -154,7 +177,8 @@ def build_tokenizer(cfg: Config, corpus, cache_dir: Optional[str] = None):
 
 class TrainBatcher:
     """Deterministic shuffled (query, page) training batches: numpy dicts
-    {"query": [B, query_len], "page": [B, page_len], "page_id": [B]}, plus
+    {"query": [B, query_len], "page": [B, page_len], "page_id": [B]}
+    (trigram ids: [B, query_len, K] and [B, page_len, K]), plus
     "neg_page" [B, H, page_len] when a hard-negative lookup is given. With
     ``pack`` > 1 (train.pack_pages) the B pages ride in B / pack packed rows:
     "page" is [B / pack, page_len], with "page_seg" and "page_pos" beside

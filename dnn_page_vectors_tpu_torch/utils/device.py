@@ -14,11 +14,15 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def set_precision() -> None:
-    """Full-precision float32 matmuls and convolutions. The JAX top-k scorer
-    runs at Precision.HIGHEST because ranking fidelity depends on it; TF32
-    keeps about three decimal digits, so it stays off everywhere."""
+    """Full-precision float32 matmuls and convolutions, and deterministic
+    convolutions. The JAX top-k scorer runs at Precision.HIGHEST because
+    ranking fidelity depends on it; TF32 keeps about three decimal digits,
+    so it stays off everywhere. cuDNN may otherwise pick convolution
+    backward algorithms that sum with atomics, and two runs of one step
+    must give bitwise equal gradients; ``cudnn.benchmark`` stays off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -88,6 +88,14 @@ def test_l2_normalize_matches_jax():
 
 
 def test_factory_refuses_unported_encoders():
-    cfg = get_config("bert_mini_v5p16", {"model.encoder": "cdssm"})
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    """Every encoder of the JAX package is ported (cdssm, kim_cnn and lstm:
+    tests/test_torch_zoo.py); the factory refuses an encoder it does not
+    know, and ring attention, which is not ported yet."""
+    cfg = get_config("bert_mini_v5p16", {"model.encoder": "gpt"})
+    with pytest.raises(ValueError, match="unknown encoder"):
         build_two_tower(cfg, vocab_size=VOCAB, device="cpu")
+    cfg = get_config("bert_mini_v5p16", {**SMALL, "model.attention": "ring"})
+    with pytest.raises(ValueError, match="ring attention is a later slice"):
+        build_two_tower(cfg, vocab_size=VOCAB, device="cpu")
+    cfg = get_config("bert_mini_v5p16", {**SMALL, "model.encoder": "cdssm"})
+    assert build_two_tower(cfg, vocab_size=VOCAB, device="cpu") is not None
