@@ -83,7 +83,22 @@ Phases, each printing one JSON line:
  12. lstm_words (bf16, one layer, H = 256): phase 11's corpus, vocab,
      sizes and checks, and the recurrence's launches, device time and
      host time per encode and per step (models/lstm.py lstm_pass alone,
-     by torch.profiler).
+     by torch.profiler);
+ 13. hardneg_v5p64 (config 4: BERT-mini, 7 mined negatives a pair) at full
+     width over phase 4's corpus and vocab, 1,024 pairs a step (cut from
+     16,384, a 64-chip mesh's batch), a store of 2 shards: run_pipeline
+     of 2 rounds of 3 steps (in-batch steps, an embed, Recall@10 over
+     1,000 queries, a mine of 7 negatives per page from the top 100;
+     then steps with them, an embed, Recall@10), every launch counter read
+     after each stage (K1, K2, K3 8 times an in-batch step and 12 a step
+     with negatives, K1 4 times an encode, all on the tensor cores; K4,
+     the summary and gdead never); the mined table in range and never the
+     gold page; the mine's sweep equal to a plain top-100 of the store
+     staged whole except at ties, and the table to the plain retrieval's
+     picks except in rows a tie touched; then 6 steps with negatives on
+     pre-made batches (the first 2 warm up), profiled, bitwise twice,
+     flash vs dense gradients on 128 pairs and their 896 negatives, and
+     the peak memory (<= 80 GB).
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The kernel checks also hold the segment (seg) variants of K1 (against
@@ -112,6 +127,7 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
@@ -227,6 +243,26 @@ E2E_CDSSM = {"data.num_pages": 600, "data.trigram_buckets": 4096,
              "train.log_every": 40, "eval.eval_queries": 200,
              "eval.embed_batch_size": 128}
 E2E_RECALL_BAR = 0.5
+# Phase 13, hardneg_v5p64 (config 4): BERT-mini at full width over phase
+# 4's corpus and vocab, 1,024 pairs a step with 7 mined negatives each
+# (8,192 page encodes), cut from the config's 16,384 pairs, the global
+# batch of a 64-chip mesh; the 100M-page corpus cut to phase 4's 100,000
+# pages in 2 store shards, so the sweep crosses a shard. run_pipeline
+# takes 2 rounds of 3 steps; the mine keeps the top 100 of each query.
+# Flash vs dense gradients with negatives on the first 128 pairs (and
+# their 896 negatives), at BERT-mini's bound.
+HARDNEG = "hardneg_v5p64"
+HARDNEG_BATCH = 1_024
+HARDNEG_SHARD = 65_536
+HARDNEG_ROUND_STEPS = 3
+HARDNEG_SEARCH_K = 100
+HARDNEG_GRAD_PAIRS = 128
+# the sweep against a plain top-k of the store staged whole: ids equal
+# except where two pages tie (their scores at that rank within
+# TIE_SCORE_TOL), scores within SWEEP_SCORE_TOL
+TIE_SCORE_TOL = 1e-6
+SWEEP_SCORE_TOL = 1e-5
+PEAK_LIMIT_GB = 80.0
 TRANSFORMERS = ("bert", "t5")
 
 
@@ -1640,12 +1676,13 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
 
 def _grads(model, batch, generator=None) -> dict:
     """Parameter gradients of the contrastive loss on one batch (packed
-    rows when it has "page_seg")."""
+    rows when it has "page_seg", mined negatives when it has
+    "neg_page")."""
     from dnn_page_vectors_tpu_torch.models.losses import (
         cosine_contrastive_loss)
     model.zero_grad(set_to_none=True)
-    q, p, neg, scale = model(batch["query"], batch["page"], None,
-                             generator=generator,
+    q, p, neg, scale = model(batch["query"], batch["page"],
+                             batch.get("neg_page"), generator=generator,
                              page_seg=batch.get("page_seg"),
                              page_pos=batch.get("page_pos"))
     loss, _ = cosine_contrastive_loss(q, p, scale, neg)
@@ -2099,6 +2136,337 @@ def cdssm_quality(device, workdir: str) -> dict:
     return rec
 
 
+# -- phase 13: hard-negative mining (config 4) ---------------------------------
+
+def launch_counts() -> dict:
+    """Every kernel launch counter of the port, by name."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    return {name: getattr(fa, name) for name in fa.COUNTERS}
+
+
+@contextlib.contextmanager
+def pipeline_stages(stages: list, captured: dict):
+    """While open, each stage of run_pipeline (Trainer.train,
+    BulkEmbedder.embed_corpus, and the pipeline's evaluate_recall and
+    mine_hard_negatives) appends {stage, host seconds, the launches each
+    counter gained in it} to `stages`, read just after the stage; the
+    mine's sweep leaves its query vectors and results, and the store's
+    rows, in `captured` (the next round's embed resets the store)."""
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.mine import ann
+    from dnn_page_vectors_tpu_torch.train import pipeline
+    from dnn_page_vectors_tpu_torch.train.loop import Trainer
+    last = [launch_counts()]
+    saved = (Trainer.train, BulkEmbedder.embed_corpus,
+             pipeline.evaluate_recall, pipeline.mine_hard_negatives,
+             ann.topk_over_store)
+
+    def staged(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            now = launch_counts()
+            stages.append({"stage": name, "seconds": secs,
+                           "launches": {k: now[k] - last[0][k]
+                                        for k in now}})
+            last[0] = now
+            return out
+        return run
+
+    def mine(embedder, corpus, store, **kwargs):
+        out = staged("mine", saved[3])(embedder, corpus, store, **kwargs)
+        captured["store"] = store.load_all()
+        return out
+
+    def sweep(query_vecs, store, **kwargs):
+        scores, ids = saved[4](query_vecs, store, **kwargs)
+        for key, val in (("queries", query_vecs), ("scores", scores),
+                         ("ids", ids)):
+            captured.setdefault(key, []).append(val)
+        return scores, ids
+
+    Trainer.train = staged("train", saved[0])
+    BulkEmbedder.embed_corpus = staged("embed", saved[1])
+    pipeline.evaluate_recall = staged("eval", saved[2])
+    pipeline.mine_hard_negatives = mine
+    ann.topk_over_store = sweep
+    try:
+        yield
+    finally:
+        (Trainer.train, BulkEmbedder.embed_corpus, pipeline.evaluate_recall,
+         pipeline.mine_hard_negatives, ann.topk_over_store) = saved
+
+
+def expected_launches(k1: int, k2k3: int) -> dict:
+    """Every counter as a stage of phase 13 must read it: K1 `k1` times,
+    K2 and K3 `k2k3` times each, all on the tensor cores (bf16), nothing
+    with seg, no K4, no summary, no gdead."""
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    want = dict.fromkeys(fa.COUNTERS, 0)
+    for name, n in (("launches", k1), ("dq_launches", k2k3),
+                    ("dkv_launches", k2k3)):
+        want[name] = want[name + "_tc"] = n
+    return want
+
+
+def check_sweep(device, captured: dict, table: np.ndarray, H: int) -> dict:
+    """The mine's sweep (topk_over_store, a shard at a time) against a
+    plain top-k of the same fp16 store staged whole: f32 q @ store^T in
+    query blocks, then torch.topk, for every query. Ids must be equal
+    except at ties (where they differ, the two scores at that rank within
+    TIE_SCORE_TOL), scores within SWEEP_SCORE_TOL; the mined table must
+    equal _pick_negatives of the plain retrieval except in rows a tie
+    touched."""
+    from dnn_page_vectors_tpu_torch.mine.ann import _pick_negatives
+    q = np.concatenate(captured["queries"])
+    got_s = np.concatenate(captured["scores"])
+    got_i = np.concatenate(captured["ids"])
+    ids, vecs = captured["store"]
+    k = got_i.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = torch.from_numpy(vecs).to(device).float()
+    plain_s, plain_i = [], []
+    for s0 in range(0, q.shape[0], 2_048):
+        sc, idx = torch.topk(torch.from_numpy(q[s0: s0 + 2_048]).to(device)
+                             @ pages.T, k, dim=1)
+        plain_s.append(sc.cpu().numpy())
+        plain_i.append(ids[idx.cpu().numpy()])
+    plain_s, plain_i = np.concatenate(plain_s), np.concatenate(plain_i)
+    plain_sweep_s = time.perf_counter() - t0
+    del pages
+    score_err = float(np.abs(got_s - plain_s).max())
+    differ = got_i != plain_i
+    tie_gap = float(np.abs(got_s - plain_s)[differ].max()) \
+        if differ.any() else 0.0
+    if tie_gap > TIE_SCORE_TOL:
+        raise AssertionError(f"the sweep's ids differ from the plain top-k "
+                             f"where the scores differ by {tie_gap}: not a "
+                             "tie")
+    if score_err > SWEEP_SCORE_TOL:
+        raise AssertionError(f"the sweep's scores differ from the plain "
+                             f"top-k by {score_err}")
+    tie_rows = differ.any(axis=1)
+    gold = np.arange(q.shape[0], dtype=np.int64)
+    plain_table = _pick_negatives(plain_i, gold, H, len(ids))
+    table_rows = (plain_table != table).any(axis=1)
+    if (table_rows & ~tie_rows).any():
+        raise AssertionError(f"{int((table_rows & ~tie_rows).sum())} rows of "
+                             "the mined table differ from the plain "
+                             "retrieval's picks with no tie in them")
+    return {"queries": int(q.shape[0]), "store_rows": int(len(ids)), "k": k,
+            "score_max_abs_err": score_err, "score_tol": SWEEP_SCORE_TOL,
+            "tie_score_max_gap": tie_gap, "tie_score_tol": TIE_SCORE_TOL,
+            "tie_swapped_slots": int(differ.sum()),
+            "rows_touched_by_ties": int(tie_rows.sum()),
+            "table_rows_differing_from_plain": int(table_rows.sum()),
+            "plain_sweep_s": plain_sweep_s}
+
+
+def run_hardneg(device, data, workdir: str) -> dict:
+    """Phase 13: hardneg_v5p64 at full width over phase 4's corpus and
+    vocab: run_pipeline (2 rounds of HARDNEG_ROUND_STEPS steps: in-batch
+    training, an embed of the corpus, Recall@10, a mine of 7 negatives per
+    page from the top HARDNEG_SEARCH_K; then training with them, an embed,
+    Recall@10), every launch counter read after each stage; the mined
+    table's checks and the sweep against a plain top-k; then steps with
+    negatives on pre-made batches (timed by CUDA events, profiled, bitwise
+    twice, flash vs dense) and their peak memory."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import TrainBatcher, to_device
+    from dnn_page_vectors_tpu_torch.train.loop import (
+        Trainer, dropout_generator)
+    from dnn_page_vectors_tpu_torch.train.pipeline import run_pipeline
+
+    t_phase = time.perf_counter()
+    corpus, q_tok, p_tok = data
+    n = corpus.num_pages
+    if data_config(HARDNEG, n).data != data_config("bert_mini_v5p16", n).data:
+        raise AssertionError(f"{HARDNEG} and bert_mini_v5p16 no longer share "
+                             "their corpus and vocab")
+    overrides = {"data.num_pages": n, "model.attention": "flash",
+                 "train.batch_size": HARDNEG_BATCH, "train.log_every": 1,
+                 "eval.store_shard_size": HARDNEG_SHARD,
+                 "eval.embed_batch_size": 512}
+    cfg = get_config(HARDNEG, overrides)
+    m, t, e = cfg.model, cfg.train, cfg.eval
+    H, B, R = t.hard_negatives, t.batch_size, HARDNEG_ROUND_STEPS
+    layers = m.num_layers
+
+    def batches_of(block: int, size: int) -> int:
+        return sum(-(-min(block, n - lo) // size)
+                   for lo in range(0, n, block))
+    # one K1 per layer per encode: an in-batch step encodes queries and
+    # pages, a step with negatives the negatives too (and K2, K3 alike)
+    embed = expected_launches(batches_of(e.store_shard_size,
+                                         e.embed_batch_size) * layers, 0)
+    evaluate = expected_launches(
+        -(-min(e.eval_queries, n) // e.embed_batch_size) * layers, 0)
+    mine = expected_launches(batches_of(8_192, e.embed_batch_size) * layers,
+                             0)     # mine_hard_negatives' query blocks
+    in_batch = expected_launches(*2 * [R * 2 * layers])
+    with_negs = expected_launches(*2 * [R * 3 * layers])
+    want = [("train", in_batch), ("embed", embed), ("eval", evaluate),
+            ("mine", mine), ("train", with_negs), ("embed", embed),
+            ("eval", evaluate)]
+
+    # ---- the main path, counted: run_pipeline -----------------------------
+    trainer = Trainer(cfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                      workdir=os.path.join(workdir, "hardneg"), device=device)
+    stages, captured = [], {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with pipeline_stages(stages, captured):
+        out = run_pipeline(cfg, rounds=2, steps_per_round=R, trainer=trainer)
+    torch.cuda.synchronize()
+    pipeline_s = time.perf_counter() - t0
+    total = launch_counts()
+    # ------------------------------------------------------------------
+    got = [(st["stage"], st["launches"]) for st in stages]
+    if got != want:
+        raise AssertionError(f"the pipeline's stages launched {got}, want "
+                             f"{want}")
+    hist = trainer.history
+    if len(hist) != 2 * R or not all(
+            np.isfinite([h["loss"], h["grad_norm"]]).all() and h["loss"] > 0
+            for h in hist):
+        raise AssertionError(f"training metrics are not finite: {hist}")
+    recalls = out["recalls"]
+    if len(recalls) != 2 or not all(0.0 <= r <= 1.0 for r in recalls):
+        raise AssertionError(f"recalls {recalls}")
+    negs = out["negatives"]
+    table = np.asarray(negs.table)
+    if table.shape != (n, H) or table.dtype != np.int32:
+        raise AssertionError(f"mined table {table.shape} {table.dtype}, "
+                             f"want ({n}, {H}) int32")
+    if table.min() < 0 or table.max() >= n:
+        raise AssertionError(f"mined ids out of range [{table.min()}, "
+                             f"{table.max()}]")
+    if (table == np.arange(n)[:, None]).any():
+        raise AssertionError("the mined table holds a gold page")
+    sweep = check_sweep(device, captured, table, H)
+    rounds = []
+    for r in out["rounds"]:
+        row = {"round": r["round"], "step": r["step"],
+               "train_s": r["train_s"],
+               "embed_s": r["embed"]["seconds"],
+               "embed_pages_per_s_from_text": r["embed"]["pages_per_sec"],
+               "eval_s": r["eval_s"], "recall_at_10": r["recall"]}
+        if "mine" in r:
+            mst = r["mine"]
+            row.update(mine_s=mst["seconds"],
+                       mine_query_embed_s=mst["embed_s"],
+                       mine_sweep_s=mst["sweep_s"],
+                       mine_pick_s=mst["pick_s"],
+                       sweep_query_row_products_per_s=(
+                           mst["queries"] * n / mst["sweep_s"]))
+        rounds.append(row)
+    train_from_text_s = out["rounds"][1]["train_s"]
+    del trainer, out, captured
+
+    # ---- steps with negatives on pre-made batches ------------------------
+    t0 = time.perf_counter()
+    host = [b for _, b in zip(range(TRAIN_STEPS), TrainBatcher(
+        corpus, q_tok, p_tok, batch_size=B, seed=t.seed,
+        hard_negative_lookup=negs))]
+    produce_s = time.perf_counter() - t0
+    batches = [{k: to_device(v, device) for k, v in b.items()} for b in host]
+    timed = Trainer(cfg, corpus=corpus, hard_negative_lookup=negs,
+                    tokenizers=(q_tok, p_tok), device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = timed.train_step(b)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(step_ms[TRAIN_WARMUP:]))
+    reset_counts()
+    timed.train_step(batches[0])
+    torch.cuda.synchronize()
+    one_step = launch_counts()
+    per_step = expected_launches(*2 * [3 * layers])
+    if one_step != per_step:
+        raise AssertionError(f"one step with negatives launched {one_step}, "
+                             f"want {per_step}")
+    if not (np.isfinite(losses).all() and peak_gb <= PEAK_LIMIT_GB):
+        raise AssertionError(f"losses {losses}, peak {peak_gb} GB (limit "
+                             f"{PEAK_LIMIT_GB})")
+    profile = device_breakdown(lambda: timed.train_step(batches[1]), iters=1)
+    g1 = _grads(timed.model, batches[2], dropout_generator(t.seed, 0, device))
+    g2 = _grads(timed.model, batches[2], dropout_generator(t.seed, 0, device))
+    differ = [name for name in g1 if not torch.equal(g1[name], g2[name])]
+    if differ:
+        raise AssertionError(f"two runs of one step with negatives gave "
+                             f"different gradients for {differ}")
+    del g1, g2, timed
+    bf16 = flash_vs_dense(HARDNEG, overrides, p_tok.vocab_size,
+                          _take(batches[2], HARDNEG_GRAD_PAIRS, 1), device,
+                          "bfloat16")
+    if not (bf16["max_rel_err"] <= FLASH_DENSE_GRAD_TOL
+            and bf16["key_bias_over_wk"] <= KEY_BIAS_GRAD_TOL):
+        raise AssertionError(f"flash vs dense gradients with negatives "
+                             f"differ: {bf16} (bound {FLASH_DENSE_GRAD_TOL})")
+    del batches
+
+    names = ("k1", "k2", "k3", "k4")
+    keys = ("launches", "dq_launches", "dkv_launches", "dq_dbias_launches")
+    rec = {
+        "phase": "hardneg", "config": cfg.name, **widths(cfg),
+        "page_len": cfg.data.page_len, "query_len": cfg.data.query_len,
+        "vocab": p_tok.vocab_size, "dtype": m.dtype, "dropout": m.dropout,
+        "pages": n, "store_shard_size": e.store_shard_size,
+        "batch_pairs": B,
+        "config_batch_pairs": get_config(HARDNEG).train.batch_size,
+        "negatives": H, "page_encodes_per_step": B * (1 + H),
+        "search_k": HARDNEG_SEARCH_K, "round_steps": R,
+        "pipeline_s": pipeline_s, "rounds": rounds,
+        "stages": [{**st, "launches": {k: v for k, v in st["launches"].items()
+                                       if v}} for st in stages],
+        "recalls_random_weights": recalls,
+        "table": {"shape": list(table.shape), "dtype": str(table.dtype),
+                  "min": int(table.min()), "max": int(table.max())},
+        "sweep_check": sweep,
+        "train_pairs_per_s_from_text": R * B / train_from_text_s,
+        "train_page_encodes_per_s_from_text":
+            R * B * (1 + H) / train_from_text_s,
+        "host_batch_produce_s": produce_s / TRAIN_STEPS,
+        "median_step_ms": med, "step_ms_cuda_events": step_ms,
+        "losses": losses,
+        "pairs_per_s_device": B / (med / 1e3),
+        "page_encodes_per_s_device": B * (1 + H) / (med / 1e3),
+        "host_share": 1.0 - profile["device_ms_per_call"] / med,
+        "device_busy_share": profile["device_ms_per_call"] / med,
+        "peak_memory_gb": peak_gb, "peak_limit_gb": PEAK_LIMIT_GB,
+        "step_profile": profile,
+        "launches_main_path": {nm: total[k] for nm, k in zip(names, keys)},
+        "launches_tensor_core_main_path": {
+            nm: total[k + "_tc"] for nm, k in zip(names, keys)},
+        "launches_seg_main_path": {
+            nm: total[k + "_seg"] for nm, k in zip(names, keys)},
+        "launches_one_step": {nm: one_step[k] for nm, k in zip(names, keys)},
+        "seg_summary_launches_main_path": total["seg_summary_launches"],
+        "gdead_launches_main_path": total["gdead_launches"],
+        "bitwise_equal_grads": True,
+        "flash_vs_dense_grads_bf16": {**bf16, "tol": FLASH_DENSE_GRAD_TOL,
+                                      "pairs": HARDNEG_GRAD_PAIRS,
+                                      "negatives": HARDNEG_GRAD_PAIRS * H},
+        "seconds": time.perf_counter() - t_phase,
+        "device": torch.cuda.get_device_name(0),
+    }
+    emit(rec)
+    return rec
+
+
 # the bool template flags of each templated kernel, in order
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
@@ -2189,7 +2557,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
                ) -> list:
-    """Phases 2-12; fills `report` and returns the `kernels` line's
+    """Phases 2-13; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers; with `parent` (another tree of the port) the kernels
     are also timed against it."""
@@ -2286,6 +2654,8 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
             report[f"{cell}_train"] = run_training(device, cell, words, tmp)
         emit({"phase": "phases_10_to_12", "seconds":
               time.perf_counter() - t_zoo})
+        # phase 13: hard-negative mining over phase 4's corpus and vocab
+        report["hardneg"] = run_hardneg(device, bert, tmp)
     return kernel_entries(report)
 
 
@@ -2325,7 +2695,8 @@ def kernel_entries(report: dict) -> list:
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
                 ("mt5_packed_training", report["mt5_pack_train"]),
-                *((f"{z}_training", report[f"{z}_train"]) for z in zoo))
+                *((f"{z}_training", report[f"{z}_train"]) for z in zoo),
+                ("hardneg_pipeline", report["hardneg"]))
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],

@@ -13,7 +13,10 @@ training path (``train/loop.py:Trainer``: TrainBatcher -> both towers ->
 cosine-contrastive loss -> backward -> clip + AdamW -> checkpoints), with
 the flash-attention forward and backward as hand-written CUDA kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), sequence packing for the
-transformer towers, and the CDSSM (trigram), Kim-CNN and BiLSTM (word)
-towers on torch ops. Entry points run on ``cuda`` unless the caller
+transformer towers, the CDSSM (trigram), Kim-CNN and BiLSTM (word)
+towers on torch ops, and hard-negative mining (``mine/ann.py``: the query
+tower against the store streamed a shard at a time, ``ops/topk.py
+topk_over_store``) with the train -> embed -> mine -> train loop of
+``train/pipeline.py``. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU present they raise.
 """

@@ -1,8 +1,9 @@
 """Config dataclasses for the port: the fields the serving and training
-slices (BERT-mini, mT5, sequence packing, and the CDSSM, Kim-CNN and
-BiLSTM towers) read, with the JAX package's names and defaults (its
-config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``, ``lstm_words``,
-``bert_mini_v5p16``, ``mt5_multilingual`` and ``bert_long_sp`` presets,
+slices (BERT-mini, mT5, sequence packing, the CDSSM, Kim-CNN and BiLSTM
+towers, and hard-negative mining) read, with the JAX package's names and
+defaults (its config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``,
+``lstm_words``, ``bert_mini_v5p16``, ``hardneg_v5p64``,
+``mt5_multilingual`` and ``bert_long_sp`` presets,
 and ``get_config`` with dotted overrides.
 
 Sections and fields of later slices (mesh, scan_steps, index, fleet,
@@ -64,9 +65,9 @@ class TrainConfig:
     warmup_steps: int = 100
     weight_decay: float = 0.01
     temperature_init: float = 20.0   # learnable inverse-temperature init
-    hard_negatives: int = 0          # mined negatives per positive (mining
-                                     # is a later slice: Trainer raises
-                                     # above 0; the loss takes negatives)
+    hard_negatives: int = 0          # mined negatives per positive
+                                     # (mine/ann.py; train/pipeline.py
+                                     # mines them between rounds)
     checkpoint_every: int = 500
     log_every: int = 50
     # >0: the chunked contrastive loss (models/losses.py) scores this many
@@ -204,6 +205,28 @@ def bert_mini_v5p16() -> Config:
     )
 
 
+def hardneg_v5p64() -> Config:
+    """Config 4: hard-negative ANN-mined contrastive training over a
+    100M-page corpus: config 3's BERT-mini towers and WordPiece vocab, 7
+    mined negatives per pair (train/pipeline.py alternates training with
+    mining them, mine/ann.py). The batch of 16,384 pairs is the global
+    batch of the JAX config's 64-chip mesh: with its negatives, 131,072
+    page encodes of 64 tokens a step. One card holds about 1,024 pairs
+    (8,192 page encodes plus 1,024 queries, about bert_mini_v5p16's step
+    of 8,192 pages and 8,192 queries, which fits one 80 GB card), so a
+    single-card run cuts the batch, and the corpus, with
+    ``train.batch_size`` and ``data.num_pages`` overrides."""
+    return Config(
+        name="hardneg_v5p64",
+        data=DataConfig(tokenizer="wordpiece", corpus="toy",
+                        num_pages=100_000_000, vocab_size=30_522),
+        model=ModelConfig(encoder="bert", num_layers=4, num_heads=4,
+                          model_dim=256, mlp_dim=1024, out_dim=256),
+        train=TrainConfig(batch_size=16_384, steps=200_000,
+                          hard_negatives=7, learning_rate=5e-4),
+    )
+
+
 def mt5_multilingual() -> Config:
     """Config 5: multilingual mT5-base page encoder with cross-lingual
     retrieval. mT5-base encoder: L=12, d=768, A=12 (Dh=64), ff 2048 (gated
@@ -249,6 +272,7 @@ CONFIGS = {
     "kim_cnn_v5e8": kim_cnn_v5e8,
     "lstm_words": lstm_words,
     "bert_mini_v5p16": bert_mini_v5p16,
+    "hardneg_v5p64": hardneg_v5p64,
     "mt5_multilingual": mt5_multilingual,
     "bert_long_sp": bert_long_sp,
 }

@@ -1,8 +1,9 @@
 """Corpus -> vector bulk-embed job on one device.
 
-Counterpart of the JAX package's infer/bulk_embed.py. The page tower runs
-in eval mode under ``torch.inference_mode``; every output row is
-L2-normalized in float32.
+Counterpart of the JAX package's infer/bulk_embed.py. The towers run in
+eval mode under ``torch.inference_mode`` (each encode sets eval mode, as
+a Trainer that shares the model sets train mode at each step); every
+output row is L2-normalized in float32.
 
 Dtype contract (as in the JAX package): page vectors leave the card as
 FLOAT16 (the store's own rounding, applied before the device->host copy,
@@ -42,16 +43,24 @@ class BulkEmbedder:
         self.stats: Dict[str, float] = {}
 
     # -- device-side encodes ---------------------------------------------
+    def _eval_mode(self) -> None:
+        # a Trainer sharing the model (the mining pipeline) sets train mode
+        # at each of its steps
+        if self.model.training:
+            self.model.eval()
+
     @torch.inference_mode()
     def encode_pages(self, ids: torch.Tensor) -> torch.Tensor:
         """[B, page_len] ids on the device -> [B, D] float16 rows, on the
         device."""
+        self._eval_mode()
         return l2_normalize(self.model.encode_page(ids)).to(torch.float16)
 
     @torch.inference_mode()
     def encode_queries(self, ids: torch.Tensor) -> torch.Tensor:
         """[B, query_len] ids on the device -> [B, D] float32 rows, on the
         device."""
+        self._eval_mode()
         return l2_normalize(self.model.encode_query(ids))
 
     # -- host in, host out -----------------------------------------------

@@ -15,6 +15,9 @@ the finished ones. Each entry records the byte size and CRC32 of its files;
 ``verify()`` re-checks them on open and quarantines (renames aside and
 drops) any shard whose bytes no longer match, so resume re-embeds it.
 
+Readers take the whole store (``load_all``) or a shard at a time
+(``iter_shards``, optionally read ahead on a thread: ``read_ahead``).
+
 This is the fp16 base-store subset. int8 stores, append generations,
 per-row attributes and per-writer manifests are later slices: a store that
 uses any of them is refused with NotImplementedError rather than read in
@@ -25,10 +28,60 @@ from __future__ import annotations
 import glob
 import json
 import os
+import queue as queue_mod
+import threading
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+
+def read_ahead(it, depth: int = 1):
+    """Drain the iterator `it` on a background reader thread, at most
+    `depth` items ahead of the consumer, so the next shard's disk read
+    overlaps the consumer's device work on the current one (the streaming
+    top-k sweep, ops/topk.py ``topk_over_store``). The queue is bounded: a
+    slow consumer holds the reader back, and host memory stays O(depth)
+    items. The reader's first exception is raised at the consumer as
+    itself, after the items before it; a consumer that stops early (break,
+    close, an error) stops the reader and joins it."""
+    q: "queue_mod.Queue[object]" = queue_mod.Queue(maxsize=max(1, depth))
+    done = object()
+    stop = threading.Event()
+    err: List[BaseException] = []
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def _read():
+        try:
+            for item in it:
+                if not _put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 -- re-raised consumer-side
+            err.append(e)
+        finally:
+            _put(done)
+
+    t = threading.Thread(target=_read, daemon=True, name="shard-reader")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            yield item
+    finally:
+        stop.set()
+        t.join()
+        if err:
+            raise err[0]
 
 
 def crc_file(path: str) -> int:
@@ -276,6 +329,28 @@ class VectorStore:
                        mmap_mode="r")
         ids = np.load(os.path.join(self.directory, entry["ids"]))
         return ids, vecs
+
+    def iter_shards(self, prefetch: int = 0,
+                    entries: Optional[List[Dict]] = None
+                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield (ids [n] int64, vecs [n, dim] float16) a shard at a time,
+        in shard order. With `prefetch` > 0 a reader thread (read_ahead)
+        loads up to `prefetch` shards ahead and reads each memory-mapped
+        vector file into memory on its side: the memmap defers the disk
+        read to the first touch, which would otherwise fall back on the
+        consumer. `entries` sweeps the given shard entries instead of the
+        manifest's."""
+        if entries is None:
+            entries = self.shards()
+        if not prefetch:
+            return (self._load_entry(s) for s in entries)
+
+        def _load():
+            for s in entries:
+                ids, vecs = self._load_entry(s)
+                yield ids, np.array(vecs)
+
+        return read_ahead(_load(), depth=prefetch)
 
     def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
         """Concatenated (ids [N] int64, vectors [N, D] float16)."""

@@ -10,6 +10,16 @@ packed into rows with segment ids (sequence packing), and the kernels take
 the segments.
 PyTorch runs eagerly: there is no compiled step and no donated state.
 
+With ``train.hard_negatives`` > 0 and a ``hard_negative_lookup`` (a
+mined table, mine/ann.py ``HardNegatives``), each batch carries
+"neg_page" [B, H, page_len] and the page tower encodes the negatives too;
+without a lookup the trainer trains on in-batch negatives alone, as round
+0 of the mining pipeline (train/pipeline.py) does.
+
+Every step puts the model into train mode before its forward: an embed
+between steps (the pipeline's ``BulkEmbedder`` shares the model and sets
+eval mode) must not leave the next steps without dropout.
+
 The loop reads metrics off the device only at the log cadence (every
 ``train.log_every`` steps and at the end), where it writes one jsonl line
 with ``loss``, ``in_batch_acc``, ``scale``, ``grad_norm`` and
@@ -17,15 +27,14 @@ with ``loss``, ``in_batch_acc``, ``scale``, ``grad_norm`` and
 and keeps it in ``history``.
 
 Later slices: the telemetry registry and fault counters, ``scan_steps``,
-the tokenizer worker pool, hard-negative mining, and data parallelism over
-several cards.
+the tokenizer worker pool, and data parallelism over several cards.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,17 +68,17 @@ class Trainer:
     ``device="cpu"``. ``tokenizers=(query_tok, page_tok)`` skips
     ``build_tokenizer``: anything with ``vocab_size`` and ``encode_batch``
     works. ``workdir`` (optional) caches the tokenizer and receives
-    ``metrics.jsonl``; without it nothing is written."""
+    ``metrics.jsonl``; without it nothing is written.
+    ``hard_negative_lookup`` maps [B] gold page ids to [B, H] negative page
+    ids (mine/ann.py ``HardNegatives``); it may be set or replaced between
+    calls of ``train``."""
 
     def __init__(self, cfg: Config, corpus=None,
+                 hard_negative_lookup: Optional[
+                     Callable[[np.ndarray], np.ndarray]] = None,
                  workdir: Optional[str] = None,
                  tokenizers: Optional[Tuple[Any, Any]] = None,
                  device: DeviceLike = None):
-        if cfg.train.hard_negatives > 0:
-            raise NotImplementedError(
-                f"train.hard_negatives={cfg.train.hard_negatives}: "
-                "hard-negative mining is a later slice of the port (the "
-                "loss takes negatives, but nothing mines them yet)")
         if cfg.train.pack_pages > 1 and cfg.model.encoder not in ("bert",
                                                                    "t5"):
             raise ValueError(
@@ -89,6 +98,7 @@ class Trainer:
                                      device=self.device).train()
         self.optimizer = make_optimizer(cfg.train,
                                         self.model.named_parameters())
+        self.hard_negative_lookup = hard_negative_lookup
         self.step = 0
         self.history: List[Dict[str, float]] = []
 
@@ -121,7 +131,9 @@ class Trainer:
         batcher = TrainBatcher(
             self.corpus, self.query_tok, self.page_tok,
             batch_size=self.cfg.train.batch_size, seed=self.cfg.train.seed,
-            start_step=self.step, pack=self.cfg.train.pack_pages)
+            start_step=self.step,
+            hard_negative_lookup=self.hard_negative_lookup,
+            pack=self.cfg.train.pack_pages)
         for batch in batcher:
             yield {k: to_device(v, self.device) for k, v in batch.items()}
 
@@ -132,6 +144,7 @@ class Trainer:
         mined negatives, "page_seg" and "page_pos" when its pages are
         packed); returns the step's metrics as device scalars."""
         gen = dropout_generator(self.cfg.train.seed, self.step, self.device)
+        self.model.train()
         q, p, neg, scale = self.model(
             batch["query"], batch["page"], batch.get("neg_page"),
             generator=gen, page_seg=batch.get("page_seg"),
@@ -175,6 +188,11 @@ class Trainer:
 
     def _log(self, line: Dict[str, float]) -> None:
         self.history.append(line)
+        self.write_metrics(line)
+
+    def write_metrics(self, line: Dict[str, Any]) -> None:
+        """Appends one timestamped line to ``<workdir>/metrics.jsonl``
+        (nothing without a workdir)."""
         if self.workdir:
             rec = {"ts": time.time(), **line}
             with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:

@@ -337,7 +337,69 @@ def test_trainer_defaults_to_cuda():
         Trainer(cfg, corpus=ToyCorpus(**CORPUS))
 
 
-def test_trainer_refuses_hard_negatives_until_mining_lands():
-    cfg = get_config("bert_mini_v5p16", {**SMALL, "train.hard_negatives": 4})
-    with pytest.raises(NotImplementedError, match="mining"):
-        Trainer(cfg, corpus=ToyCorpus(**CORPUS), device="cpu")
+# -- hard negatives -------------------------------------------------------------
+
+def test_hard_negatives_without_a_lookup_train_in_batch(tokenizers):
+    """train.hard_negatives=7 and no mined table yet (round 0 of the
+    mining pipeline): the batches carry no negatives and the steps equal
+    those of a trainer without negatives, bit for bit."""
+    _, (tc, toks) = tokenizers
+    losses = []
+    for h in (7, 0):
+        cfg = get_config("bert_mini_v5p16", {**SMALL,
+                                             "train.hard_negatives": h})
+        tr = Trainer(cfg, corpus=tc, tokenizers=toks, device="cpu")
+        assert tr.hard_negative_lookup is None
+        assert "neg_page" not in next(tr.batches())
+        tr.train(2)
+        losses.append([line["loss"] for line in tr.history])
+    assert losses[0] == losses[1]
+
+
+def test_a_lookup_batches_negatives(tokenizers):
+    _, (tc, toks) = tokenizers
+    cfg = get_config("bert_mini_v5p16", {**SMALL, "train.hard_negatives": 7})
+    lookup = lambda ids: (ids[:, None] + np.arange(1, 8)) % tc.num_pages
+    tr = Trainer(cfg, corpus=tc, hard_negative_lookup=lookup,
+                 tokenizers=toks, device="cpu")
+    batch = next(tr.batches())
+    assert tuple(batch["neg_page"].shape) == (32, 7, 32)
+    gold = batch["page_id"].numpy()
+    want = toks[1].encode_batch(
+        [tc.page_text(int(i)) for i in lookup(gold).reshape(-1)])
+    np.testing.assert_array_equal(batch["neg_page"].numpy().reshape(
+        want.shape), want)
+    m = tr.train_step(batch)
+    assert np.isfinite(float(m["loss"])) and tr.step == 1
+    # the negatives enter the loss: the same step without them differs
+    plain = Trainer(cfg, corpus=tc, tokenizers=toks, device="cpu")
+    m0 = plain.train_step({k: v for k, v in batch.items()
+                           if k != "neg_page"})
+    assert float(m0["loss"]) != float(m["loss"])
+
+
+def test_a_step_after_an_embed_draws_the_same_dropout_masks(tokenizers):
+    """The mining pipeline embeds with the trainer's own model, which the
+    embedder puts into eval mode; the next step must still train with
+    dropout: its loss equals, bit for bit, that of a trainer that never
+    embedded (dropout 0.1)."""
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    _, (tc, toks) = tokenizers
+    embedded = _port_trainer("dense", "float32", 0.1, tc, toks)
+    straight = _port_trainer("dense", "float32", 0.1, tc, toks)
+    embedded.train(1)
+    straight.train(1)
+    emb = BulkEmbedder(embedded.cfg, embedded.model, toks[1],
+                       query_tok=toks[0], device="cpu")
+    emb.embed_texts([tc.page_text(i) for i in range(8)], tower="page")
+    emb.embed_texts([tc.query_text(i) for i in range(8)], tower="query")
+    assert not embedded.model.training
+    embedded.train(2)
+    straight.train(2)
+    assert embedded.model.training
+    assert [h["loss"] for h in embedded.history] == \
+        [h["loss"] for h in straight.history]
+    # dropout was on: without it the same steps end elsewhere
+    plain = _port_trainer("dense", "float32", 0.0, tc, toks)
+    plain.train(3)
+    assert plain.history[-1]["loss"] != straight.history[-1]["loss"]
