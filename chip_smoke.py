@@ -98,7 +98,32 @@ Phases, each printing one JSON line:
      picks except in rows a tie touched; then 6 steps with negatives on
      pre-made batches (the first 2 warm up), profiled, bitwise twice,
      flash vs dense gradients on 128 pairs and their 896 negatives, and
-     the peak memory (<= 80 GB).
+     the peak memory (<= 80 GB);
+ 14. retrieval through the IVF/PQ index and the int8 store (config 3 at
+     full width, phase 4's weights, corpus and vocab): (a) the 100,000
+     pages bulk embedded into an int8 store (quantized on the card, 2
+     shards), a plain IVF index over phase 4's fp16 store and an IVF-PQ
+     one (32 bytes a row) over the int8 store (auto nlist 316, 8 k-means
+     iterations, k-means++, seed 0, OPQ 3 iterations), SearchService with
+     serve.index="ivf" answering 32 queries and 200 single ones,
+     Recall@10 over 1,000 queries and a mine of 10,000 queries through
+     the index at nprobe 16, every launch counter read after (K1 4 times
+     an encode, nothing else); the checks: the int8 codes and scales equal
+     the host quantization of the fp16 store's rows byte for byte, two
+     seeded builds byte for byte, full probe (with every candidate
+     re-ranked) equal to the exact sweep except at ties for the plain and
+     the PQ payload over both stores, the survivors of ADC (adc_topr at
+     full probe, the default re-rank depth 80) equal to a plain top-80 of
+     the decoded codes on the host except at ties, for both PQ indexes,
+     the card's search equal to the CPU's on the same index files, no
+     exact fallback, the mined table in range
+     and never the gold page (and its agreement with an exact mine); (b)
+     a plain IVF and an IVF-PQ index over 1,000,000 rows (page-tower
+     encodes of random id rows, cut from config 3's 10M pages); printed:
+     recall against exact at nprobe 8, 16, 32 and 64 for every index,
+     the build's seconds by stage, the lists' imbalance, single-query p50
+     and p95 of the IVF and the exact service, one search_many's time by
+     stage and on the card by kernel class, and the peak memory.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The kernel checks also hold the segment (seg) variants of K1 (against
@@ -262,6 +287,29 @@ HARDNEG_GRAD_PAIRS = 128
 # TIE_SCORE_TOL), scores within SWEEP_SCORE_TOL
 TIE_SCORE_TOL = 1e-6
 SWEEP_SCORE_TOL = 1e-5
+# Phase 14, retrieval through the IVF/PQ index and the int8 store at config
+# 3's full width. (a) phase 4's 100,000 pages embedded into an int8 store
+# (65,536-row shards: the index crosses a shard edge), a plain IVF index
+# over phase 4's fp16 store and an IVF-PQ one (pq_m 32) over the int8
+# store, both at auto nlist (316), 8 k-means iterations, k-means++, seed 0,
+# OPQ 3 iterations; the service, Recall@10 over IVF_EVAL_QUERIES and a mine
+# of IVF_MINE_QUERIES queries through the index at IVF_MINE_NPROBE.
+# (b) a store of IVF_BIG_ROWS rows, cut from config 3's 10M pages for the
+# run's time limit: page-tower encodes of seeded random WordPiece id rows
+# drawn on the card, so the host tokenizer does not set the time; a plain
+# IVF and an IVF-PQ index at auto nlist (1,000) and IVF_EVAL_QUERIES query
+# encodes of random id rows. Recall against exact is printed at
+# IVF_NPROBES; full probe is checked on IVF_CHECK_QUERIES queries, with
+# every candidate surviving the ADC cut (full probe with a full re-rank is
+# exact search).
+IVF_PQ_M = 32
+IVF_EVAL_QUERIES = 1_000
+IVF_MINE_QUERIES = 10_000
+IVF_MINE_NPROBE = 16
+IVF_NPROBES = (8, 16, 32, 64)
+IVF_CHECK_QUERIES = 32
+IVF_BIG_ROWS = 1_000_000
+IVF_SEED = 0
 PEAK_LIMIT_GB = 80.0
 TRANSFORMERS = ("bert", "t5")
 
@@ -2467,6 +2515,535 @@ def run_hardneg(device, data, workdir: str) -> dict:
     return rec
 
 
+# -- phase 14: the IVF/PQ index and the int8 store ---------------------------
+
+def npy_bytes(directory: str) -> dict:
+    """Every .npy file of a directory, by name, as bytes."""
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        if name.endswith(".npy"):
+            with open(os.path.join(directory, name), "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+def copy_store(store, path: str):
+    """A copy of the store's files at `path` without its index, opened."""
+    import shutil
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    shutil.copytree(store.directory, path,
+                    ignore=shutil.ignore_patterns("ivf"))
+    return VectorStore(path)
+
+
+def check_int8_store(fp16, q8) -> dict:
+    """The int8 store the bulk embed quantized on the card against the host
+    quantization of the fp16 store's rows of the same weights: codes,
+    scales and ids byte for byte, and the dequantized rows within half a
+    scale of the fp16 rows."""
+    from dnn_page_vectors_tpu_torch.infer.vector_store import quantize_rows
+    if [s["count"] for s in fp16.shards()] != \
+            [s["count"] for s in q8.shards()]:
+        raise AssertionError("the int8 store's shards differ from the fp16 "
+                             "store's")
+    worst = 0.0
+    for (ids16, v16, _), (ids8, codes, scl) in zip(
+            fp16.iter_shards(raw=True), q8.iter_shards(raw=True)):
+        h_codes, h_scl = quantize_rows(v16)
+        if not (np.array_equal(ids16, ids8)
+                and np.array_equal(np.asarray(codes), h_codes)
+                and np.array_equal(scl, h_scl)):
+            raise AssertionError("int8 codes or scales quantized on the card "
+                                 "differ from the host's quantization")
+        s = scl.astype(np.float32)[:, None]
+        err = np.abs(np.asarray(codes, np.float32) * s
+                     - np.asarray(v16, np.float32))
+        if not (err <= s / 2).all():
+            raise AssertionError("dequantized rows are over half a scale "
+                                 "from the fp16 rows")
+        worst = max(worst, float((err / np.maximum(s, 1e-12)).max()))
+    return {"rows": q8.num_vectors, "codes_scales_equal_host": True,
+            "max_err_in_scales": worst,
+            "store_mb": {"fp16": fp16.num_vectors * fp16.row_bytes / 1e6,
+                         "int8": q8.num_vectors * q8.row_bytes / 1e6}}
+
+
+def ties_only(got_s, got_i, want_s, want_i, what: str) -> int:
+    """Two top-k answers of the same rows: the same id set in every row
+    except at ties (an id of one that the other lacks scores within
+    TIE_SCORE_TOL of the other's k-th score), scores in rank order within
+    SWEEP_SCORE_TOL. Returns the rows a tie touched."""
+    err = float(np.abs(got_s - want_s).max())
+    if err > SWEEP_SCORE_TOL:
+        raise AssertionError(f"{what}: scores differ by {err}")
+    touched = 0
+    for gs, gi, ws, wi in zip(got_s, got_i, want_s, want_i):
+        extra = set(gi.tolist()) ^ set(wi.tolist())
+        if not extra:
+            continue
+        kth = min(gs[-1], ws[-1])
+        score = {**dict(zip(wi.tolist(), ws)), **dict(zip(gi.tolist(), gs))}
+        if any(abs(score[i] - kth) > TIE_SCORE_TOL for i in extra):
+            raise AssertionError(f"{what}: id sets differ at a non-tie: "
+                                 f"{sorted(extra)}")
+        touched += 1
+    return touched
+
+
+def check_full_probe(index, store, q: np.ndarray, device) -> dict:
+    """nprobe = nlist with every candidate re-ranked (rerank = N) against
+    the exact sweep (topk_over_store) of the same store."""
+    from dnn_page_vectors_tpu_torch.ops.topk import topk_over_store
+    want_s, want_i = topk_over_store(q, store, k=10, device=device)
+    got_s, got_i, st = index.search(q, k=10, nprobe=index.nlist,
+                                    rerank=store.num_vectors)
+    return {"queries": int(q.shape[0]), "nprobe": index.nlist,
+            "rows_touched_by_ties": ties_only(got_s, got_i, want_s, want_i,
+                                              "full probe vs exact"),
+            "candidates_reranked": st["candidates_reranked"]}
+
+
+def check_adc_survivors(index, q: np.ndarray, device, k: int = 10) -> dict:
+    """adc_topr at full probe and the search's default re-rank depth
+    (max(8k, 64) survivors a query) against a plain top-r on the host:
+    every code row decoded (its codewords @ R^T) and scored against each
+    query in float64. The survivors' scores agree with the plain ones
+    within SWEEP_SCORE_TOL, and every survivor's plain score is within
+    SWEEP_SCORE_TOL of the plain r-th or above it (the id sets agree except
+    at ties)."""
+    from dnn_page_vectors_tpu_torch.index.pq import adc_topr
+    pq, r = index.pq, max(8 * k, 64)
+    _, cent, _, _, codes = index._gather(np.arange(index.nlist), codes=True)
+    qd = torch.from_numpy(q).to(device)
+    sel = torch.arange(index.nlist, device=device)[None].expand(len(q), -1)
+    got_s, got_p = adc_topr(pq.lut(qd), torch.from_numpy(codes).to(device),
+                            torch.from_numpy(cent).to(device), sel, r=r)
+    got_s, got_p = got_s.cpu().numpy(), got_p.cpu().numpy()
+    words = pq.codebooks[np.arange(pq.m)[None], codes.astype(np.int64)]
+    rows = words.reshape(len(codes), -1).astype(np.float64) \
+        @ pq.rotation.T.astype(np.float64)
+    plain = q.astype(np.float64) @ rows.T                       # [B, C]
+    plain[:, cent < 0] = -np.inf                                # dead rows
+    kth = -np.partition(-plain, r - 1, axis=1)[:, r - 1]
+    if (got_p < 0).any():
+        raise AssertionError("adc_topr returned fewer than r survivors")
+    mine = np.take_along_axis(plain, got_p, axis=1)
+    err = float(np.abs(got_s - mine).max())
+    below = float((kth[:, None] - mine).max())
+    if err > SWEEP_SCORE_TOL or below > SWEEP_SCORE_TOL:
+        raise AssertionError(f"ADC survivors differ from the plain top-{r}: "
+                             f"scores {err}, below the r-th by {below}")
+    ref = np.argpartition(-plain, r - 1, axis=1)[:, :r]
+    swapped = sum(len(set(a.tolist()) - set(b.tolist()))
+                  for a, b in zip(got_p, ref))
+    return {"queries": int(q.shape[0]), "rows": int(len(codes)), "r": r,
+            "score_max_abs_err": err, "tie_swapped_survivors": swapped}
+
+
+def check_card_vs_cpu(store, q: np.ndarray, nprobe: int) -> dict:
+    """The card's search against the port's CPU run of the same index files
+    and query vectors."""
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
+    card = IVFIndex.open(store)
+    cpu = IVFIndex.open(store, device="cpu")
+    gs, gi, gst = card.search(q, k=10, nprobe=nprobe)
+    ws, wi, wst = cpu.search(q, k=10, nprobe=nprobe)
+    err = float(np.abs(gs - ws).max())
+    differ = gi != wi
+    gap = float(np.abs(gs[differ] - ws[differ]).max()) if differ.any() \
+        else 0.0
+    if err > SWEEP_SCORE_TOL or gap > TIE_SCORE_TOL or gst != wst:
+        raise AssertionError(f"the card's search differs from the CPU's: "
+                             f"scores {err}, tie gap {gap}, stats {gst} vs "
+                             f"{wst}")
+    return {"queries": int(q.shape[0]), "nprobe": nprobe,
+            "score_max_abs_err": err, "tie_swapped_slots": int(differ.sum())}
+
+
+def recall_curve(index, store, q: np.ndarray) -> dict:
+    """recall_vs_exact at each of IVF_NPROBES, and one search's stats per
+    query there."""
+    from dnn_page_vectors_tpu_torch.evals.recall import recall_vs_exact
+    out = {}
+    for nprobe in IVF_NPROBES:
+        before = dict(index.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = recall_vs_exact(index, store, q, k=10, nprobe=nprobe)
+        secs = time.perf_counter() - t0
+        per_q = {k: (index.stats[k] - before.get(k, 0)) / q.shape[0]
+                 for k in ("lists_scanned", "candidates_reranked",
+                           "gather_bytes", "reranked_rows")}
+        out[str(nprobe)] = {"recall_vs_exact_at_10": r,
+                            "seconds_with_exact_sweep": secs,
+                            "per_query": per_q}
+    return out
+
+
+def index_record(index) -> dict:
+    man = index.manifest
+    return {"nlist": index.nlist, "pq_m": index.pq_m,
+            "store_dtype": man["dtype"], "rows": man["num_vectors"],
+            "build_s": index.build_stats,
+            "imbalance": man["imbalance"],
+            "imbalance_raw": man["imbalance_raw"],
+            "init_imbalance": man["init_imbalance"],
+            "reseeded": man["reseeded"]}
+
+
+def _timed(fn, key: str, split: dict):
+    """fn, adding its milliseconds between two synchronizations of the card
+    to split[key]."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        split[key] = split.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def ivf_stages(split: dict):
+    """While open, the IVF search's stages add their milliseconds to
+    `split`, each between two synchronizations of the card: the centroid
+    top-k, the ADC (tables and the running top-r), the exact re-ranks, and
+    the gathers (the host's reads off the mmaps and the copies to the
+    card)."""
+    from dnn_page_vectors_tpu_torch.index import ivf
+    saved = {n: getattr(ivf, n) for n in ("chunked_topk", "adc_topr",
+                                          "rerank_candidates",
+                                          "rerank_positions")}
+    methods = {n: getattr(ivf.IVFIndex, n) for n in (
+        "_gather", "_fetch_rows", "_dev")}
+    lut = ivf.PQCodec.lut
+    stage = {"chunked_topk": "topk", "adc_topr": "adc", "lut": "adc",
+             "rerank_candidates": "rerank", "rerank_positions": "rerank",
+             "_gather": "gather", "_fetch_rows": "gather", "_dev": "gather"}
+    depth = [0]           # _gather calls _fetch_rows: time the outer only
+
+    def timed(name, fn):
+        clocked = _timed(fn, stage[name], split)
+
+        def run(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            try:
+                return clocked(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return run
+
+    for n, fn in saved.items():
+        setattr(ivf, n, timed(n, fn))
+    for n, fn in methods.items():
+        setattr(ivf.IVFIndex, n, timed(n, fn))
+    ivf.PQCodec.lut = timed("lut", lut)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ivf, n, fn)
+        for n, fn in methods.items():
+            setattr(ivf.IVFIndex, n, fn)
+        ivf.PQCodec.lut = lut
+
+
+def search_split(svc, queries) -> dict:
+    """One search_many of `queries`: its milliseconds by stage (ivf_stages,
+    the query encode with its tokenizing, the results' formatting with
+    their snippets, and the rest), then its device time by kernel class
+    (device_breakdown)."""
+    split = {}
+    for name in ("encode_queries", "_format"):
+        setattr(svc, name, _timed(getattr(svc, name), name.strip("_"),
+                                  split))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ivf_stages(split):
+            svc.search_many(queries, k=10)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        del svc.encode_queries, svc._format
+    split["other"] = total - sum(split.values())
+    return {"queries": len(queries), "total_ms": total,
+            "stage_ms": split,
+            "device": device_breakdown(lambda: svc.search_many(queries, k=10),
+                                       iters=2)}
+
+
+def single_query_latency(svc, queries) -> dict:
+    """LATENCY_SAMPLES single queries in a closed loop: p50 and p95 by the
+    host clock and by CUDA events around each call."""
+    wall, events = [], []
+    for i in range(LATENCY_SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        one = svc.search(queries[i % len(queries)], k=10)
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+        if not one:
+            raise AssertionError("a query returned no results")
+    pct = lambda xs, p: float(np.percentile(xs, p))  # noqa: E731
+    return {"samples": len(wall), "p50_ms": pct(wall, 50),
+            "p95_ms": pct(wall, 95), "events_p50_ms": pct(events, 50),
+            "events_p95_ms": pct(events, 95)}
+
+
+def big_store(emb, store, rows: int, device) -> dict:
+    """Phase 14(b)'s store: `rows` page-tower encodes of seeded random
+    WordPiece id rows drawn on the card, through the bulk embedder's
+    encode-and-quantize (encode_pages_q8) and write_shard, a shard at a
+    time."""
+    cfg = emb.cfg
+    bs, ss = cfg.eval.embed_batch_size, cfg.eval.store_shard_size
+    vocab = emb.page_tok.vocab_size
+    gen = torch.Generator(device=device).manual_seed(IVF_SEED)
+    t0 = time.perf_counter()
+    for si, lo in enumerate(range(0, rows, ss)):
+        hi = min(lo + ss, rows)
+        codes, scales = [], []
+        for b in range(lo, hi, bs):
+            ids = torch.randint(1, vocab, (min(bs, hi - b),
+                                           cfg.data.page_len),
+                                generator=gen, device=device)
+            c, s = emb.encode_pages_q8(ids)
+            codes.append(c)
+            scales.append(s)
+        store.write_shard(si, np.arange(lo, hi, dtype=np.int64),
+                          codes=torch.cat(codes).cpu().numpy(),
+                          scales=torch.cat(scales).cpu().numpy())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"rows": rows, "shards": len(store.shards()), "seconds": secs,
+            "rows_per_s": rows / secs,
+            "store_mb": rows * store.row_bytes / 1e6}
+
+
+def random_queries(emb, n: int, device) -> np.ndarray:
+    """Query-tower encodes of `n` seeded random WordPiece id rows."""
+    gen = torch.Generator(device=device).manual_seed(IVF_SEED + 1)
+    ids = torch.randint(1, emb.query_tok.vocab_size,
+                        (n, emb.cfg.data.query_len), generator=gen,
+                        device=device)
+    bs = emb.cfg.eval.embed_batch_size
+    return np.concatenate([emb.encode_queries(ids[s: s + bs]).cpu().numpy()
+                           for s in range(0, n, bs)])
+
+
+def run_ivf(device, data, workdir: str) -> dict:
+    """Phase 14: (a) phase 4's corpus through embed_corpus into an int8
+    store, IVFIndex.build over phase 4's fp16 store (plain) and over the
+    int8 store (PQ), SearchService(serve.index="ivf"), evaluate_recall and
+    mine_hard_negatives through the index, every launch counter read after;
+    (b) IVF and IVF-PQ over a store of IVF_BIG_ROWS rows. The checks raise;
+    recall against exact, build times, latency and stats are printed."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.evals.recall import evaluate_recall
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex, index_dir
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.mine.ann import mine_hard_negatives
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+
+    t_phase = time.perf_counter()
+    corpus, q_tok, p_tok = data
+    n = corpus.num_pages
+    # phase 4's overrides and seed: the same weights as its fp16 store's
+    base = {"data.num_pages": n, "eval.store_shard_size": 65_536,
+            "eval.embed_batch_size": 512, "model.attention": "flash"}
+    # every index is built from its config's serve.* knobs: cfg's IVF-PQ
+    # (serve.pq_m IVF_PQ_M), plain_cfg's stored-width postings
+    cfg = get_config("bert_mini_v5p16", {**base, "eval.store_dtype": "int8",
+                                         "serve.index": "ivf",
+                                         "serve.pq_m": IVF_PQ_M})
+    plain_cfg = get_config("bert_mini_v5p16", {**base, "serve.pq_m": 0})
+    m, sv = cfg.model, cfg.serve
+
+    def build(store, c):
+        return IVFIndex.build_from_config(store, c, device=device)
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    fp16 = VectorStore(os.path.join(workdir, "store_bert_mini_v5p16"))
+    if fp16.num_vectors != n:
+        raise AssertionError(f"phase 4's store holds {fp16.num_vectors} "
+                             f"vectors, want {n}")
+    q8 = VectorStore(os.path.join(workdir, "ivf_int8"), dim=m.out_dim,
+                     shard_size=cfg.eval.store_shard_size,
+                     dtype=cfg.eval.store_dtype)
+    qids = np.linspace(0, n - 1, N_QUERIES).astype(np.int64)
+    queries = [corpus.query_text(int(i)) for i in qids]
+    served = N_QUERIES + LATENCY_SAMPLES
+
+    def encodes(rows: int, block: int) -> int:
+        """Query or page encodes of `rows` rows in blocks of `block`."""
+        bs = cfg.eval.embed_batch_size
+        return sum(-(-min(block, rows - lo) // bs)
+                   for lo in range(0, rows, block))
+    # the embed's shards, search_many, the single queries, the eval's
+    # queries and the mine's query blocks of 8,192
+    n_encodes = (encodes(n, cfg.eval.store_shard_size) + 1 + LATENCY_SAMPLES
+                 + encodes(IVF_EVAL_QUERIES, IVF_EVAL_QUERIES)
+                 + encodes(IVF_MINE_QUERIES, 8_192))
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted --------------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    emb.embed_corpus(corpus, q8)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    plain16 = build(fp16, plain_cfg)
+    pq8 = build(q8, cfg)
+    svc = SearchService(cfg, emb, corpus, q8)
+    results = svc.search_many(queries, k=10)
+    ivf_lat = single_query_latency(svc, queries)
+    recall, n_eval = evaluate_recall(emb, corpus, q8, num_queries=
+                                     IVF_EVAL_QUERIES, k=10, index=svc.index,
+                                     nprobe=sv.nprobe)
+    t0 = time.perf_counter()
+    negs = mine_hard_negatives(emb, corpus, q8, num_negatives=7,
+                               search_k=HARDNEG_SEARCH_K,
+                               num_queries=IVF_MINE_QUERIES, index=pq8,
+                               nprobe=IVF_MINE_NPROBE)
+    mine_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    want = expected_launches(n_encodes * m.num_layers, 0)
+    if counts != want:
+        raise AssertionError(f"phase 14's main path launched {counts}, want "
+                             f"{want} ({n_encodes} encodes)")
+    met = svc.metrics()
+    if met["ann_fallbacks"] or met["ann_lists_scanned"] < served * sv.nprobe:
+        raise AssertionError(f"service counters {met}")
+    if not all(len(r) == 10 for r in results):
+        raise AssertionError("search_many returned short result lists")
+    table = np.asarray(negs.table)
+    if table.shape != (IVF_MINE_QUERIES, 7) or table.min() < 0 or \
+            table.max() >= n:
+        raise AssertionError(f"IVF-mined table {table.shape} out of range")
+    if (table == np.arange(IVF_MINE_QUERIES)[:, None]).any():
+        raise AssertionError("the IVF-mined table holds a gold page")
+
+    # ---- checks ------------------------------------------------------
+    int8_check = check_int8_store(fp16, q8)
+    # the other payload over each store, in copies (an index per store)
+    pq16 = build(copy_store(fp16, os.path.join(workdir, "ivf_f16")), cfg)
+    plain8 = build(copy_store(q8, os.path.join(workdir, "ivf_q8")),
+                   plain_cfg)
+    again = copy_store(q8, os.path.join(workdir, "ivf_q8_again"))
+    rebuilt = build(again, cfg)
+    mans = []
+    for idx in (pq8, rebuilt):
+        man = json.loads(json.dumps(idx.manifest))
+        man.pop("build_seconds")
+        man["pq"].pop("train_seconds")
+        mans.append(man)
+    files = (npy_bytes(index_dir(q8)), npy_bytes(index_dir(again)))
+    if files[0] != files[1] or mans[0] != mans[1]:
+        differ = [k for k in files[0] if files[0][k] != files[1].get(k)]
+        raise AssertionError(f"two seeded builds on the card differ: {differ}"
+                             f" (manifests equal: {mans[0] == mans[1]})")
+    qv_check = svc.encode_queries(queries).cpu().numpy()[:IVF_CHECK_QUERIES]
+    indexes = {"fp16_plain": (plain16, fp16), "fp16_pq": (pq16, pq16.store),
+               "int8_plain": (plain8, plain8.store), "int8_pq": (pq8, q8)}
+    full_probe = {name: check_full_probe(idx, st, qv_check, device)
+                  for name, (idx, st) in indexes.items()}
+    adc_survivors = {name: check_adc_survivors(idx, qv_check, device)
+                     for name, (idx, _) in indexes.items()
+                     if idx.pq is not None}
+    card_cpu = {name: check_card_vs_cpu(st, qv_check, sv.nprobe)
+                for name, (_, st) in indexes.items()}
+    t0 = time.perf_counter()
+    exact_negs = mine_hard_negatives(emb, corpus, q8, num_negatives=7,
+                                     search_k=HARDNEG_SEARCH_K,
+                                     num_queries=IVF_MINE_QUERIES)
+    exact_mine_s = time.perf_counter() - t0
+    agree = float((np.asarray(exact_negs.table) == table).all(axis=1).mean())
+
+    # ---- printed, not gated ------------------------------------------
+    qv_eval = emb.embed_texts([corpus.query_text(i)
+                               for i in range(IVF_EVAL_QUERIES)])
+    curves = {name: recall_curve(idx, st, qv_eval)
+              for name, (idx, st) in indexes.items()}
+    exact_svc = SearchService(get_config("bert_mini_v5p16", {
+        **base, "eval.store_dtype": "int8"}), emb, corpus, q8)
+    exact_lat = single_query_latency(exact_svc, queries)
+    split = search_split(svc, queries)
+    del exact_svc
+    small = {"embed_s": embed_s, "embed_pages_per_s_from_text": n / embed_s,
+             "int8_store": int8_check,
+             "indexes": {name: index_record(idx)
+                         for name, (idx, _) in indexes.items()},
+             "seeded_builds_byte_identical": True,
+             "npy_files_compared": len(files[0]),
+             "full_probe_vs_exact": full_probe, "card_vs_cpu": card_cpu,
+             "adc_survivors_vs_plain": adc_survivors,
+             "service": {"metrics": met, "queries_served": served,
+                         "ivf_latency": ivf_lat, "exact_latency": exact_lat,
+                         "search_many_split": split},
+             "recall_at_10_random_weights": recall,
+             "recall_queries": n_eval,
+             "mine": {"queries": IVF_MINE_QUERIES, "nprobe": IVF_MINE_NPROBE,
+                      "seconds": mine_s, "stats": negs.stats,
+                      "exact_seconds": exact_mine_s,
+                      "rows_equal_to_exact_mine": agree},
+             "recall_vs_exact": curves}
+    del svc, negs, exact_negs
+
+    # ---- (b): the index at a store size its users run ------------------
+    reset_counts()
+    big = VectorStore(os.path.join(workdir, "ivf_big"), dim=m.out_dim,
+                      shard_size=cfg.eval.store_shard_size, dtype="int8")
+    fill = big_store(emb, big, IVF_BIG_ROWS, device)
+    fill_launches = launch_counts()
+    want_fill = expected_launches(
+        encodes(IVF_BIG_ROWS, cfg.eval.store_shard_size) * m.num_layers, 0)
+    if fill_launches != want_fill:
+        raise AssertionError(f"the 1M-row store's encodes launched "
+                             f"{fill_launches}, want {want_fill}")
+    qv_big = random_queries(emb, IVF_EVAL_QUERIES, device)
+    big_plain = build(big, plain_cfg)
+    big_pq = build(copy_store(big, os.path.join(workdir, "ivf_big_pq")), cfg)
+    big_idx = {"int8_plain": (big_plain, big), "int8_pq": (big_pq,
+                                                           big_pq.store)}
+    big_rec = {"store": fill,
+               "indexes": {k: index_record(i) for k, (i, _) in
+                           big_idx.items()},
+               # the plain payload only: a full re-rank of 1M ADC
+               # survivors a query is host work of no user's
+               "full_probe_vs_exact": {"int8_plain": check_full_probe(
+                   big_plain, big, qv_big[:IVF_CHECK_QUERIES], device)},
+               "recall_vs_exact": {k: recall_curve(i, st, qv_big)
+                                   for k, (i, st) in big_idx.items()}}
+    rec = {"phase": "ivf", "config": cfg.name, **widths(cfg),
+           "pages": n, "store_shard_size": cfg.eval.store_shard_size,
+           "nprobe": sv.nprobe, "pq_m": sv.pq_m, "seed": cfg.data.seed,
+           "build": {k: getattr(sv, k) for k in (
+               "nlist", "kmeans_iters", "kmeans_init", "kmeans_balance",
+               "pq_iters", "pq_opq_iters")},
+           "k1_launches": counts["launches"],
+           "k1_launches_tensor_core": counts["launches_tc"],
+           "k1_launches_big_store": fill_launches["launches"],
+           "k1_launches_big_store_tensor_core": fill_launches["launches_tc"],
+           "encodes_main_path": n_encodes, **small, "big": big_rec,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t_phase,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi":
+           nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 # the bool template flags of each templated kernel, in order
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
@@ -2557,11 +3134,17 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
                ) -> list:
-    """Phases 2-13; fills `report` and returns the `kernels` line's
+    """Phases 2-14; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers; with `parent` (another tree of the port) the kernels
-    are also timed against it."""
+    are also timed against it. report["timeline"] holds the seconds
+    since the phases began at the end of each of them."""
     from dnn_page_vectors_tpu_torch.ops import build
+    t_run = time.perf_counter()
+    timeline = report["timeline"] = {}
+
+    def done(name: str) -> None:
+        timeline[name] = time.perf_counter() - t_run
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2584,25 +3167,33 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
         if spills:
             raise AssertionError(f"a tensor-core kernel spills: {spills}")
     emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
+    done("build")
 
     # phase 4's corpus and vocab first: the seg kernels are also checked
     # and timed at the segment ids of phase 8's first batch
     bert = build_data("bert_mini_v5p16", N_PAGES)
     long_data = packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert)
     train_seg = train_layout_seg(long_data)
+    done("bert_data")
     report["k1"] = check_k1(device, ("embed_bf16", "mt5_page_bias_bf16",
                                      "bert_long_packed_bf16",
                                      "bert_long_train_layout_bf16",
                                      "mt5_packed_bias_bf16"), train_seg)
+    done("k1")
     report["k23"] = check_k23(device, "page_train_bf16", "query_train_bf16")
+    done("k23")
     report["k4"] = check_k4(device, "mt5_page_train_bf16",
                             "mt5_query_train_bf16")
+    done("k4")
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
         report["seg"] = check_seg(device, train_seg)
+        done("seg")
         report["slice"] = run_slice(device, "bert_mini_v5p16", N_PAGES,
                                     N_QUERIES, tmp, bert)
+        done("slice")
         report["train"] = run_training(device, "bert_mini", bert, tmp)
+        done("train")
         t0 = time.perf_counter()
         tokenizers = mt5_tok.get()
         emit({"phase": "mt5_tokenizer_wait", "seconds":
@@ -2613,6 +3204,7 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
         mt5_pack_data = packed_data(MT5, MT5_PACK_PAGE_WORDS, MT5_PACK_PAGES,
                                     mt5)
         mt5_seg = train_layout_seg(mt5_pack_data, MT5, MT5_PACK_TRAIN_BATCH)
+        done("mt5_data")
         report["seg"]["mt5_train"] = check_seg_mt5_train(device, mt5_seg)
         report["seg"]["worst"]["mt5_train_layout_bias_bf16"] = (
             report["seg"]["mt5_train"]["worst"])
@@ -2623,21 +3215,29 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
             torch.save(mt5_seg, seg_files[1])
             torch.cuda.empty_cache()     # the A/B runs in processes of its own
             report["ab"] = run_ab(parent, *seg_files)
+            done("ab")
         report["mt5_slice"] = run_slice(device, MT5, MT5_PAGES, N_QUERIES,
                                         tmp, mt5)
+        done("mt5_slice")
         report["mt5_train"] = run_training(device, "mt5", mt5, tmp)
+        done("mt5_train")
         # phases 8 and 9: packed training over the vocabs of phases 4, 6
         report["long_train"] = run_training(device, "bert_long_packed",
                                             long_data, tmp)
+        done("long_train")
         report["mt5_pack_train"] = run_training(device, "mt5_packed",
                                                 mt5_pack_data, tmp)
+        done("mt5_pack_train")
         # phases 10-12: the towers without attention
         t_zoo = time.perf_counter()
         cdssm = build_data(CDSSM, CDSSM_PAGES)
         report["cdssm_slice"] = run_slice(device, CDSSM, CDSSM_PAGES,
                                           N_QUERIES, tmp, cdssm)
+        done("cdssm_slice")
         report["cdssm_train"] = run_training(device, "cdssm", cdssm, tmp)
+        done("cdssm_train")
         report["cdssm_quality"] = cdssm_quality(device, tmp)
+        done("cdssm_quality")
         del cdssm
         t0 = time.perf_counter()
         tokenizers = word_tok.get()
@@ -2648,14 +3248,23 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
             raise AssertionError(f"{KIM} and {LSTM} no longer share their "
                                  "corpus and vocab")
         words = build_data(KIM, WORD_VOCAB_PAGES, tokenizers)
+        done("word_data")
         for config, cell in ((KIM, "kim_cnn"), (LSTM, "lstm")):
             report[f"{cell}_slice"] = run_slice(device, config, WORD_PAGES,
                                                 N_QUERIES, tmp, words)
+            done(f"{cell}_slice")
             report[f"{cell}_train"] = run_training(device, cell, words, tmp)
+            done(f"{cell}_train")
         emit({"phase": "phases_10_to_12", "seconds":
               time.perf_counter() - t_zoo})
         # phase 13: hard-negative mining over phase 4's corpus and vocab
         report["hardneg"] = run_hardneg(device, bert, tmp)
+        done("hardneg")
+        # phase 14: the IVF/PQ index and the int8 store, over phase 4's
+        # corpus, vocab and fp16 store
+        report["ivf"] = run_ivf(device, bert, tmp)
+        done("ivf")
+    emit({"phase": "timeline", "seconds_at_end_of": timeline})
     return kernel_entries(report)
 
 
@@ -2690,7 +3299,9 @@ def kernel_entries(report: dict) -> list:
     paths = {"bert_serving": report["slice"]["k1_launches"],
              "mt5_serving": report["mt5_slice"]["k1_launches"],
              **{f"{z}_serving": report[f"{z}_slice"]["k1_launches"]
-                for z in zoo}}
+                for z in zoo},
+             "ivf_retrieval": report["ivf"]["k1_launches"],
+             "ivf_1m_store_encodes": report["ivf"]["k1_launches_big_store"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -2702,7 +3313,10 @@ def kernel_entries(report: dict) -> list:
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
                "mt5_serving": report["mt5_slice"]["k1_launches_tensor_core"],
                **{f"{z}_serving": report[f"{z}_slice"][
-                   "k1_launches_tensor_core"] for z in zoo}},
+                   "k1_launches_tensor_core"] for z in zoo},
+               "ivf_retrieval": report["ivf"]["k1_launches_tensor_core"],
+               "ivf_1m_store_encodes": report["ivf"][
+                   "k1_launches_big_store_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     for path, rec in training:

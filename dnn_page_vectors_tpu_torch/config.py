@@ -1,13 +1,13 @@
 """Config dataclasses for the port: the fields the serving and training
 slices (BERT-mini, mT5, sequence packing, the CDSSM, Kim-CNN and BiLSTM
-towers, and hard-negative mining) read, with the JAX package's names and
+towers, hard-negative mining, the int8 store and the IVF/PQ index) read, with the JAX package's names and
 defaults (its config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``,
 ``lstm_words``, ``bert_mini_v5p16``, ``hardneg_v5p64``,
 ``mt5_multilingual`` and ``bert_long_sp`` presets,
 and ``get_config`` with dotted overrides.
 
-Sections and fields of later slices (mesh, scan_steps, index, fleet,
-maintenance, ...) join as those slices land; an override naming a field
+Sections and fields of later slices (mesh, scan_steps, the hot posting
+set, partitions, fleet, maintenance, ...) join as those slices land; an override naming a field
 that is not here yet raises.
 """
 from __future__ import annotations
@@ -89,15 +89,33 @@ class EvalConfig:
     recall_k: int = 10               # Recall@10 query->page
     eval_queries: int = 1_000        # queries evaluate_recall embeds
     embed_batch_size: int = 512
-    store_shard_size: int = 65_536   # vector-store shard rows (fp16 store)
+    store_shard_size: int = 65_536   # vector-store shard rows
+    # float16 | int8: int8 stores symmetric per-vector codes + float16
+    # scales (infer/vector_store.py), half the bytes of float16 rows
+    store_dtype: str = "float16"
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Serving knobs the lean SearchService reads."""
+    """Serving and index knobs the lean SearchService and the IVF/PQ
+    index build (index/ivf.py) read."""
     # "exact" = brute-force top-k over the whole store staged on the card;
-    # the IVF index is a later slice.
+    # "ivf" = the inverted-file index, falling back to exact per request
+    # (counted in ann_fallbacks) while the index is unavailable
     index: str = "exact"
+    nprobe: int = 8                  # IVF lists probed per query
+    nlist: int = 0                   # IVF list count; 0 = auto (~sqrt N)
+    kmeans_iters: int = 8            # coarse quantizer k-means iterations
+    kmeans_init: str = "kmeans++"    # kmeans++ | random (both seeded)
+    # >0 caps each list at ceil(factor * N / nlist) rows in the final
+    # assignment sweep (overflow spills to the next-best centroid)
+    kmeans_balance: float = 0.0
+    pq_m: int = 0                    # PQ subspaces (bytes a code row); 0 =
+                                     # stored-width postings, no PQ
+    pq_iters: int = 8                # per-subspace codebook iterations
+    pq_opq_iters: int = 3            # OPQ rotation alternations; 0 = PQ
+    pq_rerank: int = 0               # ADC survivors re-ranked exactly per
+                                     # query; 0 = max(8k, 64)
 
 
 @dataclasses.dataclass(frozen=True)

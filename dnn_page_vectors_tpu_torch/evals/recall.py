@@ -4,8 +4,10 @@ Counterpart of the JAX package's evals/recall.py: ``recall_at_k`` for
 in-memory vectors, and ``hits_from_store`` / ``recall_from_store`` /
 ``evaluate_recall``, which stream the store through
 ``ops.topk.topk_over_store`` one shard at a time, so the eval holds one
-store shard on the card whatever the corpus size. The ANN (IVF/PQ)
-recall is a later slice.
+store shard on the card whatever the corpus size. With `index` (an
+index.ivf.IVFIndex over the store) retrieval goes through the index
+instead, so the recall measures the model and the index together;
+``recall_vs_exact`` measures the index alone, against the exact sweep.
 """
 from __future__ import annotations
 
@@ -44,26 +46,22 @@ def recall_at_k(query_vecs: np.ndarray, page_ids: np.ndarray,
     return hits / max(nq, 1)
 
 
-def _refuse_index(index) -> None:
-    if index is not None:
-        raise NotImplementedError(
-            "index= (IVF ANN retrieval) is not ported yet: the IVF/PQ index "
-            "is a later slice of the port (ROADMAP.md queue 1); use the "
-            "exact store sweep (index=None)")
-
-
 def hits_from_store(query_vecs: np.ndarray, store, gold_ids: np.ndarray,
                     k: int = 10, query_batch: int = 1024, chunk: int = 8192,
                     index=None, nprobe: Optional[int] = None,
                     device: DeviceLike = None) -> int:
-    """Number of queries whose gold id lands in the store-streamed top-k.
-    `index` / `nprobe` (IVF retrieval) raise NotImplementedError."""
-    _refuse_index(index)
+    """Number of queries whose gold id lands in the store-streamed top-k,
+    or with `index` in the index's top-k at `nprobe` (on the index's
+    device)."""
     if query_vecs.shape[0] == 0:
         return 0
-    _, retrieved = topk_over_store(
-        np.asarray(query_vecs, np.float32), store, k=k, chunk=chunk,
-        query_batch=query_batch, device=device)
+    if index is not None:
+        _, retrieved, _ = index.search(
+            np.asarray(query_vecs, np.float32), k=k, nprobe=nprobe)
+    else:
+        _, retrieved = topk_over_store(
+            np.asarray(query_vecs, np.float32), store, k=k, chunk=chunk,
+            query_batch=query_batch, device=device)
     return int((retrieved == gold_ids[:, None]).any(axis=1).sum())
 
 
@@ -72,11 +70,36 @@ def recall_from_store(query_vecs: np.ndarray, store, gold_ids: np.ndarray,
                       chunk: int = 8192, index=None,
                       nprobe: Optional[int] = None,
                       device: DeviceLike = None) -> float:
-    """Recall@k over the store streamed one shard at a time."""
+    """Recall@k over the store streamed one shard at a time, or through
+    `index` (``hits_from_store``)."""
     hits = hits_from_store(query_vecs, store, gold_ids, k=k,
                            query_batch=query_batch, chunk=chunk,
                            index=index, nprobe=nprobe, device=device)
     return float(hits) / max(query_vecs.shape[0], 1)
+
+
+def recall_vs_exact(index, store, query_vecs: np.ndarray, k: int = 10,
+                    nprobe: Optional[int] = None, query_batch: int = 1024,
+                    chunk: int = 8192, device: DeviceLike = None) -> float:
+    """The index's recall@k against the exact top-k: the mean share of each
+    query's exact top-k (``topk_over_store`` on `device`) that the index
+    also returns at `nprobe`. Independent of the model's quality; a query
+    whose exact top-k is empty counts 1."""
+    qv = np.asarray(query_vecs, np.float32)
+    if qv.shape[0] == 0:
+        return 0.0
+    _, exact_ids = topk_over_store(qv, store, k=k, chunk=chunk,
+                                   query_batch=query_batch, device=device)
+    _, ann_ids, _ = index.search(qv, k=k, nprobe=nprobe)
+    total = 0.0
+    for row_exact, row_ann in zip(exact_ids, ann_ids):
+        truth = set(int(i) for i in row_exact if i >= 0)
+        if not truth:
+            total += 1.0
+            continue
+        got = set(int(i) for i in row_ann if i >= 0)
+        total += len(truth & got) / len(truth)
+    return total / qv.shape[0]
 
 
 def evaluate_recall(embedder, corpus, store, num_queries: Optional[int] = None,
@@ -88,11 +111,11 @@ def evaluate_recall(embedder, corpus, store, num_queries: Optional[int] = None,
     corpus's invariant). n is ``num_queries`` (default
     ``eval.eval_queries``), at most the corpus size. One process: the
     JAX package's multi-host split of the query range is not ported.
-    `index` / `nprobe` raise NotImplementedError."""
-    _refuse_index(index)
+    With `index`, retrieval goes through the IVF index at `nprobe`."""
     nq = min(num_queries or embedder.cfg.eval.eval_queries, corpus.num_pages)
     query_vecs = embedder.embed_texts(
         [corpus.query_text(i) for i in range(nq)], tower="query")
     hits = hits_from_store(query_vecs, store, np.arange(nq, dtype=np.int64),
-                           k=k, device=embedder.device)
+                           k=k, index=index, nprobe=nprobe,
+                           device=embedder.device)
     return float(hits) / max(nq, 1), nq

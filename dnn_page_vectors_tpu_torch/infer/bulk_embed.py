@@ -9,7 +9,10 @@ Dtype contract (as in the JAX package): page vectors leave the card as
 FLOAT16 (the store's own rounding, applied before the device->host copy,
 which halves the bytes of the job's whole output), while query vectors stay
 FLOAT32 (they feed the float32 top-k scorer directly and are never bulk
-traffic).
+traffic). An int8 store's rows are quantized on the device
+(``quantize_rows``, the host quantization's math in torch ops on the
+float16 rows), so only the int8 codes and float16 scales cross to the
+host: 1 byte a dimension instead of 2.
 
 The sweep overlaps host and device: a batch's encode is enqueued, its
 float16 result is copied into pinned host memory without blocking, and the
@@ -20,16 +23,31 @@ work.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dnn_page_vectors_tpu_torch.config import Config
 from dnn_page_vectors_tpu_torch.data.loader import iter_corpus_batches, to_device
-from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+from dnn_page_vectors_tpu_torch.infer.vector_store import (
+    SCALE_FLOOR, VectorStore)
 from dnn_page_vectors_tpu_torch.models.losses import l2_normalize
 from dnn_page_vectors_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def quantize_rows(v16: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float16 rows [n, D] on any device -> (int8 codes [n, D], float16
+    scales [n]) on that device: the int8 store's quantization
+    (infer/vector_store.py ``quantize_rows``) in torch ops. Every step is
+    a correctly rounded float32 operation (max, the division by 127, the
+    float16 round trip, the division by the scale, round half to even), so
+    the codes and scales equal the host's byte for byte."""
+    v = v16.float()
+    scale = v.abs().amax(dim=-1) / 127.0
+    safe = torch.clamp_min(scale.half().float(), float(SCALE_FLOOR))
+    codes = torch.clamp(torch.round(v / safe[:, None]), -127, 127)
+    return codes.to(torch.int8), safe.half()
 
 
 class BulkEmbedder:
@@ -55,6 +73,13 @@ class BulkEmbedder:
         device."""
         self._eval_mode()
         return l2_normalize(self.model.encode_page(ids)).to(torch.float16)
+
+    @torch.inference_mode()
+    def encode_pages_q8(self, ids: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, page_len] ids on the device -> (int8 codes [B, D], float16
+        scales [B]) of the int8 store, quantized on the device."""
+        return quantize_rows(self.encode_pages(ids))
 
     @torch.inference_mode()
     def encode_queries(self, ids: torch.Tensor) -> torch.Tensor:
@@ -97,21 +122,28 @@ class BulkEmbedder:
                         np.float32 if tower == "query" else np.float16)
 
     # -- the bulk job -----------------------------------------------------
-    def _to_host(self, vecs: torch.Tensor):
-        """Start the device->host copy of `vecs`; returns (host tensor,
-        event to wait on). On the CPU the tensor is already host memory."""
+    def _to_host(self, tensors: Tuple[torch.Tensor, ...]):
+        """Start the device->host copies of `tensors`; returns (host
+        tensors, event to wait on). On the CPU they are already host
+        memory."""
         if self.device.type == "cpu":
-            return vecs, None
-        host = torch.empty(vecs.shape, dtype=vecs.dtype, pin_memory=True)
-        host.copy_(vecs, non_blocking=True)
+            return tensors, None
+        hosts = []
+        for t in tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
         ev = torch.cuda.Event()
         ev.record()
-        return host, ev
+        return tuple(hosts), ev
 
     def embed_corpus(self, corpus, store: VectorStore,
                      batch_size: Optional[int] = None, resume: bool = True
                      ) -> VectorStore:
         """Sweep the corpus into the store, one store shard at a time.
+
+        An int8 store gets codes and scales quantized on the device
+        (``encode_pages_q8``); any other store float16 rows.
 
         Resume: completed shards are recorded in the store manifest (after
         their files are durably written) and skipped on restart; a shard
@@ -127,6 +159,9 @@ class BulkEmbedder:
         if resume:
             store.verify()
         done = store.completed_shards() if resume else set()
+        q8 = store.manifest["dtype"] == "int8"
+        encode = self.encode_pages_q8 if q8 else (
+            lambda ids: (self.encode_pages(ids),))
         # wall-time breakdown: host read+tokenize, waits on the device's
         # results, store writes; the rest is enqueueing work on the device
         t = {"produce": 0.0, "device_wait": 0.0, "write": 0.0}
@@ -138,7 +173,7 @@ class BulkEmbedder:
             lo = si * shard_size
             hi = min(lo + shard_size, corpus.num_pages)
             ids_acc: List[np.ndarray] = []
-            vec_acc: List[np.ndarray] = []
+            out_acc: List[Tuple[np.ndarray, ...]] = []
             pending = None
             batches = iter_corpus_batches(corpus, self.page_tok, bs,
                                           start=lo, stop=hi)
@@ -148,16 +183,20 @@ class BulkEmbedder:
                 t["produce"] += time.perf_counter() - tp
                 if batch is None:
                     break
-                vecs = self.encode_pages(to_device(batch["page"], self.device))
-                nxt = (batch["page_id"], *self._to_host(vecs))
+                out = encode(to_device(batch["page"], self.device))
+                nxt = (batch["page_id"], *self._to_host(out))
                 if pending is not None:
-                    pages += self._collect(pending, ids_acc, vec_acc, t)
+                    pages += self._collect(pending, ids_acc, out_acc, t)
                 pending = nxt
             if pending is not None:
-                pages += self._collect(pending, ids_acc, vec_acc, t)
+                pages += self._collect(pending, ids_acc, out_acc, t)
             tw = time.perf_counter()
-            store.write_shard(si, np.concatenate(ids_acc),
-                              np.concatenate(vec_acc))
+            cols = [np.concatenate(c) for c in zip(*out_acc)]
+            ids = np.concatenate(ids_acc)
+            if q8:
+                store.write_shard(si, ids, codes=cols[0], scales=cols[1])
+            else:
+                store.write_shard(si, ids, cols[0])
             t["write"] += time.perf_counter() - tw
         dt = time.perf_counter() - t0
         self.stats = {"pages": pages, "seconds": dt,
@@ -166,12 +205,12 @@ class BulkEmbedder:
         return store
 
     @staticmethod
-    def _collect(pending, ids_acc, vec_acc, t) -> int:
-        page_ids, host, ev = pending
+    def _collect(pending, ids_acc, out_acc, t) -> int:
+        page_ids, hosts, ev = pending
         if ev is not None:
             tw = time.perf_counter()
             ev.synchronize()
             t["device_wait"] += time.perf_counter() - tw
         ids_acc.append(page_ids)
-        vec_acc.append(host.numpy())
+        out_acc.append(tuple(h.numpy() for h in hosts))
         return int((page_ids >= 0).sum())

@@ -1,13 +1,25 @@
-"""Vector store: fp16 shards + id files under one directory, the on-disk
-format of the JAX package's infer/vector_store.py, so each package reads the
-other's store.
+"""Vector store: fp16 or int8 shards + id files under one directory, the
+on-disk format of the JAX package's infer/vector_store.py, so each package
+reads the other's store.
 
 Layout:
   manifest.json          {"dim", "dtype", "shard_size", "model_step",
                           "shards": [{"index", "count", "vec", "ids",
-                                      "bytes": {...}, "crc": {...}}]}
-  shard_00000.vec.npy    [n, dim] float16 L2-normalized page vectors
+                                      ["scl",] "bytes": {...},
+                                      "crc": {...}}]}
+  shard_00000.vec.npy    [n, dim] float16 L2-normalized page vectors, or
+                         int8 codes when dtype == "int8"
+  shard_00000.scl.npy    [n] float16 per-vector scales (int8 stores)
   shard_00000.ids.npy    [n] int64 page ids (batch padding never stored)
+
+int8 stores quantize each row symmetrically: scale = max|v| / 127 rounded
+to float16 (floored at the smallest float16 normal, so an all-zero row
+never divides by zero), codes = rint(v / scale) clipped to [-127, 127];
+a read dequantizes to scale * codes in float32, within scale / 2 of v.
+``write_shard`` quantizes float rows on the host, or takes codes and
+scales quantized on the device (infer/bulk_embed.py ``quantize_rows``,
+the same math). ``raw=True`` reads hand back the stored codes and scales,
+so the top-k and the index widen them on the card.
 
 Shards are the resume unit: a completed shard is recorded in the manifest
 after its files are written and fsynced, so a restarted job skips exactly
@@ -18,10 +30,9 @@ drops) any shard whose bytes no longer match, so resume re-embeds it.
 Readers take the whole store (``load_all``) or a shard at a time
 (``iter_shards``, optionally read ahead on a thread: ``read_ahead``).
 
-This is the fp16 base-store subset. int8 stores, append generations,
-per-row attributes and per-writer manifests are later slices: a store that
-uses any of them is refused with NotImplementedError rather than read in
-part.
+Append generations, per-row attributes and per-writer manifests are later
+slices: a store that uses any of them is refused with NotImplementedError
+rather than read in part.
 """
 from __future__ import annotations
 
@@ -34,6 +45,26 @@ import zlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+# a shard entry's data files: vectors (or int8 codes), ids, int8 scales
+_FILES = ("vec", "ids", "scl")
+# the smallest float16 normal, exact in float32: the int8 scale's floor
+SCALE_FLOOR = np.float32(np.float16(6.2e-5))
+
+
+def quantize_rows(vecs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """float rows [n, D] -> (int8 codes [n, D], float16 scales [n]): the
+    int8 store's symmetric per-row quantization, on the host (the module
+    docstring; infer/bulk_embed.py has the device twin). The codes are
+    taken with the float16-rounded scale the reader dequantizes with, so
+    |scale * code - v| <= scale / 2 holds exactly."""
+    v = np.asarray(vecs, np.float32)
+    scale = (np.abs(v).max(axis=-1) / 127.0 if v.size
+             else np.zeros((v.shape[0],), np.float32))
+    safe = np.maximum(scale.astype(np.float16).astype(np.float32),
+                      SCALE_FLOOR)
+    codes = np.clip(np.rint(v / safe[:, None]), -127, 127)
+    return codes.astype(np.int8), safe.astype(np.float16)
 
 
 def read_ahead(it, depth: int = 1):
@@ -129,10 +160,9 @@ class VectorStore:
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self._manifest_path = os.path.join(self.directory, "manifest.json")
-        if dtype not in (None, "float16"):
-            raise NotImplementedError(
-                f"store dtype {dtype!r} is not ported yet (fp16 only; int8 "
-                "stores are slice 6 of the port)")
+        if dtype not in (None, "float16", "int8"):
+            raise ValueError(f"unsupported store dtype {dtype!r} "
+                             "(want float16 or int8)")
         existed = os.path.exists(self._manifest_path)
         if existed:
             with open(self._manifest_path) as f:
@@ -148,28 +178,27 @@ class VectorStore:
                 raise FileNotFoundError(
                     f"no vector store at {self.directory} (missing "
                     "manifest.json); pass dim= to create a new store")
-            self.manifest = {"dim": dim, "dtype": "float16",
+            self.manifest = {"dim": dim, "dtype": dtype or "float16",
                              "shard_size": shard_size or 65_536,
                              "shards": []}
             self._flush_manifest()
         if existed and verify:
             self.verify()
-        # an EMPTY store may adopt a new shard size (a populated one cannot:
-        # its shard files already have the recorded geometry)
-        if shard_size is not None and shard_size != self.manifest["shard_size"]:
-            if self.shards():
-                raise ValueError(
-                    f"store at {self.directory} was built with shard_size="
-                    f"{self.manifest['shard_size']} and holds shards; cannot "
-                    f"switch to {shard_size} (reset() first)")
-            self.manifest["shard_size"] = shard_size
-            self._flush_manifest()
+        # an EMPTY store may adopt a new shard size or dtype (a populated
+        # one cannot: its shard files already have the recorded geometry)
+        for key, want in (("shard_size", shard_size), ("dtype", dtype)):
+            if want is not None and want != self.manifest[key]:
+                if self.shards():
+                    raise ValueError(
+                        f"store at {self.directory} was built with "
+                        f"{key}={self.manifest[key]!r} and holds shards; "
+                        f"cannot switch to {want!r} (reset() first)")
+                self.manifest[key] = want
+                self._flush_manifest()
 
     def _refuse_unported(self) -> None:
         m = self.manifest
         why = []
-        if m.get("dtype", "float16") != "float16":
-            why.append(f"dtype {m['dtype']!r}")
         if glob.glob(os.path.join(self.directory, "manifest.w*.json")):
             why.append("per-writer manifests")
         if glob.glob(os.path.join(self.directory, "gen-*")) or \
@@ -192,6 +221,14 @@ class VectorStore:
     @property
     def num_vectors(self) -> int:
         return sum(s["count"] for s in self.shards())
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes one row costs to gather at its stored width: int8 codes
+        plus the float16 scale, or float16 rows (the IVF index's
+        ``gather_bytes`` unit)."""
+        return (self.dim + 2 if self.manifest["dtype"] == "int8"
+                else self.dim * 2)
 
     @property
     def model_step(self) -> Optional[int]:
@@ -225,7 +262,9 @@ class VectorStore:
     def reset(self) -> None:
         """Drop every shard (the model changed and the vectors are stale)."""
         for s in self.shards():
-            for key in ("vec", "ids"):
+            for key in _FILES:
+                if key not in s:
+                    continue
                 try:
                     os.remove(os.path.join(self.directory, s[key]))
                 except FileNotFoundError:
@@ -238,7 +277,9 @@ class VectorStore:
     def entry_error(self, entry: Dict) -> Optional[str]:
         """Why this shard entry cannot be trusted, or None: existence and
         recorded byte size first (one stat catches truncation), then CRC32."""
-        for key in ("vec", "ids"):
+        for key in _FILES:
+            if key not in entry:
+                continue
             path = os.path.join(self.directory, entry[key])
             if not os.path.exists(path):
                 return f"{key} file {entry[key]} missing"
@@ -257,7 +298,9 @@ class VectorStore:
     def quarantine(self, entry: Dict, reason: str) -> None:
         """Move a bad shard's files aside (.quarantined) and drop its entry,
         so the next embed_corpus resume re-embeds exactly its id range."""
-        for key in ("vec", "ids"):
+        for key in _FILES:
+            if key not in entry:
+                continue
             src = os.path.join(self.directory, entry[key])
             try:
                 os.replace(src, src + ".quarantined")
@@ -289,23 +332,42 @@ class VectorStore:
 
     # -- write ------------------------------------------------------------
     def write_shard(self, index: int, ids: np.ndarray,
-                    vecs: np.ndarray) -> None:
+                    vecs: Optional[np.ndarray] = None, *,
+                    codes: Optional[np.ndarray] = None,
+                    scales: Optional[np.ndarray] = None) -> None:
         """Persist one shard. Rows with id < 0 (batch padding) are dropped.
-        Data files are written and fsynced first; the manifest entry lands
-        last, so a crash leaves the shard unrecorded or complete."""
-        if vecs.shape[-1] != self.dim:
-            raise ValueError(f"vectors are {vecs.shape[-1]}-d, store is "
+        Either `vecs` (float rows, quantized here by ``quantize_rows`` when
+        the store is int8) or, for an int8 store, `codes` + `scales`
+        quantized on the device. Data files are written and fsynced first;
+        the manifest entry lands last, so a crash leaves the shard
+        unrecorded or complete."""
+        data = vecs if codes is None else codes
+        if data.shape[-1] != self.dim:
+            raise ValueError(f"vectors are {data.shape[-1]}-d, store is "
                              f"{self.dim}-d")
+        int8 = self.manifest["dtype"] == "int8"
+        if codes is not None and not int8:
+            raise ValueError("pre-quantized codes require an int8 store")
         keep = ids >= 0
         ids = ids[keep]
-        vpath = os.path.join(self.directory, f"shard_{index:05d}.vec.npy")
-        ipath = os.path.join(self.directory, f"shard_{index:05d}.ids.npy")
-        np.save(vpath, np.asarray(vecs[keep], np.float16))
-        np.save(ipath, ids.astype(np.int64))
+        stem = os.path.join(self.directory, f"shard_{index:05d}")
+        paths = {"vec": stem + ".vec.npy", "ids": stem + ".ids.npy"}
+        if codes is not None:
+            np.save(paths["vec"], np.asarray(codes[keep], np.int8))
+            scl = np.asarray(scales[keep], np.float16)
+        elif int8:
+            q, scl = quantize_rows(np.asarray(vecs)[keep])
+            np.save(paths["vec"], q)
+        else:
+            np.save(paths["vec"], np.asarray(vecs[keep], np.float16))
+        if int8:
+            paths["scl"] = stem + ".scl.npy"
+            np.save(paths["scl"], scl)
+        np.save(paths["ids"], ids.astype(np.int64))
         entry = {"index": index, "count": int(ids.shape[0]),
-                 "vec": os.path.basename(vpath),
-                 "ids": os.path.basename(ipath), "bytes": {}, "crc": {}}
-        for key, path in (("vec", vpath), ("ids", ipath)):
+                 **{key: os.path.basename(p) for key, p in paths.items()},
+                 "bytes": {}, "crc": {}}
+        for key, path in paths.items():
             entry["bytes"][key] = os.path.getsize(path)
             entry["crc"][key] = crc_file(path)
             _fsync_path(path)
@@ -323,37 +385,46 @@ class VectorStore:
         self._flush_manifest()
 
     # -- read -------------------------------------------------------------
-    def _load_entry(self, entry: Dict) -> Tuple[np.ndarray, np.ndarray]:
-        """(ids [n] int64, vecs [n, dim] float16, memory-mapped)."""
+    def _load_entry(self, entry: Dict, raw: bool = False):
+        """(ids [n] int64, vecs [n, dim]): float16 rows memory-mapped, or
+        int8 rows dequantized to float32. With `raw`, (ids, stored rows
+        memory-mapped, float16 scales or None), so the card widens them."""
         vecs = np.load(os.path.join(self.directory, entry["vec"]),
                        mmap_mode="r")
         ids = np.load(os.path.join(self.directory, entry["ids"]))
+        scale = (np.load(os.path.join(self.directory, entry["scl"]))
+                 if "scl" in entry else None)
+        if raw:
+            return ids, vecs, scale
+        if scale is not None:
+            vecs = (np.asarray(vecs, np.float32)
+                    * scale.astype(np.float32)[:, None])
         return ids, vecs
 
-    def iter_shards(self, prefetch: int = 0,
-                    entries: Optional[List[Dict]] = None
-                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yield (ids [n] int64, vecs [n, dim] float16) a shard at a time,
-        in shard order. With `prefetch` > 0 a reader thread (read_ahead)
-        loads up to `prefetch` shards ahead and reads each memory-mapped
-        vector file into memory on its side: the memmap defers the disk
-        read to the first touch, which would otherwise fall back on the
-        consumer. `entries` sweeps the given shard entries instead of the
+    def iter_shards(self, raw: bool = False, prefetch: int = 0,
+                    entries: Optional[List[Dict]] = None) -> Iterator[Tuple]:
+        """Yield each shard's ``_load_entry(entry, raw)`` in shard order.
+        With `prefetch` > 0 a reader thread (read_ahead) loads up to
+        `prefetch` shards ahead and reads each memory-mapped vector file
+        into memory on its side: the memmap defers the disk read to the
+        first touch, which would otherwise fall back on the consumer.
+        `entries` sweeps the given shard entries instead of the
         manifest's."""
         if entries is None:
             entries = self.shards()
         if not prefetch:
-            return (self._load_entry(s) for s in entries)
+            return (self._load_entry(s, raw=raw) for s in entries)
 
         def _load():
             for s in entries:
-                ids, vecs = self._load_entry(s)
-                yield ids, np.array(vecs)
+                out = self._load_entry(s, raw=raw)
+                yield (out[0], np.array(out[1]), *out[2:])
 
         return read_ahead(_load(), depth=prefetch)
 
     def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Concatenated (ids [N] int64, vectors [N, D] float16)."""
+        """Concatenated (ids [N] int64, vectors [N, D]: float16, or float32
+        dequantized from an int8 store)."""
         parts = [self._load_entry(s) for s in self.shards()]
         if not parts:
             return (np.zeros(0, np.int64), np.zeros((0, self.dim), np.float16))

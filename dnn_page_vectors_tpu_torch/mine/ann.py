@@ -3,7 +3,9 @@ one card.
 
 Queries are embedded with the current weights, the vector store streams
 past them one shard at a time through the exact top-k
-(ops/topk.py ``topk_over_store``), the gold page and empty slots are
+(ops/topk.py ``topk_over_store``), or with `index` each query block goes
+through the IVF index (index/ivf.py: its top-nprobe lists and an exact
+re-rank), the gold page and empty slots are
 dropped, and the first H of the rest, in score order, are the query's
 negatives. The table feeds back into training through
 ``TrainBatcher.hard_negative_lookup`` (train/pipeline.py runs the loop).
@@ -12,8 +14,8 @@ running top-k; with ``out_path`` the [nq, H] table is a memmap filled a
 block at a time.
 
 Not ported yet: the per-process slices of a multi-process mine, merged
-through per-writer files (the multi-GPU slice), and retrieval through an
-IVF index (``index=``, the index slice); each raises NotImplementedError.
+through per-writer files (the multi-GPU slice); it raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -130,19 +132,18 @@ def mine_hard_negatives(embedder, corpus, store,
     into `.part` and splices them after rows [0, start) of the table at
     `out_path` (required), a block at a time, with an atomic replace.
 
+    With `index` (an index.ivf.IVFIndex over this store) each block is
+    retrieved through the index at `nprobe` instead of a store sweep:
+    approximate, and sublinear in the store.
+
     One process: a mine inside a torch.distributed group of several
-    processes, and `index` / `nprobe` (IVF retrieval), raise
-    NotImplementedError.
+    processes raises NotImplementedError.
 
     The table's ``stats``: queries mined, and the host seconds of the
-    query embeds (``embed_s``, tokenizing included), the store sweeps
-    (``sweep_s``), the picks (``pick_s``) and the whole mine. Each stage
-    returns host arrays, so its time includes the card's work."""
-    if index is not None:
-        raise NotImplementedError(
-            "index= (IVF ANN mining) is not ported yet: the IVF/PQ index is "
-            "a later slice of the port (ROADMAP.md queue 1); use the exact "
-            "store sweep (index=None)")
+    query embeds (``embed_s``, tokenizing included), the retrievals
+    (``sweep_s``: store sweeps or index searches), the picks
+    (``pick_s``) and the whole mine. Each stage returns host arrays, so
+    its time includes the card's work."""
     if _multi_process():
         raise NotImplementedError(
             "a multi-process mine (per-process query slices merged through "
@@ -181,10 +182,14 @@ def mine_hard_negatives(embedder, corpus, store,
         qvecs = embedder.embed_texts(
             [corpus.query_text(i) for i in range(s, e)], tower="query")
         t1 = time.perf_counter()
-        _, retrieved = topk_over_store(
-            np.asarray(qvecs, np.float32), store, k=k,
-            query_batch=embedder.cfg.eval.embed_batch_size,
-            device=embedder.device)
+        if index is not None:
+            _, retrieved, _ = index.search(
+                np.asarray(qvecs, np.float32), k=k, nprobe=nprobe)
+        else:
+            _, retrieved = topk_over_store(
+                np.asarray(qvecs, np.float32), store, k=k,
+                query_batch=embedder.cfg.eval.embed_batch_size,
+                device=embedder.device)
         t2 = time.perf_counter()
         table[s - lo: e - lo] = _pick_negatives(
             retrieved, np.arange(s, e, dtype=np.int64), H, corpus.num_pages)

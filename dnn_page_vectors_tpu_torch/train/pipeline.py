@@ -70,7 +70,8 @@ def run_pipeline(cfg: Config, rounds: int = 2,
                                     device=trainer.device)
         # vectors of older weights are stale: reset and stamp this step
         store = prepare_store(store_dir, cfg.model.out_dim,
-                              cfg.eval.store_shard_size, None, trainer.step)
+                              cfg.eval.store_shard_size,
+                              cfg.eval.store_dtype, trainer.step)
         embedder.embed_corpus(trainer.corpus, store)
         rec["embed"] = dict(embedder.stats)
         if eval_every_round:

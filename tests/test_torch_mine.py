@@ -12,7 +12,9 @@ Tolerances, each with its reason:
   normal vectors have no ties);
 * evaluate_recall on converted weights: equal up to one query (a score
   tie may order two pages either way), as tests/test_torch_t5.py holds
-  it;
+  it, through the exact sweep and through the IVF index;
+* mining through the IVF index: the JAX miner's table over the same
+  index files, byte for byte;
 * the mirror of the JAX package's tests/test_pipeline.py
   ``test_hard_negatives_beat_in_batch_only`` at its overrides: its own
   inequalities."""
@@ -32,6 +34,7 @@ from dnn_page_vectors_tpu.data.loader import (
     build_tokenizer as jax_build_tokenizer)
 from dnn_page_vectors_tpu.evals.recall import (
     evaluate_recall as jax_evaluate_recall)
+from dnn_page_vectors_tpu.index.ivf import IVFIndex as JaxIndex
 from dnn_page_vectors_tpu.infer.bulk_embed import BulkEmbedder as JaxEmbedder
 from dnn_page_vectors_tpu.infer.vector_store import VectorStore as JaxStore
 from dnn_page_vectors_tpu.infer.vector_store import (
@@ -47,6 +50,7 @@ from dnn_page_vectors_tpu_torch.data.loader import (
     build_corpus, build_tokenizer)
 from dnn_page_vectors_tpu_torch.evals.recall import (
     evaluate_recall, hits_from_store, recall_from_store)
+from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
 from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
 from dnn_page_vectors_tpu_torch.infer.vector_store import (
     VectorStore, read_ahead)
@@ -327,9 +331,22 @@ def test_mine_out_path_and_incremental_byte_identical_to_jax(
     with pytest.raises(ValueError, match="start > 0"):
         mine_hard_negatives(port, _Corpus(), VectorStore(mine_store),
                             num_negatives=4, start=5)
-    with pytest.raises(NotImplementedError, match="IVF"):
-        mine_hard_negatives(port, _Corpus(), VectorStore(mine_store),
-                            index=object())
+    # index= mines through the IVF index, as JAX's miner does over the
+    # same index files; at full probe it is the exact mine
+    import shutil
+    d = str(tmp_path / "indexed")
+    shutil.copytree(mine_store, d)
+    index = IVFIndex.build(VectorStore(d), nlist=4, iters=3, seed=0,
+                           device="cpu")
+    for nprobe in (1, 4):
+        got = mine_hard_negatives(port, _Corpus(), VectorStore(d),
+                                  num_negatives=4, search_k=9,
+                                  index=index, nprobe=nprobe)
+        want = jax_mine(jemb, _Corpus(), JaxStore(d), num_negatives=4,
+                        search_k=9, index=JaxIndex.open(JaxStore(d)),
+                        nprobe=nprobe)
+        np.testing.assert_array_equal(got.table, want.table)
+    np.testing.assert_array_equal(got.table, full.table)
 
 
 # -- the streaming eval on converted weights ------------------------------------
@@ -376,8 +393,19 @@ def test_evaluate_recall_streams_like_jax(tmp_path, mesh):
                            device="cpu")
     assert recall_from_store(qv, tstore, gold, k=10, device="cpu") == \
         hits / 120 == pytest.approx(got)
-    with pytest.raises(NotImplementedError, match="IVF"):
-        evaluate_recall(temb, tcorpus, tstore, index=object())
+    # index= evaluates through the IVF index: the JAX package's index over
+    # its store, opened by each package, the same recall up to one query
+    jindex = JaxIndex.build(jstore, mesh, nlist=8, iters=3, seed=0)
+    port_store = VectorStore(jstore.directory)
+    tindex = IVFIndex.open(port_store, device="cpu")
+    for nprobe in (2, 8):
+        want, _ = jax_evaluate_recall(jemb, jcorpus, jstore, num_queries=120,
+                                      k=10, index=jindex, nprobe=nprobe)
+        got, n_got = evaluate_recall(temb, tcorpus, port_store,
+                                     num_queries=120, k=10, index=tindex,
+                                     nprobe=nprobe)
+        assert n_got == 120
+        assert got == pytest.approx(want, abs=1 / 120), nprobe
 
 
 # -- mined negatives help (JAX tests/test_pipeline.py:47) -------------------------

@@ -1,7 +1,8 @@
 """The port's serving slice end to end against the JAX package, on the CPU:
 toy corpus -> WordPiece tokenizer -> page tower bulk embed into the fp16
 vector store -> store staged whole -> query tower + exact top-k behind
-SearchService.search_many. Same corpus, same vocab, same flax-initialized
+SearchService.search_many, and the same service through the IVF index
+(serve.index="ivf"). Same corpus, same vocab, same flax-initialized
 weights (converted with params_from_flax), flash attention, float32 compute
 (so the bars are the port's: fp16 store rows within 2e-3, scores within
 1e-3). Small geometry: 2 layers, d=64, 4 heads, mlp 128, 300 pages."""
@@ -17,6 +18,7 @@ from dnn_page_vectors_tpu.config import MeshConfig
 from dnn_page_vectors_tpu.config import get_config as jax_get_config
 from dnn_page_vectors_tpu.data.loader import (
     build_corpus as jax_build_corpus, build_tokenizer as jax_build_tokenizer)
+from dnn_page_vectors_tpu.index.ivf import IVFIndex as JaxIndex
 from dnn_page_vectors_tpu.infer.bulk_embed import BulkEmbedder as JaxEmbedder
 from dnn_page_vectors_tpu.infer.serve import SearchService as JaxService
 from dnn_page_vectors_tpu.infer.vector_store import VectorStore as JaxStore
@@ -179,10 +181,41 @@ def test_recall_at_k_matches_exhaustive_numpy(world):
     assert got == pytest.approx(want, abs=2 / 300)   # ties may swap one
 
 
-def test_serve_requires_exact_index(world):
-    cfg = get_config("bert_mini_v5p16", {**OV, "serve.index": "ivf"})
-    with pytest.raises(NotImplementedError):
-        SearchService(cfg, world["temb"], world["tcorpus"], world["tstore"])
+def test_serve_requires_exact_index(world, tmp_path):
+    """serve.index="ivf" serves through the IVF index: over one store and
+    one index (built by the JAX package, opened by both), search_many
+    equals the JAX service's."""
+    import dataclasses
+    import shutil
+    d = str(tmp_path / "store")
+    shutil.copytree(world["tstore"].directory, d)
+    jstore = JaxStore(d)
+    JaxIndex.build(jstore, world["jemb"].mesh, nlist=8, iters=3, seed=0)
+    jcfg = world["jcfg"].replace(serve=dataclasses.replace(
+        world["jcfg"].serve, index="ivf", nprobe=3))
+    cfg = get_config("bert_mini_v5p16", {**OV, "serve.index": "ivf",
+                                         "serve.nprobe": 3})
+    jsvc = JaxService(jcfg, world["jemb"], world["jcorpus"], jstore,
+                      preload_hbm_gb=0.0)
+    tsvc = SearchService(cfg, world["temb"], world["tcorpus"],
+                         VectorStore(d))
+    assert tsvc.index is not None and tsvc.index.nlist == 8
+    queries = [world["tcorpus"].query_text(i) for i in QUERIES]
+    want = jsvc.search_many(queries, k=10)
+    got = tsvc.search_many(queries, k=10)
+    for w, g in zip(want, got):
+        ws = np.array([r["score"] for r in w])
+        gs = np.array([r["score"] for r in g])
+        np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-3)
+        for j, (a, b) in enumerate(zip(w, g)):
+            if a["page_id"] != b["page_id"]:
+                near = [abs(ws[j] - ws[x]) <= 1e-3
+                        for x in (j - 1, j + 1) if 0 <= x < len(ws)]
+                assert any(near), (j, a, b)
+    met = tsvc.metrics()
+    assert met["ann_fallbacks"] == jsvc.ann_fallbacks == 0
+    assert met["ann_lists_scanned"] == len(QUERIES) * 3
+    assert met["ann_index"]["nlist"] == 8
 
 
 def test_store_quarantine_and_resume(world, tmp_path):
