@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
      K4 in flash_bwd.cu) is compiled with nvcc for sm_90a from the
      checkout (build/torch_kernels/), one nvcc per source, all started
      together; each kernel's registers and spills (ptxas), and a failure
-     if a tensor-core kernel spills. The mT5 SentencePiece vocab is
+     if a tensor-core kernel spills; the C++ host library (native/*.cpp:
+     the trigram hash, the jsonl index, the subword encoder) is compiled
+     with g++ (build/torch_native/) beside them. The mT5 SentencePiece vocab is
      trained meanwhile in a second process (host work only; it is joined
      before the mT5 phases);
   3. kernel checks: each kernel against its plain PyTorch version on the
@@ -124,6 +126,27 @@ Phases, each printing one JSON line:
      the build's seconds by stage, the lists' imbalance, single-query p50
      and p95 of the IVF and the exact service, one search_many's time by
      stage and on the card by kernel class, and the peak memory.
+ 15. the production job from a jsonl corpus (config 3's towers at full
+     width, phase 4's weights and WordPiece vocab): (a) data/synth.py
+     writes 1,000,000 pages (seed 11, 32-word pages, 8-word queries: the
+     JAX package's 1M-page scale test's corpus; in the second process,
+     after the vocabs, while the card works on phases 4-14) and
+     JsonlCorpus indexes them with the C++ index; (b) embed_corpus embeds all of them into an
+     fp16 store of 16 shards with 4 tokenizer workers and the fused C++
+     extract + encode, counted (K1 4 times an encode, all on the tensor
+     cores, nothing else), printing pages/s, the stage split and the peak
+     memory; (c) the first 100,000 pages again with one worker and with
+     the pool: their rows byte for byte the 1M store's; the plain Python
+     WordPiece ids of 20,000 pages and queries (and the plain trigram ids
+     of 2,000) equal the native ones; which route each tokenizer and the
+     corpus index took (any plain one fails the phase); (d) 6 steps of
+     8,192 pairs from the file through Trainer.train with the pool and
+     prefetch_to_device (K1, K2, K3 8 times a step), the step time from
+     text beside phase 5's on pre-made batches; (e) that test's recipe
+     through the CLI in subprocesses on the card (cdssm_toy at its
+     overrides: train 600 steps of 512, embed, eval, embed again): 16
+     shards of 1,000,000 vectors, Recall@10 over 512 queries > 0.2, the
+     second embed a manifest no-op. The file is deleted at the end.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The kernel checks also hold the segment (seg) variants of K1 (against
@@ -311,6 +334,33 @@ IVF_CHECK_QUERIES = 32
 IVF_BIG_ROWS = 1_000_000
 IVF_SEED = 0
 PEAK_LIMIT_GB = 80.0
+# Phase 15, the production job from a jsonl corpus: the JAX package's
+# 1M-page scale test's corpus (tests/test_scale_1m.py:47: seed 11, 32-word
+# pages, 8-word queries) written by data/synth.py, config 3's towers at
+# full width (phase 4's weights and WordPiece vocab) embedding all of it
+# with the tokenizer worker pool; PROD_SERIAL_ROWS of it again with one
+# worker; steps of TRAIN_BATCH pairs from the file; then that test's
+# recipe through the CLI (its cdssm_toy overrides, tests/test_scale_1m.py
+# :53-71, and its bar, :90).
+PROD_PAGES = 1_000_000
+PROD_SEED = 11
+PROD_PAGE_WORDS = 32
+PROD_QUERY_WORDS = 8
+PROD_SERIAL_ROWS = 100_000
+PROD_PLAIN_PAGES = 20_000
+PROD_TRIGRAM_PLAIN_PAGES = 2_000
+PROD_TRAIN_STEPS = 6
+PROD_SHARD = 65_536
+CLI_DEVICE = "cuda"
+CLI_OVERRIDES = {
+    "data.num_pages": PROD_PAGES, "data.trigram_buckets": 16_384,
+    "data.page_len": 32, "model.embed_dim": 48, "model.conv_channels": 96,
+    "model.out_dim": 48, "train.batch_size": 512, "train.steps": 600,
+    "train.warmup_steps": 20, "train.learning_rate": 5e-3,
+    "train.log_every": 1000, "eval.embed_batch_size": 512,
+    "eval.store_shard_size": 65_536, "eval.eval_queries": 512}
+CLI_RECALL_BAR = 0.2
+ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
 
@@ -1471,7 +1521,14 @@ def build_data(config: str, n_pages: int, tokenizers=None):
             else cfg.data.vocab_size)
     if p_tok.vocab_size != want:
         raise AssertionError(f"vocab {p_tok.vocab_size} != {want}")
-    emit({"phase": "tokenizer", "config": config,
+    # the trigram and subword tokenizers run the C++ encoders; the word
+    # tokenizer has no native route (the JAX package has none either)
+    paths = [getattr(t, "path", "python (no native encoder)")
+             for t in (q_tok, p_tok)]
+    if "python" in paths:
+        raise AssertionError(f"a {config} tokenizer took the plain Python "
+                             f"route: {paths}")
+    emit({"phase": "tokenizer", "config": config, "encoder_path": paths,
           "style": cfg.data.tokenizer, "vocab_size": p_tok.vocab_size,
           "train_s": tok_s, "corpus_pages": n_pages,
           "languages": cfg.data.languages})
@@ -3044,6 +3101,347 @@ def run_ivf(device, data, workdir: str) -> dict:
     return rec
 
 
+# -- phase 15: the production job from a jsonl corpus ------------------------
+
+def copy_lines(path: str, dst: str, nbytes: int) -> None:
+    """The first `nbytes` bytes of `path` (whole lines) into `dst`."""
+    with open(path, "rb") as src, open(dst, "wb") as out:
+        while nbytes > 0:
+            chunk = src.read(min(nbytes, 1 << 24))
+            out.write(chunk)
+            nbytes -= len(chunk)
+
+
+def shard_rows(store, rows: int) -> tuple:
+    """(ids, vector bytes) of the first `rows` rows of `store`, as stored
+    (float16 rows or int8 codes), for byte comparisons."""
+    ids, vecs, n = [], [], 0
+    for out in store.iter_shards(raw=True):
+        ids.append(np.asarray(out[0]))
+        vecs.append(np.asarray(out[1]))
+        n += len(ids[-1])
+        if n >= rows:
+            break
+    ids = np.concatenate(ids)[:rows]
+    vecs = np.ascontiguousarray(np.concatenate(vecs)[:rows])
+    return ids, vecs.view(np.uint8)
+
+
+def run_cli(command: str, args: list, timeout: int) -> tuple:
+    """`python -m dnn_page_vectors_tpu_torch.cli command args` from the
+    root of the checkout; returns (its last stdout line as JSON, seconds).
+    Raises with its stderr's tail if it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dnn_page_vectors_tpu_torch.cli", command,
+         *args], cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {command} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+
+def write_production_corpus(path: str, pages: int, seed: int,
+                            page_words: int, query_words: int) -> dict:
+    """data/synth.py's corpus of `pages` pages into `path` (host work of
+    seconds; chip_smoke runs it in the tokenizer process); returns its
+    seconds and bytes."""
+    from dnn_page_vectors_tpu_torch.data.synth import write_synth_jsonl
+    t0 = time.perf_counter()
+    write_synth_jsonl(path, pages, seed=seed, page_len=page_words,
+                      query_len=query_words)
+    return {"seconds": time.perf_counter() - t0,
+            "bytes": os.path.getsize(path)}
+
+
+def run_production(device, data, workdir: str, report: dict,
+                   corpus_job=None) -> dict:
+    """Phase 15: (a) write_synth_jsonl writes PROD_PAGES pages (the JAX
+    package's 1M-page scale test's corpus; `corpus_job`, when given, is
+    write_production_corpus's future writing it into workdir) and
+    JsonlCorpus indexes them;
+    (b) config 3's towers (phase 4's weights and vocab) embed every page
+    into an fp16 store through embed_corpus with the worker pool and the
+    fused native route, counted (K1 4 times an encode, on the tensor
+    cores, nothing else); (c) the first PROD_SERIAL_ROWS pages again with
+    one worker and with the pool, byte for byte the same rows, and the
+    plain Python encoders' ids against the native ones; (d) Trainer.train
+    takes PROD_TRAIN_STEPS steps of TRAIN_BATCH pairs from the file
+    (counted: K1, K2, K3 8 times a step); (e) the CLI (train, embed,
+    eval, embed again) at the scale test's cdssm_toy overrides in
+    subprocesses on the card: 16 shards, Recall@10 over 512 queries >
+    CLI_RECALL_BAR, the second embed a manifest no-op. The corpus file is
+    deleted at the end."""
+    from dnn_page_vectors_tpu_torch import native
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
+    from dnn_page_vectors_tpu_torch.data.loader import fused_encode
+    from dnn_page_vectors_tpu_torch.data.subword import SubwordTokenizer
+    from dnn_page_vectors_tpu_torch.data.trigram import TrigramTokenizer
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    from dnn_page_vectors_tpu_torch.train.loop import Trainer
+    from dnn_page_vectors_tpu_torch.utils.profiling import PipelineProfiler
+
+    t_phase = time.perf_counter()
+    _, q_tok, p_tok = data
+    path = os.path.join(workdir, "corpus_1m.jsonl")
+    rec = {"phase": "production", "config": "bert_mini_v5p16",
+           "pages": PROD_PAGES, "synth": {
+               "seed": PROD_SEED, "page_words": PROD_PAGE_WORDS,
+               "query_words": PROD_QUERY_WORDS}}
+    t0 = time.perf_counter()
+    written = (write_production_corpus(path, PROD_PAGES, PROD_SEED,
+                                       PROD_PAGE_WORDS, PROD_QUERY_WORDS)
+               if corpus_job is None else corpus_job.get())
+    rec["synth"].update(written, wait_s=time.perf_counter() - t0,
+                        pages_per_s=PROD_PAGES / written["seconds"])
+    try:
+        t0 = time.perf_counter()
+        corpus = JsonlCorpus(path)
+        rec["index_s"] = time.perf_counter() - t0
+        if corpus.num_pages != PROD_PAGES:
+            raise AssertionError(f"the corpus indexes {corpus.num_pages} "
+                                 f"records, want {PROD_PAGES}")
+        # ---- (b) the bulk embed, counted ---------------------------------
+        cfg = get_config("bert_mini_v5p16", {
+            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+            "eval.store_shard_size": PROD_SHARD,
+            "eval.embed_batch_size": 512, "model.attention": "flash"})
+        m = cfg.model
+        rec.update(widths(cfg))
+        routes = {"page_tokenizer": p_tok.path, "query_tokenizer": q_tok.path,
+                  "corpus_index": ("native" if corpus.native_index
+                                   else "python"),
+                  "embed_encode": ("fused" if fused_encode(corpus, p_tok)
+                                   else "plain"),
+                  "native_library": str(native.build().name)}
+        rec["routes"] = routes
+        emit({"phase": "production_routes", **routes})
+        if (routes["page_tokenizer"], routes["query_tokenizer"],
+                routes["corpus_index"], routes["embed_encode"]) != (
+                "native", "native", "native", "fused"):
+            raise AssertionError(f"a host path took the plain route: "
+                                 f"{routes}")
+        model = build_two_tower(cfg, vocab_size=p_tok.vocab_size,
+                                device=device)
+        emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+        emb.embed_pages(np.zeros((8, p_tok.max_tokens), np.int32))   # warm
+        store = VectorStore(os.path.join(workdir, "store_production"),
+                            dim=m.out_dim, shard_size=PROD_SHARD)
+        prof = PipelineProfiler()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        emb.embed_corpus(corpus, store, profiler=prof)
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        counts = launch_counts()
+        # ------------------------------------------------------------------
+        bs, ss = cfg.eval.embed_batch_size, cfg.eval.store_shard_size
+        n_batches = sum(-(-min(ss, PROD_PAGES - lo) // bs)
+                        for lo in range(0, PROD_PAGES, ss))
+        want = expected_launches(n_batches * m.num_layers, 0)
+        if counts != want:
+            raise AssertionError(f"phase 15's embed launched {counts}, want "
+                                 f"{want} ({n_batches} encodes)")
+        if (store.num_vectors, len(store.shards())) != (
+                PROD_PAGES, -(-PROD_PAGES // PROD_SHARD)):
+            raise AssertionError(f"the store holds {store.num_vectors} "
+                                 f"vectors in {len(store.shards())} shards")
+        shards = list(store.iter_shards())
+        for out in (shards[0], shards[-1]):
+            v = np.asarray(out[1], np.float32)
+            if not (np.isfinite(v).all()
+                    and np.abs(np.linalg.norm(v, axis=1) - 1).max() < 2e-3):
+                raise AssertionError("store rows are not finite unit rows")
+        rec["embed"] = {
+            "pages_per_s_from_text": PROD_PAGES / embed_s, "seconds": embed_s,
+            "workers": cfg.data.tokenize_workers, "batches": n_batches,
+            "stats": emb.stats, "stage_s": prof.stages(),
+            "stage_calls": prof.counts(),
+            "k1_launches": counts["launches"],
+            "k1_launches_tensor_core": counts["launches_tc"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit({"phase": "production_embed", **rec["embed"]})
+        del store, shards
+
+        # ---- (c) one worker against the pool, the plain encoders -----------
+        head = os.path.join(workdir, "corpus_head.jsonl")
+        copy_lines(path, head, int(corpus.offsets[PROD_SERIAL_ROWS]))
+        head_corpus = JsonlCorpus(head)
+        serial = {}
+        for workers in (1, cfg.data.tokenize_workers):
+            s = VectorStore(os.path.join(workdir, f"store_head_{workers}"),
+                            dim=m.out_dim, shard_size=PROD_SHARD)
+            t0 = time.perf_counter()
+            emb.embed_corpus(head_corpus, s, workers=workers)
+            torch.cuda.synchronize()
+            serial[workers] = (s, time.perf_counter() - t0)
+        full = VectorStore(os.path.join(workdir, "store_production"))
+        want_ids, want_bytes = shard_rows(full, PROD_SERIAL_ROWS)
+        equal = {}
+        for workers, (s, _) in serial.items():
+            ids, vb = shard_rows(s, PROD_SERIAL_ROWS)
+            equal[workers] = bool(len(ids) == PROD_SERIAL_ROWS
+                                  and np.array_equal(ids, want_ids)
+                                  and np.array_equal(vb, want_bytes))
+        ids = range(PROD_PLAIN_PAGES)
+        plain_p = SubwordTokenizer(p_tok.vocab, style=p_tok.style,
+                                   max_tokens=p_tok.max_tokens,
+                                   use_native=False)
+        plain_q = SubwordTokenizer(q_tok.vocab, style=q_tok.style,
+                                   max_tokens=q_tok.max_tokens,
+                                   use_native=False)
+        t0 = time.perf_counter()
+        want_p = plain_p.encode_batch(corpus.page_texts(ids))
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_p = p_tok.encode_jsonl_lines(corpus.page_lines(ids))
+        fused_s = time.perf_counter() - t0
+        queries = corpus.query_texts(ids)
+        tri = dict(buckets=16_384, max_words=PROD_PAGE_WORDS, k=8)
+        tri_texts = corpus.page_texts(range(PROD_TRIGRAM_PLAIN_PAGES))
+        ids_equal = {
+            "wordpiece_pages_fused": bool(np.array_equal(got_p, want_p)),
+            "wordpiece_pages_batch": bool(np.array_equal(
+                p_tok.encode_batch(corpus.page_texts(ids)), want_p)),
+            "wordpiece_queries": bool(np.array_equal(
+                q_tok.encode_batch(queries), plain_q.encode_batch(queries))),
+            "trigram_pages": bool(np.array_equal(
+                TrigramTokenizer(**tri).encode_batch(tri_texts),
+                TrigramTokenizer(**tri, use_native=False).encode_batch(
+                    tri_texts)))}
+        rec["serial_check"] = {
+            "rows": PROD_SERIAL_ROWS,
+            "rows_equal_to_the_1m_store": {str(k): v
+                                           for k, v in equal.items()},
+            "pages_per_s_one_worker":
+                PROD_SERIAL_ROWS / serial[1][1],
+            "pages_per_s_pool": (PROD_SERIAL_ROWS
+                                 / serial[cfg.data.tokenize_workers][1]),
+            "plain_ids_equal": ids_equal,
+            "plain_pages": PROD_PLAIN_PAGES,
+            "trigram_plain_pages": PROD_TRIGRAM_PLAIN_PAGES,
+            "wordpiece_plain_pages_per_s": PROD_PLAIN_PAGES / plain_s,
+            "wordpiece_fused_pages_per_s": PROD_PLAIN_PAGES / fused_s}
+        emit({"phase": "production_serial_check", **rec["serial_check"]})
+        if not all(equal.values()) or not all(ids_equal.values()):
+            raise AssertionError(f"the pool's rows or the native ids differ: "
+                                 f"{rec['serial_check']}")
+        del serial, full
+        os.remove(head)
+
+        # ---- (d) training from the file, counted ---------------------------
+        tcfg = get_config("bert_mini_v5p16", {
+            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+            "model.attention": "flash", "train.log_every": 1,
+            "train.batch_size": TRAIN_BATCH})
+        trainer = Trainer(tcfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                          device=device)
+        starts = []
+        step = trainer.train_step
+
+        def timed_step(batch):
+            starts.append(time.perf_counter())
+            return step(batch)
+        trainer.train_step = timed_step
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(PROD_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = launch_counts()
+        # ------------------------------------------------------------------
+        per_layer = 2 * tcfg.model.num_layers
+        want = expected_launches(PROD_TRAIN_STEPS * per_layer,
+                                 PROD_TRAIN_STEPS * per_layer)
+        if counts != want:
+            raise AssertionError(f"phase 15's training launched {counts}, "
+                                 f"want {want}")
+        hist = trainer.history
+        if len(hist) != PROD_TRAIN_STEPS or not all(
+                np.isfinite([h["loss"], h["grad_norm"]]).all()
+                for h in hist):
+            raise AssertionError(f"training metrics are not finite: {hist}")
+        step_ms = list(np.diff(starts + [t_end]) * 1e3)
+        names = ("k1", "k2", "k3", "k4")
+        keys = ("launches", "dq_launches", "dkv_launches",
+                "dq_dbias_launches")
+        rec["train"] = {
+            "batch_pages": TRAIN_BATCH, "steps": PROD_TRAIN_STEPS,
+            "workers": tcfg.data.tokenize_workers,
+            "train_s": t_end - t0,
+            "step_ms_from_text": step_ms,
+            "median_step_ms_from_text": float(np.median(step_ms[2:])),
+            "phase5_median_step_ms_premade":
+                report["train"]["median_step_ms"],
+            "train_pages_per_s_from_text": TRAIN_BATCH / (
+                float(np.median(step_ms[2:])) / 1e3),
+            "host_stage_s": trainer.profiler.stages(),
+            "losses": [h["loss"] for h in hist],
+            "launches_main_path": {n: counts[k] for n, k in zip(names, keys)},
+            "launches_tensor_core_main_path": {
+                n: counts[k + "_tc"] for n, k in zip(names, keys)},
+            "launches_seg_main_path": {
+                n: counts[k + "_seg"] for n, k in zip(names, keys)},
+            "launches_one_step": {n: counts[k] // PROD_TRAIN_STEPS
+                                  for n, k in zip(names, keys)},
+            "seg_summary_launches_main_path": 0,
+            "gdead_launches_main_path": 0}
+        emit({"phase": "production_train", **rec["train"]})
+        del trainer, model, emb
+        torch.cuda.empty_cache()
+
+        # ---- (e) the CLI on the card ---------------------------------------
+        wd = os.path.join(workdir, "cli_1m")
+        args = ["--config", "cdssm_toy", "--workdir", wd, "--device",
+                CLI_DEVICE, "--set", f"data.corpus=jsonl:{path}"]
+        for k, v in CLI_OVERRIDES.items():
+            args += ["--set", f"{k}={v}"]
+        cli = {}
+        cli["train"], cli["train_s"] = run_cli("train", args, 600)
+        cli["embed"], cli["embed_s"] = run_cli("embed", args, 600)
+        cli["eval"], cli["eval_s"] = run_cli("eval", args, 300)
+        cli_store = VectorStore(os.path.join(wd, "store"))
+        files = sorted(f for f in os.listdir(cli_store.directory)
+                       if f.endswith(".npy"))
+        mtimes = [os.stat(os.path.join(cli_store.directory, f)).st_mtime_ns
+                  for f in files]
+        cli["embed_again"], cli["embed_again_s"] = run_cli("embed", args, 300)
+        noop = (mtimes == [os.stat(os.path.join(cli_store.directory,
+                                                f)).st_mtime_ns
+                           for f in files]
+                and "stage_tokenize_n" not in cli["embed_again"]["stages"])
+        recall = cli["eval"]["recall@10"]
+        rec["cli"] = {**cli, "overrides": CLI_OVERRIDES,
+                      "store_vectors": cli_store.num_vectors,
+                      "store_shards": len(cli_store.shards()),
+                      "second_embed_noop": noop,
+                      "recall_bar": CLI_RECALL_BAR}
+        emit({"phase": "production_cli", **rec["cli"]})
+        shards = -(-PROD_PAGES // CLI_OVERRIDES["eval.store_shard_size"])
+        if (cli_store.num_vectors, len(cli_store.shards())) != (
+                PROD_PAGES, shards) or cli["embed"]["embedded"] != PROD_PAGES:
+            raise AssertionError(f"the CLI's store: {rec['cli']}")
+        if not (cli["eval"]["num_queries"] == CLI_OVERRIDES[
+                "eval.eval_queries"] and recall > CLI_RECALL_BAR and noop):
+            raise AssertionError(f"the CLI run failed its checks: "
+                                 f"{rec['cli']}")
+    finally:
+        os.remove(path)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["device"] = torch.cuda.get_device_name(0)
+    rec["nvidia_smi"] = nvidia_smi()
+    emit({k: v for k, v in rec.items()
+          if k not in ("embed", "serial_check", "train", "cli")})
+    return rec
+
+
 # the bool template flags of each templated kernel, in order
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
@@ -3132,12 +3530,13 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
     return rec
 
 
-def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
-               ) -> list:
-    """Phases 2-14; fills `report` and returns the `kernels` line's
+def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
+               parent=None) -> list:
+    """Phases 2-15; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
-    word tokenizers; with `parent` (another tree of the port) the kernels
-    are also timed against it. report["timeline"] holds the seconds
+    word tokenizers, trained in `tok_pool`'s process, which then writes
+    phase 15's corpus; with `parent` (another tree of the port) the
+    kernels are also timed against it. report["timeline"] holds the seconds
     since the phases began at the end of each of them."""
     from dnn_page_vectors_tpu_torch.ops import build
     t_run = time.perf_counter()
@@ -3145,12 +3544,22 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
 
     def done(name: str) -> None:
         timeline[name] = time.perf_counter() - t_run
-    # one nvcc per source, all started together
+    from dnn_page_vectors_tpu_torch import native
+    # one nvcc per source and the g++ of the C++ host library, all started
+    # together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host_lib = pool.submit(native.build)
         for f in [pool.submit(build.compile_source, src) for src in SOURCES]:
             f.result()
+        lib_path = host_lib.result()
     report["build"] = {}
+    native.load()
+    report["build"]["native"] = {"library": lib_path.name,
+                                 "gxx_s": native.BUILD_INFO["seconds"]}
+    emit({"phase": "build", "source": "native/*.cpp (g++, the C++ host "
+          "library)", "library": lib_path.name,
+          "gxx_seconds": native.BUILD_INFO["seconds"]})
     for src in SOURCES:
         build.load_library(src)
         secs, log = build.BUILD_INFO.get(src, (0.0, "no log"))
@@ -3185,8 +3594,13 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
     report["k4"] = check_k4(device, "mt5_page_train_bf16",
                             "mt5_query_train_bf16")
     done("k4")
-    with tempfile.TemporaryDirectory(dir=os.getcwd(),
-                                     prefix=".chip_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".chip_smoke_",
+                                     ignore_cleanup_errors=True) as tmp:
+        # phase 15's corpus is host work: written in the tokenizer
+        # process, after the vocabs, while the card works on phases 4-14
+        corpus_job = tok_pool.apply_async(write_production_corpus, (
+            os.path.join(tmp, "corpus_1m.jsonl"), PROD_PAGES, PROD_SEED,
+            PROD_PAGE_WORDS, PROD_QUERY_WORDS))
         report["seg"] = check_seg(device, train_seg)
         done("seg")
         report["slice"] = run_slice(device, "bert_mini_v5p16", N_PAGES,
@@ -3264,6 +3678,11 @@ def run_phases(device, report: dict, mt5_tok, word_tok, parent=None
         # corpus, vocab and fp16 store
         report["ivf"] = run_ivf(device, bert, tmp)
         done("ivf")
+        # phase 15: the production job from a jsonl corpus, with phase 4's
+        # vocab and weights
+        report["production"] = run_production(device, bert, tmp, report,
+                                              corpus_job)
+        done("production")
     emit({"phase": "timeline", "seconds_at_end_of": timeline})
     return kernel_entries(report)
 
@@ -3301,13 +3720,17 @@ def kernel_entries(report: dict) -> list:
              **{f"{z}_serving": report[f"{z}_slice"]["k1_launches"]
                 for z in zoo},
              "ivf_retrieval": report["ivf"]["k1_launches"],
-             "ivf_1m_store_encodes": report["ivf"]["k1_launches_big_store"]}
+             "ivf_1m_store_encodes": report["ivf"]["k1_launches_big_store"],
+             "production_1m_embed": report["production"]["embed"][
+                 "k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
                 ("mt5_packed_training", report["mt5_pack_train"]),
                 *((f"{z}_training", report[f"{z}_train"]) for z in zoo),
-                ("hardneg_pipeline", report["hardneg"]))
+                ("hardneg_pipeline", report["hardneg"]),
+                ("production_training_from_jsonl",
+                 report["production"]["train"]))
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
@@ -3316,7 +3739,9 @@ def kernel_entries(report: dict) -> list:
                    "k1_launches_tensor_core"] for z in zoo},
                "ivf_retrieval": report["ivf"]["k1_launches_tensor_core"],
                "ivf_1m_store_encodes": report["ivf"][
-                   "k1_launches_big_store_tensor_core"]},
+                   "k1_launches_big_store_tensor_core"],
+               "production_1m_embed": report["production"]["embed"][
+                   "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     for path, rec in training:
@@ -3672,7 +4097,8 @@ def main() -> int:
             train_tokenizers, (data_config(MT5, MT5_VOCAB_PAGES),))
         word_tok = tok_pool.apply_async(
             train_tokenizers, (data_config(KIM, WORD_VOCAB_PAGES),))
-        kernels = run_phases(device, report, mt5_tok, word_tok, args.parent)
+        kernels = run_phases(device, report, tok_pool, mt5_tok, word_tok,
+                             args.parent)
     finally:
         tok_pool.terminate()
         tok_pool.join()

@@ -17,6 +17,11 @@ transformer towers, the CDSSM (trigram), Kim-CNN and BiLSTM (word)
 towers on torch ops, and hard-negative mining (``mine/ann.py``: the query
 tower against the store streamed a shard at a time, ``ops/topk.py
 topk_over_store``) with the train -> embed -> mine -> train loop of
-``train/pipeline.py``. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; with no GPU present they raise.
+``train/pipeline.py``, the int8 store and the IVF/PQ index (``index/``),
+and the host data path: jsonl corpora (``data/jsonl.py``,
+``data/synth.py``), the C++ tokenizers and jsonl index (``native/``), the
+tokenizer worker pool and ``prefetch_to_device`` (``data/loader.py``),
+the background shard writer (``infer/bulk_embed.py``), and the offline
+CLI (``cli.py``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no GPU present they raise.
 """

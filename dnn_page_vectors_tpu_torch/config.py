@@ -1,6 +1,7 @@
 """Config dataclasses for the port: the fields the serving and training
 slices (BERT-mini, mT5, sequence packing, the CDSSM, Kim-CNN and BiLSTM
-towers, hard-negative mining, the int8 store and the IVF/PQ index) read, with the JAX package's names and
+towers, hard-negative mining, the int8 store and the IVF/PQ index, the
+host data path) read, with the JAX package's names and
 defaults (its config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``,
 ``lstm_words``, ``bert_mini_v5p16``, ``hardneg_v5p64``,
 ``mt5_multilingual`` and ``bert_long_sp`` presets,
@@ -20,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 class DataConfig:
     """Host-side data pipeline settings."""
     tokenizer: str = "trigram"       # trigram | word | wordpiece | sentencepiece
-    corpus: str = "toy"              # toy (jsonl:<path> is a later slice)
+    corpus: str = "toy"              # toy | jsonl:<path>
     num_pages: int = 10_000          # corpus size (toy generator)
     query_len: int = 16              # max tokens per query
     page_len: int = 64               # max tokens per page
@@ -29,6 +30,15 @@ class DataConfig:
     vocab_size: int = 30_000         # word / subword vocab size
     languages: int = 1               # >1: cross-lingual toy corpus
     num_topics: int = 64             # toy-corpus topics
+    # >1 splits one native subword batch encode across host threads (the
+    # C++ matcher releases the GIL)
+    tokenize_threads: int = 1
+    # the tokenizer worker pool: >1 reads and tokenizes the batches of the
+    # bulk-embed sweep and of the train batcher on N threads, reassembled
+    # in batch order (data/loader.py ordered_parallel_map), so the batches
+    # stay byte for byte the serial path's. Workers split ACROSS batches,
+    # tokenize_threads WITHIN one. 1 = a serial producer.
+    tokenize_workers: int = 4
     seed: int = 0
 
 
@@ -93,6 +103,9 @@ class EvalConfig:
     # float16 | int8: int8 stores symmetric per-vector codes + float16
     # scales (infer/vector_store.py), half the bytes of float16 rows
     store_dtype: str = "float16"
+    # shards the bulk embed's background writer may hold queued; a slow
+    # disk then holds the device loop back instead of filling host memory
+    writeback_depth: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

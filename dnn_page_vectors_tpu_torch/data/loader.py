@@ -1,31 +1,78 @@
 """Host half of the data pipeline: corpus and tokenizer construction, the
-shuffled train batches, the fixed-order bulk-embed sweep, and the
-host->device copy.
+shuffled train batches, the fixed-order bulk-embed sweep, the tokenizer
+worker pool and the host->device prefetch.
 
-Counterpart of the JAX package's data/loader.py. The host->device copy goes
-through pinned memory with ``non_blocking=True``, so a copy overlaps the
-host work that follows it; the JAX package's ``prefetch_to_device`` has no
-counterpart here. The train batcher is single-process with a serial
-producer (the tokenizer worker pool and multi-host slices are later
-slices); with ``pack`` > 1 it packs its pages into rows with segment ids
-(``pack_segments``, sequence packing), byte for byte as the JAX package
-does.
+Counterpart of the JAX package's data/loader.py, on one process. The
+per-batch read + tokenize of the train batcher and of the bulk-embed
+sweep can run on a pool of tokenizer worker threads
+(``ordered_parallel_map``, ``data.tokenize_workers``), reassembled in
+batch order, so the batches are byte for byte the serial path's: the
+corpus reader keeps a file handle per thread and the C++ encoders drop
+the GIL. ``prefetch_to_device`` moves batches to the card from a producer
+thread through pinned host memory. With ``pack`` > 1 the train batcher
+packs its pages into rows with segment ids (``pack_segments``, sequence
+packing), byte for byte as the JAX package does.
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import os
-from typing import Callable, Dict, Iterator, Optional
+import queue as queue_mod
+import threading
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dnn_page_vectors_tpu_torch.config import Config
+from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
 from dnn_page_vectors_tpu_torch.data.subword import SubwordTokenizer
 from dnn_page_vectors_tpu_torch.data.toy import ToyCorpus
 from dnn_page_vectors_tpu_torch.data.trigram import TrigramTokenizer
 from dnn_page_vectors_tpu_torch.data.words import WordTokenizer
+from dnn_page_vectors_tpu_torch.utils.profiling import (
+    NULL_PROFILER, PipelineProfiler)
 
 Batch = Dict[str, np.ndarray]
+
+
+def ordered_parallel_map(fn: Callable[[Any], Any], items: Iterable[Any],
+                         workers: int, depth: int = 2) -> Iterator[Any]:
+    """Maps `fn` over `items` on a pool of `workers` threads and yields the
+    results in item order. At most workers + depth items are in flight, so
+    host memory stays bounded and an abandoned consumer leaves no backlog.
+
+    A worker's exception re-raises here, at its item's place in the order,
+    where the serial path would have raised; later results are dropped and
+    pending items cancelled. Closing the generator (abandoning it) shuts
+    the pool down the same way. ``workers`` <= 1 maps in the caller's
+    thread."""
+    if workers <= 1:
+        for item in items:
+            yield fn(item)
+        return
+    ex = concurrent.futures.ThreadPoolExecutor(
+        max_workers=workers, thread_name_prefix="tokenize-worker")
+    futs: collections.deque = collections.deque()
+    try:
+        for item in items:
+            futs.append(ex.submit(fn, item))
+            if len(futs) >= workers + depth:
+                yield futs.popleft().result()
+        while futs:
+            yield futs.popleft().result()
+    finally:
+        ex.shutdown(wait=False, cancel_futures=True)
+
+
+def read_workers(corpus, workers: int) -> int:
+    """The tokenizer workers to read `corpus` with: `workers` where its
+    reads run in parallel in threads (``threaded_reads``: JsonlCorpus's
+    reads and the C++ encoders drop the GIL), else 1 (ToyCorpus makes
+    its texts in Python under the GIL, where threads only contend: on
+    the card they slowed its from-text rates, PERF.md §6)."""
+    return max(1, workers) if getattr(corpus, "threaded_reads", False) else 1
 
 
 def _waterfill(lens: np.ndarray, cap: int) -> np.ndarray:
@@ -98,15 +145,14 @@ def pack_segments(enc: np.ndarray, pack: int
     return rows, seg, pos
 
 
-def build_corpus(cfg: Config) -> ToyCorpus:
+def build_corpus(cfg: Config):
     d = cfg.data
     if d.corpus == "toy":
         return ToyCorpus(num_pages=d.num_pages, seed=d.seed,
                          page_len=d.page_len, query_len=d.query_len,
                          languages=d.languages, num_topics=d.num_topics)
     if d.corpus.startswith("jsonl:"):
-        raise NotImplementedError(
-            "jsonl corpora are not ported yet (slice 6 of the port)")
+        return JsonlCorpus(d.corpus[len("jsonl:"):])
     raise ValueError(f"unknown corpus {d.corpus!r} (want 'toy' or 'jsonl:<path>')")
 
 
@@ -172,6 +218,7 @@ def build_tokenizer(cfg: Config, corpus, cache_dir: Optional[str] = None):
         if cache:
             tok.save(cache)
     q = SubwordTokenizer(tok.vocab, style=tok.style, max_tokens=d.query_len)
+    q.threads = tok.threads = d.tokenize_threads
     return q, tok
 
 
@@ -188,13 +235,23 @@ class TrainBatcher:
     order ``np.random.default_rng(seed + e).permutation(num_pages)``, in
     ``num_pages // batch_size`` full batches (the tail is dropped).
     ``start_step`` maps a global step to (epoch, offset), so a resumed run
-    continues the exact batch order of an uninterrupted one."""
+    continues the exact batch order of an uninterrupted one.
 
-    def __init__(self, corpus: ToyCorpus, query_tok, page_tok,
+    ``workers`` > 1 reads and tokenizes each batch (queries, pages and the
+    mined negatives) on a pool of tokenizer workers, reassembled in batch
+    order, where the corpus reads in parallel (``read_workers``): the
+    batches are byte for byte the serial path's. The id
+    schedule stays in one thread. A jsonl corpus with native subword
+    tokenizers reads each record once and takes the fused C++ extract +
+    encode for both fields (``fused_encode``; the same ids). ``profiler``
+    gets the workers' ``read``, ``tokenize`` and ``pack`` seconds."""
+
+    def __init__(self, corpus, query_tok, page_tok,
                  batch_size: int, seed: int = 0, start_step: int = 0,
                  hard_negative_lookup: Optional[
                      Callable[[np.ndarray], np.ndarray]] = None,
-                 pack: int = 1):
+                 pack: int = 1, workers: int = 1,
+                 profiler: Optional[PipelineProfiler] = None):
         if batch_size > corpus.num_pages:
             raise ValueError(
                 f"batch_size {batch_size} > corpus size {corpus.num_pages}: "
@@ -205,12 +262,19 @@ class TrainBatcher:
         self.batch_size = batch_size
         self.seed = seed
         self.start_step = start_step
-        # maps [B] gold page ids -> [B, H] hard-negative page ids
+        # maps [B] gold page ids -> [B, H] hard-negative page ids; called
+        # from the worker threads (a read-only table gather)
         self.hard_negative_lookup = hard_negative_lookup
         self.pack = max(1, pack)
         if self.pack > 1 and batch_size % self.pack:
             raise ValueError(f"batch_size {batch_size} must divide "
                              f"train.pack_pages={self.pack}")
+        self.workers = read_workers(corpus, workers)
+        self.profiler = profiler or NULL_PROFILER
+        # a jsonl corpus with native subword tokenizers: the raw lines go
+        # to the fused C++ extract + encode (the same ids)
+        self.fused = (fused_encode(corpus, query_tok)
+                      and fused_encode(corpus, page_tok))
 
     @property
     def steps_per_epoch(self) -> int:
@@ -228,47 +292,113 @@ class TrainBatcher:
             epoch += 1
 
     def __iter__(self) -> Iterator[Batch]:
-        for ids in self._id_stream():
-            yield self._materialize(ids)
+        return ordered_parallel_map(self._materialize, self._id_stream(),
+                                    self.workers)
 
     def _materialize(self, ids: np.ndarray) -> Batch:
+        prof = self.profiler
         c = self.corpus
-        batch: Batch = {
-            "query": self.query_tok.encode_batch(
-                [c.query_text(int(i)) for i in ids]),
-            "page": self.page_tok.encode_batch(
-                [c.page_text(int(i)) for i in ids]),
-            "page_id": ids.astype(np.int32),
-        }
+        if self.fused:
+            # one read of each record serves both fields
+            with prof.stage("read"):
+                lines = c.page_lines(ids)
+            with prof.stage("tokenize"):
+                query = self.query_tok.encode_jsonl_lines(lines, "query")
+                page = self.page_tok.encode_jsonl_lines(lines, "page")
+        else:
+            with prof.stage("read"):
+                queries = query_texts(c, ids)
+                pages = page_texts(c, ids)
+            with prof.stage("tokenize"):
+                query = self.query_tok.encode_batch(queries)
+                page = self.page_tok.encode_batch(pages)
+        batch: Batch = {"query": query, "page": page,
+                        "page_id": ids.astype(np.int32)}
         if self.pack > 1:
-            rows, seg, pos = pack_segments(batch["page"], self.pack)
+            with prof.stage("pack"):
+                rows, seg, pos = pack_segments(batch["page"], self.pack)
             batch["page"] = rows
             batch["page_seg"] = seg
             batch["page_pos"] = pos
         if self.hard_negative_lookup is not None:
             neg_ids = self.hard_negative_lookup(ids)              # [B, H]
-            enc = self.page_tok.encode_batch(
-                [c.page_text(int(i)) for i in neg_ids.reshape(-1)])
+            with prof.stage("read"):
+                neg = (c.page_lines(neg_ids.reshape(-1)) if self.fused
+                       else page_texts(c, neg_ids.reshape(-1)))
+            with prof.stage("tokenize"):
+                enc = (self.page_tok.encode_jsonl_lines(neg, "page")
+                       if self.fused else self.page_tok.encode_batch(neg))
             batch["neg_page"] = enc.reshape(neg_ids.shape + enc.shape[1:])
         return batch
 
 
-def iter_corpus_batches(corpus: ToyCorpus, page_tok, batch_size: int,
-                        start: int = 0, stop: Optional[int] = None
+def page_texts(corpus, ids) -> list:
+    """The page texts of `ids`: one bulk read where the corpus has one
+    (JsonlCorpus's fast extract), else a text at a time."""
+    bulk = getattr(corpus, "page_texts", None)
+    if bulk is not None:
+        return bulk(ids)
+    return [corpus.page_text(int(i)) for i in ids]
+
+
+def query_texts(corpus, ids) -> list:
+    bulk = getattr(corpus, "query_texts", None)
+    if bulk is not None:
+        return bulk(ids)
+    return [corpus.query_text(int(i)) for i in ids]
+
+
+def fused_encode(corpus, page_tok) -> bool:
+    """Whether the bulk-embed sweep takes the fused route: the corpus hands
+    out raw jsonl lines and the tokenizer runs the C++ encoder, which
+    extracts the page field and encodes it in one pass
+    (SubwordTokenizer.encode_jsonl_lines). Byte for byte the plain route's
+    ids."""
+    return (getattr(corpus, "page_lines", None) is not None
+            and getattr(page_tok, "encode_jsonl_lines", None) is not None
+            and getattr(page_tok, "use_native", False))
+
+
+def iter_corpus_batches(corpus, page_tok, batch_size: int,
+                        start: int = 0, stop: Optional[int] = None,
+                        workers: int = 1,
+                        profiler: Optional[PipelineProfiler] = None
                         ) -> Iterator[Batch]:
     """Fixed-order corpus sweep for bulk embed; the last batch is padded to
     keep shapes static (pad rows are all-pad token rows flagged with
-    page_id == -1)."""
+    page_id == -1).
+
+    ``workers`` > 1 reads and tokenizes the batches on a pool of tokenizer
+    workers, reassembled in order (``ordered_parallel_map``), where the
+    corpus reads in parallel (``read_workers``): the batches are the
+    serial path's byte for byte, and a worker's exception
+    re-raises at its batch. A jsonl corpus with a native subword
+    tokenizer takes the fused extract + encode (``fused_encode``)."""
     stop = corpus.num_pages if stop is None else min(stop, corpus.num_pages)
-    for s in range(start, stop, batch_size):
+    prof = profiler or NULL_PROFILER
+    fused = fused_encode(corpus, page_tok)
+
+    def _make(s: int) -> Batch:
         ids = np.arange(s, min(s + batch_size, stop))
-        enc = page_tok.encode_batch([corpus.page_text(int(i)) for i in ids])
+        if fused:
+            with prof.stage("read"):
+                lines = corpus.page_lines(ids)
+            with prof.stage("tokenize"):
+                enc = page_tok.encode_jsonl_lines(lines, "page")
+        else:
+            with prof.stage("read"):
+                pages = page_texts(corpus, ids)
+            with prof.stage("tokenize"):
+                enc = page_tok.encode_batch(pages)
         if len(ids) < batch_size:
             pad = batch_size - len(ids)
             enc = np.concatenate(
                 [enc, np.zeros((pad,) + enc.shape[1:], enc.dtype)])
             ids = np.concatenate([ids, -np.ones(pad, dtype=ids.dtype)])
-        yield {"page": enc, "page_id": ids.astype(np.int32)}
+        return {"page": enc, "page_id": ids.astype(np.int32)}
+
+    return ordered_parallel_map(_make, range(start, stop, batch_size),
+                                read_workers(corpus, workers))
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -280,3 +410,100 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+_END = object()
+
+
+def prefetch_to_device(it: Iterator[Batch], device: torch.device,
+                       depth: int = 2,
+                       profiler: Optional[PipelineProfiler] = None,
+                       host_keys: Tuple[str, ...] = ()
+                       ) -> Iterator[Dict[str, Any]]:
+    """Batches of numpy arrays -> dicts of tensors on `device`, produced
+    ahead of the consumer.
+
+    A producer thread pulls batches from `it` (the tokenizer workers
+    behind it) and, for the GPU, copies each array into pinned host
+    memory; a queue of `depth` batches bounds how far it runs ahead. The
+    consumer starts each batch's copies to the card with
+    ``non_blocking=True`` on its current stream and records an event; the
+    pinned tensors are kept until that event has completed, so no host
+    buffer is released for reuse while its copy may still read it. On the
+    CPU the tensors share the arrays' memory. Keys in `host_keys` stay
+    numpy arrays on the host (the bulk embed's page ids).
+
+    A producer's exception re-raises at the consumer, at its place in the
+    stream (``RuntimeError("prefetch producer failed")`` from it), never as
+    an early end. Abandoning the iterator (closing it) stops the producer
+    once it has made its current batch, and closes `it`. ``profiler``
+    gets ``produce_wait`` (the consumer blocked on the producer) and
+    ``h2d`` (pinning and starting copies)."""
+    prof = profiler or NULL_PROFILER
+    q: "queue_mod.Queue[Any]" = queue_mod.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+    cuda = device.type == "cuda"
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def _host(batch: Batch) -> Dict[str, Any]:
+        out = {k: v if k in host_keys
+               else torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in batch.items()}
+        if cuda:
+            with prof.stage("h2d"):
+                out = {k: v if k in host_keys else v.pin_memory()
+                       for k, v in out.items()}
+        return out
+
+    def _producer() -> None:
+        try:
+            for batch in it:
+                if not _put(_host(batch)):
+                    return
+            _put(_END)
+        except BaseException as e:      # re-raised at the consumer
+            _put(e)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    t = threading.Thread(target=_producer, daemon=True,
+                         name="prefetch-producer")
+    t.start()
+    inflight: collections.deque = collections.deque()
+    try:
+        while True:
+            with prof.stage("produce_wait"):
+                item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, BaseException):
+                raise RuntimeError("prefetch producer failed") from item
+            if not cuda:
+                yield item
+                continue
+            with prof.stage("h2d"):
+                dev = {k: v if k in host_keys
+                       else v.to(device, non_blocking=True)
+                       for k, v in item.items()}
+                ev = torch.cuda.Event()
+                ev.record()
+                inflight.append((ev, item))
+                while inflight and inflight[0][0].query():
+                    inflight.popleft()    # its copies are done
+            yield dev
+    finally:
+        # the producer stops at its next put and closes `it`; it is not
+        # joined here, where it may still be finishing a batch
+        stop.set()
+        for ev, _ in inflight:     # release no buffer a copy still reads
+            ev.synchronize()

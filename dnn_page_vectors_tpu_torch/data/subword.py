@@ -5,16 +5,24 @@ deterministic BPE core.
 Training is classic BPE (greedy highest-count pair merge, ties broken by the
 lexicographically smallest pair) with incremental pair counts on a lazy
 max-heap, so a 30,522-piece vocab trains in seconds. Encoding is greedy
-longest-match in pure Python; for the same vocab its token ids equal the
-JAX package's byte for byte (tests/test_torch_serve.py). The C++ batch
-encoder of the JAX package is a later slice.
+longest-match; for the same vocab its token ids equal the JAX package's
+byte for byte (tests/test_torch_serve.py, tests/test_torch_native.py).
+
+By default ``encode``, ``encode_batch`` and ``encode_jsonl_lines`` run the
+C++ matcher (native/bpe_encode.cpp); ``threads`` > 1 (from
+``data.tokenize_threads``) splits a batch of at least 512 texts across a
+shared thread pool, since the C++ call drops the GIL. A failed build or
+call raises: nothing falls back. The Python matcher (``encode_py``) is the
+plain version, taken only with ``use_native=False``.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import heapq
 import json
-from typing import Dict, Iterable, List, Sequence, Tuple
+import threading
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -106,11 +114,44 @@ def _train_bpe(word_counts: Dict[Tuple[str, ...], int], num_merges: int,
     return merges
 
 
+_POOL: Optional[concurrent.futures.ThreadPoolExecutor] = None
+_POOL_SIZE = 0
+_POOL_LOCK = threading.Lock()
+
+
+def _threaded_encode(native, texts: Sequence, max_tokens: int,
+                     k: int) -> np.ndarray:
+    """Encodes `texts` in `k` contiguous chunks on a shared thread pool,
+    concatenated in order. Correct because the chunks are independent and
+    the C++ call drops the GIL for its whole length.
+
+    The lock covers both replacing the pool (to grow it) and submitting
+    the chunks: ``Executor.map`` submits every chunk when it is called, so
+    no thread can submit to a pool that another is shutting down.
+    ``shutdown(wait=False)`` never cancels work already submitted, so the
+    results are read safely outside the lock."""
+    global _POOL, _POOL_SIZE
+    n = len(texts)
+    bounds = [(i * n // k, (i + 1) * n // k) for i in range(k)]
+    with _POOL_LOCK:
+        if _POOL is None or _POOL_SIZE < k:
+            if _POOL is not None:
+                _POOL.shutdown(wait=False)
+            _POOL = concurrent.futures.ThreadPoolExecutor(
+                max_workers=k, thread_name_prefix="subword-encode")
+            _POOL_SIZE = k
+        parts = _POOL.map(
+            lambda se: native.encode_batch(texts[se[0]:se[1]], max_tokens,
+                                           UNK_ID), bounds)
+    return np.concatenate(list(parts), axis=0)
+
+
 class SubwordTokenizer:
     """BPE-core subword tokenizer with WordPiece / SentencePiece surfaces."""
 
     def __init__(self, vocab: Dict[str, int], style: str = "wordpiece",
-                 max_tokens: int = 64, meta: Dict | None = None):
+                 max_tokens: int = 64, meta: Dict | None = None,
+                 use_native: bool = True):
         if style not in ("wordpiece", "sentencepiece"):
             raise ValueError(f"unknown subword style {style!r} "
                              "(want wordpiece | sentencepiece)")
@@ -120,6 +161,28 @@ class SubwordTokenizer:
         # provenance (config vocab_size, corpus fingerprint) — lets the
         # loader detect a stale cache instead of silently reusing it
         self.meta = meta or {}
+        self.use_native = use_native
+        # >1 splits a native batch encode across host threads; the loader
+        # sets it from data.tokenize_threads
+        self.threads = 1
+        self._native = None
+        self._native_lock = threading.Lock()
+
+    def __getstate__(self):
+        # the C++ handle and the lock stay in their process
+        state = dict(self.__dict__)
+        state["_native"] = None
+        del state["_native_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._native_lock = threading.Lock()
+
+    @property
+    def path(self) -> str:
+        """Which encoder runs: "native" (C++) or "python"."""
+        return "native" if self.use_native else "python"
 
     # -- training ---------------------------------------------------------
     @classmethod
@@ -183,7 +246,8 @@ class SubwordTokenizer:
             i = j
         return ids
 
-    def encode(self, text: str) -> np.ndarray:
+    def encode_py(self, text: str) -> np.ndarray:
+        """The plain Python encoder."""
         out = np.zeros(self.max_tokens, dtype=np.int32)
         pos = 0
         for word in text.split():
@@ -196,11 +260,59 @@ class SubwordTokenizer:
                 pos += 1
         return out
 
-    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+    def native_encoder(self):
+        """The C++ matcher of this vocab (shared between tokenizers of
+        equal vocabs; the library is built on first use). Raises when the
+        library cannot be built or loaded."""
+        if self._native is None:
+            with self._native_lock:
+                if self._native is None:
+                    from dnn_page_vectors_tpu_torch.native import (
+                        subword_native)
+                    self._native = subword_native.shared_encoder(self.vocab)
+        return self._native
+
+    def encode(self, text: str) -> np.ndarray:
+        if self.use_native:
+            return self.encode_batch([text])[0]
+        return self.encode_py(text)
+
+    def encode_batch(self, texts: Sequence) -> np.ndarray:
         """[n] texts -> [n, max_tokens] int32 ids, 0-padded."""
+        if self.use_native:
+            native = self.native_encoder()
+            k = min(self.threads, len(texts) // 256)   # >= 256 texts a chunk
+            if k > 1:
+                return _threaded_encode(native, texts, self.max_tokens, k)
+            return native.encode_batch(texts, self.max_tokens, UNK_ID)
         if not texts:
             return np.zeros((0, self.max_tokens), np.int32)
-        return np.stack([self.encode(t) for t in texts])
+        return np.stack([self.encode_py(t) for t in texts])
+
+    def encode_jsonl_lines(self, lines: Sequence[bytes],
+                           field: str = "page") -> np.ndarray:
+        """Fused jsonl extract + encode: raw jsonl lines in, [n, max_tokens]
+        ids out, with no field extract and no UTF-8 decode and re-encode
+        on the Python side. A record the C++ extractor does not take
+        (escapes, nesting, a duplicate or missing key: the rules of
+        data/jsonl.py ``_extract``) is parsed with ``json.loads`` and
+        encoded by ``encode_batch``, so the ids equal the unfused path's.
+        Needs the native encoder: with ``use_native=False`` it raises."""
+        if not self.use_native:
+            raise ValueError("encode_jsonl_lines runs the C++ encoder; this "
+                             "tokenizer was built with use_native=False")
+        key = f'"{field}":'.encode("utf-8")
+        out, status = self.native_encoder().encode_jsonl_batch(
+            lines, key, self.max_tokens, UNK_ID)
+        bad = np.flatnonzero(status == 0)
+        if bad.size:
+            texts = []
+            for i in bad:
+                rec = json.loads(lines[int(i)])
+                texts.append(rec[field] if field == "page"
+                             else rec.get(field, ""))
+            out[bad] = self.encode_batch(texts)
+        return out
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> None:

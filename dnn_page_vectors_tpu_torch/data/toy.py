@@ -42,6 +42,10 @@ class ToyCorpus:
     languages=1 reproduces the monolingual corpus exactly.
     """
 
+    # its texts are made by Python code, which holds the GIL: reader
+    # threads would contend, not overlap (data/loader.py read_workers)
+    threaded_reads = False
+
     def __init__(self, num_pages: int = 10_000, seed: int = 0,
                  num_topics: int = 64, page_len: int = 48, query_len: int = 8,
                  languages: int = 1):

@@ -10,8 +10,10 @@ text becomes int32 [max_words, K] with 0 as pad. FNV-1a is stable across
 processes and runs (Python's own ``hash`` is salted), so a vector store
 stays reproducible.
 
-The JAX package's C++ fast path (``native/trigram_hash.cpp``) has no copy
-here yet; this loop is the port's only path.
+By default ``encode`` and ``encode_batch`` run the C++ hash
+(native/trigram_hash.cpp), which gives the same ids; a failed build or call
+raises. The Python loop (``encode_py``) is the plain version, taken only
+when the caller asks for it with ``use_native=False``.
 """
 from __future__ import annotations
 
@@ -42,16 +44,23 @@ class TrigramTokenizer:
     """text -> int32 ids of shape [max_words, k] (0 = pad)."""
 
     def __init__(self, buckets: int = 16_384, max_words: int = 64,
-                 k: int = 8):
+                 k: int = 8, use_native: bool = True):
         self.buckets = buckets
         self.max_words = max_words
         self.k = k
+        self.use_native = use_native
+
+    @property
+    def path(self) -> str:
+        """Which encoder runs: "native" (C++) or "python"."""
+        return "native" if self.use_native else "python"
 
     @property
     def vocab_size(self) -> int:
         return self.buckets + 1  # + padding id 0
 
-    def encode(self, text: str) -> np.ndarray:
+    def encode_py(self, text: str) -> np.ndarray:
+        """The plain Python encoder."""
         out = np.zeros((self.max_words, self.k), dtype=np.int32)
         for wi, word in enumerate(text.split()[: self.max_words]):
             for ti, tg in enumerate(word_trigrams(word)[: self.k]):
@@ -59,7 +68,18 @@ class TrigramTokenizer:
                 out[wi, ti] = 1 + fnv1a(data) % self.buckets
         return out
 
+    def encode(self, text: str) -> np.ndarray:
+        if self.use_native:
+            from dnn_page_vectors_tpu_torch.native import trigram_native
+            return trigram_native.encode(text, self.buckets, self.max_words,
+                                         self.k)
+        return self.encode_py(text)
+
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        if self.use_native:
+            from dnn_page_vectors_tpu_torch.native import trigram_native
+            return trigram_native.encode_batch(texts, self.buckets,
+                                               self.max_words, self.k)
         if not texts:
             return np.zeros((0, self.max_words, self.k), np.int32)
-        return np.stack([self.encode(t) for t in texts])
+        return np.stack([self.encode_py(t) for t in texts])

@@ -14,14 +14,18 @@ traffic). An int8 store's rows are quantized on the device
 float16 rows), so only the int8 codes and float16 scales cross to the
 host: 1 byte a dimension instead of 2.
 
-The sweep overlaps host and device: a batch's encode is enqueued, its
-float16 result is copied into pinned host memory without blocking, and the
-host tokenizes the next batch before it waits on the previous batch's copy.
-Shards are written in the sweep's thread; a background writer is later
-work.
+The sweep overlaps three things: a pool of tokenizer workers
+(``data.tokenize_workers``) reads and tokenizes the next batches while the
+card encodes the current one, and a background writer thread writes the
+last finished shard (``_ShardWriter``). A batch's encode is enqueued, its
+result is copied into pinned host memory without blocking, and the host
+waits on it only after the next batch's encode is enqueued. The stores are
+byte for byte those of one worker.
 """
 from __future__ import annotations
 
+import queue as queue_mod
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -29,11 +33,13 @@ import numpy as np
 import torch
 
 from dnn_page_vectors_tpu_torch.config import Config
-from dnn_page_vectors_tpu_torch.data.loader import iter_corpus_batches, to_device
+from dnn_page_vectors_tpu_torch.data.loader import (
+    iter_corpus_batches, prefetch_to_device, read_workers, to_device)
 from dnn_page_vectors_tpu_torch.infer.vector_store import (
     SCALE_FLOOR, VectorStore)
 from dnn_page_vectors_tpu_torch.models.losses import l2_normalize
 from dnn_page_vectors_tpu_torch.utils.device import DeviceLike, resolve_device
+from dnn_page_vectors_tpu_torch.utils.profiling import PipelineProfiler
 
 
 def quantize_rows(v16: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,6 +54,87 @@ def quantize_rows(v16: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     safe = torch.clamp_min(scale.half().float(), float(SCALE_FLOOR))
     codes = torch.clamp(torch.round(v / safe[:, None]), -127, 127)
     return codes.to(torch.int8), safe.half()
+
+
+class _ShardWriter:
+    """The bulk embed's background store writer: a shard's concatenation
+    and ``write_shard`` run on this thread, so the disk write of shard i
+    overlaps the card's encodes of shard i+1.
+
+    * At most `max_pending` shards wait in its queue; a slow disk holds
+      the device loop back instead of filling host memory.
+    * A shard is recorded complete only by ``write_shard``, after its data
+      files are durable (fsynced, then the manifest), so a job killed
+      mid-write never resumes past an unwritten shard.
+    * The writer's first error re-raises, as itself, at the next
+      ``submit`` (the device loop stops) or at ``close``, so the embed
+      never returns over a failed write. ``close(raise_error=False)`` is
+      the unwind path: an error already raised on the main path wins.
+    """
+
+    _SENTINEL = object()
+
+    def __init__(self, store: VectorStore, q8: bool, max_pending: int = 2,
+                 profiler: Optional[PipelineProfiler] = None):
+        self._store = store
+        self._q8 = q8
+        self._prof = profiler
+        self._q: "queue_mod.Queue[object]" = queue_mod.Queue(
+            maxsize=max(1, max_pending))
+        self._err: Optional[BaseException] = None
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="shard-writer")
+        self._t.start()
+
+    def submit(self, index: int, ids_acc: List[np.ndarray],
+               out_acc: List[Tuple[np.ndarray, ...]]) -> None:
+        """Queues one finished shard (its batches' ids and outputs, joined
+        on the writer's thread). Blocks while the queue is full; raises the
+        writer's error as soon as there is one."""
+        t0 = time.perf_counter()
+        try:
+            while True:
+                if self._err is not None:
+                    raise self._err
+                try:
+                    self._q.put((index, ids_acc, out_acc), timeout=0.1)
+                    return
+                except queue_mod.Full:
+                    continue
+        finally:
+            if self._prof is not None:
+                self._prof.add("write_wait", time.perf_counter() - t0)
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is self._SENTINEL:
+                return
+            if self._err is not None:
+                continue        # drain after a failure: submit never hangs
+            try:
+                index, ids_acc, out_acc = item
+                t0 = time.perf_counter()
+                ids = np.concatenate(ids_acc)
+                cols = [np.concatenate(c) for c in zip(*out_acc)]
+                if self._q8:
+                    self._store.write_shard(index, ids, codes=cols[0],
+                                            scales=cols[1])
+                else:
+                    self._store.write_shard(index, ids, cols[0])
+                if self._prof is not None:
+                    self._prof.add("write", time.perf_counter() - t0)
+            except BaseException as e:
+                self._err = e
+
+    def close(self, raise_error: bool = True) -> None:
+        """Joins the writer (writing what is queued) and re-raises its
+        first error unless `raise_error` is False."""
+        if self._t.is_alive():
+            self._q.put(self._SENTINEL)
+            self._t.join()
+        if raise_error and self._err is not None:
+            raise self._err
 
 
 class BulkEmbedder:
@@ -138,19 +225,37 @@ class BulkEmbedder:
         return tuple(hosts), ev
 
     def embed_corpus(self, corpus, store: VectorStore,
-                     batch_size: Optional[int] = None, resume: bool = True
+                     batch_size: Optional[int] = None, resume: bool = True,
+                     workers: Optional[int] = None,
+                     write_pending: Optional[int] = None,
+                     profiler: Optional[PipelineProfiler] = None
                      ) -> VectorStore:
         """Sweep the corpus into the store, one store shard at a time.
 
         An int8 store gets codes and scales quantized on the device
         (``encode_pages_q8``); any other store float16 rows.
 
+        Host pipeline: `workers` tokenizer workers (default
+        ``data.tokenize_workers``; one for a corpus whose reads hold the
+        GIL, ``read_workers``) read and tokenize batches concurrently,
+        reassembled in order (``iter_corpus_batches``), and a producer
+        thread pins them and feeds the card (``prefetch_to_device``); the
+        shards are written on a background thread with at most
+        `write_pending` (default ``eval.writeback_depth``) queued
+        (``_ShardWriter``), which joins and re-raises before this returns.
+        With any number of workers the store's files are those of one.
+
         Resume: completed shards are recorded in the store manifest (after
         their files are durably written) and skipped on restart; a shard
         whose bytes no longer match its record is quarantined first and
-        re-embedded. Sets ``self.stats``: pages, seconds, pages_per_sec and
-        the seconds spent producing batches on the host (read + tokenize),
-        waiting on the device's results, and writing shards."""
+        re-embedded.
+
+        Sets ``self.stats``: pages, seconds, pages_per_sec; the seconds the
+        device loop waited for host batches (``produce_s``) and for the
+        card's results (``device_wait_s``), and the writer's seconds
+        (``write_s``); and `profiler`'s stage split (``stage_<name>_s`` and
+        ``_n``: read, tokenize, produce_wait, h2d, compute, device_wait,
+        write, write_wait; read and tokenize summed over the workers)."""
         bs = batch_size or self.cfg.eval.embed_batch_size
         shard_size = store.manifest["shard_size"]
         if shard_size % bs and shard_size < corpus.num_pages:
@@ -162,55 +267,63 @@ class BulkEmbedder:
         q8 = store.manifest["dtype"] == "int8"
         encode = self.encode_pages_q8 if q8 else (
             lambda ids: (self.encode_pages(ids),))
-        # wall-time breakdown: host read+tokenize, waits on the device's
-        # results, store writes; the rest is enqueueing work on the device
-        t = {"produce": 0.0, "device_wait": 0.0, "write": 0.0}
+        workers = read_workers(corpus, self.cfg.data.tokenize_workers
+                               if workers is None else workers)
+        write_pending = (self.cfg.eval.writeback_depth
+                         if write_pending is None else write_pending)
+        prof = PipelineProfiler() if profiler is None else profiler
+        before = prof.stages()
         t0 = time.perf_counter()
         pages = 0
-        for si in range(-(-corpus.num_pages // shard_size)):
-            if si in done:
-                continue
-            lo = si * shard_size
-            hi = min(lo + shard_size, corpus.num_pages)
-            ids_acc: List[np.ndarray] = []
-            out_acc: List[Tuple[np.ndarray, ...]] = []
-            pending = None
-            batches = iter_corpus_batches(corpus, self.page_tok, bs,
-                                          start=lo, stop=hi)
-            while True:
-                tp = time.perf_counter()
-                batch = next(batches, None)
-                t["produce"] += time.perf_counter() - tp
-                if batch is None:
-                    break
-                out = encode(to_device(batch["page"], self.device))
-                nxt = (batch["page_id"], *self._to_host(out))
+        writer = _ShardWriter(store, q8, max_pending=write_pending,
+                              profiler=prof)
+        try:
+            for si in range(-(-corpus.num_pages // shard_size)):
+                if si in done:
+                    continue
+                lo = si * shard_size
+                hi = min(lo + shard_size, corpus.num_pages)
+                ids_acc: List[np.ndarray] = []
+                out_acc: List[Tuple[np.ndarray, ...]] = []
+                pending = None
+                batches = iter_corpus_batches(
+                    corpus, self.page_tok, bs, start=lo, stop=hi,
+                    workers=workers, profiler=prof)
+                for batch in prefetch_to_device(batches, self.device,
+                                                profiler=prof,
+                                                host_keys=("page_id",)):
+                    with prof.stage("compute"):
+                        nxt = (batch["page_id"],
+                               *self._to_host(encode(batch["page"])))
+                    if pending is not None:
+                        pages += self._collect(pending, ids_acc, out_acc,
+                                               prof)
+                    pending = nxt
                 if pending is not None:
-                    pages += self._collect(pending, ids_acc, out_acc, t)
-                pending = nxt
-            if pending is not None:
-                pages += self._collect(pending, ids_acc, out_acc, t)
-            tw = time.perf_counter()
-            cols = [np.concatenate(c) for c in zip(*out_acc)]
-            ids = np.concatenate(ids_acc)
-            if q8:
-                store.write_shard(si, ids, codes=cols[0], scales=cols[1])
-            else:
-                store.write_shard(si, ids, cols[0])
-            t["write"] += time.perf_counter() - tw
+                    pages += self._collect(pending, ids_acc, out_acc, prof)
+                writer.submit(si, ids_acc, out_acc)
+        except BaseException:
+            writer.close(raise_error=False)   # the main path's error wins
+            raise
+        writer.close()
         dt = time.perf_counter() - t0
+        st = prof.stages()
+        spent = {k: st.get(k, 0.0) - before.get(k, 0.0)
+                 for k in ("produce_wait", "device_wait", "write")}
         self.stats = {"pages": pages, "seconds": dt,
                       "pages_per_sec": pages / max(dt, 1e-9),
-                      **{f"{k}_s": v for k, v in t.items()}}
+                      "produce_s": spent["produce_wait"],
+                      "device_wait_s": spent["device_wait"],
+                      "write_s": spent["write"], "workers": workers,
+                      **prof.summary()}
         return store
 
     @staticmethod
-    def _collect(pending, ids_acc, out_acc, t) -> int:
+    def _collect(pending, ids_acc, out_acc, prof) -> int:
         page_ids, hosts, ev = pending
         if ev is not None:
-            tw = time.perf_counter()
-            ev.synchronize()
-            t["device_wait"] += time.perf_counter() - tw
+            with prof.stage("device_wait"):
+                ev.synchronize()
         ids_acc.append(page_ids)
         out_acc.append(tuple(h.numpy() for h in hosts))
         return int((page_ids >= 0).sum())

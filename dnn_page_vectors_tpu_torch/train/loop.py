@@ -26,8 +26,14 @@ with ``loss``, ``in_batch_acc``, ``scale``, ``grad_norm`` and
 ``pages_per_sec`` to ``<workdir>/metrics.jsonl`` (when a workdir is given)
 and keeps it in ``history``.
 
+Batches come from ``TrainBatcher`` with ``data.tokenize_workers`` tokenizer
+workers through ``prefetch_to_device`` (a producer thread, pinned host
+tensors, non-blocking copies), so the host tokenizes the next batches
+while the card runs a step; ``profiler`` holds the host's stage seconds
+(read, tokenize, pack, produce_wait, h2d).
+
 Later slices: the telemetry registry and fault counters, ``scan_steps``,
-the tokenizer worker pool, and data parallelism over several cards.
+and data parallelism over several cards.
 """
 from __future__ import annotations
 
@@ -41,11 +47,12 @@ import torch
 
 from dnn_page_vectors_tpu_torch.config import Config
 from dnn_page_vectors_tpu_torch.data.loader import (
-    TrainBatcher, build_corpus, build_tokenizer, to_device)
+    TrainBatcher, build_corpus, build_tokenizer, prefetch_to_device)
 from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
 from dnn_page_vectors_tpu_torch.models.losses import cosine_contrastive_loss
 from dnn_page_vectors_tpu_torch.train.optimizer import make_optimizer
 from dnn_page_vectors_tpu_torch.utils.device import DeviceLike, resolve_device
+from dnn_page_vectors_tpu_torch.utils.profiling import PipelineProfiler
 
 LOGGED = ("loss", "in_batch_acc", "scale", "grad_norm")
 
@@ -101,6 +108,7 @@ class Trainer:
         self.hard_negative_lookup = hard_negative_lookup
         self.step = 0
         self.history: List[Dict[str, float]] = []
+        self.profiler = PipelineProfiler()
 
     # -- state ------------------------------------------------------------
     def state(self) -> Dict[str, Any]:
@@ -133,9 +141,10 @@ class Trainer:
             batch_size=self.cfg.train.batch_size, seed=self.cfg.train.seed,
             start_step=self.step,
             hard_negative_lookup=self.hard_negative_lookup,
-            pack=self.cfg.train.pack_pages)
-        for batch in batcher:
-            yield {k: to_device(v, self.device) for k, v in batch.items()}
+            pack=self.cfg.train.pack_pages,
+            workers=self.cfg.data.tokenize_workers, profiler=self.profiler)
+        return prefetch_to_device(iter(batcher), self.device,
+                                  profiler=self.profiler)
 
     # -- one step -------------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor]

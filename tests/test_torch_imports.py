@@ -51,6 +51,33 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_cli_and_native_are_covered(tmp_path):
+    """cli.py and native/ are among the modules the checks above walk, and
+    importing them runs no compiler: the C++ library is built on first
+    use, never at import."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    for mod in ("cli", "native", "native.trigram_native",
+                "native.jsonl_native", "native.subword_native"):
+        assert f"dnn_page_vectors_tpu_torch.{mod}" in names, mod
+    files = {os.path.relpath(f, PKG) for f in _sources()}
+    assert {"cli.py", os.path.join("native", "__init__.py"),
+            os.path.join("native", "subword_native.py")} <= files
+    code = (
+        "import sys; from pathlib import Path\n"
+        "import dnn_page_vectors_tpu_torch.native as n\n"
+        f"n.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "import dnn_page_vectors_tpu_torch.cli, "
+        "dnn_page_vectors_tpu_torch.native.subword_native, "
+        "dnn_page_vectors_tpu_torch.data.loader\n"
+        "print(n._LIB is None, list(n.BUILD_DIR.glob('*')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.stdout.strip() == "True []", proc.stdout + proc.stderr
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

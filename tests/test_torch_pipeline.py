@@ -7,7 +7,10 @@ Tolerances, each with its reason:
 * a pipeline resumed from a checkpoint taken mid-pipeline against the
   same pipeline run straight (dropout 0.1): bitwise;
 * the mirror of the JAX package's tests/test_pipeline.py
-  ``test_run_pipeline_end_to_end`` at its overrides: its own bars."""
+  ``test_run_pipeline_end_to_end`` at its overrides (in
+  tests/test_torch_pipeline_e2e.py, split off so that no file runs long
+  under a parallel run, pytest-xdist giving each worker whole files):
+  its own bars."""
 import dataclasses
 import json
 import os
@@ -126,38 +129,3 @@ def test_pipeline_refuses_what_it_cannot_run(small_world):
         run_pipeline(cfg, trainer=None)
     with pytest.raises(ValueError, match="hard_negatives > 0"):
         run_pipeline(get_config("bert_mini_v5p16"), trainer=None)
-
-
-def test_run_pipeline_end_to_end(tmp_path):
-    """The JAX test at its overrides (an easy regime, so two short rounds
-    converge): the rounds alternate, the store is made anew each round and
-    the table is refreshed and kept for resume."""
-    cfg = get_config("cdssm_toy", {
-        "data.num_pages": 600,
-        "data.trigram_buckets": 4096,
-        "model.embed_dim": 48,
-        "model.conv_channels": 96,
-        "model.out_dim": 48,
-        "train.batch_size": 64,
-        "train.steps": 120,
-        "train.warmup_steps": 10,
-        "train.learning_rate": 2e-3,
-        "train.log_every": 1000,
-        "train.hard_negatives": 7,
-        "eval.eval_queries": 300,
-        "eval.embed_batch_size": 128,
-    })
-    trainer = Trainer(cfg, workdir=str(tmp_path), device="cpu")
-    out = run_pipeline(cfg, rounds=2, trainer=trainer)
-    recalls = out["recalls"]
-    assert len(recalls) == 2
-    assert recalls[1] >= recalls[0], recalls
-    assert recalls[1] > 0.5, recalls     # random ~ 1.7%
-    # the mined table was refreshed and kept for resume
-    assert out["negatives"] is not None
-    assert os.path.exists(os.path.join(trainer.workdir, "hard_negatives.npy"))
-    # the store holds the last round's vectors (made anew, not stale)
-    store = VectorStore(os.path.join(trainer.workdir, "store"),
-                        dim=cfg.model.out_dim)
-    assert store.num_vectors == 600
-    assert store.manifest["model_step"] == 120

@@ -1,23 +1,18 @@
 """The port's training slice (train/optimizer.py, data/loader.py
 TrainBatcher, train/checkpoint.py, train/loop.py, the dropout of
 models/transformer.py and convert.adamw_state_from_optax) against the JAX
-package on the CPU.
+package on the CPU. The loss curves against the JAX Trainer are in
+tests/test_torch_train_curves.py, the resume in
+tests/test_torch_train_resume.py and the log cadence and the dropout
+masks after an embed in tests/test_torch_train_cadence.py (split off so
+that no file runs long under a parallel run, pytest-xdist giving each
+worker whole files).
 
 Tolerances, each with its reason:
 * the LR schedule and one clipped AdamW/SGD update against optax on the
   same gradients: 1e-6 relative (float32 rounding of the same formulas);
 * batches: byte-identical;
-* the 3-step loss curve against the JAX Trainer (1 layer, batch 32,
-  dropout 0, the same flax-initialised weights through convert.py):
-  1e-5 at model.dtype float32, 5e-3 at bfloat16 (bf16 rounds at other
-  places in the two frameworks);
-* JAX 3 steps -> convert.py -> port 3 steps against JAX's 6: 1e-4 at
-  float32 (the optimizer state crosses over too);
-* train-6 against train-3 + restore + 3 on the port, dropout on: bitwise;
 * the dropout keep rate over 10^6 draws: within 1% of 1 - rate."""
-import os
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -28,10 +23,7 @@ from dnn_page_vectors_tpu.config import get_config as jax_get_config
 from dnn_page_vectors_tpu.data.loader import TrainBatcher as JaxBatcher
 from dnn_page_vectors_tpu.data.loader import build_tokenizer as jax_tokenizer
 from dnn_page_vectors_tpu.data.toy import ToyCorpus as JaxCorpus
-from dnn_page_vectors_tpu.train.loop import Trainer as JaxTrainer
 from dnn_page_vectors_tpu_torch.config import TrainConfig, get_config
-from dnn_page_vectors_tpu_torch.convert import (
-    adamw_state_from_optax, params_from_flax)
 from dnn_page_vectors_tpu_torch.data.loader import (
     TrainBatcher, build_tokenizer)
 from dnn_page_vectors_tpu_torch.data.toy import ToyCorpus
@@ -188,30 +180,7 @@ def test_eval_mode_draws_no_masks(tokenizers):
     assert not torch.equal(a, c)
 
 
-# -- trainer against the JAX trainer ------------------------------------------
-
-def _jax_run(tmp_path, attention, dtype, steps):
-    """The JAX trainer's loss curve over `steps` steps and its numpy state
-    (params, opt_state) after 3 steps, and its initial params."""
-    cfg = jax_get_config("bert_mini_v5p16", {
-        **SMALL, "model.attention": attention, "model.dtype": dtype,
-        "model.dropout": 0.0, "mesh.data": 1})
-    tr = JaxTrainer(cfg, corpus=JaxCorpus(**CORPUS),
-                    workdir=str(tmp_path / f"jax_{attention}_{dtype}"))
-    state = tr.init_state()
-    init = jax.tree_util.tree_map(np.asarray, state.params)
-    step = tr.compiled_step(state)
-    it = iter(tr.batches())
-    rng = tr.base_rng()
-    curve, at3 = [], None
-    for i in range(steps):
-        state, m = step(state, next(it), rng)
-        curve.append(float(m["loss"]))
-        if i == 2:
-            at3 = jax.tree_util.tree_map(
-                np.asarray, (state.params, state.opt_state))
-    return init, curve, at3
-
+# -- trainer ------------------------------------------------------------------
 
 def _port_trainer(attention, dtype, dropout_rate=0.0, corpus=None,
                   toks=None):
@@ -220,91 +189,6 @@ def _port_trainer(attention, dtype, dropout_rate=0.0, corpus=None,
         "model.dropout": dropout_rate})
     return Trainer(cfg, corpus=corpus or ToyCorpus(**CORPUS),
                    tokenizers=toks, device="cpu")
-
-
-def _port_curve(tr, steps):
-    it = tr.batches()
-    return [float(tr.train_step(next(it))["loss"]) for _ in range(steps)]
-
-
-@pytest.fixture(scope="module")
-def jax_dense_f32(tmp_path_factory):
-    return _jax_run(tmp_path_factory.mktemp("jax"), "dense", "float32", 6)
-
-
-@pytest.mark.parametrize("attention", ["dense", "flash"])
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 5e-3)])
-def test_three_step_loss_curve_matches_jax_trainer(
-        tmp_path, jax_dense_f32, attention, dtype, tol):
-    if (attention, dtype) == ("dense", "float32"):
-        init, curve, _ = jax_dense_f32
-        curve = curve[:3]
-    else:
-        init, curve, _ = _jax_run(tmp_path, attention, dtype, 3)
-    tr = _port_trainer(attention, dtype)
-    tr.model.load_state_dict(params_from_flax(init), strict=True)
-    got = _port_curve(tr, 3)
-    diff = float(np.abs(np.array(got) - np.array(curve)).max())
-    print(f"loss curve {attention}/{dtype}: port {got} jax {curve} "
-          f"max diff {diff:.3g}")
-    assert diff < tol, (got, curve)
-    assert len(set(np.round(curve, 3))) == 3     # the steps really moved
-
-
-def test_jax_state_continues_in_the_port(jax_dense_f32):
-    init, curve, (params3, opt3) = jax_dense_f32
-    tr = _port_trainer("dense", "float32")
-    tr.model.load_state_dict(params_from_flax(params3), strict=True)
-    tr.optimizer.load_state_dict(adamw_state_from_optax(opt3))
-    assert tr.optimizer.count == 3
-    tr.step = 3
-    got = _port_curve(tr, 3)
-    diff = float(np.abs(np.array(got) - np.array(curve[3:])).max())
-    print(f"jax 3 -> port 3: port {got} jax {curve[3:]} max diff {diff:.3g}")
-    assert diff < 1e-4, (got, curve[3:])
-
-
-# -- resume ---------------------------------------------------------------------
-
-def test_train_six_equals_three_restore_three(tokenizers, tmp_path):
-    _, (tc, toks) = tokenizers
-    straight = _port_trainer("flash", "float32", 0.1, tc, toks)
-    straight.train(6)
-    first = _port_trainer("flash", "float32", 0.1, tc, toks)
-    first.train(3)
-    ckpt = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2)
-    first.save(ckpt)
-    resumed = _port_trainer("flash", "float32", 0.1, tc, toks)
-    assert resumed.restore(ckpt) == 3
-    resumed.train(3)
-    assert resumed.step == straight.step == 6
-    for (n, a), (_, b) in zip(straight.model.state_dict().items(),
-                              resumed.model.state_dict().items()):
-        assert torch.equal(a, b), n
-    assert resumed.history[-1]["loss"] == straight.history[-1]["loss"]
-    # dropout was on: the same run without it ends elsewhere
-    plain = _port_trainer("flash", "float32", 0.0, tc, toks)
-    plain.train(6)
-    assert plain.history[-1]["loss"] != straight.history[-1]["loss"]
-
-
-def test_train_logs_and_checkpoints_on_cadence(tokenizers, tmp_path):
-    _, (tc, toks) = tokenizers
-    cfg = get_config("bert_mini_v5p16", {**SMALL, "train.log_every": 2,
-                                         "train.checkpoint_every": 2})
-    tr = Trainer(cfg, corpus=tc, tokenizers=toks, device="cpu",
-                 workdir=str(tmp_path / "work"))
-    ckpt = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2)
-    last = tr.train(7, ckpt_manager=ckpt)
-    assert [h["step"] for h in tr.history] == [2, 4, 6, 7]
-    assert set(last) == {"loss", "in_batch_acc", "scale", "grad_norm",
-                         "pages_per_sec", "step"}
-    with open(tmp_path / "work" / "metrics.jsonl") as f:
-        assert len(f.readlines()) == 4
-    assert ckpt.all_steps() == [4, 6]             # max_to_keep, no final save
-    assert ckpt.latest_step() == 6
-    assert not [f for f in os.listdir(ckpt.directory) if f.endswith(".tmp")]
 
 
 def test_checkpoint_restore_refuses_other_shapes_and_rolls_back(
@@ -376,30 +260,3 @@ def test_a_lookup_batches_negatives(tokenizers):
     m0 = plain.train_step({k: v for k, v in batch.items()
                            if k != "neg_page"})
     assert float(m0["loss"]) != float(m["loss"])
-
-
-def test_a_step_after_an_embed_draws_the_same_dropout_masks(tokenizers):
-    """The mining pipeline embeds with the trainer's own model, which the
-    embedder puts into eval mode; the next step must still train with
-    dropout: its loss equals, bit for bit, that of a trainer that never
-    embedded (dropout 0.1)."""
-    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
-    _, (tc, toks) = tokenizers
-    embedded = _port_trainer("dense", "float32", 0.1, tc, toks)
-    straight = _port_trainer("dense", "float32", 0.1, tc, toks)
-    embedded.train(1)
-    straight.train(1)
-    emb = BulkEmbedder(embedded.cfg, embedded.model, toks[1],
-                       query_tok=toks[0], device="cpu")
-    emb.embed_texts([tc.page_text(i) for i in range(8)], tower="page")
-    emb.embed_texts([tc.query_text(i) for i in range(8)], tower="query")
-    assert not embedded.model.training
-    embedded.train(2)
-    straight.train(2)
-    assert embedded.model.training
-    assert [h["loss"] for h in embedded.history] == \
-        [h["loss"] for h in straight.history]
-    # dropout was on: without it the same steps end elsewhere
-    plain = _port_trainer("dense", "float32", 0.0, tc, toks)
-    plain.train(3)
-    assert plain.history[-1]["loss"] != straight.history[-1]["loss"]
