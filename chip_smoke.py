@@ -146,9 +146,32 @@ Phases, each printing one JSON line:
      through the CLI in subprocesses on the card (cdssm_toy at its
      overrides: train 600 steps of 512, embed, eval, embed again): 16
      shards of 1,000,000 vectors, Recall@10 over 512 queries > 0.2, the
-     second embed a manifest no-op. The file is deleted at the end.
+     second embed a manifest no-op. The file and the store stay for 16;
+ 16. serving under load (config 3's towers, phase 4's weights and vocab,
+     over phase 15's 1M-row fp16 store staged whole on the card and its
+     jsonl corpus for the snippets): (a) 64 corpus queries through
+     search_many, their top-10 equal to a plain q @ store^T top-10 except
+     at ties, then through search() from 16 threads with the
+     micro-batcher on (equal, some batch > 1); (b) the same queries
+     streamed from disk at preload_hbm_gb=0; (c) a SearchServer on
+     loopback and a SocketSearchClient equal to in-process search, and a
+     request whose deadline passed shed with T_SHED before any bucket
+     slot; (d) find_qps_at_p99 over the socket (Poisson, seed 0, 10,000
+     distinct corpus queries, Zipf 1.1, k=10, p99 <= 50 ms, <= 1%
+     errors) with the query cache on (4,096) and off, then a burst and a
+     closed-loop (16 workers) trial at the cache-off rate, printing qps,
+     p50/p95/p99, the mean batch, the cache hit rate, deadline sheds and
+     the card's busy share (torch.profiler) of a trial at each; (e) K1
+     launched 4 times a query encode the services dispatched, all on the
+     tensor cores, nothing else; (f) at most 90 s, trials of 2 s, at
+     most 8 a rate search; (g) no batch retried, nothing on the CPU.
+     Then the corpus file is deleted.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
+The toy corpora keep each text once made (KeptTexts): the phases read
+the same pages many times, and the toy generator makes a text in Python
+under the GIL; the texts, ids and checks are unchanged, and a sweep over
+kept texts times the tokenizer and the card, not the generator.
 The kernel checks also hold the segment (seg) variants of K1 (against
 the plain forward, and mean(V) at every row that sees no key) and of K2,
 K3 and K4 (against the plain backward), bf16 and f32, with seg at both
@@ -360,6 +383,45 @@ CLI_OVERRIDES = {
     "train.log_every": 1000, "eval.embed_batch_size": 512,
     "eval.store_shard_size": 65_536, "eval.eval_queries": 512}
 CLI_RECALL_BAR = 0.2
+# Phase 16, serving under load: config 3's towers (phase 4's weights and
+# vocab) over phase 15's 1M-row fp16 store and its jsonl corpus (the
+# snippets are reads of that file). SERVE_QUERIES queries check the staged,
+# streaming and socket paths; find_qps_at_p99 runs a Poisson workload over
+# SERVE_DISTINCT distinct corpus queries (Zipf SERVE_ALPHA, seed 0, k=10)
+# against PERF.md section 2's 50 ms interactive p99 on the client's clock
+# (issue to answer over the socket), with the query cache on and off, each
+# search SERVE_RUNS times after one profiled warm-up trial of SERVE_WARM_S
+# at SERVE_START_QPS; then one burst and one closed-loop trial at the
+# cache-off rate. A trial offers SERVE_WARMUP_S + SERVE_TRIAL_S seconds
+# (obs.window_s is the measured part) and a rate search takes at most
+# SERVE_MAX_TRIALS of them: the doubling from SERVE_START_QPS (below the
+# rate expected) to SERVE_MAX_QPS (a rate that passes there reads as
+# SERVE_MAX_QPS, `load_sustained` equal to it; the closed loop of 16
+# workers has stayed under 300 qps on the card), then SERVE_ITERS
+# bisection steps: at most 5 trials.
+SERVE_QUERIES = 64
+SERVE_THREADS = 16
+SERVE_DISTINCT = 10_000
+SERVE_ALPHA = 1.1
+SERVE_SEED = 0
+SERVE_P99_MS = 50.0
+SERVE_MAX_ERROR_RATE = 0.01
+SERVE_CACHE = 4_096
+SERVE_TRIAL_S = 3.0
+SERVE_WARMUP_S = 0.25
+SERVE_START_QPS = 50.0
+SERVE_MAX_QPS = 400.0
+SERVE_WARM_S = 1.0
+SERVE_ITERS = 1
+SERVE_MAX_TRIALS = 8
+SERVE_RUNS = 2
+SERVE_LOAD_WORKERS = 64
+SERVE_CLOSED_WORKERS = 16
+SERVE_BUDGET_S = 90.0
+# two encodes of one query in buckets of other queries differ in the last
+# bits, which can move a score rounded to 4 decimals by one unit
+SERVE_SCORE_TOL = 1.01e-4
+SERVE_LONE_QUERIES = 50
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -1492,19 +1554,71 @@ def device_breakdown(fn, iters: int = 5) -> dict:
 
 # -- phases 4 and 6: serving ---------------------------------------------------
 
+# (seed, topics, page_len, query_len, languages) -> (page texts, query
+# texts) made so far in this run
+_KEPT_TEXTS: dict = {}
+
+
+class KeptTexts:
+    """A toy corpus whose texts are kept once made. ToyCorpus makes each
+    text in Python under the GIL (about 2,100 pages/s on the card's host:
+    PERF.md §5), and the phases read the same pages many times (phase 4's
+    100,000 pages in phases 4, 13 and 14; each training cell's batches
+    from text, then again as pre-made batches; the word corpus in phases
+    11 and 12): kept, each text is made once a run. The texts, and so the
+    token ids, stores, results and checks, are the corpus's own; a sweep
+    over kept texts measures the tokenizer and the card, not the toy
+    generator. A text does not depend on the corpus's size, so corpora
+    of one seed and shape share them."""
+
+    def __init__(self, corpus):
+        self._corpus = corpus
+        key = (corpus.seed, corpus.num_topics, corpus.page_len,
+               corpus.query_len, corpus.languages)
+        self._pages, self._queries = _KEPT_TEXTS.setdefault(key, ({}, {}))
+
+    def __getattr__(self, name):
+        return getattr(self._corpus, name)
+
+    def page_text(self, i: int) -> str:
+        text = self._pages.get(i)
+        if text is None:
+            text = self._pages[i] = self._corpus.page_text(i)
+        return text
+
+    def query_text(self, i: int) -> str:
+        text = self._queries.get(i)
+        if text is None:
+            text = self._queries[i] = self._corpus.query_text(i)
+        return text
+
+    def pairs(self, start: int = 0, stop=None):
+        stop = self.num_pages if stop is None else min(stop, self.num_pages)
+        for i in range(start, stop):
+            yield i, self.query_text(i), self.page_text(i)
+
+    def all_texts(self, limit=None):
+        stop = self.num_pages if limit is None else min(limit, self.num_pages)
+        for i in range(stop):
+            yield self.page_text(i)
+            yield self.query_text(i)
+
+
 def data_config(config: str, n_pages: int):
     from dnn_page_vectors_tpu_torch.config import get_config
     return get_config(config, {"data.num_pages": n_pages})
 
 
-def train_tokenizers(cfg):
-    """The subword tokenizers of Config `cfg` trained over its toy corpus,
-    and the seconds that took (host work only: for mT5 this runs in a
-    second process while the card works on the BERT-mini phases)."""
+def train_tokenizers(cfg, corpus=None):
+    """The subword tokenizers of Config `cfg` trained over its toy corpus
+    (`corpus`, or a fresh one), and the seconds that took (host work
+    only: for mT5 this runs in a second process while the card works on
+    the BERT-mini phases)."""
     from dnn_page_vectors_tpu_torch.data.loader import (
         build_corpus, build_tokenizer)
     t0 = time.perf_counter()
-    q_tok, p_tok = build_tokenizer(cfg, build_corpus(cfg))
+    q_tok, p_tok = build_tokenizer(
+        cfg, corpus if corpus is not None else build_corpus(cfg))
     return q_tok, p_tok, time.perf_counter() - t0
 
 
@@ -1515,8 +1629,8 @@ def build_data(config: str, n_pages: int, tokenizers=None):
     when it ran elsewhere."""
     from dnn_page_vectors_tpu_torch.data.loader import build_corpus
     cfg = data_config(config, n_pages)
-    corpus = build_corpus(cfg)
-    q_tok, p_tok, tok_s = tokenizers or train_tokenizers(cfg)
+    corpus = KeptTexts(build_corpus(cfg))
+    q_tok, p_tok, tok_s = tokenizers or train_tokenizers(cfg, corpus)
     want = (cfg.data.trigram_buckets + 1 if cfg.data.tokenizer == "trigram"
             else cfg.data.vocab_size)
     if p_tok.vocab_size != want:
@@ -1617,13 +1731,16 @@ def run_slice(device, config: str, n_pages: int, n_queries: int,
     from dnn_page_vectors_tpu_torch.ops.topk import chunked_topk
 
     transformer = get_config(config).model.encoder in TRANSFORMERS
+    # the query cache off: every single query below is timed through the
+    # encode (phase 16 serves with it on)
     overrides = {"data.num_pages": n_pages, "eval.store_shard_size": 65_536,
-                 "eval.embed_batch_size": 512,
+                 "eval.embed_batch_size": 512, "serve.query_cache_size": 0,
                  **({"model.attention": "flash"} if transformer else {})}
     cfg = get_config(config, overrides)
     m = cfg.model
     _, q_tok, p_tok = data
-    corpus = build_corpus(cfg)   # page i is the same text at every size
+    # page i is the same text at every size
+    corpus = KeptTexts(build_corpus(cfg))
 
     model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
     emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
@@ -1872,9 +1989,10 @@ def packed_data(config: str, words: int, n_pages: int, data):
     from dnn_page_vectors_tpu_torch.config import get_config
     d = get_config(config).data
     base, _, p_tok = data
-    corpus = ToyCorpus(num_pages=n_pages, seed=d.seed, page_len=words,
-                       query_len=d.query_len, languages=d.languages,
-                       num_topics=d.num_topics)
+    corpus = KeptTexts(ToyCorpus(
+        num_pages=n_pages, seed=d.seed, page_len=words,
+        query_len=d.query_len, languages=d.languages,
+        num_topics=d.num_topics))
     same = (corpus.common_words == base.common_words
             and corpus.topic_words == base.topic_words
             and all(np.array_equal(a, b) for a, b in
@@ -2810,11 +2928,11 @@ def ivf_stages(split: dict):
 
 def search_split(svc, queries) -> dict:
     """One search_many of `queries`: its milliseconds by stage (ivf_stages,
-    the query encode with its tokenizing, the results' formatting with
+    the query tokenize, the query encode, the results' formatting with
     their snippets, and the rest), then its device time by kernel class
     (device_breakdown)."""
     split = {}
-    for name in ("encode_queries", "_format"):
+    for name in ("_tokenize", "_encode", "_format"):
         setattr(svc, name, _timed(getattr(svc, name), name.strip("_"),
                                   split))
     try:
@@ -2824,7 +2942,7 @@ def search_split(svc, queries) -> dict:
             svc.search_many(queries, k=10)
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        del svc.encode_queries, svc._format
+        del svc._tokenize, svc._encode, svc._format
     split["other"] = total - sum(split.values())
     return {"queries": len(queries), "total_ms": total,
             "stage_ms": split,
@@ -2916,7 +3034,8 @@ def run_ivf(device, data, workdir: str) -> dict:
     n = corpus.num_pages
     # phase 4's overrides and seed: the same weights as its fp16 store's
     base = {"data.num_pages": n, "eval.store_shard_size": 65_536,
-            "eval.embed_batch_size": 512, "model.attention": "flash"}
+            "eval.embed_batch_size": 512, "model.attention": "flash",
+            "serve.query_cache_size": 0}
     # every index is built from its config's serve.* knobs: cfg's IVF-PQ
     # (serve.pq_m IVF_PQ_M), plain_cfg's stored-width postings
     cfg = get_config("bert_mini_v5p16", {**base, "eval.store_dtype": "int8",
@@ -3171,8 +3290,9 @@ def run_production(device, data, workdir: str, report: dict,
     (counted: K1, K2, K3 8 times a step); (e) the CLI (train, embed,
     eval, embed again) at the scale test's cdssm_toy overrides in
     subprocesses on the card: 16 shards, Recall@10 over 512 queries >
-    CLI_RECALL_BAR, the second embed a manifest no-op. The corpus file is
-    deleted at the end."""
+    CLI_RECALL_BAR, the second embed a manifest no-op. The corpus file and
+    the 1M store stay for phase 16 (run_phases deletes the file after
+    it); rec["corpus_path"] names the file."""
     from dnn_page_vectors_tpu_torch import native
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
@@ -3198,247 +3318,689 @@ def run_production(device, data, workdir: str, report: dict,
                if corpus_job is None else corpus_job.get())
     rec["synth"].update(written, wait_s=time.perf_counter() - t0,
                         pages_per_s=PROD_PAGES / written["seconds"])
-    try:
-        t0 = time.perf_counter()
-        corpus = JsonlCorpus(path)
-        rec["index_s"] = time.perf_counter() - t0
-        if corpus.num_pages != PROD_PAGES:
-            raise AssertionError(f"the corpus indexes {corpus.num_pages} "
-                                 f"records, want {PROD_PAGES}")
-        # ---- (b) the bulk embed, counted ---------------------------------
-        cfg = get_config("bert_mini_v5p16", {
-            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
-            "eval.store_shard_size": PROD_SHARD,
-            "eval.embed_batch_size": 512, "model.attention": "flash"})
-        m = cfg.model
-        rec.update(widths(cfg))
-        routes = {"page_tokenizer": p_tok.path, "query_tokenizer": q_tok.path,
-                  "corpus_index": ("native" if corpus.native_index
-                                   else "python"),
-                  "embed_encode": ("fused" if fused_encode(corpus, p_tok)
-                                   else "plain"),
-                  "native_library": str(native.build().name)}
-        rec["routes"] = routes
-        emit({"phase": "production_routes", **routes})
-        if (routes["page_tokenizer"], routes["query_tokenizer"],
-                routes["corpus_index"], routes["embed_encode"]) != (
-                "native", "native", "native", "fused"):
-            raise AssertionError(f"a host path took the plain route: "
-                                 f"{routes}")
-        model = build_two_tower(cfg, vocab_size=p_tok.vocab_size,
-                                device=device)
-        emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
-        emb.embed_pages(np.zeros((8, p_tok.max_tokens), np.int32))   # warm
-        store = VectorStore(os.path.join(workdir, "store_production"),
-                            dim=m.out_dim, shard_size=PROD_SHARD)
-        prof = PipelineProfiler()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        emb.embed_corpus(corpus, store, profiler=prof)
-        torch.cuda.synchronize()
-        embed_s = time.perf_counter() - t0
-        counts = launch_counts()
-        # ------------------------------------------------------------------
-        bs, ss = cfg.eval.embed_batch_size, cfg.eval.store_shard_size
-        n_batches = sum(-(-min(ss, PROD_PAGES - lo) // bs)
-                        for lo in range(0, PROD_PAGES, ss))
-        want = expected_launches(n_batches * m.num_layers, 0)
-        if counts != want:
-            raise AssertionError(f"phase 15's embed launched {counts}, want "
-                                 f"{want} ({n_batches} encodes)")
-        if (store.num_vectors, len(store.shards())) != (
-                PROD_PAGES, -(-PROD_PAGES // PROD_SHARD)):
-            raise AssertionError(f"the store holds {store.num_vectors} "
-                                 f"vectors in {len(store.shards())} shards")
-        shards = list(store.iter_shards())
-        for out in (shards[0], shards[-1]):
-            v = np.asarray(out[1], np.float32)
-            if not (np.isfinite(v).all()
-                    and np.abs(np.linalg.norm(v, axis=1) - 1).max() < 2e-3):
-                raise AssertionError("store rows are not finite unit rows")
-        rec["embed"] = {
-            "pages_per_s_from_text": PROD_PAGES / embed_s, "seconds": embed_s,
-            "workers": cfg.data.tokenize_workers, "batches": n_batches,
-            "stats": emb.stats, "stage_s": prof.stages(),
-            "stage_calls": prof.counts(),
-            "k1_launches": counts["launches"],
-            "k1_launches_tensor_core": counts["launches_tc"],
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        emit({"phase": "production_embed", **rec["embed"]})
-        del store, shards
+    rec["corpus_path"] = path
+    t0 = time.perf_counter()
+    corpus = JsonlCorpus(path)
+    rec["index_s"] = time.perf_counter() - t0
+    if corpus.num_pages != PROD_PAGES:
+        raise AssertionError(f"the corpus indexes {corpus.num_pages} "
+                             f"records, want {PROD_PAGES}")
+    # ---- (b) the bulk embed, counted ---------------------------------
+    cfg = get_config("bert_mini_v5p16", {
+        "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+        "eval.store_shard_size": PROD_SHARD,
+        "eval.embed_batch_size": 512, "model.attention": "flash"})
+    m = cfg.model
+    rec.update(widths(cfg))
+    routes = {"page_tokenizer": p_tok.path, "query_tokenizer": q_tok.path,
+              "corpus_index": ("native" if corpus.native_index
+                               else "python"),
+              "embed_encode": ("fused" if fused_encode(corpus, p_tok)
+                               else "plain"),
+              "native_library": str(native.build().name)}
+    rec["routes"] = routes
+    emit({"phase": "production_routes", **routes})
+    if (routes["page_tokenizer"], routes["query_tokenizer"],
+            routes["corpus_index"], routes["embed_encode"]) != (
+            "native", "native", "native", "fused"):
+        raise AssertionError(f"a host path took the plain route: "
+                             f"{routes}")
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size,
+                            device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    emb.embed_pages(np.zeros((8, p_tok.max_tokens), np.int32))   # warm
+    store = VectorStore(os.path.join(workdir, "store_production"),
+                        dim=m.out_dim, shard_size=PROD_SHARD)
+    prof = PipelineProfiler()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    emb.embed_corpus(corpus, store, profiler=prof)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    bs, ss = cfg.eval.embed_batch_size, cfg.eval.store_shard_size
+    n_batches = sum(-(-min(ss, PROD_PAGES - lo) // bs)
+                    for lo in range(0, PROD_PAGES, ss))
+    want = expected_launches(n_batches * m.num_layers, 0)
+    if counts != want:
+        raise AssertionError(f"phase 15's embed launched {counts}, want "
+                             f"{want} ({n_batches} encodes)")
+    if (store.num_vectors, len(store.shards())) != (
+            PROD_PAGES, -(-PROD_PAGES // PROD_SHARD)):
+        raise AssertionError(f"the store holds {store.num_vectors} "
+                             f"vectors in {len(store.shards())} shards")
+    shards = list(store.iter_shards())
+    for out in (shards[0], shards[-1]):
+        v = np.asarray(out[1], np.float32)
+        if not (np.isfinite(v).all()
+                and np.abs(np.linalg.norm(v, axis=1) - 1).max() < 2e-3):
+            raise AssertionError("store rows are not finite unit rows")
+    rec["embed"] = {
+        "pages_per_s_from_text": PROD_PAGES / embed_s, "seconds": embed_s,
+        "workers": cfg.data.tokenize_workers, "batches": n_batches,
+        "stats": emb.stats, "stage_s": prof.stages(),
+        "stage_calls": prof.counts(),
+        "k1_launches": counts["launches"],
+        "k1_launches_tensor_core": counts["launches_tc"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"phase": "production_embed", **rec["embed"]})
+    del store, shards
 
-        # ---- (c) one worker against the pool, the plain encoders -----------
-        head = os.path.join(workdir, "corpus_head.jsonl")
-        copy_lines(path, head, int(corpus.offsets[PROD_SERIAL_ROWS]))
-        head_corpus = JsonlCorpus(head)
-        serial = {}
-        for workers in (1, cfg.data.tokenize_workers):
-            s = VectorStore(os.path.join(workdir, f"store_head_{workers}"),
-                            dim=m.out_dim, shard_size=PROD_SHARD)
-            t0 = time.perf_counter()
-            emb.embed_corpus(head_corpus, s, workers=workers)
-            torch.cuda.synchronize()
-            serial[workers] = (s, time.perf_counter() - t0)
-        full = VectorStore(os.path.join(workdir, "store_production"))
-        want_ids, want_bytes = shard_rows(full, PROD_SERIAL_ROWS)
-        equal = {}
-        for workers, (s, _) in serial.items():
-            ids, vb = shard_rows(s, PROD_SERIAL_ROWS)
-            equal[workers] = bool(len(ids) == PROD_SERIAL_ROWS
-                                  and np.array_equal(ids, want_ids)
-                                  and np.array_equal(vb, want_bytes))
-        ids = range(PROD_PLAIN_PAGES)
-        plain_p = SubwordTokenizer(p_tok.vocab, style=p_tok.style,
-                                   max_tokens=p_tok.max_tokens,
-                                   use_native=False)
-        plain_q = SubwordTokenizer(q_tok.vocab, style=q_tok.style,
-                                   max_tokens=q_tok.max_tokens,
-                                   use_native=False)
+    # ---- (c) one worker against the pool, the plain encoders -----------
+    head = os.path.join(workdir, "corpus_head.jsonl")
+    copy_lines(path, head, int(corpus.offsets[PROD_SERIAL_ROWS]))
+    head_corpus = JsonlCorpus(head)
+    serial = {}
+    for workers in (1, cfg.data.tokenize_workers):
+        s = VectorStore(os.path.join(workdir, f"store_head_{workers}"),
+                        dim=m.out_dim, shard_size=PROD_SHARD)
         t0 = time.perf_counter()
-        want_p = plain_p.encode_batch(corpus.page_texts(ids))
-        plain_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got_p = p_tok.encode_jsonl_lines(corpus.page_lines(ids))
-        fused_s = time.perf_counter() - t0
-        queries = corpus.query_texts(ids)
-        tri = dict(buckets=16_384, max_words=PROD_PAGE_WORDS, k=8)
-        tri_texts = corpus.page_texts(range(PROD_TRIGRAM_PLAIN_PAGES))
-        ids_equal = {
-            "wordpiece_pages_fused": bool(np.array_equal(got_p, want_p)),
-            "wordpiece_pages_batch": bool(np.array_equal(
-                p_tok.encode_batch(corpus.page_texts(ids)), want_p)),
-            "wordpiece_queries": bool(np.array_equal(
-                q_tok.encode_batch(queries), plain_q.encode_batch(queries))),
-            "trigram_pages": bool(np.array_equal(
-                TrigramTokenizer(**tri).encode_batch(tri_texts),
-                TrigramTokenizer(**tri, use_native=False).encode_batch(
-                    tri_texts)))}
-        rec["serial_check"] = {
-            "rows": PROD_SERIAL_ROWS,
-            "rows_equal_to_the_1m_store": {str(k): v
-                                           for k, v in equal.items()},
-            "pages_per_s_one_worker":
-                PROD_SERIAL_ROWS / serial[1][1],
-            "pages_per_s_pool": (PROD_SERIAL_ROWS
-                                 / serial[cfg.data.tokenize_workers][1]),
-            "plain_ids_equal": ids_equal,
-            "plain_pages": PROD_PLAIN_PAGES,
-            "trigram_plain_pages": PROD_TRIGRAM_PLAIN_PAGES,
-            "wordpiece_plain_pages_per_s": PROD_PLAIN_PAGES / plain_s,
-            "wordpiece_fused_pages_per_s": PROD_PLAIN_PAGES / fused_s}
-        emit({"phase": "production_serial_check", **rec["serial_check"]})
-        if not all(equal.values()) or not all(ids_equal.values()):
-            raise AssertionError(f"the pool's rows or the native ids differ: "
-                                 f"{rec['serial_check']}")
-        del serial, full
-        os.remove(head)
-
-        # ---- (d) training from the file, counted ---------------------------
-        tcfg = get_config("bert_mini_v5p16", {
-            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
-            "model.attention": "flash", "train.log_every": 1,
-            "train.batch_size": TRAIN_BATCH})
-        trainer = Trainer(tcfg, corpus=corpus, tokenizers=(q_tok, p_tok),
-                          device=device)
-        starts = []
-        step = trainer.train_step
-
-        def timed_step(batch):
-            starts.append(time.perf_counter())
-            return step(batch)
-        trainer.train_step = timed_step
+        emb.embed_corpus(head_corpus, s, workers=workers)
         torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        trainer.train(PROD_TRAIN_STEPS)
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-        counts = launch_counts()
-        # ------------------------------------------------------------------
-        per_layer = 2 * tcfg.model.num_layers
-        want = expected_launches(PROD_TRAIN_STEPS * per_layer,
-                                 PROD_TRAIN_STEPS * per_layer)
-        if counts != want:
-            raise AssertionError(f"phase 15's training launched {counts}, "
-                                 f"want {want}")
-        hist = trainer.history
-        if len(hist) != PROD_TRAIN_STEPS or not all(
-                np.isfinite([h["loss"], h["grad_norm"]]).all()
-                for h in hist):
-            raise AssertionError(f"training metrics are not finite: {hist}")
-        step_ms = list(np.diff(starts + [t_end]) * 1e3)
-        names = ("k1", "k2", "k3", "k4")
-        keys = ("launches", "dq_launches", "dkv_launches",
-                "dq_dbias_launches")
-        rec["train"] = {
-            "batch_pages": TRAIN_BATCH, "steps": PROD_TRAIN_STEPS,
-            "workers": tcfg.data.tokenize_workers,
-            "train_s": t_end - t0,
-            "step_ms_from_text": step_ms,
-            "median_step_ms_from_text": float(np.median(step_ms[2:])),
-            "phase5_median_step_ms_premade":
-                report["train"]["median_step_ms"],
-            "train_pages_per_s_from_text": TRAIN_BATCH / (
-                float(np.median(step_ms[2:])) / 1e3),
-            "host_stage_s": trainer.profiler.stages(),
-            "losses": [h["loss"] for h in hist],
-            "launches_main_path": {n: counts[k] for n, k in zip(names, keys)},
-            "launches_tensor_core_main_path": {
-                n: counts[k + "_tc"] for n, k in zip(names, keys)},
-            "launches_seg_main_path": {
-                n: counts[k + "_seg"] for n, k in zip(names, keys)},
-            "launches_one_step": {n: counts[k] // PROD_TRAIN_STEPS
-                                  for n, k in zip(names, keys)},
-            "seg_summary_launches_main_path": 0,
-            "gdead_launches_main_path": 0}
-        emit({"phase": "production_train", **rec["train"]})
-        del trainer, model, emb
-        torch.cuda.empty_cache()
+        serial[workers] = (s, time.perf_counter() - t0)
+    full = VectorStore(os.path.join(workdir, "store_production"))
+    want_ids, want_bytes = shard_rows(full, PROD_SERIAL_ROWS)
+    equal = {}
+    for workers, (s, _) in serial.items():
+        ids, vb = shard_rows(s, PROD_SERIAL_ROWS)
+        equal[workers] = bool(len(ids) == PROD_SERIAL_ROWS
+                              and np.array_equal(ids, want_ids)
+                              and np.array_equal(vb, want_bytes))
+    ids = range(PROD_PLAIN_PAGES)
+    plain_p = SubwordTokenizer(p_tok.vocab, style=p_tok.style,
+                               max_tokens=p_tok.max_tokens,
+                               use_native=False)
+    plain_q = SubwordTokenizer(q_tok.vocab, style=q_tok.style,
+                               max_tokens=q_tok.max_tokens,
+                               use_native=False)
+    t0 = time.perf_counter()
+    want_p = plain_p.encode_batch(corpus.page_texts(ids))
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_p = p_tok.encode_jsonl_lines(corpus.page_lines(ids))
+    fused_s = time.perf_counter() - t0
+    queries = corpus.query_texts(ids)
+    tri = dict(buckets=16_384, max_words=PROD_PAGE_WORDS, k=8)
+    tri_texts = corpus.page_texts(range(PROD_TRIGRAM_PLAIN_PAGES))
+    ids_equal = {
+        "wordpiece_pages_fused": bool(np.array_equal(got_p, want_p)),
+        "wordpiece_pages_batch": bool(np.array_equal(
+            p_tok.encode_batch(corpus.page_texts(ids)), want_p)),
+        "wordpiece_queries": bool(np.array_equal(
+            q_tok.encode_batch(queries), plain_q.encode_batch(queries))),
+        "trigram_pages": bool(np.array_equal(
+            TrigramTokenizer(**tri).encode_batch(tri_texts),
+            TrigramTokenizer(**tri, use_native=False).encode_batch(
+                tri_texts)))}
+    rec["serial_check"] = {
+        "rows": PROD_SERIAL_ROWS,
+        "rows_equal_to_the_1m_store": {str(k): v
+                                       for k, v in equal.items()},
+        "pages_per_s_one_worker":
+            PROD_SERIAL_ROWS / serial[1][1],
+        "pages_per_s_pool": (PROD_SERIAL_ROWS
+                             / serial[cfg.data.tokenize_workers][1]),
+        "plain_ids_equal": ids_equal,
+        "plain_pages": PROD_PLAIN_PAGES,
+        "trigram_plain_pages": PROD_TRIGRAM_PLAIN_PAGES,
+        "wordpiece_plain_pages_per_s": PROD_PLAIN_PAGES / plain_s,
+        "wordpiece_fused_pages_per_s": PROD_PLAIN_PAGES / fused_s}
+    emit({"phase": "production_serial_check", **rec["serial_check"]})
+    if not all(equal.values()) or not all(ids_equal.values()):
+        raise AssertionError(f"the pool's rows or the native ids differ: "
+                             f"{rec['serial_check']}")
+    del serial, full
+    os.remove(head)
 
-        # ---- (e) the CLI on the card ---------------------------------------
-        wd = os.path.join(workdir, "cli_1m")
-        args = ["--config", "cdssm_toy", "--workdir", wd, "--device",
-                CLI_DEVICE, "--set", f"data.corpus=jsonl:{path}"]
-        for k, v in CLI_OVERRIDES.items():
-            args += ["--set", f"{k}={v}"]
-        cli = {}
-        cli["train"], cli["train_s"] = run_cli("train", args, 600)
-        cli["embed"], cli["embed_s"] = run_cli("embed", args, 600)
-        cli["eval"], cli["eval_s"] = run_cli("eval", args, 300)
-        cli_store = VectorStore(os.path.join(wd, "store"))
-        files = sorted(f for f in os.listdir(cli_store.directory)
-                       if f.endswith(".npy"))
-        mtimes = [os.stat(os.path.join(cli_store.directory, f)).st_mtime_ns
-                  for f in files]
-        cli["embed_again"], cli["embed_again_s"] = run_cli("embed", args, 300)
-        noop = (mtimes == [os.stat(os.path.join(cli_store.directory,
-                                                f)).st_mtime_ns
-                           for f in files]
-                and "stage_tokenize_n" not in cli["embed_again"]["stages"])
-        recall = cli["eval"]["recall@10"]
-        rec["cli"] = {**cli, "overrides": CLI_OVERRIDES,
-                      "store_vectors": cli_store.num_vectors,
-                      "store_shards": len(cli_store.shards()),
-                      "second_embed_noop": noop,
-                      "recall_bar": CLI_RECALL_BAR}
-        emit({"phase": "production_cli", **rec["cli"]})
-        shards = -(-PROD_PAGES // CLI_OVERRIDES["eval.store_shard_size"])
-        if (cli_store.num_vectors, len(cli_store.shards())) != (
-                PROD_PAGES, shards) or cli["embed"]["embedded"] != PROD_PAGES:
-            raise AssertionError(f"the CLI's store: {rec['cli']}")
-        if not (cli["eval"]["num_queries"] == CLI_OVERRIDES[
-                "eval.eval_queries"] and recall > CLI_RECALL_BAR and noop):
-            raise AssertionError(f"the CLI run failed its checks: "
-                                 f"{rec['cli']}")
-    finally:
-        os.remove(path)
+    # ---- (d) training from the file, counted ---------------------------
+    tcfg = get_config("bert_mini_v5p16", {
+        "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+        "model.attention": "flash", "train.log_every": 1,
+        "train.batch_size": TRAIN_BATCH})
+    trainer = Trainer(tcfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                      device=device)
+    starts = []
+    step = trainer.train_step
+
+    def timed_step(batch):
+        starts.append(time.perf_counter())
+        return step(batch)
+    trainer.train_step = timed_step
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(PROD_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    per_layer = 2 * tcfg.model.num_layers
+    want = expected_launches(PROD_TRAIN_STEPS * per_layer,
+                             PROD_TRAIN_STEPS * per_layer)
+    if counts != want:
+        raise AssertionError(f"phase 15's training launched {counts}, "
+                             f"want {want}")
+    hist = trainer.history
+    if len(hist) != PROD_TRAIN_STEPS or not all(
+            np.isfinite([h["loss"], h["grad_norm"]]).all()
+            for h in hist):
+        raise AssertionError(f"training metrics are not finite: {hist}")
+    step_ms = list(np.diff(starts + [t_end]) * 1e3)
+    names = ("k1", "k2", "k3", "k4")
+    keys = ("launches", "dq_launches", "dkv_launches",
+            "dq_dbias_launches")
+    rec["train"] = {
+        "batch_pages": TRAIN_BATCH, "steps": PROD_TRAIN_STEPS,
+        "workers": tcfg.data.tokenize_workers,
+        "train_s": t_end - t0,
+        "step_ms_from_text": step_ms,
+        "median_step_ms_from_text": float(np.median(step_ms[2:])),
+        "phase5_median_step_ms_premade":
+            report["train"]["median_step_ms"],
+        "train_pages_per_s_from_text": TRAIN_BATCH / (
+            float(np.median(step_ms[2:])) / 1e3),
+        "host_stage_s": trainer.profiler.stages(),
+        "losses": [h["loss"] for h in hist],
+        "launches_main_path": {n: counts[k] for n, k in zip(names, keys)},
+        "launches_tensor_core_main_path": {
+            n: counts[k + "_tc"] for n, k in zip(names, keys)},
+        "launches_seg_main_path": {
+            n: counts[k + "_seg"] for n, k in zip(names, keys)},
+        "launches_one_step": {n: counts[k] // PROD_TRAIN_STEPS
+                              for n, k in zip(names, keys)},
+        "seg_summary_launches_main_path": 0,
+        "gdead_launches_main_path": 0}
+    emit({"phase": "production_train", **rec["train"]})
+    del trainer, model, emb
+    torch.cuda.empty_cache()
+
+    # ---- (e) the CLI on the card ---------------------------------------
+    wd = os.path.join(workdir, "cli_1m")
+    args = ["--config", "cdssm_toy", "--workdir", wd, "--device",
+            CLI_DEVICE, "--set", f"data.corpus=jsonl:{path}"]
+    for k, v in CLI_OVERRIDES.items():
+        args += ["--set", f"{k}={v}"]
+    cli = {}
+    cli["train"], cli["train_s"] = run_cli("train", args, 600)
+    cli["embed"], cli["embed_s"] = run_cli("embed", args, 600)
+    cli["eval"], cli["eval_s"] = run_cli("eval", args, 300)
+    cli_store = VectorStore(os.path.join(wd, "store"))
+    files = sorted(f for f in os.listdir(cli_store.directory)
+                   if f.endswith(".npy"))
+    mtimes = [os.stat(os.path.join(cli_store.directory, f)).st_mtime_ns
+              for f in files]
+    cli["embed_again"], cli["embed_again_s"] = run_cli("embed", args, 300)
+    noop = (mtimes == [os.stat(os.path.join(cli_store.directory,
+                                            f)).st_mtime_ns
+                       for f in files]
+            and "stage_tokenize_n" not in cli["embed_again"]["stages"])
+    recall = cli["eval"]["recall@10"]
+    rec["cli"] = {**cli, "overrides": CLI_OVERRIDES,
+                  "store_vectors": cli_store.num_vectors,
+                  "store_shards": len(cli_store.shards()),
+                  "second_embed_noop": noop,
+                  "recall_bar": CLI_RECALL_BAR}
+    emit({"phase": "production_cli", **rec["cli"]})
+    shards = -(-PROD_PAGES // CLI_OVERRIDES["eval.store_shard_size"])
+    if (cli_store.num_vectors, len(cli_store.shards())) != (
+            PROD_PAGES, shards) or cli["embed"]["embedded"] != PROD_PAGES:
+        raise AssertionError(f"the CLI's store: {rec['cli']}")
+    if not (cli["eval"]["num_queries"] == CLI_OVERRIDES[
+            "eval.eval_queries"] and recall > CLI_RECALL_BAR and noop):
+        raise AssertionError(f"the CLI run failed its checks: "
+                             f"{rec['cli']}")
     rec["seconds"] = time.perf_counter() - t_phase
     rec["device"] = torch.cuda.get_device_name(0)
     rec["nvidia_smi"] = nvidia_smi()
     emit({k: v for k, v in rec.items()
           if k not in ("embed", "serial_check", "train", "cli")})
+    return rec
+
+
+# -- phase 16: serving under load ---------------------------------------------
+
+def serve_results_equal(got, want, what: str,
+                        tol: float = SERVE_SCORE_TOL) -> int:
+    """Two lists of formatted results of the same queries: scores (rounded
+    to 4 decimals) within `tol`, ids equal in every rank except where the
+    scores of neighbouring ranks tie within `tol`. Returns the rows whose
+    ids differ (at ties)."""
+    touched = 0
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} result lists, want "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        gs = np.array([r["score"] for r in g])
+        ws = np.array([r["score"] for r in w])
+        if len(g) != len(w) or (len(g) and np.abs(gs - ws).max() > tol):
+            raise AssertionError(f"{what}: scores differ: {gs} vs {ws}")
+        row = False
+        for j, (a, b) in enumerate(zip(w, g)):
+            if a["page_id"] != b["page_id"]:
+                if not any(abs(ws[j] - ws[x]) <= tol
+                           for x in (j - 1, j + 1) if 0 <= x < len(ws)):
+                    raise AssertionError(f"{what}: rank {j} differs at a "
+                                         f"non-tie: {a} vs {b}")
+                row = True
+        touched += row
+    return touched
+
+
+def gpu_state() -> str:
+    """The card's SM and memory clocks, power draw, temperature and
+    performance state, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu,pstate", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip()
+
+
+def busy_share(fn) -> tuple:
+    """(fn()'s result, the share of its wall time the card was busy): the
+    union of the intervals of every kernel and copy torch.profiler (CUPTI)
+    records during fn, over fn's wall time; None when the profiler
+    recorded no device time. The raw events are read: key_averages()
+    would build an object for each of the trial's tens of thousands."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda and e.duration_ns() > 0)
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a >= end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    return out, (busy_ns / 1e9 / wall if busy_ns > 0 else None)
+
+
+@contextlib.contextmanager
+def gc_seconds(out: dict):
+    """While open, out["gc_s"] sums the seconds of the interpreter's cyclic
+    garbage collections (any thread's: a collection stops them all) and
+    out["gc_full"] counts the full (generation 2) ones."""
+    import gc
+    out.update(gc_s=0.0, gc_full=0)
+    t0 = [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            out["gc_s"] += time.perf_counter() - t0[0]
+            out["gc_full"] += info["generation"] == 2
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def stage_ms(svc, before: dict, queries: int) -> dict:
+    """The service's stage seconds (PipelineProfiler) since `before`, as
+    milliseconds a query."""
+    return {k: (v - before.get(k, 0.0)) * 1e3 / queries
+            for k, v in svc.profiler.stages().items()}
+
+
+def trial_line(tr: dict, busy=None) -> dict:
+    """The printed numbers of one load trial."""
+    keys = ("offered_qps", "achieved_qps", "client_p50_ms", "client_p95_ms",
+            "client_p99_ms", "issue_lag_max_ms", "p50_ms", "p95_ms", "p99_ms",
+            "error_rate", "cache_hit_rate", "queue_wait_p99_ms",
+            "requests_sent", "errors", "met")
+    out = {k: tr.get(k) for k in keys}
+    out["deadline_shed"] = (tr.get("transport") or {}).get(
+        "deadline_sheds", 0)
+    if busy is not None:
+        out["card_busy_share"] = busy
+    return out
+
+
+def run_serving(device, data, workdir: str, production: dict) -> dict:
+    """Phase 16: SearchService over phase 15's 1M-row store
+    (store_production) and its jsonl corpus, with config 3's towers
+    rebuilt from phase 4's seed and vocab (the weights that embedded the
+    store). (a) SERVE_QUERIES corpus queries through search_many, their
+    top-10 against a plain q @ store^T top-10 of the staged rows (ties
+    only), then through search() from SERVE_THREADS threads with the
+    micro-batcher on: equal, and some batch larger than 1; (b) the same
+    service at preload_hbm_gb=0 serves (a)'s results from disk; (c) a
+    SearchServer on loopback and a SocketSearchClient return in-process
+    search's ids and scores, and a request whose deadline has passed gets
+    T_SHED, counts in deadline_shed, takes no bucket slot; (d)
+    find_qps_at_p99 over the socket, judged on the client's p99, with the
+    query cache on and off, a profiled warm-up trial at SERVE_START_QPS
+    and SERVE_RUNS searches each, alternating (a search in which no trial
+    met the target reads 0 with target_met false), a burst trial at the
+    lowest cache-off rate found and a closed-loop trial, both profiled;
+    (e) K1 launched 4 times an encode the
+    services dispatched, all on the tensor cores, nothing else; (f) the
+    phase's seconds; (g) no batch retry, everything on the card."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.server import SearchServer
+    from dnn_page_vectors_tpu_torch.infer.transport import (
+        DeadlineExceeded, SocketSearchClient)
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.loadgen import (
+        find_qps_at_p99, make_workload, run_trial)
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+
+    import gc
+    t_phase = time.perf_counter()
+    # the earlier phases' objects (vocabs, corpora, records) out of the
+    # cyclic collector's reach: a full collection walks every object the
+    # process holds, and its pause would land in a trial's tail as the
+    # harness's cost, not the service's (gc_seconds records what is left)
+    gc.collect()
+    gc.freeze()
+    _, q_tok, p_tok = data
+    path = production["corpus_path"]
+    corpus = JsonlCorpus(path)
+    store = VectorStore(os.path.join(workdir, "store_production"))
+    if store.num_vectors != PROD_PAGES:
+        raise AssertionError(f"phase 15's store holds {store.num_vectors} "
+                             f"vectors, want {PROD_PAGES}")
+
+    def config(cache: int):
+        return get_config("bert_mini_v5p16", {
+            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+            "model.attention": "flash", "serve.query_cache_size": cache,
+            "obs.window_s": SERVE_TRIAL_S})
+    cfg = config(SERVE_CACHE)
+    m = cfg.model
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    queries = corpus.query_texts(np.linspace(
+        0, PROD_PAGES - 1, SERVE_QUERIES).astype(np.int64))
+    rec = {"phase": "serving", "config": cfg.name, **widths(cfg),
+           "store_vectors": store.num_vectors, "store_dtype": "float16",
+           "queries": SERVE_QUERIES}
+    services = []
+
+    def service(cache: int, preload: float = 4.0):
+        svc = SearchService(config(cache), emb, corpus, store,
+                            preload_hbm_gb=preload)
+        services.append(svc)
+        return svc
+
+    torch.cuda.synchronize()
+    reset_counts()
+    # ---- the main path, counted (a)-(d) ------------------------------
+    t0 = time.perf_counter()
+    svc = service(SERVE_CACHE)
+    stage_s = time.perf_counter() - t0
+    if not (svc.preloaded and svc.pages.device.type == device.type
+            and svc.pages.dtype == torch.float16
+            and svc.pages.shape == (PROD_PAGES, m.out_dim)):
+        raise AssertionError("the 1M store is not staged whole on the card")
+    # (a) staged exact, batched
+    t0 = time.perf_counter()
+    results = svc.search_many(queries, k=10)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3
+    qv = svc._embed_queries_cached(svc._view, queries)   # the cache's rows
+    raw_s, raw_i = svc.topk_vectors(qv, k=10)
+    fmt = [svc._format(raw_s[i], raw_i[i]) for i in range(SERVE_QUERIES)]
+    if fmt != results:
+        raise AssertionError("search_many differs from its own top-k")
+    plain_s, plain_i = torch.topk(qv @ svc.pages.float().T, 10, dim=1)
+    plain_pid = svc.page_ids[plain_i.cpu().numpy()]
+    ties_a = ties_only(raw_s, raw_i, plain_s.cpu().numpy(), plain_pid,
+                       "phase 16 (a) search_many vs the plain top-k")
+    svc.clear_cache()
+    serve_window_ms = cfg.serve.batch_window_ms
+    svc.start_batcher()
+    batched = [None] * SERVE_QUERIES
+    with ThreadPoolExecutor(SERVE_THREADS) as pool:
+        for i, res in zip(range(SERVE_QUERIES), pool.map(
+                lambda q: svc.search(q, k=10), queries)):
+            batched[i] = res
+    sizes = svc.batch_sizes
+    ties_batched = serve_results_equal(batched, results,
+                                       "phase 16 (a) batched search()")
+    if max(sizes) <= 1:
+        raise AssertionError(f"the batcher coalesced nothing: {sizes}")
+    rec["a_staged"] = {
+        "search_many_ms": many_ms, "stage_1m_store_s": stage_s,
+        "tie_rows_vs_plain": ties_a, "threads": SERVE_THREADS,
+        "batch_window_ms": serve_window_ms, "batches": len(sizes),
+        "max_batch": max(sizes), "mean_batch": float(np.mean(sizes)),
+        "batched_tie_rows": ties_batched,
+        "at_s": time.perf_counter() - t_phase}
+    emit({"phase": "serving_a_staged", **rec["a_staged"]})
+    # (b) streaming
+    stream = service(SERVE_CACHE, preload=0.0)
+    t0 = time.perf_counter()
+    streamed = stream.search_many(queries, k=10)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    if stream.preloaded:
+        raise AssertionError("preload_hbm_gb=0 staged the store")
+    rec["b_streaming"] = {
+        "preloaded": stream.preloaded, "search_many_ms": stream_ms,
+        "tie_rows_vs_staged": serve_results_equal(
+            streamed, results, "phase 16 (b) streaming vs staged"),
+        "at_s": time.perf_counter() - t_phase}
+    emit({"phase": "serving_b_streaming", **rec["b_streaming"]})
+    del stream
+    # (c) the socket
+    off = service(0)
+    off.start_batcher()
+    servers = [SearchServer(x, executor_workers=SERVE_LOAD_WORKERS)
+               for x in (svc, off)]
+    clients = []
+    try:
+        for server in servers:
+            server.start_background()
+            clients.append(SocketSearchClient(server.host, server.port))
+        client, client_off = clients
+        wire, local = [], []
+        for q in queries[:16]:
+            wire.append(client.search(q, k=10))
+            local.append(svc.search(q, k=10))
+        same = all([(r["page_id"], round(r["score"], 4)) for r in a] ==
+                   [(r["page_id"], r["score"]) for r in b]
+                   for a, b in zip(wire, local))
+        if not same:
+            raise AssertionError("the socket's results differ from "
+                                 "in-process search")
+        sheds, n_batches, encodes = (svc.deadline_sheds,
+                                     len(svc.batch_sizes), svc.encodes)
+        try:
+            client.search(queries[0] + " late", k=10, deadline_ms=1e-6)
+            raise AssertionError("an expired deadline was served")
+        except DeadlineExceeded as e:
+            shed_reason = str(e)
+        if (svc.deadline_sheds != sheds + 1
+                or len(svc.batch_sizes) != n_batches
+                or svc.encodes != encodes):
+            raise AssertionError("the expired request was not shed at the "
+                                 "door")
+        rec["c_socket"] = {"queries": 16, "equal_to_inprocess": same,
+                           "expired_shed": shed_reason,
+                           "deadline_shed": svc.deadline_sheds,
+                           "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "serving_c_socket", **rec["c_socket"]})
+
+        # (d) load, over the socket
+        distinct = corpus.query_texts(range(SERVE_DISTINCT))
+        # a lone query at a time, cache off: what one caller waits with no
+        # load, over the socket and in process, with the service's stage
+        # split (ms a query)
+        n = SERVE_LONE_QUERIES
+        load = {"lone_query": {"queries": n}}
+        for how, call, qs in (("socket", client_off.search, distinct[-n:]),
+                              ("inprocess", off.search,
+                               distinct[-2 * n: -n])):
+            lone, before = [], off.profiler.stages()
+            for q in qs:
+                t0 = time.perf_counter()
+                call(q, k=10)
+                lone.append((time.perf_counter() - t0) * 1e3)
+            load["lone_query"][how] = {
+                "p50_ms": float(np.percentile(lone, 50)),
+                "p95_ms": float(np.percentile(lone, 95)),
+                "stage_ms": stage_ms(off, before, n)}
+        load["lone_query"]["at_s"] = time.perf_counter() - t_phase
+        emit({"phase": "serving_d_lone_query", **load["lone_query"]})
+
+        def workload(shape: str = "poisson", **kw):
+            return make_workload(shape, seed=SERVE_SEED,
+                                 distinct=SERVE_DISTINCT, alpha=SERVE_ALPHA,
+                                 profile=((10, None, 1.0),), **kw)
+
+        def rate_search(target, clt, cache: int, run: int) -> dict:
+            target.clear_cache()     # every run starts from a cold cache
+            batches0 = len(target.batch_sizes)
+            stages0 = target.profiler.stages()
+            requests0 = target._m_requests.value
+            collected = {}
+            t0 = time.perf_counter()
+            with gc_seconds(collected):
+                rep = find_qps_at_p99(
+                    target, workload(), distinct,
+                    p99_target_ms=SERVE_P99_MS, start=SERVE_START_QPS,
+                    max_load=SERVE_MAX_QPS, iters=SERVE_ITERS,
+                    duration_s=SERVE_TRIAL_S, warmup_s=SERVE_WARMUP_S,
+                    workers=SERVE_LOAD_WORKERS,
+                    max_error_rate=SERVE_MAX_ERROR_RATE, client=clt,
+                    p99_key="client_p99_ms")
+            trials = [trial_line(t) for t in rep["trials"]]
+            if len(trials) > SERVE_MAX_TRIALS:
+                raise AssertionError(f"the rate search took {len(trials)} "
+                                     "trials")
+            # a search in which no trial met the target reads 0 and says
+            # so; nothing stands in for the rate it did not find
+            best = max((t for t in rep["trials"] if t["met"]),
+                       key=lambda t: t["achieved_qps"], default=None)
+            out = {"query_cache_size": cache, "run": run,
+                   "qps_at_p99": rep["qps_at_p99"],
+                   "target_met": best is not None,
+                   "load_sustained": rep["load_sustained"],
+                   "trials": trials,
+                   "at_rate": trial_line(best) if best else None,
+                   "mean_batch": float(np.mean(
+                       target.batch_sizes[batches0:])),
+                   "seconds": time.perf_counter() - t0,
+                   "search_gc_s": collected["gc_s"],
+                   "search_gc_full": collected["gc_full"],
+                   "stage_ms_a_request": stage_ms(
+                       target, stages0,
+                       max(1, target._m_requests.value - requests0)),
+                   "host_loadavg_1m": os.getloadavg()[0],
+                   "gpu_state_after": gpu_state(),
+                   "at_s": time.perf_counter() - t_phase}
+            emit({"phase": f"serving_d_cache_{'on' if cache else 'off'}"
+                           f"_run{run}", **out})
+            return out
+
+        cells = (("on", svc, client, SERVE_CACHE), ("off", off, client_off, 0))
+        # a short trial at SERVE_START_QPS on each service first,
+        # profiled: it warms the process under load (the first load trial
+        # of a process can stall its queue on the card, PERF.md section
+        # 6) and gives the card's busy share there; not part of a search
+        warm = {}
+        for name, target, clt, cache in cells:
+            tr, busy = busy_share(lambda: run_trial(
+                target, workload(), SERVE_START_QPS, distinct,
+                duration_s=SERVE_WARM_S, warmup_s=SERVE_WARMUP_S,
+                workers=SERVE_LOAD_WORKERS, client=clt))
+            warm[name] = {**trial_line(tr, busy),
+                          "gpu_state_after": gpu_state(),
+                          "at_s": time.perf_counter() - t_phase}
+            emit({"phase": f"serving_d_warm_cache_{name}", **warm[name]})
+        # the searches alternate (on, off, on, off, ...) so that a drift
+        # of the host over the phase falls on both alike
+        runs = {name: [] for name, *_ in cells}
+        for run in range(SERVE_RUNS):
+            for name, target, clt, cache in cells:
+                runs[name].append(rate_search(target, clt, cache, run))
+        for name, target, clt, cache in cells:
+            rates = [r["qps_at_p99"] for r in runs[name]]
+            load[name] = {
+                "query_cache_size": cache, "qps_at_p99": min(rates),
+                "qps_at_p99_runs": rates,
+                "runs_without_a_met_trial": sum(
+                    not r["target_met"] for r in runs[name]),
+                "spread_qps": max(rates) - min(rates),
+                "p99_target_ms": SERVE_P99_MS,
+                "p99_judged_on": "client_p99_ms",
+                "at_rate_runs": [r["at_rate"] for r in runs[name]],
+                "mean_batch_runs": [r["mean_batch"] for r in runs[name]],
+                "warm_trial": warm[name],
+                "card_busy_share_at_start_qps": warm[name].get(
+                    "card_busy_share")}
+            emit({"phase": f"serving_d_cache_{name}", **load[name]})
+            load[name]["runs"] = runs[name]
+        # the burst's mean rate: the lowest rate a cache-off run found
+        found = [r for r in load["off"]["qps_at_p99_runs"] if r > 0]
+        for shape, offered, kw in (
+                ("burst", min(found, default=None),
+                 {"on_s": 0.5, "off_s": 0.5}),
+                ("closed", SERVE_CLOSED_WORKERS, {})):
+            if offered is None:
+                load[shape] = {"skipped": "no cache-off run met the "
+                               f"{SERVE_P99_MS} ms client p99"}
+                emit({"phase": f"serving_d_{shape}", **load[shape]})
+                continue
+            wl = workload(shape, **kw)
+            tr, busy = busy_share(lambda: run_trial(
+                off, wl, offered, distinct, duration_s=SERVE_TRIAL_S,
+                warmup_s=SERVE_WARMUP_S, workers=SERVE_LOAD_WORKERS,
+                client=client_off))
+            load[shape] = {"offered": offered, **kw,
+                           **trial_line(tr, busy),
+                           "at_s": time.perf_counter() - t_phase}
+            emit({"phase": f"serving_d_{shape}", **load[shape]})
+    finally:
+        for c in clients:
+            c.close()
+        for server in servers:
+            server.close()
+        svc.close()
+        off.close()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    encodes = sum(s.encodes for s in services)
+    retries = sum(s.batch_retries for s in services)
+    want = expected_launches(encodes * m.num_layers, 0)
+    if counts != want:
+        raise AssertionError(f"phase 16 launched {counts}, want {want} "
+                             f"({encodes} query encodes)")
+    if retries:
+        raise AssertionError(f"the batcher retried {retries} requests")
+    del services, svc, off
+    torch.cuda.empty_cache()
+    gc.unfreeze()
+    seconds = time.perf_counter() - t_phase
+    rec.update({
+        "d_load": load, "encodes": encodes,
+        "k1_launches": counts["launches"],
+        "k1_launches_tensor_core": counts["launches_tc"],
+        "k1_launches_per_encode": counts["launches"] / max(encodes, 1),
+        "batch_retries": retries, "seconds": seconds,
+        "budget_s": SERVE_BUDGET_S,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
+    emit({k: v for k, v in rec.items() if k != "d_load"})
+    if seconds > SERVE_BUDGET_S:
+        raise AssertionError(f"phase 16 took {seconds:.1f} s, over its "
+                             f"{SERVE_BUDGET_S} s budget")
     return rec
 
 
@@ -3532,7 +4094,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-15; fills `report` and returns the `kernels` line's
+    """Phases 2-16; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -3683,6 +4245,13 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
         report["production"] = run_production(device, bert, tmp, report,
                                               corpus_job)
         done("production")
+        # phase 16: serving under load over phase 15's store and corpus
+        try:
+            report["serving"] = run_serving(device, bert, tmp,
+                                            report["production"])
+        finally:
+            os.remove(report["production"]["corpus_path"])
+        done("serving")
     emit({"phase": "timeline", "seconds_at_end_of": timeline})
     return kernel_entries(report)
 
@@ -3722,7 +4291,8 @@ def kernel_entries(report: dict) -> list:
              "ivf_retrieval": report["ivf"]["k1_launches"],
              "ivf_1m_store_encodes": report["ivf"]["k1_launches_big_store"],
              "production_1m_embed": report["production"]["embed"][
-                 "k1_launches"]}
+                 "k1_launches"],
+             "serving_under_load": report["serving"]["k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -3741,6 +4311,8 @@ def kernel_entries(report: dict) -> list:
                "ivf_1m_store_encodes": report["ivf"][
                    "k1_launches_big_store_tensor_core"],
                "production_1m_embed": report["production"]["embed"][
+                   "k1_launches_tensor_core"],
+               "serving_under_load": report["serving"][
                    "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}

@@ -1,4 +1,5 @@
-"""The port's command line: the offline workflows of the JAX package's CLI.
+"""The port's command line: the offline workflows and the serving
+commands of the JAX package's CLI.
 
   python -m dnn_page_vectors_tpu_torch.cli configs
   python -m dnn_page_vectors_tpu_torch.cli train --config cdssm_toy --workdir W
@@ -7,6 +8,12 @@
   python -m dnn_page_vectors_tpu_torch.cli mine  --config hardneg_v5p64 --workdir W
   python -m dnn_page_vectors_tpu_torch.cli pipeline --config hardneg_v5p64 \\
       --workdir W --rounds 2
+  python -m dnn_page_vectors_tpu_torch.cli search --config cdssm_toy \\
+      --workdir W --query "some text" | --queries FILE | --interactive
+  python -m dnn_page_vectors_tpu_torch.cli loadtest --config cdssm_toy \\
+      --workdir W --transport socket --shape poisson --p99-ms 50
+  python -m dnn_page_vectors_tpu_torch.cli serve-metrics --workdir W [--json]
+  python -m dnn_page_vectors_tpu_torch.cli trace --workdir W --query TEXT
 
 Any config field is overridable with ``--set section.field=value``, e.g.
 ``--set data.corpus=jsonl:/data/pages.jsonl`` for a corpus of
@@ -16,7 +23,13 @@ Any config field is overridable with ``--set section.field=value``, e.g.
 (``hard_negatives.npy``). Commands run on ``--device`` (default ``cuda``;
 ``cpu`` runs on the CPU). Each prints one JSON line with the JAX CLI's
 keys: ``{"final": ...}``, ``{"embedded": N, ...}``, ``{"recall@k": ...}``,
-``{"mined": [N, H], ...}``, ``{"rounds": R, "recalls": [...]}``.
+``{"mined": [N, H], ...}``, ``{"rounds": R, "recalls": [...]}``; ``search``
+one ``{"query": ..., "results": [...]}`` line per query (``--interactive``
+first a ``{"ready": true, ...}`` line; ``:metrics`` prints the registry
+snapshot), ``loadtest`` one report line (``find_qps_at_p99``'s, with the
+service's numbers), ``serve-metrics`` the Prometheus text (``--json``: the
+snapshot; ``--watch N``: a JSON tick every N seconds), ``trace`` the Chrome
+trace file's path and counts.
 
 The JAX CLI's other commands exit non-zero with a message naming the
 ROADMAP.md item that ports them; none runs anything in their place.
@@ -31,7 +44,8 @@ from typing import Dict, List, Optional
 
 from dnn_page_vectors_tpu_torch.config import CONFIGS, get_config
 
-PORTED = ("configs", "train", "embed", "eval", "mine", "pipeline")
+PORTED = ("configs", "train", "embed", "eval", "mine", "pipeline", "search",
+          "loadtest", "serve-metrics", "trace")
 # command -> (ROADMAP.md queue 1 item, what it needs)
 NOT_PORTED = {
     "init-store": (5, "writer manifests for manual-fleet embeds"),
@@ -39,14 +53,10 @@ NOT_PORTED = {
     "reset-store": (5, "the store administration commands"),
     "append": (5, "store generations, tombstones and attributes"),
     "migrate": (5, "store generations and migrations"),
-    "search": (7, "the full serving stack (infer/serve.py)"),
     "index": (7, "the index command and the index's refresh"),
     "refresh": (7, "the serving stack's generation hot-swap"),
     "maintain": (7, "maintenance/"),
-    "loadtest": (7, "loadgen/ and the serving fleet"),
     "partition-worker": (7, "partitioned serving"),
-    "trace": (8, "tracing (utils/tracing.py)"),
-    "serve-metrics": (8, "the telemetry registry"),
     "lint": (8, "graftcheck over the port"),
 }
 
@@ -107,6 +117,186 @@ def _open_index(cfg, store, device):
         return None
 
 
+SERVING = ("search", "loadtest", "serve-metrics", "trace")
+
+
+def _refuse_unported_serving(args) -> None:
+    """The serving flags whose parts are a later slice exit naming their
+    ROADMAP.md item; none runs anything in their place."""
+    if args.command not in SERVING:
+        return
+    if (args.partitions or 1) > 1 or (args.replicas or 1) > 1:
+        raise _not_ported("partitioned and replicated serving "
+                          "(--partitions, --replicas)", 7,
+                          "infer/partition.py and partition_host.py")
+    if args.front_ends > 1:
+        raise _not_ported("--front-ends > 1", 7,
+                          "the gateway and the partition workers")
+    if args.filter_expr or args.lt_filters:
+        raise _not_ported("filtered retrieval (--filter, --filters)", 7,
+                          "index/attrs.py and per-row store attributes")
+    if args.mutate_every:
+        raise _not_ported("loadtest --mutate-every", 5,
+                          "store generations, append and refresh()")
+
+
+def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
+    """search, loadtest, serve-metrics and trace over the store of
+    `workdir`, with the JAX CLI's output lines."""
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    k = args.topk or cfg.eval.recall_k
+    if store.model_step != trainer.step:
+        print(f"WARNING: store embedded at model step {store.model_step} "
+              f"but the restored checkpoint is at step {trainer.step}: "
+              "query and page vectors come from different weights; re-run "
+              "'embed' for meaningful rankings", file=sys.stderr)
+    if args.command == "search":
+        from dnn_page_vectors_tpu_torch.utils import telemetry
+        from dnn_page_vectors_tpu_torch.utils.logging import MetricsLogger
+        # a one-shot query streams the store shard by shard (staging the
+        # whole store for one answer is waste); --queries and
+        # --interactive stage it
+        preload = 4.0 if (args.interactive or args.queries) else 0.0
+        svc = SearchService(
+            cfg, embedder, trainer.corpus, store, preload_hbm_gb=preload,
+            log=MetricsLogger(workdir, echo=False,
+                              registry=telemetry.default_registry()))
+        if args.queries:
+            with open(args.queries) as f:
+                queries = [ln.strip() for ln in f if ln.strip()]
+            for query, res in zip(queries, svc.search_many(queries, k=k)):
+                print(json.dumps({"query": query, "results": res}),
+                      flush=True)
+        elif args.interactive:
+            svc.warmup(k=k)
+            print(json.dumps({"ready": True, "vectors": store.num_vectors,
+                              "hbm_resident": svc.preloaded,
+                              "latency_ms": round(svc.warm_latency_ms, 3)}),
+                  flush=True)
+            for line in sys.stdin:
+                query = line.strip()
+                if not query:
+                    continue
+                if query == ":refresh":
+                    svc.close()
+                    raise _not_ported("the ':refresh' control line", 5,
+                                      "store generations and refresh()")
+                if query == ":metrics":
+                    print(json.dumps(svc.metrics_snapshot(),
+                                     sort_keys=True), flush=True)
+                    continue
+                print(json.dumps({"query": query,
+                                  "results": svc.search(query, k=k)}),
+                      flush=True)
+        else:
+            print(json.dumps({"query": args.query,
+                              "hbm_resident": svc.preloaded,
+                              "results": svc.search(args.query, k=k)}))
+        svc.close()      # the final metrics go to the metrics log
+        return
+    if args.command == "loadtest":
+        _loadtest(args, cfg, trainer, embedder, store, k)
+        return
+    # trace / serve-metrics: streaming, as one-shot queries are
+    svc = SearchService(cfg, embedder, trainer.corpus, store,
+                        preload_hbm_gb=0.0)
+    if args.command == "serve-metrics":
+        # one probe query, so the rate and latency instruments are live
+        svc.search_many([trainer.corpus.query_text(0)], k=k)
+        if args.watch:
+            import time
+
+            from dnn_page_vectors_tpu_torch.loadgen import snapshot_line
+            try:
+                while True:
+                    print(snapshot_line(svc), flush=True)
+                    time.sleep(args.watch)
+            except KeyboardInterrupt:
+                pass
+            return
+        if args.json:
+            print(json.dumps(svc.metrics_snapshot(), sort_keys=True))
+        else:
+            print(svc.prometheus_text(), end="")
+        return
+    if args.queries:
+        with open(args.queries) as f:
+            queries = [ln.strip() for ln in f if ln.strip()]
+    else:
+        queries = [args.query]
+    for query in queries:              # one trace (one span tree) each
+        svc.search_many([query], k=k)
+    out_path = os.path.join(workdir, "trace_events.json")
+    trace = svc.tracer.chrome_trace()
+    with open(out_path, "w") as f:
+        json.dump(trace, f)
+    print(json.dumps({
+        "trace_file": out_path, "traces": len(svc.tracer.traces()),
+        "spans": len(trace["traceEvents"]),
+        "slow_queries": len(svc.tracer.slow_queries()),
+        "slow_ms": cfg.obs.slow_ms}, sort_keys=True))
+
+
+def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
+    """find_qps_at_p99 against a micro-batched service over the corpus's
+    first --distinct queries, in process or through the socket front end;
+    trial progress goes to stderr, the report is one JSON line."""
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.loadgen import (
+        find_qps_at_p99, make_workload)
+    svc = SearchService(cfg, embedder, trainer.corpus, store,
+                        preload_hbm_gb=4.0)
+    svc.warmup(k=k)
+    svc.start_batcher()
+    server = client = None
+    if args.transport == "socket":
+        from dnn_page_vectors_tpu_torch.infer.server import (
+            serve_in_background)
+        from dnn_page_vectors_tpu_torch.infer.transport import (
+            SocketSearchClient)
+        server = serve_in_background(svc)
+        client = SocketSearchClient(server.host, server.port,
+                                    deadline_ms=cfg.serve.deadline_ms,
+                                    compress=cfg.serve.wire_compress)
+    try:
+        distinct = max(1, args.distinct)
+        queries = [trainer.corpus.query_text(i) for i in range(distinct)]
+        wl = make_workload(args.shape, seed=args.seed, distinct=distinct,
+                           profile=((k, None, 1.0),))
+        trial_s = (args.trial_s if args.trial_s is not None
+                   else cfg.obs.window_s)
+        report = find_qps_at_p99(
+            svc, wl, queries, p99_target_ms=args.p99_ms,
+            start=args.start_qps, iters=args.iters, duration_s=trial_s,
+            warmup_s=args.warmup_s, client=client,
+            progress=lambda line: print(line, file=sys.stderr, flush=True),
+            progress_every_s=max(1.0, trial_s / 2.0))
+    finally:
+        if client is not None:
+            client.close()
+        if server is not None:
+            server.close()
+        svc.close()
+    final = svc.metrics()
+    if server is not None:
+        report.update({"transport": "socket",
+                       "listen": f"{server.host}:{server.port}",
+                       **({"transport_totals": final["transport"]}
+                          if "transport" in final else {})})
+    if "result_cache" in final:
+        report["result_cache"] = final["result_cache"]
+    report.update({
+        "store_vectors": store.num_vectors, "query_batch": svc.query_batch,
+        "k": k, "serve_index": cfg.serve.index,
+        "hbm_resident": svc.preloaded,
+        "batch_window_adaptive": cfg.serve.batch_window_adaptive,
+        "batch_window_ms": round(svc.batch_window_ms, 3),
+        "warm_latency_ms": round(svc.warm_latency_ms, 3),
+        "encodes": svc.encodes, "batch_retries": svc.batch_retries,
+        "mean_batch": final.get("serve_mean_batch")})
+    print(json.dumps(report))
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(prog="dnn_page_vectors_tpu_torch")
     ap.add_argument("command", choices=[*PORTED, *NOT_PORTED])
@@ -129,6 +319,73 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--stop", type=int, default=None,
                     help="embed: one past the slice's last page (not "
                          "ported)")
+    # -- search / trace / serve-metrics ------------------------------------
+    ap.add_argument("--query", default=None,
+                    help="search / trace: one query (search streams the "
+                         "store shard by shard: preload_hbm_gb=0)")
+    ap.add_argument("--queries", default=None, metavar="FILE",
+                    help="search / trace: one query per line; search sends "
+                         "the file through one search_many")
+    ap.add_argument("--interactive", action="store_true",
+                    help="search: queries from stdin, one JSON line each "
+                         "(':metrics' prints the registry snapshot)")
+    ap.add_argument("--topk", type=int, default=None,
+                    help="results per query (default eval.recall_k)")
+    ap.add_argument("--nprobe", type=int, default=None,
+                    help="IVF lists probed per query; implies "
+                         "serve.index=ivf")
+    ap.add_argument("--filter", dest="filter_expr", default=None,
+                    help="search: an attribute predicate (not ported)")
+    ap.add_argument("--json", action="store_true",
+                    help="serve-metrics: the JSON registry snapshot instead "
+                         "of the Prometheus text")
+    ap.add_argument("--watch", type=float, default=None, metavar="N",
+                    help="serve-metrics: a one-line JSON tick every N "
+                         "seconds until interrupted")
+    # -- loadtest ----------------------------------------------------------
+    ap.add_argument("--shape", default="poisson",
+                    choices=["poisson", "burst", "closed"],
+                    help="loadtest: open-loop poisson, open-loop on/off "
+                         "burst, or closed-loop workers")
+    ap.add_argument("--p99-ms", dest="p99_ms", type=float, default=50.0,
+                    help="loadtest: the highest sustained qps with the "
+                         "windowed p99 under this")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="loadtest: the workload seed")
+    ap.add_argument("--distinct", type=int, default=64,
+                    help="loadtest: distinct queries under the Zipfian "
+                         "repeat distribution")
+    ap.add_argument("--trial-s", dest="trial_s", type=float, default=None,
+                    help="loadtest: measured seconds a trial (default "
+                         "obs.window_s)")
+    ap.add_argument("--warmup-s", dest="warmup_s", type=float, default=1.0,
+                    help="loadtest: warmup seconds a trial")
+    ap.add_argument("--start-qps", dest="start_qps", type=float, default=8.0,
+                    help="loadtest: the first offered load (workers for "
+                         "--shape closed)")
+    ap.add_argument("--iters", type=int, default=4,
+                    help="loadtest: bisection steps after the doubling")
+    ap.add_argument("--result-cache", dest="result_cache", default=None,
+                    choices=["on", "off"],
+                    help="loadtest: serve.result_cache on or off")
+    ap.add_argument("--transport", default="inproc",
+                    choices=["inproc", "socket"],
+                    help="loadtest: 'socket' serves through the asyncio "
+                         "front end on loopback and issues through the "
+                         "socket client")
+    ap.add_argument("--front-ends", dest="front_ends", type=int, default=1,
+                    help="loadtest: socket front ends (1; more is not "
+                         "ported)")
+    ap.add_argument("--partitions", type=int, default=None,
+                    help="loadtest / search: serve partitions (not ported)")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="loadtest / search: replicas (not ported)")
+    ap.add_argument("--filters", dest="lt_filters", action="store_true",
+                    help="loadtest: a filtered query mix (not ported)")
+    ap.add_argument("--mutate-every", dest="mutate_every", type=float,
+                    default=None,
+                    help="loadtest: a store mutation every S seconds (not "
+                         "ported)")
     args = ap.parse_args(argv)
 
     if args.command == "configs":
@@ -141,9 +398,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command == "embed" and (args.start != 0 or args.stop is not None):
         raise _not_ported("embed --start/--stop", 5,
                           "writer manifests for manual-fleet embeds")
+    _refuse_unported_serving(args)
     if not args.workdir:
         ap.error(f"{args.command} needs --workdir")
-    cfg = get_config(args.config, _parse_overrides(args.overrides))
+    if args.command == "search" and not (args.query or args.queries
+                                         or args.interactive):
+        ap.error("search requires --query TEXT, --queries FILE, "
+                 "or --interactive")
+    if args.command == "trace" and not (args.query or args.queries):
+        ap.error("trace requires --query TEXT or --queries FILE")
+    overrides = _parse_overrides(args.overrides)
+    if args.nprobe is not None:
+        overrides.update({"serve.index": "ivf", "serve.nprobe": args.nprobe})
+    if args.result_cache is not None:
+        overrides["serve.result_cache"] = args.result_cache == "on"
+    cfg = get_config(args.config, overrides)
     workdir = os.path.abspath(args.workdir)
     store_dir = os.path.join(workdir, "store")
     trainer = _trainer(cfg, workdir, args.device)
@@ -199,6 +468,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
 
     store = VectorStore(store_dir)
+    if args.command in SERVING:
+        _serve_command(args, cfg, trainer, embedder, store, workdir)
+        return
     index = _open_index(cfg, store, trainer.device)
     if args.command == "eval":
         from dnn_page_vectors_tpu_torch.evals.recall import evaluate_recall

@@ -1,7 +1,7 @@
 """Config dataclasses for the port: the fields the serving and training
 slices (BERT-mini, mT5, sequence packing, the CDSSM, Kim-CNN and BiLSTM
 towers, hard-negative mining, the int8 store and the IVF/PQ index, the
-host data path) read, with the JAX package's names and
+host data path, serving under load) read, with the JAX package's names and
 defaults (its config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``,
 ``lstm_words``, ``bert_mini_v5p16``, ``hardneg_v5p64``,
 ``mt5_multilingual`` and ``bert_long_sp`` presets,
@@ -110,8 +110,23 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Serving and index knobs the lean SearchService and the IVF/PQ
-    index build (index/ivf.py) read."""
+    """Serving and index knobs: SearchService's micro-batcher, caches and
+    admission (infer/serve.py), the socket front end (infer/server.py), and
+    the IVF/PQ index build (index/ivf.py). Names and defaults are the JAX
+    package's."""
+    # micro-batcher window: how long the dispatcher waits for more callers
+    # after the first request of a batch arrives (a lone caller pays at
+    # most one window)
+    batch_window_ms: float = 2.0
+    # move the window between batch_window_ms and batch_window_max_ms off
+    # the windowed queue-wait p99 (AdaptiveWindow); off = a fixed window
+    batch_window_adaptive: bool = False
+    batch_window_max_ms: float = 25.0
+    max_batch: int = 32              # most requests one dispatch carries
+    max_queue: int = 256             # bounded request queue (backpressure)
+    # LRU query-embedding cache entries, keyed on whitespace-normalized
+    # text and the store's model step; 0 turns it off
+    query_cache_size: int = 4096
     # "exact" = brute-force top-k over the whole store staged on the card;
     # "ivf" = the inverted-file index, falling back to exact per request
     # (counted in ann_fallbacks) while the index is unavailable
@@ -129,6 +144,38 @@ class ServeConfig:
     pq_opq_iters: int = 3            # OPQ rotation alternations; 0 = PQ
     pq_rerank: int = 0               # ADC survivors re-ranked exactly per
                                      # query; 0 = max(8k, 64)
+    # the socket front end's listen address ("host:port"; port 0 binds an
+    # ephemeral port)
+    listen: str = "127.0.0.1:0"
+    # default per-request deadline (ms) applied at admission when a request
+    # carries none; a request that cannot make it is shed (deadline_shed),
+    # never counted as an error. 0 = no deadline
+    deadline_ms: float = 0.0
+    # negotiate the compressed RESULT frame and query-block interning per
+    # connection (both lossless); False = raw frames only
+    wire_compress: bool = True
+    # result cache: formatted top-k keyed by (normalized text, k, nprobe,
+    # store generation and model step, index generation), probed before
+    # admission; off by default
+    result_cache: bool = False
+    result_cache_size: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Observability (utils/telemetry.py, utils/tracing.py): request
+    tracing, the slow-query log and the registry's rolling windows."""
+    enabled: bool = True             # off: every span is a shared no-op
+    # a finished request trace at least this slow (ms) lands in the slow-
+    # query log; 0 logs every request, negative turns the log off
+    slow_ms: float = -1.0
+    slow_log_size: int = 64
+    trace_buffer: int = 64           # recent traces kept for `cli trace`
+    # the rolling window (s) behind the live qps, error and cache-hit
+    # rates and the windowed percentiles
+    window_s: float = 10.0
+    reservoir: int = 4096            # percentile reservoir (Algorithm R)
+    events: int = 256                # lifecycle event ring
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +186,7 @@ class Config:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
 
 
 def _nested_replace(cfg: Config, overrides: Dict[str, Any]) -> Config:

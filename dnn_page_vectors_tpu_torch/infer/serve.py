@@ -1,33 +1,71 @@
-"""Query serving over a vector store: exact, staged whole on the card, or
-through the IVF/PQ index.
+"""Query serving over a vector store, for one service on one card: the
+port's counterpart of the JAX package's infer/serve.py ``SearchService``,
+with its constructor shape, result format, micro-batcher, caches,
+admission and metrics.
 
-A lean counterpart of the JAX package's infer/serve.py ``SearchService``,
-with the same constructor shape and the same result format.
-``search_many`` tokenizes the queries, pads them with all-pad rows to a
-multiple of the ``query_batch`` bucket (8), encodes them with the query
-tower (the padding rows are the fully-masked-row case of the flash kernel),
-retrieves, and formats page_id / score / snippet.
+What a request goes through:
 
-``serve.index="exact"``: at construction every shard of the store is read
-once and staged on the device as one [N, D] matrix at its stored width
-(float16 rows, or int8 codes and their scales; the page ids stay on the
-host), and a query block runs the exact ``chunked_topk``.
+  * ``search(query)`` probes the result cache (``serve.result_cache``),
+    then admission (``_admit``: an expired deadline, or one the windowed
+    queue-wait p99 says cannot be met, is shed with DeadlineExceeded and
+    counted in ``serve.deadline_shed``, never in ``serve.errors``); with
+    the micro-batcher running (``start_batcher``) it then waits in a
+    bounded queue, and one dispatcher thread coalesces what arrives within
+    ``serve.batch_window_ms`` (fixed, or moved by ``AdaptiveWindow`` off
+    the queue-wait p99) into one ``search_many`` per (k, nprobe), up to
+    ``serve.max_batch``. A request whose deadline passes in the queue is
+    shed at the door; a dispatch that raises is retried one request at a
+    time, so the exception lands on exactly the failing request
+    (``batch_retries`` counts each retry).
+  * ``search_many(queries)`` embeds the queries through the LRU
+    query-embedding cache (``serve.query_cache_size``; keyed on
+    whitespace-normalized text and the store's model step): the misses,
+    deduplicated within the call, are tokenized and encoded in one
+    dispatch padded to a multiple of ``query_batch`` rows (8; the pad rows
+    are all-pad, the fully masked row case of the flash kernel) on the
+    card (``encodes`` counts dispatches; K1 launches once per layer of
+    each). A hit launches nothing. The vectors stay on the card for the
+    top-k; only the rows the cache keeps are copied to the host. Then the
+    top-k and the formatting (page_id, score rounded to 4 decimals,
+    snippet).
 
-``serve.index="ivf"``: the index (index/ivf.py) is opened at construction
-and the store is not staged: each request gathers its probed lists' rows
-from the shards' mmaps (``IVFIndex.search`` at ``serve.nprobe``). While
-the index is unavailable (missing, torn, quarantined, or stale against the
-store's model step, checked per request) a request is answered by the
-exact sweep of the store on the card (``topk_over_store``) and counted in
-``ann_fallbacks``. ``metrics()`` carries the ``ann_*`` counters and the
-``ann_index`` record only on such a service.
+The top-k runs over one immutable ``_ServeView`` captured per call: the
+store handle, and either the store staged whole on the card as one
+[N, D] matrix at its stored width (float16 rows, or int8 codes and their
+scales; the page ids stay on the host), or nothing staged. The budget is
+decided before staging: a store of at most ``preload_hbm_gb`` GiB is
+staged (a shard that fails to stage raises), a larger one, or any store
+at ``preload_hbm_gb=0``, is answered shard by shard from disk on the card
+by the streaming sweep (``topk_over_store``); ``preloaded`` says which.
+Both give the same results except at ties. The staged top-k runs over
+blocks of up to 256 query rows with 65,536-row chunks (eager PyTorch has
+no compiled bucket shape to keep, so the top-k is not tiled by
+``query_batch`` as the JAX program is). ``serve.index="ivf"`` opens the
+IVF/PQ index (index/ivf.py) instead of staging; while it is unavailable
+or stale against the store's model step a request is answered by the
+exact sweep and counted in ``ann_fallbacks``.
 
-Later slices add the micro-batcher, the query and result caches, the
-index's live update and hot posting set, partitions, filters, migration
-and telemetry.
+Telemetry: every call runs under a request trace (utils/tracing.py): a
+span tree of queue_wait (handed through the batcher's thread hop), then
+tokenize / encode (cache hits annotated), topk, merge and format; traces
+slower than ``obs.slow_ms`` land in the slow-query log. Counters,
+histograms and events live in a per-service MetricsRegistry
+(utils/telemetry.py) with windows of ``obs.window_s`` seconds:
+``metrics()``, ``metrics_snapshot()`` and ``prometheus_text()``.
+
+Left for later slices, each named by its ROADMAP.md queue 1 item: store
+generations, ``refresh()`` and the hot swap (5); partitions, replicas,
+the fleet result cache, the hot posting set and filtered retrieval (7);
+fault injection and degraded mode (8). ``filters=`` raises naming item 7.
 """
 from __future__ import annotations
 
+import contextlib
+import queue as queue_mod
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import Future
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -36,14 +74,259 @@ import torch
 from dnn_page_vectors_tpu_torch.data.loader import to_device
 from dnn_page_vectors_tpu_torch.index.ivf import IndexUnavailable, IVFIndex
 from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+from dnn_page_vectors_tpu_torch.infer.transport import DeadlineExceeded
 from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
 from dnn_page_vectors_tpu_torch.ops.topk import chunked_topk, topk_over_store
+from dnn_page_vectors_tpu_torch.utils.profiling import (
+    LatencyStats, PipelineProfiler)
+from dnn_page_vectors_tpu_torch.utils.telemetry import MetricsRegistry
+from dnn_page_vectors_tpu_torch.utils.tracing import Tracer
+
+# the staged top-k's query block and row chunk: one [256, 65,536] float32
+# score block (64 MiB) at most, 16 chunks over a 1M-row store
+_TOPK_ROWS = 256
+_TOPK_CHUNK = 65_536
+
+
+def _host_rows(qv, n: int) -> np.ndarray:
+    """The first n rows of host or device query vectors as a writable
+    float32 host array."""
+    if isinstance(qv, torch.Tensor):
+        return qv[:n].float().cpu().numpy()
+    return np.array(qv[:n], np.float32)
+
+
+def refuse_filters(filters) -> None:
+    """Filtered retrieval needs index/attrs.py and per-row store
+    attributes, which the port does not have yet."""
+    if filters is not None and filters != "":
+        raise NotImplementedError(
+            "filtered retrieval (filters=) is not ported to the PyTorch "
+            "package yet: it needs index/attrs.py and per-row store "
+            "attributes (ROADMAP.md queue 1, item 7)")
+
+
+class _MicroBatcher:
+    """Dynamic request coalescing for SearchService.search().
+
+    Callers enqueue (query, k, Future) onto a bounded queue; ONE dispatcher
+    thread pulls the first pending request, waits up to the window for
+    more (never past `max_batch`), and answers the batch with one
+    search_many call per distinct (k, nprobe). The bounded queue
+    backpressures callers when the dispatcher falls behind.
+
+    Failure isolation: when a coalesced dispatch raises, the batch is
+    retried one request at a time so the exception lands on exactly the
+    failing request's future; the rest still get results. Each retried
+    request counts in the service's ``batch_retries``.
+
+    The window is read from the service per batch (`window_s`, a
+    callable): fixed, or wherever AdaptiveWindow has moved it; every
+    measured queue wait feeds the serve.queue_wait_ms histogram the
+    controller reads."""
+
+    _STOP = object()
+
+    def __init__(self, svc: "SearchService", window_s, max_batch: int,
+                 max_queue: int):
+        self._svc = svc
+        self._window_s = window_s            # () -> seconds, read per batch
+        self._max = max(1, int(max_batch))
+        self._q: "queue_mod.Queue[object]" = queue_mod.Queue(
+            maxsize=max(self._max, int(max_queue)))
+        self.batch_sizes: List[int] = []     # dispatch telemetry
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="serve-batcher")
+        self._t.start()
+
+    def submit(self, query: str, k: Optional[int],
+               nprobe: Optional[int] = None,
+               deadline: Optional[float] = None) -> Future:
+        """Enqueue one request. `deadline` is ABSOLUTE on the service
+        clock; admission-time shedding happens in the caller
+        (`SearchService._admit`) before anything touches this queue."""
+        fut: Future = Future()
+        # the caller's span rides the queue: the dispatcher runs on another
+        # thread, where the contextvar chain breaks
+        ctx = self._svc.tracer.current()
+        self._q.put((query, (k, nprobe), fut, time.perf_counter(), ctx,
+                     deadline))
+        return fut
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is self._STOP:
+                return
+            batch = [item]
+            deadline = time.perf_counter() + max(0.0, self._window_s())
+            while len(batch) < self._max:
+                rem = deadline - time.perf_counter()
+                try:
+                    nxt = (self._q.get_nowait() if rem <= 0
+                           else self._q.get(timeout=rem))
+                except queue_mod.Empty:
+                    break
+                if nxt is self._STOP:
+                    self._dispatch(batch)
+                    return
+                batch.append(nxt)
+            self._dispatch(batch)
+            self._svc._adapt_window()
+
+    def _dispatch(self, batch) -> None:
+        svc = self._svc
+        tracer = svc.tracer
+        # the door: a request whose deadline expired while it queued is
+        # rejected before it takes a bucket slot; its wait does not feed
+        # the queue-wait instrument (it never dispatched)
+        live = []
+        for item in batch:
+            deadline = item[5]
+            if deadline is not None and svc._clock() >= deadline:
+                item[2].set_exception(
+                    svc._shed_deadline("expired_in_queue", deadline,
+                                       trace=item[4]))
+            else:
+                live.append(item)
+        if not live:
+            return
+        batch = live
+        now = time.perf_counter()
+        for _, _, _, t0, ctx, _ in batch:
+            svc.profiler.add("queue_wait", now - t0)
+            svc._m_queue_wait.observe((now - t0) * 1000.0)
+            if ctx is not None:
+                ctx.child("queue_wait", now - t0, t0=t0)
+        # single writer: only the dispatcher thread appends
+        self.batch_sizes.append(len(batch))
+        by_key: Dict[tuple, list] = {}
+        for query, key, fut, _, ctx, deadline in batch:
+            by_key.setdefault(key, []).append((query, fut, ctx, deadline))
+        for (k, nprobe), items in by_key.items():
+            deadlines = [d for _, _, _, d in items if d is not None]
+            group_dl = min(deadlines) if deadlines else None
+            try:
+                # the coalesced dispatch traces once under a detached root;
+                # every request adopts the finished subtree
+                with tracer.trace("dispatch", record=False,
+                                  batch_size=len(items)) as dsp:
+                    res = svc.search_many(
+                        [q for q, _, _, _ in items], k=k, nprobe=nprobe,
+                        _record=False, deadline=group_dl)
+            except BaseException:  # noqa: BLE001 — isolate per request
+                for q, fut, ctx, deadline in items:
+                    svc._m_retries.inc()
+                    try:
+                        with tracer.use(ctx):
+                            fut.set_result(svc.search_many(
+                                [q], k=k, nprobe=nprobe, _record=False,
+                                deadline=deadline)[0])
+                    except BaseException as e:  # noqa: BLE001
+                        fut.set_exception(e)
+                continue
+            for (_, fut, ctx, _), r in zip(items, res):
+                if ctx is not None:
+                    ctx.adopt(dsp)
+                fut.set_result(r)
+
+    def close(self) -> None:
+        self._q.put(self._STOP)
+        self._t.join()
+
+
+class AdaptiveWindow:
+    """Telemetry-driven micro-batch window controller (the JAX package's).
+
+    Moves the window between `base_ms` and `max_ms` off one signal, the
+    windowed queue-wait p99 of the serve.queue_wait_ms histogram:
+
+      * pressure — queue-wait p99 >= `pressure_ratio` x the current window
+        (requests stack behind in-flight dispatches) -> double the window,
+        capped at `max_ms`;
+      * idle — no queue-wait samples in the window, or a p99 below
+        `idle_ratio` x the current window -> halve back toward `base_ms`.
+
+    A lone caller's queue wait is about the window itself, between the two
+    thresholds, so a trickle of traffic holds the window steady. Every
+    change sets the serve.batch_window_ms gauge and calls `on_change`
+    (the service emits a `window_adapt` event)."""
+
+    def __init__(self, base_ms: float, max_ms: float, queue_wait,
+                 gauge=None, on_change=None, pressure_ratio: float = 1.5,
+                 idle_ratio: float = 0.25, min_samples: int = 4):
+        self.base_ms = max(0.1, float(base_ms))
+        self.max_ms = max(self.base_ms, float(max_ms))
+        self._queue_wait = queue_wait        # Histogram (windowed)
+        self._gauge = gauge
+        self._on_change = on_change
+        self.pressure_ratio = float(pressure_ratio)
+        self.idle_ratio = float(idle_ratio)
+        self.min_samples = max(1, int(min_samples))
+        self._cur = self.base_ms
+        self._lock = threading.Lock()
+        if gauge is not None:
+            gauge.set(self._cur)
+
+    @property
+    def current_ms(self) -> float:
+        with self._lock:
+            return self._cur
+
+    def current_s(self) -> float:
+        return self.current_ms / 1000.0
+
+    def update(self) -> float:
+        """One control step: read the windowed queue-wait stats, move the
+        window if warranted, return the (possibly new) window in ms."""
+        n = self._queue_wait.window_count()
+        p99 = self._queue_wait.window_percentile(99)
+        with self._lock:
+            cur = self._cur
+            new, reason = cur, None
+            if n >= self.min_samples and p99 >= self.pressure_ratio * cur:
+                new, reason = min(self.max_ms, cur * 2.0), "pressure"
+            elif cur > self.base_ms and (
+                    n == 0 or p99 <= self.idle_ratio * cur):
+                new, reason = max(self.base_ms, cur / 2.0), "idle"
+            if new == cur:
+                return cur
+            self._cur = new
+        if self._gauge is not None:
+            self._gauge.set(new)
+        if self._on_change is not None:
+            self._on_change(cur, new, p99, reason)
+        return new
+
+
+class _ServeView:
+    """One serving snapshot: the store handle and what was made from it
+    (the staged rows and their page ids, or the IVF index). A call
+    captures the view once, so everything it reads belongs together; the
+    store generations and the hot swap that would replace it are a later
+    slice."""
+
+    __slots__ = ("store", "entries", "generation", "num_vectors", "pages",
+                 "scales", "page_ids", "index", "index_error")
+
+    def __init__(self, store: VectorStore):
+        self.store = store
+        self.entries: List[Dict] = store.shards()
+        self.generation = int(store.manifest.get("generation", 0))
+        self.num_vectors = store.num_vectors
+        self.pages: Optional[torch.Tensor] = None    # [N, D] on the card
+        self.scales: Optional[torch.Tensor] = None   # [N] (int8 stores)
+        self.page_ids: Optional[np.ndarray] = None   # [N] int64, host
+        self.index: Optional[IVFIndex] = None
+        self.index_error: Optional[str] = None
 
 
 class SearchService:
     def __init__(self, cfg, embedder: BulkEmbedder, corpus,
                  store: VectorStore, preload_hbm_gb: float = 4.0,
-                 snippet_chars: int = 160, query_batch: Optional[int] = None):
+                 snippet_chars: int = 160, query_batch: Optional[int] = None,
+                 log=None, profiler: Optional[PipelineProfiler] = None,
+                 registry: Optional[MetricsRegistry] = None, clock=None):
         if cfg.serve.index not in ("exact", "ivf"):
             raise ValueError(f"unknown serve.index {cfg.serve.index!r} "
                              "(want exact | ivf)")
@@ -55,100 +338,571 @@ class SearchService:
         self.corpus = corpus
         self.store = store
         self.snippet_chars = snippet_chars
+        serve, obs = cfg.serve, cfg.obs
+        # stage seconds (queue_wait / tokenize / encode / topk / merge /
+        # format), shared by the batcher and concurrent callers
+        self.profiler = profiler or PipelineProfiler()
+        self._window_s = obs.window_s
+        self.registry = registry or MetricsRegistry(events=obs.events)
+        self.tracer = Tracer(enabled=obs.enabled, slow_ms=obs.slow_ms,
+                             slow_log_size=obs.slow_log_size,
+                             buffer=obs.trace_buffer)
+        reg, win, cap = self.registry, obs.window_s, obs.reservoir
+        self._m_requests = reg.counter("serve.requests", window_s=win)
+        self._m_errors = reg.counter("serve.errors", window_s=win)
+        self._m_latency = reg.histogram("serve.latency_ms", window_s=win,
+                                        cap=cap)
+        self._m_cache_hits = reg.counter("serve.cache_hits", window_s=win)
+        self._m_cache_misses = reg.counter("serve.cache_misses",
+                                           window_s=win)
+        # one per query-tower dispatch
+        self._m_encodes = reg.counter("serve.encodes")
+        self._m_retries = reg.counter("serve.batch_retries")
+        # the queue-wait distribution behind the adaptive window and the
+        # admission's SLO budget
+        self._m_queue_wait = reg.histogram("serve.queue_wait_ms",
+                                           window_s=win, cap=cap)
+        # a shed at the door counts here and ONLY here: a shed is not an
+        # error
+        self._m_deadline_shed = reg.counter("serve.deadline_shed",
+                                            window_s=win)
+        # the socket front end's wire bytes (infer/server.py); raw is the
+        # uncompressed equivalent of the same traffic
+        self._m_wire_bytes = reg.counter("serve.wire_bytes")
+        self._m_wire_raw = reg.counter("serve.wire_raw_bytes")
+        self._m_ann_lists = reg.counter("serve.ann_lists_scanned")
+        self._m_ann_reranked = reg.counter("serve.ann_candidates_reranked")
+        self._m_ann_fallbacks = reg.counter("serve.ann_fallbacks")
+        self._m_ann_gather = reg.counter("serve.ann_gather_bytes")
+        # LRU query-embedding cache: (model step, normalized text) -> host
+        # float32 query vector; the step in the key means a store restamp
+        # invalidates without a flush
+        self._cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        self._cache_cap = serve.query_cache_size      # guarded-by: _cache_lock
+        self._cache_lock = threading.Lock()
+        # result cache: the JAX package's key -> formatted hits, probed
+        # before admission
+        self._rcache_cap = (serve.result_cache_size if serve.result_cache
+                            else 0)
+        self._rcache: "OrderedDict[tuple, list]" = OrderedDict()
+        self._rcache_bytes = 0                        # guarded-by: _rcache_lock
+        self._rcache_lock = threading.Lock()
+        self._m_rcache_hits = reg.counter("serve.result_cache_hits",
+                                          window_s=win)
+        self._m_rcache_misses = reg.counter("serve.result_cache_misses",
+                                            window_s=win)
+        self._serve_index = serve.index
+        self._nprobe = serve.nprobe
+        self._pq_rerank = serve.pq_rerank
+        # the admission clock is injectable so deadlines are testable on a
+        # fake clock; the rest of the query path reads time.perf_counter
+        self._clock = clock if clock is not None else time.perf_counter
+        self._deadline_ms = serve.deadline_ms
+        self._window_base_ms = serve.batch_window_ms
+        win_gauge = reg.gauge("serve.batch_window_ms")
+        win_gauge.set(self._window_base_ms)
+        self._window_ctl: Optional[AdaptiveWindow] = None
+        if serve.batch_window_adaptive:
+            self._window_ctl = AdaptiveWindow(
+                self._window_base_ms, serve.batch_window_max_ms,
+                self._m_queue_wait, gauge=win_gauge,
+                on_change=self._on_window_adapt)
+        self._batcher: Optional[_MicroBatcher] = None
+        self._batch_sizes: List[int] = []   # telemetry after close()
+        self._log = log
         self.query_batch = query_batch or 8
-        self.index: Optional[IVFIndex] = None
-        self.index_error: Optional[str] = None
-        if cfg.serve.index == "ivf":
-            self.ann_lists_scanned = self.ann_candidates_reranked = 0
-            self.ann_fallbacks = self.ann_gather_bytes = 0
+        self.warm_latency_ms: Optional[float] = None
+        self._preload_gb = preload_hbm_gb
+        self._view = self._build_view(store)
+        reg.gauge("serve.preloaded").set(1.0 if self.preloaded else 0.0)
+        if log is not None:
+            log.write({
+                "serve_hbm_resident": self.preloaded,
+                "serve_vectors": self._view.num_vectors,
+                "serve_query_batch": self.query_batch,
+                "serve_query_cache_size": self._cache_cap,
+                "serve_index": self._serve_index,
+                "serve_ann_available": self._view.index is not None})
+
+    # -- the view ----------------------------------------------------------
+    def _build_view(self, store: VectorStore) -> _ServeView:
+        view = _ServeView(store)
+        if self._serve_index == "ivf":
             try:
-                self.index = IVFIndex.open(store, device=embedder.device)
+                view.index = IVFIndex.open(store, device=self.embedder.device)
             except IndexUnavailable as e:
-                self.index_error = str(e)
+                view.index_error = str(e)
+                self.registry.event("index_degraded",
+                                    {"reason": str(e)[:200], "mode": "exact"})
                 print(f"WARNING: IVF index unavailable ({e}); serving the "
                       "exact path per request", flush=True)
-            return
-        need = store.num_vectors * store.row_bytes
-        if need > preload_hbm_gb * 1e9:
-            raise ValueError(
-                f"the store needs {need / 1e9:.3f} GB on the card, over the "
-                f"preload budget of {preload_hbm_gb} GB; streaming shards from "
-                "disk is a later slice of the port")
-        parts = list(store.iter_shards(raw=True))
-        self.page_ids = np.concatenate(                   # [N] int64, host
-            [p[0] for p in parts] or [np.zeros(0, np.int64)])
-        rows = np.concatenate([np.asarray(p[1]) for p in parts]
-                              or [np.zeros((0, store.dim), np.float16)])
-        self.pages = torch.from_numpy(rows).to(embedder.device)  # [N, D]
-        scales = [p[2] for p in parts if p[2] is not None]     # int8 only
-        self.scales = (torch.from_numpy(np.concatenate(scales)).to(
-            embedder.device) if scales else None)
+            return view
+        # the budget is decided before anything is staged
+        need = view.num_vectors * store.row_bytes
+        if view.num_vectors > 0 and need <= self._preload_gb * 2 ** 30:
+            self._stage_view(view)
+        return view
+
+    def _stage_view(self, view: _ServeView) -> None:
+        """Every shard into one [N, D] matrix on the card at its stored
+        width, a shard at a time; a shard that fails to read or copy
+        raises."""
+        store, dev = view.store, self.embedder.device
+        n, q8 = view.num_vectors, store.manifest["dtype"] == "int8"
+        pages = torch.empty((n, store.dim),
+                            dtype=torch.int8 if q8 else torch.float16,
+                            device=dev)
+        scales = (torch.empty((n,), dtype=torch.float16, device=dev)
+                  if q8 else None)
+        page_ids = np.empty((n,), np.int64)
+        o = 0
+        for entry in view.entries:
+            if entry["count"] == 0:
+                continue
+            ids, vecs, scl = store._load_entry(entry, raw=True)
+            m = len(ids)
+            pages[o: o + m].copy_(torch.from_numpy(np.array(vecs)))
+            if q8:
+                scales[o: o + m].copy_(torch.from_numpy(np.array(scl)))
+            page_ids[o: o + m] = ids
+            o += m
+        if o != n:
+            raise RuntimeError(f"staged {o} rows of a store of {n}")
+        view.pages, view.scales, view.page_ids = pages, scales, page_ids
+
+    @property
+    def preloaded(self) -> bool:
+        """True when the store is staged on the card; False when the
+        streaming sweep (or the IVF index) answers."""
+        return self._view.pages is not None
+
+    @property
+    def pages(self) -> Optional[torch.Tensor]:
+        return self._view.pages
+
+    @property
+    def scales(self) -> Optional[torch.Tensor]:
+        return self._view.scales
+
+    @property
+    def page_ids(self) -> Optional[np.ndarray]:
+        return self._view.page_ids
+
+    @property
+    def index(self) -> Optional[IVFIndex]:
+        return self._view.index
+
+    @property
+    def index_error(self) -> Optional[str]:
+        return self._view.index_error
 
     @property
     def num_vectors(self) -> int:
-        return (self.store.num_vectors if self.cfg.serve.index == "ivf"
-                else int(self.page_ids.shape[0]))
+        view = self._view
+        return (int(view.page_ids.shape[0]) if view.pages is not None
+                else view.store.num_vectors)
 
-    def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
-        """[n] texts -> [n_padded, D] float32 query vectors on the device,
-        n_padded a multiple of query_batch; the rows past n are all-pad."""
-        enc = self.embedder.query_tok.encode_batch(list(queries))
+    # -- counters (registry instruments) ----------------------------------
+    @property
+    def cache_hits(self) -> int:
+        return self._m_cache_hits.value
+
+    @property
+    def cache_misses(self) -> int:
+        return self._m_cache_misses.value
+
+    @property
+    def result_cache_hits(self) -> int:
+        return self._m_rcache_hits.value
+
+    @property
+    def result_cache_misses(self) -> int:
+        return self._m_rcache_misses.value
+
+    @property
+    def encodes(self) -> int:
+        """Query-tower dispatches so far (one per call with misses)."""
+        return self._m_encodes.value
+
+    @property
+    def batch_retries(self) -> int:
+        """Requests the micro-batcher retried alone after their coalesced
+        dispatch raised."""
+        return self._m_retries.value
+
+    @property
+    def ann_lists_scanned(self) -> int:
+        return self._m_ann_lists.value
+
+    @property
+    def ann_candidates_reranked(self) -> int:
+        return self._m_ann_reranked.value
+
+    @property
+    def ann_fallbacks(self) -> int:
+        return self._m_ann_fallbacks.value
+
+    @property
+    def ann_gather_bytes(self) -> int:
+        return self._m_ann_gather.value
+
+    @property
+    def deadline_sheds(self) -> int:
+        return self._m_deadline_shed.value
+
+    @property
+    def wire_bytes(self) -> int:
+        return self._m_wire_bytes.value
+
+    @property
+    def wire_raw_bytes(self) -> int:
+        """Raw-frame equivalent of wire_bytes; equals wire_bytes when no
+        connection negotiated compression."""
+        return self._m_wire_raw.value
+
+    @property
+    def batch_sizes(self) -> List[int]:
+        """The size of every coalesced dispatch so far."""
+        b = self._batcher
+        return list(b.batch_sizes if b is not None else self._batch_sizes)
+
+    # -- admission ---------------------------------------------------------
+    def default_deadline(self, deadline_ms: Optional[float] = None
+                         ) -> Optional[float]:
+        """Resolve a RELATIVE deadline budget (ms; None = the
+        serve.deadline_ms default; <= 0 = none) into an ABSOLUTE deadline
+        on the service clock, or None."""
+        dl = self._deadline_ms if deadline_ms is None else deadline_ms
+        if dl is None or dl <= 0:
+            return None
+        return self._clock() + dl / 1000.0
+
+    def _shed_deadline(self, reason: str, deadline: Optional[float],
+                       queue_wait_p99_ms: Optional[float] = None,
+                       trace=None) -> DeadlineExceeded:
+        """Count and record one shed and BUILD (not raise) the exception:
+        admission raises it, the micro-batch door sets it on the shed
+        request's future."""
+        self._m_deadline_shed.inc()
+        rem_ms = (None if deadline is None
+                  else round((deadline - self._clock()) * 1000.0, 3))
+        cur = trace if trace is not None else self.tracer.current()
+        attrs = {"reason": reason, "remaining_ms": rem_ms}
+        if queue_wait_p99_ms is not None:
+            attrs["queue_wait_p99_ms"] = round(queue_wait_p99_ms, 3)
+        self.registry.event("deadline_shed", attrs,
+                            trace_id=getattr(cur, "trace_id", None))
+        msg = f"request shed at admission ({reason}"
+        if rem_ms is not None:
+            msg += f"; {rem_ms} ms remaining"
+        if queue_wait_p99_ms is not None:
+            msg += f"; queue-wait p99 {queue_wait_p99_ms:.1f} ms"
+        return DeadlineExceeded(msg + ")")
+
+    def _admit(self, deadline: Optional[float]) -> None:
+        """Admission: (1) a deadline that has already passed is shed; (2)
+        with the batcher on, a request whose remaining budget is below the
+        windowed queue-wait p99 (at least 4 samples) cannot make it and is
+        shed before it takes queue capacity or a bucket slot. Raises
+        DeadlineExceeded; a request without a deadline always admits."""
+        if deadline is None:
+            return
+        rem_ms = (deadline - self._clock()) * 1000.0
+        if rem_ms <= 0.0:
+            raise self._shed_deadline("expired", deadline)
+        if self._batcher is not None:
+            qw = self._m_queue_wait
+            if qw.window_count() >= 4:
+                p99 = qw.window_percentile(99)
+                if p99 > rem_ms:
+                    raise self._shed_deadline("slo_budget", deadline,
+                                              queue_wait_p99_ms=p99)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str, **attrs):
+        """One serving stage, observed twice from one clock: cumulative
+        seconds into the PipelineProfiler and a span on the active request
+        trace. Yields the span so call sites can attach attributes."""
+        t0 = time.perf_counter()
+        with self.tracer.span(name, **attrs) as sp:
+            try:
+                yield sp
+            finally:
+                self.profiler.add(name, time.perf_counter() - t0)
+
+    # -- adaptive batching -------------------------------------------------
+    @property
+    def batch_window_ms(self) -> float:
+        """The micro-batch window in force (ms)."""
+        return (self._window_ctl.current_ms if self._window_ctl is not None
+                else self._window_base_ms)
+
+    def _adapt_window(self) -> None:
+        if self._window_ctl is not None:
+            self._window_ctl.update()
+
+    def _on_window_adapt(self, old_ms: float, new_ms: float,
+                         queue_wait_p99_ms: float, reason: str) -> None:
+        cur = self.tracer.current()
+        self.registry.event("window_adapt", {
+            "old_ms": round(old_ms, 3), "new_ms": round(new_ms, 3),
+            "queue_wait_p99_ms": round(queue_wait_p99_ms, 3),
+            "reason": reason,
+        }, trace_id=cur.trace_id if cur is not None else None)
+
+    # -- the query encode and its cache -----------------------------------
+    @staticmethod
+    def _normalize(query: str) -> str:
+        return " ".join(query.split())
+
+    def _tokenize(self, queries: Sequence[str]) -> np.ndarray:
+        """[n] texts -> query token ids padded with all-pad rows to a
+        multiple of query_batch."""
+        with self._stage("tokenize", queries=len(queries)):
+            enc = self.embedder.query_tok.encode_batch(list(queries))
         pad = -len(queries) % self.query_batch
         if pad:
             enc = np.concatenate(
                 [enc, np.zeros((pad,) + enc.shape[1:], enc.dtype)])
-        return self.embedder.encode_queries(to_device(enc, self.embedder.device))
+        return enc
 
-    def search(self, query: str, k: Optional[int] = None) -> List[Dict]:
-        """One query -> top-k results."""
-        return self.search_many([query], k=k)[0]
+    def _encode(self, enc: np.ndarray) -> torch.Tensor:
+        """Token ids -> [rows, D] float32 query vectors on the device: one
+        query-tower dispatch."""
+        self._m_encodes.inc()
+        return self.embedder.encode_queries(to_device(enc,
+                                                      self.embedder.device))
 
-    def search_many(self, queries: Sequence[str],
-                    k: Optional[int] = None) -> List[List[Dict]]:
-        """One result list per query, in order: dicts of page_id, score
-        (rounded to 4 decimals) and snippet, best first."""
-        k = k or self.cfg.eval.recall_k
-        n = len(queries)
-        if n == 0:
-            return []
-        if self.cfg.serve.index == "exact" and self.num_vectors == 0:
-            return [[] for _ in range(n)]
-        qv = self.encode_queries(queries)[:n]
-        if self.cfg.serve.index == "ivf":
-            scores, pids = self._ivf_topk(qv, k)
+    def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
+        """[n] texts -> [n_padded, D] float32 query vectors on the device,
+        n_padded a multiple of query_batch, in one dispatch; no cache."""
+        return self._encode(self._tokenize(queries))
+
+    def clear_cache(self) -> None:
+        """Flush the query-embedding cache and the result cache, and emit
+        a `cache_cleared` event."""
+        with self._cache_lock:
+            embed_n = len(self._cache)
+            self._cache.clear()
+        with self._rcache_lock:
+            result_n = len(self._rcache)
+            self._rcache.clear()
+            self._rcache_bytes = 0
+        ev = {"embed_entries": embed_n, "result_entries": result_n}
+        self.registry.event("cache_cleared", ev)
+        if self._log is not None:
+            self._log.write({"serve_cache_cleared": True, **ev})
+
+    def _embed_queries_cached(self, view: _ServeView,
+                              queries: Sequence[str]) -> torch.Tensor:
+        """[n] texts -> [n, D] float32 query vectors on the device through
+        the LRU cache. Only the misses, deduplicated, pay tokenize + encode,
+        all in one dispatch padded to a multiple of query_batch rows. The
+        vectors stay on the device for the top-k: the host copy is made
+        only of the rows the cache keeps."""
+        step = view.store.model_step
+        keys = [(step, self._normalize(q)) for q in queries]
+        dev = self.embedder.device
+        hits: List[int] = []
+        hit_vecs: List[np.ndarray] = []
+        miss: List[int] = []
+        if self._cache_cap > 0:
+            with self._cache_lock:
+                for i, key in enumerate(keys):
+                    vec = self._cache.get(key)
+                    if vec is not None:
+                        self._cache.move_to_end(key)
+                        hits.append(i)
+                        hit_vecs.append(vec)
+                    else:
+                        miss.append(i)
+            self._m_cache_hits.inc(len(hits))
+            self._m_cache_misses.inc(len(miss))
         else:
-            scores, idx = chunked_topk(qv, self.pages, k=k,
-                                       scales=self.scales)
-            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
-            pids = np.where(idx >= 0, self.page_ids[np.clip(idx, 0, None)],
-                            -1)
-        return [self._format(scores[i], pids[i]) for i in range(n)]
+            miss = list(range(len(queries)))
+        # an all-hit request has no tokenize/encode spans: say why
+        cur = self.tracer.current()
+        if cur is not None:
+            cur.set_attrs(cache_hits=len(hits), cache_misses=len(miss))
+        if hits:
+            cached = to_device(np.stack(hit_vecs), dev)
+            if not miss:
+                return cached
+        # repeats within the call encode once (they still count as misses):
+        # slot[j] is the encoded row of miss[j]
+        first: Dict[tuple, int] = {}
+        slot: List[int] = []
+        uniq: List[str] = []
+        for i in miss:
+            s = first.get(keys[i])
+            if s is None:
+                s = first[keys[i]] = len(uniq)
+                uniq.append(queries[i])
+            slot.append(s)
+        # index rows go to the device before the encode is issued, so no
+        # copy waits on it
+        plain = not hits and slot == list(range(len(queries)))
+        if not plain:
+            rows = to_device(np.asarray(slot, np.int64), dev)
+        if hits:
+            hit_rows = to_device(np.asarray(hits, np.int64), dev)
+            miss_rows = to_device(np.asarray(miss, np.int64), dev)
+        enc = self._tokenize(uniq)
+        with self._stage("encode", queries=len(uniq)):
+            vecs = self._encode(enc)            # [n_padded, D] on the device
+            if self._cache_cap > 0:
+                host = vecs[: len(uniq)].cpu().numpy()
+        if plain:
+            out = vecs[: len(queries)]
+        elif not hits:
+            out = vecs.index_select(0, rows)
+        else:
+            out = torch.empty((len(queries), vecs.shape[1]),
+                              dtype=vecs.dtype, device=vecs.device)
+            out.index_copy_(0, hit_rows, cached.to(vecs.dtype))
+            out.index_copy_(0, miss_rows, vecs.index_select(0, rows))
+        if self._cache_cap > 0:
+            with self._cache_lock:
+                for i, s in zip(miss, slot):
+                    self._cache[keys[i]] = host[s]
+                    self._cache.move_to_end(keys[i])
+                while len(self._cache) > self._cache_cap:
+                    self._cache.popitem(last=False)
+        return out
 
-    def _ivf_topk(self, qv: torch.Tensor, k: int):
-        """(scores [n, k], page ids [n, k]) through the index, or through
-        the exact sweep while the index is unavailable or stale (counted in
-        ann_fallbacks)."""
-        q = qv.cpu().numpy()
-        idx = self.index
-        if idx is None or idx.model_step != self.store.model_step:
-            self.ann_fallbacks += q.shape[0]
-            return topk_over_store(q, self.store, k=k,
-                                   device=self.embedder.device)
-        serve = self.cfg.serve
-        scores, pids, st = idx.search(q, k=k, nprobe=serve.nprobe,
-                                      rerank=serve.pq_rerank or None)
-        self.ann_lists_scanned += st.get("lists_scanned", 0)
-        self.ann_candidates_reranked += st.get("candidates_reranked", 0)
-        self.ann_gather_bytes += st.get("gather_bytes", 0)
-        return scores, pids
+    # -- the result cache --------------------------------------------------
+    def _result_cache_key(self, query: str, k: Optional[int],
+                          nprobe: Optional[int],
+                          view: Optional[_ServeView] = None
+                          ) -> Optional[tuple]:
+        """(normalized text, k, nprobe, store generation with the model
+        step in its high 32 bits, index generation, filter text ""), as
+        the JAX package keys it; None when the cache is off."""
+        if self._rcache_cap <= 0:
+            return None
+        view = self._view if view is None else view
+        index_gen = (view.index.index_generation
+                     if view.index is not None else -1)
+        sgen = ((int(view.generation) & 0xFFFFFFFF)
+                | ((int(view.store.model_step or 0) & 0xFFFFFFFF) << 32))
+        return (self._normalize(query), int(k or self.cfg.eval.recall_k),
+                int(nprobe or 0), sgen, int(index_gen), "")
 
+    def _result_cache_get(self, key: Optional[tuple],
+                          count: bool = True) -> Optional[list]:
+        if key is None:
+            return None
+        with self._rcache_lock:
+            hits = self._rcache.get(key)
+            if hits is not None:
+                self._rcache.move_to_end(key)
+        if hits is None:
+            if count:
+                self._m_rcache_misses.inc()
+            return None
+        if count:
+            self._m_rcache_hits.inc()
+        # a copy per hit: callers may mutate what they receive
+        return [dict(h) for h in hits]
+
+    def _result_cache_put(self, key: Optional[tuple], hits: list) -> None:
+        if key is None:
+            return
+        entry = [dict(h) for h in hits]
+        with self._rcache_lock:
+            old = self._rcache.pop(key, None)
+            if old is not None:
+                self._rcache_bytes -= self._entry_bytes(old)
+            self._rcache[key] = entry
+            self._rcache_bytes += self._entry_bytes(entry)
+            while len(self._rcache) > self._rcache_cap:
+                _, ev = self._rcache.popitem(last=False)
+                self._rcache_bytes -= self._entry_bytes(ev)
+
+    @staticmethod
+    def _entry_bytes(hits: list) -> int:
+        return 96 + sum(64 + len(h.get("snippet") or "") for h in hits)
+
+    # -- the micro-batcher -------------------------------------------------
+    def start_batcher(self) -> "SearchService":
+        """Route later search() calls through the micro-batcher.
+        Idempotent; close() stops it."""
+        if self._batcher is None:
+            s = self.cfg.serve
+            window_s = (self._window_ctl.current_s
+                        if self._window_ctl is not None
+                        else lambda: self._window_base_ms / 1000.0)
+            self._batcher = _MicroBatcher(self, window_s, s.max_batch,
+                                          s.max_queue)
+        return self
+
+    @property
+    def batching(self) -> bool:
+        return self._batcher is not None
+
+    def close(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+            # the batch sizes outlive the thread
+            self._batch_sizes = self._batcher.batch_sizes
+            self._batcher = None
+        if self._log is not None:
+            self._log.write(self.metrics())
+
+    def __enter__(self) -> "SearchService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- metrics -----------------------------------------------------------
     def metrics(self) -> Dict:
-        """Serving counters: the retrieval mode, and on an IVF service the
-        ann_* counters and the ann_index record (an exact service reports
-        no ann_* key)."""
-        rec: Dict = {"serve_index": self.cfg.serve.index,
-                     "num_vectors": self.num_vectors}
-        if self.cfg.serve.index != "exact":
+        """Serving counters, the windowed view and the stage seconds,
+        metrics-log ready. The counters of parts the port does not have
+        yet (store generations, refreshes, degraded mode, recompiles) are
+        left out, not reported as 0."""
+        total = self.cache_hits + self.cache_misses
+        rec = {
+            "serve_index": self._serve_index,
+            "num_vectors": self.num_vectors,
+            "serve_preloaded": self.preloaded,
+            "serve_cache_hits": self.cache_hits,
+            "serve_cache_misses": self.cache_misses,
+            "serve_cache_hit_rate": round(self.cache_hits / total, 4)
+            if total else 0.0,
+            "serve_encodes": self.encodes,
+            "serve_batch_retries": self.batch_retries,
+            "serve_batch_window_ms": round(self.batch_window_ms, 3),
+            **self._window_metrics(),
+            **self.profiler.summary(prefix="serve_stage_"),
+        }
+        sizes = self.batch_sizes
+        if sizes:
+            rec["serve_batches"] = len(sizes)
+            rec["serve_mean_batch"] = round(sum(sizes) / len(sizes), 2)
+        # the wire block only when there is something in it
+        transport: Dict = {}
+        if self.wire_bytes:
+            transport["wire_bytes"] = self.wire_bytes
+            if self.wire_raw_bytes > self.wire_bytes:
+                transport["wire_raw_bytes"] = self.wire_raw_bytes
+                transport["wire_compression_ratio"] = round(
+                    self.wire_raw_bytes / self.wire_bytes, 3)
+        if self.deadline_sheds:
+            transport["deadline_sheds"] = self.deadline_sheds
+        if transport:
+            rec["transport"] = transport
+        if self._rcache_cap > 0:
+            rhits, rmiss = self.result_cache_hits, self.result_cache_misses
+            with self._rcache_lock:
+                entries, rbytes = len(self._rcache), self._rcache_bytes
+            rec["result_cache"] = {
+                "hits": rhits, "misses": rmiss,
+                "hit_rate": round(rhits / (rhits + rmiss), 4)
+                if (rhits + rmiss) else 0.0,
+                "entries": entries, "bytes": rbytes,
+                "capacity": self._rcache_cap}
+        if self._serve_index != "exact":
             idx = self.index
             rec.update(
                 ann_lists_scanned=self.ann_lists_scanned,
@@ -156,14 +910,240 @@ class SearchService:
                 ann_fallbacks=self.ann_fallbacks,
                 ann_gather_bytes=self.ann_gather_bytes,
                 ann_index={
-                    "index": self.cfg.serve.index,
-                    "nprobe": self.cfg.serve.nprobe,
+                    "index": self._serve_index, "nprobe": self._nprobe,
                     "nlist": idx.nlist if idx else None,
                     "available": idx is not None,
                     "pq_m": idx.pq_m if idx else 0,
                     **({"error": self.index_error}
                        if self.index_error else {})})
         return rec
+
+    def _window_metrics(self) -> Dict[str, float]:
+        """Rates and tail latency over the last obs.window_s seconds: the
+        "qps at p99 under X ms" pair reads straight off these."""
+        req_w = self._m_requests.window_count()
+        err_w = self._m_errors.window_count()
+        hit_w = self._m_cache_hits.window_count()
+        miss_w = self._m_cache_misses.window_count()
+        lat = self._m_latency
+        return {
+            "serve_window_s": self._window_s,
+            "serve_window_qps": round(self._m_requests.rate(), 3),
+            "serve_window_error_rate": round(
+                err_w / (req_w + err_w), 4) if (req_w + err_w) else 0.0,
+            "serve_window_cache_hit_rate": round(
+                hit_w / (hit_w + miss_w), 4) if (hit_w + miss_w) else 0.0,
+            "serve_window_p50_ms": round(lat.window_percentile(50), 3),
+            "serve_window_p95_ms": round(lat.window_percentile(95), 3),
+            "serve_window_p99_ms": round(lat.window_percentile(99), 3),
+            "serve_window_queue_wait_p99_ms": round(
+                self._m_queue_wait.window_percentile(99), 3),
+        }
+
+    def autoscale_signals(self) -> Dict[str, float]:
+        """The windowed pressure signals: queue-wait p99 and the deadline
+        shed rate, read from the instruments the batcher and the door
+        feed."""
+        return {
+            "queue_wait_p99_ms": round(
+                self._m_queue_wait.window_percentile(99), 3),
+            "queue_wait_samples": float(self._m_queue_wait.window_count()),
+            "shed_rate": round(self._m_deadline_shed.rate(), 4),
+            "window_s": self._window_s,
+        }
+
+    def metrics_snapshot(self) -> Dict:
+        """metrics() plus the registry's typed instruments and event ring,
+        all JSON-serializable (`cli serve-metrics --json`, `:metrics`)."""
+        return {"metrics": self.metrics(), **self.registry.snapshot()}
+
+    def prometheus_text(self) -> str:
+        return self.registry.prometheus_text()
+
+    # -- search ------------------------------------------------------------
+    def warmup(self, k: Optional[int] = None, timing_iters: int = 3) -> None:
+        """One search to warm the card, then `timing_iters` timed searches
+        with both caches bypassed (the real encode path); their median is
+        `warm_latency_ms`."""
+        self.search_many(["warmup"], k=k)
+        lat = LatencyStats()
+        cap, self._cache_cap = self._cache_cap, 0
+        rcap, self._rcache_cap = self._rcache_cap, 0
+        try:
+            for _ in range(max(1, timing_iters)):
+                with lat.timed():
+                    self.search_many(["warmup"], k=k)
+        finally:
+            self._cache_cap = cap
+            self._rcache_cap = rcap
+        self.warm_latency_ms = lat.percentile_ms(50)
+
+    def search(self, query: str, k: Optional[int] = None,
+               nprobe: Optional[int] = None,
+               deadline_ms: Optional[float] = None,
+               deadline: Optional[float] = None,
+               filters=None) -> List[Dict]:
+        """One query -> top-k results. With the micro-batcher running the
+        call enqueues and blocks on its future; otherwise it is a direct
+        one-query search_many. `deadline_ms` is a relative budget (None =
+        serve.deadline_ms; <= 0 = none), `deadline` an absolute one on the
+        service clock; a request that cannot make it raises
+        DeadlineExceeded (counted in serve.deadline_shed)."""
+        refuse_filters(filters)
+        if deadline is None:
+            deadline = self.default_deadline(deadline_ms)
+        # a repeat answers from the result cache before admission, so a
+        # hit is never shed and never takes a bucket slot
+        rkey = self._result_cache_key(query, k, nprobe)
+        if rkey is not None:
+            t0 = time.perf_counter()
+            hits = self._result_cache_get(rkey, count=False)
+            if hits is not None:
+                self._m_rcache_hits.inc()
+                self._m_requests.inc()
+                self._m_latency.observe((time.perf_counter() - t0) * 1000.0)
+                return hits
+            self._m_rcache_misses.inc()
+        self._admit(deadline)
+        b = self._batcher
+        if b is None:
+            return self.search_many([query], k=k, nprobe=nprobe,
+                                    deadline=deadline, _probe_cache=False)[0]
+        t0 = time.perf_counter()
+        try:
+            with self.tracer.trace("search",
+                                   k=k or self.cfg.eval.recall_k,
+                                   query=self._normalize(query)[:80]):
+                res = b.submit(query, k, nprobe, deadline=deadline).result()
+        except DeadlineExceeded:
+            raise           # shed at the door: counted there, not an error
+        except BaseException:
+            self._m_errors.inc()
+            raise
+        self._m_requests.inc()
+        self._m_latency.observe((time.perf_counter() - t0) * 1000.0)
+        return res
+
+    def search_many(self, queries: Sequence[str], k: Optional[int] = None,
+                    nprobe: Optional[int] = None, filters=None,
+                    *, _record: bool = True, _probe_cache: bool = True,
+                    deadline: Optional[float] = None) -> List[List[Dict]]:
+        """One result list per query, in order: dicts of page_id, score
+        (rounded to 4 decimals) and snippet, best first. Direct callers
+        (`_record`) count every query into the windowed request, error
+        and latency instruments; the batcher records its requests itself.
+        An all-hit call answers from the result cache."""
+        refuse_filters(filters)
+        k = k or self.cfg.eval.recall_k
+        n = len(queries)
+        if n == 0:
+            return []
+        if _record and _probe_cache and self._rcache_cap > 0:
+            t0 = time.perf_counter()
+            cached = [self._result_cache_get(
+                self._result_cache_key(q, k, nprobe), count=False)
+                for q in queries]
+            miss_n = sum(1 for c in cached if c is None)
+            if miss_n == 0:
+                self._m_rcache_hits.inc(n)
+                self._m_requests.inc(n)
+                self._m_latency.observe(
+                    (time.perf_counter() - t0) * 1000.0, n=n)
+                return cached
+            self._m_rcache_misses.inc(miss_n)
+        view = self._view          # one view for the whole call
+        t0 = time.perf_counter()
+        try:
+            with self.tracer.root_or_span("search_many", n_queries=n, k=k):
+                out = self._search_view(view, list(queries), n, k, nprobe)
+        except BaseException:
+            if _record:
+                self._m_errors.inc(n)
+            raise
+        if _record:
+            self._m_requests.inc(n)
+            self._m_latency.observe((time.perf_counter() - t0) * 1000.0,
+                                    n=n)
+        return out
+
+    def _search_view(self, view: _ServeView, queries: List[str], n: int,
+                     k: int, nprobe: Optional[int]) -> List[List[Dict]]:
+        qv = self._embed_queries_cached(view, queries)
+        best_s, best_i, _ = self._topk_view(view, qv, n, k, nprobe)
+        with self._stage("format"):
+            out = [self._format(best_s[i], best_i[i]) for i in range(n)]
+        if self._rcache_cap > 0:
+            for q, hits in zip(queries, out):
+                self._result_cache_put(
+                    self._result_cache_key(q, k, nprobe, view=view), hits)
+        return out
+
+    def topk_vectors(self, qv: np.ndarray, k: Optional[int] = None,
+                     nprobe: Optional[int] = None,
+                     deadline: Optional[float] = None,
+                     filters=None) -> tuple:
+        """Raw retrieval for pre-computed query vectors: (scores [n, k]
+        float32, page_ids [n, k] int64, -1-padded), with no encode and no
+        snippets (the socket front end's vector protocol)."""
+        refuse_filters(filters)
+        k = k or self.cfg.eval.recall_k
+        if not isinstance(qv, torch.Tensor):
+            qv = np.asarray(qv, np.float32)
+        s, i, _ = self._topk_view(self._view, qv, qv.shape[0], k, nprobe)
+        return s, i
+
+    def _topk_view(self, view: _ServeView, qv: np.ndarray, n: int, k: int,
+                   nprobe: Optional[int] = None):
+        """(scores [n, k] float32, page_ids [n, k] int64, scan_bytes) of
+        the first n rows of qv (float32, on the host or the device) over
+        one view: through the index, the staged rows, or the streaming
+        sweep."""
+        if self._serve_index == "ivf":
+            res = self._ann_topk(view, _host_rows(qv, n), k, nprobe)
+            if res is not None:
+                return res
+            self._m_ann_fallbacks.inc(n)   # the exact sweep serves it
+        dev = self.embedder.device
+        if view.pages is None:
+            with self._stage("topk", path="streaming"):
+                scores, ids = topk_over_store(
+                    _host_rows(qv, n), view.store, k=k, chunk=_TOPK_CHUNK,
+                    query_batch=_TOPK_ROWS, device=dev)
+            return scores, ids, view.store.num_vectors * view.store.row_bytes
+        with self._stage("topk", rows=view.num_vectors):
+            q = (qv[:n].to(dev, torch.float32)
+                 if isinstance(qv, torch.Tensor)
+                 else to_device(_host_rows(qv, n), dev))
+            parts = [chunked_topk(q[s: s + _TOPK_ROWS], view.pages, k=k,
+                                  chunk=_TOPK_CHUNK, scales=view.scales)
+                     for s in range(0, n, _TOPK_ROWS)]
+        with self._stage("merge"):
+            scores = torch.cat([p[0] for p in parts]).cpu().numpy()
+            idx = torch.cat([p[1] for p in parts]).cpu().numpy()
+        pids = np.where(idx >= 0, view.page_ids[np.clip(idx, 0, None)], -1)
+        return (scores.astype(np.float32), pids.astype(np.int64),
+                view.num_vectors * view.store.row_bytes)
+
+    def _ann_topk(self, view: _ServeView, qv: np.ndarray, k: int,
+                  nprobe: Optional[int]):
+        """(scores, page_ids, gather_bytes) through the IVF index, or None
+        for the exact sweep (the index is unavailable, or stale against
+        the store's model step, checked per request)."""
+        idx = view.index
+        if idx is None or idx.model_step != view.store.model_step:
+            return None
+        with self._stage("topk") as sp:
+            scores, pids, st = idx.search(qv, k=k,
+                                          nprobe=nprobe or self._nprobe,
+                                          rerank=self._pq_rerank or None)
+            sp.set_attrs(lists_scanned=st.get("lists_scanned", 0),
+                         gather_bytes=st.get("gather_bytes", 0),
+                         rows_reranked=st.get("candidates_reranked", 0))
+        self._m_ann_lists.inc(st.get("lists_scanned", 0))
+        self._m_ann_reranked.inc(st.get("candidates_reranked", 0))
+        self._m_ann_gather.inc(st.get("gather_bytes", 0))
+        return (np.asarray(scores, np.float32), np.asarray(pids, np.int64),
+                int(st.get("gather_bytes", 0)))
 
     def _format(self, scores, ids) -> List[Dict]:
         return [

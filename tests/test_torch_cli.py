@@ -147,3 +147,145 @@ def test_embed_slices_configs_and_workdir(tmp_path, capsys):
     with pytest.raises(SystemExit) as ei:
         cli.main(["train"])
     assert ei.value.code == 2 and "--workdir" in capsys.readouterr().err
+
+
+# -- the serving commands ------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served(corpus_path, tmp_path_factory):
+    """A workdir with a trained cdssm_toy and its store (20 steps)."""
+    wd = tmp_path_factory.mktemp("served") / "wd"
+    ov = {**_overrides(corpus_path), "obs.window_s": 0.5}
+    cli.main(_argv("train", wd, ov))
+    cli.main(_argv("embed", wd, ov))
+    cfg = get_config("cdssm_toy", ov)
+    tr = Trainer(cfg, workdir=str(wd), device="cpu")
+    from dnn_page_vectors_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    tr.restore(CheckpointManager(str(wd / "ckpt")))
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    emb = BulkEmbedder(cfg, tr.model, tr.page_tok, query_tok=tr.query_tok,
+                       device="cpu")
+    svc = SearchService(cfg, emb, tr.corpus, VectorStore(str(wd / "store")))
+    return {"wd": wd, "ov": ov, "svc": svc, "corpus": tr.corpus}
+
+
+def _lines(capsys, argv):
+    cli.main(argv)
+    return [json.loads(ln) for ln in
+            capsys.readouterr().out.strip().splitlines()]
+
+
+def test_search_one_shot_queries_and_interactive(served, capsys, tmp_path,
+                                                 monkeypatch):
+    wd, ov, svc = served["wd"], served["ov"], served["svc"]
+    qs = [served["corpus"].query_text(i) for i in (0, 5, 77, 5)]
+    (one,) = _lines(capsys, _argv("search", wd, ov, "--query", qs[0]))
+    # the one-shot streams the store: preload_hbm_gb=0
+    assert one["hbm_resident"] is False
+    assert one["results"] == svc.search(qs[0], k=10)
+    path = tmp_path / "q.txt"
+    path.write_text("\n".join(qs) + "\n\n")
+    got = _lines(capsys, _argv("search", wd, ov, "--queries", str(path),
+                               "--topk", "5"))
+    assert [g["query"] for g in got] == qs
+    assert [g["results"] for g in got] == svc.search_many(qs, k=5)
+    import io
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        f"{qs[1]}\n\n:metrics\n{qs[1]}\n"))
+    lines = _lines(capsys, _argv("search", wd, ov, "--interactive"))
+    assert lines[0]["ready"] is True and lines[0]["hbm_resident"] is True
+    assert lines[0]["vectors"] == 600 and lines[0]["latency_ms"] > 0
+    assert lines[1]["results"] == svc.search(qs[1], k=10) == \
+        lines[3]["results"]
+    snap = lines[2]
+    assert snap["metrics"]["serve_cache_misses"] == 2   # warmup + qs[1]
+    assert snap["counters"]["serve.requests"]["value"] == 5
+    monkeypatch.setattr("sys.stdin", io.StringIO(":refresh\n"))
+    with pytest.raises(SystemExit, match=r"item 5\)$"):
+        cli.main(_argv("search", wd, ov, "--interactive"))
+    with pytest.raises(SystemExit) as ei:
+        cli.main(_argv("search", wd, ov))
+    assert ei.value.code == 2 and "--query" in capsys.readouterr().err
+    # the metrics log holds the service's records
+    with open(wd / "metrics.jsonl") as f:
+        recs = [json.loads(ln) for ln in f]
+    assert any("serve_hbm_resident" in r for r in recs)
+    assert any("serve_window_qps" in r for r in recs)
+
+
+# a target no trial meets: one trial at 30 qps, no doubling, no bisection
+LOADTEST = ("--trial-s", "0.5", "--warmup-s", "0.1", "--iters", "0",
+            "--start-qps", "30", "--p99-ms", "0.001", "--distinct", "32")
+
+
+@pytest.mark.parametrize("transport", ["inproc", "socket"])
+def test_loadtest_report_shape_and_seed_determinism(served, capsys,
+                                                    transport):
+    wd, ov = served["wd"], served["ov"]
+    reps = [_lines(capsys, _argv("loadtest", wd, ov, *LOADTEST,
+                                 "--transport", transport, "--seed",
+                                 str(seed)))[-1]
+            for seed in (0, 0, 1)]
+    rep = reps[0]
+    for key in ("qps_at_p99", "p99_target_ms", "shape", "seed",
+                "load_sustained", "trials", "trial_duration_s",
+                "store_vectors", "query_batch", "k", "serve_index",
+                "hbm_resident", "batch_window_ms", "warm_latency_ms",
+                "encodes", "batch_retries", "mean_batch"):
+        assert key in rep, key
+    assert rep["shape"] == "poisson" and rep["p99_target_ms"] == 0.001
+    assert rep["store_vectors"] == 600 and rep["hbm_resident"] is True
+    assert rep["batch_retries"] == 0 and rep["qps_at_p99"] == 0.0
+    assert [t["offered_qps"] for t in rep["trials"]] == [30.0]
+    assert rep["trials"][0]["met"] is False
+    assert rep["trials"][0]["requests_sent"] > 0
+    for t in rep["trials"]:
+        for key in ("offered_qps", "achieved_qps", "p50_ms", "p99_ms",
+                    "error_rate", "cache_hit_rate", "queue_wait_p99_ms",
+                    "requests_sent", "errors", "events", "met",
+                    "schedule_digest"):
+            assert key in t, key
+        assert ("transport" in t) == (transport == "socket")
+    # the same seed offers the same schedule; another seed does not
+    digests = [r["trials"][0]["schedule_digest"] for r in reps]
+    assert digests[0] == digests[1] != digests[2]
+    if transport == "socket":
+        assert rep["transport"] == "socket" and ":" in rep["listen"]
+        assert rep["transport_totals"]["wire_bytes"] > 0
+
+
+def test_serve_metrics_and_trace(served, capsys):
+    wd, ov = served["wd"], served["ov"]
+    cli.main(_argv("serve-metrics", wd, ov))
+    text = capsys.readouterr().out
+    assert "# TYPE serve_requests counter" in text
+    assert "serve_requests 1" in text and "serve_encodes 1" in text
+    (snap,) = _lines(capsys, _argv("serve-metrics", wd, ov, "--json"))
+    assert snap["metrics"]["serve_preloaded"] is False
+    assert snap["counters"]["serve.requests"]["value"] == 1
+    (out,) = _lines(capsys, _argv("trace", wd, ov, "--query", "one two",
+                                  "--set", "obs.slow_ms=0"))
+    assert out["traces"] == 1 and out["slow_queries"] == 1
+    with open(out["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert len(events) == out["spans"]
+    assert {e["name"] for e in events} == {"search_many", "tokenize",
+                                           "encode", "topk", "format"}
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events)
+    with pytest.raises(SystemExit) as ei:
+        cli.main(_argv("trace", wd, ov))
+    assert ei.value.code == 2
+
+
+@pytest.mark.parametrize("flags,item", [
+    (("--partitions", "2"), 7), (("--replicas", "2"), 7),
+    (("--front-ends", "2"), 7), (("--filters",), 7),
+    (("--filter", "lang==0"), 7), (("--mutate-every", "1"), 5)])
+def test_unported_serving_flags_exit_naming_their_item(flags, item, tmp_path):
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["loadtest", "--workdir", str(tmp_path), "--device", "cpu",
+                  *flags])
+    assert str(ei.value).endswith(f"(ROADMAP.md queue 1, item {item})")
+    assert not os.listdir(tmp_path)

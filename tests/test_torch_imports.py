@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of dnn_page_vectors_tpu_torch
 (and chip_smoke.py) pulls in neither jax nor anything of the JAX package,
-and no import statement anywhere in them (or in scripts/serve_ab.py and
-scripts/bwd_ab.py), lazy ones inside functions included, names one. Note
+and no import statement anywhere in them (or in scripts/serve_ab.py,
+scripts/bwd_ab.py and scripts/serve_load.py), lazy ones inside functions
+included, names one. Note
 the name prefix: the port's package starts with
 "dnn_page_vectors_tpu", so the check matches that module exactly or with a
 dot after it. Entry points resolve device=None to cuda and raise where no
@@ -86,6 +87,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "serve_ab.py")
     yield os.path.join(ROOT, "scripts", "bwd_ab.py")
+    yield os.path.join(ROOT, "scripts", "serve_load.py")
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():
@@ -132,3 +134,26 @@ def test_entry_points_default_to_cuda():
         build_two_tower(cfg, vocab_size=64)
     model = build_two_tower(cfg, vocab_size=64, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_serving_modules_are_covered(tmp_path):
+    """The serving slice's modules are among those the checks above walk
+    (the loadgen package and the telemetry utilities included), and the
+    serving commands, like every entry point, run on cuda unless asked
+    for the CPU."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    for mod in ("infer.serve", "infer.server", "infer.transport",
+                "loadgen", "loadgen.driver", "loadgen.workload",
+                "utils.telemetry", "utils.tracing", "utils.logging",
+                "utils.profiling"):
+        assert f"dnn_page_vectors_tpu_torch.{mod}" in names, mod
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately runs there")
+    from dnn_page_vectors_tpu_torch import cli
+    for command in ("search", "loadtest", "serve-metrics", "trace"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([command, "--workdir", str(tmp_path / "wd"),
+                      "--query", "x"])
