@@ -206,6 +206,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -422,6 +423,49 @@ SERVE_BUDGET_S = 90.0
 # bits, which can move a score rounded to 4 decimals by one unit
 SERVE_SCORE_TOL = 1.01e-4
 SERVE_LONE_QUERIES = 50
+# Phase 17, live corpus updates under load: config 3's towers (phase 4's
+# weights and vocab) embed phase 15's first UPD_BASE_PAGES pages (13
+# shards of 65,536) into a fresh fp16 store, staged whole behind a
+# SearchServer (query and result caches on); then phase 16's Poisson mix
+# (seed 0, Zipf 1.1) at UPD_QPS, at or below the lowest cache-off rate
+# phase 16 has found, over the socket: one trial with no mutation, then
+# three in each of which a mutator fires once, at UPD_FIRE_S of trial
+# time (the trial's first request), on a thread of its own (the load
+# generator never waits for it): an append and refresh(). The trials
+# measure UPD_TRIAL_S, not phase 16's 3 s: an append of 65,536 pages and
+# its refresh took 3.0-4.5 s under the load on an H100 (700 W), and a
+# trial must hold the swap. The appends take the rest
+# of the 1M pages in UPD_APPENDS, the last with UPD_UPDATED pages
+# re-embedded and UPD_TOMBSTONED deleted (seeded picks of the base). Then
+# the IVF update on phase 14's int8 rows under a PQ index of its knobs
+# (UPD_IVF_APPEND pages of phase 4's corpus grown, then UPD_IVF_APPEND_2
+# past a rebuild_drift of UPD_IVF_DRIFT), the compaction of the chain, and
+# the store commands of the CLI at the manual fleet's cdssm_toy overrides
+# (README, "Live updates"; UPD_CLI_OVERRIDES; random weights, no
+# training).
+UPD_BASE_PAGES = 851_968
+UPD_APPENDS = ((851_968, 917_504), (917_504, 983_040), (983_040, 1_000_000))
+UPD_UPDATED = 10_000
+UPD_TOMBSTONED = 10_000
+UPD_SEED = 17
+UPD_QPS = 25.0
+UPD_FIRE_S = 0.0
+UPD_TRIAL_S = 5.0
+UPD_CHECK_QUERIES = 64
+UPD_PRESENCE = 16
+UPD_IVF_APPEND = 2_000
+UPD_IVF_APPEND_2 = 1_000
+UPD_IVF_DRIFT = 0.02
+UPD_CLI_OVERRIDES = {
+    "data.num_pages": 600, "data.trigram_buckets": 4_096,
+    "model.embed_dim": 64, "model.conv_channels": 128, "model.out_dim": 64,
+    "train.batch_size": 64, "eval.embed_batch_size": 128,
+    "eval.store_shard_size": 256}
+UPD_CLI_GROWN = 700
+# (e) compacts once the chain's tombstone density reaches this (20,000
+# dead of 1,010,000 stored rows is 0.0198)
+UPD_COMPACT_DENSITY = 0.01
+UPD_BUDGET_S = 90.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -4004,6 +4048,560 @@ def run_serving(device, data, workdir: str, production: dict) -> dict:
     return rec
 
 
+# -- phase 17: live corpus updates under load -------------------------------
+
+class OneShotMutator:
+    """A loadgen Mutator's shape (calls, ops, calls_by_op, errors,
+    maybe_fire) that fires its one op once, at `at_s` of trial time, on a
+    thread of its own, so the load generator never waits for it. As the
+    Mutator does, it stores an op's exception in `errors` and raises
+    nothing into the trial; `join()` waits for the op, and the caller
+    reads `errors`."""
+
+    def __init__(self, name: str, op, at_s: float):
+        self.ops = [(name, op)]
+        self.at_s = at_s
+        self.calls = 0
+        self.calls_by_op = {name: 0}
+        self.errors: list = []
+        self.result = None
+        self.done_at_s = None
+        self._thread = None
+
+    def maybe_fire(self, elapsed_s: float, base: int = 0) -> bool:
+        if self.calls or elapsed_s < self.at_s:
+            return False
+        name, op = self.ops[0]
+        self.calls += 1
+        self.calls_by_op[name] += 1
+        t0 = time.perf_counter() - elapsed_s
+
+        def run():
+            try:
+                self.result = op()
+            except Exception as e:  # noqa: BLE001 -- read from errors
+                self.errors.append(f"{name}: {type(e).__name__}: {e}"[:300])
+            self.done_at_s = time.perf_counter() - t0
+        self._thread = threading.Thread(target=run, name=f"mutator-{name}")
+        self._thread.start()
+        return True
+
+    def join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+
+
+def count_encodes(emb) -> dict:
+    """Wraps the embedder's page and query encodes (instance attributes)
+    to count their calls: K1 launches num_layers times a call."""
+    counts = {"page": 0, "query": 0}
+    for kind, name in (("page", "encode_pages"), ("query", "encode_queries")):
+        fn = getattr(emb, name)
+
+        def wrapped(ids, _fn=fn, _kind=kind):
+            counts[_kind] += 1
+            return _fn(ids)
+        setattr(emb, name, wrapped)
+    return counts
+
+
+def live_topk(device, store, qv: torch.Tensor, k: int) -> tuple:
+    """A plain top-k of qv over the store's live rows: every shard read
+    from disk with its tombstones (load_all), dead rows dropped, one
+    float32 q @ rows^T on the card, torch.topk. (scores, page ids)."""
+    ids, vecs = store.load_all()
+    live = ids >= 0
+    rows = torch.from_numpy(np.ascontiguousarray(vecs[live])).to(device)
+    s, i = torch.topk(qv.float() @ rows.float().T, k, dim=1)
+    return s.cpu().numpy(), ids[live][i.cpu().numpy()]
+
+
+def cli_fleet_args(workdir: str, overrides: dict) -> list:
+    """The common arguments of phase 17's CLI commands."""
+    out = ["--config", "cdssm_toy", "--workdir",
+           os.path.join(workdir, "cli_updates"), "--device", CLI_DEVICE]
+    for k, v in overrides.items():
+        out += ["--set", f"{k}={v}"]
+    return out
+
+
+def run_cli_fleet(workdir: str) -> dict:
+    """The manual fleet through the CLI in subprocesses on the card (the
+    README's recipe, random weights): init-store, the embed slices
+    all at once, merge-store. Returns each command's JSON and seconds."""
+    ss = UPD_CLI_OVERRIDES["eval.store_shard_size"]
+    n = UPD_CLI_OVERRIDES["data.num_pages"]
+    args = cli_fleet_args(workdir, UPD_CLI_OVERRIDES)
+    out = {"init-store": run_cli("init-store", args, 300)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dnn_page_vectors_tpu_torch.cli", "embed",
+         *args, "--start", str(lo), "--stop", str(min(lo + ss, n))],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for lo in range(0, n, ss)]
+    slices = []
+    for p in procs:
+        so, se = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"cli embed slice exited {p.returncode}: "
+                                 f"{se[-3000:]}")
+        slices.append(json.loads(so.strip().splitlines()[-1]))
+    out["embed_slices"] = (slices, time.perf_counter() - t0)
+    out["merge-store"] = run_cli("merge-store", args, 300)
+    return out
+
+
+def run_cli_updates(workdir: str) -> dict:
+    """The fleet's store updated through the CLI: append (a grown corpus,
+    2 pages deleted, 1 updated) and refresh (the IVF index, built in full:
+    there is none)."""
+    args = cli_fleet_args(workdir, {**UPD_CLI_OVERRIDES,
+                                    "data.num_pages": UPD_CLI_GROWN})
+    return {"append": run_cli("append", [*args, "--tombstone", "3,4",
+                                         "--update-ids", "9"], 600),
+            "refresh": run_cli("refresh", args, 600)}
+
+
+class Background:
+    """A call on a thread of its own; `result()` joins it and returns
+    its value or raises its exception."""
+
+    def __init__(self, fn, *args):
+        self._out, self._err = None, None
+
+        def run():
+            try:
+                self._out = fn(*args)
+            except BaseException as e:  # noqa: BLE001 -- raised in result
+                self._err = e
+        self._thread = threading.Thread(target=run, name=fn.__name__)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def run_updates(device, data, workdir: str, production: dict) -> dict:
+    """Phase 17: live corpus updates on config 3's 1M-page store.
+
+    (a) embed_corpus(stop=UPD_BASE_PAGES) of phase 15's corpus into a
+    fresh fp16 store (phase 4's weights and vocab), staged whole in a
+    SearchService (query and result caches on) behind a SearchServer;
+    (b) a warm-up trial, a UPD_TRIAL_S trial of Poisson load at UPD_QPS
+    over the socket with no mutation, then one per append of UPD_APPENDS, each holding an
+    append_corpus and a refresh() on the mutator's thread; per refresh
+    its swap_ms, refresh_seconds, the host-to-device bytes and the
+    trial's client p99 beside the unmutated one's; (c) the two full
+    appended generations' rows byte for byte phase 15's rows of the same
+    ids; after the last refresh, search_many of UPD_CHECK_QUERIES corpus
+    queries against a plain top-10 over the live rows read from disk and
+    against a service opened fresh on the store (ties only); no result
+    holds a tombstoned id or an updated page's old row; appended pages
+    are found by their own stored vectors; no mutator error, no failed
+    request, no index_error; no result of an older generation comes from
+    the result cache; (d) IVFIndex.update on the card over phase 14's
+    int8 rows under a PQ index of its knobs after an append: only the new
+    shard assigned, full probe with every candidate re-ranked = exact; a
+    second append past UPD_IVF_DRIFT rebuilds in full; (e) compaction_due
+    at UPD_COMPACT_DENSITY, then compact_store over (b)'s chain: the same
+    top-10 before and after and the live row count; (f) the CLI's store
+    commands in subprocesses on the card (init-store, the embed slices and
+    merge-store beside (a), append and refresh beside (c)-(e)); (g) K1
+    launched num_layers times a page or query encode, all on the tensor
+    cores, nothing else."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
+    from dnn_page_vectors_tpu_torch.data.loader import build_corpus
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex, index_dir
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.server import SearchServer
+    from dnn_page_vectors_tpu_torch.infer.transport import SocketSearchClient
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.loadgen import make_workload, run_trial
+    from dnn_page_vectors_tpu_torch.maintenance import (
+        compact_store, compaction_due)
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    from dnn_page_vectors_tpu_torch.updates import append_corpus
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    _, q_tok, p_tok = data
+    path = production["corpus_path"]
+    corpus = JsonlCorpus(path)
+    cfg = get_config("bert_mini_v5p16", {
+        "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+        "model.attention": "flash", "eval.store_shard_size": PROD_SHARD,
+        "eval.embed_batch_size": 512, "serve.query_cache_size": SERVE_CACHE,
+        "serve.result_cache": True, "obs.window_s": UPD_TRIAL_S,
+        "maintenance.compact_tombstone_density": UPD_COMPACT_DENSITY})
+    m = cfg.model
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    emb.embed_pages(np.zeros((8, p_tok.max_tokens), np.int32))   # warm
+    rec = {"phase": "updates", "config": cfg.name, **widths(cfg),
+           "base_pages": UPD_BASE_PAGES, "appends": [list(a) for a in
+                                                     UPD_APPENDS],
+           "qps": UPD_QPS}
+    rng = np.random.default_rng(UPD_SEED)
+    picks = rng.choice(UPD_BASE_PAGES, UPD_UPDATED + UPD_TOMBSTONED,
+                       replace=False)
+    updated = np.sort(picks[:UPD_UPDATED])
+    tombstoned = np.sort(picks[UPD_UPDATED:])
+    encodes = count_encodes(emb)
+    services = []
+    # (f) the CLI's manual fleet, in subprocesses beside (a): no load
+    # trial runs before it is joined
+    fleet = Background(run_cli_fleet, workdir)
+    torch.cuda.synchronize()
+    reset_counts()
+    # ---- the main path, counted (a)-(e) -------------------------------
+    # (a) the base store
+    store_dir = os.path.join(workdir, "store_updates")
+    store = VectorStore(store_dir, dim=m.out_dim, shard_size=PROD_SHARD)
+    store.ensure_model_step(0)
+    t0 = time.perf_counter()
+    emb.embed_corpus(corpus, store, stop=UPD_BASE_PAGES)
+    torch.cuda.synchronize()
+    rec["a_embed_s"] = time.perf_counter() - t0
+    if (store.num_vectors, len(store.shards())) != (
+            UPD_BASE_PAGES, -(-UPD_BASE_PAGES // PROD_SHARD)):
+        raise AssertionError(f"the base store holds {store.num_vectors} "
+                             f"rows in {len(store.shards())} shards")
+    t0 = time.perf_counter()
+    svc = SearchService(cfg, emb, corpus, VectorStore(store_dir))
+    services.append(svc)
+    rec["a_stage_s"] = time.perf_counter() - t0
+    if not (svc.preloaded and svc.pages.shape == (UPD_BASE_PAGES, m.out_dim)
+            and svc.pages.device.type == device.type):
+        raise AssertionError("the base store is not staged whole")
+    svc.start_batcher()
+    server = SearchServer(svc, executor_workers=SERVE_LOAD_WORKERS)
+    server.start_background()
+    client = SocketSearchClient(server.host, server.port)
+    distinct = corpus.query_texts(range(SERVE_DISTINCT))
+    checks = corpus.query_texts(np.linspace(
+        0, UPD_BASE_PAGES - 1, UPD_CHECK_QUERIES).astype(np.int64))
+
+    def workload():
+        return make_workload("poisson", seed=SERVE_SEED,
+                             distinct=SERVE_DISTINCT, alpha=SERVE_ALPHA,
+                             profile=((10, None, 1.0),))
+
+    def trial(mutator=None, before=None, duration_s=UPD_TRIAL_S):
+        # every trial starts from cold caches, as phase 16's searches do
+        svc.clear_cache()
+        if before is not None:
+            before()
+        return run_trial(svc, workload(), UPD_QPS, distinct,
+                         duration_s=duration_s, warmup_s=SERVE_WARMUP_S,
+                         workers=SERVE_LOAD_WORKERS, client=client,
+                         mutator=mutator)
+
+    refreshes, errors = [], []
+    cli_out = fleet.result()
+    try:
+        # (b) a warm-up trial (a process's first load trial can stall its
+        # queue, PERF.md section 6), a trial with no mutation, then one
+        # per append
+        rec["b_warm"] = trial_line(trial(duration_s=SERVE_WARM_S))
+        base_trial = trial()
+        rec["b_no_mutation"] = trial_line(base_trial)
+        emit({"phase": "updates_b_no_mutation", **rec["b_no_mutation"],
+              "at_s": time.perf_counter() - t_phase})
+        for g, (lo, hi) in enumerate(UPD_APPENDS, 1):
+            last = g == len(UPD_APPENDS)
+            kw = ({"update_ids": updated, "tombstone": tombstoned}
+                  if last else {})
+
+            def op(lo=lo, hi=hi, kw=kw):
+                t = time.perf_counter()
+                stats = append_corpus(emb, corpus, VectorStore(store_dir),
+                                      start=lo, stop=hi, **kw)
+                append_s = time.perf_counter() - t
+                return stats, append_s, svc.refresh()
+            mut = OneShotMutator(f"append_{g}", op, UPD_FIRE_S)
+            # before the last: the check queries cached at generation 2,
+            # for (c)
+            tr = trial(mut, before=(lambda: [svc.search(q, k=10)
+                                             for q in checks])
+                       if last else None)
+            mut.join()
+            errors += mut.errors
+            if mut.result is None:
+                raise AssertionError(f"mutation {g} failed: {mut.errors}")
+            stats, append_s, info = mut.result
+            one = {"generation": g, "ids": [lo, hi],
+                   "updated": stats["updated"],
+                   "tombstoned": stats["tombstoned"],
+                   "append_s": append_s,
+                   "swap_ms": info["swap_ms"],
+                   "refresh_seconds": info["refresh_seconds"],
+                   "h2d_bytes": info["stage"]["h2d_bytes"],
+                   "h2d_rows": info["stage"]["h2d_rows"],
+                   "d2d_bytes": info["stage"]["d2d_bytes"],
+                   "grew_buffer": info["stage"]["grew_buffer"],
+                   "newly_dead_rows": info["stage"]["newly_dead_rows"],
+                   "mutation_done_at_s": mut.done_at_s,
+                   "trial_s": SERVE_WARMUP_S + UPD_TRIAL_S,
+                   "swap_in_trial": mut.done_at_s
+                   <= SERVE_WARMUP_S + UPD_TRIAL_S,
+                   "store_generation": info["store_generation"],
+                   "index_error": info.get("index_error"),
+                   "client_p99_ms": tr.get("client_p99_ms"),
+                   "client_p99_ms_no_mutation": base_trial.get(
+                       "client_p99_ms"),
+                   "trial": trial_line(tr),
+                   "at_s": time.perf_counter() - t_phase}
+            refreshes.append(one)
+            emit({"phase": f"updates_b_refresh_{g}", **one})
+            if tr["errors"] or one["index_error"] is not None:
+                raise AssertionError(f"mutation trial {g}: {one}")
+        if errors or base_trial["errors"]:
+            raise AssertionError(f"mutator errors {errors}, "
+                                 f"{base_trial['errors']} failed requests")
+        rec["b_refreshes"] = refreshes
+        # (f) the fleet's append and refresh, beside (c)-(e)
+        cli_updates = Background(run_cli_updates, workdir)
+
+        # (c) the checks
+        full = VectorStore(os.path.join(workdir, "store_production"))
+        prod = {e["index"]: e for e in full.shards()}
+        byte_equal = {}
+        upd_store = VectorStore(store_dir)
+        for gen in upd_store.generations()[:2]:
+            for e in gen["shards"]:
+                want = prod[e["index"]]
+                same = all(
+                    np.array_equal(
+                        np.load(os.path.join(full.directory, want[key])),
+                        np.load(os.path.join(upd_store.directory, e[key])))
+                    for key in ("ids", "vec"))
+                byte_equal[e["vec"]] = same
+        if len(byte_equal) != 2 or not all(byte_equal.values()):
+            raise AssertionError(f"appended rows differ from phase 15's: "
+                                 f"{byte_equal}")
+        if svc._view.generation != 3 or upd_store.generation != 3:
+            raise AssertionError("the service is not on generation 3")
+        # every check query has a generation-2 entry in the result cache;
+        # a lookup now misses unless the load put a generation-3 one
+        keys = [svc._result_cache_key(q, 10, None) for q in checks]
+        if any(k[3] & 0xFFFFFFFF != 3 for k in keys):
+            raise AssertionError("a result-cache key is not generation 3's")
+        with svc._rcache_lock:
+            old_held = sum((*k[:3], k[3] - 1, *k[4:]) in svc._rcache
+                           for k in keys)
+            new_held = sum(k in svc._rcache for k in keys)
+        misses0, hits0 = svc.result_cache_misses, svc.result_cache_hits
+        got = [svc.search(q, k=10) for q in checks]
+        first_misses = svc.result_cache_misses - misses0
+        again = [svc.search(q, k=10) for q in checks]
+        if (old_held != UPD_CHECK_QUERIES
+                or first_misses != UPD_CHECK_QUERIES - new_held
+                or again != got or svc.result_cache_hits - hits0
+                != UPD_CHECK_QUERIES + new_held):
+            raise AssertionError(
+                f"the result cache: {old_held} generation-2 entries held, "
+                f"{new_held} generation-3, {first_misses} misses")
+        qv = svc._embed_queries_cached(svc._view, checks)
+        plain_s, plain_pid = live_topk(device, upd_store, qv, 10)
+        raw_s, raw_i = svc.topk_vectors(qv, k=10)
+        ties_plain = ties_only(raw_s, raw_i, plain_s, plain_pid,
+                               "phase 17 (c) refreshed service vs a plain "
+                               "top-10 over the live rows")
+        fresh = SearchService(cfg, emb, corpus, VectorStore(store_dir))
+        services.append(fresh)
+        ties_fresh = serve_results_equal(
+            fresh.search_many(checks, k=10), got,
+            "phase 17 (c) refreshed vs a service opened fresh")
+        dead = set(tombstoned.tolist())
+        upd_set = set(updated.tolist())
+        ids_all, vecs_all = upd_store.load_all()
+        live = ids_all >= 0
+        rows_of = dict(zip(ids_all[live].tolist(),
+                           np.flatnonzero(live).tolist()))
+        qh = qv.float().cpu().numpy()
+        for qi, hits in enumerate(got):
+            ids = [h["page_id"] for h in hits]
+            if len(ids) != 10 or len(set(ids)) != 10 or dead & set(ids):
+                raise AssertionError(f"query {qi}: a dead or repeated row "
+                                     f"in {ids}")
+            for h in hits:
+                if h["page_id"] in upd_set:
+                    new = float(qh[qi] @ np.asarray(
+                        vecs_all[rows_of[h["page_id"]]], np.float32))
+                    if abs(new - h["score"]) > SERVE_SCORE_TOL:
+                        raise AssertionError(
+                            f"updated page {h['page_id']} served its old "
+                            f"row: {h['score']} vs {new}")
+        # appended and updated pages found by their own stored vectors
+        found = np.concatenate([
+            np.linspace(UPD_BASE_PAGES, PROD_PAGES - 1,
+                        UPD_PRESENCE).astype(np.int64), updated[:8]])
+        own = np.stack([np.asarray(vecs_all[rows_of[int(i)]], np.float32)
+                        for i in found])
+        _, top = svc.topk_vectors(own, k=1)
+        if not np.array_equal(top[:, 0], found):
+            raise AssertionError(f"appended pages not found by their own "
+                                 f"rows: {top[:, 0]} vs {found}")
+        rec["c_checks"] = {
+            "appended_rows_byte_equal_phase15": byte_equal,
+            "tie_rows_vs_plain_live": ties_plain,
+            "tie_rows_vs_fresh_service": ties_fresh,
+            "result_cache_generation_2_entries_held": old_held,
+            "result_cache_generation_3_entries_held": new_held,
+            "result_cache_misses_after_swap": first_misses,
+            "presence_checked": int(found.size),
+            "live_rows": int(live.sum()), "stored_rows": int(ids_all.size),
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "updates_c_checks", **rec["c_checks"]})
+        del ids_all, vecs_all, rows_of
+    finally:
+        client.close()
+        server.close()
+        svc.close()
+    try:
+        # (d) the IVF update: phase 14's int8 rows (its codes and scales,
+        # copied shard by shard into a store stamped at step 0, as every
+        # store the CLI makes is) under a PQ index of phase 14's knobs
+        t0 = time.perf_counter()
+        ivf_dir = os.path.join(workdir, "ivf_updates")
+        src = VectorStore(os.path.join(workdir, "ivf_int8"))
+        q8 = VectorStore(ivf_dir, dim=m.out_dim, shard_size=PROD_SHARD,
+                         dtype="int8")
+        q8.ensure_model_step(0)
+        for e in src.shards():
+            ids, codes, scl = src._load_entry(e, raw=True)
+            q8.write_shard(e["index"], ids, codes=np.asarray(codes),
+                           scales=np.asarray(scl))
+        n0 = q8.num_vectors
+        ivf_cfg = get_config("bert_mini_v5p16", {
+            "data.num_pages": n0, "serve.index": "ivf",
+            "serve.pq_m": IVF_PQ_M, "eval.store_dtype": "int8"})
+        IVFIndex.build_from_config(q8, ivf_cfg, device=device)
+        d = index_dir(q8)
+        posting0 = {f: os.stat(os.path.join(d, f)).st_mtime_ns
+                    for f in os.listdir(d) if f.startswith("posting_")}
+        grown = KeptTexts(build_corpus(data_config(
+            "bert_mini_v5p16", n0 + UPD_IVF_APPEND + UPD_IVF_APPEND_2)))
+        a1 = append_corpus(emb, grown, q8, start=n0,
+                           stop=n0 + UPD_IVF_APPEND)
+        idx, info = IVFIndex.update(
+            VectorStore(ivf_dir), rebuild_drift=cfg.updates.rebuild_drift,
+            nlist=cfg.serve.nlist, iters=cfg.serve.kmeans_iters,
+            init=cfg.serve.kmeans_init, device=device)
+        untouched = all(os.stat(os.path.join(d, f)).st_mtime_ns == t
+                        for f, t in posting0.items())
+        if not (info["action"] == "incremental" and info["new_shards"] == 1
+                and info["appended_rows"] == UPD_IVF_APPEND and untouched
+                and idx.index_generation == 1 and idx.pq_m == IVF_PQ_M):
+            raise AssertionError(f"the IVF update: {info}, old postings "
+                                 f"untouched: {untouched}")
+        qids = np.concatenate([np.linspace(0, n0 - 1, 24),
+                               np.linspace(n0, n0 + UPD_IVF_APPEND - 1, 8)]
+                              ).astype(np.int64)
+        ivf_q = emb.embed_texts([grown.query_text(int(i)) for i in qids])
+        ann_s, ann_i, _ = idx.search(ivf_q, k=10, nprobe=idx.nlist,
+                                     rerank=VectorStore(ivf_dir).num_vectors)
+        from dnn_page_vectors_tpu_torch.ops.topk import topk_over_store
+        ex_s, ex_i = topk_over_store(ivf_q, VectorStore(ivf_dir), k=10,
+                                     device=device)
+        ties_ivf = ties_only(ann_s, ann_i, ex_s, ex_i,
+                             "phase 17 (d) IVF full probe vs exact")
+        a2 = append_corpus(emb, grown, VectorStore(ivf_dir))
+        idx2, info2 = IVFIndex.update(
+            VectorStore(ivf_dir), rebuild_drift=UPD_IVF_DRIFT,
+            nlist=cfg.serve.nlist, iters=cfg.serve.kmeans_iters,
+            init=cfg.serve.kmeans_init, device=device)
+        if not (info2["action"] == "rebuild" and idx2.index_generation == 0
+                and int(idx2.list_sizes.sum()) == n0 + UPD_IVF_APPEND
+                + UPD_IVF_APPEND_2 and idx2.pq_m == IVF_PQ_M):
+            raise AssertionError(f"the drift rebuild: {info2}")
+        rec["d_ivf"] = {"store_rows": n0, "append": a1["appended"],
+                        "update": info, "old_postings_untouched": untouched,
+                        "tie_rows_full_probe_vs_exact": ties_ivf,
+                        "second_append": a2["appended"],
+                        "rebuild_drift": UPD_IVF_DRIFT, "rebuild": info2,
+                        "seconds": time.perf_counter() - t0,
+                        "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "updates_d_ivf", **rec["d_ivf"]})
+
+        # (e) the compaction of (b)'s chain under the service
+        t0 = time.perf_counter()
+        before = svc.search_many(checks, k=10)
+        if not compaction_due(VectorStore(store_dir), cfg):
+            raise AssertionError("the chain's tombstone density is under "
+                                 "the compaction trigger")
+        stats = compact_store(VectorStore(store_dir))
+        info = svc.refresh()
+        after = svc.search_many(checks, k=10)
+        ties_compact = serve_results_equal(
+            after, before, "phase 17 (e) compacted vs the chain")
+        want_rows = PROD_PAGES - UPD_TOMBSTONED
+        if not (stats["action"] == "compacted" and stats["rows"] == want_rows
+                and svc.num_vectors == want_rows
+                and info["store_generation"] == 3
+                and stats["dead_rows_dropped"] == UPD_UPDATED
+                + UPD_TOMBSTONED):
+            raise AssertionError(f"the compaction: {stats}, service "
+                                 f"{svc.num_vectors} rows")
+        rec["e_compact"] = {
+            **{k: v for k, v in stats.items()
+               if k not in ("stale_dirs", "stale_files")},
+            "refresh_seconds": info["refresh_seconds"],
+            "restage_h2d_bytes": info["stage"]["h2d_bytes"],
+            "tie_rows": ties_compact, "live_rows": svc.num_vectors,
+            "phase_s": time.perf_counter() - t0,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "updates_e_compact", **rec["e_compact"]})
+        cli_out.update(cli_updates.result())
+    finally:
+        svc.close()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    cli = {k: {"out": v[0], "seconds": v[1]} for k, v in cli_out.items()}
+    slices = cli["embed_slices"]["out"]
+    ok = (cli["merge-store"]["out"]["shards"] == 3
+          and cli["merge-store"]["out"]["vectors"] == 600
+          and sum(x["embedded"] > 0 for x in slices) == 3
+          and cli["append"]["out"]["generation"] == 1
+          and cli["append"]["out"]["appended"] == UPD_CLI_GROWN - 600
+          and cli["append"]["out"]["store_vectors"] == UPD_CLI_GROWN + 1
+          and cli["refresh"]["out"]["store_generation"] == 1
+          and cli["refresh"]["out"]["action"] == "rebuild")
+    rec["f_cli"] = {**cli, "overrides": UPD_CLI_OVERRIDES, "ok": ok}
+    emit({"phase": "updates_f_cli", **rec["f_cli"]})
+    if not ok:
+        raise AssertionError(f"the CLI's store commands: {rec['f_cli']}")
+    # (g) K1 as often as the encodes need, every one on the tensor cores
+    want = expected_launches((encodes["page"] + encodes["query"])
+                             * m.num_layers, 0)
+    if counts != want:
+        raise AssertionError(f"phase 17 launched {counts}, want {want} "
+                             f"({encodes})")
+    del services, svc
+    torch.cuda.empty_cache()
+    gc.unfreeze()
+    seconds = time.perf_counter() - t_phase
+    rec.update({"page_encodes": encodes["page"],
+                "query_encodes": encodes["query"],
+                "k1_launches": counts["launches"],
+                "k1_launches_tensor_core": counts["launches_tc"],
+                "seconds": seconds, "budget_s": UPD_BUDGET_S,
+                "over_budget": seconds > UPD_BUDGET_S,
+                "device": torch.cuda.get_device_name(0),
+                "nvidia_smi": nvidia_smi()})
+    emit({k: v for k, v in rec.items()
+          if k not in ("b_refreshes", "f_cli", "d_ivf")})
+    return rec
+
+
 # the bool template flags of each templated kernel, in order
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
@@ -4094,7 +4692,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-16; fills `report` and returns the `kernels` line's
+    """Phases 2-17; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -4245,13 +4843,17 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
         report["production"] = run_production(device, bert, tmp, report,
                                               corpus_job)
         done("production")
-        # phase 16: serving under load over phase 15's store and corpus
+        # phases 16 and 17: serving under load, then live updates, over
+        # phase 15's store and corpus
         try:
             report["serving"] = run_serving(device, bert, tmp,
                                             report["production"])
+            done("serving")
+            report["updates"] = run_updates(device, bert, tmp,
+                                            report["production"])
         finally:
             os.remove(report["production"]["corpus_path"])
-        done("serving")
+        done("updates")
     emit({"phase": "timeline", "seconds_at_end_of": timeline})
     return kernel_entries(report)
 
@@ -4292,7 +4894,8 @@ def kernel_entries(report: dict) -> list:
              "ivf_1m_store_encodes": report["ivf"]["k1_launches_big_store"],
              "production_1m_embed": report["production"]["embed"][
                  "k1_launches"],
-             "serving_under_load": report["serving"]["k1_launches"]}
+             "serving_under_load": report["serving"]["k1_launches"],
+             "live_updates": report["updates"]["k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -4313,6 +4916,8 @@ def kernel_entries(report: dict) -> list:
                "production_1m_embed": report["production"]["embed"][
                    "k1_launches_tensor_core"],
                "serving_under_load": report["serving"][
+                   "k1_launches_tensor_core"],
+               "live_updates": report["updates"][
                    "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}

@@ -21,7 +21,12 @@ topk_over_store``) with the train -> embed -> mine -> train loop of
 and the host data path: jsonl corpora (``data/jsonl.py``,
 ``data/synth.py``), the C++ tokenizers and jsonl index (``native/``), the
 tokenizer worker pool and ``prefetch_to_device`` (``data/loader.py``),
-the background shard writer (``infer/bulk_embed.py``), and the offline
-CLI (``cli.py``). Entry points run on ``cuda`` unless the caller passes
+the background shard writer (``infer/bulk_embed.py``), the offline
+CLI (``cli.py``), serving under load (``infer/serve.py``,
+``infer/server.py``, ``loadgen/``), and live corpus updates: store
+generations, tombstones and writer manifests (``infer/vector_store.py``),
+``updates/append.py``, the append lease and compaction
+(``maintenance/``), ``IVFIndex.update`` and ``SearchService.refresh``.
+Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU present they raise.
 """

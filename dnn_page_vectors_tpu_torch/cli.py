@@ -14,6 +14,13 @@ commands of the JAX package's CLI.
       --workdir W --transport socket --shape poisson --p99-ms 50
   python -m dnn_page_vectors_tpu_torch.cli serve-metrics --workdir W [--json]
   python -m dnn_page_vectors_tpu_torch.cli trace --workdir W --query TEXT
+  python -m dnn_page_vectors_tpu_torch.cli init-store --config cdssm_toy \
+      --workdir W                 # then embed --start A --stop B per slice
+  python -m dnn_page_vectors_tpu_torch.cli merge-store --workdir W
+  python -m dnn_page_vectors_tpu_torch.cli append --config cdssm_toy \
+      --workdir W --set data.num_pages=N [--tombstone 3,4] [--update-ids 9]
+  python -m dnn_page_vectors_tpu_torch.cli refresh --workdir W
+  python -m dnn_page_vectors_tpu_torch.cli reset-store --workdir W
 
 Any config field is overridable with ``--set section.field=value``, e.g.
 ``--set data.corpus=jsonl:/data/pages.jsonl`` for a corpus of
@@ -31,7 +38,20 @@ service's numbers), ``serve-metrics`` the Prometheus text (``--json``: the
 snapshot; ``--watch N``: a JSON tick every N seconds), ``trace`` the Chrome
 trace file's path and counts.
 
-The JAX CLI's other commands exit non-zero with a message naming the
+The store commands (the JAX CLI's keys): ``init-store`` stamps the store
+once before a manual fleet of ``embed --start/--stop`` slices, each
+writing its own writer manifest, and ``merge-store`` folds them in;
+``append`` embeds the pages past the append cursor (grow the corpus with
+``--set data.num_pages=``), ``--tombstone`` and ``--update-ids`` into a
+new generation and brings an existing IVF index up to date; ``refresh``
+brings the IVF index up to date with the store (incremental, or a full
+rebuild past ``updates.rebuild_drift``), with no model; ``reset-store``
+drops every shard. ``loadtest --mutate-every S`` hot-swaps the service
+(``refresh()``) every S seconds under the load, and exits non-zero if a
+refresh failed; ``search --interactive`` takes ``:refresh``.
+
+The JAX CLI's other commands (``migrate``, ``index``, ``maintain``,
+``partition-worker``, ``lint``) exit non-zero with a message naming the
 ROADMAP.md item that ports them; none runs anything in their place.
 """
 from __future__ import annotations
@@ -45,17 +65,13 @@ from typing import Dict, List, Optional
 from dnn_page_vectors_tpu_torch.config import CONFIGS, get_config
 
 PORTED = ("configs", "train", "embed", "eval", "mine", "pipeline", "search",
-          "loadtest", "serve-metrics", "trace")
+          "loadtest", "serve-metrics", "trace", "init-store", "merge-store",
+          "reset-store", "append", "refresh")
 # command -> (ROADMAP.md queue 1 item, what it needs)
 NOT_PORTED = {
-    "init-store": (5, "writer manifests for manual-fleet embeds"),
-    "merge-store": (5, "writer manifests for manual-fleet embeds"),
-    "reset-store": (5, "the store administration commands"),
-    "append": (5, "store generations, tombstones and attributes"),
-    "migrate": (5, "store generations and migrations"),
-    "index": (7, "the index command and the index's refresh"),
-    "refresh": (7, "the serving stack's generation hot-swap"),
-    "maintain": (7, "maintenance/"),
+    "migrate": (5, "rolling model migrations (maintenance/migrate.py)"),
+    "index": (7, "the index command"),
+    "maintain": (7, "the background MaintenanceService"),
     "partition-worker": (7, "partitioned serving"),
     "lint": (8, "graftcheck over the port"),
 }
@@ -135,9 +151,9 @@ def _refuse_unported_serving(args) -> None:
     if args.filter_expr or args.lt_filters:
         raise _not_ported("filtered retrieval (--filter, --filters)", 7,
                           "index/attrs.py and per-row store attributes")
-    if args.mutate_every:
-        raise _not_ported("loadtest --mutate-every", 5,
-                          "store generations, append and refresh()")
+    if args.mutate_every and args.mutate_mode == "maintain":
+        raise _not_ported("loadtest --mutate-mode maintain", 7,
+                          "the background MaintenanceService")
 
 
 def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
@@ -178,9 +194,12 @@ def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
                 if not query:
                     continue
                 if query == ":refresh":
-                    svc.close()
-                    raise _not_ported("the ':refresh' control line", 5,
-                                      "store generations and refresh()")
+                    # hot swap to the store's current generation (after an
+                    # `append` in another process); in-flight queries finish
+                    # on the old view
+                    print(json.dumps({"refreshed": svc.refresh()},
+                                     sort_keys=True), flush=True)
+                    continue
                 if query == ":metrics":
                     print(json.dumps(svc.metrics_snapshot(),
                                      sort_keys=True), flush=True)
@@ -243,9 +262,13 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
     trial progress goes to stderr, the report is one JSON line."""
     from dnn_page_vectors_tpu_torch.infer.serve import SearchService
     from dnn_page_vectors_tpu_torch.loadgen import (
-        find_qps_at_p99, make_workload)
+        Mutator, find_qps_at_p99, make_workload)
     svc = SearchService(cfg, embedder, trainer.corpus, store,
                         preload_hbm_gb=4.0)
+    # the hot swap under the load: a refresh every --mutate-every seconds
+    # (append from another process to give it something to swap in)
+    mut = (Mutator(svc.refresh, period_s=args.mutate_every)
+           if args.mutate_every else None)
     svc.warmup(k=k)
     svc.start_batcher()
     server = client = None
@@ -268,7 +291,7 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         report = find_qps_at_p99(
             svc, wl, queries, p99_target_ms=args.p99_ms,
             start=args.start_qps, iters=args.iters, duration_s=trial_s,
-            warmup_s=args.warmup_s, client=client,
+            warmup_s=args.warmup_s, client=client, mutator=mut,
             progress=lambda line: print(line, file=sys.stderr, flush=True),
             progress_every_s=max(1.0, trial_s / 2.0))
     finally:
@@ -294,7 +317,117 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         "warm_latency_ms": round(svc.warm_latency_ms, 3),
         "encodes": svc.encodes, "batch_retries": svc.batch_retries,
         "mean_batch": final.get("serve_mean_batch")})
+    if mut is not None:
+        report.update({"mutate_every_s": args.mutate_every,
+                       "mutate_mode": args.mutate_mode,
+                       "mutator_calls": mut.calls,
+                       "mutator_errors": mut.errors,
+                       "store_generation": final["store_generation"],
+                       "refreshes": final["refreshes"]})
     print(json.dumps(report))
+    if mut is not None and mut.errors:
+        # the trial survives a failed mutation; the command does not
+        raise SystemExit(f"{len(mut.errors)} of {mut.calls} refreshes "
+                         f"failed under the load: {mut.errors[:3]}")
+
+
+STORE_ADMIN = ("init-store", "merge-store", "reset-store", "refresh")
+
+
+def _ids_arg(text: Optional[str]) -> List[int]:
+    return [int(x) for x in (text or "").split(",") if x.strip()]
+
+
+def _store_admin(args, cfg, workdir: str, store_dir: str) -> None:
+    """The store commands that need no model: init-store (the stamp of a
+    manual fleet, from the newest checkpoint's step), merge-store,
+    reset-store, and refresh (the IVF index brought up to date on
+    --device)."""
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    if args.command == "init-store":
+        from dnn_page_vectors_tpu_torch.infer.vector_store import (
+            prepare_store)
+        from dnn_page_vectors_tpu_torch.train.checkpoint import (
+            CheckpointManager)
+        step = CheckpointManager(os.path.join(workdir, "ckpt")).latest_step()
+        model_step = step or 0
+        prepare_store(store_dir, cfg.model.out_dim, cfg.eval.store_shard_size,
+                      cfg.eval.store_dtype, model_step)
+        print(json.dumps({"store": store_dir, "model_step": model_step}))
+        return
+    try:
+        store = VectorStore(store_dir)
+    except FileNotFoundError:
+        raise SystemExit(f"no store at {store_dir}; run 'embed' first")
+    if args.command == "reset-store":
+        n = store.num_vectors
+        store.reset()
+        print(json.dumps({"store": store_dir, "dropped_vectors": n}))
+        return
+    if args.command == "merge-store":
+        store.merge_writers()
+        print(json.dumps({"store": store_dir,
+                          "shards": len(store.manifest["shards"]),
+                          "vectors": store.num_vectors}))
+        return
+    # refresh: the IVF index brought up to date with the store
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
+    idx, info = IVFIndex.update(store, rebuild_drift=cfg.updates.rebuild_drift,
+                                nlist=cfg.serve.nlist,
+                                iters=cfg.serve.kmeans_iters,
+                                init=cfg.serve.kmeans_init,
+                                device=args.device)
+    print(json.dumps({
+        "store": store_dir, "vectors": store.num_vectors,
+        "store_generation": store.generation, "nlist": idx.nlist,
+        "imbalance": idx.imbalance, "index_generation": idx.index_generation,
+        **info}, sort_keys=True))
+
+
+def _append(cfg, trainer, embedder, store_dir: str, workdir: str,
+            args) -> None:
+    """append: the pages past the cursor, --tombstone and --update-ids
+    into a new generation, then an existing IVF index brought up to date
+    (updates.auto_update_index); a failed index update is reported in
+    index_update and on stderr (the generation is committed)."""
+    from dnn_page_vectors_tpu_torch.index.ivf import (
+        MANIFEST, IVFIndex, index_dir)
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.updates import append_corpus
+    from dnn_page_vectors_tpu_torch.utils import telemetry
+    from dnn_page_vectors_tpu_torch.utils.logging import MetricsLogger
+    try:
+        store = VectorStore(store_dir)
+    except FileNotFoundError:
+        raise SystemExit(f"no store at {store_dir}; run 'embed' before "
+                         "appending")
+    if store.model_step != trainer.step:
+        raise SystemExit(
+            f"store at {store_dir} is stamped for model step "
+            f"{store.model_step} but the checkpoint is at {trainer.step}; "
+            "appended vectors must share the base weights: re-run 'embed' "
+            "(a full re-embed) instead")
+    stats = append_corpus(
+        embedder, trainer.corpus, store, tombstone=_ids_arg(args.tombstone),
+        update_ids=_ids_arg(args.update_ids),
+        log=MetricsLogger(workdir, echo=False,
+                          registry=telemetry.default_registry()))
+    index_info = None
+    if cfg.updates.auto_update_index and os.path.exists(
+            os.path.join(index_dir(store), MANIFEST)):
+        try:
+            _, index_info = IVFIndex.update(
+                store, rebuild_drift=cfg.updates.rebuild_drift,
+                nlist=cfg.serve.nlist, iters=cfg.serve.kmeans_iters,
+                init=cfg.serve.kmeans_init, device=embedder.device)
+        except Exception as e:  # noqa: BLE001 -- the append is committed
+            index_info = {"error": f"{type(e).__name__}: {e}"}
+            print(f"WARNING: the IVF update after the append failed: "
+                  f"{index_info['error']}", file=sys.stderr)
+    print(json.dumps({"store": store_dir,
+                      "store_generation": store.generation,
+                      "store_vectors": store.num_vectors, **stats,
+                      "index_update": index_info}, sort_keys=True))
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -314,10 +447,22 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--start", type=int, default=0,
-                    help="embed: first page of a manual-fleet slice (not "
-                         "ported)")
+                    help="embed: first page of a manual-fleet slice (a "
+                         "store shard bound; run init-store once first)")
     ap.add_argument("--stop", type=int, default=None,
-                    help="embed: one past the slice's last page (not "
+                    help="embed: one past the slice's last page (a shard "
+                         "bound or the corpus end)")
+    ap.add_argument("--tombstone", default=None, metavar="IDS",
+                    help="append: comma-separated page ids to delete")
+    ap.add_argument("--update-ids", dest="update_ids", default=None,
+                    metavar="IDS",
+                    help="append: comma-separated existing page ids to "
+                         "re-embed into the new generation (their old rows "
+                         "are tombstoned)")
+    ap.add_argument("--attrs", nargs="+", default=None, metavar="K=V",
+                    help="append: per-row attribute words (not ported)")
+    ap.add_argument("--init-attrs", dest="init_attrs", action="store_true",
+                    help="append: initialize the attribute table (not "
                          "ported)")
     # -- search / trace / serve-metrics ------------------------------------
     ap.add_argument("--query", default=None,
@@ -384,8 +529,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="loadtest: a filtered query mix (not ported)")
     ap.add_argument("--mutate-every", dest="mutate_every", type=float,
                     default=None,
-                    help="loadtest: a store mutation every S seconds (not "
-                         "ported)")
+                    help="loadtest: a refresh() of the service every S "
+                         "seconds of each trial")
+    ap.add_argument("--mutate-mode", dest="mutate_mode", default="refresh",
+                    choices=["refresh", "maintain"],
+                    help="loadtest: what --mutate-every fires: 'refresh' "
+                         "(the hot swap); 'maintain' is not ported")
     args = ap.parse_args(argv)
 
     if args.command == "configs":
@@ -395,9 +544,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command in NOT_PORTED:
         item, need = NOT_PORTED[args.command]
         raise _not_ported(f"the '{args.command}' command", item, need)
-    if args.command == "embed" and (args.start != 0 or args.stop is not None):
-        raise _not_ported("embed --start/--stop", 5,
-                          "writer manifests for manual-fleet embeds")
+    if args.command == "append" and (args.attrs or args.init_attrs):
+        raise _not_ported("append --attrs / --init-attrs", 7,
+                          "per-row store attributes (index/attrs.py)")
     _refuse_unported_serving(args)
     if not args.workdir:
         ap.error(f"{args.command} needs --workdir")
@@ -415,6 +564,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = get_config(args.config, overrides)
     workdir = os.path.abspath(args.workdir)
     store_dir = os.path.join(workdir, "store")
+    if args.command in STORE_ADMIN:
+        _store_admin(args, cfg, workdir, store_dir)
+        return
     trainer = _trainer(cfg, workdir, args.device)
     mgr = _restore(trainer, workdir)
 
@@ -453,13 +605,33 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     if args.command == "embed":
         # vectors of another checkpoint are stale, not resumable work:
-        # prepare_store resets a store stamped for another step
+        # prepare_store resets a store stamped for another step. A manual
+        # fleet's slice must not make that call (a late slice would reset
+        # a sibling's shards): it needs init-store first, takes the
+        # store's geometry, and writes its own writer manifest
         from dnn_page_vectors_tpu_torch.utils.profiling import PipelineProfiler
-        store = prepare_store(store_dir, cfg.model.out_dim,
-                              cfg.eval.store_shard_size, cfg.eval.store_dtype,
-                              trainer.step)
+        if args.start != 0 or args.stop is not None:
+            try:
+                store = VectorStore(store_dir)
+            except FileNotFoundError:
+                raise SystemExit(
+                    f"no store at {store_dir}; run 'init-store' once before "
+                    "launching --start/--stop embed slices")
+            if store.model_step != trainer.step:
+                raise SystemExit(
+                    f"store at {store_dir} is stamped for model step "
+                    f"{store.model_step} but the checkpoint is at "
+                    f"{trainer.step}; run 'init-store' once before "
+                    "launching --start/--stop embed slices")
+            store = VectorStore(
+                store_dir, writer_id=args.start // store.manifest["shard_size"])
+        else:
+            store = prepare_store(store_dir, cfg.model.out_dim,
+                                  cfg.eval.store_shard_size,
+                                  cfg.eval.store_dtype, trainer.step)
         prof = PipelineProfiler()
-        embedder.embed_corpus(trainer.corpus, store, profiler=prof)
+        embedder.embed_corpus(trainer.corpus, store, profiler=prof,
+                              start=args.start, stop=args.stop)
         print(json.dumps({"embedded": store.num_vectors,
                           "model_step": trainer.step,
                           "tokenize_workers": cfg.data.tokenize_workers,
@@ -467,6 +639,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                           "stages": prof.summary()}, sort_keys=True))
         return
 
+    if args.command == "append":
+        _append(cfg, trainer, embedder, store_dir, workdir, args)
+        return
     store = VectorStore(store_dir)
     if args.command in SERVING:
         _serve_command(args, cfg, trainer, embedder, store, workdir)

@@ -162,6 +162,37 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class UpdatesConfig:
+    """Live corpus updates (updates/append.py, index/ivf.py ``update``,
+    infer/serve.py ``refresh``): the JAX package's names and defaults."""
+    # IVFIndex.update rebuilds in full (fresh k-means) once the fraction of
+    # the corpus appended since the last full build exceeds this
+    rebuild_drift: float = 0.25
+    # refresh() and `cli append` bring an existing IVF index up to date;
+    # False: the store alone moves, and the stale index serves exact
+    auto_update_index: bool = True
+    # refresh() keeps a staged row that a new tombstone killed (masked, so
+    # it never takes a result slot) while the staged rows' dead share
+    # stays at or below this; past it the live rows are compacted on the
+    # card (restage_skipped / restage_forced)
+    restage_tombstone_density: float = 0.05
+    # the append lease's ttl (s): a crashed writer's lease is taken over
+    # after this instead of blocking appends forever
+    writer_lease_s: float = 30.0
+    # how long a second writer waits on a held lease (s); 0 fails at once
+    lease_wait_s: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MaintenanceConfig:
+    """Generation compaction (maintenance/compact.py). Of the JAX
+    package's MaintenanceConfig only the trigger the port reads."""
+    # fold the chain into a compacted base once the tombstone density
+    # (dead rows / stored rows) reaches this (``compaction_due``)
+    compact_tombstone_density: float = 0.2
+
+
+@dataclasses.dataclass(frozen=True)
 class ObsConfig:
     """Observability (utils/telemetry.py, utils/tracing.py): request
     tracing, the slow-query log and the registry's rolling windows."""
@@ -187,6 +218,9 @@ class Config:
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    updates: UpdatesConfig = dataclasses.field(default_factory=UpdatesConfig)
+    maintenance: MaintenanceConfig = dataclasses.field(
+        default_factory=MaintenanceConfig)
 
 
 def _nested_replace(cfg: Config, overrides: Dict[str, Any]) -> Config:

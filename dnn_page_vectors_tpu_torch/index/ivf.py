@@ -32,11 +32,20 @@ every file's bytes and CRC32. A stale index raises ``IndexUnavailable``;
 a file whose bytes no longer match is quarantined (renamed aside) first.
 Callers (the service, eval, mine) serve exact search then.
 
-Not ported yet, each raising NotImplementedError: ``update`` (the
-incremental update after a store append, which needs store generations),
-``stage_hot`` (the device-resident hot posting set), ``partition_view``
-(partitioned serving) and ``search(predicate=...)`` (filtered retrieval
-over store attributes). The JAX package's fault-injection hooks are not
+Live updates: after a store append the recorded shard table is a strict
+subset of the store's, and ``update`` extends the index by assigning only
+the unrecorded shards to the existing centroids (and, on a PQ index,
+encoding their codes with the existing rotation and codebooks), writing
+their posting files beside the old ones, until the drift (the corpus
+share appended since the last full k-means, ``updates.rebuild_drift``)
+asks for a full rebuild. A tombstoned row stays in its list: the store's
+read-time masking turns it into a dead (-1) candidate the re-rank drops.
+
+Not ported yet, each raising NotImplementedError: ``stage_hot`` (the
+device-resident hot posting set), ``partition_view`` (partitioned
+serving) and ``search(predicate=...)`` (filtered retrieval over store
+attributes), and ``update(defer_rebuild=True)`` (the background
+rebuilder's hand-off). The JAX package's fault-injection hooks are not
 ported either.
 """
 from __future__ import annotations
@@ -57,6 +66,7 @@ from dnn_page_vectors_tpu_torch.infer.vector_store import (
     _fsync_path, crc_file)
 from dnn_page_vectors_tpu_torch.ops.topk import (
     chunked_topk, rerank_candidates, rerank_positions)
+from dnn_page_vectors_tpu_torch.utils import telemetry
 from dnn_page_vectors_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DIRNAME = "ivf"
@@ -358,12 +368,120 @@ class IVFIndex:
                          pq_iters=sv.pq_iters, opq_iters=sv.pq_opq_iters,
                          device=device)
 
-    # -- not ported yet ----------------------------------------------------
+    # -- incremental update ------------------------------------------------
     @classmethod
-    def update(cls, store, *args, **kwargs):
-        """The incremental update after a store append."""
-        _unported("IVFIndex.update (needs store generations)", "item 5")
+    def update(cls, store, rebuild_drift: float = 0.25, nlist: int = 0,
+               iters: int = 8, seed: Optional[int] = None,
+               chunk: int = 8192, init: str = "kmeans++",
+               defer_rebuild: bool = False, device: DeviceLike = None
+               ) -> Tuple["IVFIndex", Dict]:
+        """Bring the index up to date with the store after an append, on
+        `device`: assign ONLY the shards the recorded table does not hold
+        to the existing centroids, write their posting files (and, on a
+        PQ index, their codes under the existing rotation and codebooks),
+        then dump the manifest atomically with ``index_generation`` + 1.
 
+        Rebuilds in full (fresh k-means, ``index_generation`` 0, the
+        recorded balance and PQ settings kept) when the index cannot be
+        extended: none on disk, a torn manifest, another model step or
+        dim, a recorded shard changed or gone, a file that fails its
+        check, or a drift past `rebuild_drift`. Returns (index, info),
+        info["action"] "noop" | "incremental" | "rebuild" with the inputs
+        of the decision. `defer_rebuild` (the JAX background rebuilder's
+        hand-off) is not ported."""
+        if defer_rebuild:
+            _unported("IVFIndex.update(defer_rebuild=True) (the background "
+                      "rebuilder of maintenance/service.py)", "item 7")
+        t0 = time.perf_counter()
+        dev = resolve_device(device)
+        d = index_dir(store)
+        mpath = os.path.join(d, MANIFEST)
+
+        def _rebuild(reason: str, man: Optional[Dict] = None
+                     ) -> Tuple["IVFIndex", Dict]:
+            pq_cfg = (man or {}).get("pq") or {}
+            idx = cls.build(store, nlist=nlist, iters=iters,
+                            seed=0 if seed is None else seed, chunk=chunk,
+                            init=init,
+                            balance=(man or {}).get("balance", 0.0),
+                            pq_m=pq_cfg.get("m", 0),
+                            pq_iters=pq_cfg.get("iters", 8),
+                            opq_iters=pq_cfg.get("opq_iters", 3),
+                            device=dev)
+            telemetry.default_registry().event(
+                "ivf_rebuild", {"reason": reason[:200], "nlist": idx.nlist})
+            return idx, {"action": "rebuild", "reason": reason,
+                         "seconds": round(time.perf_counter() - t0, 3)}
+
+        if not os.path.exists(mpath):
+            return _rebuild("no index on disk")
+        try:
+            with open(mpath) as f:
+                man = json.load(f)
+        except ValueError:
+            return _rebuild("torn index manifest")
+        if (man.get("model_step") != store.model_step
+                or man.get("dim") != store.dim):
+            return _rebuild("model step / dim changed", man)
+        live = store.shards()
+        live_by_idx = {s["index"]: s["count"] for s in live}
+        recorded = {s["index"]: s["count"] for s in man.get("shards", [])}
+        if any(recorded.get(i) != c for i, c in live_by_idx.items()
+               if i in recorded) or any(i not in live_by_idx
+                                        for i in recorded):
+            return _rebuild("recorded shards changed (quarantine/re-embed)",
+                            man)
+        new_entries = [e for e in live if e["index"] not in recorded]
+        if not new_entries:
+            return (cls.open(store, device=dev),
+                    {"action": "noop",
+                     "seconds": round(time.perf_counter() - t0, 3)})
+        try:
+            cls._verify_files(d, man)      # never extend corrupt postings
+        except IndexUnavailable as e:
+            return _rebuild(f"existing index unhealthy ({e})", man)
+        total = store.num_vectors
+        appended = (int(man.get("appended_since_build", 0))
+                    + sum(e["count"] for e in new_entries))
+        drift = appended / max(total, 1)
+        if drift > rebuild_drift:
+            return _rebuild(
+                f"drift {drift:.3f} > rebuild_drift {rebuild_drift}", man)
+        centroids = np.asarray(
+            np.load(os.path.join(d, man["centroids"]["file"])), np.float32)
+        new_meta, _, new_sizes, _ = cls._assign_postings(
+            d, store, centroids, new_entries, chunk, dev)
+        if man.get("pq"):
+            codec = PQCodec(
+                np.load(os.path.join(d, man["pq"]["rotation"]["file"])),
+                np.load(os.path.join(d, man["pq"]["codebooks"]["file"])))
+            cls._encode_codes(d, store, codec, new_meta, dev)
+        man["shards"] = sorted(man["shards"] + new_meta,
+                               key=lambda s: s["index"])
+        man["num_vectors"] = int(total)
+        man["appended_since_build"] = appended
+        man["index_generation"] = int(man.get("index_generation", 0)) + 1
+        # imbalance over every list: the old sizes from the [nlist + 1]
+        # offset files, the new from the assignment just made
+        sizes = new_sizes.astype(np.float64)
+        new_idx = {m["index"] for m in new_meta}
+        for s in man["shards"]:
+            if s["count"] == 0 or s["index"] in new_idx:
+                continue
+            sizes += np.diff(np.load(os.path.join(d, s["off"])))
+        man["imbalance"] = round(
+            float(man["nlist"] * np.square(sizes).sum()
+                  / max(total, 1) ** 2), 4)
+        _atomic_dump(man, mpath)
+        return (cls.open(store, verify=False, device=dev),
+                {"action": "incremental", "new_shards": len(new_entries),
+                 "appended_rows": sum(e["count"] for e in new_entries),
+                 "drift": round(drift, 4),
+                 "rebuild_pending": False,
+                 "index_generation": man["index_generation"],
+                 "seconds": round(time.perf_counter() - t0, 3)})
+
+    # -- not ported yet ----------------------------------------------------
     def stage_hot(self, budget_bytes: float):
         """The device-resident hot posting set."""
         _unported("IVFIndex.stage_hot (the hot posting set)", "item 7")
@@ -555,7 +673,7 @@ class IVFIndex:
         retrieval) is not ported."""
         if predicate is not None:
             _unported("search(predicate=...) (filtered retrieval over store "
-                      "attributes)", "items 5 and 7")
+                      "attributes)", "item 7")
         qvecs = np.asarray(qvecs, np.float32)
         nq = qvecs.shape[0]
         k = int(k)

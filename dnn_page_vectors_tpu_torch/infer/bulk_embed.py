@@ -228,9 +228,16 @@ class BulkEmbedder:
                      batch_size: Optional[int] = None, resume: bool = True,
                      workers: Optional[int] = None,
                      write_pending: Optional[int] = None,
-                     profiler: Optional[PipelineProfiler] = None
+                     profiler: Optional[PipelineProfiler] = None,
+                     start: int = 0, stop: Optional[int] = None
                      ) -> VectorStore:
         """Sweep the corpus into the store, one store shard at a time.
+
+        `start` / `stop` restrict the sweep to the pages [start, stop),
+        both on store shard bounds (`stop` may be the corpus end): the
+        manual fleet's slice, one process each, each with its own writer
+        manifest (``VectorStore(writer_id=start // shard_size)``), merged
+        by ``merge_writers`` once all are done.
 
         An int8 store gets codes and scales quantized on the device
         (``encode_pages_q8``); any other store float16 rows.
@@ -257,10 +264,28 @@ class BulkEmbedder:
         ``_n``: read, tokenize, produce_wait, h2d, compute, device_wait,
         write, write_wait; read and tokenize summed over the workers)."""
         bs = batch_size or self.cfg.eval.embed_batch_size
+        if store.manifest.get("compacted_through"):
+            # a compacted base holds rows by id order under new shard
+            # indices: the per-index resume below would re-embed, and
+            # double-assign, the whole base range
+            raise ValueError(
+                f"store at {store.directory} has been compacted (through "
+                f"generation {store.manifest['compacted_through']}); the "
+                "base embed is complete: append new pages with "
+                "append_corpus / `cli append` instead")
         shard_size = store.manifest["shard_size"]
         if shard_size % bs and shard_size < corpus.num_pages:
             raise ValueError(f"store shard_size {shard_size} must be a "
                              f"multiple of the batch size {bs}")
+        stop = corpus.num_pages if stop is None else min(stop,
+                                                         corpus.num_pages)
+        if start % shard_size:
+            raise ValueError(f"start={start} must be a multiple of the store "
+                             f"shard_size {shard_size}")
+        if stop % shard_size and stop != corpus.num_pages:
+            raise ValueError(f"stop={stop} must be shard-aligned (multiple of "
+                             f"{shard_size}) or the corpus end "
+                             f"{corpus.num_pages}")
         if resume:
             store.verify()
         done = store.completed_shards() if resume else set()
@@ -278,7 +303,7 @@ class BulkEmbedder:
         writer = _ShardWriter(store, q8, max_pending=write_pending,
                               profiler=prof)
         try:
-            for si in range(-(-corpus.num_pages // shard_size)):
+            for si in range(start // shard_size, -(-stop // shard_size)):
                 if si in done:
                     continue
                 lo = si * shard_size

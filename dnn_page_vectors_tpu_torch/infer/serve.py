@@ -30,13 +30,34 @@ What a request goes through:
     snippet).
 
 The top-k runs over one immutable ``_ServeView`` captured per call: the
-store handle, and either the store staged whole on the card as one
-[N, D] matrix at its stored width (float16 rows, or int8 codes and their
-scales; the page ids stay on the host), or nothing staged. The budget is
-decided before staging: a store of at most ``preload_hbm_gb`` GiB is
-staged (a shard that fails to stage raises), a larger one, or any store
-at ``preload_hbm_gb=0``, is answered shard by shard from disk on the card
-by the streaming sweep (``topk_over_store``); ``preloaded`` says which.
+store handle with its frozen generation chain and tombstones, and either
+the store staged whole on the card as one [N, D] matrix at its stored
+width (float16 rows, or int8 codes and their scales; the page ids stay on
+the host), or nothing staged. The budget is decided before staging: a
+store of at most ``preload_hbm_gb`` GiB is staged (a shard that fails to
+stage raises), a larger one, or any store at ``preload_hbm_gb=0``, is
+answered shard by shard from disk on the card by the streaming sweep
+(``topk_over_store`` over the table of the view's store handle, whose
+generation chain is frozen); ``preloaded`` says which.
+
+``refresh()`` swaps in the store's current generation under live
+traffic: it opens a fresh store handle, builds the new view beside the
+old one and publishes it with one reference assignment, so a call that
+captured the old view finishes on it and the next sees the new one. The
+staged matrix lives in a buffer with room to grow: a view is its first N
+rows. A refresh whose old rows are a prefix of the new table copies only
+the appended rows from the host, into the rows past N (which no older
+view reads), or, when the buffer is full, into a 1.25x larger buffer
+after a copy of the old rows on the card. Rows a new tombstone killed
+stay staged and are masked out of the top-k (``alive``), so a dead row
+never takes a result slot; once they pass
+``updates.restage_tombstone_density`` of the staged rows the live rows
+are compacted on the card. A fresh stage copies live rows only.
+``refresh()`` returns the JAX package's info dict, and the result cache's
+key carries the view's store generation, so no entry of an older
+generation is returned. ``refresh(update_index=...)`` also brings the IVF
+index up to date (``IVFIndex.update``); an index that fails degrades that
+view to exact search, recorded in ``index_error``.
 Both give the same results except at ties. The staged top-k runs over
 blocks of up to 256 query rows with 65,536-row chunks (eager PyTorch has
 no compiled bucket shape to keep, so the top-k is not tiled by
@@ -53,10 +74,11 @@ histograms and events live in a per-service MetricsRegistry
 (utils/telemetry.py) with windows of ``obs.window_s`` seconds:
 ``metrics()``, ``metrics_snapshot()`` and ``prometheus_text()``.
 
-Left for later slices, each named by its ROADMAP.md queue 1 item: store
-generations, ``refresh()`` and the hot swap (5); partitions, replicas,
-the fleet result cache, the hot posting set and filtered retrieval (7);
-fault injection and degraded mode (8). ``filters=`` raises naming item 7.
+Left for later slices, each named by its ROADMAP.md queue 1 item:
+dual-stamp serving during a rolling migration (5); partitions, replicas,
+the fleet result cache, the hot posting set, the background maintenance
+service and filtered retrieval (7); fault injection and degraded mode
+(8). ``filters=`` raises naming item 7.
 """
 from __future__ import annotations
 
@@ -300,25 +322,49 @@ class AdaptiveWindow:
 
 
 class _ServeView:
-    """One serving snapshot: the store handle and what was made from it
-    (the staged rows and their page ids, or the IVF index). A call
-    captures the view once, so everything it reads belongs together; the
-    store generations and the hot swap that would replace it are a later
-    slice."""
+    """One serving snapshot: the store handle with its frozen generation
+    chain and tombstone map, and what was made from it (the staged rows,
+    their page ids and dead-row mask, or the IVF index). A call captures
+    the view once, so everything it reads belongs together; ``refresh()``
+    replaces the whole view with one reference assignment."""
 
-    __slots__ = ("store", "entries", "generation", "num_vectors", "pages",
-                 "scales", "page_ids", "index", "index_error")
+    __slots__ = ("store", "entries", "generation", "docs_appended",
+                 "tombstoned", "num_vectors", "maint_stats", "pages",
+                 "scales", "page_ids", "alive", "dead_rows", "buf",
+                 "scale_buf", "keys", "top_gen", "stage_info", "index",
+                 "index_error", "index_info")
 
     def __init__(self, store: VectorStore):
         self.store = store
         self.entries: List[Dict] = store.shards()
-        self.generation = int(store.manifest.get("generation", 0))
+        self.generation = store.generation
+        self.docs_appended = store.appended_vectors()
+        self.tombstoned = store.tombstoned_count()
         self.num_vectors = store.num_vectors
+        self.maint_stats: Dict = store.maintenance_stats()
         self.pages: Optional[torch.Tensor] = None    # [N, D] on the card
         self.scales: Optional[torch.Tensor] = None   # [N] (int8 stores)
         self.page_ids: Optional[np.ndarray] = None   # [N] int64, host
+        # [N] bool on the card, False at staged rows a tombstone killed;
+        # None when every staged row is live
+        self.alive: Optional[torch.Tensor] = None
+        self.dead_rows = 0
+        # the buffers the staged rows are the head of (room to grow)
+        self.buf: Optional[torch.Tensor] = None
+        self.scale_buf: Optional[torch.Tensor] = None
+        # (gen, index, count, vec CRC) of each staged entry, in order, and
+        # the chain generation the staged rows' tombstones were read at
+        self.keys: List[tuple] = []
+        self.top_gen = store.chain_generation
+        self.stage_info: Dict = {}
         self.index: Optional[IVFIndex] = None
         self.index_error: Optional[str] = None
+        self.index_info: Optional[Dict] = None
+
+
+def _entry_key(entry: Dict) -> tuple:
+    return (entry.get("gen", 0), entry["index"], entry["count"],
+            entry.get("crc", {}).get("vec"))
 
 
 class SearchService:
@@ -374,6 +420,18 @@ class SearchService:
         self._m_ann_reranked = reg.counter("serve.ann_candidates_reranked")
         self._m_ann_fallbacks = reg.counter("serve.ann_fallbacks")
         self._m_ann_gather = reg.counter("serve.ann_gather_bytes")
+        # live updates: hot swaps, how the index followed, and the staged
+        # rows a tombstone killed (kept masked, or compacted on the card)
+        self._m_refreshes = reg.counter("serve.refreshes")
+        self._m_incremental = reg.counter("serve.incremental_updates")
+        self._m_rebuilds = reg.counter("serve.full_rebuilds")
+        self._m_restage_skipped = reg.counter("serve.restage_skipped")
+        self._m_restage_forced = reg.counter("serve.restage_forced")
+        upd = cfg.updates
+        self._rebuild_drift = upd.rebuild_drift
+        self._auto_update_index = upd.auto_update_index
+        self._restage_density = upd.restage_tombstone_density
+        self._refresh_lock = threading.Lock()   # one refresh at a time
         # LRU query-embedding cache: (model step, normalized text) -> host
         # float32 query vector; the step in the key means a store restamp
         # invalidates without a flush
@@ -415,6 +473,10 @@ class SearchService:
         self._preload_gb = preload_hbm_gb
         self._view = self._build_view(store)
         reg.gauge("serve.preloaded").set(1.0 if self.preloaded else 0.0)
+        reg.gauge("serve.store_generation").set(self._view.generation)
+        if self._view.index is not None:
+            reg.gauge("serve.index_generation").set(
+                self._view.index.index_generation)
         if log is not None:
             log.write({
                 "serve_hbm_resident": self.preloaded,
@@ -425,50 +487,191 @@ class SearchService:
                 "serve_ann_available": self._view.index is not None})
 
     # -- the view ----------------------------------------------------------
-    def _build_view(self, store: VectorStore) -> _ServeView:
+    def _build_view(self, store: VectorStore,
+                    reuse: Optional[_ServeView] = None,
+                    update_index: bool = False) -> _ServeView:
+        """One serving view over `store`: the IVF index (brought up to
+        date first with `update_index`), or the store staged when it fits
+        the budget (reusing `reuse`'s staged rows where it can), or
+        neither (the streaming sweep)."""
         view = _ServeView(store)
+        ms = view.maint_stats
+        self.registry.gauge("serve.tombstone_density").set(
+            ms["tombstone_density"])
+        self.registry.gauge("serve.dead_rows").set(ms["dead_rows"])
+        self.registry.gauge("serve.reclaimable_bytes").set(
+            ms["reclaimable_bytes"])
         if self._serve_index == "ivf":
-            try:
-                view.index = IVFIndex.open(store, device=self.embedder.device)
-            except IndexUnavailable as e:
-                view.index_error = str(e)
-                self.registry.event("index_degraded",
-                                    {"reason": str(e)[:200], "mode": "exact"})
-                print(f"WARNING: IVF index unavailable ({e}); serving the "
-                      "exact path per request", flush=True)
+            self._attach_index(view, update_index)
+            if (reuse is not None and reuse.index_error is not None
+                    and view.index is not None):
+                self.registry.event("index_restored", {
+                    "was": reuse.index_error[:200],
+                    "index_generation": view.index.index_generation})
             return view
         # the budget is decided before anything is staged
         need = view.num_vectors * store.row_bytes
         if view.num_vectors > 0 and need <= self._preload_gb * 2 ** 30:
-            self._stage_view(view)
+            self._stage_view(view, reuse)
         return view
 
-    def _stage_view(self, view: _ServeView) -> None:
-        """Every shard into one [N, D] matrix on the card at its stored
-        width, a shard at a time; a shard that fails to read or copy
-        raises."""
+    def _attach_index(self, view: _ServeView, update_index: bool) -> None:
+        """The view's IVF index: IVFIndex.update (incremental or a full
+        rebuild) or IVFIndex.open. An index that cannot serve (unavailable,
+        or an update that raised: the refresh goes on without it) leaves
+        `index_error` set, and the view answers exactly per request
+        (counted in ann_fallbacks)."""
+        dev = self.embedder.device
+        sv = self.cfg.serve
+        failures = Exception if update_index else IndexUnavailable
+        try:
+            if update_index:
+                view.index, view.index_info = IVFIndex.update(
+                    view.store, rebuild_drift=self._rebuild_drift,
+                    nlist=sv.nlist, iters=sv.kmeans_iters,
+                    init=sv.kmeans_init, device=dev)
+                action = view.index_info.get("action")
+                if action == "incremental":
+                    self._m_incremental.inc()
+                elif action == "rebuild":
+                    self._m_rebuilds.inc()
+                    self.registry.event("drift_rebuild", {
+                        "reason": view.index_info.get("reason"),
+                        "nlist": view.index.nlist})
+            else:
+                view.index = IVFIndex.open(view.store, device=dev)
+        except failures as e:  # noqa: BLE001 -- the view serves exactly
+            view.index = None
+            view.index_error = f"{type(e).__name__}: {e}"
+            self.registry.event("index_degraded",
+                                {"reason": view.index_error[:200],
+                                 "mode": "exact"})
+            print(f"WARNING: IVF index unavailable ({view.index_error}); "
+                  "serving the exact path per request", flush=True)
+
+    def _stage_view(self, view: _ServeView,
+                    reuse: Optional[_ServeView] = None) -> None:
+        """Stage the view's live rows on the card at their stored width.
+
+        With `reuse` (the view being replaced), when its staged entries
+        are a prefix of this view's, only the entries past the prefix are
+        read and copied from the host: into `reuse`'s buffer past its rows
+        when they fit (no older view reads there), else into a buffer
+        1.25x the new row count after a copy of the old rows on the card.
+        The old rows a newer tombstone killed stay, masked in `alive`,
+        until they pass ``restage_tombstone_density`` of the rows; then
+        the live rows are compacted on the card. Otherwise every live row
+        is read and copied. A shard that fails to read or copy raises.
+        ``view.stage_info`` records the rows and bytes each way."""
         store, dev = view.store, self.embedder.device
-        n, q8 = view.num_vectors, store.manifest["dtype"] == "int8"
-        pages = torch.empty((n, store.dim),
-                            dtype=torch.int8 if q8 else torch.float16,
-                            device=dev)
-        scales = (torch.empty((n,), dtype=torch.float16, device=dev)
-                  if q8 else None)
-        page_ids = np.empty((n,), np.int64)
-        o = 0
-        for entry in view.entries:
-            if entry["count"] == 0:
-                continue
-            ids, vecs, scl = store._load_entry(entry, raw=True)
-            m = len(ids)
-            pages[o: o + m].copy_(torch.from_numpy(np.array(vecs)))
+        q8 = store.manifest["dtype"] == "int8"
+        entries = [e for e in view.entries if e["count"] > 0]
+        keys = [_entry_key(e) for e in entries]
+        n_keep = 0
+        if (reuse is not None and reuse.buf is not None and reuse.keys
+                and keys[: len(reuse.keys)] == reuse.keys
+                and reuse.store.model_step == store.model_step):
+            n_keep = len(reuse.keys)
+        # the rows to copy from the host: every entry past the kept
+        # prefix, its dead rows dropped before the copy (ids first, so the
+        # buffer is sized before a vector is read)
+        copy = [(e, store.load_ids(e)) for e in entries[n_keep:]]
+        new_ids = (np.concatenate([ids[ids >= 0] for _, ids in copy])
+                   if copy else np.zeros((0,), np.int64)).astype(np.int64)
+        m = int(new_ids.shape[0])
+        row_bytes = store.row_bytes
+        pos = np.zeros((0,), np.int64)
+        # the bytes each way: rows at their stored width (int8 scales
+        # included), and the int64 row positions of the mask and compaction
+        info = {"reused_entries": n_keep, "copied_entries":
+                len(entries) - n_keep, "h2d_rows": m,
+                "h2d_bytes": m * row_bytes, "d2d_bytes": 0,
+                "newly_dead_rows": 0, "compacted_on_card": False,
+                "grew_buffer": False}
+        if n_keep:
+            n_old = int(reuse.page_ids.shape[0])
+            # ids a generation past the old view's chain tombstoned: the
+            # old rows they kill stay staged, masked
+            old_ids = reuse.page_ids
+            dead_new = np.array(sorted(
+                i for i, g in store._tomb_gen.items() if g > reuse.top_gen),
+                np.int64)
+            pos = (np.flatnonzero(np.isin(old_ids, dead_new))
+                   if dead_new.size else np.zeros((0,), np.int64))
+            page_ids = np.concatenate([old_ids, new_ids])
+            page_ids[pos] = -1
+            info["newly_dead_rows"] = int(pos.size)
+            buf, sbuf = reuse.buf, reuse.scale_buf
+            n = n_old + m
+            if n > buf.shape[0]:
+                cap = max(n, -(-n * 5 // 4))
+                nb = torch.empty((cap, store.dim), dtype=buf.dtype,
+                                 device=dev)
+                nb[:n_old].copy_(buf[:n_old])
+                info["d2d_bytes"] += n_old * store.dim * buf.element_size()
+                if q8:
+                    ns = torch.empty((cap,), dtype=torch.float16, device=dev)
+                    ns[:n_old].copy_(sbuf[:n_old])
+                    info["d2d_bytes"] += n_old * 2
+                    sbuf = ns
+                buf = nb
+                info["grew_buffer"] = True
+            alive = None
+            dead = reuse.dead_rows + int(pos.size)
+            if dead:
+                alive = torch.ones((n,), dtype=torch.bool, device=dev)
+                if reuse.alive is not None:
+                    alive[:n_old].copy_(reuse.alive)
+                if pos.size:
+                    alive[to_device(pos, dev)] = False
+                    info["h2d_bytes"] += int(pos.size) * 8
+        else:
+            n = m
+            page_ids = new_ids
+            buf = torch.empty((n, store.dim),
+                              dtype=torch.int8 if q8 else torch.float16,
+                              device=dev)
+            sbuf = (torch.empty((n,), dtype=torch.float16, device=dev)
+                    if q8 else None)
+            n_old, alive, dead = 0, None, 0
+        o = n_old
+        for entry, ids in copy:
+            _, vecs, scl = store._load_entry(entry, raw=True)
+            keep = ids >= 0
+            whole = bool(keep.all())
+            r = int(keep.sum())
+            buf[o: o + r].copy_(torch.from_numpy(
+                np.array(vecs) if whole else np.asarray(vecs)[keep]))
             if q8:
-                scales[o: o + m].copy_(torch.from_numpy(np.array(scl)))
-            page_ids[o: o + m] = ids
-            o += m
-        if o != n:
-            raise RuntimeError(f"staged {o} rows of a store of {n}")
-        view.pages, view.scales, view.page_ids = pages, scales, page_ids
+                sbuf[o: o + r].copy_(torch.from_numpy(
+                    np.array(scl) if whole else np.asarray(scl)[keep]))
+            o += r
+        if o != n_old + m:
+            raise RuntimeError(f"staged {o - n_old} rows, want {m}")
+        if n_keep and pos.size:
+            # the restage policy, over the staged matrix as one block
+            if dead / max(n, 1) > self._restage_density:
+                # past the threshold: the live rows compacted on the card
+                keep_pos = np.flatnonzero(page_ids >= 0)
+                kp = to_device(keep_pos, dev)
+                info["h2d_bytes"] += int(keep_pos.size) * 8
+                nb = buf[:n].index_select(0, kp)
+                info["d2d_bytes"] += 2 * int(keep_pos.size) * store.dim \
+                    * buf.element_size()
+                if q8:
+                    sbuf = sbuf[:n].index_select(0, kp)
+                buf, page_ids = nb, page_ids[keep_pos]
+                n, alive, dead = int(keep_pos.size), None, 0
+                info["compacted_on_card"] = True
+                self._m_restage_forced.inc()
+            else:
+                self._m_restage_skipped.inc()
+        view.buf, view.scale_buf = buf, sbuf
+        view.pages = buf[:n]
+        view.scales = sbuf[:n] if q8 else None
+        view.page_ids, view.alive, view.dead_rows = page_ids, alive, dead
+        view.keys = keys
+        view.stage_info = info
 
     @property
     def preloaded(self) -> bool:
@@ -498,9 +701,75 @@ class SearchService:
 
     @property
     def num_vectors(self) -> int:
+        """Live rows: the staged rows less the masked dead ones, or the
+        store's rows when nothing is staged."""
         view = self._view
-        return (int(view.page_ids.shape[0]) if view.pages is not None
-                else view.store.num_vectors)
+        return (int(view.page_ids.shape[0]) - view.dead_rows
+                if view.pages is not None else view.store.num_vectors)
+
+    # -- the hot swap ------------------------------------------------------
+    def refresh(self, update_index: Optional[bool] = None) -> Dict:
+        """Swap in the store's current generation chain under live traffic.
+
+        Opens a fresh store handle (its open checks every shard's bytes,
+        the appended ones included), builds the new view beside the old
+        one (``_stage_view`` copies from the host only what the old view
+        does not hold; with ``serve.index="ivf"`` the index is brought up
+        to date when `update_index`, default ``updates.auto_update_index``)
+        and publishes it with one reference assignment: a call that
+        captured the old view finishes on it, the next one sees the new.
+        One refresh runs at a time. Returns the JAX package's info dict
+        (store_generation, index_generation, docs_appended, new_docs,
+        tombstoned, vectors, refresh_seconds, swap_ms, and index_update /
+        index_error when they apply) plus ``stage``: the rows and bytes
+        the staging moved each way."""
+        t0 = time.perf_counter()
+        with self._refresh_lock:
+            old = self._view
+            new_store = VectorStore(self.store.directory)
+            upd = (self._auto_update_index if update_index is None
+                   else update_index)
+            view = self._build_view(new_store, reuse=old, update_index=upd)
+            if view.pages is not None and view.pages.device.type == "cuda":
+                # the copies land before the view is published
+                torch.cuda.synchronize(view.pages.device)
+            t_swap = time.perf_counter()
+            self._view = view    # THE swap: one reference assignment
+            swap_ms = (time.perf_counter() - t_swap) * 1000.0
+            self.store = new_store
+            self._m_refreshes.inc()
+        info = {
+            "store_generation": view.generation,
+            "index_generation": (view.index.index_generation
+                                 if view.index is not None else None),
+            "docs_appended": view.docs_appended,
+            "new_docs": view.docs_appended - old.docs_appended,
+            "tombstoned": view.tombstoned,
+            "vectors": view.num_vectors,
+            "refresh_seconds": round(time.perf_counter() - t0, 3),
+            "swap_ms": round(swap_ms, 3),
+        }
+        if view.stage_info:
+            info["stage"] = dict(view.stage_info)
+        if view.index_info is not None:
+            info["index_update"] = view.index_info
+        if view.index_error is not None:
+            info["index_error"] = view.index_error
+        cur = self.tracer.current()
+        self.registry.event("view_swap", {
+            "store_generation": view.generation,
+            "new_docs": info["new_docs"], "swap_ms": info["swap_ms"],
+            "index_error": view.index_error,
+        }, trace_id=cur.trace_id if cur is not None else None)
+        self.registry.gauge("serve.store_generation").set(view.generation)
+        self.registry.gauge("serve.preloaded").set(
+            1.0 if view.pages is not None else 0.0)
+        if view.index is not None:
+            self.registry.gauge("serve.index_generation").set(
+                view.index.index_generation)
+        if self._log is not None:
+            self._log.write({"serve_refresh": self.refreshes, **info})
+        return info
 
     # -- counters (registry instruments) ----------------------------------
     @property
@@ -545,6 +814,30 @@ class SearchService:
     @property
     def ann_gather_bytes(self) -> int:
         return self._m_ann_gather.value
+
+    @property
+    def refreshes(self) -> int:
+        return self._m_refreshes.value
+
+    @property
+    def incremental_updates(self) -> int:
+        """refresh()es whose IVF update appended to the index."""
+        return self._m_incremental.value
+
+    @property
+    def full_rebuilds(self) -> int:
+        """refresh()es whose IVF update rebuilt the index in full."""
+        return self._m_rebuilds.value
+
+    @property
+    def restage_skipped(self) -> int:
+        """refresh()es that kept newly tombstoned staged rows, masked."""
+        return self._m_restage_skipped.value
+
+    @property
+    def restage_forced(self) -> int:
+        """refresh()es that compacted the staged rows on the card."""
+        return self._m_restage_forced.value
 
     @property
     def deadline_sheds(self) -> int:
@@ -859,13 +1152,27 @@ class SearchService:
     def metrics(self) -> Dict:
         """Serving counters, the windowed view and the stage seconds,
         metrics-log ready. The counters of parts the port does not have
-        yet (store generations, refreshes, degraded mode, recompiles) are
-        left out, not reported as 0."""
+        yet (degraded mode, recompiles) are left out, not reported as 0."""
         total = self.cache_hits + self.cache_misses
+        view = self._view
         rec = {
             "serve_index": self._serve_index,
             "num_vectors": self.num_vectors,
             "serve_preloaded": self.preloaded,
+            # the generation this service answers from, and how it got it
+            "store_generation": view.generation,
+            "index_generation": (view.index.index_generation
+                                 if view.index is not None else None),
+            "docs_appended": view.docs_appended,
+            "tombstoned": view.tombstoned,
+            "refreshes": self.refreshes,
+            "incremental_updates": self.incremental_updates,
+            "full_rebuilds": self.full_rebuilds,
+            "restage_skipped": self.restage_skipped,
+            "restage_forced": self.restage_forced,
+            "tombstone_density": view.maint_stats["tombstone_density"],
+            "dead_rows": view.maint_stats["dead_rows"],
+            "reclaimable_bytes": view.maint_stats["reclaimable_bytes"],
             "serve_cache_hits": self.cache_hits,
             "serve_cache_misses": self.cache_misses,
             "serve_cache_hit_rate": round(self.cache_hits / total, 4)
@@ -1115,14 +1422,15 @@ class SearchService:
                  if isinstance(qv, torch.Tensor)
                  else to_device(_host_rows(qv, n), dev))
             parts = [chunked_topk(q[s: s + _TOPK_ROWS], view.pages, k=k,
-                                  chunk=_TOPK_CHUNK, scales=view.scales)
+                                  chunk=_TOPK_CHUNK, scales=view.scales,
+                                  alive=view.alive)
                      for s in range(0, n, _TOPK_ROWS)]
         with self._stage("merge"):
             scores = torch.cat([p[0] for p in parts]).cpu().numpy()
             idx = torch.cat([p[1] for p in parts]).cpu().numpy()
         pids = np.where(idx >= 0, view.page_ids[np.clip(idx, 0, None)], -1)
         return (scores.astype(np.float32), pids.astype(np.int64),
-                view.num_vectors * view.store.row_bytes)
+                int(view.pages.shape[0]) * view.store.row_bytes)
 
     def _ann_topk(self, view: _ServeView, qv: np.ndarray, k: int,
                   nprobe: Optional[int]):

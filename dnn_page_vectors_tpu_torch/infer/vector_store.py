@@ -30,9 +30,29 @@ drops) any shard whose bytes no longer match, so resume re-embeds it.
 Readers take the whole store (``load_all``) or a shard at a time
 (``iter_shards``, optionally read ahead on a thread: ``read_ahead``).
 
-Append generations, per-row attributes and per-writer manifests are later
-slices: a store that uses any of them is refused with NotImplementedError
-rather than read in part.
+Writers of one store that share no process each append to their own
+``manifest.wNNNN.json`` (tmp + rename, no locks): readers see the union of
+the main manifest and every writer manifest (``shards()``), and
+``merge_writers()`` folds them into the main one once every writer is
+done. A torn writer manifest is renamed aside (``.quarantined``) and its
+shards drop out, so resume re-embeds them.
+
+Generations: the base embed is generation 0; a live update lands as
+generation G under ``gen-NNNN/``, ordinary shard files plus a
+``manifest.json`` of its own (``gen``, ``model_step``, ``tombstones``,
+``id_start``, ``id_end``, ``max_index``, ``shards``) written last by
+``GenerationWriter.commit()``. The chain must run 1..G without a gap
+from one past ``compacted_through``, each stamped at the store's model
+step; a torn manifest is quarantined and a stale one skipped, and that
+generation and every later one drop out (readers keep the longest intact
+prefix). A tombstone kills a page id in every EARLIER generation: reads
+map such an id to -1 (``_load_entry``, the one place every reader goes
+through), which every retrieval path treats as a dead slot. The files and
+manifests are the JAX package's, byte for byte, so each package opens the
+other's chain.
+
+Per-row attributes and rolling migrations are later slices: a store that
+uses either is refused with NotImplementedError rather than read in part.
 """
 from __future__ import annotations
 
@@ -40,14 +60,16 @@ import glob
 import json
 import os
 import queue as queue_mod
+import shutil
 import threading
 import zlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-# a shard entry's data files: vectors (or int8 codes), ids, int8 scales
-_FILES = ("vec", "ids", "scl")
+# a shard entry's data files: vectors (or int8 codes), ids, int8 scales,
+# attribute words (a later slice's; removed with the rest by reset())
+_FILES = ("vec", "ids", "scl", "atr")
 # the smallest float16 normal, exact in float32: the int8 scale's floor
 SCALE_FLOOR = np.float32(np.float16(6.2e-5))
 
@@ -153,13 +175,22 @@ def prepare_store(directory: str, dim: int, shard_size: Optional[int],
     return store
 
 
+def _warn(msg: str) -> None:
+    print(f"WARNING: {msg}", flush=True)
+
+
 class VectorStore:
     def __init__(self, directory: str, dim: Optional[int] = None,
                  shard_size: Optional[int] = None,
+                 writer_id: Optional[int] = None,
                  dtype: Optional[str] = None, verify: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self._manifest_path = os.path.join(self.directory, "manifest.json")
+        self.writer_id = writer_id
+        self._writer_path = (
+            None if writer_id is None else
+            os.path.join(self.directory, f"manifest.w{int(writer_id):04d}.json"))
         if dtype not in (None, "float16", "int8"):
             raise ValueError(f"unsupported store dtype {dtype!r} "
                              "(want float16 or int8)")
@@ -172,7 +203,6 @@ class VectorStore:
                     f"store at {self.directory} holds {self.manifest['dim']}-d "
                     f"vectors but dim={dim} was requested; use a fresh "
                     "directory (or reset()) when the model out_dim changes")
-            self._refuse_unported()
         else:
             if dim is None:
                 raise FileNotFoundError(
@@ -182,6 +212,18 @@ class VectorStore:
                              "shard_size": shard_size or 65_536,
                              "shards": []}
             self._flush_manifest()
+        # resume: this writer's previously recorded shards
+        self._writer_shards: List[Dict] = []
+        if self._writer_path and os.path.exists(self._writer_path):
+            data = self._read_writer(self._writer_path)
+            self._writer_shards = [] if data is None else data.get("shards", [])
+        # the longest intact generation chain and its tombstone map
+        self._generations: List[Dict] = []
+        self._tomb_gen: Dict[int, int] = {}   # page id -> gen that killed it
+        self._dead_cache: Dict[int, np.ndarray] = {}
+        self._load_generations()
+        if existed:
+            self._refuse_unported()
         if existed and verify:
             self.verify()
         # an EMPTY store may adopt a new shard size or dtype (a populated
@@ -199,19 +241,14 @@ class VectorStore:
     def _refuse_unported(self) -> None:
         m = self.manifest
         why = []
-        if glob.glob(os.path.join(self.directory, "manifest.w*.json")):
-            why.append("per-writer manifests")
-        if glob.glob(os.path.join(self.directory, "gen-*")) or \
-                m.get("compacted_through"):
-            why.append("append generations")
-        if m.get("attrs") or any("atr" in s for s in m["shards"]):
-            why.append("per-row attributes")
-        if m.get("migration"):
-            why.append("a rolling migration")
+        if m.get("attrs") or any("atr" in s for s in self.shards()):
+            why.append("per-row attributes (ROADMAP.md queue 1, item 7)")
+        if m.get("migration") or m.get("gen_overrides"):
+            why.append("a rolling migration (ROADMAP.md queue 1, item 5)")
         if why:
             raise NotImplementedError(
-                f"store at {self.directory} uses {', '.join(why)}, which the "
-                "port does not read yet (slice 6 of the port)")
+                f"store at {self.directory} uses {' and '.join(why)}, which "
+                "the port does not read yet")
 
     # -- manifest ---------------------------------------------------------
     @property
@@ -234,22 +271,67 @@ class VectorStore:
     def model_step(self) -> Optional[int]:
         return self.manifest.get("model_step")
 
+    def _writer_files(self) -> List[str]:
+        return sorted(p for p in glob.glob(
+            os.path.join(self.directory, "manifest.w*.json"))
+            if not p.endswith(".quarantined"))
+
+    def _read_writer(self, path: str) -> Optional[Dict]:
+        """One writer manifest, or None: merged away since the glob, or
+        torn (invalid JSON), in which case it is renamed aside and its
+        shards fall out of the table, so resume re-embeds them."""
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return None
+        except ValueError:
+            q = path + ".quarantined"
+            try:
+                os.replace(path, q)
+            except FileNotFoundError:
+                return None
+            _warn(f"writer manifest {path} is torn (invalid JSON); moved "
+                  f"aside to {q}; its shards will be re-embedded")
+            return None
+
     def shards(self) -> List[Dict]:
-        return sorted(self.manifest["shards"], key=lambda s: s["index"])
+        """The merged shard table: the main manifest, every writer manifest
+        on disk, and every intact generation's appended shards, by index."""
+        by_idx = {s["index"]: s for s in self.manifest["shards"]}
+        for path in self._writer_files():
+            data = self._read_writer(path)
+            if data is None:
+                continue
+            for s in data.get("shards", []):
+                by_idx[s["index"]] = s
+        for gen in self._generations:
+            for s in gen.get("shards", []):
+                by_idx[s["index"]] = s
+        return [by_idx[i] for i in sorted(by_idx)]
 
     def completed_shards(self) -> set:
         return {s["index"] for s in self.shards()}
 
-    def _flush_manifest(self) -> None:
+    def reload(self) -> None:
+        """Re-read the main manifest from disk (another process merged,
+        stamped or compacted it)."""
+        with open(self._manifest_path) as f:
+            self.manifest = json.load(f)
+
+    def _atomic_dump(self, obj, path: str) -> None:
         """tmp + fsync + atomic rename + directory fsync: a crash leaves
-        the old manifest or the new one, never a torn one."""
-        tmp = self._manifest_path + f".tmp.{os.getpid()}"
+        the old file or the new one, never a torn one."""
+        tmp = path + f".tmp.{os.getpid()}"
         with open(tmp, "w") as f:
-            json.dump(self.manifest, f, indent=1, sort_keys=True)
+            json.dump(obj, f, indent=1, sort_keys=True)
             f.flush()
             os.fsync(f.fileno())
-        os.replace(tmp, self._manifest_path)
-        _fsync_path(self.directory)
+        os.replace(tmp, path)
+        _fsync_path(os.path.dirname(path))
+
+    def _flush_manifest(self) -> None:
+        self._atomic_dump(self.manifest, self._manifest_path)
 
     def ensure_model_step(self, step: int) -> None:
         """Vectors embedded at another model step are stale, not resumable
@@ -259,8 +341,211 @@ class VectorStore:
         self.manifest["model_step"] = step
         self._flush_manifest()
 
+    def merge_writers(self) -> None:
+        """Fold every writer manifest into the main one and remove them.
+        One process calls it, after every writer finished."""
+        files = self._writer_files()
+        merged = {s["index"]: s for s in self.manifest["shards"]}
+        for path in files:
+            data = self._read_writer(path)
+            for s in (data or {}).get("shards", []):
+                merged[s["index"]] = s
+        files = [p for p in files if os.path.exists(p)]  # minus quarantined
+        self.manifest["shards"] = [merged[i] for i in sorted(merged)]
+        self._flush_manifest()
+        for path in files:
+            os.remove(path)
+
+    # -- generations --------------------------------------------------------
+    def _gen_path(self, gen: int) -> str:
+        return os.path.join(self.directory, f"gen-{int(gen):04d}")
+
+    def _load_generations(self) -> None:
+        """The longest intact chain gen-NNNN from one past
+        ``compacted_through``: it stops at the first missing, torn
+        (quarantined: renamed aside) or stale (another gen number or model
+        step) manifest, since every later generation was appended against
+        a view that held the broken one."""
+        self._generations = []
+        self._tomb_gen = {}
+        self._dead_cache = {}
+        step = self.manifest.get("model_step")
+        g = int(self.manifest.get("compacted_through", 0)) + 1
+        while True:
+            mpath = os.path.join(self._gen_path(g), "manifest.json")
+            if not os.path.exists(mpath):
+                break
+            try:
+                with open(mpath) as f:
+                    man = json.load(f)
+            except ValueError:
+                q = mpath + ".quarantined"
+                os.replace(mpath, q)
+                _warn(f"generation manifest {mpath} is torn (invalid JSON); "
+                      f"moved aside to {q}; serving the store without "
+                      f"generation {g} and anything after it")
+                break
+            if man.get("gen") != g or man.get("model_step") != step:
+                _warn(f"generation {g} at {mpath} is stale (gen="
+                      f"{man.get('gen')}, model_step={man.get('model_step')} "
+                      f"vs store {step}); serving without it")
+                break
+            self._register_generation(man)
+            g += 1
+
+    def _register_generation(self, man: Dict) -> None:
+        # each entry carries its generation manifest's stamp, as the JAX
+        # package's merged table does
+        for s in man.get("shards", []):
+            s.setdefault("model_step", man.get("model_step"))
+        self._generations.append(man)
+        g = int(man["gen"])
+        for t in man.get("tombstones", []):
+            self._tomb_gen[int(t)] = max(self._tomb_gen.get(int(t), 0), g)
+        self._dead_cache = {}
+
+    def reload_generations(self) -> None:
+        """Pick up the generations another process appended (or
+        quarantined) since this handle was opened."""
+        self._load_generations()
+
+    @property
+    def generation(self) -> int:
+        """The store generation (0: the base embed only). Monotonic across
+        compactions (folded generations still count) and across the JAX
+        package's migration flips (``migration_epoch``)."""
+        return (int(self.manifest.get("compacted_through", 0))
+                + len(self._generations)
+                + int(self.manifest.get("migration_epoch", 0)))
+
+    @property
+    def chain_generation(self) -> int:
+        """The top generation number of the chain (compacted_through plus
+        the intact generations): where the next gen-NNNN lands."""
+        return (int(self.manifest.get("compacted_through", 0))
+                + len(self._generations))
+
+    def generations(self) -> List[Dict]:
+        """The intact generation manifests, in chain order."""
+        return list(self._generations)
+
+    def tombstoned_count(self) -> int:
+        """Page ids with an active tombstone."""
+        return len(self._tomb_gen)
+
+    def appended_vectors(self) -> int:
+        """Rows appended by generations > 0, tombstoned rows included."""
+        return sum(s["count"] for g in self._generations
+                   for s in g.get("shards", []))
+
+    @property
+    def compacted_through(self) -> int:
+        """The highest generation folded into a compacted base (0: never
+        compacted; maintenance/compact.py)."""
+        return int(self.manifest.get("compacted_through", 0))
+
+    def maintenance_stats(self) -> Dict:
+        """The compaction trigger's inputs: tombstone density, the dead
+        rows still stored, and the bytes a compaction would reclaim. Each
+        tombstoned id masks exactly one stored row (an append tombstones
+        only assigned ids, and an update's old row dies when the new one
+        lands)."""
+        dead = len(self._tomb_gen)
+        total = self.num_vectors
+        return {
+            "tombstone_density": round(dead / max(total, 1), 4),
+            "dead_rows": dead,
+            "reclaimable_bytes": dead * (self.row_bytes + 8),
+            "generations": len(self._generations),
+            "compacted_through": self.compacted_through,
+        }
+
+    def _dead_for_gen(self, gen: int) -> np.ndarray:
+        """Sorted page ids tombstoned by a generation LATER than `gen`: the
+        mask of a shard written at `gen` (a tombstone never masks the
+        generation that wrote it, or an update would kill its own new
+        row)."""
+        arr = self._dead_cache.get(gen)
+        if arr is None:
+            arr = np.array(sorted(i for i, tg in self._tomb_gen.items()
+                                  if tg > gen), np.int64)
+            self._dead_cache[gen] = arr
+        return arr
+
+    def _mask_dead(self, ids: np.ndarray, gen: int) -> np.ndarray:
+        if not self._tomb_gen:
+            return ids
+        dead = self._dead_for_gen(int(gen))
+        if not dead.size:
+            return ids
+        return np.where(np.isin(ids, dead), np.int64(-1), ids)
+
+    def _next_shard_index(self) -> int:
+        """One past the highest shard index ever assigned: live entries,
+        quarantined base ranges and every generation's high-water mark, so
+        a new generation never takes a quarantined shard's index."""
+        hi = max((s["index"] + 1 for s in self.shards()), default=0)
+        ss = self.manifest["shard_size"]
+        for lo, _ in self.manifest.get("missing_id_ranges", []):
+            hi = max(hi, lo // ss + 1)
+        for g in self._generations:
+            hi = max(hi, int(g.get("max_index", -1)) + 1)
+        return hi
+
+    def next_page_id(self) -> int:
+        """The append cursor: one past the highest page id ever assigned,
+        counting live shards, quarantined (missing) id ranges, every
+        generation's id_end and a compaction's ``append_cursor``, so an
+        append never re-issues an id."""
+        hi = int(self.manifest.get("append_cursor", 0))
+        ss = self.manifest["shard_size"]
+        for s in self.shards():
+            if s.get("gen", 0):
+                hi = max(hi, int(s.get("id_hi", 0)))
+            else:
+                hi = max(hi, s["index"] * ss + s["count"])
+        for _, rhi in self.manifest.get("missing_id_ranges", []):
+            hi = max(hi, int(rhi))
+        for g in self._generations:
+            hi = max(hi, int(g.get("id_end", 0)))
+        return hi
+
+    def missing_id_ranges(self) -> List[Tuple[int, int]]:
+        """[lo, hi) id ranges dropped by shard quarantines and not yet
+        re-covered: embed resume re-embeds them, and the append cursor
+        counts them as assigned."""
+        return [(int(lo), int(hi)) for lo, hi
+                in self.manifest.get("missing_id_ranges", [])]
+
+    def _record_missing_range(self, lo: int, hi: int) -> None:
+        if hi <= lo:
+            return
+        ranges = {(int(a), int(b))
+                  for a, b in self.manifest.get("missing_id_ranges", [])}
+        ranges.add((int(lo), int(hi)))
+        self.manifest["missing_id_ranges"] = [list(r) for r in sorted(ranges)]
+        self._flush_manifest()
+
+    def _clear_missing_ranges(self, covered) -> None:
+        """Drop the recorded missing ranges that `covered(lo, hi)` holds."""
+        ranges = self.manifest.get("missing_id_ranges", [])
+        kept = [r for r in ranges if not covered(int(r[0]), int(r[1]))]
+        if len(kept) != len(ranges):
+            self.manifest["missing_id_ranges"] = kept
+            self._flush_manifest()
+
+    def begin_generation(self, tombstones=()) -> "GenerationWriter":
+        """Open the next generation for appending; `tombstones` are the
+        page ids it kills in earlier generations (deleted pages, or pages
+        re-appended with fresh vectors). Nothing is visible to readers
+        until ``commit()``."""
+        return GenerationWriter(self, self.chain_generation + 1,
+                                tombstones=tombstones)
+
     def reset(self) -> None:
-        """Drop every shard (the model changed and the vectors are stale)."""
+        """Drop every shard (the model changed and the vectors are stale):
+        the base, the writer manifests' and every generation's, with the
+        compaction and migration leftovers."""
         for s in self.shards():
             for key in _FILES:
                 if key not in s:
@@ -269,8 +554,21 @@ class VectorStore:
                     os.remove(os.path.join(self.directory, s[key]))
                 except FileNotFoundError:
                     pass
+        for path in self._writer_files():
+            os.remove(path)
+        for pat in ("gen-*", "compact-*", "migrate-*"):
+            for path in glob.glob(os.path.join(self.directory, pat)):
+                if os.path.isdir(path):
+                    shutil.rmtree(path, ignore_errors=True)
+        self._generations = []
+        self._tomb_gen = {}
+        self._dead_cache = {}
         self.manifest["shards"] = []
-        self.manifest.pop("missing_id_ranges", None)
+        for key in ("missing_id_ranges", "compacted_through", "append_cursor",
+                    "migration", "gen_overrides"):
+            # migration_epoch stays: generation never moves backward
+            self.manifest.pop(key, None)
+        self._writer_shards = []
         self._flush_manifest()
 
     # -- integrity --------------------------------------------------------
@@ -296,8 +594,10 @@ class VectorStore:
         return None
 
     def quarantine(self, entry: Dict, reason: str) -> None:
-        """Move a bad shard's files aside (.quarantined) and drop its entry,
-        so the next embed_corpus resume re-embeds exactly its id range."""
+        """Move a bad shard's files aside (.quarantined) and drop its entry
+        from whichever manifest holds it; its id range is recorded missing,
+        so embed resume re-embeds it and appends never re-issue it."""
+        idx = entry["index"]
         for key in _FILES:
             if key not in entry:
                 continue
@@ -306,18 +606,38 @@ class VectorStore:
                 os.replace(src, src + ".quarantined")
             except FileNotFoundError:
                 pass
-        ss = self.manifest["shard_size"]
-        lo = entry["index"] * ss
-        ranges = {(int(a), int(b))
-                  for a, b in self.manifest.get("missing_id_ranges", [])}
-        ranges.add((lo, lo + int(entry["count"])))
-        self.manifest["missing_id_ranges"] = [list(r) for r in sorted(ranges)]
-        self.manifest["shards"] = [s for s in self.manifest["shards"]
-                                   if s["index"] != entry["index"]]
-        self._flush_manifest()
-        print(f"WARNING: quarantined store shard {entry['index']} ({reason}); "
-              "its id range will be re-embedded on the next embed resume",
-              flush=True)
+        gen = int(entry.get("gen", 0))
+        if gen:
+            lo, hi = int(entry.get("id_lo", 0)), int(entry.get("id_hi", 0))
+            for g in self._generations:
+                if g["gen"] != gen:
+                    continue
+                shards = g.get("shards", [])
+                kept = [s for s in shards if s["index"] != idx]
+                if len(kept) != len(shards):
+                    g["shards"] = kept
+                    self._atomic_dump(g, os.path.join(self._gen_path(gen),
+                                                      "manifest.json"))
+        else:
+            ss = self.manifest["shard_size"]
+            lo, hi = idx * ss, idx * ss + int(entry["count"])
+        if any(s["index"] == idx for s in self.manifest["shards"]):
+            self.manifest["shards"] = [
+                s for s in self.manifest["shards"] if s["index"] != idx]
+            self._flush_manifest()
+        self._record_missing_range(lo, hi)
+        for path in self._writer_files():
+            data = self._read_writer(path)
+            if data is None:
+                continue
+            shards = data.get("shards", [])
+            kept = [s for s in shards if s["index"] != idx]
+            if len(kept) != len(shards):
+                self._atomic_dump({"shards": kept}, path)
+        self._writer_shards = [
+            s for s in self._writer_shards if s["index"] != idx]
+        _warn(f"quarantined store shard {idx} ({reason}); its id range "
+              "will be re-embedded on the next embed resume")
 
     def verify(self) -> List[int]:
         """Re-check every shard against its recorded sizes/CRCs, quarantining
@@ -339,38 +659,16 @@ class VectorStore:
         Either `vecs` (float rows, quantized here by ``quantize_rows`` when
         the store is int8) or, for an int8 store, `codes` + `scales`
         quantized on the device. Data files are written and fsynced first;
-        the manifest entry lands last, so a crash leaves the shard
-        unrecorded or complete."""
-        data = vecs if codes is None else codes
-        if data.shape[-1] != self.dim:
-            raise ValueError(f"vectors are {data.shape[-1]}-d, store is "
-                             f"{self.dim}-d")
-        int8 = self.manifest["dtype"] == "int8"
-        if codes is not None and not int8:
-            raise ValueError("pre-quantized codes require an int8 store")
-        keep = ids >= 0
-        ids = ids[keep]
-        stem = os.path.join(self.directory, f"shard_{index:05d}")
-        paths = {"vec": stem + ".vec.npy", "ids": stem + ".ids.npy"}
-        if codes is not None:
-            np.save(paths["vec"], np.asarray(codes[keep], np.int8))
-            scl = np.asarray(scales[keep], np.float16)
-        elif int8:
-            q, scl = quantize_rows(np.asarray(vecs)[keep])
-            np.save(paths["vec"], q)
-        else:
-            np.save(paths["vec"], np.asarray(vecs[keep], np.float16))
-        if int8:
-            paths["scl"] = stem + ".scl.npy"
-            np.save(paths["scl"], scl)
-        np.save(paths["ids"], ids.astype(np.int64))
-        entry = {"index": index, "count": int(ids.shape[0]),
-                 **{key: os.path.basename(p) for key, p in paths.items()},
-                 "bytes": {}, "crc": {}}
-        for key, path in paths.items():
-            entry["bytes"][key] = os.path.getsize(path)
-            entry["crc"][key] = crc_file(path)
-            _fsync_path(path)
+        the manifest entry (this writer's manifest, with a `writer_id`)
+        lands last, so a crash leaves the shard unrecorded or complete."""
+        entry = self._write_shard_files("", index, ids, vecs, codes, scales)
+        if self._writer_path is not None:
+            self._writer_shards = sorted(
+                [s for s in self._writer_shards if s["index"] != index]
+                + [entry], key=lambda s: s["index"])
+            self._atomic_dump({"shards": self._writer_shards},
+                              self._writer_path)
+            return
         self.manifest["shards"] = sorted(
             [s for s in self.manifest["shards"] if s["index"] != index]
             + [entry], key=lambda s: s["index"])
@@ -384,14 +682,58 @@ class VectorStore:
             self.manifest["missing_id_ranges"] = kept
         self._flush_manifest()
 
+    def _write_shard_files(self, subdir: str, index: int, ids: np.ndarray,
+                           vecs, codes, scales) -> Dict:
+        """Write and fsync one shard's data files under `subdir` of the
+        store ("" for the base) and return its manifest entry with the
+        files' byte sizes and CRC32s: the core of the base write_shard,
+        GenerationWriter and compaction."""
+        data = vecs if codes is None else codes
+        if data.shape[-1] != self.dim:
+            raise ValueError(f"vectors are {data.shape[-1]}-d, store is "
+                             f"{self.dim}-d")
+        int8 = self.manifest["dtype"] == "int8"
+        if codes is not None and not int8:
+            raise ValueError("pre-quantized codes require an int8 store")
+        keep = ids >= 0
+        ids = ids[keep]
+        d = os.path.join(self.directory, subdir) if subdir else self.directory
+        stem = f"shard_{index:05d}"
+        names = {"vec": stem + ".vec.npy", "ids": stem + ".ids.npy"}
+        if int8:
+            names["scl"] = stem + ".scl.npy"
+        paths = {key: os.path.join(d, n) for key, n in names.items()}
+        if codes is not None:
+            np.save(paths["vec"], np.asarray(codes[keep], np.int8))
+            scl = np.asarray(scales[keep], np.float16)
+        elif int8:
+            q, scl = quantize_rows(np.asarray(vecs)[keep])
+            np.save(paths["vec"], q)
+        else:
+            np.save(paths["vec"], np.asarray(vecs[keep], np.float16))
+        if int8:
+            np.save(paths["scl"], scl)
+        np.save(paths["ids"], ids.astype(np.int64))
+        entry = {"index": index, "count": int(ids.shape[0]),
+                 **{key: os.path.join(subdir, n) if subdir else n
+                    for key, n in names.items()},
+                 "bytes": {}, "crc": {}}
+        for key, path in paths.items():
+            entry["bytes"][key] = os.path.getsize(path)
+            entry["crc"][key] = crc_file(path)
+            _fsync_path(path)
+        return entry
+
     # -- read -------------------------------------------------------------
     def _load_entry(self, entry: Dict, raw: bool = False):
         """(ids [n] int64, vecs [n, dim]): float16 rows memory-mapped, or
         int8 rows dequantized to float32. With `raw`, (ids, stored rows
-        memory-mapped, float16 scales or None), so the card widens them."""
+        memory-mapped, float16 scales or None), so the card widens them.
+        Every reader comes through here, so the tombstones are applied
+        here: an id a later generation tombstoned reads as -1."""
         vecs = np.load(os.path.join(self.directory, entry["vec"]),
                        mmap_mode="r")
-        ids = np.load(os.path.join(self.directory, entry["ids"]))
+        ids = self.load_ids(entry)
         scale = (np.load(os.path.join(self.directory, entry["scl"]))
                  if "scl" in entry else None)
         if raw:
@@ -401,6 +743,15 @@ class VectorStore:
                     * scale.astype(np.float32)[:, None])
         return ids, vecs
 
+    def load_ids(self, entry: Dict) -> np.ndarray:
+        """One shard's page ids, tombstones applied (-1)."""
+        return self._mask_dead(
+            np.load(os.path.join(self.directory, entry["ids"])),
+            entry.get("gen", 0))
+
+    def load_shard(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        return self._load_entry({s["index"]: s for s in self.shards()}[index])
+
     def iter_shards(self, raw: bool = False, prefetch: int = 0,
                     entries: Optional[List[Dict]] = None) -> Iterator[Tuple]:
         """Yield each shard's ``_load_entry(entry, raw)`` in shard order.
@@ -408,8 +759,8 @@ class VectorStore:
         `prefetch` shards ahead and reads each memory-mapped vector file
         into memory on its side: the memmap defers the disk read to the
         first touch, which would otherwise fall back on the consumer.
-        `entries` sweeps the given shard entries instead of the
-        manifest's."""
+        `entries` sweeps the given shard entries instead of the store's
+        table (a serving view's frozen snapshot)."""
         if entries is None:
             entries = self.shards()
         if not prefetch:
@@ -423,10 +774,84 @@ class VectorStore:
         return read_ahead(_load(), depth=prefetch)
 
     def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Concatenated (ids [N] int64, vectors [N, D]: float16, or float32
-        dequantized from an int8 store)."""
+        """Concatenated (ids [N] int64, tombstoned ids -1; vectors [N, D]:
+        float16, or float32 dequantized from an int8 store)."""
         parts = [self._load_entry(s) for s in self.shards()]
         if not parts:
             return (np.zeros(0, np.int64), np.zeros((0, self.dim), np.float16))
         return (np.concatenate([p[0] for p in parts]),
                 np.concatenate([np.asarray(p[1]) for p in parts]))
+
+
+class GenerationWriter:
+    """Appends one generation to a VectorStore. Shards written through
+    ``write_shard`` land under ``gen-NNNN/`` with indices that continue the
+    store's (past quarantined ones too), invisible to every reader until
+    ``commit()`` writes the generation manifest last: a crash or an error
+    mid-append costs this generation only, and ``abort()`` removes its
+    directory. ``commit()`` also clears a recorded missing id range the
+    generation fully re-covers (a repair append)."""
+
+    def __init__(self, store: VectorStore, gen: int, tombstones=()):
+        if gen != store.chain_generation + 1:
+            raise ValueError(f"generation {gen} cannot be opened: the chain "
+                             f"is at {store.chain_generation}")
+        self.store = store
+        self.gen = int(gen)
+        self.tombstones = sorted({int(t) for t in tombstones})
+        self._dir = store._gen_path(gen)
+        # a quarantined generation's number is reused: clear its leftovers
+        # so stale bytes can never satisfy a fresh CRC record
+        if os.path.isdir(self._dir):
+            shutil.rmtree(self._dir, ignore_errors=True)
+        os.makedirs(self._dir, exist_ok=True)
+        self._entries: List[Dict] = []
+        self._next_index = store._next_shard_index()
+        self._id_cursor = store.next_page_id()
+        self._committed = False
+
+    def write_shard(self, ids: np.ndarray,
+                    vecs: Optional[np.ndarray] = None, *,
+                    codes: Optional[np.ndarray] = None,
+                    scales: Optional[np.ndarray] = None) -> Dict:
+        """Persist one appended shard (the vecs / codes contract of
+        VectorStore.write_shard); its shard index is assigned here."""
+        index = self._next_index
+        entry = self.store._write_shard_files(
+            os.path.basename(self._dir), index, ids, vecs, codes, scales)
+        entry["gen"] = self.gen
+        kept = np.asarray(ids)[np.asarray(ids) >= 0]
+        entry["id_lo"] = int(kept.min()) if kept.size else self._id_cursor
+        entry["id_hi"] = int(kept.max()) + 1 if kept.size else self._id_cursor
+        self._entries.append(entry)
+        self._next_index += 1
+        return entry
+
+    def commit(self) -> Dict:
+        """Publish the generation: its manifest, written atomically, last."""
+        if self._committed:
+            raise RuntimeError(f"generation {self.gen} already committed")
+        man = {
+            "gen": self.gen,
+            "model_step": self.store.manifest.get("model_step"),
+            "tombstones": self.tombstones,
+            "id_start": self._id_cursor,
+            "id_end": max([self._id_cursor]
+                          + [e["id_hi"] for e in self._entries]),
+            "max_index": max([self._next_index - 1]
+                             + [e["index"] for e in self._entries]),
+            "shards": sorted(self._entries, key=lambda s: s["index"]),
+        }
+        self.store._atomic_dump(man, os.path.join(self._dir, "manifest.json"))
+        self.store._register_generation(man)
+        if self._entries:
+            lo = min(e["id_lo"] for e in self._entries)
+            hi = max(e["id_hi"] for e in self._entries)
+            self.store._clear_missing_ranges(
+                lambda a, b: lo <= a and b <= hi)
+        self._committed = True
+        return man
+
+    def abort(self) -> None:
+        if not self._committed:
+            shutil.rmtree(self._dir, ignore_errors=True)

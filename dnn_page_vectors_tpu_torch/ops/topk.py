@@ -48,14 +48,18 @@ def _scores(q: torch.Tensor, rows: torch.Tensor,
 
 
 def chunked_topk(q: torch.Tensor, pages: torch.Tensor, k: int = 10,
-                 chunk: int = 8192, scales: Optional[torch.Tensor] = None
+                 chunk: int = 8192, scales: Optional[torch.Tensor] = None,
+                 alive: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Running top-k of q @ pages.T on one device.
 
     q: [Bq, D] (normalized for cosine); pages: [N, D] on q's device, or
-    int8 codes with their float16 `scales` [N].
+    int8 codes with their float16 `scales` [N]. `alive` [N] bool, when
+    given, masks the rows where it is False (a serving view's tombstoned
+    rows) to -inf before the top-k, so a dead row never takes a slot.
     Returns (scores [Bq, k] f32, indices [Bq, k] int64) with indices into
-    `pages` rows; slots without a row (N < k) score -inf with index -1."""
+    `pages` rows; slots without a row (fewer than k live rows) score -inf
+    with index -1."""
     if pages.device != q.device:
         raise ValueError(f"pages on {pages.device}, queries on {q.device}")
     q = q.float()
@@ -68,6 +72,8 @@ def chunked_topk(q: torch.Tensor, pages: torch.Tensor, k: int = 10,
         block = pages[c0: c0 + chunk]
         s = _scores(q, block, None if scales is None
                     else scales[c0: c0 + chunk])                 # [Bq, n]
+        if alive is not None:
+            s = s.masked_fill(~alive[None, c0: c0 + chunk], -torch.inf)
         ids = torch.arange(c0, c0 + block.shape[0], device=q.device)
         cat_s = torch.cat([best_s, s], dim=1)
         cat_i = torch.cat([best_i, ids[None].expand(Bq, -1)], dim=1)

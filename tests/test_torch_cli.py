@@ -138,10 +138,12 @@ def test_unported_commands_exit_naming_their_item(command, tmp_path, capsys):
 
 
 def test_embed_slices_configs_and_workdir(tmp_path, capsys):
-    with pytest.raises(SystemExit, match="item 5"):
-        cli.main(["embed", "--workdir", str(tmp_path), "--start", "256"])
-    with pytest.raises(SystemExit, match="item 5"):
-        cli.main(["embed", "--workdir", str(tmp_path), "--stop", "256"])
+    # a manual-fleet slice needs init-store first (the slices run in
+    # tests/test_torch_updates.py)
+    for flag in ("--start", "--stop"):
+        with pytest.raises(SystemExit, match="run 'init-store' once"):
+            cli.main(["embed", "--workdir", str(tmp_path), "--device",
+                      "cpu", "--set", "data.num_pages=64", flag, "256"])
     cli.main(["configs"])
     assert capsys.readouterr().out.split() == sorted(CONFIGS)
     with pytest.raises(SystemExit) as ei:
@@ -202,9 +204,11 @@ def test_search_one_shot_queries_and_interactive(served, capsys, tmp_path,
     snap = lines[2]
     assert snap["metrics"]["serve_cache_misses"] == 2   # warmup + qs[1]
     assert snap["counters"]["serve.requests"]["value"] == 5
-    monkeypatch.setattr("sys.stdin", io.StringIO(":refresh\n"))
-    with pytest.raises(SystemExit, match=r"item 5\)$"):
-        cli.main(_argv("search", wd, ov, "--interactive"))
+    monkeypatch.setattr("sys.stdin", io.StringIO(f":refresh\n{qs[1]}\n"))
+    lines = _lines(capsys, _argv("search", wd, ov, "--interactive"))
+    assert lines[1]["refreshed"]["store_generation"] == 0
+    assert lines[1]["refreshed"]["new_docs"] == 0
+    assert lines[2]["results"] == svc.search(qs[1], k=10)
     with pytest.raises(SystemExit) as ei:
         cli.main(_argv("search", wd, ov))
     assert ei.value.code == 2 and "--query" in capsys.readouterr().err
@@ -256,6 +260,29 @@ def test_loadtest_report_shape_and_seed_determinism(served, capsys,
         assert rep["transport_totals"]["wire_bytes"] > 0
 
 
+def test_loadtest_mutate_every_hot_swaps_under_the_load(served, capsys,
+                                                       tmp_path):
+    """--mutate-every S: a refresh() every S seconds of each trial, after
+    an append from another writer; the report counts them, and the swap
+    lands the appended generation (a copy of the served workdir)."""
+    import shutil
+    wd = tmp_path / "wd"
+    shutil.copytree(served["wd"], wd)
+    # the served corpus grown by 50 pages (the writer is prefix-stable)
+    grown = write_synth_jsonl(str(tmp_path / "c650.jsonl"), 650, seed=3,
+                              page_len=24, query_len=6)
+    ov = {**served["ov"], "data.corpus": f"jsonl:{grown}",
+          "data.num_pages": 650}
+    app = _lines(capsys, _argv("append", wd, ov, "--tombstone", "5"))[-1]
+    assert app["generation"] == 1 and app["appended"] == 50
+    rep = _lines(capsys, _argv("loadtest", wd, ov, *LOADTEST,
+                               "--mutate-every", "0.2"))[-1]
+    assert rep["mutator_calls"] >= 1 and rep["mutator_errors"] == []
+    assert rep["store_generation"] == 1
+    assert rep["refreshes"] == rep["mutator_calls"]
+    assert rep["trials"][0]["mutator_calls"] >= 1
+
+
 def test_serve_metrics_and_trace(served, capsys):
     wd, ov = served["wd"], served["ov"]
     cli.main(_argv("serve-metrics", wd, ov))
@@ -282,7 +309,8 @@ def test_serve_metrics_and_trace(served, capsys):
 @pytest.mark.parametrize("flags,item", [
     (("--partitions", "2"), 7), (("--replicas", "2"), 7),
     (("--front-ends", "2"), 7), (("--filters",), 7),
-    (("--filter", "lang==0"), 7), (("--mutate-every", "1"), 5)])
+    (("--filter", "lang==0"), 7),
+    (("--mutate-every", "1", "--mutate-mode", "maintain"), 7)])
 def test_unported_serving_flags_exit_naming_their_item(flags, item, tmp_path):
     with pytest.raises(SystemExit) as ei:
         cli.main(["loadtest", "--workdir", str(tmp_path), "--device", "cpu",

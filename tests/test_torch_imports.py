@@ -157,3 +157,30 @@ def test_serving_modules_are_covered(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([command, "--workdir", str(tmp_path / "wd"),
                       "--query", "x"])
+
+
+def test_update_modules_are_covered(tmp_path):
+    """The live-update slice's packages (updates/, maintenance/) are among
+    those the checks above walk, and its entry points run on cuda unless
+    asked for the CPU: append_corpus through its embedder, IVFIndex.update,
+    and the CLI's append and refresh."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    for mod in ("updates", "updates.append", "maintenance",
+                "maintenance.compact", "maintenance.lease"):
+        assert f"dnn_page_vectors_tpu_torch.{mod}" in names, mod
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately runs there")
+    from dnn_page_vectors_tpu_torch import cli
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    store = VectorStore(str(tmp_path / "wd" / "store"), dim=8)
+    store.ensure_model_step(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IVFIndex.update(store)
+    for command in ("append", "refresh"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([command, "--workdir", str(tmp_path / "wd"),
+                      "--set", "data.num_pages=64"])

@@ -351,8 +351,12 @@ def test_warmup_and_metrics(world):
                 "serve_stage_encode_s", "serve_stage_topk_s",
                 "serve_stage_format_s", "serve_encodes"):
         assert key in m, key
-    for key in ("store_generation", "refreshes", "serve_degraded",
-                "serve_recompiles", "transport", "result_cache"):
+    # the generation keys are ported (live updates); a service that never
+    # refreshed reads generation 0 and no refresh
+    assert (m["store_generation"], m["refreshes"], m["docs_appended"],
+            m["tombstoned"]) == (0, 0, 0, 0)
+    for key in ("serve_degraded", "serve_recompiles", "transport",
+                "result_cache"):
         assert key not in m, key
     snap = svc.metrics_snapshot()
     assert snap["metrics"]["num_vectors"] == 300

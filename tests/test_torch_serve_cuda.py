@@ -1,7 +1,8 @@
 """Serving under load on the card: config 3's towers (4 layers) over a
 small fp16 store, staged against streaming, the micro-batcher with
 concurrent callers, and K1's launches: 4 an encode at 4 layers, one encode
-for a call's cache misses, none for a cache hit, all on the tensor cores.
+for a call's cache misses, none for a cache hit, all on the tensor cores;
+an append with tombstones and updates and the refresh() that stages it.
 Every test here needs a CUDA device and skips without one. This file
 imports neither jax nor the JAX package:
 
@@ -132,3 +133,48 @@ def test_k1_launches_per_encode_and_none_for_a_hit(served):
     assert svc.cache_hits == 21
     assert all(getattr(fa, n) == 0 for n in fa.COUNTERS
                if not n.startswith("launches"))
+
+
+@pytest.mark.cuda
+def test_append_tombstone_and_refresh_on_the_card(served, tmp_path):
+    """A base of the first 4,096 pages staged on the card; an append of the
+    rest with 8 pages updated and 8 deleted; refresh() copies only the
+    appended rows from the host (at 512 B a float16 row, plus 8 B a newly
+    masked row), and no dead row takes a result slot: k live hits equal
+    to a service opened fresh on the store, where the dead rows are not
+    staged at all."""
+    from dnn_page_vectors_tpu_torch.updates import append_corpus
+    cfg, emb, corpus, _, queries = served
+    store = VectorStore(str(tmp_path / "s"), dim=cfg.model.out_dim,
+                        shard_size=1_024)
+    store.ensure_model_step(0)
+    emb.embed_corpus(corpus, store, stop=4_096)
+    svc = _service((cfg, emb, corpus, store, queries), query_cache_size=0)
+    before = svc.search_many(queries, k=10)
+    dead = sorted({h[0]["page_id"] for h in before})[:8]
+    upd = [i for i in range(100, 4_096, 500)][:8]
+    stats = append_corpus(emb, corpus, VectorStore(store.directory),
+                          tombstone=dead, update_ids=upd)
+    assert stats["appended"] == PAGES - 4_096 and stats["updated"] == 8
+    info = svc.refresh()
+    st = info["stage"]
+    rows = PAGES - 4_096 + len(upd)
+    assert st["h2d_rows"] == rows and st["reused_entries"] == 4
+    assert st["newly_dead_rows"] == len(set(dead) | set(upd))
+    assert st["h2d_bytes"] == rows * cfg.model.out_dim * 2 + \
+        st["newly_dead_rows"] * 8
+    assert svc.pages.device.type == "cuda" and svc._view.alive is not None
+    after = svc.search_many(queries, k=10)
+    assert all(len(h) == 10 for h in after)
+    gone = set(dead)
+    assert not gone & {h["page_id"] for r in after for h in r}
+    fresh = _service((cfg, emb, corpus, VectorStore(store.directory),
+                      queries), query_cache_size=0)
+    assert fresh._view.alive is None
+    _ties_only(after, fresh.search_many(queries, k=10))
+    # an updated page serves once, from its new row
+    for r in after:
+        ids = [h["page_id"] for h in r]
+        assert len(ids) == len(set(ids))
+    svc.close()
+    fresh.close()
