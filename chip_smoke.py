@@ -165,7 +165,14 @@ Phases, each printing one JSON line:
      launched 4 times a query encode the services dispatched, all on the
      tensor cores, nothing else; (f) at most 90 s, trials of 2 s, at
      most 8 a rate search; (g) no batch retried, nothing on the CPU.
-     Then the corpus file is deleted.
+ 17. live corpus updates (run_updates): appends, tombstones, refresh(),
+     the IVF update and compaction of phase 15's store under load.
+ 18. a rolling migration and background maintenance (run_migration):
+     phase 17's store re-embedded by a tower trained 3 steps further,
+     unit by unit, by the MaintenanceService attached to a loaded
+     SearchServer; every flip against a dual-stamp oracle; then the
+     rebuild pillar's off-path IVF rebuild under load, and the CLI's
+     migrate, index and maintain. Then the corpus file is deleted.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The toy corpora keep each text once made (KeptTexts): the phases read
@@ -365,12 +372,14 @@ PEAK_LIMIT_GB = 80.0
 # with the tokenizer worker pool; PROD_SERIAL_ROWS of it again with one
 # worker; steps of TRAIN_BATCH pairs from the file; then that test's
 # recipe through the CLI (its cdssm_toy overrides, tests/test_scale_1m.py
-# :53-71, and its bar, :90).
-PROD_PAGES = 1_000_000
+# :53-71, and its bar, :90). The corpus is cut to its first 500,000 pages
+# and the serial rows to 20,000 for the script's time limit (PERF.md
+# section 4: phases 15-18 took 1,155 s of a run's 1,200 s on a slow host).
+PROD_PAGES = 500_000
 PROD_SEED = 11
 PROD_PAGE_WORDS = 32
 PROD_QUERY_WORDS = 8
-PROD_SERIAL_ROWS = 100_000
+PROD_SERIAL_ROWS = 20_000
 PROD_PLAIN_PAGES = 20_000
 PROD_TRIGRAM_PLAIN_PAGES = 2_000
 PROD_TRAIN_STEPS = 6
@@ -424,7 +433,7 @@ SERVE_BUDGET_S = 90.0
 SERVE_SCORE_TOL = 1.01e-4
 SERVE_LONE_QUERIES = 50
 # Phase 17, live corpus updates under load: config 3's towers (phase 4's
-# weights and vocab) embed phase 15's first UPD_BASE_PAGES pages (13
+# weights and vocab) embed phase 15's first UPD_BASE_PAGES pages (5
 # shards of 65,536) into a fresh fp16 store, staged whole behind a
 # SearchServer (query and result caches on); then phase 16's Poisson mix
 # (seed 0, Zipf 1.1) at UPD_QPS, at or below the lowest cache-off rate
@@ -435,7 +444,7 @@ SERVE_LONE_QUERIES = 50
 # measure UPD_TRIAL_S, not phase 16's 3 s: an append of 65,536 pages and
 # its refresh took 3.0-4.5 s under the load on an H100 (700 W), and a
 # trial must hold the swap. The appends take the rest
-# of the 1M pages in UPD_APPENDS, the last with UPD_UPDATED pages
+# of the corpus in UPD_APPENDS, the last with UPD_UPDATED pages
 # re-embedded and UPD_TOMBSTONED deleted (seeded picks of the base). Then
 # the IVF update on phase 14's int8 rows under a PQ index of its knobs
 # (UPD_IVF_APPEND pages of phase 4's corpus grown, then UPD_IVF_APPEND_2
@@ -443,8 +452,8 @@ SERVE_LONE_QUERIES = 50
 # the store commands of the CLI at the manual fleet's cdssm_toy overrides
 # (README, "Live updates"; UPD_CLI_OVERRIDES; random weights, no
 # training).
-UPD_BASE_PAGES = 851_968
-UPD_APPENDS = ((851_968, 917_504), (917_504, 983_040), (983_040, 1_000_000))
+UPD_BASE_PAGES = 327_680
+UPD_APPENDS = ((327_680, 393_216), (393_216, 458_752), (458_752, 500_000))
 UPD_UPDATED = 10_000
 UPD_TOMBSTONED = 10_000
 UPD_SEED = 17
@@ -466,6 +475,24 @@ UPD_CLI_GROWN = 700
 # dead of 1,010,000 stored rows is 0.0198)
 UPD_COMPACT_DENSITY = 0.01
 UPD_BUDGET_S = 90.0
+# Phase 18, a rolling model migration and background maintenance under
+# load (run_migration): the target tower trains MIG_TRAIN_STEPS steps from
+# phase 17's weights; MIG_UPDATED updated pages are appended before the
+# sweep (phase 17 leaves one compacted base) and MIG_UPDATED more during
+# it (seeded picks of MIG_SEED among the live pages); the maintenance
+# workers poll every MIG_INTERVAL_S; every flip is probed with MIG_PROBES
+# unseen queries; the sweep's trials stop at MIG_MAX_TRIALS. Then the
+# rebuild pillar over phase 14's int8 rows: MIG_IVF_APPEND pages of phase
+# 4's corpus grown, past an updates.rebuild_drift of MIG_IVF_DRIFT.
+MIG_TRAIN_STEPS = 3
+MIG_UPDATED = 10_000
+MIG_SEED = 19
+MIG_INTERVAL_S = 0.2
+MIG_PROBES = 8
+MIG_MAX_TRIALS = 40
+MIG_IVF_APPEND = 3_000
+MIG_IVF_DRIFT = 0.02
+MIG_BUDGET_S = 100.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -4093,14 +4120,17 @@ class OneShotMutator:
 
 def count_encodes(emb) -> dict:
     """Wraps the embedder's page and query encodes (instance attributes)
-    to count their calls: K1 launches num_layers times a call."""
+    to count their calls: K1 launches num_layers times a call (a query
+    encode with another tower, `model=`, too)."""
     counts = {"page": 0, "query": 0}
+    lock = threading.Lock()
     for kind, name in (("page", "encode_pages"), ("query", "encode_queries")):
         fn = getattr(emb, name)
 
-        def wrapped(ids, _fn=fn, _kind=kind):
-            counts[_kind] += 1
-            return _fn(ids)
+        def wrapped(ids, _fn=fn, _kind=kind, **kw):
+            with lock:
+                counts[_kind] += 1
+            return _fn(ids, **kw)
         setattr(emb, name, wrapped)
     return counts
 
@@ -4602,6 +4632,670 @@ def run_updates(device, data, workdir: str, production: dict) -> dict:
     return rec
 
 
+# -- phase 18: a rolling migration and background maintenance under load ----
+
+class ThreadLaunches:
+    """K1 launches counted per thread, beside the kernel wrappers' own
+    counters: `fa._count` is wrapped to also add to a thread-local tally,
+    so a probe on one thread reads exactly its own launches while other
+    threads serve load."""
+
+    def __init__(self):
+        from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+        self._fa = fa
+        self._orig = fa._count
+        self._local = threading.local()
+        orig, local = self._orig, self._local
+
+        def counted(name, tensor_cores, seg):
+            orig(name, tensor_cores, seg)
+            if name == "launches":
+                local.k1 = getattr(local, "k1", 0) + 1
+        fa._count = counted
+
+    def k1(self) -> int:
+        return getattr(self._local, "k1", 0)
+
+    def close(self) -> None:
+        self._fa._count = self._orig
+
+
+def store_oracle(device, view, towers: dict, q_tok, texts, k: int,
+                 encode) -> tuple:
+    """The dual-stamp oracle: each query encoded by every stamp's tower on
+    the card, each live shard of the view's table read from disk and
+    scored plainly (float32 q @ rows^T) with its own stamp's vector, one
+    top-k over them all. (scores, page ids)."""
+    enc = to_host_ids(q_tok, texts)
+    qs = {s: encode(torch.from_numpy(enc).to(device), towers[s]).float()
+          for s in view.steps}
+    best_s = torch.full((len(texts), k), -torch.inf, device=device)
+    best_i = torch.full((len(texts), k), -1, dtype=torch.int64,
+                        device=device)
+    store = view.store
+    for e in view.entries:
+        if not e["count"]:
+            continue
+        ids = store.load_ids(e)
+        _, vecs, _ = store._load_entry(e, raw=True)
+        live = ids >= 0
+        rows = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(vecs)[live])).to(device).float()
+        pid = torch.from_numpy(ids[live]).to(device)
+        s = qs[store.entry_step(e)] @ rows.T
+        cat_s = torch.cat([best_s, s], dim=1)
+        cat_i = torch.cat([best_i, pid[None].expand(len(texts), -1)], dim=1)
+        best_s, at = torch.topk(cat_s, k, dim=1)
+        best_i = torch.gather(cat_i, 1, at)
+    return best_s.cpu().numpy(), best_i.cpu().numpy()
+
+
+def to_host_ids(tok, texts) -> np.ndarray:
+    enc = tok.encode_batch(list(texts))
+    pad = -len(texts) % 8
+    if pad:
+        enc = np.concatenate([enc, np.zeros((pad,) + enc.shape[1:],
+                                            enc.dtype)])
+    return enc
+
+
+def run_cli_migration(workdir: str) -> dict:
+    """Phase 17's CLI store (cdssm_toy, random weights) through the slice's
+    commands in subprocesses on the card: one training step (a checkpoint
+    at step 1), migrate (the store re-embedded from step 0 to 1), index
+    --pq and maintain --once."""
+    args = cli_fleet_args(workdir, {**UPD_CLI_OVERRIDES,
+                                    "data.num_pages": UPD_CLI_GROWN})
+    out = {"train": run_cli("train", [*args, "--steps", "1"], 600)}
+    for command, extra in (("migrate", []), ("index", ["--pq"]),
+                           ("maintain", ["--once"])):
+        out[command] = run_cli(command, [*args, *extra], 600)
+    return out
+
+
+def run_migration(device, data, workdir: str, production: dict) -> dict:
+    """Phase 18: a rolling model migration and background maintenance on
+    config 3's live 1M-page store under load.
+
+    (a) the target tower: phase 17's weights (config 3's seeded towers)
+    trained MIG_TRAIN_STEPS steps of 8,192 pairs from phase 15's corpus
+    (K1, K2, K3), saved through the port's checkpoint and restored into a
+    fresh Trainer, which stamps it at the next step; (b) phase 17's store
+    is one compacted base, so one generation of MIG_UPDATED updated pages
+    is appended first; (c) a SearchService (query and result caches on)
+    stages it behind a SearchServer with the MaintenanceService attached
+    (start_maintenance(), its workers polling every MIG_INTERVAL_S,
+    units_per_pass 1, purge on) and request_migration(to_step, corpus,
+    target embedder); phase 16's Poisson mix at UPD_QPS over the socket:
+    a warm-up trial, one with no mutation, then UPD_TRIAL_S trials back to
+    back until the sweep completes, the first holding an append of
+    MIG_UPDATED more updated pages at the old step (under the service's
+    mutation lock: a pending unit of the sweep). At each unit's flip, in
+    the migrator's thread: UPD_CHECK_QUERIES corpus queries through the
+    refreshed service equal the dual-stamp oracle (store_oracle) except
+    at ties, their result-cache keys all moved, and a probe of
+    MIG_PROBES unseen queries launches K1 4 times a stamp the view serves
+    (8 mid-sweep, 4 after the flip; ThreadLaunches). After completion:
+    model_step == to_step, migration None, no pending unit, no shard of
+    the old stamp; one base shard and each migrated generation equal a
+    bulk embed of their pages by the target tower byte for byte. (d) the
+    rebuild pillar: phase 17 (d)'s store (phase 14's int8 rows and its
+    appends, under the PQ index of its drift rebuild) served through the
+    index at UPD_QPS with the maintenance
+    attached: an append past MIG_IVF_DRIFT and refresh() in a trial set
+    serve.index_rebuild_pending; the rebuild pillar builds ivf-0001 beside
+    the live index, flips the pointer and hot-swaps within the trials;
+    its files equal a seeded build(dirname=) of the same store byte for
+    byte; full probe with every candidate re-ranked equals exact; the old
+    directory exists at the flip and the janitor removes it later. (e)
+    the CLI's train, migrate, index --pq and maintain --once over phase
+    17's CLI store, beside (c). (f) K1 4 times every page batch and query
+    dispatch of the phase, K2 and K3 only in (a), all on the tensor
+    cores; no failed request, no mutator or pillar error."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
+    from dnn_page_vectors_tpu_torch.data.loader import build_corpus
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.server import SearchServer
+    from dnn_page_vectors_tpu_torch.infer.transport import SocketSearchClient
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.loadgen import make_workload, run_trial
+    from dnn_page_vectors_tpu_torch.maintenance import MigrationPlan
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    from dnn_page_vectors_tpu_torch.ops.topk import topk_over_store
+    from dnn_page_vectors_tpu_torch.train.checkpoint import CheckpointManager
+    from dnn_page_vectors_tpu_torch.train.loop import Trainer
+    from dnn_page_vectors_tpu_torch.updates import append_corpus
+    from dnn_page_vectors_tpu_torch.utils import faults
+    import gc
+    import shutil
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    _, q_tok, p_tok = data
+    path = production["corpus_path"]
+    corpus = JsonlCorpus(path)
+    base_ov = {"data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+               "model.attention": "flash", "eval.store_shard_size": PROD_SHARD,
+               "eval.embed_batch_size": 512}
+    cfg = get_config("bert_mini_v5p16", {
+        **base_ov, "serve.query_cache_size": SERVE_CACHE,
+        "serve.result_cache": True, "obs.window_s": UPD_TRIAL_S,
+        "maintenance.interval_s": MIG_INTERVAL_S,
+        "migrate.batch_rows": PROD_SHARD})
+    m = cfg.model
+    # K1, K2 and K3 of the target tower's steps: a layer of each tower
+    train_k = 2 * m.num_layers * MIG_TRAIN_STEPS
+    store_dir = os.path.join(workdir, "store_updates")
+    old_model = build_two_tower(cfg, vocab_size=p_tok.vocab_size,
+                                device=device)
+    emb = BulkEmbedder(cfg, old_model, p_tok, query_tok=q_tok, device=device)
+    emb.embed_pages(np.zeros((8, p_tok.max_tokens), np.int32))   # warm
+    rec = {"phase": "migration", "config": cfg.name, **widths(cfg),
+           "qps": UPD_QPS, "trial_s": UPD_TRIAL_S,
+           "interval_s": MIG_INTERVAL_S}
+    # (e) the CLI, in subprocesses beside (c)
+    cli_job = Background(run_cli_migration, workdir)
+    torch.cuda.synchronize()
+    reset_counts()
+    tl = ThreadLaunches()
+    enc_old = count_encodes(emb)
+    services, servers, clients, maints = [], [], [], []
+    try:
+        # ---- (a) the target tower -------------------------------------
+        t0 = time.perf_counter()
+        tcfg = get_config("bert_mini_v5p16", base_ov)
+        trainer = Trainer(tcfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                          device=device)
+        same_start = all(torch.equal(a, b) for a, b in zip(
+            trainer.model.state_dict().values(),
+            old_model.state_dict().values()))
+        if not same_start:
+            raise AssertionError("the trainer does not start from phase "
+                                 "17's weights")
+        before = launch_counts()
+        hist = trainer.train(steps=MIG_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        train_counts = {k: after[k] - before[k] for k in after}
+        mgr = CheckpointManager(os.path.join(workdir, "ckpt_migration"))
+        trainer.save(mgr)
+        restored = Trainer(tcfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                           device=device)
+        to_step = restored.restore(mgr)
+        if not (to_step == MIG_TRAIN_STEPS and all(
+                torch.equal(a, b) for a, b in zip(
+                    restored.model.state_dict().values(),
+                    trainer.model.state_dict().values()))):
+            raise AssertionError("the checkpoint round trip of the target "
+                                 "tower")
+        target = restored.model
+        del trainer, restored
+        torch.cuda.empty_cache()
+        names = ("k1", "k2", "k3", "k4")
+        keys = ("launches", "dq_launches", "dkv_launches",
+                "dq_dbias_launches")
+        want_train = {n: train_k if n in ("k1", "k2", "k3") else 0
+                      for n in names}
+        got_train = {n: train_counts[k] for n, k in zip(names, keys)}
+        if got_train != want_train or any(
+                train_counts[k + "_tc"] != train_counts[k] for k in keys):
+            raise AssertionError(f"the target tower's steps launched "
+                                 f"{train_counts}")
+        rec["train"] = {
+            "steps": MIG_TRAIN_STEPS, "batch_pairs": tcfg.train.batch_size,
+            "seconds": time.perf_counter() - t0,
+            "loss": hist.get("loss"), "to_step": to_step,
+            "launches_main_path": got_train,
+            "launches_tensor_core_main_path": {
+                n: train_counts[k + "_tc"] for n, k in zip(names, keys)},
+            "launches_seg_main_path": {
+                n: train_counts[k + "_seg"] for n, k in zip(names, keys)},
+            "launches_one_step": {n: v // MIG_TRAIN_STEPS
+                                  for n, v in got_train.items()},
+            "seg_summary_launches_main_path": 0,
+            "gdead_launches_main_path": 0}
+        emit({"phase": "migration_a_target_tower", **rec["train"]})
+        emb2 = BulkEmbedder(cfg, target, p_tok, query_tok=q_tok,
+                            device=device)
+        enc_new = count_encodes(emb2)
+
+        # ---- (b) a generation to migrate beside the base ---------------
+        store = VectorStore(store_dir)
+        from_step = store.model_step
+        towers = {from_step: old_model, to_step: target}
+        rng = np.random.default_rng(MIG_SEED)
+        phase17 = np.random.default_rng(UPD_SEED).choice(
+            UPD_BASE_PAGES, UPD_UPDATED + UPD_TOMBSTONED, replace=False)
+        gone = set(phase17[UPD_UPDATED:].tolist())
+        pool = np.setdiff1d(np.arange(PROD_PAGES),
+                            np.fromiter(gone, np.int64))
+        picks = rng.choice(pool, 2 * MIG_UPDATED, replace=False)
+        pre_ids, mid_ids = np.sort(picks[:MIG_UPDATED]), \
+            np.sort(picks[MIG_UPDATED:])
+        t0 = time.perf_counter()
+        if not store.generations():
+            append_corpus(emb, corpus, store, start=PROD_PAGES,
+                          stop=PROD_PAGES, update_ids=pre_ids)
+        rec["b_pre_sweep_append_s"] = time.perf_counter() - t0
+        store = VectorStore(store_dir)
+        rec["b_store"] = {"rows": store.num_vectors,
+                          "base_shards": len(store.manifest["shards"]),
+                          "generations": [g["gen"] for g in
+                                          store.generations()],
+                          "compacted_through": store.compacted_through,
+                          "model_step": from_step}
+
+        # ---- (c) the sweep under load -----------------------------------
+        t0 = time.perf_counter()
+        # the rows a unit's refresh must copy: its rows the first stage
+        # took (not those dead then), or all of a generation appended since
+        at_stage = VectorStore(store_dir)
+        units0 = {0: at_stage.manifest["shards"],
+                  **{int(g["gen"]): g["shards"]
+                     for g in at_stage.generations()}}
+        staged_at = {u: int(sum((at_stage.load_ids(e) >= 0).sum()
+                                for e in ents))
+                     for u, ents in units0.items()}
+
+        def staged_rows(unit: int, rows: int) -> int:
+            return staged_at.get(unit, rows)
+        svc = SearchService(cfg, emb, corpus, VectorStore(store_dir))
+        services.append(svc)
+        rec["c_stage_s"] = time.perf_counter() - t0
+        if not svc.preloaded:
+            raise AssertionError("the store is not staged whole")
+        svc.start_batcher()
+        server = SearchServer(svc, executor_workers=SERVE_LOAD_WORKERS)
+        server.start_background()
+        servers.append(server)
+        client = SocketSearchClient(server.host, server.port)
+        clients.append(client)
+        maint = svc.start_maintenance()
+        maints.append(maint)
+        checks = corpus.query_texts(np.linspace(
+            0, PROD_PAGES - 1, UPD_CHECK_QUERIES).astype(np.int64))
+        distinct = corpus.query_texts(range(SERVE_DISTINCT))
+        flips = []
+        real_refresh = svc.refresh
+
+        def refresh(update_index=None):
+            # the migrator's refresh, on its thread under the mutation
+            # lock: the check queries before and after the view moves
+            view0 = svc._view
+            pre = svc.search_many(checks, k=10)
+            keys0 = [svc._result_cache_key(q, 10, None, view=view0)
+                     for q in checks]
+            info = real_refresh(update_index)
+            view = svc._view
+            keys1 = [svc._result_cache_key(q, 10, None, view=view)
+                     for q in checks]
+            qv = svc._embed_queries_cached(view, checks)
+            got_s, got_i, _ = svc._topk_view(view, qv, len(checks), 10)
+            want_s, want_i = store_oracle(
+                device, view, towers, q_tok, checks, 10,
+                lambda ids, tw: emb.encode_queries(ids, model=tw))
+            ties = ties_only(got_s, got_i, want_s[:len(checks)],
+                             want_i[:len(checks)],
+                             f"phase 18 flip {len(flips)} vs the oracle")
+            got = svc.search_many(checks, k=10)
+            if [[h["page_id"] for h in r] for r in got] != got_i.tolist():
+                raise AssertionError("search_many differs from its view's "
+                                     "top-k")
+            k1_0 = tl.k1()
+            probes = [f"migration probe {len(flips)} {i}"
+                      for i in range(MIG_PROBES)]
+            svc.search_many(probes, k=10)
+            probe_k1 = tl.k1() - k1_0
+            one = {"flip": len(flips), "steps_serving": list(view.steps),
+                   "runs": [list(r) for r in view.runs],
+                   "swap_ms": info["swap_ms"],
+                   "refresh_seconds": info["refresh_seconds"],
+                   "stage": info.get("stage"),
+                   "migration": info.get("migration"),
+                   "adopted_step": info.get("migration_adopted_step"),
+                   "store_generation": info["store_generation"],
+                   "tie_rows_vs_oracle": ties,
+                   "cache_keys_moved": sum(a != b
+                                           for a, b in zip(keys0, keys1)),
+                   "answers_changed_by_flip": sum(
+                       [h["page_id"] for h in a] != [h["page_id"] for h in b]
+                       for a, b in zip(pre, got)),
+                   "probe_k1": probe_k1,
+                   "probe_k1_want": m.num_layers * len(view.steps),
+                   "at_s": time.perf_counter() - t_phase}
+            flips.append(one)
+            emit({"phase": f"migration_c_flip_{one['flip']}", **one})
+            return info
+        svc.refresh = refresh
+
+        def workload():
+            return make_workload("poisson", seed=SERVE_SEED,
+                                 distinct=SERVE_DISTINCT, alpha=SERVE_ALPHA,
+                                 profile=((10, None, 1.0),))
+
+        def trial(tsvc, tclient, queries, mutator=None,
+                  duration_s=UPD_TRIAL_S):
+            # every trial starts from cold caches, as phase 17's do
+            tsvc.clear_cache()
+            return run_trial(tsvc, workload(), UPD_QPS, queries,
+                             duration_s=duration_s, warmup_s=SERVE_WARMUP_S,
+                             workers=SERVE_LOAD_WORKERS, client=tclient,
+                             mutator=mutator)
+
+        rec["c_warm"] = trial_line(trial(svc, client, distinct,
+                                         duration_s=SERVE_WARM_S))
+        base_trial = trial(svc, client, distinct)
+        rec["c_no_mutation"] = trial_line(base_trial)
+        emit({"phase": "migration_c_no_mutation", **rec["c_no_mutation"],
+              "at_s": time.perf_counter() - t_phase})
+        t_sweep = time.perf_counter()
+        maint.request_migration(to_step, corpus, emb2)
+
+        def mid_append():
+            # once the sweep has begun, under the mutation lock: between
+            # two units, never under a flip, so the completion sees this
+            # generation as a pending unit
+            t_wait = time.perf_counter() + 60.0
+            while VectorStore(store_dir, verify=False).migration is None:
+                if time.perf_counter() > t_wait:
+                    raise AssertionError("the sweep did not begin")
+                time.sleep(0.05)
+            with maint.exclusive():
+                t = time.perf_counter()
+                st = append_corpus(emb, corpus, VectorStore(store_dir),
+                                   start=PROD_PAGES, stop=PROD_PAGES,
+                                   update_ids=mid_ids)
+                return st, time.perf_counter() - t, len(flips)
+        trials, errors = [], []
+        mut = OneShotMutator("append_mid_sweep", mid_append, UPD_FIRE_S)
+        while not any(f["adopted_step"] is not None for f in flips):
+            if len(trials) >= MIG_MAX_TRIALS:
+                raise AssertionError(f"the sweep did not complete in "
+                                     f"{len(trials)} trials: {flips}")
+            tr = trial(svc, client, distinct,
+                       mutator=mut if not trials else None)
+            trials.append(trial_line(tr))
+            emit({"phase": f"migration_c_trial_{len(trials)}",
+                  **trials[-1], "flips_so_far": len(flips),
+                  "at_s": time.perf_counter() - t_phase})
+            if tr["errors"]:
+                raise AssertionError(f"failed requests in sweep trial "
+                                     f"{len(trials)}: {trials[-1]}")
+        sweep_s = time.perf_counter() - t_sweep
+        mut.join()
+        errors += mut.errors
+        pillar_errors = {k: v for k, v in faults.counters().items()
+                         if k.startswith("maintenance_")}
+        if errors or base_trial["errors"] or pillar_errors or \
+                mut.result is None:
+            raise AssertionError(f"mutator errors {errors}, pillar errors "
+                                 f"{pillar_errors}, {base_trial['errors']} "
+                                 "failed requests")
+        mid_stats, mid_s, mid_after_flips = mut.result
+        # the checks after completion
+        done = VectorStore(store_dir)
+        pend = MigrationPlan(done, corpus, emb2, to_step).pending_units()
+        old_left = [e["index"] for e in done.shards()
+                    if done.entry_step(e) != to_step]
+        if not (done.model_step == to_step and done.migration is None
+                and pend == [] and not old_left
+                and done.model_steps() == [to_step]):
+            raise AssertionError(f"the store after the sweep: step "
+                                 f"{done.model_step}, {done.migration}, "
+                                 f"pending {pend}, old shards {old_left}")
+        bad_flips = [f for f in flips
+                     if f["cache_keys_moved"] != UPD_CHECK_QUERIES
+                     or f["probe_k1"] != f["probe_k1_want"]]
+        if bad_flips or len(flips) < 4 or svc._towers:
+            raise AssertionError(f"the flips: {flips}")
+        units = [e for e in svc.registry.events()
+                 if e["event"] == "migration_generation_done"]
+        # each unit's refresh copied exactly the unit's rows from the host
+        if len(units) != len(flips) - 1:
+            raise AssertionError(f"{len(units)} units for {len(flips)} "
+                                 "flips")
+        for f, u in zip(flips, units):
+            st = f["stage"]
+            f["unit"] = u["attrs"]["generation"]
+            f["unit_rows"] = u["attrs"]["rows"]
+            f["unit_seconds"] = u["attrs"]["seconds"]
+            f["staged_rows"] = staged_rows(f["unit"], f["unit_rows"])
+            f["h2d_bytes_want"] = f["staged_rows"] * done.row_bytes
+            # the unit's rows, and any generation appended since the last
+            # refresh, come from the host; nothing else
+            f["unit_h2d_bytes"] = st["replaced_rows"] * done.row_bytes
+            if st["replaced_rows"] != f["staged_rows"] or \
+                    st["h2d_bytes"] != st["h2d_rows"] * done.row_bytes \
+                    + 8 * st["newly_dead_rows"]:
+                raise AssertionError(f"flip {f['flip']} moved {st} for a "
+                                     f"unit of {f['unit_rows']} rows")
+        # migrated rows vs a bulk embed by the target tower, byte for byte
+        byte_equal = {}
+        base0 = done.manifest["shards"][0]
+        gens = [s for g in done.generations() for s in g["shards"]]
+        for e in [base0, *gens]:
+            ids = np.load(os.path.join(done.directory, e["ids"]))
+            want = emb2.embed_texts([corpus.page_text(int(i)) for i in ids],
+                                    tower="page")
+            got = np.load(os.path.join(done.directory, e["vec"]))
+            byte_equal[e["vec"]] = bool(np.array_equal(
+                got.view(np.uint16), want.view(np.uint16)))
+        if not all(byte_equal.values()):
+            raise AssertionError(f"migrated rows differ from a bulk embed "
+                                 f"by the target tower: {byte_equal}")
+        rows = sum(f.get("unit_rows", 0) for f in flips)
+        rec["c_sweep"] = {
+            "from_step": from_step, "to_step": to_step,
+            "seconds": sweep_s, "rows": rows,
+            "pages_per_s_under_load": rows / sweep_s,
+            "units": [{k: f.get(k) for k in (
+                "unit", "unit_rows", "staged_rows", "unit_seconds",
+                "swap_ms", "refresh_seconds", "h2d_bytes_want",
+                "unit_h2d_bytes")}
+                | {"h2d_bytes": (f["stage"] or {}).get("h2d_bytes"),
+                   "d2d_bytes": (f["stage"] or {}).get("d2d_bytes")}
+                for f in flips],
+            "mid_sweep_append": {"updated": mid_stats["updated"],
+                                 "generation": mid_stats["generation"],
+                                 "seconds": mid_s,
+                                 "after_flips": mid_after_flips},
+            "trials": trials, "byte_equal_bulk_embed": byte_equal,
+            "rows_after": done.num_vectors,
+            "at_s": time.perf_counter() - t_phase}
+        rec["c_flips"] = flips
+        emit({"phase": "migration_c_sweep", **rec["c_sweep"]})
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.close()
+        for s in services:
+            s.close()
+        clients.clear()
+        servers.clear()
+        services.clear()
+    try:
+        # ---- (d) the rebuild pillar under load --------------------------
+        t0 = time.perf_counter()
+        # phase 17 (d)'s store: phase 14's int8 rows and its appends, under
+        # the PQ index of its drift rebuild
+        ivf_dir = os.path.join(workdir, "ivf_updates")
+        n0 = VectorStore(ivf_dir).num_vectors
+        icfg = get_config("bert_mini_v5p16", {
+            "data.num_pages": n0, "serve.index": "ivf",
+            "serve.pq_m": IVF_PQ_M, "eval.store_dtype": "int8",
+            "updates.rebuild_drift": MIG_IVF_DRIFT,
+            "serve.query_cache_size": SERVE_CACHE,
+            "obs.window_s": UPD_TRIAL_S,
+            "maintenance.interval_s": MIG_INTERVAL_S})
+        grown = KeptTexts(build_corpus(data_config(
+            "bert_mini_v5p16", n0 + MIG_IVF_APPEND)))
+        emb_i = BulkEmbedder(icfg, old_model, p_tok, query_tok=q_tok,
+                             device=device)
+        enc_i = count_encodes(emb_i)
+        isvc = SearchService(icfg, emb_i, grown, VectorStore(ivf_dir))
+        services.append(isvc)
+        if isvc.index is None:
+            raise AssertionError("the PQ index does not serve")
+        isvc.start_batcher()
+        iserver = SearchServer(isvc, executor_workers=SERVE_LOAD_WORKERS)
+        iserver.start_background()
+        servers.append(iserver)
+        iclient = SocketSearchClient(iserver.host, iserver.port)
+        clients.append(iclient)
+        imaint = isvc.start_maintenance()
+        maints.append(imaint)
+        gauge = isvc.registry.gauge("serve.index_rebuild_pending")
+        swaps = []
+        real_irefresh = isvc.refresh
+
+        def irefresh(update_index=None):
+            old = os.path.join(ivf_dir, isvc._view.store.index_dirname)
+            info = real_irefresh(update_index)
+            swaps.append({"old_dir": old,
+                          "old_dir_exists_at_swap": os.path.isdir(old),
+                          "index_dirname": isvc._view.store.index_dirname,
+                          "at_s": time.perf_counter() - t_phase})
+            return info
+        isvc.refresh = irefresh
+        iqueries = [grown.query_text(i)
+                    for i in range(min(SERVE_DISTINCT, n0))]
+        rec["d_warm"] = trial_line(trial(isvc, iclient, iqueries,
+                                         duration_s=SERVE_WARM_S))
+
+        def append_refresh():
+            t = time.perf_counter()
+            st = append_corpus(emb_i, grown, VectorStore(ivf_dir), start=n0,
+                               stop=n0 + MIG_IVF_APPEND)
+            info = isvc.refresh()
+            return st, info, gauge.value, time.perf_counter() - t
+        imut = OneShotMutator("append_refresh", append_refresh, UPD_FIRE_S)
+        itrials = []
+        t_rb = time.perf_counter()
+        while not (swaps and swaps[-1]["index_dirname"] == "ivf-0001"):
+            if len(itrials) >= MIG_MAX_TRIALS:
+                raise AssertionError("the background rebuild did not swap "
+                                     f"in {len(itrials)} trials")
+            tr = trial(isvc, iclient, iqueries,
+                       mutator=imut if not itrials else None)
+            itrials.append(trial_line(tr))
+            if tr["errors"]:
+                raise AssertionError(f"failed requests in rebuild trial "
+                                     f"{len(itrials)}: {itrials[-1]}")
+        imut.join()
+        if imut.errors or imut.result is None:
+            raise AssertionError(f"the IVF append: {imut.errors}")
+        ast, ainfo, pending_after_refresh, append_s = imut.result
+        upd = ainfo.get("index_update") or {}
+        last_rb = imaint.stats()["last"].get("rebuild") or {}
+        if not (upd.get("rebuild_pending") and pending_after_refresh == 1.0
+                and gauge.value == 0.0 and last_rb.get("dirname")
+                == "ivf-0001" and isvc.full_rebuilds == 1):
+            raise AssertionError(f"the deferred rebuild: {upd}, gauge "
+                                 f"{pending_after_refresh} then "
+                                 f"{gauge.value}, {last_rb}")
+        ist = VectorStore(ivf_dir)
+        live_dir = os.path.join(ivf_dir, ist.index_dirname)
+        man = json.load(open(os.path.join(live_dir, "manifest.json")))
+        pq = man["pq"]
+        IVFIndex.build(ist, nlist=icfg.serve.nlist,
+                       iters=icfg.serve.kmeans_iters, seed=icfg.data.seed,
+                       init=icfg.serve.kmeans_init,
+                       balance=man.get("balance", 0.0), pq_m=pq["m"],
+                       pq_iters=pq["iters"], opq_iters=pq["opq_iters"],
+                       device=device, dirname="ivf-seeded")
+        a = npy_bytes(live_dir)
+        b = npy_bytes(os.path.join(ivf_dir, "ivf-seeded"))
+        if a != b or not a:
+            raise AssertionError("ivf-0001 differs from a seeded build of "
+                                 "the same store")
+        shutil.rmtree(os.path.join(ivf_dir, "ivf-seeded"))
+        qids = np.concatenate([np.linspace(0, n0 - 1, 24),
+                               np.linspace(n0, n0 + MIG_IVF_APPEND - 1, 8)]
+                              ).astype(np.int64)
+        ivf_q = emb_i.embed_texts([grown.query_text(int(i)) for i in qids])
+        idx = isvc.index
+        ann_s, ann_i, _ = idx.search(ivf_q, k=10, nprobe=idx.nlist,
+                                     rerank=ist.num_vectors)
+        ex_s, ex_i = topk_over_store(ivf_q, ist, k=10, device=device)
+        ties_ivf = ties_only(ann_s, ann_i, ex_s, ex_i,
+                             "phase 18 (d) the rebuilt index's full probe "
+                             "vs exact")
+        # the janitor: the old index existed at the flip; a pass removes it
+        old_dir = swaps[-1]["old_dir"]
+        janitor = imaint.run_once().get("janitor") or {}
+        if not (swaps[-1]["old_dir_exists_at_swap"]
+                and not os.path.isdir(old_dir)
+                and os.path.isdir(live_dir)):
+            raise AssertionError(f"the janitor: {swaps}, {janitor}")
+        rec["d_rebuild"] = {
+            "store_rows": n0, "append": ast["appended"],
+            "append_s": append_s, "drift": upd.get("drift"),
+            "index_update": upd,
+            "pending_gauge_after_refresh": pending_after_refresh,
+            "rebuild": last_rb,
+            "rebuild_done_after_s": swaps[-1]["at_s"] - (t_rb - t_phase),
+            "swaps": swaps, "trials": itrials,
+            "p99_of_trial_holding_the_rebuild": max(
+                t.get("client_p99_ms") or 0.0 for t in itrials),
+            "files_equal_seeded_build": True,
+            "tie_rows_full_probe_vs_exact": ties_ivf,
+            "janitor_pass_after": janitor,
+            "seconds": time.perf_counter() - t0,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "migration_d_rebuild", **rec["d_rebuild"]})
+        cli = {k: {"out": v[0], "seconds": v[1]}
+               for k, v in cli_job.result().items()}
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.close()
+        for s in services:
+            s.close()
+        tl.close()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    mig_out, idx_out = cli["migrate"]["out"], cli["index"]["out"]
+    ok = (mig_out["action"] == "migrated" and mig_out["to_step"] == 1
+          and mig_out["completed"] and mig_out["rows"] == UPD_CLI_GROWN + 1
+          and idx_out["model_step"] == 1 and idx_out["pq_m"] > 0
+          and idx_out["vectors"] == UPD_CLI_GROWN + 1
+          and "store" in cli["maintain"]["out"])
+    rec["e_cli"] = {**cli, "ok": ok}
+    emit({"phase": "migration_e_cli", **rec["e_cli"]})
+    if not ok:
+        raise AssertionError(f"the CLI's commands: {rec['e_cli']}")
+    # (f) K1 4 times every encode call, K2 and K3 only in the training
+    calls = {"page_old": enc_old["page"], "query_old": enc_old["query"],
+             "page_target": enc_new["page"], "query_target": enc_new["query"],
+             "page_ivf": enc_i["page"], "query_ivf": enc_i["query"]}
+    k1 = m.num_layers * sum(calls.values()) + train_k
+    want = expected_launches(k1, train_k)
+    if counts != want:
+        raise AssertionError(f"phase 18 launched {counts}, want {want} "
+                             f"({calls})")
+    del services, svc, isvc, target
+    torch.cuda.empty_cache()
+    gc.unfreeze()
+    seconds = time.perf_counter() - t_phase
+    rec.update({"encode_calls": calls,
+                "k1_launches": counts["launches"] - train_k,
+                "k1_launches_tensor_core": counts["launches_tc"] - train_k,
+                "seconds": seconds, "budget_s": MIG_BUDGET_S,
+                "over_budget": seconds > MIG_BUDGET_S,
+                "device": torch.cuda.get_device_name(0),
+                "nvidia_smi": nvidia_smi()})
+    emit({k: v for k, v in rec.items()
+          if k not in ("c_flips", "e_cli", "d_rebuild", "c_sweep")})
+    return rec
+
+
 # the bool template flags of each templated kernel, in order
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
@@ -4692,7 +5386,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-17; fills `report` and returns the `kernels` line's
+    """Phases 2-18; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -4851,9 +5545,14 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
             done("serving")
             report["updates"] = run_updates(device, bert, tmp,
                                             report["production"])
+            done("updates")
+            # phase 18: a rolling migration of phase 17's store and the
+            # background maintenance, under load
+            report["migration"] = run_migration(device, bert, tmp,
+                                                report["production"])
         finally:
             os.remove(report["production"]["corpus_path"])
-        done("updates")
+        done("migration")
     emit({"phase": "timeline", "seconds_at_end_of": timeline})
     return kernel_entries(report)
 
@@ -4895,7 +5594,9 @@ def kernel_entries(report: dict) -> list:
              "production_1m_embed": report["production"]["embed"][
                  "k1_launches"],
              "serving_under_load": report["serving"]["k1_launches"],
-             "live_updates": report["updates"]["k1_launches"]}
+             "live_updates": report["updates"]["k1_launches"],
+             "migration_and_maintenance": report["migration"][
+                 "k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -4903,7 +5604,8 @@ def kernel_entries(report: dict) -> list:
                 *((f"{z}_training", report[f"{z}_train"]) for z in zoo),
                 ("hardneg_pipeline", report["hardneg"]),
                 ("production_training_from_jsonl",
-                 report["production"]["train"]))
+                 report["production"]["train"]),
+                ("migration_target_training", report["migration"]["train"]))
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
@@ -4918,6 +5620,8 @@ def kernel_entries(report: dict) -> list:
                "serving_under_load": report["serving"][
                    "k1_launches_tensor_core"],
                "live_updates": report["updates"][
+                   "k1_launches_tensor_core"],
+               "migration_and_maintenance": report["migration"][
                    "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}

@@ -21,6 +21,10 @@ commands of the JAX package's CLI.
       --workdir W --set data.num_pages=N [--tombstone 3,4] [--update-ids 9]
   python -m dnn_page_vectors_tpu_torch.cli refresh --workdir W
   python -m dnn_page_vectors_tpu_torch.cli reset-store --workdir W
+  python -m dnn_page_vectors_tpu_torch.cli migrate --config cdssm_toy \
+      --workdir W                 # re-embed the store at the checkpoint's step
+  python -m dnn_page_vectors_tpu_torch.cli index --workdir W [--pq]
+  python -m dnn_page_vectors_tpu_torch.cli maintain --workdir W [--once]
 
 Any config field is overridable with ``--set section.field=value``, e.g.
 ``--set data.corpus=jsonl:/data/pages.jsonl`` for a corpus of
@@ -50,9 +54,19 @@ drops every shard. ``loadtest --mutate-every S`` hot-swaps the service
 (``refresh()``) every S seconds under the load, and exits non-zero if a
 refresh failed; ``search --interactive`` takes ``:refresh``.
 
-The JAX CLI's other commands (``migrate``, ``index``, ``maintain``,
-``partition-worker``, ``lint``) exit non-zero with a message naming the
-ROADMAP.md item that ports them; none runs anything in their place.
+Migrations and maintenance (the JAX CLI's keys): ``migrate`` re-embeds
+the store to the newest checkpoint's step unit by unit (a rolling
+migration, resumable; ``migrate.purge`` removes the superseded files);
+``index`` builds the IVF index over the store (``--pq``: with OPQ+PQ codes,
+``serve.pq_m`` or an automatic dim/8); ``maintain --once`` runs one pass
+of the MaintenanceService's pillars and prints it, and without ``--once``
+runs the pillar workers until interrupted, a JSON line a pass that did
+work. ``loadtest --mutate-every S --mutate-mode maintain`` alternates a
+tombstone burst with its refresh and a maintenance pass under the load.
+
+The JAX CLI's other commands (``partition-worker``, ``lint``) exit
+non-zero with a message naming the ROADMAP.md item that ports them; none
+runs anything in their place.
 """
 from __future__ import annotations
 
@@ -66,13 +80,10 @@ from dnn_page_vectors_tpu_torch.config import CONFIGS, get_config
 
 PORTED = ("configs", "train", "embed", "eval", "mine", "pipeline", "search",
           "loadtest", "serve-metrics", "trace", "init-store", "merge-store",
-          "reset-store", "append", "refresh")
+          "reset-store", "append", "refresh", "migrate", "index", "maintain")
 # command -> (ROADMAP.md queue 1 item, what it needs)
 NOT_PORTED = {
-    "migrate": (5, "rolling model migrations (maintenance/migrate.py)"),
-    "index": (7, "the index command"),
-    "maintain": (7, "the background MaintenanceService"),
-    "partition-worker": (7, "partitioned serving"),
+    "partition-worker": ("7.4", "partitioned serving"),
     "lint": (8, "graftcheck over the port"),
 }
 
@@ -151,9 +162,6 @@ def _refuse_unported_serving(args) -> None:
     if args.filter_expr or args.lt_filters:
         raise _not_ported("filtered retrieval (--filter, --filters)", 7,
                           "index/attrs.py and per-row store attributes")
-    if args.mutate_every and args.mutate_mode == "maintain":
-        raise _not_ported("loadtest --mutate-mode maintain", 7,
-                          "the background MaintenanceService")
 
 
 def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
@@ -265,10 +273,32 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         Mutator, find_qps_at_p99, make_workload)
     svc = SearchService(cfg, embedder, trainer.corpus, store,
                         preload_hbm_gb=4.0)
-    # the hot swap under the load: a refresh every --mutate-every seconds
-    # (append from another process to give it something to swap in)
-    mut = (Mutator(svc.refresh, period_s=args.mutate_every)
-           if args.mutate_every else None)
+    if args.mutate_every and args.mutate_mode == "maintain":
+        # maintenance under the load: a tombstone burst and its refresh,
+        # then a maintenance pass (compaction, rebuilds, the janitor), in
+        # turns; lower maintenance.compact_tombstone_density with --set to
+        # make a compaction fire within a short run
+        from dnn_page_vectors_tpu_torch.updates import append_corpus
+        maint = svc.start_maintenance(threads=False)
+        n_base = max(store.num_vectors, 1)
+        tomb = {"next": 0}
+        chunk = max(16, n_base // 64)
+
+        def _tombstone_refresh():
+            ids = sorted({(tomb["next"] + i) % n_base for i in range(chunk)})
+            tomb["next"] = (tomb["next"] + chunk) % n_base
+            append_corpus(embedder, trainer.corpus, svc.store, tombstone=ids)
+            svc.refresh()
+
+        mut = Mutator(ops=[("tombstone_refresh", _tombstone_refresh),
+                           ("maintain", maint.run_once)],
+                      period_s=args.mutate_every)
+    elif args.mutate_every:
+        # the hot swap under the load: a refresh every --mutate-every
+        # seconds (append from another process to give it something)
+        mut = Mutator(svc.refresh, period_s=args.mutate_every)
+    else:
+        mut = None
     svc.warmup(k=k)
     svc.start_batcher()
     server = client = None
@@ -321,17 +351,20 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         report.update({"mutate_every_s": args.mutate_every,
                        "mutate_mode": args.mutate_mode,
                        "mutator_calls": mut.calls,
+                       "mutator_calls_by_op": mut.calls_by_op,
                        "mutator_errors": mut.errors,
                        "store_generation": final["store_generation"],
-                       "refreshes": final["refreshes"]})
+                       "refreshes": final["refreshes"],
+                       "full_rebuilds": final["full_rebuilds"]})
     print(json.dumps(report))
     if mut is not None and mut.errors:
         # the trial survives a failed mutation; the command does not
-        raise SystemExit(f"{len(mut.errors)} of {mut.calls} refreshes "
+        raise SystemExit(f"{len(mut.errors)} of {mut.calls} mutations "
                          f"failed under the load: {mut.errors[:3]}")
 
 
-STORE_ADMIN = ("init-store", "merge-store", "reset-store", "refresh")
+STORE_ADMIN = ("init-store", "merge-store", "reset-store", "refresh",
+               "index", "maintain")
 
 
 def _ids_arg(text: Optional[str]) -> List[int]:
@@ -341,8 +374,8 @@ def _ids_arg(text: Optional[str]) -> List[int]:
 def _store_admin(args, cfg, workdir: str, store_dir: str) -> None:
     """The store commands that need no model: init-store (the stamp of a
     manual fleet, from the newest checkpoint's step), merge-store,
-    reset-store, and refresh (the IVF index brought up to date on
-    --device)."""
+    reset-store, refresh (the IVF index brought up to date on --device),
+    index (the IVF index built) and maintain (the MaintenanceService)."""
     from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
     if args.command == "init-store":
         from dnn_page_vectors_tpu_torch.infer.vector_store import (
@@ -359,6 +392,12 @@ def _store_admin(args, cfg, workdir: str, store_dir: str) -> None:
         store = VectorStore(store_dir)
     except FileNotFoundError:
         raise SystemExit(f"no store at {store_dir}; run 'embed' first")
+    if args.command == "index":
+        _index(args, cfg, store, store_dir)
+        return
+    if args.command == "maintain":
+        _maintain(args, cfg, store, store_dir)
+        return
     if args.command == "reset-store":
         n = store.num_vectors
         store.reset()
@@ -382,6 +421,107 @@ def _store_admin(args, cfg, workdir: str, store_dir: str) -> None:
         "store_generation": store.generation, "nlist": idx.nlist,
         "imbalance": idx.imbalance, "index_generation": idx.index_generation,
         **info}, sort_keys=True))
+
+
+def _index(args, cfg, store, store_dir: str) -> None:
+    """index: the IVF index built over the store on --device (--pq, or a
+    non-zero serve.pq_m: with OPQ+PQ codes; --pq alone takes dim/8
+    subspaces), overwriting the live index directory."""
+    import time
+
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
+    from dnn_page_vectors_tpu_torch.index.pq import auto_pq_m
+    from dnn_page_vectors_tpu_torch.utils import faults
+    sv = cfg.serve
+    pq_m = sv.pq_m
+    if args.pq and not pq_m:
+        pq_m = auto_pq_m(store.dim)
+    t0 = time.perf_counter()
+    idx = IVFIndex.build(store, nlist=sv.nlist, iters=sv.kmeans_iters,
+                         seed=cfg.data.seed, init=sv.kmeans_init,
+                         balance=sv.kmeans_balance, pq_m=pq_m,
+                         pq_iters=sv.pq_iters, opq_iters=sv.pq_opq_iters,
+                         device=args.device)
+    # what the seeding bought (init -> final) and the assignment cap
+    # (raw -> balanced)
+    init_imb = float(idx.manifest.get("init_imbalance", 0.0))
+    raw_imb = float(idx.manifest.get("imbalance_raw", idx.imbalance))
+    pq_sec = idx.manifest.get("pq") or {}
+    print(json.dumps({
+        "store": store_dir, "vectors": store.num_vectors,
+        "nlist": idx.nlist, "imbalance": idx.imbalance,
+        "kmeans_init": idx.manifest.get("init"),
+        "imbalance_init": init_imb,
+        "imbalance_delta": round(init_imb - idx.imbalance, 4),
+        "balance_cap": idx.manifest.get("balance_cap", 0),
+        "imbalance_raw": raw_imb,
+        "imbalance_balance_delta": round(raw_imb - idx.imbalance, 4),
+        "pq_m": idx.pq_m,
+        "codebook_build_seconds": pq_sec.get("train_seconds"),
+        "model_step": idx.model_step,
+        "build_seconds": round(time.perf_counter() - t0, 3),
+        "fault_counters": faults.counters()}, sort_keys=True))
+
+
+def _maintain(args, cfg, store, store_dir: str) -> None:
+    """maintain: the MaintenanceService over the store on --device.
+    --once prints one pass of every pillar; otherwise the pillar workers
+    poll every maintenance.interval_s until interrupted, one JSON line a
+    pass that did work."""
+    import time
+
+    from dnn_page_vectors_tpu_torch.maintenance import MaintenanceService
+    from dnn_page_vectors_tpu_torch.utils import faults
+    ms = MaintenanceService(cfg, store.directory, device=args.device)
+    if args.once:
+        out = ms.run_once()
+        print(json.dumps({"store": store_dir, **out,
+                          "fault_counters": faults.counters()},
+                         sort_keys=True))
+        return
+    print(json.dumps({"maintaining": store_dir,
+                      "interval_s": cfg.maintenance.interval_s}),
+          file=sys.stderr, flush=True)
+    ms.start()
+    seen: Dict[str, int] = {}
+    try:
+        while True:
+            time.sleep(cfg.maintenance.interval_s)
+            snap = ms.stats()
+            for pillar, n in snap["passes"].items():
+                if n != seen.get(pillar):
+                    seen[pillar] = n
+                    print(json.dumps(
+                        {pillar: snap["last"].get(pillar), "passes": n},
+                        sort_keys=True), flush=True)
+    except KeyboardInterrupt:
+        ms.close()
+
+
+def _migrate(cfg, trainer, embedder, store_dir: str) -> None:
+    """migrate: the store re-embedded to the checkpoint's step, unit by
+    unit (maintenance/migrate.py), then the superseded files purged
+    (migrate.purge)."""
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.maintenance import (
+        migrate_store, purge_stale)
+    from dnn_page_vectors_tpu_torch.utils import faults
+    try:
+        store = VectorStore(store_dir)
+    except FileNotFoundError:
+        raise SystemExit(f"no store at {store_dir}; run 'embed' before "
+                         "migrating")
+    out = migrate_store(store, trainer.corpus, embedder, trainer.step,
+                        batch_rows=cfg.migrate.batch_rows)
+    purged = {}
+    if cfg.migrate.purge and out.get("action") == "migrated":
+        purged = purge_stale(store, out)
+    print(json.dumps({
+        "store": store_dir,
+        **{k: v for k, v in out.items()
+           if k not in ("stale_files", "stale_dirs")},
+        **purged, "store_generation": store.generation,
+        "fault_counters": faults.counters()}, sort_keys=True))
 
 
 def _append(cfg, trainer, embedder, store_dir: str, workdir: str,
@@ -534,7 +674,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--mutate-mode", dest="mutate_mode", default="refresh",
                     choices=["refresh", "maintain"],
                     help="loadtest: what --mutate-every fires: 'refresh' "
-                         "(the hot swap); 'maintain' is not ported")
+                         "(the hot swap) or 'maintain' (a tombstone burst "
+                         "and its refresh, then a maintenance pass, in "
+                         "turns)")
+    ap.add_argument("--once", action="store_true",
+                    help="maintain: one synchronous pass of every pillar, "
+                         "then exit")
+    ap.add_argument("--pq", action="store_true",
+                    help="index: also train OPQ+PQ codes (serve.pq_m "
+                         "subspaces, or dim/8 when it is 0)")
     args = ap.parse_args(argv)
 
     if args.command == "configs":
@@ -562,6 +710,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.result_cache is not None:
         overrides["serve.result_cache"] = args.result_cache == "on"
     cfg = get_config(args.config, overrides)
+    from dnn_page_vectors_tpu_torch.utils import faults
+    faults.install_from_config(cfg)
     workdir = os.path.abspath(args.workdir)
     store_dir = os.path.join(workdir, "store")
     if args.command in STORE_ADMIN:
@@ -641,6 +791,9 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     if args.command == "append":
         _append(cfg, trainer, embedder, store_dir, workdir, args)
+        return
+    if args.command == "migrate":
+        _migrate(cfg, trainer, embedder, store_dir)
         return
     store = VectorStore(store_dir)
     if args.command in SERVING:

@@ -185,11 +185,58 @@ class UpdatesConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MaintenanceConfig:
-    """Generation compaction (maintenance/compact.py). Of the JAX
-    package's MaintenanceConfig only the trigger the port reads."""
+    """The background MaintenanceService (maintenance/service.py):
+    compaction, off-path IVF rebuilds, the janitor, the migrator and the
+    autoscaler. The JAX package's names and defaults."""
     # fold the chain into a compacted base once the tombstone density
     # (dead rows / stored rows) reaches this (``compaction_due``)
     compact_tombstone_density: float = 0.2
+    # seconds between a pillar worker's trigger checks (run_once and
+    # `cli maintain --once` ignore it)
+    interval_s: float = 5.0
+    # with a MaintenanceService attached, refresh() defers a drift
+    # rebuild of the IVF index (the incremental append still runs and
+    # serve.index_rebuild_pending flags it) and the rebuild pillar builds
+    # the next index generation beside the live one; False keeps the
+    # rebuild inline in refresh()
+    bg_rebuild: bool = True
+    # the autoscale pillar: decide worker spawns and drains from the
+    # windowed queue-wait p99 and deadline-shed rate, acting only through
+    # hooks given to attach_scaler (observable only without them)
+    autoscale: bool = False
+    autoscale_min_workers: int = 1
+    autoscale_max_workers: int = 4
+    autoscale_up_queue_p99_ms: float = 50.0
+    autoscale_up_shed_rate: float = 0.5
+    autoscale_down_queue_p99_ms: float = 5.0
+    autoscale_cooldown_s: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrationConfig:
+    """Rolling model migrations (maintenance/migrate.py): how a sweep
+    that `cli migrate` or MaintenanceService.request_migration asks for
+    runs. The JAX package's names and defaults."""
+    # page texts a re-embed call takes from the corpus
+    batch_rows: int = 4096
+    # units the migrate pillar commits a pass before the serving view
+    # hot-swaps
+    units_per_pass: int = 1
+    # remove a unit's superseded shard files once the serving view has
+    # moved past them (False leaves them to the janitor)
+    purge: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Fault injection and the transient-I/O retry policy
+    (utils/faults.py). Injection is off unless `plan` is non-empty."""
+    # "op:kind:at[:count],...", e.g. "shard_write:io_error:1"
+    plan: str = ""
+    seed: int = 0                    # corruption offsets and bits
+    retry_attempts: int = 3          # attempts an I/O operation
+    retry_backoff_s: float = 0.05    # the first backoff; doubles a retry
+    retry_jitter_s: float = 0.02     # uniform jitter added to each backoff
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +268,9 @@ class Config:
     updates: UpdatesConfig = dataclasses.field(default_factory=UpdatesConfig)
     maintenance: MaintenanceConfig = dataclasses.field(
         default_factory=MaintenanceConfig)
+    migrate: MigrationConfig = dataclasses.field(
+        default_factory=MigrationConfig)
+    faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
 
 
 def _nested_replace(cfg: Config, overrides: Dict[str, Any]) -> Config:

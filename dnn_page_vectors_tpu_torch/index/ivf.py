@@ -41,12 +41,21 @@ share appended since the last full k-means, ``updates.rebuild_drift``)
 asks for a full rebuild. A tombstoned row stays in its list: the store's
 read-time masking turns it into a dead (-1) candidate the re-rank drops.
 
-Not ported yet, each raising NotImplementedError: ``stage_hot`` (the
-device-resident hot posting set), ``partition_view`` (partitioned
-serving) and ``search(predicate=...)`` (filtered retrieval over store
-attributes), and ``update(defer_rebuild=True)`` (the background
-rebuilder's hand-off). The JAX package's fault-injection hooks are not
-ported either.
+Background rebuilds (maintenance/service.py): ``build(dirname=...)``
+builds the next index generation in a sibling directory (ivf-NNNN) beside
+the live one, and the store's ``index_dir`` pointer flips to it with one
+atomic manifest dump; ``index_dir(store)`` always reads the pointer.
+``update(defer_rebuild=True)`` keeps full rebuilds off the caller: past
+the drift it still appends the new shards and flags
+``info["rebuild_pending"]``; a structural reason raises IndexUnavailable
+(the caller serves exact until the background rebuild swaps a fresh index
+in).
+
+Not ported yet, each raising NotImplementedError naming its ROADMAP.md
+item: ``stage_hot`` (the device-resident hot posting set, 7.3),
+``partition_view`` (partitioned serving, 7.4) and
+``search(predicate=...)`` (filtered retrieval over store attributes,
+7.2). The index's fault-injection hooks are item 8.
 """
 from __future__ import annotations
 
@@ -267,7 +276,8 @@ class IVFIndex:
               chunk: int = 8192, sample_per_shard: Optional[int] = None,
               init: str = "kmeans++", balance: float = 0.0, pq_m: int = 0,
               pq_iters: int = 8, opq_iters: int = 3,
-              device: DeviceLike = None) -> "IVFIndex":
+              device: DeviceLike = None,
+              dirname: Optional[str] = None) -> "IVFIndex":
         """Train the quantizer on `device`, assign every row, and write the
         inverted file next to the store (the manifest last, so a crash
         leaves the previous index or none, never a torn one that passes
@@ -275,7 +285,10 @@ class IVFIndex:
         ceil(balance * N / nlist) rows in the assignment sweep. `pq_m` > 0
         also trains the OPQ+PQ codec and writes m-byte codes a row.
         `stats` of the build: ``build_seconds`` in the manifest, and the
-        split in ``self.build_stats``."""
+        split in ``self.build_stats``. `dirname` builds into that sibling
+        directory of the store instead of the live pointer's (the
+        background rebuild's build-beside-then-flip); open the index again
+        after the pointer flips."""
         t0 = time.perf_counter()
         dev = resolve_device(device)
         N = store.num_vectors
@@ -298,7 +311,8 @@ class IVFIndex:
                                        opq_iters=opq_iters, seed=seed,
                                        device=dev)
             split["pq_train_s"] = time.perf_counter() - t1
-        d = index_dir(store)
+        d = (os.path.join(store.directory, dirname) if dirname
+             else index_dir(store))
         os.makedirs(d, exist_ok=True)
         cb, cc = _write_npy(os.path.join(d, "centroids.npy"), centroids)
         t1 = time.perf_counter()
@@ -387,11 +401,15 @@ class IVFIndex:
         dim, a recorded shard changed or gone, a file that fails its
         check, or a drift past `rebuild_drift`. Returns (index, info),
         info["action"] "noop" | "incremental" | "rebuild" with the inputs
-        of the decision. `defer_rebuild` (the JAX background rebuilder's
-        hand-off) is not ported."""
-        if defer_rebuild:
-            _unported("IVFIndex.update(defer_rebuild=True) (the background "
-                      "rebuilder of maintenance/service.py)", "item 7")
+        of the decision.
+
+        `defer_rebuild` moves full rebuilds OFF this caller (the
+        background rebuild's hand-off): past the drift the new shards
+        are still appended (new pages serve now) and
+        ``info["rebuild_pending"]`` is set; a structural reason (no index,
+        a torn or stale one, a changed shard table) raises
+        IndexUnavailable instead of rebuilding, so the caller serves exact
+        until the background rebuild swaps a fresh index in."""
         t0 = time.perf_counter()
         dev = resolve_device(device)
         d = index_dir(store)
@@ -399,6 +417,9 @@ class IVFIndex:
 
         def _rebuild(reason: str, man: Optional[Dict] = None
                      ) -> Tuple["IVFIndex", Dict]:
+            if defer_rebuild:
+                raise IndexUnavailable(
+                    f"rebuild deferred to the background worker ({reason})")
             pq_cfg = (man or {}).get("pq") or {}
             idx = cls.build(store, nlist=nlist, iters=iters,
                             seed=0 if seed is None else seed, chunk=chunk,
@@ -444,9 +465,15 @@ class IVFIndex:
         appended = (int(man.get("appended_since_build", 0))
                     + sum(e["count"] for e in new_entries))
         drift = appended / max(total, 1)
+        rebuild_pending = False
         if drift > rebuild_drift:
-            return _rebuild(
-                f"drift {drift:.3f} > rebuild_drift {rebuild_drift}", man)
+            if not defer_rebuild:
+                return _rebuild(
+                    f"drift {drift:.3f} > rebuild_drift {rebuild_drift}",
+                    man)
+            # deferred: extend anyway (new pages serve now; the stale
+            # centroids cost bounded recall until the background rebuild)
+            rebuild_pending = True
         centroids = np.asarray(
             np.load(os.path.join(d, man["centroids"]["file"])), np.float32)
         new_meta, _, new_sizes, _ = cls._assign_postings(
@@ -477,18 +504,19 @@ class IVFIndex:
                 {"action": "incremental", "new_shards": len(new_entries),
                  "appended_rows": sum(e["count"] for e in new_entries),
                  "drift": round(drift, 4),
-                 "rebuild_pending": False,
+                 "rebuild_pending": rebuild_pending,
                  "index_generation": man["index_generation"],
                  "seconds": round(time.perf_counter() - t0, 3)})
 
     # -- not ported yet ----------------------------------------------------
     def stage_hot(self, budget_bytes: float):
         """The device-resident hot posting set."""
-        _unported("IVFIndex.stage_hot (the hot posting set)", "item 7")
+        _unported("IVFIndex.stage_hot (the hot posting set)", "item 7.3")
 
     def partition_view(self, shard_indices):
         """A partition's view of the index."""
-        _unported("IVFIndex.partition_view (partitioned serving)", "item 7")
+        _unported("IVFIndex.partition_view (partitioned serving)",
+                  "item 7.4")
 
     # -- open / verify -----------------------------------------------------
     @classmethod

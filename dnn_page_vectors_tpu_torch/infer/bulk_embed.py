@@ -34,7 +34,8 @@ import torch
 
 from dnn_page_vectors_tpu_torch.config import Config
 from dnn_page_vectors_tpu_torch.data.loader import (
-    iter_corpus_batches, prefetch_to_device, read_workers, to_device)
+    iter_corpus_batches, ordered_parallel_map, prefetch_to_device,
+    read_workers, to_device)
 from dnn_page_vectors_tpu_torch.infer.vector_store import (
     SCALE_FLOOR, VectorStore)
 from dnn_page_vectors_tpu_torch.models.losses import l2_normalize
@@ -169,11 +170,19 @@ class BulkEmbedder:
         return quantize_rows(self.encode_pages(ids))
 
     @torch.inference_mode()
-    def encode_queries(self, ids: torch.Tensor) -> torch.Tensor:
+    def encode_queries(self, ids: torch.Tensor,
+                       model: Optional[torch.nn.Module] = None
+                       ) -> torch.Tensor:
         """[B, query_len] ids on the device -> [B, D] float32 rows, on the
-        device."""
-        self._eval_mode()
-        return l2_normalize(self.model.encode_query(ids))
+        device. `model` encodes with another tower of the same geometry
+        (a rolling migration's target, infer/serve.py) instead of this
+        embedder's."""
+        if model is None:
+            self._eval_mode()
+            model = self.model
+        elif model.training:
+            model.eval()
+        return l2_normalize(model.encode_query(ids))
 
     # -- host in, host out -----------------------------------------------
     def embed_pages(self, ids: np.ndarray) -> np.ndarray:
@@ -192,19 +201,26 @@ class BulkEmbedder:
         if tower not in ("query", "page"):
             raise ValueError(f"unknown tower {tower!r} (want query | page)")
         tok = self.query_tok if tower == "query" else self.page_tok
-        run = self.embed_queries if tower == "query" else self.embed_pages
+        run = self.encode_queries if tower == "query" else self.encode_pages
         bs = batch_size or self.cfg.eval.embed_batch_size
-        chunks = []
-        for s in range(0, len(texts), bs):
-            part = list(texts[s: s + bs])
+
+        def tokenize(part):
             enc = tok.encode_batch(part)
             if enc.shape[0] < bs:
                 pad = bs - enc.shape[0]
                 enc = np.concatenate(
                     [enc, np.zeros((pad,) + enc.shape[1:], enc.dtype)])
-            chunks.append(run(enc)[: len(part)])
+            return enc, len(part)
+        parts = [list(texts[s: s + bs]) for s in range(0, len(texts), bs)]
+        chunks = []
+        # the tokenizer pool's threads (the C++ encoders drop the GIL)
+        # tokenize the next batches while each encode is only enqueued
+        for enc, n in ordered_parallel_map(
+                tokenize, parts,
+                workers=min(self.cfg.data.tokenize_workers, len(parts))):
+            chunks.append(run(to_device(enc, self.device))[:n])
         if chunks:
-            return np.concatenate(chunks)
+            return torch.cat(chunks).cpu().numpy()
         return np.zeros((0, self.cfg.model.out_dim),
                         np.float32 if tower == "query" else np.float16)
 

@@ -74,11 +74,31 @@ histograms and events live in a per-service MetricsRegistry
 (utils/telemetry.py) with windows of ``obs.window_s`` seconds:
 ``metrics()``, ``metrics_snapshot()`` and ``prometheus_text()``.
 
+Rolling model migrations (maintenance/migrate.py): mid-sweep a store
+holds two stamps, one a shard. ``begin_migration(model, step)`` attaches
+the target tower; a view over a two-stamp store encodes each query once
+per stamp (one dispatch a stamp: twice the K1 launches), keyed per stamp
+in the query cache, and stacks the vectors [n, S*D] in ascending stamp
+order (``_qv_blocks`` splits them). The staged matrix stays one [N, D]
+buffer: its rows fall in runs of one stamp, each run is scored by its
+stamp's query block on the card, and one top-k merges the runs' top-k's
+(the streaming path sweeps each stamp's shards and merges on the host).
+The IVF path serves exact while a view holds two stamps. A migrated
+unit's rows replace staged rows at their positions: the refresh copies
+the buffer on the card and writes only the unit's rows from the host
+into the copy, so a call on the old view keeps reading its rows. The
+``refresh()`` that sees the migration record gone adopts the target tower
+as the embedder's model. The result cache's key composes the view's
+stamps with its generation. ``start_maintenance()`` attaches the
+MaintenanceService (maintenance/service.py) and, under
+``maintenance.bg_rebuild``, defers drift rebuilds of the IVF index off
+``refresh()`` to its rebuild pillar (the ``serve.index_rebuild_pending``
+gauge).
+
 Left for later slices, each named by its ROADMAP.md queue 1 item:
-dual-stamp serving during a rolling migration (5); partitions, replicas,
-the fleet result cache, the hot posting set, the background maintenance
-service and filtered retrieval (7); fault injection and degraded mode
-(8). ``filters=`` raises naming item 7.
+filtered retrieval (7.2: ``filters=`` raises naming it), the hot posting
+set (7.3), partitions, replicas and the fleet result cache (7.4); fault
+injection on the wire and the degraded mode (8).
 """
 from __future__ import annotations
 
@@ -98,7 +118,9 @@ from dnn_page_vectors_tpu_torch.index.ivf import IndexUnavailable, IVFIndex
 from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
 from dnn_page_vectors_tpu_torch.infer.transport import DeadlineExceeded
 from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
-from dnn_page_vectors_tpu_torch.ops.topk import chunked_topk, topk_over_store
+from dnn_page_vectors_tpu_torch.ops.topk import (
+    chunked_topk, merge_topk_host, topk_over_store)
+from dnn_page_vectors_tpu_torch.utils import faults
 from dnn_page_vectors_tpu_torch.utils.profiling import (
     LatencyStats, PipelineProfiler)
 from dnn_page_vectors_tpu_torch.utils.telemetry import MetricsRegistry
@@ -125,7 +147,7 @@ def refuse_filters(filters) -> None:
         raise NotImplementedError(
             "filtered retrieval (filters=) is not ported to the PyTorch "
             "package yet: it needs index/attrs.py and per-row store "
-            "attributes (ROADMAP.md queue 1, item 7)")
+            "attributes (ROADMAP.md queue 1, item 7.2)")
 
 
 class _MicroBatcher:
@@ -329,10 +351,11 @@ class _ServeView:
     replaces the whole view with one reference assignment."""
 
     __slots__ = ("store", "entries", "generation", "docs_appended",
-                 "tombstoned", "num_vectors", "maint_stats", "pages",
-                 "scales", "page_ids", "alive", "dead_rows", "buf",
-                 "scale_buf", "keys", "top_gen", "stage_info", "index",
-                 "index_error", "index_info")
+                 "tombstoned", "num_vectors", "maint_stats", "steps",
+                 "pages", "scales", "page_ids", "alive", "dead_rows", "buf",
+                 "scale_buf", "keys", "slots", "row_stamp", "runs",
+                 "top_gen", "stage_info", "index", "index_error",
+                 "index_info")
 
     def __init__(self, store: VectorStore):
         self.store = store
@@ -342,6 +365,9 @@ class _ServeView:
         self.tombstoned = store.tombstoned_count()
         self.num_vectors = store.num_vectors
         self.maint_stats: Dict = store.maintenance_stats()
+        # the distinct stamps of the table, ascending: two mid-migration,
+        # and then every query is encoded once per stamp
+        self.steps: List[int] = store.model_steps()
         self.pages: Optional[torch.Tensor] = None    # [N, D] on the card
         self.scales: Optional[torch.Tensor] = None   # [N] (int8 stores)
         self.page_ids: Optional[np.ndarray] = None   # [N] int64, host
@@ -352,9 +378,15 @@ class _ServeView:
         # the buffers the staged rows are the head of (room to grow)
         self.buf: Optional[torch.Tensor] = None
         self.scale_buf: Optional[torch.Tensor] = None
-        # (gen, index, count, vec CRC) of each staged entry, in order, and
-        # the chain generation the staged rows' tombstones were read at
+        # (gen, index, count, vec CRC, stamp) of each staged entry, in
+        # order; where its rows sit ((row offset, rows, the raw rows staged
+        # or None for all), None once the rows were compacted on the card);
+        # the runs of rows of one stamp ((start, end, stamp)); and the
+        # chain generation the staged rows' tombstones were read at
         self.keys: List[tuple] = []
+        self.slots: Optional[List[tuple]] = None
+        self.row_stamp: Optional[np.ndarray] = None
+        self.runs: List[tuple] = []
         self.top_gen = store.chain_generation
         self.stage_info: Dict = {}
         self.index: Optional[IVFIndex] = None
@@ -362,9 +394,26 @@ class _ServeView:
         self.index_info: Optional[Dict] = None
 
 
-def _entry_key(entry: Dict) -> tuple:
+def _entry_key(store: VectorStore, entry: Dict) -> tuple:
+    """(gen, index, count, vec CRC, stamp): the first three place an
+    entry's rows; the last two say whether the rows are the same."""
     return (entry.get("gen", 0), entry["index"], entry["count"],
-            entry.get("crc", {}).get("vec"))
+            entry.get("crc", {}).get("vec"), store.entry_step(entry))
+
+
+def _stamp(key: tuple) -> int:
+    return -1 if key[4] is None else int(key[4])
+
+
+def _stamp_runs(row_stamp: np.ndarray) -> List[tuple]:
+    """[(start, end, stamp)] runs of equal stamps over the staged rows."""
+    n = int(row_stamp.shape[0])
+    if n == 0:
+        return []
+    cut = np.flatnonzero(np.diff(row_stamp)) + 1
+    starts = np.concatenate([[0], cut])
+    ends = np.concatenate([cut, [n]])
+    return [(int(a), int(b), int(row_stamp[a])) for a, b in zip(starts, ends)]
 
 
 class SearchService:
@@ -383,6 +432,9 @@ class SearchService:
         self.embedder = embedder
         self.corpus = corpus
         self.store = store
+        # the extra query towers of a rolling migration, keyed by stamp
+        # (begin_migration): replaced whole on write, read as a snapshot
+        self._towers: Dict[int, torch.nn.Module] = {}
         self.snippet_chars = snippet_chars
         serve, obs = cfg.serve, cfg.obs
         # stage seconds (queue_wait / tokenize / encode / topk / merge /
@@ -467,6 +519,12 @@ class SearchService:
                 on_change=self._on_window_adapt)
         self._batcher: Optional[_MicroBatcher] = None
         self._batch_sizes: List[int] = []   # telemetry after close()
+        # the MaintenanceService (start_maintenance); with it attached and
+        # maintenance.bg_rebuild, refresh() defers drift rebuilds of the
+        # index to its rebuild pillar
+        self._maintenance = None
+        self._defer_rebuilds = False
+        reg.gauge("serve.index_rebuild_pending").set(0.0)
         self._log = log
         self.query_batch = query_batch or 8
         self.warm_latency_ms: Optional[float] = None
@@ -529,7 +587,8 @@ class SearchService:
                 view.index, view.index_info = IVFIndex.update(
                     view.store, rebuild_drift=self._rebuild_drift,
                     nlist=sv.nlist, iters=sv.kmeans_iters,
-                    init=sv.kmeans_init, device=dev)
+                    init=sv.kmeans_init,
+                    defer_rebuild=self._defer_rebuilds, device=dev)
                 action = view.index_info.get("action")
                 if action == "incremental":
                     self._m_incremental.inc()
@@ -538,6 +597,10 @@ class SearchService:
                     self.registry.event("drift_rebuild", {
                         "reason": view.index_info.get("reason"),
                         "nlist": view.index.nlist})
+                # a drift past the limit deferred off this caller: the
+                # hand-off to the background rebuild, cleared by its swap
+                self.registry.gauge("serve.index_rebuild_pending").set(
+                    1.0 if view.index_info.get("rebuild_pending") else 0.0)
             else:
                 view.index = IVFIndex.open(view.store, device=dev)
         except failures as e:  # noqa: BLE001 -- the view serves exactly
@@ -553,25 +616,35 @@ class SearchService:
                     reuse: Optional[_ServeView] = None) -> None:
         """Stage the view's live rows on the card at their stored width.
 
-        With `reuse` (the view being replaced), when its staged entries
-        are a prefix of this view's, only the entries past the prefix are
-        read and copied from the host: into `reuse`'s buffer past its rows
-        when they fit (no older view reads there), else into a buffer
-        1.25x the new row count after a copy of the old rows on the card.
-        The old rows a newer tombstone killed stay, masked in `alive`,
-        until they pass ``restage_tombstone_density`` of the rows; then
-        the live rows are compacted on the card. Otherwise every live row
-        is read and copied. A shard that fails to read or copy raises.
-        ``view.stage_info`` records the rows and bytes each way."""
+        With `reuse` (the view being replaced), when its staged entries sit
+        at the same places as this view's first entries, only the rows
+        that changed are read and copied from the host: the entries past
+        that prefix, into `reuse`'s buffer past its rows when they fit (no
+        older view reads there), else into a buffer 1.25x the new row
+        count after a copy of the old rows on the card; and the entries of
+        the prefix whose rows changed in place (a migrated unit: the same
+        ids, new vectors and stamp), written at their rows of a copy of
+        the buffer made on the card, so a call on the old view keeps its
+        rows. The old rows a newer tombstone killed stay, masked in
+        `alive`, until they pass ``restage_tombstone_density`` of the
+        rows; then the live rows are compacted on the card. Otherwise
+        every live row is read and copied. A shard that fails to read or
+        copy raises. ``view.stage_info`` records the rows and bytes each
+        way."""
         store, dev = view.store, self.embedder.device
         q8 = store.manifest["dtype"] == "int8"
         entries = [e for e in view.entries if e["count"] > 0]
-        keys = [_entry_key(e) for e in entries]
+        keys = [_entry_key(store, e) for e in entries]
         n_keep = 0
+        replace: List[int] = []
         if (reuse is not None and reuse.buf is not None and reuse.keys
-                and keys[: len(reuse.keys)] == reuse.keys
-                and reuse.store.model_step == store.model_step):
-            n_keep = len(reuse.keys)
+                and [k[:3] for k in keys[: len(reuse.keys)]]
+                == [k[:3] for k in reuse.keys]):
+            replace = [i for i, k in enumerate(reuse.keys) if keys[i] != k]
+            if replace and reuse.slots is None:
+                replace = []      # the old rows were compacted: restage
+            else:
+                n_keep = len(reuse.keys)
         # the rows to copy from the host: every entry past the kept
         # prefix, its dead rows dropped before the copy (ids first, so the
         # buffer is sized before a vector is read)
@@ -583,13 +656,16 @@ class SearchService:
         pos = np.zeros((0,), np.int64)
         # the bytes each way: rows at their stored width (int8 scales
         # included), and the int64 row positions of the mask and compaction
-        info = {"reused_entries": n_keep, "copied_entries":
-                len(entries) - n_keep, "h2d_rows": m,
+        info = {"reused_entries": n_keep - len(replace),
+                "replaced_entries": len(replace), "replaced_rows": 0,
+                "copied_entries": len(entries) - n_keep, "h2d_rows": m,
                 "h2d_bytes": m * row_bytes, "d2d_bytes": 0,
                 "newly_dead_rows": 0, "compacted_on_card": False,
                 "grew_buffer": False}
+        slots: Optional[List[tuple]] = []
         if n_keep:
             n_old = int(reuse.page_ids.shape[0])
+            slots = list(reuse.slots) if reuse.slots is not None else None
             # ids a generation past the old view's chain tombstoned: the
             # old rows they kill stay staged, masked
             old_ids = reuse.page_ids
@@ -603,8 +679,11 @@ class SearchService:
             info["newly_dead_rows"] = int(pos.size)
             buf, sbuf = reuse.buf, reuse.scale_buf
             n = n_old + m
-            if n > buf.shape[0]:
-                cap = max(n, -(-n * 5 // 4))
+            if n > buf.shape[0] or replace:
+                # a fresh buffer (room to grow, or the old view's rows kept
+                # whole under rows this view replaces), filled on the card
+                cap = (max(n, -(-n * 5 // 4)) if n > buf.shape[0]
+                       else int(buf.shape[0]))
                 nb = torch.empty((cap, store.dim), dtype=buf.dtype,
                                  device=dev)
                 nb[:n_old].copy_(buf[:n_old])
@@ -615,7 +694,7 @@ class SearchService:
                     info["d2d_bytes"] += n_old * 2
                     sbuf = ns
                 buf = nb
-                info["grew_buffer"] = True
+                info["grew_buffer"] = n > reuse.buf.shape[0]
             alive = None
             dead = reuse.dead_rows + int(pos.size)
             if dead:
@@ -625,6 +704,25 @@ class SearchService:
                 if pos.size:
                     alive[to_device(pos, dev)] = False
                     info["h2d_bytes"] += int(pos.size) * 8
+            for i in replace:
+                # a migrated entry: the same raw ids, so its rows go back
+                # where the entry's rows were staged
+                off, cnt, keep = slots[i]
+                _, vecs, scl = store._load_entry(entries[i], raw=True)
+                rows = np.array(vecs) if keep is None else \
+                    np.asarray(vecs)[keep]
+                if rows.shape[0] != cnt:
+                    raise RuntimeError(
+                        f"shard {entries[i]['index']} has {rows.shape[0]} "
+                        f"rows to restage at {cnt} staged rows")
+                buf[off: off + cnt].copy_(torch.from_numpy(rows))
+                if q8:
+                    sbuf[off: off + cnt].copy_(torch.from_numpy(
+                        np.array(scl) if keep is None
+                        else np.asarray(scl)[keep]))
+                info["replaced_rows"] += cnt
+            info["h2d_rows"] += info["replaced_rows"]
+            info["h2d_bytes"] += info["replaced_rows"] * row_bytes
         else:
             n = m
             page_ids = new_ids
@@ -634,8 +732,16 @@ class SearchService:
             sbuf = (torch.empty((n,), dtype=torch.float16, device=dev)
                     if q8 else None)
             n_old, alive, dead = 0, None, 0
+        # the stamp of every staged row, for the runs of one stamp
+        row_stamp = np.empty((n,), np.int64)
+        if n_keep:
+            row_stamp[:n_old] = reuse.row_stamp
+            for i in replace:
+                off, cnt, _ = slots[i]
+                row_stamp[off: off + cnt] = _stamp(keys[i])
         o = n_old
-        for entry, ids in copy:
+        new_slots = []
+        for (entry, ids), key in zip(copy, keys[n_keep:]):
             _, vecs, scl = store._load_entry(entry, raw=True)
             keep = ids >= 0
             whole = bool(keep.all())
@@ -645,9 +751,13 @@ class SearchService:
             if q8:
                 sbuf[o: o + r].copy_(torch.from_numpy(
                     np.array(scl) if whole else np.asarray(scl)[keep]))
+            new_slots.append((o, r, None if whole else keep))
+            row_stamp[o: o + r] = _stamp(key)
             o += r
         if o != n_old + m:
             raise RuntimeError(f"staged {o - n_old} rows, want {m}")
+        if slots is not None:
+            slots += new_slots
         if n_keep and pos.size:
             # the restage policy, over the staged matrix as one block
             if dead / max(n, 1) > self._restage_density:
@@ -661,7 +771,9 @@ class SearchService:
                 if q8:
                     sbuf = sbuf[:n].index_select(0, kp)
                 buf, page_ids = nb, page_ids[keep_pos]
+                row_stamp = row_stamp[keep_pos]
                 n, alive, dead = int(keep_pos.size), None, 0
+                slots = None         # the entries' rows moved
                 info["compacted_on_card"] = True
                 self._m_restage_forced.inc()
             else:
@@ -671,6 +783,9 @@ class SearchService:
         view.scales = sbuf[:n] if q8 else None
         view.page_ids, view.alive, view.dead_rows = page_ids, alive, dead
         view.keys = keys
+        view.slots = slots
+        view.row_stamp = row_stamp
+        view.runs = _stamp_runs(row_stamp)
         view.stage_info = info
 
     @property
@@ -738,6 +853,17 @@ class SearchService:
             swap_ms = (time.perf_counter() - t_swap) * 1000.0
             self.store = new_store
             self._m_refreshes.inc()
+            # the tower adoption: once the migration record is gone the
+            # sweep completed (the target tower becomes THE query tower)
+            # or a reset abandoned it; either way the extra towers go
+            adopted_step = None
+            tw = self._towers
+            if tw and new_store.migration is None:
+                if new_store.model_step in tw:
+                    model = tw[new_store.model_step]
+                    self.embedder.model = model
+                    adopted_step = int(new_store.model_step)
+                self._towers = {}
         info = {
             "store_generation": view.generation,
             "index_generation": (view.index.index_generation
@@ -755,6 +881,20 @@ class SearchService:
             info["index_update"] = view.index_info
         if view.index_error is not None:
             info["index_error"] = view.index_error
+        mig = view.store.migration
+        if mig is not None:
+            # the sweep's progress: the stamps this view serves, and how
+            # many of its shards carry the target stamp
+            info["migration"] = {
+                "from_step": mig.get("from_step"),
+                "to_step": mig.get("to_step"),
+                "shards_migrated": sum(
+                    1 for e in view.entries
+                    if view.store.entry_step(e) == mig.get("to_step")),
+                "shards_total": len(view.entries),
+                "stamps_serving": list(view.steps)}
+        if adopted_step is not None:
+            info["migration_adopted_step"] = adopted_step
         cur = self.tracer.current()
         self.registry.event("view_swap", {
             "store_generation": view.generation,
@@ -770,6 +910,39 @@ class SearchService:
         if self._log is not None:
             self._log.write({"serve_refresh": self.refreshes, **info})
         return info
+
+    def begin_migration(self, model: torch.nn.Module, step: int) -> None:
+        """Attach the TARGET model of a rolling migration as a second query
+        tower (the JAX package's ``begin_migration(params, step)``). Until
+        the completion flip every query that misses the cache is encoded
+        by both towers and each shard is scored with its stamp's; the
+        refresh() that sees the flip adopts this tower and drops the old
+        one. Idempotent per step."""
+        model = model.to(self.embedder.device).eval()
+        self._towers = {**self._towers, int(step): model}
+        if self._log is not None:
+            self._log.write({"serve_migration_tower": int(step),
+                             "serving_step": self.store.model_step})
+
+    def start_maintenance(self, threads: bool = True):
+        """Attach the background MaintenanceService to this service: its
+        compaction, rebuild, janitor and migrate pillars run on this store
+        and hot-swap their work in through refresh(). Under
+        ``maintenance.bg_rebuild`` a drift rebuild of the IVF index is
+        deferred off refresh() from here on, to the rebuild pillar.
+        `threads=False` attaches it without its workers (the caller drives
+        ``run_once()``). Idempotent; close() stops it."""
+        if self._maintenance is None:
+            from dnn_page_vectors_tpu_torch.maintenance.service import (
+                MaintenanceService)
+            if self.cfg.maintenance.bg_rebuild:
+                self._defer_rebuilds = True
+            self._maintenance = MaintenanceService(
+                self.cfg, self.store.directory, device=self.embedder.device,
+                svc=self)
+            if threads:
+                self._maintenance.start()
+        return self._maintenance
 
     # -- counters (registry instruments) ----------------------------------
     @property
@@ -959,12 +1132,21 @@ class SearchService:
                 [enc, np.zeros((pad,) + enc.shape[1:], enc.dtype)])
         return enc
 
-    def _encode(self, enc: np.ndarray) -> torch.Tensor:
+    def _encode(self, enc: np.ndarray,
+                model: Optional[torch.nn.Module] = None) -> torch.Tensor:
         """Token ids -> [rows, D] float32 query vectors on the device: one
-        query-tower dispatch."""
+        query-tower dispatch (`model`: a migration's other tower)."""
         self._m_encodes.inc()
-        return self.embedder.encode_queries(to_device(enc,
-                                                      self.embedder.device))
+        ids = to_device(enc, self.embedder.device)
+        if model is None:
+            return self.embedder.encode_queries(ids)
+        return self.embedder.encode_queries(ids, model=model)
+
+    def _tower(self, step) -> Optional[torch.nn.Module]:
+        """The query tower of `step`: a migration's tower attached for that
+        stamp, else None (the embedder's own)."""
+        tw = self._towers
+        return tw.get(step) if step is not None else None
 
     def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
         """[n] texts -> [n_padded, D] float32 query vectors on the device,
@@ -982,6 +1164,10 @@ class SearchService:
             self._rcache.clear()
             self._rcache_bytes = 0
         ev = {"embed_entries": embed_n, "result_entries": result_n}
+        mig = self.store.migration
+        if mig is not None:
+            ev["migration"] = (f"{mig.get('from_step')}->"
+                               f"{mig.get('to_step')}")
         self.registry.event("cache_cleared", ev)
         if self._log is not None:
             self._log.write({"serve_cache_cleared": True, **ev})
@@ -989,11 +1175,25 @@ class SearchService:
     def _embed_queries_cached(self, view: _ServeView,
                               queries: Sequence[str]) -> torch.Tensor:
         """[n] texts -> [n, D] float32 query vectors on the device through
-        the LRU cache. Only the misses, deduplicated, pay tokenize + encode,
-        all in one dispatch padded to a multiple of query_batch rows. The
-        vectors stay on the device for the top-k: the host copy is made
-        only of the rows the cache keeps."""
-        step = view.store.model_step
+        the LRU cache, or, when the view serves several stamps (a rolling
+        migration), [n, S*D]: one D-wide block a stamp in ascending order,
+        each encoded by its stamp's tower in its own dispatch and cache
+        keyspace (``_qv_blocks`` splits them)."""
+        steps = view.steps
+        if len(steps) <= 1 and (not steps
+                                or steps[0] == view.store.model_step):
+            return self._embed_queries_step(queries, view.store.model_step)
+        return torch.cat([self._embed_queries_step(queries, s)
+                          for s in steps], dim=1)
+
+    def _embed_queries_step(self, queries: Sequence[str],
+                            step) -> torch.Tensor:
+        """[n] texts -> [n, D] float32 query vectors of ONE stamp on the
+        device through the LRU cache. Only the misses, deduplicated, pay
+        tokenize + encode, all in one dispatch padded to a multiple of
+        query_batch rows. The vectors stay on the device for the top-k:
+        the host copy is made only of the rows the cache keeps."""
+        model = self._tower(step)
         keys = [(step, self._normalize(q)) for q in queries]
         dev = self.embedder.device
         hits: List[int] = []
@@ -1042,7 +1242,9 @@ class SearchService:
             miss_rows = to_device(np.asarray(miss, np.int64), dev)
         enc = self._tokenize(uniq)
         with self._stage("encode", queries=len(uniq)):
-            vecs = self._encode(enc)            # [n_padded, D] on the device
+            # [n_padded, D] on the device
+            vecs = (self._encode(enc) if model is None
+                    else self._encode(enc, model))
             if self._cache_cap > 0:
                 host = vecs[: len(uniq)].cpu().numpy()
         if plain:
@@ -1068,16 +1270,21 @@ class SearchService:
                           nprobe: Optional[int],
                           view: Optional[_ServeView] = None
                           ) -> Optional[tuple]:
-        """(normalized text, k, nprobe, store generation with the model
-        step in its high 32 bits, index generation, filter text ""), as
-        the JAX package keys it; None when the cache is off."""
+        """(normalized text, k, nprobe, store generation with the view's
+        stamp in its high 32 bits, index generation, filter text ""), as
+        the JAX package keys it; None when the cache is off. The stamp is
+        the highest the view serves: the model step outside a migration,
+        the target step once a unit of the sweep serves, so an answer
+        scored with one tower never answers a query of another, whatever
+        the generation (which every migration flip moves too)."""
         if self._rcache_cap <= 0:
             return None
         view = self._view if view is None else view
         index_gen = (view.index.index_generation
                      if view.index is not None else -1)
+        stamp = max(view.steps) if view.steps else view.store.model_step
         sgen = ((int(view.generation) & 0xFFFFFFFF)
-                | ((int(view.store.model_step or 0) & 0xFFFFFFFF) << 32))
+                | ((int(stamp or 0) & 0xFFFFFFFF) << 32))
         return (self._normalize(query), int(k or self.cfg.eval.recall_k),
                 int(nprobe or 0), sgen, int(index_gen), "")
 
@@ -1134,6 +1341,9 @@ class SearchService:
         return self._batcher is not None
 
     def close(self) -> None:
+        if self._maintenance is not None:
+            self._maintenance.close()
+            self._maintenance = None
         if self._batcher is not None:
             self._batcher.close()
             # the batch sizes outlive the thread
@@ -1399,31 +1609,65 @@ class SearchService:
         s, i, _ = self._topk_view(self._view, qv, qv.shape[0], k, nprobe)
         return s, i
 
+    def _qv_blocks(self, view: _ServeView, qv) -> Dict:
+        """Split a query matrix into [n, D] blocks by stamp, ascending: the
+        inverse of the stacked encode of ``_embed_queries_cached``. A wide
+        matrix on a one-stamp view (a stacked encode that crossed the
+        completion flip) gives this view's block by the migration's stamp
+        order, else the last; a narrow one on a two-stamp view scores
+        every shard with it (``serve_stamp_skew``)."""
+        D = int(view.store.dim)
+        w = int(qv.shape[1])
+        if w % D:
+            raise ValueError(f"query shapes [n, {w}] do not fit the store's "
+                             f"{D}-d rows (a {D}-wide block a stamp)")
+        steps = view.steps
+        if len(steps) <= 1:
+            step = steps[0] if steps else None
+            if w <= D:
+                return {step: qv}
+            nb = w // D
+            mig = view.store.migration or {}
+            order = sorted({int(x) for x in (mig.get("from_step"),
+                                             mig.get("to_step"))
+                            if x is not None})
+            at = (order.index(step)
+                  if step in order and order.index(step) < nb else nb - 1)
+            return {step: qv[:, at * D:(at + 1) * D]}
+        if w <= D:
+            faults.count("serve_stamp_skew")
+            return {x: qv for x in steps}
+        nb = w // D
+        return {x: qv[:, min(i, nb - 1) * D:(min(i, nb - 1) + 1) * D]
+                for i, x in enumerate(steps)}
+
     def _topk_view(self, view: _ServeView, qv: np.ndarray, n: int, k: int,
                    nprobe: Optional[int] = None):
         """(scores [n, k] float32, page_ids [n, k] int64, scan_bytes) of
-        the first n rows of qv (float32, on the host or the device) over
-        one view: through the index, the staged rows, or the streaming
-        sweep."""
+        the first n rows of qv (float32, on the host or the device; [n,
+        S*D] on a view of S stamps) over one view: through the index, the
+        staged rows, or the streaming sweep. Each shard is scored with its
+        stamp's block; a view of two stamps never consults the index."""
+        blocks = self._qv_blocks(view, qv)
         if self._serve_index == "ivf":
-            res = self._ann_topk(view, _host_rows(qv, n), k, nprobe)
+            res = (self._ann_topk(view,
+                                  _host_rows(next(iter(blocks.values())), n),
+                                  k, nprobe)
+                   if len(view.steps) <= 1 else None)
             if res is not None:
                 return res
             self._m_ann_fallbacks.inc(n)   # the exact sweep serves it
         dev = self.embedder.device
         if view.pages is None:
             with self._stage("topk", path="streaming"):
-                scores, ids = topk_over_store(
-                    _host_rows(qv, n), view.store, k=k, chunk=_TOPK_CHUNK,
-                    query_batch=_TOPK_ROWS, device=dev)
+                scores, ids = self._stream_topk(view, blocks, n, k, dev)
             return scores, ids, view.store.num_vectors * view.store.row_bytes
         with self._stage("topk", rows=view.num_vectors):
-            q = (qv[:n].to(dev, torch.float32)
-                 if isinstance(qv, torch.Tensor)
-                 else to_device(_host_rows(qv, n), dev))
-            parts = [chunked_topk(q[s: s + _TOPK_ROWS], view.pages, k=k,
-                                  chunk=_TOPK_CHUNK, scales=view.scales,
-                                  alive=view.alive)
+            q = {x: (b[:n].to(dev, torch.float32)
+                     if isinstance(b, torch.Tensor)
+                     else to_device(_host_rows(b, n), dev))
+                 for x, b in blocks.items()}
+            parts = [self._staged_topk(view, q, s, k)
                      for s in range(0, n, _TOPK_ROWS)]
         with self._stage("merge"):
             scores = torch.cat([p[0] for p in parts]).cpu().numpy()
@@ -1432,13 +1676,63 @@ class SearchService:
         return (scores.astype(np.float32), pids.astype(np.int64),
                 int(view.pages.shape[0]) * view.store.row_bytes)
 
+    def _staged_topk(self, view: _ServeView, q: Dict, s0: int, k: int):
+        """The top-k of one block of query rows over the staged matrix:
+        each run of one stamp scored with that stamp's queries on the
+        card, then one top-k over the runs' candidates."""
+        runs = view.runs
+        if len(runs) <= 1:
+            step = runs[0][2] if runs else None
+            qb = (q.get(step) if step in q else next(iter(q.values())))
+            return chunked_topk(qb[s0: s0 + _TOPK_ROWS], view.pages, k=k,
+                                chunk=_TOPK_CHUNK, scales=view.scales,
+                                alive=view.alive)
+        cand_s, cand_i = [], []
+        for a, b, step in runs:
+            qb = q[step] if step in q else next(iter(q.values()))
+            sc, ix = chunked_topk(
+                qb[s0: s0 + _TOPK_ROWS], view.pages[a:b], k=k,
+                chunk=_TOPK_CHUNK,
+                scales=None if view.scales is None else view.scales[a:b],
+                alive=None if view.alive is None else view.alive[a:b])
+            cand_s.append(sc)
+            cand_i.append(torch.where(ix >= 0, ix + a, ix))
+        best_s, at = torch.topk(torch.cat(cand_s, dim=1), k, dim=1)
+        best_i = torch.gather(torch.cat(cand_i, dim=1), 1, at)
+        return best_s, torch.where(torch.isfinite(best_s), best_i,
+                                   torch.full_like(best_i, -1))
+
+    def _stream_topk(self, view: _ServeView, blocks: Dict, n: int, k: int,
+                     dev) -> tuple:
+        """The streaming sweep over the view's store handle, once per
+        stamp over that stamp's shards, merged on the host."""
+        if len(view.steps) <= 1:
+            qb = next(iter(blocks.values()))
+            return topk_over_store(_host_rows(qb, n), view.store, k=k,
+                                   chunk=_TOPK_CHUNK,
+                                   query_batch=_TOPK_ROWS, device=dev)
+        best_s = np.full((n, k), -np.inf, np.float32)
+        best_i = np.full((n, k), -1, np.int64)
+        for step in view.steps:
+            group = [e for e in view.entries
+                     if view.store.entry_step(e) == step]
+            if not group:
+                continue
+            sc, ids = topk_over_store(
+                _host_rows(blocks[step], n), view.store, k=k,
+                chunk=_TOPK_CHUNK, query_batch=_TOPK_ROWS, entries=group,
+                device=dev)
+            best_s, best_i = merge_topk_host(best_s, best_i, sc, ids)
+        return best_s, best_i
+
     def _ann_topk(self, view: _ServeView, qv: np.ndarray, k: int,
                   nprobe: Optional[int]):
         """(scores, page_ids, gather_bytes) through the IVF index, or None
         for the exact sweep (the index is unavailable, or stale against
         the store's model step, checked per request)."""
         idx = view.index
-        if idx is None or idx.model_step != view.store.model_step:
+        if (idx is None or idx.model_step != view.store.model_step
+                or len(view.steps) > 1):
             return None
         with self._stage("topk") as sp:
             scores, pids, st = idx.search(qv, k=k,

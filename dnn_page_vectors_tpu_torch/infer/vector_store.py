@@ -51,8 +51,25 @@ through), which every retrieval path treats as a dead slot. The files and
 manifests are the JAX package's, byte for byte, so each package opens the
 other's chain.
 
-Per-row attributes and rolling migrations are later slices: a store that
-uses either is refused with NotImplementedError rather than read in part.
+Rolling model migrations (maintenance/migrate.py) are read here as the
+JAX package reads them: the main manifest's ``migration`` record
+({from_step, to_step}), ``migration_epoch`` (bumped at every migration
+flip and folded into ``generation``, so every flip moves the number the
+refresh and the result cache gate on), per-entry ``model_step`` stamps
+(``entry_step``: one stamp a shard, two stamps a store mid-sweep) and
+``gen_overrides``, the re-embedded entries of a migrated generation,
+applied only while their recorded source CRCs match the generation
+manifest on disk. A torn main manifest is quarantined (renamed aside,
+counted) and raises a clear ValueError, or starts fresh when the caller
+passes ``dim`` (a creation intent).
+
+Manifest dumps run under the transient-I/O retry with the JAX package's
+fault-injection points (utils/faults.py): ``<op>_dump`` checked before the
+write, ``<op>_file`` corrupted after the fsync; shard writes check
+``shard_write`` and corrupt ``shard_file``, reads check ``shard_read``.
+
+Per-row attributes are a later slice: a store that uses them is refused
+with NotImplementedError rather than read in part.
 """
 from __future__ import annotations
 
@@ -66,6 +83,8 @@ import zlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from dnn_page_vectors_tpu_torch.utils import faults
 
 # a shard entry's data files: vectors (or int8 codes), ids, int8 scales,
 # attribute words (a later slice's; removed with the rest by reset())
@@ -166,17 +185,19 @@ def prepare_store(directory: str, dim: int, shard_size: Optional[int],
     geometry applies, so its old shard size cannot block the open."""
     if os.path.exists(os.path.join(os.path.abspath(directory),
                                    "manifest.json")):
-        plain = VectorStore(directory)
-        if plain.manifest.get("model_step") != model_step:
-            plain.reset()
+        try:
+            plain = VectorStore(directory)
+            if plain.manifest.get("model_step") != model_step:
+                plain.reset()
+        except ValueError:
+            # a torn main manifest: the open quarantined it, and this
+            # caller means to create the store, so the fresh open below
+            # starts over (the unstamped store is reset and re-embedded)
+            pass
     store = VectorStore(directory, dim=dim, shard_size=shard_size,
                         dtype=dtype)
     store.ensure_model_step(model_step)
     return store
-
-
-def _warn(msg: str) -> None:
-    print(f"WARNING: {msg}", flush=True)
 
 
 class VectorStore:
@@ -196,8 +217,26 @@ class VectorStore:
                              "(want float16 or int8)")
         existed = os.path.exists(self._manifest_path)
         if existed:
-            with open(self._manifest_path) as f:
-                self.manifest = json.load(f)
+            try:
+                with open(self._manifest_path) as f:
+                    self.manifest = json.load(f)
+            except ValueError:
+                # a torn main manifest: the shard files may be whole but
+                # their record is gone. Quarantine it; with a creation
+                # intent (dim given) start a fresh manifest, else raise a
+                # clear error instead of a JSON traceback
+                q = self._manifest_path + ".quarantined"
+                os.replace(self._manifest_path, q)
+                faults.count("quarantined_manifests")
+                faults.warn(f"store manifest {self._manifest_path} is torn "
+                            f"(invalid JSON); moved aside to {q}")
+                if dim is None:
+                    raise ValueError(
+                        f"vector store manifest at {self.directory} is "
+                        f"corrupt (quarantined to {q}); re-run 'init-store' "
+                        "+ 'embed' to rebuild, or restore the manifest")
+                existed = False
+        if existed:
             if dim is not None and dim != self.manifest["dim"]:
                 raise ValueError(
                     f"store at {self.directory} holds {self.manifest['dim']}-d "
@@ -239,16 +278,17 @@ class VectorStore:
                 self._flush_manifest()
 
     def _refuse_unported(self) -> None:
-        m = self.manifest
-        why = []
-        if m.get("attrs") or any("atr" in s for s in self.shards()):
-            why.append("per-row attributes (ROADMAP.md queue 1, item 7)")
-        if m.get("migration") or m.get("gen_overrides"):
-            why.append("a rolling migration (ROADMAP.md queue 1, item 5)")
-        if why:
+        if self.attrs_enabled or any("atr" in s for s in self.shards()):
             raise NotImplementedError(
-                f"store at {self.directory} uses {' and '.join(why)}, which "
-                "the port does not read yet")
+                f"store at {self.directory} uses per-row attributes "
+                "(ROADMAP.md queue 1, item 7.2), which the port does not "
+                "read yet")
+
+    @property
+    def attrs_enabled(self) -> bool:
+        """Whether the store carries a per-row attribute table (a later
+        slice's; such a store is refused on open)."""
+        return "attrs" in self.manifest
 
     # -- manifest ---------------------------------------------------------
     @property
@@ -269,7 +309,48 @@ class VectorStore:
 
     @property
     def model_step(self) -> Optional[int]:
+        """The stamp the store's vectors were embedded at. Mid-migration it
+        stays the FROM stamp until the completion flip; a shard's own
+        stamp is ``entry_step``."""
         return self.manifest.get("model_step")
+
+    # -- rolling model migration ------------------------------------------
+    @property
+    def migration(self) -> Optional[Dict]:
+        """The in-flight migration record ({"from_step", "to_step"}), or
+        None. While it is present a shard carries either stamp, one stamp a
+        shard, and serving scores each shard with its stamp's tower."""
+        return self.manifest.get("migration")
+
+    @property
+    def migration_epoch(self) -> int:
+        """How many migration flips the store has committed, ever."""
+        return int(self.manifest.get("migration_epoch", 0))
+
+    def entry_step(self, entry: Dict) -> Optional[int]:
+        """The stamp one shard entry was embedded at: its own recorded
+        stamp (migrated entries, generation entries), else the store's."""
+        return entry.get("model_step", self.manifest.get("model_step"))
+
+    def model_steps(self) -> List[int]:
+        """The distinct stamps of the live shard table, ascending: one
+        outside a migration, two mid-sweep."""
+        return sorted({s for s in (self.entry_step(e) for e in self.shards())
+                       if s is not None})
+
+    # -- the live index directory -----------------------------------------
+    @property
+    def index_dirname(self) -> str:
+        """The directory (under the store) of the LIVE IVF index: "ivf", or
+        the ivf-NNNN a background rebuild built beside it and flipped to."""
+        return self.manifest.get("index_dir", "ivf")
+
+    def set_index_dir(self, name: str) -> None:
+        """Repoint the live index directory with one atomic manifest dump
+        (the background rebuild's flip)."""
+        self.manifest["index_dir"] = str(name)
+        self._atomic_dump(self.manifest, self._manifest_path,
+                          op="index_swap")
 
     def _writer_files(self) -> List[str]:
         return sorted(p for p in glob.glob(
@@ -291,8 +372,9 @@ class VectorStore:
                 os.replace(path, q)
             except FileNotFoundError:
                 return None
-            _warn(f"writer manifest {path} is torn (invalid JSON); moved "
-                  f"aside to {q}; its shards will be re-embedded")
+            faults.count("quarantined_manifests")
+            faults.warn(f"writer manifest {path} is torn (invalid JSON); "
+                        f"moved aside to {q}; its shards will be re-embedded")
             return None
 
     def shards(self) -> List[Dict]:
@@ -319,23 +401,36 @@ class VectorStore:
         with open(self._manifest_path) as f:
             self.manifest = json.load(f)
 
-    def _atomic_dump(self, obj, path: str) -> None:
+    def _atomic_dump(self, obj, path: str, op: str = "manifest") -> None:
         """tmp + fsync + atomic rename + directory fsync: a crash leaves
-        the old file or the new one, never a torn one."""
-        tmp = path + f".tmp.{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump(obj, f, indent=1, sort_keys=True)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-        _fsync_path(os.path.dirname(path))
+        the old file or the new one, never a torn one. Runs under the
+        transient-I/O retry; the fault points are `op`_dump (before the
+        write) and `op`_file (the tmp file, before the rename)."""
+        plan = faults.active()
+
+        def _dump():
+            plan.check(f"{op}_dump")
+            tmp = path + f".tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(obj, f, indent=1, sort_keys=True)
+                f.flush()
+                os.fsync(f.fileno())
+            plan.corrupt(f"{op}_file", tmp)
+            os.replace(tmp, path)
+            _fsync_path(os.path.dirname(path))
+
+        faults.retry(_dump, op=f"{op}_dump")
 
     def _flush_manifest(self) -> None:
         self._atomic_dump(self.manifest, self._manifest_path)
 
     def ensure_model_step(self, step: int) -> None:
         """Vectors embedded at another model step are stale, not resumable
-        work: reset, then stamp the new step."""
+        work: reset, then stamp the new step. Mid-migration, either end of
+        the sweep is a no-op (the migration owns the stamp)."""
+        mig = self.manifest.get("migration")
+        if mig and step in (mig.get("from_step"), mig.get("to_step")):
+            return
         if self.manifest.get("model_step") != step:
             self.reset()
         self.manifest["model_step"] = step
@@ -370,6 +465,11 @@ class VectorStore:
         self._tomb_gen = {}
         self._dead_cache = {}
         step = self.manifest.get("model_step")
+        # mid-migration a generation sits at either end's stamp; a
+        # migrated one carries its entries as a main-manifest override
+        mig = self.manifest.get("migration") or {}
+        ok_steps = ({step, mig.get("from_step"), mig.get("to_step")}
+                    if mig else {step})
         g = int(self.manifest.get("compacted_through", 0)) + 1
         while True:
             mpath = os.path.join(self._gen_path(g), "manifest.json")
@@ -381,19 +481,48 @@ class VectorStore:
             except ValueError:
                 q = mpath + ".quarantined"
                 os.replace(mpath, q)
-                _warn(f"generation manifest {mpath} is torn (invalid JSON); "
-                      f"moved aside to {q}; serving the store without "
-                      f"generation {g} and anything after it")
+                faults.count("quarantined_generations")
+                faults.warn(
+                    f"generation manifest {mpath} is torn (invalid JSON); "
+                    f"moved aside to {q}; serving the store without "
+                    f"generation {g} and anything after it")
                 break
-            if man.get("gen") != g or man.get("model_step") != step:
-                _warn(f"generation {g} at {mpath} is stale (gen="
-                      f"{man.get('gen')}, model_step={man.get('model_step')} "
-                      f"vs store {step}); serving without it")
+            if man.get("gen") != g or (man.get("model_step") not in ok_steps
+                                       and self._gen_override(g, man)
+                                       is None):
+                faults.count("stale_generations")
+                faults.warn(
+                    f"generation {g} at {mpath} is stale (gen="
+                    f"{man.get('gen')}, model_step={man.get('model_step')} "
+                    f"vs store {step}); serving without it")
                 break
             self._register_generation(man)
             g += 1
 
+    def _gen_override(self, g: int, man: Dict) -> Optional[List[Dict]]:
+        """The migrated entries of generation `g` (the main manifest's
+        ``gen_overrides``), or None. Applied only while the recorded
+        source CRCs still match the generation manifest on disk, so a
+        quarantined and reused generation number never takes a stale
+        override."""
+        ov = (self.manifest.get("gen_overrides") or {}).get(str(int(g)))
+        if not ov:
+            return None
+        src = [e.get("crc", {}).get("vec") for e in man.get("shards", [])]
+        if src != ov.get("src_vec_crc"):
+            return None
+        return ov.get("shards")
+
     def _register_generation(self, man: Dict) -> None:
+        ov = self._gen_override(int(man["gen"]), man)
+        if ov is not None:
+            # a migrated generation: its re-embedded entries (and their
+            # stamp) stand in for the manifest's own
+            man = dict(man)
+            man["shards"] = [dict(e) for e in ov]
+            steps = {e.get("model_step") for e in man["shards"]}
+            if len(steps) == 1 and None not in steps:
+                man["model_step"] = steps.pop()
         # each entry carries its generation manifest's stamp, as the JAX
         # package's merged table does
         for s in man.get("shards", []):
@@ -412,8 +541,8 @@ class VectorStore:
     @property
     def generation(self) -> int:
         """The store generation (0: the base embed only). Monotonic across
-        compactions (folded generations still count) and across the JAX
-        package's migration flips (``migration_epoch``)."""
+        compactions (folded generations still count) and across migration
+        flips (``migration_epoch``)."""
         return (int(self.manifest.get("compacted_through", 0))
                 + len(self._generations)
                 + int(self.manifest.get("migration_epoch", 0)))
@@ -617,7 +746,8 @@ class VectorStore:
                 if len(kept) != len(shards):
                     g["shards"] = kept
                     self._atomic_dump(g, os.path.join(self._gen_path(gen),
-                                                      "manifest.json"))
+                                                      "manifest.json"),
+                                      op="gen_manifest")
         else:
             ss = self.manifest["shard_size"]
             lo, hi = idx * ss, idx * ss + int(entry["count"])
@@ -636,8 +766,9 @@ class VectorStore:
                 self._atomic_dump({"shards": kept}, path)
         self._writer_shards = [
             s for s in self._writer_shards if s["index"] != idx]
-        _warn(f"quarantined store shard {idx} ({reason}); its id range "
-              "will be re-embedded on the next embed resume")
+        faults.count("quarantined_shards")
+        faults.warn(f"quarantined store shard {idx} ({reason}); its id "
+                    "range will be re-embedded on the next embed resume")
 
     def verify(self) -> List[int]:
         """Re-check every shard against its recorded sizes/CRCs, quarantining
@@ -703,25 +834,34 @@ class VectorStore:
         if int8:
             names["scl"] = stem + ".scl.npy"
         paths = {key: os.path.join(d, n) for key, n in names.items()}
-        if codes is not None:
-            np.save(paths["vec"], np.asarray(codes[keep], np.int8))
-            scl = np.asarray(scales[keep], np.float16)
-        elif int8:
-            q, scl = quantize_rows(np.asarray(vecs)[keep])
-            np.save(paths["vec"], q)
-        else:
-            np.save(paths["vec"], np.asarray(vecs[keep], np.float16))
-        if int8:
-            np.save(paths["scl"], scl)
-        np.save(paths["ids"], ids.astype(np.int64))
         entry = {"index": index, "count": int(ids.shape[0]),
                  **{key: os.path.join(subdir, n) if subdir else n
                     for key, n in names.items()},
                  "bytes": {}, "crc": {}}
-        for key, path in paths.items():
-            entry["bytes"][key] = os.path.getsize(path)
-            entry["crc"][key] = crc_file(path)
-            _fsync_path(path)
+        plan = faults.active()
+
+        def _write_files():
+            plan.check("shard_write")
+            if codes is not None:
+                np.save(paths["vec"], np.asarray(codes[keep], np.int8))
+                scl = np.asarray(scales[keep], np.float16)
+            elif int8:
+                q, scl = quantize_rows(np.asarray(vecs)[keep])
+                np.save(paths["vec"], q)
+            else:
+                np.save(paths["vec"], np.asarray(vecs[keep], np.float16))
+            if int8:
+                np.save(paths["scl"], scl)
+            np.save(paths["ids"], ids.astype(np.int64))
+            for key, path in paths.items():
+                entry["bytes"][key] = os.path.getsize(path)
+                entry["crc"][key] = crc_file(path)
+                _fsync_path(path)
+            # damage after the checksum record: the verify gate, not this
+            # writer, must catch it
+            plan.corrupt("shard_file", paths["vec"])
+
+        faults.retry(_write_files, op="shard_write")
         return entry
 
     # -- read -------------------------------------------------------------
@@ -731,6 +871,7 @@ class VectorStore:
         memory-mapped, float16 scales or None), so the card widens them.
         Every reader comes through here, so the tombstones are applied
         here: an id a later generation tombstoned reads as -1."""
+        faults.active().check("shard_read")
         vecs = np.load(os.path.join(self.directory, entry["vec"]),
                        mmap_mode="r")
         ids = self.load_ids(entry)
@@ -842,7 +983,8 @@ class GenerationWriter:
                              + [e["index"] for e in self._entries]),
             "shards": sorted(self._entries, key=lambda s: s["index"]),
         }
-        self.store._atomic_dump(man, os.path.join(self._dir, "manifest.json"))
+        self.store._atomic_dump(man, os.path.join(self._dir, "manifest.json"),
+                                op="gen_manifest")
         self.store._register_generation(man)
         if self._entries:
             lo = min(e["id_lo"] for e in self._entries)

@@ -28,10 +28,9 @@ Determinism: everything derives from ONE integer seed. `schedule()` and
 on every call, so two runs with the same seed offer identical loads.
 
 `Mutator` wraps a callable with a period, so the driver can fire a
-mutation of the store under load; the port's mutations (appends and the
-hot swap) are a later slice (ROADMAP.md queue 1, item 5). Filtered query
-mixes need index/attrs.py (item 7): `QueryMix(filter_scenarios=...)`
-raises naming it.
+mutation of the store under load (a refresh, an append, or a
+maintenance pass). Filtered query mixes need index/attrs.py (item 7.2):
+`QueryMix(filter_scenarios=...)` raises naming it.
 """
 from __future__ import annotations
 

@@ -33,7 +33,7 @@ from typing import Dict
 
 import numpy as np
 
-from dnn_page_vectors_tpu_torch.utils import telemetry
+from dnn_page_vectors_tpu_torch.utils import faults, telemetry
 
 
 def _entry_bytes(entry: Dict) -> int:
@@ -61,6 +61,11 @@ def compact_store(store, registry=None) -> Dict:
         raise ValueError(
             f"store at {store.directory} has live writer manifests (an "
             "embed fleet is mid-flight); compact after merge_writers()")
+    if store.migration is not None:
+        # folding would merge shards of different stamps into one output
+        # shard; the migration owns the store until its completion flip
+        return {"action": "noop", "reason": "migration in flight",
+                "generation": store.generation}
     prev_epoch = store.compacted_through
     epoch = store.chain_generation
     if epoch <= prev_epoch:
@@ -113,6 +118,7 @@ def compact_store(store, registry=None) -> Dict:
             got = raw_cache[pos] = (vecs, scl)
         return got
 
+    plan = faults.active()
     new_entries = []
     next_idx = store._next_shard_index()
     ss = store.manifest["shard_size"]
@@ -129,6 +135,7 @@ def compact_store(store, registry=None) -> Dict:
             data[m] = np.asarray(vecs[row_c[m]])
             if scl_c is not None:
                 scl_c[m] = np.asarray(scl[row_c[m]])
+        plan.check("compact_write")
         if is_int8:
             entry = store._write_shard_files(subdir, next_idx, ids_c,
                                              None, data, scl_c)
@@ -148,7 +155,7 @@ def compact_store(store, registry=None) -> Dict:
     man.pop("gen_overrides", None)
     man["append_cursor"] = max(int(man.get("append_cursor", 0)),
                                cursor_before)
-    store._atomic_dump(man, store._manifest_path)
+    store._atomic_dump(man, store._manifest_path, op="compact_swap")
     store.manifest = man
     store._load_generations()        # the chain resumes past the epoch
 
@@ -193,6 +200,7 @@ def compact_store(store, registry=None) -> Dict:
         "dead_rows_dropped": dead_rows,
         "bytes_reclaimed": stats["bytes_reclaimed"],
         "seconds": stats["seconds"]})
+    faults.count("store_compactions")
     return stats
 
 

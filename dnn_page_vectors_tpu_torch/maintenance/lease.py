@@ -33,7 +33,7 @@ import threading
 import time
 from typing import Dict, Optional
 
-from dnn_page_vectors_tpu_torch.utils import telemetry
+from dnn_page_vectors_tpu_torch.utils import faults, telemetry
 
 LEASE_NAME = "append.lease.json"
 # a lock file (held for one read and write) older than this is a crashed
@@ -94,6 +94,7 @@ class AppendLease:
                     if time.time() - os.path.getmtime(lock) > _LOCK_STALE_S:
                         os.remove(lock)
                         self.registry.counter("lease.lock_broken").inc()
+                        faults.count("lease_lock_broken")
                         continue
                 except OSError:
                     continue
@@ -120,7 +121,7 @@ class AppendLease:
             "acquired": round(now, 3),
             "expires": round(now + self.ttl_s, 3),
             "cursor": self.store.next_page_id(),
-        }, self.path)
+        }, self.path, op="lease")
 
     def acquire(self) -> "AppendLease":
         """Take the cursor: a free or expired lease at once (an expired one
@@ -140,11 +141,13 @@ class AppendLease:
                     self._write(now)
                     self.held = True
                     self.registry.counter("lease.acquired").inc()
+                    faults.count("lease_acquired")
                     self.registry.event("lease_acquired", {
                         "owner": self.owner,
                         "stolen_from": self.stole_from})
                     if self.stole_from is not None:
                         self.registry.counter("lease.stolen").inc()
+                        faults.count("lease_stolen")
                         self.registry.event("lease_stolen", {
                             "owner": self.owner, "from": self.stole_from})
                     return self
@@ -205,4 +208,5 @@ def expire_stale_lease(store, registry=None) -> bool:
         except OSError:
             return False
     lease.registry.counter("lease.expired").inc()
+    faults.count("lease_expired")
     return True

@@ -283,6 +283,29 @@ def test_loadtest_mutate_every_hot_swaps_under_the_load(served, capsys,
     assert rep["trials"][0]["mutator_calls"] >= 1
 
 
+def test_loadtest_mutate_mode_maintain_compacts_under_the_load(
+        served, capsys, tmp_path):
+    """--mutate-mode maintain: a tombstone burst and its refresh, then a
+    maintenance pass, in turns under the load; at a compaction trigger of
+    0.01 the first pass folds the chain, and no mutation fails."""
+    import shutil
+
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    wd = tmp_path / "wd"
+    shutil.copytree(served["wd"], wd)
+    rep = _lines(capsys, _argv(
+        "loadtest", wd, {**served["ov"],
+                         "maintenance.compact_tombstone_density": 0.01},
+        *LOADTEST, "--mutate-every", "0.1", "--mutate-mode", "maintain"))[-1]
+    assert rep["mutate_mode"] == "maintain" and rep["mutator_errors"] == []
+    calls = rep["mutator_calls_by_op"]
+    assert calls["tombstone_refresh"] >= 1 and calls["maintain"] >= 1
+    store = VectorStore(str(wd / "store"))
+    assert store.compacted_through >= 1
+    live = int((store.load_all()[0] >= 0).sum())
+    assert live == 600 - 16 * calls["tombstone_refresh"]
+
+
 def test_serve_metrics_and_trace(served, capsys):
     wd, ov = served["wd"], served["ov"]
     cli.main(_argv("serve-metrics", wd, ov))
@@ -309,11 +332,62 @@ def test_serve_metrics_and_trace(served, capsys):
 @pytest.mark.parametrize("flags,item", [
     (("--partitions", "2"), 7), (("--replicas", "2"), 7),
     (("--front-ends", "2"), 7), (("--filters",), 7),
-    (("--filter", "lang==0"), 7),
-    (("--mutate-every", "1", "--mutate-mode", "maintain"), 7)])
+    (("--filter", "lang==0"), 7)])
 def test_unported_serving_flags_exit_naming_their_item(flags, item, tmp_path):
     with pytest.raises(SystemExit) as ei:
         cli.main(["loadtest", "--workdir", str(tmp_path), "--device", "cpu",
                   *flags])
     assert str(ei.value).endswith(f"(ROADMAP.md queue 1, item {item})")
     assert not os.listdir(tmp_path)
+
+
+MAINT_OV = {"data.num_pages": 600, "data.trigram_buckets": 1024,
+            "model.embed_dim": 16, "model.conv_channels": 32,
+            "model.out_dim": 16, "eval.embed_batch_size": 128,
+            "eval.store_shard_size": 256, "serve.nlist": 8,
+            "serve.kmeans_iters": 3}
+
+
+@pytest.mark.parametrize("command", ["migrate", "index", "maintain"])
+def test_migrate_index_and_maintain_print_the_jax_keys(command, tmp_path,
+                                                       capsys, monkeypatch):
+    """Each command over a store the same command line embedded in each
+    package (random weights): the JAX CLI's keys, and the same counts.
+    `migrate` re-embeds a store stamped at another step (5) to the
+    checkpoint's (0, none saved); `index` builds with --pq; `maintain
+    --once` runs one pass."""
+    from dnn_page_vectors_tpu import cli as jcli
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    extra = {"migrate": [], "index": ["--pq"], "maintain": ["--once"]}
+    outs = []
+    for pkg, main, dev in (("port", cli.main, ["--device", "cpu"]),
+                           ("jax", jcli.main, [])):
+        wd = tmp_path / pkg
+        args = ["--config", "cdssm_toy", "--workdir", str(wd)]
+        for k, v in MAINT_OV.items():
+            args += ["--set", f"{k}={v}"]
+        main(["embed", *args, *dev])
+        if command == "migrate":
+            store = VectorStore(str(wd / "store"))
+            store.manifest["model_step"] = 5
+            store._flush_manifest()
+        capsys.readouterr()
+        main([command, *args, *extra[command], *dev])
+        outs.append(json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1]))
+    got, want = outs
+    assert sorted(got) == sorted(want), (got, want)
+    same = {"migrate": ("action", "from_step", "to_step", "units", "rows",
+                        "completed", "purged_files", "store_generation"),
+            "index": ("vectors", "nlist", "pq_m", "model_step",
+                      "balance_cap"),
+            "maintain": ()}[command]
+    assert {k: got[k] for k in same} == {k: want[k] for k in same}
+    if command == "migrate":
+        assert (got["action"], got["to_step"], got["rows"]) == \
+            ("migrated", 0, 600)
+        assert VectorStore(str(tmp_path / "port" / "store")).model_steps() \
+            == [0]
+    if command == "index":
+        assert got["pq_m"] == 2 and got["vectors"] == 600

@@ -184,3 +184,35 @@ def test_update_modules_are_covered(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([command, "--workdir", str(tmp_path / "wd"),
                       "--set", "data.num_pages=64"])
+
+
+def test_migration_and_maintenance_modules_are_covered(tmp_path):
+    """The slice's modules (utils/faults.py, maintenance/migrate.py,
+    maintenance/service.py) are among those the checks above walk, and its
+    entry points run on cuda unless asked for the CPU: the CLI's migrate
+    and index, and a MaintenanceService's rebuild."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    for mod in ("utils.faults", "maintenance.migrate",
+                "maintenance.service"):
+        assert f"dnn_page_vectors_tpu_torch.{mod}" in names, mod
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately runs there")
+    import numpy as np
+
+    from dnn_page_vectors_tpu_torch import cli
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.maintenance import MaintenanceService
+    store = VectorStore(str(tmp_path / "wd" / "store"), dim=8, shard_size=8)
+    store.ensure_model_step(0)
+    store.write_shard(0, np.arange(8, dtype=np.int64),
+                      np.eye(8, dtype=np.float32))
+    for command in ("migrate", "index"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([command, "--workdir", str(tmp_path / "wd"),
+                      "--set", "data.num_pages=64"])
+    ms = MaintenanceService(get_config("cdssm_toy"), store.directory)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ms._swap_index(VectorStore(store.directory), reason="test")

@@ -405,13 +405,14 @@ def test_mine_with_index_matches_jax(built, mesh, tmp_path):
 
 def test_unported_parts_raise(built):
     """update() is ported (tests/test_torch_updates.py): on an index that
-    is current it is a no-op; the background rebuilder's hand-off, the hot
-    posting set, partitions and filters still raise naming item 7."""
+    is current it is a no-op, deferred or not (the deferred rebuild is
+    tests/test_torch_maintenance_service.py's); the hot posting set,
+    partitions and filters still raise naming item 7."""
     store, idx = built["fp16_pq"]["port"]
     same, info = IVFIndex.update(store, device="cpu")
     assert info["action"] == "noop" and same.index_generation == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        IVFIndex.update(store, defer_rebuild=True, device="cpu")
+    same, info = IVFIndex.update(store, defer_rebuild=True, device="cpu")
+    assert info["action"] == "noop" and same.index_generation == 0
     with pytest.raises(NotImplementedError, match="item 7"):
         idx.stage_hot(1 << 20)
     with pytest.raises(NotImplementedError, match="item 7"):
