@@ -121,7 +121,8 @@ Phases, each printing one JSON line:
      exact fallback, the mined table in range
      and never the gold page (and its agreement with an exact mine); (b)
      a plain IVF and an IVF-PQ index over 1,000,000 rows (page-tower
-     encodes of random id rows, cut from config 3's 10M pages); printed:
+     encodes of random id rows, cut from config 3's 10M pages; each row
+     with the attribute word phase 19 filters by); printed:
      recall against exact at nprobe 8, 16, 32 and 64 for every index,
      the build's seconds by stage, the lists' imbalance, single-query p50
      and p95 of the IVF and the exact service, one search_many's time by
@@ -173,6 +174,14 @@ Phases, each printing one JSON line:
      SearchServer; every flip against a dual-stamp oracle; then the
      rebuild pillar's off-path IVF rebuild under load, and the CLI's
      migrate, index and maintain. Then the corpus file is deleted.
+ 19. filtered retrieval and the hot posting set (run_filtered): phase
+     14(b)'s 1M-row int8 store with the words of the JAX package's
+     filtered protocol (written in phase 14), filtered exact and
+     filtered IVF-PQ in arms of 50%, 10% and 1% selectivity against a
+     plain post-filter top-10, the hot posting set at half the rows'
+     bytes against the mmap path, both behind a SearchServer under a
+     filtered load, and appends with a word, the IVF update and
+     compaction over a copy of phase 14(a)'s rows.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The toy corpora keep each text once made (KeptTexts): the phases read
@@ -210,6 +219,7 @@ import json
 import multiprocessing
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -493,6 +503,29 @@ MIG_MAX_TRIALS = 40
 MIG_IVF_APPEND = 3_000
 MIG_IVF_DRIFT = 0.02
 MIG_BUDGET_S = 100.0
+# Phase 19, filtered retrieval and the hot posting set (run_filtered):
+# phase 14(b)'s 1M-row store carries the words of `filter_words` (the JAX
+# package's filtered protocol), so lang==0, site in {0} and recency>=3
+# keep 50%, 10% and 1% of the rows (the arms s50, s10, s1); FILT_QUERIES
+# corpus queries in each arm, full probe checked on FILT_CHECK_QUERIES;
+# the hot set's budget is half the rows' code bytes and list ids (0.5 x
+# 1M x (32 + 4) B); a trial of FILT_TRIAL_S at FILT_QPS of phase 16's mix
+# with the arms as FILT_SCENARIOS, with and without it; FILT_APPEND pages
+# of phase 4's grown corpus appended with lang FILT_LANG to phase 14(a)'s
+# rows (FILT_TOMBSTONED deleted).
+FILT_ARMS = (("none", None), ("s50", "lang==0"), ("s10", "site in {0}"),
+             ("s1", "recency>=3"))
+FILT_SCENARIOS = (("unfiltered", None, 0.25), ("s50", "lang==0", 0.25),
+                  ("s10", "site in {0}", 0.25), ("s1", "recency>=3", 0.25))
+FILT_QUERIES = 64
+FILT_CHECK_QUERIES = 8
+FILT_HOT_BUDGET = 18_000_000
+FILT_QPS = 25.0
+FILT_TRIAL_S = 3.0
+FILT_APPEND = 10_000
+FILT_TOMBSTONED = 100
+FILT_LANG = 7
+FILT_BUDGET_S = 60.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -3047,7 +3080,8 @@ def big_store(emb, store, rows: int, device) -> dict:
     """Phase 14(b)'s store: `rows` page-tower encodes of seeded random
     WordPiece id rows drawn on the card, through the bulk embedder's
     encode-and-quantize (encode_pages_q8) and write_shard, a shard at a
-    time."""
+    time; on a store with an attribute table each row also gets its
+    `filter_words` word (phase 19's)."""
     cfg = emb.cfg
     bs, ss = cfg.eval.embed_batch_size, cfg.eval.store_shard_size
     vocab = emb.page_tok.vocab_size
@@ -3065,7 +3099,9 @@ def big_store(emb, store, rows: int, device) -> dict:
             scales.append(s)
         store.write_shard(si, np.arange(lo, hi, dtype=np.int64),
                           codes=torch.cat(codes).cpu().numpy(),
-                          scales=torch.cat(scales).cpu().numpy())
+                          scales=torch.cat(scales).cpu().numpy(),
+                          attrs=(filter_words(lo, hi) if store.attrs_enabled
+                                 else None))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return {"rows": rows, "shards": len(store.shards()), "seconds": secs,
@@ -3251,6 +3287,9 @@ def run_ivf(device, data, workdir: str) -> dict:
     reset_counts()
     big = VectorStore(os.path.join(workdir, "ivf_big"), dim=m.out_dim,
                       shard_size=cfg.eval.store_shard_size, dtype="int8")
+    # phase 19 filters these rows: their words are written beside them
+    # (and copied with them into ivf_big_pq)
+    big.init_attrs()
     fill = big_store(emb, big, IVF_BIG_ROWS, device)
     fill_launches = launch_counts()
     want_fill = expected_launches(
@@ -5296,6 +5335,518 @@ def run_migration(device, data, workdir: str, production: dict) -> dict:
     return rec
 
 
+# -- phase 19: filtered retrieval and the hot posting set --------------------
+
+def filter_words(lo: int, hi: int) -> np.ndarray:
+    """The attribute words of page ids [lo, hi) in phase 14(b)'s store:
+    the JAX package's filtered protocol (bench.py), lang = i % 2, site
+    bucket = i % 10, recency 3 where i % 100 == 0, else 0."""
+    from dnn_page_vectors_tpu_torch.index.attrs import pack_words
+    i = np.arange(lo, hi)
+    return pack_words(lang=(i % 2).astype(np.uint32),
+                      site=(i % 10).astype(np.uint32),
+                      recency=np.where(i % 100 == 0, 3, 0).astype(np.uint32))
+
+
+def plain_filtered_topk(svc, qv: torch.Tensor, keep: np.ndarray,
+                        k: int = 10) -> tuple:
+    """A plain post-filter top-k over a service's staged rows: each int8
+    row dequantized on the card with its scale, float32 q @ rows^T, the
+    rows `keep` drops at -inf, torch.topk. (scores, page ids)."""
+    pages, scales = svc.pages, svc.scales
+    parts = []
+    for lo in range(0, pages.shape[0], 262_144):
+        rows = pages[lo: lo + 262_144].float()
+        if scales is not None:
+            rows = rows * scales[lo: lo + 262_144].float()[:, None]
+        parts.append(qv.float() @ rows.T)
+    mask = torch.from_numpy(keep).to(qv.device)
+    sc = torch.cat(parts, dim=1).masked_fill(~mask, -torch.inf)
+    s, i = torch.topk(sc, k, dim=1)
+    return s.cpu().numpy(), svc.page_ids[i.cpu().numpy()]
+
+
+def hot_bytes_on_card(index) -> int:
+    """The bytes of an index's staged hot set on the card: codes, list
+    ids and attribute words."""
+    hot = index._hot
+    return sum(t.numel() * t.element_size()
+               for t in (hot["codes"], hot["cent"], hot["attrs"]))
+
+
+def run_filtered(device, data, workdir: str) -> dict:
+    """Phase 19: filtered retrieval and the hot posting set on config 3's
+    towers (phase 4's weights and vocab), over phase 14(b)'s 1M-row int8
+    store, whose rows carry the words of `filter_words`, and its IVF-PQ
+    index (pq_m 32). (a) a SearchService (exact) answers FILT_QUERIES
+    corpus queries through search_many in each arm of FILT_ARMS: the
+    top-10 against a plain post-filter top-10 of the dequantized rows on
+    the card (ties only), every result matching, and the s10 arm's
+    scan_bytes at most 0.3x the unfiltered arm's; (b) the predicate
+    through the index: recall against (a)'s filtered exact at nprobe 8,
+    16, 32 and 64 a arm, full probe with every matching row re-ranked
+    equal to filtered exact on FILT_CHECK_QUERIES queries (ties only), s1
+    filling k at nprobe 8 and escalating at nprobe 1; (c) stage_hot at
+    FILT_HOT_BUDGET: 0 < hot_lists < nlist, the staged bytes on the card,
+    searches with and without a predicate equal to the mmap path's (ties
+    only) with fewer bytes gathered and hot rows scored, a lone query's
+    search time with and without the hot set, and after a burst of
+    searches a restage ranked by popularity; (d) serve.index=
+    "ivf" with serve.hot_postings_gb at that budget and both caches on
+    behind a SearchServer: a SocketSearchClient's filtered results equal
+    in-process search, the result cache keeps a filtered entry apart from
+    its unfiltered twin, a serve.filters=False server refuses a filtered
+    frame; a trial of FILT_TRIAL_S at FILT_QPS of phase 16's mix with the
+    arms as filter scenarios, with and without the hot set (the client's
+    p50/p95/p99, the card's busy share), then restage_hot; (e) phase
+    14(a)'s 100,000 int8 rows copied into a store stamped 0 under a PQ
+    index of its knobs, init_attrs() (its shards then read as all-zero
+    words), FILT_APPEND pages of phase 4's grown corpus appended with
+    attrs=pack_word(lang=FILT_LANG) (FILT_TOMBSTONED base pages deleted),
+    IVFIndex.update through refresh() under a service: lang==FILT_LANG
+    returns appended rows only on the exact and the index path, and
+    compaction carries every live row's word; (f) K1 launched 4 times
+    every encode, all on the tensor cores, nothing else. The phase's
+    seconds beside FILT_BUDGET_S."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.loader import build_corpus
+    from dnn_page_vectors_tpu_torch.index.attrs import Predicate, pack_word
+    from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
+    from dnn_page_vectors_tpu_torch.infer import transport
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.server import SearchServer
+    from dnn_page_vectors_tpu_torch.infer.transport import (
+        RemoteError, SocketSearchClient)
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.loadgen import make_workload, run_trial
+    from dnn_page_vectors_tpu_torch.maintenance import compact_store
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    from dnn_page_vectors_tpu_torch.updates import append_corpus
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    corpus, q_tok, p_tok = data
+    big_dir = os.path.join(workdir, "ivf_big_pq")
+    base = {"data.num_pages": N_PAGES, "eval.store_shard_size": 65_536,
+            "eval.embed_batch_size": 512, "model.attention": "flash",
+            "eval.store_dtype": "int8", "serve.pq_m": IVF_PQ_M,
+            "serve.query_cache_size": SERVE_CACHE,
+            "obs.window_s": FILT_TRIAL_S}
+
+    def config(**kw):
+        return get_config("bert_mini_v5p16", {**base, **{
+            f"serve.{k}": v for k, v in kw.items()}})
+    cfg = config()
+    m = cfg.model
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    encodes = count_encodes(emb)
+    store = VectorStore(big_dir)
+    words = np.concatenate([store.load_attrs(e) for e in store.shards()])
+    if not (store.attrs_enabled and np.array_equal(
+            words, filter_words(0, IVF_BIG_ROWS))):
+        raise AssertionError("phase 14(b)'s store does not carry the "
+                             "filtered protocol's words")
+    preds = {name: None if text is None else Predicate.parse(text)
+             for name, text in FILT_ARMS}
+    keep = {name: (np.ones(words.shape, bool) if p is None
+                   else p.matches(words)) for name, p in preds.items()}
+    queries = [corpus.query_text(int(i)) for i in np.linspace(
+        0, N_PAGES - 1, FILT_QUERIES).astype(np.int64)]
+    rec = {"phase": "filtered", "config": cfg.name, **widths(cfg),
+           "store_rows": store.num_vectors, "store_dtype": "int8",
+           "queries": FILT_QUERIES, "arms": {n: t for n, t in FILT_ARMS},
+           "selectivity": {n: float(k.mean()) for n, k in keep.items()}}
+    services, servers, clients = [], [], []
+
+    def service(c, directory=big_dir, corp=corpus, **kw):
+        svc = SearchService(c, emb, corp, VectorStore(directory), **kw)
+        services.append(svc)
+        return svc
+
+    def serve(svc):
+        svc.start_batcher()
+        server = SearchServer(svc, executor_workers=SERVE_LOAD_WORKERS)
+        server.start_background()
+        servers.append(server)
+        client = SocketSearchClient(server.host, server.port)
+        clients.append(client)
+        return server, client
+
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        # ---- the main path, counted (a)-(e) ---------------------------
+        # (a) filtered exact
+        t0 = time.perf_counter()
+        svc = service(cfg)
+        rec["a_open_s"] = time.perf_counter() - t0
+        if not (svc.preloaded and svc.pages.shape[0] == IVF_BIG_ROWS):
+            raise AssertionError("the 1M-row store is not staged")
+        exact, a_rec = {}, {}
+        qv = None
+        for name, text in FILT_ARMS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = svc.search_many(queries, k=10, filters=text)
+            torch.cuda.synchronize()
+            many_ms = (time.perf_counter() - t0) * 1e3
+            if qv is None:
+                qv = svc._embed_queries_cached(svc._view, queries)
+                qv_host = qv[:FILT_QUERIES].float().cpu().numpy()
+            raw_s, raw_i, scan = svc._topk_view(
+                svc._view, qv_host, FILT_QUERIES, 10, None,
+                predicate=preds[name])
+            fmt = [svc._format(raw_s[i], raw_i[i])
+                   for i in range(FILT_QUERIES)]
+            if fmt != res:
+                raise AssertionError(f"phase 19 (a) {name}: search_many "
+                                     "differs from its own top-k")
+            plain_s, plain_i = plain_filtered_topk(
+                svc, qv[:FILT_QUERIES], keep[name][svc.page_ids])
+            ties = ties_only(raw_s, raw_i, plain_s, plain_i,
+                             f"phase 19 (a) {name} vs the plain post-filter")
+            if not all(keep[name][int(r["page_id"])] for hits in res
+                       for r in hits) or any(len(h) != 10 for h in res):
+                raise AssertionError(f"phase 19 (a) {name}: a result "
+                                     "misses the predicate or k")
+            exact[name] = (raw_s, raw_i)
+            a_rec[name] = {"search_many_ms": many_ms, "scan_bytes": scan,
+                           "tie_rows_vs_plain": ties}
+        for name in a_rec:
+            a_rec[name]["scan_share"] = (a_rec[name]["scan_bytes"]
+                                         / a_rec["none"]["scan_bytes"])
+        if a_rec["s10"]["scan_share"] > 0.3:
+            raise AssertionError(f"phase 19 (a): the s10 arm scanned "
+                                 f"{a_rec['s10']['scan_share']:.3f}x the "
+                                 "unfiltered bytes, over 0.3x")
+        ev = svc.registry.events("filtered_query")
+        rec["a_exact"] = {**a_rec, "filtered_query_events": len(ev),
+                          "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "filtered_a_exact", **rec["a_exact"]})
+
+        # (b) the predicate through the index
+        idx = IVFIndex.open(VectorStore(big_dir), device=device)
+        curves = {}
+        for name, text in FILT_ARMS:
+            curve = {}
+            for nprobe in IVF_NPROBES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, i, st = idx.search(qv_host, 10, nprobe=nprobe,
+                                      predicate=preds[name])
+                secs = time.perf_counter() - t0
+                want = exact[name][1]
+                recall = float(np.mean([
+                    len(set(g[g >= 0].tolist()) & set(w[w >= 0].tolist()))
+                    / max(1, int((w >= 0).sum())) for g, w in zip(i, want)]))
+                if not keep[name][i[i >= 0]].all():
+                    raise AssertionError(f"phase 19 (b) {name}: a result "
+                                         "misses the predicate")
+                curve[str(nprobe)] = {
+                    "recall_vs_filtered_exact_at_10": recall,
+                    "seconds": secs, "filled": float((i >= 0).mean()),
+                    "gather_bytes_per_query": st["gather_bytes"]
+                    / FILT_QUERIES,
+                    "filter_escalations": st.get("filter_escalations", 0)}
+            curves[name] = curve
+        full = {}
+        n_chk = FILT_CHECK_QUERIES
+        for name, text in FILT_ARMS:
+            if text is None:
+                continue
+            s, i, st = idx.search(qv_host[:n_chk], 10, nprobe=idx.nlist,
+                                  rerank=int(keep[name].sum()),
+                                  predicate=preds[name])
+            full[name] = ties_only(s, i, exact[name][0][:n_chk],
+                                   exact[name][1][:n_chk],
+                                   f"phase 19 (b) {name} full probe")
+        s1_8 = curves["s1"]["8"]
+        if s1_8["filled"] != 1.0:
+            raise AssertionError(f"phase 19 (b): s1 at nprobe 8 left k "
+                                 f"short: {s1_8}")
+        _, i1, st1 = idx.search(qv_host, 10, nprobe=1,
+                                predicate=preds["s1"])
+        if not (st1.get("filter_escalations", 0) > 0 and (i1 >= 0).all()):
+            raise AssertionError(f"phase 19 (b): s1 at nprobe 1 did not "
+                                 f"escalate to k: {st1}")
+        rec["b_ivf"] = {"nlist": idx.nlist, "pq_m": idx.pq_m,
+                        "recall": curves,
+                        "full_probe_tie_rows": full,
+                        "full_probe_queries": n_chk,
+                        "s1_nprobe1_escalations": st1["filter_escalations"],
+                        "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "filtered_b_ivf", **rec["b_ivf"]})
+
+        # (c) the hot posting set
+        hot_idx = IVFIndex.open(VectorStore(big_dir), device=device)
+        t0 = time.perf_counter()
+        summary = hot_idx.stage_hot(FILT_HOT_BUDGET)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        if not 0 < summary["hot_lists"] < hot_idx.nlist:
+            raise AssertionError(f"phase 19 (c): {summary}")
+        c_rec = {"summary": summary, "stage_s": stage_s,
+                 "staged_bytes_on_card": hot_bytes_on_card(hot_idx)}
+        for name, text in FILT_ARMS:
+            for nprobe in (8, 32):
+                s, i, st = hot_idx.search(qv_host, 10, nprobe=nprobe,
+                                          predicate=preds[name])
+                ms, mi, mst = idx.search(qv_host, 10, nprobe=nprobe,
+                                         predicate=preds[name])
+                ties = ties_only(s, i, ms, mi, f"phase 19 (c) {name} "
+                                 f"nprobe {nprobe}: hot vs mmap")
+                if not (st["gather_bytes"] < mst["gather_bytes"]
+                        and st.get("hot_rows_scored", 0) > 0):
+                    raise AssertionError(f"phase 19 (c) {name}: hot {st} "
+                                         f"vs mmap {mst}")
+                c_rec[f"{name}_nprobe{nprobe}"] = {
+                    "tie_rows": ties,
+                    "gather_bytes_per_query": st["gather_bytes"]
+                    / FILT_QUERIES,
+                    "mmap_gather_bytes_per_query": mst["gather_bytes"]
+                    / FILT_QUERIES,
+                    "hot_rows_scored_per_query": st["hot_rows_scored"]
+                    / FILT_QUERIES}
+        # one query at nprobe 8 (the serving shape at low load), hot
+        # against mmap: the hot half scores every staged row of the set
+        # (masked to the probed lists), the mmap half the probed lists'
+        for name, index in (("hot", hot_idx), ("mmap", idx)):
+            ms = []
+            for j in range(SERVE_LONE_QUERIES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                index.search(qv_host[j % FILT_QUERIES][None], 10, nprobe=8)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            c_rec[f"one_query_ms_{name}"] = {
+                "p50": float(np.percentile(ms, 50)),
+                "p95": float(np.percentile(ms, 95))}
+        # a burst of searches of the same queries, then a restage: the
+        # lists they probe are the popular ones now
+        for _ in range(8):
+            hot_idx.search(qv_host, 10, nprobe=8)
+        counts = hot_idx.scan_counts.copy()
+        restaged = hot_idx.stage_hot(FILT_HOT_BUDGET)
+        res = hot_idx._hot["lists"]
+        if not (restaged["hot_by_popularity"]
+                and counts[res].mean() > counts[~res].mean()):
+            raise AssertionError(f"phase 19 (c): the restage {restaged}")
+        c_rec.update({"restaged": restaged,
+                      "probes_per_resident_list": float(counts[res].mean()),
+                      "probes_per_other_list": float(counts[~res].mean()),
+                      "at_s": time.perf_counter() - t_phase})
+        rec["c_hot"] = c_rec
+        emit({"phase": "filtered_c_hot", **c_rec})
+        del idx, hot_idx
+
+        # (d) through the service and the socket
+        gb = FILT_HOT_BUDGET / 2 ** 30
+        t0 = time.perf_counter()
+        hot_svc = service(config(index="ivf", result_cache=True,
+                                 hot_postings_gb=gb))
+        d_rec = {"open_hot_s": time.perf_counter() - t0,
+                 "hot_rows": hot_svc.metrics()["ann_index"]["hot_rows"]}
+        cold_svc = service(config(index="ivf", result_cache=True))
+        if not (d_rec["hot_rows"] > 0
+                and cold_svc.metrics()["ann_index"]["hot_rows"] == 0):
+            raise AssertionError(f"phase 19 (d): the services' hot rows "
+                                 f"{d_rec['hot_rows']}")
+        _, hot_client = serve(hot_svc)
+        _, cold_client = serve(cold_svc)
+        for name, text in FILT_ARMS:
+            want_s, want_i = hot_svc.topk_vectors(qv_host[:16], k=10,
+                                                  filters=text)
+            got_s, got_i, _ = hot_client.topk_vectors(qv_host[:16], k=10,
+                                                      filters=text)
+            local = hot_svc.search(queries[0], k=10, filters=text)
+            remote = hot_client.search(queries[0], k=10, filters=text)
+            if not (np.array_equal(got_i, want_i)
+                    and np.array_equal(got_s, want_s)
+                    and [r["page_id"] for r in remote]
+                    == [r["page_id"] for r in local]):
+                raise AssertionError(f"phase 19 (d) {name}: the socket "
+                                     "differs from in-process search")
+        q = queries[1]
+        hot_svc.clear_cache()
+        unfiltered = hot_svc.search(q, k=10)
+        filtered = hot_svc.search(q, k=10, filters="lang==1")
+        again = hot_svc.search(q, k=10, filters=" lang == 1 ")
+        slots = {key[5] for key in hot_svc._rcache}
+        if not (any(r["page_id"] % 2 == 0 for r in unfiltered)
+                and all(r["page_id"] % 2 == 1 for r in filtered)
+                and again == filtered and slots == {"", "lang==1"}):
+            raise AssertionError("phase 19 (d): the result cache crossed "
+                                 "the filter boundary")
+        off_svc = service(config(filters=False), preload_hbm_gb=0.0)
+        off_server, off_client = serve(off_svc)
+        try:
+            off_client.search(q, k=10, filters="lang==1")
+            raise AssertionError("phase 19 (d): a client sent a filtered "
+                                 "query to a serve.filters=False server")
+        except RemoteError:
+            pass
+        raw = socket.create_connection((off_server.host, off_server.port),
+                                       timeout=30)
+        transport.write_frame(raw, transport.T_QUERY, transport.encode_query(
+            1, [q], k=10, filters="lang==1"))
+        ftype, body = transport.read_frame(raw)
+        raw.close()
+        if ftype != transport.T_ERROR or off_svc._m_requests.value:
+            raise AssertionError("phase 19 (d): a serve.filters=False "
+                                 "server served a filtered frame")
+        distinct = [corpus.query_text(i) for i in range(SERVE_DISTINCT)]
+
+        def workload():
+            return make_workload("poisson", seed=SERVE_SEED,
+                                 distinct=SERVE_DISTINCT, alpha=SERVE_ALPHA,
+                                 profile=((10, None, 1.0),),
+                                 filter_scenarios=FILT_SCENARIOS)
+        trials = {}
+        for name, tsvc, client in (("hot", hot_svc, hot_client),
+                                   ("mmap", cold_svc, cold_client)):
+            tsvc.clear_cache()
+            tr, busy = busy_share(lambda: run_trial(
+                tsvc, workload(), FILT_QPS, distinct,
+                duration_s=FILT_TRIAL_S, warmup_s=SERVE_WARMUP_S,
+                workers=SERVE_LOAD_WORKERS, client=client))
+            if tr["errors"] or tr["requests_sent"] == 0:
+                raise AssertionError(f"phase 19 (d) {name} trial: {tr}")
+            trials[name] = {**trial_line(tr, busy),
+                            "scenarios": tr.get("filter_scenarios")}
+            emit({"phase": f"filtered_d_trial_{name}", **trials[name]})
+        out = hot_svc.restage_hot()
+        if not (out.get("hot_by_popularity")
+                and hot_svc.registry.events("hot_restaged")):
+            raise AssertionError(f"phase 19 (d): restage_hot gave {out}")
+        d_rec.update({"trials": trials, "restage_hot": out,
+                      "socket_equal_in_process": True,
+                      "result_cache_slots": sorted(slots),
+                      "filters_off_refused": True,
+                      "at_s": time.perf_counter() - t_phase})
+        rec["d_service"] = d_rec
+        for client in clients:
+            client.close()
+        for server in servers:
+            server.close()
+        for s_ in services:
+            s_.close()
+        clients, servers, services = [], [], []
+
+        # (e) appends, the IVF update and compaction
+        t0 = time.perf_counter()
+        src = VectorStore(os.path.join(workdir, "ivf_int8"))
+        udir = os.path.join(workdir, "filtered_updates")
+        ust = VectorStore(udir, dim=m.out_dim, shard_size=65_536,
+                          dtype="int8")
+        ust.ensure_model_step(0)
+        for e in src.shards():
+            ids, codes, scl = src._load_entry(e, raw=True)
+            ust.write_shard(e["index"], ids, codes=np.asarray(codes),
+                            scales=np.asarray(scl))
+        n0 = ust.num_vectors
+        IVFIndex.build_from_config(ust, get_config("bert_mini_v5p16", {
+            **base, "data.num_pages": n0}), device=device)
+        ust = VectorStore(udir)
+        ust.init_attrs()
+        e_rec = {"base_rows": n0, "setup_s": time.perf_counter() - t0}
+        grown = KeptTexts(build_corpus(data_config("bert_mini_v5p16",
+                                                   n0 + FILT_APPEND)))
+        ucfg = get_config("bert_mini_v5p16", {
+            **base, "data.num_pages": n0 + FILT_APPEND,
+            "serve.index": "ivf"})
+        usvc = service(ucfg, directory=udir, corp=grown)
+        word = pack_word(lang=FILT_LANG)
+        t0 = time.perf_counter()
+        app = append_corpus(emb, grown, VectorStore(udir), start=n0,
+                            stop=n0 + FILT_APPEND,
+                            tombstone=range(FILT_TOMBSTONED), attrs=word)
+        e_rec["append_s"] = time.perf_counter() - t0
+        info = usvc.refresh()
+        upd = info.get("index_update") or {}
+        if upd.get("action") != "incremental" or "index_error" in info:
+            raise AssertionError(f"phase 19 (e): the refresh {info}")
+        lq = [grown.query_text(int(i)) for i in np.linspace(
+            n0, n0 + FILT_APPEND - 1, 16).astype(np.int64)]
+        text = f"lang=={FILT_LANG}"
+        uexact = service(get_config("bert_mini_v5p16", {
+            **base, "data.num_pages": n0 + FILT_APPEND}), directory=udir,
+            corp=grown)
+        for path, s_ in (("index", usvc), ("exact", uexact)):
+            out = s_.search_many(lq, k=10, filters=text)
+            if not all(len(h) == 10 and all(
+                    n0 <= r["page_id"] < n0 + FILT_APPEND for r in h)
+                    for h in out):
+                raise AssertionError(f"phase 19 (e) {path}: {text} "
+                                     "returned a row that was not appended")
+        for s_ in services:
+            s_.close()
+        services = []
+
+        def words_by_id(st) -> dict:
+            out = {}
+            for e in st.shards():
+                for pid, w in zip(st.load_ids(e), st.load_attrs(e)):
+                    if pid >= 0:
+                        out[int(pid)] = int(w)
+            return out
+        before = words_by_id(VectorStore(udir))
+        want = {i: (word if i >= n0 else 0) for i in range(n0 + FILT_APPEND)
+                if i >= FILT_TOMBSTONED}
+        t0 = time.perf_counter()
+        stats = compact_store(VectorStore(udir))
+        e_rec["compact_s"] = time.perf_counter() - t0
+        after = words_by_id(VectorStore(udir))
+        if not (stats.get("action") == "compacted" and before == want
+                and after == want):
+            raise AssertionError(f"phase 19 (e): the words before and after "
+                                 f"compaction ({stats.get('action')})")
+        e_rec.update({"appended": app["appended"],
+                      "tombstoned": app["tombstoned"],
+                      "refresh_seconds": info["refresh_seconds"],
+                      "index_update": upd,
+                      "compaction_rows": stats["rows"],
+                      "dead_rows_dropped": stats["dead_rows_dropped"],
+                      "words_carried": len(after),
+                      "at_s": time.perf_counter() - t_phase})
+        rec["e_updates"] = e_rec
+        emit({"phase": "filtered_e_updates", **e_rec})
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        # ----------------------------------------------------------------
+    finally:
+        for client in clients:
+            client.close()
+        for server in servers:
+            server.close()
+        for s_ in services:
+            s_.close()
+    # (f) K1 4 times every encode, all on the tensor cores, nothing else
+    want = expected_launches((encodes["page"] + encodes["query"])
+                             * m.num_layers, 0)
+    if counts != want:
+        raise AssertionError(f"phase 19 launched {counts}, want {want} "
+                             f"({encodes})")
+    torch.cuda.empty_cache()
+    gc.unfreeze()
+    seconds = time.perf_counter() - t_phase
+    rec.update({"page_encodes": encodes["page"],
+                "query_encodes": encodes["query"],
+                "k1_launches": counts["launches"],
+                "k1_launches_tensor_core": counts["launches_tc"],
+                "seconds": seconds, "budget_s": FILT_BUDGET_S,
+                "over_budget": seconds > FILT_BUDGET_S,
+                "device": torch.cuda.get_device_name(0),
+                "nvidia_smi": nvidia_smi()})
+    emit({k: v for k, v in rec.items()
+          if k not in ("a_exact", "b_ivf", "c_hot", "d_service",
+                       "e_updates")})
+    return rec
+
+
 # the bool template flags of each templated kernel, in order
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
@@ -5386,7 +5937,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-18; fills `report` and returns the `kernels` line's
+    """Phases 2-19; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -5553,6 +6104,10 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
         finally:
             os.remove(report["production"]["corpus_path"])
         done("migration")
+        # phase 19: filtered retrieval and the hot posting set over phase
+        # 14's stores
+        report["filtered"] = run_filtered(device, bert, tmp)
+        done("filtered")
     emit({"phase": "timeline", "seconds_at_end_of": timeline})
     return kernel_entries(report)
 
@@ -5596,7 +6151,8 @@ def kernel_entries(report: dict) -> list:
              "serving_under_load": report["serving"]["k1_launches"],
              "live_updates": report["updates"]["k1_launches"],
              "migration_and_maintenance": report["migration"][
-                 "k1_launches"]}
+                 "k1_launches"],
+             "filtered_and_hot_set": report["filtered"]["k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -5622,6 +6178,8 @@ def kernel_entries(report: dict) -> list:
                "live_updates": report["updates"][
                    "k1_launches_tensor_core"],
                "migration_and_maintenance": report["migration"][
+                   "k1_launches_tensor_core"],
+               "filtered_and_hot_set": report["filtered"][
                    "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}

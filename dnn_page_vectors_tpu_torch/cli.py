@@ -64,6 +64,12 @@ runs the pillar workers until interrupted, a JSON line a pass that did
 work. ``loadtest --mutate-every S --mutate-mode maintain`` alternates a
 tombstone burst with its refresh and a maintenance pass under the load.
 
+Filtered retrieval (the JAX CLI's keys): ``append --attrs K=V ...``
+stamps every appended row with one attribute word (``--init-attrs``
+creates the store's attribute table first), ``search --filter EXPR``
+keeps the results whose word matches, and ``loadtest --filters`` mixes
+seeded filtered queries into the load.
+
 The JAX CLI's other commands (``partition-worker``, ``lint``) exit
 non-zero with a message naming the ROADMAP.md item that ports them; none
 runs anything in their place.
@@ -159,9 +165,6 @@ def _refuse_unported_serving(args) -> None:
     if args.front_ends > 1:
         raise _not_ported("--front-ends > 1", 7,
                           "the gateway and the partition workers")
-    if args.filter_expr or args.lt_filters:
-        raise _not_ported("filtered retrieval (--filter, --filters)", 7,
-                          "index/attrs.py and per-row store attributes")
 
 
 def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
@@ -188,7 +191,8 @@ def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
         if args.queries:
             with open(args.queries) as f:
                 queries = [ln.strip() for ln in f if ln.strip()]
-            for query, res in zip(queries, svc.search_many(queries, k=k)):
+            for query, res in zip(queries, svc.search_many(
+                    queries, k=k, filters=args.filter_expr)):
                 print(json.dumps({"query": query, "results": res}),
                       flush=True)
         elif args.interactive:
@@ -213,12 +217,16 @@ def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
                                      sort_keys=True), flush=True)
                     continue
                 print(json.dumps({"query": query,
-                                  "results": svc.search(query, k=k)}),
+                                  "results": svc.search(
+                                      query, k=k,
+                                      filters=args.filter_expr)}),
                       flush=True)
         else:
             print(json.dumps({"query": args.query,
                               "hbm_resident": svc.preloaded,
-                              "results": svc.search(args.query, k=k)}))
+                              "results": svc.search(
+                                  args.query, k=k,
+                                  filters=args.filter_expr)}))
         svc.close()      # the final metrics go to the metrics log
         return
     if args.command == "loadtest":
@@ -299,6 +307,13 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         mut = Mutator(svc.refresh, period_s=args.mutate_every)
     else:
         mut = None
+    scen = None
+    if args.lt_filters:
+        # the seeded filtered mix: its default predicates all match the
+        # all-zero word, so it runs the filtered paths on any store
+        from dnn_page_vectors_tpu_torch.loadgen.workload import (
+            DEFAULT_FILTER_SCENARIOS)
+        scen = DEFAULT_FILTER_SCENARIOS
     svc.warmup(k=k)
     svc.start_batcher()
     server = client = None
@@ -315,7 +330,7 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         distinct = max(1, args.distinct)
         queries = [trainer.corpus.query_text(i) for i in range(distinct)]
         wl = make_workload(args.shape, seed=args.seed, distinct=distinct,
-                           profile=((k, None, 1.0),))
+                           profile=((k, None, 1.0),), filter_scenarios=scen)
         trial_s = (args.trial_s if args.trial_s is not None
                    else cfg.obs.window_s)
         report = find_qps_at_p99(
@@ -336,6 +351,12 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
                        "listen": f"{server.host}:{server.port}",
                        **({"transport_totals": final["transport"]}
                           if "transport" in final else {})})
+    if scen is not None:
+        # each trial record has its scenarios' qps and p99
+        # (loadgen/driver.py "filter_scenarios"); this says the mix ran
+        report["filters"] = [
+            {"scenario": name, "predicate": pred, "weight": w}
+            for name, pred, w in scen]
     if "result_cache" in final:
         report["result_cache"] = final["result_cache"]
     report.update({
@@ -547,9 +568,23 @@ def _append(cfg, trainer, embedder, store_dir: str, workdir: str,
             f"{store.model_step} but the checkpoint is at {trainer.step}; "
             "appended vectors must share the base weights: re-run 'embed' "
             "(a full re-embed) instead")
+    attr_word = None
+    if args.init_attrs:
+        store.init_attrs()
+    if args.attrs:
+        from dnn_page_vectors_tpu_torch.index import attrs as attrs_mod
+        try:
+            attr_word = attrs_mod.parse_attr_assignments(args.attrs)
+        except attrs_mod.FilterError as e:
+            raise SystemExit(f"bad --attrs: {e}")
+        if not store.attrs_enabled:
+            raise SystemExit(
+                f"store at {store_dir} has no attribute table; pass "
+                "--init-attrs once to create it (older shards then read as "
+                "all-zero attribute words), or drop --attrs")
     stats = append_corpus(
         embedder, trainer.corpus, store, tombstone=_ids_arg(args.tombstone),
-        update_ids=_ids_arg(args.update_ids),
+        update_ids=_ids_arg(args.update_ids), attrs=attr_word,
         log=MetricsLogger(workdir, echo=False,
                           registry=telemetry.default_registry()))
     index_info = None
@@ -600,10 +635,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "re-embed into the new generation (their old rows "
                          "are tombstoned)")
     ap.add_argument("--attrs", nargs="+", default=None, metavar="K=V",
-                    help="append: per-row attribute words (not ported)")
+                    help="append: stamp every appended or updated row with "
+                         "these attributes (lang=<0-255>, site=<name or "
+                         "bucket 0-65535>, recency=<band 0-15>), packed "
+                         "into one attribute word a row; a store with no "
+                         "attribute table refuses unless --init-attrs is "
+                         "also given")
     ap.add_argument("--init-attrs", dest="init_attrs", action="store_true",
-                    help="append: initialize the attribute table (not "
-                         "ported)")
+                    help="append: initialize the store's attribute table "
+                         "first (the word layout in the manifest; shards "
+                         "written before it read as all-zero words)")
     # -- search / trace / serve-metrics ------------------------------------
     ap.add_argument("--query", default=None,
                     help="search / trace: one query (search streams the "
@@ -620,7 +661,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="IVF lists probed per query; implies "
                          "serve.index=ivf")
     ap.add_argument("--filter", dest="filter_expr", default=None,
-                    help="search: an attribute predicate (not ported)")
+                    metavar="EXPR",
+                    help="search: an attribute predicate every result "
+                         "matches: 'lang==X', 'site in {a,b}', "
+                         "'recency>=band', '&'-joined conjunctions")
     ap.add_argument("--json", action="store_true",
                     help="serve-metrics: the JSON registry snapshot instead "
                          "of the Prometheus text")
@@ -666,7 +710,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--replicas", type=int, default=None,
                     help="loadtest / search: replicas (not ported)")
     ap.add_argument("--filters", dest="lt_filters", action="store_true",
-                    help="loadtest: a filtered query mix (not ported)")
+                    help="loadtest: mix seeded filtered queries into the "
+                         "workload (one predicate scenario a request over "
+                         "the Zipf repeats); each trial record gains a "
+                         "filter_scenarios block")
     ap.add_argument("--mutate-every", dest="mutate_every", type=float,
                     default=None,
                     help="loadtest: a refresh() of the service every S "
@@ -692,9 +739,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command in NOT_PORTED:
         item, need = NOT_PORTED[args.command]
         raise _not_ported(f"the '{args.command}' command", item, need)
-    if args.command == "append" and (args.attrs or args.init_attrs):
-        raise _not_ported("append --attrs / --init-attrs", 7,
-                          "per-row store attributes (index/attrs.py)")
     _refuse_unported_serving(args)
     if not args.workdir:
         ap.error(f"{args.command} needs --workdir")

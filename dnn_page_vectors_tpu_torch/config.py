@@ -144,6 +144,18 @@ class ServeConfig:
     pq_opq_iters: int = 3            # OPQ rotation alternations; 0 = PQ
     pq_rerank: int = 0               # ADC survivors re-ranked exactly per
                                      # query; 0 = max(8k, 64)
+    # device memory (GiB) for the hot posting set of a PQ index: the most
+    # probed lists' codes, list ids and attribute words staged on the card
+    # at view build (IVFIndex.stage_hot), so they need no host gather; the
+    # other lists keep the mmap path. 0 = off
+    hot_postings_gb: float = 0.0
+    # filtered retrieval: serve attribute predicates (index/attrs.py) and
+    # confirm FLAG_FILTERS on the socket; off, a filtered frame is refused
+    filters: bool = True
+    # a filtered IVF probe set that fills fewer than k rows re-runs with
+    # nprobe times this until k fills or every list is probed
+    # (ivf.filter_escalations); <= 1 turns it off
+    filter_escalate: float = 4.0
     # the socket front end's listen address ("host:port"; port 0 binds an
     # ephemeral port)
     listen: str = "127.0.0.1:0"

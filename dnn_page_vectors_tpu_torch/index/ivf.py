@@ -51,11 +51,25 @@ the drift it still appends the new shards and flags
 (the caller serves exact until the background rebuild swaps a fresh index
 in).
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: ``stage_hot`` (the device-resident hot posting set, 7.3),
-``partition_view`` (partitioned serving, 7.4) and
-``search(predicate=...)`` (filtered retrieval over store attributes,
-7.2). The index's fault-injection hooks are item 8.
+Filtered retrieval (index/attrs.py): ``search(predicate=...)`` drops the
+posting rows whose attribute word does not match before any row or code
+is gathered, so ``gather_bytes`` falls with selectivity; a query the
+filtered probe set leaves short of k re-runs with nprobe times
+`escalate` until it fills or every list is probed
+(``filter_escalations``).
+
+The hot posting set: every search adds its probed lists to
+``scan_counts``; ``stage_hot(budget_bytes)`` stages the most probed lists
+(the largest on a cold table) that fit the budget on the index's device:
+their PQ codes, list ids (-2 for a dead row) and attribute words, and
+halves the table. A resident list is then scored from the staged codes
+with no host gather (a predicate masks its rows on the card); the other
+lists keep the mmap gather, and the two sets of ADC survivors merge
+before the exact re-rank, so the results are the mmap path's.
+
+Not ported yet, raising NotImplementedError naming its ROADMAP.md item:
+``partition_view`` (partitioned serving, 7.4). The index's
+fault-injection hooks are item 8.
 """
 from __future__ import annotations
 
@@ -69,6 +83,7 @@ import numpy as np
 import torch
 
 from dnn_page_vectors_tpu_torch.data.loader import to_device
+from dnn_page_vectors_tpu_torch.index.attrs import words_tensor
 from dnn_page_vectors_tpu_torch.index.kmeans import assign_store, train_kmeans
 from dnn_page_vectors_tpu_torch.index.pq import PQCodec, adc_topr, train_pq
 from dnn_page_vectors_tpu_torch.infer.vector_store import (
@@ -138,7 +153,9 @@ class IVFIndex:
         self._meta = {s["index"]: s for s in manifest["shards"]}
         self._raw: Dict[int, tuple] = {}           # lazy mmap cache
         self._codes: Dict[int, np.ndarray] = {}    # lazy PQ code mmaps
+        self._attrs: Dict[int, np.ndarray] = {}    # lazy attribute words
         self._dev_centroids = None
+        self._hot: Optional[Dict] = None           # stage_hot's state
         self.pq = pq                               # OPQ+PQ codec or None
         # rows per list over every shard: the candidate count of a search
         # without touching the postings
@@ -149,7 +166,12 @@ class IVFIndex:
         self.build_stats: Dict[str, float] = {}    # set by build()
         self.stats = {"searches": 0, "lists_scanned": 0,
                       "candidates_reranked": 0, "gather_bytes": 0,
-                      "reranked_rows": 0}
+                      "reranked_rows": 0, "hot_rows_scored": 0,
+                      "filter_escalations": 0}
+        # probes a list since the last stage_hot halved the table: what
+        # the hot set ranks by. Like `stats` it is telemetry: a lost
+        # increment of two racing searches only nudges the ranking
+        self.scan_counts = np.zeros((self.nlist,), np.int64)
 
     # -- identity ----------------------------------------------------------
     @property
@@ -167,6 +189,12 @@ class IVFIndex:
     @property
     def index_generation(self) -> int:
         return int(self.manifest.get("index_generation", 0))
+
+    @property
+    def hot_rows(self) -> int:
+        """Rows in the staged hot posting set (0: none staged)."""
+        hot = self._hot
+        return 0 if hot is None else int(hot["rows"])
 
     @property
     def pq_m(self) -> int:
@@ -508,11 +536,60 @@ class IVFIndex:
                  "index_generation": man["index_generation"],
                  "seconds": round(time.perf_counter() - t0, 3)})
 
-    # -- not ported yet ----------------------------------------------------
-    def stage_hot(self, budget_bytes: float):
-        """The device-resident hot posting set."""
-        _unported("IVFIndex.stage_hot (the hot posting set)", "item 7.3")
+    # -- the hot posting set -----------------------------------------------
+    def stage_hot(self, budget_bytes: float) -> Dict:
+        """Stage the most probed lists of a PQ index on the index's device
+        until `budget_bytes` (m code bytes and a 4-byte list id a row) runs
+        out: their codes, their list ids (-2 for a row dead at staging, so
+        a restage follows the store's tombstones) and their attribute
+        words, with the page ids and (shard, row) of each staged row kept
+        on the host for the re-rank. Lists are ranked by ``scan_counts``
+        (size breaking ties), or by size while the table is empty; a list
+        that does not fit is skipped, and a smaller one may still fit.
+        The table is halved after the ranking, so each restage sees a
+        decayed window of recent traffic. The staged state is published
+        with one assignment: a search in flight keeps the one it took.
+        Returns hot_lists, hot_rows, hot_bytes and hot_by_popularity."""
+        if self.pq is None:
+            raise ValueError("stage_hot needs a PQ index (build with pq_m)")
+        per_row = self.pq.m + 4                 # code bytes + list id
+        resident = np.zeros((self.nlist,), bool)
+        used = 0
+        counts = np.asarray(self.scan_counts)
+        by_popularity = bool(counts.sum() > 0)
+        if by_popularity:
+            order = np.lexsort((-self.list_sizes, -counts))
+        else:
+            order = np.argsort(-self.list_sizes, kind="stable")
+        self.scan_counts = counts >> 1
+        for c in order:
+            need = int(self.list_sizes[c]) * per_row
+            if self.list_sizes[c] == 0 or used + need > budget_bytes:
+                continue
+            resident[int(c)] = True
+            used += need
+        ids, cent, sh, rw, codes = self._gather(np.nonzero(resident)[0],
+                                                codes=True)
+        n = int(codes.shape[0])
+        if n == 0:
+            self._hot = None
+            return {"hot_lists": 0, "hot_rows": 0, "hot_bytes": 0,
+                    "hot_by_popularity": by_popularity}
+        # the words ride along, so a predicate masks resident rows on the
+        # card instead of sending their lists back to the host gather
+        words = np.zeros((n,), np.uint32)
+        for sidx in np.unique(sh):
+            m_ = sh == sidx
+            words[m_] = self._shard_attrs(int(sidx))[rw[m_]]
+        self._hot = {
+            "lists": resident, "rows": n, "bytes": used,
+            "codes": self._dev(codes), "cent": self._dev(cent),
+            "attrs": words_tensor(words, self.device),
+            "ids": ids, "shard": sh, "row": rw}
+        return {"hot_lists": int(resident.sum()), "hot_rows": n,
+                "hot_bytes": used, "hot_by_popularity": by_popularity}
 
+    # -- not ported yet ----------------------------------------------------
     def partition_view(self, shard_indices):
         """A partition's view of the index."""
         _unported("IVFIndex.partition_view (partitioned serving)",
@@ -621,13 +698,25 @@ class IVFIndex:
                 mmap_mode="r")
         return arr
 
-    def _gather(self, cents: np.ndarray, codes: bool = False):
+    def _shard_attrs(self, sidx: int) -> np.ndarray:
+        """One shard's attribute words (uint32 [count]; zeros for a shard
+        written before the store's attribute table): the input of the
+        filtered prefilter."""
+        arr = self._attrs.get(sidx)
+        if arr is None:
+            arr = self._attrs[sidx] = self.store.load_attrs(
+                self._entries[sidx])
+        return arr
+
+    def _gather(self, cents: np.ndarray, codes: bool = False,
+                predicate=None):
         """The candidate block of the probed lists `cents`: their rows in
         every shard, grouped by shard in ascending order. Returns (page_ids
         [C] i64, cand_cent [C] i32, src_shard [C] i32, src_row [C] i32) and
         the payload of ``_fetch_rows``: PQ codes (`codes`) or stored-width
         rows and scales. A dead row (id -1) gets list -2, which no probed
-        list matches."""
+        list matches. A `predicate` drops the rows whose attribute word
+        does not match before their ids or payload are read."""
         i_parts, c_parts, sh_parts, rw_parts = [], [], [], []
         for sidx in sorted(self._postings):
             order, offsets = self._postings[sidx]
@@ -636,11 +725,15 @@ class IVFIndex:
             if lens.sum() == 0:
                 continue
             take = np.concatenate(rows)
+            cent = np.repeat(np.asarray(cents, np.int32), lens)
+            if predicate is not None:
+                keep = predicate.matches(self._shard_attrs(sidx)[take])
+                if not keep.any():
+                    continue
+                take, cent = take[keep], cent[keep]
             taken_ids = np.asarray(self._shard_raw(sidx)[0][take], np.int64)
             i_parts.append(taken_ids)
-            c_parts.append(np.where(
-                taken_ids >= 0, np.repeat(np.asarray(cents, np.int32), lens),
-                np.int32(-2)))
+            c_parts.append(np.where(taken_ids >= 0, cent, np.int32(-2)))
             sh_parts.append(np.full((take.shape[0],), sidx, np.int32))
             rw_parts.append(take.astype(np.int32))
         if i_parts:
@@ -685,23 +778,63 @@ class IVFIndex:
 
     def search(self, qvecs: np.ndarray, k: int, nprobe: Optional[int] = None,
                block: int = 256, rerank: Optional[int] = None,
-               predicate=None
+               predicate=None, escalate: float = 4.0
                ) -> Tuple[np.ndarray, np.ndarray, Dict[str, int]]:
         """ANN top-k of qvecs [Nq, D]: (scores [Nq, k] float32, page_ids
         [Nq, k] int64, -inf / -1 where fewer than k rows were found,
-        stats). The probed lists come from one top-`nprobe` of the
-        centroids on the card; the queries then go in blocks of `block`,
-        each one gather of the union of its probed lists and one re-rank
-        (or, on a PQ index, ADC over the codes and an exact re-rank of each
-        query's top `rerank` survivors, default max(8k, 64)). stats:
-        searches, lists_scanned, candidates_reranked (the probed lists'
-        rows), gather_bytes (store payload moved: rows at stored width, or
-        codes plus the survivors' rows) and, on PQ, reranked_rows; they
-        are also added into ``self.stats``. `predicate` (filtered
-        retrieval) is not ported."""
-        if predicate is not None:
-            _unported("search(predicate=...) (filtered retrieval over store "
-                      "attributes)", "item 7")
+        stats); see ``_search_once``. A `predicate` (index/attrs.py)
+        restricts the results to matching rows, dropped from the posting
+        gathers before any payload moves. A filtered probe set can leave a
+        query short of k (its matches lie in lists it did not probe):
+        with `escalate` > 1 the short queries search again with nprobe
+        times `escalate` a round until they fill or every list is probed,
+        counted in stats["filter_escalations"] and the
+        ivf.filter_escalations counter."""
+        out_s, out_i, stats = self._search_once(
+            qvecs, k, nprobe=nprobe, block=block, rerank=rerank,
+            predicate=predicate)
+        if predicate is None or not escalate or escalate <= 1:
+            return out_s, out_i, stats
+        np_eff = int(min(max(1, nprobe or 1), self.nlist))
+        k = int(min(k, max(out_i.shape[1], 1)))
+        while np_eff < self.nlist:
+            need = (out_i >= 0).sum(axis=1) < k
+            if not need.any():
+                break
+            np_eff = int(min(self.nlist,
+                             max(np_eff + 1, math.ceil(np_eff * escalate))))
+            s2, i2, st2 = self._search_once(
+                np.asarray(qvecs, np.float32)[need], k, nprobe=np_eff,
+                block=block, rerank=rerank, predicate=predicate)
+            out_s[need], out_i[need] = s2, i2
+            n_esc = int(need.sum())
+            stats["filter_escalations"] = (
+                stats.get("filter_escalations", 0) + n_esc)
+            self.stats["filter_escalations"] = (
+                self.stats.get("filter_escalations", 0) + n_esc)
+            telemetry.default_registry().counter(
+                "ivf.filter_escalations").inc(n_esc)
+            for key in ("lists_scanned", "candidates_reranked",
+                        "gather_bytes", "reranked_rows", "hot_rows_scored"):
+                if key in st2:
+                    stats[key] = stats.get(key, 0) + st2[key]
+        return out_s, out_i, stats
+
+    def _search_once(self, qvecs: np.ndarray, k: int,
+                     nprobe: Optional[int] = None, block: int = 256,
+                     rerank: Optional[int] = None, predicate=None
+                     ) -> Tuple[np.ndarray, np.ndarray, Dict[str, int]]:
+        """One ANN pass. The probed lists come from one top-`nprobe` of the
+        centroids on the card (and add to ``scan_counts``); the queries
+        then go in blocks of `block`, each one gather of the union of its
+        probed lists and one re-rank (or, on a PQ index, ADC over the codes
+        and an exact re-rank of each query's top `rerank` survivors,
+        default max(8k, 64)). stats: searches, lists_scanned,
+        candidates_reranked (the probed lists' rows), gather_bytes (store
+        payload moved: rows at stored width, or codes plus the survivors'
+        rows; a predicate's rejected rows move none) and, on PQ,
+        reranked_rows and hot_rows_scored; they are also added into
+        ``self.stats``."""
         qvecs = np.asarray(qvecs, np.float32)
         nq = qvecs.shape[0]
         k = int(k)
@@ -715,16 +848,19 @@ class IVFIndex:
         q_dev = self._dev(qvecs)
         _, sel_dev = chunked_topk(q_dev, self._dev_centroids, k=nprobe)
         sel = sel_dev.cpu().numpy().astype(np.int32)
+        # the popularity table: one count a (query, probed list)
+        self.scan_counts += np.bincount(sel.ravel(), minlength=self.nlist)
         stats = {"searches": nq, "lists_scanned": nq * nprobe,
                  "candidates_reranked": int(self.list_sizes[sel].sum()),
                  "gather_bytes": 0}
         if self.pq is not None:
             return self._search_adc(q_dev, sel, sel_dev, k, block, rerank,
-                                    out_s, out_i, stats)
+                                    out_s, out_i, stats, predicate)
         pending = []       # re-ranks run on the card while the host gathers
         for s in range(0, nq, block):
             e = min(s + block, nq)
-            cids, ccent, _, _, cand, scl = self._gather(np.unique(sel[s:e]))
+            cids, ccent, _, _, cand, scl = self._gather(
+                np.unique(sel[s:e]), predicate=predicate)
             stats["gather_bytes"] += cand.shape[0] * self.store.row_bytes
             if cand.shape[0] == 0:
                 continue
@@ -746,34 +882,79 @@ class IVFIndex:
     def _search_adc(self, q_dev: torch.Tensor, sel: np.ndarray,
                     sel_dev: torch.Tensor, k: int, block: int,
                     rerank: Optional[int], out_s: np.ndarray,
-                    out_i: np.ndarray, stats: Dict
+                    out_i: np.ndarray, stats: Dict, predicate=None
                     ) -> Tuple[np.ndarray, np.ndarray, Dict[str, int]]:
-        """The PQ block loop: gather the probed lists' codes, the ADC
-        tables on the card (``PQCodec.lut``), the running top-r of ADC
-        scores masked to each query's lists (``adc_topr``), then the union
-        of the queries' survivors fetched at stored width and re-ranked
-        exactly (``rerank_positions``) for the final top-k."""
+        """The PQ block loop: gather the codes of the probed lists that are
+        not in the hot set, the ADC tables on the card (``PQCodec.lut``),
+        the running top-r of ADC scores masked to each query's lists
+        (``adc_topr``) over those codes and, apart, over the staged hot
+        codes (a predicate masks the staged rows on the card: their list
+        id becomes -2), the two sets of survivors merged into the top r
+        (a stable sort), then the union of the queries' survivors fetched
+        at stored width and re-ranked exactly (``rerank_positions``) for
+        the final top-k. A row scores the same from either buffer:
+        ``adc_topr`` adds the subspaces in one fixed order."""
         nq = q_dev.shape[0]
         r = max(int(rerank) if rerank else max(8 * k, 64), k)
         m = self.pq.m
+        hot = self._hot               # the residency this search keeps
+        hmask = None
+        if hot is not None and predicate is not None:
+            hmask = torch.where(predicate.matches_device(hot["attrs"]),
+                                hot["cent"], torch.full_like(hot["cent"],
+                                                             -2))
         for s in range(0, nq, block):
             e = min(s + block, nq)
+            sel_b = sel[s:e]
+            cents = np.unique(sel_b)
+            if hot is not None:
+                cents = cents[~hot["lists"][cents]]
             cids, ccent, csh, crw, codes = self._gather(
-                np.unique(sel[s:e]), codes=True)
+                cents, codes=True, predicate=predicate)
             C = codes.shape[0]
             stats["gather_bytes"] += C * m
-            if C == 0:
-                continue                        # out stays -inf / -1
             q_blk = q_dev[s:e]
-            cs, cpos = adc_topr(self.pq.lut(q_blk), self._dev(codes),
-                                self._dev(ccent), sel_dev[s:e], r=r)
-            cs, cpos = cs.cpu().numpy(), cpos.cpu().numpy()
-            ok = cpos >= 0
-            idx = np.clip(cpos, 0, C - 1)
-            pids = np.where(ok, cids[idx], -1)
-            ok &= np.isfinite(cs) & (pids >= 0)
-            key = np.where(ok, csh[idx].astype(np.int64) * (1 << 32)
-                           + crw[idx].astype(np.int64), np.int64(-1))
+            lut = None
+            parts = []            # (scores, page ids, src shard, src row)
+            if C:
+                lut = self.pq.lut(q_blk)
+                cs, cpos = adc_topr(lut, self._dev(codes), self._dev(ccent),
+                                    sel_dev[s:e], r=r)
+                cs, cpos = cs.cpu().numpy(), cpos.cpu().numpy()
+                ok = cpos >= 0
+                idx = np.clip(cpos, 0, C - 1)
+                parts.append((np.where(ok, cs, -np.inf),
+                              np.where(ok, cids[idx], -1),
+                              np.where(ok, csh[idx], -1),
+                              np.where(ok, crw[idx], -1)))
+            if hot is not None:
+                if lut is None:
+                    lut = self.pq.lut(q_blk)
+                hs, hpos = adc_topr(
+                    lut, hot["codes"], hot["cent"] if hmask is None
+                    else hmask, sel_dev[s:e], r=r)
+                hs, hpos = hs.cpu().numpy(), hpos.cpu().numpy()
+                ok = hpos >= 0
+                idx = np.clip(hpos, 0, hot["rows"] - 1)
+                parts.append((np.where(ok, hs, -np.inf),
+                              np.where(ok, hot["ids"][idx], -1),
+                              np.where(ok, hot["shard"][idx], -1),
+                              np.where(ok, hot["row"][idx], -1)))
+                res = hot["lists"][sel_b]
+                stats["hot_rows_scored"] = stats.get(
+                    "hot_rows_scored", 0) + int(
+                        self.list_sizes[sel_b][res].sum())
+            if not parts:
+                continue                        # out stays -inf / -1
+            scores, pids, shm, rwm = (np.concatenate(c, axis=1)
+                                      for c in zip(*parts))
+            if scores.shape[1] > r:             # merge hot + cold survivors
+                ordx = np.argsort(-scores, axis=1, kind="stable")[:, :r]
+                scores, pids, shm, rwm = (np.take_along_axis(a, ordx, axis=1)
+                                          for a in (scores, pids, shm, rwm))
+            ok = np.isfinite(scores) & (pids >= 0)
+            key = np.where(ok, shm.astype(np.int64) * (1 << 32)
+                           + rwm.astype(np.int64), np.int64(-1))
             uniq = np.unique(key[ok])
             if uniq.size == 0:
                 continue

@@ -95,10 +95,26 @@ MaintenanceService (maintenance/service.py) and, under
 ``refresh()`` to its rebuild pillar (the ``serve.index_rebuild_pending``
 gauge).
 
+Filtered retrieval (index/attrs.py): ``search``, ``search_many``,
+``topk_vectors`` and the batcher take ``filters=`` (predicate text or a
+compiled Predicate; a malformed one raises FilterError before admission).
+The batcher coalesces per (k, nprobe, canonical text), the result cache
+keys the canonical text, so a filtered entry never answers its
+unfiltered twin, and every filtered dispatch records a
+``filtered_query`` event. Through the index the predicate prefilters the
+posting gather (escalating a short probe set by
+``serve.filter_escalate``); on the exact path ``_filtered_exact`` masks
+each shard's words on the host, gathers only the matching rows and
+scores them on the card, one product a shard. ``serve.hot_postings_gb``
+stages the index's hot posting set per view (``IVFIndex.stage_hot``)
+after the index opens, with the popularity window of the view it
+replaces; a stage that fails raises (no quiet fall back to the mmap
+path). ``restage_hot()`` re-ranks and re-stages the current view's hot
+set (a ``hot_restaged`` event).
+
 Left for later slices, each named by its ROADMAP.md queue 1 item:
-filtered retrieval (7.2: ``filters=`` raises naming it), the hot posting
-set (7.3), partitions, replicas and the fleet result cache (7.4); fault
-injection on the wire and the degraded mode (8).
+partitions, replicas and the fleet result cache (7.4); fault injection
+on the wire and the degraded mode (8).
 """
 from __future__ import annotations
 
@@ -114,6 +130,7 @@ import numpy as np
 import torch
 
 from dnn_page_vectors_tpu_torch.data.loader import to_device
+from dnn_page_vectors_tpu_torch.index.attrs import compile_filters
 from dnn_page_vectors_tpu_torch.index.ivf import IndexUnavailable, IVFIndex
 from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
 from dnn_page_vectors_tpu_torch.infer.transport import DeadlineExceeded
@@ -140,23 +157,13 @@ def _host_rows(qv, n: int) -> np.ndarray:
     return np.array(qv[:n], np.float32)
 
 
-def refuse_filters(filters) -> None:
-    """Filtered retrieval needs index/attrs.py and per-row store
-    attributes, which the port does not have yet."""
-    if filters is not None and filters != "":
-        raise NotImplementedError(
-            "filtered retrieval (filters=) is not ported to the PyTorch "
-            "package yet: it needs index/attrs.py and per-row store "
-            "attributes (ROADMAP.md queue 1, item 7.2)")
-
-
 class _MicroBatcher:
     """Dynamic request coalescing for SearchService.search().
 
     Callers enqueue (query, k, Future) onto a bounded queue; ONE dispatcher
     thread pulls the first pending request, waits up to the window for
     more (never past `max_batch`), and answers the batch with one
-    search_many call per distinct (k, nprobe). The bounded queue
+    search_many call per distinct (k, nprobe, filters). The bounded queue
     backpressures callers when the dispatcher falls behind.
 
     Failure isolation: when a coalesced dispatch raises, the batch is
@@ -185,16 +192,19 @@ class _MicroBatcher:
 
     def submit(self, query: str, k: Optional[int],
                nprobe: Optional[int] = None,
-               deadline: Optional[float] = None) -> Future:
+               deadline: Optional[float] = None,
+               filters: Optional[str] = None) -> Future:
         """Enqueue one request. `deadline` is ABSOLUTE on the service
         clock; admission-time shedding happens in the caller
-        (`SearchService._admit`) before anything touches this queue."""
+        (`SearchService._admit`) before anything touches this queue.
+        `filters` is the canonical predicate text or None: a filtered
+        request never shares a dispatch with another filter's."""
         fut: Future = Future()
         # the caller's span rides the queue: the dispatcher runs on another
         # thread, where the contextvar chain breaks
         ctx = self._svc.tracer.current()
-        self._q.put((query, (k, nprobe), fut, time.perf_counter(), ctx,
-                     deadline))
+        self._q.put((query, (k, nprobe, filters), fut, time.perf_counter(),
+                     ctx, deadline))
         return fut
 
     def _run(self) -> None:
@@ -247,7 +257,7 @@ class _MicroBatcher:
         by_key: Dict[tuple, list] = {}
         for query, key, fut, _, ctx, deadline in batch:
             by_key.setdefault(key, []).append((query, fut, ctx, deadline))
-        for (k, nprobe), items in by_key.items():
+        for (k, nprobe, ftext), items in by_key.items():
             deadlines = [d for _, _, _, d in items if d is not None]
             group_dl = min(deadlines) if deadlines else None
             try:
@@ -257,15 +267,15 @@ class _MicroBatcher:
                                   batch_size=len(items)) as dsp:
                     res = svc.search_many(
                         [q for q, _, _, _ in items], k=k, nprobe=nprobe,
-                        _record=False, deadline=group_dl)
+                        filters=ftext, _record=False, deadline=group_dl)
             except BaseException:  # noqa: BLE001 — isolate per request
                 for q, fut, ctx, deadline in items:
                     svc._m_retries.inc()
                     try:
                         with tracer.use(ctx):
                             fut.set_result(svc.search_many(
-                                [q], k=k, nprobe=nprobe, _record=False,
-                                deadline=deadline)[0])
+                                [q], k=k, nprobe=nprobe, filters=ftext,
+                                _record=False, deadline=deadline)[0])
                     except BaseException as e:  # noqa: BLE001
                         fut.set_exception(e)
                 continue
@@ -504,6 +514,11 @@ class SearchService:
         self._serve_index = serve.index
         self._nprobe = serve.nprobe
         self._pq_rerank = serve.pq_rerank
+        # a short filtered probe set widens by filter_escalate (serve.filters
+        # is the socket front end's); hot_postings_gb is each view's hot set
+        # budget
+        self._filter_escalate = serve.filter_escalate
+        self._hot_gb = serve.hot_postings_gb
         # the admission clock is injectable so deadlines are testable on a
         # fake clock; the rest of the query path reads time.perf_counter
         self._clock = clock if clock is not None else time.perf_counter
@@ -560,7 +575,7 @@ class SearchService:
         self.registry.gauge("serve.reclaimable_bytes").set(
             ms["reclaimable_bytes"])
         if self._serve_index == "ivf":
-            self._attach_index(view, update_index)
+            self._attach_index(view, update_index, reuse)
             if (reuse is not None and reuse.index_error is not None
                     and view.index is not None):
                 self.registry.event("index_restored", {
@@ -573,12 +588,16 @@ class SearchService:
             self._stage_view(view, reuse)
         return view
 
-    def _attach_index(self, view: _ServeView, update_index: bool) -> None:
+    def _attach_index(self, view: _ServeView, update_index: bool,
+                      reuse: Optional[_ServeView] = None) -> None:
         """The view's IVF index: IVFIndex.update (incremental or a full
         rebuild) or IVFIndex.open. An index that cannot serve (unavailable,
         or an update that raised: the refresh goes on without it) leaves
         `index_error` set, and the view answers exactly per request
-        (counted in ann_fallbacks)."""
+        (counted in ann_fallbacks). On a PQ index with
+        ``serve.hot_postings_gb`` the hot posting set is staged, ranked by
+        the popularity window of `reuse`'s index (the traffic did not
+        change with the view); a stage that fails raises."""
         dev = self.embedder.device
         sv = self.cfg.serve
         failures = Exception if update_index else IndexUnavailable
@@ -611,6 +630,17 @@ class SearchService:
                                  "mode": "exact"})
             print(f"WARNING: IVF index unavailable ({view.index_error}); "
                   "serving the exact path per request", flush=True)
+            return
+        idx = view.index
+        if (reuse is not None and reuse.index is not None
+                and reuse.index.nlist == idx.nlist):
+            idx.scan_counts = reuse.index.scan_counts.copy()
+        if idx.pq is not None and self._hot_gb > 0:
+            # staged per view: a refresh re-opens the index, so the staged
+            # codes and their dead-row marks follow the store's generations
+            hot = idx.stage_hot(self._hot_gb * 2 ** 30)
+            if view.index_info is not None:
+                view.index_info = {**view.index_info, **hot}
 
     def _stage_view(self, view: _ServeView,
                     reuse: Optional[_ServeView] = None) -> None:
@@ -910,6 +940,23 @@ class SearchService:
         if self._log is not None:
             self._log.write({"serve_refresh": self.refreshes, **info})
         return info
+
+    def restage_hot(self) -> Dict:
+        """Re-rank and re-stage the current view's hot posting set by its
+        popularity window (``IVFIndex.stage_hot``, which then halves the
+        window): no store re-open and no view swap. The staged state is
+        published with one assignment, so a search in flight finishes on
+        the residency it captured. Returns the stage_hot summary ({} when
+        there is nothing to restage: exact serving, no PQ index, or no
+        budget) and records a `hot_restaged` event."""
+        view = self._view
+        idx = view.index if view is not None else None
+        if idx is None or idx.pq is None or self._hot_gb <= 0:
+            return {}
+        with self._refresh_lock:
+            hot = idx.stage_hot(self._hot_gb * 2 ** 30)
+        self.registry.event("hot_restaged", dict(hot))
+        return hot
 
     def begin_migration(self, model: torch.nn.Module, step: int) -> None:
         """Attach the TARGET model of a rolling migration as a second query
@@ -1268,11 +1315,13 @@ class SearchService:
     # -- the result cache --------------------------------------------------
     def _result_cache_key(self, query: str, k: Optional[int],
                           nprobe: Optional[int],
-                          view: Optional[_ServeView] = None
-                          ) -> Optional[tuple]:
+                          view: Optional[_ServeView] = None,
+                          filters=None) -> Optional[tuple]:
         """(normalized text, k, nprobe, store generation with the view's
-        stamp in its high 32 bits, index generation, filter text ""), as
-        the JAX package keys it; None when the cache is off. The stamp is
+        stamp in its high 32 bits, index generation, canonical filter text
+        or ""), as the JAX package keys it; None when the cache is off. A
+        filtered entry and its unfiltered twin have different keys. The
+        stamp is
         the highest the view serves: the model step outside a migration,
         the target step once a unit of the sweep serves, so an answer
         scored with one tower never answers a query of another, whatever
@@ -1286,7 +1335,8 @@ class SearchService:
         sgen = ((int(view.generation) & 0xFFFFFFFF)
                 | ((int(stamp or 0) & 0xFFFFFFFF) << 32))
         return (self._normalize(query), int(k or self.cfg.eval.recall_k),
-                int(nprobe or 0), sgen, int(index_gen), "")
+                int(nprobe or 0), sgen, int(index_gen),
+                str(getattr(filters, "text", filters) or ""))
 
     def _result_cache_get(self, key: Optional[tuple],
                           count: bool = True) -> Optional[list]:
@@ -1431,6 +1481,7 @@ class SearchService:
                     "nlist": idx.nlist if idx else None,
                     "available": idx is not None,
                     "pq_m": idx.pq_m if idx else 0,
+                    "hot_rows": idx.hot_rows if idx else 0,
                     **({"error": self.index_error}
                        if self.index_error else {})})
         return rec
@@ -1505,13 +1556,16 @@ class SearchService:
         one-query search_many. `deadline_ms` is a relative budget (None =
         serve.deadline_ms; <= 0 = none), `deadline` an absolute one on the
         service clock; a request that cannot make it raises
-        DeadlineExceeded (counted in serve.deadline_shed)."""
-        refuse_filters(filters)
+        DeadlineExceeded (counted in serve.deadline_shed). `filters` keeps
+        the rows whose attribute word matches the predicate (text or a
+        Predicate, index/attrs.py); a malformed one raises FilterError (a
+        ValueError) before admission."""
+        pred = compile_filters(filters)
         if deadline is None:
             deadline = self.default_deadline(deadline_ms)
         # a repeat answers from the result cache before admission, so a
         # hit is never shed and never takes a bucket slot
-        rkey = self._result_cache_key(query, k, nprobe)
+        rkey = self._result_cache_key(query, k, nprobe, filters=pred)
         if rkey is not None:
             t0 = time.perf_counter()
             hits = self._result_cache_get(rkey, count=False)
@@ -1525,13 +1579,16 @@ class SearchService:
         b = self._batcher
         if b is None:
             return self.search_many([query], k=k, nprobe=nprobe,
-                                    deadline=deadline, _probe_cache=False)[0]
+                                    filters=pred, deadline=deadline,
+                                    _probe_cache=False)[0]
         t0 = time.perf_counter()
         try:
             with self.tracer.trace("search",
                                    k=k or self.cfg.eval.recall_k,
                                    query=self._normalize(query)[:80]):
-                res = b.submit(query, k, nprobe, deadline=deadline).result()
+                res = b.submit(query, k, nprobe, deadline=deadline,
+                               filters=None if pred is None
+                               else pred.text).result()
         except DeadlineExceeded:
             raise           # shed at the door: counted there, not an error
         except BaseException:
@@ -1549,17 +1606,18 @@ class SearchService:
         (rounded to 4 decimals) and snippet, best first. Direct callers
         (`_record`) count every query into the windowed request, error
         and latency instruments; the batcher records its requests itself.
-        An all-hit call answers from the result cache."""
-        refuse_filters(filters)
+        An all-hit call answers from the result cache. `filters` applies
+        one predicate to the whole call."""
         k = k or self.cfg.eval.recall_k
         n = len(queries)
         if n == 0:
             return []
+        pred = compile_filters(filters)
         if _record and _probe_cache and self._rcache_cap > 0:
             t0 = time.perf_counter()
             cached = [self._result_cache_get(
-                self._result_cache_key(q, k, nprobe), count=False)
-                for q in queries]
+                self._result_cache_key(q, k, nprobe, filters=pred),
+                count=False) for q in queries]
             miss_n = sum(1 for c in cached if c is None)
             if miss_n == 0:
                 self._m_rcache_hits.inc(n)
@@ -1572,7 +1630,8 @@ class SearchService:
         t0 = time.perf_counter()
         try:
             with self.tracer.root_or_span("search_many", n_queries=n, k=k):
-                out = self._search_view(view, list(queries), n, k, nprobe)
+                out = self._search_view(view, list(queries), n, k, nprobe,
+                                        predicate=pred)
         except BaseException:
             if _record:
                 self._m_errors.inc(n)
@@ -1584,15 +1643,22 @@ class SearchService:
         return out
 
     def _search_view(self, view: _ServeView, queries: List[str], n: int,
-                     k: int, nprobe: Optional[int]) -> List[List[Dict]]:
+                     k: int, nprobe: Optional[int],
+                     predicate=None) -> List[List[Dict]]:
+        if predicate is not None:
+            # one event a filtered dispatch: its predicate and queries
+            self.registry.event("filtered_query", {
+                "predicate": predicate.text[:200], "n_queries": n})
         qv = self._embed_queries_cached(view, queries)
-        best_s, best_i, _ = self._topk_view(view, qv, n, k, nprobe)
+        best_s, best_i, _ = self._topk_view(view, qv, n, k, nprobe,
+                                            predicate=predicate)
         with self._stage("format"):
             out = [self._format(best_s[i], best_i[i]) for i in range(n)]
         if self._rcache_cap > 0:
             for q, hits in zip(queries, out):
                 self._result_cache_put(
-                    self._result_cache_key(q, k, nprobe, view=view), hits)
+                    self._result_cache_key(q, k, nprobe, view=view,
+                                           filters=predicate), hits)
         return out
 
     def topk_vectors(self, qv: np.ndarray, k: Optional[int] = None,
@@ -1602,11 +1668,12 @@ class SearchService:
         """Raw retrieval for pre-computed query vectors: (scores [n, k]
         float32, page_ids [n, k] int64, -1-padded), with no encode and no
         snippets (the socket front end's vector protocol)."""
-        refuse_filters(filters)
         k = k or self.cfg.eval.recall_k
+        pred = compile_filters(filters)
         if not isinstance(qv, torch.Tensor):
             qv = np.asarray(qv, np.float32)
-        s, i, _ = self._topk_view(self._view, qv, qv.shape[0], k, nprobe)
+        s, i, _ = self._topk_view(self._view, qv, qv.shape[0], k, nprobe,
+                                  predicate=pred)
         return s, i
 
     def _qv_blocks(self, view: _ServeView, qv) -> Dict:
@@ -1642,21 +1709,26 @@ class SearchService:
                 for i, x in enumerate(steps)}
 
     def _topk_view(self, view: _ServeView, qv: np.ndarray, n: int, k: int,
-                   nprobe: Optional[int] = None):
+                   nprobe: Optional[int] = None, predicate=None):
         """(scores [n, k] float32, page_ids [n, k] int64, scan_bytes) of
         the first n rows of qv (float32, on the host or the device; [n,
         S*D] on a view of S stamps) over one view: through the index, the
-        staged rows, or the streaming sweep. Each shard is scored with its
-        stamp's block; a view of two stamps never consults the index."""
+        staged rows, or the streaming sweep; with a `predicate` off the
+        index, ``_filtered_exact``. Each shard is scored with its stamp's
+        block; a view of two stamps never consults the index."""
         blocks = self._qv_blocks(view, qv)
         if self._serve_index == "ivf":
             res = (self._ann_topk(view,
                                   _host_rows(next(iter(blocks.values())), n),
-                                  k, nprobe)
+                                  k, nprobe, predicate)
                    if len(view.steps) <= 1 else None)
             if res is not None:
                 return res
             self._m_ann_fallbacks.inc(n)   # the exact sweep serves it
+        if predicate is not None:
+            # the staged and the streaming top-k score every row, so
+            # neither keeps a filtered query's scan to its matching rows
+            return self._filtered_exact(view, blocks, n, k, predicate)
         dev = self.embedder.device
         if view.pages is None:
             with self._stage("topk", path="streaming"):
@@ -1726,10 +1798,11 @@ class SearchService:
         return best_s, best_i
 
     def _ann_topk(self, view: _ServeView, qv: np.ndarray, k: int,
-                  nprobe: Optional[int]):
+                  nprobe: Optional[int], predicate=None):
         """(scores, page_ids, gather_bytes) through the IVF index, or None
         for the exact sweep (the index is unavailable, or stale against
-        the store's model step, checked per request)."""
+        the store's model step, checked per request). A `predicate` goes
+        into the index's gather, widened by ``serve.filter_escalate``."""
         idx = view.index
         if (idx is None or idx.model_step != view.store.model_step
                 or len(view.steps) > 1):
@@ -1737,15 +1810,72 @@ class SearchService:
         with self._stage("topk") as sp:
             scores, pids, st = idx.search(qv, k=k,
                                           nprobe=nprobe or self._nprobe,
-                                          rerank=self._pq_rerank or None)
+                                          rerank=self._pq_rerank or None,
+                                          predicate=predicate,
+                                          escalate=self._filter_escalate)
             sp.set_attrs(lists_scanned=st.get("lists_scanned", 0),
                          gather_bytes=st.get("gather_bytes", 0),
-                         rows_reranked=st.get("candidates_reranked", 0))
+                         rows_reranked=st.get("candidates_reranked", 0),
+                         filter_escalations=st.get("filter_escalations", 0))
         self._m_ann_lists.inc(st.get("lists_scanned", 0))
         self._m_ann_reranked.inc(st.get("candidates_reranked", 0))
         self._m_ann_gather.inc(st.get("gather_bytes", 0))
         return (np.asarray(scores, np.float32), np.asarray(pids, np.int64),
                 int(st.get("gather_bytes", 0)))
+
+    def _filtered_exact(self, view: _ServeView, blocks: Dict, n: int,
+                        k: int, predicate) -> tuple:
+        """Exact filtered retrieval over one view: per shard the predicate
+        is evaluated on the host against the attribute words, only the
+        matching live rows are read at stored width and copied to the
+        card, and they are scored there in one product with the block of
+        the shard's stamp (int8 rows widened with their scales); one top-k
+        over the shards' top-k's ends it. scan_bytes: the words read (4 B
+        a row of the view) plus the matching rows at stored width, so a
+        predicate of selectivity s scans about s times the unfiltered
+        exact bytes."""
+        store, dev = view.store, self.embedder.device
+        row_bytes = store.row_bytes
+        q = {x: (b[:n].to(dev, torch.float32) if isinstance(b, torch.Tensor)
+                 else to_device(_host_rows(b, n), dev))
+             for x, b in blocks.items()}
+        fallback = next(iter(q.values()))
+        cand_s, cand_i = [], []
+        scan = 0
+        with self._stage("topk", path="filtered_exact"):
+            for entry in view.entries:
+                if entry["count"] == 0:
+                    continue
+                words = store.load_attrs(entry)
+                scan += int(words.nbytes)
+                keep = predicate.matches(words)
+                if not keep.any():
+                    continue
+                ids, vecs, scl = store._load_entry(entry, raw=True)
+                keep &= ids >= 0         # a tombstoned row matches nothing
+                if not keep.any():
+                    continue
+                rows = to_device(np.asarray(vecs)[keep], dev).float()
+                if scl is not None:
+                    rows = rows * to_device(np.asarray(scl)[keep],
+                                            dev).float()[:, None]
+                scan += int(rows.shape[0]) * row_bytes
+                qb = q.get(store.entry_step(entry), fallback)
+                sc, at = torch.topk(qb @ rows.T, min(k, rows.shape[0]),
+                                    dim=1)
+                cand_s.append(sc)
+                cand_i.append(to_device(ids[keep], dev)[at])
+        out_s = np.full((n, k), -np.inf, np.float32)
+        out_i = np.full((n, k), -1, np.int64)
+        if cand_s:
+            with self._stage("merge"):
+                all_s = torch.cat(cand_s, dim=1)
+                best_s, at = torch.topk(all_s, min(k, all_s.shape[1]), dim=1)
+                best_i = torch.gather(torch.cat(cand_i, dim=1), 1, at)
+                kk = best_s.shape[1]
+                out_s[:, :kk] = best_s.cpu().numpy()
+                out_i[:, :kk] = best_i.cpu().numpy()
+        return out_s, out_i, scan
 
     def _format(self, scores, ids) -> List[Dict]:
         return [

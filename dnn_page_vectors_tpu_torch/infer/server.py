@@ -19,6 +19,12 @@ Protocol robustness: a garbage header, an unknown frame type, or an
 oversize length is REJECTED — one best-effort `T_ERROR` frame, then the
 connection closes. Truncation mid-frame closes the connection.
 
+Filtered queries: a QUERY or VQUERY frame may carry a predicate
+(index/attrs.py); the server confirms FLAG_FILTERS in its HELLO when
+``serve.filters`` is on and then serves them like the service does. With
+it off, a filtered frame is answered with one `T_ERROR` and nothing is
+admitted, as is a malformed predicate.
+
 Tracing: every request runs under a root span opened at the socket
 (`socket` span, protocol and query count attrs). The dispatch hops to an
 executor thread with an explicit `tracer.use` hand-off, so the
@@ -27,7 +33,7 @@ root.
 
 The gateway, the partition workers and the fleet result-cache frames of
 the JAX front end wait for partitioned serving (ROADMAP.md queue 1, item
-7).
+7.4).
 """
 from __future__ import annotations
 
@@ -40,9 +46,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from dnn_page_vectors_tpu_torch.infer import transport
-from dnn_page_vectors_tpu_torch.infer.serve import refuse_filters
+from dnn_page_vectors_tpu_torch.index.attrs import (
+    FilterError, compile_filters)
 from dnn_page_vectors_tpu_torch.infer.transport import (
-    DeadlineExceeded, FrameError, FLAG_WIRE_COMPRESS, T_HELLO, T_QUERY,
+    DeadlineExceeded, FrameError, FLAG_FILTERS, FLAG_WIRE_COMPRESS, T_HELLO,
+    T_QUERY,
     T_RESULT, T_RESULT_C, T_SHED, T_ERROR, T_VQUERY, T_VQUERY_PUT,
     T_VQUERY_REF)
 
@@ -81,6 +89,9 @@ class SearchServer:
         # serve.wire_compress gates what this end ADVERTISES: with it off
         # every connection negotiates down to the raw frames
         self._compress = bool(svc.cfg.serve.wire_compress)
+        # serve.filters gates FLAG_FILTERS and whether a filtered frame is
+        # served at all
+        self._filters = bool(svc.cfg.serve.filters)
         self._executor = ThreadPoolExecutor(
             max_workers=executor_workers,
             thread_name_prefix="serve-socket")
@@ -193,10 +204,10 @@ class SearchServer:
                 svc._m_wire_raw.inc(actual)
                 if ftype == T_HELLO:
                     want = transport.decode_hello(payload)
-                    # the port confirms compression only: the fleet result
-                    # cache and filtered queries are not served here
-                    flags = want & (FLAG_WIRE_COMPRESS if self._compress
-                                    else 0)
+                    # the fleet result cache is not served here
+                    flags = want & ((FLAG_WIRE_COMPRESS if self._compress
+                                     else 0)
+                                    | (FLAG_FILTERS if self._filters else 0))
                     if flags & FLAG_WIRE_COMPRESS and slots is None:
                         slots = {}
                     await self._write(writer, T_HELLO,
@@ -321,14 +332,18 @@ class SearchServer:
         request into the windowed serving instruments exactly once."""
         svc = self.svc
         with svc.tracer.use(root):
-            # a filtered frame is refused: one T_ERROR answer, nothing
-            # admitted
-            refuse_filters(req.filters)
+            # the frame's predicate compiled once (its canonical form); a
+            # malformed one, or any with serve.filters off, raises here:
+            # one T_ERROR answer, nothing admitted
+            if req.filters and not self._filters:
+                raise FilterError("this server does not serve filtered "
+                                  "queries (serve.filters is off)")
+            pred = compile_filters(req.filters)
             # result-cache probe before admission: a repeated text query
             # answers before _admit can shed it or a bucket slot is taken
             if not vectors and n == 1:
                 rkey = svc._result_cache_key(req.queries[0], req.k or None,
-                                             nprobe)
+                                             nprobe, filters=pred)
                 if rkey is not None:
                     t0 = time.perf_counter()
                     hits = svc._result_cache_get(rkey, count=False)
@@ -347,19 +362,22 @@ class SearchServer:
             try:
                 if vectors:
                     out = svc.topk_vectors(req.qv, k=k, nprobe=nprobe,
-                                           deadline=deadline)
+                                           deadline=deadline, filters=pred)
                     scores, ids = out[0], out[1]
                     scan = int(out[2]) if len(out) > 2 else 0
                 elif svc._batcher is not None and n == 1:
                     res = [svc._batcher.submit(
                         req.queries[0], req.k or None, nprobe,
-                        deadline=deadline).result()]
+                        deadline=deadline,
+                        filters=None if pred is None
+                        else pred.text).result()]
                     scores, ids = _results_to_arrays(res, k)
                     scan = 0
                 else:
                     res = svc.search_many(list(req.queries),
                                           k=req.k or None, nprobe=nprobe,
-                                          _record=False, deadline=deadline)
+                                          filters=pred, _record=False,
+                                          deadline=deadline)
                     scores, ids = _results_to_arrays(res, k)
                     scan = 0
             except DeadlineExceeded:

@@ -40,7 +40,8 @@ Message types (the numbers are the JAX package's):
 The partition-worker frames (T_REGISTER, T_HEARTBEAT, T_BYE, T_REFRESH,
 T_DRAIN) and the fleet result-cache frames (T_CACHE_LOOKUP, T_CACHE_PUT)
 belong to partitioned serving and the fleet, which the port does not have
-yet (ROADMAP.md queue 1, item 7): this end rejects them as unknown types.
+yet (ROADMAP.md queue 1, item 7.4): this end rejects them as unknown
+types.
 Nobody sends a compressed or interned frame a peer did not advertise, so
 raw and compressing peers interoperate.
 
@@ -50,9 +51,10 @@ receiver's monotonic clock at receipt.
 
 T_QUERY and every T_VQUERY variant accept one OPTIONAL trailing field, a
 u16 length + the canonical filter predicate text; an unfiltered frame
-carries none. The codecs read and write it as the JAX package does; the
-port's service refuses a filtered request (filtered retrieval needs
-index/attrs.py, item 7).
+carries none. The codecs read and write it as the JAX package does. A
+peer sends it only after the other end confirmed FLAG_FILTERS in the
+HELLO exchange (the client raises otherwise rather than let an
+unfiltered answer pass for a filtered one).
 """
 from __future__ import annotations
 
@@ -717,8 +719,9 @@ class SocketSearchClient:
     and results arrive as T_RESULT_C — both lossless. A server that does
     not answer the HELLO is remembered and the client reconnects raw.
 
-    Filtered queries (`filters=`) are refused here: filtered retrieval
-    needs index/attrs.py, which the port does not have yet."""
+    The HELLO also advertises FLAG_FILTERS: a `filters=` predicate rides
+    the frame's optional trailing field once the server confirmed it;
+    against a server that did not, a filtered call raises RemoteError."""
 
     def __init__(self, host: str, port: int, deadline_ms: float = 0.0,
                  timeout_s: float = 30.0, compress: bool = True):
@@ -749,7 +752,7 @@ class SocketSearchClient:
         sock = self._dial()
         sender = FrameSender(sock)
         flags = 0
-        want = FLAG_WIRE_COMPRESS if self.compress else 0
+        want = (FLAG_WIRE_COMPRESS if self.compress else 0) | FLAG_FILTERS
         with self._lock:
             attempt_hello = bool(want) and not self._legacy_server
         if attempt_hello:
@@ -831,13 +834,19 @@ class SocketSearchClient:
             except OSError:
                 pass
 
-    @staticmethod
-    def _refuse_filters(filters) -> None:
-        if filters is not None and filters != "":
-            raise NotImplementedError(
-                "filtered retrieval is not ported to the PyTorch package "
-                "yet: it needs index/attrs.py and per-row store attributes "
-                "(ROADMAP.md queue 1, item 7)")
+    def _filters_text(self, filters) -> Optional[str]:
+        """A filters argument (None, predicate text or a Predicate) -> the
+        text to send, or None. A predicate for a server that never
+        confirmed FLAG_FILTERS raises here: an unfiltered frame would be
+        answered with unfiltered results."""
+        text = getattr(filters, "text", filters)
+        if text is None or text == "":
+            return None
+        _, _, flags, _ = self._conn()
+        if not flags & FLAG_FILTERS:
+            raise RemoteError("server did not negotiate filtered queries "
+                              "(FLAG_FILTERS)")
+        return str(text)
 
     def search(self, query: str, k: Optional[int] = None,
                nprobe: Optional[int] = None,
@@ -856,11 +865,11 @@ class SocketSearchClient:
                    nprobe: Optional[int] = None,
                    deadline_ms: Optional[float] = None,
                    filters=None) -> Tuple[np.ndarray, np.ndarray, int]:
-        self._refuse_filters(filters)
         req_id = next_request_id()
         dl = self.deadline_ms if deadline_ms is None else float(deadline_ms)
         payload = encode_query(req_id, list(queries), k=k or 0,
-                               nprobe=nprobe or 0, deadline_ms=dl)
+                               nprobe=nprobe or 0, deadline_ms=dl,
+                               filters=self._filters_text(filters))
         return self._roundtrip(T_QUERY, (payload,), req_id)
 
     def topk_vectors(self, qv: np.ndarray, k: Optional[int] = None,
@@ -870,10 +879,11 @@ class SocketSearchClient:
         """Raw vector retrieval over the wire (the model-free twin of
         `SearchService.topk_vectors`): (scores, ids, scan_bytes). On a
         compressing connection the query block interns: a repeated block
-        ships once and costs a 2-byte slot reference after."""
-        self._refuse_filters(filters)
+        ships once and costs a 2-byte slot reference after; the filter
+        field rides each request, never the interned block."""
         req_id = next_request_id()
         dl = self.deadline_ms if deadline_ms is None else float(deadline_ms)
+        ftext = self._filters_text(filters)
         block = np.ascontiguousarray(qv, dtype="<f4")
         if block.ndim != 2 or not 0 < block.shape[0] <= 0xFFFF \
                 or not 0 < block.shape[1] <= 0xFFFF:
@@ -886,13 +896,15 @@ class SocketSearchClient:
             slot, fresh = intern.slot_for(key)
             head = _VQUERY_HEAD.pack(req_id, dl, int(k or 0),
                                      int(nprobe or 0), n, dim)
+            tail = _filters_field(ftext)
             if fresh:
                 return self._roundtrip(T_VQUERY_PUT,
-                                       (head, _SLOT.pack(slot), key), req_id)
-            return self._roundtrip(T_VQUERY_REF, (head, _SLOT.pack(slot)),
-                                   req_id)
+                                       (head, _SLOT.pack(slot), key, tail),
+                                       req_id)
+            return self._roundtrip(T_VQUERY_REF,
+                                   (head, _SLOT.pack(slot), tail), req_id)
         payload = encode_vquery(req_id, block, k=k or 0, nprobe=nprobe or 0,
-                                deadline_ms=dl)
+                                deadline_ms=dl, filters=ftext)
         return self._roundtrip(T_VQUERY, (payload,), req_id)
 
     def close(self) -> None:

@@ -68,8 +68,12 @@ fault-injection points (utils/faults.py): ``<op>_dump`` checked before the
 write, ``<op>_file`` corrupted after the fsync; shard writes check
 ``shard_write`` and corrupt ``shard_file``, reads check ``shard_read``.
 
-Per-row attributes are a later slice: a store that uses them is refused
-with NotImplementedError rather than read in part.
+Per-row attributes (index/attrs.py): ``init_attrs`` records the word
+layout in the manifest; from then on every shard write (the base embed,
+appends, compaction, migration) also writes ``shard_NNNNN.atr.npy``, one
+packed uint32 word a row, recorded with its bytes and CRC under the
+entry's ``atr`` key. A shard written before the table existed has no
+file and reads as all-zero words (``load_attrs``).
 """
 from __future__ import annotations
 
@@ -87,7 +91,7 @@ import numpy as np
 from dnn_page_vectors_tpu_torch.utils import faults
 
 # a shard entry's data files: vectors (or int8 codes), ids, int8 scales,
-# attribute words (a later slice's; removed with the rest by reset())
+# attribute words
 _FILES = ("vec", "ids", "scl", "atr")
 # the smallest float16 normal, exact in float32: the int8 scale's floor
 SCALE_FLOOR = np.float32(np.float16(6.2e-5))
@@ -261,8 +265,6 @@ class VectorStore:
         self._tomb_gen: Dict[int, int] = {}   # page id -> gen that killed it
         self._dead_cache: Dict[int, np.ndarray] = {}
         self._load_generations()
-        if existed:
-            self._refuse_unported()
         if existed and verify:
             self.verify()
         # an EMPTY store may adopt a new shard size or dtype (a populated
@@ -277,18 +279,37 @@ class VectorStore:
                 self.manifest[key] = want
                 self._flush_manifest()
 
-    def _refuse_unported(self) -> None:
-        if self.attrs_enabled or any("atr" in s for s in self.shards()):
-            raise NotImplementedError(
-                f"store at {self.directory} uses per-row attributes "
-                "(ROADMAP.md queue 1, item 7.2), which the port does not "
-                "read yet")
-
+    # -- per-row attributes (index/attrs.py) -------------------------------
     @property
     def attrs_enabled(self) -> bool:
-        """Whether the store carries a per-row attribute table (a later
-        slice's; such a store is refused on open)."""
+        """Whether the store carries a per-row attribute table: decided by
+        init_attrs() and recorded in the manifest with the layout version.
+        Shards written before it have no `.atr.npy` and read as all-zero
+        words."""
         return "attrs" in self.manifest
+
+    def init_attrs(self) -> None:
+        """Record the versioned word layout in the manifest (or check the
+        recorded one), so every later shard write carries one packed uint32
+        attribute word a row under the same bytes + CRC32 record as the
+        vectors."""
+        # in the call: the index package imports this module
+        from dnn_page_vectors_tpu_torch.index import attrs as attrs_mod
+        if self.attrs_enabled:
+            attrs_mod.check_attrs_section(self.manifest["attrs"])
+            return
+        self.manifest["attrs"] = attrs_mod.attrs_manifest_section()
+        self._flush_manifest()
+
+    def load_attrs(self, entry: Dict) -> np.ndarray:
+        """One shard's packed attribute words (uint32 [count]). A shard
+        written before init_attrs() (no `.atr.npy`) reads as all-zero
+        words, a defined value, so every predicate is total."""
+        if "atr" not in entry:
+            return np.zeros(int(entry["count"]), np.uint32)
+        faults.active().check("shard_read")
+        return np.ascontiguousarray(
+            np.load(os.path.join(self.directory, entry["atr"])), np.uint32)
 
     # -- manifest ---------------------------------------------------------
     @property
@@ -785,14 +806,18 @@ class VectorStore:
     def write_shard(self, index: int, ids: np.ndarray,
                     vecs: Optional[np.ndarray] = None, *,
                     codes: Optional[np.ndarray] = None,
-                    scales: Optional[np.ndarray] = None) -> None:
+                    scales: Optional[np.ndarray] = None,
+                    attrs: Optional[np.ndarray] = None) -> None:
         """Persist one shard. Rows with id < 0 (batch padding) are dropped.
         Either `vecs` (float rows, quantized here by ``quantize_rows`` when
         the store is int8) or, for an int8 store, `codes` + `scales`
-        quantized on the device. Data files are written and fsynced first;
-        the manifest entry (this writer's manifest, with a `writer_id`)
-        lands last, so a crash leaves the shard unrecorded or complete."""
-        entry = self._write_shard_files("", index, ids, vecs, codes, scales)
+        quantized on the device; `attrs`, the rows' attribute words, on a
+        store with an attribute table. Data files are written and fsynced
+        first; the manifest entry (this writer's manifest, with a
+        `writer_id`) lands last, so a crash leaves the shard unrecorded or
+        complete."""
+        entry = self._write_shard_files("", index, ids, vecs, codes, scales,
+                                        attrs=attrs)
         if self._writer_path is not None:
             self._writer_shards = sorted(
                 [s for s in self._writer_shards if s["index"] != index]
@@ -814,11 +839,14 @@ class VectorStore:
         self._flush_manifest()
 
     def _write_shard_files(self, subdir: str, index: int, ids: np.ndarray,
-                           vecs, codes, scales) -> Dict:
+                           vecs, codes, scales, attrs=None) -> Dict:
         """Write and fsync one shard's data files under `subdir` of the
         store ("" for the base) and return its manifest entry with the
         files' byte sizes and CRC32s: the core of the base write_shard,
-        GenerationWriter and compaction."""
+        GenerationWriter, compaction and migration. On a store with an
+        attribute table every shard also gets its `.atr.npy`: `attrs`
+        aligned with `ids` before the padding rows drop, zeros when the
+        writer has none. `attrs` on a store without a table raises."""
         data = vecs if codes is None else codes
         if data.shape[-1] != self.dim:
             raise ValueError(f"vectors are {data.shape[-1]}-d, store is "
@@ -828,11 +856,24 @@ class VectorStore:
             raise ValueError("pre-quantized codes require an int8 store")
         keep = ids >= 0
         ids = ids[keep]
+        if attrs is not None and not self.attrs_enabled:
+            raise ValueError("attrs given but the store has no attribute "
+                             "table; call init_attrs() first")
+        words = None
+        if self.attrs_enabled:
+            words = (np.zeros(keep.shape[0], np.uint32) if attrs is None
+                     else np.asarray(attrs, np.uint32))
+            if words.shape[0] != keep.shape[0]:
+                raise ValueError(f"attrs has {words.shape[0]} rows, ids has "
+                                 f"{keep.shape[0]}")
+            words = words[keep]
         d = os.path.join(self.directory, subdir) if subdir else self.directory
         stem = f"shard_{index:05d}"
         names = {"vec": stem + ".vec.npy", "ids": stem + ".ids.npy"}
         if int8:
             names["scl"] = stem + ".scl.npy"
+        if words is not None:
+            names["atr"] = stem + ".atr.npy"
         paths = {key: os.path.join(d, n) for key, n in names.items()}
         entry = {"index": index, "count": int(ids.shape[0]),
                  **{key: os.path.join(subdir, n) if subdir else n
@@ -853,6 +894,8 @@ class VectorStore:
             if int8:
                 np.save(paths["scl"], scl)
             np.save(paths["ids"], ids.astype(np.int64))
+            if words is not None:
+                np.save(paths["atr"], words.astype("<u4"))
             for key, path in paths.items():
                 entry["bytes"][key] = os.path.getsize(path)
                 entry["crc"][key] = crc_file(path)
@@ -954,12 +997,14 @@ class GenerationWriter:
     def write_shard(self, ids: np.ndarray,
                     vecs: Optional[np.ndarray] = None, *,
                     codes: Optional[np.ndarray] = None,
-                    scales: Optional[np.ndarray] = None) -> Dict:
-        """Persist one appended shard (the vecs / codes contract of
-        VectorStore.write_shard); its shard index is assigned here."""
+                    scales: Optional[np.ndarray] = None,
+                    attrs: Optional[np.ndarray] = None) -> Dict:
+        """Persist one appended shard (the vecs / codes / attrs contract
+        of VectorStore.write_shard); its shard index is assigned here."""
         index = self._next_index
         entry = self.store._write_shard_files(
-            os.path.basename(self._dir), index, ids, vecs, codes, scales)
+            os.path.basename(self._dir), index, ids, vecs, codes, scales,
+            attrs=attrs)
         entry["gen"] = self.gen
         kept = np.asarray(ids)[np.asarray(ids) >= 0]
         entry["id_lo"] = int(kept.min()) if kept.size else self._id_cursor

@@ -94,7 +94,7 @@ class BalancedClient:
     It only routes: it keeps no tallies, and a trial's numbers come from
     the service's registry and the client's clock as always. (The port
     serves one front end; several, and the tier's measurement, come with
-    the gateway: ROADMAP.md queue 1, item 7.)
+    the gateway: ROADMAP.md queue 1, item 7.4.)
     """
 
     POLICIES = ("round_robin", "least_loaded")
@@ -129,9 +129,13 @@ class BalancedClient:
             self._inflight[i] += 1
             return i
 
-    def search(self, query, k: int = 10, nprobe: Optional[int] = None):
+    def search(self, query, k: int = 10, nprobe: Optional[int] = None,
+               filters=None):
         i = self._pick()
         try:
+            if filters is not None:
+                return self.clients[i].search(query, k=k, nprobe=nprobe,
+                                              filters=filters)
             return self.clients[i].search(query, k=k, nprobe=nprobe)
         finally:
             with self._lock:
@@ -168,6 +172,9 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
     issue_to = client if client is not None else svc
     client_ms: List[float] = []      # answered after the warmup; err_lock
     issue_lag = 0.0                  # the generator's worst lateness, s
+    # a filtered mix's client latency by scenario (the registry cannot
+    # tell a window sample's predicate), seconds from issue to answer
+    scen_lat: Dict[str, List[float]] = {}
 
     def _issue(req, t_sent=None):
         nonlocal errors, sheds, issue_lag
@@ -177,9 +184,11 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
         else:
             with err_lock:
                 issue_lag = max(issue_lag, now - t_sent)
+        kw = {"filters": req.filters} if req.filters else {}
+        t_req = clock()
         try:
             issue_to.search(queries[req.query_id % len(queries)], k=req.k,
-                            nprobe=req.nprobe)
+                            nprobe=req.nprobe, **kw)
         except DeadlineExceeded:
             # an admission shed is an availability decision the trial
             # reports separately, not a server error
@@ -193,6 +202,10 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
                 ms = (clock() - t_sent) * 1000.0
                 with err_lock:
                     client_ms.append(ms)
+            if req.scenario is not None:
+                with err_lock:
+                    scen_lat.setdefault(req.scenario, []).append(
+                        clock() - t_req)
 
     total_s = float(warmup_s) + float(duration_s)
     t0 = clock()
@@ -320,6 +333,16 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
             "entries": rcache1.get("entries", 0),
             "bytes": rcache1.get("bytes", 0),
         }
+    if scen_lat:
+        # the filtered mix's block: one row a scenario, the client's
+        # latency around the issue call (the window p99 stays the headline)
+        rec["filter_scenarios"] = {
+            name: {
+                "requests": len(lat),
+                "qps": round(len(lat) / max(total_s, 1e-9), 2),
+                "p50_ms": round(float(np.percentile(lat, 50)) * 1000.0, 3),
+                "p99_ms": round(float(np.percentile(lat, 99)) * 1000.0, 3),
+            } for name, lat in sorted(scen_lat.items())}
     if schedule_digest is not None:
         rec["schedule_digest"] = schedule_digest
     if mutator is not None:

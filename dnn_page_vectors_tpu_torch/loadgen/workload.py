@@ -29,8 +29,10 @@ on every call, so two runs with the same seed offer identical loads.
 
 `Mutator` wraps a callable with a period, so the driver can fire a
 mutation of the store under load (a refresh, an append, or a
-maintenance pass). Filtered query mixes need index/attrs.py (item 7.2):
-`QueryMix(filter_scenarios=...)` raises naming it.
+maintenance pass). `QueryMix(filter_scenarios=...)` draws a filtered
+scenario a request on top of the plain stream (index/attrs.py
+predicates in canonical form): arrival times and query ids stay those of
+the unfiltered mix.
 """
 from __future__ import annotations
 
@@ -44,9 +46,10 @@ import numpy as np
 Profile = Sequence[Tuple[int, Optional[int], float]]
 DEFAULT_PROFILE: Profile = ((10, None, 1.0),)
 
-# one (scenario name, predicate text or None, weight) entry — the JAX
-# package's filtered-query mix; the port refuses it until index/attrs.py
-# is ported.
+# one (scenario name, predicate text or None, weight) entry: the
+# filtered-query mix of `cli loadtest --filters`. The default predicates
+# all match the all-zero word, so the mix runs the filtered paths even on
+# a store whose shards predate init_attrs().
 FilterScenarios = Sequence[Tuple[str, Optional[str], float]]
 DEFAULT_FILTER_SCENARIOS: FilterScenarios = (
     ("unfiltered", None, 0.5),
@@ -98,15 +101,23 @@ class QueryMix:
         self._p = p / p.sum()
         w = np.asarray([w for _, _, w in self.profile], np.float64)
         self._pw = w / w.sum()
-        # filtered-query scenarios: None is the only mix the port serves
-        # (the sampler then draws exactly the JAX package's streams)
+        # filtered-query scenarios, their predicates canonical at
+        # construction, so every request of a scenario carries one text
+        # (the result cache's key); None draws the plain streams, with no
+        # extra draw
         self.scenarios: Optional[Tuple[Tuple[str, Optional[str], float],
                                        ...]] = None
         self._ps = None
         if filter_scenarios is not None:
-            raise NotImplementedError(
-                "filtered query mixes are not ported to the PyTorch package "
-                "yet: they need index/attrs.py (ROADMAP.md queue 1, item 7)")
+            from dnn_page_vectors_tpu_torch.index import attrs as attrs_mod
+            self.scenarios = tuple(
+                (str(name),
+                 None if pred is None
+                 else attrs_mod.Predicate.parse(pred).text,
+                 float(w))
+                for name, pred, w in filter_scenarios)
+            ws = np.asarray([w for _, _, w in self.scenarios], np.float64)
+            self._ps = ws / ws.sum()
 
     def sample(self, rng: np.random.Generator, n: int) -> List[Request]:
         qids = rng.choice(self.distinct, size=n, p=self._p)

@@ -118,6 +118,17 @@ def compact_store(store, registry=None) -> Dict:
             got = raw_cache[pos] = (vecs, scl)
         return got
 
+    # the attribute words ride the fold as they are: compaction moves
+    # rows, and a shard written before the table gives its all-zero words
+    has_attrs = store.attrs_enabled
+    attrs_cache: Dict[int, np.ndarray] = {}
+
+    def _attr_words(pos: int) -> np.ndarray:
+        got = attrs_cache.get(pos)
+        if got is None:
+            got = attrs_cache[pos] = store.load_attrs(old_entries[pos])
+        return got
+
     plan = faults.active()
     new_entries = []
     next_idx = store._next_shard_index()
@@ -129,19 +140,24 @@ def compact_store(store, registry=None) -> Dict:
         n = int(ids_c.size)
         data = np.empty((n, store.dim), np.int8 if is_int8 else np.float16)
         scl_c = np.empty((n,), np.float16) if is_int8 else None
+        atr_c = np.empty((n,), np.uint32) if has_attrs else None
         for pos in np.unique(src_c):
             m = src_c == pos
             vecs, scl = _raw(int(pos))
             data[m] = np.asarray(vecs[row_c[m]])
             if scl_c is not None:
                 scl_c[m] = np.asarray(scl[row_c[m]])
+            if atr_c is not None:
+                atr_c[m] = _attr_words(int(pos))[row_c[m]]
         plan.check("compact_write")
         if is_int8:
             entry = store._write_shard_files(subdir, next_idx, ids_c,
-                                             None, data, scl_c)
+                                             None, data, scl_c,
+                                             attrs=atr_c)
         else:
             entry = store._write_shard_files(subdir, next_idx, ids_c,
-                                             data, None, None)
+                                             data, None, None,
+                                             attrs=atr_c)
         entry["gen"] = epoch         # masked only by LATER tombstones
         entry["id_lo"] = int(ids_c.min())
         entry["id_hi"] = int(ids_c.max()) + 1

@@ -156,9 +156,13 @@ class MigrationPlan:
             # and id range, and the tombstones keep masking at read time
             ids = np.load(os.path.join(store.directory, e["ids"]))
             vecs = self._embed_ids(ids)
+            # the words describe the page, not its vector: the source
+            # shard's words verbatim (all zero for a shard written before
+            # the attribute table)
+            words = store.load_attrs(e) if store.attrs_enabled else None
             plan.check("migrate_write")
             entry = store._write_shard_files(subdir, int(e["index"]), ids,
-                                             vecs, None, None)
+                                             vecs, None, None, attrs=words)
             for k in ("gen", "id_lo", "id_hi"):
                 if k in e:
                     entry[k] = e[k]

@@ -49,19 +49,24 @@ def append_corpus(embedder, corpus, store: VectorStore,
     shard; ``updates.lease_wait_s`` of waiting, then LeaseHeld);
     `lease=False` is for a caller that serializes its writers itself.
 
+    `attrs`: one packed attribute word (index/attrs.py ``pack_word``)
+    stamped on every row this append writes, the grain of
+    `cli append --attrs`. It needs a store with an attribute table
+    (``init_attrs()``); on a store without one it raises before anything
+    is embedded.
+
     Returns the stats (generation, appended, updated, tombstoned, id
     range, shards, seconds, append_docs_per_s). A delta with nothing new,
-    updated or tombstoned writes no generation. `attrs` (per-row
-    attribute words) is not ported and raises."""
-    if attrs is not None:
-        raise NotImplementedError(
-            "append_corpus(attrs=...) is not ported yet: per-row store "
-            "attributes come with filtered retrieval (ROADMAP.md queue 1, "
-            "item 7)")
+    updated or tombstoned writes no generation."""
     if store.model_step is None:
         raise ValueError(
             "store is unstamped (no model_step); run the base 'embed' "
             "before appending: appends must share the base weights")
+    if attrs is not None and not store.attrs_enabled:
+        raise ValueError(
+            "append has --attrs but the store has no attribute table; "
+            "initialize one first (cli append --init-attrs, or "
+            "store.init_attrs())")
     upd_cfg = embedder.cfg.updates
     held = None
     if lease:
@@ -73,14 +78,15 @@ def append_corpus(embedder, corpus, store: VectorStore,
         store.reload_generations()
     try:
         return _append_leased(embedder, corpus, store, start, stop,
-                              tombstone, update_ids, batch_size, log, held)
+                              tombstone, update_ids, batch_size, log, held,
+                              attrs)
     finally:
         if held is not None:
             held.release()
 
 
 def _append_leased(embedder, corpus, store, start, stop, tombstone,
-                   update_ids, batch_size, log, held) -> Dict:
+                   update_ids, batch_size, log, held, attrs=None) -> Dict:
     cursor = store.next_page_id()
     start = cursor if start is None else int(start)
     if start < cursor:
@@ -113,7 +119,10 @@ def _append_leased(embedder, corpus, store, start, stop, tombstone,
     try:
         for s in range(0, all_ids.shape[0], shard_size):
             ids = all_ids[s: s + shard_size]
-            writer.write_shard(ids, _embed_ids(embedder, corpus, ids, bs))
+            words = (np.full(ids.shape[0], int(attrs), np.uint32)
+                     if attrs is not None else None)
+            writer.write_shard(ids, _embed_ids(embedder, corpus, ids, bs),
+                               attrs=words)
             if held is not None:
                 # a long append must not outlive its lease; LeaseLost here
                 # aborts before a commit could double-assign

@@ -331,8 +331,7 @@ def test_serve_metrics_and_trace(served, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (("--partitions", "2"), 7), (("--replicas", "2"), 7),
-    (("--front-ends", "2"), 7), (("--filters",), 7),
-    (("--filter", "lang==0"), 7)])
+    (("--front-ends", "2"), 7)])
 def test_unported_serving_flags_exit_naming_their_item(flags, item, tmp_path):
     with pytest.raises(SystemExit) as ei:
         cli.main(["loadtest", "--workdir", str(tmp_path), "--device", "cpu",
@@ -391,3 +390,72 @@ def test_migrate_index_and_maintain_print_the_jax_keys(command, tmp_path,
             == [0]
     if command == "index":
         assert got["pq_m"] == 2 and got["vectors"] == 600
+
+
+@pytest.mark.parametrize("command", ["append", "search", "loadtest"])
+def test_filtered_commands_print_the_jax_keys(command, tmp_path, capsys,
+                                              monkeypatch):
+    """The filtered-retrieval flags in each package over a store the same
+    command line embedded (random weights) and grew by 50 pages with
+    `append --init-attrs --attrs lang=3 site=wiki.org`: the append prints
+    the JAX CLI's keys and stamps only the appended rows; `search --queries
+    --filter lang==3` answers from appended rows only, in the JAX CLI's
+    line shape; `loadtest --filters` reports the JAX CLI's scenario list
+    and a filter_scenarios block a trial."""
+    from dnn_page_vectors_tpu import cli as jcli
+    from dnn_page_vectors_tpu_torch.index import attrs
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    word = attrs.pack_word(lang=3, site="wiki.org")
+    qfile = tmp_path / "q.txt"
+    qfile.write_text("first query\nsecond one here\n")
+    extra = {"search": ["--queries", str(qfile), "--filter", "lang==3"],
+             "loadtest": [*LOADTEST, "--filters"]}
+    outs = {}
+    for pkg, main, dev in (("port", cli.main, ["--device", "cpu"]),
+                           ("jax", jcli.main, [])):
+        wd = tmp_path / pkg
+        args = ["--config", "cdssm_toy", "--workdir", str(wd)]
+        for k, v in MAINT_OV.items():
+            args += ["--set", f"{k}={v}"]
+        main(["embed", *args, *dev])
+        capsys.readouterr()
+        main(["append", *args, "--set", "data.num_pages=650",
+              "--init-attrs", "--attrs", "lang=3", "site=wiki.org", *dev])
+        app = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        app.pop("fault_counters", None)
+        outs[pkg] = [app]
+        if command != "append":
+            main([command, *args, "--set", "data.num_pages=650",
+                  *extra[command], *dev])
+            outs[pkg].append([json.loads(ln) for ln in
+                              capsys.readouterr().out.strip().splitlines()])
+        store = VectorStore(str(wd / "store"))
+        got = {}
+        for e in store.shards():
+            for pid, w in zip(store.load_ids(e), store.load_attrs(e)):
+                got[int(pid)] = int(w)
+        assert got == {i: (word if i >= 600 else 0) for i in range(650)}
+    (papp, *prest), (japp, *jrest) = outs["port"], outs["jax"]
+    assert sorted(papp) == sorted(japp), (papp, japp)
+    assert (papp["appended"], papp["generation"], papp["store_vectors"]) \
+        == (japp["appended"], japp["generation"], japp["store_vectors"]) \
+        == (50, 1, 650)
+    if command == "search":
+        (plines,), (jlines,) = prest, jrest
+        assert [sorted(x) for x in plines] == [sorted(x) for x in jlines]
+        for line in plines + jlines:
+            assert line["results"]
+            assert all(r["page_id"] >= 600 for r in line["results"])
+            assert sorted(line["results"][0]) == ["page_id", "score",
+                                                  "snippet"]
+    if command == "loadtest":
+        (prep,), (jrep,) = prest[0][-1:], jrest[0][-1:]
+        assert prep["filters"] == [list(f) if isinstance(f, tuple) else f
+                                   for f in jrep["filters"]]
+        for rep in (prep, jrep):
+            blocks = [t["filter_scenarios"] for t in rep["trials"]]
+            assert blocks and all(set(b) <= {"unfiltered", "lang", "site",
+                                             "recent"} for b in blocks)
+            assert all(sorted(v) == ["p50_ms", "p99_ms", "qps", "requests"]
+                       for b in blocks for v in b.values())

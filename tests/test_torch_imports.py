@@ -216,3 +216,25 @@ def test_migration_and_maintenance_modules_are_covered(tmp_path):
     ms = MaintenanceService(get_config("cdssm_toy"), store.directory)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ms._swap_index(VectorStore(store.directory), reason="test")
+
+
+def test_filtered_modules_are_covered():
+    """The filtered-retrieval slice's module (index/attrs.py) is among
+    those the checks above walk, and imports neither jax nor the JAX
+    package on its own (in a fresh interpreter)."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    assert "dnn_page_vectors_tpu_torch.index.attrs" in names
+    assert os.path.join("index", "attrs.py") in {
+        os.path.relpath(f, PKG) for f in _sources()}
+    code = ("import sys\n"
+            "import dnn_page_vectors_tpu_torch.index.attrs as a\n"
+            "p = a.Predicate.parse('lang==1')\n"
+            f"bad = [n for n in sys.modules if any(n == f or "
+            f"n.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+            "print(p.text, bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.stdout.strip() == "lang==1 []", proc.stdout + proc.stderr

@@ -406,19 +406,38 @@ def test_mine_with_index_matches_jax(built, mesh, tmp_path):
 def test_unported_parts_raise(built):
     """update() is ported (tests/test_torch_updates.py): on an index that
     is current it is a no-op, deferred or not (the deferred rebuild is
-    tests/test_torch_maintenance_service.py's); the hot posting set,
-    partitions and filters still raise naming item 7."""
+    tests/test_torch_maintenance_service.py's). The hot posting set and
+    filtered search serve (tests/test_torch_filtered.py holds them against
+    the JAX package): here, over a store without an attribute table, the
+    whole index staged gives the mmap path's results, and lang==0 keeps
+    every row (all-zero words) while lang==1 keeps none. Partitions still
+    raise naming item 7.4."""
+    from dnn_page_vectors_tpu_torch.index.attrs import Predicate
     store, idx = built["fp16_pq"]["port"]
     same, info = IVFIndex.update(store, device="cpu")
     assert info["action"] == "noop" and same.index_generation == 0
     same, info = IVFIndex.update(store, defer_rebuild=True, device="cpu")
     assert info["action"] == "noop" and same.index_generation == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        idx.stage_hot(1 << 20)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    hot = IVFIndex.open(store, device="cpu")
+    summary = hot.stage_hot(1 << 20)
+    assert summary == {"hot_lists": NLIST, "hot_rows": N,
+                       "hot_bytes": N * (PQ_M + 4),
+                       "hot_by_popularity": False}
+    assert hot.hot_rows == N
+    want_s, want_i, want_st = idx.search(QUERIES, k=5, nprobe=4)
+    got_s, got_i, got_st = hot.search(QUERIES, k=5, nprobe=4)
+    _same_topk(got_s, got_i, want_s, want_i)
+    assert got_st["hot_rows_scored"] == want_st["candidates_reranked"] > 0
+    assert got_st["gather_bytes"] < want_st["gather_bytes"]
+    s0, i0, st0 = idx.search(QUERIES, k=5, nprobe=4,
+                             predicate=Predicate.parse("lang==0"))
+    _same_topk(s0, i0, want_s, want_i)
+    assert st0["gather_bytes"] == want_st["gather_bytes"]
+    _, i1, st1 = idx.search(QUERIES, k=5, nprobe=4,
+                            predicate=Predicate.parse("lang==1"))
+    assert (i1 == -1).all() and st1["gather_bytes"] == 0
+    with pytest.raises(NotImplementedError, match="item 7.4"):
         idx.partition_view([0])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        idx.search(QUERIES, k=5, predicate=object())
 
 
 # -- the index behind SearchService, and its faults ---------------------------
@@ -476,7 +495,7 @@ def test_ivf_service_serves_and_counts(served, tmp_path):
     assert met["ann_lists_scanned"] == len(served.queries) * 8
     assert met["ann_candidates_reranked"] > 0 and met["ann_gather_bytes"] > 0
     assert met["ann_index"] == {"index": "ivf", "nprobe": 8, "nlist": 8,
-                                "available": True, "pq_m": 4}
+                                "available": True, "pq_m": 4, "hot_rows": 0}
     assert not any(k.startswith("ann_") for k in exact.metrics())
     assert svc.search(served.queries[0], k=10) == got[0]
 

@@ -5,8 +5,9 @@ worker streams and the QueryMix draws are the JAX package's exactly;
 AdaptiveWindow follows the JAX controller's trajectory on the same queue
 waits on an injected clock; find_qps_at_p99 on a stub service with a
 known latency/load curve converges to the JAX driver's rate with the same
-trials; snapshot_line is one line of JSON; a Mutator fires on its period;
-filtered mixes are refused naming their ROADMAP item."""
+trials; snapshot_line is one line of JSON; a Mutator fires on its period; a
+seeded filtered mix draws the JAX package's scenarios on top of the plain
+stream, and a trial over it reports each scenario."""
 import json
 from collections import deque
 
@@ -74,9 +75,44 @@ def test_closed_loop_streams_and_query_mix_equal_jax():
         loadgen.make_workload("spiky")
 
 
-def test_filtered_mix_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        loadgen.QueryMix(16, filter_scenarios=(("lang", "lang==0", 1.0),))
+@pytest.mark.parametrize("shape", ["poisson", "burst"])
+def test_filtered_mix_equals_jax(shape):
+    """The seeded filtered mix (the JAX test_filtered.py protocol): the
+    port's schedule is the JAX package's request for request, scenario and
+    canonical predicate included, its digest too; the arrivals and query
+    ids are those of the plain stream, whose digest the mix leaves as it
+    was."""
+    from dnn_page_vectors_tpu.index import attrs as jattrs
+    from dnn_page_vectors_tpu_torch.loadgen.workload import (
+        DEFAULT_FILTER_SCENARIOS)
+    from dnn_page_vectors_tpu.loadgen.workload import (
+        DEFAULT_FILTER_SCENARIOS as JAX_SCENARIOS)
+    assert DEFAULT_FILTER_SCENARIOS == JAX_SCENARIOS
+    scen = DEFAULT_FILTER_SCENARIOS + (
+        ("both", " site in {3, 1} & lang == 2", 0.2),)
+    kw = dict(seed=5, distinct=16, profile=((10, None, 1.0),))
+    mine = loadgen.make_workload(shape, filter_scenarios=scen, **kw)
+    want = jax_loadgen.make_workload(shape, filter_scenarios=scen, **kw)
+    plain = loadgen.make_workload(shape, **kw)
+    a, b = mine.schedule(3.0, 50.0), want.schedule(3.0, 50.0)
+    assert [t for t, _ in a] == [t for t, _ in b]
+    assert [(r.query_id, r.k, r.nprobe, r.filters, r.scenario)
+            for _, r in a] == [(r.query_id, r.k, r.nprobe, r.filters,
+                                r.scenario) for _, r in b]
+    assert mine.digest(a) == want.digest(b)
+    assert mine.schedule(3.0, 50.0) == a
+    base = plain.schedule(3.0, 50.0)
+    assert [t for t, _ in a] == [t for t, _ in base]
+    assert [r.query_id for _, r in a] == [r.query_id for _, r in base]
+    assert mine.digest(base) == plain.digest(base) != mine.digest(a)
+    seen = {r.scenario for _, r in a}
+    assert "unfiltered" in seen and len(seen) > 2
+    for _, r in a:
+        if r.filters is not None:
+            assert r.filters == jattrs.Predicate.parse(r.filters).text
+    assert mine.mix.scenarios[-1][1] == "lang==2&site in {1,3}"
+    with pytest.raises(ValueError, match="cannot parse"):
+        loadgen.QueryMix(16, filter_scenarios=(("x", "lang=1", 1.0),))
 
 
 class _FakeClock:
@@ -310,3 +346,43 @@ def test_balanced_client_round_robin_is_seeded():
     assert [c.n for c in clients] == [3, 4, 3]
     with pytest.raises(ValueError):
         loadgen.BalancedClient(clients, policy="random")
+
+
+class _FilteredStub(_SlowStub):
+    """_SlowStub that also takes a predicate, and records each one."""
+
+    def __init__(self, clock, registry_cls, service_ms):
+        super().__init__(clock, registry_cls, service_ms)
+        self.filters = []
+
+    def search(self, query, k=None, nprobe=None, filters=None):
+        self.filters.append(filters)
+        return super().search(query, k, nprobe)
+
+
+def test_filtered_trial_reports_each_scenario_as_jax_does():
+    """A trial over the seeded filtered mix on a fake clock: the port's
+    driver hands each request its predicate (none to an unfiltered one)
+    and reports the scenarios' requests, rate, p50 and p99 as the JAX
+    driver does on the same stub."""
+    from dnn_page_vectors_tpu_torch.loadgen.workload import (
+        DEFAULT_FILTER_SCENARIOS)
+    queries = [f"q{i}" for i in range(16)]
+    recs, sent = [], []
+    for pkg, reg in ((loadgen, MetricsRegistry),
+                     (jax_loadgen, JaxRegistry)):
+        clock = _FakeClock()
+        svc = _FilteredStub(clock, reg, 4.0)
+        wl = pkg.make_workload("poisson", seed=2, distinct=16,
+                               filter_scenarios=DEFAULT_FILTER_SCENARIOS)
+        recs.append(pkg.run_trial(svc, wl, 40.0, queries, duration_s=5.0,
+                                  warmup_s=0.0, workers=0, clock=clock,
+                                  sleep=clock.sleep))
+        sent.append(svc.filters)
+    mine, want = recs
+    assert sent[0] == sent[1] and None in sent[0]
+    assert {f for f in sent[0] if f} == {"lang==0", "site in {0}",
+                                         "recency>=0"}
+    assert mine["filter_scenarios"] == want["filter_scenarios"]
+    assert sum(b["requests"] for b in mine["filter_scenarios"].values()) \
+        == mine["requests_sent"] == len(sent[0])

@@ -163,8 +163,13 @@ def test_staged_streaming_sequential_and_jax_agree(world):
     s2, i2 = streaming.topk_vectors(qv, k=5)
     _raw_same(s1, i1, s2, i2)
     assert i1.dtype == np.int64 and s1.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="item 7"):
-        staged.search("x", filters="lang==0")
+    # filtered retrieval over a store without an attribute table: every
+    # word is zero, so lang==0 keeps every row and lang==1 none (the
+    # filtered paths against JAX's are tests/test_torch_filtered.py's)
+    assert staged.search("x", filters="lang==0") == staged.search("x")
+    assert staged.search("x", filters="lang==1") == []
+    with pytest.raises(ValueError, match="cannot parse predicate term"):
+        staged.search("x", filters="lang=0")
 
 
 def test_store_over_the_budget_streams_with_the_staged_results(world):

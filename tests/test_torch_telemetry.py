@@ -289,9 +289,13 @@ def test_serve_and_obs_knobs_equal_jax():
     for name in ("batch_window_adaptive", "max_batch", "query_cache_size",
                  "result_cache"):
         assert getattr(a.serve, name) == getattr(b.serve, name)
+    # filtered retrieval and the hot posting set are knobs (slice 11),
+    # with the JAX package's names and defaults
+    for name in ("hot_postings_gb", "filters", "filter_escalate"):
+        assert getattr(a.serve, name) == getattr(b.serve, name)
     # the parts still to port are not knobs yet
-    for name in ("partitions", "replicas", "hot_postings_gb",
-                 "result_cache_fleet", "hedge_quantile"):
+    for name in ("partitions", "replicas", "result_cache_fleet",
+                 "hedge_quantile"):
         assert not hasattr(a.serve, name)
         with pytest.raises(KeyError, match="not ported"):
             get_config("cdssm_toy", {f"serve.{name}": "2"})

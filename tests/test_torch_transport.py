@@ -268,21 +268,26 @@ def test_loopback_server_returns_the_inprocess_results(store):
         m = svc.metrics()["transport"]
         assert m["wire_bytes"] > 0
         assert m["wire_raw_bytes"] > m["wire_bytes"]   # compressed + interned
-        with pytest.raises(NotImplementedError, match="item 7"):
-            clients[0].search("x", filters="lang==0")
-        # the server does not confirm FLAG_FILTERS, so the JAX client
-        # refuses a filtered query itself; a filtered frame sent anyway
-        # gets one T_ERROR and nothing is served
+        # the server confirms FLAG_FILTERS: a filtered query is served,
+        # through each client, as in process (the store has no attribute
+        # table, so lang==0 keeps every row and lang==1 none)
         flt = jt.SocketSearchClient(srv.host, srv.port)
-        with pytest.raises(jt.RemoteError, match="FLAG_FILTERS"):
-            flt.search("x", filters="lang==0")
+        for client in (clients[0], flt):
+            assert client.search("x", filters="lang==0") == \
+                client.search("x")
+            assert client.search("x", filters="lang==1") == []
+            s3, i3, _ = client.topk_vectors(qv, k=10, filters="lang==0")
+            assert np.array_equal(i3, base_i)
         flt.close()
+        # a malformed predicate in a frame gets one T_ERROR, and nothing
+        # is served
         served = svc._m_requests.value
         raw = socket.create_connection((srv.host, srv.port), timeout=5)
         tt.write_frame(raw, tt.T_QUERY, tt.encode_query(
-            77, ["x"], k=5, filters="lang==0"))
+            77, ["x"], k=5, filters="lang==999"))
         ftype, body = tt.read_frame(raw)
-        assert ftype == tt.T_ERROR and "item 7" in tt.decode_error(body)[1]
+        assert ftype == tt.T_ERROR and "FilterError" in tt.decode_error(
+            body)[1]
         raw.close()
         assert svc._m_requests.value == served
         # garbage -> one ERROR frame, then the connection closes; the
@@ -349,7 +354,8 @@ def test_door_sheds_a_request_that_expires_in_the_queue(store):
     b = svc._batcher
     try:
         fut: Future = Future()
-        item = ("q", (10, None), fut, 0.0, None, svc.default_deadline(5.0))
+        item = ("q", (10, None, None), fut, 0.0, None,
+                svc.default_deadline(5.0))
         fake["t"] += 1.0                  # expires while queued
         n = len(b.batch_sizes)
         b._dispatch([item])
@@ -360,8 +366,9 @@ def test_door_sheds_a_request_that_expires_in_the_queue(store):
               if e["event"] == "deadline_shed"]
         assert ev[-1]["attrs"]["reason"] == "expired_in_queue"
         dead, live = Future(), Future()
-        b._dispatch([("d", (10, None), dead, 0.0, None, fake["t"] - 0.001),
-                     ("l", (10, None), live, 0.0, None, None)])
+        b._dispatch([("d", (10, None, None), dead, 0.0, None,
+                      fake["t"] - 0.001),
+                     ("l", (10, None, None), live, 0.0, None, None)])
         assert live.result(timeout=30)
         with pytest.raises(DeadlineExceeded):
             dead.result(timeout=5)

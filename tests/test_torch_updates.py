@@ -379,8 +379,11 @@ def test_append_matches_jax_and_is_byte_deterministic(world, tmp_path):
     noop = append_corpus(world["temb"], tc, s)
     assert noop["appended"] == 0 and s.generation == 1
     assert not os.path.exists(os.path.join(s.directory, "gen-0002"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # attribute words need the store's attribute table: refused before
+    # anything is embedded (tests/test_torch_filtered.py has the rest)
+    with pytest.raises(ValueError, match="no attribute table"):
         append_corpus(world["temb"], tc, s, attrs=1)
+    assert s.generation == 1
 
 
 @pytest.mark.parametrize("pq_m", [0, 4])
