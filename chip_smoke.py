@@ -57,7 +57,9 @@ Phases, each printing one JSON line:
      4,096 (the JAX config's global batch over 8 chips) to 512 pages: K1,
      K4 and K3 launch 24 times a step (all on the tensor cores), K2
      never; the rel_bias table is
-     among the gradients held flash against dense and bitwise run to run;
+     among the gradients held flash against dense (bf16) and bitwise run
+     to run; the resume check and the f32 comparison are left out for
+     the run's time (phases 7 and 9);
   8. packed bert_long_sp training (sequence packing, train.pack_pages=4):
      config bert_long_sp at full width (4 layers, d=512, 8 heads, mlp
      2048, page_len 1024, query_len 32) with flash attention, 1,024 toy
@@ -182,6 +184,23 @@ Phases, each printing one JSON line:
      bytes against the mmap path, both behind a SearchServer under a
      filtered load, and appends with a word, the IVF update and
      compaction over a copy of phase 14(a)'s rows.
+ 20. partitioned and replicated serving in one process (run_partitioned;
+     run right after phase 16, while phase 15's store and corpus exist):
+     (a) 4 partitions x 2 replicas over phase 15's 500,000-row store, each
+     replica a view of its own staged on the card with a CUDA stream of
+     its own, 64 corpus queries through search_many, topk_vectors and a
+     SearchServer against the single view, simulate()'s critical path and
+     each partition's scan bytes; (b) 4 x 1 through the IVF-PQ index over
+     phase 14(b)'s 1M-row int8 store with phase 19's hot-set budget cut
+     by rows, against the single-view index and exact search; (c) a
+     tombstone generation and refresh() in a trial of phase 16's mix at 25
+     qps over the socket (on a copy of the store), every answer the old
+     table's or the new one's, sheds while replicas restage, and at R=1
+     the old views until the publish; (d) sheds at replica_shed_queue=0
+     under a burst, answers unchanged; (e) one find_qps_at_p99 at the
+     client's p99 <= 50 ms, cache off, beside phase 16's rate; (f) K1 4
+     times an encode, the same per query as one view; (g) every view's
+     tensors on the card, the phase within 60 s.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The toy corpora keep each text once made (KeptTexts): the phases read
@@ -276,15 +295,18 @@ RESUME_LOSS_TOL = 1e-5
 # embedded, and the training batch (the config's 4,096 is the global batch
 # of an 8-chip mesh; 512 pages fit one card); its flash vs dense gradients
 # at 256 rows in bf16 (the dense [B, 12, 128, 128] scores of 12 layers fit
-# beside the flash tower) and 64 in f32. The bf16 bound is wider than
-# BERT-mini's: 12 layers against 4, and a CPU rehearsal of the plain
-# versions at d=768 gave 4.9e-2 (the query tower's top wq/wk).
+# beside the flash tower). The bf16 bound is wider than BERT-mini's: 12
+# layers against 4, and a CPU rehearsal of the plain versions at d=768
+# gave 4.9e-2 (the query tower's top wq/wk). For the chip check's time
+# the two mT5 training cells leave out the resume check (its checkpoint
+# round trip of the 250,112-row tables took 34-44 s a cell on an H100
+# 80GB HBM3 at 700 W) and the f32 flash vs dense gradients (64 rows);
+# the BERT-mini and bert_long_sp cells keep both (PERF.md section 4).
 MT5 = "mt5_multilingual"
 MT5_VOCAB_PAGES = 300_000
 MT5_PAGES = 20_000
 MT5_TRAIN_BATCH = 512
 MT5_BF16_ROWS = 256
-MT5_F32_ROWS = 64
 MT5_FLASH_DENSE_GRAD_TOL = 1e-1
 # The packed cells (sequence packing, train.pack_pages=4). bert_long_sp:
 # 1,024 pages a step (256 rows of 1,024 tokens), cut from the config's
@@ -526,6 +548,35 @@ FILT_APPEND = 10_000
 FILT_TOMBSTONED = 100
 FILT_LANG = 7
 FILT_BUDGET_S = 60.0
+# Phase 20, partitioned and replicated serving in one process
+# (run_partitioned), right after phase 16 over its 500,000-row fp16 store
+# and jsonl corpus: PART_P partitions x PART_R replicas; PART_QUERIES
+# corpus queries against the single view; the IVF part over phase 14(b)'s
+# 1M-row int8 store and its PQ index at PART_IVF_P partitions x 1 replica
+# with phase 19's hot-set budget (FILT_HOT_BUDGET) cut across them, full
+# probe checked on PART_FULL_PROBE_QUERIES; a PART_MUT_TRIAL_S trial of
+# phase 16's mix at PART_QPS over the socket holding a tombstone
+# generation and refresh() at PART_FIRE_S of trial time (on a copy of the
+# store: phase 17 reads phase 15's); a burst of PART_BURST_CALLS
+# one-query calls from PART_BURST_THREADS threads at
+# replica_shed_queue=0; one find_qps_at_p99 of PART_RATE_TRIAL_S trials
+# from PART_START_QPS, cache off, at most SERVE_MAX_TRIALS trials; the
+# phase within PART_BUDGET_S.
+PART_P = 4
+PART_R = 2
+PART_IVF_P = 4
+PART_QUERIES = 64
+PART_SOCKET_QUERIES = 16
+PART_PROBES = 8
+PART_QPS = 25.0
+PART_MUT_TRIAL_S = 3.0
+PART_FIRE_S = 1.0
+PART_FULL_PROBE_QUERIES = 4
+PART_BURST_THREADS = 16
+PART_BURST_CALLS = 64
+PART_RATE_TRIAL_S = 2.0
+PART_START_QPS = 25.0
+PART_BUDGET_S = 60.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -2061,20 +2112,21 @@ def flash_vs_dense(config, overrides, vocab, batch, device, dtype) -> dict:
 
 # the training cells: the config, its batch (pages a step), pages packed a
 # row, and (transformer cells) the batch share (pages) and bounds of the
-# flash vs dense gradient comparison
+# flash vs dense gradient comparison (no f32 share: none in f32); resume
+# False leaves out the resume check
 TRAIN_CELLS = {
     "bert_mini": dict(config="bert_mini_v5p16", batch=TRAIN_BATCH, pack=1,
                       bf16_pages=TRAIN_BATCH, f32_pages=F32_ROWS,
                       bf16_tol=FLASH_DENSE_GRAD_TOL),
     "mt5": dict(config=MT5, batch=MT5_TRAIN_BATCH, pack=1,
-                bf16_pages=MT5_BF16_ROWS, f32_pages=MT5_F32_ROWS,
-                bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
+                bf16_pages=MT5_BF16_ROWS, f32_pages=None,
+                bf16_tol=MT5_FLASH_DENSE_GRAD_TOL, resume=False),
     "bert_long_packed": dict(config=LONG, batch=LONG_TRAIN_BATCH, pack=PACK,
                              bf16_pages=32 * PACK, f32_pages=8 * PACK,
                              bf16_tol=LONG_FLASH_DENSE_GRAD_TOL),
     "mt5_packed": dict(config=MT5, batch=MT5_PACK_TRAIN_BATCH, pack=PACK,
-                       bf16_pages=MT5_BF16_ROWS, f32_pages=MT5_F32_ROWS,
-                       bf16_tol=MT5_FLASH_DENSE_GRAD_TOL),
+                       bf16_pages=MT5_BF16_ROWS, f32_pages=None,
+                       bf16_tol=MT5_FLASH_DENSE_GRAD_TOL, resume=False),
     # the towers without attention, at their configs' batches
     "cdssm": dict(config=CDSSM, batch=256, pack=1),
     "kim_cnn": dict(config=KIM, batch=4_096, pack=1),
@@ -2152,12 +2204,37 @@ def determinism_cost(trainer, batches) -> dict:
             "nondeterministic_median_ms": float(np.median(times[False]))}
 
 
+def resume_check(new_trainer, batches, losses, workdir: str,
+                 cell_name: str) -> float:
+    """3 steps on a fresh Trainer, a save, a restore into another, 3 more
+    steps: the largest difference of their losses from the straight run's
+    `losses`, within RESUME_LOSS_TOL."""
+    from dnn_page_vectors_tpu_torch.train.checkpoint import CheckpointManager
+    first = new_trainer()
+    for b in batches[:3]:
+        first.train_step(b)
+    ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{cell_name}"),
+                             max_to_keep=1)
+    first.save(ckpt)
+    del first
+    resumed = new_trainer()
+    if resumed.restore(ckpt) != 3:
+        raise AssertionError("restored the wrong step")
+    resumed_losses = [float(resumed.train_step(b)["loss"])
+                      for b in batches[3:]]
+    resume_diff = float(np.abs(np.array(resumed_losses)
+                               - np.array(losses[3:])).max())
+    if not resume_diff <= RESUME_LOSS_TOL:
+        raise AssertionError(f"resumed losses {resumed_losses} differ from "
+                             f"straight {losses[3:]} by {resume_diff}")
+    return resume_diff
+
+
 def run_training(device, cell_name: str, data, workdir: str) -> dict:
     from dnn_page_vectors_tpu_torch.config import get_config
     from dnn_page_vectors_tpu_torch.data.loader import (
         TrainBatcher, pack_segments, to_device)
     from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
-    from dnn_page_vectors_tpu_torch.train.checkpoint import CheckpointManager
     from dnn_page_vectors_tpu_torch.train.loop import (
         Trainer, dropout_generator)
 
@@ -2196,6 +2273,14 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     def seg_counts():
         return [fa.launches_seg, fa.dq_launches_seg, fa.dkv_launches_seg,
                 fa.dq_dbias_launches_seg]
+
+    # the seconds of each part of the phase, for the chip check's time
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
 
     # ---- the main path, counted: Trainer.train from text ---------------
     trainer = new_trainer()
@@ -2236,6 +2321,7 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
             for h in hist):
         raise AssertionError(f"training metrics are not finite: {hist}")
     del trainer                          # one trainer on the card at a time
+    lap("from_text")
 
     # ---- device timing on pre-made batches ---------------------------------
     t0 = time.perf_counter()
@@ -2285,6 +2371,7 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
         step_ms.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lap("timed_steps")
     main_diff = float(np.abs(np.array(losses)
                              - np.array([h["loss"] for h in hist])).max())
     if not main_diff <= RESUME_LOSS_TOL:
@@ -2319,6 +2406,7 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
     syncs = [str(w.message)[:160] for w in caught
              if "called a synchronizing" in str(w.message)]
     torch.cuda.synchronize()
+    lap("launches_profile")
 
     extra = {}
     if m.encoder == "lstm":
@@ -2338,49 +2426,36 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
         raise AssertionError(f"two runs of one step gave different "
                              f"gradients for {differ}")
     del g1, g2, straight
+    lap("bitwise")
 
     # ---- resume: 3 steps, save, restore into a fresh Trainer, 3 steps ------
-    first = new_trainer()
-    for b in batches[:3]:
-        first.train_step(b)
-    ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{cell_name}"),
-                             max_to_keep=1)
-    first.save(ckpt)
-    del first
-    resumed = new_trainer()
-    if resumed.restore(ckpt) != 3:
-        raise AssertionError("restored the wrong step")
-    resumed_losses = [float(resumed.train_step(b)["loss"])
-                      for b in batches[3:]]
-    resume_diff = float(np.abs(np.array(resumed_losses)
-                               - np.array(losses[3:])).max())
-    if not resume_diff <= RESUME_LOSS_TOL:
-        raise AssertionError(f"resumed losses {resumed_losses} differ from "
-                             f"straight {losses[3:]} by {resume_diff}")
-    del resumed
+    resume_diff = None
+    if cell.get("resume", True):
+        resume_diff = resume_check(new_trainer, batches, losses, workdir,
+                                   cell_name)
+    lap("resume")
 
     # ---- flash vs dense gradients, dropout off, the seeded weights ----------
     if transformer:
-        bf16 = flash_vs_dense(config, overrides, p_tok.vocab_size,
-                              _take(batches[2], cell["bf16_pages"], pack),
-                              device, "bfloat16")
-        f32 = flash_vs_dense(config, overrides, p_tok.vocab_size,
-                             _take(batches[2], cell["f32_pages"], pack),
-                             device, "float32")
-        for rec, tol in ((bf16, cell["bf16_tol"]),
-                         (f32, FLASH_DENSE_GRAD_TOL_F32)):
-            if not rec["max_rel_err"] <= tol:
+        comps = [("bf16", cell["bf16_pages"], "bfloat16", cell["bf16_tol"])]
+        if cell["f32_pages"]:
+            comps.append(("f32", cell["f32_pages"], "float32",
+                          FLASH_DENSE_GRAD_TOL_F32))
+        for name, pages, dtype, tol in comps:
+            fvd = flash_vs_dense(config, overrides, p_tok.vocab_size,
+                                 _take(batches[2], pages, pack), device,
+                                 dtype)
+            if not fvd["max_rel_err"] <= tol:
                 raise AssertionError(f"flash vs dense gradients differ: "
-                                     f"{rec} (bound {tol})")
-            if not rec["key_bias_over_wk"] <= KEY_BIAS_GRAD_TOL:
+                                     f"{fvd} (bound {tol})")
+            if not fvd["key_bias_over_wk"] <= KEY_BIAS_GRAD_TOL:
                 raise AssertionError(f"a key-bias gradient (exactly 0 in "
-                                     f"exact arithmetic) is not small: {rec}")
-        extra["flash_vs_dense_grads_bf16"] = {
-            **bf16, "tol": cell["bf16_tol"], "pages": cell["bf16_pages"]}
-        extra["flash_vs_dense_grads_f32"] = {
-            **f32, "tol": FLASH_DENSE_GRAD_TOL_F32,
-            "pages": cell["f32_pages"]}
+                                     f"exact arithmetic) is not small: {fvd}")
+            extra[f"flash_vs_dense_grads_{name}"] = {
+                **fvd, "tol": tol, "pages": pages}
         extra["key_bias_grad_tol"] = KEY_BIAS_GRAD_TOL
+        lap("flash_vs_dense")
+
 
     rec = {
         "phase": "train", "cell": cell_name, "config": cfg.name,
@@ -2417,9 +2492,10 @@ def run_training(device, cell_name: str, data, workdir: str) -> dict:
         "gdead_launches_one_step": gdeads_one_step,
         "losses": losses, "history": hist,
         "timed_vs_main_path_loss_max_diff": main_diff,
+        "resume_checked": resume_diff is not None,
         "resume_loss_max_diff": resume_diff,
         "resume_loss_tol": RESUME_LOSS_TOL,
-        "bitwise_equal_grads": True, **extra,
+        "bitwise_equal_grads": True, **extra, "seconds_by_part": part_s,
         "device": torch.cuda.get_device_name(0),
     }
     emit(rec)
@@ -5848,6 +5924,621 @@ def run_filtered(device, data, workdir: str) -> dict:
 
 
 # the bool template flags of each templated kernel, in order
+# -- phase 20: partitioned and replicated serving ---------------------------
+
+class RecordingClient:
+    """A SocketSearchClient that keeps every (query, answer) it returns,
+    for the per-request oracle of phase 20 (c)."""
+
+    def __init__(self, client):
+        self._client = client
+        self._lock = threading.Lock()
+        self.answers: list = []
+
+    def search(self, query, k=None, nprobe=None, **kw):
+        out = self._client.search(query, k=k, nprobe=nprobe, **kw)
+        with self._lock:
+            self.answers.append((query, out))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._client, name)
+
+
+def same_results(got, want) -> bool:
+    """serve_results_equal as a predicate: socket answers (scores as
+    sent) against formatted ones (scores rounded to 4 decimals)."""
+    got = [[{"page_id": r["page_id"], "score": round(float(r["score"]), 4)}
+            for r in hits] for hits in got]
+    try:
+        serve_results_equal(got, want, "")
+    except AssertionError:
+        return False
+    return True
+
+
+def view_tensors(view) -> list:
+    """Every tensor a serving view holds: its staged rows, scales, dead
+    mask and buffers, its index's centroids and hot set."""
+    out = [t for t in (view.pages, view.scales, view.alive, view.buf,
+                       view.scale_buf) if t is not None]
+    idx = view.index
+    if idx is not None:
+        if idx._dev_centroids is not None:
+            out.append(idx._dev_centroids)
+        if idx._hot is not None:
+            out += [idx._hot[key] for key in ("codes", "cent", "attrs")]
+    return out
+
+
+def staged_bytes(view) -> int:
+    """The bytes a view holds on the card (staged rows with their scales
+    and dead mask, or its index's hot set)."""
+    return sum(t.numel() * t.element_size() for t in (
+        view.pages, view.scales, view.alive) if t is not None) + (
+        hot_bytes_on_card(view.index) if view.index is not None
+        and view.index._hot is not None else 0)
+
+
+def partition_record(svc) -> dict:
+    """A partitioned service's table: each view's rows, staged bytes,
+    device and stream, and its partition's spec."""
+    pset = svc.partition_set
+    views = []
+    for spec, row in zip(pset.specs(), pset.table()):
+        for rid, view in enumerate(row):
+            rep = pset._parts[spec.pid][rid]
+            views.append({"partition": spec.pid, "replica": rid,
+                          "shards": list(spec.shard_indices),
+                          "rows": spec.rows, "hot_gb": spec.hot_gb,
+                          "staged_bytes": staged_bytes(view),
+                          "own_stream": rep.stream is not None})
+    return {"partitions": pset.partitions, "replicas": pset.replicas,
+            "views": views,
+            "staged_bytes": sum(v["staged_bytes"] for v in views)}
+
+
+def require_on_card(svc, what: str) -> int:
+    """Every tensor of every view of the service lies on the card."""
+    views = ([v for row in svc.partition_set.table() for v in row]
+             if svc.partition_set is not None else [svc._view])
+    n = 0
+    for view in views:
+        for t in view_tensors(view):
+            if t.device.type != "cuda":
+                raise AssertionError(f"{what}: a view holds a tensor on "
+                                     f"{t.device}")
+            n += 1
+    return n
+
+
+def restage_probe(svc, qv: torch.Tensor, log: list):
+    """Wraps the service's _build_view so that while each replica is
+    marked restaging one scatter of `qv` runs before the view is built:
+    a query routed during the restage, its ids and seconds kept in `log`
+    (the build's own seconds beside them). Returns the undo."""
+    orig = svc._build_view
+
+    def build(*args, **kwargs):
+        t0 = time.perf_counter()
+        _, ids = svc.topk_vectors(qv, k=10)
+        t1 = time.perf_counter()
+        view = orig(*args, **kwargs)
+        log.append({"ids": ids, "probe_s": t1 - t0,
+                    "build_s": time.perf_counter() - t1})
+        return view
+    svc._build_view = build
+    return lambda: delattr(svc, "_build_view")
+
+
+def run_partitioned(device, data, workdir: str, production: dict,
+                    serving: dict) -> dict:
+    """Phase 20: partitioned and replicated serving in one process
+    (infer/partition.py) on config 3's towers (phase 4's weights and
+    vocab). (a) PART_P x PART_R over phase 15's store staged whole, every
+    replica a view of its own: PART_QUERIES corpus queries through
+    search_many and topk_vectors against the single view (ids equal
+    except at ties, scores within 1e-5), through a SearchServer and a
+    SocketSearchClient, simulate()'s partition, merge and critical-path
+    seconds beside the single view's top-k, and each partition's
+    scan_bytes its rows' bytes, summing to the single view's; (b)
+    PART_IVF_P x 1 through the IVF-PQ index over phase 14(b)'s 1M-row
+    int8 store with phase 19's hot-set budget cut by rows: at nprobe 8
+    against the single-view index (no row worse, rows equal counted;
+    with every probed candidate re-ranked, equal except at ties), full
+    probe with a full re-rank equal to exact search, the staged hot bytes
+    summing to at most the budget; (c) a trial of phase 16's mix at
+    PART_QPS over the socket (P x R, on a copy of the store) holding a
+    generation that tombstones every page of the trial queries' top-10s
+    and refresh(): every answer the old table's or the new one's, sheds
+    while replicas restage (one probe scatter held inside each restage),
+    swap_ms and each replica's restage seconds; then at R=1 the old views
+    answer until the publish; (d) replica_shed_queue=0 under a burst:
+    sheds, answers unchanged; (e) one find_qps_at_p99 at the client's p99
+    <= 50 ms, cache off, beside phase 16's P=1 rate, with the card's busy
+    share of one trial; (f) K1 launched 4 times an encode the services
+    dispatched, all on the tensor cores, the same per query as at P=1;
+    (g) every view's tensors on the card, the phase's seconds beside
+    PART_BUDGET_S."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.server import SearchServer
+    from dnn_page_vectors_tpu_torch.infer.transport import SocketSearchClient
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.loadgen import (
+        find_qps_at_p99, make_workload, run_trial)
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    import gc
+    import shutil
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    corpus4, q_tok, p_tok = data
+    path = production["corpus_path"]
+    corpus = JsonlCorpus(path)
+    prod_dir = os.path.join(workdir, "store_production")
+    big_dir = os.path.join(workdir, "ivf_big_pq")
+
+    def config(partitions=1, replicas=1, cache=0, **serve):
+        return get_config("bert_mini_v5p16", {
+            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+            "model.attention": "flash", "serve.query_cache_size": cache,
+            "serve.partitions": partitions, "serve.replicas": replicas,
+            "obs.window_s": PART_RATE_TRIAL_S,
+            **{f"serve.{k}": v for k, v in serve.items()}})
+    cfg = config()
+    m = cfg.model
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    encodes = count_encodes(emb)
+    queries = corpus.query_texts(np.linspace(
+        0, PROD_PAGES - 1, PART_QUERIES).astype(np.int64))
+    distinct = corpus.query_texts(range(SERVE_DISTINCT))
+    rec = {"phase": "partitioned", "config": cfg.name, **widths(cfg),
+           "store_vectors": PROD_PAGES, "partitions": PART_P,
+           "replicas": PART_R, "queries": PART_QUERIES}
+    services, servers, clients = [], [], []
+
+    def service(c, directory=prod_dir, corp=corpus):
+        svc = SearchService(c, emb, corp, VectorStore(directory))
+        services.append(svc)
+        return svc
+
+    def serve(svc):
+        svc.start_batcher()
+        server = SearchServer(svc, executor_workers=SERVE_LOAD_WORKERS)
+        server.start_background()
+        servers.append(server)
+        client = SocketSearchClient(server.host, server.port)
+        clients.append(client)
+        return client
+
+    def close(*svcs):
+        for svc in svcs:
+            svc.close()
+        torch.cuda.empty_cache()
+
+    def workload():
+        return make_workload("poisson", seed=SERVE_SEED,
+                             distinct=SERVE_DISTINCT, alpha=SERVE_ALPHA,
+                             profile=((10, None, 1.0),))
+
+    def k1_delta(fn):
+        before = fa.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fa.launches - before
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        # ---- the main path, counted (a)-(e) ---------------------------
+        # (a) exact, P x R over the store staged whole, against one view
+        single = service(config())
+        t0 = time.perf_counter()
+        part = service(config(PART_P, PART_R))
+        stage_s = time.perf_counter() - t0
+        pset = part.partition_set
+        table = partition_record(part)
+        if (pset.partitions, pset.replicas) != (PART_P, PART_R) or \
+                sum(s.rows for s in pset.specs()) != PROD_PAGES:
+            raise AssertionError(f"phase 20 (a): the partition set is "
+                                 f"{table}")
+        emit({"phase": "partitioned_a_views", **table,
+              "stage_s": stage_s, "peak_gb": torch.cuda.max_memory_allocated()
+              / 1e9})
+        times, results = {}, {}
+        for name, svc in (("single", single), ("partitioned", part)):
+            svc.search_many(queries[:8], k=10)       # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[name], k1 = k1_delta(
+                lambda: svc.search_many(queries, k=10))
+            times[name] = {"search_many_ms":
+                           (time.perf_counter() - t0) * 1e3,
+                           "k1_launches": k1}
+        if times["single"]["k1_launches"] != \
+                times["partitioned"]["k1_launches"]:
+            raise AssertionError(f"phase 20 (f): K1 launches per query "
+                                 f"differ with partitions: {times}")
+        ties_many = serve_results_equal(
+            results["partitioned"], results["single"],
+            "phase 20 (a) search_many vs the single view")
+        qv = single.encode_queries(queries)[:PART_QUERIES]
+        s1, i1, scan1 = single._topk_view(single._view, qv, PART_QUERIES,
+                                          10)
+        sp, ip = part.topk_vectors(qv, k=10)
+        ties_raw = ties_only(sp, ip, s1, i1,
+                             "phase 20 (a) topk_vectors vs the single view")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single._topk_view(single._view, qv, PART_QUERIES, 10)
+        single_topk_s = time.perf_counter() - t0
+        sim = pset.simulate(qv, PART_QUERIES, 10)
+        ties_only(sim["scores"], sim["ids"], s1, i1,
+                  "phase 20 (a) simulate vs the single view")
+        row_bytes = single.store.row_bytes
+        want_scan = [s.rows * row_bytes for s in pset.specs()]
+        if sim["scan_bytes"] != want_scan or sum(want_scan) != scan1:
+            raise AssertionError(f"phase 20 (a): scan bytes "
+                                 f"{sim['scan_bytes']}, want {want_scan} "
+                                 f"summing to {scan1}")
+        client = serve(part)
+        wire, local = [], []
+        for q in queries[:PART_SOCKET_QUERIES]:
+            wire.append(client.search(q, k=10))
+            local.append(single.search(q, k=10))
+        if not all(same_results([w], [x]) for w, x in zip(wire, local)):
+            raise AssertionError("phase 20 (a): the socket's answers differ "
+                                 "from the single view's")
+        rec["a_exact"] = {
+            **times, "stage_s": stage_s, "tie_rows_search_many": ties_many,
+            "tie_rows_topk": ties_raw,
+            "single_topk_s": single_topk_s,
+            "partition_seconds": sim["partition_seconds"],
+            "merge_seconds": sim["merge_seconds"],
+            "critical_path_seconds": sim["critical_path_seconds"],
+            "scan_bytes": sim["scan_bytes"], "single_scan_bytes": scan1,
+            "socket_queries": PART_SOCKET_QUERIES,
+            "socket_equal_to_single": True,
+            "staged_bytes": table["staged_bytes"],
+            "staged_bytes_by_view": [v["staged_bytes"]
+                                     for v in table["views"]],
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "partitioned_a_exact", **rec["a_exact"]})
+
+        # (e) the rate at the client's p99 <= 50 ms, cache off, P x R,
+        # after a short profiled trial at the first rate: it warms the
+        # service under load (a first load trial can stall its queue,
+        # PERF.md section 6) and gives the card's busy share
+        t0 = time.perf_counter()
+        warm, busy = busy_share(lambda: run_trial(
+            part, workload(), PART_START_QPS, distinct,
+            duration_s=SERVE_WARM_S, warmup_s=SERVE_WARMUP_S,
+            workers=SERVE_LOAD_WORKERS, client=client))
+        collected = {}
+        with gc_seconds(collected):
+            rep = find_qps_at_p99(
+                part, workload(), distinct, p99_target_ms=SERVE_P99_MS,
+                start=PART_START_QPS, max_load=SERVE_MAX_QPS,
+                iters=SERVE_ITERS, duration_s=PART_RATE_TRIAL_S,
+                warmup_s=SERVE_WARMUP_S, workers=SERVE_LOAD_WORKERS,
+                max_error_rate=SERVE_MAX_ERROR_RATE, client=client,
+                p99_key="client_p99_ms")
+        trials = [trial_line(t) for t in rep["trials"]]
+        if len(trials) > SERVE_MAX_TRIALS:
+            raise AssertionError(f"phase 20 (e): {len(trials)} trials")
+        best = max((t for t in rep["trials"] if t["met"]),
+                   key=lambda t: t["achieved_qps"], default=None)
+        p1 = serving["d_load"]["off"]
+        rec["e_rate"] = {
+            "qps_at_p99": rep["qps_at_p99"], "target_met": best is not None,
+            "p99_target_ms": SERVE_P99_MS, "p99_judged_on": "client_p99_ms",
+            "trials": trials, "at_rate": trial_line(best) if best else None,
+            "warm_trial": trial_line(warm, busy),
+            "card_busy_share_at_start_qps": busy,
+            "search_gc_s": collected["gc_s"],
+            "search_gc_full": collected["gc_full"],
+            "phase16_p1_qps_at_p99": p1["qps_at_p99"],
+            "phase16_p1_qps_at_p99_runs": p1["qps_at_p99_runs"],
+            "replica_shed": part.replica_shed,
+            "seconds": time.perf_counter() - t0,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "partitioned_e_rate", **rec["e_rate"]})
+        rec["a_exact"]["routing"] = part.metrics()["partitions"]
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.close()
+        clients.clear()
+        servers.clear()
+        rec["on_card_tensors"] = require_on_card(part, "phase 20 (a)")
+        close(single, part)
+
+        # (b) the IVF-PQ index, P x 1, phase 19's hot budget cut by rows
+        big = {"data.num_pages": N_PAGES, "eval.store_shard_size": 65_536,
+               "eval.store_dtype": "int8", "serve.pq_m": IVF_PQ_M}
+
+        def ivf_config(partitions, **serve):
+            return get_config("bert_mini_v5p16", {
+                **big, "model.attention": "flash",
+                "serve.query_cache_size": 0, "serve.index": "ivf",
+                "serve.nprobe": 8, "serve.partitions": partitions,
+                **{f"serve.{k}": v for k, v in serve.items()}})
+        hot_gb = FILT_HOT_BUDGET / 2 ** 30
+        secs = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            return out
+        ivf1, ivfp = timed("open_s", lambda: (
+            service(ivf_config(1, hot_postings_gb=hot_gb), big_dir, corpus4),
+            service(ivf_config(PART_IVF_P, hot_postings_gb=hot_gb), big_dir,
+                    corpus4)))
+        bq = [corpus4.query_text(int(i)) for i in np.linspace(
+            0, N_PAGES - 1, PART_QUERIES).astype(np.int64)]
+        bqv = ivf1.encode_queries(bq)[:PART_QUERIES]
+        hot = [rep.view.index._hot for rep in
+               (reps[0] for reps in ivfp.partition_set._parts)]
+        hot_booked = sum(h["bytes"] for h in hot if h is not None)
+        if not 0 < hot_booked <= FILT_HOT_BUDGET:
+            raise AssertionError(f"phase 20 (b): the partitions staged "
+                                 f"{hot_booked} B of a {FILT_HOT_BUDGET} B "
+                                 "budget")
+        s1, i1 = timed("single_s", lambda: ivf1.topk_vectors(
+            bqv, k=10, nprobe=8))
+        sp, ip = timed("partitioned_s", lambda: ivfp.topk_vectors(
+            bqv, k=10, nprobe=8))
+        worse = ((sp < s1 - SWEEP_SCORE_TOL) & np.isfinite(s1)).any(axis=1)
+        if worse.any():
+            raise AssertionError(f"phase 20 (b): {int(worse.sum())} rows "
+                                 "rank worse than the single-view index")
+        same_rows = sum(
+            set(a.tolist()) == set(b.tolist())
+            or np.abs(x - y).max() <= TIE_SCORE_TOL
+            for a, b, x, y in zip(ip, i1, sp, s1))
+        if ivfp.ann_fallbacks or ivf1.ann_fallbacks:
+            raise AssertionError("phase 20 (b): an exact fallback on the "
+                                 "index path")
+        hot_on_card = sum(hot_bytes_on_card(rep.view.index)
+                          for reps in ivfp.partition_set._parts
+                          for rep in reps if rep.view.index._hot)
+        b_table = partition_record(ivfp)
+        nlist = ivf1.index.nlist
+        # a re-rank depth that keeps every candidate of 8 probed lists,
+        # and one that keeps every row of a partition
+        r8 = int(np.sort(ivf1.index.list_sizes)[-8:].sum())
+        r_part = max(s.rows for s in ivfp.partition_set.specs())
+        rec["on_card_tensors"] += require_on_card(ivfp, "phase 20 (b)")
+        close(ivf1, ivfp)
+        exact = service(get_config("bert_mini_v5p16", {
+            **big, "model.attention": "flash",
+            "serve.query_cache_size": 0}), big_dir, corpus4)
+        ex_s, ex_i = timed("exact_s", lambda: exact.topk_vectors(bqv, k=10))
+        close(exact)
+
+        def recall(ids):
+            return float(np.mean([len(set(g.tolist()) & set(w.tolist()))
+                                  / 10 for g, w in zip(ids, ex_i)]))
+        all1 = service(ivf_config(1, pq_rerank=r8), big_dir, corpus4)
+        allp = service(ivf_config(PART_IVF_P, pq_rerank=r8), big_dir,
+                       corpus4)
+        a1 = timed("every_candidate_single_s",
+                   lambda: all1.topk_vectors(bqv, k=10, nprobe=8))
+        ap = timed("every_candidate_partitioned_s",
+                   lambda: allp.topk_vectors(bqv, k=10, nprobe=8))
+        ties_all8 = ties_only(*ap, *a1, "phase 20 (b) nprobe 8, every "
+                              "candidate re-ranked, vs the single view")
+        close(all1, allp)
+        nck = PART_FULL_PROBE_QUERIES
+        fullp = service(ivf_config(PART_IVF_P, pq_rerank=r_part), big_dir,
+                        corpus4)
+        fp = timed("full_probe_s", lambda: fullp.topk_vectors(
+            bqv[:nck], k=10, nprobe=nlist))
+        ties_full = ties_only(*fp, ex_s[:nck], ex_i[:nck],
+                              "phase 20 (b) full probe vs exact")
+        close(fullp)
+        rec["b_ivf"] = {
+            "partitions": PART_IVF_P, "nprobe": 8, "nlist": nlist,
+            "hot_budget_bytes": FILT_HOT_BUDGET,
+            "hot_booked_bytes": hot_booked,
+            "hot_booked_by_partition": [h["bytes"] if h else 0 for h in hot],
+            "hot_rows_by_partition": [h["rows"] if h else 0 for h in hot],
+            "hot_bytes_on_card": hot_on_card,
+            "rows_by_partition": [v["rows"] for v in b_table["views"]],
+            "rows_equal_to_single_view": int(same_rows),
+            "rows_worse_than_single_view": 0,
+            "recall_vs_exact": {"single": recall(i1),
+                                "partitioned": recall(ip)},
+            "rerank_every_candidate": r8,
+            "tie_rows_every_candidate_reranked": ties_all8,
+            "full_probe_queries": nck, "full_probe_rerank": r_part,
+            "tie_rows_full_probe": ties_full, "seconds": secs,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "partitioned_b_ivf", **rec["b_ivf"]})
+
+        # (c) a rolling refresh under load over the socket, on a copy
+        cdir = os.path.join(workdir, "store_partitioned")
+        t0 = time.perf_counter()
+        copy_store(VectorStore(prod_dir), cdir)
+        copy_s = time.perf_counter() - t0
+        svc = service(config(PART_P, PART_R, cache=SERVE_CACHE), cdir)
+        sched = workload().schedule(SERVE_WARMUP_S + PART_MUT_TRIAL_S,
+                                    PART_QPS)
+        texts = sorted({distinct[r.query_id % len(distinct)]
+                        for _, r in sched})
+        old = dict(zip(texts, svc.search_many(texts, k=10)))
+        dead = sorted({r["page_id"] for hits in old.values() for r in hits})
+        probe_qv = svc.encode_queries(texts[:PART_PROBES])[:PART_PROBES]
+        _, probe_old = svc.topk_vectors(probe_qv, k=10)
+        probes: list = []
+        undo = restage_probe(svc, probe_qv, probes)
+        rclient = RecordingClient(serve(svc))
+
+        def mutate():
+            # a generation of tombstones alone (phase 15's store carries
+            # no model stamp, which append_corpus needs)
+            t = time.perf_counter()
+            VectorStore(cdir).begin_generation(tombstones=dead).commit()
+            return time.perf_counter() - t, svc.refresh()
+        mut = OneShotMutator("tombstone_refresh", mutate,
+                             SERVE_WARMUP_S + PART_FIRE_S)
+        tr = run_trial(svc, workload(), PART_QPS, distinct,
+                       duration_s=PART_MUT_TRIAL_S, warmup_s=SERVE_WARMUP_S,
+                       workers=SERVE_LOAD_WORKERS, client=rclient,
+                       mutator=mut)
+        mut.join()
+        undo()
+        if mut.result is None or tr["errors"]:
+            raise AssertionError(f"phase 20 (c): the mutation or the trial "
+                                 f"failed: {mut.errors}, {tr['errors']} "
+                                 "errors")
+        append_s, info = mut.result
+        new = dict(zip(texts, svc.search_many(texts, k=10)))
+        if any(r["page_id"] in set(dead) for h in new.values() for r in h):
+            raise AssertionError("phase 20 (c): a dead page served after "
+                                 "the refresh")
+        verdict = {"old": 0, "new": 0}
+        for q, hits in rclient.answers:
+            is_old, is_new = same_results([hits], [old[q]]), \
+                same_results([hits], [new[q]])
+            if not (is_old or is_new):
+                raise AssertionError(f"phase 20 (c): a mixed result set "
+                                     f"for {q!r}: {hits}")
+            verdict["old" if is_old else "new"] += 1
+        for p in probes:
+            if not np.array_equal(p["ids"], probe_old):
+                raise AssertionError("phase 20 (c): a query routed during a "
+                                     "restage saw the new generation")
+        if svc.replica_shed == 0:
+            raise AssertionError("phase 20 (c): no replica shed while the "
+                                 "replicas restaged")
+        restage = [{"partition": p["partition"], "rows": p["rows"],
+                    "restage_ms": p["restage_ms"]} for p in
+                   info["partitions"]]
+        rec["c_refresh"] = {
+            "qps": PART_QPS, "trial_s": PART_MUT_TRIAL_S,
+            "copy_store_s": copy_s, "tombstoned": len(dead),
+            "generation_s": append_s, "swap_ms": info["swap_ms"],
+            "refresh_seconds": info["refresh_seconds"],
+            "restage": restage,
+            "restage_build_s": [p["build_s"] for p in probes],
+            "restage_probe_s": [p["probe_s"] for p in probes],
+            "answers": verdict, "distinct_queries": len(texts),
+            "replica_shed": svc.replica_shed,
+            "shed_events": len(svc.registry.events("replica_shed")),
+            "mutation_done_at_s": mut.done_at_s,
+            "trial_window_s": SERVE_WARMUP_S + PART_MUT_TRIAL_S,
+            "trial": trial_line(tr), "store_generation":
+            info["store_generation"], "at_s": time.perf_counter() - t_phase}
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.close()
+        clients.clear()
+        servers.clear()
+        rec["on_card_tensors"] += require_on_card(svc, "phase 20 (c)")
+        close(svc)
+        # R=1: the old views answer until the publish
+        svc1 = service(config(PART_P, 1), cdir)
+        before = svc1.topk_vectors(probe_qv, k=10)[1]
+        probes1: list = []
+        undo = restage_probe(svc1, probe_qv, probes1)
+        VectorStore(cdir).begin_generation(
+            tombstones=sorted(set(before[:, 0].tolist()))).commit()
+        info1 = svc1.refresh()
+        undo()
+        after = svc1.topk_vectors(probe_qv, k=10)[1]
+        if not (len(probes1) == PART_P and all(
+                np.array_equal(p["ids"], before) for p in probes1)
+                and svc1.replica_shed == 0
+                and not set(before[:, 0].tolist()) & set(after.ravel())):
+            raise AssertionError("phase 20 (c): at R=1 the old views did "
+                                 "not serve until the publish")
+        rec["c_refresh"]["r1"] = {
+            "probes_during_restage": len(probes1), "replica_shed": 0,
+            "swap_ms": info1["swap_ms"],
+            "restage_ms": [p["restage_ms"] for p in info1["partitions"]]}
+        emit({"phase": "partitioned_c_refresh", **rec["c_refresh"]})
+        close(svc1)
+
+        # (d) the queue budget at 0 under a burst: sheds, same answers
+        svcd = service(config(PART_P, PART_R, replica_shed_queue=0))
+        base_s, base_i = svcd.topk_vectors(qv, k=10)
+        rounds = 0
+        ties_d = 0
+        while rounds < 3 and svcd.replica_shed == 0:
+            rounds += 1
+            with ThreadPoolExecutor(PART_BURST_THREADS) as pool:
+                got = list(pool.map(
+                    lambda j: svcd.topk_vectors(qv[j: j + 1], k=10),
+                    [j % PART_QUERIES for j in range(PART_BURST_CALLS)]))
+            for j, (s, i) in enumerate(got):
+                r = j % PART_QUERIES
+                ties_d += ties_only(s, i, base_s[r: r + 1], base_i[r: r + 1],
+                                    "phase 20 (d) under the burst")
+        if svcd.replica_shed == 0:
+            raise AssertionError("phase 20 (d): no shed at "
+                                 "replica_shed_queue=0 under a burst")
+        reasons = sorted({e["attrs"]["reason"] for e in
+                          svcd.registry.events("replica_shed")})
+        rec["d_queue_shed"] = {
+            "threads": PART_BURST_THREADS, "calls": PART_BURST_CALLS,
+            "rounds": rounds, "replica_shed": svcd.replica_shed,
+            "reasons": reasons, "tie_rows": ties_d,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "partitioned_d_queue_shed", **rec["d_queue_shed"]})
+        close(svcd)
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.close()
+        for svc_ in services:
+            svc_.close()
+        gc.unfreeze()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    dispatched = sum(s.encodes for s in services)
+    want = expected_launches(dispatched * m.num_layers, 0)
+    if counts != want or encodes["page"] or encodes["query"] != dispatched:
+        raise AssertionError(f"phase 20 launched {counts}, want {want} "
+                             f"({dispatched} query encodes; the embedder "
+                             f"counted {encodes})")
+    retries = sum(s.batch_retries for s in services)
+    if retries:
+        raise AssertionError(f"phase 20: the batcher retried {retries}")
+    shutil.rmtree(os.path.join(workdir, "store_partitioned"),
+                  ignore_errors=True)
+    del services
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    rec.update({
+        "encodes": dispatched, "k1_launches": counts["launches"],
+        "k1_launches_tensor_core": counts["launches_tc"],
+        "k1_launches_per_encode": counts["launches"] / max(dispatched, 1),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "seconds": seconds, "budget_s": PART_BUDGET_S,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
+    emit({k: v for k, v in rec.items()
+          if k not in ("a_exact", "b_ivf", "c_refresh", "d_queue_shed",
+                       "e_rate")})
+    if seconds > PART_BUDGET_S:
+        raise AssertionError(f"phase 20 took {seconds:.1f} s, over its "
+                             f"{PART_BUDGET_S} s budget")
+    return rec
+
+
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
                 "flash_bwd_dq_tc_kernel": ("seg",),
@@ -5937,7 +6628,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-19; fills `report` and returns the `kernels` line's
+    """Phases 2-20; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -6094,6 +6785,12 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
             report["serving"] = run_serving(device, bert, tmp,
                                             report["production"])
             done("serving")
+            # phase 20: partitioned and replicated serving over phase 15's
+            # store and corpus (a copy of the store for its refresh) and
+            # phase 14(b)'s 1M-row index
+            report["partitioned"] = run_partitioned(
+                device, bert, tmp, report["production"], report["serving"])
+            done("partitioned")
             report["updates"] = run_updates(device, bert, tmp,
                                             report["production"])
             done("updates")
@@ -6152,7 +6849,8 @@ def kernel_entries(report: dict) -> list:
              "live_updates": report["updates"]["k1_launches"],
              "migration_and_maintenance": report["migration"][
                  "k1_launches"],
-             "filtered_and_hot_set": report["filtered"]["k1_launches"]}
+             "filtered_and_hot_set": report["filtered"]["k1_launches"],
+             "partitioned_serving": report["partitioned"]["k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -6180,6 +6878,8 @@ def kernel_entries(report: dict) -> list:
                "migration_and_maintenance": report["migration"][
                    "k1_launches_tensor_core"],
                "filtered_and_hot_set": report["filtered"][
+                   "k1_launches_tensor_core"],
+               "partitioned_serving": report["partitioned"][
                    "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
@@ -6538,6 +7238,11 @@ def main() -> int:
             train_tokenizers, (data_config(KIM, WORD_VOCAB_PAGES),))
         kernels = run_phases(device, report, tok_pool, mt5_tok, word_tok,
                              args.parent)
+    except BaseException:
+        # where a failed run spent its time: the phases that ended
+        emit({"phase": "timeline", "seconds_at_end_of":
+              report.get("timeline"), "failed": True})
+        raise
     finally:
         tok_pool.terminate()
         tok_pool.join()

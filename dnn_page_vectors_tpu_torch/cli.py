@@ -12,6 +12,8 @@ commands of the JAX package's CLI.
       --workdir W --query "some text" | --queries FILE | --interactive
   python -m dnn_page_vectors_tpu_torch.cli loadtest --config cdssm_toy \\
       --workdir W --transport socket --shape poisson --p99-ms 50
+  python -m dnn_page_vectors_tpu_torch.cli search --config cdssm_toy \\
+      --workdir W --query "some text" --partitions 4 --replicas 2
   python -m dnn_page_vectors_tpu_torch.cli serve-metrics --workdir W [--json]
   python -m dnn_page_vectors_tpu_torch.cli trace --workdir W --query TEXT
   python -m dnn_page_vectors_tpu_torch.cli init-store --config cdssm_toy \
@@ -70,9 +72,18 @@ creates the store's attribute table first), ``search --filter EXPR``
 keeps the results whose word matches, and ``loadtest --filters`` mixes
 seeded filtered queries into the load.
 
-The JAX CLI's other commands (``partition-worker``, ``lint``) exit
-non-zero with a message naming the ROADMAP.md item that ports them; none
-runs anything in their place.
+Partitioned serving (the JAX CLI's flags): ``search`` and ``loadtest``
+take ``--partitions P`` and ``--replicas R`` (``serve.partitions`` /
+``serve.replicas``), served in process by a PartitionSet: P contiguous
+shard ranges, R replicas of each, one scatter-gather; ``loadtest`` then
+reports the partition block (``serve_partitions``, ``serve_replicas``,
+``replica_shed``, ``partition_degraded``, ``partitions``).
+
+What the JAX CLI does in processes of its own exits non-zero naming the
+ROADMAP.md item that ports it, and runs nothing in its place: the
+``partition-worker`` command, ``loadtest --transport socket`` with P x R
+above 1 (JAX spawns partition workers behind a gateway there) and
+``--front-ends`` above 1 (item 7.4b); ``lint`` (item 8).
 """
 from __future__ import annotations
 
@@ -89,7 +100,8 @@ PORTED = ("configs", "train", "embed", "eval", "mine", "pipeline", "search",
           "reset-store", "append", "refresh", "migrate", "index", "maintain")
 # command -> (ROADMAP.md queue 1 item, what it needs)
 NOT_PORTED = {
-    "partition-worker": ("7.4", "partitioned serving"),
+    "partition-worker": ("7.4b", "the partition workers behind the "
+                         "gateway"),
     "lint": (8, "graftcheck over the port"),
 }
 
@@ -102,7 +114,7 @@ def _parse_overrides(pairs: Optional[List[str]]) -> Dict[str, object]:
     return out
 
 
-def _not_ported(what: str, item: int, need: str) -> SystemExit:
+def _not_ported(what: str, item, need: str) -> SystemExit:
     return SystemExit(
         f"{what} is not ported to the PyTorch package yet: it needs {need} "
         f"(ROADMAP.md queue 1, item {item})")
@@ -155,16 +167,19 @@ SERVING = ("search", "loadtest", "serve-metrics", "trace")
 
 def _refuse_unported_serving(args) -> None:
     """The serving flags whose parts are a later slice exit naming their
-    ROADMAP.md item; none runs anything in their place."""
+    ROADMAP.md item; none runs anything in their place. Partitions and
+    replicas serve in process; over the socket the JAX CLI runs them as
+    partition workers behind a gateway, which is item 7.4b."""
     if args.command not in SERVING:
         return
-    if (args.partitions or 1) > 1 or (args.replicas or 1) > 1:
-        raise _not_ported("partitioned and replicated serving "
-                          "(--partitions, --replicas)", 7,
-                          "infer/partition.py and partition_host.py")
     if args.front_ends > 1:
-        raise _not_ported("--front-ends > 1", 7,
-                          "the gateway and the partition workers")
+        raise _not_ported("--front-ends > 1", "7.4b",
+                          "several front ends over one fleet")
+    if (args.transport == "socket"
+            and (args.partitions or 1) * (args.replicas or 1) > 1):
+        raise _not_ported("--transport socket with --partitions or "
+                          "--replicas", "7.4b",
+                          "the partition workers behind the gateway")
 
 
 def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
@@ -359,6 +374,11 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
             for name, pred, w in scen]
     if "result_cache" in final:
         report["result_cache"] = final["result_cache"]
+    if svc.partition_set is not None:
+        # the partitioned topology and its routing health
+        report.update({key: final[key] for key in (
+            "serve_partitions", "serve_replicas", "replica_shed",
+            "partition_degraded", "partitions")})
     report.update({
         "store_vectors": store.num_vectors, "query_batch": svc.query_batch,
         "k": k, "serve_index": cfg.serve.index,
@@ -705,10 +725,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--front-ends", dest="front_ends", type=int, default=1,
                     help="loadtest: socket front ends (1; more is not "
                          "ported)")
-    ap.add_argument("--partitions", type=int, default=None,
-                    help="loadtest / search: serve partitions (not ported)")
-    ap.add_argument("--replicas", type=int, default=None,
-                    help="loadtest / search: replicas (not ported)")
+    ap.add_argument("--partitions", type=int, default=None, metavar="P",
+                    help="loadtest / search: serve.partitions, P "
+                         "contiguous partitions of the store served in "
+                         "process (--transport socket with them is not "
+                         "ported)")
+    ap.add_argument("--replicas", type=int, default=None, metavar="R",
+                    help="loadtest / search: serve.replicas, R replicas "
+                         "of every partition")
     ap.add_argument("--filters", dest="lt_filters", action="store_true",
                     help="loadtest: mix seeded filtered queries into the "
                          "workload (one predicate scenario a request over "
@@ -753,6 +777,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         overrides.update({"serve.index": "ivf", "serve.nprobe": args.nprobe})
     if args.result_cache is not None:
         overrides["serve.result_cache"] = args.result_cache == "on"
+    if args.partitions is not None:
+        overrides["serve.partitions"] = max(1, args.partitions)
+    if args.replicas is not None:
+        overrides["serve.replicas"] = max(1, args.replicas)
     cfg = get_config(args.config, overrides)
     from dnn_page_vectors_tpu_torch.utils import faults
     faults.install_from_config(cfg)

@@ -149,6 +149,20 @@ class ServeConfig:
     # at view build (IVFIndex.stage_hot), so they need no host gather; the
     # other lists keep the mmap path. 0 = off
     hot_postings_gb: float = 0.0
+    # partitioned serving (infer/partition.py): >1 splits the store's
+    # shard table into this many contiguous partitions (clamped to the
+    # shard count), each owning its shard range, its slice of the IVF
+    # posting files and its cut of hot_postings_gb; search_many encodes
+    # once and scatter-gathers. 1 (with replicas=1) is the single view
+    partitions: int = 1
+    # R copies of every partition, each a worker thread with a view of its
+    # own, behind health-based routing: a replica that is restaging,
+    # degraded (the streaming sweep) or past its queue budget sheds to a
+    # sibling (replica_shed)
+    replicas: int = 1
+    # requests in flight past which a replica stops being preferred (only a
+    # routing preference: with every replica over it one still serves)
+    replica_shed_queue: int = 8
     # filtered retrieval: serve attribute predicates (index/attrs.py) and
     # confirm FLAG_FILTERS on the socket; off, a filtered frame is refused
     filters: bool = True

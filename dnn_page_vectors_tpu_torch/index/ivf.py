@@ -67,9 +67,11 @@ with no host gather (a predicate masks its rows on the card); the other
 lists keep the mmap gather, and the two sets of ADC survivors merge
 before the exact re-rank, so the results are the mmap path's.
 
-Not ported yet, raising NotImplementedError naming its ROADMAP.md item:
-``partition_view`` (partitioned serving, 7.4). The index's
-fault-injection hooks are item 8.
+Partitioned serving: ``partition_view(shard_indices)`` restricts the
+index to one partition's shards (their posting files only, list counts of
+their own), over the same manifest, centroids and codec; the service
+opens the index once a view and takes one partition's view of it. The
+index's fault-injection hooks are item 8 of ROADMAP.md queue 1.
 """
 from __future__ import annotations
 
@@ -133,11 +135,6 @@ def _atomic_dump(obj, path: str) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet ({item} of ROADMAP.md queue 1)")
 
 
 class IVFIndex:
@@ -589,11 +586,21 @@ class IVFIndex:
         return {"hot_lists": int(resident.sum()), "hot_rows": n,
                 "hot_bytes": used, "hot_by_popularity": by_popularity}
 
-    # -- not ported yet ----------------------------------------------------
-    def partition_view(self, shard_indices):
-        """A partition's view of the index."""
-        _unported("IVFIndex.partition_view (partitioned serving)",
-                  "item 7.4")
+    # -- partitioned serving (infer/partition.py) -------------------------
+    def partition_view(self, shard_indices) -> "IVFIndex":
+        """A serving view of this index restricted to one partition's
+        shard range: the same manifest, centroids and PQ codec, but only
+        the listed shards' posting files, so ``search`` gathers candidates
+        from exactly the partition's slice of the inverted file and
+        ``stage_hot`` pins only its rows. The centroid scan stays global
+        (the [nlist, D] matrix is small and the same everywhere); the list
+        accounting (``list_sizes``, ``stats``, ``scan_counts``) is fresh
+        and local to the partition. The mmap caches are lazy per view, so
+        a partition never touches a sibling's shard files."""
+        keep = {int(s) for s in shard_indices}
+        return IVFIndex(self.store, self.manifest, self.centroids,
+                        {s: p for s, p in self._postings.items()
+                         if s in keep}, pq=self.pq, device=self.device)
 
     # -- open / verify -----------------------------------------------------
     @classmethod

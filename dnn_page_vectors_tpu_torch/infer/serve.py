@@ -112,9 +112,26 @@ replaces; a stage that fails raises (no quiet fall back to the mmap
 path). ``restage_hot()`` re-ranks and re-stages the current view's hot
 set (a ``hot_restaged`` event).
 
-Left for later slices, each named by its ROADMAP.md queue 1 item:
-partitions, replicas and the fleet result cache (7.4); fault injection
-on the wire and the degraded mode (8).
+Partitioned and replicated serving (infer/partition.py): with
+``serve.partitions`` or ``serve.replicas`` above 1 the service holds a
+``PartitionSet`` of P contiguous shard ranges x R replicas, each replica a
+view of its own (``_build_view(entries=, hot_gb=)``: its rows staged, its
+``IVFIndex.partition_view`` and its cut of the hot set). ``search_many``
+encodes a bucket once (both stamps while a migration runs), snapshots the
+published table, and scatters the matrix to one routed replica a
+partition; the partitions' top-k's fold through ``merge_partition_topk``.
+A predicate rides the scatter unchanged. ``refresh()`` rebuilds the table
+partition by partition and publishes it with one assignment (its info
+gains ``partitions``: each replica's restage milliseconds), and
+``metrics()`` gains the partition block (``serve_partitions``,
+``serve_replicas``, ``replica_shed``, ``partition_degraded``,
+``partitions``).
+
+Left for later slices, each named by its ROADMAP.md queue 1 item: the
+fleet over the wire (7.4b: the worker gateway, ``PartitionWorker``, the
+T_REGISTER / T_HEARTBEAT / T_BYE / T_REFRESH frames, hedging, circuit
+breakers, resplit and drain, several front ends and the fleet result
+cache); fault injection on the wire and the degraded mode (8).
 """
 from __future__ import annotations
 
@@ -360,23 +377,31 @@ class _ServeView:
     the view once, so everything it reads belongs together; ``refresh()``
     replaces the whole view with one reference assignment."""
 
-    __slots__ = ("store", "entries", "generation", "docs_appended",
-                 "tombstoned", "num_vectors", "maint_stats", "steps",
-                 "pages", "scales", "page_ids", "alive", "dead_rows", "buf",
-                 "scale_buf", "keys", "slots", "row_stamp", "runs",
-                 "top_gen", "stage_info", "index", "index_error",
-                 "index_info")
+    __slots__ = ("store", "entries", "restricted", "generation",
+                 "docs_appended", "tombstoned", "num_vectors", "maint_stats",
+                 "steps", "pages", "scales", "page_ids", "alive",
+                 "dead_rows", "buf", "scale_buf", "keys", "slots",
+                 "row_stamp", "runs", "top_gen", "stage_info", "index",
+                 "index_error", "index_info")
 
-    def __init__(self, store: VectorStore):
+    def __init__(self, store: VectorStore,
+                 entries: Optional[List[Dict]] = None):
         self.store = store
-        self.entries: List[Dict] = store.shards()
+        # the whole table, or (partitioned serving) one partition's
+        # contiguous shard range: `restricted` keeps the staging, the
+        # streaming sweep and the index to these entries
+        self.entries: List[Dict] = (store.shards() if entries is None
+                                    else list(entries))
+        self.restricted = entries is not None
         self.generation = store.generation
         self.docs_appended = store.appended_vectors()
         self.tombstoned = store.tombstoned_count()
         self.num_vectors = store.num_vectors
         self.maint_stats: Dict = store.maintenance_stats()
         # the distinct stamps of the table, ascending: two mid-migration,
-        # and then every query is encoded once per stamp
+        # and then every query is encoded once per stamp; store-wide even
+        # on a restricted view, so every partition splits a stacked query
+        # matrix in the same block order
         self.steps: List[int] = store.model_steps()
         self.pages: Optional[torch.Tensor] = None    # [N, D] on the card
         self.scales: Optional[torch.Tensor] = None   # [N] (int8 stores)
@@ -424,6 +449,21 @@ def _stamp_runs(row_stamp: np.ndarray) -> List[tuple]:
     starts = np.concatenate([[0], cut])
     ends = np.concatenate([cut, [n]])
     return [(int(a), int(b), int(row_stamp[a])) for a, b in zip(starts, ends)]
+
+
+def _view_rows(view: _ServeView) -> int:
+    """The rows a view answers from: the store's live rows, or on a
+    restricted view its entries' rows (tombstones masked at read time)."""
+    if view.restricted:
+        return sum(int(e["count"]) for e in view.entries)
+    return int(view.num_vectors)
+
+
+def _live_rows(view: _ServeView) -> int:
+    """A view's live rows: staged less masked dead, else `_view_rows`."""
+    if view.pages is not None:
+        return int(view.page_ids.shape[0]) - view.dead_rows
+    return _view_rows(view)
 
 
 class SearchService:
@@ -519,6 +559,10 @@ class SearchService:
         # budget
         self._filter_escalate = serve.filter_escalate
         self._hot_gb = serve.hot_postings_gb
+        # partitioned and replicated serving (infer/partition.py): P x R
+        # workers behind the scatter-gather; 1 x 1 is the single view
+        self._m_replica_shed = reg.counter("serve.replica_shed")
+        self._m_partition_degraded = reg.counter("serve.partition_degraded")
         # the admission clock is injectable so deadlines are testable on a
         # fake clock; the rest of the query path reads time.perf_counter
         self._clock = clock if clock is not None else time.perf_counter
@@ -544,7 +588,19 @@ class SearchService:
         self.query_batch = query_batch or 8
         self.warm_latency_ms: Optional[float] = None
         self._preload_gb = preload_hbm_gb
-        self._view = self._build_view(store)
+        self._pset = None
+        if serve.partitions * serve.replicas > 1:
+            from dnn_page_vectors_tpu_torch.infer.partition import (
+                PartitionSet)
+            self._pset = PartitionSet(self, store,
+                                      partitions=serve.partitions,
+                                      replicas=serve.replicas,
+                                      shed_queue=serve.replica_shed_queue)
+            # the control view: partition 0's primary (its store-level
+            # fields are the same on every view of the table)
+            self._view = self._pset.primary_view()
+        else:
+            self._view = self._build_view(store)
         reg.gauge("serve.preloaded").set(1.0 if self.preloaded else 0.0)
         reg.gauge("serve.store_generation").set(self._view.generation)
         if self._view.index is not None:
@@ -562,12 +618,16 @@ class SearchService:
     # -- the view ----------------------------------------------------------
     def _build_view(self, store: VectorStore,
                     reuse: Optional[_ServeView] = None,
-                    update_index: bool = False) -> _ServeView:
+                    update_index: bool = False,
+                    entries: Optional[List[Dict]] = None,
+                    hot_gb: Optional[float] = None) -> _ServeView:
         """One serving view over `store`: the IVF index (brought up to
         date first with `update_index`), or the store staged when it fits
         the budget (reusing `reuse`'s staged rows where it can), or
-        neither (the streaming sweep)."""
-        view = _ServeView(store)
+        neither (the streaming sweep). Partitioned serving passes one
+        partition's `entries` and its cut `hot_gb` of the hot posting
+        set's budget."""
+        view = _ServeView(store, entries=entries)
         ms = view.maint_stats
         self.registry.gauge("serve.tombstone_density").set(
             ms["tombstone_density"])
@@ -575,7 +635,8 @@ class SearchService:
         self.registry.gauge("serve.reclaimable_bytes").set(
             ms["reclaimable_bytes"])
         if self._serve_index == "ivf":
-            self._attach_index(view, update_index, reuse)
+            self._attach_index(view, update_index, reuse,
+                               self._hot_gb if hot_gb is None else hot_gb)
             if (reuse is not None and reuse.index_error is not None
                     and view.index is not None):
                 self.registry.event("index_restored", {
@@ -583,21 +644,23 @@ class SearchService:
                     "index_generation": view.index.index_generation})
             return view
         # the budget is decided before anything is staged
-        need = view.num_vectors * store.row_bytes
-        if view.num_vectors > 0 and need <= self._preload_gb * 2 ** 30:
+        rows = _view_rows(view)
+        if rows > 0 and rows * store.row_bytes <= self._preload_gb * 2 ** 30:
             self._stage_view(view, reuse)
         return view
 
     def _attach_index(self, view: _ServeView, update_index: bool,
-                      reuse: Optional[_ServeView] = None) -> None:
+                      reuse: Optional[_ServeView] = None,
+                      hot_gb: float = 0.0) -> None:
         """The view's IVF index: IVFIndex.update (incremental or a full
-        rebuild) or IVFIndex.open. An index that cannot serve (unavailable,
-        or an update that raised: the refresh goes on without it) leaves
+        rebuild) or IVFIndex.open, and on a restricted view its partition's
+        ``partition_view``. An index that cannot serve (unavailable, or an
+        update that raised: the refresh goes on without it) leaves
         `index_error` set, and the view answers exactly per request
-        (counted in ann_fallbacks). On a PQ index with
-        ``serve.hot_postings_gb`` the hot posting set is staged, ranked by
-        the popularity window of `reuse`'s index (the traffic did not
-        change with the view); a stage that fails raises."""
+        (counted in ann_fallbacks). On a PQ index with a `hot_gb` budget
+        the hot posting set is staged, ranked by the popularity window of
+        `reuse`'s index (the traffic did not change with the view); a
+        stage that fails raises."""
         dev = self.embedder.device
         sv = self.cfg.serve
         failures = Exception if update_index else IndexUnavailable
@@ -631,14 +694,19 @@ class SearchService:
             print(f"WARNING: IVF index unavailable ({view.index_error}); "
                   "serving the exact path per request", flush=True)
             return
+        if view.restricted:
+            # partitioned serving: this view gathers, scores and stages
+            # only its partition's slice of the inverted file
+            view.index = view.index.partition_view(
+                [e["index"] for e in view.entries])
         idx = view.index
         if (reuse is not None and reuse.index is not None
                 and reuse.index.nlist == idx.nlist):
             idx.scan_counts = reuse.index.scan_counts.copy()
-        if idx.pq is not None and self._hot_gb > 0:
+        if idx.pq is not None and hot_gb > 0:
             # staged per view: a refresh re-opens the index, so the staged
             # codes and their dead-row marks follow the store's generations
-            hot = idx.stage_hot(self._hot_gb * 2 ** 30)
+            hot = idx.stage_hot(hot_gb * 2 ** 30)
             if view.index_info is not None:
                 view.index_info = {**view.index_info, **hot}
 
@@ -847,10 +915,11 @@ class SearchService:
     @property
     def num_vectors(self) -> int:
         """Live rows: the staged rows less the masked dead ones, or the
-        store's rows when nothing is staged."""
-        view = self._view
-        return (int(view.page_ids.shape[0]) - view.dead_rows
-                if view.pages is not None else view.store.num_vectors)
+        store's rows when nothing is staged; partitioned, the sum over the
+        partitions' primary views."""
+        if self._pset is not None:
+            return sum(_live_rows(row[0]) for row in self._pset.table())
+        return _live_rows(self._view)
 
     # -- the hot swap ------------------------------------------------------
     def refresh(self, update_index: Optional[bool] = None) -> Dict:
@@ -869,18 +938,30 @@ class SearchService:
         index_error when they apply) plus ``stage``: the rows and bytes
         the staging moved each way."""
         t0 = time.perf_counter()
+        part_info = None
         with self._refresh_lock:
             old = self._view
             new_store = VectorStore(self.store.directory)
             upd = (self._auto_update_index if update_index is None
                    else update_index)
-            view = self._build_view(new_store, reuse=old, update_index=upd)
-            if view.pages is not None and view.pages.device.type == "cuda":
-                # the copies land before the view is published
-                torch.cuda.synchronize(view.pages.device)
-            t_swap = time.perf_counter()
-            self._view = view    # THE swap: one reference assignment
-            swap_ms = (time.perf_counter() - t_swap) * 1000.0
+            if self._pset is not None:
+                # partitioned: a rolling swap, one partition restaging at a
+                # time while the others serve untouched, the IVF update
+                # once on the first view, one publish of the whole table
+                part_info = self._pset.refresh(new_store, update_index=upd)
+                view = self._pset.primary_view()
+                self._view = view
+                swap_ms = self._pset.last_swap_ms
+            else:
+                view = self._build_view(new_store, reuse=old,
+                                        update_index=upd)
+                if (view.pages is not None
+                        and view.pages.device.type == "cuda"):
+                    # the copies land before the view is published
+                    torch.cuda.synchronize(view.pages.device)
+                t_swap = time.perf_counter()
+                self._view = view    # THE swap: one reference assignment
+                swap_ms = (time.perf_counter() - t_swap) * 1000.0
             self.store = new_store
             self._m_refreshes.inc()
             # the tower adoption: once the migration record is gone the
@@ -905,7 +986,11 @@ class SearchService:
             "refresh_seconds": round(time.perf_counter() - t0, 3),
             "swap_ms": round(swap_ms, 3),
         }
-        if view.stage_info:
+        if part_info is not None:
+            # each partition's rows, shards, and each replica's restage
+            # milliseconds and staging record
+            info["partitions"] = part_info
+        elif view.stage_info:
             info["stage"] = dict(view.stage_info)
         if view.index_info is not None:
             info["index_update"] = view.index_info
@@ -919,9 +1004,9 @@ class SearchService:
                 "from_step": mig.get("from_step"),
                 "to_step": mig.get("to_step"),
                 "shards_migrated": sum(
-                    1 for e in view.entries
+                    1 for e in view.store.shards()
                     if view.store.entry_step(e) == mig.get("to_step")),
-                "shards_total": len(view.entries),
+                "shards_total": len(view.store.shards()),
                 "stamps_serving": list(view.steps)}
         if adopted_step is not None:
             info["migration_adopted_step"] = adopted_step
@@ -944,19 +1029,35 @@ class SearchService:
     def restage_hot(self) -> Dict:
         """Re-rank and re-stage the current view's hot posting set by its
         popularity window (``IVFIndex.stage_hot``, which then halves the
-        window): no store re-open and no view swap. The staged state is
-        published with one assignment, so a search in flight finishes on
-        the residency it captured. Returns the stage_hot summary ({} when
-        there is nothing to restage: exact serving, no PQ index, or no
-        budget) and records a `hot_restaged` event."""
-        view = self._view
-        idx = view.index if view is not None else None
-        if idx is None or idx.pq is None or self._hot_gb <= 0:
-            return {}
+        window), or every view's of a partitioned table: no store re-open
+        and no view swap. The staged state is published with one
+        assignment, so a search in flight finishes on the residency it
+        captured. Returns the stage_hot summary ({} when there is nothing
+        to restage: exact serving, no PQ index, or no budget) and records
+        a `hot_restaged` event."""
+        pset = self._pset
+        views = ([(view, spec.hot_gb)
+                  for spec, row in zip(pset.specs(), pset.table())
+                  for view in row] if pset is not None
+                 else [(self._view, self._hot_gb)])
+        out: Dict = {}
         with self._refresh_lock:
-            hot = idx.stage_hot(self._hot_gb * 2 ** 30)
-        self.registry.event("hot_restaged", dict(hot))
-        return hot
+            for view, gb in views:
+                idx = view.index if view is not None else None
+                if idx is None or idx.pq is None or gb <= 0:
+                    continue
+                # partitioned, each view at its partition's cut of the
+                # budget, and the summary sums them
+                for key, val in idx.stage_hot(gb * 2 ** 30).items():
+                    out[key] = (out.get(key, False) or val
+                                if isinstance(val, bool)
+                                else out.get(key, 0) + val)
+            if out and self.embedder.device.type == "cuda":
+                # the replicas read the staged sets on streams of their own
+                torch.cuda.synchronize(self.embedder.device)
+        if out:
+            self.registry.event("hot_restaged", dict(out))
+        return out
 
     def begin_migration(self, model: torch.nn.Module, step: int) -> None:
         """Attach the TARGET model of a rolling migration as a second query
@@ -1058,6 +1159,23 @@ class SearchService:
     def restage_forced(self) -> int:
         """refresh()es that compacted the staged rows on the card."""
         return self._m_restage_forced.value
+
+    @property
+    def replica_shed(self) -> int:
+        """Requests routed off a partition's primary replica (restaging,
+        degraded or over its queue budget)."""
+        return self._m_replica_shed.value
+
+    @property
+    def partition_degraded_serves(self) -> int:
+        """Requests a partition answered on a degraded replica because
+        every replica of it was degraded."""
+        return self._m_partition_degraded.value
+
+    @property
+    def partition_set(self):
+        """The PartitionSet (None on a single-view service)."""
+        return self._pset
 
     @property
     def deadline_sheds(self) -> int:
@@ -1394,6 +1512,8 @@ class SearchService:
         if self._maintenance is not None:
             self._maintenance.close()
             self._maintenance = None
+        if self._pset is not None:
+            self._pset.close()
         if self._batcher is not None:
             self._batcher.close()
             # the batch sizes outlive the thread
@@ -1447,6 +1567,15 @@ class SearchService:
         if sizes:
             rec["serve_batches"] = len(sizes)
             rec["serve_mean_batch"] = round(sum(sizes) / len(sizes), 2)
+        if self._pset is not None:
+            # the partitioned topology and its routing health: each
+            # partition's and replica's qps, p99, queue, sheds and
+            # degraded serves (the loadtest report reads it as it is)
+            rec["serve_partitions"] = self._pset.partitions
+            rec["serve_replicas"] = self._pset.replicas
+            rec["replica_shed"] = self.replica_shed
+            rec["partition_degraded"] = self.partition_degraded_serves
+            rec["partitions"] = self._pset.stats()
         # the wire block only when there is something in it
         transport: Dict = {}
         if self.wire_bytes:
@@ -1626,12 +1755,15 @@ class SearchService:
                     (time.perf_counter() - t0) * 1000.0, n=n)
                 return cached
             self._m_rcache_misses.inc(miss_n)
-        view = self._view          # one view for the whole call
+        # one view for the whole call; partitioned, one table, whose
+        # partition 0 primary keys the result cache
+        table = self._pset.table() if self._pset is not None else None
+        view = table[0][0] if table is not None else self._view
         t0 = time.perf_counter()
         try:
             with self.tracer.root_or_span("search_many", n_queries=n, k=k):
                 out = self._search_view(view, list(queries), n, k, nprobe,
-                                        predicate=pred)
+                                        predicate=pred, table=table)
         except BaseException:
             if _record:
                 self._m_errors.inc(n)
@@ -1643,15 +1775,23 @@ class SearchService:
         return out
 
     def _search_view(self, view: _ServeView, queries: List[str], n: int,
-                     k: int, nprobe: Optional[int],
-                     predicate=None) -> List[List[Dict]]:
+                     k: int, nprobe: Optional[int], predicate=None,
+                     table: Optional[tuple] = None) -> List[List[Dict]]:
         if predicate is not None:
             # one event a filtered dispatch: its predicate and queries
             self.registry.event("filtered_query", {
                 "predicate": predicate.text[:200], "n_queries": n})
+        # the query is encoded once, before any scatter
         qv = self._embed_queries_cached(view, queries)
-        best_s, best_i, _ = self._topk_view(view, qv, n, k, nprobe,
-                                            predicate=predicate)
+        if table is not None:
+            # partitioned: the matrix goes to one replica per partition of
+            # `table`, each splitting it by its own stamps (_qv_blocks)
+            best_s, best_i = self._pset.topk(qv, n, k, nprobe,
+                                             predicate=predicate,
+                                             table=table)
+        else:
+            best_s, best_i, _ = self._topk_view(view, qv, n, k, nprobe,
+                                                predicate=predicate)
         with self._stage("format"):
             out = [self._format(best_s[i], best_i[i]) for i in range(n)]
         if self._rcache_cap > 0:
@@ -1672,6 +1812,9 @@ class SearchService:
         pred = compile_filters(filters)
         if not isinstance(qv, torch.Tensor):
             qv = np.asarray(qv, np.float32)
+        if self._pset is not None:
+            return self._pset.topk(qv, qv.shape[0], k, nprobe,
+                                   predicate=pred)
         s, i, _ = self._topk_view(self._view, qv, qv.shape[0], k, nprobe,
                                   predicate=pred)
         return s, i
@@ -1733,7 +1876,7 @@ class SearchService:
         if view.pages is None:
             with self._stage("topk", path="streaming"):
                 scores, ids = self._stream_topk(view, blocks, n, k, dev)
-            return scores, ids, view.store.num_vectors * view.store.row_bytes
+            return scores, ids, _view_rows(view) * view.store.row_bytes
         with self._stage("topk", rows=view.num_vectors):
             q = {x: (b[:n].to(dev, torch.float32)
                      if isinstance(b, torch.Tensor)
@@ -1782,7 +1925,9 @@ class SearchService:
             qb = next(iter(blocks.values()))
             return topk_over_store(_host_rows(qb, n), view.store, k=k,
                                    chunk=_TOPK_CHUNK,
-                                   query_batch=_TOPK_ROWS, device=dev)
+                                   query_batch=_TOPK_ROWS,
+                                   entries=(view.entries if view.restricted
+                                            else None), device=dev)
         best_s = np.full((n, k), -np.inf, np.float32)
         best_i = np.full((n, k), -1, np.int64)
         for step in view.steps:

@@ -31,9 +31,12 @@ executor thread with an explicit `tracer.use` hand-off, so the
 micro-batcher's queue_wait and dispatch subtree hang under the socket
 root.
 
-The gateway, the partition workers and the fleet result-cache frames of
-the JAX front end wait for partitioned serving (ROADMAP.md queue 1, item
-7.4).
+A partitioned service (``serve.partitions`` / ``serve.replicas``,
+infer/partition.py) serves here as it does in process: the front end
+calls the service, and the service scatters each bucket to its partition
+replicas. The JAX front end's worker gateway, its partition workers in
+processes of their own, hedging, circuit breakers and the fleet
+result-cache frames wait for ROADMAP.md queue 1, item 7.4b.
 """
 from __future__ import annotations
 

@@ -37,11 +37,13 @@ Message types (the numbers are the JAX package's):
     T_HELLO      capability exchange: the client advertises flags, the
                  server answers with the agreed intersection
 
-The partition-worker frames (T_REGISTER, T_HEARTBEAT, T_BYE, T_REFRESH,
-T_DRAIN) and the fleet result-cache frames (T_CACHE_LOOKUP, T_CACHE_PUT)
-belong to partitioned serving and the fleet, which the port does not have
-yet (ROADMAP.md queue 1, item 7.4): this end rejects them as unknown
-types.
+Partitioned serving runs inside one process (infer/partition.py) and
+needs no frame of its own. The partition-worker frames (T_REGISTER,
+T_HEARTBEAT, T_BYE, T_REFRESH, T_DRAIN) and the fleet result-cache frames
+(T_CACHE_LOOKUP, T_CACHE_PUT) belong to the fleet over the wire, which
+the port does not have yet (ROADMAP.md queue 1, item 7.4b: the gateway,
+PartitionWorker, hedging, circuit breakers, resplit and drain): this end
+rejects them as unknown types.
 Nobody sends a compressed or interned frame a peer did not advertise, so
 raw and compressing peers interoperate.
 

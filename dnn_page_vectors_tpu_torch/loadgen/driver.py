@@ -301,6 +301,13 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
         "events": [{"event": e["event"], "attrs": e["attrs"],
                     "trace_id": e.get("trace_id")} for e in events],
     }
+    if "partitions" in m:
+        # partitioned serving: the per-partition qps/p99/shed block and the
+        # routing counters ride each trial record, so a p99 excursion
+        # points at the partition that shed
+        rec["partitions"] = m["partitions"]
+        rec["replica_shed"] = m.get("replica_shed", 0)
+        rec["partition_degraded"] = m.get("partition_degraded", 0)
     transport1 = m.get("transport")
     if transport1 or sheds:
         # over-the-wire block (the socket front end),

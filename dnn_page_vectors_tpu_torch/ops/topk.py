@@ -7,7 +7,9 @@ scorer's Precision.HIGHEST does) and keeps a running top-k with
 ``torch.topk``, so memory never holds more than one [Bq, chunk] score
 block. Pages may be stored narrow (float16); each chunk is widened to
 float32 as it is scored, which is exact. ``merge_topk_host`` is the host
-merge of two candidate sets, copied from the JAX package.
+merge of two candidate sets, and ``merge_partition_topk`` the balanced
+merge tree of the partitioned scatter-gather over it, both copied from
+the JAX package.
 
 ``topk_over_store`` streams a vector store through ``chunked_topk`` one
 disk shard at a time (each staged at float16, then ``merge_shard_topk``
@@ -108,6 +110,30 @@ def merge_topk_host(best_s: np.ndarray, best_i: np.ndarray,
         pos = np.argsort(-cat_s, axis=1, kind="stable")
     return (np.take_along_axis(cat_s, pos, axis=1),
             np.take_along_axis(cat_i, pos, axis=1))
+
+
+def merge_partition_topk(parts) -> Tuple[np.ndarray, np.ndarray]:
+    """Balanced pairwise merge tree over per-partition top-k candidate
+    sets, the host half of the partitioned scatter-gather
+    (infer/partition.py), copied from the JAX package.
+
+    `parts` is a sequence of (scores [Nq, k], page_ids [Nq, k]), one entry
+    per partition, ids global (-1 = empty slot). Pairs merge through
+    ``merge_topk_host``, log2(P) levels deep, so the merge cost per level
+    stays O(Nq * k) whatever the partition count. With distinct scores
+    the result is a single global top-k over the union."""
+    merged = [(np.asarray(s, np.float32), np.asarray(i, np.int64))
+              for s, i in parts]
+    if not merged:
+        raise ValueError("merge_partition_topk needs at least one partition")
+    while len(merged) > 1:
+        nxt = [merge_topk_host(merged[j][0], merged[j][1],
+                               merged[j + 1][0], merged[j + 1][1])
+               for j in range(0, len(merged) - 1, 2)]
+        if len(merged) % 2:
+            nxt.append(merged[-1])
+        merged = nxt
+    return merged[0]
 
 
 def merge_shard_topk(q: torch.Tensor, pages: torch.Tensor,

@@ -330,14 +330,44 @@ def test_serve_metrics_and_trace(served, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--partitions", "2"), 7), (("--replicas", "2"), 7),
-    (("--front-ends", "2"), 7)])
+    (("--transport", "socket", "--partitions", "2"), "7.4b"),
+    (("--transport", "socket", "--replicas", "2"), "7.4b"),
+    (("--front-ends", "2"), "7.4b")])
 def test_unported_serving_flags_exit_naming_their_item(flags, item, tmp_path):
+    """What the JAX CLI runs as partition workers behind a gateway, or as
+    several front ends, exits naming item 7.4b and runs nothing."""
     with pytest.raises(SystemExit) as ei:
         cli.main(["loadtest", "--workdir", str(tmp_path), "--device", "cpu",
                   *flags])
     assert str(ei.value).endswith(f"(ROADMAP.md queue 1, item {item})")
+    assert ei.value.code not in (0, None)
     assert not os.listdir(tmp_path)
+
+
+def test_partitioned_search_and_loadtest_print_the_single_views(
+        served, capsys, tmp_path):
+    """search --partitions 2 --replicas 2 prints what search prints
+    without them (one-shot: streamed per partition; --queries: staged per
+    replica); loadtest in process with them reports the partition block
+    under the JAX CLI's keys."""
+    wd, ov = served["wd"], served["ov"]
+    flags = ("--partitions", "2", "--replicas", "2")
+    qs = [served["corpus"].query_text(i) for i in (3, 8, 41)]
+    (want,) = _lines(capsys, _argv("search", wd, ov, "--query", qs[0]))
+    (got,) = _lines(capsys, _argv("search", wd, ov, "--query", qs[0],
+                                  *flags))
+    assert got == want
+    path = tmp_path / "q.txt"
+    path.write_text("\n".join(qs) + "\n")
+    want = _lines(capsys, _argv("search", wd, ov, "--queries", str(path)))
+    got = _lines(capsys, _argv("search", wd, ov, "--queries", str(path),
+                               *flags))
+    assert got == want and len(got) == 3
+    rep = _lines(capsys, _argv("loadtest", wd, ov, *LOADTEST, *flags))[-1]
+    assert rep["serve_partitions"] == 2 and rep["serve_replicas"] == 2
+    assert rep["replica_shed"] == 0 and rep["partition_degraded"] == 0
+    assert sum(p["rows"] for p in rep["partitions"]) == 600
+    assert rep["trials"][0]["partitions"][0]["replicas"][0]["replica"] == 0
 
 
 MAINT_OV = {"data.num_pages": 600, "data.trigram_buckets": 1024,

@@ -238,3 +238,36 @@ def test_filtered_modules_are_covered():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.stdout.strip() == "lang==1 []", proc.stdout + proc.stderr
+
+
+def test_partition_modules_are_covered(tmp_path):
+    """The partitioned-serving slice's modules (infer/partition.py,
+    parallel/multihost.py) are among those the checks above walk, import
+    neither jax nor the JAX package on their own (in a fresh
+    interpreter), and the partitioned search runs on cuda unless asked
+    for the CPU."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    for mod in ("infer.partition", "parallel", "parallel.multihost"):
+        assert f"dnn_page_vectors_tpu_torch.{mod}" in names, mod
+    assert {os.path.join("infer", "partition.py"),
+            os.path.join("parallel", "multihost.py")} <= {
+        os.path.relpath(f, PKG) for f in _sources()}
+    code = ("import sys\n"
+            "import dnn_page_vectors_tpu_torch.infer.partition as part\n"
+            "import dnn_page_vectors_tpu_torch.parallel.multihost as mh\n"
+            "print(mh.partition_shard_ranges([1, 1, 1], 2), "
+            "[n for n in sys.modules if any(n == f or "
+            f"n.startswith(f + '.') for f in {FORBIDDEN!r})])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.stdout.strip() == "[(0, 2), (2, 3)] []", \
+        proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately runs there")
+    from dnn_page_vectors_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["search", "--workdir", str(tmp_path / "wd"), "--query",
+                  "x", "--partitions", "2", "--replicas", "2"])

@@ -410,8 +410,9 @@ def test_unported_parts_raise(built):
     filtered search serve (tests/test_torch_filtered.py holds them against
     the JAX package): here, over a store without an attribute table, the
     whole index staged gives the mmap path's results, and lang==0 keeps
-    every row (all-zero words) while lang==1 keeps none. Partitions still
-    raise naming item 7.4."""
+    every row (all-zero words) while lang==1 keeps none. A partition's
+    view holds only its shards' postings (tests/test_torch_partition.py
+    holds it against the JAX package)."""
     from dnn_page_vectors_tpu_torch.index.attrs import Predicate
     store, idx = built["fp16_pq"]["port"]
     same, info = IVFIndex.update(store, device="cpu")
@@ -436,8 +437,9 @@ def test_unported_parts_raise(built):
     _, i1, st1 = idx.search(QUERIES, k=5, nprobe=4,
                             predicate=Predicate.parse("lang==1"))
     assert (i1 == -1).all() and st1["gather_bytes"] == 0
-    with pytest.raises(NotImplementedError, match="item 7.4"):
-        idx.partition_view([0])
+    part = idx.partition_view([0])
+    assert set(part._postings) == {0} and part.pq is idx.pq
+    assert int(part.list_sizes.sum()) == store.shards()[0]["count"]
 
 
 # -- the index behind SearchService, and its faults ---------------------------

@@ -293,9 +293,12 @@ def test_serve_and_obs_knobs_equal_jax():
     # with the JAX package's names and defaults
     for name in ("hot_postings_gb", "filters", "filter_escalate"):
         assert getattr(a.serve, name) == getattr(b.serve, name)
-    # the parts still to port are not knobs yet
-    for name in ("partitions", "replicas", "result_cache_fleet",
-                 "hedge_quantile"):
+    # partitioned serving's knobs (slice 12), the JAX package's names and
+    # defaults
+    for name in ("partitions", "replicas", "replica_shed_queue"):
+        assert getattr(a.serve, name) == getattr(b.serve, name)
+    # the parts still to port (the fleet over the wire) are not knobs yet
+    for name in ("result_cache_fleet", "hedge_quantile"):
         assert not hasattr(a.serve, name)
         with pytest.raises(KeyError, match="not ported"):
             get_config("cdssm_toy", {f"serve.{name}": "2"})
