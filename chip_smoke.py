@@ -50,9 +50,9 @@ Phases, each printing one JSON line:
   6. mT5 serving: config mt5_multilingual at full width (12 layers, d=768,
      12 heads, ff 2048, vocab 250,112, page_len 128, flash attention with
      the T5 relative-position bias) over the 250,112-piece vocab trained
-     on a 300,000-page 4-language corpus; the first 20,000 pages are bulk
-     embedded (dim 768), then the serving checks of phase 4 (12 K1
-     launches per encode);
+     on a 300,000-page 4-language corpus; the first 2,048 pages (cut
+     from 20,000 for the run's time) are bulk embedded (dim 768), then
+     the serving checks of phase 4 (12 K1 launches per encode);
   7. mT5 training: phase 5 at the config's width with the batch cut from
      4,096 (the JAX config's global batch over 8 chips) to 512 pages: K1,
      K4 and K3 launch 24 times a step (all on the tensor cores), K2
@@ -201,6 +201,38 @@ Phases, each printing one JSON line:
      client's p99 <= 50 ms, cache off, beside phase 16's rate; (f) K1 4
      times an encode, the same per query as one view; (g) every view's
      tensors on the card, the phase within 60 s.
+ 21. the fleet over the wire (run_fleet; right after phase 20, over a copy
+     of phase 15's store; config 3 at full width on the front ends, phase
+     4's weights and vocab): (a) 8 `cli partition-worker` subprocesses (4
+     partitions x 2 replicas, no --device: each stages its view on the
+     card, 512,000,000 B in all) register with a WorkerGateway on each of
+     two front ends, the time to register, their ready lines and the
+     card's memory; (b) 64 corpus queries through search_many,
+     topk_vectors and a SearchServer with a SocketSearchClient equal phase
+     20's in-process P x R answers and the single view's byte for byte
+     (or, where another process's cuBLAS rounds otherwise, ids equal
+     except at ties and scores within 1e-6, reported), RPCs on every
+     partition, no fallback, hedge_fires and the wire bytes with their
+     compression; (g) the second front end answers the same, and a query
+     front end 0 answered is a peer hit of front end 1's result cache;
+     (c) a kill -9 of partition 1's primary mid-way through a 3 s trial
+     of phase 16's mix at 25 qps over the socket: every answer the
+     oracle's, worker_lost and a shed by liveness, and a new process for
+     the slot registers; (d) that process answers 300 ms late
+     (DPV_WORKER_SLOW_MS): at hedge_quantile 0.5 calls hedge to its
+     sibling, answers unchanged, each under a third of 300 ms; (f) its
+     drain (SIGTERM) finishes the call in flight from it while its
+     sibling takes new ones; (e) a tombstone generation and refresh() in
+     a trial of the same mix: wait_for_generation holds, no stale worker,
+     the same pids, no answer mixes generations; (h) find_qps_at_p99 at
+     the client's p99 <= 50 ms, cache off, trials of 2 s, at most 6,
+     beside phase 20's and phase 16's rates, the front end's busy share
+     and nvidia-smi's utilization.gpu; (f) elastic, thread workers on the
+     card at 4 x 1: the tail's drain narrows the split to 3 and a new
+     tail widens it to 4 under a hammer, no answer mixing splits; (i) K1
+     4 times an encode of the front ends, every worker's exit line with
+     no launch of K1-K4, no view tensor on the CPU, no worker left
+     running, the phase within 75 s.
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The toy corpora keep each text once made (KeptTexts): the phases read
@@ -238,6 +270,7 @@ import json
 import multiprocessing
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -304,7 +337,7 @@ RESUME_LOSS_TOL = 1e-5
 # the BERT-mini and bert_long_sp cells keep both (PERF.md section 4).
 MT5 = "mt5_multilingual"
 MT5_VOCAB_PAGES = 300_000
-MT5_PAGES = 20_000
+MT5_PAGES = 2_048
 MT5_TRAIN_BATCH = 512
 MT5_BF16_ROWS = 256
 MT5_FLASH_DENSE_GRAD_TOL = 1e-1
@@ -577,6 +610,38 @@ PART_BURST_CALLS = 64
 PART_RATE_TRIAL_S = 2.0
 PART_START_QPS = 25.0
 PART_BUDGET_S = 60.0
+# Phase 21, the fleet over the wire (run_fleet), right after phase 20 over a
+# copy of phase 15's store: FLEET_P x FLEET_R `cli partition-worker`
+# subprocesses on the card behind a WorkerGateway on each of two front ends
+# (config 3 at full width, phase 4's weights), heartbeats of
+# FLEET_HEARTBEAT_S, registration within FLEET_REGISTER_S; FLEET_QUERIES
+# corpus queries against phase 20's in-process path and the single view; a
+# FLEET_TRIAL_S trial of phase 16's mix at FLEET_QPS with a kill -9 of
+# partition FLEET_KILL_PID's primary at FLEET_KILL_AT_S of trial time, its
+# replacement answering FLEET_SLOW_MS late (DPV_WORKER_SLOW_MS) for the
+# hedging of FLEET_HEDGE_CALLS calls at hedge_quantile FLEET_HEDGE_Q and
+# then drained; a tombstone generation and refresh() at FLEET_FIRE_S of
+# another such trial; one find_qps_at_p99 of FLEET_RATE_TRIAL_S trials
+# from PART_START_QPS, cache off, at most FLEET_MAX_TRIALS; the elastic
+# re-split 4 -> 3 -> 4 over thread workers; the phase within
+# FLEET_BUDGET_S.
+FLEET_P = 4
+FLEET_R = 2
+FLEET_QUERIES = 64
+FLEET_HEARTBEAT_S = 0.5
+FLEET_REGISTER_S = 60.0
+FLEET_QPS = 25.0
+FLEET_TRIAL_S = 3.0
+FLEET_KILL_PID = 1
+FLEET_KILL_AT_S = 1.5
+FLEET_SLOW_MS = 300.0
+FLEET_HEDGE_Q = 0.5
+FLEET_HEDGE_CALLS = 4
+FLEET_FIRE_S = 1.0
+FLEET_RATE_TRIAL_S = 2.0
+FLEET_MAX_TRIALS = 6
+FLEET_ELASTIC_QUERIES = 16
+FLEET_BUDGET_S = 75.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -6539,6 +6604,837 @@ def run_partitioned(device, data, workdir: str, production: dict,
     return rec
 
 
+class WorkerFleet:
+    """Phase 21's `cli partition-worker` subprocesses: one a (partition,
+    replica) slot, started with `cmd` from the checkout's root, stdout and
+    stderr read by a thread a process (the ready and exit lines kept, and
+    no pipe ever fills). `stop()` waits for every process and kills what
+    is left, so none outlives the phase."""
+
+    def __init__(self, cmd: list):
+        self.cmd = list(cmd)
+        self.procs: dict = {}        # (partition, replica) -> the slot's now
+        self.spawned: list = []      # every (slot, process, lines) started
+
+    def spawn(self, p: int, r: int, slow_ms: float = 0.0):
+        env = {k: v for k, v in os.environ.items()
+               if k != "DPV_WORKER_SLOW_MS"}
+        if slow_ms:
+            env["DPV_WORKER_SLOW_MS"] = str(slow_ms)
+        proc = subprocess.Popen(
+            self.cmd + ["--partition", str(p), "--replica", str(r)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines: list = []
+
+        def drain():
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+        threading.Thread(target=drain, daemon=True,
+                         name=f"fleet-p{p}r{r}-stdout").start()
+        self.procs[(p, r)] = proc
+        self.spawned.append(((p, r), proc, lines))
+        return proc
+
+    def lines_of(self, proc) -> list:
+        return next(ln for _, pr, ln in self.spawned if pr is proc)
+
+    def record(self, proc, key: str, timeout_s: float = 0.0):
+        """The first JSON line of `proc` holding `key` (waiting up to
+        `timeout_s` for it), or None."""
+        t_end = time.perf_counter() + timeout_s
+        while True:
+            for line in list(self.lines_of(proc)):
+                if line.startswith("{") and f'"{key}"' in line:
+                    return json.loads(line)
+            if time.perf_counter() >= t_end:
+                return None
+            time.sleep(0.01)
+
+    def tail(self, proc, n: int = 20) -> str:
+        return "\n".join(self.lines_of(proc)[-n:])
+
+    def stop(self, timeout_s: float) -> list:
+        """Wait up to `timeout_s` for every process, then kill the rest;
+        returns the slots that had to be killed."""
+        t_end = time.perf_counter() + timeout_s
+        killed = []
+        for slot, proc, _ in self.spawned:
+            try:
+                proc.wait(timeout=max(0.0, t_end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                killed.append(slot)
+        return killed
+
+
+def worker_processes(marker: str) -> list:
+    """The process ids of every live `partition-worker` whose command
+    line names `marker` (read from /proc)."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"partition-worker" in cmd and marker.encode() in b" ".join(cmd):
+            out.append(int(pid))
+    return out
+
+
+def gpu_utilization(stop: threading.Event, out: list) -> None:
+    """Samples nvidia-smi's utilization.gpu (the share of the last sample
+    period a kernel ran on the card, any process's) until `stop`."""
+    while not stop.is_set():
+        try:
+            out.append(float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=10).stdout.strip().splitlines()[0]))
+        except (OSError, ValueError, IndexError,
+                subprocess.SubprocessError):
+            pass
+        stop.wait(0.2)
+
+
+def inflight_to(gw, pid: int, rid: int) -> int:
+    """The gateway's requests still awaiting an answer from worker (pid,
+    rid), a hedged loser's included."""
+    with gw._lock:
+        return sum(1 for _, w in gw._pending.values()
+                   if (w.partition, w.replica) == (pid, rid))
+
+
+def run_fleet(device, data, workdir: str, production: dict, serving: dict,
+              partitioned: dict) -> dict:
+    """Phase 21: the fleet over the wire (infer/partition_host.py), config
+    3's towers at full width (phase 4's weights and vocab) on the front
+    ends, over a copy of phase 15's store. (a) FLEET_P x FLEET_R `cli
+    partition-worker` subprocesses (no --device: each stages its view on
+    the card) register with a WorkerGateway on each of two front ends;
+    their ready lines and the card's memory. (b) FLEET_QUERIES corpus
+    queries through search_many, topk_vectors and a SearchServer with a
+    SocketSearchClient equal phase 20's in-process path on the same
+    service (each shape against its own: the 64-query block, one query a
+    call) and the single view, byte for byte, or, where another
+    process's cuBLAS rounds otherwise, with ids equal except at ties and
+    scores within TIE_SCORE_TOL (a rounding step once formatted), the
+    byte-equal answers counted; RPCs on every partition, no fallback. (g) the second front end answers the same;
+    a query front end 0 answered is a peer hit of front end 1's result
+    cache. (c) a kill -9 of one primary mid-way through a FLEET_TRIAL_S
+    trial of phase 16's mix at FLEET_QPS over the socket: every answer the
+    oracle's, worker_lost, a shed by liveness, and a new process for the
+    slot registers (answering FLEET_SLOW_MS late). (d) at hedge_quantile
+    FLEET_HEDGE_Q, calls hedge away from it, answers unchanged, well
+    before it answers. (f) its drain finishes the call in flight from it
+    while its sibling takes new ones. (e) a tombstone generation and
+    refresh() in a trial of the same mix: the workers ack with no restart,
+    and no answer mixes generations. (h) find_qps_at_p99 at the client's
+    p99 <= 50 ms, cache off, beside phase 20's and phase 16's rates, with
+    the card's busy share. (f) elastic: thread workers on the card at 4 x
+    1; a tail drain narrows the split to 3 and a rejoin widens it to 4
+    under a hammer, with no answer mixing splits. (i) K1 4 times an encode
+    of the front ends, no launch in any worker, no view on the CPU, no
+    worker left running, the phase within FLEET_BUDGET_S."""
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.data.jsonl import JsonlCorpus
+    from dnn_page_vectors_tpu_torch.infer.bulk_embed import BulkEmbedder
+    from dnn_page_vectors_tpu_torch.infer.partition_host import (
+        DeviceEmbedder, PartitionWorker, WorkerGateway)
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.server import SearchServer
+    from dnn_page_vectors_tpu_torch.infer.transport import SocketSearchClient
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    from dnn_page_vectors_tpu_torch.loadgen import (
+        find_qps_at_p99, make_workload, run_trial)
+    from dnn_page_vectors_tpu_torch.models.factory import build_two_tower
+    import gc
+    import shutil
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    corpus4, q_tok, p_tok = data
+    path = production["corpus_path"]
+    corpus = JsonlCorpus(path)
+    fdir = os.path.join(workdir, "fleet")
+    fstore = os.path.join(fdir, "store")
+    os.makedirs(fdir, exist_ok=True)
+    t0 = time.perf_counter()
+    copy_store(VectorStore(os.path.join(workdir, "store_production")), fstore)
+    copy_s = time.perf_counter() - t0
+    P, R = FLEET_P, FLEET_R
+
+    def config(partitions=1, replicas=1, cache=False, **serve):
+        return get_config("bert_mini_v5p16", {
+            "data.corpus": f"jsonl:{path}", "data.num_pages": PROD_PAGES,
+            "model.attention": "flash", "serve.query_cache_size": 0,
+            "serve.partitions": partitions, "serve.replicas": replicas,
+            "serve.result_cache": cache, "serve.result_cache_fleet": cache,
+            "serve.heartbeat_s": FLEET_HEARTBEAT_S,
+            "obs.window_s": FLEET_RATE_TRIAL_S,
+            **{f"serve.{k}": v for k, v in serve.items()}})
+    cfg = config()
+    m = cfg.model
+    model = build_two_tower(cfg, vocab_size=p_tok.vocab_size, device=device)
+    emb = BulkEmbedder(cfg, model, p_tok, query_tok=q_tok, device=device)
+    encodes = count_encodes(emb)
+    queries = corpus.query_texts(np.linspace(
+        0, PROD_PAGES - 1, FLEET_QUERIES).astype(np.int64))
+    distinct = corpus.query_texts(range(SERVE_DISTINCT))
+    rec = {"phase": "fleet", "config": cfg.name, **widths(cfg),
+           "store_vectors": PROD_PAGES, "partitions": P, "replicas": R,
+           "queries": FLEET_QUERIES, "copy_store_s": copy_s}
+    services, servers, clients, gateways, threads_w = [], [], [], [], []
+    fleet = WorkerFleet([
+        sys.executable, "-m", "dnn_page_vectors_tpu_torch.cli",
+        "partition-worker", "--config", "bert_mini_v5p16", "--workdir", fdir,
+        "--partitions", str(P), "--set", f"data.corpus=jsonl:{path}",
+        "--set", f"serve.heartbeat_s={FLEET_HEARTBEAT_S}",
+        "--set", "serve.result_cache=true",
+        "--set", "serve.result_cache_fleet=true"])
+
+    def service(c, embedder=emb):
+        svc = SearchService(c, embedder, corpus, VectorStore(fstore))
+        services.append(svc)
+        return svc
+
+    def serve(svc, front_end):
+        svc.start_batcher()
+        server = SearchServer(svc, executor_workers=SERVE_LOAD_WORKERS,
+                              front_end=front_end)
+        server.start_background()
+        servers.append(server)
+        client = SocketSearchClient(server.host, server.port)
+        clients.append(client)
+        return server, client
+
+    def workload():
+        return make_workload("poisson", seed=SERVE_SEED,
+                             distinct=SERVE_DISTINCT, alpha=SERVE_ALPHA,
+                             profile=((10, None, 1.0),))
+
+    def wait(pred, what, timeout_s=FLEET_REGISTER_S):
+        t = time.perf_counter()
+        while not pred():
+            if time.perf_counter() - t > timeout_s:
+                raise AssertionError(f"phase 21: {what} within "
+                                     f"{timeout_s} s")
+            time.sleep(0.01)
+        return time.perf_counter() - t
+
+    def raw_equal(got, want):
+        return (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1]))
+
+    def raw_match(got, want, what) -> bool:
+        """True when two raw answers are byte for byte equal. Otherwise
+        (another process's cuBLAS may take another algorithm for a
+        shape) they must meet the bar of ids equal except at ties and
+        scores within TIE_SCORE_TOL, or this raises; False then."""
+        if raw_equal(got, want):
+            return True
+        fin = np.isfinite(want[0])
+        diff = float(np.abs(np.asarray(got[0])[fin]
+                            - np.asarray(want[0])[fin]).max()
+                     if fin.any() else 0.0)
+        if diff > TIE_SCORE_TOL or not np.array_equal(np.isfinite(got[0]),
+                                                      fin):
+            raise AssertionError(f"{what}: scores differ by {diff}")
+        ties_only(*got, *want, what)
+        return False
+
+    def text_match(got, want, what) -> bool:
+        """raw_match for formatted answers, whose scores are rounded to 4
+        decimals: equal, or ids equal except at ties and scores within a
+        rounding step (SERVE_SCORE_TOL)."""
+        if hits(got) == hits(want):
+            return True
+        serve_results_equal([got], [want], what)
+        return False
+
+    def hits(wire):
+        return [(r["page_id"], round(float(r["score"]), 4)) for r in wire]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        # ---- the main path, counted -----------------------------------
+        fe0 = service(config(P, R, cache=True))
+        fe1 = service(config(P, R, cache=True))
+        # the gateways listen now and the workers start; the front ends
+        # route through them once attached, after the oracles below
+        gw0, gw1 = WorkerGateway(fe0), WorkerGateway(fe1)
+        gateways += [gw0, gw1]
+        fleet.cmd += ["--connect", f"{gw0.host}:{gw0.port},"
+                                   f"{gw1.host}:{gw1.port}"]
+        t_spawn = time.perf_counter()
+        for p in range(P):
+            for r in range(R):
+                fleet.spawn(p, r)
+        single = service(config())
+        # phase 20's in-process path on the same service, before the
+        # gateway is attached, and the single view: the oracles
+        inproc_many = fe0.search_many(queries, k=10)
+        fe0.clear_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()                 # warm, as phase 20 times
+        fe0.search_many(queries, k=10)
+        inproc_many_s = time.perf_counter() - t0
+        single_many = single.search_many(queries, k=10)
+        qv = single.encode_queries(queries)[:FLEET_QUERIES]
+        qv_host = qv.float().cpu().numpy()
+        inproc_raw = fe0.topk_vectors(qv, k=10)
+        hq = qv[:8]                      # (d)'s and (f)'s calls
+        want_h = fe0.topk_vectors(hq, k=10)
+        # one query a call, as the socket's sequential client sends them:
+        # the query tower's output depends on the batch's shape in its
+        # last bits, so the socket's oracle is encoded as it is
+        inproc_one = [fe0.search_many([q], k=10)[0] for q in queries]
+        inproc_rows = [fe0.topk_vectors(qv[i: i + 1], k=10)
+                       for i in range(FLEET_QUERIES)]
+        single_raw = single._topk_view(single._view, qv, FLEET_QUERIES,
+                                       10)[:2]
+        if not (inproc_many == single_many
+                and raw_equal(inproc_raw, single_raw)):
+            raise AssertionError("phase 21: the in-process P x R answers "
+                                 "differ from the single view's")
+        fe0.clear_cache()
+        fe0.attach_gateway(gw0)
+        fe1.attach_gateway(gw1)
+
+        # (a) the fleet comes up
+        for name, gw in (("front end 0", gw0), ("front end 1", gw1)):
+            if not gw.wait_for_workers(P * R, timeout_s=FLEET_REGISTER_S):
+                missing = sorted(set(fleet.procs) - set(gw.live_workers()))
+                raise AssertionError(
+                    f"phase 21 (a): {len(missing)} of {P * R} workers did "
+                    f"not register with {name} within {FLEET_REGISTER_S} "
+                    f"s: {missing}; " + "; ".join(
+                        fleet.tail(fleet.procs[s], 5) for s in missing))
+        register_s = time.perf_counter() - t_spawn
+        ready = {}
+        for slot, proc in fleet.procs.items():
+            line = fleet.record(proc, "partition_worker", FLEET_REGISTER_S)
+            if line is None:
+                raise AssertionError(f"phase 21 (a): no ready line from "
+                                     f"{slot}: {fleet.tail(proc)}")
+            ready[slot] = line
+        pids0 = gw0.worker_pids()
+        if (pids0 != gw1.worker_pids()
+                or pids0 != {s: pr.pid for s, pr in fleet.procs.items()}):
+            raise AssertionError(f"phase 21 (a): the gateways see "
+                                 f"{pids0} and {gw1.worker_pids()}")
+        staged = sum(r["staged_bytes"] for r in ready.values())
+        rows = [[ready[(p, r)]["rows"] for r in range(R)] for p in range(P)]
+        card = str(fe0._view.pages.device)      # the workers' device too
+        if any(r["device"] != card or r["staged_device"] != card
+               for r in ready.values()) or staged != R * PROD_PAGES * \
+                fe0.store.row_bytes or sum(x[0] for x in rows) != PROD_PAGES:
+            raise AssertionError(f"phase 21 (a): ready lines {ready}")
+        free_b, total_b = torch.cuda.mem_get_info(device)
+        rec["a_fleet"] = {
+            "register_s": register_s, "workers": P * R,
+            "ready": [ready[s] for s in sorted(ready)],
+            "staged_bytes": staged,
+            "staged_bytes_by_worker": [ready[s]["staged_bytes"]
+                                       for s in sorted(ready)],
+            "card_used_bytes_all_processes": int(total_b - free_b),
+            "front_end_allocated_bytes": torch.cuda.memory_allocated(device),
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_a_up", **rec["a_fleet"]})
+
+        # (b) results over the wire
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wire_many = fe0.search_many(queries, k=10)
+        first_s = time.perf_counter() - t0       # the workers' first call
+        fe0.clear_cache()
+        t0 = time.perf_counter()
+        fe0.search_many(queries, k=10)
+        wire_many_s = time.perf_counter() - t0
+        wire_raw = fe0.topk_vectors(qv, k=10)
+        wire_rows = [fe0.topk_vectors(qv[i: i + 1], k=10)
+                     for i in range(FLEET_QUERIES)]
+        many_equal = sum(text_match(w, x, "phase 21 (b) search_many")
+                         for w, x in zip(wire_many, inproc_many))
+        block_equal = raw_match(wire_raw, inproc_raw,
+                                "phase 21 (b) topk_vectors, 64 rows")
+        rows_equal = sum(raw_match(w, x, "phase 21 (b) topk_vectors, a row")
+                         for w, x in zip(wire_rows, inproc_rows))
+        row_diff = max(float(np.abs(w[0] - x[0]).max())
+                       for w, x in zip(wire_rows, inproc_rows))
+        server0, client0 = serve(fe0, 0)
+        fe0.clear_cache()
+        wire_socket = [client0.search(q, k=10) for q in queries]
+        socket_equal = sum(text_match(w, x, "phase 21 (b) the socket")
+                           for w, x in zip(wire_socket, inproc_one))
+        byte_equal = (many_equal == rows_equal == socket_equal
+                      == FLEET_QUERIES and block_equal)
+        st = gw0.stats()
+        by_pid = st["rpcs_by_partition"]
+        if len(by_pid) != P or min(by_pid) == 0 or st["rpc_fallbacks"]:
+            raise AssertionError(f"phase 21 (b): the gateway counted {st}")
+        tr0 = fe0.metrics()["transport"]
+        rec["b_results"] = {
+            "byte_equal": byte_equal,
+            "search_many_answers_byte_equal": many_equal,
+            "block_64_rows_byte_equal": block_equal,
+            "one_row_calls_byte_equal": rows_equal,
+            "one_row_calls_max_score_diff": row_diff,
+            "socket_answers_byte_equal": socket_equal,
+            "search_many_ms": wire_many_s * 1e3,
+            "search_many_first_call_ms": first_s * 1e3,
+            "inproc_search_many_ms": inproc_many_s * 1e3,
+            "phase20_search_many_ms": partitioned["a_exact"][
+                "partitioned"]["search_many_ms"],
+            "socket_queries": len(queries), "rpcs_by_partition": by_pid,
+            "rpc_fallbacks": st["rpc_fallbacks"],
+            "hedge_fires": fe0.hedge_fires,
+            "wire_bytes": tr0["wire_bytes"],
+            "wire_raw_bytes": tr0.get("wire_raw_bytes", tr0["wire_bytes"]),
+            "wire_raw_over_wire_bytes": tr0.get("wire_raw_bytes",
+                                                tr0["wire_bytes"])
+            / tr0["wire_bytes"],
+            "workers_compressing": st["workers_compressing"],
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_b_results", **rec["b_results"]})
+
+        # (g) two front ends over the same workers; the fleet result cache
+        fe1_many = fe1.search_many(queries, k=10)
+        fe1_raw = fe1.topk_vectors(qv, k=10)
+        fe1_equal = sum(text_match(w, x, "phase 21 (g) search_many")
+                        for w, x in zip(fe1_many, inproc_many))
+        fe1_block = raw_match(fe1_raw, inproc_raw, "phase 21 (g) raw")
+        st1 = gw1.stats()
+        if min(st1["rpcs_by_partition"] or [0]) == 0 or st1["rpc_fallbacks"]:
+            raise AssertionError(f"phase 21 (g): front end 1's gateway "
+                                 f"counted {st1}")
+        server1, _ = serve(fe1, 1)
+        peer = SocketSearchClient(server0.host, server0.port,
+                                  result_cache=True)
+        clients.append(peer)
+        fe1.attach_cache_peers([peer])
+        cq = corpus.query_text(PROD_PAGES // 3 + 1)
+        answered = fe0.search(cq, k=10)
+        enc1, rpc1, hit1 = fe1.encodes, gw1.stats()["rpcs"], \
+            fe1.result_cache_hits
+        peer_hit = fe1.search(cq, k=10)
+        if not (peer_hit == answered and fe1.result_cache_hits == hit1 + 1
+                and fe1.encodes == enc1 and gw1.stats()["rpcs"] == rpc1):
+            raise AssertionError("phase 21 (g): front end 0's answer was not "
+                                 "a peer hit of front end 1's cache")
+        rec["g_front_ends"] = {
+            "front_ends": 2, "search_many_answers_byte_equal": fe1_equal,
+            "block_64_rows_byte_equal": fe1_block,
+            "rpcs_by_partition": st1["rpcs_by_partition"],
+            "peer_hit": True, "front_end_1_result_cache_hits":
+            fe1.result_cache_hits, "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_g_front_ends", **rec["g_front_ends"]})
+
+        # (c) a kill -9 under load
+        sched = workload().schedule(SERVE_WARMUP_S + FLEET_TRIAL_S,
+                                    FLEET_QPS)
+        texts = sorted({distinct[r.query_id % len(distinct)]
+                        for _, r in sched})
+        old = dict(zip(texts, single.search_many(texts, k=10)))
+        kp, kill_at = FLEET_KILL_PID, {}
+
+        def kill():
+            victim = fleet.procs[(kp, 0)]
+            kill_at["t"] = time.perf_counter()
+            victim.kill()
+            detect = wait(lambda: not gw0.worker_alive(kp, 0),
+                          "the killed worker was not seen lost", 10.0)
+            fleet.spawn(kp, 0, slow_ms=FLEET_SLOW_MS)
+            return detect
+        rclient = RecordingClient(client0)
+        mut = OneShotMutator("kill", kill, SERVE_WARMUP_S + FLEET_KILL_AT_S)
+        fb0 = gw0.stats()["rpc_fallbacks"]
+        tr = run_trial(fe0, workload(), FLEET_QPS, distinct,
+                       duration_s=FLEET_TRIAL_S, warmup_s=SERVE_WARMUP_S,
+                       workers=SERVE_LOAD_WORKERS, client=rclient,
+                       mutator=mut)
+        mut.join()
+        if mut.result is None or tr["errors"]:
+            raise AssertionError(f"phase 21 (c): the kill or the trial "
+                                 f"failed: {mut.errors}, {tr['errors']} "
+                                 "errors")
+        # under load the batcher coalesces buckets of any size, whose
+        # query vectors may differ from the oracle's bucket in their last
+        # bits: the answers are held to the oracle's up to ties
+        bad = [q for q, a in rclient.answers
+               if not same_results([a], [old[q]])]
+        if bad:
+            raise AssertionError(f"phase 21 (c): {len(bad)} answers differ "
+                                 f"from the oracle: {bad[:3]}")
+        exact_c = sum(hits(a) == hits(old[q]) for q, a in rclient.answers)
+        lost = [e for e in fe0.registry.events("worker_lost")
+                if e["attrs"]["partition"] == kp]
+        sheds = [e["attrs"] for e in fe0.registry.events("replica_shed")
+                 if e["attrs"]["partition"] == kp]
+        if not lost or not any(s["reason"] == "liveness"
+                               and s["to_replica"] == 1 for s in sheds):
+            raise AssertionError(f"phase 21 (c): lost {lost}, sheds {sheds}")
+        # (f) elastic, while the killed slot's new process starts: 4 x 1
+        # thread workers on the card, the tail drains (4 -> 3) and rejoins
+        # (3 -> 4) under a hammer
+        dev_emb = DeviceEmbedder(device)
+        eq = qv_host[:FLEET_ELASTIC_QUERIES]
+        fe_e = service(config(P, 1, elastic=True), dev_emb)
+        o4 = [fe_e.topk_vectors(eq[j: j + 1], k=10) for j in range(len(eq))]
+        three = service(config(P - 1, 1), dev_emb)
+        o3 = [three.topk_vectors(eq[j: j + 1], k=10) for j in range(len(eq))]
+        three.close()
+        services.remove(three)
+        gw_e = WorkerGateway(fe_e)
+        gateways.append(gw_e)
+        fe_e.attach_gateway(gw_e)
+        wcfg = config()
+
+        def thread_worker(p):
+            w = PartitionWorker(wcfg, fstore, ("127.0.0.1", gw_e.port), p, P,
+                                device=device)
+            threads_w.append(w)
+            threading.Thread(target=w.run, daemon=True,
+                             name=f"fleet-elastic-p{p}").start()
+            return w
+        tail = thread_worker(P - 1)          # the tail first: no re-cut
+        wait(lambda: len(gw_e.live_workers()) == 1, "the elastic tail")
+        for p in range(P - 1):
+            thread_worker(p)
+
+        def at_width(n):
+            table = gw_e.partition_set.table()
+            return (len(table) == n and len(gw_e.live_workers()) == n
+                    and gw_e.stale_workers(table[0][0].generation,
+                                           split=n) == 0)
+        wait(lambda: at_width(P), "the elastic fleet at 4")
+        stop_h, errors, mixed = threading.Event(), [], []
+        served = {3: 0, 4: 0, "byte_equal": 0}
+
+        def hammer():
+            j = 0
+            while not stop_h.is_set():
+                i = j % len(eq)
+                j += 1
+                try:
+                    got = fe_e.topk_vectors(eq[i: i + 1], k=10)
+                except Exception as e:  # noqa: BLE001 -- counted
+                    errors.append(repr(e)[:200])
+                    continue
+                # an answer of one split, byte for byte or under the
+                # relaxed bar; a mixed split fails both
+                for width, oracle in ((4, o4[i]), (3, o3[i])):
+                    try:
+                        exact = raw_match(got, oracle, "split")
+                    except AssertionError:
+                        continue
+                    served[width] += 1
+                    served["byte_equal"] += exact
+                    break
+                else:
+                    mixed.append(i)
+        hs = [threading.Thread(target=hammer) for _ in range(2)]
+        for h in hs:
+            h.start()
+        try:
+            time.sleep(0.3)
+            t0 = time.perf_counter()
+            threading.Thread(target=tail.drain, kwargs={"wait_s": 0.5},
+                             daemon=True).start()
+            narrow_s = wait(lambda: at_width(P - 1), "the re-split to 3")
+            time.sleep(0.3)
+            t1 = time.perf_counter()
+            thread_worker(P - 1)
+            widen_s = wait(lambda: at_width(P), "the re-split to 4")
+            time.sleep(0.3)
+        finally:
+            stop_h.set()
+            for h in hs:
+                h.join(30)
+        triggers = [e["attrs"]["trigger"]
+                    for e in fe_e.registry.events("fleet_resplit")]
+        if (errors or mixed or "drain" not in triggers
+                or "join" not in triggers or not served[3] + served[4]):
+            raise AssertionError(f"phase 21 (f): errors {errors[:3]}, mixed "
+                                 f"{len(mixed)}, served {served}, "
+                                 f"re-splits {triggers}")
+        rec["f_elastic"] = {
+            "workers": "threads on the card", "queries": len(eq),
+            "answers_by_split": served, "mixed": 0, "errors": 0,
+            "queries_whose_split_oracles_differ": sum(
+                not raw_equal(a, b) for a, b in zip(o3, o4)),
+            "resplit_triggers": triggers, "narrow_s": narrow_s,
+            "widen_s": widen_s, "resplits": gw_e.stats()["resplits"],
+            "drain_to_narrow_s": t1 - t0,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_f_elastic", **rec["f_elastic"]})
+        new_proc = fleet.procs[(kp, 0)]
+        wait(lambda: gw0.worker_pids().get((kp, 0)) == new_proc.pid
+             and gw1.worker_pids().get((kp, 0)) == new_proc.pid,
+             "the new worker of the killed slot did not register")
+        respawn_s = time.perf_counter() - kill_at["t"]
+        rec["c_kill"] = {
+            "qps": FLEET_QPS, "trial_s": FLEET_TRIAL_S,
+            "killed": [kp, 0], "detect_s": mut.result,
+            "replacement_registered_s": respawn_s,
+            "replacement_pid": new_proc.pid,
+            "answers": len(rclient.answers), "answers_byte_equal": exact_c,
+            "distinct_queries": len(texts),
+            "rpc_fallbacks": gw0.stats()["rpc_fallbacks"] - fb0,
+            "shed_reasons": sorted({s["reason"] for s in sheds}),
+            "trial": trial_line(tr), "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_c_kill", **rec["c_kill"]})
+
+        # (d) hedging away from the slow new primary
+        wait(lambda: gw0._routed_generation(kp) == gw0._workers[
+            (kp, 0)].generation, "the new worker's generation")
+        gw0.hedge_quantile = FLEET_HEDGE_Q
+        fired0 = fe0.hedge_fires
+        times_h = []
+        for _ in range(FLEET_HEDGE_CALLS):
+            t0 = time.perf_counter()
+            got = fe0.topk_vectors(hq, k=10)
+            times_h.append(time.perf_counter() - t0)
+            raw_match(got, want_h, "phase 21 (d) a hedged answer")
+        hedged = [e["attrs"] for e in fe0.registry.events("hedge_fired")
+                  if e["attrs"]["partition"] == kp
+                  and e["attrs"]["from_replica"] == 0]
+        if (fe0.hedge_fires - fired0 < FLEET_HEDGE_CALLS or
+                len(hedged) < FLEET_HEDGE_CALLS
+                or max(times_h) > FLEET_SLOW_MS / 1e3 / 3):
+            raise AssertionError(f"phase 21 (d): {fe0.hedge_fires - fired0} "
+                                 f"hedges, calls {times_h} s")
+        # the slow worker answers every request it got before its drain
+        wait(lambda: inflight_to(gw0, kp, 0) == 0,
+             "the slow worker's answers", 10.0)
+        rec["d_hedge"] = {
+            "hedge_quantile": FLEET_HEDGE_Q, "slow_ms": FLEET_SLOW_MS,
+            "calls": FLEET_HEDGE_CALLS, "call_s": times_h,
+            "hedge_fires": fe0.hedge_fires - fired0,
+            "hedge_events_from_slow_primary": len(hedged),
+            "hedge_after_ms": [h["after_ms"] for h in hedged],
+            "answers_unchanged": True, "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_d_hedge", **rec["d_hedge"]})
+
+        # (f) the slow worker's drain finishes the call in flight from it;
+        # its sibling takes the partition
+        gw0.hedge_quantile = 0.0
+        slow = fleet.procs[(kp, 0)]
+        out, fb0, rpcs0 = {}, gw0.stats()["rpc_fallbacks"], gw0.stats()["rpcs"]
+
+        def inflight():
+            t = time.perf_counter()
+            out["got"] = fe0.topk_vectors(hq, k=10)
+            out["s"] = time.perf_counter() - t
+        th = threading.Thread(target=inflight)
+        th.start()
+        wait(lambda: inflight_to(gw0, kp, 0) == 1, "the call in flight", 10.0)
+        slow.send_signal(signal.SIGTERM)
+        wait(lambda: gw0.stats()["workers_draining"] >= 1,
+             "the drain announcement", 10.0)
+        t0 = time.perf_counter()
+        during = fe0.topk_vectors(hq, k=10)
+        during_s = time.perf_counter() - t0
+        th.join(30)
+        slow.wait(30)
+        exit_slow = fleet.record(slow, "partition_worker_exit")
+        raw_match(out["got"], want_h, "phase 21 (f) the call in flight")
+        raw_match(during, want_h, "phase 21 (f) the sibling's answer")
+        if not (out["s"] >= FLEET_SLOW_MS / 1e3
+                and during_s < FLEET_SLOW_MS / 1e3 / 3
+                and gw0.stats()["rpc_fallbacks"] == fb0
+                and slow.returncode == 0 and exit_slow is not None
+                and exit_slow["answered"] >= FLEET_HEDGE_CALLS + 1):
+            raise AssertionError(
+                f"phase 21 (f): drain: in flight {out.get('s')} s, during "
+                f"{during_s} s, exit {slow.returncode} {exit_slow}")
+        gw0.hedge_quantile = config().serve.hedge_quantile
+        lost = fe0.registry.events("worker_lost")[-1]["attrs"]
+        rec["f_drain"] = {
+            "in_flight_call_s": out["s"], "sibling_call_s": during_s,
+            "rpcs": gw0.stats()["rpcs"] - rpcs0,
+            "rpc_fallbacks": gw0.stats()["rpc_fallbacks"] - fb0,
+            "exit_code": slow.returncode, "exit": exit_slow,
+            "lost_reason": lost["reason"],
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_f_drain", **rec["f_drain"]})
+
+        # (e) a refresh over the wire under a trial of the same mix
+        dead = sorted({r["page_id"] for h in old.values() for r in h})
+        pids_e = gw0.worker_pids()
+
+        def mutate():
+            t = time.perf_counter()
+            VectorStore(fstore).begin_generation(tombstones=dead).commit()
+            gen_s = time.perf_counter() - t
+            info = fe0.refresh()
+            ok = gw0.wait_for_generation(info["store_generation"],
+                                         timeout_s=FLEET_REGISTER_S)
+            return gen_s, info, ok, time.perf_counter() - t
+        rclient = RecordingClient(client0)
+        mut = OneShotMutator("tombstone_refresh", mutate,
+                             SERVE_WARMUP_S + FLEET_FIRE_S)
+        tr = run_trial(fe0, workload(), FLEET_QPS, distinct,
+                       duration_s=FLEET_TRIAL_S, warmup_s=SERVE_WARMUP_S,
+                       workers=SERVE_LOAD_WORKERS, client=rclient,
+                       mutator=mut)
+        mut.join()
+        if mut.result is None or tr["errors"] or not mut.result[2]:
+            raise AssertionError(f"phase 21 (e): {mut.errors}, "
+                                 f"{tr['errors']} errors, {mut.result}")
+        gen_s, info, _, acked_s = mut.result
+        new_gen = info["store_generation"]
+        single.refresh()
+        new = dict(zip(texts, single.search_many(texts, k=10)))
+        verdict = {"old": 0, "new": 0}
+        for q, a in rclient.answers:
+            is_old = same_results([a], [old[q]])
+            is_new = same_results([a], [new[q]])
+            if not (is_old or is_new):
+                raise AssertionError(f"phase 21 (e): a mixed answer for "
+                                     f"{q!r}: {a}")
+            verdict["old" if is_old else "new"] += 1
+        after = fe0.search_many(texts, k=10)
+        if (gw0.stale_workers(new_gen) or gw0.worker_pids() != pids_e
+                or not all(same_results([a], [new[q]])
+                           for q, a in zip(texts, after))
+                or any(r["page_id"] in set(dead) for h in after for r in h)):
+            raise AssertionError(f"phase 21 (e): stale "
+                                 f"{gw0.stale_workers(new_gen)}, pids "
+                                 f"{gw0.worker_pids()} vs {pids_e}")
+        rec["e_refresh"] = {
+            "tombstoned": len(dead), "generation_s": gen_s,
+            "refresh_seconds": info["refresh_seconds"],
+            "swap_ms": info["swap_ms"],
+            "workers_refresh": info["workers_refresh"],
+            "refresh_to_every_ack_s": acked_s, "stale_workers": 0,
+            "same_pids": True, "answers": verdict, "trial": trial_line(tr),
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_e_refresh", **rec["e_refresh"]})
+
+        # (h) the rate over the socket fleet, cache off
+        fe0._rcache_cap = 0      # the result cache off for the rate search
+        fe0.clear_cache()
+        util, stop_u = [], threading.Event()
+        sampler = threading.Thread(target=gpu_utilization,
+                                   args=(stop_u, util))
+        sampler.start()
+        try:
+            # the workers run in processes of their own, which this
+            # process's profiler does not see: the card's busy share is
+            # nvidia-smi's, over every process
+            warm = run_trial(fe0, workload(), PART_START_QPS, distinct,
+                             duration_s=SERVE_WARM_S, warmup_s=SERVE_WARMUP_S,
+                             workers=SERVE_LOAD_WORKERS, client=client0)
+        finally:
+            stop_u.set()
+            sampler.join()
+        busy = sum(util) / len(util) / 100.0 if util else None
+        t0 = time.perf_counter()
+        rep = find_qps_at_p99(
+            fe0, workload(), distinct, p99_target_ms=SERVE_P99_MS,
+            start=PART_START_QPS, max_load=SERVE_MAX_QPS, iters=SERVE_ITERS,
+            duration_s=FLEET_RATE_TRIAL_S, warmup_s=SERVE_WARMUP_S,
+            workers=SERVE_LOAD_WORKERS, max_error_rate=SERVE_MAX_ERROR_RATE,
+            client=client0, p99_key="client_p99_ms")
+        trials = [trial_line(t) for t in rep["trials"]]
+        if len(trials) > FLEET_MAX_TRIALS:
+            raise AssertionError(f"phase 21 (h): {len(trials)} trials")
+        best = max((t for t in rep["trials"] if t["met"]),
+                   key=lambda t: t["achieved_qps"], default=None)
+        rec["h_rate"] = {
+            "qps_at_p99": rep["qps_at_p99"], "target_met": best is not None,
+            "p99_target_ms": SERVE_P99_MS, "p99_judged_on": "client_p99_ms",
+            "trials": trials, "at_rate": trial_line(best) if best else None,
+            "warm_trial": trial_line(warm, busy),
+            "card_busy_share_at_start_qps": busy,
+            "busy_share_from": "nvidia-smi utilization.gpu, every process",
+            "nvidia_smi_utilization_gpu_samples": util,
+            "phase20_inproc_qps_at_p99": partitioned["e_rate"]["qps_at_p99"],
+            "phase16_p1_qps_at_p99": serving["d_load"]["off"]["qps_at_p99"],
+            "phase16_p1_qps_at_p99_runs": serving["d_load"]["off"][
+                "qps_at_p99_runs"],
+            "hedge_fires": fe0.hedge_fires,
+            "rpc_fallbacks": gw0.stats()["rpc_fallbacks"],
+            "seconds": time.perf_counter() - t0,
+            "at_s": time.perf_counter() - t_phase}
+        emit({"phase": "fleet_h_rate", **rec["h_rate"]})
+
+        on_card = sum(require_on_card(s, "phase 21 (i)") for s in services)
+        for w in threads_w:
+            for t in view_tensors(w.view):
+                if t.device.type != device.type:
+                    raise AssertionError("phase 21 (i): a worker's view "
+                                         f"holds a tensor on {t.device}")
+                on_card += 1
+        rec["on_card_tensors"] = on_card
+        dispatched = sum(s.encodes for s in services)
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.close()
+        for gw in gateways:
+            gw.close()           # BYE: every worker ends on its own
+        for w in threads_w:
+            w.stop()
+        killed = fleet.stop(30.0)
+        for svc_ in services:
+            svc_.close()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ------------------------------------------------------------------
+    want = expected_launches(dispatched * m.num_layers, 0)
+    if counts != want or encodes["page"] or encodes["query"] != dispatched:
+        raise AssertionError(f"phase 21 launched {counts}, want {want} "
+                             f"({dispatched} query encodes; the embedder "
+                             f"counted {encodes})")
+    exits, codes = [], []
+    for slot, proc, _ in fleet.spawned:
+        codes.append((slot, proc.returncode))
+        line = fleet.record(proc, "partition_worker_exit")
+        if proc.returncode == -signal.SIGKILL:
+            continue                         # (c)'s victim
+        if proc.returncode != 0 or line is None or set(
+                line["kernel_launches"].values()) != {0}:
+            raise AssertionError(f"phase 21 (i): worker {slot} exited "
+                                 f"{proc.returncode}: {fleet.tail(proc)}")
+        exits.append(line)
+    left = worker_processes(fdir)
+    if killed or left or sum(c == -signal.SIGKILL for _, c in codes) != 1:
+        raise AssertionError(f"phase 21 (i): workers killed at teardown "
+                             f"{killed}, left running {left}, exit codes "
+                             f"{codes}")
+    shutil.rmtree(fdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    rec.update({
+        "encodes": dispatched, "k1_launches": counts["launches"],
+        "k1_launches_tensor_core": counts["launches_tc"],
+        "k1_launches_per_encode": counts["launches"] / max(dispatched, 1),
+        "worker_exits": len(exits),
+        "worker_answered": [e["answered"] for e in exits],
+        "worker_kernel_launches": 0, "processes_spawned":
+        len(fleet.spawned), "processes_left": 0,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "seconds": seconds, "budget_s": FLEET_BUDGET_S,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
+    emit({k: v for k, v in rec.items()
+          if k not in ("a_fleet", "b_results", "c_kill", "d_hedge",
+                       "e_refresh", "f_drain", "f_elastic", "g_front_ends",
+                       "h_rate")})
+    if seconds > FLEET_BUDGET_S:
+        raise AssertionError(f"phase 21 took {seconds:.1f} s, over its "
+                             f"{FLEET_BUDGET_S} s budget")
+    return rec
+
+
 KERNEL_FLAGS = {"flash_fwd_tc_kernel": ("seg",),
                 "flash_bwd_dkv_tc_kernel": ("bias", "seg"),
                 "flash_bwd_dq_tc_kernel": ("seg",),
@@ -6628,7 +7524,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-20; fills `report` and returns the `kernels` line's
+    """Phases 2-21; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -6791,6 +7687,12 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
             report["partitioned"] = run_partitioned(
                 device, bert, tmp, report["production"], report["serving"])
             done("partitioned")
+            # phase 21: the fleet over the wire, over a copy of phase 15's
+            # store, beside phases 16's and 20's rates
+            report["fleet"] = run_fleet(
+                device, bert, tmp, report["production"], report["serving"],
+                report["partitioned"])
+            done("fleet")
             report["updates"] = run_updates(device, bert, tmp,
                                             report["production"])
             done("updates")
@@ -6850,7 +7752,8 @@ def kernel_entries(report: dict) -> list:
              "migration_and_maintenance": report["migration"][
                  "k1_launches"],
              "filtered_and_hot_set": report["filtered"]["k1_launches"],
-             "partitioned_serving": report["partitioned"]["k1_launches"]}
+             "partitioned_serving": report["partitioned"]["k1_launches"],
+             "fleet_over_the_wire": report["fleet"]["k1_launches"]}
     training = (("bert_training", report["train"]),
                 ("mt5_training", report["mt5_train"]),
                 ("bert_long_packed_training", report["long_train"]),
@@ -6880,6 +7783,8 @@ def kernel_entries(report: dict) -> list:
                "filtered_and_hot_set": report["filtered"][
                    "k1_launches_tensor_core"],
                "partitioned_serving": report["partitioned"][
+                   "k1_launches_tensor_core"],
+               "fleet_over_the_wire": report["fleet"][
                    "k1_launches_tensor_core"]},
         "k2": {}, "k3": {}, "k4": {}}
     seg_by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}

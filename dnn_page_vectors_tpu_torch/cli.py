@@ -14,6 +14,12 @@ commands of the JAX package's CLI.
       --workdir W --transport socket --shape poisson --p99-ms 50
   python -m dnn_page_vectors_tpu_torch.cli search --config cdssm_toy \\
       --workdir W --query "some text" --partitions 4 --replicas 2
+  python -m dnn_page_vectors_tpu_torch.cli loadtest --config cdssm_toy \\
+      --workdir W --transport socket --partitions 4 --replicas 2 \\
+      --front-ends 2 [--chaos PLAN]
+  python -m dnn_page_vectors_tpu_torch.cli partition-worker \\
+      --config cdssm_toy --workdir W --connect HOST:PORT[,HOST:PORT] \\
+      --partition I --partitions P [--replica R]
   python -m dnn_page_vectors_tpu_torch.cli serve-metrics --workdir W [--json]
   python -m dnn_page_vectors_tpu_torch.cli trace --workdir W --query TEXT
   python -m dnn_page_vectors_tpu_torch.cli init-store --config cdssm_toy \
@@ -79,11 +85,27 @@ shard ranges, R replicas of each, one scatter-gather; ``loadtest`` then
 reports the partition block (``serve_partitions``, ``serve_replicas``,
 ``replica_shed``, ``partition_degraded``, ``partitions``).
 
-What the JAX CLI does in processes of its own exits non-zero naming the
-ROADMAP.md item that ports it, and runs nothing in its place: the
-``partition-worker`` command, ``loadtest --transport socket`` with P x R
-above 1 (JAX spawns partition workers behind a gateway there) and
-``--front-ends`` above 1 (item 7.4b); ``lint`` (item 8).
+The fleet over the wire (the JAX CLI's flags and keys):
+``partition-worker`` serves one partition replica of the store's
+``--partitions``-way split as a process of its own (no model: the store
+and its view on ``--device``), registered with the gateway or gateways at
+``--connect``; it prints a ready line (partition_worker, partitions,
+replica, gateways, shards, rows, pid, device) and, once every gateway
+said BYE, an exit line; SIGTERM drains it. ``loadtest --transport socket``
+with P x R above 1 spawns one ``partition-worker`` subprocess a replica
+behind a ``WorkerGateway`` a front end and exits non-zero, naming the
+(partition, replica) slots, when they have not all registered within
+``--worker-wait-s``; ``--front-ends N`` runs N front ends over one worker
+set, spread by a seeded ``--balance`` policy (the report gains
+``front_ends`` and ``balance_policy``, each trial a ``front_ends``
+block); ``--faults PLAN`` installs a fault plan (``faults.plan``) and
+``--chaos PLAN`` one armed after the fleet is up, over the wire ops (the
+report gains a ``chaos`` block: offered, sheds, errors, availability,
+injected). The workers and gateways are torn down in order: BYE, then a
+wait for each process, then a kill.
+
+``lint`` (ROADMAP.md queue 1, item 8) exits non-zero naming its item and
+runs nothing in its place.
 """
 from __future__ import annotations
 
@@ -91,17 +113,17 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import Dict, List, Optional
 
 from dnn_page_vectors_tpu_torch.config import CONFIGS, get_config
 
 PORTED = ("configs", "train", "embed", "eval", "mine", "pipeline", "search",
           "loadtest", "serve-metrics", "trace", "init-store", "merge-store",
-          "reset-store", "append", "refresh", "migrate", "index", "maintain")
+          "reset-store", "append", "refresh", "migrate", "index", "maintain",
+          "partition-worker")
 # command -> (ROADMAP.md queue 1 item, what it needs)
 NOT_PORTED = {
-    "partition-worker": ("7.4b", "the partition workers behind the "
-                         "gateway"),
     "lint": (8, "graftcheck over the port"),
 }
 
@@ -163,23 +185,6 @@ def _open_index(cfg, store, device):
 
 
 SERVING = ("search", "loadtest", "serve-metrics", "trace")
-
-
-def _refuse_unported_serving(args) -> None:
-    """The serving flags whose parts are a later slice exit naming their
-    ROADMAP.md item; none runs anything in their place. Partitions and
-    replicas serve in process; over the socket the JAX CLI runs them as
-    partition workers behind a gateway, which is item 7.4b."""
-    if args.command not in SERVING:
-        return
-    if args.front_ends > 1:
-        raise _not_ported("--front-ends > 1", "7.4b",
-                          "several front ends over one fleet")
-    if (args.transport == "socket"
-            and (args.partitions or 1) * (args.replicas or 1) > 1):
-        raise _not_ported("--transport socket with --partitions or "
-                          "--replicas", "7.4b",
-                          "the partition workers behind the gateway")
 
 
 def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
@@ -245,7 +250,7 @@ def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
         svc.close()      # the final metrics go to the metrics log
         return
     if args.command == "loadtest":
-        _loadtest(args, cfg, trainer, embedder, store, k)
+        _loadtest(args, cfg, trainer, embedder, store, k, workdir)
         return
     # trace / serve-metrics: streaming, as one-shot queries are
     svc = SearchService(cfg, embedder, trainer.corpus, store,
@@ -254,8 +259,6 @@ def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
         # one probe query, so the rate and latency instruments are live
         svc.search_many([trainer.corpus.query_text(0)], k=k)
         if args.watch:
-            import time
-
             from dnn_page_vectors_tpu_torch.loadgen import snapshot_line
             try:
                 while True:
@@ -287,13 +290,73 @@ def _serve_command(args, cfg, trainer, embedder, store, workdir: str) -> None:
         "slow_ms": cfg.obs.slow_ms}, sort_keys=True))
 
 
-def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
+def _spawn_workers(args, cfg, workdir: str, gateways, P: int, R: int):
+    """One `partition-worker` subprocess a (partition, replica) slot,
+    registered with every gateway, with this command's config overrides
+    (the workers' views must be the front ends'). Their stdout (the ready
+    and exit lines) is dropped; their stderr is this process's."""
+    import subprocess
+    connect = ",".join(f"{gw.host}:{gw.port}" for gw in gateways)
+    cmd = [sys.executable, "-m", "dnn_page_vectors_tpu_torch.cli",
+           "partition-worker", "--config", args.config, "--workdir", workdir,
+           "--connect", connect, "--partitions", str(P),
+           "--device", args.device]
+    for pair in args.set_pairs:
+        cmd += ["--set", pair]
+    return {(p, r): subprocess.Popen(cmd + ["--partition", str(p),
+                                            "--replica", str(r)],
+                                     stdout=subprocess.DEVNULL)
+            for p in range(P) for r in range(R)}
+
+
+def _stop_workers(procs, timeout_s: float = 10.0) -> None:
+    """Wait for each worker (its gateways' BYE ends it), then kill what
+    is left; every spawned process is reaped."""
+    import subprocess
+    t_end = time.monotonic() + timeout_s
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(0.0, t_end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _chaos_block(report: Dict, plan: str) -> Dict:
+    """The availability drill's record: the share of offered queries
+    answered (sheds left out of both sides: a shed is backpressure, not
+    lost availability) and the faults injected."""
+    from dnn_page_vectors_tpu_torch.utils import faults
+    trials = report.get("trials", [])
+    sent = sum(t.get("requests_sent", 0) for t in trials)
+    errs = sum(t.get("errors", 0) for t in trials)
+    sheds = sum(t.get("transport", {}).get("client_sheds", 0)
+                for t in trials)
+    return {
+        "plan": plan, "offered": sent, "sheds": sheds, "errors": errs,
+        "availability": round(max(sent - sheds - errs, 0)
+                              / max(sent - sheds, 1), 6),
+        "injected": {key: v for key, v in faults.counters().items()
+                     if key.startswith("injected_")
+                     or key == "worker_reconnect"}}
+
+
+def _loadtest(args, cfg, trainer, embedder, store, k: int,
+              workdir: str) -> None:
     """find_qps_at_p99 against a micro-batched service over the corpus's
-    first --distinct queries, in process or through the socket front end;
-    trial progress goes to stderr, the report is one JSON line."""
+    first --distinct queries, in process or through the socket front end
+    (with P x R above 1 over partition-worker subprocesses behind a
+    gateway, and with --front-ends N over N front ends); trial progress
+    goes to stderr, the report is one JSON line."""
     from dnn_page_vectors_tpu_torch.infer.serve import SearchService
     from dnn_page_vectors_tpu_torch.loadgen import (
-        Mutator, find_qps_at_p99, make_workload)
+        BalancedClient, Mutator, find_qps_at_p99, make_workload)
+    from dnn_page_vectors_tpu_torch.utils import faults
+    n_fe = max(1, int(args.front_ends))
+    if n_fe > 1 and args.transport != "socket":
+        raise SystemExit("--front-ends N > 1 requires --transport socket "
+                         "(the balancer spreads the load over N listeners; "
+                         "an in-process service has none)")
     svc = SearchService(cfg, embedder, trainer.corpus, store,
                         preload_hbm_gb=4.0)
     if args.mutate_every and args.mutate_mode == "maintain":
@@ -331,41 +394,106 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         scen = DEFAULT_FILTER_SCENARIOS
     svc.warmup(k=k)
     svc.start_batcher()
-    server = client = None
-    if args.transport == "socket":
-        from dnn_page_vectors_tpu_torch.infer.server import (
-            serve_in_background)
-        from dnn_page_vectors_tpu_torch.infer.transport import (
-            SocketSearchClient)
-        server = serve_in_background(svc)
-        client = SocketSearchClient(server.host, server.port,
-                                    deadline_ms=cfg.serve.deadline_ms,
-                                    compress=cfg.serve.wire_compress)
+    fe_svcs = [svc]
+    servers, gateways, clients, procs = [], [], [], {}
+    client = None
     try:
+        if args.transport == "socket":
+            from dnn_page_vectors_tpu_torch.infer.partition_host import (
+                WorkerGateway)
+            from dnn_page_vectors_tpu_torch.infer.server import (
+                serve_in_background)
+            from dnn_page_vectors_tpu_torch.infer.transport import (
+                SocketSearchClient)
+            for _ in range(1, n_fe):
+                # each further front end: a service of its own over the
+                # same store, with its own gateway and listener
+                fe = SearchService(cfg, embedder, trainer.corpus, store,
+                                   preload_hbm_gb=4.0)
+                fe.warmup(k=k)
+                fe.start_batcher()
+                fe_svcs.append(fe)
+            pset = svc.partition_set
+            if pset is not None:
+                for fe in fe_svcs:
+                    gw = WorkerGateway(fe)
+                    fe.attach_gateway(gw)
+                    gateways.append(gw)
+                P, R = pset.partitions, pset.replicas
+                procs = _spawn_workers(args, cfg, workdir, gateways, P, R)
+                for fe_i, gw in enumerate(gateways):
+                    t0 = time.perf_counter()
+                    if not gw.wait_for_workers(P * R,
+                                               timeout_s=args.worker_wait_s):
+                        live = set(gw.live_workers())
+                        missing = sorted(set(procs) - live)
+                        for proc in procs.values():
+                            proc.kill()
+                        raise SystemExit(
+                            f"{len(missing)} of {P * R} partition workers "
+                            f"did not register with front end {fe_i} "
+                            f"within {time.perf_counter() - t0:.2f} s "
+                            f"(--worker-wait-s {args.worker_wait_s}): "
+                            f"(partition, replica) slots {missing}")
+            fleet_cache = bool(cfg.serve.result_cache
+                               and cfg.serve.result_cache_fleet)
+            for fe_i, fe in enumerate(fe_svcs):
+                servers.append(serve_in_background(fe, front_end=fe_i))
+            for srv in servers:
+                clients.append(SocketSearchClient(
+                    srv.host, srv.port, deadline_ms=cfg.serve.deadline_ms,
+                    compress=cfg.serve.wire_compress,
+                    result_cache=fleet_cache))
+            if fleet_cache and n_fe > 1:
+                # each front end shares its result cache with the others
+                for fe_i, fe in enumerate(fe_svcs):
+                    fe.attach_cache_peers([
+                        SocketSearchClient(srv.host, srv.port,
+                                           result_cache=True)
+                        for j, srv in enumerate(servers) if j != fe_i])
+            client = (clients[0] if n_fe == 1 else
+                      BalancedClient(clients, policy=args.balance,
+                                     seed=args.seed))
         distinct = max(1, args.distinct)
         queries = [trainer.corpus.query_text(i) for i in range(distinct)]
         wl = make_workload(args.shape, seed=args.seed, distinct=distinct,
                            profile=((k, None, 1.0),), filter_scenarios=scen)
         trial_s = (args.trial_s if args.trial_s is not None
                    else cfg.obs.window_s)
+        if args.chaos:
+            # armed only now: the store, the fleet's start and its
+            # registrations must not take the plan's scheduled calls
+            faults.install(faults.FaultPlan.parse(args.chaos,
+                                                  seed=cfg.faults.seed))
         report = find_qps_at_p99(
             svc, wl, queries, p99_target_ms=args.p99_ms,
             start=args.start_qps, iters=args.iters, duration_s=trial_s,
             warmup_s=args.warmup_s, client=client, mutator=mut,
             progress=lambda line: print(line, file=sys.stderr, flush=True),
-            progress_every_s=max(1.0, trial_s / 2.0))
+            progress_every_s=max(1.0, trial_s / 2.0),
+            front_ends=fe_svcs if n_fe > 1 else None)
+        final = svc.metrics()
     finally:
-        if client is not None:
-            client.close()
-        if server is not None:
-            server.close()
-        svc.close()
-    final = svc.metrics()
-    if server is not None:
+        # the orderly teardown: clients, listeners, then the gateways'
+        # BYE, which ends each worker, then every process reaped
+        for c in clients:
+            c.close()
+        for srv in servers:
+            srv.close()
+        for gw in gateways:
+            gw.close()
+        _stop_workers(procs.values())
+        for fe in fe_svcs:
+            fe.close()
+    if servers:
         report.update({"transport": "socket",
-                       "listen": f"{server.host}:{server.port}",
+                       "listen": ",".join(f"{srv.host}:{srv.port}"
+                                          for srv in servers),
                        **({"transport_totals": final["transport"]}
                           if "transport" in final else {})})
+        if n_fe > 1:
+            report["front_ends"] = n_fe
+            report["balance_policy"] = args.balance
     if scen is not None:
         # each trial record has its scenarios' qps and p99
         # (loadgen/driver.py "filter_scenarios"); this says the mix ran
@@ -379,6 +507,8 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         report.update({key: final[key] for key in (
             "serve_partitions", "serve_replicas", "replica_shed",
             "partition_degraded", "partitions")})
+    if args.chaos:
+        report["chaos"] = _chaos_block(report, args.chaos)
     report.update({
         "store_vectors": store.num_vectors, "query_batch": svc.query_batch,
         "k": k, "serve_index": cfg.serve.index,
@@ -387,7 +517,8 @@ def _loadtest(args, cfg, trainer, embedder, store, k: int) -> None:
         "batch_window_ms": round(svc.batch_window_ms, 3),
         "warm_latency_ms": round(svc.warm_latency_ms, 3),
         "encodes": svc.encodes, "batch_retries": svc.batch_retries,
-        "mean_batch": final.get("serve_mean_batch")})
+        "mean_batch": final.get("serve_mean_batch"),
+        "fault_counters": faults.counters()})
     if mut is not None:
         report.update({"mutate_every_s": args.mutate_every,
                        "mutate_mode": args.mutate_mode,
@@ -468,8 +599,6 @@ def _index(args, cfg, store, store_dir: str) -> None:
     """index: the IVF index built over the store on --device (--pq, or a
     non-zero serve.pq_m: with OPQ+PQ codes; --pq alone takes dim/8
     subspaces), overwriting the live index directory."""
-    import time
-
     from dnn_page_vectors_tpu_torch.index.ivf import IVFIndex
     from dnn_page_vectors_tpu_torch.index.pq import auto_pq_m
     from dnn_page_vectors_tpu_torch.utils import faults
@@ -509,8 +638,6 @@ def _maintain(args, cfg, store, store_dir: str) -> None:
     --once prints one pass of every pillar; otherwise the pillar workers
     poll every maintenance.interval_s until interrupted, one JSON line a
     pass that did work."""
-    import time
-
     from dnn_page_vectors_tpu_torch.maintenance import MaintenanceService
     from dnn_page_vectors_tpu_torch.utils import faults
     ms = MaintenanceService(cfg, store.directory, device=args.device)
@@ -723,16 +850,50 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "front end on loopback and issues through the "
                          "socket client")
     ap.add_argument("--front-ends", dest="front_ends", type=int, default=1,
-                    help="loadtest: socket front ends (1; more is not "
-                         "ported)")
+                    metavar="N",
+                    help="loadtest: N socket front ends over one worker "
+                         "set, each with its own gateway and listener, the "
+                         "load spread by --balance; needs --transport "
+                         "socket when N > 1")
+    ap.add_argument("--balance", default="round_robin",
+                    choices=["round_robin", "least_loaded"],
+                    help="loadtest: the client-side policy across "
+                         "--front-ends (seeded by --seed)")
     ap.add_argument("--partitions", type=int, default=None, metavar="P",
                     help="loadtest / search: serve.partitions, P "
-                         "contiguous partitions of the store served in "
-                         "process (--transport socket with them is not "
-                         "ported)")
+                         "contiguous partitions of the store (in process; "
+                         "loadtest --transport socket spawns a "
+                         "partition-worker a replica); partition-worker: "
+                         "the split this worker's partition belongs to")
     ap.add_argument("--replicas", type=int, default=None, metavar="R",
                     help="loadtest / search: serve.replicas, R replicas "
                          "of every partition")
+    ap.add_argument("--worker-wait-s", dest="worker_wait_s", type=float,
+                    default=120.0,
+                    help="loadtest --transport socket: how long every "
+                         "partition worker has to register; past it the "
+                         "command exits non-zero naming the missing slots")
+    # -- partition-worker --------------------------------------------------
+    ap.add_argument("--connect", default=None, metavar="HOST:PORT",
+                    help="partition-worker: the front end's gateway to "
+                         "register with; HOST:PORT,... registers with "
+                         "every one listed (several front ends)")
+    ap.add_argument("--partition", type=int, default=0, metavar="I",
+                    help="partition-worker: the partition of the "
+                         "--partitions-way split this process serves")
+    ap.add_argument("--replica", type=int, default=0, metavar="R",
+                    help="partition-worker: this process's replica id "
+                         "within its partition")
+    ap.add_argument("--faults", default=None, metavar="PLAN",
+                    help="a fault plan 'op:kind:at[:count],...' "
+                         "(utils/faults.py; --set faults.plan=PLAN)")
+    ap.add_argument("--chaos", default=None, metavar="PLAN",
+                    help="loadtest: a seeded plan of wire faults (ops "
+                         "wire_send, wire_recv, worker_dial, "
+                         "gateway_accept, cache_peer_send; kinds "
+                         "conn_drop, frame_delay, frame_trunc, frame_dup) "
+                         "armed once the fleet is up; the report gains a "
+                         "chaos block")
     ap.add_argument("--filters", dest="lt_filters", action="store_true",
                     help="loadtest: mix seeded filtered queries into the "
                          "workload (one predicate scenario a request over "
@@ -763,7 +924,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command in NOT_PORTED:
         item, need = NOT_PORTED[args.command]
         raise _not_ported(f"the '{args.command}' command", item, need)
-    _refuse_unported_serving(args)
     if not args.workdir:
         ap.error(f"{args.command} needs --workdir")
     if args.command == "search" and not (args.query or args.queries
@@ -781,6 +941,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         overrides["serve.partitions"] = max(1, args.partitions)
     if args.replicas is not None:
         overrides["serve.replicas"] = max(1, args.replicas)
+    if args.faults is not None:
+        overrides["faults.plan"] = args.faults
+    # the overrides as --set pairs: a loadtest's partition workers take the
+    # front end's config
+    args.set_pairs = [f"{key}={val}" for key, val in overrides.items()]
     cfg = get_config(args.config, overrides)
     from dnn_page_vectors_tpu_torch.utils import faults
     faults.install_from_config(cfg)
@@ -788,6 +953,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     store_dir = os.path.join(workdir, "store")
     if args.command in STORE_ADMIN:
         _store_admin(args, cfg, workdir, store_dir)
+        return
+    if args.command == "partition-worker":
+        # one partition replica as a process of its own: the store and its
+        # view on --device, no model or checkpoint
+        if not args.connect:
+            ap.error("partition-worker requires --connect HOST:PORT")
+        from dnn_page_vectors_tpu_torch.infer.partition_host import (
+            run_partition_worker)
+        run_partition_worker(cfg, store_dir, args.connect,
+                             partition=args.partition,
+                             partitions=max(1, args.partitions or 1),
+                             replica=args.replica, device=args.device)
         return
     trainer = _trainer(cfg, workdir, args.device)
     mgr = _restore(trainer, workdir)

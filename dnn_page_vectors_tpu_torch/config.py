@@ -185,6 +185,36 @@ class ServeConfig:
     # admission; off by default
     result_cache: bool = False
     result_cache_size: int = 4096
+    # the fleet over the wire (infer/partition_host.py). A partition whose
+    # answer has not come within this quantile of its observed RPC latency
+    # is asked again of a sibling replica's worker, and the first answer
+    # wins (serve.hedge_fired); needs 8 latency samples; <= 0 or >= 1 off
+    hedge_quantile: float = 0.95
+    # a worker's heartbeat interval (s); one silent for 2x this (plus
+    # 0.25 s) or whose connection dropped is lost (worker_lost) and its
+    # replica sheds with reason "liveness"
+    heartbeat_s: float = 0.5
+    # share the result cache between front ends over the wire
+    # (FLAG_RESULT_CACHE: T_CACHE_LOOKUP / T_CACHE_PUT) and let the workers
+    # keep a per-connection block cache; needs serve.result_cache
+    result_cache_fleet: bool = False
+    # a worker that loses its gateway re-dials with exponential backoff and
+    # jitter from reconnect_base_s up to reconnect_max_s (s) and
+    # re-registers; False: a lost connection ends the worker
+    reconnect: bool = True
+    reconnect_base_s: float = 0.05
+    reconnect_max_s: float = 2.0
+    # the gateway's breaker per replica: this many consecutive wire
+    # failures open it (routing skips the replica) for breaker_open_s,
+    # doubling on each failed probe up to breaker_max_s; <= 0 off
+    breaker_failures: int = 3
+    breaker_open_s: float = 0.25
+    breaker_max_s: float = 30.0
+    # elastic membership: the live worker set sets the partition split (a
+    # worker joining at the next tail index widens it, a draining tail
+    # worker narrows it) through the generation-gated T_REFRESH handoff;
+    # False: the split is fixed at boot
+    elastic: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -42,10 +42,11 @@ returns the critical path (the slowest partition plus the merge), the
 one-box stand-in for P hosts; on one card the partitions share the SMs,
 so it claims no scaling with P.
 
-``set_liveness`` is the seam the worker gateway uses to mark replicas
-whose worker stopped heartbeating (ROADMAP.md queue 1, item 7.4b: the
-gateway, ``PartitionWorker`` and the fleet frames); its default, None,
-counts every replica as live.
+``set_liveness`` is the seam the worker gateway of the fleet over the
+wire (infer/partition_host.py) installs through
+``SearchService.attach_gateway``: a replica whose worker process stopped
+heartbeating or lost its connection sheds with reason "liveness". Its
+default, None, counts every replica as live.
 """
 from __future__ import annotations
 

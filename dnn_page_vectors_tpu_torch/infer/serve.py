@@ -127,11 +127,23 @@ gains ``partitions``: each replica's restage milliseconds), and
 ``serve_replicas``, ``replica_shed``, ``partition_degraded``,
 ``partitions``).
 
-Left for later slices, each named by its ROADMAP.md queue 1 item: the
-fleet over the wire (7.4b: the worker gateway, ``PartitionWorker``, the
-T_REGISTER / T_HEARTBEAT / T_BYE / T_REFRESH frames, hedging, circuit
-breakers, resplit and drain, several front ends and the fleet result
-cache); fault injection on the wire and the degraded mode (8).
+The fleet over the wire (infer/partition_host.py): ``attach_gateway(gw)``
+puts a ``WorkerGateway`` in the query path. A bucket is still encoded once
+and its matrix copied to the host once; the gateway fans it out to one
+routed partition worker a partition (hedged, with deadlines, and served
+locally on the front end's own view when a worker fails), and routing sees
+the workers' liveness (``set_liveness``). ``refresh()`` then broadcasts
+the new generation to the workers (its info gains ``workers_refresh``),
+and ``metrics()``'s transport block gains ``hedge_fires`` and the
+gateway's counts (``rpcs``, ``rpc_fallbacks``, ``workers_live``, ...).
+With ``serve.result_cache_fleet`` the result cache is shared between front
+ends: ``attach_cache_peers`` takes the siblings' socket clients, a local
+miss probes them (``T_CACHE_LOOKUP``) and a fill is pushed to them
+(``T_CACHE_PUT``), each peer behind a circuit breaker of its own; the
+socket front end answers the peers' frames (``_result_cache_wire_get`` /
+``_result_cache_wire_put``).
+
+Left for a later slice (ROADMAP.md queue 1, item 8): the degraded mode.
 """
 from __future__ import annotations
 
@@ -475,7 +487,9 @@ class SearchService:
         if cfg.serve.index not in ("exact", "ivf"):
             raise ValueError(f"unknown serve.index {cfg.serve.index!r} "
                              "(want exact | ivf)")
-        if embedder.query_tok is None:
+        if embedder.query_tok is None and not getattr(
+                embedder, "vectors_only", False):
+            # a partition worker's DeviceEmbedder serves vectors only
             raise ValueError("SearchService needs an embedder with a query "
                              "tokenizer")
         self.cfg = cfg
@@ -518,6 +532,10 @@ class SearchService:
         # uncompressed equivalent of the same traffic
         self._m_wire_bytes = reg.counter("serve.wire_bytes")
         self._m_wire_raw = reg.counter("serve.wire_raw_bytes")
+        # hedged RPCs of the worker gateway; the gateway itself once
+        # attached (attach_gateway), None: the in-process scatter
+        self._m_hedge_fired = reg.counter("serve.hedge_fired")
+        self._fanout = None
         self._m_ann_lists = reg.counter("serve.ann_lists_scanned")
         self._m_ann_reranked = reg.counter("serve.ann_candidates_reranked")
         self._m_ann_fallbacks = reg.counter("serve.ann_fallbacks")
@@ -547,6 +565,12 @@ class SearchService:
         self._rcache: "OrderedDict[tuple, list]" = OrderedDict()
         self._rcache_bytes = 0                        # guarded-by: _rcache_lock
         self._rcache_lock = threading.Lock()
+        # the fleet result cache rides on the local one: the sibling front
+        # ends' socket clients (attach_cache_peers), each with a breaker
+        self._rcache_fleet = bool(self._rcache_cap
+                                  and serve.result_cache_fleet)
+        self._rcache_peers: list = []               # guarded-by: _rcache_lock
+        self._rcache_peer_breakers: list = []       # guarded-by: _rcache_lock
         self._m_rcache_hits = reg.counter("serve.result_cache_hits",
                                           window_s=win)
         self._m_rcache_misses = reg.counter("serve.result_cache_misses",
@@ -992,6 +1016,12 @@ class SearchService:
             info["partitions"] = part_info
         elif view.stage_info:
             info["stage"] = dict(view.stage_info)
+        if self._fanout is not None:
+            # the workers rebuild onto this generation on T_REFRESH, no
+            # restart; until each acks, its slice serves from the view just
+            # published, so the broadcast does not hold the refresh
+            info["workers_refresh"] = self._fanout.broadcast_refresh(
+                view.generation)
         if view.index_info is not None:
             info["index_update"] = view.index_info
         if view.index_error is not None:
@@ -1180,6 +1210,28 @@ class SearchService:
     @property
     def deadline_sheds(self) -> int:
         return self._m_deadline_shed.value
+
+    @property
+    def hedge_fires(self) -> int:
+        return self._m_hedge_fired.value
+
+    @property
+    def fanout(self):
+        """The attached WorkerGateway (None: the in-process scatter)."""
+        return self._fanout
+
+    def attach_gateway(self, gateway) -> None:
+        """Put a partition_host.WorkerGateway in the query path: the
+        scatter becomes an RPC fan-out to the registered workers, and
+        routing takes the workers' liveness on top of the replicas'
+        health, so a replica whose worker is lost sheds with reason
+        "liveness". ``attach_gateway(None)`` detaches (whoever opened the
+        gateway closes it)."""
+        self._fanout = gateway
+        pset = gateway.partition_set if gateway is not None else self._pset
+        if pset is not None:
+            pset.set_liveness(
+                gateway.worker_alive if gateway is not None else None)
 
     @property
     def wire_bytes(self) -> int:
@@ -1491,6 +1543,135 @@ class SearchService:
     def _entry_bytes(hits: list) -> int:
         return 96 + sum(64 + len(h.get("snippet") or "") for h in hits)
 
+    # -- the fleet result cache --------------------------------------------
+    def attach_cache_peers(self, clients: Sequence) -> None:
+        """Share the result cache with sibling front ends: their
+        SocketSearchClient handles (built with result_cache=True). A local
+        miss probes each peer's cache before computing, and a local fill
+        is pushed to every peer without waiting. A peer that did not
+        negotiate FLAG_RESULT_CACHE is a no-op. Each peer has a circuit
+        breaker (``serve.breaker_*``): after K consecutive failed probes
+        a down sibling costs one dial an open interval, not one a miss;
+        ``serve.breaker_failures <= 0`` turns them off."""
+        sv = self.cfg.serve
+        with self._rcache_lock:
+            self._rcache_peers = list(clients)
+            self._rcache_peer_breakers = [
+                faults.CircuitBreaker(
+                    failures=sv.breaker_failures, open_s=sv.breaker_open_s,
+                    max_open_s=sv.breaker_max_s,
+                    on_open=lambda b: faults.count(
+                        "cache_peer_breaker_open"))
+                if sv.breaker_failures > 0 else None
+                for _ in self._rcache_peers]
+
+    def _peers_with_breakers(self) -> list:
+        with self._rcache_lock:
+            return list(zip(self._rcache_peers,
+                            self._rcache_peer_breakers))
+
+    def _peer_lookup(self, key: tuple) -> Optional[list]:
+        """Probe the peers for a local miss; a hit is formatted against
+        the local corpus (the same fleet-wide) and cached locally, so its
+        next repeat stays in process."""
+        peers = self._peers_with_breakers()
+        if not peers:
+            return None
+        text, k, nprobe, store_gen, index_gen, ftext = key
+        if ftext:
+            # the wire key has no predicate slot: filtered entries stay
+            # local, so a probe never aliases an unfiltered sibling entry
+            return None
+        for peer, br in peers:
+            if br is not None and not br.allow():
+                continue         # the breaker is open: skip that sibling
+            try:
+                got = peer.cache_lookup(text, k=k, nprobe=nprobe,
+                                        store_gen=store_gen,
+                                        index_gen=index_gen)
+            except Exception:  # noqa: BLE001 -- a broken peer never
+                if br is not None:     # breaks a query
+                    br.record_failure()
+                continue
+            if br is not None:
+                br.record_success()
+            if got is None:
+                continue
+            scores, ids = got
+            hits = self._format(scores[0], ids[0])
+            self._result_cache_put(key, hits)
+            return hits
+        return None
+
+    def _peer_put(self, key: Optional[tuple], hits: list) -> None:
+        if key is None:
+            return
+        peers = self._peers_with_breakers()
+        if not peers:
+            return
+        text, k, nprobe, store_gen, index_gen, ftext = key
+        if ftext:
+            return               # filtered fills never go to peers
+        scores = np.full((k,), -np.inf, np.float32)
+        ids = np.full((k,), -1, np.int64)
+        for i, h in enumerate(hits[:k]):
+            scores[i] = h["score"]
+            ids[i] = h["page_id"]
+        for peer, br in peers:
+            if br is not None and not br.allow():
+                continue
+            try:
+                # False: the frame never left (a broken connection, or a
+                # peer without the flag), which feeds the breaker
+                ok = peer.cache_put(text, k=k, nprobe=nprobe,
+                                    store_gen=store_gen,
+                                    index_gen=index_gen,
+                                    scores=scores, ids=ids)
+            except Exception:  # noqa: BLE001 -- as in _peer_lookup
+                ok = False
+            if br is not None:
+                if ok:
+                    br.record_success()
+                else:
+                    br.record_failure()
+
+    def _result_cache_wire_get(self, ck) -> Optional[tuple]:
+        """A peer's CacheKey probe (the socket front end's T_CACHE_LOOKUP):
+        ([1, k] scores, [1, k] ids) on a hit, None on a miss, with the
+        cache off, or for other generations. Never computes."""
+        if not self._rcache_fleet:
+            return None
+        key = (self._normalize(ck.query), ck.k, int(ck.nprobe),
+               ck.store_gen, ck.index_gen, "")
+        hits = self._result_cache_get(key)
+        if hits is None:
+            return None
+        scores = np.full((1, ck.k), -np.inf, np.float32)
+        ids = np.full((1, ck.k), -1, np.int64)
+        for i, h in enumerate(hits[:ck.k]):
+            scores[0, i] = h["score"]
+            ids[0, i] = h["page_id"]
+        return scores, ids
+
+    def _result_cache_wire_put(self, ck, scores: np.ndarray,
+                               ids: np.ndarray) -> bool:
+        """A peer's CacheKey fill (T_CACHE_PUT). Its generations are held
+        against the live view's: a stale push (a peer behind a refresh) is
+        dropped, never cached under a reachable key. The hits are
+        formatted against the local corpus."""
+        if not self._rcache_fleet:
+            return False
+        live = self._result_cache_key(ck.query, ck.k, ck.nprobe or None)
+        if live is None or (live[3], live[4]) != (ck.store_gen,
+                                                  ck.index_gen):
+            return False
+        key = (self._normalize(ck.query), ck.k, int(ck.nprobe),
+               ck.store_gen, ck.index_gen, "")
+        self._result_cache_put(
+            key, self._format(np.asarray(scores).reshape(-1),
+                              np.asarray(ids).reshape(-1)))
+        return True
+
     # -- the micro-batcher -------------------------------------------------
     def start_batcher(self) -> "SearchService":
         """Route later search() calls through the micro-batcher.
@@ -1586,6 +1767,10 @@ class SearchService:
                     self.wire_raw_bytes / self.wire_bytes, 3)
         if self.deadline_sheds:
             transport["deadline_sheds"] = self.deadline_sheds
+        if self.hedge_fires:
+            transport["hedge_fires"] = self.hedge_fires
+        if self._fanout is not None:
+            transport.update(self._fanout.stats())
         if transport:
             rec["transport"] = transport
         if self._rcache_cap > 0:
@@ -1698,6 +1883,8 @@ class SearchService:
         if rkey is not None:
             t0 = time.perf_counter()
             hits = self._result_cache_get(rkey, count=False)
+            if hits is None:
+                hits = self._peer_lookup(rkey)
             if hits is not None:
                 self._m_rcache_hits.inc()
                 self._m_requests.inc()
@@ -1763,7 +1950,8 @@ class SearchService:
         try:
             with self.tracer.root_or_span("search_many", n_queries=n, k=k):
                 out = self._search_view(view, list(queries), n, k, nprobe,
-                                        predicate=pred, table=table)
+                                        predicate=pred, table=table,
+                                        deadline=deadline)
         except BaseException:
             if _record:
                 self._m_errors.inc(n)
@@ -1776,14 +1964,23 @@ class SearchService:
 
     def _search_view(self, view: _ServeView, queries: List[str], n: int,
                      k: int, nprobe: Optional[int], predicate=None,
-                     table: Optional[tuple] = None) -> List[List[Dict]]:
+                     table: Optional[tuple] = None,
+                     deadline: Optional[float] = None) -> List[List[Dict]]:
         if predicate is not None:
             # one event a filtered dispatch: its predicate and queries
             self.registry.event("filtered_query", {
                 "predicate": predicate.text[:200], "n_queries": n})
         # the query is encoded once, before any scatter
         qv = self._embed_queries_cached(view, queries)
-        if table is not None:
+        fanout = self._fanout
+        if fanout is not None and fanout.active():
+            # over the wire (infer/partition_host.py): one RPC a partition
+            # to the registered workers, deadlines, hedging, and a slice
+            # served locally when its worker fails
+            best_s, best_i = fanout.topk(qv, n, k, nprobe,
+                                         deadline=deadline,
+                                         predicate=predicate)
+        elif table is not None:
             # partitioned: the matrix goes to one replica per partition of
             # `table`, each splitting it by its own stamps (_qv_blocks)
             best_s, best_i = self._pset.topk(qv, n, k, nprobe,
@@ -1796,9 +1993,10 @@ class SearchService:
             out = [self._format(best_s[i], best_i[i]) for i in range(n)]
         if self._rcache_cap > 0:
             for q, hits in zip(queries, out):
-                self._result_cache_put(
-                    self._result_cache_key(q, k, nprobe, view=view,
-                                           filters=predicate), hits)
+                key = self._result_cache_key(q, k, nprobe, view=view,
+                                             filters=predicate)
+                self._result_cache_put(key, hits)
+                self._peer_put(key, hits)
         return out
 
     def topk_vectors(self, qv: np.ndarray, k: Optional[int] = None,
@@ -1812,6 +2010,10 @@ class SearchService:
         pred = compile_filters(filters)
         if not isinstance(qv, torch.Tensor):
             qv = np.asarray(qv, np.float32)
+        fanout = self._fanout
+        if fanout is not None and fanout.active():
+            return fanout.topk(qv, qv.shape[0], k, nprobe, deadline=deadline,
+                               predicate=pred)
         if self._pset is not None:
             return self._pset.topk(qv, qv.shape[0], k, nprobe,
                                    predicate=pred)

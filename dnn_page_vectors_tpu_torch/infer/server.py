@@ -34,9 +34,19 @@ root.
 A partitioned service (``serve.partitions`` / ``serve.replicas``,
 infer/partition.py) serves here as it does in process: the front end
 calls the service, and the service scatters each bucket to its partition
-replicas. The JAX front end's worker gateway, its partition workers in
-processes of their own, hedging, circuit breakers and the fleet
-result-cache frames wait for ROADMAP.md queue 1, item 7.4b.
+replicas, or over the wire to its partition workers once a
+``WorkerGateway`` is attached (infer/partition_host.py).
+
+The fleet result cache: with ``serve.result_cache`` and
+``serve.result_cache_fleet`` the server confirms FLAG_RESULT_CACHE, and a
+sibling front end's ``T_CACHE_LOOKUP`` is answered from the service's
+generation-keyed cache (a hit as a RESULT frame, a miss as T_SHED with
+SHED_CACHE_MISS; the probe admits and computes nothing), its
+``T_CACHE_PUT`` filled into it with no answer (a stale one is dropped).
+
+`front_end` is the server's index in a tier of several front ends over
+one worker fleet (``cli loadtest --front-ends N``): its thread names and
+the load generator's records carry it.
 """
 from __future__ import annotations
 
@@ -52,8 +62,8 @@ from dnn_page_vectors_tpu_torch.infer import transport
 from dnn_page_vectors_tpu_torch.index.attrs import (
     FilterError, compile_filters)
 from dnn_page_vectors_tpu_torch.infer.transport import (
-    DeadlineExceeded, FrameError, FLAG_FILTERS, FLAG_WIRE_COMPRESS, T_HELLO,
-    T_QUERY,
+    DeadlineExceeded, FrameError, FLAG_FILTERS, FLAG_RESULT_CACHE,
+    FLAG_WIRE_COMPRESS, T_CACHE_LOOKUP, T_CACHE_PUT, T_HELLO, T_QUERY,
     T_RESULT, T_RESULT_C, T_SHED, T_ERROR, T_VQUERY, T_VQUERY_PUT,
     T_VQUERY_REF)
 
@@ -84,9 +94,11 @@ class SearchServer:
     (`start_background()` — the cli/loadgen shape; `close()` stops it)."""
 
     def __init__(self, svc, host: Optional[str] = None,
-                 port: Optional[int] = None, executor_workers: int = 32):
+                 port: Optional[int] = None, executor_workers: int = 32,
+                 front_end: int = 0):
         cfg_host, cfg_port = parse_listen(svc.cfg.serve.listen)
         self.svc = svc
+        self.front_end = int(front_end)
         self.host = host if host is not None else cfg_host
         self.port = port if port is not None else cfg_port
         # serve.wire_compress gates what this end ADVERTISES: with it off
@@ -95,9 +107,12 @@ class SearchServer:
         # serve.filters gates FLAG_FILTERS and whether a filtered frame is
         # served at all
         self._filters = bool(svc.cfg.serve.filters)
+        # FLAG_RESULT_CACHE is confirmed only when the service runs the
+        # fleet result cache
+        self._rcache = bool(svc._rcache_fleet)
         self._executor = ThreadPoolExecutor(
             max_workers=executor_workers,
-            thread_name_prefix="serve-socket")
+            thread_name_prefix=f"serve-socket-fe{self.front_end}")
         self._server: Optional[asyncio.AbstractServer] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
@@ -145,7 +160,7 @@ class SearchServer:
 
         self._thread = threading.Thread(
             target=_run, daemon=True,
-            name="serve-socket-loop")
+            name=f"serve-socket-loop-fe{self.front_end}")
         self._thread.start()
         started.wait()
         if failed:
@@ -168,7 +183,6 @@ class SearchServer:
                 self._draining = True
                 if self._server is not None:
                     self._server.close()
-                    await self._server.wait_closed()
                 t_end = loop.time() + max(drain_s, 0.0)
                 while self._inflight > 0 and loop.time() < t_end:
                     await asyncio.sleep(0.005)
@@ -179,6 +193,10 @@ class SearchServer:
                 for t in tasks:
                     t.cancel()
                 await asyncio.gather(*tasks, return_exceptions=True)
+                # only now: wait_closed() waits for every connection to
+                # close (Python 3.12), which the cancelled handlers do
+                if self._server is not None:
+                    await self._server.wait_closed()
 
             try:
                 asyncio.run_coroutine_threadsafe(
@@ -207,14 +225,44 @@ class SearchServer:
                 svc._m_wire_raw.inc(actual)
                 if ftype == T_HELLO:
                     want = transport.decode_hello(payload)
-                    # the fleet result cache is not served here
                     flags = want & ((FLAG_WIRE_COMPRESS if self._compress
                                      else 0)
+                                    | (FLAG_RESULT_CACHE if self._rcache
+                                       else 0)
                                     | (FLAG_FILTERS if self._filters else 0))
                     if flags & FLAG_WIRE_COMPRESS and slots is None:
                         slots = {}
                     await self._write(writer, T_HELLO,
                                       transport.encode_hello(flags))
+                    continue
+                if ftype == T_CACHE_LOOKUP and flags & FLAG_RESULT_CACHE:
+                    # a probe: a hit answers from the cache (no admission,
+                    # no bucket slot), a miss with SHED_CACHE_MISS
+                    ck = transport.decode_cache_lookup(payload)
+                    got = svc._result_cache_wire_get(ck)
+                    if got is None:
+                        await self._write(writer, T_SHED,
+                                          transport.encode_shed(
+                                              ck.req_id,
+                                              transport.SHED_CACHE_MISS,
+                                              "cache_miss"))
+                    elif flags & FLAG_WIRE_COMPRESS:
+                        await self._write(
+                            writer, T_RESULT_C,
+                            transport.encode_result_c(ck.req_id, got[0],
+                                                      got[1]),
+                            raw_len=transport.result_raw_bytes(
+                                *got[0].shape))
+                    else:
+                        await self._write(writer, T_RESULT,
+                                          transport.encode_result(
+                                              ck.req_id, got[0], got[1]))
+                    continue
+                if ftype == T_CACHE_PUT and flags & FLAG_RESULT_CACHE:
+                    # a fill with no answer frame; the service drops one of
+                    # other generations
+                    ck, pscores, pids = transport.decode_cache_put(payload)
+                    svc._result_cache_wire_put(ck, pscores, pids)
                     continue
                 if ftype in (T_QUERY, T_VQUERY, T_VQUERY_PUT, T_VQUERY_REF):
                     if self._draining:
@@ -350,6 +398,8 @@ class SearchServer:
                 if rkey is not None:
                     t0 = time.perf_counter()
                     hits = svc._result_cache_get(rkey, count=False)
+                    if hits is None:
+                        hits = svc._peer_lookup(rkey)
                     if hits is not None:
                         svc._m_rcache_hits.inc()
                         svc._m_requests.inc()
@@ -396,8 +446,11 @@ class SearchServer:
 
 
 def serve_in_background(svc, host: Optional[str] = None,
-                        port: Optional[int] = None) -> SearchServer:
+                        port: Optional[int] = None,
+                        front_end: int = 0) -> SearchServer:
     """One-call server hosting for the CLI, the load generator and the
     tests: binds (serve.listen unless overridden), runs the loop on a
-    daemon thread, returns the handle (`.host` / `.port` / `.close()`)."""
-    return SearchServer(svc, host=host, port=port).start_background()
+    daemon thread, returns the handle (`.host` / `.port` / `.close()`).
+    `front_end` is its index in a tier of several front ends."""
+    return SearchServer(svc, host=host, port=port,
+                        front_end=front_end).start_background()

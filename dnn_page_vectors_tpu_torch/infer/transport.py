@@ -1,9 +1,12 @@
-"""The serving wire protocol: the port's copy of the single-service part
-of the JAX package's infer/transport.py, byte for byte the same frames.
+"""The serving wire protocol: the port's copy of the JAX package's
+infer/transport.py, byte for byte the same frames, so a JAX peer and a
+port peer read each other.
 
-One length-prefixed binary framing for the client edge of the socket front
-end (`infer/server.py`): text or vector queries in, scores and page ids
-out. Binary because the hot payloads are arrays: raw little-endian array
+One length-prefixed binary framing for every socket of the serving fleet:
+the client edge of the socket front end (`infer/server.py`: text or
+vector queries in, scores and page ids out) and the partition RPC hop
+(`infer/partition_host.py`: query vectors fanned out to partition
+workers). Binary because the hot payloads are arrays: raw little-endian array
 bytes round-trip exactly, so socket results equal the in-process ones
 bit for bit.
 
@@ -36,16 +39,33 @@ Message types (the numbers are the JAX package's):
     T_VQUERY_REF a VQUERY referencing a previously PUT slot
     T_HELLO      capability exchange: the client advertises flags, the
                  server answers with the agreed intersection
+    T_REGISTER   partition worker hello: (partition, replica, pid
+                 [, flags, store generation])
+    T_HEARTBEAT  worker liveness tick (empty payload)
+    T_BYE        clean deregistration (empty payload)
+    T_REFRESH    control: re-open the store and rebuild the view (the
+                 target store generation, and in the extended form the
+                 partition-split width of an elastic re-split); the worker
+                 acks with its own T_REFRESH of what it now serves
+    T_DRAIN      a worker announces it is draining (empty payload)
+    T_CACHE_LOOKUP  a result-cache probe by the generation-qualified key; a
+                 hit answers T_RESULT / T_RESULT_C, a miss T_SHED with
+                 SHED_CACHE_MISS
+    T_CACHE_PUT  one computed result row shared into a peer's cache; no
+                 response frame (the receiver drops a stale entry)
 
-Partitioned serving runs inside one process (infer/partition.py) and
-needs no frame of its own. The partition-worker frames (T_REGISTER,
-T_HEARTBEAT, T_BYE, T_REFRESH, T_DRAIN) and the fleet result-cache frames
-(T_CACHE_LOOKUP, T_CACHE_PUT) belong to the fleet over the wire, which
-the port does not have yet (ROADMAP.md queue 1, item 7.4b: the gateway,
-PartitionWorker, hedging, circuit breakers, resplit and drain): this end
-rejects them as unknown types.
-Nobody sends a compressed or interned frame a peer did not advertise, so
-raw and compressing peers interoperate.
+Negotiation: capability flags are advertised by the connecting peer (a
+worker in its REGISTER, a client in a leading T_HELLO) and confirmed by
+the accepting side with a T_HELLO carrying the agreed intersection.
+Nobody sends a compressed, interned, cache or filtered frame a peer did
+not advertise, so raw and compressing peers interoperate.
+
+Wire faults: ``read_frame``, ``write_frame`` and ``FrameSender.send``
+consult the active fault plan (utils/faults.py) under an op name
+(``wire_send``, ``wire_recv``, ``cache_peer_send``); a delay stalls the
+frame, a dup sends it twice, a truncation or a drop tears the stream and
+raises ``InjectedFault`` (an OSError), so the callers' recovery paths run
+unchanged. With no plan installed the check is a dict lookup.
 
 Deadlines travel as RELATIVE remaining milliseconds: the two ends of a
 socket do not share a clock, and a relative budget re-anchors on the
@@ -65,10 +85,14 @@ import itertools
 import socket
 import struct
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from dnn_page_vectors_tpu_torch.utils import faults
+from dnn_page_vectors_tpu_torch.utils.faults import InjectedFault
 
 MAGIC = 0x44505631            # "DPV1": protocol id + version in one word
 MAX_FRAME = 64 * 2 ** 20      # reject oversize lengths before any recv
@@ -80,16 +104,23 @@ T_VQUERY = 2
 T_RESULT = 3
 T_SHED = 4
 T_ERROR = 5
+T_REGISTER = 6
+T_HEARTBEAT = 7
+T_BYE = 8
 T_RESULT_C = 9                # compressed RESULT (varint id block)
 T_VQUERY_PUT = 10             # VQUERY + intern block into a cache slot
 T_VQUERY_REF = 11             # VQUERY referencing an interned slot
 T_HELLO = 12                  # capability exchange (flags byte)
+T_REFRESH = 13                # view-refresh control / generation ack
+T_CACHE_LOOKUP = 14           # result-cache probe (key -> RESULT / miss)
+T_CACHE_PUT = 15              # result-cache share (key + one result row)
+T_DRAIN = 16                  # worker drain announcement (empty payload)
 
-_TYPES = {T_QUERY, T_VQUERY, T_RESULT, T_SHED, T_ERROR, T_RESULT_C,
-          T_VQUERY_PUT, T_VQUERY_REF, T_HELLO}
+_TYPES = {T_QUERY, T_VQUERY, T_RESULT, T_SHED, T_ERROR, T_REGISTER,
+          T_HEARTBEAT, T_BYE, T_RESULT_C, T_VQUERY_PUT, T_VQUERY_REF,
+          T_HELLO, T_REFRESH, T_CACHE_LOOKUP, T_CACHE_PUT, T_DRAIN}
 
-# capability flags (HELLO negotiation); the port's front end confirms only
-# FLAG_WIRE_COMPRESS
+# capability flags (REGISTER / HELLO negotiation)
 FLAG_WIRE_COMPRESS = 0x01     # peer speaks T_RESULT_C + T_VQUERY_PUT/REF
 FLAG_RESULT_CACHE = 0x02      # peer speaks the fleet result-cache frames
 FLAG_FILTERS = 0x04           # peer accepts the QUERY/VQUERY filter field
@@ -103,6 +134,7 @@ WIRE_SLOTS = 64
 SHED_DEADLINE = 1             # deadline expired / cannot be met
 SHED_QUEUE = 2                # admission queue budget exceeded
 SHED_DRAINING = 3             # front end shutting down (graceful drain)
+SHED_CACHE_MISS = 4           # T_CACHE_LOOKUP probe missed (not an error)
 
 _QUERY_HEAD = struct.Struct("!QdiiH")     # req id, deadline ms, k, nprobe, nq
 _VQUERY_HEAD = struct.Struct("!QdiiHH")   # ... + n, dim
@@ -111,6 +143,14 @@ _SHED_HEAD = struct.Struct("!QB")         # req id, reason code
 _ERROR_HEAD = struct.Struct("!Q")         # req id
 _SLOT = struct.Struct("!H")               # intern slot id
 _HELLO_HEAD = struct.Struct("!B")         # capability flags
+_REGISTER_HEAD = struct.Struct("!IIQ")    # partition, replica, pid (legacy)
+_REGISTER_HEAD2 = struct.Struct("!IIQBQ")  # ... + flags, store generation
+_REFRESH_HEAD = struct.Struct("!Q")       # store generation (legacy)
+_REFRESH_HEAD2 = struct.Struct("!QI")     # ... + partition-split width
+# result-cache key head: req id, k, nprobe, store generation (the model
+# stamp in its high 32 bits, as the service keys it), index generation
+# (-1: the view serves without an index), text length
+_CACHE_HEAD = struct.Struct("!QiiQqH")
 
 _REQ_IDS = itertools.count(1)
 
@@ -550,6 +590,130 @@ def decode_hello(payload: bytes) -> int:
     return _HELLO_HEAD.unpack(payload)[0]
 
 
+def encode_register(partition: int, replica: int, pid: int,
+                    flags: int = 0, generation: int = 0) -> bytes:
+    """Worker hello. `flags` advertises capabilities (used only once the
+    gateway confirms them in a T_HELLO); `generation` is the store
+    generation the worker's view serves: the gateway routes around a
+    worker whose generation lags the front end's until a T_REFRESH ack
+    catches it up."""
+    return _REGISTER_HEAD2.pack(partition, replica, pid, flags, generation)
+
+
+def decode_register(payload: bytes) -> Tuple[int, int, int, int, int]:
+    """-> (partition, replica, pid, flags, generation). Accepts the legacy
+    16-byte form (flags 0, generation 0) beside the extended one."""
+    if len(payload) == _REGISTER_HEAD.size:
+        partition, replica, pid = _REGISTER_HEAD.unpack(payload)
+        return partition, replica, pid, 0, 0
+    if len(payload) != _REGISTER_HEAD2.size:
+        raise FrameError("register frame has the wrong size")
+    return _REGISTER_HEAD2.unpack(payload)
+
+
+def encode_refresh(generation: int, partitions: int = 0) -> bytes:
+    """Refresh control / ack. `partitions` > 0 ships the extended form
+    with the fleet's partition-split width (an elastic re-split); 0 keeps
+    the legacy 8-byte frame."""
+    if partitions > 0:
+        return _REFRESH_HEAD2.pack(int(generation), int(partitions))
+    return _REFRESH_HEAD.pack(int(generation))
+
+
+def decode_refresh(payload: bytes) -> Tuple[int, int]:
+    """-> (generation, partitions); the legacy 8-byte form reports
+    partitions 0 (keep the current split)."""
+    if len(payload) == _REFRESH_HEAD.size:
+        return _REFRESH_HEAD.unpack(payload)[0], 0
+    if len(payload) == _REFRESH_HEAD2.size:
+        gen, parts = _REFRESH_HEAD2.unpack(payload)
+        return gen, parts
+    raise FrameError("refresh frame has the wrong size")
+
+
+# -- the fleet result cache ---------------------------------------------------
+
+@dataclass(frozen=True)
+class CacheKey:
+    """The generation-qualified result-cache key as it travels the wire:
+    the service's key tuple, so a LOOKUP on one front end addresses the
+    entry a PUT from another created."""
+    req_id: int
+    k: int
+    nprobe: int               # 0 = the server default
+    store_gen: int
+    index_gen: int            # -1 = the view serves without an index
+    query: str                # whitespace-normalized text
+
+
+def _encode_cache_key(req_id: int, query: str, k: int, nprobe: int,
+                      store_gen: int, index_gen: int) -> bytes:
+    raw = query.encode("utf-8")
+    if len(raw) > 0xFFFF:
+        raise ValueError("cache-key query text exceeds 65535 utf-8 bytes")
+    return _CACHE_HEAD.pack(req_id, int(k), int(nprobe), int(store_gen),
+                            int(index_gen), len(raw)) + raw
+
+
+def _decode_cache_key(payload: bytes, what: str) -> Tuple[CacheKey, int]:
+    """-> (key, offset past the key); FrameError on truncation."""
+    if len(payload) < _CACHE_HEAD.size:
+        raise FrameError(f"{what} frame shorter than its fixed header")
+    req_id, k, nprobe, sgen, igen, ln = _CACHE_HEAD.unpack_from(payload)
+    off = _CACHE_HEAD.size
+    if off + ln > len(payload):
+        raise FrameError(f"{what} frame truncated inside the query text")
+    try:
+        query = payload[off: off + ln].decode("utf-8")
+    except UnicodeDecodeError as e:
+        raise FrameError(f"{what} query text is not utf-8: {e}") from None
+    return CacheKey(req_id, k, nprobe, sgen, igen, query), off + ln
+
+
+def encode_cache_lookup(req_id: int, query: str, k: int, nprobe: int,
+                        store_gen: int, index_gen: int) -> bytes:
+    return _encode_cache_key(req_id, query, k, nprobe, store_gen, index_gen)
+
+
+def decode_cache_lookup(payload: bytes) -> CacheKey:
+    key, off = _decode_cache_key(payload, "cache lookup")
+    if off != len(payload):
+        raise FrameError(f"{len(payload) - off} trailing bytes after a "
+                         "cache-lookup key")
+    return key
+
+
+def encode_cache_put(req_id: int, query: str, k: int, nprobe: int,
+                     store_gen: int, index_gen: int, scores: np.ndarray,
+                     ids: np.ndarray) -> bytes:
+    """One computed result row for the key: scores [k] f32 + ids [k] i64,
+    -1-id padded past the real hit count (a RESULT frame's convention)."""
+    scores = np.ascontiguousarray(scores, dtype="<f4").reshape(-1)
+    ids = np.ascontiguousarray(ids, dtype="<i8").reshape(-1)
+    if scores.shape[0] != k or ids.shape[0] != k:
+        raise ValueError(f"cache-put row must be [{k}] scores + [{k}] ids, "
+                         f"got {scores.shape[0]}/{ids.shape[0]}")
+    return (_encode_cache_key(req_id, query, k, nprobe, store_gen,
+                              index_gen) + scores.tobytes() + ids.tobytes())
+
+
+def decode_cache_put(payload: bytes
+                     ) -> Tuple[CacheKey, np.ndarray, np.ndarray]:
+    """-> (key, scores [k] f32, ids [k] i64); the arrays alias the payload.
+    Truncated or trailing bytes are rejected."""
+    key, off = _decode_cache_key(payload, "cache put")
+    if key.k <= 0:
+        raise FrameError(f"cache-put k {key.k} must be positive")
+    want = key.k * (4 + 8)
+    if len(payload) - off != want:
+        raise FrameError(f"cache-put row carries {len(payload) - off} "
+                         f"bytes for k={key.k} ({want} expected)")
+    scores = np.frombuffer(payload, dtype="<f4", count=key.k, offset=off)
+    ids = np.frombuffer(payload, dtype="<i8", count=key.k,
+                        offset=off + key.k * 4)
+    return key, scores, ids
+
+
 # ---------------------------------------------------------------------------
 # framing over sync sockets (the client library)
 # ---------------------------------------------------------------------------
@@ -588,9 +752,69 @@ def read_exact(sock: socket.socket, n: int) -> Optional[bytes]:
     return b"".join(chunks)
 
 
-def read_frame(sock: socket.socket) -> Optional[Tuple[int, bytes]]:
+def _close_quietly(sock: socket.socket) -> None:
+    # shutdown before close: close() alone does not release a socket while
+    # another thread is blocked in recv() on it, so no FIN would reach
+    # either side; shutdown() wakes the reader and tears the stream now
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+def _wire_fault_send(sock: socket.socket, view, op: str) -> bool:
+    """Consult the active fault plan before a framed send. Returns True
+    when the fault itself sent the frame (frame_dup); the kinds that tear
+    the stream close the socket and raise InjectedFault, an OSError, so
+    the callers' recovery paths run unchanged."""
+    plan = faults.active()
+    spec = plan.wire(op)
+    if spec is None:
+        return False
+    kind = spec.kind
+    if kind in ("delay", "frame_delay"):
+        time.sleep(plan.wire_delay_s())
+        return False                      # stalled; the frame still ships
+    if kind == "frame_dup":
+        sock.sendall(view)
+        sock.sendall(view)                # the receiver sees a retransmit
+        return True
+    if kind == "frame_trunc":
+        try:
+            sock.sendall(view[:max(1, len(view) // 2)])
+        except OSError:
+            pass
+        _close_quietly(sock)
+        raise InjectedFault(f"injected fault: {op} frame_trunc")
+    # conn_drop / io_error: the stream dies before any byte of this frame
+    _close_quietly(sock)
+    raise InjectedFault(f"injected fault: {op} {kind}")
+
+
+def _wire_fault_recv(sock: socket.socket, op: str) -> None:
+    """The receive side, fired as a framed read starts: a delay stalls the
+    reader; every other kind tears the stream under it (a receiver cannot
+    truncate or duplicate what its peer sends)."""
+    plan = faults.active()
+    spec = plan.wire(op)
+    if spec is None:
+        return
+    if spec.kind in ("delay", "frame_delay"):
+        time.sleep(plan.wire_delay_s())
+        return
+    _close_quietly(sock)
+    raise InjectedFault(f"injected fault: {op} {spec.kind}")
+
+
+def read_frame(sock: socket.socket,
+               op: str = "wire_recv") -> Optional[Tuple[int, bytes]]:
     """-> (type, payload), or None on clean EOF at a frame boundary.
     Garbage/oversize headers and truncation raise FrameError."""
+    _wire_fault_recv(sock, op)
     hdr = read_exact(sock, HEADER.size)
     if hdr is None:
         return None
@@ -601,11 +825,15 @@ def read_frame(sock: socket.socket) -> Optional[Tuple[int, bytes]]:
     return ftype, payload
 
 
-def write_frame(sock: socket.socket, ftype: int, payload: bytes = b""
-                ) -> int:
-    """Send one frame; returns the wire bytes written (header included)."""
+def write_frame(sock: socket.socket, ftype: int, payload: bytes = b"",
+                counter=None, op: str = "wire_send") -> int:
+    """Send one frame; returns the wire bytes written (header included).
+    `counter` (a telemetry Counter) accumulates them."""
     frame = pack_frame(ftype, payload)
-    sock.sendall(frame)
+    if not _wire_fault_send(sock, frame, op):
+        sock.sendall(frame)
+    if counter is not None:
+        counter.inc(len(frame))
     return len(frame)
 
 
@@ -622,16 +850,20 @@ class FrameSender:
     payload parts — is assembled in ONE resident bytearray and shipped
     with ONE coalesced sendall, so the hot send path does not allocate
     and concatenate per frame. NOT thread-safe — every caller already
-    serializes its connection writes (the client's thread-local
-    connection)."""
+    serializes its connection writes (the worker's and the gateway's send
+    locks, the client's thread-local connection)."""
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
         # owned by the connection's single writer (see class docstring)
         self._buf = bytearray(8192)
 
-    def send(self, ftype: int, *parts) -> int:
-        """Assemble + send one frame; returns wire bytes written."""
+    def send(self, ftype: int, *parts, counter=None, raw_counter=None,
+             raw_len: Optional[int] = None, op: str = "wire_send") -> int:
+        """Assemble + send one frame; returns wire bytes written.
+        `raw_len` is the raw-equivalent frame size for the compression
+        accounting (default: the actual size); `op` names the fault
+        injection point this send fires."""
         views = [_byte_view(p) for p in parts]
         total = HEADER.size + sum(len(v) for v in views)
         buf = self._buf
@@ -642,7 +874,13 @@ class FrameSender:
         for v in views:
             buf[off: off + len(v)] = v
             off += len(v)
-        self.sock.sendall(memoryview(buf)[:total])
+        frame = memoryview(buf)[:total]
+        if not _wire_fault_send(self.sock, frame, op):
+            self.sock.sendall(frame)
+        if counter is not None:
+            counter.inc(total)
+        if raw_counter is not None:
+            raw_counter.inc(total if raw_len is None else raw_len)
         return total
 
 
@@ -681,10 +919,19 @@ class InternTable:
 # framing over asyncio streams (the front-end server)
 # ---------------------------------------------------------------------------
 
-async def read_frame_async(reader: asyncio.StreamReader
+async def read_frame_async(reader: asyncio.StreamReader,
+                           op: str = "wire_recv"
                            ) -> Optional[Tuple[int, bytes]]:
     """Asyncio twin of read_frame: (type, payload), None on clean EOF,
-    FrameError on garbage/oversize/truncation."""
+    FrameError on garbage/oversize/truncation. An injected wire fault
+    surfaces as a FrameError (the server's torn-frame path closes the
+    connection)."""
+    spec = faults.active().wire(op)
+    if spec is not None:
+        if spec.kind in ("delay", "frame_delay"):
+            await asyncio.sleep(faults.active().wire_delay_s())
+        else:
+            raise FrameError(f"injected fault: {op} {spec.kind}")
     try:
         hdr = await reader.readexactly(HEADER.size)
     except asyncio.IncompleteReadError as e:
@@ -721,17 +968,27 @@ class SocketSearchClient:
     and results arrive as T_RESULT_C — both lossless. A server that does
     not answer the HELLO is remembered and the client reconnects raw.
 
-    The HELLO also advertises FLAG_FILTERS: a `filters=` predicate rides
-    the frame's optional trailing field once the server confirmed it;
-    against a server that did not, a filtered call raises RemoteError."""
+    With `result_cache` the HELLO also advertises FLAG_RESULT_CACHE; once
+    the server confirms, `cache_lookup()` probes its result cache and
+    `cache_put()` shares a computed row into it (the fleet result cache
+    between front ends). Against a server that does not confirm the flag
+    both are no-ops.
+
+    With `filters` (the default) the HELLO also advertises FLAG_FILTERS: a
+    `filters=` predicate rides the frame's optional trailing field once
+    the server confirmed it; against a server that did not, a filtered
+    call raises RemoteError."""
 
     def __init__(self, host: str, port: int, deadline_ms: float = 0.0,
-                 timeout_s: float = 30.0, compress: bool = True):
+                 timeout_s: float = 30.0, compress: bool = True,
+                 result_cache: bool = False, filters: bool = True):
         self.host = host
         self.port = int(port)
         self.deadline_ms = float(deadline_ms)
         self.timeout_s = float(timeout_s)
         self.compress = bool(compress)
+        self.result_cache = bool(result_cache)
+        self.filters = bool(filters)
         self._local = threading.local()
         self._lock = threading.Lock()
         # (owning thread, socket) of every open connection
@@ -754,7 +1011,9 @@ class SocketSearchClient:
         sock = self._dial()
         sender = FrameSender(sock)
         flags = 0
-        want = (FLAG_WIRE_COMPRESS if self.compress else 0) | FLAG_FILTERS
+        want = ((FLAG_WIRE_COMPRESS if self.compress else 0)
+                | (FLAG_RESULT_CACHE if self.result_cache else 0)
+                | (FLAG_FILTERS if self.filters else 0))
         with self._lock:
             attempt_hello = bool(want) and not self._legacy_server
         if attempt_hello:
@@ -794,11 +1053,12 @@ class SocketSearchClient:
                 pass
         return sock, sender, flags, self._local.intern
 
-    def _roundtrip(self, ftype: int, parts: Tuple, req_id: int
+    def _roundtrip(self, ftype: int, parts: Tuple, req_id: int,
+                   op: str = "wire_send"
                    ) -> Tuple[np.ndarray, np.ndarray, int]:
         sock, sender, _, _ = self._conn()
         try:
-            sender.send(ftype, *parts)
+            sender.send(ftype, *parts, op=op)
             frame = read_frame(sock)
         except (OSError, FrameError):
             # a broken connection must not poison the thread's next call
@@ -908,6 +1168,50 @@ class SocketSearchClient:
         payload = encode_vquery(req_id, block, k=k or 0, nprobe=nprobe or 0,
                                 deadline_ms=dl, filters=ftext)
         return self._roundtrip(T_VQUERY, (payload,), req_id)
+
+    # -- the fleet result cache ------------------------------------------
+    def cache_lookup(self, query: str, k: int, nprobe: int,
+                     store_gen: int, index_gen: int
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Probe the server's result cache for the generation-qualified
+        key: (scores [1, k], ids [1, k]) on a hit, None on a miss or on a
+        connection that never negotiated FLAG_RESULT_CACHE. A probe never
+        admits, queues or computes anything on the server."""
+        _, _, flags, _ = self._conn()
+        if not flags & FLAG_RESULT_CACHE:
+            return None
+        req_id = next_request_id()
+        payload = encode_cache_lookup(req_id, query, k=k, nprobe=nprobe,
+                                      store_gen=store_gen,
+                                      index_gen=index_gen)
+        try:
+            scores, ids, _ = self._roundtrip(T_CACHE_LOOKUP, (payload,),
+                                             req_id, op="cache_peer_send")
+        except DeadlineExceeded:
+            return None           # SHED_CACHE_MISS: a miss, not a shed
+        return scores, ids
+
+    def cache_put(self, query: str, k: int, nprobe: int, store_gen: int,
+                  index_gen: int, scores: np.ndarray,
+                  ids: np.ndarray) -> bool:
+        """Share one computed [k] result row into the server's cache. No
+        response frame rides back (the server checks the generations and
+        drops a stale entry), so the call costs one send. True when the
+        frame left; False when the flag was never negotiated or the
+        connection broke."""
+        _, sender, flags, _ = self._conn()
+        if not flags & FLAG_RESULT_CACHE:
+            return False
+        payload = encode_cache_put(next_request_id(), query, k=k,
+                                   nprobe=nprobe, store_gen=store_gen,
+                                   index_gen=index_gen, scores=scores,
+                                   ids=ids)
+        try:
+            sender.send(T_CACHE_PUT, payload, op="cache_peer_send")
+        except OSError:
+            self._drop_local()
+            return False
+        return True
 
     def close(self) -> None:
         with self._lock:

@@ -73,6 +73,8 @@ def snapshot_line(svc, extra: Optional[Dict] = None) -> str:
     rec["wire_bytes"] = transport.get("wire_bytes")
     rec["wire_compression_ratio"] = transport.get("wire_compression_ratio")
     rec["deadline_sheds"] = transport.get("deadline_sheds")
+    rec["hedge_fires"] = transport.get("hedge_fires")
+    rec["workers_live"] = transport.get("workers_live")
     if extra:
         rec.update(extra)
     return json.dumps({k: v for k, v in rec.items() if v is not None})
@@ -91,10 +93,9 @@ class BalancedClient:
         requests; ties break by the same seeded rotation so the policy
         stays deterministic under a synchronous (workers=0) trial.
 
-    It only routes: it keeps no tallies, and a trial's numbers come from
-    the service's registry and the client's clock as always. (The port
-    serves one front end; several, and the tier's measurement, come with
-    the gateway: ROADMAP.md queue 1, item 7.4.)
+    It only routes and counts what it sent and what failed a front end
+    (``stats()``); every measured number still comes from each front
+    end's own registry (``run_trial``'s ``front_ends=`` block).
     """
 
     POLICIES = ("round_robin", "least_loaded")
@@ -113,6 +114,8 @@ class BalancedClient:
         n = len(self.clients)
         self._next = int(seed) % n            # guarded-by: _lock
         self._inflight = [0] * n              # guarded-by: _lock
+        self._sent = [0] * n                  # guarded-by: _lock
+        self._errors = [0] * n                # guarded-by: _lock
 
     def _pick(self) -> int:
         with self._lock:
@@ -127,6 +130,7 @@ class BalancedClient:
                 i = self._next
             self._next = (i + 1) % n
             self._inflight[i] += 1
+            self._sent[i] += 1
             return i
 
     def search(self, query, k: int = 10, nprobe: Optional[int] = None,
@@ -137,9 +141,21 @@ class BalancedClient:
                 return self.clients[i].search(query, k=k, nprobe=nprobe,
                                               filters=filters)
             return self.clients[i].search(query, k=k, nprobe=nprobe)
+        except Exception:
+            with self._lock:
+                self._errors[i] += 1
+            raise
         finally:
             with self._lock:
                 self._inflight[i] -= 1
+
+    def stats(self) -> Dict:
+        """The requests sent to and failed by each front end (the
+        client's view; the latencies come from each front end's
+        registry)."""
+        with self._lock:
+            return {"policy": self.policy, "sent": list(self._sent),
+                    "errors": list(self._errors)}
 
 
 def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
@@ -148,7 +164,8 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
               clock: Callable[[], float] = time.monotonic,
               sleep: Callable[[float], None] = time.sleep,
               progress: Optional[Callable[[str], None]] = None,
-              progress_every_s: float = 0.0, client=None) -> Dict:
+              progress_every_s: float = 0.0, client=None,
+              front_ends: Optional[Sequence] = None) -> Dict:
     """One timed trial at one offered load; returns the trial record.
 
     `offered` is a rate (qps) for open-loop workloads and a worker count
@@ -159,7 +176,13 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
     `search(query, k, nprobe)` shape) reroutes the ISSUE path over the
     wire; the registry's numbers are still the service's, and the
     client_* latencies cover the full network path: framing, admission,
-    batcher, and the socket round trip back."""
+    batcher, and the socket round trip back.
+
+    `front_ends` (services, `svc` first) makes the trial a tier's:
+    `client` is then a `BalancedClient` over them, and the headline
+    numbers are the tier's: achieved qps the sum of the front ends' window
+    qps, p50 and p99 the largest, the error rate qps-weighted, with a
+    `front_ends` block of each front end's own numbers beside them."""
     ev0 = len(svc.registry.events()) if hasattr(svc, "registry") else 0
     mut0 = mutator.calls if mutator is not None else 0
     m0 = svc.metrics()
@@ -301,6 +324,29 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
         "events": [{"event": e["event"], "attrs": e["attrs"],
                     "trace_id": e.get("trace_id")} for e in events],
     }
+    if front_ends is not None and len(front_ends) > 1:
+        # a tier of front ends: each row reads that front end's registry
+        fes = []
+        for i, fe in enumerate(front_ends):
+            fm = fe.metrics() if fe is not svc else m
+            fes.append({
+                "front_end": i,
+                "qps": fm.get("serve_window_qps", 0.0),
+                "p50_ms": fm.get("serve_window_p50_ms", 0.0),
+                "p99_ms": fm.get("serve_window_p99_ms", 0.0),
+                "error_rate": fm.get("serve_window_error_rate", 0.0),
+            })
+        tier_qps = sum(f["qps"] for f in fes)
+        rec["front_ends"] = fes
+        rec["achieved_qps"] = round(tier_qps, 3)
+        rec["p99_ms"] = max(f["p99_ms"] for f in fes)
+        rec["p50_ms"] = max(f["p50_ms"] for f in fes)
+        rec["error_rate"] = (
+            round(sum(f["error_rate"] * f["qps"] for f in fes)
+                  / tier_qps, 4) if tier_qps else
+            max(f["error_rate"] for f in fes))
+        if isinstance(client, BalancedClient):
+            rec["balance"] = client.stats()
     if "partitions" in m:
         # partitioned serving: the per-partition qps/p99/shed block and the
         # routing counters ride each trial record, so a p99 excursion
@@ -314,15 +360,21 @@ def run_trial(svc, workload: Workload, offered: float, queries: Sequence[str],
         # ONLY when the trial actually crossed a transport (or shed):
         # in-process trial records stay byte-identical to before.
         # Counter keys are PER-TRIAL deltas against the trial-start
-        # snapshot.
+        # snapshot; the fleet's topology keys report the end state.
         blk: Dict = {}
-        for key in ("wire_bytes", "wire_raw_bytes", "deadline_sheds"):
+        for key in ("wire_bytes", "wire_raw_bytes", "deadline_sheds",
+                    "hedge_fires", "rpcs", "rpc_fallbacks",
+                    "breaker_trips"):
             new = (transport1 or {}).get(key)
             if new is not None:
                 blk[key] = new - transport0.get(key, 0)
         if "wire_raw_bytes" in blk and blk.get("wire_bytes"):
             blk["wire_compression_ratio"] = round(
                 blk["wire_raw_bytes"] / blk["wire_bytes"], 3)
+        for key in ("workers_live", "workers_registered",
+                    "workers_compressing", "breakers_open"):
+            if transport1 and key in transport1:
+                blk[key] = transport1[key]
         if sheds:
             blk["client_sheds"] = sheds
         rec["transport"] = blk
@@ -399,21 +451,24 @@ def find_qps_at_p99(svc, workload: Workload, queries: Sequence[str],
                     sleep: Callable[[float], None] = time.sleep,
                     progress: Optional[Callable[[str], None]] = None,
                     progress_every_s: float = 0.0, client=None,
-                    p99_key: str = "p99_ms") -> Dict:
+                    p99_key: str = "p99_ms",
+                    front_ends: Optional[Sequence] = None) -> Dict:
     """Binary-search offered load for the max sustained QPS meeting the
     p99 target. Doubling phase brackets the cliff, bisection sharpens it;
     `qps_at_p99` is the best ACHIEVED qps among passing trials (what the
     service demonstrably served, not what was merely offered). With
     `client` set the issue path crosses the socket (run_trial);
     `p99_key="client_p99_ms"` then judges each trial on the client's p99,
-    which covers the full network path, instead of the service's."""
+    which covers the full network path, instead of the service's.
+    `front_ends` makes every trial a tier's (run_trial)."""
     trials: List[Dict] = []
 
     def _trial(load: float) -> Dict:
         tr = run_trial(svc, workload, load, queries, duration_s=duration_s,
                        warmup_s=warmup_s, workers=workers, mutator=mutator,
                        clock=clock, sleep=sleep, progress=progress,
-                       progress_every_s=progress_every_s, client=client)
+                       progress_every_s=progress_every_s, client=client,
+                       front_ends=front_ends)
         tr["met"] = _meets(tr, p99_target_ms, max_error_rate, sustain_frac,
                            p99_key)
         trials.append(tr)

@@ -31,10 +31,17 @@ The port's injection points:
                      migration (check)
   migrate_swap_dump / migrate_swap_file   a migration unit's flip
 
-The wire ops (wire_send, wire_recv, worker_dial, gateway_accept,
-cache_peer_send) and their kinds are parsed and scheduled here as in the
-JAX package (``wire``), but no transport of the port calls them yet
-(ROADMAP.md queue 1, item 8).
+The wire ops and their kinds are scheduled here as in the JAX package
+(``wire``); the fleet's transport acts on them:
+  wire_send          a framed send (infer/transport.py: ``write_frame``,
+                     ``FrameSender.send``)
+  wire_recv          a framed read (``read_frame``, ``read_frame_async``)
+  worker_dial        a partition worker's dial + REGISTER (check; inside
+                     ``retry_wire``)
+  gateway_accept     the worker gateway's accept of a dial
+  cache_peer_send    a front end's result-cache probe or share to a peer
+A worker's re-dial counts in ``worker_reconnect``; a cache peer's breaker
+that opens, in ``cache_peer_breaker_open``.
 
 Plan syntax: "op:kind:at[:count]" joined by commas; `at` is the 0-based
 index of the matching call that first faults, `count` how many

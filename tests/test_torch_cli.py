@@ -4,7 +4,9 @@ with ``--device cpu`` at the verify skill's cdssm_toy overrides over a
 and ``pipeline`` (4 tokenizer workers) give the same metrics, store
 bytes, recall and mined table as the same calls through the API with one
 worker; a second ``embed`` is a manifest no-op; every JAX command that is
-not ported exits non-zero naming its ROADMAP item."""
+not ported exits non-zero naming its ROADMAP item; ``partition-worker``
+runs as a process of its own, and ``loadtest --transport socket`` spawns
+the worker fleet."""
 import json
 import os
 
@@ -329,19 +331,162 @@ def test_serve_metrics_and_trace(served, capsys):
     assert ei.value.code == 2
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--transport", "socket", "--partitions", "2"), "7.4b"),
-    (("--transport", "socket", "--replicas", "2"), "7.4b"),
-    (("--front-ends", "2"), "7.4b")])
-def test_unported_serving_flags_exit_naming_their_item(flags, item, tmp_path):
-    """What the JAX CLI runs as partition workers behind a gateway, or as
-    several front ends, exits naming item 7.4b and runs nothing."""
-    with pytest.raises(SystemExit) as ei:
-        cli.main(["loadtest", "--workdir", str(tmp_path), "--device", "cpu",
-                  *flags])
-    assert str(ei.value).endswith(f"(ROADMAP.md queue 1, item {item})")
+def _fleet_procs(wd) -> list:
+    """The live partition-worker processes serving workdir `wd`."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"partition-worker" in cmd and str(wd).encode() in cmd:
+            out.append(int(pid))
+    return out
+
+
+def test_partition_worker_subprocess_serves_and_is_lost_on_kill(served):
+    """`partition-worker --device cpu` as a real process: it prints its
+    ready line, registers, serves its slice byte for byte as the
+    in-process scatter, and a kill -9 is seen as worker_lost while the
+    front end serves on locally."""
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from dnn_page_vectors_tpu_torch.infer.partition_host import (
+        DeviceEmbedder, WorkerGateway)
+    from dnn_page_vectors_tpu_torch.infer.serve import SearchService
+    from dnn_page_vectors_tpu_torch.infer.vector_store import VectorStore
+    wd, ov = served["wd"], served["ov"]
+    cfg = get_config("cdssm_toy", {**ov, "serve.partitions": 2,
+                                   "serve.heartbeat_s": 0.3})
+    svc = SearchService(cfg, DeviceEmbedder("cpu"), None,
+                        VectorStore(str(wd / "store")))
+    qv = np.random.default_rng(0).standard_normal((3, 64)).astype(
+        np.float32)
+    want = svc.topk_vectors(qv, k=10)
+    gw = WorkerGateway(svc)
+    svc.attach_gateway(gw)
+    argv = _argv("partition-worker", wd, ov, "--connect",
+                 f"127.0.0.1:{gw.port}", "--partitions", "2",
+                 "--set", "serve.heartbeat_s=0.3")
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "dnn_page_vectors_tpu_torch.cli", *argv,
+                               "--partition", str(p)],
+                              stdout=subprocess.PIPE, text=True)
+             for p in range(2)]
+    try:
+        assert gw.wait_for_workers(2, timeout_s=120.0)
+        ready = [json.loads(p.stdout.readline()) for p in procs]
+        assert [r["partition_worker"] for r in ready] == [0, 1]
+        for r, p in zip(ready, procs):
+            assert r["partitions"] == 2 and r["replica"] == 0
+            assert r["gateways"] == 1 and r["pid"] == p.pid
+            assert r["device"] == "cpu" and r["staged_device"] == "cpu"
+        assert sum(r["rows"] for r in ready) == 600
+        got = svc.topk_vectors(qv, k=10)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        assert gw.stats()["rpcs"] == 2 and gw.stats()["rpc_fallbacks"] == 0
+        procs[0].send_signal(signal.SIGKILL)
+        t_end = time.monotonic() + 30.0
+        while gw.worker_alive(0, 0) and time.monotonic() < t_end:
+            time.sleep(0.01)
+        assert not gw.worker_alive(0, 0)
+        assert svc.registry.events("worker_lost")
+        got = svc.topk_vectors(qv, k=10)
+        assert np.array_equal(got[1], want[1])
+    finally:
+        gw.close()              # BYE: the live worker ends on its own
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        svc.close()
+    assert procs[1].returncode == 0
+    exit_line = json.loads(procs[1].stdout.read().strip().splitlines()[-1])
+    assert exit_line["partition_worker_exit"] == 1
+    assert exit_line["answered"] >= 1
+    assert set(exit_line["kernel_launches"].values()) == {0}
+
+
+@pytest.mark.parametrize("flags", [
+    (), ("--front-ends", "2"), ("--chaos", "wire_send:frame_delay:2:3")],
+    ids=["fleet", "front_ends_2", "chaos"])
+def test_loadtest_over_a_socket_fleet_prints_the_jax_keys(served, capsys,
+                                                          flags):
+    """loadtest --transport socket --partitions 2 spawns a partition
+    worker a replica behind a gateway a front end and reports the JAX
+    CLI's keys; --front-ends 2 adds the tier block, --chaos the chaos
+    block; no worker outlives the command."""
+    from dnn_page_vectors_tpu_torch.utils import faults
+    wd, ov = served["wd"], served["ov"]
+    faults.reset()
+    try:
+        rep = _lines(capsys, _argv("loadtest", wd, ov, *LOADTEST,
+                                   "--transport", "socket", "--partitions",
+                                   "2", *flags))[-1]
+    finally:
+        faults.reset()          # the chaos plan is this process's
+    for key in ("transport", "listen", "transport_totals",
+                "serve_partitions", "serve_replicas", "replica_shed",
+                "partitions", "fault_counters", "trials", "qps_at_p99"):
+        assert key in rep, key
+    assert rep["serve_partitions"] == 2
+    totals = rep["transport_totals"]
+    assert totals["workers_live"] == 2 and totals["rpcs"] > 0
+    assert totals["rpc_fallbacks"] == 0
+    trial = rep["trials"][0]
+    assert trial["transport"]["rpcs"] > 0
+    assert trial["transport"]["workers_live"] == 2
+    if "--front-ends" in flags:
+        assert rep["front_ends"] == 2
+        assert rep["balance_policy"] == "round_robin"
+        assert len(rep["listen"].split(",")) == 2
+        assert [f["front_end"] for f in trial["front_ends"]] == [0, 1]
+        assert min(trial["balance"]["sent"]) > 0
+    else:
+        assert "front_ends" not in rep and "front_ends" not in trial
+    if "--chaos" in flags:
+        chaos = rep["chaos"]
+        assert set(chaos) == {"plan", "offered", "sheds", "errors",
+                              "availability", "injected"}
+        assert chaos["plan"] == flags[1] and chaos["errors"] == 0
+        assert chaos["availability"] == 1.0
+        assert chaos["injected"]["injected_wire_send_frame_delay"] == 3
+    else:
+        assert "chaos" not in rep
+    assert _fleet_procs(wd) == []
+
+
+def test_loadtest_exits_naming_the_workers_that_never_registered(
+        served, tmp_path):
+    """Workers that cannot reach their gateway (a persistent worker_dial
+    fault, which --faults hands the workers with the rest of the config)
+    never register: loadtest exits non-zero after --worker-wait-s, naming
+    the (partition, replica) slots and the wait, and kills the workers."""
+    from dnn_page_vectors_tpu_torch.utils import faults
+    wd, ov = served["wd"], served["ov"]
+    try:
+        with pytest.raises(SystemExit) as ei:
+            cli.main(_argv("loadtest", wd, ov, *LOADTEST, "--transport",
+                           "socket", "--partitions", "2", "--replicas", "2",
+                           "--faults", "worker_dial:io_error:0:*",
+                           "--worker-wait-s", "1"))
+    finally:
+        faults.reset()
+    msg = str(ei.value)
     assert ei.value.code not in (0, None)
-    assert not os.listdir(tmp_path)
+    assert "4 of 4 partition workers did not register" in msg
+    assert "[(0, 0), (0, 1), (1, 0), (1, 1)]" in msg
+    assert "--worker-wait-s 1.0" in msg
+    assert _fleet_procs(wd) == []
 
 
 def test_partitioned_search_and_loadtest_print_the_single_views(

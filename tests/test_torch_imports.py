@@ -271,3 +271,38 @@ def test_partition_modules_are_covered(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["search", "--workdir", str(tmp_path / "wd"), "--query",
                   "x", "--partitions", "2", "--replicas", "2"])
+
+
+def test_partition_host_is_covered(tmp_path):
+    """The fleet's module (infer/partition_host.py) is among those the
+    checks above walk and imports neither jax nor the JAX package on its
+    own; a partition worker stages on the card unless asked for the CPU,
+    and raises where there is none (the CLI's worker too)."""
+    import pkgutil
+    import dnn_page_vectors_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                   p.__name__ + ".")}
+    assert "dnn_page_vectors_tpu_torch.infer.partition_host" in names
+    assert os.path.join("infer", "partition_host.py") in {
+        os.path.relpath(f, PKG) for f in _sources()}
+    code = ("import sys\n"
+            "import dnn_page_vectors_tpu_torch.infer.partition_host as ph\n"
+            "print(ph.DeviceEmbedder('cpu').device, "
+            "[n for n in sys.modules if any(n == f or "
+            f"n.startswith(f + '.') for f in {FORBIDDEN!r})])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.stdout.strip() == "cpu []", proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately runs there")
+    from dnn_page_vectors_tpu_torch import cli
+    from dnn_page_vectors_tpu_torch.infer.partition_host import (
+        DeviceEmbedder, PartitionWorker)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceEmbedder(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PartitionWorker(get_config("cdssm_toy"), str(tmp_path / "store"),
+                        ("127.0.0.1", 1), partition=0, partitions=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["partition-worker", "--workdir", str(tmp_path / "wd"),
+                  "--connect", "127.0.0.1:1"])

@@ -297,8 +297,19 @@ def test_serve_and_obs_knobs_equal_jax():
     # defaults
     for name in ("partitions", "replicas", "replica_shed_queue"):
         assert getattr(a.serve, name) == getattr(b.serve, name)
-    # the parts still to port (the fleet over the wire) are not knobs yet
-    for name in ("result_cache_fleet", "hedge_quantile"):
-        assert not hasattr(a.serve, name)
-        with pytest.raises(KeyError, match="not ported"):
-            get_config("cdssm_toy", {f"serve.{name}": "2"})
+    # the fleet over the wire's knobs (slice 13), the JAX package's names,
+    # defaults and override parsing; every serve knob is ported now
+    fleet = {"hedge_quantile": "0.5", "heartbeat_s": "0.2",
+             "result_cache_fleet": "true", "reconnect": "false",
+             "reconnect_base_s": "0.1", "reconnect_max_s": "1.5",
+             "breaker_failures": "2", "breaker_open_s": "0.5",
+             "breaker_max_s": "9", "elastic": "1"}
+    a = get_config("cdssm_toy", {f"serve.{k}": v for k, v in fleet.items()})
+    b = jax_get_config("cdssm_toy", {f"serve.{k}": v
+                                     for k, v in fleet.items()})
+    for name in fleet:
+        assert getattr(a.serve, name) == getattr(b.serve, name), name
+    assert {f.name for f in dataclasses.fields(a.serve)} == \
+        {f.name for f in dataclasses.fields(b.serve)}
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("cdssm_toy", {"serve.no_such_knob": "2"})

@@ -1,8 +1,10 @@
 """The port's wire protocol (infer/transport.py) and socket front end
 (infer/server.py) against the JAX package's, on the CPU: every frame the
-port encodes is byte for byte the JAX encoder's, and each package decodes
-the other's; truncated, garbage and oversize frames are rejected as JAX
-rejects them; a loopback SearchServer returns the in-process results (to
+port encodes, the fleet's (REGISTER, HEARTBEAT, BYE, REFRESH, DRAIN,
+CACHE_LOOKUP, CACHE_PUT) included, is byte for byte the JAX encoder's,
+and each package decodes the other's; truncated, garbage and oversize
+frames are rejected as JAX rejects them, and every frame type JAX accepts
+is accepted; the wire fault hooks act on a socket as JAX's do; a loopback SearchServer returns the in-process results (to
 the port's client and to the JAX package's); an expired deadline gets
 T_SHED and takes no bucket slot, the micro-batch door sheds a request
 that expires in the queue, and the queue-wait p99 budget sheds. The
@@ -61,6 +63,27 @@ def _frames(mod):
         ("hello", mod.pack_frame(mod.T_HELLO, mod.encode_hello(
             mod.FLAG_WIRE_COMPRESS | mod.FLAG_FILTERS))),
         ("raw_bytes", struct.pack("!q", mod.result_raw_bytes(4, 10))),
+        ("register", mod.pack_frame(mod.T_REGISTER, mod.encode_register(
+            3, 1, 4242, flags=mod.FLAG_WIRE_COMPRESS | mod.FLAG_FILTERS,
+            generation=7))),
+        ("register_legacy_fields", mod.encode_register(0, 0, 1)),
+        ("heartbeat", mod.pack_frame(mod.T_HEARTBEAT)),
+        ("bye", mod.pack_frame(mod.T_BYE)),
+        ("drain", mod.pack_frame(mod.T_DRAIN)),
+        ("refresh", mod.pack_frame(mod.T_REFRESH, mod.encode_refresh(9))),
+        ("refresh_split", mod.pack_frame(mod.T_REFRESH, mod.encode_refresh(
+            9, 4))),
+        ("cache_lookup", mod.pack_frame(mod.T_CACHE_LOOKUP,
+                                        mod.encode_cache_lookup(
+                                            16, "alpha  béta", k=10,
+                                            nprobe=4,
+                                            store_gen=(5 << 32) | 3,
+                                            index_gen=-1))),
+        ("cache_put", mod.pack_frame(mod.T_CACHE_PUT, mod.encode_cache_put(
+            17, "alpha", k=5, nprobe=0, store_gen=2, index_gen=6,
+            scores=s[1], ids=i[1]))),
+        ("cache_miss", mod.encode_shed(18, mod.SHED_CACHE_MISS,
+                                       "cache_miss")),
     ]
 
 
@@ -73,8 +96,12 @@ def test_every_frame_equals_jax_bytes():
                   "T_SHED", "T_ERROR", "T_RESULT_C", "T_VQUERY_PUT",
                   "T_VQUERY_REF", "T_HELLO", "FLAG_WIRE_COMPRESS",
                   "FLAG_RESULT_CACHE", "FLAG_FILTERS", "WIRE_SLOTS",
-                  "SHED_DEADLINE", "SHED_QUEUE", "SHED_DRAINING"):
+                  "SHED_DEADLINE", "SHED_QUEUE", "SHED_DRAINING",
+                  "T_REGISTER", "T_HEARTBEAT", "T_BYE", "T_REFRESH",
+                  "T_CACHE_LOOKUP", "T_CACHE_PUT", "T_DRAIN",
+                  "SHED_CACHE_MISS"):
         assert getattr(tt, const) == getattr(jt, const), const
+    assert tt._TYPES == jt._TYPES
 
 
 def test_each_package_decodes_the_others_frames():
@@ -105,6 +132,22 @@ def test_each_package_decodes_the_others_frames():
         assert dec.decode_shed(enc.encode_shed(1, 2, "x")) == (1, 2, "x")
         assert dec.decode_error(enc.encode_error(1, "y")) == (1, "y")
         assert dec.decode_hello(enc.encode_hello(5)) == 5
+        assert dec.decode_register(enc.encode_register(
+            2, 1, 99, flags=3, generation=11)) == (2, 1, 99, 3, 11)
+        assert dec.decode_register(enc._REGISTER_HEAD.pack(2, 1, 99)) == \
+            (2, 1, 99, 0, 0)
+        assert dec.decode_refresh(enc.encode_refresh(12)) == (12, 0)
+        assert dec.decode_refresh(enc.encode_refresh(12, 3)) == (12, 3)
+        key = dec.decode_cache_lookup(enc.encode_cache_lookup(
+            8, "q ü", k=10, nprobe=2, store_gen=(1 << 40) | 4,
+            index_gen=-1))
+        assert (key.req_id, key.query, key.k, key.nprobe, key.store_gen,
+                key.index_gen) == (8, "q ü", 10, 2, (1 << 40) | 4, -1)
+        key, ps, pi = dec.decode_cache_put(enc.encode_cache_put(
+            9, "q", k=10, nprobe=0, store_gen=1, index_gen=2, scores=s[0],
+            ids=i[0]))
+        assert (key.req_id, key.query, key.k) == (9, "q", 10)
+        assert np.array_equal(ps, s[0]) and np.array_equal(pi, i[0])
 
 
 def _rejects(fn, payload) -> bool:
@@ -129,6 +172,14 @@ def test_truncation_garbage_and_oversize_rejected_as_jax():
         ("decode_shed", jt.encode_shed(4, 1, "late")),
         ("decode_error", jt.encode_error(5, "boom")),
         ("decode_hello", jt.encode_hello(1)),
+        ("decode_register", jt.encode_register(1, 2, 3, flags=1,
+                                               generation=4)),
+        ("decode_refresh", jt.encode_refresh(5, 2)),
+        ("decode_cache_lookup", jt.encode_cache_lookup(
+            6, "héllo", k=10, nprobe=0, store_gen=1, index_gen=-1)),
+        ("decode_cache_put", jt.encode_cache_put(
+            7, "q", k=10, nprobe=0, store_gen=1, index_gen=2, scores=s[0],
+            ids=i[0])),
     ]
     checked = 0
     for fn, payload in cases:
@@ -152,9 +203,14 @@ def test_truncation_garbage_and_oversize_rejected_as_jax():
         for mod in (tt, jt):
             with pytest.raises(mod.FrameError):
                 mod._check_header(hdr)
-    # the partition-worker and fleet frames are not this end's: rejected
-    with pytest.raises(FrameError, match="unknown frame type"):
-        tt._check_header(struct.pack("!IBI", tt.MAGIC, jt.T_REGISTER, 0))
+    # every frame type JAX accepts, the fleet's included, is accepted, and
+    # any other is rejected as JAX rejects it
+    for ftype in range(256):
+        hdr = struct.pack("!IBI", tt.MAGIC, ftype, 0)
+        assert _rejects(tt._check_header, hdr) == \
+            _rejects(jt._check_header, hdr), ftype
+        if ftype in jt._TYPES:
+            assert tt._check_header(hdr) == (ftype, 0)
     # varint: unterminated continuation, truncated mid-varint
     body = jt.encode_result_c(1, s[:1, :2], np.array([[5, 2 ** 40]]))
     for v in (body[:-1], body[:-3] + b"\xff" * 11):
@@ -177,6 +233,62 @@ def test_read_frame_truncation_vs_clean_eof():
     a.close()
     assert tt.read_frame(b) is None          # clean EOF at a boundary
     b.close()
+
+
+@pytest.mark.parametrize("plan", [
+    "wire_send:frame_dup:1", "wire_send:frame_trunc:1",
+    "wire_send:conn_drop:1", "wire_send:frame_delay:1",
+    "wire_recv:conn_drop:1", "wire_recv:frame_delay:1"])
+def test_wire_fault_hooks_act_as_jax(plan):
+    """The same seeded plan on the same frames: what the receiving end
+    reads, whether the call raises (InjectedFault, an OSError, tearing the
+    stream) and the injected counters, for both packages."""
+    from dnn_page_vectors_tpu.utils import faults as jf
+    from dnn_page_vectors_tpu_torch.utils import faults as tf
+
+    def run(mod, fmod):
+        fmod.reset()
+        fmod.install(fmod.FaultPlan.parse(plan, seed=3))
+        a, b = socket.socketpair()
+        out = []
+        try:
+            for j in range(3):
+                try:
+                    if plan.startswith("wire_send") and j == 1:
+                        mod.FrameSender(a).send(mod.T_ERROR,
+                                                mod.encode_error(j, "x"))
+                    else:
+                        mod.write_frame(a, mod.T_ERROR,
+                                        mod.encode_error(j, "x"))
+                    out.append("sent")
+                except OSError as e:
+                    out.append(type(e).__name__)
+                    break
+            a.shutdown(socket.SHUT_WR) if out[-1] == "sent" else None
+            while True:
+                try:
+                    frame = mod.read_frame(b)
+                except (OSError, mod.FrameError) as e:
+                    out.append(type(e).__name__)
+                    break
+                if frame is None:
+                    out.append("eof")
+                    break
+                out.append(mod.decode_error(frame[1]))
+        finally:
+            for x in (a, b):
+                try:
+                    x.close()
+                except OSError:
+                    pass
+        counts = {k: v for k, v in fmod.counters().items()
+                  if k.startswith("injected_")}
+        fmod.reset()
+        return out, counts
+
+    got, want = run(tt, tf), run(jt, jf)
+    assert got == want
+    assert sum(got[1].values()) == 1
     table = tt.InternTable(cap=2)
     assert table.slot_for(b"x") == (0, True)
     assert table.slot_for(b"x") == (0, False)
