@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port (dnn_page_vectors_tpu_torch) on one GPU.
+"""Drives the PyTorch/CUDA port (dnn_page_vectors_tpu_torch) on one GPU
+(phase 22 on every GPU of the machine, one process each).
 
     python3 chip_smoke.py [--report PATH] [--parent TREE]
 
@@ -233,6 +234,23 @@ Phases, each printing one JSON line:
      4 times an encode of the front ends, every worker's exit line with
      no launch of K1-K4, no view tensor on the CPU, no worker left
      running, the phase within 75 s.
+ 22. training across cards (run_multicard): `torchrun --standalone
+     --nproc-per-node N -m dnn_page_vectors_tpu_torch.cli train`, N =
+     torch.cuda.device_count(), one process a card over NCCL (in one
+     process, N = 1, no group forms), as a user launches it: (a)
+     bert_mini_v5p16 at full width over phase 4's corpus and vocab, 8,192
+     pairs a step over mesh.data = N; (b) bert_long_sp at full width,
+     attention="ring" over mesh.seq = N, 256 whole pages of 1,024 tokens
+     a step; 3 steps each, dropout 0. Each rank's launches of K1-K4 in
+     its training (K1, K2 and K3 on every rank of (a), and of (b) at
+     N = 1, where the ring is one hop and runs the flash kernels; the
+     ring between cards runs torch ops); rank 0's losses and grad norms
+     against the same config's Trainer in this process on the same
+     batches (losses within 5e-3 relative, grad norms within 1e-2), its
+     pages_per_sec_per_chip and mfu with the card's name and power
+     limit; the world size, and at N = 1 what stays unproven on the card
+     (NCCL between cards, the ring's send/recv between cards).
+Every phase's seconds are printed (the `timeline` line).
 No attention kernel runs in phases 10-12: every launch counter is read
 after each of their main paths and must be 0.
 The toy corpora keep each text once made (KeptTexts): the phases read
@@ -473,7 +491,9 @@ CLI_RECALL_BAR = 0.2
 # rate expected) to SERVE_MAX_QPS (a rate that passes there reads as
 # SERVE_MAX_QPS, `load_sustained` equal to it; the closed loop of 16
 # workers has stayed under 300 qps on the card), then SERVE_ITERS
-# bisection steps: at most 5 trials.
+# bisection steps: at most 5 trials. One search of each (SERVE_RUNS, cut
+# from two for the run's time limit, PERF.md section 4): the spread of
+# rates between searches is measured by the benchmark, not here.
 SERVE_QUERIES = 64
 SERVE_THREADS = 16
 SERVE_DISTINCT = 10_000
@@ -489,7 +509,7 @@ SERVE_MAX_QPS = 400.0
 SERVE_WARM_S = 1.0
 SERVE_ITERS = 1
 SERVE_MAX_TRIALS = 8
-SERVE_RUNS = 2
+SERVE_RUNS = 1
 SERVE_LOAD_WORKERS = 64
 SERVE_CLOSED_WORKERS = 16
 SERVE_BUDGET_S = 90.0
@@ -642,6 +662,35 @@ FLEET_RATE_TRIAL_S = 2.0
 FLEET_MAX_TRIALS = 6
 FLEET_ELASTIC_QUERIES = 16
 FLEET_BUDGET_S = 75.0
+# Phase 22, training across cards (run_multicard): MULTI_STEPS steps of
+# each cell through the CLI under torchrun, one process a card. The
+# BERT-mini cell takes the config's MULTI_BERT_BATCH pairs a step over
+# phase 4's corpus (its vocab written to the job's workdir); the
+# bert_long_sp cell MULTI_LONG_BATCH whole pages of 1,024 tokens a step
+# (the 256 rows of 1,024 tokens phase 8 trains; the ring takes no packed
+# rows) over a toy corpus of MULTI_LONG_PAGES pages of 1,024 words with
+# phase 4's vocab (as phase 8's). Dropout is 0: a rank draws its
+# own masks, so only a tower without dropout can equal one process. The
+# same config's Trainer in this process (mesh 1x1x1) on the same
+# batches: losses within MULTI_LOSS_RTOL and grad norms within
+# MULTI_GRAD_NORM_RTOL (bf16 towers; the gradient all-reduce and the
+# gathered loss sum in another order, and the ring computes attention in
+# float32 where K1 takes bf16 operands); a job ends within
+# MULTI_TIMEOUT_S. The limits sit between the readings of
+# scripts/multicard_tolerance.py (both cells at their widths, world 2
+# over gloo on the CPU, bf16, the batch cut): a sound job's largest
+# readings 3.4e-4 (loss) and 2.0e-4 (grad norm); a planted fault's
+# smallest 0.12 (the loss, with each rank's negatives its own) and 0.50
+# (the grad norm, with the gradient averaged or seq times too large).
+# The clip and AdamW undo a gradient's scale, so only the grad norm
+# shows those faults.
+MULTI_STEPS = 3
+MULTI_BERT_BATCH = 8_192
+MULTI_LONG_BATCH = 256
+MULTI_LONG_PAGES = 2_048
+MULTI_LOSS_RTOL = 5e-3
+MULTI_GRAD_NORM_RTOL = 1e-2
+MULTI_TIMEOUT_S = 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRANSFORMERS = ("bert", "t5")
 
@@ -7480,6 +7529,229 @@ def ptxas_summary(log: str) -> list:
     return out or [log[-200:]]
 
 
+# -- phase 22: training across cards ------------------------------------------
+
+def multicard_cells(world: int) -> dict:
+    """Phase 22's cells: (config, the job's overrides) at `world` ranks."""
+    common = {"train.log_every": 1, "model.dropout": 0.0,
+              "mesh.model": 1, "mesh.strict": True}
+    return {
+        "bert_mini_dp": ("bert_mini_v5p16", {
+            **common, "data.num_pages": N_PAGES,
+            "train.batch_size": MULTI_BERT_BATCH,
+            "model.attention": "flash", "mesh.data": world, "mesh.seq": 1}),
+        "bert_long_ring": (LONG, {
+            **common, "data.num_pages": MULTI_LONG_PAGES,
+            "train.batch_size": MULTI_LONG_BATCH,
+            "model.attention": "ring", "mesh.data": 1, "mesh.seq": world})}
+
+
+def run_torchrun(world: int, config: str, overrides: dict,
+                 workdir: str) -> tuple:
+    """`torchrun --standalone --nproc-per-node world -m
+    dnn_page_vectors_tpu_torch.cli train` of `config`, MULTI_STEPS steps,
+    in a session of its own: killed whole (launcher and ranks) at
+    MULTI_TIMEOUT_S or when this returns. Returns (each rank's final line
+    in rank order, the job's seconds, the tail of its stderr)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m", "dnn_page_vectors_tpu_torch.cli",
+           "train", "--config", config, "--workdir", workdir,
+           "--steps", str(MULTI_STEPS)]
+    for key, value in overrides.items():
+        cmd += ["--set", f"{key}={str(value).lower() if isinstance(value, bool) else value}"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MULTI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"phase 22: {config} at {world} rank(s) did not "
+                             f"end within {MULTI_TIMEOUT_S} s:\n{err[-3000:]}")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)     # no rank left running
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22: {config} at {world} rank(s) exited "
+                             f"{proc.returncode}:\n{err[-4000:]}")
+    # the ranks share the pipe: a line may hold more than one rank's
+    finals = {}
+    decoder = json.JSONDecoder()
+    at = out.find('{"final"')
+    while at >= 0:
+        rec, end = decoder.raw_decode(out, at)
+        finals[rec["rank"]] = rec
+        at = out.find('{"final"', end)
+    if sorted(finals) != list(range(world)):
+        raise AssertionError(f"phase 22: {config}: final lines of ranks "
+                             f"{sorted(finals)}, want 0-{world - 1}:\n"
+                             f"{out[-3000:]}")
+    return [finals[r] for r in range(world)], secs, err[-2000:]
+
+
+def run_multicard(device, bert, workdir: str, smi: str) -> dict:
+    """Phase 22 (see the module docstring): each cell's job over
+    torch.cuda.device_count() cards, its launches per rank, its losses and
+    grad norms against this process's Trainer on the same batches, and
+    rank 0's pages_per_sec_per_chip and mfu. `bert` is phase 4's data."""
+    import gc
+    from dnn_page_vectors_tpu_torch.config import get_config
+    from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+    from dnn_page_vectors_tpu_torch.train.loop import Trainer
+    from dnn_page_vectors_tpu_torch.utils.flops import (
+        device_peak_flops, train_flops_per_pair)
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    rec = {"world": world, "nvidia_smi": smi,
+           "launcher": f"torchrun --standalone --nproc-per-node {world} -m "
+                       "dnn_page_vectors_tpu_torch.cli train",
+           "backend": "nccl" if world > 1 else "none (one process)",
+           "cells": {}}
+    emit({"phase": "multicard_world", "world": world,
+          "cards": [torch.cuda.get_device_name(i) for i in range(world)],
+          "nvidia_smi": smi})
+    if world == 1:
+        emit({"phase": "multicard_unproven", "world": 1, "note":
+              "one card: the job runs one rank, so no process group forms; "
+              "NCCL between cards (the gradient all-reduce, the gathered "
+              "negatives) and the ring's send/recv between cards stay "
+              "unproven on the card here (tests/test_torch_parallel_cuda.py "
+              "holds them with two cards or more; tests/"
+              "test_torch_parallel.py holds them on the CPU over gloo)"})
+    # Each job's vocab is phase 4's, cached where its build_tokenizer reads
+    # it. The BERT-mini cell's corpus is phase 4's. The long cell's pages
+    # of 1,024 words draw the same words (packed_data checks it, as for
+    # phase 8): a vocab trained on their own first 2M words, the sample
+    # build_tokenizer takes, ran out of merges at 13,021 of the config's
+    # 30,522 pieces, so the long corpus gets phase 4's vocab, keyed to it.
+    cells = multicard_cells(world)
+    long_cfg = get_config(LONG, cells["bert_long_ring"][1])
+    data = {"bert_mini_dp": bert,
+            "bert_long_ring": packed_data(LONG, long_cfg.data.page_len,
+                                          MULTI_LONG_PAGES, bert)}
+    for cell, (corpus, _, p_tok) in data.items():
+        os.makedirs(os.path.join(workdir, cell), exist_ok=True)
+        p_tok.meta = {"vocab_size": p_tok.vocab_size,
+                      "corpus": corpus.fingerprint()}
+        p_tok.save(os.path.join(workdir, cell, "tokenizer_wordpiece.json"))
+    peak = device_peak_flops(device)
+    for cell, (config, ov) in cells.items():
+        cell_dir = os.path.join(workdir, cell)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held_gb = torch.cuda.memory_allocated(device) / 2**30
+        ranks, job_s, err_tail = run_torchrun(world, config, ov, cell_dir)
+        with open(os.path.join(cell_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        if [x["step"] for x in lines] != list(range(1, MULTI_STEPS + 1)):
+            raise AssertionError(f"phase 22 {cell}: metrics lines {lines}")
+        # the same config in this process: one rank, the same batches
+        ref_ov = {**ov, "mesh.data": 1, "mesh.seq": 1, "mesh.strict": False}
+        cfg = get_config(config, ref_ov)
+        corpus, q_tok, p_tok = data[cell]
+        t0 = time.perf_counter()
+        ref = Trainer(cfg, corpus=corpus, tokenizers=(q_tok, p_tok),
+                      device=device)
+        ref.train(MULTI_STEPS)
+        ref_s = time.perf_counter() - t0
+        hist = ref.history
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = lambda key: max(abs(x[key] - h[key]) / abs(h[key])
+                              for x, h in zip(lines, hist))
+        loss_err, gn_err = rel("loss"), rel("grad_norm")
+        # K1, K2 and K3 on every rank, 2 towers x layers x steps each,
+        # where the flash kernels run: (a), and (b) at one rank
+        layers = get_config(config).model.num_layers
+        flash = cell == "bert_mini_dp" or world == 1
+        n = 2 * layers * MULTI_STEPS if flash else 0
+        want = expected_launches(n, n)
+        for r in ranks:
+            got = {k: r["kernel_launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"phase 22 {cell}: rank {r['rank']} "
+                                     f"launched {got}, want {want}")
+        last = lines[-1]
+        batch = ov["train.batch_size"]
+        steady_dt = lines[-1]["ts"] - lines[-2]["ts"]
+        per_chip = batch / steady_dt / world
+        flops_pair = train_flops_per_pair(get_config(config, ov), batch)
+        out = {
+            "config": config, "overrides": ov, "world": world,
+            "mesh": ranks[0]["mesh"], "steps": MULTI_STEPS,
+            "batch_pages": batch, "job_s": job_s,
+            "reference_s": ref_s, "memory_held_by_this_process_gb": held_gb,
+            "losses": [x["loss"] for x in lines],
+            "reference_losses": [h["loss"] for h in hist],
+            "loss_max_rel_err": loss_err, "loss_rtol": MULTI_LOSS_RTOL,
+            "grad_norms": [x["grad_norm"] for x in lines],
+            "reference_grad_norms": [h["grad_norm"] for h in hist],
+            "grad_norm_max_rel_err": gn_err,
+            "grad_norm_rtol": MULTI_GRAD_NORM_RTOL,
+            "in_batch_acc": [x["in_batch_acc"] for x in lines],
+            "reference_in_batch_acc": [h["in_batch_acc"] for h in hist],
+            "launches_by_rank": [
+                {k: v for k, v in r["kernel_launches"].items() if v}
+                for r in ranks],
+            "pages_per_sec": last["pages_per_sec"],
+            "pages_per_sec_per_chip": last["pages_per_sec_per_chip"],
+            "mfu": last.get("mfu"),
+            "rate_covers": f"the trainer's own line: all {MULTI_STEPS} "
+                           "steps, the first's start-up included",
+            "pages_per_sec_per_chip_last_step": per_chip,
+            "mfu_last_step": (per_chip * flops_pair / peak) if peak else None,
+            "train_flops_per_pair": flops_pair, "peak_flops": peak,
+            "hbm_gb_in_use": last.get("hbm_gb_in_use"),
+            "rank_lines": [{k: r["final"].get(k) for k in (
+                "pages_per_sec_per_chip", "mfu", "hbm_gb_in_use")}
+                for r in ranks],
+            "nvidia_smi": smi, "stderr_tail": err_tail[-600:]}
+        emit({"phase": f"multicard_{cell}", **out})
+        if not (loss_err <= MULTI_LOSS_RTOL and gn_err <= MULTI_GRAD_NORM_RTOL
+                and all(np.isfinite(out["losses"]))):
+            raise AssertionError(f"phase 22 {cell}: losses {out['losses']} "
+                                 f"vs one process {out['reference_losses']} "
+                                 f"(max rel {loss_err}), grad norms "
+                                 f"{out['grad_norms']} vs "
+                                 f"{out['reference_grad_norms']} (max rel "
+                                 f"{gn_err})")
+        if peak and out["mfu"] is None:
+            raise AssertionError(f"phase 22 {cell}: no mfu on a card whose "
+                                 "peak is known")
+        keys = ("launches", "dq_launches", "dkv_launches",
+                "dq_dbias_launches")
+        total = {k: sum(r["kernel_launches"][k] for r in ranks)
+                 for k in fa.COUNTERS}
+        names = ("k1", "k2", "k3", "k4")
+        out["launches_main_path"] = {nm: total[k]
+                                     for nm, k in zip(names, keys)}
+        out["launches_tensor_core_main_path"] = {
+            nm: total[k + "_tc"] for nm, k in zip(names, keys)}
+        out["launches_seg_main_path"] = {
+            nm: total[k + "_seg"] for nm, k in zip(names, keys)}
+        out["launches_one_step"] = {
+            nm: ranks[0]["kernel_launches"][k] // MULTI_STEPS
+            for nm, k in zip(names, keys)}
+        out["seg_summary_launches_main_path"] = 0
+        out["gdead_launches_main_path"] = 0
+        rec["cells"][cell] = out
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "multicard", "world": world,
+          "seconds": rec["seconds"], "nvidia_smi": smi,
+          **{cell: {k: c[k] for k in ("pages_per_sec_per_chip", "mfu",
+                                      "pages_per_sec_per_chip_last_step",
+                                      "mfu_last_step", "loss_max_rel_err",
+                                      "grad_norm_max_rel_err", "job_s")}
+             for cell, c in rec["cells"].items()}})
+    return rec
+
+
 def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
     """scripts/bwd_ab.py over the tree `parent` and this checkout in turns
     (parent, this, this, parent), one process per tree on this card: each
@@ -7524,7 +7796,7 @@ def run_ab(parent: str, seg_file: str, mt5_seg_file: str) -> dict:
 
 def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
                parent=None) -> list:
-    """Phases 2-21; fills `report` and returns the `kernels` line's
+    """Phases 2-22; fills `report` and returns the `kernels` line's
     entries. `mt5_tok` and `word_tok` are the futures of the mT5 and the
     word tokenizers, trained in `tok_pool`'s process, which then writes
     phase 15's corpus; with `parent` (another tree of the port) the
@@ -7538,15 +7810,24 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
         timeline[name] = time.perf_counter() - t_run
     from dnn_page_vectors_tpu_torch import native
     # one nvcc per source and the g++ of the C++ host library, all started
-    # together
+    # together; phase 4's corpus and vocab (host work: the vocab trains on
+    # this thread) are made while nvcc runs, once the host library is
+    # built: the seg kernels are also checked and timed at the segment ids
+    # of phase 8's first batch
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
         host_lib = pool.submit(native.build)
-        for f in [pool.submit(build.compile_source, src) for src in SOURCES]:
-            f.result()
+        kernels = [pool.submit(build.compile_source, src) for src in SOURCES]
         lib_path = host_lib.result()
-    report["build"] = {}
-    native.load()
+        native.load()
+        t_data = time.perf_counter()
+        bert = build_data("bert_mini_v5p16", N_PAGES)
+        long_data = packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert)
+        train_seg = train_layout_seg(long_data)
+        data_s = time.perf_counter() - t_data
+        for f in kernels:
+            f.result()
+    report["build"] = {"bert_data_s_beside_nvcc": data_s}
     report["build"]["native"] = {"library": lib_path.name,
                                  "gxx_s": native.BUILD_INFO["seconds"]}
     emit({"phase": "build", "source": "native/*.cpp (g++, the C++ host "
@@ -7567,15 +7848,9 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
         spills = [r for r in tc_rows if r[2] or r[3]]
         if spills:
             raise AssertionError(f"a tensor-core kernel spills: {spills}")
-    emit({"phase": "build_total", "seconds": time.perf_counter() - t0})
-    done("build")
-
-    # phase 4's corpus and vocab first: the seg kernels are also checked
-    # and timed at the segment ids of phase 8's first batch
-    bert = build_data("bert_mini_v5p16", N_PAGES)
-    long_data = packed_data(LONG, LONG_PAGE_WORDS, LONG_PAGES, bert)
-    train_seg = train_layout_seg(long_data)
-    done("bert_data")
+    emit({"phase": "build_total", "seconds": time.perf_counter() - t0,
+          "bert_data_seconds_beside_nvcc": data_s})
+    done("build_and_bert_data")
     report["k1"] = check_k1(device, ("embed_bf16", "mt5_page_bias_bf16",
                                      "bert_long_packed_bf16",
                                      "bert_long_train_layout_bf16",
@@ -7707,8 +7982,24 @@ def run_phases(device, report: dict, tok_pool, mt5_tok, word_tok,
         # 14's stores
         report["filtered"] = run_filtered(device, bert, tmp)
         done("filtered")
-    emit({"phase": "timeline", "seconds_at_end_of": timeline})
+        # phase 22: training across the cards of this machine, through the
+        # CLI under torchrun
+        report["multicard"] = run_multicard(
+            device, bert, os.path.join(tmp, "multicard"),
+            report["device"]["nvidia_smi"])
+        done("multicard")
+    emit(timeline_line(timeline))
     return kernel_entries(report)
+
+
+def timeline_line(timeline: dict, **extra) -> dict:
+    """The `timeline` line: the seconds since the phases began at the end
+    of each phase, and each phase's own seconds."""
+    ends = list(timeline.items())
+    return {"phase": "timeline", "seconds_at_end_of": timeline,
+            "seconds_of": {name: end - (ends[i - 1][1] if i else 0.0)
+                           for i, (name, end) in enumerate(ends)},
+            **extra}
 
 
 def kernel_entries(report: dict) -> list:
@@ -7762,7 +8053,9 @@ def kernel_entries(report: dict) -> list:
                 ("hardneg_pipeline", report["hardneg"]),
                 ("production_training_from_jsonl",
                  report["production"]["train"]),
-                ("migration_target_training", report["migration"]["train"]))
+                ("migration_target_training", report["migration"]["train"]),
+                *((f"multicard_{cell}", rec) for cell, rec in
+                  report["multicard"]["cells"].items()))
     by_path = {n: {} for n in ("k1", "k2", "k3", "k4")}
     tc_by_path = {
         "k1": {"bert_serving": report["slice"]["k1_launches_tensor_core"],
@@ -8145,8 +8438,7 @@ def main() -> int:
                              args.parent)
     except BaseException:
         # where a failed run spent its time: the phases that ended
-        emit({"phase": "timeline", "seconds_at_end_of":
-              report.get("timeline"), "failed": True})
+        emit(timeline_line(report.get("timeline") or {}, failed=True))
         raise
     finally:
         tok_pool.terminate()

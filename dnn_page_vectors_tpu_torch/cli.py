@@ -104,6 +104,17 @@ report gains a ``chaos`` block: offered, sheds, errors, availability,
 injected). The workers and gateways are torn down in order: BYE, then a
 wait for each process, then a kill.
 
+``train`` runs on a mesh of cards when launched one process a card,
+``torchrun --nproc-per-node N -m dnn_page_vectors_tpu_torch.cli train
+... --set mesh.data=N`` (or ``mesh.model`` / ``mesh.seq``): it forms the
+process group (``parallel.mesh.multihost_init``: NCCL, gloo with
+``--device cpu``), trains on ``cuda:LOCAL_RANK``, rank 0 writes the
+metrics and the checkpoint (which loads at any world size), and every
+rank prints its final line with its rank and the kernel launches of its
+training. The other commands run in one process; in a group of several
+they exit non-zero naming ROADMAP.md queue 1, item 6 (the multi-process
+embed, eval and mine).
+
 ``lint`` (ROADMAP.md queue 1, item 8) exits non-zero naming its item and
 runs nothing in its place.
 """
@@ -924,6 +935,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command in NOT_PORTED:
         item, need = NOT_PORTED[args.command]
         raise _not_ported(f"the '{args.command}' command", item, need)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and args.command != "train":
+        raise _not_ported(f"'{args.command}' in a group of several "
+                          "processes", 6, "the multi-process embed, eval "
+                          "and mine; run it in one process")
     if not args.workdir:
         ap.error(f"{args.command} needs --workdir")
     if args.command == "search" and not (args.query or args.queries
@@ -966,6 +981,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                              partitions=max(1, args.partitions or 1),
                              replica=args.replica, device=args.device)
         return
+    from dnn_page_vectors_tpu_torch.parallel.mesh import multihost_init
+    multihost_init(backend="gloo" if args.device == "cpu" else None)
     trainer = _trainer(cfg, workdir, args.device)
     mgr = _restore(trainer, workdir)
 
@@ -974,9 +991,19 @@ def main(argv: Optional[List[str]] = None) -> None:
         # --steps N means N more steps
         steps = (max(0, cfg.train.steps - trainer.step) if args.steps is None
                  else args.steps)
+        from dnn_page_vectors_tpu_torch.ops import flash_attention as fa
+        before = {n: getattr(fa, n) for n in fa.COUNTERS}
         metrics = trainer.train(steps=steps, ckpt_manager=mgr)
+        launches = {n: getattr(fa, n) - before[n] for n in fa.COUNTERS}
         trainer.save(mgr)
-        print(json.dumps({"final": metrics}, sort_keys=True))
+        m = trainer.mesh
+        print(json.dumps({"final": metrics, "rank": m.rank, "world": m.size,
+                          "mesh": [m.data, m.model, m.seq],
+                          "kernel_launches": launches},
+                         sort_keys=True), flush=True)
+        if m.size > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()    # every rank has saved and waited
         return
 
     if args.command == "pipeline":

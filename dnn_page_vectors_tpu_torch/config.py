@@ -7,8 +7,9 @@ defaults (its config.py), the ``cdssm_toy``, ``kim_cnn_v5e8``,
 ``mt5_multilingual`` and ``bert_long_sp`` presets,
 and ``get_config`` with dotted overrides.
 
-Sections and fields of later slices (mesh, scan_steps, the hot posting
-set, partitions, fleet, maintenance, ...) join as those slices land; an override naming a field
+``mesh`` (``MeshConfig``) is the (data, model, seq) grid of ranks a
+training job runs on (parallel/mesh.py). Fields of later slices
+(scan_steps, ...) join as those slices land; an override naming a field
 that is not here yet raises.
 """
 from __future__ import annotations
@@ -58,16 +59,38 @@ class ModelConfig:
     mlp_dim: int = 1024
     model_dim: int = 256
     dropout: float = 0.1             # embedding, attention and MLP outputs
-    attention: str = "dense"         # dense | flash (CUDA kernels K1-K4);
-                                     # ring is a later slice
+    # dense | flash (CUDA kernels K1-K4) | ring (parallel/ring_attention.py:
+    # the sequence split over the mesh's seq group; at mesh.seq=1 it is
+    # flash)
+    attention: str = "dense"
     shared_towers: bool = False      # share params between the towers
     dtype: str = "bfloat16"          # compute dtype; params stay float32
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The grid of ranks (one process a card) a training job runs on:
+    ``data`` splits the batch (data parallelism, global in-batch
+    negatives), ``model`` splits the transformer's heads, MLP and
+    embedding features (tensor parallelism), ``seq`` splits the tokens
+    (ring attention). ``strict=True`` raises where the job has another
+    number of ranks than ``num_devices``; ``strict=False`` shrinks the
+    grid to the ranks there are (``fit_mesh_to_devices``), as the JAX
+    package does on a dev box."""
+    data: int = 1
+    model: int = 1
+    seq: int = 1
+    strict: bool = False
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.seq
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Trainer settings (train/loop.py). One process on one card: the
-    batch is the whole global batch."""
+    """Trainer settings (train/loop.py). ``batch_size`` is the GLOBAL
+    batch, split over the mesh's data axis."""
     batch_size: int = 256            # pages (and queries) per step
     steps: int = 1_000
     optimizer: str = "adamw"         # adamw | sgd
@@ -317,6 +340,7 @@ class Config:
     name: str = "custom"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
@@ -380,15 +404,16 @@ def cdssm_toy() -> Config:
 def kim_cnn_v5e8() -> Config:
     """Config 2: word-level Kim-CNN page encoder over a 1M-page toy corpus:
     a 100,000-word vocab, embed 256, convs of widths 3, 4 and 5 with 256
-    channels each, out 256. The batch of 4,096 is the global batch of the
-    JAX config's data=8 mesh, which has no counterpart here yet; one card
-    holds it whole."""
+    channels each, out 256. The batch of 4,096 is the global batch of a
+    data=8 mesh: eight ranks take 512 pairs each, against every rank's
+    pages as negatives; one card holds it whole."""
     return Config(
         name="kim_cnn_v5e8",
         data=DataConfig(tokenizer="word", corpus="toy", num_pages=1_000_000,
                         vocab_size=100_000),
         model=ModelConfig(encoder="kim_cnn", conv_widths=(3, 4, 5),
                           conv_channels=256, embed_dim=256, out_dim=256),
+        mesh=MeshConfig(data=8),
         train=TrainConfig(batch_size=4_096, steps=50_000),
     )
 
@@ -396,15 +421,15 @@ def kim_cnn_v5e8() -> Config:
 def lstm_words() -> Config:
     """The BiLSTM word-level page encoder, sized like kim_cnn_v5e8 on the
     same corpus and vocab: embed 256, one layer, hidden 256 a direction,
-    out 256. The batch of 4,096 is the global batch of the JAX config's
-    data=8 mesh, which has no counterpart here yet; one card holds it
-    whole."""
+    out 256. The batch of 4,096 is the global batch of a data=8 mesh,
+    as in kim_cnn_v5e8; one card holds it whole."""
     return Config(
         name="lstm_words",
         data=DataConfig(tokenizer="word", corpus="toy", num_pages=1_000_000,
                         vocab_size=100_000),
         model=ModelConfig(encoder="lstm", embed_dim=256, model_dim=256,
                           num_layers=1, out_dim=256),
+        mesh=MeshConfig(data=8),
         train=TrainConfig(batch_size=4_096, steps=50_000),
     )
 
@@ -412,13 +437,15 @@ def lstm_words() -> Config:
 def bert_mini_v5p16() -> Config:
     """Config 3: two-tower BERT-mini (query + page) with in-batch negatives.
     BERT-mini: L=4, d=256, A=4 (Dh=64), mlp 1024, out 256, WordPiece vocab
-    30,522, page_len 64, query_len 16."""
+    30,522, page_len 64, query_len 16. Its mesh is data=16: 16 ranks of
+    512 pairs, each scoring its queries against all 8,192 pages."""
     return Config(
         name="bert_mini_v5p16",
         data=DataConfig(tokenizer="wordpiece", corpus="toy",
                         num_pages=10_000_000, vocab_size=30_522),
         model=ModelConfig(encoder="bert", num_layers=4, num_heads=4,
                           model_dim=256, mlp_dim=1024, out_dim=256),
+        mesh=MeshConfig(data=16),
         train=TrainConfig(batch_size=8_192, steps=100_000,
                           learning_rate=5e-4),
     )
@@ -429,18 +456,20 @@ def hardneg_v5p64() -> Config:
     100M-page corpus: config 3's BERT-mini towers and WordPiece vocab, 7
     mined negatives per pair (train/pipeline.py alternates training with
     mining them, mine/ann.py). The batch of 16,384 pairs is the global
-    batch of the JAX config's 64-chip mesh: with its negatives, 131,072
-    page encodes of 64 tokens a step. One card holds about 1,024 pairs
-    (8,192 page encodes plus 1,024 queries, about bert_mini_v5p16's step
-    of 8,192 pages and 8,192 queries, which fits one 80 GB card), so a
-    single-card run cuts the batch, and the corpus, with
-    ``train.batch_size`` and ``data.num_pages`` overrides."""
+    batch of a data=64 mesh: 256 pairs a rank, each rank's queries scored
+    against all 16,384 pages and 114,688 mined negatives; with its
+    negatives, 131,072 page encodes of 64 tokens a step. One card holds
+    about 1,024 pairs (8,192 page encodes plus 1,024 queries, about
+    bert_mini_v5p16's step of 8,192 pages and 8,192 queries, which fits
+    one 80 GB card), so a single-card run cuts the batch, and the
+    corpus, with ``train.batch_size`` and ``data.num_pages`` overrides."""
     return Config(
         name="hardneg_v5p64",
         data=DataConfig(tokenizer="wordpiece", corpus="toy",
                         num_pages=100_000_000, vocab_size=30_522),
         model=ModelConfig(encoder="bert", num_layers=4, num_heads=4,
                           model_dim=256, mlp_dim=1024, out_dim=256),
+        mesh=MeshConfig(data=64),
         train=TrainConfig(batch_size=16_384, steps=200_000,
                           hard_negatives=7, learning_rate=5e-4),
     )
@@ -450,9 +479,11 @@ def mt5_multilingual() -> Config:
     """Config 5: multilingual mT5-base page encoder with cross-lingual
     retrieval. mT5-base encoder: L=12, d=768, A=12 (Dh=64), ff 2048 (gated
     GELU), out 768, SentencePiece vocab 250,112, page_len 128, query_len
-    16, a 4-language corpus. The batch of 4,096 is the global batch of the
-    JAX config's data=4 x model=2 mesh; one card does not hold it, so a
-    single-card run cuts it with the ``train.batch_size`` override."""
+    16, a 4-language corpus. The batch of 4,096 is the global batch of a
+    data=4 x model=2 mesh: each pair of ranks splits the 12 heads, the
+    gated MLP and the embedding's features in two and takes 1,024 pairs;
+    one card does not hold it, so a single-card run cuts it with the
+    ``train.batch_size`` override."""
     return Config(
         name="mt5_multilingual",
         data=DataConfig(tokenizer="sentencepiece", corpus="toy",
@@ -460,6 +491,7 @@ def mt5_multilingual() -> Config:
                         page_len=128, languages=4),
         model=ModelConfig(encoder="t5", num_layers=12, num_heads=12,
                           model_dim=768, mlp_dim=2048, out_dim=768),
+        mesh=MeshConfig(data=4, model=2),
         train=TrainConfig(batch_size=4_096, steps=100_000,
                           learning_rate=1e-4),
     )
@@ -469,10 +501,11 @@ def bert_long_sp() -> Config:
     """The long-page variant: BERT geometry at twice BERT-mini's width over
     1,024-token pages. L=4, d=512, A=8 (Dh=64), mlp 2048, out 256,
     WordPiece vocab 30,522, page_len 1024, query_len 32, batch 2,048 pages,
-    lr 5e-4. Its attention is ring attention over a mesh's sequence axis,
-    which the port does not have yet (the factory raises and names it); on
-    one card it runs with ``model.attention=flash``, as the JAX package
-    runs it there, packed with ``train.pack_pages`` for short pages."""
+    lr 5e-4. Its attention is ring attention over the mesh's seq axis
+    (data=16 x seq=4: four ranks hold 256 tokens of each page, and the
+    key/value blocks travel around them); at mesh.seq=1, on one card, the
+    ring is one hop and runs the flash kernels. Packed rows
+    (``train.pack_pages``) take ``model.attention=flash``."""
     return Config(
         name="bert_long_sp",
         data=DataConfig(tokenizer="wordpiece", corpus="toy",
@@ -481,6 +514,7 @@ def bert_long_sp() -> Config:
         model=ModelConfig(encoder="bert", num_layers=4, num_heads=8,
                           model_dim=512, mlp_dim=2048, out_dim=256,
                           attention="ring"),
+        mesh=MeshConfig(data=16, seq=4),
         train=TrainConfig(batch_size=2_048, steps=100_000,
                           learning_rate=5e-4),
     )

@@ -2,7 +2,7 @@
 shuffled train batches, the fixed-order bulk-embed sweep, the tokenizer
 worker pool and the host->device prefetch.
 
-Counterpart of the JAX package's data/loader.py, on one process. The
+Counterpart of the JAX package's data/loader.py. The
 per-batch read + tokenize of the train batcher and of the bulk-embed
 sweep can run on a pool of tokenizer worker threads
 (``ordered_parallel_map``, ``data.tokenize_workers``), reassembled in
@@ -237,6 +237,13 @@ class TrainBatcher:
     ``start_step`` maps a global step to (epoch, offset), so a resumed run
     continues the exact batch order of an uninterrupted one.
 
+    Across ranks (``process_count`` > 1: the mesh's data axis, one slice a
+    data index): every rank derives the same global batch of
+    ``batch_size`` ids and reads, tokenizes and packs only its
+    ``process_index``-th contiguous slice of batch_size / process_count
+    rows, its mined negatives with them; the slices in rank order are the
+    global batch byte for byte.
+
     ``workers`` > 1 reads and tokenizes each batch (queries, pages and the
     mined negatives) on a pool of tokenizer workers, reassembled in batch
     order, where the corpus reads in parallel (``read_workers``): the
@@ -251,7 +258,8 @@ class TrainBatcher:
                  hard_negative_lookup: Optional[
                      Callable[[np.ndarray], np.ndarray]] = None,
                  pack: int = 1, workers: int = 1,
-                 profiler: Optional[PipelineProfiler] = None):
+                 profiler: Optional[PipelineProfiler] = None,
+                 process_index: int = 0, process_count: int = 1):
         if batch_size > corpus.num_pages:
             raise ValueError(
                 f"batch_size {batch_size} > corpus size {corpus.num_pages}: "
@@ -265,9 +273,18 @@ class TrainBatcher:
         # maps [B] gold page ids -> [B, H] hard-negative page ids; called
         # from the worker threads (a read-only table gather)
         self.hard_negative_lookup = hard_negative_lookup
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in "
+                             f"[0, {process_count})")
+        if batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} must divide over "
+                             f"{process_count} data ranks")
+        self.process_index = process_index
+        self.process_count = process_count
+        local = batch_size // process_count
         self.pack = max(1, pack)
-        if self.pack > 1 and batch_size % self.pack:
-            raise ValueError(f"batch_size {batch_size} must divide "
+        if self.pack > 1 and local % self.pack:
+            raise ValueError(f"the batch of a rank, {local}, must divide "
                              f"train.pack_pages={self.pack}")
         self.workers = read_workers(corpus, workers)
         self.profiler = profiler or NULL_PROFILER
@@ -284,10 +301,13 @@ class TrainBatcher:
         n = self.corpus.num_pages
         epoch = self.start_step // self.steps_per_epoch
         skip = self.start_step % self.steps_per_epoch
+        local = self.batch_size // self.process_count
+        lo = self.process_index * local
         while True:
             order = np.random.default_rng(self.seed + epoch).permutation(n)
             for b in range(skip, self.steps_per_epoch):
-                yield order[b * self.batch_size:(b + 1) * self.batch_size]
+                s = b * self.batch_size + lo
+                yield order[s:s + local]          # this rank's slice
             skip = 0
             epoch += 1
 
@@ -436,7 +456,7 @@ def prefetch_to_device(it: Iterator[Batch], device: torch.device,
     A producer's exception re-raises at the consumer, at its place in the
     stream (``RuntimeError("prefetch producer failed")`` from it), never as
     an early end. Abandoning the iterator (closing it) stops the producer
-    once it has made its current batch, and closes `it`. ``profiler``
+    once it has made its current batch, closes `it` and waits for both. ``profiler``
     gets ``produce_wait`` (the consumer blocked on the producer) and
     ``h2d`` (pinning and starting copies)."""
     prof = profiler or NULL_PROFILER
@@ -502,8 +522,11 @@ def prefetch_to_device(it: Iterator[Batch], device: torch.device,
                     inflight.popleft()    # its copies are done
             yield dev
     finally:
-        # the producer stops at its next put and closes `it`; it is not
-        # joined here, where it may still be finishing a batch
+        # the producer stops at its next put and closes `it`; joined here
+        # (it may first finish the batch it is making), so no thread of
+        # this iterator outlives it: a daemon thread still inside the
+        # tokenizers when the process exits aborts it
         stop.set()
+        t.join()
         for ev, _ in inflight:     # release no buffer a copy still reads
             ev.synchronize()

@@ -14,8 +14,9 @@ running top-k; with ``out_path`` the [nq, H] table is a memmap filled a
 block at a time.
 
 Not ported yet: the per-process slices of a multi-process mine, merged
-through per-writer files (the multi-GPU slice); it raises
-NotImplementedError.
+through per-writer files; they come with the multi-process embed, eval
+and mine (ROADMAP.md queue 1, item 6), and a mine in a group of several
+processes raises NotImplementedError until then.
 """
 from __future__ import annotations
 
@@ -147,8 +148,8 @@ def mine_hard_negatives(embedder, corpus, store,
     if _multi_process():
         raise NotImplementedError(
             "a multi-process mine (per-process query slices merged through "
-            "per-writer files) is part of the multi-GPU slice of the port "
-            "(ROADMAP.md queue 1); mine in one process")
+            "per-writer files) comes with the multi-process embed, eval and "
+            "mine (ROADMAP.md queue 1, item 6); mine in one process")
     nq = min(num_queries or corpus.num_pages, corpus.num_pages)
     if corpus.num_pages < 2:
         raise ValueError("cannot mine negatives from a <2-page corpus")

@@ -12,6 +12,11 @@ normal, std 1/sqrt(d); pos_embed and rel_bias: normal, std 0.02;
 LayerNorm: scale 1, bias 0; RmsNorm: scale 1); the numbers
 differ from JAX's, whose generator is another. Weights trained in JAX carry
 over through convert.py.
+
+On a mesh (parallel/mesh.py) the transformer towers take its seq group
+(ring attention) and its model split: a rank's module holds its shards,
+cut from the full model's seeded weights (parallel/sharding.py
+``shard_params``), so every mesh starts from the single card's weights.
 """
 from __future__ import annotations
 
@@ -26,13 +31,13 @@ from dnn_page_vectors_tpu_torch.models.conv import Conv
 from dnn_page_vectors_tpu_torch.models.kim_cnn import KimCnnEncoder
 from dnn_page_vectors_tpu_torch.models.lstm import LstmEncoder
 from dnn_page_vectors_tpu_torch.models.transformer import (
-    VARIANTS, Dense, LayerNorm, RmsNorm, TransformerEncoder)
+    ATTENTION_KINDS, VARIANTS, Dense, LayerNorm, RmsNorm, TransformerEncoder)
 from dnn_page_vectors_tpu_torch.models.two_tower import TwoTower
 from dnn_page_vectors_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-def _build_encoder(cfg: Config, vocab_size: int) -> nn.Module:
+def _build_encoder(cfg: Config, vocab_size: int, mesh=None) -> nn.Module:
     m = cfg.model
     if m.dtype not in DTYPES:
         raise ValueError(f"unknown model dtype {m.dtype!r} (want "
@@ -54,15 +59,15 @@ def _build_encoder(cfg: Config, vocab_size: int) -> nn.Module:
                            out_dim=m.out_dim, dropout=m.dropout, dtype=dtype)
     if m.encoder not in VARIANTS:
         raise ValueError(f"unknown encoder {m.encoder!r}")
-    if m.attention not in ("dense", "flash"):
+    if m.attention not in ATTENTION_KINDS:
         raise ValueError(f"unknown attention kind {m.attention!r} (want "
-                         "dense | flash; ring attention is a later slice)")
+                         f"{' | '.join(ATTENTION_KINDS)})")
     return TransformerEncoder(
         vocab_size=vocab_size, num_layers=m.num_layers,
         num_heads=m.num_heads, model_dim=m.model_dim, mlp_dim=m.mlp_dim,
         out_dim=m.out_dim, max_len=max(cfg.data.query_len, cfg.data.page_len),
         dtype=dtype, attention_kind=m.attention,
-        dropout=m.dropout, variant=m.encoder)
+        dropout=m.dropout, variant=m.encoder, mesh=mesh)
 
 
 @torch.no_grad()
@@ -95,17 +100,29 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             table.normal_(0.0, 0.02, generator=generator)
 
 
+def _two_tower(cfg: Config, vocab_size: int, mesh=None) -> TwoTower:
+    query_tower = _build_encoder(cfg, vocab_size, mesh)
+    page_tower = (None if cfg.model.shared_towers
+                  else _build_encoder(cfg, vocab_size, mesh))
+    return TwoTower(query_tower, page_tower, shared=cfg.model.shared_towers,
+                    temperature_init=cfg.train.temperature_init)
+
+
 def build_two_tower(cfg: Config, vocab_size: int,
-                    device: DeviceLike = None) -> TwoTower:
+                    device: DeviceLike = None, mesh=None) -> TwoTower:
     """Both towers share one tokenizer vocab (query/page differ only in
     length), so one vocab_size parameterises both. Returns the model in
-    eval mode on `device` (``None`` = cuda)."""
+    eval mode on `device` (``None`` = cuda); with `mesh` (a
+    parallel.mesh.Mesh), this rank's part of it."""
     dev = resolve_device(device)
-    query_tower = _build_encoder(cfg, vocab_size)
-    page_tower = (None if cfg.model.shared_towers
-                  else _build_encoder(cfg, vocab_size))
-    model = TwoTower(query_tower, page_tower,
-                     shared=cfg.model.shared_towers,
-                     temperature_init=cfg.train.temperature_init)
-    init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    model = _two_tower(cfg, vocab_size, mesh)
+    if mesh is not None and mesh.model > 1:
+        from dnn_page_vectors_tpu_torch.parallel.sharding import shard_params
+        full = _two_tower(cfg, vocab_size)
+        init_weights(full, gen)
+        model.load_state_dict(shard_params(full.state_dict(), mesh),
+                              strict=True)
+    else:
+        init_weights(model, gen)
     return model.to(dev).eval()

@@ -1,8 +1,8 @@
 """Cosine-contrastive loss with in-batch (and optional mined hard)
 negatives, and ``l2_normalize``.
 
-Counterpart of the JAX package's models/losses.py. Two implementations of
-the same math:
+Counterpart of the JAX package's models/losses.py. Two ways to the same
+math:
 
 * dense (``chunk=0``): the [B, B(1+H)] logits exist at once;
 * chunked (``chunk > 0``, train.loss_chunk): query rows are scored
@@ -12,16 +12,27 @@ the same math:
   inputs. The softmax cross-entropy is exactly lse - positive logit, so
   the two agree to float32 rounding.
 
-One process, one card: the batch is the whole global batch (data
-parallelism with gathered negatives is a later slice).
+Across the mesh's data axis (``group``, parallel/mesh.py), each rank
+holds b = B / n rows. As under the JAX package's GSPMD, the loss is the
+global batch's: the normalised query, page and negative vectors are
+gathered over the group (``all_gather_sum_grad``, whose backward sums
+over the ranks), each rank scores its own rows against the global pool,
+and returns its rows' share of the global loss (their sum over the B
+rows' mean), so the ranks' losses sum to the single card's loss and
+their gradients, summed over the ranks, to its gradient. The metrics
+("loss", "in_batch_acc") are the global batch's on every rank.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from dnn_page_vectors_tpu_torch.parallel.mesh import (
+    all_gather_sum_grad, group_size)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -65,6 +76,7 @@ def cosine_contrastive_loss(
     neg: Optional[torch.Tensor] = None,   # [B, H, D] mined hard negatives
     symmetric: bool = True,
     chunk: int = 0,
+    group=None,                           # the mesh's data group
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Softmax contrastive loss over cosine similarities: (loss, {"loss",
     "in_batch_acc", "scale"}).
@@ -73,38 +85,42 @@ def cosine_contrastive_loss(
     batch plus, if given, all B*H mined negatives. `symmetric` adds the
     page->query direction over the in-batch block (mined negatives have no
     query side). `chunk` > 0 with chunk < B takes the chunked path (see
-    the module docstring); it must divide B."""
+    the module docstring); it must divide B. With `group` (see the module
+    docstring) q, p and neg are this rank's rows, the loss is their share
+    of the global loss, and `chunk` must divide the rank's rows."""
+    n = group_size(group)
+    r = dist.get_rank(group) if n > 1 else 0
+    b = q.shape[0]
+    B = n * b
     qn = l2_normalize(q)
     pn = l2_normalize(p)
-    B = q.shape[0]
-    labels = torch.arange(B, device=q.device)
-    if chunk and 0 < chunk < B:
-        pool = pn
-        if neg is not None:
-            nn_ = l2_normalize(neg.reshape(-1, neg.shape[-1]))    # [B*H, D]
-            pool = torch.cat([pn, nn_], dim=0)                    # [B+BH, D]
-        lse, pos, corr = _chunk_stats(qn, pool, labels, scale, chunk)
-        loss_qp = (lse - pos).mean()
-        if symmetric:
-            lse_pq, pos_pq, _ = _chunk_stats(pn, qn, labels, scale, chunk)
-            loss = 0.5 * (loss_qp + (lse_pq - pos_pq).mean())
-        else:
-            loss = loss_qp
-        in_batch_acc = corr.float().mean()
-        return loss, {"loss": loss, "in_batch_acc": in_batch_acc,
-                      "scale": scale}
-    logits = scale * (qn @ pn.T)                                  # [B, B]
+    q_all = all_gather_sum_grad(qn, group)                       # [B, D]
+    pool = all_gather_sum_grad(pn, group)                        # [B, D]
     if neg is not None:
-        nn_ = l2_normalize(neg.reshape(-1, neg.shape[-1]))        # [B*H, D]
-        extra = scale * (qn @ nn_.T)                              # [B, B*H]
-        logits_qp = torch.cat([logits, extra], dim=1)             # [B, B+BH]
+        nn_ = l2_normalize(neg.reshape(-1, neg.shape[-1]))       # [b*H, D]
+        pool = torch.cat([pool, all_gather_sum_grad(nn_, group)])
+    labels = torch.arange(r * b, (r + 1) * b, device=q.device)  # global ids
+    if chunk and 0 < chunk < b:
+        lse, pos, corr = _chunk_stats(qn, pool, labels, scale, chunk)
+        loss = (lse - pos).sum() / B
+        if symmetric:
+            lse_pq, pos_pq, _ = _chunk_stats(pn, q_all, labels, scale, chunk)
+            loss = 0.5 * (loss + (lse_pq - pos_pq).sum() / B)
+        correct = corr.float().sum()
     else:
-        logits_qp = logits
-    loss_qp = F.cross_entropy(logits_qp, labels)
-    if symmetric:
-        loss = 0.5 * (loss_qp + F.cross_entropy(logits.T, labels))
-    else:
-        loss = loss_qp
-    in_batch_acc = (logits_qp.argmax(dim=1) == labels).float().mean()
-    return loss, {"loss": loss, "in_batch_acc": in_batch_acc,
+        logits_qp = scale * (qn @ pool.T)                        # [b, B(1+H)]
+        loss = F.cross_entropy(logits_qp, labels, reduction="sum") / B
+        if symmetric:
+            # page -> query: on one rank the transpose of the in-batch block
+            logits_pq = (logits_qp[:, :B].T if n == 1
+                         else scale * (pn @ q_all.T))            # [b, B]
+            loss = 0.5 * (loss + F.cross_entropy(
+                logits_pq, labels, reduction="sum") / B)
+        correct = (logits_qp.argmax(dim=1) == labels).float().sum()
+    total = loss
+    if n > 1:
+        sums = torch.stack([loss.detach(), correct])
+        dist.all_reduce(sums, group=group)
+        total, correct = sums[0], sums[1]
+    return loss, {"loss": total, "in_batch_acc": correct / B,
                   "scale": scale}

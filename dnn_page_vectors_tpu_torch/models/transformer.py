@@ -50,7 +50,26 @@ contiguous, so within a segment relative distance is global distance, and
 cross-segment pairs are masked), and pooling runs per segment in float32,
 returning [B, nseg, D].
 
-Ring attention is a later slice of the port.
+On a mesh (parallel/mesh.py; ``mesh=None`` is one card and changes
+nothing):
+
+* ``attention="ring"`` splits the tokens over the mesh's seq group for
+  the whole tower (parallel/ring_attention.py): a rank takes its block of
+  L / seq tokens of every row, bert adds ``pos_embed`` at the block's
+  global positions, t5 passes its table and bucket function to the ring,
+  which rebuilds each step's bias block, and the masked mean pool sums
+  its tokens and count over the seq group (``all_reduce_sum_grad``). A
+  seq group of one rank is the whole sequence: ring is then flash. Packed
+  rows take dense or flash attention, as in the JAX package;
+* the model axis splits the blocks as the JAX package's ``TP_RULES``
+  (parallel/sharding.py) do: ``wq``, ``wk``, ``wv`` (and the heads) and
+  ``wi`` / ``wi_0`` / ``wi_1`` by output, ``wo`` and ``wo_mlp`` by input,
+  whose outputs are summed over the model group before their replicated
+  bias (``all_reduce_identity_grad``), and ``tok_embed`` by features,
+  gathered after the lookup. The t5 table stays whole; a rank takes the
+  columns of its heads, so K1 and K4 take an [H / model, L, S] bias.
+  ``copy_reduce_grad`` sums the input's gradient over the group where a
+  replicated activation enters a split matmul.
 """
 from __future__ import annotations
 
@@ -63,11 +82,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from dnn_page_vectors_tpu_torch.ops.flash_attention import flash_attention
+from dnn_page_vectors_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_split_grad, all_reduce_identity_grad,
+    all_reduce_sum_grad, copy_reduce_grad, group_size)
+from dnn_page_vectors_tpu_torch.parallel.ring_attention import (
+    local_block, ring_attention)
 
 _DENSE_MASK = -1e9
 NUM_BUCKETS = 32
 MAX_DISTANCE = 128
 VARIANTS = ("bert", "t5")
+ATTENTION_KINDS = ("dense", "flash", "ring")
 
 
 def relative_position_bucket(rel_pos: np.ndarray,
@@ -140,17 +165,25 @@ def dropout(x: torch.Tensor, rate: float,
 
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: float32 parameters, compute in
-    ``compute_dtype``. The weight is stored [out, in] (torch's layout)."""
+    ``compute_dtype``. The weight is stored [out, in] (torch's layout).
+    With ``reduce_group`` (a row-parallel matmul of the model axis) the
+    product is summed over the group before the bias is added."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 reduce_group=None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        self.reduce_group = reduce_group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if group_size(self.reduce_group) == 1:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        y = all_reduce_identity_grad(F.linear(x.to(dt), self.weight.to(dt)),
+                                     self.reduce_group)
+        return y if b is None else y + b
 
 
 class LayerNorm(nn.Module):
@@ -188,42 +221,67 @@ class RmsNorm(nn.Module):
         return (y * self.scale).to(self.dtype)
 
 
+def _split(what: str, size: int, parts: int) -> int:
+    if size % parts:
+        raise ValueError(f"{what} {size} does not divide over mesh.model="
+                         f"{parts}")
+    return size // parts
+
+
 class Attention(nn.Module):
-    """kind: 'dense' (materialised scores) or 'flash' (kernel K1 forward;
-    K2 + K3, or K4 + K3 with a bias, backward). ``use_bias``: the Dense
-    layers' biases (bert has them, t5 does not)."""
+    """kind: 'dense' (materialised scores), 'flash' (kernel K1 forward;
+    K2 + K3, or K4 + K3 with a bias, backward) or 'ring' (the tokens
+    split over the mesh's seq group; flash where it holds one rank).
+    ``use_bias``: the Dense layers' biases (bert has them, t5 does not).
+    On a mesh with model > 1 the module holds its rank's heads."""
 
     def __init__(self, num_heads: int, model_dim: int,
                  dtype: torch.dtype = torch.bfloat16, kind: str = "dense",
-                 use_bias: bool = True):
+                 use_bias: bool = True, mesh: Optional[Mesh] = None):
         super().__init__()
-        if kind not in ("dense", "flash"):
-            raise ValueError(f"unknown attention kind {kind!r} (want dense | "
-                             "flash; ring attention is a later slice)")
+        if kind not in ATTENTION_KINDS:
+            raise ValueError(f"unknown attention kind {kind!r} (want "
+                             f"{' | '.join(ATTENTION_KINDS)})")
         if model_dim % num_heads:
             raise ValueError(f"model_dim {model_dim} is not a multiple of "
                              f"num_heads {num_heads}")
-        self.num_heads = num_heads
+        parts = mesh.model if mesh is not None else 1
+        self.num_heads = _split("num_heads", num_heads, parts)
         self.model_dim = model_dim
+        self.local_dim = self.num_heads * (model_dim // num_heads)
         self.dtype = dtype
         self.kind = kind
-        for name in ("wq", "wk", "wv", "wo"):
-            setattr(self, name, Dense(model_dim, model_dim, bias=use_bias,
-                                      compute_dtype=dtype))
+        self.seq_group = mesh.group("seq") if mesh is not None else None
+        for name in ("wq", "wk", "wv"):
+            setattr(self, name, Dense(model_dim, self.local_dim,
+                                      bias=use_bias, compute_dtype=dtype))
+        self.wo = Dense(self.local_dim, model_dim, bias=use_bias,
+                        compute_dtype=dtype,
+                        reduce_group=None if mesh is None
+                        else mesh.group("model"))
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 rel_bias: Optional[torch.Tensor] = None,
-                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seg: Optional[torch.Tensor] = None,
+                ring_bias=None) -> torch.Tensor:
         """`rel_bias`: optional float32 [H, L, L], added to the scores;
         `seg`: optional [B, L] segment ids (0 = pad), which restrict the
-        scores to pairs within one segment."""
+        scores to pairs within one segment; `ring_bias`: the t5 (table,
+        bucket function) of a ring over several ranks."""
         B, L, _ = x.shape
-        head_dim = self.model_dim // self.num_heads
+        head_dim = self.local_dim // self.num_heads
         shape = (B, L, self.num_heads, head_dim)
         q = self.wq(x).view(shape)
         k = self.wk(x).view(shape)
         v = self.wv(x).view(shape)
-        if self.kind == "flash":
+        if self.kind == "ring" and group_size(self.seq_group) > 1:
+            # packed rows (seg) never get here: the encoder refuses them
+            table, bucket_fn = ring_bias or (None, None)
+            out = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), pad_mask, self.seq_group,
+                                 bias_table=table, bucket_fn=bucket_fn)
+            out = out.to(self.dtype).transpose(1, 2)       # [B, L, H, Dh]
+        elif self.kind in ("flash", "ring"):
             # [B, L, H, Dh] -> [B, H, L, Dh] as strided views: the kernel
             # takes the strides, so no copy is made here
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -245,7 +303,7 @@ class Attention(nn.Module):
             scores = scores.masked_fill(~allowed, _DENSE_MASK)
             probs = torch.softmax(scores, dim=-1).to(self.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.wo(out.reshape(B, L, self.model_dim))
+        return self.wo(out.reshape(B, L, self.local_dim))
 
 
 def _norm(variant: str, dim: int, dtype: torch.dtype) -> nn.Module:
@@ -259,33 +317,39 @@ class Block(nn.Module):
     def __init__(self, num_heads: int, model_dim: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_kind: str = "dense", dropout: float = 0.0,
-                 variant: str = "bert"):
+                 variant: str = "bert", mesh: Optional[Mesh] = None):
         super().__init__()
         self.dropout_rate = dropout
         self.variant = variant
+        self.model_group = None if mesh is None else mesh.group("model")
+        mlp_local = _split("mlp_dim", mlp_dim,
+                           mesh.model if mesh is not None else 1)
         use_bias = variant != "t5"
         self.ln_attn = _norm(variant, model_dim, dtype)
         self.attn = Attention(num_heads, model_dim, dtype, attention_kind,
-                              use_bias)
+                              use_bias, mesh)
         self.ln_mlp = _norm(variant, model_dim, dtype)
         if variant == "t5":
-            self.wi_0 = Dense(model_dim, mlp_dim, bias=False,
+            self.wi_0 = Dense(model_dim, mlp_local, bias=False,
                               compute_dtype=dtype)
-            self.wi_1 = Dense(model_dim, mlp_dim, bias=False,
+            self.wi_1 = Dense(model_dim, mlp_local, bias=False,
                               compute_dtype=dtype)
         else:
-            self.wi = Dense(model_dim, mlp_dim, compute_dtype=dtype)
-        self.wo_mlp = Dense(mlp_dim, model_dim, bias=use_bias,
-                            compute_dtype=dtype)
+            self.wi = Dense(model_dim, mlp_local, compute_dtype=dtype)
+        self.wo_mlp = Dense(mlp_local, model_dim, bias=use_bias,
+                            compute_dtype=dtype,
+                            reduce_group=self.model_group)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 rel_bias: Optional[torch.Tensor] = None,
-                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seg: Optional[torch.Tensor] = None,
+                ring_bias=None) -> torch.Tensor:
         rate = self.dropout_rate if self.training else 0.0
-        x = x + dropout(self.attn(self.ln_attn(x), pad_mask, rel_bias, seg),
+        h = copy_reduce_grad(self.ln_attn(x), self.model_group)
+        x = x + dropout(self.attn(h, pad_mask, rel_bias, seg, ring_bias),
                         rate, generator)
-        h = self.ln_mlp(x)
+        h = copy_reduce_grad(self.ln_mlp(x), self.model_group)
         if self.variant == "t5":
             h = F.gelu(self.wi_0(h), approximate="tanh") * self.wi_1(h)
         else:
@@ -302,7 +366,7 @@ class TransformerEncoder(nn.Module):
                  out_dim: int = 256, max_len: int = 128,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_kind: str = "dense", dropout: float = 0.0,
-                 variant: str = "bert"):
+                 variant: str = "bert", mesh: Optional[Mesh] = None):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown transformer variant {variant!r} "
@@ -311,7 +375,18 @@ class TransformerEncoder(nn.Module):
         self.dropout_rate = dropout
         self.num_layers = num_layers
         self.variant = variant
-        self.tok_embed = nn.Embedding(vocab_size, model_dim)
+        parts = mesh.model if mesh is not None else 1
+        self.model_group = None if mesh is None else mesh.group("model")
+        # the ring splits the tokens over the seq group for the whole tower
+        self.seq_group = (mesh.group("seq") if mesh is not None
+                          and attention_kind == "ring" else None)
+        self.seq_index = mesh.seq_index if mesh is not None else 0
+        # the t5 table's columns of this rank's heads
+        local_heads = _split("num_heads", num_heads, parts)
+        first = (mesh.model_index if mesh is not None else 0) * local_heads
+        self.heads = slice(first, first + local_heads)
+        self.tok_embed = nn.Embedding(vocab_size,
+                                      _split("model_dim", model_dim, parts))
         if variant == "t5":
             self.rel_bias = nn.Parameter(torch.zeros(NUM_BUCKETS, num_heads))
             # on the module's device, so a forward copies nothing from the
@@ -319,12 +394,18 @@ class TransformerEncoder(nn.Module):
             self.register_buffer("buckets",
                                  torch.from_numpy(bucket_table(max_len)),
                                  persistent=False)
+            # the ring's bucket function: the bucket of each distance in
+            # (-max_len, max_len), looked up at distance + max_len - 1
+            self.max_len = max_len
+            self.register_buffer(
+                "distance_buckets", torch.from_numpy(relative_position_bucket(
+                    np.arange(-(max_len - 1), max_len))), persistent=False)
         else:
             self.pos_embed = nn.Parameter(torch.zeros(max_len, model_dim))
         for i in range(num_layers):
             setattr(self, f"block{i}", Block(num_heads, model_dim, mlp_dim,
                                              dtype, attention_kind, dropout,
-                                             variant))
+                                             variant, mesh))
         self.ln_final = _norm(variant, model_dim, dtype)
         self.proj = Dense(model_dim, out_dim, compute_dtype=torch.float32)
 
@@ -340,21 +421,37 @@ class TransformerEncoder(nn.Module):
         rows (see the module docstring): `seg` [B, L] segment ids, `pos`
         [B, L] each token's position in its page (bert), `nseg` segments a
         row; returns one vector per segment, [B, nseg, out_dim]."""
+        ring = group_size(self.seq_group) > 1
+        tokens = slice(0, ids.shape[1])
+        if ring:
+            if seg is not None:
+                raise ValueError("sequence packing (train.pack_pages) takes "
+                                 "dense or flash attention: the ring "
+                                 "splits the sequence itself")
+            tokens = local_block(ids.shape[1], group_size(self.seq_group),
+                                 self.seq_index)
+            ids = ids[:, tokens]
         L = ids.shape[1]
         pad_mask = ids > 0
-        x = self.tok_embed(ids).to(self.dtype)
-        rel_bias = None
+        x = all_gather_split_grad(self.tok_embed(ids),
+                                  self.model_group).to(self.dtype)
+        rel_bias = ring_bias = None
         if self.variant == "t5":
-            rel_bias = _GatherBias.apply(self.rel_bias,
-                                         self.buckets[:L, :L])  # [H, L, L]
+            table = copy_reduce_grad(self.rel_bias,
+                                     self.model_group)[:, self.heads]
+            if ring:
+                ring_bias = (table, self._distance_bucket)
+            else:
+                rel_bias = _GatherBias.apply(table,
+                                             self.buckets[:L, :L])  # [H, L, L]
         elif pos is None:
-            x = x + self.pos_embed[:L].to(self.dtype)[None]
+            x = x + self.pos_embed[tokens].to(self.dtype)[None]
         else:
             x = x + F.embedding(pos, self.pos_embed).to(self.dtype)
         x = dropout(x, self.dropout_rate if self.training else 0.0,
                     generator)
         for blk in self.blocks():
-            x = blk(x, pad_mask, generator, rel_bias, seg)
+            x = blk(x, pad_mask, generator, rel_bias, seg, ring_bias)
         x = self.ln_final(x)
         if seg is not None:
             # per-segment masked mean pool, in float32: one vector per page
@@ -368,5 +465,14 @@ class TransformerEncoder(nn.Module):
             return self.proj(tot / cnt[..., None])             # [B, nseg, D]
         # masked mean pool, in float32
         m = pad_mask[..., None].float()
+        if ring:
+            # the page's tokens lie on the seq group's ranks
+            tot = all_reduce_sum_grad((x.float() * m).sum(1), self.seq_group)
+            cnt = m.sum(1)
+            torch.distributed.all_reduce(cnt, group=self.seq_group)
+            return self.proj(tot / cnt.clamp_min(1.0))
         pooled = (x.float() * m).sum(1) / m.sum(1).clamp_min(1.0)
         return self.proj(pooled)
+
+    def _distance_bucket(self, rel: torch.Tensor) -> torch.Tensor:
+        return self.distance_buckets[rel + (self.max_len - 1)]

@@ -1,5 +1,5 @@
-"""Work across processes and hosts: for now only the partition split of
-partitioned serving (``multihost.partition_shard_ranges``). The rest of
-the JAX package's parallel/ (the mesh, sharding, ring attention and the
-multi-host batching) waits for a machine with several cards (ROADMAP.md
-queue 1, item 6)."""
+"""Work across processes and cards: the training mesh and its collectives
+(``mesh``), the tensor-parallel split of the transformer's parameters
+(``sharding``), ring attention over the mesh's seq group
+(``ring_attention``), and ``multihost``'s process info, barriers and the
+partition split of partitioned serving."""

@@ -1,15 +1,45 @@
 """The port's copy of the JAX package's parallel/multihost.py, in part:
+``process_info``, ``barrier`` and ``allgather_hosts`` over the job's
+process group (parallel/mesh.py), each a no-op in one process, and
 ``partition_shard_ranges``, the ownership map of partitioned serving
 (infer/partition.py), which is pure arithmetic over the shard table.
 
-The rest of that module (process info, barriers, the multi-host batch
-slices) waits for a machine with several cards (ROADMAP.md queue 1,
-item 6)."""
+The process-local inference meshes (``local_mesh``, ``inference_mesh``,
+``is_local_mesh``, ``host_replicated_copy``) come with the multi-process
+embed, eval and mine (ROADMAP.md queue 1, item 6)."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from dnn_page_vectors_tpu_torch.parallel.mesh import world
+
+
+def process_info() -> Tuple[int, int]:
+    """(process index, process count): (0, 1) outside a group."""
+    return world()
+
+
+def barrier(name: str = "") -> None:
+    """Blocks until every process of the group reaches a barrier (`name`
+    says which, for the reader: every process must call the same
+    barriers in the same order)."""
+    if world()[1] > 1:
+        dist.barrier()
+
+
+def allgather_hosts(x: np.ndarray) -> np.ndarray:
+    """[process_count, ...] stack of every process's host value; the value
+    must have the same shape and dtype on every process (pad first)."""
+    x = np.asarray(x)
+    if world()[1] == 1:
+        return x[None]
+    parts = [None] * world()[1]
+    dist.all_gather_object(parts, x)
+    return np.stack(parts)
 
 
 def partition_shard_ranges(counts: Sequence[int], parts: int

@@ -15,6 +15,12 @@ warmup-cosine schedule, computed as optax computes it:
 
 Moments and the count are the whole state: ``state_dict`` holds them by
 parameter name, which ``convert.adamw_state_from_optax`` also produces.
+
+On a mesh whose model axis splits parameters (``model_group``,
+parallel/sharding.py), a rank holds its shards and their moments; the
+global norm sums each split parameter's squares over the model group
+once, and counts a replicated parameter once (every rank of the group
+holds the same gradient of it).
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import Dict, Iterable, Tuple
 import torch
 
 from dnn_page_vectors_tpu_torch.config import TrainConfig
+from dnn_page_vectors_tpu_torch.parallel.mesh import group_size
+from dnn_page_vectors_tpu_torch.parallel.sharding import spec_for_param
 
 CLIP_NORM = 1.0
 
@@ -52,7 +60,8 @@ class ClippedOptimizer:
     place, and returns the gradients' global norm before clipping."""
 
     def __init__(self, cfg: TrainConfig,
-                 params: Iterable[Tuple[str, torch.nn.Parameter]]):
+                 params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 model_group=None):
         if cfg.optimizer not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.kind = cfg.optimizer
@@ -60,6 +69,7 @@ class ClippedOptimizer:
         self.schedule = warmup_cosine(cfg)
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
         self.params: Dict[str, torch.nn.Parameter] = dict(params)
+        self.model_group = model_group
         self.count = 0                       # updates made so far
         self.mu: Dict[str, torch.Tensor] = {}
         self.nu: Dict[str, torch.Tensor] = {}
@@ -79,8 +89,7 @@ class ClippedOptimizer:
             if p.grad is None:
                 raise RuntimeError(f"parameter {n} has no gradient")
             grads[n] = p.grad
-        norm = torch.sqrt(sum((g.float() * g.float()).sum()
-                              for g in grads.values()))
+        norm = self.global_norm(grads)
         # optax: select(norm < max_norm, g, g / norm * max_norm)
         factor = torch.where(norm < CLIP_NORM, torch.ones_like(norm),
                              CLIP_NORM / norm)
@@ -101,6 +110,18 @@ class ClippedOptimizer:
             update.add_(p, alpha=self.weight_decay)
             p.add_(update, alpha=-lr)
         return norm
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if group_size(self.model_group) == 1:
+            return torch.sqrt(sum((g.float() * g.float()).sum()
+                                  for g in grads.values()))
+        sq = {n: (g.float() * g.float()).sum() for n, g in grads.items()}
+        device = next(iter(grads.values())).device
+        split = sum((sq[n] for n in sq if spec_for_param(n) is not None),
+                    torch.zeros((), device=device))
+        torch.distributed.all_reduce(split, group=self.model_group)
+        return torch.sqrt(split + sum(
+            sq[n] for n in sq if spec_for_param(n) is None))
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": dict(self.mu),
@@ -123,6 +144,8 @@ class ClippedOptimizer:
         self.count = int(state["count"])
 
 
-def make_optimizer(cfg: TrainConfig, params) -> ClippedOptimizer:
-    """`params`: named parameters, e.g. ``model.named_parameters()``."""
-    return ClippedOptimizer(cfg, params)
+def make_optimizer(cfg: TrainConfig, params,
+                   model_group=None) -> ClippedOptimizer:
+    """`params`: named parameters, e.g. ``model.named_parameters()``;
+    `model_group`: the mesh's model group where it splits them."""
+    return ClippedOptimizer(cfg, params, model_group)

@@ -6,6 +6,7 @@ request for ``cuda`` with no GPU present raises.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -26,9 +27,14 @@ def set_precision() -> None:
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda``; raises when a CUDA device is asked for and none
-    is present. Only an explicit ``"cpu"`` selects the CPU."""
+    """``None`` -> ``cuda``; in a process torchrun started, ``None`` and
+    ``"cuda"`` mean ``cuda:LOCAL_RANK``, the rank's own card. Raises when
+    a CUDA device is asked for and none is present. Only an explicit
+    ``"cpu"`` selects the CPU."""
     dev = torch.device("cuda" if device is None else device)
+    local = os.environ.get("LOCAL_RANK")
+    if dev.type == "cuda" and dev.index is None and local is not None:
+        dev = torch.device("cuda", int(local))
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     if dev.type == "cuda" and not torch.cuda.is_available():

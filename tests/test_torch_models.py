@@ -89,13 +89,16 @@ def test_l2_normalize_matches_jax():
 
 def test_factory_refuses_unported_encoders():
     """Every encoder of the JAX package is ported (cdssm, kim_cnn and lstm:
-    tests/test_torch_zoo.py); the factory refuses an encoder it does not
-    know, and ring attention, which is not ported yet."""
+    tests/test_torch_zoo.py), and every attention kind (ring since
+    parallel/ring_attention.py); the factory refuses an encoder or an
+    attention kind it does not know."""
     cfg = get_config("bert_mini_v5p16", {"model.encoder": "gpt"})
     with pytest.raises(ValueError, match="unknown encoder"):
         build_two_tower(cfg, vocab_size=VOCAB, device="cpu")
-    cfg = get_config("bert_mini_v5p16", {**SMALL, "model.attention": "ring"})
-    with pytest.raises(ValueError, match="ring attention is a later slice"):
+    cfg = get_config("bert_mini_v5p16", {**SMALL, "model.attention": "sparse"})
+    with pytest.raises(ValueError, match="unknown attention kind"):
         build_two_tower(cfg, vocab_size=VOCAB, device="cpu")
+    cfg = get_config("bert_mini_v5p16", {**SMALL, "model.attention": "ring"})
+    assert build_two_tower(cfg, vocab_size=VOCAB, device="cpu") is not None
     cfg = get_config("bert_mini_v5p16", {**SMALL, "model.encoder": "cdssm"})
     assert build_two_tower(cfg, vocab_size=VOCAB, device="cpu") is not None

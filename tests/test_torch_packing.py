@@ -322,20 +322,21 @@ def test_trainer_refuses_packing_without_a_transformer_tower(train_data):
 # -- bert_long_sp --------------------------------------------------------------
 
 def test_bert_long_sp_config_and_weights_carry_over():
-    """The port's bert_long_sp has the JAX config's widths; its ring
-    attention is refused by name; with flash attention at one layer, JAX
+    """The port's bert_long_sp has the JAX config's widths and mesh; its
+    ring attention builds (one rank: the flash path); with flash attention
+    at one layer, JAX
     weights (pos_embed [1024, 512]) carry over through convert.py and a
     packed encode equals JAX's at float32."""
     jcfg, tcfg = jax_get_config("bert_long_sp"), get_config("bert_long_sp")
-    for section in ("data", "model", "train"):
+    for section in ("data", "model", "mesh", "train"):
         want, got = getattr(jcfg, section), getattr(tcfg, section)
         for field in type(got).__dataclass_fields__:
             assert getattr(got, field) == getattr(want, field), field
     assert (tcfg.model.num_layers, tcfg.model.model_dim,
             tcfg.model.num_heads, tcfg.data.page_len,
             tcfg.train.batch_size) == (4, 512, 8, 1024, 2048)
-    with pytest.raises(ValueError, match="ring"):
-        build_two_tower(tcfg, vocab_size=VOCAB, device="cpu")
+    ring = build_two_tower(tcfg, vocab_size=VOCAB, device="cpu")
+    assert {m.kind for m in ring.modules() if hasattr(m, "kind")} == {"ring"}
     ov = {"model.attention": "flash", "model.num_layers": 1,
           "model.dtype": "float32", "model.dropout": 0.0}
     jcfg = jax_get_config("bert_long_sp", ov)

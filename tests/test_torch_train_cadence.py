@@ -18,6 +18,7 @@ from dnn_page_vectors_tpu_torch.data.loader import build_tokenizer
 from dnn_page_vectors_tpu_torch.data.toy import ToyCorpus
 from dnn_page_vectors_tpu_torch.train.checkpoint import CheckpointManager
 from dnn_page_vectors_tpu_torch.train.loop import Trainer
+from dnn_page_vectors_tpu_torch.utils import faults
 
 SMALL = {"data.num_pages": 256, "data.vocab_size": 512, "data.page_len": 32,
          "data.query_len": 8, "model.num_layers": 1,
@@ -61,8 +62,11 @@ def test_train_logs_and_checkpoints_on_cadence(tokenizers, tmp_path):
     ckpt = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2)
     last = tr.train(7, ckpt_manager=ckpt)
     assert [h["step"] for h in tr.history] == [2, 4, 6, 7]
+    # fault_counters joins the line once this process counted a fault
+    # (an earlier test's injected one, say), as in the JAX trainer
     assert set(last) == {"loss", "in_batch_acc", "scale", "grad_norm",
-                         "pages_per_sec", "step"}
+                         "pages_per_sec", "pages_per_sec_per_chip", "step",
+                         *(["fault_counters"] if faults.counters() else [])}
     with open(tmp_path / "work" / "metrics.jsonl") as f:
         assert len(f.readlines()) == 4
     assert ckpt.all_steps() == [4, 6]             # max_to_keep, no final save
